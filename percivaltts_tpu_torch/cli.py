@@ -1,0 +1,87 @@
+"""Command-line entry point of the port (counterpart of ``percivaltts_tpu/cli.py``).
+
+Ported so far: ``synth`` up to features. It reads the config, the workdir's
+normalization stats (``in_stats.npz`` / ``out_stats.npz``), the generator
+weights ``<workdir>/generator.npz`` (a flat flax-path ``.npz``, written on a
+host that has jax with ``percivaltts_tpu_torch.weights.save_npz``) and HTS
+label files, and writes one ``<uid>.cmp`` (headerless float32, the format
+``generate --save-features`` writes) per label file. Waveform synthesis
+waits for the vocoder port.
+
+Usage:
+    python -m percivaltts_tpu_torch.cli synth --config cfg.json [--out DIR] labels/*.lab
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+
+import numpy as np
+import torch
+
+from percivaltts_tpu.config import Configuration
+from percivaltts_tpu.utils.logging import print_log
+
+WEIGHTS_FILE = "generator.npz"
+
+
+def cmd_synth(args, device) -> int:
+    """HTS label file(s) → denormalized feature files, no acoustic targets
+    needed."""
+    from percivaltts_tpu.data.hts_labels import QuestionSet, binarize_label_file
+    from percivaltts_tpu.data.normalize import NormStats
+    from percivaltts_tpu.utils.fileio import save_binary_file
+    from percivaltts_tpu_torch import weights
+    from percivaltts_tpu_torch.eval.serve import serve
+    from percivaltts_tpu_torch.models.generators import build_generator
+
+    cfg = Configuration.load(args.config)
+    in_stats = NormStats.load(os.path.join(cfg.workdir, "in_stats.npz"))
+    out_stats = NormStats.load(os.path.join(cfg.workdir, "out_stats.npz"))
+    questions = QuestionSet.from_hed(cfg.data.question_file)
+
+    label_dim = int(in_stats.shift.shape[0])
+    gen = build_generator(cfg.model, cfg.vocoder, label_dim)
+    wpath = os.path.join(cfg.workdir, WEIGHTS_FILE)
+    weights.load_flax_params(gen, weights.load_npz(wpath))
+    gen.to(device).eval()
+    print_log(f"synthesizing features on {device} with weights {wpath}")
+
+    outdir = args.out or os.path.join(cfg.workdir, "synth")
+    os.makedirs(outdir, exist_ok=True)
+    paths = []
+    for pattern in args.labels:
+        paths.extend(sorted(glob.glob(pattern)))
+    if not paths:
+        raise FileNotFoundError(f"no label files match {args.labels}")
+    shift_sec = cfg.vocoder.shift_ms / 1000.0
+    labs = [binarize_label_file(p, questions, shift_sec) for p in paths]
+    feats = serve(gen, labs, in_stats, out_stats)
+    for p, f in zip(paths, feats):
+        uid = os.path.splitext(os.path.basename(p))[0]
+        out_path = os.path.join(outdir, uid + ".cmp")
+        save_binary_file(out_path, np.asarray(f, np.float32))
+        print_log(f"{p} → {out_path} ({f.shape[0]} frames × {f.shape[1]})")
+    print_log("wav synthesis waits for the vocoder port (ROADMAP: vocoder DSP)")
+    return 0
+
+
+def main(argv=None, device="cuda") -> int:
+    """``device``: where the generator runs. The command line runs on the
+    card; the Python API lets a caller name another device explicitly."""
+    p = argparse.ArgumentParser(prog="percivaltts-tpu-torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    ps = sub.add_parser("synth", help="label files → feature files (pure inference)")
+    ps.add_argument("--config", required=True)
+    ps.add_argument("--out", default=None)
+    ps.add_argument("labels", nargs="+", help="label file paths or globs")
+    ps.set_defaults(fn=cmd_synth)
+    args = p.parse_args(argv)
+    return args.fn(args, torch.device(device))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

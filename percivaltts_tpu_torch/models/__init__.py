@@ -1,0 +1,9 @@
+from percivaltts_tpu_torch.models.generators import (  # noqa: F401
+    CNNGenerator,
+    build_generator,
+)
+from percivaltts_tpu_torch.models.base import (  # noqa: F401
+    count_params,
+    predict_batch,
+    predict_utterance,
+)

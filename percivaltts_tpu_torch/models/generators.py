@@ -1,0 +1,190 @@
+"""Generators (counterpart of ``percivaltts_tpu/models/generators.py``).
+
+Ported: ``CNNGenerator`` with ``conv_style="time1d"``, with or without the
+BiLSTM f0 head, and ``build_generator`` for ``"cnn"`` / ``"cnn_blstm"``.
+Layer names are the flax module names (``trunk_0``, ``spec_conv0a``,
+``f0_blstm``, …) so ``weights.py`` maps one tree onto the other by path.
+
+Parity notes, each pinned by a test:
+* flax ``nn.gelu`` is the tanh approximation; torch's default GELU is erf.
+* flax Conv is channels-last with ``SAME`` padding (lo = (k-1)//2); here
+  the conv stack runs on (B, C, T) with that padding made explicit.
+* streams are concatenated in their start order, then cast to float32.
+* Like flax ``dtype=dt, param_dtype=pdt`` layers, parameters are stored in
+  the param dtype and cast to the compute dtype at each call.
+
+Inference only: ``ModelConfig.dropout_rate`` is inactive here, as in the JAX
+package's eval mode; training is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from percivaltts_tpu.config import ModelConfig, VocoderConfig
+from percivaltts_tpu_torch.models.base import dtype_by_name, lecun_normal_
+from percivaltts_tpu_torch.models.rnn import BiLSTM
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu`` (approximate=True)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _new_dense(in_dim: int, out_dim: int, dtype, generator) -> nn.Linear:
+    lin = nn.Linear(in_dim, out_dim, dtype=dtype)
+    lecun_normal_(lin.weight.data, in_dim, generator)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+def _new_conv1d(channels_in: int, channels_out: int, k: int, dtype, generator) -> nn.Conv1d:
+    conv = nn.Conv1d(channels_in, channels_out, k, dtype=dtype)
+    lecun_normal_(conv.weight.data, k * channels_in, generator)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
+class CNNGenerator(nn.Module):
+    """Dense tanh trunk → residual time-1D conv blocks → per-stream heads
+    (an f0 head, optionally behind a BiLSTM; the spectral stream from the
+    conv stack; small dense heads for vuv and nm/bap)."""
+
+    def __init__(
+        self,
+        vocoder: VocoderConfig,
+        label_dim: int,
+        hidden_size: int = 256,
+        trunk_layers: int = 2,
+        blocks: int = 4,
+        kernel: Tuple[int, int] = (5, 5),
+        conv_style: str = "time1d",
+        use_blstm_heads: bool = False,
+        blstm_size: int = 128,
+        compute_dtype: str = "bfloat16",
+        param_dtype: str = "float32",
+        norm: str = "none",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if conv_style != "time1d":
+            raise NotImplementedError(
+                f"conv_style={conv_style!r} is not ported yet (ROADMAP: "
+                "modules still to port, models)"
+            )
+        if norm != "none":
+            raise NotImplementedError(
+                f"gen_norm={norm!r} is not ported yet (ROADMAP: modules still "
+                "to port, models)"
+            )
+        g = generator or torch.Generator().manual_seed(0)
+        pdt = dtype_by_name(param_dtype)
+        self.compute_dtype = dtype_by_name(compute_dtype)
+        self.streams = dict(vocoder.streams)
+        self.trunk_layers = trunk_layers
+        self.blocks = blocks
+        self.kernel_time = kernel[0]
+        Hd = hidden_size
+
+        d = label_dim
+        for i in range(trunk_layers):
+            self.add_module(f"trunk_{i}", _new_dense(d, Hd, pdt, g))
+            d = Hd
+        self.f0_blstm = None
+        if "f0" in self.streams:
+            f0_in = Hd
+            if use_blstm_heads:
+                self.f0_blstm = BiLSTM(Hd, blstm_size, compute_dtype, param_dtype, generator=g)
+                f0_in = 2 * blstm_size
+            self.f0_out = _new_dense(f0_in, 1, pdt, g)
+        if "vuv" in self.streams:
+            self.vuv_out = _new_dense(Hd, 1, pdt, g)
+        self.spec_key = "spec" if "spec" in self.streams else "mel"
+        a, b = self.streams[self.spec_key]
+        for i in range(blocks):
+            self.add_module(f"spec_conv{i}a", _new_conv1d(Hd, Hd, self.kernel_time, pdt, g))
+            self.add_module(f"spec_conv{i}b", _new_conv1d(Hd, Hd, self.kernel_time, pdt, g))
+        self.spec_out = _new_dense(Hd, b - a, pdt, g)
+        for name in ("nm", "bap"):
+            if name in self.streams:
+                a, b = self.streams[name]
+                self.add_module(f"{name}_hidden", _new_dense(Hd, Hd // 2, pdt, g))
+                self.add_module(f"{name}_out", _new_dense(Hd // 2, b - a, pdt, g))
+
+    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        lin = getattr(self, name)
+        dt = self.compute_dtype
+        return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, T) → (B, C, T); flax ``SAME`` padding at stride 1."""
+        conv = getattr(self, name)
+        dt = self.compute_dtype
+        k = self.kernel_time
+        x = F.pad(x, ((k - 1) // 2, k - 1 - (k - 1) // 2))
+        return F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt))
+
+    def forward(self, lab: torch.Tensor) -> torch.Tensor:
+        """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32."""
+        x = lab.to(self.compute_dtype)
+        for i in range(self.trunk_layers):
+            x = torch.tanh(self._dense(f"trunk_{i}", x))
+
+        outs = {}
+        if "f0" in self.streams:
+            h = x if self.f0_blstm is None else self.f0_blstm(x)
+            outs["f0"] = self._dense("f0_out", h)
+        if "vuv" in self.streams:
+            outs["vuv"] = self._dense("vuv_out", x)
+
+        h = x.transpose(1, 2)  # (B, C, T) for the time convs
+        for i in range(self.blocks):
+            r = self._conv(f"spec_conv{i}a", gelu(h))
+            r = self._conv(f"spec_conv{i}b", gelu(r))
+            h = h + r
+        outs[self.spec_key] = self._dense("spec_out", h.transpose(1, 2))
+
+        for name in ("nm", "bap"):
+            if name in self.streams:
+                hn = torch.tanh(self._dense(f"{name}_hidden", x))
+                outs[name] = self._dense(f"{name}_out", hn)
+
+        order = sorted(self.streams.items(), key=lambda kv: kv[1][0])
+        return torch.cat([outs[n] for n, _ in order], dim=-1).float()
+
+
+def build_generator(
+    model_cfg: ModelConfig,
+    vocoder: VocoderConfig,
+    label_dim: int,
+    generator: Optional[torch.Generator] = None,
+) -> nn.Module:
+    """Config → generator module, its parameters drawn on the CPU from
+    ``generator`` (seed 0 when omitted) with flax's init rules; move it to
+    the device with ``.to(device)``."""
+    kind = model_cfg.generator
+    if kind in ("cnn", "cnn_blstm"):
+        return CNNGenerator(
+            vocoder=vocoder,
+            label_dim=label_dim,
+            hidden_size=model_cfg.hidden_size,
+            blocks=model_cfg.cnn_blocks,
+            kernel=(model_cfg.cnn_kernel_time, model_cfg.cnn_kernel_freq),
+            conv_style=model_cfg.conv_style,
+            use_blstm_heads=(kind == "cnn_blstm"),
+            blstm_size=model_cfg.blstm_size // 2,
+            compute_dtype=model_cfg.compute_dtype,
+            param_dtype=model_cfg.param_dtype,
+            norm=model_cfg.gen_norm,
+            generator=generator,
+        )
+    if kind in ("fc", "blstm", "bgru"):
+        raise NotImplementedError(
+            f"generator={kind!r} is not ported yet (ROADMAP: modules still to "
+            "port, models)"
+        )
+    raise ValueError(f"unknown generator kind: {kind}")

@@ -1,0 +1,105 @@
+"""Flax parameter tree ↔ the port's modules.
+
+The JAX package's generator parameters, as a nested dict of numpy arrays
+(``jax.tree.map(np.asarray, params)``, made by the caller on a host that has
+jax), are flattened to ``/``-joined flax paths such as ``trunk_0/kernel`` or
+``f0_blstm/fwd/hi`` and copied into the port's modules:
+
+* Dense kernel (in, out)      → ``nn.Linear.weight`` (out, in)
+* Conv kernel (k, in, out)    → ``nn.Conv1d.weight`` (out, in, k)
+* LSTM per-gate ``i{c}`` / ``h{c}`` / ``b{c}`` → ``wi`` / ``wh`` / ``b``,
+  concatenated in gate order i, f, g, o
+
+A missing or an unused key raises. The same flat mapping is what
+``save_npz`` writes and ``load_npz`` reads — the weights file of the port's
+``cli synth``.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Callable, Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from percivaltts_tpu_torch.models.rnn import LSTMDirParams
+
+_GATES = "ifgo"
+
+Entry = Tuple[List[str], torch.nn.Parameter, Callable[[List[np.ndarray]], np.ndarray]]
+
+
+def flatten(params: Mapping) -> Dict[str, np.ndarray]:
+    """Nested flax tree (optionally under a single ``params`` key) → flat
+    ``{"a/b/c": array}``. An already-flat mapping passes through."""
+    if set(params) == {"params"} and isinstance(params["params"], Mapping):
+        params = params["params"]
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, path)
+            else:
+                flat[path] = np.asarray(v)
+
+    walk(params, "")
+    return flat
+
+
+def save_npz(path: str, params: Mapping) -> None:
+    """Write a flax tree (nested or flat) as a flat ``.npz`` keyed by path."""
+    np.savez(path, **flatten(params))
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _entries(model: nn.Module) -> Iterator[Entry]:
+    for name, mod in model.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(mod, nn.Linear):
+            yield [f"{path}/kernel"], mod.weight, lambda a: a[0].T
+            yield [f"{path}/bias"], mod.bias, lambda a: a[0]
+        elif isinstance(mod, nn.Conv1d):
+            yield [f"{path}/kernel"], mod.weight, lambda a: a[0].transpose(2, 1, 0)
+            yield [f"{path}/bias"], mod.bias, lambda a: a[0]
+        elif isinstance(mod, LSTMDirParams):
+            cat = lambda a: np.concatenate(a, axis=-1)  # noqa: E731
+            yield [f"{path}/i{c}" for c in _GATES], mod.wi, cat
+            yield [f"{path}/h{c}" for c in _GATES], mod.wh, cat
+            yield [f"{path}/b{c}" for c in _GATES], mod.b, cat
+
+
+def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """Copy a flax parameter tree (nested, or flat as from ``load_npz``) into
+    ``model`` in place. Raises ``KeyError`` on a key the model needs that the
+    tree lacks, ``ValueError`` on a key the model does not use or a shape
+    that does not match."""
+    flat = flatten(params)
+    entries = list(_entries(model))
+    covered = {id(p) for _, p, _ in entries}
+    stray = [n for n, p in model.named_parameters() if id(p) not in covered]
+    if stray:
+        raise TypeError(f"no flax mapping for parameters {stray}")
+    missing = sorted(k for keys, _, _ in entries for k in keys if k not in flat)
+    if missing:
+        raise KeyError(f"flax tree lacks {missing}")
+    used = {k for keys, _, _ in entries for k in keys}
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise ValueError(f"flax tree has keys the model does not use: {unused}")
+    with torch.no_grad():
+        for keys, param, convert in entries:
+            value = np.ascontiguousarray(convert([flat[k] for k in keys]))
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(
+                    f"{keys[0]}: converted shape {value.shape} != {tuple(param.shape)}"
+                )
+            param.copy_(torch.from_numpy(value.astype(np.float32)))
+    return model
