@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, which is loaded with ``ctypes`` (no PyTorch headers: the
-build takes seconds, not minutes). The library lives under ``build/kernels/``
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) and the objects are linked into one shared library with a plain C
+interface, which is loaded with ``ctypes`` (no PyTorch headers: the build
+takes seconds, not minutes). The library lives under ``build/kernels/``
 at the root of the checkout and is rebuilt at first use and whenever a source
 is newer than it. Nothing here runs at import time.
 """
@@ -24,9 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "libpercival_torch_kernels.so"
 
 # sm_90a: the Hopper target that also admits wgmma/setmaxnreg in later kernels
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills per kernel in the log
 )
 
@@ -64,33 +66,41 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently; their joined output, or raise on the
+    first that failed (after all have ended)."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(force: bool = False) -> BuildResult:
     """Compile ``csrc/*.cu`` into ``LIBRARY`` when it is missing or older
-    than a source (always when ``force``). The library is written to a
-    temporary name and renamed into place, so a concurrent loader never sees
-    a half-written file."""
+    than a source (always when ``force``): one ``nvcc -c`` per source, all
+    at once, then one link. Objects and library are written under temporary
+    names and the library is renamed into place, so a concurrent loader
+    never sees a half-written file."""
     if not force and not _stale():
         return BuildResult(LIBRARY, 0.0, "")
     srcs = sources()
     if not srcs:
         raise FileNotFoundError(f"no CUDA sources under {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildResult(LIBRARY, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, LIBRARY.name)
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIBRARY)
+    return BuildResult(LIBRARY, time.perf_counter() - t0, log)
 
 
 @functools.cache
@@ -102,6 +112,8 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.percival_bilstm_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.percival_bilstm_fwd.restype = i
+    lib.percival_bilstm_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
+    lib.percival_bilstm_bwd.restype = i
     lib.percival_cuda_error_string.argtypes = [i]
     lib.percival_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -39,34 +39,15 @@
 //     stream, and the launcher returns cudaGetLastError().
 // mma.sync / wgmma and splitting the 4H columns over a cluster are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstddef>
+
+#include "lstm_common.cuh"
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's astype
-}
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+using percival::from_f32;
+using percival::sigmoid_f32;
+using percival::to_f32;
 
 // grid = (ceil(B / R), 2 directions), block = 4H threads.
 // Dynamic shared memory: s_h (R·H f32) | s_z (R·4H f32) | s_w (H·4H dt, if W_SMEM).
@@ -170,11 +151,8 @@ template <typename T, int R>
 cudaError_t launch(const void* gx_f, const void* gx_b, const void* wh_f,
                    const void* wh_b, void* y_f, void* y_b, void* c_f, void* c_b,
                    int n_steps, int B, int H, cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
   int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = percival::smem_optin_bytes(&smem_optin);
   if (err != cudaSuccess) return err;
 
   const size_t base = (size_t)(R * H + R * 4 * H) * sizeof(float);

@@ -2,6 +2,10 @@ from percivaltts_tpu_torch.models.generators import (  # noqa: F401
     CNNGenerator,
     build_generator,
 )
+from percivaltts_tpu_torch.models.critic import (  # noqa: F401
+    Critic,
+    build_critic,
+)
 from percivaltts_tpu_torch.models.base import (  # noqa: F401
     count_params,
     predict_batch,

@@ -13,8 +13,11 @@ Parity notes, each pinned by a test:
 * Like flax ``dtype=dt, param_dtype=pdt`` layers, parameters are stored in
   the param dtype and cast to the compute dtype at each call.
 
-Inference only: ``ModelConfig.dropout_rate`` is inactive here, as in the JAX
-package's eval mode; training is a later slice.
+``forward(lab, train=True, generator=g)`` is training mode: with
+``ModelConfig.dropout_rate`` > 0, inverted dropout follows each trunk Dense
+(before its tanh), as flax ``nn.Dropout`` in the JAX package's ``_reg``,
+its keep mask drawn from the explicit ``torch.Generator`` ``g``. Eval mode
+(the default) never drops.
 """
 
 from __future__ import annotations
@@ -33,6 +36,16 @@ from percivaltts_tpu_torch.models.rnn import BiLSTM
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu`` (approximate=True)."""
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training mode: keep each element with
+    probability 1 − rate and scale the kept ones by 1 / (1 − rate)."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _new_dense(in_dim: int, out_dim: int, dtype, generator) -> nn.Linear:
@@ -68,6 +81,7 @@ class CNNGenerator(nn.Module):
         compute_dtype: str = "bfloat16",
         param_dtype: str = "float32",
         norm: str = "none",
+        dropout_rate: float = 0.0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -86,6 +100,7 @@ class CNNGenerator(nn.Module):
         self.compute_dtype = dtype_by_name(compute_dtype)
         self.streams = dict(vocoder.streams)
         self.trunk_layers = trunk_layers
+        self.dropout_rate = dropout_rate
         self.blocks = blocks
         self.kernel_time = kernel[0]
         Hd = hidden_size
@@ -128,11 +143,24 @@ class CNNGenerator(nn.Module):
         x = F.pad(x, ((k - 1) // 2, k - 1 - (k - 1) // 2))
         return F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt))
 
-    def forward(self, lab: torch.Tensor) -> torch.Tensor:
-        """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32."""
+    def forward(
+        self,
+        lab: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
+        ``train`` turns dropout on; it then draws from ``generator``, which
+        must lie on the labels' device."""
+        drop = train and self.dropout_rate > 0.0
+        if drop and generator is None:
+            raise ValueError("training-mode dropout needs an explicit torch.Generator")
         x = lab.to(self.compute_dtype)
         for i in range(self.trunk_layers):
-            x = torch.tanh(self._dense(f"trunk_{i}", x))
+            x = self._dense(f"trunk_{i}", x)
+            if drop:
+                x = dropout(x, self.dropout_rate, generator)
+            x = torch.tanh(x)
 
         outs = {}
         if "f0" in self.streams:
@@ -180,6 +208,7 @@ def build_generator(
             compute_dtype=model_cfg.compute_dtype,
             param_dtype=model_cfg.param_dtype,
             norm=model_cfg.gen_norm,
+            dropout_rate=model_cfg.dropout_rate,
             generator=generator,
         )
     if kind in ("fc", "blstm", "bgru"):

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from percivaltts_tpu_torch.models.base import dtype_by_name, lecun_normal_
-from percivaltts_tpu_torch.ops.lstm_cuda import bilstm, bilstm_fwd
+from percivaltts_tpu_torch.ops.lstm_cuda import bilstm, bilstm_core
 
 _GATES = "ifgo"
 
@@ -62,9 +62,11 @@ class BiLSTM(nn.Module):
         self.compute_dtype = dtype_by_name(compute_dtype)
         self.fwd = LSTMDirParams(in_dim, features, pdt, generator)
         self.bwd = LSTMDirParams(in_dim, features, pdt, generator)
-        # the recurrence: the kernel wrapper (tests and chip_smoke.py swap in
-        # ops.lstm_cuda.bilstm_fwd_reference to compare against it)
-        self.core = bilstm_fwd
+        # the recurrence: the forward kernel, paired with the BPTT kernel when
+        # a gradient is needed (tests and chip_smoke.py swap in
+        # ops.lstm_cuda.bilstm_core_reference, or bilstm_fwd_reference under
+        # no_grad, to compare against the plain twins)
+        self.core = bilstm_core
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

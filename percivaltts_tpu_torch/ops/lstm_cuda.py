@@ -1,22 +1,27 @@
-"""Fused bidirectional LSTM forward: the CUDA kernel and its plain twin.
+"""Fused bidirectional LSTM, forward and BPTT: the CUDA kernels, their plain
+twins, and the autograd function that pairs them.
 
-Counterpart of the forward half of ``percivaltts_tpu/ops/lstm_pallas.py``
-(``_fwd_kernel`` / ``_bilstm_fwd_pallas``, ``bilstm_core``, ``bilstm_pallas``).
-Same time-major ``(T, B, 4H)`` gate layout, gate order i, f, g, o, f32
-carries, and ``h`` rounded to the compute dtype before the recurrent product.
+Counterpart of ``percivaltts_tpu/ops/lstm_pallas.py`` (``_fwd_kernel`` /
+``_bilstm_fwd_pallas``, ``_bwd_kernel`` / ``_bilstm_bwd_pallas``, the
+``bilstm_core`` custom VJP, ``bilstm_pallas``). Same time-major
+``(T, B, 4H)`` gate layout, gate order i, f, g, o, f32 carries, ``h``
+rounded to the compute dtype before the recurrent product, and ``dz``
+rounded to it before it is stored and multiplied.
 
-``bilstm_fwd`` dispatches on where its tensors lie: CUDA tensors launch
-``csrc/bilstm_fwd.cu`` (or raise), CPU tensors take ``bilstm_fwd_reference``.
-There is no other fallback. The kernel has no backward yet (the BPTT kernel
-is a later slice), so the CUDA path refuses inputs that require a gradient.
+``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
+tensors launch ``csrc/bilstm_fwd.cu`` / ``csrc/bilstm_bwd.cu`` (or raise),
+CPU tensors take ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There
+is no other fallback. ``bilstm_core`` is the differentiable entry: it runs
+the forward kernel, and the BPTT kernel in the backward pass.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS = (1, 2, 4, 8)  # batch rows per block the kernel is instantiated for
+_ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
 
 
 def _gates(z: torch.Tensor, H: int):
@@ -25,8 +30,8 @@ def _gates(z: torch.Tensor, H: int):
 
 
 def bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
-    """Plain PyTorch twin of the kernel: ``(T, B, 4H)`` input gates per
-    direction and ``(H, 4H)`` recurrent kernels → ``(y_f, y_b)`` (and
+    """Plain PyTorch twin of the forward kernel: ``(T, B, 4H)`` input gates
+    per direction and ``(H, 4H)`` recurrent kernels → ``(y_f, y_b)`` (and
     ``(c_f, c_b)`` when ``with_cells``), each ``(T, B, H)`` in the compute
     dtype. ``y_b[t]`` is the backward direction's state at frame t."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
@@ -54,6 +59,48 @@ def bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     return (yf, yb, cf, cb) if with_cells else (yf, yb)
 
 
+def bilstm_bwd_reference(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b,
+                         c_f, c_b, dy_f, dy_b):
+    """Plain PyTorch twin of the BPTT kernel (``_bwd_kernel``): the saved
+    input gates and recurrent kernels, the previous states ``hp`` / ``cp``
+    (t−1 for the forward direction, t+1 for the backward one), the cells
+    ``c`` and the output gradients ``dy`` (each ``(T, B, H)``) →
+    ``(dgx_f, dgx_b)``, ``(T, B, 4H)`` in the compute dtype. Gates are
+    recomputed from ``gx + hp·W_h``; dh and dc are carried in f32."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b)
+    _check_states(gx_f, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
+    T, B, G = gx_f.shape
+    H = G // 4
+    dt = gx_f.dtype
+    outs = []
+    for gx, wh, hp, cp, cs, dy, steps in (
+        (gx_f, wh_f, hp_f, cp_f, c_f, dy_f, range(T - 1, -1, -1)),
+        (gx_b, wh_b, hp_b, cp_b, c_b, dy_b, range(T)),
+    ):
+        w = wh.float()
+        dh_carry = gx.new_zeros((B, H), dtype=torch.float32)
+        dc_carry = torch.zeros_like(dh_carry)
+        dgx = torch.empty_like(gx)
+        for t in steps:
+            z = gx[t].float() + hp[t].float() @ w
+            i, f, g, o = _gates(z, H)
+            c, cprev = cs[t].float(), cp[t].float()
+            tc = torch.tanh(c)
+            dh = dy[t].float() + dh_carry
+            dc = dc_carry + dh * o * (1.0 - tc * tc)
+            dz = torch.cat([
+                dc * g * i * (1.0 - i),
+                dc * cprev * f * (1.0 - f),
+                dc * i * (1.0 - g * g),
+                dh * tc * o * (1.0 - o),
+            ], dim=-1).to(dt)
+            dgx[t] = dz
+            dh_carry = dz.float() @ w.T
+            dc_carry = dc * f
+        outs.append(dgx)
+    return outs[0], outs[1]
+
+
 def _check_shapes(gx_f, gx_b, wh_f, wh_b) -> None:
     if gx_f.dim() != 3 or gx_f.shape[-1] % 4 or min(gx_f.shape) < 1:
         raise ValueError(f"gx_f must be (T, B, 4H) with T, B, H >= 1, got {tuple(gx_f.shape)}")
@@ -65,7 +112,39 @@ def _check_shapes(gx_f, gx_b, wh_f, wh_b) -> None:
             raise ValueError(f"{name} must be ({H}, {4 * H}), got {tuple(w.shape)}")
     dts = {t.dtype for t in (gx_f, gx_b, wh_f, wh_b)}
     if len(dts) != 1 or gx_f.dtype not in _DTYPE_CODES:
-        raise TypeError(f"bilstm_fwd takes one dtype of float32/bfloat16, got {dts}")
+        raise TypeError(f"the BiLSTM takes one dtype of float32/bfloat16, got {dts}")
+
+
+def _check_states(gx_f, *states) -> None:
+    T, B, G = gx_f.shape
+    for s in states:
+        if tuple(s.shape) != (T, B, G // 4):
+            raise ValueError(f"states must be {(T, B, G // 4)}, got {tuple(s.shape)}")
+        if s.dtype != gx_f.dtype:
+            raise TypeError(f"states must be {gx_f.dtype}, got {s.dtype}")
+
+
+def _one_device(name: str, tensors) -> torch.device:
+    """The one device of ``tensors``; raises on several devices, on a device
+    other than cuda/cpu, and on non-contiguous CUDA tensors or CUDA tensors
+    that require a gradient under grad mode (a kernel's output carries no
+    graph: the differentiable entry is :func:`bilstm_core`)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous CUDA inputs")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} launches a kernel without an autograd graph; inputs that "
+            "require a gradient go through ops.lstm_cuda.bilstm_core"
+        )
+    return device
 
 
 def rows_per_block(B: int, n_sm: int) -> int:
@@ -78,52 +157,42 @@ def rows_per_block(B: int, n_sm: int) -> int:
     return _ROWS[-1]
 
 
+def _launch_geometry(device, B: int, H: int):
+    if 4 * H > 1024:  # one thread per gate column
+        raise ValueError(f"the CUDA BiLSTM takes H <= 256, got H={H}")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
+
+
 def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     """Both LSTM directions over precomputed input gates, in one launch.
 
     CUDA tensors launch the hand-written kernel; CPU tensors run
     :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, non-contiguous CUDA inputs,
-    CUDA inputs that require a gradient, or a launch error. Every launch
-    adds one to ``bilstm_fwd.launches``."""
+    CUDA inputs that require a gradient under grad mode, or a launch error.
+    Every launch adds one to ``bilstm_fwd.launches``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
-    devices = {t.device for t in (gx_f, gx_b, wh_f, wh_b)}
-    if len(devices) != 1:
-        raise ValueError(f"bilstm_fwd inputs lie on several devices: {devices}")
-    device = gx_f.device
+    device = _one_device("bilstm_fwd", (gx_f, gx_b, wh_f, wh_b))
     if device.type == "cpu":
         return bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells)
-    if device.type != "cuda":
-        raise ValueError(f"bilstm_fwd runs on cuda or cpu tensors, got {device}")
-    if not all(t.is_contiguous() for t in (gx_f, gx_b, wh_f, wh_b)):
-        raise ValueError("bilstm_fwd needs contiguous CUDA inputs")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (gx_f, gx_b, wh_f, wh_b)
-    ):
-        raise NotImplementedError(
-            "the CUDA BiLSTM has no backward kernel yet (ROADMAP: TPU kernels "
-            "still to port, #2 _bwd_kernel); run it under torch.no_grad()"
-        )
 
     from percivaltts_tpu_torch import _build
 
     lib = _build.library()
     T, B, G = gx_f.shape
     H = G // 4
-    if G > 1024:  # one thread per gate column
-        raise ValueError(f"the CUDA BiLSTM takes H <= 256, got H={H}")
+    rows, stream = _launch_geometry(device, B, H)
     new = lambda: torch.empty((T, B, H), dtype=gx_f.dtype, device=device)  # noqa: E731
     yf, yb = new(), new()
     cf, cb = (new(), new()) if with_cells else (None, None)
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         err = lib.percival_bilstm_fwd(
             gx_f.data_ptr(), gx_b.data_ptr(), wh_f.data_ptr(), wh_b.data_ptr(),
             yf.data_ptr(), yb.data_ptr(),
             cf.data_ptr() if with_cells else None,
             cb.data_ptr() if with_cells else None,
-            T, B, H, _DTYPE_CODES[gx_f.dtype], rows_per_block(B, n_sm),
-            torch.cuda.current_stream(device).cuda_stream,
+            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
         )
     _build.check(err, "bilstm_fwd launch")
     bilstm_fwd.launches += 1
@@ -133,11 +202,100 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 bilstm_fwd.launches = 0
 
 
-def bilstm(x, wi_f, wh_f, b_f, wi_b, wh_b, b_b, core=bilstm_fwd):
+def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b):
+    """BPTT for both directions in one launch → ``(dgx_f, dgx_b)``.
+
+    Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch the
+    hand-written kernel; CPU tensors run the twin. Raises on mixed devices,
+    dtypes, or shapes, non-contiguous CUDA inputs, CUDA inputs that require
+    a gradient under grad mode, H not a multiple of 8 on CUDA, or a launch
+    error. Every launch adds one to ``bilstm_bwd.launches``."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b)
+    states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
+    _check_states(gx_f, *states)
+    device = _one_device("bilstm_bwd", (gx_f, gx_b, wh_f, wh_b, *states))
+    if device.type == "cpu":
+        return bilstm_bwd_reference(gx_f, gx_b, wh_f, wh_b, *states)
+
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    T, B, G = gx_f.shape
+    H = G // 4
+    if H % 8:  # the dz·W_hᵀ reduction runs on whole warps of the 4H threads
+        raise ValueError(f"the CUDA BPTT takes H a multiple of 8, got H={H}")
+    rows, stream = _launch_geometry(device, B, H)
+    dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
+    ins = (gx_f, gx_b, wh_f, wh_b, *states)
+    with torch.cuda.device(device):
+        err = lib.percival_bilstm_bwd(
+            *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
+            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+        )
+    _build.check(err, "bilstm_bwd launch")
+    bilstm_bwd.launches += 1
+    return dgx_f, dgx_b
+
+
+bilstm_bwd.launches = 0
+
+
+class BiLSTMFunction(torch.autograd.Function):
+    """The forward kernel with the BPTT kernel as its backward (the
+    ``bilstm_core`` custom VJP, ``lstm_pallas.py:364-400``). ``fwd`` / ``bwd``
+    are the kernel wrappers or their plain twins. The backward is first
+    order only: the gradient penalty's double backward runs through the
+    critic, never through the generator."""
+
+    @staticmethod
+    def forward(ctx, gx_f, gx_b, wh_f, wh_b, fwd, bwd):
+        yf, yb, cf, cb = fwd(gx_f, gx_b, wh_f, wh_b, with_cells=True)
+        ctx.save_for_backward(gx_f, gx_b, wh_f, wh_b, yf, yb, cf, cb)
+        ctx.bwd = bwd
+        return yf, yb
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dyf, dyb):
+        gx_f, gx_b, wh_f, wh_b, yf, yb, cf, cb = ctx.saved_tensors
+        # an output that fed nothing has no gradient; the slices of the
+        # (T, B, 2H) concatenation arrive non-contiguous
+        dyf = torch.zeros_like(yf) if dyf is None else dyf.contiguous()
+        dyb = torch.zeros_like(yb) if dyb is None else dyb.contiguous()
+        z = torch.zeros_like(yf[:1])
+        # "previous" state per direction: t-1 for fwd, t+1 for bwd
+        hp_f = torch.cat([z, yf[:-1]])
+        cp_f = torch.cat([z, cf[:-1]])
+        hp_b = torch.cat([yb[1:], z])
+        cp_b = torch.cat([cb[1:], z])
+        dgx_f, dgx_b = ctx.bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b,
+                               cf, cb, dyf, dyb)
+        # dW_h = Σ_t h_prevᵀ·dz: one (H, T·B)×(T·B, 4H) GEMM outside the kernel
+        H = wh_f.shape[0]
+        dwh_f = hp_f.reshape(-1, H).T @ dgx_f.reshape(-1, 4 * H)
+        dwh_b = hp_b.reshape(-1, H).T @ dgx_b.reshape(-1, 4 * H)
+        return dgx_f, dgx_b, dwh_f.to(wh_f.dtype), dwh_b.to(wh_b.dtype), None, None
+
+
+def bilstm_core(gx_f, gx_b, wh_f, wh_b, fwd=bilstm_fwd, bwd=bilstm_bwd):
+    """The recurrence, differentiable: through :class:`BiLSTMFunction` when
+    grad mode is on and an input requires a gradient, else ``fwd`` alone."""
+    args = (gx_f, gx_b, wh_f, wh_b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return BiLSTMFunction.apply(*args, fwd, bwd)
+    return fwd(*args)
+
+
+def bilstm_core_reference(gx_f, gx_b, wh_f, wh_b):
+    """:func:`bilstm_core` on the plain twins of both kernels."""
+    return bilstm_core(gx_f, gx_b, wh_f, wh_b, bilstm_fwd_reference, bilstm_bwd_reference)
+
+
+def bilstm(x, wi_f, wh_f, b_f, wi_b, wh_b, b_b, core=bilstm_core):
     """``(B, T, D)`` → ``(B, T, 2H)`` fused bidirectional LSTM
     (``bilstm_pallas``). The input projections ``x @ W_i + b`` are plain
     GEMMs outside the recurrence, as in the JAX package; ``core`` runs the
-    recurrence (the kernel wrapper; tests substitute the plain twin)."""
+    recurrence (tests and the smoke run substitute the plain twins)."""
     gx_f = (x @ wi_f + b_f).transpose(0, 1).contiguous()  # (T, B, 4H)
     gx_b = (x @ wi_b + b_b).transpose(0, 1).contiguous()
     yf, yb = core(gx_f, gx_b, wh_f.contiguous(), wh_b.contiguous())

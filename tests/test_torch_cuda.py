@@ -6,14 +6,24 @@ Imports no jax, so it runs on a machine that has only PyTorch:
 
 (``--noconftest``: the suite's conftest configures jax.) Tolerances: f32
 1e-4 (sums and transcendentals in another order); bf16 2e-2 (bf16 outputs,
-and h rounded to bf16 before each product, so a one-ulp flip is carried).
+and h rounded to bf16 before each product, so a one-ulp flip is carried);
+for the BPTT kernel in bf16, 2e-2 of max|dgx| (dz is rounded to bf16 and
+fed back through dh).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from percivaltts_tpu_torch.ops.lstm_cuda import bilstm, bilstm_fwd, bilstm_fwd_reference
+from percivaltts_tpu_torch.ops.lstm_cuda import (
+    bilstm,
+    bilstm_bwd,
+    bilstm_bwd_reference,
+    bilstm_core,
+    bilstm_core_reference,
+    bilstm_fwd,
+    bilstm_fwd_reference,
+)
 
 
 @pytest.fixture
@@ -73,5 +83,109 @@ def test_kernel_refuses_grad_mixed_devices_strides_and_width(cuda_device):
     with pytest.raises(ValueError, match="H <= 256"):
         bilstm_fwd(*_gates(2, 1, 264, torch.float32, cuda_device, seed=3))
     args[2].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="bilstm_core"):
         bilstm_fwd(*args)
+    with torch.no_grad():
+        bilstm_fwd(*args)  # no graph wanted: the kernel runs
+
+
+def _bwd_args(T, B, H, dtype, device, seed):
+    gx_f, gx_b, wh_f, wh_b = _gates(T, B, H, dtype, device, seed)
+    with torch.no_grad():
+        yf, yb, cf, cb = bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells=True)
+    z = torch.zeros_like(yf[:1])
+    dy = torch.from_numpy(np.random.default_rng(seed).normal(size=(2, T, B, H)).astype(np.float32))
+    dy = dy.to(device=device, dtype=dtype)
+    return [gx_f, gx_b, wh_f, wh_b, torch.cat([z, yf[:-1]]), torch.cat([yb[1:], z]),
+            torch.cat([z, cf[:-1]]), torch.cat([cb[1:], z]), cf, cb, dy[0], dy[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64),
+                                   (40, 160, 128)])
+def test_bwd_kernel_matches_reference(cuda_device, dtype, T, B, H):
+    args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
+    before = bilstm_bwd.launches
+    got = bilstm_bwd(*args)
+    want = bilstm_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert bilstm_bwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (T, B, 4 * H)
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= (2e-2 * scale if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype):
+    base = _gates(96, 6, 64, dtype, cuda_device, seed=11)
+    dy = _bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
+    grads = []
+    for core in (bilstm_core, bilstm_core_reference):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        f0, b0 = bilstm_fwd.launches, bilstm_bwd.launches
+        yf, yb = core(*leaves)
+        torch.autograd.backward((yf, yb), dy)
+        torch.cuda.synchronize()
+        launched = (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0)
+        assert launched == ((1, 1) if core is bilstm_core else (0, 0))
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        scale = w.float().abs().max().item()
+        tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
+        assert g.dtype == dtype and (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_refuses_strides_dtypes_shapes_grad_and_width(cuda_device):
+    args = _bwd_args(8, 2, 32, torch.float32, cuda_device, seed=3)
+    bad_stride = args[:10] + [args[10].transpose(0, 1).contiguous().transpose(0, 1), args[11]]
+    with pytest.raises(ValueError, match="contiguous"):
+        bilstm_bwd(*bad_stride)
+    with pytest.raises(TypeError):
+        bilstm_bwd(*args[:11], args[11].to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        bilstm_bwd(*args[:4], args[4][:-1], *args[5:])
+    with pytest.raises(ValueError):
+        bilstm_bwd(*args[:11], args[11].cpu())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bilstm_bwd(*_bwd_args(4, 1, 12, torch.float32, cuda_device, seed=4))
+    args[11] = args[11].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="bilstm_core"):
+        bilstm_bwd(*args)
+
+
+@pytest.mark.cuda
+def test_wgan_step_on_the_card_launches_the_kernel_pair(cuda_device):
+    """One fused WGAN-GP step at small width on the card: finite metrics,
+    two forward launches (the fakes pass, the generator update) and one
+    BPTT launch."""
+    import dataclasses
+
+    from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
+                                       VocoderConfig)
+    from percivaltts_tpu_torch.training.state import make_gan_state
+    from percivaltts_tpu_torch.training.wgan import make_wgan_step
+
+    cfg = Configuration(
+        data=DataConfig(batch_size=4, bucket_bounds=(64,), label_dim=13),
+        vocoder=VocoderConfig(spec_size=17, nm_size=9),
+        model=dataclasses.replace(ModelConfig(generator="cnn_blstm"), hidden_size=32,
+                                  blstm_size=64, critic_hidden=32, critic_blocks=2),
+        train=TrainConfig(n_critic=2),
+    )
+    state = make_gan_state(cfg, 13, seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    batch = lambda *lead: {  # noqa: E731
+        "lab": torch.randn(*lead, 4, 64, 13, generator=g, device=cuda_device),
+        "cmp": torch.randn(*lead, 4, 64, 27, generator=g, device=cuda_device),
+        "mask": torch.ones(*lead, 4, 64, device=cuda_device),
+    }
+    f0, b0 = bilstm_fwd.launches, bilstm_bwd.launches
+    state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
+    torch.cuda.synchronize()
+    assert (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0) == (2, 1)
+    assert all(torch.isfinite(v).item() for v in m.values())

@@ -43,8 +43,14 @@ def test_port_modules_import_without_jax_or_flax():
         "percivaltts_tpu_torch._build",
         "percivaltts_tpu_torch.cli",
         "percivaltts_tpu_torch.eval.serve",
+        "percivaltts_tpu_torch.models.critic",
         "percivaltts_tpu_torch.models.generators",
         "percivaltts_tpu_torch.ops.lstm_cuda",
+        "percivaltts_tpu_torch.training.losses",
+        "percivaltts_tpu_torch.training.lse",
+        "percivaltts_tpu_torch.training.ondevice",
+        "percivaltts_tpu_torch.training.state",
+        "percivaltts_tpu_torch.training.wgan",
         "percivaltts_tpu_torch.weights",
     } <= set(out["modules"])
     assert out["leaked"] == []
