@@ -4,34 +4,44 @@ train, time.
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (the script exits 0 only when all
-passed):
+Two generators are driven through the entry points a user calls
+(``eval/serve.py``'s ``serve``, ``training/state.py``'s ``make_gan_state``
+and the normalizing WGAN-GP step): config 3's CNN generator with its BiLSTM
+f0 head (``generator="cnn_blstm"``), and the BGRU generator
+(``generator="bgru"``: a 256-wide front end, 2 BGRU layers of 128 units per
+direction, a readout to 99 features). Phases, each of which raises on
+failure (the script exits 0 only when all passed):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``percivaltts_tpu_torch/csrc`` (one nvcc per
    source, all at once, then one link);
-3. hold the BiLSTM forward kernel against its plain PyTorch twin at the
-   serving, edge and training shapes, f32 and bf16, with and without cells;
-4. serve 8 requests (96…1500 frames) through ``eval/serve.py`` with the
-   full-width config-3 generator (seeded init, numpy-made stats and labels):
-   shapes, finiteness, one kernel launch per generator call, and agreement
-   with the same requests served through the plain twin;
-5. time the forward kernel and its twin at (T, B, H) = (512, 8, 128) bf16,
-   and the 8 requests end to end;
-6. hold the BPTT kernel against its twin at the training shape and edge
-   shapes, f32 and bf16, and the autograd function pairing both kernels
-   (dgx, dW_h) against the same function on the twins;
-7. train at config-3 width: the fused WGAN-GP step (B=32, T=512,
-   n_critic=5) from ``make_gan_state``, on raw padded batches made with
-   numpy (utterances of 300–512 frames, so masks hold zeros) normalized on
-   the device: 3 steps with finite metrics and exactly 2
-   forward and 1 BPTT launches each; one step from identical state with
-   the kernels against the same step with the plain twins;
-8. time the BPTT kernel and its twin at (512, 32, 128) bf16, the WGAN step
-   (median of 10), and profile one step for the device's busy share.
+3. hold each recurrent kernel against its plain PyTorch twin: the BiLSTM
+   forward (with and without cells) and the BiGRU forward at the serving,
+   edge and training shapes, the BiLSTM and BiGRU BPTT at the training and
+   edge shapes, f32 and bf16; and each autograd pair (forward kernel +
+   BPTT kernel) against the same function on the twins;
+4. serve 8 requests (96…1500 frames) through each full-width generator
+   (seeded init, numpy-made stats and labels): shapes, finiteness, the
+   launches per generator call (1 BiLSTM forward for config 3, 2 BiGRU
+   forwards for the BGRU), and agreement with the same requests served
+   through the plain twins;
+5. train each generator at config 3's width (B=32, T=512, n_critic=5,
+   config 3's critic) from ``make_gan_state``, on raw padded batches made
+   with numpy (utterances of 300–512 frames, so masks hold zeros)
+   normalized on the device: 3 steps with finite metrics and exactly
+   (2 forward, 1 BPTT) launches a step for config 3, (4, 2) for the BGRU;
+   one step from identical state with the kernels against the same step
+   with the plain twins;
+6. time each kernel, its twin and the cuDNN call that computes the same
+   layer (``nn.LSTM`` / ``nn.GRU``, timed here only: the port never calls
+   it), each path's serve and step medians, and profile one step of each
+   for the device's busy share.
 
-The line before the last is one JSON object describing each kernel of the
-path; the last line is the JSON device record. Imports nothing of JAX.
+Launch counts are set to 0 just before each serve or train path and read
+just after it; launches made to compare a kernel with its twin are not
+counted. The line before the last is one JSON object describing each
+kernel; the last line is the JSON device record. Imports nothing of JAX or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,41 +58,119 @@ import torch
 
 SEED = 0
 DEVICE = "cuda:0"
-# serving and edge shapes, then the training path's: the fakes pass over
-# n_critic·B rows (without cells) and the generator update (with cells)
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and dense FLOP/s by
+# input type (bf16 on the tensor cores; f32 outside them)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# BiLSTM forward: serving and edge shapes, then the training path's: the
+# fakes pass over n_critic·B rows (without cells) and the generator update
+# (with cells)
 KERNEL_SHAPES = [(512, 8, 128), (517, 3, 128), (64, 1, 128), (1536, 8, 128),
                  (512, 160, 128), (512, 32, 128)]
+# BiGRU forward: the same, and a narrow width (H=64)
+GRU_KERNEL_SHAPES = [(512, 8, 128), (517, 3, 128), (64, 1, 128), (1536, 8, 128),
+                     (512, 160, 128), (512, 32, 128), (33, 9, 64)]
 # f32: the same math with sums and transcendentals in another order.
 # bf16: outputs are bf16 (ulp 2^-8 near 1) and h is rounded to bf16 before
 # each product, so a one-ulp rounding flip is carried into later steps.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
-# kernel vs plain twin through the whole generator, bf16, denormalized: only
-# the f0 stream reads the BiLSTM; a few bf16 ulps at |f0| < 2, divided by
-# output scales >= 0.5
-SERVE_TOL = 0.0625
-TIMED_SHAPE = (512, 8, 128)
+# kernel vs plain twin through the whole generator, bf16, denormalized.
+# Config 3: only the f0 stream reads the BiLSTM; a few bf16 ulps at
+# |f0| < 2, divided by output scales >= 0.5. BGRU: every stream reads both
+# GRU layers, and the bf16 readout rounds at |normalized output| < 4 with an
+# ulp of 2^-6, times 1/scale <= 2: 0.03 a rounding flip, and up to four
+# flips in the same element after two layers.
+SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125}
+PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371}
+TIMED_SHAPES = {"bilstm_fwd": [(512, 8, 128)], "bigru_fwd": [(512, 8, 128), (512, 160, 128)],
+                "bilstm_bwd": [(512, 32, 128)], "bigru_bwd": [(512, 32, 128)]}
+LAYER_IN = 256  # the recurrent layers' input width in both generators
 
 BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64)]
 # BPTT kernel vs twin. f32: absolute, as the forward. bf16: relative to
-# max|dgx|, since dz is rounded to bf16 and fed back through dh, so a
-# one-ulp flip is carried into earlier frames.
+# max|dgx| (or max|dnr|), since the d(gates) are rounded to bf16 and fed
+# back through dh, so a one-ulp flip is carried into earlier frames.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-BWD_TIMED = (512, 32, 128)
+AUTOGRAD_SHAPE = (512, 32, 128)
 
 TRAIN_B, TRAIN_T, LABEL_DIM = 32, 512, 425
 UTT_FRAMES = (300, 512)  # utterance lengths: every batch pads, masks hold zeros
 N_CHECKED_STEPS = 3
 N_TIMED_STEPS = 10
+# launches a WGAN-GP step makes: (forward, BPTT). Config 3: the f0 head's
+# BiLSTM in the no-grad fakes pass and in the generator update, and one
+# BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
+STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
-# differ from the kernels by bf16 rounding flips in the f0 head; Adam's first
-# step, lr·g/(|g| + eps), is sign-like, so a flip of a near-zero critic
-# gradient moves that weight by up to 2·lr, which the generator update
-# then reads. Metrics: relative to max(1, |value|); the generator's first
-# moments (0.5·gradient): relative to each parameter's max|moment|. (Seen on
-# an H100: metrics within 2.1e-6, moments within 5.8e-3.)
+# differ from the kernels by bf16 rounding flips in the recurrent layers;
+# Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
+# near-zero critic gradient moves that weight by up to 2·lr, which the
+# generator update then reads. Metrics: relative to max(1, |value|); the
+# generator's first moments (0.5·gradient): relative to each parameter's
+# max|moment|. (Seen on an H100 for config 3: metrics within 2.1e-6,
+# moments within 5.8e-3.)
 STEP_METRIC_TOL = 1e-3
 STEP_MOMENT_TOL = 2e-2
+
+
+def _kernels() -> dict:
+    """The kernel wrappers by name; each counts its launches."""
+    from percivaltts_tpu_torch.ops.gru_cuda import bigru_bwd, bigru_fwd
+    from percivaltts_tpu_torch.ops.lstm_cuda import bilstm_bwd, bilstm_fwd
+
+    return {"bilstm_fwd": bilstm_fwd, "bilstm_bwd": bilstm_bwd,
+            "bigru_fwd": bigru_fwd, "bigru_bwd": bigru_bwd}
+
+
+def _zero_counts() -> None:
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _kernels().items()}
+
+
+def _use_twins(model):
+    """Point every recurrent layer of ``model`` at the plain twins of both
+    kernels; returns a function that puts the kernels back."""
+    from percivaltts_tpu_torch.models.rnn import BiLSTM
+    from percivaltts_tpu_torch.ops.gru_cuda import bigru_core_reference
+    from percivaltts_tpu_torch.ops.lstm_cuda import bilstm_core_reference
+
+    layers = [m for m in model.modules() if isinstance(m, BiLSTM)]
+    saved = [m.core for m in layers]
+    for m in layers:
+        m.core = bigru_core_reference if m.cell_type == "gru" else bilstm_core_reference
+    return lambda: [setattr(m, "core", c) for m, c in zip(layers, saved)]
+
+
+def _bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least ms, "bytes" or "operations"): each input read once and each
+    output written once at the HBM rate, against the recurrent products'
+    FLOPs at the peak rate of the input type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_bound(name: str, T: int, B: int, H: int, dtype) -> tuple:
+    s = torch.finfo(dtype).bits // 8
+    TBH = T * B * H
+    G = 3 if name.startswith("bigru") else 4
+    if name == "bilstm_fwd":  # gx, W_h in; y out (both directions)
+        nbytes = 2 * (G * TBH + H * G * H + TBH)
+    elif name == "bilstm_bwd":  # gx, W_h, h_prev, c_prev, c, dy in; dgx out
+        nbytes = 2 * (G * TBH + H * G * H + 4 * TBH + G * TBH)
+    elif name == "bigru_fwd":  # gx, W_h, b_hn in; y out
+        nbytes = 2 * (G * TBH + H * G * H + H + TBH)
+    else:  # bigru_bwd: gx, W_h, b_hn, h_prev, dy in; dgx, dnr out
+        nbytes = 2 * (G * TBH + H * G * H + H + 2 * TBH + G * TBH + TBH)
+    products = 1 if name.endswith("fwd") else 2  # h·W_h; and dgates·W_hᵀ
+    flops = 2 * T * products * 2 * B * H * G * H
+    return _bound(nbytes * s, flops, dtype)
 
 
 def _median_ms(fn, runs: int, inner: int = 1) -> float:
@@ -110,80 +198,211 @@ def _gates(T, B, H, dtype, device, seed):
     return to(gx[0]), to(gx[1]), to(wh[0]), to(wh[1])
 
 
+def _gru_gates(T, B, H, dtype, device, seed):
+    """gx_f, gx_b (T, B, 3H), W_h (H, 3H) and b_hn (H,) per direction."""
+    rng = np.random.default_rng(seed)
+    gx = rng.normal(size=(2, T, B, 3 * H)).astype(np.float32)
+    wh = (rng.normal(size=(2, H, 3 * H)) / np.sqrt(H)).astype(np.float32)
+    bn = rng.normal(size=(2, H)).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)  # noqa: E731
+    return to(gx[0]), to(gx[1]), to(wh[0]), to(wh[1]), to(bn[0]), to(bn[1])
+
+
+def _dy(T, B, H, dtype, device, seed):
+    dy = np.random.default_rng(seed).normal(size=(2, T, B, H)).astype(np.float32)
+    dy = torch.from_numpy(dy).to(device=device, dtype=dtype)
+    return dy[0], dy[1]
+
+
 def _bwd_args(T, B, H, dtype, device, seed):
-    """The BPTT inputs from a forward pass of the plain twin: gx, W_h, the
-    previous states (t−1 forward, t+1 backward), the cells and random dy."""
+    """The BiLSTM BPTT inputs from a forward pass of the plain twin: gx,
+    W_h, the previous states (t−1 forward, t+1 backward), the cells and
+    random dy."""
     from percivaltts_tpu_torch.ops.lstm_cuda import bilstm_fwd_reference
 
     gx_f, gx_b, wh_f, wh_b = _gates(T, B, H, dtype, device, seed)
     with torch.no_grad():
         yf, yb, cf, cb = bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells=True)
     z = torch.zeros_like(yf[:1])
-    dy = np.random.default_rng(seed + 1).normal(size=(2, T, B, H)).astype(np.float32)
-    dy = torch.from_numpy(dy).to(device=device, dtype=dtype)
     return (gx_f, gx_b, wh_f, wh_b, torch.cat([z, yf[:-1]]), torch.cat([yb[1:], z]),
-            torch.cat([z, cf[:-1]]), torch.cat([cb[1:], z]), cf, cb, dy[0], dy[1])
+            torch.cat([z, cf[:-1]]), torch.cat([cb[1:], z]), cf, cb,
+            *_dy(T, B, H, dtype, device, seed + 1))
 
 
-def _check_bwd(dev) -> float:
-    """Phase 6: the BPTT kernel and the autograd pair against the twins.
-    Returns the largest bf16 |kernel − twin| of the BPTT kernel."""
-    from percivaltts_tpu_torch.ops.lstm_cuda import (
-        bilstm_bwd, bilstm_bwd_reference, bilstm_core, bilstm_core_reference,
-        bilstm_fwd)
+def _gru_bwd_args(T, B, H, dtype, device, seed):
+    """The BiGRU BPTT inputs: gx, W_h, b_hn, the previous states from the
+    twin's compute-dtype outputs (t−1 forward, t+1 backward) and random dy."""
+    from percivaltts_tpu_torch.ops.gru_cuda import bigru_fwd_reference
 
-    max_err_bf16 = 0.0
+    args = _gru_gates(T, B, H, dtype, device, seed)
     with torch.no_grad():
+        yf, yb = bigru_fwd_reference(*args)
+    z = torch.zeros_like(yf[:1])
+    return (*args, torch.cat([z, yf[:-1]]), torch.cat([yb[1:], z]),
+            *_dy(T, B, H, dtype, device, seed + 1))
+
+
+def _compare(label, got, want, tol, relative: bool) -> float:
+    """max |kernel − twin| over the outputs, against ``tol`` (times the
+    largest |twin| when ``relative``); raises when it is exceeded."""
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.float().abs().max().item() for w in want)
+    limit = tol * scale if relative else tol
+    same = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+    print(f"{label}: max|kernel-plain| = {err:.3g} (tol {limit:.3g}; max|plain| {scale:.3g})")
+    if not same or not err <= limit:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain twin")
+    return err
+
+
+def _launch_once(fn, *args, **kw):
+    """``fn(*args)`` synchronized, checking that it counted one launch."""
+    before = fn.launches
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    if fn.launches != before + 1:
+        raise RuntimeError(f"{fn.__name__} did not count its launch")
+    return out
+
+
+def _check_kernels(dev) -> dict:
+    """Phase 3: every kernel against its twin. Returns each kernel's largest
+    bf16 |kernel − twin|."""
+    from percivaltts_tpu_torch.ops import gru_cuda as g
+    from percivaltts_tpu_torch.ops import lstm_cuda as l
+
+    bf16 = torch.bfloat16
+    err = {name: 0.0 for name in _kernels()}
+    with torch.no_grad():
+        for T, B, H in KERNEL_SHAPES:
+            for dtype, tol in KERNEL_TOL.items():
+                args = _gates(T, B, H, dtype, dev, seed=T + B)
+                want = l.bilstm_fwd_reference(*args, with_cells=True)
+                for cells in (False, True):
+                    got = _launch_once(l.bilstm_fwd, *args, with_cells=cells)
+                    e = _compare(f"[bilstm_fwd] T={T} B={B} H={H} {str(dtype)[6:]} cells={cells}",
+                                 got, want[:len(got)], tol, relative=False)
+                    err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
+        for T, B, H in GRU_KERNEL_SHAPES:
+            for dtype, tol in KERNEL_TOL.items():
+                args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
+                got = _launch_once(g.bigru_fwd, *args)
+                e = _compare(f"[bigru_fwd] T={T} B={B} H={H} {str(dtype)[6:]}", got,
+                             g.bigru_fwd_reference(*args), tol, relative=False)
+                err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
         for T, B, H in BWD_SHAPES:
             for dtype, tol in BWD_TOL.items():
+                rel = dtype == bf16
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
-                want = bilstm_bwd_reference(*args)
-                before = bilstm_bwd.launches
-                got = bilstm_bwd(*args)
+                got = _launch_once(l.bilstm_bwd, *args)
+                e = _compare(f"[bilstm_bwd] T={T} B={B} H={H} {str(dtype)[6:]}", got,
+                             l.bilstm_bwd_reference(*args), tol, rel)
+                err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
+                args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
+                got = _launch_once(g.bigru_bwd, *args)
+                want = g.bigru_bwd_reference(*args)
+                for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))):
+                    e = _compare(f"[bigru_bwd] {what} T={T} B={B} H={H} {str(dtype)[6:]}",
+                                 got[sl], want[sl], tol, rel)
+                    err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
+
+    # the autograd pairs: forward kernel + BPTT kernel against the twins
+    T, B, H = AUTOGRAD_SHAPE
+    pairs = (
+        ("BiLSTM", l.bilstm_core, l.bilstm_core_reference, _gates, l.bilstm_fwd, l.bilstm_bwd,
+         ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b")),
+        ("BiGRU", g.bigru_core, g.bigru_core_reference, _gru_gates, g.bigru_fwd, g.bigru_bwd,
+         ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b", "db_hn_f", "db_hn_b")),
+    )
+    for label, core, twin, make, fwd, bwd, names in pairs:
+        for dtype, tol in BWD_TOL.items():
+            base = make(T, B, H, dtype, dev, seed=7)
+            dy = _dy(T, B, H, dtype, dev, seed=1)
+            grads = []
+            for c in (core, twin):
+                leaves = [t.clone().requires_grad_(True) for t in base]
+                f0, b0 = fwd.launches, bwd.launches
+                torch.autograd.backward(c(*leaves), dy)
                 torch.cuda.synchronize()
-                if bilstm_bwd.launches != before + 1:
-                    raise RuntimeError("bilstm_bwd did not count its launch")
-                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-                scale = max(w.float().abs().max().item() for w in want)
-                limit = tol * scale if dtype == torch.bfloat16 else tol
-                ok = all(g.shape == (T, B, 4 * H) and g.dtype == dtype for g in got)
-                print(f"[bptt] T={T} B={B} H={H} {str(dtype)[6:]}: max|kernel-plain| = "
-                      f"{err:.3g} (tol {limit:.3g}; max|dgx| {scale:.3g})")
-                if not ok or not err <= limit:
-                    raise AssertionError(f"bilstm_bwd disagrees at {(T, B, H, dtype)}")
-                if dtype == torch.bfloat16:
-                    max_err_bf16 = max(max_err_bf16, err)
-
-    T, B, H = BWD_TIMED
-    for dtype, tol in BWD_TOL.items():
-        base = _gates(T, B, H, dtype, dev, seed=7)
-        dy = [torch.randn((T, B, H), generator=torch.Generator(device=dev).manual_seed(s),
-                          device=dev, dtype=dtype) for s in (1, 2)]
-        grads = []
-        for core in (bilstm_core, bilstm_core_reference):
-            leaves = [t.clone().requires_grad_(True) for t in base]
-            f0, b0 = bilstm_fwd.launches, bilstm_bwd.launches
-            yf, yb = core(*leaves)
-            torch.autograd.backward((yf, yb), dy)
-            torch.cuda.synchronize()
-            grads.append([t.grad for t in leaves])
-            if core is bilstm_core and (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0) != (1, 1):
-                raise RuntimeError("the autograd pair did not launch one forward and one BPTT kernel")
-        for name, g, w in zip(("dgx_f", "dgx_b", "dW_h_f", "dW_h_b"), *grads):
-            err = (g.float() - w.float()).abs().max().item()
-            scale = w.float().abs().max().item()
-            limit = tol * scale if dtype == torch.bfloat16 else tol * max(1.0, scale)
-            print(f"[autograd] {name} T,B,H={BWD_TIMED} {str(dtype)[6:]}: max|kernel-plain| = "
-                  f"{err:.3g} (tol {limit:.3g}; max {scale:.3g})")
-            if g.dtype != dtype or not err <= limit:
-                raise AssertionError(f"the autograd pair disagrees on {name} ({dtype})")
-    return max_err_bf16
+                grads.append([t.grad for t in leaves])
+                if c is core and (fwd.launches - f0, bwd.launches - b0) != (1, 1):
+                    raise RuntimeError(f"the {label} autograd pair did not launch one forward "
+                                       "and one BPTT kernel")
+            for name, gk, gt in zip(names, *grads):
+                scale = gt.float().abs().max().item()
+                limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
+                _compare(f"[autograd {label}] {name} T,B,H={AUTOGRAD_SHAPE} {str(dtype)[6:]}",
+                         [gk], [gt], limit, relative=False)
+    return err
 
 
-def _train_setup(dev):
-    """Config 3 at full width, WGAN-GP, with two sets of batches (5 critic
-    batches + 1 generator batch each) on the device, raw, and the
-    normalizing step."""
+def _serve_path(dev, kind: str) -> dict:
+    """Phase 4 for one generator: serve 8 requests, count launches, compare
+    with the twins, time the serve."""
+    from percivaltts_tpu_torch import ModelConfig, VocoderConfig
+    from percivaltts_tpu_torch.eval.serve import NormStats, serve
+    from percivaltts_tpu_torch.models import build_generator, count_params
+
+    model_cfg, voc, label_dim = ModelConfig(generator=kind), VocoderConfig(), LABEL_DIM
+    gen = build_generator(model_cfg, voc, label_dim,
+                          generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    n_params = count_params(gen)
+    if n_params != PARAMS[kind]:
+        raise AssertionError(f"{kind} has {PARAMS[kind]:,} parameters, built {n_params:,}")
+    rng = np.random.default_rng(SEED)
+    labs = []
+    for n in REQUEST_LENGTHS:  # binary question answers + continuous positions
+        lab = (rng.random((n, label_dim)) < 0.1).astype(np.float32)
+        lab[:, -9:] = rng.random((n, 9)) * 10.0
+        labs.append(lab)
+    in_stats = NormStats(shift=np.full(label_dim, 0.1, np.float32),
+                         scale=rng.uniform(0.5, 2.0, label_dim).astype(np.float32))
+    out_stats = NormStats(shift=rng.normal(size=voc.feature_size).astype(np.float32),
+                          scale=rng.uniform(0.5, 2.0, voc.feature_size).astype(np.float32))
+    calls = [0]
+    gen.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+
+    _zero_counts()
+    calls[0] = 0
+    feats = serve(gen, labs, in_stats, out_stats)
+    counts, gen_calls = _counts(), calls[0]
+    fwd, per_call = ("bigru_fwd", 2) if kind == "bgru" else ("bilstm_fwd", 1)
+    print(f"[serve {kind}] {len(labs)} requests, {gen_calls} generator calls, launches {counts}")
+    if not (counts[fwd] > 0 and counts[fwd] == per_call * gen_calls
+            and sum(counts.values()) == counts[fwd]):
+        raise AssertionError(f"{counts} kernel launches for {gen_calls} generator calls")
+    for n, f in zip(REQUEST_LENGTHS, feats):
+        if f.shape != (n, voc.feature_size) or f.dtype != np.float32 or not np.isfinite(f).all():
+            raise AssertionError(f"bad features for a {n}-frame request: {f.shape} {f.dtype}")
+
+    restore = _use_twins(gen)
+    plain = serve(gen, labs, in_stats, out_stats)
+    restore()
+    serve_err = max(np.abs(a - b).max() for a, b in zip(feats, plain))
+    print(f"[serve {kind}] {n_params:,} parameters; max|kernel-plain| over all features = "
+          f"{serve_err:.3g} (tol {SERVE_TOL[kind]:g})")
+    if not serve_err <= SERVE_TOL[kind]:
+        raise AssertionError("served features disagree with the plain twins")
+
+    serve(gen, labs, in_stats, out_stats)  # warm-up
+    lat = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(gen, labs, in_stats, out_stats)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    med = statistics.median(lat)
+    frames = sum(REQUEST_LENGTHS)
+    print(f"[time] serve {kind}, {len(labs)} requests ({frames} frames): median {med * 1e3:.3f} ms "
+          f"(min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}), {frames / med:.0f} frames/s")
+    return {"counts": counts, "serve_ms": med * 1e3, "err": float(serve_err)}
+
+
+def _train_setup(dev, kind: str):
+    """Config 3's data, critic and options at full width with the ``kind``
+    generator, WGAN-GP, two sets of batches (5 critic batches + 1 generator
+    batch each) on the device, raw, and the normalizing step."""
     from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
                                        VocoderConfig)
     from percivaltts_tpu_torch.eval.serve import NormStats
@@ -193,7 +412,7 @@ def _train_setup(dev):
     cfg = Configuration(
         data=DataConfig(batch_size=TRAIN_B, bucket_bounds=(TRAIN_T,), label_dim=LABEL_DIM),
         vocoder=VocoderConfig(spec_size=65, nm_size=33),
-        model=ModelConfig(generator="cnn_blstm"),
+        model=ModelConfig(generator=kind),
         train=TrainConfig(trainer="wgan", n_critic=5, seed=SEED),
     )
     nc, F = cfg.train.n_critic, cfg.vocoder.feature_size
@@ -249,32 +468,34 @@ def _busy_share(prof, wall_ms: float):
     return busy, busy / wall_ms, top
 
 
-def _train(dev) -> dict:
-    """Phases 7 and 8. Returns the launch counts of the checked steps and
-    the timings."""
-    from percivaltts_tpu_torch.ops.lstm_cuda import (
-        bilstm_bwd, bilstm_bwd_reference, bilstm_core_reference, bilstm_fwd)
+def _train_path(dev, kind: str) -> dict:
+    """Phase 5 and the step timing of phase 6 for one generator. Returns the
+    launch counts of the checked steps and the timings."""
     from percivaltts_tpu_torch.training.state import make_gan_state
 
-    cfg, sets, step = _train_setup(dev)
+    cfg, sets, step = _train_setup(dev, kind)
     nc = cfg.train.n_critic
+    kernels = _kernels()
+    fwd, bwd = (kernels["bigru_fwd"], kernels["bigru_bwd"]) if kind == "bgru" else \
+        (kernels["bilstm_fwd"], kernels["bilstm_bwd"])
     state = make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev)
 
-    bilstm_fwd.launches = 0
-    bilstm_bwd.launches = 0
+    _zero_counts()
     for s in range(N_CHECKED_STEPS):
-        f0, b0 = bilstm_fwd.launches, bilstm_bwd.launches
+        f0, b0 = fwd.launches, bwd.launches
         state, m = step(state, *sets[s % 2])
         torch.cuda.synchronize()
         vals = {k: v.item() for k, v in m.items()}
-        launched = (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0)
-        print(f"[train] step {s}: " + " ".join(f"{k} {v:.6g}" for k, v in vals.items())
+        launched = (fwd.launches - f0, bwd.launches - b0)
+        print(f"[train {kind}] step {s}: " + " ".join(f"{k} {v:.6g}" for k, v in vals.items())
               + f"; launches fwd {launched[0]} bptt {launched[1]}")
-        if launched != (2, 1):
-            raise AssertionError(f"a WGAN step launched {launched}, not 2 forward and 1 BPTT")
+        if launched != STEP_LAUNCHES[kind]:
+            raise AssertionError(f"a WGAN step launched {launched}, not {STEP_LAUNCHES[kind]}")
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"non-finite metrics at step {s}: {vals}")
-    counts = {"fwd": bilstm_fwd.launches, "bwd": bilstm_bwd.launches}
+    counts = _counts()
+    if sum(counts.values()) != fwd.launches + bwd.launches:
+        raise AssertionError(f"the {kind} steps launched another generator's kernels: {counts}")
     if not all(torch.isfinite(p).all() for p in state.gen.parameters()):
         raise AssertionError("non-finite generator parameters after training")
 
@@ -286,7 +507,7 @@ def _train(dev) -> dict:
     for name in ("kernel", "plain"):
         st = make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev)
         if name == "plain":
-            st.gen.f0_blstm.core = bilstm_core_reference
+            _use_twins(st.gen)
         st, m = step(st, *sets[0], eps=eps)
         torch.cuda.synchronize()
         ref[name] = ({k: v.item() for k, v in m.items()},
@@ -295,31 +516,19 @@ def _train(dev) -> dict:
     for k in mk:
         err = abs(mk[k] - mp[k])
         limit = STEP_METRIC_TOL * max(1.0, abs(mp[k]))
-        print(f"[train] kernel vs plain step, {k}: {mk[k]:.6g} vs {mp[k]:.6g} (|diff| {err:.3g}, tol {limit:.3g})")
+        print(f"[train {kind}] kernel vs plain step, {k}: {mk[k]:.6g} vs {mp[k]:.6g} "
+              f"(|diff| {err:.3g}, tol {limit:.3g})")
         if not err <= limit:
             raise AssertionError(f"the kernel step disagrees with the plain step on {k}")
-    worst = max(((ek[n] - ep[n]).abs().max().item() / max(ep[n].abs().max().item(), 1e-30), n)
-                for n in ek)
-    print(f"[train] kernel vs plain step, generator exp_avg: worst relative |diff| "
-          f"{worst[0]:.3g} ({worst[1]}; tol {STEP_MOMENT_TOL:g}); f0_blstm: " + ", ".join(
-              f"{n} {(ek[n] - ep[n]).abs().max().item() / ep[n].abs().max().item():.3g}"
-              for n in ek if n.startswith("f0_blstm")))
-    if not worst[0] <= STEP_MOMENT_TOL:
+    rel = {n: (ek[n] - ep[n]).abs().max().item() / max(ep[n].abs().max().item(), 1e-30)
+           for n in ek}
+    worst = max(rel, key=rel.get)
+    print(f"[train {kind}] kernel vs plain step, generator exp_avg: worst relative |diff| "
+          f"{rel[worst]:.3g} ({worst}; tol {STEP_MOMENT_TOL:g}); recurrent layers: "
+          + ", ".join(f"{n} {r:.3g}" for n, r in rel.items() if "blstm" in n))
+    if not rel[worst] <= STEP_MOMENT_TOL:
         raise AssertionError("the kernel step's Adam moments disagree with the plain step's")
 
-    # timing
-    T, B, H = BWD_TIMED
-    args = _bwd_args(T, B, H, torch.bfloat16, dev, seed=SEED)
-    fwd_args = {b: _gates(T, b, H, torch.bfloat16, dev, seed=1) for b in (B, nc * B)}
-    with torch.no_grad():
-        bwd_ms = _median_ms(lambda: bilstm_bwd(*args), runs=7, inner=10)
-        bwd_plain_ms = _median_ms(lambda: bilstm_bwd_reference(*args), runs=3)
-        fwd_ms = {b: _median_ms(lambda: bilstm_fwd(*a, with_cells=True), runs=5, inner=10)
-                  for b, a in fwd_args.items()}
-    print(f"[time] bilstm_bwd T,B,H={BWD_TIMED} bf16: kernel {bwd_ms:.4f} ms, plain twin "
-          f"{bwd_plain_ms:.4f} ms (median, CUDA events)")
-    print(f"[time] bilstm_fwd with cells, T={T} H={H} bf16: " + ", ".join(
-        f"B={b} {ms:.4f} ms" for b, ms in fwd_ms.items()) + " (median, CUDA events)")
     for i in range(2):  # warm-up
         state, _ = step(state, *sets[i])
     times = []
@@ -331,9 +540,9 @@ def _train(dev) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(times)
     frames = TRAIN_B * TRAIN_T * (nc + 1)
-    print(f"[time] WGAN-GP step config 3 (B={TRAIN_B}, T={TRAIN_T}, n_critic={nc}): median "
-          f"{step_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, {N_TIMED_STEPS} steps), "
-          f"{frames / step_ms * 1e3:.1f} frames/s")
+    print(f"[time] WGAN-GP step {kind} (B={TRAIN_B}, T={TRAIN_T}, n_critic={nc}): median "
+          f"{step_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, {N_TIMED_STEPS} "
+          f"steps), {frames / step_ms * 1e3:.1f} frames/s")
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
     from torch.profiler import ProfilerActivity, profile
@@ -345,19 +554,112 @@ def _train(dev) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     share = _busy_share(prof, wall)
+    busy_share = None
     if share is None:
-        print(f"[profile] one step {wall:.3f} ms wall; the trace holds no device events: "
-              "busy share not measured")
+        print(f"[profile {kind}] one step {wall:.3f} ms wall; the trace holds no device "
+              "events: busy share not measured")
     else:
-        busy, frac, top = share
-        lstm = [t for t in top if "bilstm" in t[0]]
-        print(f"[profile] one step {wall:.3f} ms wall (profiled), device busy {busy:.3f} ms, "
-              f"busy share {frac:.3f}; {sum(n for *_, n in top)} device events; BiLSTM "
-              f"kernels {sum(ms for _, ms, _ in lstm):.3f} ms")
+        busy, busy_share, top = share
+        rec = [t for t in top if "bilstm" in t[0] or "bigru" in t[0]]
+        print(f"[profile {kind}] one step {wall:.3f} ms wall (profiled), device busy "
+              f"{busy:.3f} ms, busy share {busy_share:.3f}; {sum(n for *_, n in top)} device "
+              f"events; recurrent kernels {sum(ms for _, ms, _ in rec):.3f} ms")
         for key, ms, count in top[:12]:
-            print(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
-    return {"counts": counts, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
-            "step_ms": step_ms}
+            print(f"[profile {kind}]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return {"counts": counts, "step_ms": step_ms, "busy_share": busy_share}
+
+
+def _library_layer(kind: str, ws, dtype, dev) -> torch.nn.Module:
+    """cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU`` holding the port's
+    layer weights ``(wi, wh, b[, bn])`` per direction: the same gate
+    order, and for the GRU ``b_hn`` inside ``r ⊙ (…)``."""
+    cls = torch.nn.GRU if kind == "gru" else torch.nn.LSTM
+    H = ws[0][1].shape[0]
+    lib = cls(LAYER_IN, H, batch_first=True, bidirectional=True).to(device=dev, dtype=dtype)
+    with torch.no_grad():
+        for sfx, w in (("", ws[0]), ("_reverse", ws[1])):
+            getattr(lib, f"weight_ih_l0{sfx}").copy_(w[0].T)
+            getattr(lib, f"weight_hh_l0{sfx}").copy_(w[1].T)
+            getattr(lib, f"bias_ih_l0{sfx}").copy_(w[2])
+            hh = getattr(lib, f"bias_hh_l0{sfx}")
+            hh.zero_()
+            if kind == "gru":
+                hh[2 * H:].copy_(w[3])
+    lib.flatten_parameters()  # one weight buffer, as cuDNN wants it
+    return lib
+
+
+def _layer_weights(kind: str, H: int, dtype, dev, seed: int):
+    rng = np.random.default_rng(seed)
+    G = 3 if kind == "gru" else 4
+    shapes = [(LAYER_IN, G * H), (H, G * H), (G * H,)] + ([(H,)] if kind == "gru" else [])
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(device=dev, dtype=dtype)  # noqa: E731
+    return [[to(rng.normal(size=s) / np.sqrt(s[0] if len(s) == 2 else 1.0) * 0.5)
+             for s in shapes] for _ in range(2)]
+
+
+def _time_kernels(dev) -> dict:
+    """Phase 6, kernels: each kernel and its twin at the path's shapes, and
+    the cuDNN layer beside the port's layer (forward: ``nn.LSTM`` /
+    ``nn.GRU`` against ``bilstm()`` / ``bigru()``; BPTT: their backward
+    against the port layer's backward, which runs the autograd pair). All
+    bf16."""
+    from percivaltts_tpu_torch.ops import gru_cuda as g
+    from percivaltts_tpu_torch.ops import lstm_cuda as l
+
+    dt = torch.bfloat16
+    out = {}
+    for name, shapes in TIMED_SHAPES.items():
+        gru = name.startswith("bigru")
+        kind = "gru" if gru else "lstm"
+        rows = []
+        for T, B, H in shapes:
+            if name.endswith("fwd"):
+                args = _gru_gates(T, B, H, dt, dev, seed=1) if gru else _gates(T, B, H, dt, dev, 1)
+                kern = g.bigru_fwd if gru else l.bilstm_fwd
+                twin = g.bigru_fwd_reference if gru else l.bilstm_fwd_reference
+            else:
+                args = _gru_bwd_args(T, B, H, dt, dev, seed=1) if gru else \
+                    _bwd_args(T, B, H, dt, dev, seed=1)
+                kern = g.bigru_bwd if gru else l.bilstm_bwd
+                twin = g.bigru_bwd_reference if gru else l.bilstm_bwd_reference
+            with torch.no_grad():
+                ms = _median_ms(lambda: kern(*args), runs=7, inner=10)
+                plain_ms = _median_ms(lambda: twin(*args), runs=3)
+
+            # the layer: the port's against cuDNN's, same weights and input
+            ws = _layer_weights(kind, H, dt, dev, seed=2)
+            x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
+                                 .astype(np.float32)).to(device=dev, dtype=dt)
+            layer = g.bigru if gru else l.bilstm
+            flat = [t for d in ws for t in d]
+            lib = _library_layer(kind, ws, dt, dev)
+            with torch.no_grad():
+                diff = (layer(x, *flat) - lib(x)[0]).abs().max().item()
+            if name.endswith("fwd"):
+                with torch.no_grad():
+                    layer_ms = _median_ms(lambda: layer(x, *flat), runs=7, inner=5)
+                    library_ms = _median_ms(lambda: lib(x), runs=7, inner=5)
+            else:  # backward only: one forward with a graph, then repeated backwards
+                xg = x.clone().requires_grad_(True)
+                leaves = [t.clone().requires_grad_(True) for t in flat]
+                y = layer(xg, *leaves)
+                dy = torch.randn_like(y)
+                layer_ms = _median_ms(lambda: y.backward(dy, retain_graph=True), runs=7, inner=5)
+                y_lib = lib(xg)[0]
+                library_ms = _median_ms(lambda: y_lib.backward(dy, retain_graph=True),
+                                        runs=7, inner=5)
+            bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
+            rows.append({"shape": [T, B, H], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "layer_ms": layer_ms,
+                         "library_ms": library_ms})
+            print(f"[time] {name} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
+                  f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}); layer{' backward' if 'bwd' in name else ''}: "
+                  f"port {layer_ms:.4f} ms, cuDNN {library_ms:.4f} ms "
+                  f"(max|port-cuDNN| forward {diff:.3g}) (medians, CUDA events)")
+        out[name] = rows
+    return out
 
 
 def main() -> int:
@@ -365,10 +667,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; this test needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    from percivaltts_tpu_torch import ModelConfig, VocoderConfig, _build
-    from percivaltts_tpu_torch.eval.serve import NormStats, serve
-    from percivaltts_tpu_torch.models import build_generator, count_params
-    from percivaltts_tpu_torch.ops.lstm_cuda import bilstm_fwd, bilstm_fwd_reference
+    from percivaltts_tpu_torch import _build
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -391,122 +690,56 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    # 3. kernel vs plain twin
-    max_err_bf16 = 0.0
-    with torch.no_grad():
-        for T, B, H in KERNEL_SHAPES:
-            for dtype, tol in KERNEL_TOL.items():
-                args = _gates(T, B, H, dtype, dev, seed=T + B)
-                want = bilstm_fwd_reference(*args, with_cells=True)
-                for cells in (False, True):
-                    before = bilstm_fwd.launches
-                    got = bilstm_fwd(*args, with_cells=cells)
-                    torch.cuda.synchronize()
-                    if bilstm_fwd.launches != before + 1:
-                        raise RuntimeError("bilstm_fwd did not count its launch")
-                    err = max(
-                        (g.float() - w.float()).abs().max().item()
-                        for g, w in zip(got, want)
-                    )
-                    ok = all(g.shape == (T, B, H) and g.dtype == dtype for g in got)
-                    print(f"[kernel] T={T} B={B} H={H} {str(dtype)[6:]} cells={cells}: "
-                          f"max|kernel-plain| = {err:.3g} (tol {tol:g})")
-                    if not ok or not err <= tol:
-                        raise AssertionError(f"bilstm_fwd disagrees at {(T, B, H, dtype, cells)}")
-                    if dtype == torch.bfloat16:
-                        max_err_bf16 = max(max_err_bf16, err)
+    # 3. every kernel against its plain twin
+    max_err = _check_kernels(dev)
 
-    # 4. serve 8 requests at full config-3 width
-    model_cfg, voc, label_dim = ModelConfig(generator="cnn_blstm"), VocoderConfig(), 425
-    gen = build_generator(model_cfg, voc, label_dim,
-                          generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
-    n_params = count_params(gen)
-    if n_params != 3_246_691:
-        raise AssertionError(f"config 3 has 3,246,691 parameters, built {n_params}")
-    rng = np.random.default_rng(SEED)
-    labs = []
-    for n in REQUEST_LENGTHS:  # binary question answers + continuous positions
-        lab = (rng.random((n, label_dim)) < 0.1).astype(np.float32)
-        lab[:, -9:] = rng.random((n, 9)) * 10.0
-        labs.append(lab)
-    in_stats = NormStats(shift=np.full(label_dim, 0.1, np.float32),
-                         scale=rng.uniform(0.5, 2.0, label_dim).astype(np.float32))
-    out_stats = NormStats(shift=rng.normal(size=voc.feature_size).astype(np.float32),
-                          scale=rng.uniform(0.5, 2.0, voc.feature_size).astype(np.float32))
-    calls = [0]
-    gen.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+    # 4–5. the paths: serve and train each generator
+    paths = {}
+    serve = {kind: _serve_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
+    train = {kind: _train_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
+    for kind in ("cnn_blstm", "bgru"):
+        paths[f"serve_{kind}"] = serve[kind]["counts"]
+        paths[f"train_{kind}"] = train[kind]["counts"]
 
-    bilstm_fwd.launches = 0
-    calls[0] = 0
-    feats = serve(gen, labs, in_stats, out_stats)
-    launches, gen_calls = bilstm_fwd.launches, calls[0]
-    print(f"[serve] {len(labs)} requests, {gen_calls} generator calls, "
-          f"{launches} bilstm_fwd launches")
-    if not (launches > 0 and launches == gen_calls):
-        raise AssertionError(f"{launches} kernel launches for {gen_calls} generator calls")
-    for n, f in zip(REQUEST_LENGTHS, feats):
-        if f.shape != (n, voc.feature_size) or f.dtype != np.float32 or not np.isfinite(f).all():
-            raise AssertionError(f"bad features for a {n}-frame request: {f.shape} {f.dtype}")
+    # 6. kernel timings
+    timed = _time_kernels(dev)
 
-    core = gen.f0_blstm.core
-    gen.f0_blstm.core = bilstm_fwd_reference
-    plain = serve(gen, labs, in_stats, out_stats)
-    gen.f0_blstm.core = core
-    serve_err = max(np.abs(a - b).max() for a, b in zip(feats, plain))
-    print(f"[serve] max|kernel-plain| over all features = {serve_err:.3g} (tol {SERVE_TOL:g})")
-    if not serve_err <= SERVE_TOL:
-        raise AssertionError("served features disagree with the plain twin")
-
-    # 5. timing
-    args = _gates(*TIMED_SHAPE, torch.bfloat16, dev, seed=SEED)
-    with torch.no_grad():
-        kernel_ms = _median_ms(lambda: bilstm_fwd(*args), runs=7, inner=20)
-        plain_ms = _median_ms(lambda: bilstm_fwd_reference(*args), runs=5)
-    print(f"[time] bilstm_fwd T,B,H={TIMED_SHAPE} bf16: kernel {kernel_ms:.4f} ms, "
-          f"plain twin {plain_ms:.4f} ms (median, CUDA events)")
-    serve(gen, labs, in_stats, out_stats)  # warm-up
-    lat = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serve(gen, labs, in_stats, out_stats)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    med = statistics.median(lat)
-    frames = sum(REQUEST_LENGTHS)
-    print(f"[time] serve 8 requests ({frames} frames): median {med * 1e3:.3f} ms "
-          f"(min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}), {frames / med:.0f} frames/s")
-
-    # 6. the BPTT kernel and the autograd pair
-    bwd_err_bf16 = _check_bwd(dev)
-
-    # 7–8. training at config-3 width, and its timings
-    train = _train(dev)
-
-    print(json.dumps({"kernels": [
-        {
-            "name": "bilstm_fwd",
+    sources = {
+        "bilstm_fwd": ("bilstm_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:145"),
+        "bilstm_bwd": ("bilstm_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:233"),
+        "bigru_fwd": ("bigru_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:482"),
+        "bigru_bwd": ("bigru_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:553"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        by_path = {p: c[name] for p, c in paths.items()}
+        first = timed[name][0]
+        kernels.append({
+            "name": name,
             "route": "cuda",
-            "source": "percivaltts_tpu_torch/csrc/bilstm_fwd.cu",
-            "replaces": "percivaltts_tpu/ops/lstm_pallas.py:145",
-            "launches": launches + train["counts"]["fwd"],
-            "launches_by_path": {"serve": launches, "train": train["counts"]["fwd"]},
-            "max_abs_err": max_err_bf16,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-        },
-        {
-            "name": "bilstm_bwd",
-            "route": "cuda",
-            "source": "percivaltts_tpu_torch/csrc/bilstm_bwd.cu",
-            "replaces": "percivaltts_tpu/ops/lstm_pallas.py:233",
-            "launches": train["counts"]["bwd"],
-            "launches_by_path": {"train": train["counts"]["bwd"]},
-            "max_abs_err": bwd_err_bf16,
-            "ms": train["bwd_ms"],
-            "plain_ms": train["bwd_plain_ms"],
-        },
-    ]}))
+            "source": f"percivaltts_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max_err[name],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_call": ("torch.nn.GRU" if "gru" in name else "torch.nn.LSTM")
+            + (" forward, beside the port's layer (layer_ms)" if name.endswith("fwd")
+               else " backward, beside the port layer's backward (layer_ms)"),
+            "layer_ms": first["layer_ms"],
+            "timed": timed[name],
+        })
+        if not any(by_path.values()):
+            raise AssertionError(f"{name} was launched no time on the paths")
+    for kind in ("cnn_blstm", "bgru"):
+        print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "
+              f"{train[kind]['step_ms']:.3f} ms, device busy share "
+              f"{train[kind]['busy_share']}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -114,6 +114,10 @@ def library() -> ctypes.CDLL:
     lib.percival_bilstm_fwd.restype = i
     lib.percival_bilstm_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
     lib.percival_bilstm_bwd.restype = i
+    lib.percival_bigru_fwd.argtypes = [p] * 8 + [i, i, i, i, i, p]
+    lib.percival_bigru_fwd.restype = i
+    lib.percival_bigru_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
+    lib.percival_bigru_bwd.restype = i
     lib.percival_cuda_error_string.argtypes = [i]
     lib.percival_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,8 +22,8 @@ import sys
 import numpy as np
 import torch
 
-from percivaltts_tpu.config import Configuration
-from percivaltts_tpu.utils.logging import print_log
+from percivaltts_tpu_torch.config import Configuration
+from percivaltts_tpu_torch.utils.logging import print_log
 
 WEIGHTS_FILE = "generator.npz"
 
@@ -31,9 +31,9 @@ WEIGHTS_FILE = "generator.npz"
 def cmd_synth(args, device) -> int:
     """HTS label file(s) → denormalized feature files, no acoustic targets
     needed."""
-    from percivaltts_tpu.data.hts_labels import QuestionSet, binarize_label_file
-    from percivaltts_tpu.data.normalize import NormStats
-    from percivaltts_tpu.utils.fileio import save_binary_file
+    from percivaltts_tpu_torch.data.hts_labels import QuestionSet, binarize_label_file
+    from percivaltts_tpu_torch.data.normalize import NormStats
+    from percivaltts_tpu_torch.utils.fileio import save_binary_file
     from percivaltts_tpu_torch import weights
     from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models.generators import build_generator

@@ -1,6 +1,7 @@
-// Helpers shared by the BiLSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu): dtype
-// conversions between the compute dtype (float or bfloat16) and the f32
-// arithmetic, and the gate nonlinearity.
+// Helpers shared by the recurrent kernels (bilstm_{fwd,bwd}.cu,
+// bigru_{fwd,bwd}.cu): dtype conversions between the compute dtype (float or
+// bfloat16) and the f32 arithmetic, the gate nonlinearity, and the
+// shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -15,7 +15,7 @@ from typing import List, Sequence
 import numpy as np
 from torch import nn
 
-from percivaltts_tpu.data.normalize import NormStats
+from percivaltts_tpu_torch.data.normalize import NormStats
 from percivaltts_tpu_torch.models.base import TIME_MULTIPLE, predict_batch
 
 

@@ -1,4 +1,5 @@
 from percivaltts_tpu_torch.models.generators import (  # noqa: F401
+    BLSTMGenerator,
     CNNGenerator,
     build_generator,
 )

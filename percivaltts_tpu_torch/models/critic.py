@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from percivaltts_tpu.config import ModelConfig, VocoderConfig
+from percivaltts_tpu_torch.config import ModelConfig, VocoderConfig
 from percivaltts_tpu_torch.models.base import dtype_by_name
 from percivaltts_tpu_torch.models.generators import _new_conv1d, _new_dense, gelu
 

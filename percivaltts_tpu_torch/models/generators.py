@@ -1,9 +1,11 @@
 """Generators (counterpart of ``percivaltts_tpu/models/generators.py``).
 
 Ported: ``CNNGenerator`` with ``conv_style="time1d"``, with or without the
-BiLSTM f0 head, and ``build_generator`` for ``"cnn"`` / ``"cnn_blstm"``.
-Layer names are the flax module names (``trunk_0``, ``spec_conv0a``,
-``f0_blstm``, …) so ``weights.py`` maps one tree onto the other by path.
+BiLSTM f0 head, ``BLSTMGenerator`` (BLSTM or BGRU layers), and
+``build_generator`` for ``"cnn"`` / ``"cnn_blstm"`` / ``"blstm"`` /
+``"bgru"``. Layer names are the flax module names (``trunk_0``,
+``spec_conv0a``, ``f0_blstm``, ``frontend``, ``blstm_0``, ``out``, …) so
+``weights.py`` maps one tree onto the other by path.
 
 Parity notes, each pinned by a test:
 * flax ``nn.gelu`` is the tanh approximation; torch's default GELU is erf.
@@ -15,9 +17,9 @@ Parity notes, each pinned by a test:
 
 ``forward(lab, train=True, generator=g)`` is training mode: with
 ``ModelConfig.dropout_rate`` > 0, inverted dropout follows each trunk Dense
-(before its tanh), as flax ``nn.Dropout`` in the JAX package's ``_reg``,
-its keep mask drawn from the explicit ``torch.Generator`` ``g``. Eval mode
-(the default) never drops.
+(before its tanh), as flax ``nn.Dropout`` in the JAX package's ``_reg``, and,
+in ``BLSTMGenerator``, each recurrent layer; its keep mask is drawn from the
+explicit ``torch.Generator`` ``g``. Eval mode (the default) never drops.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from percivaltts_tpu.config import ModelConfig, VocoderConfig
+from percivaltts_tpu_torch.config import ModelConfig, VocoderConfig
 from percivaltts_tpu_torch.models.base import dtype_by_name, lecun_normal_
 from percivaltts_tpu_torch.models.rnn import BiLSTM
 
@@ -62,6 +64,86 @@ def _new_conv1d(channels_in: int, channels_out: int, k: int, dtype, generator) -
     return conv
 
 
+def _not_ported_norm(norm: str) -> None:
+    if norm != "none":
+        raise NotImplementedError(
+            f"gen_norm={norm!r} is not ported yet (ROADMAP: modules still "
+            "to port, models)"
+        )
+
+
+def _dropout_on(train: bool, rate: float, generator) -> bool:
+    """Whether dropout is on; training-mode dropout needs the generator."""
+    drop = train and rate > 0.0
+    if drop and generator is None:
+        raise ValueError("training-mode dropout needs an explicit torch.Generator")
+    return drop
+
+
+def _dense(module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
+    """A flax ``Dense(dtype=dt, param_dtype=pdt)``: f32 parameters cast to
+    the module's compute dtype at each call."""
+    lin = getattr(module, name)
+    dt = module.compute_dtype
+    return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+
+
+class BLSTMGenerator(nn.Module):
+    """Dense tanh front end → stacked bidirectional recurrent layers (LSTM,
+    or GRU with ``cell_type="gru"``) of ``hidden_size // 2`` units per
+    direction → linear readout to ``feat_dim`` features."""
+
+    def __init__(
+        self,
+        feat_dim: int,
+        label_dim: int,
+        hidden_size: int = 256,
+        num_layers: int = 2,
+        cell_type: str = "lstm",
+        compute_dtype: str = "bfloat16",
+        param_dtype: str = "float32",
+        norm: str = "none",
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        _not_ported_norm(norm)
+        g = generator or torch.Generator().manual_seed(0)
+        pdt = dtype_by_name(param_dtype)
+        self.compute_dtype = dtype_by_name(compute_dtype)
+        self.num_layers = num_layers
+        self.dropout_rate = dropout_rate
+        self.frontend = _new_dense(label_dim, hidden_size, pdt, g)
+        H = hidden_size // 2
+        d = hidden_size
+        for i in range(num_layers):
+            self.add_module(f"blstm_{i}", BiLSTM(d, H, compute_dtype, param_dtype,
+                                                 cell_type=cell_type, generator=g))
+            d = 2 * H
+        self.out = _new_dense(d, feat_dim, pdt, g)
+
+    def forward(
+        self,
+        lab: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
+        ``train`` turns dropout on (after the front end and after each
+        recurrent layer); it then draws from ``generator``, which must lie
+        on the labels' device."""
+        drop = _dropout_on(train, self.dropout_rate, generator)
+        x = _dense(self, "frontend", lab.to(self.compute_dtype))
+        if drop:
+            x = dropout(x, self.dropout_rate, generator)
+        x = torch.tanh(x)
+        for i in range(self.num_layers):
+            x = getattr(self, f"blstm_{i}")(x)
+            if drop:
+                x = dropout(x, self.dropout_rate, generator)
+        return _dense(self, "out", x).float()
+
+
 class CNNGenerator(nn.Module):
     """Dense tanh trunk → residual time-1D conv blocks → per-stream heads
     (an f0 head, optionally behind a BiLSTM; the spectral stream from the
@@ -90,11 +172,7 @@ class CNNGenerator(nn.Module):
                 f"conv_style={conv_style!r} is not ported yet (ROADMAP: "
                 "modules still to port, models)"
             )
-        if norm != "none":
-            raise NotImplementedError(
-                f"gen_norm={norm!r} is not ported yet (ROADMAP: modules still "
-                "to port, models)"
-            )
+        _not_ported_norm(norm)
         g = generator or torch.Generator().manual_seed(0)
         pdt = dtype_by_name(param_dtype)
         self.compute_dtype = dtype_by_name(compute_dtype)
@@ -130,11 +208,6 @@ class CNNGenerator(nn.Module):
                 self.add_module(f"{name}_hidden", _new_dense(Hd, Hd // 2, pdt, g))
                 self.add_module(f"{name}_out", _new_dense(Hd // 2, b - a, pdt, g))
 
-    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        lin = getattr(self, name)
-        dt = self.compute_dtype
-        return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
-
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """(B, C, T) → (B, C, T); flax ``SAME`` padding at stride 1."""
         conv = getattr(self, name)
@@ -152,12 +225,10 @@ class CNNGenerator(nn.Module):
         """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
         ``train`` turns dropout on; it then draws from ``generator``, which
         must lie on the labels' device."""
-        drop = train and self.dropout_rate > 0.0
-        if drop and generator is None:
-            raise ValueError("training-mode dropout needs an explicit torch.Generator")
+        drop = _dropout_on(train, self.dropout_rate, generator)
         x = lab.to(self.compute_dtype)
         for i in range(self.trunk_layers):
-            x = self._dense(f"trunk_{i}", x)
+            x = _dense(self, f"trunk_{i}", x)
             if drop:
                 x = dropout(x, self.dropout_rate, generator)
             x = torch.tanh(x)
@@ -165,21 +236,21 @@ class CNNGenerator(nn.Module):
         outs = {}
         if "f0" in self.streams:
             h = x if self.f0_blstm is None else self.f0_blstm(x)
-            outs["f0"] = self._dense("f0_out", h)
+            outs["f0"] = _dense(self, "f0_out", h)
         if "vuv" in self.streams:
-            outs["vuv"] = self._dense("vuv_out", x)
+            outs["vuv"] = _dense(self, "vuv_out", x)
 
         h = x.transpose(1, 2)  # (B, C, T) for the time convs
         for i in range(self.blocks):
             r = self._conv(f"spec_conv{i}a", gelu(h))
             r = self._conv(f"spec_conv{i}b", gelu(r))
             h = h + r
-        outs[self.spec_key] = self._dense("spec_out", h.transpose(1, 2))
+        outs[self.spec_key] = _dense(self, "spec_out", h.transpose(1, 2))
 
         for name in ("nm", "bap"):
             if name in self.streams:
-                hn = torch.tanh(self._dense(f"{name}_hidden", x))
-                outs[name] = self._dense(f"{name}_out", hn)
+                hn = torch.tanh(_dense(self, f"{name}_hidden", x))
+                outs[name] = _dense(self, f"{name}_out", hn)
 
         order = sorted(self.streams.items(), key=lambda kv: kv[1][0])
         return torch.cat([outs[n] for n, _ in order], dim=-1).float()
@@ -195,6 +266,19 @@ def build_generator(
     ``generator`` (seed 0 when omitted) with flax's init rules; move it to
     the device with ``.to(device)``."""
     kind = model_cfg.generator
+    if kind in ("blstm", "bgru"):
+        return BLSTMGenerator(
+            feat_dim=vocoder.feature_size,
+            label_dim=label_dim,
+            hidden_size=model_cfg.blstm_size,
+            num_layers=model_cfg.blstm_layers,
+            cell_type="gru" if kind == "bgru" else "lstm",
+            compute_dtype=model_cfg.compute_dtype,
+            param_dtype=model_cfg.param_dtype,
+            norm=model_cfg.gen_norm,
+            dropout_rate=model_cfg.dropout_rate,
+            generator=generator,
+        )
     if kind in ("cnn", "cnn_blstm"):
         return CNNGenerator(
             vocoder=vocoder,
@@ -211,7 +295,7 @@ def build_generator(
             dropout_rate=model_cfg.dropout_rate,
             generator=generator,
         )
-    if kind in ("fc", "blstm", "bgru"):
+    if kind == "fc":
         raise NotImplementedError(
             f"generator={kind!r} is not ported yet (ROADMAP: modules still to "
             "port, models)"

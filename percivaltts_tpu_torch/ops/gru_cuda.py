@@ -1,0 +1,288 @@
+"""Fused bidirectional GRU, forward and BPTT: the CUDA kernels, their plain
+twins, and the autograd function that pairs them.
+
+Counterpart of the GRU half of ``percivaltts_tpu/ops/lstm_pallas.py``
+(``_gru_fwd_kernel`` / ``_bigru_fwd_pallas``, ``_gru_bwd_kernel`` /
+``_bigru_bwd_pallas``, the ``bigru_core`` custom VJP, ``bigru_pallas``).
+flax ``GRUCell`` math, gate order r, z, n, over hoisted input gates
+``gx = x·W_i + b`` (time-major ``(T, B, 3H)``)::
+
+    r = σ(gx_r + h·W_hr),  z = σ(gx_z + h·W_hz)
+    n = tanh(gx_n + r ⊙ (h·W_hn + b_hn)),  h' = (1 − z) ⊙ n + z ⊙ h
+
+with an f32 carry and ``h`` rounded to the compute dtype before the
+recurrent product. The BPTT reads the previous state from the saved
+outputs ``y`` (so in the compute dtype), and rounds d(gates) and
+``dnr = dn_pre·r`` to the compute dtype before they are stored or fed back.
+
+``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
+tensors launch ``csrc/bigru_fwd.cu`` / ``csrc/bigru_bwd.cu`` (or raise), CPU
+tensors take ``bigru_fwd_reference`` / ``bigru_bwd_reference``. There is no
+other fallback. ``bigru_core`` is the differentiable entry: it runs the
+forward kernel, and the BPTT kernel in the backward pass.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from percivaltts_tpu_torch.ops.lstm_cuda import _DTYPE_CODES, _one_device, rows_per_block
+
+
+def _gates(gh: torch.Tensor, gx: torch.Tensor, bn: torch.Tensor, H: int):
+    """(r, z, n, gh_n + b_hn) from the f32 recurrent and input gates."""
+    r = torch.sigmoid(gx[:, :H] + gh[:, :H])
+    z = torch.sigmoid(gx[:, H : 2 * H] + gh[:, H : 2 * H])
+    ghn = gh[:, 2 * H :] + bn
+    n = torch.tanh(gx[:, 2 * H :] + r * ghn)
+    return r, z, n, ghn
+
+
+def bigru_fwd_reference(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
+    """Plain PyTorch twin of the forward kernel: ``(T, B, 3H)`` input gates
+    per direction, ``(H, 3H)`` recurrent kernels and ``(H,)`` n-branch
+    biases → ``(y_f, y_b)``, each ``(T, B, H)`` in the compute dtype.
+    ``y_b[t]`` is the backward direction's state at frame t."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    T, B, G = gx_f.shape
+    H = G // 3
+    dt = gx_f.dtype
+    outs = []
+    for gx, wh, bn, steps in ((gx_f, wh_f, bn_f, range(T)),
+                              (gx_b, wh_b, bn_b, range(T - 1, -1, -1))):
+        w, b = wh.float(), bn.float()
+        h = gx.new_zeros((B, H), dtype=torch.float32)
+        ys = []
+        for t in steps:
+            _, z, n, _ = _gates(h.to(dt).float() @ w, gx[t].float(), b, H)
+            h = (1.0 - z) * n + z * h
+            ys.append(h.to(dt))
+        if steps.step < 0:
+            ys.reverse()
+        outs.append(torch.stack(ys))
+    return outs[0], outs[1]
+
+
+def bigru_bwd_reference(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
+    """Plain PyTorch twin of the BPTT kernel (``_gru_bwd_kernel``): the
+    saved input gates, recurrent kernels and biases, the previous states
+    ``hp`` (the compute-dtype outputs at t−1 for the forward direction, t+1
+    for the backward one) and the output gradients ``dy`` (each
+    ``(T, B, H)``) → ``(dgx_f, dgx_b, dnr_f, dnr_b)``: ``dgx`` =
+    ``[dr_pre, dz_pre, dn_pre]`` ``(T, B, 3H)`` and ``dnr = dn_pre·r``
+    ``(T, B, H)``, in the compute dtype. Gates are recomputed from
+    ``gx + hp·W_h``; dh is carried in f32."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    _check_states(gx_f, hp_f, hp_b, dy_f, dy_b)
+    T, B, G = gx_f.shape
+    H = G // 3
+    dt = gx_f.dtype
+    outs = []
+    for gx, wh, bn, hp, dy, steps in (
+        (gx_f, wh_f, bn_f, hp_f, dy_f, range(T - 1, -1, -1)),
+        (gx_b, wh_b, bn_b, hp_b, dy_b, range(T)),
+    ):
+        w, b = wh.float(), bn.float()
+        dh_carry = gx.new_zeros((B, H), dtype=torch.float32)
+        dgx = torch.empty_like(gx)
+        dnr_out = torch.empty_like(hp)
+        for t in steps:
+            hprev = hp[t].float()
+            r, z, n, ghn = _gates(hprev @ w, gx[t].float(), b, H)
+            dh = dy[t].float() + dh_carry
+            dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+            dr_pre = dn_pre * ghn * r * (1.0 - r)
+            dz_pre = dh * (hprev - n) * z * (1.0 - z)
+            dnr = dn_pre * r
+            dgx[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1).to(dt)
+            dnr_out[t] = dnr.to(dt)
+            dgh = torch.cat([dr_pre, dz_pre, dnr], dim=-1).to(dt)
+            dh_carry = dh * z + dgh.float() @ w.T
+        outs.append((dgx, dnr_out))
+    (dgx_f, dnr_f), (dgx_b, dnr_b) = outs
+    return dgx_f, dgx_b, dnr_f, dnr_b
+
+
+def _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b) -> None:
+    if gx_f.dim() != 3 or gx_f.shape[-1] % 3 or min(gx_f.shape) < 1:
+        raise ValueError(f"gx_f must be (T, B, 3H) with T, B, H >= 1, got {tuple(gx_f.shape)}")
+    H = gx_f.shape[-1] // 3
+    if gx_b.shape != gx_f.shape:
+        raise ValueError(f"gx_b {tuple(gx_b.shape)} != gx_f {tuple(gx_f.shape)}")
+    for name, w in (("wh_f", wh_f), ("wh_b", wh_b)):
+        if tuple(w.shape) != (H, 3 * H):
+            raise ValueError(f"{name} must be ({H}, {3 * H}), got {tuple(w.shape)}")
+    for name, b in (("bn_f", bn_f), ("bn_b", bn_b)):
+        if tuple(b.shape) != (H,):
+            raise ValueError(f"{name} must be ({H},), got {tuple(b.shape)}")
+    dts = {t.dtype for t in (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)}
+    if len(dts) != 1 or gx_f.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the BiGRU takes one dtype of float32/bfloat16, got {dts}")
+
+
+def _check_states(gx_f, *states) -> None:
+    T, B, G = gx_f.shape
+    for s in states:
+        if tuple(s.shape) != (T, B, G // 3):
+            raise ValueError(f"states must be {(T, B, G // 3)}, got {tuple(s.shape)}")
+        if s.dtype != gx_f.dtype:
+            raise TypeError(f"states must be {gx_f.dtype}, got {s.dtype}")
+
+
+def _launch_geometry(device, B: int, H: int, name: str, multiple: int):
+    # one thread per gate column, in whole warps where the kernel shuffles
+    if 3 * H > 1024 or H % multiple:
+        raise ValueError(
+            f"the CUDA {name} takes H <= 341" + (f" and a multiple of {multiple}" if multiple > 1 else "")
+            + f", got H={H}"
+        )
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
+
+
+def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
+    """Both GRU directions over precomputed input gates, in one launch →
+    ``(y_f, y_b)``.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run
+    :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype than
+    float32/bfloat16, a shape mismatch, H > 341 on CUDA, non-contiguous CUDA
+    inputs, CUDA inputs that require a gradient under grad mode, or a launch
+    error. Every launch adds one to ``bigru_fwd.launches``."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    device = _one_device("bigru_fwd", ins, "ops.gru_cuda.bigru_core")
+    if device.type == "cpu":
+        return bigru_fwd_reference(*ins)
+
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    T, B, G = gx_f.shape
+    H = G // 3
+    rows, stream = _launch_geometry(device, B, H, "BiGRU", 1)
+    yf = torch.empty((T, B, H), dtype=gx_f.dtype, device=device)
+    yb = torch.empty_like(yf)
+    with torch.cuda.device(device):
+        err = lib.percival_bigru_fwd(
+            *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(),
+            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+        )
+    _build.check(err, "bigru_fwd launch")
+    bigru_fwd.launches += 1
+    return yf, yb
+
+
+bigru_fwd.launches = 0
+
+
+def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
+    """BPTT for both directions in one launch → ``(dgx_f, dgx_b, dnr_f,
+    dnr_b)``.
+
+    Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch the
+    hand-written kernel; CPU tensors run the twin. Raises on mixed devices,
+    dtypes or shapes, non-contiguous CUDA inputs, CUDA inputs that require a
+    gradient under grad mode, H not a multiple of 32 (or above 341) on CUDA,
+    or a launch error. Every launch adds one to ``bigru_bwd.launches``."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    _check_states(gx_f, hp_f, hp_b, dy_f, dy_b)
+    ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
+    device = _one_device("bigru_bwd", ins, "ops.gru_cuda.bigru_core")
+    if device.type == "cpu":
+        return bigru_bwd_reference(*ins)
+
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    T, B, G = gx_f.shape
+    H = G // 3
+    # the dgh·W_hᵀ reduction shuffles over whole warps of the 3H threads
+    rows, stream = _launch_geometry(device, B, H, "BiGRU BPTT", 32)
+    dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
+    dnr_f, dnr_b = torch.empty_like(hp_f), torch.empty_like(hp_b)
+    with torch.cuda.device(device):
+        err = lib.percival_bigru_bwd(
+            *(t.data_ptr() for t in ins),
+            dgx_f.data_ptr(), dgx_b.data_ptr(), dnr_f.data_ptr(), dnr_b.data_ptr(),
+            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+        )
+    _build.check(err, "bigru_bwd launch")
+    bigru_bwd.launches += 1
+    return dgx_f, dgx_b, dnr_f, dnr_b
+
+
+bigru_bwd.launches = 0
+
+
+class BiGRUFunction(torch.autograd.Function):
+    """The forward kernel with the BPTT kernel as its backward (the
+    ``bigru_core`` custom VJP, ``lstm_pallas.py:654-688``). ``fwd`` / ``bwd``
+    are the kernel wrappers or their plain twins. First order only, as
+    :class:`~percivaltts_tpu_torch.ops.lstm_cuda.BiLSTMFunction`."""
+
+    @staticmethod
+    def forward(ctx, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, fwd, bwd):
+        yf, yb = fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+        ctx.save_for_backward(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, yf, yb)
+        ctx.bwd = bwd
+        return yf, yb
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dyf, dyb):
+        gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, yf, yb = ctx.saved_tensors
+        # an output that fed nothing has no gradient; the slices of the
+        # (T, B, 2H) concatenation arrive non-contiguous
+        dyf = torch.zeros_like(yf) if dyf is None else dyf.contiguous()
+        dyb = torch.zeros_like(yb) if dyb is None else dyb.contiguous()
+        # previous state per direction from the saved (compute-dtype)
+        # outputs: t-1 for fwd, t+1 for bwd
+        z = torch.zeros_like(yf[:1])
+        hp_f = torch.cat([z, yf[:-1]])
+        hp_b = torch.cat([yb[1:], z])
+        dgx_f, dgx_b, dnr_f, dnr_b = ctx.bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b,
+                                             hp_f, hp_b, dyf, dyb)
+        H = wh_f.shape[0]
+
+        def dwh(hp, dgx, dnr):
+            # Σ_t h_prevᵀ·[dr_pre, dz_pre, dnr]: the recurrent n branch's
+            # weight gradient reads dnr, not dn_pre. One GEMM outside the kernel
+            d = torch.cat([dgx[..., : 2 * H], dnr], dim=-1)
+            return hp.reshape(-1, H).T @ d.reshape(-1, 3 * H)
+
+        def dbn(dnr):
+            return dnr.float().sum(dim=(0, 1))
+
+        return (dgx_f, dgx_b,
+                dwh(hp_f, dgx_f, dnr_f).to(wh_f.dtype), dwh(hp_b, dgx_b, dnr_b).to(wh_b.dtype),
+                dbn(dnr_f).to(bn_f.dtype), dbn(dnr_b).to(bn_b.dtype), None, None)
+
+
+def bigru_core(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, fwd=bigru_fwd, bwd=bigru_bwd):
+    """The recurrence, differentiable: through :class:`BiGRUFunction` when
+    grad mode is on and an input requires a gradient, else ``fwd`` alone."""
+    args = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return BiGRUFunction.apply(*args, fwd, bwd)
+    return fwd(*args)
+
+
+def bigru_core_reference(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
+    """:func:`bigru_core` on the plain twins of both kernels."""
+    return bigru_core(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, bigru_fwd_reference, bigru_bwd_reference)
+
+
+def bigru(x, wi_f, wh_f, b_f, bn_f, wi_b, wh_b, b_b, bn_b, core=bigru_core):
+    """``(B, T, D)`` → ``(B, T, 2H)`` fused bidirectional GRU
+    (``bigru_pallas``). ``b`` is the input-projection bias (r, z, n
+    concatenated), ``bn`` the recurrent n-branch bias. The input projections
+    ``x @ W_i + b`` are plain GEMMs outside the recurrence, as in the JAX
+    package; ``core`` runs the recurrence (tests and the smoke run
+    substitute the plain twins)."""
+    gx_f = (x @ wi_f + b_f).transpose(0, 1).contiguous()  # (T, B, 3H)
+    gx_b = (x @ wi_b + b_b).transpose(0, 1).contiguous()
+    yf, yb = core(gx_f, gx_b, wh_f.contiguous(), wh_b.contiguous(),
+                  bn_f.contiguous(), bn_b.contiguous())
+    return torch.cat([yf, yb], dim=-1).transpose(0, 1)

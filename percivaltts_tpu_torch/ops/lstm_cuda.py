@@ -124,11 +124,11 @@ def _check_states(gx_f, *states) -> None:
             raise TypeError(f"states must be {gx_f.dtype}, got {s.dtype}")
 
 
-def _one_device(name: str, tensors) -> torch.device:
+def _one_device(name: str, tensors, entry: str = "ops.lstm_cuda.bilstm_core") -> torch.device:
     """The one device of ``tensors``; raises on several devices, on a device
     other than cuda/cpu, and on non-contiguous CUDA tensors or CUDA tensors
     that require a gradient under grad mode (a kernel's output carries no
-    graph: the differentiable entry is :func:`bilstm_core`)."""
+    graph: the differentiable entry is ``entry``)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name} inputs lie on several devices: {devices}")
@@ -142,7 +142,7 @@ def _one_device(name: str, tensors) -> torch.device:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} launches a kernel without an autograd graph; inputs that "
-            "require a gradient go through ops.lstm_cuda.bilstm_core"
+            f"require a gradient go through {entry}"
         )
     return device
 

@@ -10,7 +10,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from percivaltts_tpu.data.normalize import NormStats
+from percivaltts_tpu_torch.data.normalize import NormStats
 
 
 def _affine(stats: NormStats, device) -> tuple:

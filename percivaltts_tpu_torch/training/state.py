@@ -15,7 +15,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from percivaltts_tpu.config import Configuration, TrainConfig
+from percivaltts_tpu_torch.config import Configuration, TrainConfig
 from percivaltts_tpu_torch.models import build_critic, build_generator
 
 
@@ -48,10 +48,11 @@ def make_adam(params, lr: float, train: TrainConfig) -> torch.optim.Adam:
 
 
 def make_gan_state(
-    cfg: Configuration, label_dim: int, seed: Optional[int] = None, device="cpu"
+    cfg: Configuration, label_dim: int, seed: Optional[int] = None, device="cuda"
 ) -> GANState:
     """Build the generator (and the critic for ``trainer="wgan"``) on
-    ``device``, their optimizers, the EMA copy and the step generator.
+    ``device`` (the card unless the caller names another, e.g. ``"cpu"``),
+    their optimizers, the EMA copy and the step generator.
     Parameters are drawn on the CPU from one ``torch.Generator`` seeded with
     ``seed`` (``cfg.train.seed`` when None), generator first; the step
     generator lives on ``device`` with the same seed."""

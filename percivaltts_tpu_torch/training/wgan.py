@@ -9,9 +9,10 @@ Per generator update, ``n_critic`` critic updates each minimizing
 ``i % gp_every == 0``), then one generator update minimizing
 ``−D(G(lab)) + lse_weight·LSE`` against the UPDATED critic, then the EMA.
 The fakes for all critic updates come from one no-grad generator pass over
-the ``n_critic·B`` stacked label rows, in training mode. The generator's
-BiLSTM runs the forward kernel in that pass and in the generator update,
-and the BPTT kernel in the update's backward.
+the ``n_critic·B`` stacked label rows, in training mode. Each recurrent
+layer of the generator (BiLSTM or BiGRU) runs its forward kernel in that
+pass and in the generator update, and its BPTT kernel in the update's
+backward.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from percivaltts_tpu.config import TrainConfig
+from percivaltts_tpu_torch.config import TrainConfig
 from percivaltts_tpu_torch.training.losses import masked_mse, transition_weights
 from percivaltts_tpu_torch.training.state import GANState, ema_update
 

@@ -9,6 +9,8 @@ jax), are flattened to ``/``-joined flax paths such as ``trunk_0/kernel`` or
 * Conv kernel (k, in, out)    → ``nn.Conv1d.weight`` (out, in, k)
 * LSTM per-gate ``i{c}`` / ``h{c}`` / ``b{c}`` → ``wi`` / ``wh`` / ``b``,
   concatenated in gate order i, f, g, o
+* GRU per-gate ``i{c}`` / ``h{c}`` / ``b{c}`` → ``wi`` / ``wh`` / ``b``,
+  concatenated in gate order r, z, n, and ``bhn`` → ``bn``
 * LayerNorm ``scale`` / ``bias`` → ``nn.LayerNorm.weight`` / ``bias``
 
 A missing or an unused key raises. The same flat mapping is what
@@ -26,9 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from percivaltts_tpu_torch.models.rnn import LSTMDirParams
+from percivaltts_tpu_torch.models.rnn import GRUDirParams, LSTMDirParams
 
-_GATES = "ifgo"
+_GATES = {LSTMDirParams: "ifgo", GRUDirParams: "rzn"}
 
 Entry = Tuple[List[str], torch.nn.Parameter, Callable[[List[np.ndarray]], np.ndarray]]
 
@@ -74,11 +76,14 @@ def _entries(model: nn.Module) -> Iterator[Entry]:
         elif isinstance(mod, nn.LayerNorm):
             yield [f"{path}/scale"], mod.weight, lambda a: a[0]
             yield [f"{path}/bias"], mod.bias, lambda a: a[0]
-        elif isinstance(mod, LSTMDirParams):
+        elif isinstance(mod, (LSTMDirParams, GRUDirParams)):
+            gates = _GATES[type(mod)]
             cat = lambda a: np.concatenate(a, axis=-1)  # noqa: E731
-            yield [f"{path}/i{c}" for c in _GATES], mod.wi, cat
-            yield [f"{path}/h{c}" for c in _GATES], mod.wh, cat
-            yield [f"{path}/b{c}" for c in _GATES], mod.b, cat
+            yield [f"{path}/i{c}" for c in gates], mod.wi, cat
+            yield [f"{path}/h{c}" for c in gates], mod.wh, cat
+            yield [f"{path}/b{c}" for c in gates], mod.b, cat
+            if isinstance(mod, GRUDirParams):
+                yield [f"{path}/bhn"], mod.bn, lambda a: a[0]
 
 
 def _converted(model: nn.Module, params: Mapping) -> List[Tuple[nn.Parameter, np.ndarray]]:

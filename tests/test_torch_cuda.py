@@ -4,17 +4,27 @@ Imports no jax, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-(``--noconftest``: the suite's conftest configures jax.) Tolerances: f32
-1e-4 (sums and transcendentals in another order); bf16 2e-2 (bf16 outputs,
-and h rounded to bf16 before each product, so a one-ulp flip is carried);
-for the BPTT kernel in bf16, 2e-2 of max|dgx| (dz is rounded to bf16 and
-fed back through dh).
+(``--noconftest``: the suite's conftest configures jax.) Tolerances, the
+same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums and
+transcendentals in another order); bf16 2e-2 (bf16 outputs, and h rounded
+to bf16 before each product, so a one-ulp flip is carried); for the BPTT
+kernels in bf16, 2e-2 of max|dgx| (or max|dnr|: the d(gates) are rounded to
+bf16 and fed back through dh).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from percivaltts_tpu_torch.ops.gru_cuda import (
+    bigru,
+    bigru_bwd,
+    bigru_bwd_reference,
+    bigru_core,
+    bigru_core_reference,
+    bigru_fwd,
+    bigru_fwd_reference,
+)
 from percivaltts_tpu_torch.ops.lstm_cuda import (
     bilstm,
     bilstm_bwd,
@@ -188,4 +198,155 @@ def test_wgan_step_on_the_card_launches_the_kernel_pair(cuda_device):
     state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
     torch.cuda.synchronize()
     assert (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0) == (2, 1)
+    assert all(torch.isfinite(v).item() for v in m.values())
+
+
+# --- the BiGRU kernels --------------------------------------------------------
+
+
+def _gru_gates(T, B, H, dtype, device, seed):
+    """gx_f, gx_b (T, B, 3H), W_h (H, 3H) and b_hn (H,) per direction."""
+    rng = np.random.default_rng(seed)
+    arrays = (*rng.normal(size=(2, T, B, 3 * H)), *(rng.normal(size=(2, H, 3 * H)) / np.sqrt(H)),
+              *rng.normal(size=(2, H)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype) for a in arrays]
+
+
+def _gru_bwd_args(T, B, H, dtype, device, seed):
+    """The BPTT inputs: h_prev from the twin's forward outputs, random dy."""
+    args = _gru_gates(T, B, H, dtype, device, seed)
+    with torch.no_grad():
+        yf, yb = bigru_fwd_reference(*args)
+    z = torch.zeros_like(yf[:1])
+    dy = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(2, T, B, H)).astype(np.float32))
+    dy = dy.to(device=device, dtype=dtype)
+    return [*args, torch.cat([z, yf[:-1]]), torch.cat([yb[1:], z]), dy[0], dy[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,B,H", [(64, 1, 128), (517, 3, 128), (33, 9, 64), (40, 160, 128),
+                                   (40, 32, 128), (20, 5, 40)])
+def test_gru_kernel_matches_reference(cuda_device, dtype, atol, T, B, H):
+    args = _gru_gates(T, B, H, dtype, cuda_device, seed=T + B)
+    before = bigru_fwd.launches
+    with torch.no_grad():
+        got = bigru_fwd(*args)
+        want = bigru_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert bigru_fwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (T, B, H)
+        assert (g.float() - w.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64),
+                                   (40, 160, 128)])
+def test_gru_bwd_kernel_matches_reference(cuda_device, dtype, T, B, H):
+    args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
+    before = bigru_bwd.launches
+    with torch.no_grad():
+        got = bigru_bwd(*args)
+        want = bigru_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert bigru_bwd.launches == before + 1
+    for g, w, width in zip(got, want, (3 * H, 3 * H, H, H)):
+        assert g.dtype == dtype and g.shape == (T, B, width)
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= (2e-2 * scale if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype):
+    """dgx, dW_h and db_hn of the kernel pair against the twins'."""
+    base = _gru_gates(96, 6, 64, dtype, cuda_device, seed=11)
+    dy = _gru_bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
+    grads = []
+    for core in (bigru_core, bigru_core_reference):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        f0, b0 = bigru_fwd.launches, bigru_bwd.launches
+        yf, yb = core(*leaves)
+        torch.autograd.backward((yf, yb), dy)
+        torch.cuda.synchronize()
+        launched = (bigru_fwd.launches - f0, bigru_bwd.launches - b0)
+        assert launched == ((1, 1) if core is bigru_core else (0, 0))
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        scale = w.float().abs().max().item()
+        tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
+        assert g.dtype == dtype and (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_bigru_layer_matches_plain_twin(cuda_device):
+    rng = np.random.default_rng(0)
+    B, T, D, H = 2, 70, 24, 32
+    x, wi_f, wi_b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
+                     for s in ((B, T, D), (D, 3 * H), (D, 3 * H)))
+    _, _, wh_f, wh_b, bn_f, bn_b = _gru_gates(1, 1, H, torch.float32, cuda_device, seed=1)
+    b_f, b_b = torch.zeros(3 * H, device=cuda_device), torch.ones(3 * H, device=cuda_device)
+    with torch.no_grad():
+        got = bigru(x, wi_f, wh_f, b_f, bn_f, wi_b, wh_b, b_b, bn_b)
+        want = bigru(x, wi_f, wh_f, b_f, bn_f, wi_b, wh_b, b_b, bn_b, core=bigru_fwd_reference)
+    assert got.shape == (B, T, 2 * H)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gru_kernels_refuse_strides_devices_grad_and_width(cuda_device):
+    args = _gru_bwd_args(8, 2, 32, torch.float32, cuda_device, seed=3)
+    fwd_args = args[:6]
+    with pytest.raises(ValueError):
+        bigru_fwd(fwd_args[0].cpu(), *fwd_args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        bigru_fwd(fwd_args[0].transpose(0, 1).contiguous().transpose(0, 1), *fwd_args[1:])
+    with pytest.raises(ValueError, match="H <= 341"):
+        bigru_fwd(*_gru_gates(2, 1, 344, torch.float32, cuda_device, seed=4))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        bigru_bwd(*_gru_bwd_args(4, 1, 40, torch.float32, cuda_device, seed=4))
+    with pytest.raises(ValueError, match="contiguous"):
+        bigru_bwd(*args[:9], args[9].transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(TypeError):
+        bigru_bwd(*args[:9], args[9].to(torch.bfloat16))
+    fwd_args[4].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="bigru_core"):
+        bigru_fwd(*fwd_args)
+    with pytest.raises(RuntimeError, match="bigru_core"):
+        bigru_bwd(*args)
+    with torch.no_grad():
+        bigru_fwd(*fwd_args)  # no graph wanted: the kernel runs
+
+
+@pytest.mark.cuda
+def test_bgru_wgan_step_on_the_card_launches_the_gru_kernels(cuda_device):
+    """One fused WGAN-GP step with a small BGRU generator on the card: finite
+    metrics, four forward launches (2 layers x the fakes pass and the
+    generator update) and two BPTT launches (one per layer)."""
+    from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
+                                       VocoderConfig)
+    from percivaltts_tpu_torch.training.state import make_gan_state
+    from percivaltts_tpu_torch.training.wgan import make_wgan_step
+
+    cfg = Configuration(
+        data=DataConfig(batch_size=4, bucket_bounds=(64,), label_dim=13),
+        vocoder=VocoderConfig(spec_size=17, nm_size=9),
+        model=ModelConfig(generator="bgru", blstm_size=64, critic_hidden=32, critic_blocks=2),
+        train=TrainConfig(n_critic=2),
+    )
+    state = make_gan_state(cfg, 13, seed=0)  # the card by default
+    assert next(state.gen.parameters()).is_cuda
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    batch = lambda *lead: {  # noqa: E731
+        "lab": torch.randn(*lead, 4, 64, 13, generator=g, device=cuda_device),
+        "cmp": torch.randn(*lead, 4, 64, 27, generator=g, device=cuda_device),
+        "mask": torch.ones(*lead, 4, 64, device=cuda_device),
+    }
+    f0, b0 = bigru_fwd.launches, bigru_bwd.launches
+    state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
+    torch.cuda.synchronize()
+    assert (bigru_fwd.launches - f0, bigru_bwd.launches - b0) == (4, 2)
     assert all(torch.isfinite(v).item() for v in m.values())

@@ -1,16 +1,31 @@
-"""The port imports neither jax nor flax, and its chip smoke test refuses to
-run without a card.
+"""The port imports nothing of jax, flax or the JAX package, its copies of
+the reference's framework-free modules agree with the originals, and its
+chip smoke test refuses to run without a card.
 
-Checked in fresh subprocesses: this suite's conftest imports jax into the
-test process itself.
+The import checks run in fresh subprocesses: this suite's conftest imports
+jax into the test process itself.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+
+from percivaltts_tpu import config as jax_config
+from percivaltts_tpu.data import hts_labels as jax_hts
+from percivaltts_tpu.data import normalize as jax_normalize
+from percivaltts_tpu.utils import fileio as jax_fileio
+from percivaltts_tpu.utils import logging as jax_logging
+from percivaltts_tpu_torch import config
+from percivaltts_tpu_torch.data import hts_labels, normalize
+from percivaltts_tpu_torch.utils import fileio, logging
+
+# import roots the port must never load: the frameworks and the JAX package
+FORBIDDEN_ROOTS = ("jax", "flax", "jaxlib", "percivaltts_tpu")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,8 +37,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 print(json.dumps({"modules": mods,
-                  "leaked": sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib"))}))
-"""
+                  "leaked": sorted(k for k in sys.modules if k.split(".")[0] in %r)}))
+""" % (FORBIDDEN_ROOTS,)
 
 
 def _run(code_or_args, cwd=REPO):
@@ -35,28 +50,35 @@ def _run(code_or_args, cwd=REPO):
     )
 
 
-def test_port_modules_import_without_jax_or_flax():
+def test_port_modules_import_without_jax_flax_or_the_jax_package():
     proc = _run(_LIST_AND_IMPORT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {
         "percivaltts_tpu_torch._build",
         "percivaltts_tpu_torch.cli",
+        "percivaltts_tpu_torch.config",
+        "percivaltts_tpu_torch.data.hts_labels",
+        "percivaltts_tpu_torch.data.normalize",
         "percivaltts_tpu_torch.eval.serve",
         "percivaltts_tpu_torch.models.critic",
         "percivaltts_tpu_torch.models.generators",
+        "percivaltts_tpu_torch.models.rnn",
+        "percivaltts_tpu_torch.ops.gru_cuda",
         "percivaltts_tpu_torch.ops.lstm_cuda",
         "percivaltts_tpu_torch.training.losses",
         "percivaltts_tpu_torch.training.lse",
         "percivaltts_tpu_torch.training.ondevice",
         "percivaltts_tpu_torch.training.state",
         "percivaltts_tpu_torch.training.wgan",
+        "percivaltts_tpu_torch.utils.fileio",
+        "percivaltts_tpu_torch.utils.logging",
         "percivaltts_tpu_torch.weights",
     } <= set(out["modules"])
     assert out["leaked"] == []
 
 
-def test_port_sources_name_no_jax_import():
+def test_port_sources_name_no_forbidden_import():
     root = os.path.join(REPO, "percivaltts_tpu_torch")
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, files in os.walk(root):
@@ -66,7 +88,7 @@ def test_port_sources_name_no_jax_import():
             for line in f:
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                    assert words[1].split(".")[0] not in ("jax", "flax", "jaxlib"), (p, line)
+                    assert words[1].split(".")[0] not in FORBIDDEN_ROOTS, (p, line)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -86,3 +108,91 @@ def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
         proc = _run([script])
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# --- the port's copies against the originals -------------------------------
+
+
+def test_config_json_loads_to_equal_trees_in_both_packages(tmp_path):
+    """A non-default ``config.json`` written by either package loads into
+    the other to an equal ``dataclasses.asdict`` tree."""
+    kw = dict(
+        workdir=str(tmp_path / "exp"),
+        data=dict(batch_size=16, bucket_bounds=(128, 256), label_dim=13),
+        vocoder=dict(kind="world", spec_size=17, nm_size=5),
+        model=dict(generator="bgru", blstm_size=64, dropout_rate=0.1),
+        train=dict(n_critic=3, stream_weights=(("f0", 2.0),), gp_every=2),
+    )
+    trees = []
+    for pkg in (jax_config, config):
+        cfg = pkg.Configuration(
+            workdir=kw["workdir"],
+            data=pkg.DataConfig(**kw["data"]),
+            vocoder=pkg.VocoderConfig(analysis=pkg.AnalysisParams(gate_theta=0.5), **kw["vocoder"]),
+            model=pkg.ModelConfig(**kw["model"]),
+            train=pkg.TrainConfig(**kw["train"]),
+        )
+        trees.append(dataclasses.asdict(cfg))
+        path = cfg.dump(str(tmp_path / f"{pkg.__name__}.json"))
+        for other in (jax_config, config):
+            assert dataclasses.asdict(other.Configuration.load(path)) == trees[-1]
+    assert trees[0] == trees[1]
+    assert dataclasses.asdict(jax_config.Configuration()) == dataclasses.asdict(config.Configuration())
+
+
+def test_norm_stats_npz_round_trips_between_packages(tmp_path):
+    rng = np.random.default_rng(0)
+    a = [rng.normal(size=(n, 7)).astype(np.float32) * 3 + 1 for n in (40, 25)]
+    mine = normalize.compute_meanstd(a, keep_streams=[(5, 7)])
+    theirs = jax_normalize.compute_meanstd(a, keep_streams=[(5, 7)])
+    np.testing.assert_array_equal(mine.shift, theirs.shift)
+    np.testing.assert_array_equal(mine.scale, theirs.scale)
+    for src, dst in ((normalize, jax_normalize), (jax_normalize, normalize)):
+        stats = src.compute_minmax(a)
+        path = str(tmp_path / f"{src.__name__}.npz")
+        stats.save(path)
+        back = dst.NormStats.load(path)
+        np.testing.assert_array_equal(back.shift, stats.shift)
+        np.testing.assert_array_equal(back.scale, stats.scale)
+        assert back.kind == stats.kind
+        np.testing.assert_array_equal(back.normalize(a[0]), stats.normalize(a[0]))
+
+
+def test_label_binarization_agrees_with_the_jax_package(tmp_path):
+    """A question file and a state-aligned label file made here: the same
+    (frames, questions + 9) array from both packages."""
+    hed = tmp_path / "q.hed"
+    hed.write_text('QS "C-a" {*-a+*}\nQS "C-b" {*-b+*}\nQS "L-sil" {sil^*}\n'
+                   'CQS "Pos_Fw" {@(\\d+)_}\n')
+    lines, t = [], 0
+    for i, (ph, n) in enumerate((("a", 3), ("b", 5), ("a", 4))):
+        for state in range(2, 7):
+            lines.append(f"{t} {t + n * 50000} sil^x-{ph}+x=x@{i + 1}_3[{state}]")
+            t += n * 50000
+    lab = tmp_path / "u.lab"
+    lab.write_text("\n".join(lines) + "\n")
+    got = hts_labels.binarize_label_file(str(lab), hts_labels.QuestionSet.from_hed(str(hed)))
+    want = jax_hts.binarize_label_file(str(lab), jax_hts.QuestionSet.from_hed(str(hed)))
+    assert got.shape == want.shape == (t // 50000, 4 + 9)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_feature_files_read_back_equal_across_packages(tmp_path):
+    arr = np.random.default_rng(1).normal(size=(37, 11)).astype(np.float32)
+    for src, dst in ((fileio, jax_fileio), (jax_fileio, fileio)):
+        path = str(tmp_path / f"{src.__name__}.bin")
+        src.save_binary_file(path, arr)
+        assert open(path, "rb").read() == arr.astype("<f4").tobytes()
+        np.testing.assert_array_equal(dst.load_binary_file(path, 11), arr)
+    with pytest.raises(ValueError):
+        fileio.load_binary_file(path, 10)
+
+
+def test_metrics_log_lines_read_back_with_the_jax_reader(tmp_path):
+    path = str(tmp_path / "metrics.jsonl")
+    log = logging.MetricsLogger(path)
+    log.log("train_step", step=1, loss=np.float32(0.5))
+    log.log("valid", loss=0.25)
+    log.close()
+    recs = jax_logging.read_metrics(path, kind="train_step")
+    assert len(recs) == 1 and recs[0]["loss"] == 0.5 and recs[0]["step"] == 1

@@ -93,11 +93,6 @@ def test_port_bilstm_matches_jax_scan(T, B, D, H):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_port_bilstm_gru_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BiLSTM(4, 8, cell_type="gru")
-
-
 def test_cpu_tensors_take_the_reference_and_leave_the_counter():
     arrays = _torch(*_gates(9, 2, 8, seed=3))
     before = bilstm_fwd.launches

@@ -4,7 +4,8 @@ Widths are ``__graft_entry__._tiny_cfg``'s, compute in f32; tolerance
 atol = rtol = 1e-4 (the same math with sums in another order through a few
 layers). Also pinned here: flax's tanh-GELU, flax ``SAME`` conv padding,
 float32 output in stream order, flax's init rules, the weight converter's
-refusals, and config 3's parameter count.
+refusals, and the full-width parameter counts of config 3 and of the BGRU
+and BLSTM generators.
 """
 
 import dataclasses
@@ -54,6 +55,10 @@ def _pair(model_cfg, voc, label_dim, x, seed=0):
         ("cnn", "melspec", {}),
         # an even kernel pads SAME asymmetrically (lo=1, hi=2)
         ("cnn_blstm", "pml", {"cnn_kernel_time": 4, "cnn_blocks": 2}),
+        # the recurrent generators: front end, 2 layers of 16 units per
+        # direction, readout; JAX on its scan path (f32 carries, as here)
+        ("blstm", "pml", {"blstm_size": 32}),
+        ("bgru", "world", {"blstm_size": 32}),
     ],
 )
 def test_generator_matches_jax(kind, vocoder, model_kw):
@@ -132,6 +137,27 @@ def test_config3_parameter_count():
     assert count_params(build_generator(model_cfg, voc, L)) == 3_246_691
 
 
+@pytest.mark.parametrize("kind,count", [("bgru", 726_371), ("blstm", 922_979)])
+def test_recurrent_generator_parameter_count(kind, count):
+    """Full width (the ModelConfig defaults: a 256-wide front end, 2 layers
+    of 128 units per direction, label dim 425, 99 features): both packages
+    hold the same count."""
+    model_cfg, voc, L = ModelConfig(generator=kind), VocoderConfig(), 425
+    shapes = jax.eval_shape(
+        jax_build_generator(model_cfg, voc, L).init,
+        jax.random.key(0),
+        jax.ShapeDtypeStruct((1, 64, L), jnp.float32),
+    )
+    assert jax_count_params(shapes) == count
+    assert count_params(build_generator(model_cfg, voc, L)) == count
+
+
+@pytest.mark.parametrize("kind", ["blstm", "bgru"])
+def test_recurrent_generator_rejects_layer_norm(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_generator(ModelConfig(generator=kind, gen_norm="layer"), VocoderConfig(), 13)
+
+
 def test_init_follows_flax_rules_and_seed():
     model_cfg, voc, L = ModelConfig(generator="cnn_blstm"), VocoderConfig(), 425
     g = build_generator(model_cfg, voc, L, generator=torch.Generator().manual_seed(5))
@@ -157,8 +183,6 @@ def test_init_follows_flax_rules_and_seed():
     "model_kw",
     [
         {"generator": "fc"},
-        {"generator": "blstm"},
-        {"generator": "bgru"},
         {"generator": "cnn", "conv_style": "2d"},
         {"generator": "cnn_blstm", "gen_norm": "layer"},
     ],

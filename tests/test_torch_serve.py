@@ -29,9 +29,9 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 LENGTHS = (5, 64, 70, 130, 131)  # pad groups 64, 64, 128, 192, 192
 
 
-def _setup(label_dim, seed=0):
+def _setup(label_dim, seed=0, **model_kw):
     cfg = _tiny_cfg()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32", **model_kw))
     rng = np.random.default_rng(seed)
     F = cfg.vocoder.feature_size
 
@@ -107,9 +107,22 @@ def _workdir(tmp_path, cfg, in_stats, out_stats, params):
 
 
 def test_cli_synth_matches_jax_prediction(tmp_path, capsys):
+    _check_cli_synth(tmp_path, seed=6)
+    assert "vocoder port" in capsys.readouterr().out
+
+
+def test_cli_synth_serves_a_bgru_generator(tmp_path):
+    """The weights ``.npz`` of a BGRU generator (2 layers of 8 units per
+    direction, with its ``bhn`` leaves) through ``cli synth``."""
+    _check_cli_synth(tmp_path, seed=9, generator="bgru")
+
+
+def _check_cli_synth(tmp_path, seed, **model_kw):
+    """``cli synth`` on the fixture corpus against the JAX prediction from
+    the same weights."""
     qs = QuestionSet.from_hed(os.path.join(FIXTURES, "questions_radio_style.hed"))
     label_dim = qs.dim + 9
-    cfg, in_stats, out_stats, jg, params, _ = _setup(label_dim, seed=6)
+    cfg, in_stats, out_stats, jg, params, _ = _setup(label_dim, seed=seed, **model_kw)
     cfg, cfg_path = _workdir(tmp_path, cfg, in_stats, out_stats, params)
     out = tmp_path / "feats"
     rc = cli.main(
@@ -117,7 +130,6 @@ def test_cli_synth_matches_jax_prediction(tmp_path, capsys):
         device="cpu",
     )
     assert rc == 0
-    assert "vocoder port" in capsys.readouterr().out
 
     paths = sorted(glob.glob(os.path.join(FIXTURES, "utt00*.lab")))
     labs = [binarize_label_file(p, qs, cfg.vocoder.shift_ms / 1000.0) for p in paths]

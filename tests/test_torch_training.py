@@ -121,10 +121,26 @@ WGAN_OPTIONS = {"critic_fused_pass": True, "gp_every": 2, "boundary_weight": 2.0
 
 
 def test_wgan_step_matches_jax(jstate):
-    cfg = _cfg(**WGAN_OPTIONS)
+    _check_wgan_step(_cfg(**WGAN_OPTIONS), jstate, seed=0)
+
+
+def test_bgru_wgan_step_matches_jax():
+    """The step with the BGRU generator (front end, 2 BGRU layers of 8
+    units per direction, readout), default options; the JAX generator runs
+    its GRU scan path (f32 carries, as the port's twins)."""
+    cfg = _cfg()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, generator="bgru"))
+    jst = jax.jit(lambda: jax_make_gan_state(cfg, cfg.data.label_dim, seed=7))()
+    _check_wgan_step(cfg, jst, seed=10)
+
+
+def _check_wgan_step(cfg, jstate, seed):
+    """One JAX step and one port step from ``jstate``'s weights, on the
+    same batches and ε; metrics, then both nets' Adam moments and
+    parameters."""
     L, F, nc = cfg.data.label_dim, cfg.vocoder.feature_size, cfg.train.n_critic
     state = _port_state(cfg, jstate, L)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     critic_batches, gen_batch = _batch(rng, L, F, (nc,)), _batch(rng, L, F)
 
     _, _, _, *eps_keys = jax.random.split(jstate.key, nc + 3)
