@@ -9,8 +9,11 @@ Two generators are driven through the entry points a user calls
 and the normalizing WGAN-GP step): config 3's CNN generator with its BiLSTM
 f0 head (``generator="cnn_blstm"``), and the BGRU generator
 (``generator="bgru"``: a 256-wide front end, 2 BGRU layers of 128 units per
-direction, a readout to 99 features). Phases, each of which raises on
-failure (the script exits 0 only when all passed):
+direction, a readout to 99 features); and config 3's served features go
+through the default PML vocoder (``vocoders.get_vocoder(VocoderConfig())
+.synthesize_batch``, closed loop, 2 passes), the two calls ``cli synth``
+makes. Phases, each of which raises on failure (the script exits 0 only
+when all passed):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``percivaltts_tpu_torch/csrc`` (one nvcc per
@@ -18,13 +21,19 @@ failure (the script exits 0 only when all passed):
 3. hold each recurrent kernel against its plain PyTorch twin: the BiLSTM
    forward (with and without cells) and the BiGRU forward at the serving,
    edge and training shapes, the BiLSTM and BiGRU BPTT at the training and
-   edge shapes, f32 and bf16; and each autograd pair (forward kernel +
-   BPTT kernel) against the same function on the twins;
+   edge shapes, f32 and bf16; each autograd pair (forward kernel + BPTT
+   kernel) against the same function on the twins; and the DSP kernels,
+   framing × window and overlap-add, at the vocoder's shapes and the JAX
+   package's test shapes, f32 and bf16;
 4. serve 8 requests (96…1500 frames) through each full-width generator
    (seeded init, numpy-made stats and labels): shapes, finiteness, the
    launches per generator call (1 BiLSTM forward for config 3, 2 BiGRU
    forwards for the BGRU), and agreement with the same requests served
    through the plain twins;
+4b. vocode config 3's 8 served feature sets (2 chunks of 4, padded to 512
+   and 1536 frames): waveforms of nf·80 finite samples, 14 framing and 12
+   overlap-add launches (7 and 6 a chunk), and agreement with the same
+   vocode through the DSP kernels' twins on the card;
 5. train each generator at config 3's width (B=32, T=512, n_critic=5,
    config 3's critic) from ``make_gan_state``, on raw padded batches made
    with numpy (utterances of 300–512 frames, so masks hold zeros)
@@ -32,13 +41,15 @@ failure (the script exits 0 only when all passed):
    (2 forward, 1 BPTT) launches a step for config 3, (4, 2) for the BGRU;
    one step from identical state with the kernels against the same step
    with the plain twins;
-6. time each kernel, its twin and the cuDNN call that computes the same
-   layer (``nn.LSTM`` / ``nn.GRU``, timed here only: the port never calls
-   it), each path's serve and step medians, and profile one step of each
+6. time each kernel, its twin and the library call that computes the same
+   function (``nn.LSTM`` / ``nn.GRU`` for the recurrent layers,
+   ``F.unfold`` × window and ``F.fold`` for the DSP kernels; timed here
+   only: the port never calls them), each path's serve and step medians
+   and the vocode's, and profile one step of each generator and one vocode
    for the device's busy share.
 
-Launch counts are set to 0 just before each serve or train path and read
-just after it; launches made to compare a kernel with its twin are not
+Launch counts are set to 0 just before each serve, train or vocode path
+and read just after it; launches made to compare a kernel with its twin are not
 counted. The line before the last is one JSON object describing each
 kernel; the last line is the JSON device record. Imports nothing of JAX or
 of the JAX package.
@@ -95,6 +106,26 @@ BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64)]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 AUTOGRAD_SHAPE = (512, 32, 128)
 
+# DSP kernels at the vocode path's shapes, (B, n, frame length, hop,
+# windowed): YIN's and CheapTrick's framings of a 4-utterance chunk of
+# 1536 frames, the noise STFT's (one row, Hann window), then the JAX
+# package's test shapes (tests/test_pallas.py)
+FRAME_SHAPES = [(4, 122880, 804, 80, False), (4, 122880, 800, 80, False),
+                (1, 122880, 160, 80, True), (4, 122880, 160, 80, False),
+                (2, 777, 320, 64, True), (2, 1000, 400, 80, False)]
+# overlap-add (B, nf, frame length, hop): the noise iSTFT and its window²
+# normaliser at 1536 frames, then the test shapes
+OLA_SHAPES = [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64), (2, 257, 400, 80)]
+# framing is one copy and at most one multiply; overlap-add sums in the
+# twin's order with the twin's rounding: both bit for bit (OLA held to
+# 1e-6 of the largest value, in case a compiler contracts differently)
+OLA_TOL = 1e-6
+# the vocode through the kernels against the same vocode through the twins
+# (everything else identical): the kernels equal the twins, so 0 expected
+VOCODE_TOL = 1e-4
+VOCODE_LAUNCHES = {"frame_window": 14, "overlap_add": 12}  # 2 chunks x (7, 6)
+N_TIMED_VOCODES = 3
+
 TRAIN_B, TRAIN_T, LABEL_DIM = 32, 512, 425
 UTT_FRAMES = (300, 512)  # utterance lengths: every batch pads, masks hold zeros
 N_CHECKED_STEPS = 3
@@ -117,11 +148,13 @@ STEP_MOMENT_TOL = 2e-2
 
 def _kernels() -> dict:
     """The kernel wrappers by name; each counts its launches."""
+    from percivaltts_tpu_torch.ops.frames_cuda import frame_window, overlap_add
     from percivaltts_tpu_torch.ops.gru_cuda import bigru_bwd, bigru_fwd
     from percivaltts_tpu_torch.ops.lstm_cuda import bilstm_bwd, bilstm_fwd
 
     return {"bilstm_fwd": bilstm_fwd, "bilstm_bwd": bilstm_bwd,
-            "bigru_fwd": bigru_fwd, "bigru_bwd": bigru_bwd}
+            "bigru_fwd": bigru_fwd, "bigru_bwd": bigru_bwd,
+            "frame_window": frame_window, "overlap_add": overlap_add}
 
 
 def _zero_counts() -> None:
@@ -396,7 +429,7 @@ def _serve_path(dev, kind: str) -> dict:
     frames = sum(REQUEST_LENGTHS)
     print(f"[time] serve {kind}, {len(labs)} requests ({frames} frames): median {med * 1e3:.3f} ms "
           f"(min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}), {frames / med:.0f} frames/s")
-    return {"counts": counts, "serve_ms": med * 1e3, "err": float(serve_err)}
+    return {"counts": counts, "serve_ms": med * 1e3, "err": float(serve_err), "feats": feats}
 
 
 def _train_setup(dev, kind: str):
@@ -662,6 +695,223 @@ def _time_kernels(dev) -> dict:
     return out
 
 
+def _check_dsp_kernels(dev) -> dict:
+    """Phase 3, the DSP kernels: framing × window and overlap-add against
+    their twins at the vocode path's shapes and the test shapes, f32 and
+    bf16. Returns each kernel's largest f32 |kernel − twin|."""
+    from percivaltts_tpu_torch.ops import frames_cuda as fc
+    from percivaltts_tpu_torch.ops.stft import hann_window
+
+    err = {"frame_window": 0.0, "overlap_add": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for B, n, fl, hop, windowed in FRAME_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(n + fl)
+            x = torch.randn(B, n, generator=g, device=dev).to(dtype)
+            w = hann_window(fl, device=dev).to(dtype) if windowed else None
+            got = _launch_once(fc.frame_window, x, fl, hop, w)
+            e = _compare(f"[frame_window] B={B} n={n} fl={fl} hop={hop} window={windowed} {dt}",
+                         [got], [fc.frame_window_reference(x, fl, hop, w)], 0.0, relative=False)
+            err["frame_window"] = max(err["frame_window"], e if dtype == torch.float32 else 0.0)
+        for B, nf, fl, hop in OLA_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(nf + fl)
+            frames = torch.randn(B, nf, fl, generator=g, device=dev).to(dtype)
+            got = _launch_once(fc.overlap_add, frames, hop, nf * hop)
+            e = _compare(f"[overlap_add] B={B} nf={nf} fl={fl} hop={hop} {dt}", [got],
+                         [fc.overlap_add_reference(frames, hop, nf * hop)], OLA_TOL, relative=True)
+            err["overlap_add"] = max(err["overlap_add"], e if dtype == torch.float32 else 0.0)
+    return err
+
+
+class _DspTwins:
+    """Within the block, every framing and overlap-add of the port runs the
+    kernels' plain twins (on whatever device the tensors lie)."""
+
+    def __enter__(self):
+        from percivaltts_tpu_torch.ops import frames_cuda as fc
+
+        self.saved = (fc.frame_window, fc.overlap_add)
+        fc.frame_window, fc.overlap_add = fc.frame_window_reference, fc.overlap_add_reference
+
+    def __exit__(self, *exc):
+        from percivaltts_tpu_torch.ops import frames_cuda as fc
+
+        fc.frame_window, fc.overlap_add = self.saved
+
+
+def _vocode_path(dev, feats) -> dict:
+    """Phase 4b and the vocode timing of phase 6: config 3's served features
+    through the default PML vocoder on the card."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    voc = get_vocoder(VocoderConfig(), device=dev)
+    hop, fs = voc.cfg.shift_samples, voc.cfg.fs
+    _zero_counts()
+    wavs = voc.synthesize_batch(feats)
+    counts = _counts()
+    print(f"[vocode] {len(feats)} utterances ({sum(f.shape[0] for f in feats)} frames), "
+          f"closed_loop={voc.cfg.closed_loop}; launches {counts}")
+    want = {name: VOCODE_LAUNCHES.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"the vocode launched {counts}, not {want}")
+    for f, w in zip(feats, wavs):
+        if w.shape != (f.shape[0] * hop,) or w.dtype != np.float32 or not np.isfinite(w).all():
+            raise AssertionError(f"bad waveform for {f.shape[0]} frames: {w.shape} {w.dtype}")
+    with _DspTwins():
+        plain = voc.synthesize_batch(feats)
+    err = max(np.abs(a - b).max() for a, b in zip(wavs, plain))
+    scale = max(np.abs(b).max() for b in plain)
+    print(f"[vocode] max|kernels-twins| over all samples = {err:.3g} (tol {VOCODE_TOL * scale:.3g}; "
+          f"max|twins| {scale:.3g}); rms of the waveforms "
+          + ", ".join(f"{np.sqrt(np.mean(w ** 2)):.3g}" for w in wavs))
+    if not err <= VOCODE_TOL * scale:
+        raise AssertionError("the vocode through the kernels disagrees with the twins'")
+
+    audio_s = sum(len(w) for w in wavs) / fs
+    lat = []
+    for _ in range(N_TIMED_VOCODES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voc.synthesize_batch(feats)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    med = statistics.median(lat)
+    print(f"[time] vocode of {audio_s:.2f} s of audio: median {med * 1e3:.3f} ms (min "
+          f"{min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}, {N_TIMED_VOCODES} runs), real-time "
+          f"factor {med / audio_s:.4f}, {audio_s / med:.1f} s of audio per s")
+    print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        voc.synthesize_batch(feats)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    share = _busy_share(prof, wall)
+    busy_share = None
+    if share is None:
+        print(f"[profile vocode] {wall:.3f} ms wall; the trace holds no device events: busy "
+              "share not measured")
+    else:
+        busy, busy_share, top = share
+        dsp = [t for t in top if "frame_window" in t[0] or "overlap_add" in t[0]]
+        print(f"[profile vocode] {wall:.3f} ms wall (profiled), device busy {busy:.3f} ms, busy "
+              f"share {busy_share:.3f}; {sum(n for *_, n in top)} device events; DSP kernels "
+              f"{sum(ms for _, ms, _ in dsp):.3f} ms")
+        for key, ms, count in top[:12]:
+            print(f"[profile vocode]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return {"counts": counts, "vocode_ms": med * 1e3, "audio_s": audio_s,
+            "busy_share": busy_share, "err": float(err)}
+
+
+def _dsp_bound(name: str, shape) -> tuple:
+    """(least ms, "bytes" or "operations") of one f32 DSP call: inputs read
+    once, outputs written once, against its multiplies or adds at the f32
+    rate."""
+    if name == "frame_window":
+        B, n, fl, hop, windowed = shape
+        nf = -(-n // hop)
+        nbytes = 4 * (B * n + B * nf * fl + (fl if windowed else 0))
+        ops = B * nf * fl if windowed else 0
+    else:
+        B, nf, fl, hop = shape
+        nbytes = 4 * (B * nf * fl + B * nf * hop)
+        ops = B * nf * fl
+    return _bound(nbytes, ops, torch.float32)
+
+
+def _library_dsp(name: str, shape, args):
+    """The one PyTorch call that computes the same function, as a
+    zero-argument callable: ``F.unfold`` (im2col) of the zero-padded signal,
+    times the window, for framing; ``F.fold`` (col2im) cut to the centred
+    span, for overlap-add. Timed here only; the port never calls them."""
+    import torch.nn.functional as F
+
+    if name == "frame_window":
+        B, n, fl, hop, _ = shape
+        x, w = args
+        nf = -(-n // hop)
+
+        def call():
+            xp = F.pad(x, (fl // 2, nf * hop + fl - n))[:, None, None, :]
+            cols = F.unfold(xp, (1, fl), stride=(1, hop))[..., :nf].transpose(1, 2)
+            return cols if w is None else cols * w
+        return call
+    B, nf, fl, hop = shape
+    (frames,) = args
+    span = (nf - 1) * hop + fl
+
+    def call():
+        out = F.fold(frames.transpose(1, 2), (1, span), (1, fl), stride=(1, hop))
+        return out[:, 0, 0, fl // 2: fl // 2 + nf * hop]
+    return call
+
+
+def _device_ms(fn, calls: int = 20):
+    """Device time of one call of ``fn``: the summed durations of the device
+    events ``torch.profiler`` records over ``calls`` calls, divided by
+    ``calls`` (after one warm-up call); None when the trace holds no device
+    events. A DSP call is a few microseconds of device work behind tens of
+    microseconds of host work, so CUDA events around back-to-back calls
+    time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(spans) / 1e3 / calls if spans else None
+
+
+def _time_dsp_kernels(dev) -> dict:
+    """Phase 6, DSP kernels: each at the vocode path's shapes in f32 beside
+    its twin, its bound and its library call; device time per call
+    (``torch.profiler``) for all three, and the CUDA-event time per call of
+    back-to-back calls, host work included (``call_ms``)."""
+    from percivaltts_tpu_torch.ops import frames_cuda as fc
+    from percivaltts_tpu_torch.ops.stft import hann_window
+
+    out = {"frame_window": [], "overlap_add": []}
+    for name, shapes in (("frame_window", FRAME_SHAPES[:3]), ("overlap_add", OLA_SHAPES[:2])):
+        for shape in shapes:
+            g = torch.Generator(device=dev).manual_seed(5)
+            if name == "frame_window":
+                B, n, fl, hop, windowed = shape
+                args = (torch.randn(B, n, generator=g, device=dev),
+                        hann_window(fl, device=dev) if windowed else None)
+                kern = lambda: fc.frame_window(args[0], fl, hop, args[1])  # noqa: E731
+                twin = lambda: fc.frame_window_reference(args[0], fl, hop, args[1])  # noqa: E731
+            else:
+                B, nf, fl, hop = shape
+                args = (torch.randn(B, nf, fl, generator=g, device=dev),)
+                kern = lambda: fc.overlap_add(args[0], hop, nf * hop)  # noqa: E731
+                twin = lambda: fc.overlap_add_reference(args[0], hop, nf * hop)  # noqa: E731
+            lib = _library_dsp(name, shape, args)
+            lib_err = (lib() - twin()).abs().max().item()
+            call_ms = {k: _median_ms(f, runs=7, inner=20)
+                       for k, f in (("kernel", kern), ("plain", twin), ("library", lib))}
+            dev_ms = {k: _device_ms(f) for k, f in (("kernel", kern), ("plain", twin), ("library", lib))}
+            ms = dev_ms["kernel"] or call_ms["kernel"]
+            bound_ms, bound_by = _dsp_bound(name, shape)
+            out[name].append({"shape": list(shape), "ms": ms, "plain_ms": dev_ms["plain"],
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": dev_ms["library"], "call_ms": call_ms})
+            print(f"[time] {name} {shape} f32, device time per call: kernel {dev_ms['kernel']} ms, "
+                  f"plain twin {dev_ms['plain']} ms, library {dev_ms['library']} ms (max|library-plain| "
+                  f"{lib_err:.3g}); bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
+                  f"bound; per call with host work (CUDA events, medians): kernel "
+                  f"{call_ms['kernel']:.4f} ms, plain {call_ms['plain']:.4f} ms, library "
+                  f"{call_ms['library']:.4f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this test needs an NVIDIA card",
@@ -692,23 +942,33 @@ def main() -> int:
 
     # 3. every kernel against its plain twin
     max_err = _check_kernels(dev)
+    max_err.update(_check_dsp_kernels(dev))
 
-    # 4–5. the paths: serve and train each generator
+    # 4–5. the paths: serve and train each generator, vocode config 3's features
     paths = {}
     serve = {kind: _serve_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
+    vocode = _vocode_path(dev, serve["cnn_blstm"]["feats"])
     train = {kind: _train_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
     for kind in ("cnn_blstm", "bgru"):
         paths[f"serve_{kind}"] = serve[kind]["counts"]
         paths[f"train_{kind}"] = train[kind]["counts"]
+    paths["vocode_pml"] = vocode["counts"]
 
     # 6. kernel timings
     timed = _time_kernels(dev)
+    timed.update(_time_dsp_kernels(dev))
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:145"),
         "bilstm_bwd": ("bilstm_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:233"),
         "bigru_fwd": ("bigru_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:482"),
         "bigru_bwd": ("bigru_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:553"),
+        "frame_window": ("frame_window.cu", "percivaltts_tpu/ops/pallas_kernels.py:115"),
+        "overlap_add": ("overlap_add.cu", "percivaltts_tpu/ops/pallas_kernels.py:184"),
+    }
+    library_calls = {
+        "frame_window": "F.unfold of the zero-padded signal times the window",
+        "overlap_add": "F.fold cut to the centred span",
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -727,10 +987,11 @@ def main() -> int:
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
-            "library_call": ("torch.nn.GRU" if "gru" in name else "torch.nn.LSTM")
-            + (" forward, beside the port's layer (layer_ms)" if name.endswith("fwd")
-               else " backward, beside the port layer's backward (layer_ms)"),
-            "layer_ms": first["layer_ms"],
+            "library_call": library_calls.get(name) or (
+                ("torch.nn.GRU" if "gru" in name else "torch.nn.LSTM")
+                + (" forward, beside the port's layer (layer_ms)" if name.endswith("fwd")
+                   else " backward, beside the port layer's backward (layer_ms)")),
+            "layer_ms": first.get("layer_ms"),
             "timed": timed[name],
         })
         if not any(by_path.values()):
@@ -739,6 +1000,8 @@ def main() -> int:
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "
               f"{train[kind]['step_ms']:.3f} ms, device busy share "
               f"{train[kind]['busy_share']}")
+    print(f"[summary] vocode_pml: {vocode['audio_s']:.2f} s of audio in a median "
+          f"{vocode['vocode_ms']:.3f} ms, device busy share {vocode['busy_share']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

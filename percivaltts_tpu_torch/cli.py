@@ -1,12 +1,12 @@
 """Command-line entry point of the port (counterpart of ``percivaltts_tpu/cli.py``).
 
-Ported so far: ``synth`` up to features. It reads the config, the workdir's
-normalization stats (``in_stats.npz`` / ``out_stats.npz``), the generator
-weights ``<workdir>/generator.npz`` (a flat flax-path ``.npz``, written on a
-host that has jax with ``percivaltts_tpu_torch.weights.save_npz``) and HTS
-label files, and writes one ``<uid>.cmp`` (headerless float32, the format
-``generate --save-features`` writes) per label file. Waveform synthesis
-waits for the vocoder port.
+Ported so far: ``synth``. It reads the config, the workdir's normalization
+stats (``in_stats.npz`` / ``out_stats.npz``), the generator weights
+``<workdir>/generator.npz`` (a flat flax-path ``.npz``, written on a host that
+has jax with ``percivaltts_tpu_torch.weights.save_npz``) and HTS label files,
+and writes one ``<uid>.wav`` per label file: the generator's denormalized
+features through the configured vocoder (the default PML vocoder, closed
+loop), as the JAX package's ``cli synth`` does.
 
 Usage:
     python -m percivaltts_tpu_torch.cli synth --config cfg.json [--out DIR] labels/*.lab
@@ -19,7 +19,6 @@ import glob
 import os
 import sys
 
-import numpy as np
 import torch
 
 from percivaltts_tpu_torch.config import Configuration
@@ -29,26 +28,27 @@ WEIGHTS_FILE = "generator.npz"
 
 
 def cmd_synth(args, device) -> int:
-    """HTS label file(s) → denormalized feature files, no acoustic targets
-    needed."""
+    """HTS label file(s) → synthesized wavs, no acoustic targets needed."""
+    from percivaltts_tpu_torch import weights
+    from percivaltts_tpu_torch.data.compose import save_wav
     from percivaltts_tpu_torch.data.hts_labels import QuestionSet, binarize_label_file
     from percivaltts_tpu_torch.data.normalize import NormStats
-    from percivaltts_tpu_torch.utils.fileio import save_binary_file
-    from percivaltts_tpu_torch import weights
     from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models.generators import build_generator
+    from percivaltts_tpu_torch.vocoders import get_vocoder
 
     cfg = Configuration.load(args.config)
     in_stats = NormStats.load(os.path.join(cfg.workdir, "in_stats.npz"))
     out_stats = NormStats.load(os.path.join(cfg.workdir, "out_stats.npz"))
     questions = QuestionSet.from_hed(cfg.data.question_file)
+    voc = get_vocoder(cfg.vocoder, device)
 
     label_dim = int(in_stats.shift.shape[0])
     gen = build_generator(cfg.model, cfg.vocoder, label_dim)
     wpath = os.path.join(cfg.workdir, WEIGHTS_FILE)
     weights.load_flax_params(gen, weights.load_npz(wpath))
     gen.to(device).eval()
-    print_log(f"synthesizing features on {device} with weights {wpath}")
+    print_log(f"synthesizing on {device} with weights {wpath}")
 
     outdir = args.out or os.path.join(cfg.workdir, "synth")
     os.makedirs(outdir, exist_ok=True)
@@ -59,22 +59,22 @@ def cmd_synth(args, device) -> int:
         raise FileNotFoundError(f"no label files match {args.labels}")
     shift_sec = cfg.vocoder.shift_ms / 1000.0
     labs = [binarize_label_file(p, questions, shift_sec) for p in paths]
-    feats = serve(gen, labs, in_stats, out_stats)
-    for p, f in zip(paths, feats):
+    wavs = voc.synthesize_batch(serve(gen, labs, in_stats, out_stats))
+    for p, wav in zip(paths, wavs):
         uid = os.path.splitext(os.path.basename(p))[0]
-        out_path = os.path.join(outdir, uid + ".cmp")
-        save_binary_file(out_path, np.asarray(f, np.float32))
-        print_log(f"{p} → {out_path} ({f.shape[0]} frames × {f.shape[1]})")
-    print_log("wav synthesis waits for the vocoder port (ROADMAP: vocoder DSP)")
+        out_path = os.path.join(outdir, uid + ".wav")
+        save_wav(out_path, cfg.vocoder.fs, wav)
+        print_log(f"{p} → {out_path} ({len(wav) / cfg.vocoder.fs:.2f} s)")
     return 0
 
 
 def main(argv=None, device="cuda") -> int:
-    """``device``: where the generator runs. The command line runs on the
-    card; the Python API lets a caller name another device explicitly."""
+    """``device``: where the generator and the vocoder run. The command line
+    runs on the card; the Python API lets a caller name another device
+    explicitly."""
     p = argparse.ArgumentParser(prog="percivaltts-tpu-torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
-    ps = sub.add_parser("synth", help="label files → feature files (pure inference)")
+    ps = sub.add_parser("synth", help="label files → wavs (pure inference)")
     ps.add_argument("--config", required=True)
     ps.add_argument("--out", default=None)
     ps.add_argument("labels", nargs="+", help="label file paths or globs")

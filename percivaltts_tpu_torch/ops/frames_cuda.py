@@ -1,0 +1,177 @@
+"""Centred framing × window and centred overlap-add: the CUDA kernels and
+their plain twins.
+
+Counterpart of ``percivaltts_tpu/ops/pallas_kernels.py`` (``frame_window``,
+``overlap_add``), with a leading batch axis. In the JAX package these two
+Pallas kernels are alternates that no path calls (the shifted-view XLA code of
+``ops/stft.py`` is the default there); in the port they are the framing and
+overlap-add of every ``ops/stft.py`` call on the card.
+
+``frame_window`` and ``overlap_add`` dispatch on where their tensors lie:
+CUDA tensors launch ``csrc/frame_window.cu`` / ``csrc/overlap_add.cu`` (or
+raise), CPU tensors take ``frame_window_reference`` / ``overlap_add_reference``,
+the shifted-view scheme of ``percivaltts_tpu/ops/stft.py:37-100``. There is no
+other fallback. Bounds on the card (both bytes, at 3.35 TB/s), and what each
+kernel's design does about them, are in the kernels' sources.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def frame_window_reference(x, frame_length: int, hop: int, window=None):
+    """Plain PyTorch twin of the framing kernel: ``(B, n)`` →
+    ``(B, ceil(n / hop), frame_length)``, frame i centred on sample i·hop (zeros
+    outside the signal), times ``window`` (``(frame_length,)``) when given.
+
+    Frame starts are hop-aligned, so the frames are R = ceil(fl / hop) shifted
+    views of the signal cut into hop-long blocks, as ``stft.py::frame_signal``
+    builds them; the window multiply is the kernel's one rounding."""
+    _check_frame_args(x, frame_length, hop, window)
+    B, n = x.shape
+    nf = _cdiv(n, hop)
+    R = _cdiv(frame_length, hop)
+    # the tail pad covers the (nf + R + 1) blocks read below for any fl/hop
+    xp = F.pad(x, (frame_length // 2, frame_length + 3 * hop))
+    blocks = xp[:, : (nf + R + 1) * hop].reshape(B, nf + R + 1, hop)
+    frames = torch.stack([blocks[:, r : r + nf] for r in range(R)], dim=2)
+    frames = frames.reshape(B, nf, R * hop)[..., :frame_length]
+    return frames.contiguous() if window is None else frames * window
+
+
+def overlap_add_reference(frames, hop: int, out_length: int):
+    """Plain PyTorch twin of the overlap-add kernel: ``(B, nf, fl)`` →
+    ``(B, out_length)``; frame i is added centred on sample i·hop. The R
+    shifted adds run in the order r = 0 … R−1 into a buffer of the frames'
+    dtype, as ``stft.py::overlap_add`` does, which the kernel repeats."""
+    _check_ola_args(frames, hop, out_length)
+    B, nf, fl = frames.shape
+    R = _cdiv(fl, hop)
+    fp = F.pad(frames, (0, R * hop - fl)).reshape(B, nf, R, hop)
+    buf = frames.new_zeros((B, nf + R, hop))
+    for r in range(R):
+        buf[:, r : r + nf] += fp[:, :, r]
+    half = fl // 2
+    return buf.reshape(B, -1)[:, half : half + out_length]
+
+
+def _check_frame_args(x, frame_length, hop, window) -> None:
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"x must be (B, n) with B, n >= 1, got {tuple(x.shape)}")
+    if frame_length < 1 or hop < 1:
+        raise ValueError(f"frame_length and hop must be >= 1, got {frame_length}, {hop}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"framing takes float32 or bfloat16, got {x.dtype}")
+    if window is not None:
+        if tuple(window.shape) != (frame_length,):
+            raise ValueError(f"window must be ({frame_length},), got {tuple(window.shape)}")
+        if window.dtype != x.dtype:
+            raise TypeError(f"window is {window.dtype}, the signal {x.dtype}")
+
+
+def _check_ola_args(frames, hop, out_length) -> None:
+    if frames.dim() != 3 or min(frames.shape) < 1:
+        raise ValueError(f"frames must be (B, nf, fl) with each >= 1, got {tuple(frames.shape)}")
+    if frames.dtype not in _DTYPE_CODES:
+        raise TypeError(f"overlap-add takes float32 or bfloat16, got {frames.dtype}")
+    _, nf, fl = frames.shape
+    if hop < 1:
+        raise ValueError(f"hop must be >= 1, got {hop}")
+    most = (nf + _cdiv(fl, hop)) * hop - fl // 2  # the samples the frames reach
+    if not 1 <= out_length <= most:
+        raise ValueError(f"out_length must lie in [1, {most}] for {nf} frames of {fl}, "
+                         f"hop {hop}; got {out_length}")
+
+
+def _cuda_device(name: str, tensors) -> torch.device:
+    """The one device of ``tensors`` (cuda or cpu); raises on several
+    devices, another device type, non-contiguous CUDA tensors, or CUDA
+    tensors that require a gradient under grad mode (the kernels have no
+    backward)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous CUDA inputs")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} launches a kernel without a backward; call it on "
+                           "tensors that do not require a gradient")
+    return device
+
+
+def frame_window(x, frame_length: int, hop: int, window=None):
+    """Centred framing × window, ``(B, n)`` → ``(B, ceil(n / hop), frame_length)``.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run
+    :func:`frame_window_reference`. Raises on mixed devices, another dtype
+    than float32/bfloat16 (the window's must be the signal's), a shape
+    mismatch, non-contiguous CUDA inputs, CUDA inputs that require a gradient
+    under grad mode, or a launch error. Every launch adds one to
+    ``frame_window.launches``."""
+    _check_frame_args(x, frame_length, hop, window)
+    device = _cuda_device("frame_window", (x,) if window is None else (x, window))
+    if device.type == "cpu":
+        return frame_window_reference(x, frame_length, hop, window)
+
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    B, n = x.shape
+    out = torch.empty((B, _cdiv(n, hop), frame_length), dtype=x.dtype, device=device)
+    with torch.cuda.device(device):
+        err = lib.percival_frame_window(
+            x.data_ptr(), None if window is None else window.data_ptr(), out.data_ptr(),
+            B, n, frame_length, hop, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "frame_window launch")
+    frame_window.launches += 1
+    return out
+
+
+frame_window.launches = 0
+
+
+def overlap_add(frames, hop: int, out_length: int):
+    """Centred overlap-add, ``(B, nf, fl)`` → ``(B, out_length)``.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run
+    :func:`overlap_add_reference`. Raises on another dtype than
+    float32/bfloat16, an ``out_length`` past the samples the frames reach,
+    non-contiguous CUDA frames, frames that require a gradient under grad
+    mode, or a launch error. Every launch adds one to
+    ``overlap_add.launches``."""
+    _check_ola_args(frames, hop, out_length)
+    device = _cuda_device("overlap_add", (frames,))
+    if device.type == "cpu":
+        return overlap_add_reference(frames, hop, out_length)
+
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    B, nf, fl = frames.shape
+    out = torch.empty((B, out_length), dtype=frames.dtype, device=device)
+    with torch.cuda.device(device):
+        err = lib.percival_overlap_add(
+            frames.data_ptr(), out.data_ptr(), B, nf, fl, hop, out_length,
+            _DTYPE_CODES[frames.dtype], torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "overlap_add launch")
+    overlap_add.launches += 1
+    return out
+
+
+overlap_add.launches = 0

@@ -9,7 +9,8 @@ same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums and
 transcendentals in another order); bf16 2e-2 (bf16 outputs, and h rounded
 to bf16 before each product, so a one-ulp flip is carried); for the BPTT
 kernels in bf16, 2e-2 of max|dgx| (or max|dnr|: the d(gates) are rounded to
-bf16 and fed back through dh).
+bf16 and fed back through dh). The DSP kernels (framing × window,
+overlap-add) equal their twins bit for bit in f32 and bf16.
 """
 
 import numpy as np
@@ -350,3 +351,98 @@ def test_bgru_wgan_step_on_the_card_launches_the_gru_kernels(cuda_device):
     torch.cuda.synchronize()
     assert (bigru_fwd.launches - f0, bigru_bwd.launches - b0) == (4, 2)
     assert all(torch.isfinite(v).item() for v in m.values())
+
+
+# --- the DSP kernels: framing × window and overlap-add ------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,fl,hop", [(4, 122880, 804, 80), (4, 122880, 800, 80), (1, 122880, 160, 80),
+                                        (2, 777, 320, 64), (3, 1000, 400, 80), (1, 5, 160, 80)])
+def test_frame_window_kernel_equals_twin(cuda_device, dtype, B, n, fl, hop):
+    """One copy and at most one multiply, rounded once: bit for bit."""
+    from percivaltts_tpu_torch.ops import frames_cuda
+    from percivaltts_tpu_torch.ops.stft import hann_window
+
+    g = torch.Generator(device=cuda_device).manual_seed(n + fl)
+    x = torch.randn(B, n, generator=g, device=cuda_device).to(dtype)
+    for window in (None, hann_window(fl, device=cuda_device).to(dtype)):
+        before = frames_cuda.frame_window.launches
+        got = frames_cuda.frame_window(x, fl, hop, window)
+        torch.cuda.synchronize()
+        assert frames_cuda.frame_window.launches == before + 1
+        want = frames_cuda.frame_window_reference(x, fl, hop, window)
+        assert got.shape == want.shape == (B, -(-n // hop), fl) and got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nf,fl,hop", [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64),
+                                         (3, 257, 400, 80), (1, 1, 160, 80)])
+def test_overlap_add_kernel_equals_twin(cuda_device, dtype, B, nf, fl, hop):
+    """The terms summed in the twin's order, each partial sum rounded to the
+    dtype: bit for bit."""
+    from percivaltts_tpu_torch.ops import frames_cuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(nf + fl)
+    frames = torch.randn(B, nf, fl, generator=g, device=cuda_device).to(dtype)
+    before = frames_cuda.overlap_add.launches
+    got = frames_cuda.overlap_add(frames, hop, nf * hop)
+    torch.cuda.synchronize()
+    assert frames_cuda.overlap_add.launches == before + 1
+    want = frames_cuda.overlap_add_reference(frames, hop, nf * hop)
+    assert got.shape == want.shape == (B, nf * hop) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dsp_kernels_refuse_strides_devices_and_grad(cuda_device):
+    from percivaltts_tpu_torch.ops import frames_cuda
+
+    x = torch.randn(2, 1000, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        frames_cuda.frame_window(torch.randn(1000, 2, device=cuda_device).T, 400, 80)
+    with pytest.raises(ValueError, match="several devices"):
+        frames_cuda.frame_window(x, 400, 80, torch.ones(400))
+    with pytest.raises(RuntimeError, match="backward"):
+        frames_cuda.overlap_add(torch.randn(2, 13, 160, device=cuda_device, requires_grad=True), 80, 1000)
+    with torch.no_grad():
+        frames_cuda.overlap_add(torch.randn(2, 13, 160, device=cuda_device, requires_grad=True), 80, 1000)
+
+
+@pytest.mark.cuda
+def test_vocoder_on_the_card_launches_the_dsp_kernels(cuda_device):
+    """The default PML vocoder (closed loop, 2 passes) on one 4-utterance
+    chunk: 7 framings (3 noise STFTs, YIN and CheapTrick in each of 2
+    re-analyses) and 6 overlap-adds (2 per render), finite waveforms of
+    nf·80 samples; the same vocode through the twins on the card agrees."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.ops import frames_cuda, stft
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    rng = np.random.default_rng(0)
+    feats = []
+    for nf in (100, 180, 60, 256):
+        f = np.zeros((nf, 99), np.float32)
+        f[:, 0] = np.log(120.0) + 0.1 * np.sin(np.arange(nf) / 9.0)
+        f[:, 1:66] = -6.0 - np.linspace(0, 4, 65) + 0.2 * rng.normal(size=(nf, 65))
+        f[:, 66:] = np.where((np.arange(nf) // 40 % 2 == 0)[:, None], 0.2, 1.0)
+        feats.append(f)
+    voc = get_vocoder(VocoderConfig())
+    before = (frames_cuda.frame_window.launches, frames_cuda.overlap_add.launches)
+    wavs = voc.synthesize_batch(feats)
+    launched = (frames_cuda.frame_window.launches - before[0], frames_cuda.overlap_add.launches - before[1])
+    assert launched == (7, 6)
+    for f, w in zip(feats, wavs):
+        assert w.shape == (f.shape[0] * 80,) and np.isfinite(w).all()
+    kernels = (stft.frames_cuda.frame_window, stft.frames_cuda.overlap_add)
+    try:
+        stft.frames_cuda.frame_window = frames_cuda.frame_window_reference
+        stft.frames_cuda.overlap_add = frames_cuda.overlap_add_reference
+        plain = voc.synthesize_batch(feats)
+    finally:
+        stft.frames_cuda.frame_window, stft.frames_cuda.overlap_add = kernels
+    for w, p in zip(wavs, plain):
+        assert np.abs(w - p).max() <= 1e-4 * np.abs(p).max()

@@ -18,10 +18,12 @@ import pytest
 from percivaltts_tpu import config as jax_config
 from percivaltts_tpu.data import hts_labels as jax_hts
 from percivaltts_tpu.data import normalize as jax_normalize
+from percivaltts_tpu.ops import warp as jax_warp
 from percivaltts_tpu.utils import fileio as jax_fileio
 from percivaltts_tpu.utils import logging as jax_logging
 from percivaltts_tpu_torch import config
 from percivaltts_tpu_torch.data import hts_labels, normalize
+from percivaltts_tpu_torch.ops import warp
 from percivaltts_tpu_torch.utils import fileio, logging
 
 # import roots the port must never load: the frameworks and the JAX package
@@ -58,14 +60,22 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch._build",
         "percivaltts_tpu_torch.cli",
         "percivaltts_tpu_torch.config",
+        "percivaltts_tpu_torch.data.compose",
         "percivaltts_tpu_torch.data.hts_labels",
         "percivaltts_tpu_torch.data.normalize",
         "percivaltts_tpu_torch.eval.serve",
         "percivaltts_tpu_torch.models.critic",
         "percivaltts_tpu_torch.models.generators",
         "percivaltts_tpu_torch.models.rnn",
+        "percivaltts_tpu_torch.ops.aperiodicity",
+        "percivaltts_tpu_torch.ops.cheaptrick",
+        "percivaltts_tpu_torch.ops.f0",
+        "percivaltts_tpu_torch.ops.frames_cuda",
         "percivaltts_tpu_torch.ops.gru_cuda",
         "percivaltts_tpu_torch.ops.lstm_cuda",
+        "percivaltts_tpu_torch.ops.morph",
+        "percivaltts_tpu_torch.ops.stft",
+        "percivaltts_tpu_torch.ops.warp",
         "percivaltts_tpu_torch.training.losses",
         "percivaltts_tpu_torch.training.lse",
         "percivaltts_tpu_torch.training.ondevice",
@@ -73,6 +83,8 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.training.wgan",
         "percivaltts_tpu_torch.utils.fileio",
         "percivaltts_tpu_torch.utils.logging",
+        "percivaltts_tpu_torch.vocoders.base",
+        "percivaltts_tpu_torch.vocoders.pml",
         "percivaltts_tpu_torch.weights",
     } <= set(out["modules"])
     assert out["leaked"] == []
@@ -196,3 +208,17 @@ def test_metrics_log_lines_read_back_with_the_jax_reader(tmp_path):
     log.close()
     recs = jax_logging.read_metrics(path, kind="train_step")
     assert len(recs) == 1 and recs[0]["loss"] == 0.5 and recs[0]["step"] == 1
+
+
+@pytest.mark.parametrize("bands", [9, 17, 33, 65])
+def test_warp_matrices_equal_the_originals(bands):
+    """The copied ``ops/warp.py``: band centres, the warp and the unwarp
+    matrices, bit for bit, at the vocoder's shapes."""
+    for fs, dftlen in ((16000, 1024), (22050, 2048)):
+        np.testing.assert_array_equal(warp._band_centers_hz(bands, fs), jax_warp._band_centers_hz(bands, fs))
+        for name in ("warp_matrix", "unwarp_matrix"):
+            got = getattr(warp, name)(bands, dftlen, fs)
+            want = getattr(jax_warp, name)(bands, dftlen, fs)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got, want)
+

@@ -1,8 +1,11 @@
-"""The serving slice as a whole: raw labels → features, port against JAX.
+"""The serving slice as a whole: raw labels → features → wavs, port against
+JAX.
 
 JAX side: normalize → ``models.base.predict_batch`` → denormalize, as
-``percivaltts_tpu/cli.py`` synth does. Tiny widths, f32, tolerance
-atol = rtol = 1e-4 on denormalized features (scales up to 2).
+``percivaltts_tpu/cli.py`` synth does, then its PML vocoder for ``cli
+synth``. Tiny widths, f32, tolerance atol = rtol = 1e-4 on denormalized
+features (scales up to 2); the wavs' tolerance is stated in
+``_check_cli_synth``.
 """
 
 import dataclasses
@@ -14,16 +17,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from __graft_entry__ import _tiny_cfg
 from percivaltts_tpu.data.hts_labels import QuestionSet, binarize_label_file
 from percivaltts_tpu.data.normalize import NormStats
 from percivaltts_tpu.models import build_generator as jax_build_generator
 from percivaltts_tpu.models.base import predict_batch as jax_predict_batch
-from percivaltts_tpu.utils.fileio import load_binary_file
+from percivaltts_tpu.data.compose import load_wav
+from percivaltts_tpu.data.compose import save_wav as jax_save_wav
+from percivaltts_tpu.vocoders import get_vocoder as jax_get_vocoder
 from percivaltts_tpu_torch import cli, weights
 from percivaltts_tpu_torch.eval.serve import serve
 from percivaltts_tpu_torch.models import build_generator, predict_batch, predict_utterance
+from percivaltts_tpu_torch.vocoders.pml import PMLVocoder
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 LENGTHS = (5, 64, 70, 130, 131)  # pad groups 64, 64, 128, 192, 192
@@ -106,25 +113,45 @@ def _workdir(tmp_path, cfg, in_stats, out_stats, params):
     return cfg, cfg_path
 
 
-def test_cli_synth_matches_jax_prediction(tmp_path, capsys):
-    _check_cli_synth(tmp_path, seed=6)
-    assert "vocoder port" in capsys.readouterr().out
+def test_cli_synth_matches_jax_prediction(tmp_path, monkeypatch):
+    _check_cli_synth(tmp_path, monkeypatch, seed=6)
 
 
-def test_cli_synth_serves_a_bgru_generator(tmp_path):
+def test_cli_synth_serves_a_bgru_generator(tmp_path, monkeypatch):
     """The weights ``.npz`` of a BGRU generator (2 layers of 8 units per
     direction, with its ``bhn`` leaves) through ``cli synth``."""
-    _check_cli_synth(tmp_path, seed=9, generator="bgru")
+    _check_cli_synth(tmp_path, monkeypatch, seed=9, generator="bgru")
 
 
-def _check_cli_synth(tmp_path, seed, **model_kw):
-    """``cli synth`` on the fixture corpus against the JAX prediction from
-    the same weights."""
+def _check_cli_synth(tmp_path, monkeypatch, seed, **model_kw):
+    """``cli synth`` on the fixture corpus writes one wav per label file,
+    equal to JAX serving → the JAX package's ``PMLVocoder.synthesize_batch``
+    from the same weights, with the JAX noise draw handed to the port. The
+    open loop (``closed_loop=0``): features from random weights can sit on a
+    voicing threshold, which the closed loop's re-analyses would amplify (it
+    is held in ``tests/test_torch_vocoder.py`` on well-conditioned
+    features). Tolerance, after both waveforms are clipped and quantized as
+    the wav file stores them: 2 16-bit steps plus 5e-3 of the largest
+    sample. Features from random weights change voicing every few frames,
+    and where the per-sample voicing gate crosses its threshold can move by
+    a sample between the packages (a ramp step of 1/80 of the harmonic
+    amplitude; seen: 1.8e-4 at a largest sample of 0.06)."""
     qs = QuestionSet.from_hed(os.path.join(FIXTURES, "questions_radio_style.hed"))
     label_dim = qs.dim + 9
-    cfg, in_stats, out_stats, jg, params, _ = _setup(label_dim, seed=seed, **model_kw)
+    cfg, in_stats, _, jg, params, _ = _setup(label_dim, seed=seed, **model_kw)
+    cfg = cfg.replace(vocoder=dataclasses.replace(cfg.vocoder, closed_loop=0))
+    # output stats that put the features where speech's are (f0 near 120 Hz,
+    # log amplitudes near -7, noise mask near 0.3), so the wavs stay within
+    # [-1, 1] and are compared unclipped
+    v = cfg.vocoder
+    shift = np.concatenate([[np.log(120.0)], np.full(v.spec_size, -7.0), np.full(v.nm_size, 0.3)])
+    out_stats = NormStats(shift=shift.astype(np.float32), scale=np.full(v.feature_size, 10.0, np.float32))
     cfg, cfg_path = _workdir(tmp_path, cfg, in_stats, out_stats, params)
-    out = tmp_path / "feats"
+    monkeypatch.setattr(
+        PMLVocoder, "_noise",
+        lambda self, n, s, device: torch.from_numpy(np.array(jax.random.normal(jax.random.key(s), (n,)))),
+    )
+    out = tmp_path / "wavs"
     rc = cli.main(
         ["synth", "--config", cfg_path, "--out", str(out), os.path.join(FIXTURES, "utt00*.lab")],
         device="cpu",
@@ -133,13 +160,16 @@ def _check_cli_synth(tmp_path, seed, **model_kw):
 
     paths = sorted(glob.glob(os.path.join(FIXTURES, "utt00*.lab")))
     labs = [binarize_label_file(p, qs, cfg.vocoder.shift_ms / 1000.0) for p in paths]
-    want = _jax_serve(jg, params, labs, in_stats, out_stats)
-    F = cfg.vocoder.feature_size
-    for p, w in zip(paths, want):
+    feats = _jax_serve(jg, params, labs, in_stats, out_stats)
+    want = jax_get_vocoder(cfg.vocoder).synthesize_batch(feats)
+    for p, lab, w in zip(paths, labs, want):
         uid = os.path.splitext(os.path.basename(p))[0]
-        got = load_binary_file(str(out / f"{uid}.cmp"), F)
-        assert got.shape == w.shape == (labs[paths.index(p)].shape[0], F)
-        np.testing.assert_allclose(got, w, atol=1e-4, rtol=1e-4)
+        fs, got = load_wav(str(out / f"{uid}.wav"))
+        assert fs == cfg.vocoder.fs and got.shape == (lab.shape[0] * cfg.vocoder.shift_samples,)
+        jax_save_wav(str(tmp_path / "jax" / f"{uid}.wav"), fs, w)
+        _, w16 = load_wav(str(tmp_path / "jax" / f"{uid}.wav"))
+        np.testing.assert_allclose(got, w16, atol=2.0 / 32768 + 5e-3 * np.abs(w).max())
+        assert 0.01 < np.abs(w).max() < 1.0  # sound, and no sample clipped
 
 
 def test_cli_synth_refuses_missing_labels_and_weights(tmp_path):
