@@ -20,7 +20,9 @@ when all passed):
    source, all at once, then one link);
 3. hold each recurrent kernel against its plain PyTorch twin: the BiLSTM
    forward (with and without cells) and the BiGRU forward at the serving,
-   edge and training shapes, the BiLSTM and BiGRU BPTT at the training and
+   edge and training shapes, f32 (the CUDA-core kernels) and bf16 (the
+   tensor-core kernels, ``csrc/*_fwd_mma.cu``, for every H a multiple of
+   16 up to 128), the BiLSTM and BiGRU BPTT at the training and
    edge shapes, f32 and bf16; each autograd pair (forward kernel + BPTT
    kernel) against the same function on the twins; and the DSP kernels,
    framing × window and overlap-add, at the vocoder's shapes and the JAX
@@ -28,8 +30,8 @@ when all passed):
 4. serve 8 requests (96…1500 frames) through each full-width generator
    (seeded init, numpy-made stats and labels): shapes, finiteness, the
    launches per generator call (1 BiLSTM forward for config 3, 2 BiGRU
-   forwards for the BGRU), and agreement with the same requests served
-   through the plain twins;
+   forwards for the BGRU), every forward on the tensor-core route, and
+   agreement with the same requests served through the plain twins;
 4b. vocode config 3's 8 served feature sets (2 chunks of 4, padded to 512
    and 1536 frames): waveforms of nf·80 finite samples, 14 framing and 12
    overlap-add launches (7 and 6 a chunk), and agreement with the same
@@ -38,15 +40,17 @@ when all passed):
    config 3's critic) from ``make_gan_state``, on raw padded batches made
    with numpy (utterances of 300–512 frames, so masks hold zeros)
    normalized on the device: 3 steps with finite metrics and exactly
-   (2 forward, 1 BPTT) launches a step for config 3, (4, 2) for the BGRU;
-   one step from identical state with the kernels against the same step
-   with the plain twins;
+   (2 forward, 1 BPTT) launches a step for config 3, (4, 2) for the BGRU,
+   every forward on the tensor-core route; one step from identical state
+   with the kernels against the same step with the plain twins;
 6. time each kernel, its twin and the library call that computes the same
    function (``nn.LSTM`` / ``nn.GRU`` for the recurrent layers,
    ``F.unfold`` × window and ``F.fold`` for the DSP kernels; timed here
-   only: the port never calls them), each path's serve and step medians
-   and the vocode's, and profile one step of each generator and one vocode
-   for the device's busy share.
+   only: the port never calls them), each tensor-core forward in µs a step
+   at B = 8, 32 and 160 beside the CUDA-core kernel that bf16 took before,
+   each path's serve and step medians and the vocode's, and profile one
+   serve and one step of each generator and one vocode for the device's
+   busy share and the recurrent kernels' device time.
 
 Launch counts are set to 0 just before each serve, train or vocode path
 and read just after it; launches made to compare a kernel with its twin are not
@@ -59,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -74,14 +79,11 @@ DEVICE = "cuda:0"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# BiLSTM forward: serving and edge shapes, then the training path's: the
-# fakes pass over n_critic·B rows (without cells) and the generator update
-# (with cells)
-KERNEL_SHAPES = [(512, 8, 128), (517, 3, 128), (64, 1, 128), (1536, 8, 128),
-                 (512, 160, 128), (512, 32, 128)]
-# BiGRU forward: the same, and a narrow width (H=64)
-GRU_KERNEL_SHAPES = [(512, 8, 128), (517, 3, 128), (64, 1, 128), (1536, 8, 128),
-                     (512, 160, 128), (512, 32, 128), (33, 9, 64)]
+# BiLSTM and BiGRU forwards: serving and edge shapes, then the training
+# path's: the fakes pass over n_critic·B rows (without cells) and the
+# generator update (with cells), and a narrow width (H=64)
+KERNEL_SHAPES = [(512, 8, 128), (517, 3, 128), (64, 1, 128), (1, 1, 128), (1536, 8, 128),
+                 (512, 160, 128), (512, 32, 128), (40, 160, 128), (33, 9, 64)]
 # f32: the same math with sums and transcendentals in another order.
 # bf16: outputs are bf16 (ulp 2^-8 near 1) and h is rounded to bf16 before
 # each product, so a one-ulp rounding flip is carried into later steps.
@@ -95,8 +97,11 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # flips in the same element after two layers.
 SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371}
-TIMED_SHAPES = {"bilstm_fwd": [(512, 8, 128)], "bigru_fwd": [(512, 8, 128), (512, 160, 128)],
+# the forwards at the serving chunk, the generator update and the fakes pass
+FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
+TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
                 "bilstm_bwd": [(512, 32, 128)], "bigru_bwd": [(512, 32, 128)]}
+FWD_NAMES = ("bilstm_fwd", "bigru_fwd")  # the wrappers with two routes (``.routes``)
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
 BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64)]
@@ -158,12 +163,27 @@ def _kernels() -> dict:
 
 
 def _zero_counts() -> None:
-    for fn in _kernels().values():
+    for name, fn in _kernels().items():
         fn.launches = 0
+        if name in FWD_NAMES:
+            fn.routes = {route: 0 for route in fn.routes}
 
 
 def _counts() -> dict:
     return {name: fn.launches for name, fn in _kernels().items()}
+
+
+def _routes() -> dict:
+    """The forward wrappers' launches by route: {name: {"mma": n, "simt": n}}."""
+    kernels = _kernels()
+    return {name: dict(kernels[name].routes) for name in FWD_NAMES}
+
+
+def _all_mma(what: str, routes: dict) -> None:
+    """Every forward launch of a path went through the tensor-core route."""
+    print(f"[{what}] forward launches by route {routes}")
+    if any(r["simt"] for r in routes.values()):
+        raise AssertionError(f"{what}: a bf16 forward took the CUDA-core route: {routes}")
 
 
 def _use_twins(model):
@@ -288,13 +308,17 @@ def _compare(label, got, want, tol, relative: bool) -> float:
     return err
 
 
-def _launch_once(fn, *args, **kw):
-    """``fn(*args)`` synchronized, checking that it counted one launch."""
+def _launch_once(fn, *args, route=None, **kw):
+    """``fn(*args)`` synchronized, checking that it counted one launch (on
+    ``route``, for the forward wrappers)."""
     before = fn.launches
+    on_route = fn.routes[route] if route else 0
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     if fn.launches != before + 1:
         raise RuntimeError(f"{fn.__name__} did not count its launch")
+    if route and fn.routes[route] != on_route + 1:
+        raise RuntimeError(f"{fn.__name__} did not launch its {route} kernel")
     return out
 
 
@@ -303,24 +327,27 @@ def _check_kernels(dev) -> dict:
     bf16 |kernel − twin|."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops import lstm_cuda as l
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
 
     bf16 = torch.bfloat16
     err = {name: 0.0 for name in _kernels()}
     with torch.no_grad():
         for T, B, H in KERNEL_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
+                route = fwd_route(dtype, H)
                 args = _gates(T, B, H, dtype, dev, seed=T + B)
                 want = l.bilstm_fwd_reference(*args, with_cells=True)
                 for cells in (False, True):
-                    got = _launch_once(l.bilstm_fwd, *args, with_cells=cells)
-                    e = _compare(f"[bilstm_fwd] T={T} B={B} H={H} {str(dtype)[6:]} cells={cells}",
-                                 got, want[:len(got)], tol, relative=False)
+                    got = _launch_once(l.bilstm_fwd, *args, with_cells=cells, route=route)
+                    e = _compare(f"[bilstm_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]} "
+                                 f"cells={cells}", got, want[:len(got)], tol, relative=False)
                     err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
-        for T, B, H in GRU_KERNEL_SHAPES:
+        for T, B, H in KERNEL_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
+                route = fwd_route(dtype, H)
                 args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
-                got = _launch_once(g.bigru_fwd, *args)
-                e = _compare(f"[bigru_fwd] T={T} B={B} H={H} {str(dtype)[6:]}", got,
+                got = _launch_once(g.bigru_fwd, *args, route=route)
+                e = _compare(f"[bigru_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
                              g.bigru_fwd_reference(*args), tol, relative=False)
                 err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
         for T, B, H in BWD_SHAPES:
@@ -398,12 +425,13 @@ def _serve_path(dev, kind: str) -> dict:
     _zero_counts()
     calls[0] = 0
     feats = serve(gen, labs, in_stats, out_stats)
-    counts, gen_calls = _counts(), calls[0]
+    counts, gen_calls, routes = _counts(), calls[0], _routes()
     fwd, per_call = ("bigru_fwd", 2) if kind == "bgru" else ("bilstm_fwd", 1)
     print(f"[serve {kind}] {len(labs)} requests, {gen_calls} generator calls, launches {counts}")
     if not (counts[fwd] > 0 and counts[fwd] == per_call * gen_calls
             and sum(counts.values()) == counts[fwd]):
         raise AssertionError(f"{counts} kernel launches for {gen_calls} generator calls")
+    _all_mma(f"serve {kind}", routes)
     for n, f in zip(REQUEST_LENGTHS, feats):
         if f.shape != (n, voc.feature_size) or f.dtype != np.float32 or not np.isfinite(f).all():
             raise AssertionError(f"bad features for a {n}-frame request: {f.shape} {f.dtype}")
@@ -429,7 +457,9 @@ def _serve_path(dev, kind: str) -> dict:
     frames = sum(REQUEST_LENGTHS)
     print(f"[time] serve {kind}, {len(labs)} requests ({frames} frames): median {med * 1e3:.3f} ms "
           f"(min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}), {frames / med:.0f} frames/s")
-    return {"counts": counts, "serve_ms": med * 1e3, "err": float(serve_err), "feats": feats}
+    _profiled(f"serve {kind}", lambda: serve(gen, labs, in_stats, out_stats), RECURRENT)
+    return {"counts": counts, "routes": routes, "serve_ms": med * 1e3, "err": float(serve_err),
+            "feats": feats}
 
 
 def _train_setup(dev, kind: str):
@@ -501,6 +531,37 @@ def _busy_share(prof, wall_ms: float):
     return busy, busy / wall_ms, top
 
 
+RECURRENT = ("bilstm", "bigru")  # the recurrent kernels' symbol names hold one of these
+
+
+def _profiled(label: str, fn, keys: tuple):
+    """Run ``fn`` once under ``torch.profiler``; print its wall time, the
+    device's busy time and share, the device time of the kernels whose names
+    hold one of ``keys``, and the 12 largest kernels. Returns the busy share,
+    or None when the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    share = _busy_share(prof, wall)
+    if share is None:
+        print(f"[profile {label}] {wall:.3f} ms wall; the trace holds no device events: busy "
+              "share not measured")
+        return None
+    busy, busy_share, top = share
+    sel = [t for t in top if any(k in t[0] for k in keys)]
+    print(f"[profile {label}] {wall:.3f} ms wall (profiled), device busy {busy:.3f} ms, busy "
+          f"share {busy_share:.3f}; {sum(n for *_, n in top)} device events; {'/'.join(keys)} "
+          f"kernels {sum(ms for _, ms, _ in sel):.3f} ms x{sum(n for *_, n in sel)}")
+    for key, ms, count in top[:12]:
+        print(f"[profile {label}]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return busy_share
+
+
 def _train_path(dev, kind: str) -> dict:
     """Phase 5 and the step timing of phase 6 for one generator. Returns the
     launch counts of the checked steps and the timings."""
@@ -526,9 +587,10 @@ def _train_path(dev, kind: str) -> dict:
             raise AssertionError(f"a WGAN step launched {launched}, not {STEP_LAUNCHES[kind]}")
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"non-finite metrics at step {s}: {vals}")
-    counts = _counts()
+    counts, routes = _counts(), _routes()
     if sum(counts.values()) != fwd.launches + bwd.launches:
         raise AssertionError(f"the {kind} steps launched another generator's kernels: {counts}")
+    _all_mma(f"train {kind}", routes)
     if not all(torch.isfinite(p).all() for p in state.gen.parameters()):
         raise AssertionError("non-finite generator parameters after training")
 
@@ -578,28 +640,8 @@ def _train_path(dev, kind: str) -> dict:
           f"steps), {frames / step_ms * 1e3:.1f} frames/s")
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, *sets[0])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    share = _busy_share(prof, wall)
-    busy_share = None
-    if share is None:
-        print(f"[profile {kind}] one step {wall:.3f} ms wall; the trace holds no device "
-              "events: busy share not measured")
-    else:
-        busy, busy_share, top = share
-        rec = [t for t in top if "bilstm" in t[0] or "bigru" in t[0]]
-        print(f"[profile {kind}] one step {wall:.3f} ms wall (profiled), device busy "
-              f"{busy:.3f} ms, busy share {busy_share:.3f}; {sum(n for *_, n in top)} device "
-              f"events; recurrent kernels {sum(ms for _, ms, _ in rec):.3f} ms")
-        for key, ms, count in top[:12]:
-            print(f"[profile {kind}]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
-    return {"counts": counts, "step_ms": step_ms, "busy_share": busy_share}
+    busy_share = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
+    return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share}
 
 
 def _library_layer(kind: str, ws, dtype, dev) -> torch.nn.Module:
@@ -636,9 +678,14 @@ def _time_kernels(dev) -> dict:
     the cuDNN layer beside the port's layer (forward: ``nn.LSTM`` /
     ``nn.GRU`` against ``bilstm()`` / ``bigru()``; BPTT: their backward
     against the port layer's backward, which runs the autograd pair). All
-    bf16."""
+    bf16. Beside each forward (the tensor-core route), the CUDA-core kernel
+    that bf16 took before (``simt_ms``, the same inputs, launched through
+    ``fwd_launch``) and the forward kernel's own device time from
+    ``torch.profiler`` (``kernel_device_ms``: without the wrapper's W_hᵀ
+    packing)."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops import lstm_cuda as l
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
 
     dt = torch.bfloat16
     out = {}
@@ -656,9 +703,16 @@ def _time_kernels(dev) -> dict:
                     _bwd_args(T, B, H, dt, dev, seed=1)
                 kern = g.bigru_bwd if gru else l.bilstm_bwd
                 twin = g.bigru_bwd_reference if gru else l.bilstm_bwd_reference
+            fwd = {}
             with torch.no_grad():
                 ms = _median_ms(lambda: kern(*args), runs=7, inner=10)
                 plain_ms = _median_ms(lambda: twin(*args), runs=3)
+                if name in FWD_NAMES:
+                    launch = g.fwd_launch if gru else l.fwd_launch
+                    fwd = {"route": fwd_route(dt, H), "us_per_step": ms / T * 1e3,
+                           "simt_ms": _median_ms(lambda: launch("simt", *args), runs=7, inner=10),
+                           "kernel_device_ms": _device_ms(lambda: kern(*args),
+                                                          match=f"{name}_mma")}
 
             # the layer: the port's against cuDNN's, same weights and input
             ws = _layer_weights(kind, H, dt, dev, seed=2)
@@ -685,7 +739,13 @@ def _time_kernels(dev) -> dict:
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
             rows.append({"shape": [T, B, H], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "layer_ms": layer_ms,
-                         "library_ms": library_ms})
+                         "library_ms": library_ms, **fwd})
+            if fwd:
+                print(f"[time] {name} T,B,H={(T, B, H)} bf16, route {fwd['route']}: "
+                      f"{fwd['us_per_step']:.3f} us a step ({ms:.4f} ms a call; the kernel alone "
+                      f"{fwd['kernel_device_ms']} device ms); the CUDA-core kernel on the same "
+                      f"inputs {fwd['simt_ms']:.4f} ms ({fwd['simt_ms'] / T * 1e3:.3f} us a step), "
+                      f"{fwd['simt_ms'] / ms:.2f}x")
             print(f"[time] {name} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
                   f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({bound_by}); layer{' backward' if 'bwd' in name else ''}: "
@@ -782,27 +842,8 @@ def _vocode_path(dev, feats) -> dict:
           f"factor {med / audio_s:.4f}, {audio_s / med:.1f} s of audio per s")
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        voc.synthesize_batch(feats)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    share = _busy_share(prof, wall)
-    busy_share = None
-    if share is None:
-        print(f"[profile vocode] {wall:.3f} ms wall; the trace holds no device events: busy "
-              "share not measured")
-    else:
-        busy, busy_share, top = share
-        dsp = [t for t in top if "frame_window" in t[0] or "overlap_add" in t[0]]
-        print(f"[profile vocode] {wall:.3f} ms wall (profiled), device busy {busy:.3f} ms, busy "
-              f"share {busy_share:.3f}; {sum(n for *_, n in top)} device events; DSP kernels "
-              f"{sum(ms for _, ms, _ in dsp):.3f} ms")
-        for key, ms, count in top[:12]:
-            print(f"[profile vocode]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    busy_share = _profiled("vocode", lambda: voc.synthesize_batch(feats),
+                           ("frame_window", "overlap_add"))
     return {"counts": counts, "vocode_ms": med * 1e3, "audio_s": audio_s,
             "busy_share": busy_share, "err": float(err)}
 
@@ -850,13 +891,13 @@ def _library_dsp(name: str, shape, args):
     return call
 
 
-def _device_ms(fn, calls: int = 20):
+def _device_ms(fn, calls: int = 20, match: str = ""):
     """Device time of one call of ``fn``: the summed durations of the device
-    events ``torch.profiler`` records over ``calls`` calls, divided by
-    ``calls`` (after one warm-up call); None when the trace holds no device
-    events. A DSP call is a few microseconds of device work behind tens of
-    microseconds of host work, so CUDA events around back-to-back calls
-    time the host."""
+    events ``torch.profiler`` records over ``calls`` calls (only those whose
+    name holds ``match``), divided by ``calls`` (after one warm-up call);
+    None when the trace holds no such device events. A DSP call is a few
+    microseconds of device work behind tens of microseconds of host work, so
+    CUDA events around back-to-back calls time the host."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -866,7 +907,7 @@ def _device_ms(fn, calls: int = 20):
             fn()
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
     return sum(spans) / 1e3 / calls if spans else None
 
 
@@ -912,6 +953,21 @@ def _time_dsp_kernels(dev) -> dict:
     return out
 
 
+def _ptxas_usage(log: str) -> list:
+    """One line per compiled kernel from ``ptxas -v``'s log: registers,
+    spill stores / loads (bytes), and the (mangled) kernel name."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"{m.group(1)}/{m.group(2)}"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out.append(f"{m.group(1):>3} registers, spill {spill or '?'} B  {name}")
+            name, spill = None, ""
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this test needs an NVIDIA card",
@@ -936,9 +992,8 @@ def main() -> int:
     built = _build.build(force=True)
     print(f"[build] {built.path.name} from {len(_build.sources())} source(s) in "
           f"{built.seconds:.1f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    for line in _ptxas_usage(built.log):
+        print(f"[build] {line}")
 
     # 3. every kernel against its plain twin
     max_err = _check_kernels(dev)
@@ -949,9 +1004,14 @@ def main() -> int:
     serve = {kind: _serve_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
     vocode = _vocode_path(dev, serve["cnn_blstm"]["feats"])
     train = {kind: _train_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
+    routes = {name: {"mma": 0, "simt": 0} for name in FWD_NAMES}
     for kind in ("cnn_blstm", "bgru"):
         paths[f"serve_{kind}"] = serve[kind]["counts"]
         paths[f"train_{kind}"] = train[kind]["counts"]
+        for run in (serve[kind], train[kind]):
+            for name, by_route in run["routes"].items():
+                for route, n in by_route.items():
+                    routes[name][route] += n
     paths["vocode_pml"] = vocode["counts"]
 
     # 6. kernel timings
@@ -959,9 +1019,9 @@ def main() -> int:
     timed.update(_time_dsp_kernels(dev))
 
     sources = {
-        "bilstm_fwd": ("bilstm_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:145"),
+        "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:145"),
         "bilstm_bwd": ("bilstm_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:233"),
-        "bigru_fwd": ("bigru_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:482"),
+        "bigru_fwd": ("bigru_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:482"),
         "bigru_bwd": ("bigru_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:553"),
         "frame_window": ("frame_window.cu", "percivaltts_tpu/ops/pallas_kernels.py:115"),
         "overlap_add": ("overlap_add.cu", "percivaltts_tpu/ops/pallas_kernels.py:184"),
@@ -994,6 +1054,9 @@ def main() -> int:
             "layer_ms": first.get("layer_ms"),
             "timed": timed[name],
         })
+        if name in FWD_NAMES:  # the tensor-core route: mma.sync, bf16, H % 16 == 0, H <= 128
+            kernels[-1]["fwd_route"] = first["route"]
+            kernels[-1]["launches_by_route"] = routes[name]
         if not any(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the paths")
     for kind in ("cnn_blstm", "bgru"):

@@ -112,10 +112,14 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.percival_bilstm_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.percival_bilstm_fwd.restype = i
+    lib.percival_bilstm_fwd_mma.argtypes = [p] * 8 + [i, i, i, p]
+    lib.percival_bilstm_fwd_mma.restype = i
     lib.percival_bilstm_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
     lib.percival_bilstm_bwd.restype = i
     lib.percival_bigru_fwd.argtypes = [p] * 8 + [i, i, i, i, i, p]
     lib.percival_bigru_fwd.restype = i
+    lib.percival_bigru_fwd_mma.argtypes = [p] * 8 + [i, i, i, p]
+    lib.percival_bigru_fwd_mma.restype = i
     lib.percival_bigru_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
     lib.percival_bigru_bwd.restype = i
     lib.percival_frame_window.argtypes = [p, p, p, i, i, i, i, i, p]

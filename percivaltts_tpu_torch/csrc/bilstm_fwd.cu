@@ -37,7 +37,10 @@
 //     no global-memory load sits on the step-to-step dependency chain;
 //   * two __syncthreads per step, no atomics, no allocation, PyTorch's
 //     stream, and the launcher returns cudaGetLastError().
-// mma.sync / wgmma and splitting the 4H columns over a cluster are later work.
+// The route split (ops/mma_layout.py::fwd_route, chosen before the launch):
+// this kernel runs f32 (the parity dtype) and bf16 widths outside the
+// tensor-core route; bf16 with H a multiple of 16 up to 128 (the models'
+// H=128) runs bilstm_fwd_mma.cu, whose per-step product is mma.sync.
 
 #include <cstddef>
 

@@ -16,10 +16,14 @@ outputs ``y`` (so in the compute dtype), and rounds d(gates) and
 ``dnr = dn_pre·r`` to the compute dtype before they are stored or fed back.
 
 ``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
-tensors launch ``csrc/bigru_fwd.cu`` / ``csrc/bigru_bwd.cu`` (or raise), CPU
-tensors take ``bigru_fwd_reference`` / ``bigru_bwd_reference``. There is no
-other fallback. ``bigru_core`` is the differentiable entry: it runs the
-forward kernel, and the BPTT kernel in the backward pass.
+tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
+/ ``bigru_bwd_reference``. There is no other fallback. On CUDA the forward
+has two routes, chosen before the launch from dtype and width
+(``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
+launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``, everything else
+``csrc/bigru_fwd.cu``; the BPTT is ``csrc/bigru_bwd.cu``. ``bigru_core`` is
+the differentiable entry: it runs the forward kernel, and the BPTT kernel in
+the backward pass.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops.lstm_cuda import _DTYPE_CODES, _one_device, rows_per_block
+from percivaltts_tpu_torch.ops.lstm_cuda import _DTYPE_CODES, _one_device, aligned16, rows_per_block
+from percivaltts_tpu_torch.ops.mma_layout import fwd_route, pack_wh
 
 
 def _gates(gh: torch.Tensor, gx: torch.Tensor, bn: torch.Tensor, H: int):
@@ -141,40 +146,64 @@ def _launch_geometry(device, B: int, H: int, name: str, multiple: int):
     return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
 
 
+def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
+    """Launch the forward kernel of ``route`` (``"mma"`` or ``"simt"``) on
+    CUDA inputs that :func:`bigru_fwd` has checked; counts nothing.
+    ``bigru_fwd`` is the entry; ``chip_smoke.py`` times the CUDA-core kernel
+    in bf16 through this."""
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    device = gx_f.device
+    T, B, G = gx_f.shape
+    H = G // 3
+    yf = torch.empty((T, B, H), dtype=gx_f.dtype, device=device)
+    yb = torch.empty_like(yf)
+    with torch.cuda.device(device):
+        if route == "mma":
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), pack_wh(wh_f, "gru"), pack_wh(wh_b, "gru"),
+                   bn_f, bn_b)
+            err = lib.percival_bigru_fwd_mma(
+                *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), T, B, H, stream,
+            )
+        else:
+            rows, stream = _launch_geometry(device, B, H, "BiGRU", 1)
+            err = lib.percival_bigru_fwd(
+                *(t.data_ptr() for t in (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)),
+                yf.data_ptr(), yb.data_ptr(), T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+            )
+    _build.check(err, f"bigru_fwd launch ({route})")
+    return yf, yb
+
+
 def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     """Both GRU directions over precomputed input gates, in one launch →
     ``(y_f, y_b)``.
 
-    CUDA tensors launch the hand-written kernel; CPU tensors run
-    :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype than
-    float32/bfloat16, a shape mismatch, H > 341 on CUDA, non-contiguous CUDA
-    inputs, CUDA inputs that require a gradient under grad mode, or a launch
-    error. Every launch adds one to ``bigru_fwd.launches``."""
+    CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
+    with H a multiple of 16 up to 128, else the CUDA-core one
+    (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
+    run :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype
+    than float32/bfloat16, a shape mismatch, H > 341 on CUDA, non-contiguous
+    CUDA inputs, CUDA inputs that require a gradient under grad mode, or a
+    launch error. Every launch adds one to ``bigru_fwd.launches`` and to its
+    route's entry of ``bigru_fwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     device = _one_device("bigru_fwd", ins, "ops.gru_cuda.bigru_core")
     if device.type == "cpu":
         return bigru_fwd_reference(*ins)
-
-    from percivaltts_tpu_torch import _build
-
-    lib = _build.library()
-    T, B, G = gx_f.shape
-    H = G // 3
-    rows, stream = _launch_geometry(device, B, H, "BiGRU", 1)
-    yf = torch.empty((T, B, H), dtype=gx_f.dtype, device=device)
-    yb = torch.empty_like(yf)
-    with torch.cuda.device(device):
-        err = lib.percival_bigru_fwd(
-            *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(),
-            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
-        )
-    _build.check(err, "bigru_fwd launch")
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3)
+    out = fwd_launch(route, *ins)
     bigru_fwd.launches += 1
-    return yf, yb
+    bigru_fwd.routes[route] += 1
+    return out
 
 
 bigru_fwd.launches = 0
+bigru_fwd.routes = {"mma": 0, "simt": 0}
 
 
 def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):

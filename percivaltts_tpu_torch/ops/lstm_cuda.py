@@ -9,16 +9,22 @@ rounded to the compute dtype before the recurrent product, and ``dz``
 rounded to it before it is stored and multiplied.
 
 ``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
-tensors launch ``csrc/bilstm_fwd.cu`` / ``csrc/bilstm_bwd.cu`` (or raise),
-CPU tensors take ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There
-is no other fallback. ``bilstm_core`` is the differentiable entry: it runs
-the forward kernel, and the BPTT kernel in the backward pass.
+tensors launch a kernel (or raise), CPU tensors take
+``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There is no other
+fallback. On CUDA the forward has two routes, chosen before the launch from
+dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple
+of 16 up to 128 launches the tensor-core kernel ``csrc/bilstm_fwd_mma.cu``,
+everything else ``csrc/bilstm_fwd.cu``; the BPTT is ``csrc/bilstm_bwd.cu``.
+``bilstm_core`` is the differentiable entry: it runs the forward kernel,
+and the BPTT kernel in the backward pass.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from percivaltts_tpu_torch.ops.mma_layout import fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
@@ -164,42 +170,72 @@ def _launch_geometry(device, B: int, H: int):
     return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data is not 16-byte aligned: the
+    tensor-core kernels stream gx with 16-byte ``cp.async`` copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
+    """Launch the forward kernel of ``route`` (``"mma"`` or ``"simt"``) on
+    CUDA inputs that :func:`bilstm_fwd` has checked; counts nothing.
+    ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times the CUDA-core
+    kernel in bf16 through this."""
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    device = gx_f.device
+    T, B, G = gx_f.shape
+    H = G // 4
+    new = lambda: torch.empty((T, B, H), dtype=gx_f.dtype, device=device)  # noqa: E731
+    yf, yb = new(), new()
+    cf, cb = (new(), new()) if with_cells else (None, None)
+    cells = (cf.data_ptr(), cb.data_ptr()) if with_cells else (None, None)
+    with torch.cuda.device(device):
+        if route == "mma":
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch: a temporary freed earlier could
+            # hand its memory to the next one before the kernel reads it
+            ins = (aligned16(gx_f), aligned16(gx_b), pack_wh(wh_f, "lstm"), pack_wh(wh_b, "lstm"))
+            err = lib.percival_bilstm_fwd_mma(
+                *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
+                T, B, H, stream,
+            )
+        else:
+            rows, stream = _launch_geometry(device, B, H)
+            err = lib.percival_bilstm_fwd(
+                gx_f.data_ptr(), gx_b.data_ptr(), wh_f.data_ptr(), wh_b.data_ptr(),
+                yf.data_ptr(), yb.data_ptr(), *cells,
+                T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+            )
+    _build.check(err, f"bilstm_fwd launch ({route})")
+    return (yf, yb, cf, cb) if with_cells else (yf, yb)
+
+
 def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     """Both LSTM directions over precomputed input gates, in one launch.
 
-    CUDA tensors launch the hand-written kernel; CPU tensors run
-    :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
+    CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
+    with H a multiple of 16 up to 128, else the CUDA-core one
+    (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
+    run :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, non-contiguous CUDA inputs,
     CUDA inputs that require a gradient under grad mode, or a launch error.
-    Every launch adds one to ``bilstm_fwd.launches``."""
+    Every launch adds one to ``bilstm_fwd.launches`` and to its route's
+    entry of ``bilstm_fwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
     device = _one_device("bilstm_fwd", (gx_f, gx_b, wh_f, wh_b))
     if device.type == "cpu":
         return bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells)
-
-    from percivaltts_tpu_torch import _build
-
-    lib = _build.library()
-    T, B, G = gx_f.shape
-    H = G // 4
-    rows, stream = _launch_geometry(device, B, H)
-    new = lambda: torch.empty((T, B, H), dtype=gx_f.dtype, device=device)  # noqa: E731
-    yf, yb = new(), new()
-    cf, cb = (new(), new()) if with_cells else (None, None)
-    with torch.cuda.device(device):
-        err = lib.percival_bilstm_fwd(
-            gx_f.data_ptr(), gx_b.data_ptr(), wh_f.data_ptr(), wh_b.data_ptr(),
-            yf.data_ptr(), yb.data_ptr(),
-            cf.data_ptr() if with_cells else None,
-            cb.data_ptr() if with_cells else None,
-            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
-        )
-    _build.check(err, "bilstm_fwd launch")
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 4)
+    out = fwd_launch(route, gx_f, gx_b, wh_f, wh_b, with_cells)
     bilstm_fwd.launches += 1
-    return (yf, yb, cf, cb) if with_cells else (yf, yb)
+    bilstm_fwd.routes[route] += 1
+    return out
 
 
 bilstm_fwd.launches = 0
+bilstm_fwd.routes = {"mma": 0, "simt": 0}
 
 
 def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b):

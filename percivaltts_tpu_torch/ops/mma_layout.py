@@ -1,0 +1,90 @@
+"""The tensor-core route of the recurrent forward kernels: which calls take
+it, and the row order of ``W_hᵀ`` that its warps hold in registers.
+
+``csrc/bilstm_fwd_mma.cu`` and ``csrc/bigru_fwd_mma.cu`` compute each step's
+recurrent product transposed, ``zᵀ (G × 8) = W_hᵀ (G × H) · hᵀ (H × 8)``, with
+``mma.sync`` m16n8k16 tiles: 16 gate rows by the block's 8 batch rows. The
+m16n8 accumulator gives lane ``l`` of a warp rows ``l // 4`` and
+``l // 4 + 8`` of a tile, for batch rows ``2·(l % 4)`` and ``2·(l % 4) + 1``.
+The wrapper packs ``W_hᵀ`` with its gate rows permuted (:func:`pack_wh`) so
+that those two rows, over a warp's tiles, are every gate of the same unit:
+
+- LSTM (``G = 4H``, ``H / 8`` warps): warp ``w`` owns units ``8w … 8w+7``;
+  its tile 0 is ``i | f`` and tile 1 ``g | o`` of those units, so lane ``l``
+  holds i, f, g, o of unit ``8w + l // 4``;
+- GRU (``G = 3H``, ``H / 16`` warps): warp ``w`` owns units
+  ``16w … 16w+15``; tile 0 is ``r | z`` of units ``16w … 16w+7``, tile 1
+  ``r | z`` of ``16w+8 … 16w+15``, tile 2 ``n`` of the first eight | ``n``
+  of the second eight, so lane ``l`` holds r, z, n of units
+  ``16w + l // 4`` and ``16w + 8 + l // 4``.
+
+The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
+(the register budget of a thread); other calls take the CUDA-core kernels.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+MMA_K = 16  # depth of one m16n8k16 product: H is a whole number of them
+MMA_MAX_H = 128  # W_hᵀ in registers: 64 (LSTM) / 96 (GRU) 32-bit registers a thread at H=128
+GATES = {"lstm": 4, "gru": 3}
+
+
+def mma_width_ok(H: int) -> bool:
+    return H % MMA_K == 0 and 0 < H <= MMA_MAX_H
+
+
+def fwd_route(dtype: torch.dtype, H: int) -> str:
+    """The forward kernel a CUDA call launches, chosen before the launch
+    from its dtype and width: ``"mma"`` (tensor cores) for bf16 with H a
+    multiple of 16 up to 128, else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
+    ``csrc/bigru_fwd.cu``, one thread per gate column)."""
+    return "mma" if dtype == torch.bfloat16 and mma_width_ok(H) else "simt"
+
+
+def _check(kind: str, H: int) -> None:
+    if kind not in GATES:
+        raise ValueError(f"kind must be one of {tuple(GATES)}, got {kind!r}")
+    if not mma_width_ok(H):
+        raise ValueError(
+            f"the tensor-core route takes H a multiple of {MMA_K} up to {MMA_MAX_H}, got H={H}"
+        )
+
+
+def gate_rows(kind: str, H: int) -> torch.Tensor:
+    """``(G,)`` int64: packed row ``p`` of ``W_hᵀ`` holds column
+    ``gate_rows(kind, H)[p]`` (``gate·H + unit``) of ``W_h``."""
+    _check(kind, H)
+    p = torch.arange(GATES[kind] * H)
+    half, r = (p // 8) % 2, p % 8  # tile rows 0–7 | 8–15
+    if kind == "lstm":  # 32 rows a warp: tiles i|f, g|o of units 8w…8w+7
+        w, tile = p // 32, (p // 16) % 2
+        return (2 * tile + half) * H + 8 * w + r
+    w, tile = p // 48, (p // 16) % 3  # 48 rows a warp: r|z, r|z, n|n of units 16w…16w+15
+    gate = torch.where(tile < 2, half, 2)
+    unit = 16 * w + torch.where(tile < 2, 8 * tile, 8 * half) + r
+    return gate * H + unit
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_on(kind: str, H: int, device: torch.device) -> torch.Tensor:
+    return gate_rows(kind, H).to(device)
+
+
+def pack_wh(wh: torch.Tensor, kind: str) -> torch.Tensor:
+    """``(H, G)`` recurrent kernel → the kernel's ``(G, H)`` contiguous
+    ``W_hᵀ`` with rows in :func:`gate_rows` order."""
+    H = wh.shape[0]
+    return wh.t()[_rows_on(kind, H, wh.device)].contiguous()
+
+
+def unpack_wh(wp: torch.Tensor, kind: str) -> torch.Tensor:
+    """Inverse of :func:`pack_wh`: ``(G, H)`` packed → ``(H, G)``."""
+    H = wp.shape[1]
+    wh = wp.new_empty((H, wp.shape[0]))
+    wh[:, _rows_on(kind, H, wp.device)] = wp.t()
+    return wh
+

@@ -4,10 +4,15 @@ Imports no jax, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-(``--noconftest``: the suite's conftest configures jax.) Tolerances, the
-same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums and
-transcendentals in another order); bf16 2e-2 (bf16 outputs, and h rounded
-to bf16 before each product, so a one-ulp flip is carried); for the BPTT
+(``--noconftest``: the suite's conftest configures jax.) The forward
+kernels have two routes, chosen from dtype and width: bf16 with H a
+multiple of 16 up to 128 takes the tensor-core kernels
+(``csrc/{bilstm,bigru}_fwd_mma.cu``), f32 and other widths the CUDA-core
+ones (``csrc/{bilstm,bigru}_fwd.cu``); the tests pick a route by the dtype
+and H they pass and check it by ``bilstm_fwd.routes`` / ``bigru_fwd.routes``.
+Tolerances, the same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums
+and transcendentals in another order); bf16 2e-2 (bf16 outputs, and h
+rounded to bf16 before each product, so a one-ulp flip is carried); for the BPTT
 kernels in bf16, 2e-2 of max|dgx| (or max|dnr|: the d(gates) are rounded to
 bf16 and fed back through dh). The DSP kernels (framing × window,
 overlap-add) equal their twins bit for bit in f32 and bf16.
@@ -134,15 +139,17 @@ def test_bwd_kernel_matches_reference(cuda_device, dtype, T, B, H):
 def test_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype):
     base = _gates(96, 6, 64, dtype, cuda_device, seed=11)
     dy = _bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
+    route = "mma" if dtype == torch.bfloat16 else "simt"
     grads = []
     for core in (bilstm_core, bilstm_core_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
-        f0, b0 = bilstm_fwd.launches, bilstm_bwd.launches
+        f0, b0, r0 = bilstm_fwd.launches, bilstm_bwd.launches, bilstm_fwd.routes[route]
         yf, yb = core(*leaves)
         torch.autograd.backward((yf, yb), dy)
         torch.cuda.synchronize()
         launched = (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0)
         assert launched == ((1, 1) if core is bilstm_core else (0, 0))
+        assert bilstm_fwd.routes[route] - r0 == launched[0]
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -195,10 +202,11 @@ def test_wgan_step_on_the_card_launches_the_kernel_pair(cuda_device):
         "cmp": torch.randn(*lead, 4, 64, 27, generator=g, device=cuda_device),
         "mask": torch.ones(*lead, 4, 64, device=cuda_device),
     }
-    f0, b0 = bilstm_fwd.launches, bilstm_bwd.launches
+    f0, b0, r0 = bilstm_fwd.launches, bilstm_bwd.launches, bilstm_fwd.routes["mma"]
     state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
     torch.cuda.synchronize()
     assert (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0) == (2, 1)
+    assert bilstm_fwd.routes["mma"] - r0 == 2  # bf16, H=32: the tensor-core forward
     assert all(torch.isfinite(v).item() for v in m.values())
 
 
@@ -266,15 +274,17 @@ def test_gru_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype)
     """dgx, dW_h and db_hn of the kernel pair against the twins'."""
     base = _gru_gates(96, 6, 64, dtype, cuda_device, seed=11)
     dy = _gru_bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
+    route = "mma" if dtype == torch.bfloat16 else "simt"
     grads = []
     for core in (bigru_core, bigru_core_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
-        f0, b0 = bigru_fwd.launches, bigru_bwd.launches
+        f0, b0, r0 = bigru_fwd.launches, bigru_bwd.launches, bigru_fwd.routes[route]
         yf, yb = core(*leaves)
         torch.autograd.backward((yf, yb), dy)
         torch.cuda.synchronize()
         launched = (bigru_fwd.launches - f0, bigru_bwd.launches - b0)
         assert launched == ((1, 1) if core is bigru_core else (0, 0))
+        assert bigru_fwd.routes[route] - r0 == launched[0]
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -346,11 +356,95 @@ def test_bgru_wgan_step_on_the_card_launches_the_gru_kernels(cuda_device):
         "cmp": torch.randn(*lead, 4, 64, 27, generator=g, device=cuda_device),
         "mask": torch.ones(*lead, 4, 64, device=cuda_device),
     }
-    f0, b0 = bigru_fwd.launches, bigru_bwd.launches
+    f0, b0, r0 = bigru_fwd.launches, bigru_bwd.launches, bigru_fwd.routes["mma"]
     state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
     torch.cuda.synchronize()
     assert (bigru_fwd.launches - f0, bigru_bwd.launches - b0) == (4, 2)
+    assert bigru_fwd.routes["mma"] - r0 == 4  # bf16, H a multiple of 16: the tensor-core forward
     assert all(torch.isfinite(v).item() for v in m.values())
+
+
+# --- the two forward routes ---------------------------------------------------
+
+# the serving chunk (B=8), edge shapes, the narrow width, and the training
+# shapes (the fakes pass at n_critic·B = 160 rows)
+MMA_SHAPES = [(1, 1, 128), (64, 1, 128), (517, 3, 128), (512, 8, 128), (33, 9, 64),
+              (40, 160, 128), (512, 160, 128)]
+
+
+def _routes():
+    return dict(bilstm_fwd.routes), dict(bigru_fwd.routes)
+
+
+def _close(got, want, atol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", MMA_SHAPES)
+def test_tensor_core_forwards_match_twins(cuda_device, T, B, H):
+    """bf16, H a multiple of 16 up to 128: both forwards launch the
+    tensor-core kernels and agree with the twins within 2e-2."""
+    bf16 = torch.bfloat16
+    lstm_args = _gates(T, B, H, bf16, cuda_device, seed=T + B)
+    gru_args = _gru_gates(T, B, H, bf16, cuda_device, seed=T + B)
+    (l0, g0) = _routes()
+    with torch.no_grad():
+        want = bilstm_fwd_reference(*lstm_args, with_cells=True)
+        _close(bilstm_fwd(*lstm_args, with_cells=True), want, 2e-2)
+        _close(bilstm_fwd(*lstm_args), want[:2], 2e-2)
+        _close(bigru_fwd(*gru_args), bigru_fwd_reference(*gru_args), 2e-2)
+    torch.cuda.synchronize()
+    l1, g1 = _routes()
+    assert (l1["mma"] - l0["mma"], l1["simt"] - l0["simt"]) == (2, 0)
+    assert (g1["mma"] - g0["mma"], g1["simt"] - g0["simt"]) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,route", [(torch.float32, 128, "simt"), (torch.bfloat16, 144, "simt"),
+                                           (torch.bfloat16, 40, "simt"), (torch.bfloat16, 128, "mma"),
+                                           (torch.bfloat16, 48, "mma")])
+def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route):
+    """f32 and widths outside the tensor-core route launch the CUDA-core
+    kernels; each call counts on its route alone, and agrees with its twin."""
+    T, B = 24, 5
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    lstm_args = _gates(T, B, H, dtype, cuda_device, seed=H)
+    gru_args = _gru_gates(T, B, H, dtype, cuda_device, seed=H)
+    l0, g0 = _routes()
+    with torch.no_grad():
+        _close(bilstm_fwd(*lstm_args, with_cells=True),
+               bilstm_fwd_reference(*lstm_args, with_cells=True), atol)
+        _close(bigru_fwd(*gru_args), bigru_fwd_reference(*gru_args), atol)
+    torch.cuda.synchronize()
+    l1, g1 = _routes()
+    other = "simt" if route == "mma" else "mma"
+    assert (l1[route] - l0[route], l1[other] - l0[other]) == (1, 0)
+    assert (g1[route] - g0[route], g1[other] - g0[other]) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_tensor_core_entries_refuse_other_widths_and_take_unaligned_gates(cuda_device):
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    z = torch.zeros(64, dtype=torch.bfloat16, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for H in (40, 144, 0):
+        p = [z.data_ptr()] * 8
+        assert lib.percival_bilstm_fwd_mma(*p[:6], None, None, 1, 1, H, stream) != 0
+        assert lib.percival_bigru_fwd_mma(*p, 1, 1, H, stream) != 0
+    # a contiguous view 2 bytes past a 16-byte boundary: copied, then launched
+    T, B, H = 9, 3, 64
+    args = _gates(T, B, H, torch.bfloat16, cuda_device, seed=5)
+    flat = torch.empty(T * B * 4 * H + 1, dtype=torch.bfloat16, device=cuda_device)
+    odd = flat[1:].view(T, B, 4 * H)
+    odd.copy_(args[0])
+    assert odd.data_ptr() % 16 == 2
+    with torch.no_grad():
+        _close(bilstm_fwd(odd, *args[1:]), bilstm_fwd_reference(*args), 2e-2)
 
 
 # --- the DSP kernels: framing × window and overlap-add ------------------------
