@@ -22,9 +22,12 @@ when all passed):
    forward (with and without cells) and the BiGRU forward at the serving,
    edge and training shapes, f32 (the CUDA-core kernels) and bf16 (the
    tensor-core kernels, ``csrc/*_fwd_mma.cu``, for every H a multiple of
-   16 up to 128), the BiLSTM and BiGRU BPTT at the training and
-   edge shapes, f32 and bf16; each autograd pair (forward kernel + BPTT
-   kernel) against the same function on the twins; and the DSP kernels,
+   16 up to 128), the BiLSTM and BiGRU BPTT at the training and edge
+   shapes (T=1, B not a multiple of 8, H = 16, 48, 64, an unaligned gx
+   view), f32 and bf16 (the tensor-core kernels ``csrc/*_bwd_mma.cu`` for
+   H a multiple of 16 up to 128, the CUDA-core ones at H=160); each
+   autograd pair (forward kernel + BPTT kernel) against the same function
+   on the twins; and the DSP kernels,
    framing × window and overlap-add, at the vocoder's shapes and the JAX
    package's test shapes, f32 and bf16;
 4. serve 8 requests (96…1500 frames) through each full-width generator
@@ -41,13 +44,14 @@ when all passed):
    with numpy (utterances of 300–512 frames, so masks hold zeros)
    normalized on the device: 3 steps with finite metrics and exactly
    (2 forward, 1 BPTT) launches a step for config 3, (4, 2) for the BGRU,
-   every forward on the tensor-core route; one step from identical state
+   every forward and BPTT on the tensor-core route; one step from identical state
    with the kernels against the same step with the plain twins;
 6. time each kernel, its twin and the library call that computes the same
    function (``nn.LSTM`` / ``nn.GRU`` for the recurrent layers,
    ``F.unfold`` × window and ``F.fold`` for the DSP kernels; timed here
    only: the port never calls them), each tensor-core forward in µs a step
-   at B = 8, 32 and 160 beside the CUDA-core kernel that bf16 took before,
+   at B = 8, 32 and 160 and each tensor-core BPTT at B = 32 and 8, beside
+   the CUDA-core kernel that bf16 took before,
    each path's serve and step medians and the vocode's, and profile one
    serve and one step of each generator and one vocode for the device's
    busy share and the recurrent kernels' device time.
@@ -100,11 +104,19 @@ PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371}
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
 TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
-                "bilstm_bwd": [(512, 32, 128)], "bigru_bwd": [(512, 32, 128)]}
-FWD_NAMES = ("bilstm_fwd", "bigru_fwd")  # the wrappers with two routes (``.routes``)
+                "bilstm_bwd": [(512, 32, 128), (512, 8, 128)],
+                "bigru_bwd": [(512, 32, 128), (512, 8, 128)]}
+# the wrappers with two routes (``.routes``): tensor cores ("mma") or CUDA cores ("simt")
+ROUTED = ("bilstm_fwd", "bigru_fwd", "bilstm_bwd", "bigru_bwd")
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
-BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64)]
+# BPTT: the training shape, edge shapes, the narrow width, and H=160 (bf16
+# outside the tensor-core route: the CUDA-core kernels stay checked in bf16)
+BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64), (33, 9, 160)]
+# bf16 only (the tensor-core route): T=1, H=16 and 48, B not a multiple of 8
+# (the CUDA-core GRU BPTT takes H a multiple of 32 only)
+BWD_MMA_SHAPES = [(1, 5, 128), (40, 11, 16), (24, 13, 48)]
+BWD_UNALIGNED = (33, 9, 64)  # also checked, in bf16, with gx 2 bytes past a 16-byte boundary
 # BPTT kernel vs twin. f32: absolute, as the forward. bf16: relative to
 # max|dgx| (or max|dnr|), since the d(gates) are rounded to bf16 and fed
 # back through dh, so a one-ulp flip is carried into earlier frames.
@@ -165,7 +177,7 @@ def _kernels() -> dict:
 def _zero_counts() -> None:
     for name, fn in _kernels().items():
         fn.launches = 0
-        if name in FWD_NAMES:
+        if name in ROUTED:
             fn.routes = {route: 0 for route in fn.routes}
 
 
@@ -174,16 +186,16 @@ def _counts() -> dict:
 
 
 def _routes() -> dict:
-    """The forward wrappers' launches by route: {name: {"mma": n, "simt": n}}."""
+    """The recurrent wrappers' launches by route: {name: {"mma": n, "simt": n}}."""
     kernels = _kernels()
-    return {name: dict(kernels[name].routes) for name in FWD_NAMES}
+    return {name: dict(kernels[name].routes) for name in ROUTED}
 
 
 def _all_mma(what: str, routes: dict) -> None:
-    """Every forward launch of a path went through the tensor-core route."""
-    print(f"[{what}] forward launches by route {routes}")
+    """Every forward and BPTT launch of a path went through the tensor-core route."""
+    print(f"[{what}] recurrent launches by route {routes}")
     if any(r["simt"] for r in routes.values()):
-        raise AssertionError(f"{what}: a bf16 forward took the CUDA-core route: {routes}")
+        raise AssertionError(f"{what}: a bf16 forward or BPTT took the CUDA-core route: {routes}")
 
 
 def _use_twins(model):
@@ -310,7 +322,7 @@ def _compare(label, got, want, tol, relative: bool) -> float:
 
 def _launch_once(fn, *args, route=None, **kw):
     """``fn(*args)`` synchronized, checking that it counted one launch (on
-    ``route``, for the forward wrappers)."""
+    ``route``, for the recurrent wrappers)."""
     before = fn.launches
     on_route = fn.routes[route] if route else 0
     out = fn(*args, **kw)
@@ -322,12 +334,23 @@ def _launch_once(fn, *args, route=None, **kw):
     return out
 
 
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary (the wrappers copy such a view before a ``cp.async`` kernel)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned view is aligned")
+    return view
+
+
 def _check_kernels(dev) -> dict:
     """Phase 3: every kernel against its twin. Returns each kernel's largest
     bf16 |kernel − twin|."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops import lstm_cuda as l
-    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {name: 0.0 for name in _kernels()}
@@ -350,19 +373,26 @@ def _check_kernels(dev) -> dict:
                 e = _compare(f"[bigru_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
                              g.bigru_fwd_reference(*args), tol, relative=False)
                 err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
-        for T, B, H in BWD_SHAPES:
-            for dtype, tol in BWD_TOL.items():
-                rel = dtype == bf16
+        bwd_cases = [(shape, dtype) for shape in BWD_SHAPES for dtype in BWD_TOL]
+        bwd_cases += [(shape, bf16) for shape in BWD_MMA_SHAPES]
+        for (T, B, H), dtype in bwd_cases:
+            tol, rel, route = BWD_TOL[dtype], dtype == bf16, bwd_route(dtype, H)
+            for unaligned in (False, True) if (T, B, H) == BWD_UNALIGNED and rel else (False,):
+                tag = f"{route}{', gx unaligned' if unaligned else ''}"
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
-                got = _launch_once(l.bilstm_bwd, *args)
-                e = _compare(f"[bilstm_bwd] T={T} B={B} H={H} {str(dtype)[6:]}", got,
+                if unaligned:
+                    args = (_unaligned(args[0]), *args[1:])
+                got = _launch_once(l.bilstm_bwd, *args, route=route)
+                e = _compare(f"[bilstm_bwd {tag}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
                              l.bilstm_bwd_reference(*args), tol, rel)
                 err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
-                got = _launch_once(g.bigru_bwd, *args)
+                if unaligned:
+                    args = (_unaligned(args[0]), *args[1:])
+                got = _launch_once(g.bigru_bwd, *args, route=route)
                 want = g.bigru_bwd_reference(*args)
                 for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))):
-                    e = _compare(f"[bigru_bwd] {what} T={T} B={B} H={H} {str(dtype)[6:]}",
+                    e = _compare(f"[bigru_bwd {tag}] {what} T={T} B={B} H={H} {str(dtype)[6:]}",
                                  got[sl], want[sl], tol, rel)
                     err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
 
@@ -379,15 +409,16 @@ def _check_kernels(dev) -> dict:
             base = make(T, B, H, dtype, dev, seed=7)
             dy = _dy(T, B, H, dtype, dev, seed=1)
             grads = []
+            route = fwd_route(dtype, H)  # = bwd_route(dtype, H)
             for c in (core, twin):
                 leaves = [t.clone().requires_grad_(True) for t in base]
-                f0, b0 = fwd.launches, bwd.launches
+                f0, b0 = fwd.routes[route], bwd.routes[route]
                 torch.autograd.backward(c(*leaves), dy)
                 torch.cuda.synchronize()
                 grads.append([t.grad for t in leaves])
-                if c is core and (fwd.launches - f0, bwd.launches - b0) != (1, 1):
+                if c is core and (fwd.routes[route] - f0, bwd.routes[route] - b0) != (1, 1):
                     raise RuntimeError(f"the {label} autograd pair did not launch one forward "
-                                       "and one BPTT kernel")
+                                       f"and one BPTT kernel on the {route} route")
             for name, gk, gt in zip(names, *grads):
                 scale = gt.float().abs().max().item()
                 limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
@@ -682,10 +713,11 @@ def _time_kernels(dev) -> dict:
     that bf16 took before (``simt_ms``, the same inputs, launched through
     ``fwd_launch``) and the forward kernel's own device time from
     ``torch.profiler`` (``kernel_device_ms``: without the wrapper's W_hᵀ
-    packing)."""
+    packing). The same for each BPTT (the tensor-core route; the CUDA-core
+    kernel through ``bwd_launch``)."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops import lstm_cuda as l
-    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     dt = torch.bfloat16
     out = {}
@@ -703,16 +735,16 @@ def _time_kernels(dev) -> dict:
                     _bwd_args(T, B, H, dt, dev, seed=1)
                 kern = g.bigru_bwd if gru else l.bilstm_bwd
                 twin = g.bigru_bwd_reference if gru else l.bilstm_bwd_reference
-            fwd = {}
+            fwd = name.endswith("fwd")
+            launch = (g.fwd_launch if fwd else g.bwd_launch) if gru else \
+                (l.fwd_launch if fwd else l.bwd_launch)
             with torch.no_grad():
                 ms = _median_ms(lambda: kern(*args), runs=7, inner=10)
                 plain_ms = _median_ms(lambda: twin(*args), runs=3)
-                if name in FWD_NAMES:
-                    launch = g.fwd_launch if gru else l.fwd_launch
-                    fwd = {"route": fwd_route(dt, H), "us_per_step": ms / T * 1e3,
-                           "simt_ms": _median_ms(lambda: launch("simt", *args), runs=7, inner=10),
-                           "kernel_device_ms": _device_ms(lambda: kern(*args),
-                                                          match=f"{name}_mma")}
+                routed = {"route": (fwd_route if fwd else bwd_route)(dt, H),
+                          "us_per_step": ms / T * 1e3,
+                          "simt_ms": _median_ms(lambda: launch("simt", *args), runs=7, inner=10),
+                          "kernel_device_ms": _device_ms(lambda: kern(*args), match=f"{name}_mma")}
 
             # the layer: the port's against cuDNN's, same weights and input
             ws = _layer_weights(kind, H, dt, dev, seed=2)
@@ -723,7 +755,7 @@ def _time_kernels(dev) -> dict:
             lib = _library_layer(kind, ws, dt, dev)
             with torch.no_grad():
                 diff = (layer(x, *flat) - lib(x)[0]).abs().max().item()
-            if name.endswith("fwd"):
+            if fwd:
                 with torch.no_grad():
                     layer_ms = _median_ms(lambda: layer(x, *flat), runs=7, inner=5)
                     library_ms = _median_ms(lambda: lib(x), runs=7, inner=5)
@@ -739,13 +771,12 @@ def _time_kernels(dev) -> dict:
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
             rows.append({"shape": [T, B, H], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "layer_ms": layer_ms,
-                         "library_ms": library_ms, **fwd})
-            if fwd:
-                print(f"[time] {name} T,B,H={(T, B, H)} bf16, route {fwd['route']}: "
-                      f"{fwd['us_per_step']:.3f} us a step ({ms:.4f} ms a call; the kernel alone "
-                      f"{fwd['kernel_device_ms']} device ms); the CUDA-core kernel on the same "
-                      f"inputs {fwd['simt_ms']:.4f} ms ({fwd['simt_ms'] / T * 1e3:.3f} us a step), "
-                      f"{fwd['simt_ms'] / ms:.2f}x")
+                         "library_ms": library_ms, **routed})
+            print(f"[time] {name} T,B,H={(T, B, H)} bf16, route {routed['route']}: "
+                  f"{routed['us_per_step']:.3f} us a step ({ms:.4f} ms a call; the kernel alone "
+                  f"{routed['kernel_device_ms']} device ms); the CUDA-core kernel on the same "
+                  f"inputs {routed['simt_ms']:.4f} ms ({routed['simt_ms'] / T * 1e3:.3f} us a step), "
+                  f"{routed['simt_ms'] / ms:.2f}x")
             print(f"[time] {name} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
                   f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({bound_by}); layer{' backward' if 'bwd' in name else ''}: "
@@ -1004,7 +1035,7 @@ def main() -> int:
     serve = {kind: _serve_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
     vocode = _vocode_path(dev, serve["cnn_blstm"]["feats"])
     train = {kind: _train_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
-    routes = {name: {"mma": 0, "simt": 0} for name in FWD_NAMES}
+    routes = {name: {"mma": 0, "simt": 0} for name in ROUTED}
     for kind in ("cnn_blstm", "bgru"):
         paths[f"serve_{kind}"] = serve[kind]["counts"]
         paths[f"train_{kind}"] = train[kind]["counts"]
@@ -1020,9 +1051,9 @@ def main() -> int:
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:145"),
-        "bilstm_bwd": ("bilstm_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:233"),
+        "bilstm_bwd": ("bilstm_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:233"),
         "bigru_fwd": ("bigru_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:482"),
-        "bigru_bwd": ("bigru_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:553"),
+        "bigru_bwd": ("bigru_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:553"),
         "frame_window": ("frame_window.cu", "percivaltts_tpu/ops/pallas_kernels.py:115"),
         "overlap_add": ("overlap_add.cu", "percivaltts_tpu/ops/pallas_kernels.py:184"),
     }
@@ -1054,8 +1085,8 @@ def main() -> int:
             "layer_ms": first.get("layer_ms"),
             "timed": timed[name],
         })
-        if name in FWD_NAMES:  # the tensor-core route: mma.sync, bf16, H % 16 == 0, H <= 128
-            kernels[-1]["fwd_route"] = first["route"]
+        if name in ROUTED:  # the tensor-core route: mma.sync, bf16, H % 16 == 0, H <= 128
+            kernels[-1]["fwd_route" if name.endswith("fwd") else "bwd_route"] = first["route"]
             kernels[-1]["launches_by_route"] = routes[name]
         if not any(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the paths")

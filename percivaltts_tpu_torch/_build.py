@@ -116,12 +116,16 @@ def library() -> ctypes.CDLL:
     lib.percival_bilstm_fwd_mma.restype = i
     lib.percival_bilstm_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
     lib.percival_bilstm_bwd.restype = i
+    lib.percival_bilstm_bwd_mma.argtypes = [p] * 16 + [i, i, i, p]
+    lib.percival_bilstm_bwd_mma.restype = i
     lib.percival_bigru_fwd.argtypes = [p] * 8 + [i, i, i, i, i, p]
     lib.percival_bigru_fwd.restype = i
     lib.percival_bigru_fwd_mma.argtypes = [p] * 8 + [i, i, i, p]
     lib.percival_bigru_fwd_mma.restype = i
     lib.percival_bigru_bwd.argtypes = [p] * 14 + [i, i, i, i, i, p]
     lib.percival_bigru_bwd.restype = i
+    lib.percival_bigru_bwd_mma.argtypes = [p] * 16 + [i, i, i, p]
+    lib.percival_bigru_bwd_mma.restype = i
     lib.percival_frame_window.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.percival_frame_window.restype = i
     lib.percival_overlap_add.argtypes = [p, p, i, i, i, i, i, i, p]

@@ -1,5 +1,5 @@
-// Helpers shared by the recurrent kernels (bilstm_{fwd,bwd,fwd_mma}.cu,
-// bigru_{fwd,bwd,fwd_mma}.cu) and the DSP kernels (frame_window.cu, overlap_add.cu):
+// Helpers shared by the recurrent kernels (bilstm_{fwd,bwd,fwd_mma,bwd_mma}.cu,
+// bigru_{fwd,bwd,fwd_mma,bwd_mma}.cu) and the DSP kernels (frame_window.cu, overlap_add.cu):
 // dtype conversions between the compute dtype (float or
 // bfloat16) and the f32 arithmetic, the gate nonlinearity, and the
 // shared-memory opt-in.

@@ -1,6 +1,7 @@
 // PTX wrappers shared by the tensor-core recurrent kernels
-// (bilstm_fwd_mma.cu, bigru_fwd_mma.cu): the bf16 m16n8k16 product, ldmatrix
-// from shared memory, and the cp.async ring that streams the input gates.
+// (bilstm_{fwd,bwd}_mma.cu, bigru_{fwd,bwd}_mma.cu): the bf16 m16n8k16
+// product, ldmatrix from shared memory, and the cp.async ring that streams
+// the inputs.
 #pragma once
 
 #include <cstdint>

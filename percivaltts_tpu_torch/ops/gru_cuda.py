@@ -21,9 +21,10 @@ tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 has two routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
 launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``, everything else
-``csrc/bigru_fwd.cu``; the BPTT is ``csrc/bigru_bwd.cu``. ``bigru_core`` is
-the differentiable entry: it runs the forward kernel, and the BPTT kernel in
-the backward pass.
+``csrc/bigru_fwd.cu``; the BPTT likewise (``bwd_route``):
+``csrc/bigru_bwd_mma.cu`` or ``csrc/bigru_bwd.cu``. ``bigru_core`` is the
+differentiable entry: it runs the forward kernel, and the BPTT kernel in the
+backward pass.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from percivaltts_tpu_torch.ops.lstm_cuda import _DTYPE_CODES, _one_device, aligned16, rows_per_block
-from percivaltts_tpu_torch.ops.mma_layout import fwd_route, pack_wh
+from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 
 def _gates(gh: torch.Tensor, gx: torch.Tensor, bn: torch.Tensor, H: int):
@@ -206,43 +207,69 @@ bigru_fwd.launches = 0
 bigru_fwd.routes = {"mma": 0, "simt": 0}
 
 
+def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
+    """Launch the BPTT kernel of ``route`` (``"mma"`` or ``"simt"``) on CUDA
+    inputs that :func:`bigru_bwd` has checked; counts nothing.
+    ``bigru_bwd`` is the entry; ``chip_smoke.py`` times the CUDA-core kernel
+    in bf16 through this."""
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    device = gx_f.device
+    T, B, G = gx_f.shape
+    H = G // 3
+    dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
+    dnr_f, dnr_b = torch.empty_like(hp_f), torch.empty_like(hp_b)
+    outs = (dgx_f, dgx_b, dnr_f, dnr_b)
+    with torch.cuda.device(device):
+        if route == "mma":
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), aligned16(wh_f), aligned16(wh_b),
+                   pack_wh(wh_f, "gru"), pack_wh(wh_b, "gru"), bn_f, bn_b,
+                   *map(aligned16, (hp_f, hp_b, dy_f, dy_b)))
+            err = lib.percival_bigru_bwd_mma(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), T, B, H, stream,
+            )
+        else:
+            # the dgh·W_hᵀ reduction shuffles over whole warps of the 3H threads
+            rows, stream = _launch_geometry(device, B, H, "BiGRU BPTT", 32)
+            err = lib.percival_bigru_bwd(
+                *(t.data_ptr() for t in (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)),
+                *(t.data_ptr() for t in outs), T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+            )
+    _build.check(err, f"bigru_bwd launch ({route})")
+    return outs
+
+
 def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     """BPTT for both directions in one launch → ``(dgx_f, dgx_b, dnr_f,
     dnr_b)``.
 
-    Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch the
-    hand-written kernel; CPU tensors run the twin. Raises on mixed devices,
-    dtypes or shapes, non-contiguous CUDA inputs, CUDA inputs that require a
-    gradient under grad mode, H not a multiple of 32 (or above 341) on CUDA,
-    or a launch error. Every launch adds one to ``bigru_bwd.launches``."""
+    Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
+    hand-written kernel: the tensor-core one for bf16 with H a multiple of
+    16 up to 128, else the CUDA-core one
+    (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
+    run the twin. Raises on mixed devices, dtypes or shapes, non-contiguous
+    CUDA inputs, CUDA inputs that require a gradient under grad mode, H not a
+    multiple of 32 (or above 341) on the CUDA-core route, or a launch error.
+    Every launch adds one to ``bigru_bwd.launches`` and to its route's entry
+    of ``bigru_bwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     _check_states(gx_f, hp_f, hp_b, dy_f, dy_b)
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
     device = _one_device("bigru_bwd", ins, "ops.gru_cuda.bigru_core")
     if device.type == "cpu":
         return bigru_bwd_reference(*ins)
-
-    from percivaltts_tpu_torch import _build
-
-    lib = _build.library()
-    T, B, G = gx_f.shape
-    H = G // 3
-    # the dgh·W_hᵀ reduction shuffles over whole warps of the 3H threads
-    rows, stream = _launch_geometry(device, B, H, "BiGRU BPTT", 32)
-    dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
-    dnr_f, dnr_b = torch.empty_like(hp_f), torch.empty_like(hp_b)
-    with torch.cuda.device(device):
-        err = lib.percival_bigru_bwd(
-            *(t.data_ptr() for t in ins),
-            dgx_f.data_ptr(), dgx_b.data_ptr(), dnr_f.data_ptr(), dnr_b.data_ptr(),
-            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
-        )
-    _build.check(err, "bigru_bwd launch")
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3)
+    out = bwd_launch(route, *ins)
     bigru_bwd.launches += 1
-    return dgx_f, dgx_b, dnr_f, dnr_b
+    bigru_bwd.routes[route] += 1
+    return out
 
 
 bigru_bwd.launches = 0
+bigru_bwd.routes = {"mma": 0, "simt": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

@@ -14,7 +14,8 @@ tensors launch a kernel (or raise), CPU tensors take
 fallback. On CUDA the forward has two routes, chosen before the launch from
 dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple
 of 16 up to 128 launches the tensor-core kernel ``csrc/bilstm_fwd_mma.cu``,
-everything else ``csrc/bilstm_fwd.cu``; the BPTT is ``csrc/bilstm_bwd.cu``.
+everything else ``csrc/bilstm_fwd.cu``; the BPTT likewise
+(``bwd_route``): ``csrc/bilstm_bwd_mma.cu`` or ``csrc/bilstm_bwd.cu``.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass.
 """
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops.mma_layout import fwd_route, pack_wh
+from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
@@ -172,7 +173,8 @@ def _launch_geometry(device, B: int, H: int):
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
-    tensor-core kernels stream gx with 16-byte ``cp.async`` copies."""
+    tensor-core kernels stream their (T, B, ·) inputs with 16-byte
+    ``cp.async`` copies."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -238,42 +240,69 @@ bilstm_fwd.launches = 0
 bilstm_fwd.routes = {"mma": 0, "simt": 0}
 
 
+def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
+               dy_f, dy_b):
+    """Launch the BPTT kernel of ``route`` (``"mma"`` or ``"simt"``) on CUDA
+    inputs that :func:`bilstm_bwd` has checked; counts nothing.
+    ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times the CUDA-core
+    kernel in bf16 through this."""
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    device = gx_f.device
+    T, B, G = gx_f.shape
+    H = G // 4
+    states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
+    dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
+    with torch.cuda.device(device):
+        if route == "mma":
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), aligned16(wh_f), aligned16(wh_b),
+                   pack_wh(wh_f, "lstm"), pack_wh(wh_b, "lstm"), *map(aligned16, states))
+            err = lib.percival_bilstm_bwd_mma(
+                *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(), T, B, H, stream,
+            )
+        else:
+            if H % 8:  # the dz·W_hᵀ reduction runs on whole warps of the 4H threads
+                raise ValueError(f"the CUDA BPTT takes H a multiple of 8, got H={H}")
+            rows, stream = _launch_geometry(device, B, H)
+            err = lib.percival_bilstm_bwd(
+                *(t.data_ptr() for t in (gx_f, gx_b, wh_f, wh_b, *states)),
+                dgx_f.data_ptr(), dgx_b.data_ptr(),
+                T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
+            )
+    _build.check(err, f"bilstm_bwd launch ({route})")
+    return dgx_f, dgx_b
+
+
 def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b):
     """BPTT for both directions in one launch → ``(dgx_f, dgx_b)``.
 
-    Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch the
-    hand-written kernel; CPU tensors run the twin. Raises on mixed devices,
-    dtypes, or shapes, non-contiguous CUDA inputs, CUDA inputs that require
-    a gradient under grad mode, H not a multiple of 8 on CUDA, or a launch
-    error. Every launch adds one to ``bilstm_bwd.launches``."""
+    Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
+    hand-written kernel: the tensor-core one for bf16 with H a multiple of
+    16 up to 128, else the CUDA-core one
+    (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
+    run the twin. Raises on mixed devices, dtypes, or shapes, non-contiguous
+    CUDA inputs, CUDA inputs that require a gradient under grad mode, H not
+    a multiple of 8 on the CUDA-core route, or a launch error. Every launch
+    adds one to ``bilstm_bwd.launches`` and to its route's entry of
+    ``bilstm_bwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
     _check_states(gx_f, *states)
     device = _one_device("bilstm_bwd", (gx_f, gx_b, wh_f, wh_b, *states))
     if device.type == "cpu":
         return bilstm_bwd_reference(gx_f, gx_b, wh_f, wh_b, *states)
-
-    from percivaltts_tpu_torch import _build
-
-    lib = _build.library()
-    T, B, G = gx_f.shape
-    H = G // 4
-    if H % 8:  # the dz·W_hᵀ reduction runs on whole warps of the 4H threads
-        raise ValueError(f"the CUDA BPTT takes H a multiple of 8, got H={H}")
-    rows, stream = _launch_geometry(device, B, H)
-    dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
-    ins = (gx_f, gx_b, wh_f, wh_b, *states)
-    with torch.cuda.device(device):
-        err = lib.percival_bilstm_bwd(
-            *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
-            T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
-        )
-    _build.check(err, "bilstm_bwd launch")
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4)
+    out = bwd_launch(route, gx_f, gx_b, wh_f, wh_b, *states)
     bilstm_bwd.launches += 1
-    return dgx_f, dgx_b
+    bilstm_bwd.routes[route] += 1
+    return out
 
 
 bilstm_bwd.launches = 0
+bilstm_bwd.routes = {"mma": 0, "simt": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -1,5 +1,5 @@
-"""The tensor-core route of the recurrent forward kernels: which calls take
-it, and the row order of ``W_hᵀ`` that its warps hold in registers.
+"""The tensor-core route of the recurrent kernels: which calls take it, and
+the row order of ``W_hᵀ`` that the forwards' warps hold in registers.
 
 ``csrc/bilstm_fwd_mma.cu`` and ``csrc/bigru_fwd_mma.cu`` compute each step's
 recurrent product transposed, ``zᵀ (G × 8) = W_hᵀ (G × H) · hᵀ (H × 8)``, with
@@ -20,6 +20,15 @@ that those two rows, over a warp's tiles, are every gate of the same unit:
 
 The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
 (the register budget of a thread); other calls take the CUDA-core kernels.
+
+The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
+``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
+both cells: ``H / 16`` warps. Their recompute reads the same packed
+``W_hᵀ`` (an LSTM warp takes the forward's rows of two 8-unit groups, so
+lane ``l`` holds i, f, g, o of units ``16w + l // 4`` and ``16w + 8 + l // 4``).
+Their chained product ``dhᵀ (H × 8) = W_h (H × G) · dzᵀ (G × 8)`` reads
+``W_h`` itself, unpacked: warp ``w`` takes the m16 tile of its own 16 units,
+whose accumulator lands on lane ``l`` as those same two units.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ import functools
 import torch
 
 MMA_K = 16  # depth of one m16n8k16 product: H is a whole number of them
-MMA_MAX_H = 128  # W_hᵀ in registers: 64 (LSTM) / 96 (GRU) 32-bit registers a thread at H=128
+# W_h in registers at H=128, 32-bit registers a thread: forward 64 (LSTM) / 96
+# (GRU), BPTT 128 / 96
+MMA_MAX_H = 128
 GATES = {"lstm": 4, "gru": 3}
 
 
@@ -43,6 +54,14 @@ def fwd_route(dtype: torch.dtype, H: int) -> str:
     multiple of 16 up to 128, else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
     ``csrc/bigru_fwd.cu``, one thread per gate column)."""
     return "mma" if dtype == torch.bfloat16 and mma_width_ok(H) else "simt"
+
+
+def bwd_route(dtype: torch.dtype, H: int) -> str:
+    """The BPTT kernel a CUDA call launches, by :func:`fwd_route`'s rule:
+    ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``) or
+    ``"simt"`` (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``), so a
+    layer's backward takes the route of its forward."""
+    return fwd_route(dtype, H)
 
 
 def _check(kind: str, H: int) -> None:

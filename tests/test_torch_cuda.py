@@ -4,12 +4,12 @@ Imports no jax, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-(``--noconftest``: the suite's conftest configures jax.) The forward
-kernels have two routes, chosen from dtype and width: bf16 with H a
-multiple of 16 up to 128 takes the tensor-core kernels
-(``csrc/{bilstm,bigru}_fwd_mma.cu``), f32 and other widths the CUDA-core
-ones (``csrc/{bilstm,bigru}_fwd.cu``); the tests pick a route by the dtype
-and H they pass and check it by ``bilstm_fwd.routes`` / ``bigru_fwd.routes``.
+(``--noconftest``: the suite's conftest configures jax.) The forward and
+BPTT kernels have two routes each, chosen from dtype and width: bf16 with H
+a multiple of 16 up to 128 takes the tensor-core kernels
+(``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``), f32 and other widths the
+CUDA-core ones (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``); the tests pick a
+route by the dtype and H they pass and check it by the wrappers' ``.routes``.
 Tolerances, the same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums
 and transcendentals in another order); bf16 2e-2 (bf16 outputs, and h
 rounded to bf16 before each product, so a one-ulp flip is carried); for the BPTT
@@ -144,12 +144,13 @@ def test_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype):
     for core in (bilstm_core, bilstm_core_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
         f0, b0, r0 = bilstm_fwd.launches, bilstm_bwd.launches, bilstm_fwd.routes[route]
+        rb = bilstm_bwd.routes[route]
         yf, yb = core(*leaves)
         torch.autograd.backward((yf, yb), dy)
         torch.cuda.synchronize()
         launched = (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0)
         assert launched == ((1, 1) if core is bilstm_core else (0, 0))
-        assert bilstm_fwd.routes[route] - r0 == launched[0]
+        assert (bilstm_fwd.routes[route] - r0, bilstm_bwd.routes[route] - rb) == launched
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -203,10 +204,12 @@ def test_wgan_step_on_the_card_launches_the_kernel_pair(cuda_device):
         "mask": torch.ones(*lead, 4, 64, device=cuda_device),
     }
     f0, b0, r0 = bilstm_fwd.launches, bilstm_bwd.launches, bilstm_fwd.routes["mma"]
+    rb = bilstm_bwd.routes["mma"]
     state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
     torch.cuda.synchronize()
     assert (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0) == (2, 1)
-    assert bilstm_fwd.routes["mma"] - r0 == 2  # bf16, H=32: the tensor-core forward
+    # bf16, H=32: the tensor-core forward and BPTT
+    assert (bilstm_fwd.routes["mma"] - r0, bilstm_bwd.routes["mma"] - rb) == (2, 1)
     assert all(torch.isfinite(v).item() for v in m.values())
 
 
@@ -279,12 +282,13 @@ def test_gru_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype)
     for core in (bigru_core, bigru_core_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
         f0, b0, r0 = bigru_fwd.launches, bigru_bwd.launches, bigru_fwd.routes[route]
+        rb = bigru_bwd.routes[route]
         yf, yb = core(*leaves)
         torch.autograd.backward((yf, yb), dy)
         torch.cuda.synchronize()
         launched = (bigru_fwd.launches - f0, bigru_bwd.launches - b0)
         assert launched == ((1, 1) if core is bigru_core else (0, 0))
-        assert bigru_fwd.routes[route] - r0 == launched[0]
+        assert (bigru_fwd.routes[route] - r0, bigru_bwd.routes[route] - rb) == launched
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -357,10 +361,12 @@ def test_bgru_wgan_step_on_the_card_launches_the_gru_kernels(cuda_device):
         "mask": torch.ones(*lead, 4, 64, device=cuda_device),
     }
     f0, b0, r0 = bigru_fwd.launches, bigru_bwd.launches, bigru_fwd.routes["mma"]
+    rb = bigru_bwd.routes["mma"]
     state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
     torch.cuda.synchronize()
     assert (bigru_fwd.launches - f0, bigru_bwd.launches - b0) == (4, 2)
-    assert bigru_fwd.routes["mma"] - r0 == 4  # bf16, H a multiple of 16: the tensor-core forward
+    # bf16, H a multiple of 16: the tensor-core forward and BPTT
+    assert (bigru_fwd.routes["mma"] - r0, bigru_bwd.routes["mma"] - rb) == (4, 2)
     assert all(torch.isfinite(v).item() for v in m.values())
 
 
@@ -445,6 +451,117 @@ def test_tensor_core_entries_refuse_other_widths_and_take_unaligned_gates(cuda_d
     assert odd.data_ptr() % 16 == 2
     with torch.no_grad():
         _close(bilstm_fwd(odd, *args[1:]), bilstm_fwd_reference(*args), 2e-2)
+
+
+# --- the two BPTT routes ------------------------------------------------------
+
+# the training shape, edge shapes (T=1, B not a multiple of 8), the narrow
+# widths, and the fakes pass's row count
+BWD_MMA_SHAPES = [(512, 32, 128), (517, 3, 128), (1, 5, 128), (40, 11, 16), (33, 9, 64),
+                  (24, 13, 48), (40, 160, 128)]
+
+
+def _bwd_routes():
+    return dict(bilstm_bwd.routes), dict(bigru_bwd.routes)
+
+
+def _close_rel(got, want, rtol):
+    """|kernel − twin| within ``rtol`` of the twin's largest |value|."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", BWD_MMA_SHAPES)
+def test_tensor_core_bptt_matches_twins(cuda_device, T, B, H):
+    """bf16, H a multiple of 16 up to 128: both BPTTs launch the tensor-core
+    kernels and agree with the twins within 2e-2 of max|twin|."""
+    bf16 = torch.bfloat16
+    lstm_args = _bwd_args(T, B, H, bf16, cuda_device, seed=T + B)
+    gru_args = _gru_bwd_args(T, B, H, bf16, cuda_device, seed=T + B)
+    l0, g0 = _bwd_routes()
+    with torch.no_grad():
+        _close_rel(bilstm_bwd(*lstm_args), bilstm_bwd_reference(*lstm_args), 2e-2)
+        got, want = bigru_bwd(*gru_args), bigru_bwd_reference(*gru_args)
+        _close_rel(got[:2], want[:2], 2e-2)
+        _close_rel(got[2:], want[2:], 2e-2)
+    torch.cuda.synchronize()
+    l1, g1 = _bwd_routes()
+    assert (l1["mma"] - l0["mma"], l1["simt"] - l0["simt"]) == (1, 0)
+    assert (g1["mma"] - g0["mma"], g1["simt"] - g0["simt"]) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,route", [(torch.float32, 128, "simt"), (torch.bfloat16, 160, "simt"),
+                                           (torch.bfloat16, 40, "simt"), (torch.bfloat16, 128, "mma"),
+                                           (torch.bfloat16, 48, "mma")])
+def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route):
+    """f32 and widths outside the tensor-core route launch the CUDA-core
+    BPTT kernels; each call counts on its route alone and agrees with its
+    twin. The CUDA-core GRU BPTT refuses H that is not a multiple of 32."""
+    T, B = 24, 5
+    lstm_args = _bwd_args(T, B, H, dtype, cuda_device, seed=H)
+    gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
+    l0, g0 = _bwd_routes()
+    with torch.no_grad():
+        got, want = bilstm_bwd(*lstm_args), bilstm_bwd_reference(*lstm_args)
+        if dtype == torch.float32:
+            _close(got, want, 1e-4)
+        else:
+            _close_rel(got, want, 2e-2)
+        if route == "simt" and H % 32:
+            with pytest.raises(ValueError, match="multiple of 32"):
+                bigru_bwd(*gru_args)
+        else:
+            got, want = bigru_bwd(*gru_args), bigru_bwd_reference(*gru_args)
+            for sl in (slice(0, 2), slice(2, 4)):
+                if dtype == torch.float32:
+                    _close(got[sl], want[sl], 1e-4)
+                else:
+                    _close_rel(got[sl], want[sl], 2e-2)
+    torch.cuda.synchronize()
+    l1, g1 = _bwd_routes()
+    other = "simt" if route == "mma" else "mma"
+    gru_launched = 0 if route == "simt" and H % 32 else 1
+    assert (l1[route] - l0[route], l1[other] - l0[other]) == (1, 0)
+    assert (g1[route] - g0[route], g1[other] - g0[other]) == (gru_launched, 0)
+
+
+@pytest.mark.cuda
+def test_tensor_core_bptt_refuses_other_widths_and_takes_unaligned_views(cuda_device):
+    from percivaltts_tpu_torch import _build
+
+    lib = _build.library()
+    z = torch.zeros(64, dtype=torch.bfloat16, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for H in (40, 144, 0):
+        p = [z.data_ptr()] * 16
+        assert lib.percival_bilstm_bwd_mma(*p, 1, 1, H, stream) != 0
+        assert lib.percival_bigru_bwd_mma(*p, 1, 1, H, stream) != 0
+
+    def unaligned(t):  # a contiguous view 2 bytes past a 16-byte boundary
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 2
+        return view
+
+    T, B, H = 9, 3, 64
+    lstm_args = _bwd_args(T, B, H, torch.bfloat16, cuda_device, seed=5)
+    gru_args = _gru_bwd_args(T, B, H, torch.bfloat16, cuda_device, seed=5)
+    l0, g0 = _bwd_routes()
+    with torch.no_grad():
+        odd = [unaligned(lstm_args[0])] + lstm_args[1:-1] + [unaligned(lstm_args[-1])]
+        _close_rel(bilstm_bwd(*odd), bilstm_bwd_reference(*lstm_args), 2e-2)
+        odd = [unaligned(gru_args[0])] + gru_args[1:-1] + [unaligned(gru_args[-1])]
+        got, want = bigru_bwd(*odd), bigru_bwd_reference(*gru_args)
+        _close_rel(got[:2], want[:2], 2e-2)
+        _close_rel(got[2:], want[2:], 2e-2)
+    torch.cuda.synchronize()
+    l1, g1 = _bwd_routes()
+    assert (l1["mma"] - l0["mma"], g1["mma"] - g0["mma"]) == (1, 1)
 
 
 # --- the DSP kernels: framing × window and overlap-add ------------------------

@@ -20,7 +20,7 @@ import torch
 
 from percivaltts_tpu_torch.ops.gru_cuda import bigru_fwd_reference
 from percivaltts_tpu_torch.ops.lstm_cuda import bilstm_fwd_reference
-from percivaltts_tpu_torch.ops.mma_layout import GATES, fwd_route, gate_rows, pack_wh, unpack_wh
+from percivaltts_tpu_torch.ops.mma_layout import GATES, bwd_route, fwd_route, gate_rows, pack_wh, unpack_wh
 
 ROWS = 8  # batch rows a block: the mma's N
 
@@ -167,6 +167,7 @@ def test_widths_outside_the_tensor_core_route_are_refused(kind, H):
     with pytest.raises(ValueError, match="multiple of 16 up to 128"):
         gate_rows(kind, H)
     assert fwd_route(torch.bfloat16, H) == "simt"
+    assert bwd_route(torch.bfloat16, H) == "simt"
 
 
 def test_route_is_chosen_from_dtype_and_width():
@@ -176,5 +177,8 @@ def test_route_is_chosen_from_dtype_and_width():
     assert fwd_route(torch.float32, 128) == "simt"  # f32: the parity dtype
     assert fwd_route(torch.bfloat16, 48) == "mma"
     assert fwd_route(torch.bfloat16, 136) == "simt"  # above the register budget
+    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128),
+                     (torch.bfloat16, 136)):
+        assert bwd_route(dtype, H) == fwd_route(dtype, H)  # the BPTT follows the forward
     with pytest.raises(ValueError, match="kind"):
         gate_rows("rnn", 64)
