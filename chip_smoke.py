@@ -27,9 +27,12 @@ when all passed):
    view), f32 and bf16 (the tensor-core kernels ``csrc/*_bwd_mma.cu`` for
    H a multiple of 16 up to 128, the CUDA-core ones at H=160); each
    autograd pair (forward kernel + BPTT kernel) against the same function
-   on the twins; and the DSP kernels,
-   framing × window and overlap-add, at the vocoder's shapes and the JAX
-   package's test shapes, f32 and bf16;
+   on the twins; and the DSP kernels, framing × window and overlap-add, bit
+   for bit, at the vocoder's shapes, the JAX package's test shapes and the
+   edges (fl not a multiple of 8, nf not a multiple of the framing tile,
+   B·nf past 65,535, fl < hop, a frame cut into column slices), f32 and
+   bf16; overlap-add also on a stride-0 broadcast row (the iSTFT's window²
+   normaliser) and on frames cut from a wider buffer, with no copy kernel;
 4. serve 8 requests (96…1500 frames) through each full-width generator
    (seeded init, numpy-made stats and labels): shapes, finiteness, the
    launches per generator call (1 BiLSTM forward for config 3, 2 BiGRU
@@ -54,7 +57,10 @@ when all passed):
    the CUDA-core kernel that bf16 took before,
    each path's serve and step medians and the vocode's, and profile one
    serve and one step of each generator and one vocode for the device's
-   busy share and the recurrent kernels' device time.
+   busy share and the recurrent (or DSP) kernels' device time; the launch
+   floor (the device time of a one-element ``fill_``, the least a launch
+   costs), beside which each DSP row prints its time, bound, share of the
+   bound and distance to the floor.
 
 Launch counts are set to 0 just before each serve, train or vocode path
 and read just after it; launches made to compare a kernel with its twin are not
@@ -126,17 +132,28 @@ AUTOGRAD_SHAPE = (512, 32, 128)
 # DSP kernels at the vocode path's shapes, (B, n, frame length, hop,
 # windowed): YIN's and CheapTrick's framings of a 4-utterance chunk of
 # 1536 frames, the noise STFT's (one row, Hann window), then the JAX
-# package's test shapes (tests/test_pallas.py)
+# package's test shapes (tests/test_pallas.py), then the edges: fl not a
+# multiple of 8 (777, 804 with odd n: rows off 16-byte alignment), nf not a
+# multiple of the 8-frame tile, B·nf past 65,535, fl < hop, n < fl/2, and
+# a frame too wide for one block (column slices)
 FRAME_SHAPES = [(4, 122880, 804, 80, False), (4, 122880, 800, 80, False),
                 (1, 122880, 160, 80, True), (4, 122880, 160, 80, False),
-                (2, 777, 320, 64, True), (2, 1000, 400, 80, False)]
+                (2, 777, 320, 64, True), (2, 1000, 400, 80, False),
+                (2, 3001, 777, 100, True), (3, 1001, 804, 80, False), (2, 1041, 160, 80, True),
+                (43, 122880, 160, 80, False), (2, 1000, 48, 80, True), (1, 5, 160, 80, True),
+                (1, 50000, 20000, 4000, True)]
 # overlap-add (B, nf, frame length, hop): the noise iSTFT and its window²
-# normaliser at 1536 frames, then the test shapes
-OLA_SHAPES = [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64), (2, 257, 400, 80)]
-# framing is one copy and at most one multiply; overlap-add sums in the
-# twin's order with the twin's rounding: both bit for bit (OLA held to
-# 1e-6 of the largest value, in case a compiler contracts differently)
-OLA_TOL = 1e-6
+# normaliser at 1536 frames, then the test shapes, then the edges: vectors
+# that cross hop blocks (777 / 100), rows off 16-byte alignment (hop 63),
+# B·nf past 65,535, fl < hop, one frame
+OLA_SHAPES = [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64), (2, 257, 400, 80),
+              (2, 37, 777, 100), (3, 41, 126, 63), (43, 1536, 160, 80), (2, 20, 48, 80),
+              (1, 1, 160, 80)]
+# timed overlap-adds: the two above, and the normaliser as the iSTFT runs
+# it, a stride-0 broadcast of one window² row (read once: its bound counts fl)
+OLA_TIMED = OLA_SHAPES[:2] + [(1, 1536, 160, 80, "stride 0")]
+# framing is one copy and at most one multiply, rounded once; overlap-add
+# sums in the twin's order with the twin's rounding: both bit for bit
 # the vocode through the kernels against the same vocode through the twins
 # (everything else identical): the kernels equal the twins, so 0 expected
 VOCODE_TOL = 1e-4
@@ -568,8 +585,9 @@ RECURRENT = ("bilstm", "bigru")  # the recurrent kernels' symbol names hold one 
 def _profiled(label: str, fn, keys: tuple):
     """Run ``fn`` once under ``torch.profiler``; print its wall time, the
     device's busy time and share, the device time of the kernels whose names
-    hold one of ``keys``, and the 12 largest kernels. Returns the busy share,
-    or None when the trace holds no device events."""
+    hold one of ``keys``, and the 12 largest kernels. Returns (busy share,
+    those kernels' device ms), or (None, None) when the trace holds no
+    device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -582,7 +600,7 @@ def _profiled(label: str, fn, keys: tuple):
     if share is None:
         print(f"[profile {label}] {wall:.3f} ms wall; the trace holds no device events: busy "
               "share not measured")
-        return None
+        return None, None
     busy, busy_share, top = share
     sel = [t for t in top if any(k in t[0] for k in keys)]
     print(f"[profile {label}] {wall:.3f} ms wall (profiled), device busy {busy:.3f} ms, busy "
@@ -590,7 +608,7 @@ def _profiled(label: str, fn, keys: tuple):
           f"kernels {sum(ms for _, ms, _ in sel):.3f} ms x{sum(n for *_, n in sel)}")
     for key, ms, count in top[:12]:
         print(f"[profile {label}]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
-    return busy_share
+    return busy_share, sum(ms for _, ms, _ in sel)
 
 
 def _train_path(dev, kind: str) -> dict:
@@ -671,7 +689,7 @@ def _train_path(dev, kind: str) -> dict:
           f"steps), {frames / step_ms * 1e3:.1f} frames/s")
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
-    busy_share = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
+    busy_share, _ = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
     return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share}
 
 
@@ -809,9 +827,38 @@ def _check_dsp_kernels(dev) -> dict:
             frames = torch.randn(B, nf, fl, generator=g, device=dev).to(dtype)
             got = _launch_once(fc.overlap_add, frames, hop, nf * hop)
             e = _compare(f"[overlap_add] B={B} nf={nf} fl={fl} hop={hop} {dt}", [got],
-                         [fc.overlap_add_reference(frames, hop, nf * hop)], OLA_TOL, relative=True)
+                         [fc.overlap_add_reference(frames, hop, nf * hop)], 0.0, relative=False)
             err["overlap_add"] = max(err["overlap_add"], e if dtype == torch.float32 else 0.0)
+        # strided frames, read in place: the iSTFT's window² normaliser (a
+        # stride-0 broadcast row) and frames cut from a wider buffer
+        w = hann_window(160, device=dev).to(dtype)
+        g = torch.Generator(device=dev).manual_seed(11)
+        views = {"stride-0 normaliser row": (w * w).expand(1, 1536, 160),
+                 "frames cut from (3, 60, 330)":
+                     torch.randn(3, 60, 330, generator=g, device=dev).to(dtype)[:, 3:50, 4:164]}
+        for label, view in views.items():
+            n_out = view.shape[1] * 80
+            got = _launch_once(fc.overlap_add, view, 80, n_out)
+            _compare(f"[overlap_add] {label}, strides {view.stride()} {dt}", [got],
+                     [fc.overlap_add_reference(view.contiguous(), 80, n_out)], 0.0, relative=False)
+        names = _device_kernels(lambda: fc.overlap_add(views["stride-0 normaliser row"], 80, 1536 * 80))
+        print(f"[overlap_add] stride-0 normaliser row {dt}: device kernels {names}")
+        if names is not None and (len(names) != 1 or "overlap_add" not in names[0]):
+            raise AssertionError(f"the normaliser's overlap-add ran other kernels: {names}")
     return err
+
+
+def _device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` ran
+    (``torch.profiler``); None when the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
 
 
 class _DspTwins:
@@ -873,10 +920,10 @@ def _vocode_path(dev, feats) -> dict:
           f"factor {med / audio_s:.4f}, {audio_s / med:.1f} s of audio per s")
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
-    busy_share = _profiled("vocode", lambda: voc.synthesize_batch(feats),
-                           ("frame_window", "overlap_add"))
+    busy_share, dsp_ms = _profiled("vocode", lambda: voc.synthesize_batch(feats),
+                                   ("frame_window", "overlap_add"))
     return {"counts": counts, "vocode_ms": med * 1e3, "audio_s": audio_s,
-            "busy_share": busy_share, "err": float(err)}
+            "busy_share": busy_share, "dsp_device_ms": dsp_ms, "err": float(err)}
 
 
 def _dsp_bound(name: str, shape) -> tuple:
@@ -889,8 +936,8 @@ def _dsp_bound(name: str, shape) -> tuple:
         nbytes = 4 * (B * n + B * nf * fl + (fl if windowed else 0))
         ops = B * nf * fl if windowed else 0
     else:
-        B, nf, fl, hop = shape
-        nbytes = 4 * (B * nf * fl + B * nf * hop)
+        B, nf, fl, hop, *broadcast = shape
+        nbytes = 4 * ((fl if broadcast else B * nf * fl) + B * nf * hop)
         ops = B * nf * fl
     return _bound(nbytes, ops, torch.float32)
 
@@ -912,7 +959,7 @@ def _library_dsp(name: str, shape, args):
             cols = F.unfold(xp, (1, fl), stride=(1, hop))[..., :nf].transpose(1, 2)
             return cols if w is None else cols * w
         return call
-    B, nf, fl, hop = shape
+    B, nf, fl, hop, *_ = shape
     (frames,) = args
     span = (nf - 1) * hop + fl
 
@@ -946,12 +993,19 @@ def _time_dsp_kernels(dev) -> dict:
     """Phase 6, DSP kernels: each at the vocode path's shapes in f32 beside
     its twin, its bound and its library call; device time per call
     (``torch.profiler``) for all three, and the CUDA-event time per call of
-    back-to-back calls, host work included (``call_ms``)."""
+    back-to-back calls, host work included (``call_ms``). Each row also
+    carries its share of the bound and the launch floor (``floor_ms``: the
+    device time of a one-element ``fill_``, the least any launch costs), so
+    that a shape whose bound lies below the floor is judged by the floor."""
     from percivaltts_tpu_torch.ops import frames_cuda as fc
     from percivaltts_tpu_torch.ops.stft import hann_window
 
+    one = torch.zeros(1, device=dev)
+    floor_ms = _device_ms(lambda: one.fill_(1.0), calls=50)
+    print(f"[time] launch floor: a one-element fill_ takes {floor_ms} device ms (torch.profiler, "
+          "mean of 50)")
     out = {"frame_window": [], "overlap_add": []}
-    for name, shapes in (("frame_window", FRAME_SHAPES[:3]), ("overlap_add", OLA_SHAPES[:2])):
+    for name, shapes in (("frame_window", FRAME_SHAPES[:3]), ("overlap_add", OLA_TIMED)):
         for shape in shapes:
             g = torch.Generator(device=dev).manual_seed(5)
             if name == "frame_window":
@@ -961,8 +1015,10 @@ def _time_dsp_kernels(dev) -> dict:
                 kern = lambda: fc.frame_window(args[0], fl, hop, args[1])  # noqa: E731
                 twin = lambda: fc.frame_window_reference(args[0], fl, hop, args[1])  # noqa: E731
             else:
-                B, nf, fl, hop = shape
-                args = (torch.randn(B, nf, fl, generator=g, device=dev),)
+                B, nf, fl, hop, *broadcast = shape
+                w = hann_window(fl, device=dev)
+                args = ((w * w).expand(B, nf, fl) if broadcast else
+                        torch.randn(B, nf, fl, generator=g, device=dev),)
                 kern = lambda: fc.overlap_add(args[0], hop, nf * hop)  # noqa: E731
                 twin = lambda: fc.overlap_add_reference(args[0], hop, nf * hop)  # noqa: E731
             lib = _library_dsp(name, shape, args)
@@ -974,7 +1030,13 @@ def _time_dsp_kernels(dev) -> dict:
             bound_ms, bound_by = _dsp_bound(name, shape)
             out[name].append({"shape": list(shape), "ms": ms, "plain_ms": dev_ms["plain"],
                               "bound_ms": bound_ms, "bound_by": bound_by,
+                              "share_of_bound": bound_ms / ms, "floor_ms": floor_ms,
                               "library_ms": dev_ms["library"], "call_ms": call_ms})
+            floor = (f"{ms - floor_ms:.5f} ms above the launch floor {floor_ms:.5f} ms"
+                     + (" (the bound lies below the floor: judged by the floor)"
+                        if bound_ms < floor_ms else "")) if floor_ms else "launch floor not measured"
+            print(f"[time] {name} {shape} f32: {ms:.5f} device ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}), {bound_ms / ms:.3f} of the bound, {floor}")
             print(f"[time] {name} {shape} f32, device time per call: kernel {dev_ms['kernel']} ms, "
                   f"plain twin {dev_ms['plain']} ms, library {dev_ms['library']} ms (max|library-plain| "
                   f"{lib_err:.3g}); bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
@@ -1050,10 +1112,10 @@ def main() -> int:
     timed.update(_time_dsp_kernels(dev))
 
     sources = {
-        "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:145"),
-        "bilstm_bwd": ("bilstm_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:233"),
-        "bigru_fwd": ("bigru_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:482"),
-        "bigru_bwd": ("bigru_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:553"),
+        "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+        "bilstm_bwd": ("bilstm_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        "bigru_fwd": ("bigru_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+        "bigru_bwd": ("bigru_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:616"),
         "frame_window": ("frame_window.cu", "percivaltts_tpu/ops/pallas_kernels.py:115"),
         "overlap_add": ("overlap_add.cu", "percivaltts_tpu/ops/pallas_kernels.py:184"),
     }
@@ -1085,6 +1147,9 @@ def main() -> int:
             "layer_ms": first.get("layer_ms"),
             "timed": timed[name],
         })
+        if name in ("frame_window", "overlap_add"):
+            kernels[-1]["share_of_bound"] = first["share_of_bound"]
+            kernels[-1]["floor_ms"] = first["floor_ms"]
         if name in ROUTED:  # the tensor-core route: mma.sync, bf16, H % 16 == 0, H <= 128
             kernels[-1]["fwd_route" if name.endswith("fwd") else "bwd_route"] = first["route"]
             kernels[-1]["launches_by_route"] = routes[name]
@@ -1095,7 +1160,8 @@ def main() -> int:
               f"{train[kind]['step_ms']:.3f} ms, device busy share "
               f"{train[kind]['busy_share']}")
     print(f"[summary] vocode_pml: {vocode['audio_s']:.2f} s of audio in a median "
-          f"{vocode['vocode_ms']:.3f} ms, device busy share {vocode['busy_share']}")
+          f"{vocode['vocode_ms']:.3f} ms, device busy share {vocode['busy_share']}, framing and "
+          f"overlap-add device time {vocode['dsp_device_ms']} ms a vocode")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

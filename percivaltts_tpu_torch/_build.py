@@ -128,7 +128,8 @@ def library() -> ctypes.CDLL:
     lib.percival_bigru_bwd_mma.restype = i
     lib.percival_frame_window.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.percival_frame_window.restype = i
-    lib.percival_overlap_add.argtypes = [p, p, i, i, i, i, i, i, p]
+    ll = ctypes.c_longlong
+    lib.percival_overlap_add.argtypes = [p, p, i, i, i, i, i, ll, ll, i, p]
     lib.percival_overlap_add.restype = i
     lib.percival_cuda_error_string.argtypes = [i]
     lib.percival_cuda_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,7 @@
 // PTX wrappers shared by the tensor-core recurrent kernels
 // (bilstm_{fwd,bwd}_mma.cu, bigru_{fwd,bwd}_mma.cu): the bf16 m16n8k16
 // product, ldmatrix from shared memory, and the cp.async ring that streams
-// the inputs.
+// the inputs (also the framing kernel's staging, frame_window.cu).
 #pragma once
 
 #include <cstdint>

@@ -12,7 +12,8 @@ CUDA tensors launch ``csrc/frame_window.cu`` / ``csrc/overlap_add.cu`` (or
 raise), CPU tensors take ``frame_window_reference`` / ``overlap_add_reference``,
 the shifted-view scheme of ``percivaltts_tpu/ops/stft.py:37-100``. There is no
 other fallback. Bounds on the card (both bytes, at 3.35 TB/s), and what each
-kernel's design does about them, are in the kernels' sources.
+kernel's design does about them, are in the kernels' sources;
+``ops/frames_layout.py`` replays each kernel's partition on the CPU.
 """
 
 from __future__ import annotations
@@ -91,11 +92,11 @@ def _check_ola_args(frames, hop, out_length) -> None:
                          f"hop {hop}; got {out_length}")
 
 
-def _cuda_device(name: str, tensors) -> torch.device:
+def _cuda_device(name: str, tensors, contiguous: bool = True) -> torch.device:
     """The one device of ``tensors`` (cuda or cpu); raises on several
-    devices, another device type, non-contiguous CUDA tensors, or CUDA
-    tensors that require a gradient under grad mode (the kernels have no
-    backward)."""
+    devices, another device type, non-contiguous CUDA tensors (when
+    ``contiguous``), or CUDA tensors that require a gradient under grad
+    mode (the kernels have no backward)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name} inputs lie on several devices: {devices}")
@@ -104,7 +105,7 @@ def _cuda_device(name: str, tensors) -> torch.device:
         return device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
-    if not all(t.is_contiguous() for t in tensors):
+    if contiguous and not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous CUDA inputs")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} launches a kernel without a backward; call it on "
@@ -148,16 +149,20 @@ frame_window.launches = 0
 def overlap_add(frames, hop: int, out_length: int):
     """Centred overlap-add, ``(B, nf, fl)`` → ``(B, out_length)``.
 
-    CUDA tensors launch the hand-written kernel; CPU tensors run
-    :func:`overlap_add_reference`. Raises on another dtype than
-    float32/bfloat16, an ``out_length`` past the samples the frames reach,
-    non-contiguous CUDA frames, frames that require a gradient under grad
-    mode, or a launch error. Every launch adds one to
-    ``overlap_add.launches``."""
+    CUDA tensors launch the hand-written kernel, which reads the frames
+    through their batch and frame strides (0 included: a broadcast row is
+    read without a copy); CPU tensors run :func:`overlap_add_reference`.
+    Raises on another dtype than float32/bfloat16, an ``out_length`` past
+    the samples the frames reach, CUDA frames whose last axis is not
+    contiguous, frames that require a gradient under grad mode, or a launch
+    error. Every launch adds one to ``overlap_add.launches``."""
     _check_ola_args(frames, hop, out_length)
-    device = _cuda_device("overlap_add", (frames,))
+    device = _cuda_device("overlap_add", (frames,), contiguous=False)
     if device.type == "cpu":
         return overlap_add_reference(frames, hop, out_length)
+    if frames.stride(-1) != 1 and frames.shape[-1] > 1:
+        raise ValueError("overlap_add needs CUDA frames whose last axis is contiguous, "
+                         f"got strides {frames.stride()}")
 
     from percivaltts_tpu_torch import _build
 
@@ -167,7 +172,8 @@ def overlap_add(frames, hop: int, out_length: int):
     with torch.cuda.device(device):
         err = lib.percival_overlap_add(
             frames.data_ptr(), out.data_ptr(), B, nf, fl, hop, out_length,
-            _DTYPE_CODES[frames.dtype], torch.cuda.current_stream(device).cuda_stream,
+            frames.stride(0), frames.stride(1), _DTYPE_CODES[frames.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "overlap_add launch")
     overlap_add.launches += 1

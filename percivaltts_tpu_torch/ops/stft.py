@@ -81,11 +81,11 @@ def istft(
     """Inverse STFT with windowed overlap-add and COLA normalization,
     ``(B, nf, bins)`` → ``(B, out_length)``. Two overlap-adds, as the JAX
     code: the windowed frames, and the window² normaliser (one row, shared
-    by the batch)."""
+    by the batch, read through a stride-0 view: no copy)."""
     if window is None:
         window = hann_window(frame_length, device=spec.device)
     frames = torch.fft.irfft(spec, dim=-1)[..., :frame_length] * window
     y = overlap_add(frames, hop, out_length)
     nf = spec.shape[-2]
-    wsq = overlap_add((window * window).expand(1, nf, frame_length).contiguous(), hop, out_length)
+    wsq = overlap_add((window * window).expand(1, nf, frame_length), hop, out_length)
     return y / torch.clamp(wsq, min=1e-8)

@@ -570,9 +570,15 @@ def test_tensor_core_bptt_refuses_other_widths_and_takes_unaligned_views(cuda_de
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,n,fl,hop", [(4, 122880, 804, 80), (4, 122880, 800, 80), (1, 122880, 160, 80),
-                                        (2, 777, 320, 64), (3, 1000, 400, 80), (1, 5, 160, 80)])
+                                        (2, 777, 320, 64), (3, 1000, 400, 80), (1, 5, 160, 80),
+                                        (2, 3001, 777, 100), (3, 1001, 804, 80), (2, 1041, 160, 80),
+                                        (43, 122880, 160, 80), (2, 1000, 48, 80), (2, 1003, 66, 100),
+                                        (1, 50000, 20000, 4000)])
 def test_frame_window_kernel_equals_twin(cuda_device, dtype, B, n, fl, hop):
-    """One copy and at most one multiply, rounded once: bit for bit."""
+    """One copy and at most one multiply, rounded once: bit for bit. Edges:
+    fl not a multiple of 8 (777, 804, 66), odd n (rows off 16-byte
+    alignment), nf not a multiple of the 8-frame tile, B·nf past 65,535,
+    fl < hop, and a frame too wide for one block (cut into column slices)."""
     from percivaltts_tpu_torch.ops import frames_cuda
     from percivaltts_tpu_torch.ops.stft import hann_window
 
@@ -591,10 +597,13 @@ def test_frame_window_kernel_equals_twin(cuda_device, dtype, B, n, fl, hop):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nf,fl,hop", [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64),
-                                         (3, 257, 400, 80), (1, 1, 160, 80)])
+                                         (3, 257, 400, 80), (1, 1, 160, 80), (2, 37, 777, 100),
+                                         (3, 41, 126, 63), (43, 1536, 160, 80), (2, 20, 48, 80)])
 def test_overlap_add_kernel_equals_twin(cuda_device, dtype, B, nf, fl, hop):
     """The terms summed in the twin's order, each partial sum rounded to the
-    dtype: bit for bit."""
+    dtype: bit for bit. Edges: fl not a multiple of 8 with vectors that
+    cross hop blocks (777 / 100), rows off 16-byte alignment (out_length
+    2583), B·nf past 65,535, fl < hop."""
     from percivaltts_tpu_torch.ops import frames_cuda
 
     g = torch.Generator(device=cuda_device).manual_seed(nf + fl)
@@ -609,12 +618,68 @@ def test_overlap_add_kernel_equals_twin(cuda_device, dtype, B, nf, fl, hop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_overlap_add_reads_strided_and_broadcast_frames(cuda_device, dtype):
+    """A stride-0 broadcast row (the iSTFT's window² normaliser) and frames
+    cut from a wider buffer (frame stride 320, batch stride past the frames)
+    equal the twin on the materialised copies, bit for bit; the launch runs
+    the overlap-add kernel and nothing else (no copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from percivaltts_tpu_torch.ops import frames_cuda
+    from percivaltts_tpu_torch.ops.stft import hann_window
+
+    w = hann_window(160, device=cuda_device).to(dtype)
+    row = (w * w).expand(1, 1536, 160)
+    assert row.stride() == (0, 0, 1)
+    got = frames_cuda.overlap_add(row, 80, 1536 * 80)
+    assert torch.equal(got, frames_cuda.overlap_add_reference(row.contiguous(), 80, 1536 * 80))
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    wide = torch.randn(3, 60, 330, generator=g, device=cuda_device).to(dtype)
+    cut = wide[:, 3:50, 4:164]
+    got = frames_cuda.overlap_add(cut, 80, 47 * 80)
+    assert torch.equal(got, frames_cuda.overlap_add_reference(cut.contiguous(), 80, 47 * 80))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frames_cuda.overlap_add(row, 80, 1536 * 80)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "overlap_add" in names[0], names
+
+
+@pytest.mark.cuda
+def test_istft_normaliser_is_a_stride_0_view(cuda_device, monkeypatch):
+    """The iSTFT hands the window² row to the overlap-add as a broadcast view
+    (stride 0 over the frames), so no copy kernel runs for it."""
+    from percivaltts_tpu_torch.ops import frames_cuda, stft
+
+    seen = []
+    check = frames_cuda._check_ola_args
+
+    def spy(frames, hop, out_length):  # the wrapper's argument check sees what it launches on
+        seen.append(frames.stride())
+        return check(frames, hop, out_length)
+
+    monkeypatch.setattr(frames_cuda, "_check_ola_args", spy)
+    spec = torch.randn(2, 40, 81, dtype=torch.complex64, device=cuda_device)
+    y = stft.istft(spec, 160, 80, 40 * 80)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 3200) and torch.isfinite(y).all()
+    assert len(seen) == 2 and seen[1] == (0, 0, 1)
+
+
+@pytest.mark.cuda
 def test_dsp_kernels_refuse_strides_devices_and_grad(cuda_device):
     from percivaltts_tpu_torch.ops import frames_cuda
 
     x = torch.randn(2, 1000, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         frames_cuda.frame_window(torch.randn(1000, 2, device=cuda_device).T, 400, 80)
+    with pytest.raises(ValueError, match="last axis is contiguous"):
+        frames_cuda.overlap_add(torch.randn(2, 160, 13, device=cuda_device).transpose(1, 2), 80, 1000)
+    strided = torch.randn(2, 13, 320, device=cuda_device)[:, :, :160]  # last axis contiguous: taken
+    assert torch.equal(frames_cuda.overlap_add(strided, 80, 1000),
+                       frames_cuda.overlap_add_reference(strided.contiguous(), 80, 1000))
     with pytest.raises(ValueError, match="several devices"):
         frames_cuda.frame_window(x, 400, 80, torch.ones(400))
     with pytest.raises(RuntimeError, match="backward"):
