@@ -9,11 +9,12 @@ Two generators are driven through the entry points a user calls
 and the normalizing WGAN-GP step): config 3's CNN generator with its BiLSTM
 f0 head (``generator="cnn_blstm"``), and the BGRU generator
 (``generator="bgru"``: a 256-wide front end, 2 BGRU layers of 128 units per
-direction, a readout to 99 features); and config 3's served features go
+direction, a readout to 99 features); config 3's served features go
 through the default PML vocoder (``vocoders.get_vocoder(VocoderConfig())
 .synthesize_batch``, closed loop, 2 passes), the two calls ``cli synth``
-makes. Phases, each of which raises on failure (the script exits 0 only
-when all passed):
+makes; and config 3 trains for epochs through ``training.Trainer``, is
+resumed from its checkpoints and served from the best one. Phases, each of
+which raises on failure (the script exits 0 only when all passed):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``percivaltts_tpu_torch/csrc`` (one nvcc per
@@ -60,10 +61,27 @@ when all passed):
    busy share and the recurrent (or DSP) kernels' device time; the launch
    floor (the device time of a one-element ``fill_``, the least a launch
    costs), beside which each DSP row prints its time, bound, share of the
-   bound and distance to the floor.
+   bound and distance to the floor;
+7. train config 3 with ``training.Trainer`` (WGAN-GP, n_critic=5, B=32,
+   buckets 256 and 512, EMA 0.995, 2 checkpoints kept) on a numpy corpus
+   (384 training and 40 validation utterances of 150–700 frames, raw, with
+   stats for normalization on the device): 2 epochs, the second profiled
+   for 2 steps, then a fresh ``Trainer`` on the same workdir resumes and
+   runs a third. Every epoch record finite with as many steps as whole
+   WGAN groups; (2 forward, 1 BPTT) launches a step and 1 forward a
+   validation batch, all on the tensor-core route; the checkpoints that
+   LatestN ∪ BestN predicts; ``resume()`` equal, bit for bit, to the state
+   saved at that step (parameters, both Adam states, the step generator,
+   the counters, the EMA) with the best epoch and score re-seeded; a
+   Chrome trace per run, whose device busy share is printed; the 8
+   requests of phase 4 served from ``eval_generator`` of the best
+   checkpoint equal, bit for bit, the same requests served from that
+   step's EMA held in memory. Prints each epoch's wall time, frames/s and
+   step dispatch times, the checkpoint save, resume and restore times and
+   a checkpoint's size, beside the card's name and power limit.
 
-Launch counts are set to 0 just before each serve, train or vocode path
-and read just after it; launches made to compare a kernel with its twin are not
+Launch counts are set to 0 just before each serve, train, vocode or
+training-loop path and read just after it; launches made to compare a kernel with its twin are not
 counted. The line before the last is one JSON object describing each
 kernel; the last line is the JSON device record. Imports nothing of JAX or
 of the JAX package.
@@ -93,7 +111,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # path's: the fakes pass over n_critic·B rows (without cells) and the
 # generator update (with cells), and a narrow width (H=64)
 KERNEL_SHAPES = [(512, 8, 128), (517, 3, 128), (64, 1, 128), (1, 1, 128), (1536, 8, 128),
-                 (512, 160, 128), (512, 32, 128), (40, 160, 128), (33, 9, 64)]
+                 (512, 160, 128), (512, 32, 128), (40, 160, 128), (33, 9, 64),
+                 (256, 160, 128), (256, 32, 128)]  # the training loop's 256-frame bucket
 # f32: the same math with sums and transcendentals in another order.
 # bf16: outputs are bf16 (ulp 2^-8 near 1) and h is rounded to bf16 before
 # each product, so a one-ulp rounding flip is carried into later steps.
@@ -118,7 +137,8 @@ LAYER_IN = 256  # the recurrent layers' input width in both generators
 
 # BPTT: the training shape, edge shapes, the narrow width, and H=160 (bf16
 # outside the tensor-core route: the CUDA-core kernels stay checked in bf16)
-BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64), (33, 9, 160)]
+BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64), (33, 9, 160),
+              (256, 32, 128)]  # the training loop's 256-frame bucket
 # bf16 only (the tensor-core route): T=1, H=16 and 48, B not a multiple of 8
 # (the CUDA-core GRU BPTT takes H a multiple of 32 only)
 BWD_MMA_SHAPES = [(1, 5, 128), (40, 11, 16), (24, 13, 48)]
@@ -178,6 +198,19 @@ STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2)}
 # moments within 5.8e-3.)
 STEP_METRIC_TOL = 1e-3
 STEP_MOMENT_TOL = 2e-2
+
+
+# phase 7, the training loop at config 3's width: 192 training utterances
+# of 150–256 frames and 192 of 257–700 (cropped past 512), so each bucket
+# gives 6 batches of 32 an epoch, one WGAN group of n_critic + 1 = 6: 2 steps
+# an epoch, and no partial group waits across an epoch or the resume. 40
+# validation utterances of 150–700 frames: each bucket's last batch padded.
+LOOP_UTTS = ((192, 150, 256), (192, 257, 700))  # (count, min frames, max frames)
+LOOP_VALID = (40, 150, 700)
+LOOP_BOUNDS = (256, 512)
+LOOP_EPOCHS = 2  # then a fresh Trainer resumes and runs one more
+LOOP_KEEP = 2
+LOOP_EMA = 0.995
 
 
 def _kernels() -> dict:
@@ -444,11 +477,30 @@ def _check_kernels(dev) -> dict:
     return err
 
 
+def _requests(n_features: int):
+    """The 8 serving requests (raw labels: binary question answers and
+    continuous positions, ``REQUEST_LENGTHS`` frames) and the input and
+    output stats they are served with, made with numpy from ``SEED``."""
+    from percivaltts_tpu_torch.eval.serve import NormStats
+
+    rng = np.random.default_rng(SEED)
+    labs = []
+    for n in REQUEST_LENGTHS:
+        lab = (rng.random((n, LABEL_DIM)) < 0.1).astype(np.float32)
+        lab[:, -9:] = rng.random((n, 9)) * 10.0
+        labs.append(lab)
+    in_stats = NormStats(shift=np.full(LABEL_DIM, 0.1, np.float32),
+                         scale=rng.uniform(0.5, 2.0, LABEL_DIM).astype(np.float32))
+    out_stats = NormStats(shift=rng.normal(size=n_features).astype(np.float32),
+                          scale=rng.uniform(0.5, 2.0, n_features).astype(np.float32))
+    return labs, in_stats, out_stats
+
+
 def _serve_path(dev, kind: str) -> dict:
     """Phase 4 for one generator: serve 8 requests, count launches, compare
     with the twins, time the serve."""
     from percivaltts_tpu_torch import ModelConfig, VocoderConfig
-    from percivaltts_tpu_torch.eval.serve import NormStats, serve
+    from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models import build_generator, count_params
 
     model_cfg, voc, label_dim = ModelConfig(generator=kind), VocoderConfig(), LABEL_DIM
@@ -457,16 +509,7 @@ def _serve_path(dev, kind: str) -> dict:
     n_params = count_params(gen)
     if n_params != PARAMS[kind]:
         raise AssertionError(f"{kind} has {PARAMS[kind]:,} parameters, built {n_params:,}")
-    rng = np.random.default_rng(SEED)
-    labs = []
-    for n in REQUEST_LENGTHS:  # binary question answers + continuous positions
-        lab = (rng.random((n, label_dim)) < 0.1).astype(np.float32)
-        lab[:, -9:] = rng.random((n, 9)) * 10.0
-        labs.append(lab)
-    in_stats = NormStats(shift=np.full(label_dim, 0.1, np.float32),
-                         scale=rng.uniform(0.5, 2.0, label_dim).astype(np.float32))
-    out_stats = NormStats(shift=rng.normal(size=voc.feature_size).astype(np.float32),
-                          scale=rng.uniform(0.5, 2.0, voc.feature_size).astype(np.float32))
+    labs, in_stats, out_stats = _requests(voc.feature_size)
     calls = [0]
     gen.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
 
@@ -691,6 +734,253 @@ def _train_path(dev, kind: str) -> dict:
 
     busy_share, _ = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
     return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share}
+
+
+def _loop_corpus(rng, groups):
+    """Raw utterances as ``_train_setup`` makes its batches' rows: binary
+    question answers with continuous positions, targets N(1, 2²); for each
+    (count, min frames, max frames) in ``groups``."""
+    from percivaltts_tpu_torch.data.dataset import Dataset
+
+    labs, cmps = [], []
+    for count, lo, hi in groups:
+        for n in rng.integers(lo, hi + 1, size=count):
+            lab = (rng.random((n, LABEL_DIM)) < 0.1).astype(np.float32)
+            lab[:, -9:] = rng.random((n, 9)) * 10.0
+            labs.append(lab)
+            cmps.append((rng.normal(size=(n, 99)) * 2.0 + 1.0).astype(np.float32))
+    return Dataset(labs, cmps)
+
+
+def _bucket_batches(ds, B: int, bounds, whole: bool) -> dict:
+    """Batches a bucket gives an epoch, from the utterance lengths alone:
+    whole ones (training drops the remainder) or all (validation pads)."""
+    counts = dict.fromkeys(bounds, 0)
+    for lab in ds.labs:
+        counts[next((b for b in bounds if lab.shape[0] <= b), bounds[-1])] += 1
+    return {b: (n // B if whole else -(-n // B)) for b, n in counts.items()}
+
+
+def _trace_busy(path: str):
+    """(device busy ms as the union of the trace's kernel, copy and set
+    intervals, the traced span's wall ms, ms from the span's start to the
+    first device event) from a Chrome trace of ``torch.profiler``; None
+    when it holds no device events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    start = min(e["ts"] for e in events)
+    wall = max(e["ts"] + e.get("dur", 0) for e in events) - start
+    return busy / 1e3, wall / 1e3, (spans[0][0] - start) / 1e3
+
+
+def _host_copy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _tree_diff(a, b, path="state") -> list:
+    """Paths at which two state trees differ (tensors compared bit for bit,
+    on the host)."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(
+            a.cpu(), b.cpu())
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [d for k in a for d in _tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _tree_diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _train_loop_path(dev, card: str) -> dict:
+    """Phase 7: the ``Trainer`` at config 3's width (WGAN-GP, n_critic=5,
+    B=32, buckets 256/512, EMA 0.995) on a numpy corpus normalized on the
+    device: 2 epochs (the second profiled for 2 steps), then a fresh
+    ``Trainer`` on the same workdir resumes and runs a third. Checks the
+    epoch records, the launches, the retained checkpoints, the resume bit
+    for bit against the state saved at that step, the trace, and serving
+    the best checkpoint's EMA. Returns the launch counts of the run."""
+    import os
+    import shutil
+
+    from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
+                                       VocoderConfig)
+    from percivaltts_tpu_torch.eval.serve import NormStats, serve
+    from percivaltts_tpu_torch.models import build_generator
+    from percivaltts_tpu_torch.training import Trainer
+    from percivaltts_tpu_torch.training.checkpoints import STATE_FILE, CheckpointManager
+    from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_loop")
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = Configuration(
+        workdir=workdir,
+        data=DataConfig(batch_size=TRAIN_B, bucket_bounds=LOOP_BOUNDS, label_dim=LABEL_DIM),
+        vocoder=VocoderConfig(spec_size=65, nm_size=33),
+        model=ModelConfig(generator="cnn_blstm"),
+        train=TrainConfig(trainer="wgan", n_critic=5, seed=SEED, ema_decay=LOOP_EMA,
+                          profile_steps=2, keep_checkpoints=LOOP_KEEP),
+    )
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    train_ds, valid_ds = _loop_corpus(rng, LOOP_UTTS), _loop_corpus(rng, (LOOP_VALID,))
+    F = cfg.vocoder.feature_size
+    in_stats = NormStats(shift=np.full(LABEL_DIM, 0.1, np.float32),
+                         scale=rng.uniform(0.5, 2.0, LABEL_DIM).astype(np.float32))
+    out_stats = NormStats(shift=np.ones(F, np.float32), scale=np.full(F, 0.5, np.float32))
+    nbytes = sum(a.nbytes for ds in (train_ds, valid_ds) for a in ds.labs + ds.cmps)
+    print(f"[train loop] ({card}) corpus {len(train_ds)} + {len(valid_ds)} utterances, "
+          f"{train_ds.num_frames} + {valid_ds.num_frames} frames, {nbytes / 2**30:.3f} GiB on the "
+          f"host, made in {time.perf_counter() - t0:.1f} s")
+
+    # the prediction, from the utterance lengths alone
+    group, B = cfg.train.n_critic + 1, TRAIN_B
+    per_bucket = _bucket_batches(train_ds, B, LOOP_BOUNDS, whole=True)
+    n_valid = sum(_bucket_batches(valid_ds, B, LOOP_BOUNDS, whole=False).values())
+    carry, want_steps = dict.fromkeys(LOOP_BOUNDS, 0), []
+    for epoch in range(LOOP_EPOCHS + 1):
+        if epoch == LOOP_EPOCHS:  # the resumed Trainer starts with no partial group
+            carry = dict.fromkeys(LOOP_BOUNDS, 0)
+        total = {b: carry[b] + per_bucket[b] for b in LOOP_BOUNDS}
+        want_steps.append(sum(n // group for n in total.values()))
+        carry = {b: n % group for b, n in total.items()}
+
+    saved, save_ms = {}, []
+
+    def recording(trainer):
+        """Keep a host copy of each state the trainer saves, and time the save."""
+        save = trainer.ckpt.save
+
+        def wrapped(step, state, metrics=None):
+            t = time.perf_counter()
+            ok = save(step, state, metrics)
+            save_ms.append((time.perf_counter() - t) * 1e3)
+            saved[step] = _host_copy(state.state_dict())
+            return ok
+
+        trainer.ckpt.save = wrapped
+        return trainer
+
+    _zero_counts()
+    first = recording(Trainer(cfg, train_ds, valid_ds, in_stats=in_stats, out_stats=out_stats))
+    hist = first.train(epochs=LOOP_EPOCHS)
+    first.close()
+    best_before = (first.best_epoch, first.best_valid)
+    second = recording(Trainer(cfg, train_ds, valid_ds, in_stats=in_stats, out_stats=out_stats))
+    t = time.perf_counter()
+    if not second.resume():
+        raise AssertionError("the resumed Trainer found no checkpoint")
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t) * 1e3
+    resumed_at = second.ckpt.latest_step()
+    diff = _tree_diff(saved[resumed_at], second.state.state_dict())
+    if diff or (second.best_epoch, second.best_valid) != best_before:
+        raise AssertionError(f"resume() restored another state: {diff[:8]}; best "
+                             f"{(second.best_epoch, second.best_valid)} vs {best_before}")
+    hist2 = second.train(epochs=LOOP_EPOCHS + 1)
+    second.close()
+    torch.cuda.synchronize()
+    counts, routes = _counts(), _routes()
+
+    records = hist["train"] + hist2["train"]
+    valids = hist["valid"] + hist2["valid"]
+    steps = [r["steps"] for r in records]
+    for epoch, (r, va) in enumerate(zip(records, valids)):
+        print(f"[train loop] ({card}) epoch {epoch}: {r['steps']} steps, loss {r['loss']:.6g}, "
+              f"w_dist {r['w_dist']:.6g}, gp {r['gp']:.6g}, valid {va:.6g}; wall {r['sec']:.3f} s, "
+              f"{r['frames_per_sec']:.1f} frames/s, step dispatch mean {r['step_mean_s'] * 1e3:.3f} "
+              f"ms, max {r['step_max_s'] * 1e3:.3f} ms")
+        if not all(math.isfinite(v) for v in (*r.values(), va)):
+            raise AssertionError(f"non-finite record at epoch {epoch}: {r}, valid {va}")
+    if steps != want_steps:
+        raise AssertionError(f"epochs took {steps} steps; whole groups predict {want_steps}")
+    fwd, bwd = counts["bilstm_fwd"], counts["bilstm_bwd"]
+    want = (2 * sum(steps) + n_valid * len(records), sum(steps))
+    print(f"[train loop] launches {counts}: {sum(steps)} steps, {n_valid} validation batches an "
+          f"epoch; expected forward {want[0]}, BPTT {want[1]}")
+    if (fwd, bwd) != want or sum(counts.values()) != fwd + bwd:
+        raise AssertionError(f"the loop launched {counts}, not (forward, BPTT) = {want}")
+    _all_mma("train loop", routes)
+
+    # every epoch saves (checkpoint_every=1) with its validation score
+    kept = []
+    for epoch in range(len(valids)):
+        live = [(e, v) for e, v in enumerate(valids[:epoch + 1]) if e in kept or e == epoch]
+        latest = {e for e, _ in live[-LOOP_KEEP:]}
+        best = {e for e, _ in sorted(live, key=lambda ev: (ev[1], -ev[0]))[:LOOP_KEEP]}
+        kept = sorted(latest | best)
+    ckpt_dir = os.path.join(workdir, "checkpoints")
+    on_disk = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+    print(f"[train loop] scores {[round(v, 6) for v in valids]}; checkpoints {on_disk}, "
+          f"LatestN ∪ BestN with N={LOOP_KEEP} predicts {kept}")
+    if on_disk != kept:
+        raise AssertionError(f"checkpoints {on_disk} retained, {kept} predicted")
+    sizes = [os.path.getsize(os.path.join(ckpt_dir, str(s), STATE_FILE)) for s in on_disk]
+
+    traces = sorted(os.listdir(os.path.join(workdir, "traces")))
+    if len(traces) != 2 or not all(t.endswith(".json") for t in traces):
+        raise AssertionError(f"expected one Chrome trace per run, found {traces}")
+    busy = []
+    for name in traces:
+        got = _trace_busy(os.path.join(workdir, "traces", name))
+        busy.append(None if got is None else (got[0], got[1], got[0] / got[1]))
+        print(f"[train loop] ({card}) profiled epoch ({cfg.train.profile_steps} steps) {name}: "
+              + ("no device events: busy share not measured" if got is None else
+                 f"device busy {got[0]:.3f} of {got[1]:.3f} ms, busy share {got[0] / got[1]:.3f}; "
+                 f"first device event at {got[2]:.3f} ms (the first group's assembly), busy "
+                 f"share after it {got[0] / (got[1] - got[2]):.3f}"))
+
+    # serving the best checkpoint's EMA, as cli synth does
+    ckpt = CheckpointManager(ckpt_dir)
+    best_step = ckpt.best_step()
+    state = make_gan_state(cfg, LABEL_DIM)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ckpt.restore(state, best=True)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    served = eval_generator(state)
+    plain = build_generator(cfg.model, cfg.vocoder, LABEL_DIM).to(dev).eval()
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            p.copy_(saved[best_step]["ema"][name])
+    labs, s_in, s_out = _requests(cfg.vocoder.feature_size)
+    got, ref = serve(served, labs, s_in, s_out), serve(plain, labs, s_in, s_out)
+    unequal = [n for n, a, b in zip(REQUEST_LENGTHS, got, ref) if not np.array_equal(a, b)]
+    ema_moved = max((saved[best_step]["ema"][n] - saved[best_step]["gen"][n].cpu()).abs().max().item()
+                    for n, _ in plain.named_parameters())
+    print(f"[train loop] served {len(labs)} requests from checkpoint {best_step}'s EMA "
+          f"(max |EMA - live| {ema_moved:.3g}); requests unequal to the in-memory EMA's: {unequal}")
+    if unequal or ema_moved == 0.0:
+        raise AssertionError("serving the best checkpoint is not serving its EMA weights")
+    print(f"[train loop] ({card}) checkpoint save {', '.join(f'{m:.1f}' for m in save_ms)} ms, "
+          f"resume {resume_ms:.1f} ms, restore of the best {restore_ms:.1f} ms, "
+          f"{sizes[0] / 2**20:.2f} MiB a checkpoint")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"counts": counts, "routes": routes, "records": records, "valid": valids,
+            "busy": busy, "save_ms": save_ms, "resume_ms": resume_ms, "restore_ms": restore_ms,
+            "bytes": sizes[0]}
 
 
 def _library_layer(kind: str, ws, dtype, dev) -> torch.nn.Module:
@@ -969,24 +1259,28 @@ def _library_dsp(name: str, shape, args):
     return call
 
 
-def _device_ms(fn, calls: int = 20, match: str = ""):
+def _device_ms(fn, calls: int = 20, match: str = "", tries: int = 3):
     """Device time of one call of ``fn``: the summed durations of the device
     events ``torch.profiler`` records over ``calls`` calls (only those whose
     name holds ``match``), divided by ``calls`` (after one warm-up call);
-    None when the trace holds no such device events. A DSP call is a few
-    microseconds of device work behind tens of microseconds of host work, so
-    CUDA events around back-to-back calls time the host."""
+    None when ``tries`` traces in a row hold no such device events (the
+    profiler now and then records none). A DSP call is a few microseconds of
+    device work behind tens of microseconds of host work, so CUDA events
+    around back-to-back calls time the host."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
-    return sum(spans) / 1e3 / calls if spans else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        if spans:
+            return sum(spans) / 1e3 / calls
+    return None
 
 
 def _time_dsp_kernels(dev) -> dict:
@@ -1035,7 +1329,9 @@ def _time_dsp_kernels(dev) -> dict:
             floor = (f"{ms - floor_ms:.5f} ms above the launch floor {floor_ms:.5f} ms"
                      + (" (the bound lies below the floor: judged by the floor)"
                         if bound_ms < floor_ms else "")) if floor_ms else "launch floor not measured"
-            print(f"[time] {name} {shape} f32: {ms:.5f} device ms, bound {bound_ms:.5f} ms "
+            clock = ("device ms" if dev_ms["kernel"] else "ms by CUDA events, host work "
+                     "included: the profiler recorded no device event")
+            print(f"[time] {name} {shape} f32: {ms:.5f} {clock}, bound {bound_ms:.5f} ms "
                   f"({bound_by}), {bound_ms / ms:.3f} of the bound, {floor}")
             print(f"[time] {name} {shape} f32, device time per call: kernel {dev_ms['kernel']} ms, "
                   f"plain twin {dev_ms['plain']} ms, library {dev_ms['library']} ms (max|library-plain| "
@@ -1111,6 +1407,13 @@ def main() -> int:
     timed = _time_kernels(dev)
     timed.update(_time_dsp_kernels(dev))
 
+    # 7. the training loop: epochs, validation, checkpoints, resume, serving the best
+    loop = _train_loop_path(dev, smi)
+    paths["train_loop"] = loop["counts"]
+    for name, by_route in loop["routes"].items():
+        for route, n in by_route.items():
+            routes[name][route] += n
+
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
         "bilstm_bwd": ("bilstm_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
@@ -1162,6 +1465,10 @@ def main() -> int:
     print(f"[summary] vocode_pml: {vocode['audio_s']:.2f} s of audio in a median "
           f"{vocode['vocode_ms']:.3f} ms, device busy share {vocode['busy_share']}, framing and "
           f"overlap-add device time {vocode['dsp_device_ms']} ms a vocode")
+    print(f"[summary] train loop ({smi}): epochs "
+          + ", ".join(f"{r['sec']:.3f} s ({r['frames_per_sec']:.1f} frames/s)"
+                      for r in loop["records"])
+          + f"; profiled epochs' device busy share {[b and round(b[2], 4) for b in loop['busy']]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,16 +7,19 @@ weights and inputs (``tests/test_torch_*.py``).
 Ported so far: serving (raw HTS label frames → normalized → the
 CNN(+BLSTM), BLSTM or BGRU generator → denormalized vocoder features →
 the PML vocoder → a waveform; ``eval/serve.py``, ``vocoders/``,
-``cli.py synth``) and the training steps (the fused WGAN-GP step with the
-conditional critic, and the LSE step; ``training/``). Hand-written CUDA
+``cli.py synth``, from a run's best checkpoint) and training (the fused
+WGAN-GP step with the conditional critic, the LSE step, and the
+``Trainer``'s epochs, validation, early stopping, checkpoints and resume;
+``training/``). Hand-written CUDA
 kernels run the generators' recurrences (the BiLSTM forward and BPTT,
 ``csrc/bilstm_{fwd,bwd}.cu``; the BiGRU forward and BPTT,
 ``csrc/bigru_{fwd,bwd}.cu``) and the vocoder's framing and overlap-add
 (``csrc/{frame_window,overlap_add}.cu``), built with ``nvcc`` at first use
 (``_build.py``). The package imports nothing of ``jax``, ``flax`` or
 ``percivaltts_tpu``: it keeps its own copies of the framework-free modules
-(``config.py``, ``data/{hts_labels,normalize}.py``, the wav I/O of
-``data/compose.py``, ``ops/warp.py``, ``utils/{fileio,logging}.py``).
+(``config.py``, ``data/{dataset,hts_labels,normalize}.py``, the wav I/O
+of ``data/compose.py``, ``ops/warp.py``,
+``utils/{fileio,logging,prefetch}.py``).
 """
 
 __version__ = "0.1.0"

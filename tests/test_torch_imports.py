@@ -16,15 +16,17 @@ import numpy as np
 import pytest
 
 from percivaltts_tpu import config as jax_config
+from percivaltts_tpu.data import dataset as jax_dataset
 from percivaltts_tpu.data import hts_labels as jax_hts
 from percivaltts_tpu.data import normalize as jax_normalize
 from percivaltts_tpu.ops import warp as jax_warp
 from percivaltts_tpu.utils import fileio as jax_fileio
 from percivaltts_tpu.utils import logging as jax_logging
+from percivaltts_tpu.utils import prefetch as jax_prefetch
 from percivaltts_tpu_torch import config
-from percivaltts_tpu_torch.data import hts_labels, normalize
+from percivaltts_tpu_torch.data import dataset, hts_labels, normalize
 from percivaltts_tpu_torch.ops import warp
-from percivaltts_tpu_torch.utils import fileio, logging
+from percivaltts_tpu_torch.utils import fileio, logging, prefetch
 
 # import roots the port must never load: the frameworks and the JAX package
 FORBIDDEN_ROOTS = ("jax", "flax", "jaxlib", "percivaltts_tpu")
@@ -61,6 +63,7 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.cli",
         "percivaltts_tpu_torch.config",
         "percivaltts_tpu_torch.data.compose",
+        "percivaltts_tpu_torch.data.dataset",
         "percivaltts_tpu_torch.data.hts_labels",
         "percivaltts_tpu_torch.data.normalize",
         "percivaltts_tpu_torch.eval.serve",
@@ -76,6 +79,9 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.ops.morph",
         "percivaltts_tpu_torch.ops.stft",
         "percivaltts_tpu_torch.ops.warp",
+        "percivaltts_tpu_torch.training",
+        "percivaltts_tpu_torch.training.checkpoints",
+        "percivaltts_tpu_torch.training.loop",
         "percivaltts_tpu_torch.training.losses",
         "percivaltts_tpu_torch.training.lse",
         "percivaltts_tpu_torch.training.ondevice",
@@ -83,6 +89,8 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.training.wgan",
         "percivaltts_tpu_torch.utils.fileio",
         "percivaltts_tpu_torch.utils.logging",
+        "percivaltts_tpu_torch.utils.prefetch",
+        "percivaltts_tpu_torch.utils.profiling",
         "percivaltts_tpu_torch.vocoders.base",
         "percivaltts_tpu_torch.vocoders.pml",
         "percivaltts_tpu_torch.weights",
@@ -222,3 +230,22 @@ def test_warp_matrices_equal_the_originals(bands):
             assert got.dtype == want.dtype == np.float32
             np.testing.assert_array_equal(got, want)
 
+
+
+def test_dataset_and_prefetch_copies_agree_with_the_originals():
+    """The copied ``data/dataset.py`` (batch assembly in numpy) and
+    ``utils/prefetch.py``: one shuffled, cropped and padded epoch through
+    the prefetch thread of each, bit for bit. ``tests/test_torch_dataset.py``
+    holds them case by case."""
+    rng = np.random.default_rng(2)
+    labs = [rng.normal(size=(n, 6)).astype(np.float32) for n in (9, 40, 75, 3, 61, 130)]
+    cmps = [rng.normal(size=(a.shape[0], 4)).astype(np.float32) for a in labs]
+    kw = dict(shuffle=True, seed=5, drop_remainder=False, epoch=2)
+    mine = list(prefetch.prefetch(dataset.Dataset(labs, cmps).batches(4, (32, 64), **kw)))
+    theirs = list(jax_prefetch.prefetch(jax_dataset.Dataset(labs, cmps).batches(4, (32, 64), **kw)))
+    assert len(mine) == len(theirs) == 2
+    for a, b in zip(mine, theirs):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])

@@ -34,6 +34,7 @@ from percivaltts_tpu_torch.vocoders.pml import PMLVocoder
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 LENGTHS = (5, 64, 70, 130, 131)  # pad groups 64, 64, 128, 192, 192
+WEIGHTS = "generator.npz"  # a flax-path .npz, served with --weights
 
 
 def _setup(label_dim, seed=0, **model_kw):
@@ -109,7 +110,7 @@ def _workdir(tmp_path, cfg, in_stats, out_stats, params):
     cfg_path = cfg.dump()
     in_stats.save(str(tmp_path / "in_stats.npz"))
     out_stats.save(str(tmp_path / "out_stats.npz"))
-    weights.save_npz(str(tmp_path / cli.WEIGHTS_FILE), jax.tree.map(np.asarray, params))
+    weights.save_npz(str(tmp_path / WEIGHTS), jax.tree.map(np.asarray, params))
     return cfg, cfg_path
 
 
@@ -153,7 +154,8 @@ def _check_cli_synth(tmp_path, monkeypatch, seed, **model_kw):
     )
     out = tmp_path / "wavs"
     rc = cli.main(
-        ["synth", "--config", cfg_path, "--out", str(out), os.path.join(FIXTURES, "utt00*.lab")],
+        ["synth", "--config", cfg_path, "--weights", str(tmp_path / WEIGHTS), "--out", str(out),
+         os.path.join(FIXTURES, "utt00*.lab")],
         device="cpu",
     )
     assert rc == 0
@@ -173,13 +175,99 @@ def _check_cli_synth(tmp_path, monkeypatch, seed, **model_kw):
 
 
 def test_cli_synth_refuses_missing_labels_and_weights(tmp_path):
+    """No label file matches; ``--weights`` names a missing file; neither a
+    checkpoint nor ``--weights`` (the error names the checkpoint
+    directory)."""
     qs = QuestionSet.from_hed(os.path.join(FIXTURES, "questions_radio_style.hed"))
     cfg, in_stats, out_stats, _, params, _ = _setup(qs.dim + 9, seed=7)
     _, cfg_path = _workdir(tmp_path, cfg, in_stats, out_stats, params)
+    wpath = str(tmp_path / WEIGHTS)
     with pytest.raises(FileNotFoundError, match="no label files"):
-        cli.main(["synth", "--config", cfg_path, str(tmp_path / "none*.lab")], device="cpu")
-    os.unlink(tmp_path / cli.WEIGHTS_FILE)
+        cli.main(["synth", "--config", cfg_path, "--weights", wpath, str(tmp_path / "none*.lab")],
+                 device="cpu")
+    os.unlink(wpath)
+    lab = os.path.join(FIXTURES, "utt001.lab")
     with pytest.raises(FileNotFoundError):
-        cli.main(["synth", "--config", cfg_path, os.path.join(FIXTURES, "utt001.lab")], device="cpu")
+        cli.main(["synth", "--config", cfg_path, "--weights", wpath, lab], device="cpu")
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "checkpoints")):
+        cli.main(["synth", "--config", cfg_path, lab], device="cpu")
     with open(cfg_path) as f:
         assert json.load(f)["workdir"] == str(tmp_path)
+
+
+def _as_flax(gen, named):
+    """Generator parameters by name in the port's layout → the flat
+    flax-path tree ``weights.load_flax_params`` reads (the inverse of its
+    mapping): per-gate leaves split off the last axis, Dense kernels
+    transposed, Conv kernels back to (k, in, out)."""
+    names = {id(p): n for n, p in gen.named_parameters()}
+    flat = {}
+    for keys, param, _ in weights._entries(gen):
+        v = named[names[id(param)]].detach().cpu().numpy()
+        if len(keys) > 1:
+            flat.update(zip(keys, np.split(v, len(keys), axis=-1)))
+        elif v.ndim == 2:
+            flat[keys[0]] = v.T
+        elif v.ndim == 3:
+            flat[keys[0]] = v.transpose(2, 1, 0)
+        else:
+            flat[keys[0]] = v
+    return flat
+
+
+def test_cli_synth_serves_the_best_checkpoints_ema_weights(tmp_path, capsys):
+    """One epoch of the port's ``Trainer`` (LSE, EMA decay 0.5) on the CPU,
+    then ``cli synth`` with no ``--weights``: its wavs equal those served
+    from an ``.npz`` holding the best checkpoint's EMA, and are far from
+    those of the live weights. Equal within 2 16-bit steps plus 5e-3 of the
+    largest sample, as in ``_check_cli_synth``, not bit for bit: on the CPU
+    a GEMM's rounding depends on where its operands lie in memory (a deep
+    copy of one generator can serve features that differ in their last
+    bits), and the served features take the vocoder's voicing decisions."""
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.data.dataset import Dataset
+    from percivaltts_tpu_torch.training import Trainer
+
+    qs = QuestionSet.from_hed(os.path.join(FIXTURES, "questions_radio_style.hed"))
+    label_dim = qs.dim + 9
+    cfg, in_stats, _, _, params, _ = _setup(label_dim, seed=12)
+    v = cfg.vocoder
+    shift = np.concatenate([[np.log(120.0)], np.full(v.spec_size, -7.0), np.full(v.nm_size, 0.3)])
+    out_stats = NormStats(shift=shift.astype(np.float32), scale=np.full(v.feature_size, 10.0, np.float32))
+    cfg, cfg_path = _workdir(tmp_path, cfg, in_stats, out_stats, params)
+    cfg = Configuration.load(cfg_path)
+    cfg = cfg.replace(
+        vocoder=dataclasses.replace(cfg.vocoder, closed_loop=0),
+        train=dataclasses.replace(cfg.train, trainer="lse", ema_decay=0.5, lr_gen=1e-2),
+    )
+    rng = np.random.default_rng(13)
+    data = [(rng.normal(size=(n, label_dim)).astype(np.float32),
+             rng.normal(size=(n, v.feature_size)).astype(np.float32)) for n in range(40, 64, 2)]
+    ds = Dataset([a for a, _ in data], [b for _, b in data])
+    trainer = Trainer(cfg, ds, ds, device="cpu")
+    trainer.train(epochs=1)
+    trainer.close()
+    assert trainer.ckpt.best_step() == 0
+    cfg_path = cfg.dump()
+
+    ema_npz, live_npz = str(tmp_path / "ema.npz"), str(tmp_path / "live.npz")
+    weights.save_npz(ema_npz, _as_flax(trainer.state.gen, trainer.state.ema))
+    weights.save_npz(live_npz, _as_flax(trainer.state.gen, dict(trainer.state.gen.named_parameters())))
+    check = build_generator(cfg.model, cfg.vocoder, label_dim)
+    weights.load_flax_params(check, weights.load_npz(ema_npz))
+    for n, p in check.named_parameters():
+        assert torch.equal(p, trainer.state.ema[n]), n
+
+    labs = os.path.join(FIXTURES, "utt00*.lab")
+    wavs = {}
+    for name, extra in (("best", []), ("ema", ["--weights", ema_npz]), ("live", ["--weights", live_npz])):
+        out = tmp_path / name
+        assert cli.main(["synth", "--config", cfg_path, *extra, "--out", str(out), labs],
+                        device="cpu") == 0
+        wavs[name] = [load_wav(str(out / f))[1] for f in sorted(os.listdir(out))]
+    assert "from checkpoint step 0 (EMA generator weights)" in capsys.readouterr().out
+    assert len(wavs["best"]) == len(glob.glob(labs)) > 0
+    for best, ema, live in zip(wavs["best"], wavs["ema"], wavs["live"]):
+        tol = 2.0 / 32768 + 5e-3 * np.abs(ema).max()
+        np.testing.assert_allclose(best, ema, atol=tol)
+        assert np.abs(best - live).max() > 20 * tol
