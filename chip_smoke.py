@@ -78,7 +78,30 @@ which raises on failure (the script exits 0 only when all passed):
    checkpoint equal, bit for bit, the same requests served from that
    step's EMA held in memory. Prints each epoch's wall time, frames/s and
    step dispatch times, the checkpoint save, resume and restore times and
-   a checkpoint's size, beside the card's name and power limit.
+   a checkpoint's size, beside the card's name and power limit;
+8. the README's quick start through the port's CLI
+   (``percivaltts_tpu_torch.cli.main``) under ``build/quickstart/``:
+   8a. config 1 at full width (the FC generator, 3 × 256 tanh layers, LSE,
+   bf16 compute, the default vocoder's 99 features, B=32, buckets
+   256/512): ``demo`` of 160 utterances; ``compose`` (the framing kernel
+   launches; the features equal, bit for bit, a compose of the same wavs
+   with the DSP kernels' twins); ``train --preset production`` for 3
+   epochs on the corpus resident on the card with measures every epoch
+   and MCD selecting 1 kept checkpoint (finite records, the steps
+   ``epoch_indices`` yields, one corpus upload and no batch-sized copy in
+   the profiled epoch, one ``objective`` record an epoch, the checkpoints
+   LatestN ∪ BestN predicts on MCD); ``generate --split test
+   --save-features`` (finite measures, 16 wavs, both DSP kernels launched,
+   the same wavs through the twins); ``measures`` of the saved features
+   against the denormalized references (generate's MCD within 1e-5);
+   8b. config 3 (WGAN-GP, ``cnn_blstm``) trained by ``train --preset
+   production`` with measures selecting on ``mcd_gv``, 1 epoch of 2
+   steps on the same composed corpus: (2 forward, 1 BPTT) launches a step
+   on the tensor-core route, 1 forward a validation batch and a predicted
+   chunk. Prints the demo, compose, epoch, measure-validation and
+   generate wall times, real frames a second, the generate real-time
+   factor, and each profiled device-corpus epoch's busy share with its
+   host→device copies by size.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path and read just after it; launches made to compare a kernel with its twin are not
@@ -92,6 +115,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -211,6 +235,22 @@ LOOP_BOUNDS = (256, 512)
 LOOP_EPOCHS = 2  # then a fresh Trainer resumes and runs one more
 LOOP_KEEP = 2
 LOOP_EMA = 0.995
+
+# phase 8, the quick start: the demo corpus (its utterances run ~120–340
+# frames), config 1's LSE run and generation, then config 3's WGAN-GP on the
+# same composed corpus
+QS_UTTS, QS_SEED = 160, 1234
+QS_SPLIT = 16  # utterances in each of the validation and test splits
+QS_BOUNDS = [256, 512]
+QS_EPOCHS = 3
+QS_KEEP = 1  # so that LatestN ∪ BestN on MCD is a real choice
+QS_WGAN_STEPS = 2
+# generate's MCD through ``cli measures`` against the saved features: the
+# same cepstra, computed per file instead of in padded chunks (f32 sums)
+QS_MCD_TOL = 1e-5
+# a copy larger than this in a profiled device-corpus epoch would be a batch
+# (one config-1 batch's labels alone are ~3 MB); the index arrays are bytes
+QS_MAX_STEP_COPY = 64 * 1024
 
 
 def _kernels() -> dict:
@@ -813,6 +853,18 @@ def _tree_diff(a, b, path="state") -> list:
     return [] if a == b else [path]
 
 
+def _retained(scores, keep: int) -> list:
+    """The checkpoints Orbax's LatestN ∪ BestN keeps when every epoch saves
+    with its score (lower is better, ties to the newer)."""
+    kept = []
+    for epoch in range(len(scores)):
+        live = [(e, v) for e, v in enumerate(scores[:epoch + 1]) if e in kept or e == epoch]
+        latest = {e for e, _ in live[-keep:]}
+        best = {e for e, _ in sorted(live, key=lambda ev: (ev[1], -ev[0]))[:keep]}
+        kept = sorted(latest | best)
+    return kept
+
+
 def _train_loop_path(dev, card: str) -> dict:
     """Phase 7: the ``Trainer`` at config 3's width (WGAN-GP, n_critic=5,
     B=32, buckets 256/512, EMA 0.995) on a numpy corpus normalized on the
@@ -924,12 +976,7 @@ def _train_loop_path(dev, card: str) -> dict:
     _all_mma("train loop", routes)
 
     # every epoch saves (checkpoint_every=1) with its validation score
-    kept = []
-    for epoch in range(len(valids)):
-        live = [(e, v) for e, v in enumerate(valids[:epoch + 1]) if e in kept or e == epoch]
-        latest = {e for e, _ in live[-LOOP_KEEP:]}
-        best = {e for e, _ in sorted(live, key=lambda ev: (ev[1], -ev[0]))[:LOOP_KEEP]}
-        kept = sorted(latest | best)
+    kept = _retained(valids, LOOP_KEEP)
     ckpt_dir = os.path.join(workdir, "checkpoints")
     on_disk = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
     print(f"[train loop] scores {[round(v, 6) for v in valids]}; checkpoints {on_disk}, "
@@ -981,6 +1028,340 @@ def _train_loop_path(dev, card: str) -> dict:
     return {"counts": counts, "routes": routes, "records": records, "valid": valids,
             "busy": busy, "save_ms": save_ms, "resume_ms": resume_ms, "restore_ms": restore_ms,
             "bytes": sizes[0]}
+
+
+def _trace_copies(path: str):
+    """Host→device copies of a Chrome trace of ``torch.profiler``:
+    {bytes: count}, from the memcpy events' ``bytes`` argument; None when
+    the trace records no such copy."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    sizes = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            n = (e.get("args") or {}).get("bytes")
+            sizes[n] = sizes.get(n, 0) + 1
+    return sizes or None
+
+
+def _profiled_epoch(label: str, workdir: str, card: str):
+    """Busy share and host→device copies of the one Chrome trace a
+    ``Trainer`` run wrote; fails when the traced steps copied anything the
+    size of a batch to the card (the corpus is resident)."""
+    import os
+
+    traces = sorted(os.listdir(os.path.join(workdir, "traces")))
+    if len(traces) != 1:
+        raise AssertionError(f"{label}: expected one Chrome trace, found {traces}")
+    path = os.path.join(workdir, "traces", traces[0])
+    busy, copies = _trace_busy(path), _trace_copies(path)
+    print(f"[{label}] ({card}) profiled device-corpus epoch: "
+          + ("no device events: busy share not measured" if busy is None else
+             f"device busy {busy[0]:.3f} of {busy[1]:.3f} ms, busy share {busy[0] / busy[1]:.4f}; "
+             f"first device event at {busy[2]:.3f} ms")
+          + "; host→device copies by size (bytes: count) "
+          + ("not recorded" if copies is None else
+             str(dict(sorted(copies.items(), key=lambda kv: -(kv[0] or 0))))))
+    if copies and max(n or 0 for n in copies) > QS_MAX_STEP_COPY:
+        raise AssertionError(f"{label}: a traced step copied {max(copies)} bytes to the card")
+    return None if busy is None else busy[0] / busy[1], copies
+
+
+class _CountingCorpus:
+    """Within the block, every ``DeviceCorpus`` the trainer builds is kept."""
+
+    def __enter__(self):
+        from percivaltts_tpu_torch.training import loop
+
+        self.made, self.saved = [], loop.DeviceCorpus
+        made, base = self.made, loop.DeviceCorpus
+
+        class Counting(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        loop.DeviceCorpus = Counting
+        return self
+
+    def __exit__(self, *exc):
+        from percivaltts_tpu_torch.training import loop
+
+        loop.DeviceCorpus = self.saved
+
+
+class _TimedMeasures:
+    """Within the block, each objective-measure validation of a ``Trainer``
+    is timed (host clock, ending in a sync)."""
+
+    def __enter__(self):
+        from percivaltts_tpu_torch.training.loop import Trainer
+
+        self.secs, self.saved = [], Trainer._validate_measures
+        secs, saved = self.secs, self.saved
+
+        def timed(trainer, epoch):
+            t = time.perf_counter()
+            out = saved(trainer, epoch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return out
+
+        Trainer._validate_measures = timed
+        return self
+
+    def __exit__(self, *exc):
+        from percivaltts_tpu_torch.training.loop import Trainer
+
+        Trainer._validate_measures = self.saved
+
+
+def _finite(record: dict) -> bool:
+    """Every number of a metrics record is finite."""
+    return all(math.isfinite(v) for v in record.values() if isinstance(v, (int, float)))
+
+
+def _records(workdir: str, kind: str) -> list:
+    import os
+
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+
+def _write_config(path: str, d: dict) -> str:
+    with open(path, "w") as f:
+        json.dump(d, f, indent=2, sort_keys=True)
+    return path
+
+
+def _quickstart_path(dev, card: str) -> dict:
+    """Phase 8a: config 1 through the port's CLI (demo → compose → train
+    --preset production → generate → measures). Returns the launch counts
+    of each command, the composed corpus and the times."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from percivaltts_tpu_torch import cli
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.data.compose import compose, load_wav
+    from percivaltts_tpu_torch.eval.generate import generate
+    from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
+    from percivaltts_tpu_torch.training.state import make_gan_state
+    from percivaltts_tpu_torch.utils.fileio import load_binary_file, save_binary_file
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "quickstart")
+    shutil.rmtree(root, ignore_errors=True)
+    corpus_dir, workdir = os.path.join(root, "corpus"), os.path.join(root, "exp")
+    main = lambda *argv: cli.main(list(argv), device=dev)  # noqa: E731
+    out, counts = {}, {}
+
+    t = time.perf_counter()
+    if main("demo", "--out", corpus_dir, "--num", str(QS_UTTS), "--seed", str(QS_SEED)) != 0:
+        raise AssertionError("cli demo failed")
+    out["demo_s"] = time.perf_counter() - t
+    with open(os.path.join(corpus_dir, "config.json")) as f:
+        d = json.load(f)
+    defaults = Configuration().to_dict()
+    d["workdir"] = workdir
+    d["data"].update(batch_size=TRAIN_B, bucket_bounds=QS_BOUNDS, num_valid=QS_SPLIT,
+                     num_test=QS_SPLIT)
+    d["vocoder"] = defaults["vocoder"]  # the default VocoderConfig: 1 + 65 + 33 features
+    d["model"].update(generator="fc", hidden_size=256, num_layers=3, compute_dtype="bfloat16")
+    d["train"].update(trainer="lse", epochs=QS_EPOCHS, measures_every=1, best_metric="mcd",
+                      checkpoint_every=1, keep_checkpoints=QS_KEEP, profile_steps=1000)
+    cfg_path = _write_config(os.path.join(root, "config1.json"), d)
+    cfg = Configuration.load(cfg_path)
+    ids = open(cfg.data.fileids).read().split()
+    audio_s = sum(len(load_wav(os.path.join(corpus_dir, "wav", u + ".wav"))[1]) for u in ids) \
+        / cfg.vocoder.fs
+
+    # compose, then the same wavs through the DSP twins
+    _zero_counts()
+    t = time.perf_counter()
+    if main("compose", "--config", cfg_path) != 0:
+        raise AssertionError("cli compose failed")
+    torch.cuda.synchronize()
+    out["compose_s"] = time.perf_counter() - t
+    counts["quickstart_compose"] = _counts()
+    cache = os.path.join(workdir, "feature_cache")
+    corpus = compose(cfg, cache_dir=cache, device=dev)
+    F, L = corpus.train.feat_dim, corpus.train.label_dim
+    print(f"[quickstart] ({card}) demo of {QS_UTTS} utterances ({audio_s:.2f} s of audio) in "
+          f"{out['demo_s']:.2f} s; compose in {out['compose_s']:.2f} s, "
+          f"{audio_s / out['compose_s']:.1f} s of audio per s; label dim {L}, {F} features; "
+          f"launches {counts['quickstart_compose']}")
+    if counts["quickstart_compose"]["frame_window"] == 0 or F != 99:
+        raise AssertionError("compose did not frame through the kernel, or not 99 features")
+    with _DspTwins():
+        plain = compose(cfg, normalize=False, device=dev)
+    unequal = [u for split in (plain.train, plain.valid, plain.test)
+               for u, c in zip(split.ids, split.cmps)
+               if not np.array_equal(load_binary_file(os.path.join(cache, u + ".cmp.f32"), F), c)]
+    print(f"[quickstart] compose through the kernels vs the twins: {len(ids)} utterances, "
+          f"unequal {unequal}")
+    if unequal:
+        raise AssertionError("compose through the kernels disagrees with the twins'")
+
+    # train: LSE, config 1, the production preset (the corpus on the card)
+    _zero_counts()
+    with _CountingCorpus() as made, _TimedMeasures() as measured:
+        t = time.perf_counter()
+        if main("train", "--config", cfg_path, "--preset", "production") != 0:
+            raise AssertionError("cli train failed")
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t
+    counts["quickstart_train"] = _counts()
+    records, objective = _records(workdir, "epoch"), _records(workdir, "objective")
+    n_train = len(corpus.train)
+    want_bytes = n_train * max(QS_BOUNDS) * ((L + F) * 4 + 4)
+    if len(made.made) != 1 or made.made[0].nbytes != want_bytes:
+        raise AssertionError(f"the corpus went to the card {len(made.made)} times, not once "
+                             f"with {want_bytes} bytes")
+    want = [len(list(made.made[0].epoch_indices(TRAIN_B, 1, e, seed=cfg.data.shuffle_seed)))
+            for e in range(QS_EPOCHS)]
+    real = sum(min(x.shape[0], max(QS_BOUNDS)) for x in corpus.train.labs)
+    for r, o in zip(records, objective):
+        print(f"[quickstart] ({card}) epoch {r['epoch']}: {r['steps']} steps, loss {r['loss']:.6g}, "
+              f"valid {r['valid']:.6g}; wall {r['sec']:.3f} s, {real / r['sec']:.1f} real frames/s "
+              f"({r['frames_per_sec']:.1f} padded); objective mcd {o['mcd_db']:.4f} dB, gv "
+              f"{o['gv_ratio']:.4f}, ms_hi {o['ms_ratio_hi']:.4f}, vuv {o.get('vuv_error_pct')}")
+    print(f"[quickstart] measure validations {', '.join(f'{x:.3f}' for x in measured.secs)} s; "
+          f"device corpora built {len(made.made)}, "
+          + ", ".join(f"{c.nbytes / 2**20:.2f} MiB ({c.num_utts} x {c.bound} frames)"
+                      for c in made.made) + f"; launches {counts['quickstart_train']}")
+    if [r["steps"] for r in records] != want:
+        raise AssertionError(f"epochs took {[r['steps'] for r in records]} steps, "
+                             f"epoch_indices yields {want}")
+    if not all(_finite(r) for r in records):
+        raise AssertionError(f"non-finite epoch records: {records}")
+    if [o["epoch"] for o in objective] != list(range(QS_EPOCHS)):
+        raise AssertionError(f"objective records for epochs {[o['epoch'] for o in objective]}")
+    out["busy"], out["copies"] = _profiled_epoch("quickstart", workdir, card)
+    kept = _retained([o["mcd_db"] for o in objective], QS_KEEP)
+    ckpt_dir = os.path.join(workdir, "checkpoints")
+    on_disk = sorted(int(x) for x in os.listdir(ckpt_dir) if x.isdigit())
+    print(f"[quickstart] checkpoints {on_disk}; LatestN ∪ BestN on MCD with N={QS_KEEP} "
+          f"predicts {kept}")
+    if on_disk != kept:
+        raise AssertionError(f"checkpoints {on_disk} retained, {kept} predicted")
+
+    # generate the test split, then the same generation through the twins
+    _zero_counts()
+    t = time.perf_counter()
+    if main("generate", "--config", cfg_path, "--split", "test", "--save-features") != 0:
+        raise AssertionError("cli generate failed")
+    torch.cuda.synchronize()
+    out["generate_s"] = time.perf_counter() - t
+    counts["quickstart_generate"] = _counts()
+    with open(os.path.join(workdir, "measures.json")) as f:
+        measures = json.load(f)
+    gen_dir = os.path.join(workdir, "generated")
+    wavs = {u: load_wav(os.path.join(gen_dir, u + ".wav"))[1] for u in corpus.test.ids}
+    gen_audio = sum(len(w) for w in wavs.values()) / cfg.vocoder.fs
+    print(f"[quickstart] ({card}) generate of {len(wavs)} utterances ({gen_audio:.2f} s of audio) "
+          f"in {out['generate_s']:.3f} s, real-time factor {out['generate_s'] / gen_audio:.4f}; "
+          f"measures {measures}; launches {counts['quickstart_generate']}")
+    if not all(math.isfinite(measures.get(k, float("nan")))
+               for k in ("mcd_db", "gv_ratio", "ms_ratio_hi", "vuv_error_pct")):
+        raise AssertionError(f"non-finite measures: {measures}")
+    if len([x for x in os.listdir(gen_dir) if x.endswith(".wav")]) != QS_SPLIT:
+        raise AssertionError(f"generate wrote no {QS_SPLIT} wavs")
+    if not (counts["quickstart_generate"]["frame_window"] and
+            counts["quickstart_generate"]["overlap_add"]):
+        raise AssertionError("generate did not launch both DSP kernels")
+    ckpt = CheckpointManager(ckpt_dir)
+    state = ckpt.restore(make_gan_state(cfg, L, device=dev), ckpt.best_step())
+    twin_dir = os.path.join(root, "generated_twins")
+    with _DspTwins():
+        generate(cfg, state, corpus.test, corpus.out_stats, outdir=twin_dir)
+    unequal = [u for u in wavs
+               if not np.array_equal(load_wav(os.path.join(twin_dir, u + ".wav"))[1], wavs[u])]
+    print(f"[quickstart] generate through the kernels vs the twins: wavs unequal {unequal}")
+    if unequal:
+        raise AssertionError("generation through the kernels disagrees with the twins'")
+
+    # cli measures on the saved features against the denormalized references
+    ref_dir = os.path.join(root, "ref")
+    for u, c in zip(corpus.test.ids, corpus.test.cmps):
+        save_binary_file(os.path.join(ref_dir, u + ".cmp"), corpus.out_stats.denormalize(c))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        if main("measures", "--config", cfg_path, "--ref", ref_dir, "--pred", gen_dir) != 0:
+            raise AssertionError("cli measures failed")
+    got = json.loads(text.getvalue())
+    diff = abs(got["mcd_db"] - measures["mcd_db"])
+    print(f"[quickstart] cli measures: {got}; |mcd - generate's| {diff:.3g} "
+          f"(tol {QS_MCD_TOL * measures['mcd_db']:.3g})")
+    if got["files"] != QS_SPLIT or not diff <= QS_MCD_TOL * measures["mcd_db"]:
+        raise AssertionError("cli measures disagrees with generate's MCD")
+    out.update(counts=counts, records=records, objective=objective, measures=measures,
+               measure_s=measured.secs, real_frames=real, audio_s=audio_s, gen_audio_s=gen_audio,
+               root=root, cfg=d, corpus=corpus)
+    return out
+
+
+def _quickstart_wgan_path(dev, card: str, qs: dict) -> dict:
+    """Phase 8b: config 3 (WGAN-GP, ``cnn_blstm``) through ``cli train
+    --preset production`` on phase 8a's composed corpus (its feature cache
+    copied), measures every epoch selecting on ``mcd_gv``: 1 epoch of 2
+    steps. Returns the launch counts."""
+    import os
+    import shutil
+
+    from percivaltts_tpu_torch import cli
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.models.base import TIME_MULTIPLE
+
+    defaults = Configuration().to_dict()
+    d = json.loads(json.dumps(qs["cfg"]))
+    d["workdir"] = workdir = os.path.join(qs["root"], "exp3")
+    d["model"] = dict(defaults["model"], generator="cnn_blstm")
+    d["train"] = dict(defaults["train"], trainer="wgan", epochs=1,
+                      steps_per_epoch=QS_WGAN_STEPS, measures_every=1, checkpoint_every=1,
+                      profile_steps=QS_WGAN_STEPS)
+    cfg_path = _write_config(os.path.join(qs["root"], "config3.json"), d)
+    shutil.copytree(os.path.join(qs["cfg"]["workdir"], "feature_cache"),
+                    os.path.join(workdir, "feature_cache"))
+    corpus = qs["corpus"]
+    _zero_counts()
+    t = time.perf_counter()
+    if cli.main(["train", "--config", cfg_path, "--preset", "production"], device=dev) != 0:
+        raise AssertionError("cli train (config 3) failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts, routes = _counts(), _routes()
+    used = Configuration.load(os.path.join(workdir, "config.json"))
+    (rec,), (obj,) = _records(workdir, "epoch"), _records(workdir, "objective")
+    # forwards: 2 a step, 1 a validation batch, 1 a predicted chunk (chunks
+    # of 8 within each 64-frame padded length) of the measure validation
+    n_valid = sum(_bucket_batches(corpus.valid, TRAIN_B, QS_BOUNDS, whole=False).values())
+    groups = {}
+    for x in corpus.valid.labs:
+        n = -(-x.shape[0] // TIME_MULTIPLE)
+        groups[n] = groups.get(n, 0) + 1
+    n_chunks = sum(-(-n // 8) for n in groups.values())
+    want = (2 * rec["steps"] + n_valid + n_chunks, rec["steps"])
+    got = (counts["bilstm_fwd"], counts["bilstm_bwd"])
+    score = obj["mcd_db"] + used.train.best_gv_weight * abs(math.log(max(obj["gv_ratio"], 1e-6)))
+    print(f"[quickstart wgan] ({card}) config 3, best_metric {used.train.best_metric}: "
+          f"{rec['steps']} steps, loss {rec['loss']:.6g}, w_dist {rec['w_dist']:.6g}, gp "
+          f"{rec['gp']:.6g}; epoch wall {rec['sec']:.3f} s, run {wall:.2f} s; objective mcd "
+          f"{obj['mcd_db']:.4f}, gv {obj['gv_ratio']:.4f} (score {score:.4f}); launches "
+          f"{counts}: expected forward {want[0]} ({rec['steps']} steps, {n_valid} validation "
+          f"batches, {n_chunks} predicted chunks), BPTT {want[1]}")
+    if (rec["steps"] != QS_WGAN_STEPS or not _finite(rec)
+            or used.train.best_metric != "mcd_gv" or not used.train.device_corpus):
+        raise AssertionError(f"config 3's epoch: {rec}, best_metric {used.train.best_metric}")
+    if got != want:
+        raise AssertionError(f"config 3 launched (forward, BPTT) = {got}, not {want}")
+    _all_mma("quickstart wgan", routes)
+    metrics = json.load(open(os.path.join(workdir, "checkpoints", "0", "metrics.json")))
+    if not abs(metrics["score"] - score) <= 1e-9 * abs(score):
+        raise AssertionError(f"the checkpoint's score {metrics['score']} is not mcd_gv {score}")
+    busy, _ = _profiled_epoch("quickstart wgan", workdir, card)
+    return {"counts": counts, "routes": routes, "record": rec, "busy": busy}
 
 
 def _library_layer(kind: str, ws, dtype, dev) -> torch.nn.Module:
@@ -1414,6 +1795,16 @@ def main() -> int:
         for route, n in by_route.items():
             routes[name][route] += n
 
+    # 8. the quick start through the CLI: config 1, then config 3 on its corpus
+    qs = _quickstart_path(dev, smi)
+    paths.update(qs["counts"])
+    qs3 = _quickstart_wgan_path(dev, smi, qs)
+    paths["quickstart_wgan"] = qs3["counts"]
+    for name, by_route in qs3["routes"].items():
+        for route, n in by_route.items():
+            routes[name][route] += n
+    shutil.rmtree(qs["root"], ignore_errors=True)
+
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
         "bilstm_bwd": ("bilstm_bwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
@@ -1469,6 +1860,15 @@ def main() -> int:
           + ", ".join(f"{r['sec']:.3f} s ({r['frames_per_sec']:.1f} frames/s)"
                       for r in loop["records"])
           + f"; profiled epochs' device busy share {[b and round(b[2], 4) for b in loop['busy']]}")
+    print(f"[summary] quick start ({smi}): demo {qs['demo_s']:.2f} s, compose {qs['compose_s']:.2f} "
+          f"s ({qs['audio_s'] / qs['compose_s']:.1f} s of audio per s), config-1 epochs "
+          + ", ".join(f"{r['sec']:.3f} s ({qs['real_frames'] / r['sec']:.1f} real frames/s)"
+                      for r in qs["records"])
+          + f", measure validations {', '.join(f'{x:.3f}' for x in qs['measure_s'])} s, generate "
+          f"{qs['generate_s']:.3f} s (real-time factor {qs['generate_s'] / qs['gen_audio_s']:.4f}), "
+          f"test mcd {qs['measures']['mcd_db']:.4f} dB; profiled device-corpus epochs' busy share "
+          f"config 1 {qs['busy']}, config 3 {qs3['busy']}; config 3 epoch "
+          f"{qs3['record']['sec']:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

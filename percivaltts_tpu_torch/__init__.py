@@ -4,22 +4,25 @@ The JAX package beside it stays the reference: every module here keeps its
 counterpart's name and is held against it by a parity test on the same
 weights and inputs (``tests/test_torch_*.py``).
 
-Ported so far: serving (raw HTS label frames → normalized → the
+Ported so far: serving (raw HTS label frames → normalized → the FC,
 CNN(+BLSTM), BLSTM or BGRU generator → denormalized vocoder features →
 the PML vocoder → a waveform; ``eval/serve.py``, ``vocoders/``,
-``cli.py synth``, from a run's best checkpoint) and training (the fused
+``cli.py synth``, from a run's best checkpoint), training (the fused
 WGAN-GP step with the conditional critic, the LSE step, and the
-``Trainer``'s epochs, validation, early stopping, checkpoints and resume;
-``training/``). Hand-written CUDA
+``Trainer``'s epochs on host-fed batches or the corpus resident on the
+card, validation with the objective measures, early stopping, checkpoints
+and resume; ``training/``, ``data/device_corpus.py``), and the offline
+pipeline around them (the demo corpus, compose, generation and the
+measures: ``data/{demo,compose}.py``, ``eval/{generate,measures}.py``,
+``cli.py demo|compose|train|generate|measures``). Hand-written CUDA
 kernels run the generators' recurrences (the BiLSTM forward and BPTT,
 ``csrc/bilstm_{fwd,bwd}.cu``; the BiGRU forward and BPTT,
 ``csrc/bigru_{fwd,bwd}.cu``) and the vocoder's framing and overlap-add
 (``csrc/{frame_window,overlap_add}.cu``), built with ``nvcc`` at first use
 (``_build.py``). The package imports nothing of ``jax``, ``flax`` or
 ``percivaltts_tpu``: it keeps its own copies of the framework-free modules
-(``config.py``, ``data/{dataset,hts_labels,normalize}.py``, the wav I/O
-of ``data/compose.py``, ``ops/warp.py``,
-``utils/{fileio,logging,prefetch}.py``).
+(``config.py``, ``data/{dataset,demo,hts_labels,normalize}.py``,
+``ops/warp.py``, ``utils/{fileio,logging,prefetch}.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,24 +1,40 @@
-"""Command-line entry point of the port (counterpart of ``percivaltts_tpu/cli.py``).
-
-Ported so far: ``synth``. It reads the config, the workdir's normalization
-stats (``in_stats.npz`` / ``out_stats.npz``) and HTS label files, and writes
-one ``<uid>.wav`` per label file: the generator's denormalized features
-through the configured vocoder (the default PML vocoder, closed loop), as
-the JAX package's ``cli synth`` does. The generator is, as there, the best
-checkpoint's under ``<workdir>/checkpoints`` (written by the port's
-``training.Trainer``) with its ``eval_params``: the EMA copy when the run
-carries one. ``--weights FILE.npz`` serves a flat flax-path ``.npz``
-instead (weights exported from a JAX run with
-``percivaltts_tpu_torch.weights.save_npz`` on a host that has jax).
+"""Command-line entry points of the port (counterpart of
+``percivaltts_tpu/cli.py``): the README's quick start, demo corpus →
+compose → train → generate + measures, and label files → wavs.
 
 Usage:
+    python -m percivaltts_tpu_torch.cli demo --out corpus/ [--num 20]
+    python -m percivaltts_tpu_torch.cli compose --config corpus/config.json
+    python -m percivaltts_tpu_torch.cli train --config corpus/config.json
+        [--resume] [--on-device-norm] [--device-corpus] [--preset production]
+    python -m percivaltts_tpu_torch.cli generate --config corpus/config.json
+        [--checkpoint N | --latest] [--split test|valid] [--no-wav] [--save-features]
+    python -m percivaltts_tpu_torch.cli measures --config cfg.json --ref D1 --pred D2
     python -m percivaltts_tpu_torch.cli synth --config cfg.json [--weights W.npz] [--out DIR] labels/*.lab
+
+``demo`` writes the same corpus and ``config.json`` as the JAX package's
+``cli demo``. ``compose`` analyzes the corpus with the configured vocoder
+on the card into ``<workdir>/feature_cache`` and writes the normalization
+stats (``in_stats.npz`` / ``out_stats.npz``). ``train`` composes first,
+then trains the port's ``training.Trainer`` with objective-measure
+validation. ``generate`` restores the best checkpoint (``--latest``,
+``--checkpoint N``) and writes ``<workdir>/measures.json``, and the
+predicted wavs (and ``.cmp`` feature files) under ``<workdir>/generated``.
+``measures`` compares two directories of feature files. ``synth`` serves
+the best checkpoint's generator (its EMA when the run kept one), or a
+flax-path ``.npz`` given with ``--weights``, and writes one ``<uid>.wav``
+per label file through the configured vocoder.
+
+Not ported yet: ``--mesh`` and ``--distributed`` (ROADMAP queue 1 item 7),
+``export`` and ``plot`` (item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
+import json
 import os
 import sys
 
@@ -26,6 +42,202 @@ import torch
 
 from percivaltts_tpu_torch.config import Configuration
 from percivaltts_tpu_torch.utils.logging import print_log
+
+
+def cmd_demo(args, device) -> int:
+    """The synthetic demo corpus, and a ``config.json`` sized for it (small
+    model, few epochs, f32) beside it."""
+    from percivaltts_tpu_torch.data.demo import generate_demo_corpus
+
+    generate_demo_corpus(
+        args.out,
+        num_utterances=args.num,
+        seed=args.seed,
+        hard=args.hard,
+        jitter=args.jitter,
+        speaker_f0=args.speaker_f0,
+        encode_f0=args.encode_f0,
+        noise_snr_db=args.noise_snr_db,
+        reverb_ms=args.reverb_ms,
+    )
+    cfg = Configuration(workdir=os.path.join(args.out, "exp"))
+    d = cfg.to_dict()
+    d["data"].update(
+        corpus_dir=args.out,
+        fileids=os.path.join(args.out, "fileids.scp"),
+        question_file=os.path.join(args.out, "questions.hed"),
+        batch_size=4,
+        bucket_bounds=[256],
+        num_valid=max(args.num // 8, 1),
+        num_test=max(args.num // 8, 1),
+    )
+    d["vocoder"].update(spec_size=33, nm_size=17)
+    d["model"].update(generator="cnn", hidden_size=64, cnn_blocks=2,
+                      critic_hidden=64, compute_dtype="float32")
+    d["train"].update(trainer="lse", epochs=30, lr_gen=2e-3, patience=10,
+                      checkpoint_every=5)
+    cfg_path = os.path.join(args.out, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(d, f, indent=2, sort_keys=True)
+    print_log(f"wrote {cfg_path}")
+    return 0
+
+
+def _compose(cfg: Configuration, device, normalize: bool = True):
+    """Compose the corpus through the workdir's feature cache and save its
+    stats."""
+    from percivaltts_tpu_torch.data.compose import compose
+
+    cache = os.path.join(cfg.workdir, "feature_cache")
+    os.makedirs(cache, exist_ok=True)
+    corpus = compose(cfg, cache_dir=cache, normalize=normalize, device=device)
+    corpus.save_stats(cfg.workdir)
+    return corpus
+
+
+def cmd_compose(args, device) -> int:
+    corpus = _compose(Configuration.load(args.config), device)
+    print_log(
+        f"train/valid/test: {len(corpus.train)}/{len(corpus.valid)}/"
+        f"{len(corpus.test)} utterances, label_dim={corpus.train.label_dim}, "
+        f"feat_dim={corpus.train.feat_dim}"
+    )
+    return 0
+
+
+def apply_preset(cfg: Configuration, name: str) -> Configuration:
+    """Overlay the JAX package's measured-best settings on a config: an EMA
+    of the generator weights (0.995), the corpus resident on the device,
+    the GV-aware best checkpoint for WGAN runs with measures, and for the
+    PML vocoder the prediction-side voicing rule (lowest 65% of nm bands
+    < 0.60)."""
+    if name != "production":
+        raise ValueError(f"unknown preset: {name!r}")
+    tr = dict(ema_decay=0.995, device_corpus=True)
+    if cfg.train.trainer == "wgan" and cfg.train.measures_every > 0:
+        tr["best_metric"] = "mcd_gv"
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
+    if cfg.vocoder.kind == "world" and cfg.vocoder.vuv_rule == "stream":
+        cfg = cfg.replace(vocoder=dataclasses.replace(cfg.vocoder, vuv_rule="bap"))
+        tr["vocoder.vuv_rule"] = "bap"
+    if cfg.vocoder.kind == "pml" and cfg.vocoder.vuv_pred_threshold is None:
+        cfg = cfg.replace(vocoder=dataclasses.replace(
+            cfg.vocoder, vuv_pred_low_frac=0.65, vuv_pred_threshold=0.60))
+        tr["vocoder.vuv_pred"] = "0.65/0.60"
+    print_log(f"preset {name!r}: {tr}")
+    return cfg
+
+
+def _no_mesh(args) -> None:
+    if args.mesh or args.distributed:
+        raise NotImplementedError(
+            "--mesh / --distributed (data parallelism) are not ported yet "
+            "(ROADMAP queue 1 item 7)")
+
+
+def cmd_train(args, device) -> int:
+    """Compose (through the feature cache), save the stats, train."""
+    from percivaltts_tpu_torch.training import Trainer
+
+    _no_mesh(args)
+    cfg = Configuration.load(args.config)
+    if args.preset:
+        cfg = apply_preset(cfg, args.preset)
+    if args.device_corpus:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_corpus=True))
+    on_device = args.on_device_norm
+    corpus = _compose(cfg, device, normalize=not on_device)
+    if on_device and cfg.train.measures_every > 0:
+        print_log(
+            "WARNING: --on-device-norm disables objective-measure "
+            "validation (measures_every): the measures need host-normalized "
+            "features"
+        )
+    trainer = Trainer(
+        cfg,
+        corpus.train,
+        corpus.valid,
+        in_stats=corpus.in_stats if on_device else None,
+        out_stats=corpus.out_stats if on_device else None,
+        measures_stats=None if on_device else corpus.out_stats,
+        device=device,
+    )
+    if args.resume:
+        trainer.resume()
+    trainer.train()
+    trainer.close()
+    return 0
+
+
+def cmd_generate(args, device) -> int:
+    """Generation and objective measures from a checkpoint."""
+    from percivaltts_tpu_torch.eval.generate import generate
+    from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
+    from percivaltts_tpu_torch.training.state import make_gan_state
+
+    cfg = Configuration.load(args.config)
+    corpus = _compose(cfg, device)
+    ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints"))
+    step = args.checkpoint
+    if step is None:
+        step = ckpt.latest_step() if args.latest else ckpt.best_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt.directory} (train one first)")
+    print_log(f"generating from checkpoint step {step}")
+    state = ckpt.restore(make_gan_state(cfg, corpus.train.label_dim, device=device), step)
+    measures = generate(
+        cfg,
+        state,
+        corpus.test if args.split == "test" else corpus.valid,
+        corpus.out_stats,
+        synthesize=not args.no_wav,
+        save_features=args.save_features,
+    )
+    with open(os.path.join(cfg.workdir, "measures.json"), "w") as f:
+        json.dump(measures, f, indent=2)
+    return 0
+
+
+def cmd_measures(args, device) -> int:
+    """Objective measures between two directories of per-utterance feature
+    files (headerless float32), printed as JSON: mean MCD, F0 RMSE and VUV
+    error over the files the two share."""
+    import numpy as np
+
+    from percivaltts_tpu_torch.eval.measures import f0_rmse, mcd, vuv_error
+    from percivaltts_tpu_torch.utils.fileio import load_binary_file
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    voc = get_vocoder(Configuration.load(args.config).vocoder, device)
+    dim = voc.feature_size
+    ref_files = {os.path.basename(p): p for p in glob.glob(os.path.join(args.ref, "*" + args.ext))}
+    if not ref_files:
+        raise FileNotFoundError(f"no {args.ext} files in {args.ref}")
+    mcds, f0s, vuvs, matched = [], [], [], 0
+    for name, rp in sorted(ref_files.items()):
+        pp = os.path.join(args.pred, name)
+        if not os.path.exists(pp):
+            continue
+        matched += 1
+        ref = load_binary_file(rp, dim)
+        pred = load_binary_file(pp, dim)
+        n = min(len(ref), len(pred))
+        mcds.append(float(mcd(voc.cepstra(pred[:n]), voc.cepstra(ref[:n]))))
+        try:
+            f0p, vp = voc.f0_vuv_pred(pred[:n])
+            f0r, vr = voc.f0_vuv(ref[:n])
+        except NotImplementedError:
+            continue
+        f0s.append(float(f0_rmse(f0p, f0r, vp, vr)))
+        vuvs.append(float(vuv_error(vp, vr)))
+    if not matched:
+        raise FileNotFoundError(f"no files in {args.pred} match the names in {args.ref}")
+    out = {"files": matched, "mcd_db": float(np.mean(mcds))}
+    if f0s:
+        out["f0_rmse_hz"] = float(np.mean(f0s))
+        out["vuv_error_pct"] = float(np.mean(vuvs))
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def _generator(args, cfg, label_dim: int, device):
@@ -87,12 +299,68 @@ def cmd_synth(args, device) -> int:
     return 0
 
 
-def main(argv=None, device="cuda") -> int:
-    """``device``: where the generator and the vocoder run. The command line
-    runs on the card; the Python API lets a caller name another device
-    explicitly."""
-    p = argparse.ArgumentParser(prog="percivaltts-tpu-torch", description=__doc__)
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="percivaltts-tpu-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pd = sub.add_parser("demo", help="generate the synthetic demo corpus")
+    pd.add_argument("--out", required=True)
+    pd.add_argument("--num", type=int, default=20)
+    pd.add_argument("--seed", type=int, default=1234)
+    pd.add_argument("--hard", action="store_true",
+                    help="stress corpus: plosive bursts, silence clicks, wide f0, "
+                    "amplitude dynamics")
+    pd.add_argument("--jitter", type=float, default=0.0,
+                    help="per-phone-instance formant jitter (e.g. 0.12 = ±12%%)")
+    pd.add_argument("--speaker-f0", type=float, default=0.0, dest="speaker_f0",
+                    help="pin every utterance's base f0 (Hz)")
+    pd.add_argument("--encode-f0", action="store_true", dest="encode_f0",
+                    help="write each utterance's base f0 into the labels")
+    pd.add_argument("--noise-snr-db", type=float, default=0.0, dest="noise_snr_db",
+                    help="additive background noise at this SNR (dB)")
+    pd.add_argument("--reverb-ms", type=float, default=0.0, dest="reverb_ms",
+                    help="synthetic room reverb tail of this length")
+    pd.set_defaults(fn=cmd_demo)
+
+    pc = sub.add_parser("compose", help="compose corpus features + stats")
+    pc.add_argument("--config", required=True)
+    pc.set_defaults(fn=cmd_compose)
+
+    pt = sub.add_parser("train", help="train (composes first)")
+    pt.add_argument("--config", required=True)
+    pt.add_argument("--resume", action="store_true")
+    pt.add_argument("--mesh", action="store_true",
+                    help="data parallelism over all devices (not ported yet)")
+    pt.add_argument("--distributed", action="store_true",
+                    help="multi-process training (not ported yet)")
+    pt.add_argument("--on-device-norm", action="store_true", dest="on_device_norm",
+                    help="normalize on the device inside the step (raw features ship)")
+    pt.add_argument("--device-corpus", action="store_true", dest="device_corpus",
+                    help="keep the padded training corpus on the device and gather "
+                    "batches there")
+    pt.add_argument("--preset", choices=("production",), default=None,
+                    help="overlay the measured-best settings (EMA 0.995, the corpus on "
+                    "the device, GV-aware best checkpoint for WGAN runs with measures)")
+    pt.set_defaults(fn=cmd_train)
+
+    pg = sub.add_parser("generate", help="generate features/wavs + measures")
+    pg.add_argument("--config", required=True)
+    pg.add_argument("--checkpoint", type=int, default=None)
+    pg.add_argument("--latest", action="store_true",
+                    help="the latest checkpoint instead of the best")
+    pg.add_argument("--split", choices=("test", "valid"), default="test")
+    pg.add_argument("--no-wav", action="store_true")
+    pg.add_argument("--save-features", action="store_true")
+    pg.set_defaults(fn=cmd_generate)
+
+    pm = sub.add_parser("measures", help="objective measures between two feature-file directories")
+    pm.add_argument("--config", required=True)
+    pm.add_argument("--ref", required=True, help="reference feature dir")
+    pm.add_argument("--pred", required=True, help="predicted feature dir")
+    pm.add_argument("--ext", default=".cmp", help="feature file extension")
+    pm.set_defaults(fn=cmd_measures)
+
     ps = sub.add_parser("synth", help="label files → wavs (pure inference)")
     ps.add_argument("--config", required=True)
     ps.add_argument("--weights", default=None,
@@ -100,7 +368,14 @@ def main(argv=None, device="cuda") -> int:
     ps.add_argument("--out", default=None)
     ps.add_argument("labels", nargs="+", help="label file paths or globs")
     ps.set_defaults(fn=cmd_synth)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None, device="cuda") -> int:
+    """``device``: where the vocoder, the generator and training run. The
+    command line runs on the card; the Python API lets a caller name
+    another device explicitly."""
+    args = _parser().parse_args(argv)
     return args.fn(args, torch.device(device))
 
 

@@ -1,0 +1,143 @@
+"""The training corpus resident on the device; batches gathered there
+(counterpart of ``percivaltts_tpu/data/device_corpus.py``).
+
+A TTS acoustic corpus is small beside the card's memory (an hour of 16 kHz
+speech at 525 feature dims is ~1.5 GB in f32, half that in bf16), so the
+whole training set is padded to the largest bucket bound and copied to the
+card once. Every step then ships one small int32 index array, and the
+batch is gathered on the device. Epoch shuffling stays on the host: a
+permutation of utterance indices, made exactly as the JAX package makes it.
+
+Not ported: a corpus partitioned over a mesh (``mesh``, ``shard_corpus``),
+which waits for data parallelism (ROADMAP queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+from percivaltts_tpu_torch.data.dataset import Dataset
+
+def to_bfloat16(a: np.ndarray) -> torch.Tensor:
+    """float32 → bfloat16 on the host, bit for bit as ``ml_dtypes`` casts
+    (the JAX package's corpus cast): round to nearest even, and every NaN
+    the quiet NaN of its sign (torch writes 0xFFFF for any NaN)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+    nan = np.isnan(a)
+    if nan.any():
+        bits = t.view(torch.int16).numpy()
+        bits[nan] = np.where(np.signbit(a[nan]), 0xFFC0, 0x7FC0).astype(np.uint16).view(np.int16)
+    return t
+
+
+class DeviceCorpus:
+    """All utterances padded to ``bound`` and resident on ``device``:
+    ``data`` holds ``lab`` and ``cmp`` in ``dtype`` and the mask in f32,
+    each ``(num_utts, bound, ·)``."""
+
+    def __init__(
+        self,
+        ds: Dataset,
+        bound: int,
+        dtype: str = "float32",
+        mesh=None,
+        crop_seed: int = 0,
+        shard_corpus: bool = False,
+        device="cuda",
+    ):
+        if mesh is not None or shard_corpus:
+            raise NotImplementedError(
+                "a corpus on a mesh is not ported yet (ROADMAP queue 1 item 7)")
+        N, L, F = len(ds), ds.label_dim, ds.feat_dim
+        rng = np.random.default_rng(crop_seed)
+        lab = np.zeros((N, bound, L), np.float32)
+        cmp_ = np.zeros((N, bound, F), np.float32)
+        mask = np.zeros((N, bound), np.float32)
+        for i in range(N):
+            x, c = ds.labs[i], ds.cmps[i]
+            n = x.shape[0]
+            off = 0
+            if n > bound:
+                # a long utterance gets one fixed random crop at upload time
+                off = int(rng.integers(0, n - bound + 1))
+                n = bound
+            lab[i, :n] = x[off : off + n]
+            cmp_[i, :n] = c[off : off + n]
+            mask[i, :n] = 1.0
+        self.device = torch.device(device)
+        cast = to_bfloat16 if dtype == "bfloat16" else torch.from_numpy
+        # cast on the host, then one copy each; the mask stays f32
+        self.data: Dict[str, torch.Tensor] = {
+            "lab": cast(lab).to(self.device), "cmp": cast(cmp_).to(self.device),
+            "mask": torch.from_numpy(mask).to(self.device)}
+        self.nbytes = sum(t.numel() * t.element_size() for t in self.data.values())
+        self.num_utts = N
+        self.bound = bound
+
+    def epoch_indices(
+        self,
+        batch_size: int,
+        group: int,
+        epoch: int,
+        seed: int = 0,
+        num_steps: int = 0,
+    ) -> Iterator[np.ndarray]:
+        """Host-side shuffling: yield ``(group, batch_size)`` int32 index
+        arrays (group = n_critic + 1 for WGAN, 1 for LSE). ``num_steps=0``
+        is one pass over the corpus; otherwise exactly that many steps,
+        re-shuffling as needed. Fresh permutations are appended whenever the
+        corpus tail cannot fill a step, so every step is full-size."""
+        rng = np.random.default_rng(np.uint32(seed) + np.uint32(epoch))
+        per_step = batch_size * group
+        nsteps = num_steps or max(self.num_utts // per_step, 1)
+        need = nsteps * per_step
+        reps = -(-need // self.num_utts)
+        perm = np.concatenate([rng.permutation(self.num_utts) for _ in range(reps)])
+        for s in range(nsteps):
+            chunk = perm[s * per_step : (s + 1) * per_step]
+            yield chunk.reshape(group, batch_size).astype(np.int32)
+
+    def shard_indices(self, idx: np.ndarray) -> torch.Tensor:
+        """The index array on the corpus's device: one pinned host tensor,
+        copied without blocking the host."""
+        t = torch.from_numpy(np.ascontiguousarray(idx))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+
+def gather_batch(corpus_data: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """On-device gather: idx (..., B) → a batch dict with idx's leading
+    shape."""
+    return {
+        "lab": corpus_data["lab"][idx],
+        "cmp": corpus_data["cmp"][idx],
+        "mask": corpus_data["mask"][idx].float(),
+    }
+
+
+def make_device_wgan_step(base_step, n_critic: int):
+    """Wrap a WGAN step to take (state, corpus_data, idx) with idx
+    (n_critic + 1, B): the critic and generator batches are gathered on the
+    device."""
+
+    def step(state, corpus_data, idx):
+        batches = gather_batch(corpus_data, idx)  # leading (n_critic + 1, B)
+        critic_b = {k: v[:n_critic] for k, v in batches.items()}
+        gen_b = {k: v[n_critic] for k, v in batches.items()}
+        return base_step(state, critic_b, gen_b)
+
+    return step
+
+
+def make_device_lse_step(base_step):
+    """Wrap an LSE step to take (state, corpus_data, idx) with idx (1, B)."""
+
+    def step(state, corpus_data, idx):
+        batches = gather_batch(corpus_data, idx)
+        return base_step(state, {k: v[0] for k, v in batches.items()})
+
+    return step

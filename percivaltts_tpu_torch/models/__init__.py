@@ -1,6 +1,7 @@
 from percivaltts_tpu_torch.models.generators import (  # noqa: F401
     BLSTMGenerator,
     CNNGenerator,
+    FCGenerator,
     build_generator,
 )
 from percivaltts_tpu_torch.models.critic import (  # noqa: F401

@@ -1,11 +1,12 @@
 """Generators (counterpart of ``percivaltts_tpu/models/generators.py``).
 
-Ported: ``CNNGenerator`` with ``conv_style="time1d"``, with or without the
-BiLSTM f0 head, ``BLSTMGenerator`` (BLSTM or BGRU layers), and
-``build_generator`` for ``"cnn"`` / ``"cnn_blstm"`` / ``"blstm"`` /
-``"bgru"``. Layer names are the flax module names (``trunk_0``,
-``spec_conv0a``, ``f0_blstm``, ``frontend``, ``blstm_0``, ``out``, …) so
-``weights.py`` maps one tree onto the other by path.
+Ported: ``FCGenerator``, ``CNNGenerator`` with ``conv_style="time1d"``,
+with or without the BiLSTM f0 head, ``BLSTMGenerator`` (BLSTM or BGRU
+layers), and ``build_generator`` for ``"fc"`` / ``"cnn"`` / ``"cnn_blstm"`` /
+``"blstm"`` / ``"bgru"``. Layer names are the flax module names
+(``dense_0``, ``trunk_0``, ``spec_conv0a``, ``f0_blstm``, ``frontend``,
+``blstm_0``, ``out``, …) so ``weights.py`` maps one tree onto the other by
+path.
 
 Parity notes, each pinned by a test:
 * flax ``nn.gelu`` is the tanh approximation; torch's default GELU is erf.
@@ -67,8 +68,7 @@ def _new_conv1d(channels_in: int, channels_out: int, k: int, dtype, generator) -
 def _not_ported_norm(norm: str) -> None:
     if norm != "none":
         raise NotImplementedError(
-            f"gen_norm={norm!r} is not ported yet (ROADMAP: modules still "
-            "to port, models)"
+            f"gen_norm={norm!r} is not ported yet (ROADMAP queue 1 item 5)"
         )
 
 
@@ -86,6 +86,54 @@ def _dense(module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
     lin = getattr(module, name)
     dt = module.compute_dtype
     return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+
+
+class FCGenerator(nn.Module):
+    """Frame-wise MLP: ``num_layers`` × (Dense → dropout → tanh), then a
+    linear readout to ``feat_dim`` features."""
+
+    def __init__(
+        self,
+        feat_dim: int,
+        label_dim: int,
+        hidden_size: int = 256,
+        num_layers: int = 3,
+        compute_dtype: str = "bfloat16",
+        param_dtype: str = "float32",
+        norm: str = "none",
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        _not_ported_norm(norm)
+        g = generator or torch.Generator().manual_seed(0)
+        pdt = dtype_by_name(param_dtype)
+        self.compute_dtype = dtype_by_name(compute_dtype)
+        self.num_layers = num_layers
+        self.dropout_rate = dropout_rate
+        d = label_dim
+        for i in range(num_layers):
+            self.add_module(f"dense_{i}", _new_dense(d, hidden_size, pdt, g))
+            d = hidden_size
+        self.out = _new_dense(d, feat_dim, pdt, g)
+
+    def forward(
+        self,
+        lab: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
+        ``train`` turns dropout on; it then draws from ``generator``, which
+        must lie on the labels' device."""
+        drop = _dropout_on(train, self.dropout_rate, generator)
+        x = lab.to(self.compute_dtype)
+        for i in range(self.num_layers):
+            x = _dense(self, f"dense_{i}", x)
+            if drop:
+                x = dropout(x, self.dropout_rate, generator)
+            x = torch.tanh(x)
+        return _dense(self, "out", x).float()
 
 
 class BLSTMGenerator(nn.Module):
@@ -266,6 +314,18 @@ def build_generator(
     ``generator`` (seed 0 when omitted) with flax's init rules; move it to
     the device with ``.to(device)``."""
     kind = model_cfg.generator
+    if kind == "fc":
+        return FCGenerator(
+            feat_dim=vocoder.feature_size,
+            label_dim=label_dim,
+            hidden_size=model_cfg.hidden_size,
+            num_layers=model_cfg.num_layers,
+            compute_dtype=model_cfg.compute_dtype,
+            param_dtype=model_cfg.param_dtype,
+            norm=model_cfg.gen_norm,
+            dropout_rate=model_cfg.dropout_rate,
+            generator=generator,
+        )
     if kind in ("blstm", "bgru"):
         return BLSTMGenerator(
             feat_dim=vocoder.feature_size,
@@ -294,10 +354,5 @@ def build_generator(
             norm=model_cfg.gen_norm,
             dropout_rate=model_cfg.dropout_rate,
             generator=generator,
-        )
-    if kind == "fc":
-        raise NotImplementedError(
-            f"generator={kind!r} is not ported yet (ROADMAP: modules still to "
-            "port, models)"
         )
     raise ValueError(f"unknown generator kind: {kind}")

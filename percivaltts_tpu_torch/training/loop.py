@@ -13,14 +13,22 @@ Notes for the card:
   it to the transfer dtype and pins it; the main thread copies it to the
   card with ``non_blocking=True`` and dispatches the step, so batch
   assembly overlaps the card's work.
+* With ``TrainConfig.device_corpus`` the padded training corpus lives on
+  the card (``data/device_corpus.py``) and each step ships one pinned
+  int32 index array; the batch is gathered on the card.
 * The steps' 0-d metric tensors stay on the card until the epoch ends and
   are read back in one copy; validation reads back once as well. A read
   per step would stall the host on every step.
+* Every ``measures_every`` epochs the objective measures (MCD, F0 RMSE,
+  VUV, GV and modulation-spectrum ratios) run over the validation split
+  through the generation path; ``best_metric`` ``"mcd"`` / ``"mcd_gv"``
+  select the best checkpoint and drive early stopping on them.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import os
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -30,6 +38,11 @@ import torch
 
 from percivaltts_tpu_torch.config import Configuration
 from percivaltts_tpu_torch.data.dataset import Dataset, cost_0pred_rmse
+from percivaltts_tpu_torch.data.device_corpus import (
+    DeviceCorpus,
+    make_device_lse_step,
+    make_device_wgan_step,
+)
 from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
 from percivaltts_tpu_torch.training.losses import stream_weight_vector
 from percivaltts_tpu_torch.training.lse import lse_eval_sums, lse_step
@@ -129,28 +142,25 @@ class Trainer:
         to normalize on the device inside the step instead of on the host
         (``training/ondevice.py``).
 
+        ``measures_stats``: the output-stream NormStats of a *normalized*
+        pipeline, which turns on objective-measure validation
+        (``TrainConfig.measures_every``) and the measure-driven best
+        checkpoint (``best_metric`` ``"mcd"`` / ``"mcd_gv"``).
+
         ``device``: where the state lives and the steps run; the card
         unless the caller names another (the CPU runs the kernels' plain
         twins). ``TrainConfig.debug_nans`` turns on
         ``torch.autograd.set_detect_anomaly``, for the whole process.
 
-        Not ported yet, each raising ``NotImplementedError``: ``mesh``
-        (ROADMAP queue 1 item 7), ``TrainConfig.device_corpus`` (item 3)
-        and objective-measure validation, ``measures_every > 0`` with
-        ``measures_stats`` (item 4)."""
+        Not ported yet: ``mesh`` raises ``NotImplementedError`` (ROADMAP
+        queue 1 item 7)."""
         train = cfg.train
         if mesh is not None:
             raise NotImplementedError(
                 "data parallelism over a mesh is not ported yet (ROADMAP queue 1 item 7)")
-        if train.device_corpus:
-            raise NotImplementedError(
-                "device_corpus (the corpus resident on the card) is not ported yet "
-                "(ROADMAP queue 1 item 3)")
-        if train.measures_every > 0 and measures_stats is not None:
-            raise NotImplementedError(
-                "objective-measure validation (measures_every) is not ported yet "
-                "(ROADMAP queue 1 item 4)")
-        if train.best_metric in ("mcd", "mcd_gv"):
+        if train.best_metric in ("mcd", "mcd_gv") and (
+            train.measures_every <= 0 or measures_stats is None
+        ):
             raise ValueError(
                 f"best_metric={train.best_metric!r} needs "
                 "measures_every > 0 and measures_stats"
@@ -177,6 +187,16 @@ class Trainer:
             torch.autograd.set_detect_anomaly(True)
 
         self.state: GANState = make_gan_state(cfg, train_ds.label_dim, device=self.device)
+        self.measures_stats = measures_stats
+        self.dcorpus = None
+        if train.device_corpus:
+            self.dcorpus = DeviceCorpus(
+                train_ds,
+                bound=max(cfg.data.bucket_bounds),
+                dtype="bfloat16" if train.transfer_dtype == "bfloat16" else "float32",
+                shard_corpus=train.shard_corpus,
+                device=self.device,
+            )
 
         def _maybe_norm(fn):
             if in_stats is None:
@@ -188,6 +208,8 @@ class Trainer:
         )
         if train.trainer == "wgan":
             self._wgan_step = _maybe_norm(make_wgan_step(train, dim_w))
+            if self.dcorpus is not None:
+                self._wgan_step = make_device_wgan_step(self._wgan_step, train.n_critic)
         else:
             self._lse_step = _maybe_norm(
                 functools.partial(
@@ -198,6 +220,8 @@ class Trainer:
                     boundary_radius=train.boundary_radius,
                 )
             )
+            if self.dcorpus is not None:
+                self._lse_step = make_device_lse_step(self._lse_step)
         self._eval_step = _maybe_norm(lse_eval_sums)
 
         self.best_valid = float("inf")
@@ -249,9 +273,22 @@ class Trainer:
     def _put(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
 
+    def _readback(self, metrics_log: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+        """Sum of each metric over the steps, read back in one copy; it
+        waits for the dispatched steps."""
+        agg: Dict[str, float] = {}
+        if metrics_log:
+            keys = list(metrics_log[0])
+            flat = torch.stack([m[k].float() for m in metrics_log for k in keys]).cpu().tolist()
+            for i, v in enumerate(flat):
+                agg[keys[i % len(keys)]] = agg.get(keys[i % len(keys)], 0.0) + v
+        return agg
+
     def _train_epoch(self, epoch: int) -> Dict[str, float]:
         t0 = time.time()
         d = self.cfg.data
+        if self.dcorpus is not None:
+            return self._train_epoch_device(epoch, t0)
         batches = self.train_ds.batches(
             d.batch_size, d.bucket_bounds, shuffle=True, seed=d.shuffle_seed, epoch=epoch
         )
@@ -296,12 +333,7 @@ class Trainer:
                 metrics_log.append(m)
         # one readback for the epoch; it waits for the dispatched steps, so
         # dt is honest
-        agg: Dict[str, float] = {}
-        if metrics_log:
-            keys = list(metrics_log[0])
-            flat = torch.stack([m[k].float() for m in metrics_log for k in keys]).cpu().tolist()
-            for i, v in enumerate(flat):
-                agg[keys[i % len(keys)]] = agg.get(keys[i % len(keys)], 0.0) + v
+        agg = self._readback(metrics_log)
         dt = time.time() - t0
         if nsteps == 0 and self.cfg.train.trainer == "wgan":
             print_log(
@@ -310,6 +342,37 @@ class Trainer:
                 "per epoch; partial groups carry over to the next epoch "
                 "(lower batch_size or bucket_bounds to fill groups faster)"
             )
+        out = {k: v / max(nsteps, 1) for k, v in agg.items()}
+        out.update(steps=nsteps, sec=dt, frames_per_sec=frames / max(dt, 1e-9))
+        out.update(prof.summary())
+        return out
+
+    def _train_epoch_device(self, epoch: int, t0: float) -> Dict[str, float]:
+        """Epoch over the corpus resident on the device: only an int32
+        index array crosses to the device a step. Frames count the padded
+        rows, as the JAX trainer counts them."""
+        d = self.cfg.data
+        wgan = self.cfg.train.trainer == "wgan"
+        group = self.cfg.train.n_critic + 1 if wgan else 1
+        step_fn = self._wgan_step if wgan else self._lse_step
+        prof = _EpochProfiler(
+            self.workdir,
+            self.cfg.train.profile_steps,
+            active=epoch == self._profile_epoch,
+            device=self.device,
+        )
+        metrics_log = []
+        for idx in self.dcorpus.epoch_indices(
+            d.batch_size, group, epoch, seed=d.shuffle_seed,
+            num_steps=self.cfg.train.steps_per_epoch,
+        ):
+            self.state, m = prof.step(
+                step_fn, self.state, self.dcorpus.data, self.dcorpus.shard_indices(idx))
+            metrics_log.append(m)
+        agg = self._readback(metrics_log)
+        dt = time.time() - t0
+        nsteps = len(metrics_log)
+        frames = nsteps * group * d.batch_size * self.dcorpus.bound
         out = {k: v / max(nsteps, 1) for k, v in agg.items()}
         out.update(steps=nsteps, sec=dt, frames_per_sec=frames / max(dt, 1e-9))
         out.update(prof.summary())
@@ -334,6 +397,45 @@ class Trainer:
             frames += f
         return err / max(frames, 1.0)
 
+    def _validate_measures(self, epoch: int) -> Optional[Dict[str, float]]:
+        """Objective measures (MCD / F0 RMSE / VUV / GV / modulation
+        spectrum) over the validation split through the generation path,
+        every ``measures_every`` epochs; logged as ``"objective"``."""
+        cfg = self.cfg.train
+        if (
+            cfg.measures_every <= 0
+            or self.measures_stats is None
+            or self.valid_ds is None
+            or len(self.valid_ds) == 0
+            or (epoch + 1) % cfg.measures_every != 0
+        ):
+            return None
+        from percivaltts_tpu_torch.eval.generate import generate
+
+        obj = generate(
+            self.cfg,
+            self.state,
+            self.valid_ds,
+            self.measures_stats,
+            outdir=os.path.join(self.workdir, "valid_gen"),
+            synthesize=False,
+        )
+        self.metrics.log("objective", epoch=epoch, **obj)
+        return obj
+
+    def _score(self, valid: float, obj: Optional[Dict[str, float]]) -> float:
+        """The best-checkpoint score of ``TrainConfig.best_metric``: the
+        validation MSE, the MCD, or MCD + best_gv_weight·|ln GV ratio|
+        (NaN on an epoch without measures)."""
+        cfg = self.cfg.train
+        if cfg.best_metric not in ("mcd", "mcd_gv"):
+            return valid
+        if obj is None:
+            return float("nan")
+        if cfg.best_metric == "mcd":
+            return obj["mcd_db"]
+        return obj["mcd_db"] + cfg.best_gv_weight * abs(math.log(max(obj["gv_ratio"], 1e-6)))
+
     def train(self, epochs: Optional[int] = None) -> Dict[str, list]:
         cfg = self.cfg.train
         epochs = cfg.epochs if epochs is None else epochs
@@ -349,6 +451,7 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             tr = self._train_epoch(epoch)
             va = self._validate()
+            obj = self._validate_measures(epoch)
             self.state.epoch = epoch + 1
             self.metrics.log("epoch", epoch=epoch, valid=va, **tr)
             history["train"].append(tr)
@@ -358,9 +461,10 @@ class Trainer:
                 f"valid={va:.5f} ({tr['frames_per_sec']:.0f} frames/s)"
             )
 
-            # best-model score: the validation MSE (the objective measures
-            # that best_metric "mcd"/"mcd_gv" select on are not ported)
-            score = va
+            # best-model score: the configured metric (a patience counts
+            # evaluations of it, not epochs: with "mcd" it exists only every
+            # measures_every epochs)
+            score = self._score(va, obj)
             improved = score < self.best_valid if score == score else False
             if improved:
                 self.best_valid = score
@@ -371,6 +475,8 @@ class Trainer:
                 self._stale_evals += 1
             if (epoch + 1) % cfg.checkpoint_every == 0 or improved:
                 m = {"valid": float(va)} if va == va else {}
+                if obj is not None:
+                    m.update(obj)
                 if score == score:
                     m["score"] = float(score)
                 self.ckpt.save(epoch, self.state, metrics=m or None)

@@ -78,6 +78,19 @@ class Vocoder:
         analysis rule."""
         return self.f0_vuv(feats)
 
+    def cepstra(self, feats: np.ndarray, order: int = 25) -> np.ndarray:
+        """MCD-ready cepstra of the spectral stream (``spec``, else ``mel``),
+        computed on the vocoder's device. ``order`` defaults to the standard
+        mel-cepstral order (c0..c24); ``order=None`` keeps the full band
+        resolution."""
+        from percivaltts_tpu_torch.eval.measures import log_spec_to_cepstra
+
+        key = "spec" if "spec" in self.streams else "mel"
+        spec = torch.as_tensor(np.ascontiguousarray(self.stream(feats, key), np.float32),
+                               device=self.device)
+        with torch.no_grad():
+            return log_spec_to_cepstra(spec, order).cpu().numpy()
+
 
 def chunked_synthesize_batch(feats_list, chunk, frame_multiple, hop, build, run):
     """Shared pad/chunk/crop loop behind ``synthesize_batch``.

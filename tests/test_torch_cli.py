@@ -1,0 +1,164 @@
+"""The port's command line (``cli.py``) end to end on the CPU:
+``main(argv, device="cpu")`` runs demo → compose → train → generate →
+measures on a miniature corpus, asserting what the JAX package's pipeline
+test (``tests/test_e2e.py``) asserts of it, then the production preset's
+device-corpus run with objective-measure validation, resumed. The preset
+overlay equals the JAX ``apply_preset``'s; what is not ported raises.
+"""
+
+import contextlib
+import dataclasses
+import io
+import json
+import os
+
+import numpy as np
+import pytest
+
+from percivaltts_tpu import cli as jax_cli
+from percivaltts_tpu.config import Configuration as JaxConfiguration
+from percivaltts_tpu_torch import cli
+from percivaltts_tpu_torch.config import Configuration
+from percivaltts_tpu_torch.data.compose import compose
+from percivaltts_tpu_torch.utils.fileio import save_binary_file
+
+
+def _main(*argv):
+    return cli.main(list(argv), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("demo_corpus"))
+    assert _main("demo", "--out", root, "--num", "12", "--seed", "7") == 0
+    return root
+
+
+def _write_cfg(corpus_root, workdir, **overrides):
+    """The e2e test's config: config 1's FC generator at width 32, LSE."""
+    with open(os.path.join(corpus_root, "config.json")) as f:
+        d = json.load(f)
+    d["workdir"] = workdir
+    d["data"].update(batch_size=2, bucket_bounds=[256], num_valid=2, num_test=2)
+    d["vocoder"].update(spec_size=33, nm_size=17)
+    d["model"].update(generator="fc", hidden_size=32, num_layers=2, compute_dtype="float32")
+    d["train"].update(trainer="lse", epochs=3, lr_gen=2e-3, checkpoint_every=1)
+    for k, v in overrides.items():
+        d[k].update(v)
+    path = os.path.join(workdir, "cfg.json")
+    os.makedirs(workdir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(d, f)
+    return path
+
+
+def _records(workdir, kind):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+
+def test_demo_corpus_files(corpus):
+    ids = open(os.path.join(corpus, "fileids.scp")).read().split()
+    assert len(ids) == 12
+    assert os.path.exists(os.path.join(corpus, "wav", ids[0] + ".wav"))
+    assert os.path.exists(os.path.join(corpus, "label_state_align", ids[0] + ".lab"))
+    assert os.path.exists(os.path.join(corpus, "questions.hed"))
+
+
+def test_compose_train_generate_measures(corpus, tmp_path):
+    workdir = str(tmp_path / "exp")
+    cfg_path = _write_cfg(corpus, workdir)
+
+    assert _main("compose", "--config", cfg_path) == 0
+    assert os.path.exists(os.path.join(workdir, "in_stats.npz"))
+    assert os.path.exists(os.path.join(workdir, "out_stats.npz"))
+    cache = os.path.join(workdir, "feature_cache")
+    assert len([f for f in os.listdir(cache) if f.endswith(".f32")]) == 24  # 12 × (lab + cmp)
+
+    assert _main("train", "--config", cfg_path) == 0
+    epochs = _records(workdir, "epoch")
+    assert len(epochs) == 3
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["valid"]) for m in epochs)
+    assert epochs[-1]["loss"] < epochs[0]["loss"]
+
+    assert _main("generate", "--config", cfg_path, "--save-features") == 0
+    with open(os.path.join(workdir, "measures.json")) as f:
+        measures = json.load(f)
+    assert np.isfinite(measures["mcd_db"]) and measures["mcd_db"] > 0
+    assert "f0_rmse_hz" in measures and np.isfinite(measures["f0_rmse_hz"])
+    assert "vuv_error_pct" in measures
+    assert all(np.isfinite(measures[k]) for k in ("gv_ratio", "ms_ratio_hi"))
+    gen_dir = os.path.join(workdir, "generated")
+    assert len([f for f in os.listdir(gen_dir) if f.endswith(".wav")]) == 2  # num_test
+    assert len([f for f in os.listdir(gen_dir) if f.endswith(".cmp")]) == 2
+
+    # measures on the saved predictions against the denormalized references
+    # gives generate's MCD
+    cfg = Configuration.load(cfg_path)
+    test = compose(cfg, cache_dir=cache, device="cpu")
+    ref_dir = str(tmp_path / "ref")
+    for uid, c in zip(test.test.ids, test.test.cmps):
+        save_binary_file(os.path.join(ref_dir, uid + ".cmp"), test.out_stats.denormalize(c))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert _main("measures", "--config", cfg_path, "--ref", ref_dir, "--pred", gen_dir) == 0
+    got = json.loads(out.getvalue())
+    assert got["files"] == 2
+    np.testing.assert_allclose(got["mcd_db"], measures["mcd_db"], rtol=1e-5)
+    # the same voicing decisions, averaged in f32 here and in f64 there
+    np.testing.assert_allclose(got["vuv_error_pct"], measures["vuv_error_pct"], rtol=1e-6)
+
+    # generate from the latest checkpoint, on the validation split, no wavs
+    assert _main("generate", "--config", cfg_path, "--latest", "--split", "valid", "--no-wav") == 0
+
+
+def test_production_preset_trains_on_the_device_corpus_and_resumes(corpus, tmp_path):
+    """``train --preset production`` with measures every epoch: the corpus
+    on the device, EMA 0.995, one ``objective`` record an epoch and MCD as
+    the best metric; ``--resume`` continues to the configured epochs."""
+    workdir = str(tmp_path / "prod")
+    cfg_path = _write_cfg(corpus, workdir, train={"epochs": 2, "measures_every": 1,
+                                                  "best_metric": "mcd"})
+    assert _main("train", "--config", cfg_path, "--preset", "production") == 0
+    used = Configuration.load(os.path.join(workdir, "config.json"))
+    assert used.train.device_corpus and used.train.ema_decay == 0.995
+    epochs = _records(workdir, "epoch")
+    # 8 training utterances: 4 steps of 2 an epoch, padded frames counted
+    assert [r["steps"] for r in epochs] == [4, 4]
+    assert [r["epoch"] for r in _records(workdir, "objective")] == [0, 1]
+
+    with open(cfg_path) as f:
+        d = json.load(f)
+    d["train"]["epochs"] = 3
+    with open(cfg_path, "w") as f:
+        json.dump(d, f)
+    assert _main("train", "--config", cfg_path, "--preset", "production", "--resume") == 0
+    assert [r["epoch"] for r in _records(workdir, "epoch")] == [0, 1, 2]
+    assert _main("generate", "--config", cfg_path, "--no-wav") == 0
+
+
+@pytest.mark.parametrize("train,vocoder", [
+    ({"trainer": "lse"}, {}),
+    ({"trainer": "wgan", "measures_every": 2}, {}),
+    ({"trainer": "wgan"}, {"vuv_pred_threshold": 0.5}),
+    ({"trainer": "lse"}, {"kind": "world"}),
+])
+def test_production_preset_equals_the_jax_overlay(train, vocoder):
+    d = Configuration().to_dict()
+    d["train"].update(train)
+    d["vocoder"].update(vocoder)
+    got = cli.apply_preset(Configuration.from_dict(d), "production")
+    want = jax_cli.apply_preset(JaxConfiguration.from_dict(d), "production")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(ValueError, match="unknown preset"):
+        cli.apply_preset(Configuration(), "fast")
+
+
+def test_unported_options_and_commands(corpus, tmp_path):
+    cfg_path = _write_cfg(corpus, str(tmp_path / "x"))
+    for flag in ("--mesh", "--distributed"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            _main("train", "--config", cfg_path, flag)
+    for cmd in ("export", "plot"):
+        with pytest.raises(SystemExit):
+            _main(cmd, "--config", cfg_path)

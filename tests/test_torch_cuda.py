@@ -830,3 +830,60 @@ def test_checkpoint_round_trips_on_the_card(cuda_device, tmp_path):
     _, m1 = step(state, *b)
     _, m2 = step(restored, *b)
     equal(m2, m1, "metrics")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_device_corpus_gathers_on_the_card(cuda_device, dtype):
+    """The corpus resident on the card equals the one built on the CPU bit
+    for bit (the bf16 cast happens on the host), and each gathered batch
+    equals the CPU gather; the index array is the only copy a step."""
+    from percivaltts_tpu_torch.data.dataset import Dataset
+    from percivaltts_tpu_torch.data.device_corpus import DeviceCorpus, gather_batch
+
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(20, 140, size=37)
+    ds = Dataset([rng.normal(size=(n, 13)).astype(np.float32) for n in lengths],
+                 [rng.normal(size=(n, 27)).astype(np.float32) for n in lengths])
+    card = DeviceCorpus(ds, bound=128, dtype=dtype, device=cuda_device)
+    host = DeviceCorpus(ds, bound=128, dtype=dtype, device="cpu")
+    for k in card.data:
+        assert card.data[k].device.type == "cuda" and torch.equal(card.data[k].cpu(), host.data[k])
+    for idx in card.epoch_indices(4, 6, epoch=1, seed=2, num_steps=3):
+        got = gather_batch(card.data, card.shard_indices(idx))
+        want = gather_batch(host.data, host.shard_indices(idx))
+        for k in got:
+            assert got[k].shape == (6, 4, 128) + want[k].shape[3:]
+            assert torch.equal(got[k].cpu(), want[k]), k
+        assert got["mask"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_compose_through_the_kernels_equals_the_twins(cuda_device, tmp_path, monkeypatch):
+    """Compose of a 10-utterance demo corpus at the default vocoder (99
+    features) on the card: the framing kernel launches, and the composed
+    features and stats equal, bit for bit, a compose of the same wavs with
+    every framing and overlap-add on the twins."""
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.data.compose import compose
+    from percivaltts_tpu_torch.data.demo import generate_demo_corpus
+    from percivaltts_tpu_torch.ops import frames_cuda as fc
+
+    root = str(tmp_path / "demo")
+    generate_demo_corpus(root, num_utterances=10, seed=4)
+    d = Configuration(workdir=str(tmp_path / "exp")).to_dict()
+    d["data"].update(corpus_dir=root, fileids=f"{root}/fileids.scp",
+                     question_file=f"{root}/questions.hed", num_valid=2, num_test=2)
+    cfg = Configuration.from_dict(d)
+    fc.frame_window.launches = 0
+    got = compose(cfg, device=cuda_device)
+    assert fc.frame_window.launches > 0 and got.train.feat_dim == 99
+    monkeypatch.setattr(fc, "frame_window", fc.frame_window_reference)
+    monkeypatch.setattr(fc, "overlap_add", fc.overlap_add_reference)
+    want = compose(cfg, device=cuda_device)
+    for name in ("in_stats", "out_stats"):
+        assert np.array_equal(getattr(got, name).shift, getattr(want, name).shift)
+        assert np.array_equal(getattr(got, name).scale, getattr(want, name).scale)
+    for split in ("train", "valid", "test"):
+        for a, b in zip(getattr(got, split).cmps, getattr(want, split).cmps):
+            assert np.array_equal(a, b)

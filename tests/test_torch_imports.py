@@ -64,8 +64,12 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.config",
         "percivaltts_tpu_torch.data.compose",
         "percivaltts_tpu_torch.data.dataset",
+        "percivaltts_tpu_torch.data.demo",
+        "percivaltts_tpu_torch.data.device_corpus",
         "percivaltts_tpu_torch.data.hts_labels",
         "percivaltts_tpu_torch.data.normalize",
+        "percivaltts_tpu_torch.eval.generate",
+        "percivaltts_tpu_torch.eval.measures",
         "percivaltts_tpu_torch.eval.serve",
         "percivaltts_tpu_torch.models.critic",
         "percivaltts_tpu_torch.models.generators",
@@ -249,3 +253,21 @@ def test_dataset_and_prefetch_copies_agree_with_the_originals():
         for k in a:
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_demo_copy_is_the_original_but_its_imports_and_docstring():
+    """``data/demo.py`` is copied whole: past its module docstring, its
+    source differs from the original's only where the original imports the
+    JAX package (``tests/test_torch_demo_compose.py`` holds its output
+    byte for byte)."""
+    def body(path):
+        with open(os.path.join(REPO, path)) as f:
+            src = f.read()
+        return src[src.index('"""', 3) + 3:].splitlines()
+
+    mine, theirs = body("percivaltts_tpu_torch/data/demo.py"), body("percivaltts_tpu/data/demo.py")
+    assert len(mine) == len(theirs)
+    differ = [(a, b) for a, b in zip(mine, theirs) if a != b]
+    assert len(differ) == 2
+    for a, b in differ:
+        assert a == b.replace("percivaltts_tpu.", "percivaltts_tpu_torch.")

@@ -10,8 +10,8 @@ Tiny widths (``__graft_entry__._tiny_cfg``, f32 compute), on the CPU:
   on the same raw data, normalized on the device, epoch by epoch;
 * resume: 2 epochs in one run equal, bit for bit, 1 epoch, a fresh
   ``Trainer``, ``resume()`` and 1 more;
-* what is not ported yet raises ``NotImplementedError`` naming its
-  ROADMAP item.
+* what is not ported yet (a mesh, a corpus sharded over one) raises
+  ``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
@@ -314,16 +314,18 @@ def test_unported_options_raise_naming_their_roadmap_item(tmp_path):
     ds = Dataset(*_corpus(4, seed=6))
     stats = NormStats(**OUT_STATS)
     cases = [
-        (dict(cfg=cfg.replace(train=dataclasses.replace(cfg.train, device_corpus=True))),
-         "item 3"),
+        (dict(cfg=cfg.replace(train=dataclasses.replace(cfg.train, device_corpus=True,
+                                                        shard_corpus=True))), "item 7"),
         (dict(cfg=cfg, mesh=object()), "item 7"),
-        (dict(cfg=cfg.replace(train=dataclasses.replace(cfg.train, measures_every=1)),
-              measures_stats=stats), "item 4"),
     ]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             Trainer(train_ds=ds, device="cpu", **kw)
+    # a measure-driven best checkpoint needs the measures and their stats
     for metric in ("mcd", "mcd_gv"):
         bad = cfg.replace(train=dataclasses.replace(cfg.train, best_metric=metric))
         with pytest.raises(ValueError, match="measures_every"):
+            Trainer(bad, ds, ds, device="cpu", measures_stats=stats)
+        bad = bad.replace(train=dataclasses.replace(bad.train, measures_every=1))
+        with pytest.raises(ValueError, match="measures_stats"):
             Trainer(bad, ds, ds, device="cpu")

@@ -59,6 +59,8 @@ def _pair(model_cfg, voc, label_dim, x, seed=0):
         # direction, readout; JAX on its scan path (f32 carries, as here)
         ("blstm", "pml", {"blstm_size": 32}),
         ("bgru", "world", {"blstm_size": 32}),
+        # config 1's FC generator (dense_0 … dense_{n-1}, out), 3 layers
+        ("fc", "pml", {"num_layers": 3}),
     ],
 )
 def test_generator_matches_jax(kind, vocoder, model_kw):
@@ -82,6 +84,42 @@ def test_bf16_generator_returns_float32_in_stream_order():
     # same seed, same weights: bf16 stays near f32 column by column, so the
     # f0 | spec | nm streams sit where the f32 run puts them
     assert (y - y32).abs().max().item() < 0.1
+
+
+def test_fc_generator_bf16_matches_flax():
+    """Config 1's numerics at a tiny width: bf16 compute with f32 params,
+    weights carried from flax. Each Dense rounds its product and its bias
+    sum to bf16 (ulp 2^-8 relative) and the two frameworks may round a sum
+    either way, so a one-ulp flip in a hidden unit reaches the output
+    through the next layers. Tolerance 0.03 absolute on outputs of
+    magnitude ~1 (a few bf16 ulps); the f32 run above agrees to 1e-4.
+    Seen on the CPU: 0 (both round each product and sum alike)."""
+    model_cfg, voc, L = _cfg("fc", num_layers=3)
+    model_cfg = dataclasses.replace(model_cfg, compute_dtype="bfloat16")
+    x = np.random.default_rng(5).normal(size=(2, 70, L)).astype(np.float32)
+    want, got, _ = _pair(model_cfg, voc, L, x)
+    assert got.dtype == np.float32 and got.shape == (2, 70, voc.feature_size)
+    err = np.abs(got - want).max()
+    print(f"FC bf16, port vs flax: max |diff| {err:.3g} (max |flax| {np.abs(want).max():.3g})")
+    assert err <= 0.03
+
+
+def test_config1_fc_generator_shape():
+    """Config 1 at full width (3 × 256 tanh layers, 99 features): the flax
+    tree's names and shapes map onto the port's FC generator one for one."""
+    model_cfg, voc, L = ModelConfig(generator="fc"), VocoderConfig(), 425
+    shapes = jax.eval_shape(
+        jax_build_generator(model_cfg, voc, L).init,
+        jax.random.key(0),
+        jax.ShapeDtypeStruct((1, 64, L), jnp.float32),
+    )
+    flat = weights.flatten(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes))
+    assert sorted(flat) == ["dense_0/bias", "dense_0/kernel", "dense_1/bias", "dense_1/kernel",
+                            "dense_2/bias", "dense_2/kernel", "out/bias", "out/kernel"]
+    tg = build_generator(model_cfg, voc, L)
+    weights.load_flax_params(tg, flat)
+    n = 425 * 256 + 256 + 2 * (256 * 256 + 256) + 256 * 99 + 99
+    assert count_params(tg) == jax_count_params(shapes) == n
 
 
 def test_gelu_is_flax_tanh_approximation():
@@ -182,7 +220,7 @@ def test_init_follows_flax_rules_and_seed():
 @pytest.mark.parametrize(
     "model_kw",
     [
-        {"generator": "fc"},
+        {"generator": "fc", "gen_norm": "layer"},
         {"generator": "cnn", "conv_style": "2d"},
         {"generator": "cnn_blstm", "gen_norm": "layer"},
     ],

@@ -207,6 +207,30 @@ def test_lse_step_and_eval_match_jax(jstate):
     _compare_update(state.gen, state.gen_opt, jnew.gen, cfg.train.adam_b1)
 
 
+def test_fc_lse_step_matches_jax():
+    """Config 1's trainer at a tiny width: the FC generator (2 × 32 tanh
+    layers) and one LSE step with an EMA, from the same weights, at the
+    tolerances above."""
+    cfg = _cfg(ema_decay=0.5)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, generator="fc", num_layers=2),
+                      train=dataclasses.replace(cfg.train, trainer="lse"))
+    L, F = cfg.data.label_dim, cfg.vocoder.feature_size
+    js = jax.jit(lambda: jax_make_gan_state(cfg, L, seed=6))()
+    state = _port_state(cfg, js, L)
+    assert state.critic is None and sorted(dict(state.gen.named_children())) == [
+        "dense_0", "dense_1", "out"]
+    for (name, _), e in zip(state.gen.named_parameters(), _as_port_layout(state.gen, js.ema)):
+        state.ema[name] = torch.from_numpy(e)
+    batch = _batch(np.random.default_rng(3), L, F)
+    jnew, jm = _jax_lse_step(js, jax.tree.map(jnp.asarray, batch))
+    state, m = lse_step(state, _to_t(batch), ema_decay=0.5)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-4, err_msg=k)
+    _compare_update(state.gen, state.gen_opt, jnew.gen, cfg.train.adam_b1)
+    for (name, _), want in zip(state.gen.named_parameters(), _as_port_layout(state.gen, jnew.ema)):
+        np.testing.assert_allclose(state.ema[name].numpy(), want, atol=1e-6, err_msg=name)
+
+
 def test_adam_state_from_a_trained_jax_state_continues_like_for_like(jstate):
     """Two JAX LSE steps; the port loads the state after the first (weights,
     optax moments at count 1, EMA) and takes the second."""
