@@ -101,7 +101,25 @@ which raises on failure (the script exits 0 only when all passed):
    chunk. Prints the demo, compose, epoch, measure-validation and
    generate wall times, real frames a second, the generate real-time
    factor, and each profiled device-corpus epoch's busy share with its
-   host→device copies by size.
+   host→device copies by size;
+9. the remaining vocoders (on phase 8's demo corpus, removed after):
+   9a. config 4 (``bench.py:94-96``): phase 4's 8 requests served by the
+   ``cnn`` generator with 80 mel outputs, vocoded by Griffin-Lim
+   (``VocoderConfig(kind="melspec")``, 64 iterations, 2 chunks of 4):
+   128 framing and 260 overlap-add launches, the same vocode through the
+   twins within 1e-4 of the largest sample, its median wall, real-time
+   factor and busy share; phase 8's demo wavs analyzed, equal to the
+   twins' analysis bit for bit;
+   9b. WORLD at ``VocoderConfig(kind="world")`` (65 + 33 bands, closed
+   loop, 2 passes): the demo wavs analyzed against the twins, 8 of them
+   copy-synthesized (14 framings, 12 overlap-adds) against the twins, timed
+   and profiled;
+   9c. both through the CLI: ``compose`` (equal to a compose through the
+   twins), ``train --preset production`` (config 4: WGAN-GP, 1 epoch of 2
+   steps, best on ``mcd_gv`` without F0; WORLD: config 1's FC generator,
+   LSE, 2 epochs, the preset's bap voicing rule), ``generate --split test
+   --save-features`` (equal to a generation through the twins) and
+   ``measures`` (generate's MCD within 1e-5).
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path and read just after it; launches made to compare a kernel with its twin are not
@@ -179,23 +197,29 @@ AUTOGRAD_SHAPE = (512, 32, 128)
 # package's test shapes (tests/test_pallas.py), then the edges: fl not a
 # multiple of 8 (777, 804 with odd n: rows off 16-byte alignment), nf not a
 # multiple of the 8-frame tile, B·nf past 65,535, fl < hop, n < fl/2, and
-# a frame too wide for one block (column slices)
+# a frame too wide for one block (column slices); then Griffin-Lim's framing
+# at B = 4, 1 and 8.
+# Griffin-Lim's framing: a 4-utterance chunk of 1536 frames, fl 400 (25 ms), windowed
+GL_FRAME = (4, 122880, 400, 80, True)
 FRAME_SHAPES = [(4, 122880, 804, 80, False), (4, 122880, 800, 80, False),
                 (1, 122880, 160, 80, True), (4, 122880, 160, 80, False),
                 (2, 777, 320, 64, True), (2, 1000, 400, 80, False),
                 (2, 3001, 777, 100, True), (3, 1001, 804, 80, False), (2, 1041, 160, 80, True),
                 (43, 122880, 160, 80, False), (2, 1000, 48, 80, True), (1, 5, 160, 80, True),
-                (1, 50000, 20000, 4000, True)]
+                (1, 50000, 20000, 4000, True), GL_FRAME, (1, 122880, 400, 80, True),
+                (8, 16000, 400, 80, True)]
 # overlap-add (B, nf, frame length, hop): the noise iSTFT and its window²
 # normaliser at 1536 frames, then the test shapes, then the edges: vectors
 # that cross hop blocks (777 / 100), rows off 16-byte alignment (hop 63),
 # B·nf past 65,535, fl < hop, one frame
 OLA_SHAPES = [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64), (2, 257, 400, 80),
               (2, 37, 777, 100), (3, 41, 126, 63), (43, 1536, 160, 80), (2, 20, 48, 80),
-              (1, 1, 160, 80)]
+              (1, 1, 160, 80), (4, 1536, 400, 80), (1, 1536, 400, 80), (8, 200, 400, 80)]
 # timed overlap-adds: the two above, and the normaliser as the iSTFT runs
-# it, a stride-0 broadcast of one window² row (read once: its bound counts fl)
-OLA_TIMED = OLA_SHAPES[:2] + [(1, 1536, 160, 80, "stride 0")]
+# it, a stride-0 broadcast of one window² row (read once: its bound counts
+# fl); then Griffin-Lim's iSTFT at fl 400 and its normaliser
+OLA_TIMED = OLA_SHAPES[:2] + [(1, 1536, 160, 80, "stride 0"), (4, 1536, 400, 80),
+                              (1, 1536, 400, 80, "stride 0")]
 # framing is one copy and at most one multiply, rounded once; overlap-add
 # sums in the twin's order with the twin's rounding: both bit for bit
 # the vocode through the kernels against the same vocode through the twins
@@ -251,6 +275,17 @@ QS_MCD_TOL = 1e-5
 # a copy larger than this in a profiled device-corpus epoch would be a batch
 # (one config-1 batch's labels alone are ~3 MB); the index arrays are bytes
 QS_MAX_STEP_COPY = 64 * 1024
+
+# phase 9, the remaining vocoders: config 4's mel-spectrogram target
+# (bench.py:94-96) and WORLD, on phase 4's requests and phase 8's corpus.
+# Griffin-Lim frames once and overlap-adds twice (the frames and the window²
+# normaliser) an iteration, and renders once more: 2 chunks x (64, 130).
+# WORLD's copy-synthesis makes PML's launches: 2 chunks x (7, 6).
+MEL_LAUNCHES = {"frame_window": 128, "overlap_add": 260}
+WORLD_LAUNCHES = {"frame_window": 14, "overlap_add": 12}
+WORLD_COPY_UTTS = 8
+CLI9_WGAN_STEPS = 2  # config 4 trains 1 epoch of 2 WGAN-GP steps
+CLI9_WORLD_EPOCHS = 2  # WORLD trains config 1's FC generator 2 LSE epochs
 
 
 def _kernels() -> dict:
@@ -1503,8 +1538,10 @@ def _check_dsp_kernels(dev) -> dict:
         # strided frames, read in place: the iSTFT's window² normaliser (a
         # stride-0 broadcast row) and frames cut from a wider buffer
         w = hann_window(160, device=dev).to(dtype)
+        w400 = hann_window(400, device=dev).to(dtype)
         g = torch.Generator(device=dev).manual_seed(11)
         views = {"stride-0 normaliser row": (w * w).expand(1, 1536, 160),
+                 "stride-0 normaliser row, fl 400": (w400 * w400).expand(1, 1536, 400),
                  "frames cut from (3, 60, 330)":
                      torch.randn(3, 60, 330, generator=g, device=dev).to(dtype)[:, 3:50, 4:164]}
         for label, view in views.items():
@@ -1548,22 +1585,22 @@ class _DspTwins:
         fc.frame_window, fc.overlap_add = self.saved
 
 
-def _vocode_path(dev, feats) -> dict:
-    """Phase 4b and the vocode timing of phase 6: config 3's served features
-    through the default PML vocoder on the card."""
-    from percivaltts_tpu_torch import VocoderConfig
-    from percivaltts_tpu_torch.vocoders import get_vocoder
-
-    voc = get_vocoder(VocoderConfig(), device=dev)
+def _vocode_run(label: str, voc, feats, want_counts: dict) -> dict:
+    """``voc.synthesize_batch(feats)`` on the card: the launches (counted
+    from 0) equal to ``want_counts``, finite waveforms of nf·hop samples,
+    agreement with the same vocode through the DSP kernels' twins within
+    ``VOCODE_TOL`` of the twins' largest sample, the median wall of
+    ``N_TIMED_VOCODES`` vocodes and one profiled vocode."""
     hop, fs = voc.cfg.shift_samples, voc.cfg.fs
     _zero_counts()
     wavs = voc.synthesize_batch(feats)
     counts = _counts()
-    print(f"[vocode] {len(feats)} utterances ({sum(f.shape[0] for f in feats)} frames), "
-          f"closed_loop={voc.cfg.closed_loop}; launches {counts}")
-    want = {name: VOCODE_LAUNCHES.get(name, 0) for name in counts}
+    how = "Griffin-Lim" if voc.kind == "melspec" else f"closed_loop={voc.cfg.closed_loop}"
+    print(f"[{label}] {len(feats)} utterances ({sum(f.shape[0] for f in feats)} frames), "
+          f"{voc.kind}, {how}; launches {counts}")
+    want = {name: want_counts.get(name, 0) for name in counts}
     if counts != want:
-        raise AssertionError(f"the vocode launched {counts}, not {want}")
+        raise AssertionError(f"the {label} launched {counts}, not {want}")
     for f, w in zip(feats, wavs):
         if w.shape != (f.shape[0] * hop,) or w.dtype != np.float32 or not np.isfinite(w).all():
             raise AssertionError(f"bad waveform for {f.shape[0]} frames: {w.shape} {w.dtype}")
@@ -1571,11 +1608,11 @@ def _vocode_path(dev, feats) -> dict:
         plain = voc.synthesize_batch(feats)
     err = max(np.abs(a - b).max() for a, b in zip(wavs, plain))
     scale = max(np.abs(b).max() for b in plain)
-    print(f"[vocode] max|kernels-twins| over all samples = {err:.3g} (tol {VOCODE_TOL * scale:.3g}; "
+    print(f"[{label}] max|kernels-twins| over all samples = {err:.3g} (tol {VOCODE_TOL * scale:.3g}; "
           f"max|twins| {scale:.3g}); rms of the waveforms "
           + ", ".join(f"{np.sqrt(np.mean(w ** 2)):.3g}" for w in wavs))
     if not err <= VOCODE_TOL * scale:
-        raise AssertionError("the vocode through the kernels disagrees with the twins'")
+        raise AssertionError(f"the {label} through the kernels disagrees with the twins'")
 
     audio_s = sum(len(w) for w in wavs) / fs
     lat = []
@@ -1586,15 +1623,233 @@ def _vocode_path(dev, feats) -> dict:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     med = statistics.median(lat)
-    print(f"[time] vocode of {audio_s:.2f} s of audio: median {med * 1e3:.3f} ms (min "
+    print(f"[time] {label} of {audio_s:.2f} s of audio: median {med * 1e3:.3f} ms (min "
           f"{min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}, {N_TIMED_VOCODES} runs), real-time "
           f"factor {med / audio_s:.4f}, {audio_s / med:.1f} s of audio per s")
-    print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    print(f"[time] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    busy_share, dsp_ms = _profiled("vocode", lambda: voc.synthesize_batch(feats),
+    busy_share, dsp_ms = _profiled(label, lambda: voc.synthesize_batch(feats),
                                    ("frame_window", "overlap_add"))
     return {"counts": counts, "vocode_ms": med * 1e3, "audio_s": audio_s,
             "busy_share": busy_share, "dsp_device_ms": dsp_ms, "err": float(err)}
+
+
+def _vocode_path(dev, feats) -> dict:
+    """Phase 4b and the vocode timing of phase 6: config 3's served features
+    through the default PML vocoder on the card."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    return _vocode_run("vocode", get_vocoder(VocoderConfig(), device=dev), feats, VOCODE_LAUNCHES)
+
+
+def _demo_wavs(qs: dict) -> list:
+    """Phase 8's demo waveforms, in file-id order."""
+    import os
+
+    from percivaltts_tpu_torch.data.compose import load_wav
+
+    corpus_dir = qs["cfg"]["data"]["corpus_dir"]
+    ids = open(qs["cfg"]["data"]["fileids"]).read().split()
+    return [load_wav(os.path.join(corpus_dir, "wav", u + ".wav"))[1] for u in ids]
+
+
+def _analysis_run(label: str, voc, wavs) -> dict:
+    """``voc.analyze_batch`` over ``wavs`` in compose's chunks of 8 on the
+    card (the framing kernel launched), equal, bit for bit, to the same
+    analysis through the twins."""
+    from percivaltts_tpu_torch.data.compose import ANALYSIS_CHUNK
+
+    def run():
+        return [f for k in range(0, len(wavs), ANALYSIS_CHUNK)
+                for f in voc.analyze_batch(wavs[k:k + ANALYSIS_CHUNK])]
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    with _DspTwins():
+        plain = run()
+    unequal = [i for i, (a, b) in enumerate(zip(feats, plain)) if not np.array_equal(a, b)]
+    audio_s = sum(len(w) for w in wavs) / voc.cfg.fs
+    print(f"[{label}] analyze_batch of {len(wavs)} demo wavs ({audio_s:.2f} s of audio) in "
+          f"{wall:.3f} s, {audio_s / wall:.1f} s of audio per s; {feats[0].shape[1]} features; "
+          f"launches {counts}; kernels vs twins unequal {unequal}")
+    if counts["frame_window"] == 0 or unequal or not all(np.isfinite(f).all() for f in feats):
+        raise AssertionError(f"{label}: the analysis did not frame through the kernel, or "
+                             "disagrees with the twins', or is not finite")
+    return {"counts": counts, "feats": feats, "wall_s": wall, "audio_s": audio_s}
+
+
+def _mel_path(dev, qs: dict) -> dict:
+    """Phase 9a: config 4 at full width (``bench.py:94-96``): phase 4's 8
+    requests served by the ``cnn`` generator with 80 mel outputs, vocoded
+    by Griffin-Lim (64 iterations, 2 chunks of 4) against the twins; then
+    phase 8's demo wavs analyzed against the twins."""
+    from percivaltts_tpu_torch import ModelConfig, VocoderConfig
+    from percivaltts_tpu_torch.eval.serve import serve
+    from percivaltts_tpu_torch.models import build_generator, count_params
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    vcfg = VocoderConfig(kind="melspec", mel_size=80)
+    gen = build_generator(ModelConfig(generator="cnn"), vcfg, LABEL_DIM,
+                          generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    labs, in_stats, out_stats = _requests(vcfg.feature_size)
+    feats = serve(gen, labs, in_stats, out_stats)
+    print(f"[serve cnn, melspec] config 4's generator, {count_params(gen):,} parameters; "
+          f"{len(feats)} requests served")
+    for n, f in zip(REQUEST_LENGTHS, feats):
+        if f.shape != (n, 80) or not np.isfinite(f).all():
+            raise AssertionError(f"bad mel features for a {n}-frame request: {f.shape}")
+    voc = get_vocoder(vcfg, device=dev)
+    out = _vocode_run("vocode melspec", voc, feats, MEL_LAUNCHES)
+    out["analysis"] = _analysis_run("analyze melspec", voc, _demo_wavs(qs))
+    return out
+
+
+def _world_path(dev, qs: dict) -> dict:
+    """Phase 9b: WORLD at ``VocoderConfig(kind="world")`` (65 + 33 bands,
+    closed loop, 2 passes, the d4c_gd bap): phase 8's demo wavs analyzed
+    against the twins, and the first ``WORLD_COPY_UTTS`` of them
+    copy-synthesized (2 chunks of 4) against the twins."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    voc = get_vocoder(VocoderConfig(kind="world"), device=dev)
+    ana = _analysis_run("analyze world", voc, _demo_wavs(qs))
+    out = _vocode_run("vocode world", voc, ana["feats"][:WORLD_COPY_UTTS], WORLD_LAUNCHES)
+    out["analysis"] = ana
+    return out
+
+
+def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
+    """Phase 9c for one vocoder on phase 8's demo corpus through the CLI:
+    ``compose`` (the features equal a compose through the twins), ``train
+    --preset production``, ``generate --split test --save-features`` (the
+    wavs equal a generation through the twins) and ``measures`` (generate's
+    MCD within ``QS_MCD_TOL``). ``"melspec"``: config 4 (the ``cnn``
+    generator, WGAN-GP, 1 epoch of ``CLI9_WGAN_STEPS`` steps, best on
+    ``mcd_gv`` without F0). ``"world"``: config 1's FC generator, LSE,
+    ``CLI9_WORLD_EPOCHS`` epochs (the preset switches ``vuv_rule`` to
+    ``bap``). Returns the launch counts of each command and the walls."""
+    import contextlib
+    import io
+    import os
+
+    from percivaltts_tpu_torch import cli
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.data.compose import compose, load_wav
+    from percivaltts_tpu_torch.eval.generate import generate
+    from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
+    from percivaltts_tpu_torch.training.state import make_gan_state
+    from percivaltts_tpu_torch.utils.fileio import load_binary_file, save_binary_file
+
+    defaults = Configuration().to_dict()
+    d = json.loads(json.dumps(qs["cfg"]))
+    d["workdir"] = workdir = os.path.join(qs["root"], f"exp_{kind}")
+    if kind == "melspec":
+        d["vocoder"] = dict(defaults["vocoder"], kind="melspec", mel_size=80)
+        d["model"] = dict(defaults["model"], generator="cnn")
+        d["train"] = dict(defaults["train"], trainer="wgan", epochs=1,
+                          steps_per_epoch=CLI9_WGAN_STEPS, measures_every=1, checkpoint_every=1)
+        epochs = 1
+    else:
+        d["vocoder"] = dict(defaults["vocoder"], kind="world")
+        d["train"].update(epochs=CLI9_WORLD_EPOCHS, profile_steps=0)
+        epochs = CLI9_WORLD_EPOCHS
+    cfg_path = _write_config(os.path.join(qs["root"], f"config_{kind}.json"), d)
+    cfg = Configuration.load(cfg_path)
+    main = lambda *argv: cli.main(list(argv), device=dev)  # noqa: E731
+    out, counts = {}, {}
+
+    def timed(name, *argv):
+        _zero_counts()
+        t = time.perf_counter()
+        if main(*argv) != 0:
+            raise AssertionError(f"cli {argv[0]} ({kind}) failed")
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t
+        counts[name] = _counts()
+
+    timed("compose", "compose", "--config", cfg_path)
+    cache = os.path.join(workdir, "feature_cache")
+    corpus = compose(cfg, cache_dir=cache, device=dev)
+    F = corpus.train.feat_dim
+    with _DspTwins():
+        plain = compose(cfg, normalize=False, device=dev)
+    unequal = [u for split in (plain.train, plain.valid, plain.test)
+               for u, c in zip(split.ids, split.cmps)
+               if not np.array_equal(load_binary_file(os.path.join(cache, u + ".cmp.f32"), F), c)]
+    print(f"[cli {kind}] ({card}) compose in {out['compose_s']:.2f} s, "
+          f"{qs['audio_s'] / out['compose_s']:.1f} s of audio per s, {F} features; launches "
+          f"{counts['compose']}; through the kernels vs the twins unequal {unequal}")
+    if counts["compose"]["frame_window"] == 0 or F != cfg.vocoder.feature_size or unequal:
+        raise AssertionError(f"{kind} compose: no framing launch, {F} features, or unequal "
+                             "to the twins'")
+
+    timed("train", "train", "--config", cfg_path, "--preset", "production")
+    used = Configuration.load(os.path.join(workdir, "config.json"))
+    records, objective = _records(workdir, "epoch"), _records(workdir, "objective")
+    for r, o in zip(records, objective):
+        print(f"[cli {kind}] ({card}) epoch {r['epoch']}: {r['steps']} steps, loss "
+              f"{r['loss']:.6g}, valid {r['valid']:.6g}, wall {r['sec']:.3f} s; objective mcd "
+              f"{o['mcd_db']:.4f} dB, gv {o['gv_ratio']:.4f}, f0 rmse {o.get('f0_rmse_hz')}, "
+              f"vuv {o.get('vuv_error_pct')}")
+    print(f"[cli {kind}] train {out['train_s']:.2f} s, best_metric {used.train.best_metric}, "
+          f"vuv_rule {used.vocoder.vuv_rule}; launches {counts['train']}")
+    if (len(records) != epochs or len(objective) != epochs
+            or not all(_finite(r) for r in records + objective)):
+        raise AssertionError(f"{kind} training records: {records} {objective}")
+    if kind == "melspec" and (used.train.best_metric != "mcd_gv" or "f0_rmse_hz" in objective[0]):
+        raise AssertionError(f"config 4 selected on {used.train.best_metric}, {objective[0]}")
+    if kind == "world" and used.vocoder.vuv_rule != "bap":
+        raise AssertionError("the production preset left WORLD's vuv_rule at "
+                             f"{used.vocoder.vuv_rule!r}")
+
+    timed("generate", "generate", "--config", cfg_path, "--split", "test", "--save-features")
+    with open(os.path.join(workdir, "measures.json")) as f:
+        measures = json.load(f)
+    gen_dir = os.path.join(workdir, "generated")
+    wavs = {u: load_wav(os.path.join(gen_dir, u + ".wav"))[1] for u in corpus.test.ids}
+    gen_audio = sum(len(w) for w in wavs.values()) / cfg.vocoder.fs
+    print(f"[cli {kind}] ({card}) generate of {len(wavs)} utterances ({gen_audio:.2f} s of "
+          f"audio) in {out['generate_s']:.3f} s, real-time factor "
+          f"{out['generate_s'] / gen_audio:.4f}; measures {measures}; launches "
+          f"{counts['generate']}")
+    keys = ("mcd_db", "gv_ratio", "ms_ratio_hi") + (("vuv_error_pct",) if kind == "world" else ())
+    if not all(math.isfinite(measures.get(k, float("nan"))) for k in keys):
+        raise AssertionError(f"non-finite measures: {measures}")
+    if not (counts["generate"]["frame_window"] and counts["generate"]["overlap_add"]):
+        raise AssertionError(f"{kind} generate did not launch both DSP kernels")
+    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    state = ckpt.restore(make_gan_state(cfg, corpus.train.label_dim, device=dev), ckpt.best_step())
+    twin_dir = os.path.join(qs["root"], f"generated_twins_{kind}")
+    with _DspTwins():
+        generate(cfg, state, corpus.test, corpus.out_stats, outdir=twin_dir)
+    unequal = [u for u in wavs
+               if not np.array_equal(load_wav(os.path.join(twin_dir, u + ".wav"))[1], wavs[u])]
+    print(f"[cli {kind}] generate through the kernels vs the twins: wavs unequal {unequal}")
+    if unequal:
+        raise AssertionError(f"{kind} generation through the kernels disagrees with the twins'")
+
+    ref_dir = os.path.join(qs["root"], f"ref_{kind}")
+    for u, c in zip(corpus.test.ids, corpus.test.cmps):
+        save_binary_file(os.path.join(ref_dir, u + ".cmp"), corpus.out_stats.denormalize(c))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        if main("measures", "--config", cfg_path, "--ref", ref_dir, "--pred", gen_dir) != 0:
+            raise AssertionError(f"cli measures ({kind}) failed")
+    got = json.loads(text.getvalue())
+    diff = abs(got["mcd_db"] - measures["mcd_db"])
+    print(f"[cli {kind}] cli measures: {got}; |mcd - generate's| {diff:.3g} "
+          f"(tol {QS_MCD_TOL * measures['mcd_db']:.3g})")
+    if got["files"] != len(wavs) or not diff <= QS_MCD_TOL * measures["mcd_db"]:
+        raise AssertionError(f"cli measures ({kind}) disagrees with generate's MCD")
+    out.update(counts=counts, records=records, measures=measures, gen_audio_s=gen_audio)
+    return out
 
 
 def _dsp_bound(name: str, shape) -> tuple:
@@ -1680,7 +1935,7 @@ def _time_dsp_kernels(dev) -> dict:
     print(f"[time] launch floor: a one-element fill_ takes {floor_ms} device ms (torch.profiler, "
           "mean of 50)")
     out = {"frame_window": [], "overlap_add": []}
-    for name, shapes in (("frame_window", FRAME_SHAPES[:3]), ("overlap_add", OLA_TIMED)):
+    for name, shapes in (("frame_window", FRAME_SHAPES[:3] + [GL_FRAME]), ("overlap_add", OLA_TIMED)):
         for shape in shapes:
             g = torch.Generator(device=dev).manual_seed(5)
             if name == "frame_window":
@@ -1803,6 +2058,16 @@ def main() -> int:
     for name, by_route in qs3["routes"].items():
         for route, n in by_route.items():
             routes[name][route] += n
+
+    # 9. the remaining vocoders: config 4's mel-spectrogram target, WORLD, and
+    # both through the CLI on phase 8's corpus
+    mel, world = _mel_path(dev, qs), _world_path(dev, qs)
+    for kind, run in (("melspec", mel), ("world", world)):
+        paths[f"vocode_{kind}"] = run["counts"]
+        paths[f"analyze_{kind}"] = run["analysis"]["counts"]
+    cli9 = {kind: _cli_vocoder_path(dev, smi, qs, kind) for kind in ("melspec", "world")}
+    for kind, run in cli9.items():
+        paths.update({f"cli_{kind}_{cmd}": c for cmd, c in run["counts"].items()})
     shutil.rmtree(qs["root"], ignore_errors=True)
 
     sources = {
@@ -1869,6 +2134,17 @@ def main() -> int:
           f"test mcd {qs['measures']['mcd_db']:.4f} dB; profiled device-corpus epochs' busy share "
           f"config 1 {qs['busy']}, config 3 {qs3['busy']}; config 3 epoch "
           f"{qs3['record']['sec']:.3f} s")
+    for kind, run in (("melspec", mel), ("world", world)):
+        print(f"[summary] vocode_{kind} ({smi}): {run['audio_s']:.2f} s of audio in a median "
+              f"{run['vocode_ms']:.3f} ms (real-time factor {run['vocode_ms'] / 1e3 / run['audio_s']:.4f}), "
+              f"device busy share {run['busy_share']}, framing and overlap-add device time "
+              f"{run['dsp_device_ms']} ms a vocode, launches {run['counts']}; analysis of the demo "
+              f"wavs {run['analysis']['wall_s']:.3f} s")
+    for kind, run in cli9.items():
+        print(f"[summary] cli {kind} ({smi}): compose {run['compose_s']:.2f} s, train "
+              f"{run['train_s']:.2f} s (epochs " + ", ".join(f"{r['sec']:.3f} s" for r in run["records"])
+              + f"), generate {run['generate_s']:.3f} s (real-time factor "
+              f"{run['generate_s'] / run['gen_audio_s']:.4f}), test measures {run['measures']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

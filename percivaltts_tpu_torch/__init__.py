@@ -6,7 +6,8 @@ weights and inputs (``tests/test_torch_*.py``).
 
 Ported so far: serving (raw HTS label frames → normalized → the FC,
 CNN(+BLSTM), BLSTM or BGRU generator → denormalized vocoder features →
-the PML vocoder → a waveform; ``eval/serve.py``, ``vocoders/``,
+the PML or WORLD vocoder, or Griffin-Lim from the mel-spectrogram target →
+a waveform; ``eval/serve.py``, ``vocoders/``,
 ``cli.py synth``, from a run's best checkpoint), training (the fused
 WGAN-GP step with the conditional critic, the LSE step, and the
 ``Trainer``'s epochs on host-fed batches or the corpus resident on the

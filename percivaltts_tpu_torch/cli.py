@@ -108,9 +108,9 @@ def cmd_compose(args, device) -> int:
 def apply_preset(cfg: Configuration, name: str) -> Configuration:
     """Overlay the JAX package's measured-best settings on a config: an EMA
     of the generator weights (0.995), the corpus resident on the device,
-    the GV-aware best checkpoint for WGAN runs with measures, and for the
-    PML vocoder the prediction-side voicing rule (lowest 65% of nm bands
-    < 0.60)."""
+    the GV-aware best checkpoint for WGAN runs with measures, and the
+    prediction-side voicing rules: for the PML vocoder the lowest 65% of
+    nm bands < 0.60, for WORLD the bap rule (``vuv_rule="bap"``)."""
     if name != "production":
         raise ValueError(f"unknown preset: {name!r}")
     tr = dict(ema_decay=0.995, device_corpus=True)

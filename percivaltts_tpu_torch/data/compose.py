@@ -2,10 +2,11 @@
 (counterpart of ``percivaltts_tpu/data/compose.py``).
 
 Per utterance in the file-id list, the HTS label is binarized through the
-question set and the waveform is analyzed by the configured vocoder (the
-PML analysis on the card, in chunks of 8 utterances: one batched call a
-chunk); then the corpus normalization statistics are computed over the
-training split and the normalized datasets are built. Features are cached
+question set and the waveform is analyzed by the configured vocoder (PML,
+WORLD or the mel spectrogram, on the card, in chunks of 8 utterances: one
+batched call a chunk); then the corpus normalization statistics are
+computed over the training split and the normalized datasets are built.
+Features are cached
 per utterance as headerless float32 files beside a ``cache_meta.json``
 that equals the JAX package's, so a cache composed by either package
 serves the other.
@@ -207,7 +208,8 @@ def compose(
     on ``device`` (the card unless the caller names another).
 
     Min/max stats for the binary-heavy label inputs, mean/std stats for the
-    acoustic targets with the bounded noise-mask stream left as it is, all
+    acoustic targets with the bounded [0, 1] streams (PML's noise mask,
+    WORLD's vuv and band aperiodicity) left as they are, all
     over the training split. With ``normalize=False`` the datasets stay raw
     and the stats are applied on the device inside the train step
     (``training/ondevice.py``)."""
@@ -254,8 +256,7 @@ def compose(
     train = full.subset(tr_ids)
 
     in_stats = compute_minmax(train.labs)
-    # bounded [0, 1] streams stay as they are: PML's nm (WORLD's vuv and
-    # bap once that vocoder is ported)
+    # bounded [0, 1] streams stay as they are: PML's nm, WORLD's vuv and bap
     keep = [voc.streams[k] for k in ("nm", "vuv", "bap") if k in voc.streams]
     out_stats = compute_meanstd(train.cmps, keep_streams=keep)
 

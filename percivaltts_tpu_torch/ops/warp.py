@@ -1,12 +1,15 @@
 """Frequency warping: linear FFT bins ↔ warped (mel) bands.
 
-A copy of the PML part of ``percivaltts_tpu/ops/warp.py`` (numpy only: the
-band centres, the warp and the unwarp matrices; the mel filterbank waits
-with the mel vocoder), so that the port imports nothing of the JAX package;
-``tests/test_torch_imports.py`` holds it against the original. The warped spectral representation of the PML features
-(the 65-band warped log envelope and the 33-band warped noise mask) is one
+A copy of ``percivaltts_tpu/ops/warp.py`` (numpy only: the band centres,
+the warp and the unwarp matrices, the mel filterbank and its
+pseudo-inverse), so that the port imports nothing of the JAX package;
+``tests/test_torch_imports.py`` holds it against the original. The warped
+spectral representation of the PML and WORLD features (the 65-band warped
+log envelope and the 33-band warped noise mask or band aperiodicity) is one
 constant matrix each way, so warping an utterance is one
-``(frames, bins) @ (bins, bands)`` product.
+``(frames, bins) @ (bins, bands)`` product; the mel-spectrogram target is
+one ``(bins, mels)`` product of the STFT magnitude, and Griffin-Lim starts
+from its pseudo-inverse.
 """
 
 from __future__ import annotations
@@ -81,3 +84,28 @@ def unwarp_matrix(num_bands: int, dftlen: int, fs: int) -> np.ndarray:
         U[j, i] = 1.0 - t
         U[j + 1, i] = t
     return U
+
+
+@functools.lru_cache(maxsize=None)
+def mel_pinv(num_mels: int, dftlen: int, fs: int) -> np.ndarray:
+    """(mels, bins) Moore–Penrose pseudo-inverse of the mel filterbank, for
+    magnitude recovery before Griffin–Lim (negatives clipped downstream)."""
+    return np.linalg.pinv(mel_weights(num_mels, dftlen, fs)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_weights(num_mels: int, dftlen: int, fs: int, fmin: float = 0.0, fmax=None) -> np.ndarray:
+    """(bins, num_mels) Slaney-style triangular mel filterbank. Unlike
+    ``warp_matrix`` the triangles have unit peak, not unit mass, and operate
+    on magnitudes (warp first, log after)."""
+    fmax = fs / 2.0 if fmax is None else fmax
+    bins = dftlen // 2 + 1
+    freqs = np.arange(bins) * fs / dftlen
+    edges = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), num_mels + 2))
+    W = np.zeros((bins, num_mels), dtype=np.float32)
+    for m in range(num_mels):
+        lo, c, hi = edges[m], edges[m + 1], edges[m + 2]
+        up = (freqs - lo) / max(c - lo, 1e-9)
+        down = (hi - freqs) / max(hi - c, 1e-9)
+        W[:, m] = np.maximum(0.0, np.minimum(up, down))
+    return W

@@ -18,6 +18,9 @@ import torch
 
 from percivaltts_tpu_torch.config import VocoderConfig
 
+# utterances are padded to a multiple of this many frames before the cores run
+FRAME_MULTIPLE = 128
+
 
 class Vocoder:
     """Base vocoder: maps waveforms ↔ per-frame feature matrices on
@@ -52,12 +55,19 @@ class Vocoder:
 
     def analyze(self, wav: np.ndarray) -> np.ndarray:
         """waveform (n,) float32 in [-1, 1] → (frames, feature_size)."""
-        raise NotImplementedError
+        return self.analyze_batch([self._check_wav(wav)])[0]
 
     def analyze_batch(self, wavs) -> list:
-        """Analyze several waveforms; subclasses may override with one
-        batched call."""
-        return [self.analyze(w) for w in wavs]
+        """Analyze several waveforms in one batched call of
+        ``_analyze_stack`` on their zero-padded stack (see
+        ``stacked_analyze_batch``)."""
+        return stacked_analyze_batch([self._check_wav(w) for w in wavs], FRAME_MULTIPLE,
+                                     self.cfg.shift_samples, self._analyze_stack)
+
+    def _analyze_stack(self, stack: np.ndarray) -> np.ndarray:
+        """(B, n) zero-padded float32 waveforms → (B, ceil(n / hop), F)
+        features."""
+        raise NotImplementedError
 
     def synthesize(self, feats: np.ndarray, seed: int = 0) -> np.ndarray:
         """(frames, feature_size) → waveform (frames · shift_samples,).
@@ -134,9 +144,6 @@ def stacked_analyze_batch(wavs, frame_multiple, hop, run):
 
 _REGISTRY: Dict[str, Type[Vocoder]] = {}
 
-# vocoder kinds of the JAX package that the port does not have yet
-_WAITING = ("world", "melspec")
-
 
 def register(cls: Type[Vocoder]) -> Type[Vocoder]:
     _REGISTRY[cls.kind] = cls
@@ -145,10 +152,6 @@ def register(cls: Type[Vocoder]) -> Type[Vocoder]:
 
 def get_vocoder(cfg: VocoderConfig, device="cuda") -> Vocoder:
     """Factory by ``cfg.kind``; the vocoder runs its DSP on ``device``."""
-    if cfg.kind in _WAITING:
-        raise NotImplementedError(
-            f"the {cfg.kind!r} vocoder is not ported yet (ROADMAP, queue 1: vocoder DSP)"
-        )
     try:
         cls = _REGISTRY[cfg.kind]
     except KeyError:

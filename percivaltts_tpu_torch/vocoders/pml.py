@@ -1,8 +1,8 @@
 """PML-style vocoder: f0 + warped log spectral envelope + warped noise mask.
 
-Counterpart of ``percivaltts_tpu/vocoders/pml.py`` for the default
-``VocoderConfig`` (``envelope="harmonic"``, the default ``AnalysisParams``,
-``closed_loop`` iterations), with ``vmap`` written out as a leading batch
+Counterpart of ``percivaltts_tpu/vocoders/pml.py`` for the "harmonic"
+(default) and "cheaptrick" envelopes under the default ``AnalysisParams``
+and any ``closed_loop`` count, with ``vmap`` written out as a leading batch
 axis: the cores take ``(B, nf, ·)`` features and ``(B, n)`` waveforms and run
 on the device of their inputs. Per-frame features are
 
@@ -10,9 +10,10 @@ on the device of their inputs. Per-frame features are
 * ``spec`` — frequency-warped log spectral amplitude envelope,
 * ``nm``   — frequency-warped noise mask ∈ [0, 1] (1 on unvoiced frames).
 
-Analysis (``pml_analyze_core``): YIN (``ops/f0.py``), the harmonic
-peak/valley envelope on voiced frames and the 500 Hz CheapTrick envelope on
-unvoiced ones, the group-delay noise mask, warping as constant matmuls.
+Analysis (``pml_analyze_core``): YIN (``ops/f0.py``), on voiced frames the
+harmonic peak/valley envelope (or, with ``envelope="cheaptrick"``, the
+f0-adaptive CheapTrick envelope) and on unvoiced ones the 500 Hz CheapTrick
+envelope, the group-delay noise mask, warping as constant matmuls.
 Synthesis (``pml_synthesize_amp_core``): a bank of harmonics of the
 continuous f0 with the envelope's minimum phase, gated by voicing, plus
 phase-only noise shaped to the per-band power the analyzer reads back.
@@ -25,7 +26,7 @@ a ``torch.Generator`` seeded with ``seed`` (the JAX package draws
 ``jax.random.normal``, which torch cannot reproduce; the parity tests hand
 the JAX draw to the port). As in the JAX package, one draw of
 ``nf_pad·hop`` samples serves every row of a chunk and every render of the
-closed loop. Waiting (ROADMAP): ``envelope="te"``/``"cheaptrick"`` and
+closed loop. Waiting (ROADMAP): ``envelope="te"`` and
 ``pml_synthesize_core`` (which serves only "te").
 """
 
@@ -55,10 +56,10 @@ from percivaltts_tpu_torch.ops.morph import dilate1d, erode1d, fill_from_interio
 from percivaltts_tpu_torch.ops.stft import hann_window, istft, rdiv, stft
 from percivaltts_tpu_torch.ops.warp import unwarp_matrix, warp_matrix
 from percivaltts_tpu_torch.vocoders.base import (
+    FRAME_MULTIPLE,
     Vocoder,
     chunked_synthesize_batch,
     register,
-    stacked_analyze_batch,
 )
 
 # Calibration of the stochastic component (the JAX package's, pinned there
@@ -67,10 +68,17 @@ NOISE_CAL = 0.97
 # depth of the pulse-synchronous noise modulation in voiced regions
 NOISE_MOD = 0.4
 
-# utterances are padded to a multiple of this many frames before the cores run
-FRAME_MULTIPLE = 128
-
 _WAITS = "(ROADMAP, queue 1: vocoder DSP)"
+
+# the spectral envelope estimators ported ("te" waits)
+ENVELOPES = ("harmonic", "cheaptrick")
+
+
+def check_envelope(envelope: str) -> None:
+    """Raise ``NotImplementedError`` for an envelope estimator the port
+    does not have."""
+    if envelope not in ENVELOPES:
+        raise NotImplementedError(f"the {envelope!r} envelope is not ported {_WAITS}")
 
 
 def env_halfw_for(envelope: str) -> float:
@@ -79,6 +87,20 @@ def env_halfw_for(envelope: str) -> float:
     ``pml_synthesize_amp_core``: "harmonic" reads 4·T0 windows (2.0),
     "cheaptrick" 3·T0 (1.5); anything else disables sharpening (0.0)."""
     return {"harmonic": 2.0, "cheaptrick": 1.5}.get(envelope, 0.0)
+
+
+def seeded_noise(n: int, seed: int, device) -> torch.Tensor:
+    """``(n,)`` standard-normal samples from a generator on ``device``
+    seeded with ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(n, generator=gen, device=device)
+
+
+def analysis_kw(c) -> dict:
+    """The analysis cores' keyword arguments from a ``VocoderConfig``."""
+    return dict(fs=c.fs, hop=c.shift_samples, dftlen=c.dftlen, spec_size=c.spec_size,
+                nm_size=c.nm_size, f0_min=c.f0_min, f0_max=c.f0_max, envelope=c.envelope,
+                env_time_smooth=c.env_time_smooth, ap=c.analysis)
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -125,6 +147,42 @@ def _nm_to_spec_matrix(nm_size: int, spec_size: int) -> np.ndarray:
     return M
 
 
+def _smooth_noise_bands(spec_w: torch.Tensor, gate_raw: torch.Tensor) -> torch.Tensor:
+    """``_smooth_noiselike`` of the ``(B, nf, S)`` spec stream, shared by the
+    PML and WORLD analyses, gated per band by the ``(B, nf, M)`` raw
+    noisiness interpolated to the spec bands, 5-band box-smoothed, at least
+    the frame's mean, then eroded."""
+    spec_size = spec_w.shape[-1]
+    M = _nm_to_spec_matrix(gate_raw.shape[-1], spec_size)
+    nm_spec = gate_raw @ _const(M, gate_raw.device)
+    first, last = nm_spec[..., :1], nm_spec[..., -1:]
+    pad = torch.cat([first, first, nm_spec, last, last], dim=-1)
+    nm_band = sum(pad[..., i : i + spec_size] for i in range(5)) / 5.0
+    gate = torch.maximum(nm_band, gate_raw.mean(dim=-1, keepdim=True))
+    return _smooth_noiselike(spec_w, erode5(gate))
+
+
+def _envelope_w(wav, f0, vuv, fs, hop, dftlen, spec_size, f0_floor, envelope, time_smooth,
+                ap: AnalysisParams = DEFAULT_ANALYSIS) -> torch.Tensor:
+    """The warped log spectral envelope, ``(B, nf, spec_size)``, shared by
+    the PML and WORLD analyses. Voiced frames: the phase-insensitive
+    harmonic envelope ("harmonic") or CheapTrick keyed on the f0 track
+    ("cheaptrick"); unvoiced frames: CheapTrick at WORLD's 500 Hz convention
+    either way (the short window keeps loud voiced neighbours out of quiet
+    boundary frames)."""
+    f0_env = torch.where(vuv > 0.5, f0, DEFAULT_UNVOICED_F0)
+    env = cheaptrick_envelope(
+        wav, f0_env if envelope == "cheaptrick" else torch.full_like(f0, DEFAULT_UNVOICED_F0),
+        fs, hop, dftlen, f0_floor=f0_floor, time_smooth=time_smooth, mirror_mask=vuv,
+    )
+    if envelope == "harmonic":
+        env_v = harmonic_envelope(
+            wav, f0, fs, hop, dftlen, f0_floor=f0_floor, time_smooth=time_smooth, vuv=vuv, ap=ap
+        )
+        env = torch.where(vuv[..., None] > 0.5, env_v, env)
+    return env @ _const(warp_matrix(spec_size, dftlen, fs), wav.device)
+
+
 def pml_analyze_core(
     wav: torch.Tensor,
     fs: int,
@@ -139,26 +197,13 @@ def pml_analyze_core(
     ap: AnalysisParams = DEFAULT_ANALYSIS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(B, n)`` waveforms → (``(B, nf, 1 + spec + nm)`` features, ``(B, nf)``
-    vuv), nf = ceil(n / hop). The "harmonic" envelope only."""
-    if envelope != "harmonic":
-        raise NotImplementedError(f"the {envelope!r} envelope is not ported {_WAITS}")
+    vuv), nf = ceil(n / hop). The "harmonic" and "cheaptrick" envelopes."""
+    check_envelope(envelope)
     res = estimate_f0(wav, fs, hop, f0_min, f0_max)
     f0, vuv = res.f0, res.vuv
     f0_floor = min(f0_min, 60.0)
-    dev = wav.device
-
-    # voiced frames: the phase-insensitive harmonic envelope; unvoiced ones:
-    # CheapTrick at WORLD's 500 Hz convention (the short window keeps loud
-    # voiced neighbours out of quiet boundary frames)
-    env = cheaptrick_envelope(
-        wav, torch.full_like(f0, DEFAULT_UNVOICED_F0), fs, hop, dftlen,
-        f0_floor=f0_floor, time_smooth=env_time_smooth, mirror_mask=vuv,
-    )
-    env_v = harmonic_envelope(
-        wav, f0, fs, hop, dftlen, f0_floor=f0_floor, time_smooth=env_time_smooth, vuv=vuv, ap=ap
-    )
-    env = torch.where(vuv[..., None] > 0.5, env_v, env)
-    spec_w = env @ _const(warp_matrix(spec_size, dftlen, fs), dev)  # (B, nf, spec_size)
+    spec_w = _envelope_w(wav, f0, vuv, fs, hop, dftlen, spec_size, f0_floor, envelope,
+                         env_time_smooth, ap)
 
     nm_raw = harmonic_noise_mask(
         wav, f0, fs, hop, nm_size, f0_floor, valley_smooth=ap.nm_valley_smooth, vuv=vuv, ap=ap
@@ -171,8 +216,6 @@ def pml_analyze_core(
         nm = erode5(nm_raw)
     else:
         raise ValueError(f"unknown AnalysisParams.nm_method: {ap.nm_method!r}")
-    # the smoothing gate: the raw noisiness interpolated to the spec bands,
-    # 5-band box-smoothed, at least the frame's mean, then eroded
     if ap.gate_nm_source == "d4c":
         if gd_raw is None:
             raise ValueError('gate_nm_source="d4c" requires nm_method="d4c_gd"')
@@ -181,12 +224,7 @@ def pml_analyze_core(
         gate_raw = nm_raw
     else:
         raise ValueError(f"unknown AnalysisParams.gate_nm_source: {ap.gate_nm_source!r}")
-    nm_spec = gate_raw @ _const(_nm_to_spec_matrix(nm_size, spec_size), dev)
-    first, last = nm_spec[..., :1], nm_spec[..., -1:]
-    pad = torch.cat([first, first, nm_spec, last, last], dim=-1)
-    nm_band = sum(pad[..., i : i + spec_size] for i in range(5)) / 5.0
-    gate = torch.maximum(nm_band, gate_raw.mean(dim=-1, keepdim=True))
-    spec_w = _smooth_noiselike(spec_w, erode5(gate))
+    spec_w = _smooth_noise_bands(spec_w, gate_raw)
     nm = torch.where(vuv[..., None] > 0.5, nm, 1.0)
 
     lf0 = torch.log(torch.clamp(f0, min=1.0))
@@ -470,45 +508,25 @@ def pml_closed_loop_core(
 
 @register
 class PMLVocoder(Vocoder):
-    """PML-equivalent vocoder (see module docstring); the default
-    ``envelope="harmonic"`` only."""
+    """PML-equivalent vocoder (see module docstring); the "harmonic" and
+    "cheaptrick" envelopes."""
 
     kind = "pml"
 
     def __init__(self, cfg, device="cuda"):
         super().__init__(cfg, device)
-        if self.cfg.envelope != "harmonic":
-            raise NotImplementedError(f"the {self.cfg.envelope!r} envelope is not ported {_WAITS}")
+        check_envelope(self.cfg.envelope)
 
     def _noise(self, n: int, seed: int, device) -> torch.Tensor:
-        """The ``(n,)`` standard-normal draw of the stochastic component,
-        from a generator on ``device`` seeded with ``seed`` (tests replace it
-        with the JAX package's draw)."""
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return torch.randn(n, generator=gen, device=device)
-
-    def _ana_kw(self) -> dict:
-        c = self.cfg
-        return dict(fs=c.fs, hop=c.shift_samples, dftlen=c.dftlen, spec_size=c.spec_size,
-                    nm_size=c.nm_size, f0_min=c.f0_min, f0_max=c.f0_max, envelope=c.envelope,
-                    env_time_smooth=c.env_time_smooth, ap=c.analysis)
+        """The ``(n,)`` standard-normal draw of the stochastic component
+        (tests replace it with the JAX package's draw)."""
+        return seeded_noise(n, seed, device)
 
     def _analyze_stack(self, stack: np.ndarray) -> np.ndarray:
         with torch.no_grad():
-            feats, _ = pml_analyze_core(torch.as_tensor(stack, device=self.device), **self._ana_kw())
+            feats, _ = pml_analyze_core(torch.as_tensor(stack, device=self.device),
+                                        **analysis_kw(self.cfg))
         return feats.cpu().numpy()
-
-    def analyze(self, wav: np.ndarray) -> np.ndarray:
-        wav = self._check_wav(wav)
-        return self.analyze_batch([wav])[0]
-
-    def analyze_batch(self, wavs) -> list:
-        """One batched call for the zero-padded stack (see
-        ``base.stacked_analyze_batch``)."""
-        return stacked_analyze_batch(
-            [self._check_wav(w) for w in wavs], FRAME_MULTIPLE, self.cfg.shift_samples,
-            self._analyze_stack,
-        )
 
     def _pad_feats(self, feats: np.ndarray, nf_pad: int) -> np.ndarray:
         """Pad (frames, F) features to ``nf_pad`` frames by replicating the
@@ -536,7 +554,7 @@ class PMLVocoder(Vocoder):
         with torch.no_grad():
             if c.closed_loop > 0:
                 wav = pml_closed_loop_core(lf0, spec, nm, noise, iters=c.closed_loop,
-                                           **self._ana_kw())
+                                           **analysis_kw(c))
             else:
                 wav = pml_synthesize_amp_core(
                     lf0, spec, nm, noise, fs=c.fs, hop=c.shift_samples, dftlen=c.dftlen,

@@ -21,6 +21,7 @@ from percivaltts_tpu_torch import cli
 from percivaltts_tpu_torch.config import Configuration
 from percivaltts_tpu_torch.data.compose import compose
 from percivaltts_tpu_torch.utils.fileio import save_binary_file
+from percivaltts_tpu_torch.vocoders import get_vocoder
 
 
 def _main(*argv):
@@ -112,6 +113,56 @@ def test_compose_train_generate_measures(corpus, tmp_path):
     assert _main("generate", "--config", cfg_path, "--latest", "--split", "valid", "--no-wav") == 0
 
 
+@pytest.mark.parametrize("kind", ["melspec", "world"])
+def test_compose_train_generate_the_other_vocoders(corpus, tmp_path, kind):
+    """``compose`` with config 4's mel-spectrogram target and with WORLD:
+    the port analyzes into the feature cache, and the JAX ``compose`` from
+    that cache gives the same ``cache_meta.json``, stats, datasets and
+    splits, bit for bit (WORLD's bounded vuv and bap streams left as they
+    are); then 1 epoch of ``train`` with measure validation choosing the
+    best checkpoint on ``mcd_gv`` (MCD on the mel cepstra alone for
+    melspec), and ``generate --no-wav``."""
+    from percivaltts_tpu.data import compose as jax_compose
+
+    workdir = str(tmp_path / kind)
+    cfg_path = _write_cfg(corpus, workdir, vocoder={"kind": kind}, train={
+        "epochs": 1, "measures_every": 1, "best_metric": "mcd_gv"})
+    assert _main("compose", "--config", cfg_path) == 0
+    cache = os.path.join(workdir, "feature_cache")
+    with open(os.path.join(cache, "cache_meta.json")) as f:
+        meta = json.load(f)
+    cfg = Configuration.load(cfg_path)
+    got = compose(cfg, cache_dir=cache, device="cpu")
+    want = jax_compose.compose(JaxConfiguration.load(cfg_path), cache_dir=cache)
+    with open(os.path.join(cache, "cache_meta.json")) as f:
+        assert json.load(f) == meta and meta["vocoder"]["kind"] == kind
+    for name in ("in_stats", "out_stats"):
+        np.testing.assert_array_equal(getattr(got, name).shift, getattr(want, name).shift)
+        np.testing.assert_array_equal(getattr(got, name).scale, getattr(want, name).scale)
+    for split in ("train", "valid", "test"):
+        g, w = getattr(got, split), getattr(want, split)
+        assert g.ids == w.ids
+        for a, b in zip(g.labs + g.cmps, w.labs + w.cmps):
+            np.testing.assert_array_equal(a, b)
+    voc = get_vocoder(cfg.vocoder, "cpu")
+    assert got.train.feat_dim == voc.feature_size == (80 if kind == "melspec" else 2 + 33 + 17)
+    kept = [voc.streams[k] for k in ("vuv", "bap") if k in voc.streams]
+    assert len(kept) == (2 if kind == "world" else 0)
+    for a, b in kept:
+        assert (got.out_stats.shift[a:b] == 0).all() and (got.out_stats.scale[a:b] == 1).all()
+
+    assert _main("train", "--config", cfg_path) == 0
+    (rec,), (obj,) = _records(workdir, "epoch"), _records(workdir, "objective")
+    assert np.isfinite(rec["loss"]) and np.isfinite(obj["mcd_db"]) and np.isfinite(obj["gv_ratio"])
+    assert ("vuv_error_pct" in obj) == (kind == "world")
+    assert os.listdir(os.path.join(workdir, "checkpoints")) == ["0"]
+    assert _main("generate", "--config", cfg_path, "--no-wav") == 0
+    with open(os.path.join(workdir, "measures.json")) as f:
+        measures = json.load(f)
+    assert np.isfinite(measures["mcd_db"]) and ("vuv_error_pct" in measures) == (kind == "world")
+    assert "f0_rmse_hz" not in measures if kind == "melspec" else True
+
+
 def test_production_preset_trains_on_the_device_corpus_and_resumes(corpus, tmp_path):
     """``train --preset production`` with measures every epoch: the corpus
     on the device, EMA 0.995, one ``objective`` record an epoch and MCD as
@@ -150,6 +201,10 @@ def test_production_preset_equals_the_jax_overlay(train, vocoder):
     got = cli.apply_preset(Configuration.from_dict(d), "production")
     want = jax_cli.apply_preset(JaxConfiguration.from_dict(d), "production")
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # the overlaid vocoder builds (WORLD's with the bap voicing rule)
+    voc = get_vocoder(got.vocoder, device="cpu")
+    assert voc.kind == got.vocoder.kind and voc.cfg == got.vocoder
+    assert voc.cfg.vuv_rule == ("bap" if voc.kind == "world" else "stream")
     with pytest.raises(ValueError, match="unknown preset"):
         cli.apply_preset(Configuration(), "fast")
 

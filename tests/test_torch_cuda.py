@@ -573,7 +573,8 @@ def test_tensor_core_bptt_refuses_other_widths_and_takes_unaligned_views(cuda_de
                                         (2, 777, 320, 64), (3, 1000, 400, 80), (1, 5, 160, 80),
                                         (2, 3001, 777, 100), (3, 1001, 804, 80), (2, 1041, 160, 80),
                                         (43, 122880, 160, 80), (2, 1000, 48, 80), (2, 1003, 66, 100),
-                                        (1, 50000, 20000, 4000)])
+                                        (1, 50000, 20000, 4000), (4, 122880, 400, 80),
+                                        (1, 122880, 400, 80), (8, 16000, 400, 80)])
 def test_frame_window_kernel_equals_twin(cuda_device, dtype, B, n, fl, hop):
     """One copy and at most one multiply, rounded once: bit for bit. Edges:
     fl not a multiple of 8 (777, 804, 66), odd n (rows off 16-byte
@@ -598,7 +599,8 @@ def test_frame_window_kernel_equals_twin(cuda_device, dtype, B, n, fl, hop):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,nf,fl,hop", [(4, 1536, 160, 80), (1, 1536, 160, 80), (2, 13, 320, 64),
                                          (3, 257, 400, 80), (1, 1, 160, 80), (2, 37, 777, 100),
-                                         (3, 41, 126, 63), (43, 1536, 160, 80), (2, 20, 48, 80)])
+                                         (3, 41, 126, 63), (43, 1536, 160, 80), (2, 20, 48, 80),
+                                         (4, 1536, 400, 80), (1, 1536, 400, 80), (8, 200, 400, 80)])
 def test_overlap_add_kernel_equals_twin(cuda_device, dtype, B, nf, fl, hop):
     """The terms summed in the twin's order, each partial sum rounded to the
     dtype: bit for bit. Edges: fl not a multiple of 8 with vectors that
@@ -721,6 +723,91 @@ def test_vocoder_on_the_card_launches_the_dsp_kernels(cuda_device):
     finally:
         stft.frames_cuda.frame_window, stft.frames_cuda.overlap_add = kernels
     for w, p in zip(wavs, plain):
+        assert np.abs(w - p).max() <= 1e-4 * np.abs(p).max()
+
+
+def _mel_feats():
+    """Four log-mel feature sets (80 mels) of 100–256 frames: one chunk."""
+    rng = np.random.default_rng(1)
+    return [(-6.0 - np.linspace(0, 5, 80) + 0.5 * rng.normal(size=(nf, 80))).astype(np.float32)
+            for nf in (100, 180, 60, 256)]
+
+
+class _DspTwins:
+    """Within the block, the port's framings and overlap-adds run the twins."""
+
+    def __enter__(self):
+        from percivaltts_tpu_torch.ops import frames_cuda, stft
+
+        self.kernels = (stft.frames_cuda.frame_window, stft.frames_cuda.overlap_add)
+        stft.frames_cuda.frame_window = frames_cuda.frame_window_reference
+        stft.frames_cuda.overlap_add = frames_cuda.overlap_add_reference
+
+    def __exit__(self, *exc):
+        from percivaltts_tpu_torch.ops import stft
+
+        stft.frames_cuda.frame_window, stft.frames_cuda.overlap_add = self.kernels
+
+
+@pytest.mark.cuda
+def test_griffin_lim_on_the_card_launches_the_dsp_kernels(cuda_device):
+    """Config 4's mel vocoder on one 4-utterance chunk (padded to 256
+    frames): each of the 64 Griffin-Lim iterations frames once and
+    overlap-adds twice (the frames and the window² normaliser), the final
+    render twice more: (64, 130) launches, finite waveforms of nf·80
+    samples, equal to the same vocode through the twins (0 expected; 1e-4
+    of the largest sample)."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.ops import frames_cuda
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    feats = _mel_feats()
+    voc = get_vocoder(VocoderConfig(kind="melspec"))
+    before = (frames_cuda.frame_window.launches, frames_cuda.overlap_add.launches)
+    wavs = voc.synthesize_batch(feats)
+    launched = (frames_cuda.frame_window.launches - before[0], frames_cuda.overlap_add.launches - before[1])
+    assert launched == (64, 130)
+    for f, w in zip(feats, wavs):
+        assert w.shape == (f.shape[0] * 80,) and np.isfinite(w).all()
+    with _DspTwins():
+        plain = voc.synthesize_batch(feats)
+    for w, p in zip(wavs, plain):
+        assert np.abs(w - p).max() <= 1e-4 * np.abs(p).max()
+    # analysis: one framing, and the same features as the twins'
+    before = frames_cuda.frame_window.launches
+    got = voc.analyze_batch(wavs)
+    assert frames_cuda.frame_window.launches == before + 1
+    with _DspTwins():
+        for g, p in zip(got, voc.analyze_batch(wavs)):
+            assert np.array_equal(g, p)
+
+
+@pytest.mark.cuda
+def test_world_vocoder_on_the_card_launches_the_dsp_kernels(cuda_device):
+    """WORLD at ``VocoderConfig(kind="world")`` (closed loop, 2 passes):
+    analysis and a copy-synthesis of one chunk launch both DSP kernels and
+    equal the same calls through the twins (analysis bit for bit, synthesis
+    within 1e-4 of the largest sample)."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.ops import frames_cuda
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    t = np.arange(24000) / 16000.0
+    rng = np.random.default_rng(2)
+    wavs = [(0.4 * np.sin(2 * np.pi * (120 + 20 * k) * t[:n]) * (t[:n] % 0.5 < 0.3)
+             + 0.01 * rng.normal(size=n)).astype(np.float32) for k, n in enumerate((9000, 24000, 16000))]
+    voc = get_vocoder(VocoderConfig(kind="world"))
+    before = (frames_cuda.frame_window.launches, frames_cuda.overlap_add.launches)
+    feats = voc.analyze_batch(wavs)
+    syn = voc.synthesize_batch(feats, seed=1)
+    launched = (frames_cuda.frame_window.launches - before[0], frames_cuda.overlap_add.launches - before[1])
+    assert launched[0] > 0 and launched[1] > 0, launched
+    with _DspTwins():
+        for f, p in zip(feats, voc.analyze_batch(wavs)):
+            assert np.array_equal(f, p)
+        plain = voc.synthesize_batch(feats, seed=1)
+    for f, w, p in zip(feats, syn, plain):
+        assert w.shape == (f.shape[0] * 80,) and np.isfinite(w).all()
         assert np.abs(w - p).max() <= 1e-4 * np.abs(p).max()
 
 

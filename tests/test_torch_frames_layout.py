@@ -28,9 +28,11 @@ from percivaltts_tpu_torch.ops.stft import hann_window
 DTYPES = [torch.float32, torch.bfloat16]
 
 # (B, n, frame length, hop, windowed): the vocode path's framings at n = 4000
-# (YIN's fl 804, CheapTrick's fl 800, the noise STFT's windowed fl 160), the
-# JAX package's test shapes, then the edges
+# (YIN's fl 804, CheapTrick's fl 800, the noise STFT's windowed fl 160),
+# Griffin-Lim's windowed fl 400 (R = 5) at B = 1, 4, 8 (the mel vocoder's
+# chunk is 4), the JAX package's test shapes, then the edges
 FRAME_CASES = [(4, 4000, 804, 80, False), (4, 4000, 800, 80, False), (1, 4000, 160, 80, True),
+               (1, 16000, 400, 80, True), (4, 16000, 400, 80, True), (8, 16000, 400, 80, True),
                (4, 4000, 160, 80, False), (2, 777, 320, 64, True), (2, 1000, 400, 80, False),
                (1, 5, 160, 80, True), (2, 3001, 777, 100, True), (3, 1001, 804, 80, False),
                (2, 1041, 160, 80, True), (2, 1000, 48, 80, True), (2, 1003, 66, 100, False),
@@ -105,8 +107,10 @@ def test_frame_window_tiling():
 
 
 # (B, nf, frame length, hop, out_length or None for nf·hop): the noise
-# iSTFT at 200 frames, the test shapes, then the edges
-OLA_CASES = [(4, 200, 160, 80, None), (1, 200, 160, 80, None), (2, 13, 320, 64, None),
+# iSTFT at 200 frames, Griffin-Lim's iSTFT (fl 400) at B = 1, 4, 8, the test
+# shapes, then the edges
+OLA_CASES = [(4, 200, 160, 80, None), (1, 200, 160, 80, None), (1, 200, 400, 80, None),
+             (4, 200, 400, 80, None), (8, 200, 400, 80, None), (2, 13, 320, 64, None),
              (2, 257, 400, 80, None), (1, 1, 160, 80, None), (2, 37, 777, 100, None),
              (3, 41, 126, 63, None), (2, 20, 48, 80, None), (3, 50, 160, 80, 3999)]
 
@@ -180,3 +184,20 @@ def test_overlap_add_vocoder_shapes_take_the_wide_path(dtype, B):
     assert blocks == B * 1536 * 80 // fl_.vec(item) // fl_.OLA_THREADS
     if dtype == torch.float32:
         assert blocks == (960 if B == 4 else 240)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_griffin_lim_shapes_take_the_wide_path(dtype, B):
+    """Griffin-Lim's framing and overlap-adds (fl 400, hop 80, aligned
+    tensors): every store a 16-byte vector, every shared-memory load and
+    every overlap-add term (the frames and the stride-0 window² row) a
+    16-byte load; 8-frame tiles, B·1536/8 framing blocks at 1536 frames."""
+    item = torch.finfo(dtype).bits // 8
+    plan = fl_.frame_window_plan(B, 200 * 80, 400, 80, item, True)
+    assert plan.tiling.F == 8 and plan.tiling.slices == 1
+    assert plan.vector_store.all() and (plan.lds_width == 16).all()
+    assert fl_.frame_tiling(B, 1536 * 80, 400, 80, item, True).blocks == B * 1536 // 8
+    for bs, fs in ((200 * 400, 400), (0, 0)):
+        plan = fl_.overlap_add_plan(B, 200, 400, 80, 200 * 80, item, bs, fs)
+        assert plan.vector_store.all() and (plan.load_width == 16).all()

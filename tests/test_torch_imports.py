@@ -222,13 +222,15 @@ def test_metrics_log_lines_read_back_with_the_jax_reader(tmp_path):
     assert len(recs) == 1 and recs[0]["loss"] == 0.5 and recs[0]["step"] == 1
 
 
-@pytest.mark.parametrize("bands", [9, 17, 33, 65])
+@pytest.mark.parametrize("bands", [9, 17, 33, 65, 80])
 def test_warp_matrices_equal_the_originals(bands):
     """The copied ``ops/warp.py``: band centres, the warp and the unwarp
-    matrices, bit for bit, at the vocoder's shapes."""
+    matrices, the mel filterbank and its pseudo-inverse, bit for bit, at
+    the vocoders' shapes (80 mels at 1024 points and 16 kHz: config 4's)
+    and at small ones."""
     for fs, dftlen in ((16000, 1024), (22050, 2048)):
         np.testing.assert_array_equal(warp._band_centers_hz(bands, fs), jax_warp._band_centers_hz(bands, fs))
-        for name in ("warp_matrix", "unwarp_matrix"):
+        for name in ("warp_matrix", "unwarp_matrix", "mel_weights", "mel_pinv"):
             got = getattr(warp, name)(bands, dftlen, fs)
             want = getattr(jax_warp, name)(bands, dftlen, fs)
             assert got.dtype == want.dtype == np.float32

@@ -61,6 +61,7 @@ def _pair(model_cfg, voc, label_dim, x, seed=0):
         ("bgru", "world", {"blstm_size": 32}),
         # config 1's FC generator (dense_0 … dense_{n-1}, out), 3 layers
         ("fc", "pml", {"num_layers": 3}),
+        ("fc", "world", {"num_layers": 3}),
     ],
 )
 def test_generator_matches_jax(kind, vocoder, model_kw):
