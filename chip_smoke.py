@@ -119,7 +119,28 @@ which raises on failure (the script exits 0 only when all passed):
    steps, best on ``mcd_gv`` without F0; WORLD: config 1's FC generator,
    LSE, 2 epochs, the preset's bap voicing rule), ``generate --split test
    --save-features`` (equal to a generation through the twins) and
-   ``measures`` (generate's MCD within 1e-5).
+   ``measures`` (generate's MCD within 1e-5);
+10. the remaining variants (on phase 8's corpus, removed after):
+   10a. config 3 in the JAX package's reference-faithful form
+   (``conv_style="2d"``: the spectral stream as a (T, 65, 2) image under
+   32-channel 5×5 convs in 4 residual blocks, the BiLSTM f0 head; the 2d
+   critic, 32 → 64, 64, 128, 128 channels; ``gen_norm`` and
+   ``critic_norm`` ``"layer"``; 848,421 generator parameters) served and
+   trained as in phases 4–6: 1 BiLSTM forward a call, (2 forward, 1 BPTT)
+   launches a step on the tensor-core route, the twins' serve and step
+   within phase 4's and 5's tolerances, medians and busy share beside the
+   time-1D config 3's;
+   10b. the BGRU with ``gen_norm="layer"`` (726,883 parameters): the same,
+   with 2 forwards a call and (4, 2) launches a step;
+   10c. PML with ``envelope="te"``: the demo wavs analyzed against the
+   twins, 8 of them copy-synthesized (open loop: 2 framings and 4
+   overlap-adds) against the twins, timed and profiled;
+   10d. the demo wavs analyzed against the twins with WORLD's "te" and
+   each non-default ``AnalysisParams`` reader (``ps_reflect``, ``ps_shift``
+   with and without ``ps_shift_snap``, ``ps_shift_nm_only``,
+   ``psync=False``), each differing from the default analysis;
+   10e. 10a's model over "te" features through the CLI as phase 9c
+   (WGAN-GP, 1 epoch of 2 steps).
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path and read just after it; launches made to compare a kernel with its twin are not
@@ -166,8 +187,19 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # GRU layers, and the bf16 readout rounds at |normalized output| < 4 with an
 # ulp of 2^-6, times 1/scale <= 2: 0.03 a rounding flip, and up to four
 # flips in the same element after two layers.
-SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125}
-PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371}
+SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125}
+PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883}
+# the models each path builds (``ModelConfig`` fields): config 3 and the
+# BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
+# the generator and the critic, LayerNorms in the generator's trunk and the
+# critic) and the BGRU with its front end's LayerNorm
+MODELS = {
+    "cnn_blstm": dict(generator="cnn_blstm"),
+    "bgru": dict(generator="bgru"),
+    "cnn_blstm_2d": dict(generator="cnn_blstm", conv_style="2d", gen_norm="layer",
+                         critic_norm="layer"),
+    "bgru_ln": dict(generator="bgru", gen_norm="layer"),
+}
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
 TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
@@ -235,7 +267,7 @@ N_TIMED_STEPS = 10
 # launches a WGAN-GP step makes: (forward, BPTT). Config 3: the f0 head's
 # BiLSTM in the no-grad fakes pass and in the generator update, and one
 # BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
-STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2)}
+STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -287,6 +319,22 @@ WORLD_COPY_UTTS = 8
 CLI9_WGAN_STEPS = 2  # config 4 trains 1 epoch of 2 WGAN-GP steps
 CLI9_WORLD_EPOCHS = 2  # WORLD trains config 1's FC generator 2 LSE epochs
 
+# phase 10, the remaining variants. PML's "te" renders open loop: a chunk
+# frames the noise once (its STFT) and overlap-adds twice (the iSTFT's
+# frames and its window² normaliser): 2 chunks x (1, 2).
+TE_LAUNCHES = {"frame_window": 2, "overlap_add": 4}
+TE_COPY_UTTS = 8
+# the analyses held against the twins on phase 8's demo wavs: (label,
+# VocoderConfig fields, AnalysisParams fields)
+ANALYSIS_VARIANTS = (
+    ("world te", dict(kind="world", envelope="te"), {}),
+    ("pml ps_reflect", {}, dict(ps_reflect=True)),
+    ("pml ps_shift", {}, dict(ps_shift=True)),
+    ("pml ps_shift snap", {}, dict(ps_shift=True, ps_shift_snap=True)),
+    ("pml ps_shift_nm_only", {}, dict(ps_shift=True, ps_shift_nm_only=True)),
+    ("pml psync=False", {}, dict(psync=False)),
+)
+
 
 def _kernels() -> dict:
     """The kernel wrappers by name; each counts its launches."""
@@ -321,6 +369,10 @@ def _all_mma(what: str, routes: dict) -> None:
     print(f"[{what}] recurrent launches by route {routes}")
     if any(r["simt"] for r in routes.values()):
         raise AssertionError(f"{what}: a bf16 forward or BPTT took the CUDA-core route: {routes}")
+
+
+def _is_gru(kind: str) -> bool:
+    return MODELS[kind]["generator"] == "bgru"
 
 
 def _use_twins(model):
@@ -578,7 +630,7 @@ def _serve_path(dev, kind: str) -> dict:
     from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models import build_generator, count_params
 
-    model_cfg, voc, label_dim = ModelConfig(generator=kind), VocoderConfig(), LABEL_DIM
+    model_cfg, voc, label_dim = ModelConfig(**MODELS[kind]), VocoderConfig(), LABEL_DIM
     gen = build_generator(model_cfg, voc, label_dim,
                           generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
     n_params = count_params(gen)
@@ -592,7 +644,7 @@ def _serve_path(dev, kind: str) -> dict:
     calls[0] = 0
     feats = serve(gen, labs, in_stats, out_stats)
     counts, gen_calls, routes = _counts(), calls[0], _routes()
-    fwd, per_call = ("bigru_fwd", 2) if kind == "bgru" else ("bilstm_fwd", 1)
+    fwd, per_call = ("bigru_fwd", 2) if _is_gru(kind) else ("bilstm_fwd", 1)
     print(f"[serve {kind}] {len(labs)} requests, {gen_calls} generator calls, launches {counts}")
     if not (counts[fwd] > 0 and counts[fwd] == per_call * gen_calls
             and sum(counts.values()) == counts[fwd]):
@@ -641,7 +693,7 @@ def _train_setup(dev, kind: str):
     cfg = Configuration(
         data=DataConfig(batch_size=TRAIN_B, bucket_bounds=(TRAIN_T,), label_dim=LABEL_DIM),
         vocoder=VocoderConfig(spec_size=65, nm_size=33),
-        model=ModelConfig(generator=kind),
+        model=ModelConfig(**MODELS[kind]),
         train=TrainConfig(trainer="wgan", n_critic=5, seed=SEED),
     )
     nc, F = cfg.train.n_critic, cfg.vocoder.feature_size
@@ -737,7 +789,7 @@ def _train_path(dev, kind: str) -> dict:
     cfg, sets, step = _train_setup(dev, kind)
     nc = cfg.train.n_critic
     kernels = _kernels()
-    fwd, bwd = (kernels["bigru_fwd"], kernels["bigru_bwd"]) if kind == "bgru" else \
+    fwd, bwd = (kernels["bigru_fwd"], kernels["bigru_bwd"]) if _is_gru(kind) else \
         (kernels["bilstm_fwd"], kernels["bilstm_bwd"])
     state = make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev)
 
@@ -1726,15 +1778,18 @@ def _world_path(dev, qs: dict) -> dict:
 
 
 def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
-    """Phase 9c for one vocoder on phase 8's demo corpus through the CLI:
-    ``compose`` (the features equal a compose through the twins), ``train
-    --preset production``, ``generate --split test --save-features`` (the
-    wavs equal a generation through the twins) and ``measures`` (generate's
-    MCD within ``QS_MCD_TOL``). ``"melspec"``: config 4 (the ``cnn``
-    generator, WGAN-GP, 1 epoch of ``CLI9_WGAN_STEPS`` steps, best on
-    ``mcd_gv`` without F0). ``"world"``: config 1's FC generator, LSE,
-    ``CLI9_WORLD_EPOCHS`` epochs (the preset switches ``vuv_rule`` to
-    ``bap``). Returns the launch counts of each command and the walls."""
+    """Phase 9c (and 10e) for one vocoder on phase 8's demo corpus through
+    the CLI: ``compose`` (the features equal a compose through the twins),
+    ``train --preset production``, ``generate --split test
+    --save-features`` (the wavs equal a generation through the twins) and
+    ``measures`` (generate's MCD within ``QS_MCD_TOL``). ``"melspec"``:
+    config 4 (the ``cnn`` generator, WGAN-GP, 1 epoch of
+    ``CLI9_WGAN_STEPS`` steps, best on ``mcd_gv`` without F0). ``"world"``:
+    config 1's FC generator, LSE, ``CLI9_WORLD_EPOCHS`` epochs (the preset
+    switches ``vuv_rule`` to ``bap``). ``"te"``: phase 10a's
+    reference-faithful model (WGAN-GP as config 4, its BiLSTM launches on
+    the tensor-core route) over PML's ``envelope="te"`` features. Returns
+    the launch counts of each command and the walls."""
     import contextlib
     import io
     import os
@@ -1750,16 +1805,22 @@ def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
     defaults = Configuration().to_dict()
     d = json.loads(json.dumps(qs["cfg"]))
     d["workdir"] = workdir = os.path.join(qs["root"], f"exp_{kind}")
+    wgan = dict(defaults["train"], trainer="wgan", epochs=1, steps_per_epoch=CLI9_WGAN_STEPS,
+                measures_every=1, checkpoint_every=1)
     if kind == "melspec":
         d["vocoder"] = dict(defaults["vocoder"], kind="melspec", mel_size=80)
         d["model"] = dict(defaults["model"], generator="cnn")
-        d["train"] = dict(defaults["train"], trainer="wgan", epochs=1,
-                          steps_per_epoch=CLI9_WGAN_STEPS, measures_every=1, checkpoint_every=1)
+        d["train"] = wgan
         epochs = 1
-    else:
+    elif kind == "world":
         d["vocoder"] = dict(defaults["vocoder"], kind="world")
         d["train"].update(epochs=CLI9_WORLD_EPOCHS, profile_steps=0)
         epochs = CLI9_WORLD_EPOCHS
+    else:  # "te": phase 10e, the reference-faithful model over PML's "te" features
+        d["vocoder"] = dict(defaults["vocoder"], envelope="te")
+        d["model"] = dict(defaults["model"], **MODELS["cnn_blstm_2d"])
+        d["train"] = wgan
+        epochs = 1
     cfg_path = _write_config(os.path.join(qs["root"], f"config_{kind}.json"), d)
     cfg = Configuration.load(cfg_path)
     main = lambda *argv: cli.main(list(argv), device=dev)  # noqa: E731
@@ -1773,6 +1834,7 @@ def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
         torch.cuda.synchronize()
         out[f"{name}_s"] = time.perf_counter() - t
         counts[name] = _counts()
+        out[f"{name}_routes"] = _routes()
 
     timed("compose", "compose", "--config", cfg_path)
     cache = os.path.join(workdir, "feature_cache")
@@ -1808,6 +1870,14 @@ def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
     if kind == "world" and used.vocoder.vuv_rule != "bap":
         raise AssertionError("the production preset left WORLD's vuv_rule at "
                              f"{used.vocoder.vuv_rule!r}")
+    if kind == "te":
+        if (used.train.best_metric != "mcd_gv" or used.model.conv_style != "2d"
+                or used.vocoder.envelope != "te"):
+            raise AssertionError(f"the te run trained {used.model} on {used.vocoder}, best on "
+                                 f"{used.train.best_metric}")
+        if not (counts["train"]["bilstm_fwd"] and counts["train"]["bilstm_bwd"]):
+            raise AssertionError(f"the 2d model's training launched {counts['train']}")
+        _all_mma(f"cli {kind} train", out["train_routes"])
 
     timed("generate", "generate", "--config", cfg_path, "--split", "test", "--save-features")
     with open(os.path.join(workdir, "measures.json")) as f:
@@ -1819,7 +1889,7 @@ def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
           f"audio) in {out['generate_s']:.3f} s, real-time factor "
           f"{out['generate_s'] / gen_audio:.4f}; measures {measures}; launches "
           f"{counts['generate']}")
-    keys = ("mcd_db", "gv_ratio", "ms_ratio_hi") + (("vuv_error_pct",) if kind == "world" else ())
+    keys = ("mcd_db", "gv_ratio", "ms_ratio_hi") + (("vuv_error_pct",) if kind != "melspec" else ())
     if not all(math.isfinite(measures.get(k, float("nan"))) for k in keys):
         raise AssertionError(f"non-finite measures: {measures}")
     if not (counts["generate"]["frame_window"] and counts["generate"]["overlap_add"]):
@@ -1849,6 +1919,53 @@ def _cli_vocoder_path(dev, card: str, qs: dict, kind: str) -> dict:
     if got["files"] != len(wavs) or not diff <= QS_MCD_TOL * measures["mcd_db"]:
         raise AssertionError(f"cli measures ({kind}) disagrees with generate's MCD")
     out.update(counts=counts, records=records, measures=measures, gen_audio_s=gen_audio)
+    return out
+
+
+def _te_path(dev, qs: dict) -> dict:
+    """Phase 10c: PML with ``envelope="te"`` (the true envelope and the
+    harmonicity noise mask; open-loop synthesis whatever ``closed_loop``
+    says): phase 8's demo wavs analyzed against the twins, and the first
+    ``TE_COPY_UTTS`` of them copy-synthesized (2 chunks of 4) against the
+    twins, timed and profiled."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    voc = get_vocoder(VocoderConfig(envelope="te"), device=dev)
+    ana = _analysis_run("analyze pml te", voc, _demo_wavs(qs))
+    out = _vocode_run("vocode pml te", voc, ana["feats"][:TE_COPY_UTTS], TE_LAUNCHES)
+    out["analysis"] = ana
+    return out
+
+
+def _analysis_variants_path(dev, qs: dict) -> dict:
+    """Phase 10d: phase 8's demo wavs analyzed through the kernels against
+    the twins under each of ``ANALYSIS_VARIANTS`` (WORLD's "te" envelope;
+    PML's boundary-aware and windowed readers); each one's features differ
+    from the same vocoder's default analysis (the option reached its
+    reader)."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.config import AnalysisParams
+    from percivaltts_tpu_torch.data.compose import ANALYSIS_CHUNK
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    wavs = _demo_wavs(qs)
+    base = {}
+    out = {}
+    for label, voc_kw, ap_kw in ANALYSIS_VARIANTS:
+        kind = voc_kw.get("kind", "pml")
+        if kind not in base:
+            voc = get_vocoder(VocoderConfig(kind=kind), device=dev)
+            base[kind] = [f for k in range(0, len(wavs), ANALYSIS_CHUNK)
+                          for f in voc.analyze_batch(wavs[k:k + ANALYSIS_CHUNK])]
+        voc = get_vocoder(VocoderConfig(**voc_kw, analysis=AnalysisParams(**ap_kw)), device=dev)
+        run = _analysis_run(f"analyze {label}", voc, wavs)
+        moved = max(float(np.abs(a - b).max()) for a, b in zip(run["feats"], base[kind]))
+        print(f"[analyze {label}] largest difference from the default {kind} analysis {moved:.3g}")
+        if not moved > 0.0:
+            raise AssertionError(f"{label}: the analysis equals the default's")
+        run.pop("feats")
+        out[label] = run
     return out
 
 
@@ -2000,6 +2117,7 @@ def main() -> int:
         return 1
     from percivaltts_tpu_torch import _build
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2068,7 +2186,33 @@ def main() -> int:
     cli9 = {kind: _cli_vocoder_path(dev, smi, qs, kind) for kind in ("melspec", "world")}
     for kind, run in cli9.items():
         paths.update({f"cli_{kind}_{cmd}": c for cmd, c in run["counts"].items()})
+
+    t_phase10 = time.perf_counter()
+    # 10. the remaining variants: the reference-faithful config 3 (2d convs,
+    # LayerNorms) and the BGRU with its LayerNorm, served and trained; PML's
+    # "te"; the analysis readers; the 2d model over "te" through the CLI
+    for kind in ("cnn_blstm_2d", "bgru_ln"):
+        serve[kind], train[kind] = _serve_path(dev, kind), _train_path(dev, kind)
+        paths[f"serve_{kind}"] = serve[kind]["counts"]
+        paths[f"train_{kind}"] = train[kind]["counts"]
+        for run in (serve[kind], train[kind]):
+            for name, by_route in run["routes"].items():
+                for route, n in by_route.items():
+                    routes[name][route] += n
+    te = _te_path(dev, qs)
+    paths["vocode_pml_te"] = te["counts"]
+    paths["analyze_pml_te"] = te["analysis"]["counts"]
+    variants = _analysis_variants_path(dev, qs)
+    paths.update({f"analyze_{label.replace(' ', '_')}": run["counts"]
+                  for label, run in variants.items()})
+    cli10 = _cli_vocoder_path(dev, smi, qs, "te")
+    paths.update({f"cli_te_{cmd}": c for cmd, c in cli10["counts"].items()})
+    for name, by_route in cli10["train_routes"].items():
+        for route, n in by_route.items():
+            routes[name][route] += n
     shutil.rmtree(qs["root"], ignore_errors=True)
+    print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
+          f"{time.perf_counter() - t_phase10:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -2140,11 +2284,24 @@ def main() -> int:
               f"device busy share {run['busy_share']}, framing and overlap-add device time "
               f"{run['dsp_device_ms']} ms a vocode, launches {run['counts']}; analysis of the demo "
               f"wavs {run['analysis']['wall_s']:.3f} s")
-    for kind, run in cli9.items():
+    for kind, run in {**cli9, "te": cli10}.items():
         print(f"[summary] cli {kind} ({smi}): compose {run['compose_s']:.2f} s, train "
               f"{run['train_s']:.2f} s (epochs " + ", ".join(f"{r['sec']:.3f} s" for r in run["records"])
               + f"), generate {run['generate_s']:.3f} s (real-time factor "
               f"{run['generate_s'] / run['gen_audio_s']:.4f}), test measures {run['measures']}")
+    for kind, base in (("cnn_blstm_2d", "cnn_blstm"), ("bgru_ln", "bgru")):
+        print(f"[summary] {kind} ({smi}): serve median {serve[kind]['serve_ms']:.3f} ms "
+              f"({serve[kind]['serve_ms'] / serve[base]['serve_ms']:.3f}x {base}'s "
+              f"{serve[base]['serve_ms']:.3f}), step median {train[kind]['step_ms']:.3f} ms "
+              f"({train[kind]['step_ms'] / train[base]['step_ms']:.3f}x {base}'s "
+              f"{train[base]['step_ms']:.3f}), device busy share {train[kind]['busy_share']} "
+              f"({base}: {train[base]['busy_share']})")
+    print(f"[summary] vocode_pml_te ({smi}): {te['audio_s']:.2f} s of audio in a median "
+          f"{te['vocode_ms']:.3f} ms (real-time factor {te['vocode_ms'] / 1e3 / te['audio_s']:.4f}), "
+          f"device busy share {te['busy_share']}, framing and overlap-add device time "
+          f"{te['dsp_device_ms']} ms a vocode, launches {te['counts']}; analysis of the demo wavs "
+          f"{te['analysis']['wall_s']:.3f} s; analysis variants "
+          + ", ".join(f"{label} {run['wall_s']:.3f} s" for label, run in variants.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,10 +5,12 @@ counterpart's name and is held against it by a parity test on the same
 weights and inputs (``tests/test_torch_*.py``).
 
 Ported so far: serving (raw HTS label frames → normalized → the FC,
-CNN(+BLSTM), BLSTM or BGRU generator → denormalized vocoder features →
-the PML or WORLD vocoder, or Griffin-Lim from the mel-spectrogram target →
-a waveform; ``eval/serve.py``, ``vocoders/``,
-``cli.py synth``, from a run's best checkpoint), training (the fused
+CNN(+BLSTM) (time-1D or the reference-faithful 2-D convs), BLSTM or BGRU
+generator, each with or without LayerNorm → denormalized vocoder features
+→ the PML or WORLD vocoder (every envelope and analysis reader), or
+Griffin-Lim from the mel-spectrogram target → a waveform;
+``eval/serve.py``, ``vocoders/``, ``cli.py synth``, from a run's best
+checkpoint), training (the fused
 WGAN-GP step with the conditional critic, the LSE step, and the
 ``Trainer``'s epochs on host-fed batches or the corpus resident on the
 card, validation with the objective measures, early stopping, checkpoints

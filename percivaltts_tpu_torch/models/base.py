@@ -1,8 +1,10 @@
 """Model-level utilities (counterpart of ``percivaltts_tpu/models/base.py``):
-dtype lookup, flax-rule parameter init, parameter count, and utterance
-prediction with the reference's padding and grouping."""
+dtype lookup, flax-rule parameter init, flax's LayerNorm, parameter count,
+and utterance prediction with the reference's padding and grouping."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -30,6 +32,30 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> t
     variance 1/fan_in), drawn from ``generator``."""
     std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
     return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's nn.LayerNorm defaults to 1e-5)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = LN_EPS) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=x.dtype)`` over the last axis: statistics in
+    f32 with the fast variance E[x²] − E[x]² clipped at 0, the f32 scale and
+    bias applied, the result cast back to ``x``'s (compute) dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * weight.float()
+    return ((x32 - mean) * mul + bias.float()).to(x.dtype)
+
+
+def same_padding(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``SAME`` split along one axis of ``n`` samples for a
+    stride-``stride`` conv of ``k`` taps: (lo, hi) with the extra tap on the
+    right, so lo = (k − 1) // 2 at stride 1."""
+    n_out = -(-n // stride)
+    total = max((n_out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
 
 
 def count_params(module: nn.Module) -> int:

@@ -1,26 +1,30 @@
 """Generators (counterpart of ``percivaltts_tpu/models/generators.py``).
 
-Ported: ``FCGenerator``, ``CNNGenerator`` with ``conv_style="time1d"``,
-with or without the BiLSTM f0 head, ``BLSTMGenerator`` (BLSTM or BGRU
-layers), and ``build_generator`` for ``"fc"`` / ``"cnn"`` / ``"cnn_blstm"`` /
-``"blstm"`` / ``"bgru"``. Layer names are the flax module names
-(``dense_0``, ``trunk_0``, ``spec_conv0a``, ``f0_blstm``, ``frontend``,
-``blstm_0``, ``out``, …) so ``weights.py`` maps one tree onto the other by
-path.
+``FCGenerator``, ``CNNGenerator`` (``conv_style="time1d"`` or the
+reference-faithful ``"2d"``, with or without the BiLSTM f0 head),
+``BLSTMGenerator`` (BLSTM or BGRU layers), each with ``norm`` ``"none"`` or
+``"layer"``, and ``build_generator`` for ``"fc"`` / ``"cnn"`` /
+``"cnn_blstm"`` / ``"blstm"`` / ``"bgru"``. Layer names are the flax module
+names (``dense_0``, ``reg_0_ln``, ``trunk_0``, ``spec_seed``,
+``spec_conv0a``, ``f0_blstm``, ``frontend``, ``reg_fe_ln``, ``blstm_0``,
+``out``, …) so ``weights.py`` maps one tree onto the other by path.
 
 Parity notes, each pinned by a test:
 * flax ``nn.gelu`` is the tanh approximation; torch's default GELU is erf.
-* flax Conv is channels-last with ``SAME`` padding (lo = (k-1)//2); here
-  the conv stack runs on (B, C, T) with that padding made explicit.
+* flax Conv is channels-last with ``SAME`` padding (lo = (k-1)//2 on each
+  axis); here the conv stacks run on (B, C, T) or (B, C, T, freq) with that
+  padding made explicit.
+* flax LayerNorm (``models/base.py::layer_norm``): f32 statistics, eps 1e-6.
 * streams are concatenated in their start order, then cast to float32.
 * Like flax ``dtype=dt, param_dtype=pdt`` layers, parameters are stored in
   the param dtype and cast to the compute dtype at each call.
 
 ``forward(lab, train=True, generator=g)`` is training mode: with
 ``ModelConfig.dropout_rate`` > 0, inverted dropout follows each trunk Dense
-(before its tanh), as flax ``nn.Dropout`` in the JAX package's ``_reg``, and,
-in ``BLSTMGenerator``, each recurrent layer; its keep mask is drawn from the
-explicit ``torch.Generator`` ``g``. Eval mode (the default) never drops.
+(after its LayerNorm, before its tanh), as flax ``nn.Dropout`` in the JAX
+package's ``_reg``, and, in ``BLSTMGenerator``, each recurrent layer; its
+keep mask is drawn from the explicit ``torch.Generator`` ``g``. Eval mode
+(the default) never drops.
 """
 
 from __future__ import annotations
@@ -32,7 +36,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from percivaltts_tpu_torch.config import ModelConfig, VocoderConfig
-from percivaltts_tpu_torch.models.base import dtype_by_name, lecun_normal_
+from percivaltts_tpu_torch.models.base import (
+    LN_EPS,
+    dtype_by_name,
+    layer_norm,
+    lecun_normal_,
+    same_padding,
+)
 from percivaltts_tpu_torch.models.rnn import BiLSTM
 
 
@@ -65,11 +75,41 @@ def _new_conv1d(channels_in: int, channels_out: int, k: int, dtype, generator) -
     return conv
 
 
-def _not_ported_norm(norm: str) -> None:
-    if norm != "none":
-        raise NotImplementedError(
-            f"gen_norm={norm!r} is not ported yet (ROADMAP queue 1 item 5)"
-        )
+def _new_conv2d(channels_in: int, channels_out: int, kernel: Tuple[int, int], dtype,
+                generator) -> nn.Conv2d:
+    conv = nn.Conv2d(channels_in, channels_out, tuple(kernel), dtype=dtype)
+    lecun_normal_(conv.weight.data, kernel[0] * kernel[1] * channels_in, generator)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
+def conv2d_same(conv: nn.Conv2d, x: torch.Tensor, dtype, stride: int = 1) -> torch.Tensor:
+    """A flax ``Conv(padding="SAME", strides=(stride, stride))`` on
+    (B, C, H, W): XLA's split on each axis, the parameters cast to
+    ``dtype``."""
+    kh, kw = conv.kernel_size
+    x = F.pad(x, same_padding(x.shape[-1], kw, stride) + same_padding(x.shape[-2], kh, stride))
+    return F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), stride=stride)
+
+
+def _add_reg(module: nn.Module, name: str, norm: str, width: int, dtype) -> None:
+    """The parameters of the JAX package's ``_reg`` point ``name``: a flax
+    LayerNorm ``{name}_ln`` when ``norm="layer"``, nothing for ``"none"``."""
+    if norm == "layer":
+        module.add_module(f"{name}_ln", nn.LayerNorm(width, eps=LN_EPS, dtype=dtype))
+    elif norm != "none":
+        raise ValueError(f"unknown gen_norm: {norm}")
+
+
+def _reg(module: nn.Module, name: str, x: torch.Tensor, drop: bool, generator) -> torch.Tensor:
+    """The JAX package's ``_reg``: the LayerNorm ``{name}_ln`` if the module
+    has one, then dropout when ``drop``."""
+    ln = getattr(module, f"{name}_ln", None)
+    if ln is not None:
+        x = layer_norm(x, ln.weight, ln.bias, ln.eps)
+    if drop:
+        x = dropout(x, module.dropout_rate, generator)
+    return x
 
 
 def _dropout_on(train: bool, rate: float, generator) -> bool:
@@ -89,8 +129,8 @@ def _dense(module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 class FCGenerator(nn.Module):
-    """Frame-wise MLP: ``num_layers`` × (Dense → dropout → tanh), then a
-    linear readout to ``feat_dim`` features."""
+    """Frame-wise MLP: ``num_layers`` × (Dense → [LayerNorm] → dropout →
+    tanh), then a linear readout to ``feat_dim`` features."""
 
     def __init__(
         self,
@@ -105,7 +145,6 @@ class FCGenerator(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        _not_ported_norm(norm)
         g = generator or torch.Generator().manual_seed(0)
         pdt = dtype_by_name(param_dtype)
         self.compute_dtype = dtype_by_name(compute_dtype)
@@ -114,6 +153,7 @@ class FCGenerator(nn.Module):
         d = label_dim
         for i in range(num_layers):
             self.add_module(f"dense_{i}", _new_dense(d, hidden_size, pdt, g))
+            _add_reg(self, f"reg_{i}", norm, hidden_size, pdt)
             d = hidden_size
         self.out = _new_dense(d, feat_dim, pdt, g)
 
@@ -129,17 +169,16 @@ class FCGenerator(nn.Module):
         drop = _dropout_on(train, self.dropout_rate, generator)
         x = lab.to(self.compute_dtype)
         for i in range(self.num_layers):
-            x = _dense(self, f"dense_{i}", x)
-            if drop:
-                x = dropout(x, self.dropout_rate, generator)
+            x = _reg(self, f"reg_{i}", _dense(self, f"dense_{i}", x), drop, generator)
             x = torch.tanh(x)
         return _dense(self, "out", x).float()
 
 
 class BLSTMGenerator(nn.Module):
-    """Dense tanh front end → stacked bidirectional recurrent layers (LSTM,
-    or GRU with ``cell_type="gru"``) of ``hidden_size // 2`` units per
-    direction → linear readout to ``feat_dim`` features."""
+    """Dense tanh front end (with its ``reg_fe`` LayerNorm when ``norm`` is
+    ``"layer"``) → stacked bidirectional recurrent layers (LSTM, or GRU with
+    ``cell_type="gru"``) of ``hidden_size // 2`` units per direction, with
+    no norm between them → linear readout to ``feat_dim`` features."""
 
     def __init__(
         self,
@@ -155,13 +194,13 @@ class BLSTMGenerator(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        _not_ported_norm(norm)
         g = generator or torch.Generator().manual_seed(0)
         pdt = dtype_by_name(param_dtype)
         self.compute_dtype = dtype_by_name(compute_dtype)
         self.num_layers = num_layers
         self.dropout_rate = dropout_rate
         self.frontend = _new_dense(label_dim, hidden_size, pdt, g)
+        _add_reg(self, "reg_fe", norm, hidden_size, pdt)
         H = hidden_size // 2
         d = hidden_size
         for i in range(num_layers):
@@ -182,9 +221,7 @@ class BLSTMGenerator(nn.Module):
         on the labels' device."""
         drop = _dropout_on(train, self.dropout_rate, generator)
         x = _dense(self, "frontend", lab.to(self.compute_dtype))
-        if drop:
-            x = dropout(x, self.dropout_rate, generator)
-        x = torch.tanh(x)
+        x = torch.tanh(_reg(self, "reg_fe", x, drop, generator))
         for i in range(self.num_layers):
             x = getattr(self, f"blstm_{i}")(x)
             if drop:
@@ -193,9 +230,13 @@ class BLSTMGenerator(nn.Module):
 
 
 class CNNGenerator(nn.Module):
-    """Dense tanh trunk → residual time-1D conv blocks → per-stream heads
-    (an f0 head, optionally behind a BiLSTM; the spectral stream from the
-    conv stack; small dense heads for vuv and nm/bap)."""
+    """Dense tanh trunk (each layer with its ``reg_{i}`` LayerNorm when
+    ``norm`` is ``"layer"``) → per-stream heads: an f0 head, optionally
+    behind a BiLSTM; small dense heads for vuv and nm/bap; the spectral
+    stream from residual conv blocks, either time-1D at the trunk's width
+    (``conv_style="time1d"``) or, reference-faithful (``"2d"``), 2-D convs
+    of ``channels`` channels over the stream rendered as a (T, freq, 2)
+    image by the ``spec_seed`` Dense."""
 
     def __init__(
         self,
@@ -203,6 +244,7 @@ class CNNGenerator(nn.Module):
         label_dim: int,
         hidden_size: int = 256,
         trunk_layers: int = 2,
+        channels: int = 32,
         blocks: int = 4,
         kernel: Tuple[int, int] = (5, 5),
         conv_style: str = "time1d",
@@ -215,12 +257,8 @@ class CNNGenerator(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if conv_style != "time1d":
-            raise NotImplementedError(
-                f"conv_style={conv_style!r} is not ported yet (ROADMAP: "
-                "modules still to port, models)"
-            )
-        _not_ported_norm(norm)
+        if conv_style not in ("time1d", "2d"):
+            raise ValueError(f"unknown conv_style: {conv_style}")
         g = generator or torch.Generator().manual_seed(0)
         pdt = dtype_by_name(param_dtype)
         self.compute_dtype = dtype_by_name(compute_dtype)
@@ -228,12 +266,14 @@ class CNNGenerator(nn.Module):
         self.trunk_layers = trunk_layers
         self.dropout_rate = dropout_rate
         self.blocks = blocks
+        self.conv_style = conv_style
         self.kernel_time = kernel[0]
         Hd = hidden_size
 
         d = label_dim
         for i in range(trunk_layers):
             self.add_module(f"trunk_{i}", _new_dense(d, Hd, pdt, g))
+            _add_reg(self, f"reg_{i}", norm, Hd, pdt)
             d = Hd
         self.f0_blstm = None
         if "f0" in self.streams:
@@ -246,10 +286,19 @@ class CNNGenerator(nn.Module):
             self.vuv_out = _new_dense(Hd, 1, pdt, g)
         self.spec_key = "spec" if "spec" in self.streams else "mel"
         a, b = self.streams[self.spec_key]
-        for i in range(blocks):
-            self.add_module(f"spec_conv{i}a", _new_conv1d(Hd, Hd, self.kernel_time, pdt, g))
-            self.add_module(f"spec_conv{i}b", _new_conv1d(Hd, Hd, self.kernel_time, pdt, g))
-        self.spec_out = _new_dense(Hd, b - a, pdt, g)
+        self.spec_size = b - a
+        if conv_style == "2d":
+            self.spec_seed = _new_dense(Hd, 2 * self.spec_size, pdt, g)
+            self.spec_in = _new_conv2d(2, channels, kernel, pdt, g)
+            for i in range(blocks):
+                self.add_module(f"spec_conv{i}a", _new_conv2d(channels, channels, kernel, pdt, g))
+                self.add_module(f"spec_conv{i}b", _new_conv2d(channels, channels, kernel, pdt, g))
+            self.spec_out = _new_conv2d(channels, 1, kernel, pdt, g)
+        else:
+            for i in range(blocks):
+                self.add_module(f"spec_conv{i}a", _new_conv1d(Hd, Hd, self.kernel_time, pdt, g))
+                self.add_module(f"spec_conv{i}b", _new_conv1d(Hd, Hd, self.kernel_time, pdt, g))
+            self.spec_out = _new_dense(Hd, self.spec_size, pdt, g)
         for name in ("nm", "bap"):
             if name in self.streams:
                 a, b = self.streams[name]
@@ -264,6 +313,21 @@ class CNNGenerator(nn.Module):
         x = F.pad(x, ((k - 1) // 2, k - 1 - (k - 1) // 2))
         return F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt))
 
+    def _spec_2d(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, hidden) trunk output → (B, T, spec_size): the ``spec_seed``
+        image (B, T, spec_size, 2), its trailing 2 the fastest axis as in
+        flax, run as (B, 2, T, spec_size) through the residual 2-D convs."""
+        dt = self.compute_dtype
+        B, T = x.shape[:2]
+        img = torch.tanh(_dense(self, "spec_seed", x))
+        img = img.reshape(B, T, self.spec_size, 2).permute(0, 3, 1, 2)
+        img = conv2d_same(self.spec_in, img, dt)
+        for i in range(self.blocks):
+            r = conv2d_same(getattr(self, f"spec_conv{i}a"), gelu(img), dt)
+            r = conv2d_same(getattr(self, f"spec_conv{i}b"), gelu(r), dt)
+            img = img + r
+        return conv2d_same(self.spec_out, img, dt)[:, 0]
+
     def forward(
         self,
         lab: torch.Tensor,
@@ -276,9 +340,7 @@ class CNNGenerator(nn.Module):
         drop = _dropout_on(train, self.dropout_rate, generator)
         x = lab.to(self.compute_dtype)
         for i in range(self.trunk_layers):
-            x = _dense(self, f"trunk_{i}", x)
-            if drop:
-                x = dropout(x, self.dropout_rate, generator)
+            x = _reg(self, f"reg_{i}", _dense(self, f"trunk_{i}", x), drop, generator)
             x = torch.tanh(x)
 
         outs = {}
@@ -288,12 +350,15 @@ class CNNGenerator(nn.Module):
         if "vuv" in self.streams:
             outs["vuv"] = _dense(self, "vuv_out", x)
 
-        h = x.transpose(1, 2)  # (B, C, T) for the time convs
-        for i in range(self.blocks):
-            r = self._conv(f"spec_conv{i}a", gelu(h))
-            r = self._conv(f"spec_conv{i}b", gelu(r))
-            h = h + r
-        outs[self.spec_key] = _dense(self, "spec_out", h.transpose(1, 2))
+        if self.conv_style == "2d":
+            outs[self.spec_key] = self._spec_2d(x)
+        else:
+            h = x.transpose(1, 2)  # (B, C, T) for the time convs
+            for i in range(self.blocks):
+                r = self._conv(f"spec_conv{i}a", gelu(h))
+                r = self._conv(f"spec_conv{i}b", gelu(r))
+                h = h + r
+            outs[self.spec_key] = _dense(self, "spec_out", h.transpose(1, 2))
 
         for name in ("nm", "bap"):
             if name in self.streams:
@@ -344,6 +409,7 @@ def build_generator(
             vocoder=vocoder,
             label_dim=label_dim,
             hidden_size=model_cfg.hidden_size,
+            channels=model_cfg.cnn_channels,
             blocks=model_cfg.cnn_blocks,
             kernel=(model_cfg.cnn_kernel_time, model_cfg.cnn_kernel_freq),
             conv_style=model_cfg.conv_style,

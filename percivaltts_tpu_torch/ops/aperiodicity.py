@@ -2,20 +2,24 @@
 estimation, batched.
 
 Counterpart of ``percivaltts_tpu/ops/aperiodicity.py`` with a leading batch
-axis (signals ``(B, n)``, tracks ``(B, nf)``), for the branches the default
-``AnalysisParams`` run: the pitch-synchronous exact-bin peak/valley reader
-(``psync=True``), the harmonic envelope, the per-harmonic noise mask and the
-D4C-family group-delay aperiodicity. The reader resamples ``ps_periods``
-pitch periods to a fixed ``PS_N``-sample frame, so harmonic k lands exactly
-on bin ``ps_periods·k`` and the inter-harmonic bins are exact nulls of both
-neighbours. The calibration constants are the JAX package's (measured there;
-see that module for their derivations). The non-default branches
-(``ps_reflect``, ``ps_shift``, the 4·T0 windowed reader of ``psync=False``
-and its ``VALLEY_8T0`` variant) raise ``NotImplementedError``.
+axis (signals ``(B, n)``, tracks ``(B, nf)``): the harmonic envelope, the
+per-harmonic noise mask and the D4C-family group-delay aperiodicity, over
+either peak/valley reader. The default (``psync=True``) resamples
+``ps_periods`` pitch periods to a fixed ``PS_N``-sample frame, so harmonic k
+lands exactly on bin ``ps_periods·k`` and the inter-harmonic bins are exact
+nulls of both neighbours; ``ps_reflect`` folds, and ``ps_shift`` slides, a
+window that would cross the nearest voicing flip back into the frame's own
+voicing run (both need ``vuv``). ``psync=False`` reads a 4·T0 Hann window
+at k·f0 and at the (k ± ½)·f0 nulls, and the module constant
+``VALLEY_8T0`` adds an 8·T0 window's valleys. The calibration constants
+are the JAX package's (measured there; see that module for their
+derivations, and for the measurements that keep the variants off by
+default).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -24,12 +28,10 @@ from percivaltts_tpu_torch.config import AnalysisParams
 from percivaltts_tpu_torch.ops.cheaptrick import CAL, _time_smooth
 from percivaltts_tpu_torch.ops.cheaptrick import lerp_gather as lerp_cols  # one impl
 from percivaltts_tpu_torch.ops.morph import erode1d
-from percivaltts_tpu_torch.ops.stft import num_frames, rdiv
+from percivaltts_tpu_torch.ops.stft import frame_signal, num_frames, rdiv
 from percivaltts_tpu_torch.ops.warp import _band_centers_hz
 
 DEFAULT_ANALYSIS = AnalysisParams()
-
-_WAITS = "(ROADMAP, queue 1: the vocoder's non-default analysis options)"
 
 # harmonic mainlobe power / peak for the 4·T0 Hann convention, in units of
 # the per-f0-interval noise integral (analytically 3/8)
@@ -46,6 +48,10 @@ PS_NOISE_CAL = 1.0
 GD_NOISE_VAR = 0.481
 GD_FLOOR = 0.026
 GD_MIX_EXP = 3.0
+# psync=False only: read the valleys from an additional 8·T0 window at the
+# {k ± 3/8, k ± 1/2, k ± 5/8}·f0 points (measured worse; kept off, and a
+# module constant rather than a config field, as in the JAX package)
+VALLEY_8T0 = False
 
 
 def erode5(x: torch.Tensor) -> torch.Tensor:
@@ -61,13 +67,31 @@ def _periodic_hann(device):
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / PS_N), n
 
 
+def _flip_bounds(vuv, nf, hop):
+    """((B, nf, 1), (B, nf, 1)): the nearest voicing flip (frame-granular,
+    midway between the two frame centres, in samples) strictly left and
+    right of each frame centre; ∓1e9 where there is none."""
+    v = vuv[:, :nf] > 0.5
+    flips = v[:, 1:] != v[:, :-1]  # (B, nf − 1): a flip between frames i and i + 1
+    bnd = (torch.arange(nf - 1, dtype=torch.float32, device=vuv.device) + 0.5) * hop
+    far = torch.full_like(bnd[:1].expand(v.shape[0], 1), 1e9)
+    left = torch.cummax(torch.where(flips, bnd, -1e9), dim=1).values
+    right = torch.cummin(torch.where(flips, bnd, 1e9).flip(1), dim=1).values.flip(1)
+    return torch.cat([-far, left], dim=1)[..., None], torch.cat([right, far], dim=1)[..., None]
+
+
 def _psync_frames(wav, f0c, fs, hop, nf, vuv=None, ap: AnalysisParams = DEFAULT_ANALYSIS):
     """Pitch-synchronously resampled analysis frames, ``(B, nf, PS_N)``:
     ``ap.ps_periods`` pitch periods, centred on each frame, linearly
-    resampled to ``PS_N`` samples."""
-    if ap.ps_reflect or ap.ps_shift:
-        raise NotImplementedError(
-            f"AnalysisParams.ps_reflect / ps_shift are not ported {_WAITS}"
+    resampled to ``PS_N`` samples. With ``ap.ps_shift`` a window that would
+    cross the nearest voicing flip slides as a whole (by whole periods with
+    ``ap.ps_shift_snap``) into the frame's own voicing run, where it fits;
+    with ``ap.ps_reflect`` its positions past the flip fold back once and
+    are clamped to the run. Both need ``vuv``."""
+    if (ap.ps_reflect or ap.ps_shift) and vuv is None:
+        raise ValueError(
+            "AnalysisParams.ps_reflect/ps_shift=True requires the vuv track "
+            "to be threaded into the peak/valley reader (got vuv=None)"
         )
     dev = wav.device
     B, n = wav.shape
@@ -75,6 +99,26 @@ def _psync_frames(wav, f0c, fs, hop, nf, vuv=None, ap: AnalysisParams = DEFAULT_
     centers = torch.arange(nf, dtype=torch.float32, device=dev) * hop
     rel = (torch.arange(PS_N, dtype=torch.float32, device=dev) - PS_N / 2) / PS_N
     idx = centers[:, None] + rel * span[..., None]  # (B, nf, PS_N)
+    if (ap.ps_reflect or ap.ps_shift) and nf > 1:
+        left, right = _flip_bounds(vuv, nf, hop)
+        c = centers[:, None]
+        if ap.ps_shift:
+            half = 0.5 * span[..., None]
+            over_r = torch.clamp(c + half - right, min=0.0)
+            over_l = torch.clamp(left - (c - half), min=0.0)
+            if ap.ps_shift_snap:
+                T0 = rdiv(float(fs), f0c)[..., None]
+                over_r = torch.ceil(over_r / T0) * T0
+                over_l = torch.ceil(over_l / T0) * T0
+            delta = over_l - over_r
+            new_c = c + delta
+            fits = (new_c - half >= left) & (new_c + half <= right)
+            idx = idx + torch.where(fits, delta, 0.0)
+        else:
+            idx = torch.where(idx > right, 2.0 * right - idx, idx)
+            idx = torch.where(idx < left, 2.0 * left - idx, idx)
+            # degenerate 1-frame runs can still escape after one fold
+            idx = torch.minimum(torch.maximum(idx, left), right)
     idx = torch.clamp(idx, 0.0, n - 1.001)
     i0 = torch.floor(idx).long()
     frac = (idx - i0).to(wav.dtype)
@@ -127,25 +171,62 @@ def _psync_peaks_valleys(wav, f0c, fs, hop, nf, K, vuv=None,
     return peak, valley
 
 
+def _windowed_power(wav, f0c, fs, hop, L, halfw_periods, time_smooth=0, vuv=None):
+    """(power spectra ``(B, nf, nfft//2 + 1)``, nfft): L-sample frames
+    centred at i·hop under a Hann window of half-width ``halfw_periods``
+    pitch periods, zero-padded to the next power of two, each normalized by
+    its window's Σw² (white noise of per-sample variance σ² reads σ² a
+    bin); ``time_smooth`` smooths the spectra over frames."""
+    nfft = 1 << (L - 1).bit_length()
+    frames = frame_signal(wav, L, hop)  # (B, nf, L), centred at i·hop
+    halfw = rdiv(halfw_periods * fs, f0c)[..., None]  # (B, nf, 1)
+    t = torch.arange(L, dtype=torch.float32, device=wav.device) - (L // 2)
+    w = torch.where(torch.abs(t) <= halfw, 0.5 + 0.5 * torch.cos(math.pi * t / halfw), 0.0)
+    wsum2 = torch.clamp(torch.sum(w * w, dim=-1), min=1e-12)
+    X = torch.fft.rfft(frames * w, n=nfft, dim=-1)
+    P = (X.real * X.real + X.imag * X.imag) / wsum2[..., None]
+    if time_smooth:
+        P = _time_smooth(P, time_smooth, vuv=vuv)
+    return P, nfft
+
+
 def _peaks_valleys(wav, f0, fs, hop, f0_floor, time_smooth=0, vuv=None,
                    ap: AnalysisParams = DEFAULT_ANALYSIS):
     """Per-harmonic (peak, valley, k, f0c): power at k·f0 and the
     inter-harmonic noise level, ``(B, nf, K)`` each, from the
-    pitch-synchronous reader; ``time_smooth`` smooths both per-harmonic
-    tracks over frames (voicing-partitioned when ``vuv`` is given)."""
-    if not ap.psync:
-        raise NotImplementedError(
-            f"AnalysisParams.psync=False (the 4·T0 windowed reader and its VALLEY_8T0 "
-            f"variant) is not ported {_WAITS}"
-        )
+    pitch-synchronous reader (``time_smooth`` smooths both per-harmonic
+    tracks over frames, voicing-partitioned when ``vuv`` is given) or, with
+    ``ap.psync=False``, from the 4·T0 window's power spectrum (smoothed over
+    frames before it is read)."""
+    Lnm = int(math.ceil(4.0 * fs / f0_floor))
     f0c = torch.clamp(f0, f0_floor, fs / 8.0)
-    nf = num_frames(wav.shape[-1], int(math.ceil(4.0 * fs / f0_floor)), hop)
     K = int(fs / 2.0 / f0_floor)
     k = torch.arange(1, K + 1, dtype=torch.float32, device=wav.device)
-    peak, valley = _psync_peaks_valleys(wav, f0c, fs, hop, nf, K, vuv=vuv, ap=ap)
-    if time_smooth:
-        peak = _time_smooth(peak, time_smooth, vuv=vuv)
-        valley = _time_smooth(valley, time_smooth, vuv=vuv)
+    if ap.psync:
+        nf = num_frames(wav.shape[-1], Lnm, hop)
+        peak, valley = _psync_peaks_valleys(wav, f0c, fs, hop, nf, K, vuv=vuv, ap=ap)
+        if time_smooth:
+            peak = _time_smooth(peak, time_smooth, vuv=vuv)
+            valley = _time_smooth(valley, time_smooth, vuv=vuv)
+        return peak, valley, k, f0c
+
+    P4, fftnm = _windowed_power(wav, f0c, fs, hop, Lnm, 2.0, time_smooth, vuv)
+    f0bins = (f0c * fftnm / fs)[..., None]  # (B, nf, 1)
+    kpos = f0bins * k  # (B, nf, K)
+    peak = lerp_cols(P4, kpos)
+    # only the exact (k ± ½)·f0 nulls are clean valley reads
+    valley = 0.5 * (lerp_cols(P4, kpos - 0.5 * f0bins) + lerp_cols(P4, kpos + 0.5 * f0bins))
+    if VALLEY_8T0:
+        Lnm8 = int(math.ceil(8.0 * fs / f0_floor))
+        P8, fft8 = _windowed_power(wav, f0c, fs, hop, Lnm8, 4.0, time_smooth, vuv)
+        f0bins8 = (f0c * fft8 / fs)[..., None]
+        kpos8 = f0bins8 * k
+        acc = 0.0
+        offs = (0.375, 0.5, 0.625)
+        for o in offs:
+            acc = acc + lerp_cols(P8, kpos8 - o * f0bins8)
+            acc = acc + lerp_cols(P8, kpos8 + o * f0bins8)
+        valley = acc / (2.0 * len(offs))
     return peak, valley, k, f0c
 
 
@@ -172,7 +253,11 @@ def harmonic_envelope(wav, f0, fs, hop, dftlen, f0_floor, time_smooth=0, vuv=Non
     """Phase-insensitive log-amplitude envelope from the harmonic peaks and
     valleys, ``(B, nf, dftlen//2 + 1)``, in ``ops.cheaptrick``'s amplitude
     convention; between harmonics it is interpolated in harmonic-index
-    space, and it holds below h1 and above the last sub-Nyquist harmonic."""
+    space, and it holds below h1 and above the last sub-Nyquist harmonic.
+    With ``ap.ps_shift_nm_only`` the envelope reads frame-centred windows
+    (the shift applies to the noise mask alone)."""
+    if ap.ps_shift and ap.ps_shift_nm_only:
+        ap = dataclasses.replace(ap, ps_shift=False)
     peak, valley, k, f0c = _peaks_valleys(
         wav, f0, fs, hop, f0_floor, time_smooth=time_smooth, vuv=vuv, ap=ap
     )

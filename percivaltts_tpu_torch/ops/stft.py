@@ -39,12 +39,16 @@ def num_frames(num_samples: int, frame_length: int, hop: int) -> int:
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int, pad: bool = True) -> torch.Tensor:
     """``(B, n)`` → ``(B, ceil(n / hop), frame_length)`` overlapping frames,
-    frame i centred on sample i·hop (zeros outside the signal)."""
+    frame i centred on sample i·hop (zeros outside the signal). With
+    ``pad=False``: the ``max(1 + (n − frame_length) // hop, 0)`` frames that
+    lie wholly inside the signal, frame i starting at sample i·hop, cut by
+    plain slicing as the JAX package cuts them (no kernel)."""
     if not pad:
-        raise NotImplementedError(
-            "frame_signal(pad=False) has no caller on the ported paths; it waits "
-            "with the vocoder's remaining options (ROADMAP, queue 1: vocoder DSP)"
-        )
+        B, n = x.shape
+        nf = max(1 + (n - frame_length) // hop, 0)
+        if nf == 0:
+            return x.new_zeros((B, 0, frame_length))
+        return x.unfold(-1, frame_length, hop)[:, :nf].contiguous()
     return frames_cuda.frame_window(x, frame_length, hop)
 
 

@@ -1,10 +1,10 @@
 """PML-style vocoder: f0 + warped log spectral envelope + warped noise mask.
 
-Counterpart of ``percivaltts_tpu/vocoders/pml.py`` for the "harmonic"
-(default) and "cheaptrick" envelopes under the default ``AnalysisParams``
-and any ``closed_loop`` count, with ``vmap`` written out as a leading batch
-axis: the cores take ``(B, nf, ·)`` features and ``(B, n)`` waveforms and run
-on the device of their inputs. Per-frame features are
+Counterpart of ``percivaltts_tpu/vocoders/pml.py`` for the three envelopes
+("harmonic", the default; "cheaptrick"; "te"), every ``AnalysisParams``
+reader and any ``closed_loop`` count, with ``vmap`` written out as a
+leading batch axis: the cores take ``(B, nf, ·)`` features and ``(B, n)``
+waveforms and run on the device of their inputs. Per-frame features are
 
 * ``lf0``  — log of the continuous f0 track (interpolated through unvoiced),
 * ``spec`` — frequency-warped log spectral amplitude envelope,
@@ -13,12 +13,18 @@ on the device of their inputs. Per-frame features are
 Analysis (``pml_analyze_core``): YIN (``ops/f0.py``), on voiced frames the
 harmonic peak/valley envelope (or, with ``envelope="cheaptrick"``, the
 f0-adaptive CheapTrick envelope) and on unvoiced ones the 500 Hz CheapTrick
-envelope, the group-delay noise mask, warping as constant matmuls.
+envelope, the group-delay noise mask, warping as constant matmuls. With
+``envelope="te"`` (the round-1 estimator): the true envelope
+(``ops/envelope.py``) of the fixed-window log STFT magnitude on every frame
+and the harmonicity noise mask r(τ0)/r(0) (``te_noise_mask``).
 Synthesis (``pml_synthesize_amp_core``): a bank of harmonics of the
 continuous f0 with the envelope's minimum phase, gated by voicing, plus
 phase-only noise shaped to the per-band power the analyzer reads back.
 ``pml_closed_loop_core`` renders, re-analyzes and corrects the spec stream
-``iters`` times. On the card the framing and overlap-add inside run in the
+``iters`` times. "te" features render open loop through
+``pml_synthesize_core`` (zero-phase harmonics in the STFT-magnitude
+convention plus STFT-shaped noise), whatever ``closed_loop`` says, as in
+the JAX package. On the card the framing and overlap-add inside run in the
 hand-written kernels of ``ops/frames_cuda.py``.
 
 The noise is an argument of the cores: ``PMLVocoder._noise`` draws it from
@@ -26,12 +32,12 @@ a ``torch.Generator`` seeded with ``seed`` (the JAX package draws
 ``jax.random.normal``, which torch cannot reproduce; the parity tests hand
 the JAX draw to the port). As in the JAX package, one draw of
 ``nf_pad·hop`` samples serves every row of a chunk and every render of the
-closed loop. Waiting (ROADMAP): ``envelope="te"`` and
-``pml_synthesize_core`` (which serves only "te").
+closed loop.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -51,6 +57,7 @@ from percivaltts_tpu_torch.ops.cheaptrick import (
     cheaptrick_envelope,
     lerp_gather,
 )
+from percivaltts_tpu_torch.ops.envelope import spectral_envelope
 from percivaltts_tpu_torch.ops.f0 import estimate_f0
 from percivaltts_tpu_torch.ops.morph import dilate1d, erode1d, fill_from_interior, shift_frames
 from percivaltts_tpu_torch.ops.stft import hann_window, istft, rdiv, stft
@@ -68,17 +75,16 @@ NOISE_CAL = 0.97
 # depth of the pulse-synchronous noise modulation in voiced regions
 NOISE_MOD = 0.4
 
-_WAITS = "(ROADMAP, queue 1: vocoder DSP)"
-
-# the spectral envelope estimators ported ("te" waits)
-ENVELOPES = ("harmonic", "cheaptrick")
+# the spectral envelope estimators (``VocoderConfig.envelope``)
+ENVELOPES = ("harmonic", "cheaptrick", "te")
 
 
 def check_envelope(envelope: str) -> None:
-    """Raise ``NotImplementedError`` for an envelope estimator the port
-    does not have."""
+    """Raise ``ValueError`` for a name outside ``ENVELOPES``. (The JAX
+    package reads any other name as "te" in PML and as 500 Hz CheapTrick in
+    WORLD; the port refuses it instead.)"""
     if envelope not in ENVELOPES:
-        raise NotImplementedError(f"the {envelope!r} envelope is not ported {_WAITS}")
+        raise ValueError(f"unknown envelope {envelope!r}: one of {ENVELOPES}")
 
 
 def env_halfw_for(envelope: str) -> float:
@@ -183,6 +189,35 @@ def _envelope_w(wav, f0, vuv, fs, hop, dftlen, spec_size, f0_floor, envelope, ti
     return env @ _const(warp_matrix(spec_size, dftlen, fs), wav.device)
 
 
+def te_noise_mask(mag: torch.Tensor, f0: torch.Tensor, window: torch.Tensor, fs: int,
+                  dftlen: int, nm_size: int) -> torch.Tensor:
+    """The "te" analysis's noise mask from the ``(B, nf, bins)`` STFT
+    magnitude under ``window``: per warped band, 1 − the harmonicity
+    r(τ0)/r(0) at the pitch lag τ0 = fs / f0, from band-weighted sums of the
+    power spectrum, unbiased by the window's own autocorrelation at τ0
+    (lerped, clipped to [0.05, 1]) and clipped to [0, 1]."""
+    dev = mag.device
+    frame_len = window.shape[-1]
+    P = mag.square()
+    W_nm = _const(warp_matrix(nm_size, dftlen, fs), dev)
+    tau0 = rdiv(float(fs), torch.clamp(f0, min=1.0))  # (B, nf) samples
+    binidx = torch.arange(P.shape[-1], dtype=torch.float32, device=dev)
+    # in JAX's order: the argument reaches ~800 rad, where the f32 rounding
+    # of each product shows
+    cosv = torch.cos((2.0 * math.pi) * binidx * tau0[..., None] / dftlen)
+    r0 = torch.clamp(P @ W_nm, min=1e-12)
+    rt = (P * cosv) @ W_nm
+    n2 = 1 << (2 * frame_len - 1).bit_length()
+    wac = torch.fft.irfft(torch.abs(torch.fft.rfft(window, n=n2)).square(), n=n2)
+    bias_curve = wac[:frame_len] / torch.clamp(wac[0], min=1e-12)
+    ti = torch.clamp(tau0, 0.0, frame_len - 2.0)
+    i0 = torch.floor(ti).long()
+    fr = ti - i0.to(torch.float32)
+    bias = torch.clamp(bias_curve[i0] * (1.0 - fr) + bias_curve[i0 + 1] * fr, 0.05, 1.0)
+    harm = torch.clamp((rt / r0) / bias[..., None], 0.0, 1.0)
+    return 1.0 - harm
+
+
 def pml_analyze_core(
     wav: torch.Tensor,
     fs: int,
@@ -195,12 +230,26 @@ def pml_analyze_core(
     envelope: str = "harmonic",
     env_time_smooth: int = 1,
     ap: AnalysisParams = DEFAULT_ANALYSIS,
+    frame_len: int = 400,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(B, n)`` waveforms → (``(B, nf, 1 + spec + nm)`` features, ``(B, nf)``
-    vuv), nf = ceil(n / hop). The "harmonic" and "cheaptrick" envelopes."""
+    vuv), nf = ceil(n / hop). ``frame_len`` is the "te" analysis's STFT
+    window; the other envelopes do not read it."""
     check_envelope(envelope)
     res = estimate_f0(wav, fs, hop, f0_min, f0_max)
     f0, vuv = res.f0, res.vuv
+    lf0 = torch.log(torch.clamp(f0, min=1.0))
+    if envelope == "te":
+        # the true envelope of the log STFT magnitude on every frame, and
+        # the harmonicity noise mask
+        window = hann_window(frame_len, device=wav.device)
+        mag = torch.abs(stft(wav, frame_len, hop, dftlen, window))
+        _, env = spectral_envelope(torch.log(torch.clamp(mag, min=1e-8)), f0, fs, dftlen)
+        spec_w = env @ _const(warp_matrix(spec_size, dftlen, fs), wav.device)
+        nm = te_noise_mask(mag, f0, window, fs, dftlen, nm_size)
+        nm = torch.where(vuv[..., None] > 0.5, nm, 1.0)
+        return torch.cat([lf0[..., None], spec_w, nm], dim=-1), vuv
+
     f0_floor = min(f0_min, 60.0)
     spec_w = _envelope_w(wav, f0, vuv, fs, hop, dftlen, spec_size, f0_floor, envelope,
                          env_time_smooth, ap)
@@ -226,8 +275,6 @@ def pml_analyze_core(
         raise ValueError(f"unknown AnalysisParams.gate_nm_source: {ap.gate_nm_source!r}")
     spec_w = _smooth_noise_bands(spec_w, gate_raw)
     nm = torch.where(vuv[..., None] > 0.5, nm, 1.0)
-
-    lf0 = torch.log(torch.clamp(f0, min=1.0))
     return torch.cat([lf0[..., None], spec_w, nm], dim=-1), vuv
 
 
@@ -248,6 +295,58 @@ def _frame_to_sample(nf, n, hop, device):
     i0 = torch.clamp(torch.floor(frame_pos).long(), 0, nf - 2)
     w1 = frame_pos - i0.to(torch.float32)
     return i0, w1
+
+
+def pml_synthesize_core(
+    lf0: torch.Tensor,
+    spec_w: torch.Tensor,
+    nm_w: torch.Tensor,
+    noise: torch.Tensor,
+    fs: int,
+    hop: int,
+    frame_len: int,
+    dftlen: int,
+    f0_min: float,
+    f0_max: float,
+) -> torch.Tensor:
+    """The open-loop render of "te" features: ``(B, nf)`` lf0, ``(B, nf, S)``
+    warped log envelope in the STFT-magnitude convention and ``(B, nf, M)``
+    warped noise mask → ``(B, nf·hop)`` waveforms, with the ``(nf·hop,)``
+    white ``noise`` shared by every row. Zero-phase harmonics of the
+    continuous f0 at amplitude (2/Σw)·A·√(1 − nm), plus the noise's STFT
+    (``frame_len``-sample Hann frames) scaled to unit expected magnitude,
+    shaped by A·√nm and inverted."""
+    nf = lf0.shape[1]
+    n = nf * hop
+    if tuple(noise.shape) != (n,):
+        raise ValueError(f"noise must be ({n},) for {nf} frames, got {tuple(noise.shape)}")
+    dev = lf0.device
+    f0 = torch.clamp(torch.exp(lf0), f0_min, f0_max * 1.5)
+    A = torch.exp(spec_w @ _const(unwarp_matrix(spec_w.shape[-1], dftlen, fs), dev))
+    nm_bins = torch.clamp(nm_w @ _const(unwarp_matrix(nm_w.shape[-1], dftlen, fs), dev), 0.0, 1.0)
+    window = hann_window(frame_len, device=dev)
+
+    # harmonic part: per-sample amplitudes (linear over frames), cosines of
+    # the continuous phase
+    k, binpos, valid = _harmonic_grid(f0, f0_min, fs, dftlen)
+    amp_f = rdiv(2.0, torch.sum(window)) * lerp_gather(A, binpos) * torch.sqrt(
+        torch.clamp(1.0 - lerp_gather(nm_bins, binpos), 0.0, 1.0)
+    )
+    amp_f = torch.where(valid, amp_f, 0.0)
+    i0, w1 = _frame_to_sample(nf, n, hop, dev)
+    f0_s = f0[:, i0] * (1.0 - w1) + f0[:, i0 + 1] * w1
+    phase = 2.0 * np.pi * torch.cumsum(f0_s, dim=-1) / fs  # (B, n)
+    w1c = w1[:, None]
+    amp_s = amp_f[:, i0] * (1.0 - w1c) + amp_f[:, i0 + 1] * w1c  # (B, n, K)
+    harm = torch.sum(amp_s * torch.cos(phase[..., None] * k), dim=-1)
+
+    # noise part: E|N(f)|² = Σw² for unit-variance noise, so dividing by
+    # √(Σw²) gives magnitude ~1, and A·√nm puts it in the envelope's STFT
+    # convention; one noise STFT serves the whole batch
+    Nspec = stft(noise[None], frame_len, hop, dftlen, window)[:, :nf]  # (1, nf, bins)
+    norm = torch.sqrt(torch.sum(window * window))
+    noise_wav = istft(Nspec / norm * (A * torch.sqrt(nm_bins)), frame_len, hop, n, window)
+    return harm + noise_wav
 
 
 def _vuv_low_bands(nm, ap: AnalysisParams = DEFAULT_ANALYSIS):
@@ -508,8 +607,7 @@ def pml_closed_loop_core(
 
 @register
 class PMLVocoder(Vocoder):
-    """PML-equivalent vocoder (see module docstring); the "harmonic" and
-    "cheaptrick" envelopes."""
+    """PML-equivalent vocoder (see module docstring)."""
 
     kind = "pml"
 
@@ -525,7 +623,7 @@ class PMLVocoder(Vocoder):
     def _analyze_stack(self, stack: np.ndarray) -> np.ndarray:
         with torch.no_grad():
             feats, _ = pml_analyze_core(torch.as_tensor(stack, device=self.device),
-                                        **analysis_kw(self.cfg))
+                                        frame_len=self.cfg.frame_samples, **analysis_kw(self.cfg))
         return feats.cpu().numpy()
 
     def _pad_feats(self, feats: np.ndarray, nf_pad: int) -> np.ndarray:
@@ -545,14 +643,19 @@ class PMLVocoder(Vocoder):
         return fp
 
     def _render(self, fp: np.ndarray, seed: int) -> np.ndarray:
-        """(B, nf_pad, F) padded features → (B, nf_pad·hop) waveforms: the
-        closed loop when configured, else the open-loop core."""
+        """(B, nf_pad, F) padded features → (B, nf_pad·hop) waveforms: "te"
+        features through ``pml_synthesize_core``; the others through the
+        closed loop when configured, else the open-loop amplitude core."""
         c = self.cfg
         t = torch.as_tensor(fp, device=self.device)
         lf0, spec, nm = t[..., 0], t[..., 1 : 1 + c.spec_size], t[..., 1 + c.spec_size :]
         noise = self._noise(fp.shape[1] * c.shift_samples, seed, self.device)
         with torch.no_grad():
-            if c.closed_loop > 0:
+            if c.envelope == "te":
+                wav = pml_synthesize_core(lf0, spec, nm, noise, fs=c.fs, hop=c.shift_samples,
+                                          frame_len=c.frame_samples, dftlen=c.dftlen,
+                                          f0_min=c.f0_min, f0_max=c.f0_max)
+            elif c.closed_loop > 0:
                 wav = pml_closed_loop_core(lf0, spec, nm, noise, iters=c.closed_loop,
                                            **analysis_kw(c))
             else:

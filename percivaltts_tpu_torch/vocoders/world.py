@@ -10,8 +10,9 @@ features are
   the noise mask),
 * ``spec`` — the warped log spectral envelope, estimated as PML's
   (``vocoders/pml.py::_envelope_w``: the harmonic envelope or CheapTrick on
-  voiced frames, 500 Hz CheapTrick on unvoiced ones), then smoothed over
-  noise-like runs,
+  voiced frames, 500 Hz CheapTrick on unvoiced ones; with
+  ``envelope="te"``, 500 Hz CheapTrick on every frame, as the JAX package
+  reads that name here), then smoothed over noise-like runs,
 * ``bap`` — the warped band aperiodicity: the group-delay estimator
   (``AnalysisParams.bap_method="d4c_gd"``, the default) or the peak/valley
   noise mask, eroded, 1 on unvoiced frames.

@@ -7,11 +7,13 @@ jax), are flattened to ``/``-joined flax paths such as ``trunk_0/kernel`` or
 
 * Dense kernel (in, out)      → ``nn.Linear.weight`` (out, in)
 * Conv kernel (k, in, out)    → ``nn.Conv1d.weight`` (out, in, k)
+* Conv kernel (kh, kw, in, out) → ``nn.Conv2d.weight`` (out, in, kh, kw)
 * LSTM per-gate ``i{c}`` / ``h{c}`` / ``b{c}`` → ``wi`` / ``wh`` / ``b``,
   concatenated in gate order i, f, g, o
 * GRU per-gate ``i{c}`` / ``h{c}`` / ``b{c}`` → ``wi`` / ``wh`` / ``b``,
   concatenated in gate order r, z, n, and ``bhn`` → ``bn``
-* LayerNorm ``scale`` / ``bias`` → ``nn.LayerNorm.weight`` / ``bias``
+* LayerNorm ``scale`` / ``bias`` → ``nn.LayerNorm.weight`` / ``bias`` (the
+  critic's ``spec_ln{i}``, the generators' ``reg_{i}_ln`` / ``reg_fe_ln``)
 
 A missing or an unused key raises. The same flat mapping is what
 ``save_npz`` writes and ``load_npz`` reads — the weights file of the port's
@@ -72,6 +74,9 @@ def _entries(model: nn.Module) -> Iterator[Entry]:
             yield [f"{path}/bias"], mod.bias, lambda a: a[0]
         elif isinstance(mod, nn.Conv1d):
             yield [f"{path}/kernel"], mod.weight, lambda a: a[0].transpose(2, 1, 0)
+            yield [f"{path}/bias"], mod.bias, lambda a: a[0]
+        elif isinstance(mod, nn.Conv2d):
+            yield [f"{path}/kernel"], mod.weight, lambda a: a[0].transpose(3, 2, 0, 1)
             yield [f"{path}/bias"], mod.bias, lambda a: a[0]
         elif isinstance(mod, nn.LayerNorm):
             yield [f"{path}/scale"], mod.weight, lambda a: a[0]

@@ -13,6 +13,7 @@ import torch
 
 from __graft_entry__ import _tiny_cfg
 from percivaltts_tpu.training.checkpoints import CheckpointManager as JaxCheckpointManager
+from percivaltts_tpu_torch import weights
 from percivaltts_tpu_torch.config import Configuration
 from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
 from percivaltts_tpu_torch.training.state import eval_params, make_gan_state
@@ -53,10 +54,11 @@ def test_retention_and_best_queries_equal_orbax(tmp_path, keep):
     assert sorted(os.listdir(tmp_path / "port")) == sorted(str(s) for s in mine.all_steps())
 
 
-def _cfg(ema_decay):
+def _cfg(ema_decay, **model_kw):
     cfg = Configuration.from_dict(_tiny_cfg().to_dict())
     return cfg.replace(
-        model=dataclasses.replace(cfg.model, compute_dtype="float32", dropout_rate=0.1),
+        model=dataclasses.replace(cfg.model, compute_dtype="float32", dropout_rate=0.1,
+                                  **model_kw),
         train=dataclasses.replace(cfg.train, ema_decay=ema_decay),
     )
 
@@ -74,8 +76,12 @@ def _batches(cfg, seed):
     return batch((nc,)), batch()
 
 
-def _trained(cfg, steps=2, seed=3):
+def _trained(cfg, steps=2, seed=3, flax_params=None):
     state = make_gan_state(cfg, cfg.data.label_dim, seed=seed, device="cpu")
+    if flax_params is not None:
+        weights.load_flax_params(state.gen, flax_params["gen"])
+        weights.load_flax_params(state.critic, flax_params["critic"])
+        state.ema = {n: p.detach().clone() for n, p in state.gen.named_parameters()}
     step = make_wgan_step(cfg.train)
     for i in range(steps):
         state, _ = step(state, *_batches(cfg, i))
@@ -103,8 +109,36 @@ def test_state_round_trips_bit_for_bit(tmp_path):
     """Both nets, both Adam states after 2 steps, the step generator (which
     drew the dropout masks and ε), the counters and the EMA; and a step
     taken from the restored state equals one taken from the original."""
-    cfg = _cfg(ema_decay=0.9)
-    state, step = _trained(cfg)
+    _check_round_trip(tmp_path, _cfg(ema_decay=0.9))
+
+
+def test_2d_state_round_trips_bit_for_bit(tmp_path):
+    """The same for the reference-faithful model (``conv_style="2d"``
+    generator and critic, both with LayerNorms), trained from the JAX
+    package's init of both nets carried by ``weights.py``: its Conv2d
+    kernels, LayerNorms and their Adam moments restore bit for bit."""
+    from percivaltts_tpu.models import build_generator as jax_build_generator
+    from percivaltts_tpu.models.critic import build_critic as jax_build_critic
+
+    cfg = _cfg(ema_decay=0.9, conv_style="2d", gen_norm="layer", critic_norm="layer")
+    L, F = cfg.data.label_dim, cfg.vocoder.feature_size
+    lab, cmp, mask = np.zeros((1, T, L)), np.zeros((1, T, F)), np.ones((1, T))
+    jg, jc = jax_build_generator(cfg.model, cfg.vocoder, L), jax_build_critic(cfg.model, cfg.vocoder)
+    flax_params = {
+        "gen": jax.tree.map(np.asarray, jax.jit(jg.init)(jax.random.key(1), lab)),
+        "critic": jax.tree.map(np.asarray, jax.jit(jc.init)(jax.random.key(2), cmp, lab, mask)),
+    }
+    # the carried weights give the JAX outputs (f32, atol 1e-4)
+    x = np.random.default_rng(4).normal(size=(2, T, L)).astype(np.float32)
+    state, _ = _trained(cfg, steps=0, flax_params=flax_params)
+    with torch.no_grad():
+        got = state.gen(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.jit(jg.apply)(flax_params["gen"], x)), atol=1e-4)
+    _check_round_trip(tmp_path, cfg, flax_params)
+
+
+def _check_round_trip(tmp_path, cfg, flax_params=None):
+    state, step = _trained(cfg, flax_params=flax_params)
     mgr = CheckpointManager(str(tmp_path / "ck"))
     assert mgr.save(state.epoch - 1, state, metrics={"score": 1.0})
     fresh = make_gan_state(cfg, cfg.data.label_dim, seed=11, device="cpu")

@@ -5,7 +5,9 @@ Critic widths are small (hidden 32, 4 blocks: two stride-2 convs), compute
 in f32; the flax parameters are perturbed before loading so the LayerNorm
 scale/bias mapping is exercised. Tolerance atol = rtol = 1e-5 on scores and
 input gradients: the same math with sums in another order through a few
-layers. Losses and the on-device normalization: 1e-6.
+layers. The reference-faithful ``conv_style="2d"`` critic (2-D convs of 4,
+8, 8, 16, 16 channels over the masked (T, freq) image) is held at the same
+tolerance. Losses and the on-device normalization: 1e-6.
 """
 
 import dataclasses
@@ -33,7 +35,7 @@ L = 11
 
 def _model(norm, **kw):
     return ModelConfig(critic_hidden=32, critic_blocks=4, critic_norm=norm,
-                       compute_dtype="float32", **kw)
+                       critic_channels=4, compute_dtype="float32", **kw)
 
 
 def _inputs(B, T, voc, seed):
@@ -64,8 +66,23 @@ def _pair(model_cfg, voc, B, T, seed):
 @pytest.mark.parametrize("norm", ["none", "layer"])
 @pytest.mark.parametrize("T", [16, 20])
 def test_critic_and_input_gradient_match_jax(norm, T):
+    _check_scores_and_input_gradient(_model(norm), T)
+
+
+@pytest.mark.parametrize(
+    "norm,kernel,T",
+    [("none", 5, 16), ("layer", 5, 20), ("layer", 4, 16), ("none", 4, 20)],
+)
+def test_2d_critic_and_input_gradient_match_jax(norm, kernel, T):
+    """The 2d style: 17 bands at k=5 pad (2, 2) at stride 2 (17 → 9 → 5);
+    an even kernel pads each axis asymmetrically; the LayerNorm reduces the
+    channel axis only; the merge reads the last block's 16 channels."""
+    _check_scores_and_input_gradient(_model(norm, conv_style="2d", critic_kernel=kernel), T)
+
+
+def _check_scores_and_input_gradient(model_cfg, T):
     voc = VocoderConfig(spec_size=17, nm_size=9)
-    jc, params, tc, (cmp, lab, mask) = _pair(_model(norm), voc, B=3, T=T, seed=T)
+    jc, params, tc, (cmp, lab, mask) = _pair(model_cfg, voc, B=3, T=T, seed=T)
     w = np.random.default_rng(5).normal(size=3).astype(np.float32)
 
     @jax.jit  # scores and the input gradient of Σ w·scores in one compile
@@ -103,13 +120,33 @@ def test_strided_same_padding_puts_the_extra_tap_right():
 
 
 def test_critic_refuses_time_not_divisible_by_its_stride_and_2d():
+    """Both styles refuse a length their total stride does not divide, and
+    a ``conv_style`` the JAX package does not know raises its
+    ``ValueError`` (the 2d style, which waited for the port, builds)."""
     voc = VocoderConfig(spec_size=17, nm_size=9)
-    tc = build_critic(_model("none"), voc, L)  # total stride 4
     cmp, lab, mask = map(torch.from_numpy, _inputs(1, 18, voc, seed=0))
-    with pytest.raises(ValueError, match="stride 4"):
-        tc(cmp, lab, mask)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_critic(_model("none", conv_style="2d"), voc, L)
+    for style in ("time1d", "2d"):
+        tc = build_critic(_model("none", conv_style=style), voc, L)  # total stride 4
+        with pytest.raises(ValueError, match="stride 4"):
+            tc(cmp, lab, mask)
+    with pytest.raises(ValueError, match="unknown conv_style"):
+        build_critic(_model("none", conv_style="3d"), voc, L)
+
+
+@pytest.mark.parametrize("norm,count", [("none", 1_009_345), ("layer", 1_010_113)])
+def test_2d_critic_parameter_count(norm, count):
+    """The 2d critic at full width (32 → 64, 64, 128, 128 channels, 5×5,
+    hidden 256, label dim 425, 99 features): both packages hold the same
+    count, 768 more with the four channel LayerNorms."""
+    model_cfg, voc, T = ModelConfig(conv_style="2d", critic_norm=norm), VocoderConfig(), 64
+    shapes = jax.eval_shape(
+        jax_build_critic(model_cfg, voc).init, jax.random.key(0),
+        jax.ShapeDtypeStruct((1, T, voc.feature_size), jnp.float32),
+        jax.ShapeDtypeStruct((1, T, 425), jnp.float32),
+        jax.ShapeDtypeStruct((1, T), jnp.float32),
+    )
+    assert jax_count_params(shapes) == count
+    assert count_params(build_critic(model_cfg, voc, 425)) == count
 
 
 def test_config3_critic_parameter_count():

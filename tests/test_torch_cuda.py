@@ -811,6 +811,92 @@ def test_world_vocoder_on_the_card_launches_the_dsp_kernels(cuda_device):
         assert np.abs(w - p).max() <= 1e-4 * np.abs(p).max()
 
 
+@pytest.mark.cuda
+def test_te_vocoder_and_analysis_variants_on_the_card_equal_the_twins(cuda_device):
+    """PML's ``envelope="te"``: the analysis frames through the kernel, and
+    a copy-synthesis of one chunk renders open loop (closed_loop=2 is
+    ignored, as in the JAX package): 1 framing (the noise STFT) and 2
+    overlap-adds (the iSTFT's frames and normaliser); both equal the same
+    calls through the twins (analysis bit for bit, synthesis within 1e-4 of
+    the largest sample). Then WORLD's "te" and each non-default
+    ``AnalysisParams`` reader: the analysis through the kernels equals the
+    twins' bit for bit."""
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.config import AnalysisParams
+    from percivaltts_tpu_torch.ops import frames_cuda
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    t = np.arange(24000) / 16000.0
+    rng = np.random.default_rng(3)
+    wavs = [(0.4 * np.sin(2 * np.pi * (120 + 20 * k) * t[:n]) * (t[:n] % 0.5 < 0.3)
+             + 0.01 * rng.normal(size=n)).astype(np.float32) for k, n in enumerate((9000, 24000, 16000))]
+    voc = get_vocoder(VocoderConfig(envelope="te", closed_loop=2))
+    before = frames_cuda.frame_window.launches
+    feats = voc.analyze_batch(wavs)
+    assert frames_cuda.frame_window.launches > before
+    before = (frames_cuda.frame_window.launches, frames_cuda.overlap_add.launches)
+    syn = voc.synthesize_batch(feats, seed=1)
+    launched = (frames_cuda.frame_window.launches - before[0], frames_cuda.overlap_add.launches - before[1])
+    assert launched == (1, 2)
+    with _DspTwins():
+        for f, p in zip(feats, voc.analyze_batch(wavs)):
+            assert np.array_equal(f, p)
+        plain = voc.synthesize_batch(feats, seed=1)
+    for f, w, p in zip(feats, syn, plain):
+        assert w.shape == (f.shape[0] * 80,) and np.isfinite(w).all()
+        assert np.abs(w - p).max() <= 1e-4 * np.abs(p).max()
+    for cfg in (VocoderConfig(kind="world", envelope="te"),
+                VocoderConfig(analysis=AnalysisParams(ps_reflect=True)),
+                VocoderConfig(analysis=AnalysisParams(ps_shift=True, ps_shift_snap=True)),
+                VocoderConfig(analysis=AnalysisParams(ps_shift=True, ps_shift_nm_only=True)),
+                VocoderConfig(analysis=AnalysisParams(psync=False))):
+        voc = get_vocoder(cfg)
+        got = voc.analyze_batch(wavs)
+        with _DspTwins():
+            for g, p in zip(got, voc.analyze_batch(wavs)):
+                assert np.array_equal(g, p), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kw,launches", [
+    (dict(generator="cnn_blstm", conv_style="2d", gen_norm="layer", critic_norm="layer"), (2, 1)),
+    (dict(generator="bgru", gen_norm="layer"), (4, 2)),
+])
+def test_variant_wgan_step_on_the_card_launches_the_kernels(cuda_device, model_kw, launches):
+    """One WGAN-GP step at small width of the reference-faithful model (2d
+    generator and critic, LayerNorms) and of the BGRU with its LayerNorm:
+    finite metrics and (forward, BPTT) launches a step on the tensor-core
+    route, (2, 1) and (4, 2)."""
+    import dataclasses
+
+    from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
+                                       VocoderConfig)
+    from percivaltts_tpu_torch.training.state import make_gan_state
+    from percivaltts_tpu_torch.training.wgan import make_wgan_step
+
+    cfg = Configuration(
+        data=DataConfig(batch_size=4, bucket_bounds=(64,), label_dim=13),
+        vocoder=VocoderConfig(spec_size=17, nm_size=9),
+        model=dataclasses.replace(ModelConfig(**model_kw), hidden_size=32, blstm_size=64,
+                                  cnn_channels=8, critic_channels=8, critic_hidden=32,
+                                  critic_blocks=2),
+        train=TrainConfig(n_critic=2),
+    )
+    state = make_gan_state(cfg, 13, seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    batch = lambda *lead: {  # noqa: E731
+        "lab": torch.randn(*lead, 4, 64, 13, generator=g, device=cuda_device),
+        "cmp": torch.randn(*lead, 4, 64, 27, generator=g, device=cuda_device),
+        "mask": torch.ones(*lead, 4, 64, device=cuda_device),
+    }
+    fwd, bwd = (bigru_fwd, bigru_bwd) if model_kw["generator"] == "bgru" else (bilstm_fwd, bilstm_bwd)
+    f0, b0 = fwd.routes["mma"], bwd.routes["mma"]
+    state, m = make_wgan_step(cfg.train)(state, batch(2), batch())
+    torch.cuda.synchronize()
+    assert (fwd.routes["mma"] - f0, bwd.routes["mma"] - b0) == launches
+    assert all(torch.isfinite(v).item() for v in m.values())
+
+
 # --- the training loop and checkpoints ---------------------------------------
 
 

@@ -111,8 +111,12 @@ def test_wrappers_take_the_twins_on_the_cpu_and_refuse_bad_inputs():
         frames_cuda.frame_window(x, 400, 80, torch.ones(399))
     with pytest.raises(ValueError, match="out_length"):
         frames_cuda.overlap_add(frames, 80, 13 * 80 + 400)  # past the last frame's reach
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stft.frame_signal(x, 400, 80, pad=False)
+    # the uncentred frames of pad=False are plain slices (no kernel, no
+    # launch); tests/test_torch_readers.py holds them against JAX
+    before = frames_cuda.frame_window.launches
+    torch.testing.assert_close(stft.frame_signal(x, 400, 80, pad=False),
+                               x.unfold(-1, 400, 80), rtol=0, atol=0)
+    assert frames_cuda.frame_window.launches == before
 
 
 # --- stft / istft / morph / lerp / smoothing --------------------------------
@@ -225,11 +229,19 @@ def test_pitch_synchronous_readers_match_jax(analysed, name):
 
 
 def test_non_default_analysis_branches_raise():
+    """The boundary-aware readers need the vuv track and raise the JAX
+    package's ``ValueError`` without it (they would otherwise read as the
+    default, silently); ``psync=False`` needs none. Their values are held
+    against JAX in ``tests/test_torch_readers.py``."""
     x, f0 = torch.randn(1, 2000), torch.full((1, 25), 120.0)
-    for kw in ({"ps_reflect": True}, {"ps_shift": True}, {"psync": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tap.harmonic_noise_mask(x, f0, FS, HOP, 17, 60.0, vuv=torch.ones(1, 25),
-                                    ap=AnalysisParams(**kw))
+    for kw in ({"ps_reflect": True}, {"ps_shift": True}):
+        for reader in (tap.harmonic_noise_mask, tap.group_delay_aperiodicity):
+            with pytest.raises(ValueError, match="ps_reflect/ps_shift"):
+                reader(x, f0, FS, HOP, 17, 60.0, ap=AnalysisParams(**kw))
+        tap.harmonic_noise_mask(x, f0, FS, HOP, 17, 60.0, vuv=torch.ones(1, 25),
+                                ap=AnalysisParams(**kw))
+    nm = tap.harmonic_noise_mask(x, f0, FS, HOP, 17, 60.0, ap=AnalysisParams(psync=False))
+    assert nm.shape == (1, 25, 17) and torch.isfinite(nm).all()
 
 
 def test_psync_frames_read_the_signal_end_as_jax_does():

@@ -76,6 +76,7 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.models.rnn",
         "percivaltts_tpu_torch.ops.aperiodicity",
         "percivaltts_tpu_torch.ops.cheaptrick",
+        "percivaltts_tpu_torch.ops.envelope",
         "percivaltts_tpu_torch.ops.f0",
         "percivaltts_tpu_torch.ops.frames_cuda",
         "percivaltts_tpu_torch.ops.gru_cuda",

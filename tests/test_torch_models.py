@@ -2,10 +2,13 @@
 
 Widths are ``__graft_entry__._tiny_cfg``'s, compute in f32; tolerance
 atol = rtol = 1e-4 (the same math with sums in another order through a few
-layers). Also pinned here: flax's tanh-GELU, flax ``SAME`` conv padding,
-float32 output in stream order, flax's init rules, the weight converter's
-refusals, and the full-width parameter counts of config 3 and of the BGRU
-and BLSTM generators.
+layers). The variants with ``gen_norm="layer"`` and ``conv_style="2d"``
+load flax parameters perturbed by N(0, 0.1²), so that a LayerNorm's scale
+and bias and every tap of a 2-D kernel are distinct. Also pinned here:
+flax's tanh-GELU, flax ``SAME`` conv padding (per axis in 2d), float32
+output in stream order, flax's init rules, the weight converter's
+refusals, and the full-width parameter counts of config 3, of its 2d form
+and of the BGRU and BLSTM generators.
 """
 
 import dataclasses
@@ -34,10 +37,20 @@ def _cfg(kind="cnn_blstm", vocoder="pml", **model_kw):
     return model, voc, cfg.data.label_dim
 
 
-def _pair(model_cfg, voc, label_dim, x, seed=0):
+def _perturbed(params, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda p: jnp.asarray(np.asarray(p) + 0.1 * rng.normal(size=p.shape).astype(np.float32)),
+        params,
+    )
+
+
+def _pair(model_cfg, voc, label_dim, x, seed=0, perturb=False):
     """(jax output, port output, flax params) for one input batch."""
     jg = jax_build_generator(model_cfg, voc, label_dim)
     params = jg.init(jax.random.key(seed), jnp.asarray(x))
+    if perturb:
+        params = _perturbed(params, seed + 1)
     want = np.asarray(jg.apply(params, jnp.asarray(x)))
     tg = build_generator(model_cfg, voc, label_dim)
     weights.load_flax_params(tg, jax.tree.map(np.asarray, params))
@@ -62,12 +75,28 @@ def _pair(model_cfg, voc, label_dim, x, seed=0):
         # config 1's FC generator (dense_0 … dense_{n-1}, out), 3 layers
         ("fc", "pml", {"num_layers": 3}),
         ("fc", "world", {"num_layers": 3}),
+        # gen_norm="layer": a flax LayerNorm (eps 1e-6) after each trunk /
+        # front-end Dense, none between the recurrent layers
+        ("fc", "pml", {"num_layers": 3, "gen_norm": "layer"}),
+        ("blstm", "pml", {"blstm_size": 32, "gen_norm": "layer"}),
+        ("bgru", "world", {"blstm_size": 32, "gen_norm": "layer"}),
+        ("cnn", "pml", {"gen_norm": "layer"}),
+        ("cnn_blstm", "world", {"gen_norm": "layer"}),
+        # conv_style="2d": the spectral stream as a (T, freq, 2) image under
+        # 2-D convs of cnn_channels; an even kernel pads each axis
+        # asymmetrically, and the two axes differently
+        ("cnn", "pml", {"conv_style": "2d"}),
+        ("cnn_blstm", "pml", {"conv_style": "2d", "cnn_blocks": 2}),
+        ("cnn_blstm", "world", {"conv_style": "2d", "cnn_kernel_time": 4,
+                                "cnn_kernel_freq": 2, "gen_norm": "layer"}),
+        ("cnn", "melspec", {"conv_style": "2d", "cnn_kernel_time": 3, "cnn_kernel_freq": 6}),
     ],
 )
 def test_generator_matches_jax(kind, vocoder, model_kw):
     model_cfg, voc, L = _cfg(kind, vocoder, **model_kw)
     x = np.random.default_rng(1).normal(size=(2, 70, L)).astype(np.float32)
-    want, got, _ = _pair(model_cfg, voc, L, x)
+    perturb = model_kw.get("gen_norm") == "layer" or model_kw.get("conv_style") == "2d"
+    want, got, _ = _pair(model_cfg, voc, L, x, perturb=perturb)
     assert got.dtype == np.float32 and got.shape == (2, 70, voc.feature_size)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
@@ -193,8 +222,18 @@ def test_recurrent_generator_parameter_count(kind, count):
 
 @pytest.mark.parametrize("kind", ["blstm", "bgru"])
 def test_recurrent_generator_rejects_layer_norm(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_generator(ModelConfig(generator=kind, gen_norm="layer"), VocoderConfig(), 13)
+    """``gen_norm="layer"`` puts one LayerNorm, ``reg_fe_ln``, after the
+    front end and none between the recurrent layers: the flax tree's keys
+    are the port's one for one. A norm the JAX package does not know
+    raises its ``ValueError``."""
+    model_cfg, voc = ModelConfig(generator=kind, gen_norm="layer"), VocoderConfig()
+    shapes = jax.eval_shape(jax_build_generator(model_cfg, voc, 13).init, jax.random.key(0),
+                            jax.ShapeDtypeStruct((1, 64, 13), jnp.float32))
+    flat = weights.flatten(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes))
+    assert sorted(k for k in flat if "_ln" in k) == ["reg_fe_ln/bias", "reg_fe_ln/scale"]
+    weights.load_flax_params(build_generator(model_cfg, voc, 13), flat)
+    with pytest.raises(ValueError, match="unknown gen_norm"):
+        build_generator(ModelConfig(generator=kind, gen_norm="batch"), VocoderConfig(), 13)
 
 
 def test_init_follows_flax_rules_and_seed():
@@ -227,8 +266,35 @@ def test_init_follows_flax_rules_and_seed():
     ],
 )
 def test_unported_variants_name_the_roadmap(model_kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_generator(ModelConfig(**model_kw), VocoderConfig(), 13)
+    """The variants that waited for the port (ROADMAP queue 1 item 5) now
+    build at full width with the flax tree's keys and shapes one for one,
+    and a ``conv_style`` or ``gen_norm`` the JAX package does not know
+    raises its ``ValueError``."""
+    model_cfg, voc = ModelConfig(**model_kw), VocoderConfig()
+    shapes = jax.eval_shape(jax_build_generator(model_cfg, voc, 13).init, jax.random.key(0),
+                            jax.ShapeDtypeStruct((1, 64, 13), jnp.float32))
+    flat = weights.flatten(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes))
+    tg = weights.load_flax_params(build_generator(model_cfg, voc, 13), flat)
+    assert count_params(tg) == jax_count_params(shapes)
+    with pytest.raises(ValueError, match="unknown"):
+        build_generator(ModelConfig(**dict(model_kw, conv_style="3d", gen_norm="batch")), voc, 13)
+
+
+@pytest.mark.parametrize("gen_norm,count", [("none", 847_397), ("layer", 848_421)])
+def test_config3_2d_parameter_count(gen_norm, count):
+    """The reference-faithful config 3 at full width (``conv_style="2d"``:
+    the 256 → 130 ``spec_seed``, 32-channel 5×5 convs in 4 residual blocks,
+    the BiLSTM f0 head; label dim 425, 99 features): both packages hold the
+    same count, 1,024 more with the trunk's two LayerNorms."""
+    model_cfg = ModelConfig(generator="cnn_blstm", conv_style="2d", gen_norm=gen_norm)
+    voc, L = VocoderConfig(), 425
+    shapes = jax.eval_shape(
+        jax_build_generator(model_cfg, voc, L).init,
+        jax.random.key(0),
+        jax.ShapeDtypeStruct((1, 64, L), jnp.float32),
+    )
+    assert jax_count_params(shapes) == count
+    assert count_params(build_generator(model_cfg, voc, L)) == count
 
 
 def test_training_state_params_load_into_the_port():
@@ -249,3 +315,53 @@ def test_training_state_params_load_into_the_port():
     with torch.no_grad():
         got = tg(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["fc", "blstm", "cnn"])
+def test_generator_dropout_and_layernorm(kind):
+    """The port's side of ``tests/test_models.py::
+    test_generator_dropout_and_layernorm``: dropout adds no parameters and
+    acts in training mode only, drawing from the given generator;
+    ``gen_norm="layer"`` adds the flax tree's ``_ln`` parameters. The FC
+    generator's training-mode output equals Dense → LayerNorm → dropout →
+    tanh per layer (the JAX ``_reg`` order) rebuilt by hand on the same
+    keep masks (atol 1e-6)."""
+    from percivaltts_tpu_torch.models.base import layer_norm
+    from percivaltts_tpu_torch.models.generators import dropout
+
+    base = dict(generator=kind, hidden_size=32, num_layers=2, cnn_channels=4, cnn_blocks=1,
+                blstm_size=16, blstm_layers=1, compute_dtype="float32")
+    voc, L = VocoderConfig(spec_size=17, nm_size=9), 13
+    lab = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 32, L)).astype(np.float32))
+    g0 = build_generator(ModelConfig(**base), voc, L)
+    gd = build_generator(ModelConfig(**base, dropout_rate=0.5), voc, L)
+    assert [n for n, _ in g0.named_parameters()] == [n for n, _ in gd.named_parameters()]
+    gd.load_state_dict(g0.state_dict())
+    with torch.no_grad():
+        y0, y_eval = g0(lab), gd(lab)
+        y1 = gd(lab, train=True, generator=torch.Generator().manual_seed(1))
+        y2 = gd(lab, train=True, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(y_eval, y0, rtol=0, atol=1e-6)
+    assert not torch.allclose(y1, y_eval) and not torch.allclose(y1, y2)
+
+    model_cfg = ModelConfig(**base, gen_norm="layer", dropout_rate=0.5)
+    gl = build_generator(model_cfg, voc, L)
+    shapes = jax.eval_shape(jax_build_generator(model_cfg, voc, L).init, jax.random.key(0),
+                            jax.ShapeDtypeStruct((1, 32, L), jnp.float32))
+    flat = weights.flatten(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes))
+    ln = sorted(k for k in flat if "_ln" in k)
+    assert ln and ln == sorted(n.replace(".", "/").replace("weight", "scale")
+                               for n, _ in gl.named_parameters() if "_ln" in n)
+    with torch.no_grad():
+        for p in gl.parameters():  # LayerNorm scales and biases away from 1 and 0
+            p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+        got = gl(lab, train=True, generator=torch.Generator().manual_seed(3))
+        assert torch.isfinite(got).all()
+        if kind == "fc":
+            g, x = torch.Generator().manual_seed(3), lab
+            for i in range(2):
+                dense, norm = getattr(gl, f"dense_{i}"), getattr(gl, f"reg_{i}_ln")
+                x = F.linear(x, dense.weight, dense.bias)
+                x = torch.tanh(dropout(layer_norm(x, norm.weight, norm.bias), 0.5, g))
+            torch.testing.assert_close(got, F.linear(x, gl.out.weight, gl.out.bias),
+                                       rtol=0, atol=1e-6)

@@ -139,17 +139,28 @@ def _check_wgan_step(cfg, jstate, seed):
     same batches and ε; metrics, then both nets' Adam moments and
     parameters."""
     L, F, nc = cfg.data.label_dim, cfg.vocoder.feature_size, cfg.train.n_critic
-    state = _port_state(cfg, jstate, L)
     rng = np.random.default_rng(seed)
     critic_batches, gen_batch = _batch(rng, L, F, (nc,)), _batch(rng, L, F)
+    jnew, jm = _jax_wgan_step(cfg)(
+        jstate, jax.tree.map(jnp.asarray, critic_batches), jax.tree.map(jnp.asarray, gen_batch))
+    _check_port_step(cfg, _port_state(cfg, jstate, L), jstate, jnew, jm, critic_batches, gen_batch)
 
+
+def _jax_wgan_step(cfg):
+    streams, sw, F = cfg.vocoder.streams, cfg.train.stream_weights, cfg.vocoder.feature_size
+    return jax.jit(jax_make_wgan_step(cfg.train, jax_losses.stream_weight_vector(streams, sw, F)))
+
+
+def _check_port_step(cfg, state, jstate, jnew, jm, critic_batches, gen_batch):
+    """The port's step from ``state`` against the JAX step ``jstate`` →
+    (``jnew``, metrics ``jm``) on the same batches, with the ε the JAX step
+    drew from ``jstate.key``."""
+    nc, F = cfg.train.n_critic, cfg.vocoder.feature_size
     _, _, _, *eps_keys = jax.random.split(jstate.key, nc + 3)
     eps = np.stack([np.asarray(jax.random.uniform(k, (B, 1, 1))) for k in eps_keys])
-    streams, sw = cfg.vocoder.streams, cfg.train.stream_weights
-    jnew, jm = jax.jit(jax_make_wgan_step(cfg.train, jax_losses.stream_weight_vector(streams, sw, F)))(
-        jstate, jax.tree.map(jnp.asarray, critic_batches), jax.tree.map(jnp.asarray, gen_batch))
-
-    step = make_wgan_step(cfg.train, stream_weight_vector(streams, sw, F))
+    step = make_wgan_step(cfg.train, stream_weight_vector(cfg.vocoder.streams,
+                                                          cfg.train.stream_weights, F))
+    before = state.step
     state, m = step(state, _to_t(critic_batches), _to_t(gen_batch), eps=torch.from_numpy(eps))
     assert set(m) == set(jm) == {"loss", "gen_adv", "lse", "w_dist", "gp"}
     bias = state.critic.score.bias.item(), float(jnew.critic.params["params"]["score"]["bias"][0])
@@ -157,9 +168,52 @@ def _check_wgan_step(cfg, jstate, seed):
         shift = bias if k in ("loss", "gen_adv") else (0.0, 0.0)
         np.testing.assert_allclose(m[k].item() + shift[0], float(jm[k]) + shift[1],
                                    rtol=1e-4, err_msg=k)
-    assert state.step == 1
+    assert state.step == before + 1
     _compare_update(state.critic, state.critic_opt, jnew.critic, cfg.train.adam_b1)
     _compare_update(state.gen, state.gen_opt, jnew.gen, cfg.train.adam_b1)
+
+
+@pytest.fixture(scope="module")
+def jax_2d_steps():
+    """The reference-faithful model at tiny width (``conv_style="2d"`` for
+    the generator, 4-channel 5×5 convs, and the critic, 4 → 8, 8 channels;
+    both with LayerNorms) and two JAX WGAN-GP steps from it (one compile)
+    on numpy batches: (cfg, [state 0, 1, 2], [metrics 1, 2], [batches])."""
+    cfg = _cfg()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, conv_style="2d", gen_norm="layer",
+                                                critic_norm="layer"))
+    L, F, nc = cfg.data.label_dim, cfg.vocoder.feature_size, cfg.train.n_critic
+    states = [jax.jit(lambda: jax_make_gan_state(cfg, L, seed=9))()]
+    rng = np.random.default_rng(12)
+    batches = [(_batch(rng, L, F, (nc,)), _batch(rng, L, F)) for _ in range(2)]
+    step, metrics = _jax_wgan_step(cfg), []
+    for cb, gb in batches:
+        j, m = step(states[-1], jax.tree.map(jnp.asarray, cb), jax.tree.map(jnp.asarray, gb))
+        states.append(j)
+        metrics.append(m)
+    return cfg, states, metrics, batches
+
+
+def test_2d_wgan_step_matches_jax(jax_2d_steps):
+    """One step of the 2d model with both norms, from the JAX init's
+    weights, at the tolerances above."""
+    cfg, states, metrics, batches = jax_2d_steps
+    state = _port_state(cfg, states[0], cfg.data.label_dim)
+    assert state.gen.spec_in.weight.dim() == state.critic.spec_in.weight.dim() == 4
+    _check_port_step(cfg, state, states[0], states[1], metrics[0], *batches[0])
+
+
+def test_2d_adam_state_from_a_jax_step_continues_like_for_like(jax_2d_steps):
+    """The port loads the JAX state after one step of the 2d model (both
+    nets' weights and optax Adam moments, the Conv2d kernels and the
+    LayerNorms among them) and takes the second step as JAX takes it."""
+    cfg, states, metrics, batches = jax_2d_steps
+    state = _port_state(cfg, states[1], cfg.data.label_dim)
+    for opt, module, jts in ((state.gen_opt, state.gen, states[1].gen),
+                             (state.critic_opt, state.critic, states[1].critic)):
+        weights.load_optax_adam_state(opt, module, jax.tree.map(np.asarray, jts.opt_state[0]))
+    state.step = 1
+    _check_port_step(cfg, state, states[1], states[2], metrics[1], *batches[1])
 
 
 def test_wgan_step_unfused_critic_pass_matches_fused():
