@@ -12,9 +12,11 @@ f0 head (``generator="cnn_blstm"``), and the BGRU generator
 direction, a readout to 99 features); config 3's served features go
 through the default PML vocoder (``vocoders.get_vocoder(VocoderConfig())
 .synthesize_batch``, closed loop, 2 passes), the two calls ``cli synth``
-makes; and config 3 trains for epochs through ``training.Trainer``, is
-resumed from its checkpoints and served from the best one. Phases, each of
-which raises on failure (the script exits 0 only when all passed):
+makes; config 3 trains for epochs through ``training.Trainer``, is
+resumed from its checkpoints and served from the best one; and the
+generators and the synthesis are exported (``eval/export.py``, ``cli
+export``) and served from the reloaded artifacts. Phases, each of which
+raises on failure (the script exits 0 only when all passed):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``percivaltts_tpu_torch/csrc`` (one nvcc per
@@ -140,7 +142,29 @@ which raises on failure (the script exits 0 only when all passed):
    with and without ``ps_shift_snap``, ``ps_shift_nm_only``,
    ``psync=False``), each differing from the default analysis;
    10e. 10a's model over "te" features through the CLI as phase 9c
-   (WGAN-GP, 1 epoch of 2 steps).
+   (WGAN-GP, 1 epoch of 2 steps);
+11. the serving export (``eval/export.py``; the kernels run inside the
+   exported graphs as the registered operators ``percival::*``):
+   11a. config 3 (phase 4's seeded weights) exported at bounds 256 and 512,
+   batch 1 and 8, saved and reloaded on the card; phase 4's requests that
+   fit served through the artifacts equal, bit for bit, the live generator
+   on the same bucket-bound padded batches; 1 BiLSTM forward a call on the
+   tensor-core route, counted inside the artifact; a 1,500-frame request
+   refused; export, save and load seconds and bytes per bound; the batched
+   artifacts' median serve beside eager ``serve``'s;
+   11b. the same for the BGRU at bound 256 (2 BiGRU forwards a call);
+   11d. ``cli export`` on phase 8's workdir (bounds 256 and 512, the
+   default PML synthesis), whose artifacts turn the test label files into
+   features (within phase 4's tolerance of ``cli synth``'s) and wavs;
+   11c. (after 11d) the default PML synthesis (closed loop, 2 passes; 11d's
+   artifact at bound 256) and config 4's Griffin-Lim exported at bound 256
+   and reloaded: the served requests of 129–256 frames rendered equal to
+   ``synthesize_batch(seed=0, chunk=1)`` bit for bit, 7 framings and 6
+   overlap-adds (PML) or 64 and 130 (Griffin-Lim) counted inside each
+   artifact call, ms a call beside ``synthesize_batch``'s;
+   11e. the operators' host cost: an overlap-add through the op against the
+   eager wrapper (the same CUDA function without the dispatcher), and
+   Griffin-Lim's 388 launches both ways.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path and read just after it; launches made to compare a kernel with its twin are not
@@ -326,6 +350,17 @@ TE_LAUNCHES = {"frame_window": 2, "overlap_add": 4}
 TE_COPY_UTTS = 8
 # the analyses held against the twins on phase 8's demo wavs: (label,
 # VocoderConfig fields, AnalysisParams fields)
+# phase 11: the serving export
+EXPORT_BOUNDS = (256, 512)  # config 3's artifacts; the requests past 512 frames are refused
+EXPORT_BATCH = 8  # the throughput artifact's rows a call (phase 4's chunk)
+BGRU_EXPORT_BOUND = 256
+SYN_BOUND = 256  # the synthesis artifacts' bound: requests of 129–256 frames render there
+SYN_LAUNCHES = {"pml": {"frame_window": 7, "overlap_add": 6},  # closed loop, 2 passes
+                "melspec": {"frame_window": 64, "overlap_add": 130}}  # 64 Griffin-Lim iterations
+N_TIMED_EXPORT = 7
+DISPATCH_CALLS = 2000  # op calls timed against the CUDA kernel's function called directly
+N_DISPATCH_VOCODES = 5
+
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
     ("pml ps_reflect", {}, dict(ps_reflect=True)),
@@ -1969,6 +2004,350 @@ def _analysis_variants_path(dev, qs: dict) -> dict:
     return out
 
 
+def _export_generator_path(dev, kind: str, bounds) -> dict:
+    """Phase 11a/11b for one generator (phase 4's seeded weights): export at
+    ``bounds``, batch 1 and ``EXPORT_BATCH``, save, reload on the card and
+    serve phase 4's requests that fit; the artifacts' rows equal, bit for
+    bit, the live generator run on the same bucket-bound padded batches
+    (normalized and denormalized on the host); the recurrent forwards
+    launched inside the artifact calls, on the tensor-core route; a request
+    past the largest bound refused; export, save and load seconds, bytes
+    per bound, and the median serve through the batched artifact beside
+    eager ``serve``'s."""
+    import dataclasses
+    import os
+    import shutil
+
+    from percivaltts_tpu_torch import ModelConfig, VocoderConfig
+    from percivaltts_tpu_torch.eval.export import ExportedGenerator, export_generator, write_export
+    from percivaltts_tpu_torch.eval.serve import serve
+    from percivaltts_tpu_torch.models import build_generator
+
+    voc = VocoderConfig()
+    gen = build_generator(ModelConfig(**MODELS[kind]), voc, LABEL_DIM,
+                          generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    labs, in_stats, out_stats = _requests(voc.feature_size)
+    fit = [lab for lab in labs if lab.shape[0] <= max(bounds)]
+    fwd, per_call = ("bigru_fwd", 2) if _is_gru(kind) else ("bilstm_fwd", 1)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"export_{kind}")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"counts": {name: 0 for name in _kernels()}, "routes": {n: {"mma": 0, "simt": 0}
+                                                                   for n in ROUTED}}
+    for batch in (1, EXPORT_BATCH):
+        d = os.path.join(root, f"b{batch}")
+        arts, secs = {}, {}
+        for b in bounds:
+            t = time.perf_counter()
+            arts.update(export_generator(gen, in_stats, out_stats, LABEL_DIM, (b,), batch=batch))
+            secs[b] = time.perf_counter() - t
+        t = time.perf_counter()
+        write_export(d, arts, LABEL_DIM, voc.feature_size, dataclasses.asdict(voc), batch=batch)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ex = ExportedGenerator(d, device=dev)
+        load_s = time.perf_counter() - t
+        sizes = {b: os.path.getsize(os.path.join(d, f"gen_t{b}.pt2")) for b in bounds}
+        print(f"[export {kind}] batch {batch}: export s by bound "
+              + ", ".join(f"{b}: {v:.3f}" for b, v in secs.items())
+              + f"; save {save_s:.3f} s, load {load_s:.3f} s; bytes by bound {sizes}")
+
+        groups = ex.groups(fit)
+        _zero_counts()
+        got = ex.predict_batch(fit)
+        torch.cuda.synchronize()
+        counts, routes = _counts(), _routes()
+        print(f"[export {kind}] batch {batch}: {len(fit)} requests in {len(groups)} artifact "
+              f"calls {[(b, len(g)) for b, g in groups]}; launches {counts}")
+        if not (counts[fwd] == per_call * len(groups) and sum(counts.values()) == counts[fwd]):
+            raise AssertionError(f"{counts} launches for {len(groups)} artifact calls")
+        _all_mma(f"export {kind}", routes)
+        for name in out["counts"]:
+            out["counts"][name] += counts[name]
+        for name, by_route in routes.items():
+            for route, n in by_route.items():
+                out["routes"][name][route] += n
+
+        unequal = []
+        for bound, group in groups:
+            x = np.zeros((batch, bound, LABEL_DIM), np.float32)
+            for r, j in enumerate(group):
+                x[r, : fit[j].shape[0]] = in_stats.normalize(fit[j])
+            with torch.inference_mode():
+                y = gen(torch.from_numpy(x).to(dev)).float().cpu().numpy()
+            for r, j in enumerate(group):
+                n = fit[j].shape[0]
+                want = out_stats.denormalize(y[r, :n]).astype(np.float32)
+                if got[j].shape != want.shape or not np.array_equal(got[j], want):
+                    unequal.append((n, float(np.abs(got[j] - want).max())))
+        print(f"[export {kind}] batch {batch}: artifact rows against the live generator under "
+              f"the same padding: unequal {unequal}")
+        if unequal:
+            raise AssertionError(f"the {kind} artifact disagrees with the live generator")
+        longest = max(labs, key=len)
+        try:
+            ex(longest)
+        except ValueError as e:
+            print(f"[export {kind}] a {longest.shape[0]}-frame request is refused: {e}")
+        else:
+            raise AssertionError(f"a {longest.shape[0]}-frame request past the bounds was served")
+
+        if batch == EXPORT_BATCH:
+            lat = {"artifact": [], "eager serve": []}
+            for _ in range(N_TIMED_EXPORT):
+                for label, fn in (("artifact", lambda: ex.predict_batch(fit)),
+                                  ("eager serve", lambda: serve(gen, fit, in_stats, out_stats))):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    lat[label].append((time.perf_counter() - t) * 1e3)
+            med = {k: statistics.median(v) for k, v in lat.items()}
+            print(f"[time] export {kind}: {len(fit)} requests "
+                  f"({sum(lab.shape[0] for lab in fit)} frames), median of {N_TIMED_EXPORT}: "
+                  f"batch-{batch} artifacts {med['artifact']:.3f} ms (min "
+                  f"{min(lat['artifact']):.3f}), eager serve {med['eager serve']:.3f} ms (min "
+                  f"{min(lat['eager serve']):.3f})")
+            out.update(serve_ms=med, export_s=secs, save_s=save_s, load_s=load_s, bytes=sizes)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _mel_requests(dev):
+    """Phase 9a's config-4 features: phase 4's requests served by the
+    ``cnn`` generator with 80 mel outputs (seeded as in phase 9a)."""
+    from percivaltts_tpu_torch import ModelConfig, VocoderConfig
+    from percivaltts_tpu_torch.eval.serve import serve
+    from percivaltts_tpu_torch.models import build_generator
+
+    vcfg = VocoderConfig(kind="melspec", mel_size=80)
+    gen = build_generator(ModelConfig(generator="cnn"), vcfg, LABEL_DIM,
+                          generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    labs, in_stats, out_stats = _requests(vcfg.feature_size)
+    return serve(gen, labs, in_stats, out_stats)
+
+
+def _export_synthesis_path(dev, card: str, feats_by_kind: dict, pml_syn) -> dict:
+    """Phase 11c: the default PML synthesis (closed loop, 2 passes; the
+    ``syn_t256.pt2`` that phase 11d's ``cli export`` wrote, loaded there as
+    ``pml_syn``) and config 4's Griffin-Lim exported here at ``SYN_BOUND``,
+    saved and reloaded on the card; each served request of 129–256 frames
+    rendered by the artifact equals ``synthesize_batch([feats], seed=0,
+    chunk=1)`` (the same 256-frame padding, the same noise), bit for bit;
+    the framing and overlap-add launches counted inside each artifact call;
+    Griffin-Lim's export, save and load seconds and bytes, and the median
+    ms of an artifact call beside ``synthesize_batch``'s."""
+    import dataclasses
+    import os
+    import shutil
+
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.eval.export import ExportedSynthesizer, export_synthesis, write_export
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "export_synthesis")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for kind, vcfg in (("pml", VocoderConfig()), ("melspec", VocoderConfig(kind="melspec",
+                                                                            mel_size=80))):
+        voc = get_vocoder(vcfg, device=dev)
+        sel = [f for f in feats_by_kind[kind] if SYN_BOUND - voc.frame_multiple < f.shape[0]
+               <= SYN_BOUND]
+        run = {}
+        if kind == "pml":
+            syn = pml_syn
+            print(f"[export pml synthesis] ({card}) phase 11d's cli export artifacts, bounds "
+                  f"{syn.bounds}")
+        else:
+            d = os.path.join(root, kind)
+            t = time.perf_counter()
+            arts = export_synthesis(voc, (SYN_BOUND,))
+            run["export_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            write_export(d, {}, LABEL_DIM, voc.feature_size, dataclasses.asdict(vcfg),
+                         syn_artifacts=arts, hop=vcfg.shift_samples)
+            run["save_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            syn = ExportedSynthesizer(d, device=dev)
+            run["load_s"] = time.perf_counter() - t
+            run["bytes"] = os.path.getsize(os.path.join(d, f"syn_t{SYN_BOUND}.pt2"))
+            run["nodes"] = len(arts[SYN_BOUND].graph.nodes)
+            print(f"[export {kind} synthesis] ({card}) bound {SYN_BOUND}: {run['nodes']} graph "
+                  f"nodes; export {run['export_s']:.3f} s, save {run['save_s']:.3f} s, load "
+                  f"{run['load_s']:.3f} s; {run['bytes']} bytes")
+        want_counts = {name: SYN_LAUNCHES[kind].get(name, 0) * len(sel) for name in _kernels()}
+        _zero_counts()
+        wavs = [syn(f) for f in sel]
+        torch.cuda.synchronize()
+        counts = _counts()
+        print(f"[export {kind} synthesis] {len(sel)} requests ({[f.shape[0] for f in sel]} "
+              f"frames), launches inside the artifact calls {counts}")
+        if counts != want_counts:
+            raise AssertionError(f"the {kind} synthesis artifact launched {counts}, not "
+                                 f"{want_counts}")
+        unequal = []
+        for f, w in zip(sel, wavs):
+            want = voc.synthesize_batch([f], seed=0, chunk=1)[0]
+            if w.shape != want.shape or not np.isfinite(w).all() or not np.array_equal(w, want):
+                unequal.append((f.shape[0], float(np.abs(w - want).max())))
+        print(f"[export {kind} synthesis] artifact against synthesize_batch(seed=0): unequal "
+              f"{unequal}")
+        if not sel or unequal:
+            raise AssertionError(f"the {kind} synthesis artifact disagrees with synthesize_batch")
+        lat = {"artifact": [], "synthesize_batch": []}
+        for _ in range(N_TIMED_EXPORT):
+            for label, fn in (("artifact", lambda: syn(sel[0])),
+                              ("synthesize_batch",
+                               lambda: voc.synthesize_batch([sel[0]], seed=0, chunk=1))):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                lat[label].append((time.perf_counter() - t) * 1e3)
+        med = {k: statistics.median(v) for k, v in lat.items()}
+        print(f"[time] export {kind} synthesis ({card}): one {sel[0].shape[0]}-frame request, "
+              f"median of {N_TIMED_EXPORT}: artifact {med['artifact']:.3f} ms (min "
+              f"{min(lat['artifact']):.3f}), synthesize_batch {med['synthesize_batch']:.3f} ms "
+              f"(min {min(lat['synthesize_batch']):.3f})")
+        out[kind] = dict(run, counts=counts, ms=med)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _cli_export_path(dev, card: str, qs: dict) -> dict:
+    """Phase 11d: ``cli export`` on phase 8's quick-start workdir (config 1,
+    the best checkpoint's EMA, bounds 256/512, the default PML synthesis),
+    then its artifacts on the card turn the test split's label files into
+    features and wavs: the features within phase 4's tolerance of those
+    ``cli synth`` serves from the same checkpoint, 7 framings and 6
+    overlap-adds a wav, finite wavs of nf·80 samples."""
+    import os
+
+    from percivaltts_tpu_torch import cli
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.data.hts_labels import QuestionSet, binarize_label_file
+    from percivaltts_tpu_torch.eval.export import ExportedGenerator, ExportedSynthesizer
+    from percivaltts_tpu_torch.eval.serve import serve
+    from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
+    from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
+
+    cfg_path = os.path.join(qs["root"], "config1.json")
+    outdir = os.path.join(qs["root"], "export")
+    cfg = Configuration.load(cfg_path)
+    t = time.perf_counter()
+    if cli.main(["export", "--config", cfg_path, "--out", outdir], device=dev) != 0:
+        raise AssertionError("cli export failed")
+    export_s = time.perf_counter() - t
+    with open(os.path.join(outdir, "manifest.json")) as f:
+        manifest = json.load(f)
+    sizes = {n: os.path.getsize(os.path.join(outdir, n)) for n in sorted(os.listdir(outdir))
+             if n.endswith(".pt2")}
+    print(f"[cli export] ({card}) {export_s:.2f} s; manifest bounds {manifest['bounds']}, "
+          f"synthesis {manifest['synthesis']}; bytes {sizes}")
+    if manifest["bounds"] != QS_BOUNDS or manifest["synthesis"]["bounds"] != QS_BOUNDS:
+        raise AssertionError(f"cli export wrote {manifest}")
+
+    questions = QuestionSet.from_hed(cfg.data.question_file)
+    label_dir = os.path.join(cfg.data.corpus_dir, cfg.data.label_dir)
+    ids = qs["corpus"].test.ids
+    labs = [binarize_label_file(os.path.join(label_dir, u + ".lab"), questions,
+                                cfg.vocoder.shift_ms / 1000.0) for u in ids]
+    t = time.perf_counter()
+    ex, syn = ExportedGenerator(outdir, device=dev), ExportedSynthesizer(outdir, device=dev)
+    load_s = time.perf_counter() - t
+    _zero_counts()
+    t = time.perf_counter()
+    feats = ex.predict_batch(labs)
+    wavs = [syn(f) for f in feats]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    counts = _counts()
+    want = {name: 0 for name in counts}
+    want.update({name: n * len(labs) for name, n in SYN_LAUNCHES["pml"].items()})
+    audio_s = sum(len(w) for w in wavs) / cfg.vocoder.fs
+    print(f"[cli export] {len(labs)} test label files → features and wavs through the "
+          f"artifacts in {serve_s:.3f} s ({audio_s:.2f} s of audio, load {load_s:.2f} s); "
+          f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"the exported chain launched {counts}, not {want}")
+    for lab, f, w in zip(labs, feats, wavs):
+        n = lab.shape[0]
+        if f.shape != (n, 99) or w.shape != (n * 80,) or not np.isfinite(w).all():
+            raise AssertionError(f"bad exported output for a {n}-frame label file")
+
+    from percivaltts_tpu_torch.data.normalize import NormStats
+
+    in_stats = NormStats.load(os.path.join(cfg.workdir, "in_stats.npz"))
+    out_stats = NormStats.load(os.path.join(cfg.workdir, "out_stats.npz"))
+    ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints"))
+    state = ckpt.restore(make_gan_state(cfg, labs[0].shape[1], device=dev), ckpt.best_step())
+    served = serve(eval_generator(state), labs, in_stats, out_stats)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(feats, served))
+    print(f"[cli export] max|exported - cli synth's served features| = {err:.3g} (tol "
+          f"{SERVE_TOL['cnn_blstm']:g})")
+    if not err <= SERVE_TOL["cnn_blstm"]:
+        raise AssertionError("the exported generator disagrees with cli synth's features")
+    return {"counts": counts, "export_s": export_s, "bytes": sizes, "serve_s": serve_s,
+            "audio_s": audio_s, "err": err, "load_s": load_s, "syn": syn}
+
+
+def _dispatch_cost(dev, card: str, mel_feats) -> dict:
+    """Phase 11e: what the registered operators would cost eager code. One
+    overlap-add of one frame through the op (``torch.ops.percival``, as an
+    exported graph calls it) against the eager wrapper
+    (``frames_cuda.overlap_add``, which calls the same CUDA function without
+    the dispatcher), ``DISPATCH_CALLS`` calls each, host µs a call; then
+    config 4's Griffin-Lim vocode (388 launches) with ``ops/stft.py``
+    calling the ops and calling the wrappers, in turns (op, eager, eager,
+    op), medians of ``N_DISPATCH_VOCODES``."""
+    import types
+
+    from percivaltts_tpu_torch import VocoderConfig
+    from percivaltts_tpu_torch.ops import frames_cuda as fc
+    from percivaltts_tpu_torch.ops import stft
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    frames = torch.randn(1, 1, 80, device=dev)
+    per_call = {}
+    for label, fn in (("op", torch.ops.percival.overlap_add), ("eager", fc.overlap_add)) * 2:
+        fn(frames, 80, 80)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn(frames, 80, 80)
+        torch.cuda.synchronize()
+        per_call.setdefault(label, []).append((time.perf_counter() - t) / DISPATCH_CALLS * 1e6)
+
+    voc = get_vocoder(VocoderConfig(kind="melspec", mel_size=80), device=dev)
+    # ops/stft.py reaches the kernels as frames_cuda.frame_window / overlap_add
+    through_op = types.SimpleNamespace(frame_window=torch.ops.percival.frame_window,
+                                       overlap_add=torch.ops.percival.overlap_add)
+    vocode = {}
+    try:
+        for label in ("op", "eager", "eager", "op"):
+            stft.frames_cuda = through_op if label == "op" else fc
+            voc.synthesize_batch(mel_feats)
+            lat = []
+            for _ in range(N_DISPATCH_VOCODES):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                voc.synthesize_batch(mel_feats)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+            vocode.setdefault(label, []).append(statistics.median(lat))
+    finally:
+        stft.frames_cuda = fc
+    us = {k: statistics.mean(v) for k, v in per_call.items()}
+    ms = {k: statistics.mean(v) for k, v in vocode.items()}
+    print(f"[dispatch] ({card}) one overlap-add a call, host µs: through the op "
+          f"{per_call['op']}, eager {per_call['eager']}: {us['op'] - us['eager']:.2f} µs a call "
+          f"for the operator")
+    print(f"[dispatch] ({card}) Griffin-Lim vocode (388 launches), medians of "
+          f"{N_DISPATCH_VOCODES} in turns op/eager/eager/op: op {vocode['op']} ms, eager "
+          f"{vocode['eager']} ms: {ms['op'] - ms['eager']:.3f} ms a vocode, "
+          f"{(ms['op'] - ms['eager']) / 388 * 1e3:.2f} µs a launch")
+    return {"us": us, "vocode_ms": ms}
+
+
 def _dsp_bound(name: str, shape) -> tuple:
     """(least ms, "bytes" or "operations") of one f32 DSP call: inputs read
     once, outputs written once, against its multiplies or adds at the f32
@@ -2210,9 +2589,27 @@ def main() -> int:
     for name, by_route in cli10["train_routes"].items():
         for route, n in by_route.items():
             routes[name][route] += n
+    t_phase11 = time.perf_counter()
+    # 11. the serving export: config 3 and the BGRU as generator artifacts,
+    # the PML and Griffin-Lim synthesis artifacts, cli export on phase 8's
+    # workdir, and what the registered operators cost the host
+    exported = {"cnn_blstm": _export_generator_path(dev, "cnn_blstm", EXPORT_BOUNDS),
+                "bgru": _export_generator_path(dev, "bgru", (BGRU_EXPORT_BOUND,))}
+    cli11 = _cli_export_path(dev, smi, qs)
+    mel_feats = _mel_requests(dev)
+    syn11 = _export_synthesis_path(dev, smi, {"pml": serve["cnn_blstm"]["feats"],
+                                              "melspec": mel_feats}, cli11.pop("syn"))
+    dispatch = _dispatch_cost(dev, smi, mel_feats)
+    for kind, run in exported.items():
+        paths[f"export_{kind}"] = run["counts"]
+        for name, by_route in run["routes"].items():
+            for route, n in by_route.items():
+                routes[name][route] += n
+    paths.update({f"export_{kind}_synthesis": run["counts"] for kind, run in syn11.items()})
+    paths["cli_export"] = cli11["counts"]
     shutil.rmtree(qs["root"], ignore_errors=True)
     print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
-          f"{time.perf_counter() - t_phase10:.1f} s")
+          f"{t_phase11 - t_phase10:.1f} s, phase 11 {time.perf_counter() - t_phase11:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -2302,6 +2699,23 @@ def main() -> int:
           f"{te['dsp_device_ms']} ms a vocode, launches {te['counts']}; analysis of the demo wavs "
           f"{te['analysis']['wall_s']:.3f} s; analysis variants "
           + ", ".join(f"{label} {run['wall_s']:.3f} s" for label, run in variants.items()))
+    for kind, run in exported.items():
+        print(f"[summary] export {kind} ({smi}): batch-{EXPORT_BATCH} artifacts "
+              f"{run['serve_ms']['artifact']:.3f} ms against eager serve "
+              f"{run['serve_ms']['eager serve']:.3f} ms (median); export s {run['export_s']}, "
+              f"save {run['save_s']:.3f} s, load {run['load_s']:.3f} s, bytes {run['bytes']}")
+    for kind, run in syn11.items():
+        print(f"[summary] export {kind} synthesis ({smi}): artifact {run['ms']['artifact']:.3f} "
+              f"ms against synthesize_batch {run['ms']['synthesize_batch']:.3f} ms (median)"
+              + ("; cli export's artifact" if kind == "pml" else
+                 f"; {run['nodes']} nodes, export {run['export_s']:.2f} s, save "
+                 f"{run['save_s']:.2f} s, load {run['load_s']:.2f} s, {run['bytes']} bytes"))
+    print(f"[summary] cli export ({smi}): {cli11['export_s']:.2f} s (load of its artifacts "
+          f"{cli11['load_s']:.2f} s), bytes {cli11['bytes']}; "
+          f"{cli11['audio_s']:.2f} s of audio served through the artifacts in "
+          f"{cli11['serve_s']:.3f} s; dispatch: the operator {dispatch['us']['op']:.2f} µs a "
+          f"call against {dispatch['us']['eager']:.2f} eager, Griffin-Lim "
+          f"{dispatch['vocode_ms']['op']:.3f} against {dispatch['vocode_ms']['eager']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

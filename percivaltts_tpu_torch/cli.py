@@ -1,6 +1,7 @@
 """Command-line entry points of the port (counterpart of
 ``percivaltts_tpu/cli.py``): the README's quick start, demo corpus →
-compose → train → generate + measures, and label files → wavs.
+compose → train → generate + measures, label files → wavs, the serving
+export and the training curves.
 
 Usage:
     python -m percivaltts_tpu_torch.cli demo --out corpus/ [--num 20]
@@ -11,6 +12,9 @@ Usage:
         [--checkpoint N | --latest] [--split test|valid] [--no-wav] [--save-features]
     python -m percivaltts_tpu_torch.cli measures --config cfg.json --ref D1 --pred D2
     python -m percivaltts_tpu_torch.cli synth --config cfg.json [--weights W.npz] [--out DIR] labels/*.lab
+    python -m percivaltts_tpu_torch.cli export --config cfg.json [--out DIR] [--checkpoint N]
+        [--batch B] [--no-synth]
+    python -m percivaltts_tpu_torch.cli plot --config cfg.json
 
 ``demo`` writes the same corpus and ``config.json`` as the JAX package's
 ``cli demo``. ``compose`` analyzes the corpus with the configured vocoder
@@ -23,10 +27,14 @@ predicted wavs (and ``.cmp`` feature files) under ``<workdir>/generated``.
 ``measures`` compares two directories of feature files. ``synth`` serves
 the best checkpoint's generator (its EMA when the run kept one), or a
 flax-path ``.npz`` given with ``--weights``, and writes one ``<uid>.wav``
-per label file through the configured vocoder.
+per label file through the configured vocoder. ``export`` writes the best
+(or ``--checkpoint N``) checkpoint's generator and the vocoder's synthesis
+as ``torch.export`` artifacts, one per bucket bound, and a manifest under
+``<workdir>/export`` (``eval/export.py``: ``ExportedGenerator`` and
+``ExportedSynthesizer`` serve them without model or vocoder code).
+``plot`` draws ``<workdir>/metrics.jsonl``'s epochs into ``curves.png``.
 
-Not ported yet: ``--mesh`` and ``--distributed`` (ROADMAP queue 1 item 7),
-``export`` and ``plot`` (item 8).
+Not ported yet: ``--mesh`` and ``--distributed`` (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import glob
 import json
 import os
 import sys
+import time
 
 import torch
 
@@ -299,6 +308,58 @@ def cmd_synth(args, device) -> int:
     return 0
 
 
+def cmd_export(args, device) -> int:
+    """The best (or ``--checkpoint N``) checkpoint's generator, its EMA
+    weights when the run kept them, as label→features artifacts, and
+    unless ``--no-synth`` the configured vocoder's default synthesis as
+    features→waveform artifacts, one per bucket bound, exported on
+    ``device`` (``eval/export.py``)."""
+    from percivaltts_tpu_torch.data.normalize import NormStats
+    from percivaltts_tpu_torch.eval.export import export_generator, export_synthesis, write_export
+    from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
+    from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
+    from percivaltts_tpu_torch.vocoders import get_vocoder
+
+    cfg = Configuration.load(args.config)
+    in_stats = NormStats.load(os.path.join(cfg.workdir, "in_stats.npz"))
+    out_stats = NormStats.load(os.path.join(cfg.workdir, "out_stats.npz"))
+    label_dim = int(in_stats.shift.shape[0])
+    ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints"))
+    step = args.checkpoint if args.checkpoint is not None else ckpt.best_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt.directory} to export (train one first)")
+    state = ckpt.restore(make_gan_state(cfg, label_dim, device=device), step)
+    kind = "EMA" if state.ema is not None else "live"
+    print_log(f"exporting on {device} from checkpoint step {step} ({kind} generator weights)")
+    bounds = cfg.data.bucket_bounds
+    t0 = time.perf_counter()
+    artifacts = export_generator(eval_generator(state), in_stats, out_stats, label_dim, bounds,
+                                 batch=args.batch)
+    syn = None
+    if not args.no_synth:
+        syn = export_synthesis(get_vocoder(cfg.vocoder, device), bounds, batch=args.batch)
+        print_log(f"exported the synthesis ({cfg.vocoder.kind}, closed_loop="
+                  f"{cfg.vocoder.closed_loop}) at bounds {sorted(syn)}")
+    outdir = args.out or os.path.join(cfg.workdir, "export")
+    mpath = write_export(outdir, artifacts, label_dim, int(out_stats.shift.shape[0]),
+                         dataclasses.asdict(cfg.vocoder), batch=args.batch, syn_artifacts=syn,
+                         hop=cfg.vocoder.shift_samples)
+    sizes = {name: os.path.getsize(os.path.join(outdir, name))
+             for name in sorted(os.listdir(outdir)) if name.endswith(".pt2")}
+    print_log(f"wrote {len(sizes)} artifacts to {outdir} in {time.perf_counter() - t0:.1f} s "
+              f"(bytes: {sizes}); manifest {mpath}")
+    return 0
+
+
+def cmd_plot(args, device) -> int:
+    """``<workdir>/metrics.jsonl``'s epoch records → ``curves.png``."""
+    from percivaltts_tpu_torch.utils.curves import plot_curves
+
+    cfg = Configuration.load(args.config)
+    print_log(f"wrote {plot_curves(os.path.join(cfg.workdir, 'metrics.jsonl'))}")
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="percivaltts-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -368,6 +429,22 @@ def _parser() -> argparse.ArgumentParser:
     ps.add_argument("--out", default=None)
     ps.add_argument("labels", nargs="+", help="label file paths or globs")
     ps.set_defaults(fn=cmd_synth)
+
+    px = sub.add_parser("export", help="export the generator and the synthesis as "
+                        "torch.export serving artifacts")
+    px.add_argument("--config", required=True)
+    px.add_argument("--out", default=None, help="output dir (default <workdir>/export)")
+    px.add_argument("--checkpoint", type=int, default=None)
+    px.add_argument("--batch", type=int, default=1,
+                    help="rows per artifact call (1 = latency serving; >1 = throughput "
+                    "serving, utterances packed batch rows a call)")
+    px.add_argument("--no-synth", action="store_true", dest="no_synth",
+                    help="skip the synthesis (features→waveform) artifacts")
+    px.set_defaults(fn=cmd_export)
+
+    pp = sub.add_parser("plot", help="plot training curves from metrics.jsonl")
+    pp.add_argument("--config", required=True)
+    pp.set_defaults(fn=cmd_plot)
     return p
 
 

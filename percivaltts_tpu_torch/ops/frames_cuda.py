@@ -11,7 +11,10 @@ overlap-add of every ``ops/stft.py`` call on the card.
 CUDA tensors launch ``csrc/frame_window.cu`` / ``csrc/overlap_add.cu`` (or
 raise), CPU tensors take ``frame_window_reference`` / ``overlap_add_reference``,
 the shifted-view scheme of ``percivaltts_tpu/ops/stft.py:37-100``. There is no
-other fallback. Bounds on the card (both bytes, at 3.35 TB/s), and what each
+other fallback. Both are also the registered operators
+``percival::frame_window`` / ``percival::overlap_add`` (fake kernels beside
+them), which the wrappers call while ``torch.export`` traces, so that an
+exported graph launches the same kernels. Bounds on the card (both bytes, at 3.35 TB/s), and what each
 kernel's design does about them, are in the kernels' sources;
 ``ops/frames_layout.py`` replays each kernel's partition on the CPU.
 """
@@ -113,19 +116,11 @@ def _cuda_device(name: str, tensors, contiguous: bool = True) -> torch.device:
     return device
 
 
-def frame_window(x, frame_length: int, hop: int, window=None):
-    """Centred framing × window, ``(B, n)`` → ``(B, ceil(n / hop), frame_length)``.
-
-    CUDA tensors launch the hand-written kernel; CPU tensors run
-    :func:`frame_window_reference`. Raises on mixed devices, another dtype
-    than float32/bfloat16 (the window's must be the signal's), a shape
-    mismatch, non-contiguous CUDA inputs, CUDA inputs that require a gradient
-    under grad mode, or a launch error. Every launch adds one to
-    ``frame_window.launches``."""
+def _frame_window_cuda(x, frame_length: int, hop: int, window=None):
+    """The CUDA kernel of ``percival::frame_window``: checks, one launch of
+    ``csrc/frame_window.cu``, one count on ``frame_window.launches``."""
     _check_frame_args(x, frame_length, hop, window)
     device = _cuda_device("frame_window", (x,) if window is None else (x, window))
-    if device.type == "cpu":
-        return frame_window_reference(x, frame_length, hop, window)
 
     from percivaltts_tpu_torch import _build
 
@@ -143,23 +138,11 @@ def frame_window(x, frame_length: int, hop: int, window=None):
     return out
 
 
-frame_window.launches = 0
-
-
-def overlap_add(frames, hop: int, out_length: int):
-    """Centred overlap-add, ``(B, nf, fl)`` → ``(B, out_length)``.
-
-    CUDA tensors launch the hand-written kernel, which reads the frames
-    through their batch and frame strides (0 included: a broadcast row is
-    read without a copy); CPU tensors run :func:`overlap_add_reference`.
-    Raises on another dtype than float32/bfloat16, an ``out_length`` past
-    the samples the frames reach, CUDA frames whose last axis is not
-    contiguous, frames that require a gradient under grad mode, or a launch
-    error. Every launch adds one to ``overlap_add.launches``."""
+def _overlap_add_cuda(frames, hop: int, out_length: int):
+    """The CUDA kernel of ``percival::overlap_add``: checks, one launch of
+    ``csrc/overlap_add.cu``, one count on ``overlap_add.launches``."""
     _check_ola_args(frames, hop, out_length)
     device = _cuda_device("overlap_add", (frames,), contiguous=False)
-    if device.type == "cpu":
-        return overlap_add_reference(frames, hop, out_length)
     if frames.stride(-1) != 1 and frames.shape[-1] > 1:
         raise ValueError("overlap_add needs CUDA frames whose last axis is contiguous, "
                          f"got strides {frames.stride()}")
@@ -178,6 +161,79 @@ def overlap_add(frames, hop: int, out_length: int):
     _build.check(err, "overlap_add launch")
     overlap_add.launches += 1
     return out
+
+
+# The two kernels as registered operators, which a graph that ``torch.export``
+# traces holds (their fake kernels check the arguments and give the output's
+# shape and dtype); the graph's calls launch the same CUDA functions as eager
+# code, counts included. Eager calls skip the dispatcher, whose few µs a call
+# (on Griffin-Lim's 388 launches a vocode) showed on the card. CPU tensors
+# take the twins, which check their arguments; the CPU overlap-add is copied
+# out of its buffer, as the kernel's output is fresh and contiguous. Mixed
+# devices reach the CUDA function, which refuses them.
+torch.library.define("percival::frame_window",
+                     "(Tensor x, int frame_length, int hop, Tensor? window) -> Tensor")
+torch.library.impl("percival::frame_window", "CUDA", _frame_window_cuda)
+torch.library.impl("percival::frame_window", "CPU", frame_window_reference)
+torch.library.define("percival::overlap_add",
+                     "(Tensor frames, int hop, int out_length) -> Tensor")
+torch.library.impl("percival::overlap_add", "CUDA", _overlap_add_cuda)
+torch.library.impl("percival::overlap_add", "CPU",
+                   lambda frames, hop, out_length:
+                   overlap_add_reference(frames, hop, out_length).clone(
+                       memory_format=torch.contiguous_format))
+
+
+@torch.library.register_fake("percival::frame_window")
+def _frame_window_fake(x, frame_length, hop, window=None):
+    _check_frame_args(x, frame_length, hop, window)
+    B, n = x.shape
+    return x.new_empty((B, _cdiv(n, hop), frame_length))
+
+
+@torch.library.register_fake("percival::overlap_add")
+def _overlap_add_fake(frames, hop, out_length):
+    _check_ola_args(frames, hop, out_length)
+    return frames.new_empty((frames.shape[0], out_length))
+
+
+def frame_window(x, frame_length: int, hop: int, window=None):
+    """Centred framing × window, ``(B, n)`` → ``(B, ceil(n / hop), frame_length)``;
+    the operator ``percival::frame_window`` while ``torch.export`` traces.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run
+    :func:`frame_window_reference`. Raises on mixed devices, another dtype
+    than float32/bfloat16 (the window's must be the signal's), a shape
+    mismatch, non-contiguous CUDA inputs, CUDA inputs that require a gradient
+    under grad mode, or a launch error. Every launch adds one to
+    ``frame_window.launches``, also from inside an exported graph."""
+    if torch.compiler.is_exporting():
+        return torch.ops.percival.frame_window(x, frame_length, hop, window)
+    if x.is_cuda or (window is not None and window.is_cuda):
+        return _frame_window_cuda(x, frame_length, hop, window)
+    return frame_window_reference(x, frame_length, hop, window)
+
+
+frame_window.launches = 0
+
+
+def overlap_add(frames, hop: int, out_length: int):
+    """Centred overlap-add, ``(B, nf, fl)`` → ``(B, out_length)``; the operator
+    ``percival::overlap_add`` while ``torch.export`` traces.
+
+    CUDA tensors launch the hand-written kernel, which reads the frames
+    through their batch and frame strides (0 included: a broadcast row is
+    read without a copy); CPU tensors run :func:`overlap_add_reference`.
+    Raises on another dtype than float32/bfloat16, an ``out_length`` past
+    the samples the frames reach, CUDA frames whose last axis is not
+    contiguous, frames that require a gradient under grad mode, or a launch
+    error. Every launch adds one to ``overlap_add.launches``, also from
+    inside an exported graph."""
+    if torch.compiler.is_exporting():
+        return torch.ops.percival.overlap_add(frames, hop, out_length)
+    if frames.is_cuda:
+        return _overlap_add_cuda(frames, hop, out_length)
+    return overlap_add_reference(frames, hop, out_length)
 
 
 overlap_add.launches = 0

@@ -24,7 +24,9 @@ launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``, everything else
 ``csrc/bigru_fwd.cu``; the BPTT likewise (``bwd_route``):
 ``csrc/bigru_bwd_mma.cu`` or ``csrc/bigru_bwd.cu``. ``bigru_core`` is the
 differentiable entry: it runs the forward kernel, and the BPTT kernel in the
-backward pass.
+backward pass. The forward is also the registered operator
+``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
+traces, so that an exported graph launches it.
 """
 
 from __future__ import annotations
@@ -179,9 +181,44 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     return yf, yb
 
 
+def _bigru_fwd_cuda(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
+    """The CUDA kernel of ``percival::bigru_fwd``: checks, the route, one
+    launch, one count on ``bigru_fwd.launches`` and its route's entry of
+    ``bigru_fwd.routes``."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    _one_device("bigru_fwd", ins, "ops.gru_cuda.bigru_core")
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3)
+    out = fwd_launch(route, *ins)
+    bigru_fwd.launches += 1
+    bigru_fwd.routes[route] += 1
+    return out
+
+
+# The forward kernel as a registered operator (as ``percival::bilstm_fwd``
+# in ops/lstm_cuda.py): an exported graph holds it; CUDA tensors launch, CPU
+# tensors take the twin, the fake kernel checks the arguments and gives the
+# outputs' shapes.
+torch.library.define(
+    "percival::bigru_fwd",
+    "(Tensor gx_f, Tensor gx_b, Tensor wh_f, Tensor wh_b, Tensor bn_f, Tensor bn_b)"
+    " -> (Tensor, Tensor)",
+)
+torch.library.impl("percival::bigru_fwd", "CUDA", _bigru_fwd_cuda)
+torch.library.impl("percival::bigru_fwd", "CPU", lambda *args: bigru_fwd_reference(*args))
+
+
+@torch.library.register_fake("percival::bigru_fwd")
+def _bigru_fwd_fake(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
+    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    T, B, G = gx_f.shape
+    return gx_f.new_empty((T, B, G // 3)), gx_f.new_empty((T, B, G // 3))
+
+
 def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     """Both GRU directions over precomputed input gates, in one launch →
-    ``(y_f, y_b)``.
+    ``(y_f, y_b)``; the operator ``percival::bigru_fwd`` while
+    ``torch.export`` traces.
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, else the CUDA-core one
@@ -190,17 +227,14 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     than float32/bfloat16, a shape mismatch, H > 341 on CUDA, non-contiguous
     CUDA inputs, CUDA inputs that require a gradient under grad mode, or a
     launch error. Every launch adds one to ``bigru_fwd.launches`` and to its
-    route's entry of ``bigru_fwd.routes``."""
-    _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
-    ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
-    device = _one_device("bigru_fwd", ins, "ops.gru_cuda.bigru_core")
-    if device.type == "cpu":
-        return bigru_fwd_reference(*ins)
-    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3)
-    out = fwd_launch(route, *ins)
-    bigru_fwd.launches += 1
-    bigru_fwd.routes[route] += 1
-    return out
+    route's entry of ``bigru_fwd.routes``, also from inside an exported
+    graph."""
+    args = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
+    if torch.compiler.is_exporting():
+        return torch.ops.percival.bigru_fwd(*args)
+    if any(t.is_cuda for t in args):
+        return _bigru_fwd_cuda(*args)
+    return bigru_fwd_reference(*args)
 
 
 bigru_fwd.launches = 0

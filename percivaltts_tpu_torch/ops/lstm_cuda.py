@@ -17,7 +17,9 @@ of 16 up to 128 launches the tensor-core kernel ``csrc/bilstm_fwd_mma.cu``,
 everything else ``csrc/bilstm_fwd.cu``; the BPTT likewise
 (``bwd_route``): ``csrc/bilstm_bwd_mma.cu`` or ``csrc/bilstm_bwd.cu``.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
-and the BPTT kernel in the backward pass.
+and the BPTT kernel in the backward pass. The forward is also the
+registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
+while ``torch.export`` traces, so that an exported graph launches it.
 """
 
 from __future__ import annotations
@@ -214,8 +216,44 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     return (yf, yb, cf, cb) if with_cells else (yf, yb)
 
 
+def _bilstm_fwd_cuda(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
+    """The CUDA kernel of ``percival::bilstm_fwd``: checks, the route, one
+    launch, one count on ``bilstm_fwd.launches`` and its route's entry of
+    ``bilstm_fwd.routes``."""
+    _check_shapes(gx_f, gx_b, wh_f, wh_b)
+    _one_device("bilstm_fwd", (gx_f, gx_b, wh_f, wh_b))
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 4)
+    out = fwd_launch(route, gx_f, gx_b, wh_f, wh_b, with_cells)
+    bilstm_fwd.launches += 1
+    bilstm_fwd.routes[route] += 1
+    return list(out)
+
+
+# The forward kernel as a registered operator, which a graph that
+# ``torch.export`` traces holds; the graph's calls launch through the same
+# CUDA function as eager code and the autograd pair, counts included (eager
+# calls skip the dispatcher: see ops/frames_cuda.py). CPU tensors take the
+# twin; the fake kernel checks the arguments and gives the outputs' shapes.
+# Mixed devices reach the CUDA function, which refuses them.
+torch.library.define(
+    "percival::bilstm_fwd",
+    "(Tensor gx_f, Tensor gx_b, Tensor wh_f, Tensor wh_b, bool with_cells) -> Tensor[]",
+)
+torch.library.impl("percival::bilstm_fwd", "CUDA", _bilstm_fwd_cuda)
+torch.library.impl("percival::bilstm_fwd", "CPU",
+                   lambda *args: list(bilstm_fwd_reference(*args)))
+
+
+@torch.library.register_fake("percival::bilstm_fwd")
+def _bilstm_fwd_fake(gx_f, gx_b, wh_f, wh_b, with_cells=False):
+    _check_shapes(gx_f, gx_b, wh_f, wh_b)
+    T, B, G = gx_f.shape
+    return [gx_f.new_empty((T, B, G // 4)) for _ in range(4 if with_cells else 2)]
+
+
 def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
-    """Both LSTM directions over precomputed input gates, in one launch.
+    """Both LSTM directions over precomputed input gates, in one launch; the
+    operator ``percival::bilstm_fwd`` while ``torch.export`` traces.
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, else the CUDA-core one
@@ -224,16 +262,13 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     than float32/bfloat16, a shape mismatch, non-contiguous CUDA inputs,
     CUDA inputs that require a gradient under grad mode, or a launch error.
     Every launch adds one to ``bilstm_fwd.launches`` and to its route's
-    entry of ``bilstm_fwd.routes``."""
-    _check_shapes(gx_f, gx_b, wh_f, wh_b)
-    device = _one_device("bilstm_fwd", (gx_f, gx_b, wh_f, wh_b))
-    if device.type == "cpu":
-        return bilstm_fwd_reference(gx_f, gx_b, wh_f, wh_b, with_cells)
-    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 4)
-    out = fwd_launch(route, gx_f, gx_b, wh_f, wh_b, with_cells)
-    bilstm_fwd.launches += 1
-    bilstm_fwd.routes[route] += 1
-    return out
+    entry of ``bilstm_fwd.routes``, also from inside an exported graph."""
+    args = (gx_f, gx_b, wh_f, wh_b, with_cells)
+    if torch.compiler.is_exporting():
+        return tuple(torch.ops.percival.bilstm_fwd(*args))
+    if any(t.is_cuda for t in args[:4]):
+        return tuple(_bilstm_fwd_cuda(*args))
+    return bilstm_fwd_reference(*args)
 
 
 bilstm_fwd.launches = 0

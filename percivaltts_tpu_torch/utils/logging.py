@@ -1,6 +1,7 @@
-"""Logging + structured metrics (the port's copy of ``print_log`` and
-``MetricsLogger`` from ``percivaltts_tpu/utils/logging.py``): timestamped
-stdout lines and an append-only JSONL record of metrics."""
+"""Logging + structured metrics (the port's copy of ``print_log``,
+``MetricsLogger`` and ``read_metrics`` from
+``percivaltts_tpu/utils/logging.py``): timestamped stdout lines and an
+append-only JSONL record of metrics, read back by ``read_metrics``."""
 
 from __future__ import annotations
 
@@ -53,3 +54,17 @@ class MetricsLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def read_metrics(path: str, kind: Optional[str] = None):
+    """Read a JSONL metrics file back into a list of dicts."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            if kind is None or rec.get("kind") == kind:
+                out.append(rec)
+    return out

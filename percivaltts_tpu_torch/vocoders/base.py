@@ -11,7 +11,7 @@ counterpart here.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Type
+from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -78,6 +78,39 @@ class Vocoder:
         """Synthesize several utterances; subclasses may override with one
         batched call per chunk."""
         return [self.synthesize(f, seed=seed) for f in feats_list]
+
+    # -- serving export hooks (eval/export.export_synthesis) -------------- #
+
+    # the in-graph tail of an exported synthesis artifact: None replicates
+    # the last real frame (the analysis-consistent tail of PML's and WORLD's
+    # ``_pad_feats``); a float fills with that constant (mel's log floor)
+    pad_fill: Optional[float] = None
+
+    @property
+    def frame_multiple(self) -> int:
+        """Frames an utterance is padded to a multiple of before the cores
+        run: the granularity of an exported synthesis artifact's bound."""
+        return FRAME_MULTIPLE
+
+    def export_preprocess(self, feats: np.ndarray) -> np.ndarray:
+        """Host-side preparation of ``(frames, F)`` features before they go
+        into an exported synthesis artifact; the identity here (WORLD writes
+        its decided voicing into the vuv channel)."""
+        return feats
+
+    def _noise(self, n: int, seed: int, device) -> Optional[torch.Tensor]:
+        """The ``(n,)`` standard-normal draw of the stochastic component,
+        or None for a vocoder without one."""
+        return None
+
+    def synthesize_stacked(self, fp: torch.Tensor, noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """``(B, nf_pad, F)`` features (``nf_pad`` a multiple of
+        ``frame_multiple``, the tail padded as ``pad_fill`` says) and the
+        ``(nf_pad·hop,)`` draw of ``_noise`` → ``(B, nf_pad·hop)``
+        waveforms on the features' device: the tensor core behind
+        ``synthesize_batch`` and the graph ``eval/export.export_synthesis``
+        traces (no host synchronisation inside)."""
+        raise NotImplementedError
 
     def f0_vuv(self, feats: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Extract (f0_hz, vuv) tracks for F0-RMSE / VUV-error measures."""

@@ -88,10 +88,18 @@ class MelSpecVocoder(Vocoder):
             return mel_analyze_core(torch.as_tensor(stack, device=self.device),
                                     **self._kw()).cpu().numpy()
 
+    # Griffin-Lim is global: an exported artifact pads with the log floor, as
+    # the host pads a chunk, so that the padding is the same part of the result
+    pad_fill = LOG_FLOOR
+
+    def synthesize_stacked(self, fp: torch.Tensor, noise=None) -> torch.Tensor:
+        """The tensor core (see ``Vocoder.synthesize_stacked``): Griffin-Lim;
+        there is no noise."""
+        return mel_synthesize_core(fp, **self._kw())
+
     def _render(self, fp: np.ndarray) -> np.ndarray:
         with torch.no_grad():
-            return mel_synthesize_core(torch.as_tensor(fp, device=self.device),
-                                       **self._kw()).cpu().numpy()
+            return self.synthesize_stacked(torch.as_tensor(fp, device=self.device)).cpu().numpy()
 
     def synthesize(self, feats: np.ndarray, seed: int = 0) -> np.ndarray:
         """Pads to a multiple of ``FRAME_MULTIPLE`` frames with the log

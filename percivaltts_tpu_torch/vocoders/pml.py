@@ -642,28 +642,30 @@ class PMLVocoder(Vocoder):
             fp[:, 1 : 1 + self.cfg.spec_size] = -18.0
         return fp
 
-    def _render(self, fp: np.ndarray, seed: int) -> np.ndarray:
-        """(B, nf_pad, F) padded features → (B, nf_pad·hop) waveforms: "te"
+    def synthesize_stacked(self, fp: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """The tensor core (see ``Vocoder.synthesize_stacked``): "te"
         features through ``pml_synthesize_core``; the others through the
         closed loop when configured, else the open-loop amplitude core."""
         c = self.cfg
-        t = torch.as_tensor(fp, device=self.device)
-        lf0, spec, nm = t[..., 0], t[..., 1 : 1 + c.spec_size], t[..., 1 + c.spec_size :]
-        noise = self._noise(fp.shape[1] * c.shift_samples, seed, self.device)
+        lf0, spec, nm = fp[..., 0], fp[..., 1 : 1 + c.spec_size], fp[..., 1 + c.spec_size :]
+        if c.envelope == "te":
+            return pml_synthesize_core(lf0, spec, nm, noise, fs=c.fs, hop=c.shift_samples,
+                                       frame_len=c.frame_samples, dftlen=c.dftlen,
+                                       f0_min=c.f0_min, f0_max=c.f0_max)
+        if c.closed_loop > 0:
+            return pml_closed_loop_core(lf0, spec, nm, noise, iters=c.closed_loop,
+                                        **analysis_kw(c))
+        return pml_synthesize_amp_core(
+            lf0, spec, nm, noise, fs=c.fs, hop=c.shift_samples, dftlen=c.dftlen,
+            f0_min=c.f0_min, f0_max=c.f0_max, env_halfw=env_halfw_for(c.envelope),
+            env_tri_radius=c.env_time_smooth, ap=c.analysis,
+        )
+
+    def _render(self, fp: np.ndarray, seed: int) -> np.ndarray:
+        """(B, nf_pad, F) padded features → (B, nf_pad·hop) waveforms."""
+        noise = self._noise(fp.shape[1] * self.cfg.shift_samples, seed, self.device)
         with torch.no_grad():
-            if c.envelope == "te":
-                wav = pml_synthesize_core(lf0, spec, nm, noise, fs=c.fs, hop=c.shift_samples,
-                                          frame_len=c.frame_samples, dftlen=c.dftlen,
-                                          f0_min=c.f0_min, f0_max=c.f0_max)
-            elif c.closed_loop > 0:
-                wav = pml_closed_loop_core(lf0, spec, nm, noise, iters=c.closed_loop,
-                                           **analysis_kw(c))
-            else:
-                wav = pml_synthesize_amp_core(
-                    lf0, spec, nm, noise, fs=c.fs, hop=c.shift_samples, dftlen=c.dftlen,
-                    f0_min=c.f0_min, f0_max=c.f0_max, env_halfw=env_halfw_for(c.envelope),
-                    env_tri_radius=c.env_time_smooth, ap=c.analysis,
-                )
+            wav = self.synthesize_stacked(torch.as_tensor(fp, device=self.device), noise)
         return wav.cpu().numpy()
 
     def synthesize(self, feats: np.ndarray, seed: int = 0) -> np.ndarray:

@@ -248,43 +248,56 @@ class WorldVocoder(Vocoder):
                                        **analysis_kw(self.cfg))
         return feats.cpu().numpy()
 
-    def _pad_feats(self, feats: np.ndarray, nf_pad: int) -> tuple:
-        """(lf0, decided vuv, spec, bap) of (frames, F) features, padded to
+    def export_preprocess(self, feats: np.ndarray) -> np.ndarray:
+        """A copy of ``feats`` with the decided voicing (``_decide_vuv``: the
+        soft-track rules and ``clean_vuv``, host-side numpy) in the vuv
+        channel, as ``synthesize`` and an exported artifact take it."""
+        out = np.array(feats, np.float32, copy=True)
+        out[..., 1] = self._decide_vuv(feats)
+        return out
+
+    def _pad_feats(self, feats: np.ndarray, nf_pad: int) -> np.ndarray:
+        """``export_preprocess``-ed (frames, F) features padded to
         ``nf_pad`` frames by replicating the last real frame: the closed
         loop re-analyzes the padded render, and a silent tail would bias the
         time-smoothed readings of the last real frames. An empty utterance
         pads with 100 Hz, unvoiced, the log floor and full aperiodicity."""
         c = self.cfg
         nf = feats.shape[0]
-        streams = (feats[:, 0], self._decide_vuv(feats), feats[:, 2 : 2 + c.spec_size],
-                   feats[:, 2 + c.spec_size :])
-        out = []
-        for a, fill in zip(streams, (np.log(100.0), 0.0, -18.0, 1.0)):
-            p = np.full((nf_pad,) + a.shape[1:], fill, np.float32)
-            p[:nf] = a
-            if nf:
-                p[nf:] = a[-1]
-            out.append(p)
-        return tuple(out)
+        fp = np.empty((nf_pad, feats.shape[1]), np.float32)
+        fp[:nf] = self.export_preprocess(feats)
+        if nf:
+            fp[nf:] = fp[nf - 1]
+        else:
+            fp[:, 0] = np.log(100.0)
+            fp[:, 1] = 0.0
+            fp[:, 2 : 2 + c.spec_size] = -18.0
+            fp[:, 2 + c.spec_size :] = 1.0
+        return fp
 
-    def _render(self, lf0, vuv, spec, bap, seed: int) -> np.ndarray:
-        """(B, nf_pad) lf0 and vuv, (B, nf_pad, ·) spec and bap →
-        (B, nf_pad·hop) waveforms: the closed loop when configured, else
-        the open-loop core."""
+    def synthesize_stacked(self, fp: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """The tensor core (see ``Vocoder.synthesize_stacked``); the vuv
+        channel holds the decided voicing (``export_preprocess``). The
+        closed loop when configured, else the open-loop core."""
         c = self.cfg
-        lf0, vuv, spec, bap = (torch.as_tensor(a, device=self.device) for a in (lf0, vuv, spec, bap))
-        noise = self._noise(lf0.shape[1] * c.shift_samples, seed, self.device)
+        lf0, vuv = fp[..., 0].contiguous(), fp[..., 1].contiguous()
+        spec = fp[..., 2 : 2 + c.spec_size].contiguous()
+        bap = fp[..., 2 + c.spec_size :].contiguous()
+        if c.closed_loop > 0:
+            return world_closed_loop_core(lf0, vuv, spec, bap, noise, iters=c.closed_loop,
+                                          **analysis_kw(c))
+        return pml_synthesize_amp_core(
+            lf0, spec, torch.where(vuv[..., None] > 0.5, bap, 1.0), noise, fs=c.fs,
+            hop=c.shift_samples, dftlen=c.dftlen, f0_min=c.f0_min, f0_max=c.f0_max,
+            env_halfw=env_halfw_for(c.envelope), env_tri_radius=c.env_time_smooth,
+            ap=c.analysis,
+        )
+
+    def _render(self, fp: np.ndarray, seed: int) -> np.ndarray:
+        """(B, nf_pad, F) padded features → (B, nf_pad·hop) waveforms."""
+        noise = self._noise(fp.shape[1] * self.cfg.shift_samples, seed, self.device)
         with torch.no_grad():
-            if c.closed_loop > 0:
-                wav = world_closed_loop_core(lf0, vuv, spec, bap, noise, iters=c.closed_loop,
-                                             **analysis_kw(c))
-            else:
-                wav = pml_synthesize_amp_core(
-                    lf0, spec, torch.where(vuv[..., None] > 0.5, bap, 1.0), noise, fs=c.fs,
-                    hop=c.shift_samples, dftlen=c.dftlen, f0_min=c.f0_min, f0_max=c.f0_max,
-                    env_halfw=env_halfw_for(c.envelope), env_tri_radius=c.env_time_smooth,
-                    ap=c.analysis,
-                )
+            wav = self.synthesize_stacked(torch.as_tensor(fp, device=self.device), noise)
         return wav.cpu().numpy()
 
     def synthesize(self, feats: np.ndarray, seed: int = 0) -> np.ndarray:
@@ -293,22 +306,17 @@ class WorldVocoder(Vocoder):
         if nf == 0:
             return np.zeros((0,), np.float32)
         nf_pad = -(-nf // FRAME_MULTIPLE) * FRAME_MULTIPLE
-        streams = (a[None] for a in self._pad_feats(feats, nf_pad))
-        return self._render(*streams, seed)[0, : nf * self.cfg.shift_samples]
+        return self._render(self._pad_feats(feats, nf_pad)[None], seed)[0, : nf * self.cfg.shift_samples]
 
     def synthesize_batch(self, feats_list, seed: int = 0, chunk: int = 4) -> list:
         """One batched call per chunk of utterances, each padded to the
         chunk's frame bound by replicating its last frame. Every utterance
         draws the same noise sequence, as repeated ``synthesize(f,
         seed=seed)`` calls would."""
-
-        def build(batch, nf_pad):
-            padded = [self._pad_feats(f, nf_pad) for f in batch]
-            return tuple(np.stack(s) for s in zip(*padded))
-
         return chunked_synthesize_batch(
-            feats_list, chunk, FRAME_MULTIPLE, self.cfg.shift_samples, build,
-            lambda args: self._render(*args, seed),
+            feats_list, chunk, FRAME_MULTIPLE, self.cfg.shift_samples,
+            lambda batch, nf_pad: np.stack([self._pad_feats(f, nf_pad) for f in batch]),
+            lambda fp: self._render(fp, seed),
         )
 
     def f0_vuv(self, feats: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

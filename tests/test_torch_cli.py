@@ -2,8 +2,9 @@
 ``main(argv, device="cpu")`` runs demo → compose → train → generate →
 measures on a miniature corpus, asserting what the JAX package's pipeline
 test (``tests/test_e2e.py``) asserts of it, then the production preset's
-device-corpus run with objective-measure validation, resumed. The preset
-overlay equals the JAX ``apply_preset``'s; what is not ported raises.
+device-corpus run with objective-measure validation, resumed; ``export``
+and ``plot`` on a trained workdir. The preset overlay equals the JAX
+``apply_preset``'s; what is not ported raises.
 """
 
 import contextlib
@@ -14,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from percivaltts_tpu import cli as jax_cli
 from percivaltts_tpu.config import Configuration as JaxConfiguration
@@ -210,10 +212,106 @@ def test_production_preset_equals_the_jax_overlay(train, vocoder):
 
 
 def test_unported_options_and_commands(corpus, tmp_path):
+    """``--mesh`` / ``--distributed`` are not ported; ``export`` and
+    ``plot`` are, and on a workdir with no trained run they say what is
+    missing."""
     cfg_path = _write_cfg(corpus, str(tmp_path / "x"))
     for flag in ("--mesh", "--distributed"):
         with pytest.raises(NotImplementedError, match="item 7"):
             _main("train", "--config", cfg_path, flag)
-    for cmd in ("export", "plot"):
-        with pytest.raises(SystemExit):
-            _main(cmd, "--config", cfg_path)
+    assert _main("compose", "--config", cfg_path) == 0
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        _main("export", "--config", cfg_path)
+    with pytest.raises(FileNotFoundError, match="metrics.jsonl"):
+        _main("plot", "--config", cfg_path)
+
+
+@pytest.fixture(scope="module")
+def trained(corpus, tmp_path_factory):
+    """The e2e config trained for 2 epochs, with the open-loop PML vocoder
+    (one render: its synthesis graph exports in seconds; the closed loop's
+    export is held in ``tests/test_torch_export.py``): its config path and
+    workdir."""
+    workdir = str(tmp_path_factory.mktemp("trained") / "exp")
+    cfg_path = _write_cfg(corpus, workdir, train={"epochs": 2}, vocoder={"closed_loop": 0})
+    assert _main("train", "--config", cfg_path) == 0
+    return cfg_path, workdir
+
+
+def _test_labels(cfg_path):
+    """The test split's raw label matrices and ids, as ``generate`` reads them."""
+    cfg = Configuration.load(cfg_path)
+    c = compose(cfg, cache_dir=os.path.join(cfg.workdir, "feature_cache"), device="cpu")
+    return [c.in_stats.denormalize(lab) for lab in c.test.labs], c
+
+
+def test_export_writes_the_manifest_and_both_graphs(trained, tmp_path):
+    """``export`` (best checkpoint, bound 256, batch 1): the manifest and one
+    generator and one synthesis artifact; served on the CPU, the labels of
+    the test split give the live generator's features (bucket-bound
+    padding) and the vocoder's own waveforms."""
+    from percivaltts_tpu_torch.eval.export import ExportedGenerator, ExportedSynthesizer
+    from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
+    from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
+
+    cfg_path, workdir = trained
+    out = str(tmp_path / "export")
+    assert _main("export", "--config", cfg_path, "--out", out) == 0
+    assert sorted(os.listdir(out)) == ["gen_t256.pt2", "manifest.json", "syn_t256.pt2"]
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    cfg = Configuration.load(cfg_path)
+    assert manifest["format"] == "torch.export" and manifest["torch_version"]
+    assert (manifest["bounds"], manifest["batch"]) == ([256], 1)
+    assert manifest["feat_dim"] == get_vocoder(cfg.vocoder, "cpu").feature_size
+    assert manifest["synthesis"] == {"bounds": [256], "hop": 80, "batch": 1}
+    assert Configuration.from_dict({"vocoder": manifest["vocoder"]}).vocoder == cfg.vocoder
+
+    labs, c = _test_labels(cfg_path)
+    feats = ExportedGenerator(out, device="cpu").predict_batch(labs)
+    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    state = ckpt.restore(make_gan_state(cfg, c.train.label_dim, device="cpu"), ckpt.best_step())
+    gen = eval_generator(state)
+    for lab, f in zip(labs, feats):
+        x = np.zeros((1, 256, lab.shape[1]), np.float32)
+        x[0, : len(lab)] = c.in_stats.normalize(lab)
+        with torch.inference_mode():
+            want = c.out_stats.denormalize(gen(torch.from_numpy(x)).numpy()[0, : len(lab)])
+        np.testing.assert_allclose(f, want, atol=1e-5)
+    syn = ExportedSynthesizer(out, device="cpu")
+    voc = get_vocoder(cfg.vocoder, "cpu")
+    for f in feats:
+        assert np.array_equal(syn(f), voc.synthesize(f, seed=0))
+
+
+def test_export_no_synth_writes_no_synthesis(trained, tmp_path):
+    cfg_path, _ = trained
+    out = str(tmp_path / "export")
+    assert _main("export", "--config", cfg_path, "--out", out, "--no-synth") == 0
+    assert sorted(os.listdir(out)) == ["gen_t256.pt2", "manifest.json"]
+    with open(os.path.join(out, "manifest.json")) as f:
+        assert "synthesis" not in json.load(f)
+
+
+def test_export_batch_sets_the_manifest(trained, tmp_path):
+    from percivaltts_tpu_torch.eval.export import ExportedGenerator
+
+    cfg_path, _ = trained
+    out = str(tmp_path / "export")
+    assert _main("export", "--config", cfg_path, "--out", out, "--batch", "4", "--no-synth",
+                 "--checkpoint", "1") == 0
+    with open(os.path.join(out, "manifest.json")) as f:
+        assert json.load(f)["batch"] == 4
+    ex = ExportedGenerator(out, device="cpu")
+    labs, _ = _test_labels(cfg_path)
+    assert ex.batch == 4
+    F = Configuration.load(cfg_path).vocoder.feature_size
+    assert [f.shape for f in ex.predict_batch(labs)] == [(len(lab), F) for lab in labs]
+
+
+def test_plot_writes_curves(trained):
+    cfg_path, workdir = trained
+    assert _main("plot", "--config", cfg_path) == 0
+    png = os.path.join(workdir, "curves.png")
+    with open(png, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"

@@ -1060,3 +1060,53 @@ def test_compose_through_the_kernels_equals_the_twins(cuda_device, tmp_path, mon
     for split in ("train", "valid", "test"):
         for a, b in zip(getattr(got, split).cmps, getattr(want, split).cmps):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,fwd,per_call,tol", [("cnn_blstm", "bilstm_fwd", 1, 0.0625),
+                                                   ("bgru", "bigru_fwd", 2, 0.125)])
+def test_exported_generator_launches_the_kernel_and_equals_live(cuda_device, tmp_path, kind, fwd,
+                                                                 per_call, tol):
+    """``chip_smoke.py`` phase 11a at a small width (bf16, H = 16 / 32: the
+    tensor-core route): artifacts at bounds 32 and 64, batch 1 and 4,
+    reloaded on the card; every row equals the live generator on the same
+    bucket-bound padded batch bit for bit; the forward kernel launches
+    inside the artifact calls; the artifact moved to the CPU serves
+    within phase 4's tolerance of the card (the twins there)."""
+    from percivaltts_tpu_torch.config import ModelConfig, VocoderConfig
+    from percivaltts_tpu_torch.data.normalize import NormStats
+    from percivaltts_tpu_torch.eval.export import ExportedGenerator, export_generator, write_export
+    from percivaltts_tpu_torch.models import build_generator
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+
+    D, voc = 13, VocoderConfig(spec_size=17, nm_size=9)
+    gen = build_generator(ModelConfig(generator=kind, hidden_size=64, cnn_blocks=1, blstm_size=32),
+                          voc, D).to(cuda_device).eval()
+    rng = np.random.default_rng(0)
+    ins = NormStats(shift=rng.normal(size=D).astype(np.float32),
+                    scale=rng.uniform(0.5, 2.0, D).astype(np.float32))
+    outs = NormStats(shift=rng.normal(size=voc.feature_size).astype(np.float32),
+                     scale=rng.uniform(0.5, 2.0, voc.feature_size).astype(np.float32))
+    labs = [rng.normal(size=(n, D)).astype(np.float32) for n in (20, 40, 64, 7, 33)]
+    wrapper = {"bilstm_fwd": lstm_cuda.bilstm_fwd, "bigru_fwd": gru_cuda.bigru_fwd}[fwd]
+    for batch in (1, 4):
+        d = str(tmp_path / f"b{batch}")
+        write_export(d, export_generator(gen, ins, outs, D, (32, 64), batch=batch), D,
+                     voc.feature_size, {"kind": "pml"}, batch=batch)
+        ex = ExportedGenerator(d, device=cuda_device)
+        groups = ex.groups(labs)
+        wrapper.launches, wrapper.routes = 0, {"mma": 0, "simt": 0}
+        got = ex.predict_batch(labs)
+        torch.cuda.synchronize()
+        assert wrapper.launches == wrapper.routes["mma"] == per_call * len(groups)
+        for bound, group in groups:
+            x = np.zeros((batch, bound, D), np.float32)
+            for r, j in enumerate(group):
+                x[r, : len(labs[j])] = ins.normalize(labs[j])
+            with torch.inference_mode():
+                y = gen(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+            for r, j in enumerate(group):
+                assert np.array_equal(got[j], outs.denormalize(y[r, : len(labs[j])]))
+        on_cpu = ExportedGenerator(d, device="cpu").predict_batch(labs)
+        for a, b in zip(on_cpu, got):
+            np.testing.assert_allclose(a, b, atol=tol)

@@ -21,12 +21,13 @@ from percivaltts_tpu.data import hts_labels as jax_hts
 from percivaltts_tpu.data import normalize as jax_normalize
 from percivaltts_tpu.ops import warp as jax_warp
 from percivaltts_tpu.utils import fileio as jax_fileio
+from percivaltts_tpu.utils import curves as jax_curves
 from percivaltts_tpu.utils import logging as jax_logging
 from percivaltts_tpu.utils import prefetch as jax_prefetch
 from percivaltts_tpu_torch import config
 from percivaltts_tpu_torch.data import dataset, hts_labels, normalize
 from percivaltts_tpu_torch.ops import warp
-from percivaltts_tpu_torch.utils import fileio, logging, prefetch
+from percivaltts_tpu_torch.utils import curves, fileio, logging, prefetch
 
 # import roots the port must never load: the frameworks and the JAX package
 FORBIDDEN_ROOTS = ("jax", "flax", "jaxlib", "percivaltts_tpu")
@@ -66,8 +67,10 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.data.dataset",
         "percivaltts_tpu_torch.data.demo",
         "percivaltts_tpu_torch.data.device_corpus",
+        "percivaltts_tpu_torch.data.fetch",
         "percivaltts_tpu_torch.data.hts_labels",
         "percivaltts_tpu_torch.data.normalize",
+        "percivaltts_tpu_torch.eval.export",
         "percivaltts_tpu_torch.eval.generate",
         "percivaltts_tpu_torch.eval.measures",
         "percivaltts_tpu_torch.eval.serve",
@@ -92,6 +95,7 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.training.ondevice",
         "percivaltts_tpu_torch.training.state",
         "percivaltts_tpu_torch.training.wgan",
+        "percivaltts_tpu_torch.utils.curves",
         "percivaltts_tpu_torch.utils.fileio",
         "percivaltts_tpu_torch.utils.logging",
         "percivaltts_tpu_torch.utils.prefetch",
@@ -221,6 +225,43 @@ def test_metrics_log_lines_read_back_with_the_jax_reader(tmp_path):
     log.close()
     recs = jax_logging.read_metrics(path, kind="train_step")
     assert len(recs) == 1 and recs[0]["loss"] == 0.5 and recs[0]["step"] == 1
+
+
+def test_read_metrics_equals_the_original(tmp_path):
+    """The copied ``read_metrics``: every record, and each kind alone, of a
+    log written by the port's logger (blank lines skipped)."""
+    path = str(tmp_path / "metrics.jsonl")
+    with logging.MetricsLogger(path) as log:
+        for e in range(3):
+            log.log("epoch", epoch=e, loss=1.0 / (e + 1), valid=float("nan") if e == 1 else 0.5)
+            log.log("objective", epoch=e, mcd_db=np.float32(5.0 - e))
+    with open(path, "a") as f:
+        f.write("\n")
+    for kind in (None, "epoch", "objective", "absent"):
+        got, want = logging.read_metrics(path, kind), jax_logging.read_metrics(path, kind)
+        assert json.dumps(got) == json.dumps(want)
+    assert [r["epoch"] for r in logging.read_metrics(path, "epoch")] == [0, 1, 2]
+
+
+def test_curves_copy_draws_the_originals_png(tmp_path):
+    """The copied ``utils/curves.py``: the same metrics log drawn by both
+    packages gives the same PNG, byte for byte; no epoch record raises in
+    both."""
+    path = str(tmp_path / "metrics.jsonl")
+    with logging.MetricsLogger(path) as log:
+        for e in range(4):
+            log.log("epoch", epoch=e, loss=1.0 / (e + 1), valid=0.8 - 0.1 * e,
+                    w_dist=0.1 * e, gp=0.05)
+    mine = curves.plot_curves(path, str(tmp_path / "mine.png"))
+    theirs = jax_curves.plot_curves(path, str(tmp_path / "theirs.png"))
+    with open(mine, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    assert curves.plot_curves(path) == str(tmp_path / "curves.png")
+    empty = str(tmp_path / "empty.jsonl")
+    open(empty, "w").close()
+    for pkg in (curves, jax_curves):
+        with pytest.raises(ValueError, match="no epoch records"):
+            pkg.plot_curves(empty)
 
 
 @pytest.mark.parametrize("bands", [9, 17, 33, 65, 80])
