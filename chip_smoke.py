@@ -164,10 +164,32 @@ raises on failure (the script exits 0 only when all passed):
    artifact call, ms a call beside ``synthesize_batch``'s;
    11e. the operators' host cost: an overlap-add through the op against the
    eager wrapper (the same CUDA function without the dispatcher), and
-   Griffin-Lim's 388 launches both ways.
+   Griffin-Lim's 388 launches both ways;
+12. data parallelism (``parallel/``), config 3:
+   12a. phase 7's config and corpus through ``Trainer(mesh=make_mesh())``
+   over an NCCL group of one, 2 epochs, equal bit for bit (every state
+   tensor) to the same ``Trainer`` without a mesh, both with cuDNN's
+   deterministic algorithms; the same launches, all on the tensor-core
+   route; the epoch walls, and a WGAN-GP step's median under the mesh
+   against without it, in turns, with the all-reduces a step counted;
+   12b. one WGAN-GP step from the seeded state over 2 ranks spawned on the
+   card over gloo (NCCL refuses two ranks on one device), each on its 16
+   rows, then the same step gathered from a ``shard_corpus=True`` device
+   corpus (each rank holding half of it): each rank within one bf16 step's
+   tolerances of the world-size-1 step on the whole batches, the ranks'
+   states bit-equal, (2 forward, 1 BPTT) launches on each rank; beside
+   them bf16's own spread, the world-size-1 step on its rows reversed; the
+   ranks' step median (no scaling number: the ranks share one card and
+   gloo stages every all-reduce through the host); a rank that has not
+   ended in ``MESH_TIMEOUT_S`` is killed and fails the phase;
+   12c. ``python -m torch.distributed.run --standalone --nproc-per-node 1
+   -m percivaltts_tpu_torch.cli train --mesh --device-corpus`` with config
+   3 on phase 8's corpus, 1 epoch of 2 steps with measures: exit 0, one
+   epoch record, the checkpoint, which ``cli synth`` serves.
 
 Launch counts are set to 0 just before each serve, train, vocode or
-training-loop path and read just after it; launches made to compare a kernel with its twin are not
+training-loop path (on each rank of 12b, which reports its counts) and
+read just after it; launches made to compare a kernel with its twin are not
 counted. The line before the last is one JSON object describing each
 kernel; the last line is the JSON device record. Imports nothing of JAX or
 of the JAX package.
@@ -360,6 +382,10 @@ SYN_LAUNCHES = {"pml": {"frame_window": 7, "overlap_add": 6},  # closed loop, 2 
 N_TIMED_EXPORT = 7
 DISPATCH_CALLS = 2000  # op calls timed against the CUDA kernel's function called directly
 N_DISPATCH_VOCODES = 5
+# phase 12: data parallelism. A rank, or the launcher, that has not ended by
+# then fails the phase (a collective that waits for a lost rank hangs)
+MESH_TIMEOUT_S = 300
+MESH_CLI_TIMEOUT_S = 300
 
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
@@ -715,10 +741,11 @@ def _serve_path(dev, kind: str) -> dict:
             "feats": feats}
 
 
-def _train_setup(dev, kind: str):
+def _train_setup(dev, kind: str, mesh=None):
     """Config 3's data, critic and options at full width with the ``kind``
     generator, WGAN-GP, two sets of batches (5 critic batches + 1 generator
-    batch each) on the device, raw, and the normalizing step."""
+    batch each) on the device, raw, and the normalizing step (over
+    ``mesh``'s ranks when one is given: the batches stay global)."""
     from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
                                        VocoderConfig)
     from percivaltts_tpu_torch.eval.serve import NormStats
@@ -754,7 +781,7 @@ def _train_setup(dev, kind: str):
     in_stats = NormStats(shift=np.full(LABEL_DIM, 0.1, np.float32),
                          scale=rng.uniform(0.5, 2.0, LABEL_DIM).astype(np.float32))
     out_stats = NormStats(shift=np.ones(F, np.float32), scale=np.full(F, 0.5, np.float32))
-    step = make_normalizing_step(make_wgan_step(cfg.train), in_stats, out_stats, dev)
+    step = make_normalizing_step(make_wgan_step(cfg.train, mesh=mesh), in_stats, out_stats, dev)
     return cfg, sets, step
 
 
@@ -861,22 +888,7 @@ def _train_path(dev, kind: str) -> dict:
         torch.cuda.synchronize()
         ref[name] = ({k: v.item() for k, v in m.items()},
                      {n: st.gen_opt.state[p]["exp_avg"] for n, p in st.gen.named_parameters()})
-    (mk, ek), (mp, ep) = ref["kernel"], ref["plain"]
-    for k in mk:
-        err = abs(mk[k] - mp[k])
-        limit = STEP_METRIC_TOL * max(1.0, abs(mp[k]))
-        print(f"[train {kind}] kernel vs plain step, {k}: {mk[k]:.6g} vs {mp[k]:.6g} "
-              f"(|diff| {err:.3g}, tol {limit:.3g})")
-        if not err <= limit:
-            raise AssertionError(f"the kernel step disagrees with the plain step on {k}")
-    rel = {n: (ek[n] - ep[n]).abs().max().item() / max(ep[n].abs().max().item(), 1e-30)
-           for n in ek}
-    worst = max(rel, key=rel.get)
-    print(f"[train {kind}] kernel vs plain step, generator exp_avg: worst relative |diff| "
-          f"{rel[worst]:.3g} ({worst}; tol {STEP_MOMENT_TOL:g}); recurrent layers: "
-          + ", ".join(f"{n} {r:.3g}" for n, r in rel.items() if "blstm" in n))
-    if not rel[worst] <= STEP_MOMENT_TOL:
-        raise AssertionError("the kernel step's Adam moments disagree with the plain step's")
+    _hold_step(f"train {kind}", "kernel vs plain step", ref["kernel"], ref["plain"])
 
     for i in range(2):  # warm-up
         state, _ = step(state, *sets[i])
@@ -896,6 +908,31 @@ def _train_path(dev, kind: str) -> dict:
 
     busy_share, _ = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
     return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share}
+
+
+def _hold_step(tag: str, what: str, got, want) -> None:
+    """One WGAN-GP step's (metrics, generator Adam first moments by name)
+    against a reference step's, at one bf16 step's tolerances; every
+    comparison is printed before a disagreement raises."""
+    (mk, ek), (mp, ep) = got, want
+    bad = []
+    for k in mk:
+        err = abs(mk[k] - mp[k])
+        limit = STEP_METRIC_TOL * max(1.0, abs(mp[k]))
+        print(f"[{tag}] {what}, {k}: {mk[k]:.6g} vs {mp[k]:.6g} (|diff| {err:.3g}, tol "
+              f"{limit:.3g})")
+        if not err <= limit:
+            bad.append(k)
+    rel = {n: (ek[n] - ep[n]).abs().max().item() / max(ep[n].abs().max().item(), 1e-30)
+           for n in ek}
+    worst = max(rel, key=rel.get)
+    print(f"[{tag}] {what}, generator exp_avg: worst relative |diff| {rel[worst]:.3g} "
+          f"({worst}; tol {STEP_MOMENT_TOL:g}); recurrent layers: "
+          + ", ".join(f"{n} {r:.3g}" for n, r in rel.items() if "blstm" in n))
+    if not rel[worst] <= STEP_MOMENT_TOL:
+        bad.append("generator exp_avg")
+    if bad:
+        raise AssertionError(f"{tag}: {what} disagrees on {bad}")
 
 
 def _loop_corpus(rng, groups):
@@ -987,6 +1024,37 @@ def _retained(scores, keep: int) -> list:
     return kept
 
 
+def _loop_setup(name: str):
+    """Phase 7's config (config 3 through ``Trainer``: WGAN-GP, n_critic=5,
+    B=32, buckets 256/512, EMA 0.995) with its workdir ``build/<name>``
+    (emptied), its numpy corpus and the normalization stats:
+    (cfg, train_ds, valid_ds, in_stats, out_stats)."""
+    import os
+    import shutil
+
+    from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
+                                       VocoderConfig)
+    from percivaltts_tpu_torch.eval.serve import NormStats
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = Configuration(
+        workdir=workdir,
+        data=DataConfig(batch_size=TRAIN_B, bucket_bounds=LOOP_BOUNDS, label_dim=LABEL_DIM),
+        vocoder=VocoderConfig(spec_size=65, nm_size=33),
+        model=ModelConfig(generator="cnn_blstm"),
+        train=TrainConfig(trainer="wgan", n_critic=5, seed=SEED, ema_decay=LOOP_EMA,
+                          profile_steps=2, keep_checkpoints=LOOP_KEEP),
+    )
+    rng = np.random.default_rng(SEED + 20)
+    train_ds, valid_ds = _loop_corpus(rng, LOOP_UTTS), _loop_corpus(rng, (LOOP_VALID,))
+    F = cfg.vocoder.feature_size
+    in_stats = NormStats(shift=np.full(LABEL_DIM, 0.1, np.float32),
+                         scale=rng.uniform(0.5, 2.0, LABEL_DIM).astype(np.float32))
+    out_stats = NormStats(shift=np.ones(F, np.float32), scale=np.full(F, 0.5, np.float32))
+    return cfg, train_ds, valid_ds, in_stats, out_stats
+
+
 def _train_loop_path(dev, card: str) -> dict:
     """Phase 7: the ``Trainer`` at config 3's width (WGAN-GP, n_critic=5,
     B=32, buckets 256/512, EMA 0.995) on a numpy corpus normalized on the
@@ -998,31 +1066,15 @@ def _train_loop_path(dev, card: str) -> dict:
     import os
     import shutil
 
-    from percivaltts_tpu_torch import (Configuration, DataConfig, ModelConfig, TrainConfig,
-                                       VocoderConfig)
-    from percivaltts_tpu_torch.eval.serve import NormStats, serve
+    from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models import build_generator
     from percivaltts_tpu_torch.training import Trainer
     from percivaltts_tpu_torch.training.checkpoints import STATE_FILE, CheckpointManager
     from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
 
-    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_loop")
-    shutil.rmtree(workdir, ignore_errors=True)
-    cfg = Configuration(
-        workdir=workdir,
-        data=DataConfig(batch_size=TRAIN_B, bucket_bounds=LOOP_BOUNDS, label_dim=LABEL_DIM),
-        vocoder=VocoderConfig(spec_size=65, nm_size=33),
-        model=ModelConfig(generator="cnn_blstm"),
-        train=TrainConfig(trainer="wgan", n_critic=5, seed=SEED, ema_decay=LOOP_EMA,
-                          profile_steps=2, keep_checkpoints=LOOP_KEEP),
-    )
-    rng = np.random.default_rng(SEED + 20)
     t0 = time.perf_counter()
-    train_ds, valid_ds = _loop_corpus(rng, LOOP_UTTS), _loop_corpus(rng, (LOOP_VALID,))
-    F = cfg.vocoder.feature_size
-    in_stats = NormStats(shift=np.full(LABEL_DIM, 0.1, np.float32),
-                         scale=rng.uniform(0.5, 2.0, LABEL_DIM).astype(np.float32))
-    out_stats = NormStats(shift=np.ones(F, np.float32), scale=np.full(F, 0.5, np.float32))
+    cfg, train_ds, valid_ds, in_stats, out_stats = _loop_setup("train_loop")
+    workdir = cfg.workdir
     nbytes = sum(a.nbytes for ds in (train_ds, valid_ds) for a in ds.labs + ds.cmps)
     print(f"[train loop] ({card}) corpus {len(train_ds)} + {len(valid_ds)} utterances, "
           f"{train_ds.num_frames} + {valid_ds.num_frames} frames, {nbytes / 2**30:.3f} GiB on the "
@@ -2474,6 +2526,351 @@ def _time_dsp_kernels(dev) -> dict:
     return out
 
 
+def _state_on_host(state) -> dict:
+    """A host copy of the generator's Adam first moments by parameter name."""
+    return {n: state.gen_opt.state[p]["exp_avg"].detach().to("cpu", copy=True)
+            for n, p in state.gen.named_parameters()}
+
+
+def _sets_corpus(sets):
+    """The utterances of ``_train_setup``'s batches (each row cut to its
+    mask) as a ``Dataset``: 2 sets × 6 batches × 32 rows."""
+    from percivaltts_tpu_torch.data.dataset import Dataset
+
+    labs, cmps = [], []
+    for critic, gen in sets:
+        nc = critic["lab"].shape[0]
+        for b in [{k: v[i] for k, v in critic.items()} for i in range(nc)] + [gen]:
+            lab, cmp, mask = (b[k].cpu().numpy() for k in ("lab", "cmp", "mask"))
+            for j in range(lab.shape[0]):
+                n = int(mask[j].sum())
+                labs.append(lab[j, :n])
+                cmps.append(cmp[j, :n])
+    return Dataset(labs, cmps)
+
+
+def _mesh_world1_path(dev, card: str) -> dict:
+    """Phase 12a: phase 7's config and corpus through ``Trainer(mesh=
+    make_mesh())`` over an NCCL group of one, 2 epochs, against the same
+    ``Trainer`` without a mesh, both with cuDNN's deterministic algorithms:
+    every state tensor equal bit for bit, the launches of #1/#2, the epoch
+    walls; then a WGAN-GP step's wall at B=32 under the mesh against
+    without it, in turns, and the all-reduces a step."""
+    import torch.distributed as dist
+
+    from percivaltts_tpu_torch.parallel import distributed, make_mesh
+    from percivaltts_tpu_torch.training import Trainer
+    from percivaltts_tpu_torch.training.state import make_gan_state
+
+    distributed.initialize(backend="nccl")
+    try:
+        mesh = make_mesh()
+        if mesh.shape != {"data": 1, "model": 1} or mesh.device != dev:
+            raise AssertionError(f"make_mesh() gave {mesh}")
+        flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        runs = {}
+        try:
+            for name, m in (("no mesh", None), ("mesh", mesh)):
+                cfg, train_ds, valid_ds, in_stats, out_stats = _loop_setup(
+                    "mesh_world1" if m else "mesh_none")
+                _zero_counts()
+                trainer = Trainer(cfg, train_ds, valid_ds, mesh=m, in_stats=in_stats,
+                                  out_stats=out_stats)
+                hist = trainer.train(epochs=LOOP_EPOCHS)
+                trainer.close()
+                torch.cuda.synchronize()
+                runs[name] = {"hist": hist, "state": _host_copy(trainer.state.state_dict()),
+                              "counts": _counts(), "routes": _routes(), "workdir": cfg.workdir}
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        a, b = runs["no mesh"], runs["mesh"]
+        diffs = {}
+        for part in ("gen", "critic"):
+            for n, t in a["state"][part].items():
+                diffs[f"{part}.{n}"] = (t.float() - b["state"][part][n].float()).abs().max().item()
+        print(f"[mesh world 1] ({card}) NCCL group of one against no mesh, {LOOP_EPOCHS} epochs, "
+              f"max |diff| of each of the {len(diffs)} parameters: "
+              + ", ".join(f"{n} {d:.3g}" for n, d in diffs.items()))
+        rest = _tree_diff(a["state"], b["state"])
+        steps = [r["steps"] for r in b["hist"]["train"]]
+        n_valid = sum(_bucket_batches(valid_ds, TRAIN_B, LOOP_BOUNDS, whole=False).values())
+        want = (2 * sum(steps) + n_valid * LOOP_EPOCHS, sum(steps))
+        got = (b["counts"]["bilstm_fwd"], b["counts"]["bilstm_bwd"])
+        for name, run in runs.items():
+            print(f"[mesh world 1] ({card}) {name}: epochs "
+                  + ", ".join(f"{r['sec']:.3f} s ({r['steps']} steps, loss {r['loss']:.6g})"
+                              for r in run["hist"]["train"])
+                  + f"; valid {run['hist']['valid']}; launches {run['counts']}")
+        if any(diffs.values()) or rest:
+            raise AssertionError(f"the mesh of one trained another state: {rest[:8]}")
+        if a["hist"]["valid"] != b["hist"]["valid"] or got != want \
+                or a["counts"] != b["counts"]:
+            raise AssertionError(f"mesh of one: launches {got} (expected {want}), valid "
+                                 f"{b['hist']['valid']} vs {a['hist']['valid']}")
+        _all_mma("mesh world 1", b["routes"])
+        for run in runs.values():
+            shutil.rmtree(run["workdir"], ignore_errors=True)
+
+        # a step's wall with and without the mesh, in turns; the all-reduces a step
+        setups = {"no mesh": _train_setup(dev, "cnn_blstm"),
+                  "mesh": _train_setup(dev, "cnn_blstm", mesh)}
+        states = {k: make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev,
+                                    mesh=mesh if k == "mesh" else None)
+                  for k, (cfg, _, _) in setups.items()}
+        reduce, calls = dist.all_reduce, []
+        dist.all_reduce = lambda *args, **kw: calls.append(1) or reduce(*args, **kw)
+        try:
+            _, sets, step = setups["mesh"]
+            step(states["mesh"], *sets[0])
+        finally:
+            dist.all_reduce = reduce
+        times = {k: [] for k in setups}
+        for k, (_, sets, step) in setups.items():  # warm-up
+            step(states[k], *sets[0])
+        for k in ("no mesh", "mesh", "mesh", "no mesh") * 2:  # the host's spread is wide
+            _, sets, step = setups[k]
+            for i in range(N_TIMED_STEPS // 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(states[k], *sets[i % 2])
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        step_ms = {k: statistics.median(v) for k, v in times.items()}
+        print(f"[mesh world 1] ({card}) WGAN-GP step (B={TRAIN_B}, T={TRAIN_T}): median "
+              f"{step_ms['mesh']:.3f} ms (min {min(times['mesh']):.3f}) over an NCCL group of one "
+              f"({len(calls)} all-reduces a step) against {step_ms['no mesh']:.3f} ms (min "
+              f"{min(times['no mesh']):.3f}) without a mesh ({len(times['mesh'])} steps each, "
+              "in turns)")
+    finally:
+        dist.destroy_process_group()
+    return {"counts": b["counts"], "routes": b["routes"], "records": b["hist"]["train"],
+            "records_no_mesh": a["hist"]["train"], "step_ms": step_ms, "all_reduces": len(calls)}
+
+
+def _mesh_rank(rank: int, world: int, init_file: str, out_path: str) -> None:
+    """Phase 12b, one rank (a spawned process): config 3's WGAN-GP step over
+    a gloo group of ``world`` ranks on ``DEVICE`` from the seeded state on
+    this rank's rows of ``_train_setup``'s first set, its launches, a few
+    timed steps, then the same step gathered from a ``shard_corpus=True``
+    device corpus; written to ``out_path``."""
+    import torch.distributed as dist
+
+    from percivaltts_tpu_torch.data.device_corpus import DeviceCorpus, make_device_wgan_step
+    from percivaltts_tpu_torch.parallel import distributed, make_mesh
+    from percivaltts_tpu_torch.parallel.mesh import shard_batch, shard_stacked_batch
+    from percivaltts_tpu_torch.training.state import make_gan_state
+
+    dev = torch.device(DEVICE)
+    distributed.initialize(f"file://{init_file}", world, rank, "gloo")
+    mesh = make_mesh(devices=[dev] * world)
+    cfg, sets, step = _train_setup(dev, "cnn_blstm", mesh)
+    nc = cfg.train.n_critic
+    out = {}
+    state = make_gan_state(cfg, LABEL_DIM, seed=SEED, mesh=mesh)
+    cb, gb = shard_stacked_batch(sets[0][0], mesh), shard_batch(sets[0][1], mesh)
+    _zero_counts()
+    state, m = step(state, cb, gb)
+    torch.cuda.synchronize()
+    out["step"] = {"metrics": {k: v.item() for k, v in m.items()}, "exp_avg": _state_on_host(state),
+                   "state": _host_copy(state.state_dict()), "counts": _counts(),
+                   "routes": _routes(), "rows": cb["lab"].shape[1]}
+    local = [(shard_stacked_batch(c, mesh), shard_batch(g, mesh)) for c, g in sets]
+    step(state, *local[1])  # warm-up
+    times = []
+    for i in range(N_TIMED_STEPS // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *local[i % 2])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = statistics.median(times)
+
+    corpus = DeviceCorpus(_sets_corpus(sets), bound=TRAIN_T, mesh=mesh, shard_corpus=True,
+                          device=dev)
+    idx = next(corpus.epoch_indices(TRAIN_B, nc + 1, 0, seed=SEED))
+    state = make_gan_state(cfg, LABEL_DIM, seed=SEED, mesh=mesh)
+    _zero_counts()
+    state, m = make_device_wgan_step(step, nc)(state, corpus.data, corpus.shard_indices(idx))
+    torch.cuda.synchronize()
+    out["corpus"] = {"metrics": {k: v.item() for k, v in m.items()},
+                     "exp_avg": _state_on_host(state), "state": _host_copy(state.state_dict()),
+                     "counts": _counts(), "routes": _routes(),
+                     "rows_held": corpus.data["lab"].shape[0],
+                     "idx": torch.from_numpy(idx), "padded": corpus.num_utts_padded}
+    torch.save(out, out_path)
+    dist.destroy_process_group()
+
+
+def _mesh_world2_path(dev, card: str) -> dict:
+    """Phase 12b: ``_mesh_rank`` on 2 spawned ranks sharing the card over
+    gloo (NCCL refuses two ranks on one device), each held against the
+    world-size-1 step on the whole batches (``STEP_METRIC_TOL`` /
+    ``STEP_MOMENT_TOL``), the ranks' states bit-equal, (2, 1) launches a
+    step at B=16 on each rank; the same for the step from the sharded
+    device corpus (each rank holding half the corpus); bf16's spread at
+    world size 1 beside them. The gloo wall is no scaling number: the
+    ranks share one card and gloo stages the all-reduces through the
+    host."""
+    import os
+
+    from percivaltts_tpu_torch.data.device_corpus import DeviceCorpus, make_device_wgan_step
+    from percivaltts_tpu_torch.parallel.mesh import Mesh
+    from percivaltts_tpu_torch.training.state import make_gan_state
+
+    world = 2
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh_world2")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # the world-size-1 references, on the whole batches
+    cfg, sets, step = _train_setup(dev, "cnn_blstm")
+    nc = cfg.train.n_critic
+    state, m = step(make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev), *sets[0])
+    refs = {"step": ({k: v.item() for k, v in m.items()}, _state_on_host(state))}
+    ds = _sets_corpus(sets)
+    # the sharded corpus's index columns index each rank's block: shifted
+    # by the block's first row, they index the whole corpus
+    half = DeviceCorpus(ds, bound=TRAIN_T, mesh=Mesh(rank=0, size=world, device=dev),
+                        shard_corpus=True, device=dev)
+    idx = next(half.epoch_indices(TRAIN_B, nc + 1, 0, seed=SEED))
+    per = TRAIN_B // world
+    block = half.num_utts_padded // world
+    whole_idx = idx + np.repeat(np.arange(world) * block, per)[None, :]
+    whole = DeviceCorpus(ds, bound=TRAIN_T, device=dev)
+    state, m = make_device_wgan_step(step, nc)(
+        make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev), whole.data,
+        whole.shard_indices(whole_idx))
+    refs["corpus"] = ({k: v.item() for k, v in m.items()}, _state_on_host(state))
+    # bf16's own spread at world size 1: the same step on each batch's rows
+    # reversed (ε reversed with them) sums the weight gradients in another
+    # order, as splitting the rows over ranks does
+    eps = torch.rand((nc, TRAIN_B, 1, 1), generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev)
+    spread = []
+    for flip in (False, True):
+        cb, gb = sets[0]
+        if flip:
+            cb, gb = {k: v.flip(1) for k, v in cb.items()}, {k: v.flip(0) for k, v in gb.items()}
+        state, m = step(make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev), cb, gb,
+                        eps=eps.flip(1) if flip else eps)
+        spread.append(({k: v.item() for k, v in m.items()}, _state_on_host(state)))
+    _hold_step("mesh world 2", "world size 1, rows reversed against in order", *spread[::-1])
+    del half, whole, state, sets
+    torch.cuda.synchronize()
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    outs = [os.path.join(root, f"rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, os.path.join(root, "group"), outs[r]))
+             for r in range(world)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(MESH_TIMEOUT_S - (time.perf_counter() - t), 1.0))
+    finally:
+        hung = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"the gloo ranks failed: exit codes {[p.exitcode for p in procs]}"
+                             + (f", killed after {MESH_TIMEOUT_S} s: {hung}" if hung else ""))
+    ranks = [torch.load(o, weights_only=True) for o in outs]
+    want_launches = {"bilstm_fwd": STEP_LAUNCHES["cnn_blstm"][0],
+                     "bilstm_bwd": STEP_LAUNCHES["cnn_blstm"][1]}
+    counts, routes = {}, {name: {"mma": 0, "simt": 0} for name in ROUTED}
+    for case in ("step", "corpus"):
+        for r, got in enumerate(ranks):
+            c = got[case]
+            for name, by_route in c["routes"].items():
+                for route, n in by_route.items():
+                    routes[name][route] += n
+            print(f"[mesh world 2] ({card}) rank {r}, {case}: launches {c['counts']}"
+                  + (f", {c['rows']} rows a batch" if case == "step" else
+                     f", {c['rows_held']} of {c['padded']} padded utterances held"))
+            launched = {k: c["counts"][k] for k in want_launches}
+            if launched != want_launches or sum(c["counts"].values()) != sum(launched.values()):
+                raise AssertionError(f"rank {r} launched {c['counts']}, not {want_launches}")
+            _hold_step(f"mesh world 2, rank {r}", f"{case} against world size 1",
+                       (c["metrics"], c["exp_avg"]), refs[case])
+            counts[f"mesh_world2_{case}_rank{r}"] = c["counts"]
+        diff = _tree_diff(ranks[0][case]["state"], ranks[1][case]["state"])
+        if diff:
+            raise AssertionError(f"the ranks' states differ after the {case} step: {diff[:8]}")
+        _all_mma(f"mesh world 2 {case}", ranks[0][case]["routes"])
+    if ranks[0]["step"]["rows"] != per or ranks[0]["corpus"]["rows_held"] != block \
+            or not torch.equal(ranks[0]["corpus"]["idx"], torch.from_numpy(idx)):
+        raise AssertionError("the ranks did not take their halves")
+    step_ms = [r["step_ms"] for r in ranks]
+    print(f"[mesh world 2] ({card}) both ranks' states bit-equal after each step; WGAN-GP step "
+          f"median {step_ms} ms a rank (B={per} a rank; 2 ranks on one card over gloo, which "
+          f"stages each all-reduce through the host: not a scaling number); ranks' run "
+          f"{wall:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"counts": counts, "routes": routes, "step_ms": step_ms, "wall_s": wall}
+
+
+def _mesh_cli_path(dev, card: str, qs: dict) -> dict:
+    """Phase 12c: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m percivaltts_tpu_torch.cli train --mesh
+    --device-corpus`` with config 3 (WGAN-GP) on phase 8's corpus (its
+    feature cache copied), 1 epoch of 2 steps with measures: exit 0, one
+    record of each epoch, the checkpoint, and ``cli synth`` serving it."""
+    import os
+
+    from percivaltts_tpu_torch import cli
+    from percivaltts_tpu_torch.config import Configuration
+    from percivaltts_tpu_torch.data.compose import load_wav
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    defaults = Configuration().to_dict()
+    d = json.loads(json.dumps(qs["cfg"]))
+    d["workdir"] = workdir = os.path.join(qs["root"], "exp_mesh")
+    d["model"] = dict(defaults["model"], generator="cnn_blstm")
+    d["train"] = dict(defaults["train"], trainer="wgan", epochs=1,
+                      steps_per_epoch=QS_WGAN_STEPS, measures_every=1, checkpoint_every=1)
+    cfg_path = _write_config(os.path.join(qs["root"], "config_mesh.json"), d)
+    shutil.copytree(os.path.join(qs["cfg"]["workdir"], "feature_cache"),
+                    os.path.join(workdir, "feature_cache"))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "percivaltts_tpu_torch.cli", "train", "--mesh", "--device-corpus",
+           "--config", cfg_path]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=MESH_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-12:]
+    for line in tail:
+        print(f"[mesh cli] | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"torch.distributed.run ... cli train --mesh exited {proc.returncode}")
+    epochs, objective = _records(workdir, "epoch"), _records(workdir, "objective")
+    ckpts = sorted(os.listdir(os.path.join(workdir, "checkpoints")))
+    print(f"[mesh cli] ({card}) torchrun, 1 rank: {wall:.2f} s; "
+          + "; ".join(f"epoch {r['epoch']}: {r['steps']} steps, loss {r['loss']:.6g}, wall "
+                      f"{r['sec']:.3f} s" for r in epochs)
+          + f"; objective records {len(objective)}; checkpoints {ckpts}")
+    if len(epochs) != 1 or epochs[0]["steps"] != QS_WGAN_STEPS or not _finite(epochs[0]) \
+            or len(objective) != 1 or ckpts != ["0"]:
+        raise AssertionError("cli train --mesh did not write one epoch's records and checkpoint")
+    cfg = Configuration.load(cfg_path)
+    label_dir = os.path.join(cfg.data.corpus_dir, cfg.data.label_dir)
+    labels = [os.path.join(label_dir, u + ".lab") for u in qs["corpus"].test.ids[:2]]
+    out_dir = os.path.join(workdir, "synth")
+    if cli.main(["synth", "--config", cfg_path, "--out", out_dir, *labels], device=dev) != 0:
+        raise AssertionError("cli synth from the mesh run's checkpoint failed")
+    wavs = [load_wav(os.path.join(out_dir, os.path.basename(p)[:-4] + ".wav"))[1] for p in labels]
+    print(f"[mesh cli] cli synth served the checkpoint: {[len(w) for w in wavs]} samples")
+    if not all(len(w) and np.isfinite(w).all() for w in wavs):
+        raise AssertionError("cli synth wrote empty or non-finite wavs")
+    return {"wall_s": wall, "record": epochs[0]}
+
+
 def _ptxas_usage(log: str) -> list:
     """One line per compiled kernel from ``ptxas -v``'s log: registers,
     spill stores / loads (bytes), and the (mangled) kernel name."""
@@ -2607,9 +3004,23 @@ def main() -> int:
                 routes[name][route] += n
     paths.update({f"export_{kind}_synthesis": run["counts"] for kind, run in syn11.items()})
     paths["cli_export"] = cli11["counts"]
+    t_phase12 = time.perf_counter()
+    # 12. data parallelism: config 3 through Trainer(mesh=...) over an NCCL
+    # group of one against no mesh; one step over 2 gloo ranks sharing the
+    # card against world size 1; cli train --mesh under torch.distributed.run
+    mesh1 = _mesh_world1_path(dev, smi)
+    mesh2 = _mesh_world2_path(dev, smi)
+    mesh_cli = _mesh_cli_path(dev, smi, qs)
+    paths["mesh_world1"] = mesh1["counts"]
+    paths.update(mesh2["counts"])
+    for run in (mesh1, mesh2):
+        for name, by_route in run["routes"].items():
+            for route, n in by_route.items():
+                routes[name][route] += n
     shutil.rmtree(qs["root"], ignore_errors=True)
     print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
-          f"{t_phase11 - t_phase10:.1f} s, phase 11 {time.perf_counter() - t_phase11:.1f} s")
+          f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
+          f"{time.perf_counter() - t_phase12:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -2716,6 +3127,14 @@ def main() -> int:
           f"{cli11['serve_s']:.3f} s; dispatch: the operator {dispatch['us']['op']:.2f} µs a "
           f"call against {dispatch['us']['eager']:.2f} eager, Griffin-Lim "
           f"{dispatch['vocode_ms']['op']:.3f} against {dispatch['vocode_ms']['eager']:.3f} ms")
+    print(f"[summary] data parallelism ({smi}): config 3's Trainer over an NCCL group of one, "
+          "epochs " + ", ".join(f"{r['sec']:.3f} s" for r in mesh1["records"]) + " against "
+          + ", ".join(f"{r['sec']:.3f} s" for r in mesh1["records_no_mesh"]) + " without a mesh; "
+          f"WGAN-GP step {mesh1['step_ms']['mesh']:.3f} ms against "
+          f"{mesh1['step_ms']['no mesh']:.3f} ms ({mesh1['all_reduces']} all-reduces a step); "
+          f"2 gloo ranks on one card {mesh2['step_ms']} ms a step (not a scaling number); "
+          f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
+          f"{mesh_cli['record']['sec']:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

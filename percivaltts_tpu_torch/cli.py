@@ -8,6 +8,9 @@ Usage:
     python -m percivaltts_tpu_torch.cli compose --config corpus/config.json
     python -m percivaltts_tpu_torch.cli train --config corpus/config.json
         [--resume] [--on-device-norm] [--device-corpus] [--preset production]
+        [--mesh] [--distributed]
+    python -m torch.distributed.run --nproc-per-node N -m percivaltts_tpu_torch.cli train
+        --config corpus/config.json --mesh
     python -m percivaltts_tpu_torch.cli generate --config corpus/config.json
         [--checkpoint N | --latest] [--split test|valid] [--no-wav] [--save-features]
     python -m percivaltts_tpu_torch.cli measures --config cfg.json --ref D1 --pred D2
@@ -34,7 +37,12 @@ as ``torch.export`` artifacts, one per bucket bound, and a manifest under
 ``ExportedSynthesizer`` serve them without model or vocoder code).
 ``plot`` draws ``<workdir>/metrics.jsonl``'s epochs into ``curves.png``.
 
-Not ported yet: ``--mesh`` and ``--distributed`` (ROADMAP queue 1 item 7).
+``train --mesh`` trains data-parallel (``parallel/``): one process per
+card, launched by ``torch.distributed.run`` (whose environment
+``--distributed`` reads, as ``--mesh`` does: the one-host and multi-host
+runs are one code path), each on ``cuda:LOCAL_RANK`` over NCCL, or on the
+CPU over gloo when the Python API names the CPU. Every rank composes;
+rank 0 alone writes the feature cache and the stats.
 """
 
 from __future__ import annotations
@@ -92,15 +100,20 @@ def cmd_demo(args, device) -> int:
     return 0
 
 
-def _compose(cfg: Configuration, device, normalize: bool = True):
+def _compose(cfg: Configuration, device, normalize: bool = True, mesh=None):
     """Compose the corpus through the workdir's feature cache and save its
-    stats."""
+    stats. Under a mesh every rank composes, as the JAX package's processes
+    do, and rank 0 alone writes the cache and the stats; the others read
+    what rank 0 has finished, so no rank waits on another."""
     from percivaltts_tpu_torch.data.compose import compose
 
+    writer = mesh is None or mesh.rank == 0
     cache = os.path.join(cfg.workdir, "feature_cache")
     os.makedirs(cache, exist_ok=True)
-    corpus = compose(cfg, cache_dir=cache, normalize=normalize, device=device)
-    corpus.save_stats(cfg.workdir)
+    corpus = compose(cfg, cache_dir=cache, normalize=normalize, device=device,
+                     write_cache=writer)
+    if writer:
+        corpus.save_stats(cfg.workdir)
     return corpus
 
 
@@ -137,25 +150,40 @@ def apply_preset(cfg: Configuration, name: str) -> Configuration:
     return cfg
 
 
-def _no_mesh(args) -> None:
-    if args.mesh or args.distributed:
-        raise NotImplementedError(
-            "--mesh / --distributed (data parallelism) are not ported yet "
-            "(ROADMAP queue 1 item 7)")
-
-
 def cmd_train(args, device) -> int:
-    """Compose (through the feature cache), save the stats, train."""
+    """Compose (through the feature cache), save the stats, train; with
+    ``--mesh`` / ``--distributed`` data-parallel over the process group it
+    joins (and leaves at the end, when it made the group)."""
+    import torch.distributed as dist
+
+    made_group = (args.mesh or args.distributed) and not dist.is_initialized()
+    try:
+        return _train(args, device)
+    finally:
+        if made_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> int:
     from percivaltts_tpu_torch.training import Trainer
 
-    _no_mesh(args)
     cfg = Configuration.load(args.config)
     if args.preset:
         cfg = apply_preset(cfg, args.preset)
     if args.device_corpus:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_corpus=True))
+    mesh = None
+    if args.mesh or args.distributed:
+        from percivaltts_tpu_torch.parallel import distributed, make_mesh
+
+        distributed.initialize(backend="nccl" if device.type == "cuda" else "gloo")
+        print_log(f"process group: {distributed.process_info()}")
+        world = distributed.process_info()["process_count"]
+        mesh = make_mesh(data_parallel=cfg.train.data_parallel, devices=[device] * world)
+        device = mesh.device
+        print_log(f"training on mesh {mesh.shape} (rank {mesh.rank}, {device})")
     on_device = args.on_device_norm
-    corpus = _compose(cfg, device, normalize=not on_device)
+    corpus = _compose(cfg, device, normalize=not on_device, mesh=mesh)
     if on_device and cfg.train.measures_every > 0:
         print_log(
             "WARNING: --on-device-norm disables objective-measure "
@@ -169,6 +197,7 @@ def cmd_train(args, device) -> int:
         in_stats=corpus.in_stats if on_device else None,
         out_stats=corpus.out_stats if on_device else None,
         measures_stats=None if on_device else corpus.out_stats,
+        mesh=mesh,
         device=device,
     )
     if args.resume:
@@ -392,9 +421,10 @@ def _parser() -> argparse.ArgumentParser:
     pt.add_argument("--config", required=True)
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--mesh", action="store_true",
-                    help="data parallelism over all devices (not ported yet)")
+                    help="data parallelism over the ranks torch.distributed.run launched "
+                    "(one process per card; alone: a group of one)")
     pt.add_argument("--distributed", action="store_true",
-                    help="multi-process training (not ported yet)")
+                    help="multi-process (multi-host) training; implies --mesh")
     pt.add_argument("--on-device-norm", action="store_true", dest="on_device_norm",
                     help="normalize on the device inside the step (raw features ship)")
     pt.add_argument("--device-corpus", action="store_true", dest="device_corpus",

@@ -127,23 +127,36 @@ def _cache_meta(cfg: Configuration, questions: QuestionSet) -> dict:
     }
 
 
-def _open_cache(cache_dir: str, meta: dict) -> None:
-    """Drop the cached features when ``cache_meta.json`` differs from
-    ``meta`` (a stale cache must never serve features of another analysis or
-    question set), then write ``meta``."""
+def _open_cache(cache_dir: str, meta: dict, write: bool = True) -> bool:
+    """Whether the cached features may be read. The writer drops them when
+    ``cache_meta.json`` differs from ``meta`` (a stale cache must never
+    serve features of another analysis or question set), then writes
+    ``meta``; a reader (``write=False``) changes nothing and reads the
+    cache only when its ``cache_meta.json`` is ``meta``."""
     meta_path = os.path.join(cache_dir, "cache_meta.json")
-    stale = False
+    current = None
     if os.path.exists(meta_path):
         with open(meta_path) as f:
-            stale = json.load(f) != meta
-    if stale:
+            current = json.load(f)
+    if not write:
+        return current == meta
+    if current is not None and current != meta:
         print_log("feature cache is stale (vocoder/question config changed); recomputing")
         for fn in os.listdir(cache_dir):
             if fn.endswith(".f32"):
                 os.remove(os.path.join(cache_dir, fn))
     os.makedirs(cache_dir, exist_ok=True)
-    with open(meta_path, "w") as f:
+    with open(meta_path + ".tmp", "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
+    os.replace(meta_path + ".tmp", meta_path)
+    return True
+
+
+def _save_cached(path: str, arr: np.ndarray) -> None:
+    """Write under a temporary name, then rename: a reader composing at the
+    same time sees a cached file whole or not at all."""
+    save_binary_file(path + ".tmp", arr)
+    os.replace(path + ".tmp", path)
 
 
 def _read_wav(cfg: Configuration, uid: str) -> np.ndarray:
@@ -203,6 +216,7 @@ def compose(
     cache_dir: Optional[str] = None,
     normalize: bool = True,
     device="cuda",
+    write_cache: bool = True,
 ) -> ComposedCorpus:
     """Run the composition stage over the corpus in ``cfg.data``, analyzing
     on ``device`` (the card unless the caller names another).
@@ -212,7 +226,9 @@ def compose(
     WORLD's vuv and band aperiodicity) left as they are, all
     over the training split. With ``normalize=False`` the datasets stay raw
     and the stats are applied on the device inside the train step
-    (``training/ondevice.py``)."""
+    (``training/ondevice.py``). ``write_cache=False`` reads ``cache_dir``
+    and writes nothing there: the data-parallel ranks compose at once, and
+    rank 0 alone writes the cache."""
     from percivaltts_tpu_torch.vocoders import get_vocoder
 
     d = cfg.data
@@ -222,8 +238,8 @@ def compose(
     if fileids is None:
         with open(d.fileids) as f:
             fileids = [line.strip() for line in f if line.strip()]
-    if cache_dir:
-        _open_cache(cache_dir, _cache_meta(cfg, questions))
+    if cache_dir and not _open_cache(cache_dir, _cache_meta(cfg, questions), write_cache):
+        cache_dir = None
 
     qdim = questions.dim + NUM_FRAME_FEATURES
     labs: dict = {}
@@ -244,9 +260,9 @@ def compose(
         for uid, cmp_ in zip(chunk, voc.analyze_batch(wavs)):
             cmps[uid] = cmp_
             labs[uid] = _read_label(cfg, uid, questions, cmp_.shape[0])
-            if cache_dir:
-                save_binary_file(os.path.join(cache_dir, uid + ".lab.f32"), labs[uid])
-                save_binary_file(os.path.join(cache_dir, uid + ".cmp.f32"), cmp_)
+            if cache_dir and write_cache:
+                _save_cached(os.path.join(cache_dir, uid + ".lab.f32"), labs[uid])
+                _save_cached(os.path.join(cache_dir, uid + ".cmp.f32"), cmp_)
     labs = [labs[uid] for uid in fileids]
     cmps = [cmps[uid] for uid in fileids]
     print_log(f"composed {len(fileids)} utterances ({len(uncached)} analyzed)")

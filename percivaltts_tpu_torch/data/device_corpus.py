@@ -8,8 +8,14 @@ card once. Every step then ships one small int32 index array, and the
 batch is gathered on the device. Epoch shuffling stays on the host: a
 permutation of utterance indices, made exactly as the JAX package makes it.
 
-Not ported: a corpus partitioned over a mesh (``mesh``, ``shard_corpus``),
-which waits for data parallelism (ROADMAP queue 1 item 7).
+Under a data-parallel mesh (``parallel/mesh.py``) every rank computes the
+same global index arrays and gathers its own columns. By default each rank
+holds the whole corpus. With ``shard_corpus=True`` the corpus is cut into
+one block per rank, as the JAX package's one-process mesh lays it out over
+its devices: padded cyclically to a multiple of the rank count, rank ``r``
+uploads only block ``r`` (device memory scales with the rank count), and
+the index arrays' columns of rank ``r`` index its block, shuffled per
+block as the JAX package shuffles them.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ def to_bfloat16(a: np.ndarray) -> torch.Tensor:
 class DeviceCorpus:
     """All utterances padded to ``bound`` and resident on ``device``:
     ``data`` holds ``lab`` and ``cmp`` in ``dtype`` and the mask in f32,
-    each ``(num_utts, bound, ·)``."""
+    each ``(rows, bound, ·)``: every utterance, or with ``shard_corpus``
+    this rank's block of the padded corpus."""
 
     def __init__(
         self,
@@ -48,25 +55,28 @@ class DeviceCorpus:
         shard_corpus: bool = False,
         device="cuda",
     ):
-        if mesh is not None or shard_corpus:
-            raise NotImplementedError(
-                "a corpus on a mesh is not ported yet (ROADMAP queue 1 item 7)")
+        if shard_corpus and mesh is None:
+            raise ValueError("shard_corpus=True requires a mesh")
         N, L, F = len(ds), ds.label_dim, ds.feat_dim
+        self.n_shards = mesh.size if shard_corpus else 1
+        # the padding rows cycle through the real utterances (real masks),
+        # so no block is all padding
+        N_pad = -(-N // self.n_shards) * self.n_shards
         rng = np.random.default_rng(crop_seed)
-        lab = np.zeros((N, bound, L), np.float32)
-        cmp_ = np.zeros((N, bound, F), np.float32)
-        mask = np.zeros((N, bound), np.float32)
-        for i in range(N):
-            x, c = ds.labs[i], ds.cmps[i]
-            n = x.shape[0]
-            off = 0
-            if n > bound:
-                # a long utterance gets one fixed random crop at upload time
-                off = int(rng.integers(0, n - bound + 1))
-                n = bound
-            lab[i, :n] = x[off : off + n]
-            cmp_[i, :n] = c[off : off + n]
-            mask[i, :n] = 1.0
+        # a long utterance gets one fixed random crop at upload time, drawn
+        # for every padded row in order, as the JAX package draws them
+        offsets = [int(rng.integers(0, n - bound + 1)) if n > bound else 0
+                   for n in (ds.labs[i % N].shape[0] for i in range(N_pad))]
+        rows = range(N_pad)[mesh.rows(N_pad)] if shard_corpus else range(N)
+        lab = np.zeros((len(rows), bound, L), np.float32)
+        cmp_ = np.zeros((len(rows), bound, F), np.float32)
+        mask = np.zeros((len(rows), bound), np.float32)
+        for j, i in enumerate(rows):
+            x, c, off = ds.labs[i % N], ds.cmps[i % N], offsets[i]
+            n = min(x.shape[0], bound)
+            lab[j, :n] = x[off : off + n]
+            cmp_[j, :n] = c[off : off + n]
+            mask[j, :n] = 1.0
         self.device = torch.device(device)
         cast = to_bfloat16 if dtype == "bfloat16" else torch.from_numpy
         # cast on the host, then one copy each; the mask stays f32
@@ -75,7 +85,10 @@ class DeviceCorpus:
             "mask": torch.from_numpy(mask).to(self.device)}
         self.nbytes = sum(t.numel() * t.element_size() for t in self.data.values())
         self.num_utts = N
+        self.num_utts_padded = N_pad
         self.bound = bound
+        self.mesh = mesh
+        self.shard_corpus = shard_corpus
 
     def epoch_indices(
         self,
@@ -89,20 +102,33 @@ class DeviceCorpus:
         arrays (group = n_critic + 1 for WGAN, 1 for LSE). ``num_steps=0``
         is one pass over the corpus; otherwise exactly that many steps,
         re-shuffling as needed. Fresh permutations are appended whenever the
-        corpus tail cannot fill a step, so every step is full-size."""
+        corpus tail cannot fill a step, so every step is full-size.
+
+        With a corpus sharded over ``n`` ranks the columns
+        ``[r·B/n, (r+1)·B/n)`` hold indices into block ``r``, each block
+        permuted on its own; unsharded, the one block is the corpus."""
         rng = np.random.default_rng(np.uint32(seed) + np.uint32(epoch))
-        per_step = batch_size * group
-        nsteps = num_steps or max(self.num_utts // per_step, 1)
-        need = nsteps * per_step
-        reps = -(-need // self.num_utts)
-        perm = np.concatenate([rng.permutation(self.num_utts) for _ in range(reps)])
+        n = self.n_shards
+        if batch_size % n != 0:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the corpus shard count ({n})")
+        b_local = batch_size // n
+        local_n = self.num_utts_padded // n
+        per_step = b_local * group
+        nsteps = num_steps or max(local_n // per_step, 1)
+        reps = -(-(nsteps * per_step) // local_n)
+        perms = [np.concatenate([rng.permutation(local_n) for _ in range(reps)])
+                 for _ in range(n)]
         for s in range(nsteps):
-            chunk = perm[s * per_step : (s + 1) * per_step]
-            yield chunk.reshape(group, batch_size).astype(np.int32)
+            cols = [p[s * per_step : (s + 1) * per_step].reshape(group, b_local) for p in perms]
+            yield np.concatenate(cols, axis=1).astype(np.int32)
 
     def shard_indices(self, idx: np.ndarray) -> torch.Tensor:
-        """The index array on the corpus's device: one pinned host tensor,
-        copied without blocking the host."""
+        """The index array (this rank's columns under a mesh) on the
+        corpus's device: one pinned host tensor, copied without blocking
+        the host."""
+        if self.mesh is not None:
+            idx = idx[:, self.mesh.rows(idx.shape[1])]
         t = torch.from_numpy(np.ascontiguousarray(idx))
         if self.device.type == "cuda":
             t = t.pin_memory()

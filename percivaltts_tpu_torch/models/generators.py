@@ -24,7 +24,9 @@ Parity notes, each pinned by a test:
 (after its LayerNorm, before its tanh), as flax ``nn.Dropout`` in the JAX
 package's ``_reg``, and, in ``BLSTMGenerator``, each recurrent layer; its
 keep mask is drawn from the explicit ``torch.Generator`` ``g``. Eval mode
-(the default) never drops.
+(the default) never drops. ``rows=(rank, ranks, groups)`` says the batch is
+one data-parallel rank's share of a global batch (see :func:`dropout`), so
+the masks are those world size 1 draws for the same rows.
 """
 
 from __future__ import annotations
@@ -51,13 +53,28 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+# ``rows`` of a batch that is the whole global batch (world size 1)
+ONE_RANK = (0, 1, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            rows: Tuple[int, int, int] = ONE_RANK) -> torch.Tensor:
     """flax ``nn.Dropout`` in training mode: keep each element with
-    probability 1 − rate and scale the kept ones by 1 / (1 − rate)."""
+    probability 1 − rate and scale the kept ones by 1 / (1 − rate).
+
+    ``rows=(rank, ranks, groups)``: x's rows are rank ``rank``'s share of a
+    global batch split evenly over ``ranks`` ranks, made of ``groups``
+    stacked blocks (block-major, as ``(groups, B)`` reshaped to
+    ``groups·B`` rows); the draw is made over the global rows and cut to
+    this rank's, so every rank advances ``generator`` alike."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    rank, ranks, groups = rows
+    b = x.shape[0] // groups
+    u = torch.rand((groups, b * ranks) + x.shape[1:], generator=generator, device=x.device)
+    u = u[:, rank * b:(rank + 1) * b].reshape(x.shape)
+    kept = u < keep
     return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -101,14 +118,15 @@ def _add_reg(module: nn.Module, name: str, norm: str, width: int, dtype) -> None
         raise ValueError(f"unknown gen_norm: {norm}")
 
 
-def _reg(module: nn.Module, name: str, x: torch.Tensor, drop: bool, generator) -> torch.Tensor:
+def _reg(module: nn.Module, name: str, x: torch.Tensor, drop: bool, generator,
+         rows) -> torch.Tensor:
     """The JAX package's ``_reg``: the LayerNorm ``{name}_ln`` if the module
     has one, then dropout when ``drop``."""
     ln = getattr(module, f"{name}_ln", None)
     if ln is not None:
         x = layer_norm(x, ln.weight, ln.bias, ln.eps)
     if drop:
-        x = dropout(x, module.dropout_rate, generator)
+        x = dropout(x, module.dropout_rate, generator, rows)
     return x
 
 
@@ -162,6 +180,7 @@ class FCGenerator(nn.Module):
         lab: torch.Tensor,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        rows: Tuple[int, int, int] = ONE_RANK,
     ) -> torch.Tensor:
         """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
         ``train`` turns dropout on; it then draws from ``generator``, which
@@ -169,7 +188,7 @@ class FCGenerator(nn.Module):
         drop = _dropout_on(train, self.dropout_rate, generator)
         x = lab.to(self.compute_dtype)
         for i in range(self.num_layers):
-            x = _reg(self, f"reg_{i}", _dense(self, f"dense_{i}", x), drop, generator)
+            x = _reg(self, f"reg_{i}", _dense(self, f"dense_{i}", x), drop, generator, rows)
             x = torch.tanh(x)
         return _dense(self, "out", x).float()
 
@@ -214,6 +233,7 @@ class BLSTMGenerator(nn.Module):
         lab: torch.Tensor,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        rows: Tuple[int, int, int] = ONE_RANK,
     ) -> torch.Tensor:
         """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
         ``train`` turns dropout on (after the front end and after each
@@ -221,11 +241,11 @@ class BLSTMGenerator(nn.Module):
         on the labels' device."""
         drop = _dropout_on(train, self.dropout_rate, generator)
         x = _dense(self, "frontend", lab.to(self.compute_dtype))
-        x = torch.tanh(_reg(self, "reg_fe", x, drop, generator))
+        x = torch.tanh(_reg(self, "reg_fe", x, drop, generator, rows))
         for i in range(self.num_layers):
             x = getattr(self, f"blstm_{i}")(x)
             if drop:
-                x = dropout(x, self.dropout_rate, generator)
+                x = dropout(x, self.dropout_rate, generator, rows)
         return _dense(self, "out", x).float()
 
 
@@ -333,6 +353,7 @@ class CNNGenerator(nn.Module):
         lab: torch.Tensor,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        rows: Tuple[int, int, int] = ONE_RANK,
     ) -> torch.Tensor:
         """(B, T, label_dim) normalized labels → (B, T, feat_dim) float32.
         ``train`` turns dropout on; it then draws from ``generator``, which
@@ -340,7 +361,7 @@ class CNNGenerator(nn.Module):
         drop = _dropout_on(train, self.dropout_rate, generator)
         x = lab.to(self.compute_dtype)
         for i in range(self.trunk_layers):
-            x = _reg(self, f"reg_{i}", _dense(self, f"trunk_{i}", x), drop, generator)
+            x = _reg(self, f"reg_{i}", _dense(self, f"trunk_{i}", x), drop, generator, rows)
             x = torch.tanh(x)
 
         outs = {}

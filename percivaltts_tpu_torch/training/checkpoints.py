@@ -13,6 +13,11 @@ dict) and ``metrics.json``. A save is written into ``<step>.tmp/`` and then
 renamed, so a crash leaves no half checkpoint, and a leftover ``.tmp``
 directory is never read. Retention and the best-step queries are Orbax's,
 as the JAX class configures them.
+
+Under a data-parallel mesh every rank holds the same state, so rank 0
+alone writes and removes checkpoints, and every rank then waits at a
+barrier; each rank keeps the same record of the retained steps and
+restores the same files (the directory must be one that every rank sees).
 """
 
 from __future__ import annotations
@@ -48,9 +53,12 @@ class CheckpointManager:
     Ties rank by step, the newer first. A save at a step not past the latest
     is skipped, as Orbax skips it."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
+        """``mesh``: rank 0 writes, and every rank waits for the write."""
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.mesh = mesh
+        self._writes = mesh is None or mesh.rank == 0
         os.makedirs(self.directory, exist_ok=True)
         self._metrics: Dict[int, Optional[dict]] = {}
         for name in os.listdir(self.directory):
@@ -72,19 +80,23 @@ class CheckpointManager:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
-        payload = state.state_dict() if isinstance(state, GANState) else state
-        final = self._path(step)
-        tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(payload, os.path.join(tmp, STATE_FILE))
-        with open(os.path.join(tmp, METRICS_FILE), "w") as f:
-            json.dump(metrics, f)
-        os.replace(tmp, final)
+        if self._writes:
+            payload = state.state_dict() if isinstance(state, GANState) else state
+            final = self._path(step)
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(payload, os.path.join(tmp, STATE_FILE))
+            with open(os.path.join(tmp, METRICS_FILE), "w") as f:
+                json.dump(metrics, f)
+            os.replace(tmp, final)
         self._metrics[step] = metrics
         for old in self._steps_to_remove():
-            shutil.rmtree(self._path(old))
+            if self._writes:
+                shutil.rmtree(self._path(old))
             del self._metrics[old]
+        if self.mesh is not None:
+            self.mesh.barrier()
         return True
 
     def _steps_to_remove(self) -> List[int]:

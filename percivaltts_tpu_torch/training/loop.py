@@ -23,6 +23,14 @@ Notes for the card:
   VUV, GV and modulation-spectrum ratios) run over the validation split
   through the generation path; ``best_metric`` ``"mcd"`` / ``"mcd_gv"``
   select the best checkpoint and drive early stopping on them.
+* Under a data-parallel mesh (``parallel/``) every rank iterates the same
+  global batches and the prefetch thread keeps only the rank's rows, so
+  only those are cast, pinned and copied. The steps' metrics come out
+  global (they ride in the gradient all-reduce), validation sums once over
+  the ranks, and every rank runs the measures and takes rank 0's scores:
+  every rank takes the same best-checkpoint and early-stopping decisions.
+  Rank 0 alone writes ``config.json``, ``metrics.jsonl``, the trace and
+  the checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from percivaltts_tpu_torch.data.device_corpus import (
     make_device_lse_step,
     make_device_wgan_step,
 )
+from percivaltts_tpu_torch.parallel.mesh import global_sum, local_rows
 from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
 from percivaltts_tpu_torch.training.losses import stream_weight_vector
 from percivaltts_tpu_torch.training.lse import lse_eval_sums, lse_step
@@ -136,7 +145,7 @@ class Trainer:
         in_stats=None,
         out_stats=None,
         measures_stats=None,
-        device="cuda",
+        device=None,
     ):
         """``in_stats``/``out_stats``: pass NormStats (with *raw* datasets)
         to normalize on the device inside the step instead of on the host
@@ -147,17 +156,25 @@ class Trainer:
         (``TrainConfig.measures_every``) and the measure-driven best
         checkpoint (``best_metric`` ``"mcd"`` / ``"mcd_gv"``).
 
-        ``device``: where the state lives and the steps run; the card
-        unless the caller names another (the CPU runs the kernels' plain
-        twins). ``TrainConfig.debug_nans`` turns on
-        ``torch.autograd.set_detect_anomaly``, for the whole process.
+        ``mesh`` (``parallel.make_mesh``): train data-parallel, this rank on
+        its rows of every batch; ``batch_size`` is the global batch and
+        must split evenly over the ranks.
 
-        Not ported yet: ``mesh`` raises ``NotImplementedError`` (ROADMAP
-        queue 1 item 7)."""
+        ``device``: where the state lives and the steps run; the mesh's
+        device under a mesh, else the card unless the caller names another
+        (the CPU runs the kernels' plain twins). ``TrainConfig.debug_nans``
+        turns on ``torch.autograd.set_detect_anomaly``, for the whole
+        process."""
         train = cfg.train
         if mesh is not None:
-            raise NotImplementedError(
-                "data parallelism over a mesh is not ported yet (ROADMAP queue 1 item 7)")
+            dp = mesh.shape["data"]
+            if cfg.data.batch_size % dp != 0:
+                raise ValueError(
+                    f"batch_size {cfg.data.batch_size} must be divisible by "
+                    f"the mesh data axis ({dp} devices) for data parallelism"
+                )
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
         if train.best_metric in ("mcd", "mcd_gv") and (
             train.measures_every <= 0 or measures_stats is None
         ):
@@ -168,11 +185,16 @@ class Trainer:
         self.cfg = cfg
         self.train_ds = train_ds
         self.valid_ds = valid_ds
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device or "cuda")
+        # rank 0 writes the run's records; every rank computes them
+        self.writer = mesh is None or mesh.rank == 0
         self.workdir = workdir or cfg.workdir
         os.makedirs(self.workdir, exist_ok=True)
-        cfg.dump(os.path.join(self.workdir, "config.json"))
-        self.metrics = MetricsLogger(os.path.join(self.workdir, "metrics.jsonl"))
+        if self.writer:
+            cfg.dump(os.path.join(self.workdir, "config.json"))
+        self.metrics = MetricsLogger(os.path.join(self.workdir, "metrics.jsonl"),
+                                     enabled=self.writer)
         self.metrics.log("system", **system_info(self.device))
         # sanity scale for the losses (reference: data.py's zero-predictor
         # RMSE): a trained model must beat this by a wide margin
@@ -180,13 +202,14 @@ class Trainer:
         self.metrics.log("sanity", cost_0pred_rmse=zero_rmse)
         print_log(f"zero-predictor RMSE over targets: {zero_rmse:.5f}")
         self.ckpt = CheckpointManager(
-            os.path.join(self.workdir, "checkpoints"), keep=train.keep_checkpoints
+            os.path.join(self.workdir, "checkpoints"), keep=train.keep_checkpoints, mesh=mesh
         )
 
         if train.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
-        self.state: GANState = make_gan_state(cfg, train_ds.label_dim, device=self.device)
+        self.state: GANState = make_gan_state(cfg, train_ds.label_dim, device=self.device,
+                                              mesh=mesh)
         self.measures_stats = measures_stats
         self.dcorpus = None
         if train.device_corpus:
@@ -194,6 +217,7 @@ class Trainer:
                 train_ds,
                 bound=max(cfg.data.bucket_bounds),
                 dtype="bfloat16" if train.transfer_dtype == "bfloat16" else "float32",
+                mesh=mesh,
                 shard_corpus=train.shard_corpus,
                 device=self.device,
             )
@@ -207,7 +231,7 @@ class Trainer:
             cfg.vocoder.streams, train.stream_weights, cfg.vocoder.feature_size
         )
         if train.trainer == "wgan":
-            self._wgan_step = _maybe_norm(make_wgan_step(train, dim_w))
+            self._wgan_step = _maybe_norm(make_wgan_step(train, dim_w, mesh))
             if self.dcorpus is not None:
                 self._wgan_step = make_device_wgan_step(self._wgan_step, train.n_critic)
         else:
@@ -218,6 +242,7 @@ class Trainer:
                     ema_decay=train.ema_decay,
                     boundary_weight=train.boundary_weight,
                     boundary_radius=train.boundary_radius,
+                    mesh=mesh,
                 )
             )
             if self.dcorpus is not None:
@@ -255,16 +280,18 @@ class Trainer:
         )
         return True
 
-    def _cast(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host tensors of the step's keys: ``lab``/``cmp`` in the transfer
-        dtype (``TrainConfig.transfer_dtype``; bf16 halves the bytes
-        copied, and the models compute in bf16 regardless), pinned when the
-        state is on the card. The mask stays f32: its sums are loss
-        denominators, and a bf16 sum over thousands of frames is not exact."""
+    def _cast(self, batch: Dict[str, np.ndarray], axis: int = 0) -> Dict[str, torch.Tensor]:
+        """Host tensors of the step's keys: this rank's rows (along
+        ``axis``) under a mesh, ``lab``/``cmp`` in the transfer dtype
+        (``TrainConfig.transfer_dtype``; bf16 halves the bytes copied, and
+        the models compute in bf16 regardless), pinned when the state is
+        on the card. The mask stays f32: its sums are loss denominators,
+        and a bf16 sum over thousands of frames is not exact."""
         dt = TRANSFER_DTYPES[self.cfg.train.transfer_dtype]
         out = {}
         for k in STEP_KEYS:
-            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            v = batch[k] if self.mesh is None else local_rows(batch[k], self.mesh, axis)
+            t = torch.from_numpy(np.ascontiguousarray(v))
             if k != "mask":
                 t = t.to(dt)
             out[k] = t.pin_memory() if self.device.type == "cuda" else t
@@ -275,7 +302,8 @@ class Trainer:
 
     def _readback(self, metrics_log: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
         """Sum of each metric over the steps, read back in one copy; it
-        waits for the dispatched steps."""
+        waits for the dispatched steps. Under a mesh the steps' metrics are
+        global already (they ride in the gradient all-reduce)."""
         agg: Dict[str, float] = {}
         if metrics_log:
             keys = list(metrics_log[0])
@@ -295,7 +323,7 @@ class Trainer:
         prof = _EpochProfiler(
             self.workdir,
             self.cfg.train.profile_steps,
-            active=epoch == self._profile_epoch,
+            active=epoch == self._profile_epoch and self.writer,
             device=self.device,
         )
         nsteps = 0
@@ -311,7 +339,7 @@ class Trainer:
                     batches, group, self._wgan_buffers
                 ):
                     nf = float(critic_b["mask"].sum() + gen_b["mask"].sum())
-                    yield self._cast(critic_b), self._cast(gen_b), nf
+                    yield self._cast(critic_b, axis=1), self._cast(gen_b), nf
 
             for cb, gb, nf in prefetch(prepared()):
                 cb, gb = self._put(cb), self._put(gb)
@@ -358,7 +386,7 @@ class Trainer:
         prof = _EpochProfiler(
             self.workdir,
             self.cfg.train.profile_steps,
-            active=epoch == self._profile_epoch,
+            active=epoch == self._profile_epoch and self.writer,
             device=self.device,
         )
         metrics_log = []
@@ -382,7 +410,8 @@ class Trainer:
         """Frame-weighted masked validation MSE: per-batch (error sum, frame
         count) pairs accumulate across batches, so short final batches and
         zero-masked pad rows carry exactly their frame weight. The pairs
-        stay on the device and are read back once."""
+        stay on the device and are read back once; under a mesh each rank
+        sums its rows and one all-reduce sums the ranks."""
         if self.valid_ds is None or len(self.valid_ds) == 0:
             return float("nan")
         d = self.cfg.data
@@ -392,7 +421,7 @@ class Trainer:
         ):
             sums.append(torch.stack(self._eval_step(self.state, self._put(self._cast(b)))))
         err, frames = 0.0, 0.0
-        for e, f in torch.stack(sums).cpu().tolist():
+        for e, f in global_sum(torch.stack(sums), self.mesh).cpu().tolist():
             err += e
             frames += f
         return err / max(frames, 1.0)
@@ -400,7 +429,10 @@ class Trainer:
     def _validate_measures(self, epoch: int) -> Optional[Dict[str, float]]:
         """Objective measures (MCD / F0 RMSE / VUV / GV / modulation
         spectrum) over the validation split through the generation path,
-        every ``measures_every`` epochs; logged as ``"objective"``."""
+        every ``measures_every`` epochs; logged as ``"objective"``. Under a
+        mesh every rank measures (each holds the same state, so none waits
+        on another) and rank 0's scores are broadcast, so every rank
+        decides on the same numbers."""
         cfg = self.cfg.train
         if (
             cfg.measures_every <= 0
@@ -420,6 +452,8 @@ class Trainer:
             outdir=os.path.join(self.workdir, "valid_gen"),
             synthesize=False,
         )
+        if self.mesh is not None:
+            obj = self.mesh.broadcast_object(obj)
         self.metrics.log("objective", epoch=epoch, **obj)
         return obj
 

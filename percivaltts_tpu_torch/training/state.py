@@ -20,6 +20,7 @@ from torch import nn
 
 from percivaltts_tpu_torch.config import Configuration, TrainConfig
 from percivaltts_tpu_torch.models import build_critic, build_generator
+from percivaltts_tpu_torch.parallel.mesh import replicate_state
 
 
 @dataclass
@@ -119,16 +120,18 @@ def make_adam(params, lr: float, train: TrainConfig) -> torch.optim.Adam:
 
 
 def make_gan_state(
-    cfg: Configuration, label_dim: int, seed: Optional[int] = None, device="cuda"
+    cfg: Configuration, label_dim: int, seed: Optional[int] = None, device="cuda", mesh=None
 ) -> GANState:
     """Build the generator (and the critic for ``trainer="wgan"``) on
     ``device`` (the card unless the caller names another, e.g. ``"cpu"``),
     their optimizers, the EMA copy and the step generator.
     Parameters are drawn on the CPU from one ``torch.Generator`` seeded with
     ``seed`` (``cfg.train.seed`` when None), generator first; the step
-    generator lives on ``device`` with the same seed."""
+    generator lives on ``device`` with the same seed. ``mesh``
+    (``parallel.make_mesh``): build on the rank's device, then take rank
+    0's state on every rank (``parallel.replicate_state``)."""
     seed = cfg.train.seed if seed is None else seed
-    device = torch.device(device)
+    device = torch.device(device if mesh is None else mesh.device)
     init = torch.Generator().manual_seed(seed)
     gen = build_generator(cfg.model, cfg.vocoder, label_dim, generator=init).to(device)
     gen_opt = make_adam(gen.parameters(), cfg.train.lr_gen, cfg.train)
@@ -139,7 +142,7 @@ def make_gan_state(
     ema = None
     if cfg.train.ema_decay > 0.0:
         ema = {n: p.detach().float().clone() for n, p in gen.named_parameters()}
-    return GANState(
+    state = GANState(
         gen=gen,
         gen_opt=gen_opt,
         critic=critic,
@@ -147,3 +150,6 @@ def make_gan_state(
         rng=torch.Generator(device=device).manual_seed(seed),
         ema=ema,
     )
+    if mesh is not None:
+        replicate_state(state, mesh)
+    return state

@@ -4,7 +4,8 @@ measures on a miniature corpus, asserting what the JAX package's pipeline
 test (``tests/test_e2e.py``) asserts of it, then the production preset's
 device-corpus run with objective-measure validation, resumed; ``export``
 and ``plot`` on a trained workdir. The preset overlay equals the JAX
-``apply_preset``'s; what is not ported raises.
+``apply_preset``'s; ``train --mesh`` / ``--distributed`` train over a
+process group of one.
 """
 
 import contextlib
@@ -12,6 +13,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -211,14 +213,39 @@ def test_production_preset_equals_the_jax_overlay(train, vocoder):
         cli.apply_preset(Configuration(), "fast")
 
 
-def test_unported_options_and_commands(corpus, tmp_path):
-    """``--mesh`` / ``--distributed`` are not ported; ``export`` and
-    ``plot`` are, and on a workdir with no trained run they say what is
-    missing."""
-    cfg_path = _write_cfg(corpus, str(tmp_path / "x"))
+def test_unported_options_and_commands(corpus, tmp_path, monkeypatch):
+    """``train --mesh`` trains data-parallel over a gloo group of one that it
+    makes and leaves; ``--distributed`` joins the group that
+    ``torch.distributed.run``'s environment describes. Both write the run's
+    records. ``export`` and ``plot`` on a workdir with no trained run say
+    what is missing."""
+    import socket
+
+    import torch.distributed as dist
+
+    joined = []
+    init = dist.init_process_group
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: joined.append((a, kw)) or init(*a, **kw))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
     for flag in ("--mesh", "--distributed"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            _main("train", "--config", cfg_path, flag)
+        workdir = str(tmp_path / flag.strip("-"))
+        cfg_path = _write_cfg(corpus, workdir, train={"epochs": 1})
+        if flag == "--distributed":  # the first run's features, composed once
+            shutil.copytree(str(tmp_path / "mesh" / "feature_cache"),
+                            os.path.join(workdir, "feature_cache"))
+            for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="1",
+                             RANK="0", LOCAL_RANK="0").items():
+                monkeypatch.setenv(k, v)
+        assert _main("train", "--config", cfg_path, flag) == 0
+        assert not dist.is_initialized()
+        assert len(_records(workdir, "epoch")) == 1
+        assert os.listdir(os.path.join(workdir, "checkpoints")) == ["0"]
+    assert [(a[0], kw["world_size"], kw["rank"]) for a, kw in joined] == [("gloo", 1, 0)] * 2
+    assert joined[1][1]["init_method"] == f"tcp://localhost:{port}"
+    cfg_path = _write_cfg(corpus, str(tmp_path / "x"))
     assert _main("compose", "--config", cfg_path) == 0
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         _main("export", "--config", cfg_path)

@@ -179,6 +179,38 @@ def test_stale_cache_is_recomputed_and_decision_rules_are_not_stale(corpus, tmp_
     assert again.train.feat_dim == 1 + 33 + 9 and first.train.feat_dim == 1 + 33 + 17
 
 
+@pytest.mark.parametrize("cache_state", ["empty", "filled", "stale"])
+def test_a_reading_rank_composes_without_writing_the_cache(corpus, tmp_path, capsys,
+                                                           cache_state):
+    """``write_cache=False`` (a data-parallel rank other than 0) gives the
+    writer's corpus and leaves the cache directory byte for byte as it
+    found it: it reads a filled cache, and analyzes itself when the cache
+    is empty or its ``cache_meta.json`` is another analysis's (whose
+    features it must not read: one of them is garbage here)."""
+    cfg = Configuration.from_dict(_cfg_dict(corpus, str(tmp_path / "exp")))
+    cache = str(tmp_path / "cache")
+    os.makedirs(cache)
+    want = compose.compose(cfg, cache_dir=str(tmp_path / "writer"), device="cpu")
+    if cache_state != "empty":
+        compose.compose(cfg, cache_dir=cache, device="cpu")
+    if cache_state == "stale":
+        meta = os.path.join(cache, "cache_meta.json")
+        with open(meta) as f:
+            stale = json.load(f)
+        stale["questions_dim"] += 1
+        with open(meta, "w") as f:
+            json.dump(stale, f)
+        garbage = os.path.join(cache, want.train.ids[0] + ".cmp.f32")
+        np.full(os.path.getsize(garbage) // 4, 7.0, np.float32).tofile(garbage)
+    before = _tree(cache)
+    capsys.readouterr()
+    got = compose.compose(cfg, cache_dir=cache, device="cpu", write_cache=False)
+    analyzed = 0 if cache_state == "filled" else 7
+    assert f"({analyzed} analyzed)" in capsys.readouterr().out
+    assert _tree(cache) == before
+    _assert_same_corpus(got, want)
+
+
 def test_compose_checks_sample_rate_files_and_label_length(corpus, tmp_path, capsys):
     root = str(tmp_path / "bad")
     generate_demo_corpus(root, num_utterances=4, seed=9)

@@ -10,6 +10,9 @@ On the CPU (the corpus lives on the CPU device here; the card tests in
   cast bit for bit with ``ml_dtypes`` (NaN, ±inf, subnormals and ties
   included);
 * the gather and the step wrappers' batches;
+* ``shard_corpus`` without a mesh raises the JAX class's error; over a
+  mesh each rank gathers its index columns (the mesh layouts are held
+  against JAX's in ``tests/test_torch_parallel.py``);
 * 2 LSE epochs with ``device_corpus=True`` and ``measures_every=1``,
   selecting on MCD, against the JAX ``Trainer``: the epoch records at
   ``tests/test_torch_loop.py``'s tolerance (rtol 1e-5: f32 sums in another
@@ -40,6 +43,7 @@ from percivaltts_tpu_torch.config import Configuration
 from percivaltts_tpu_torch.data import device_corpus as dc
 from percivaltts_tpu_torch.data.dataset import Dataset
 from percivaltts_tpu_torch.data.normalize import NormStats
+from percivaltts_tpu_torch.parallel.mesh import Mesh
 from percivaltts_tpu_torch.training import Trainer
 
 L, F = 13, 27  # _tiny_cfg's label dim and features (1 + 17 + 9)
@@ -142,10 +146,23 @@ def test_gather_and_step_wrappers_give_the_jax_batches():
 
 
 def test_mesh_and_sharded_corpus_raise_naming_their_roadmap_item():
-    ds = Dataset(*_utts(4, seed=4))
-    for kw in ({"mesh": object()}, {"shard_corpus": True}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            dc.DeviceCorpus(ds, bound=64, device="cpu", **kw)
+    """A corpus sharded over no mesh raises the JAX class's ValueError. Over
+    a mesh (row slicing needs no process group) the replicated corpus
+    holds every utterance and each rank gathers its columns of the index
+    arrays."""
+    labs, cmps = _utts(5, seed=4)
+    with pytest.raises(ValueError) as want:
+        jdc.DeviceCorpus(JaxDataset(labs, cmps), bound=64, shard_corpus=True)
+    with pytest.raises(ValueError) as got:
+        dc.DeviceCorpus(Dataset(labs, cmps), bound=64, device="cpu", shard_corpus=True)
+    assert str(got.value) == str(want.value) == "shard_corpus=True requires a mesh"
+    idx = np.arange(12, dtype=np.int32).reshape(3, 4) % 5
+    for rank in range(2):
+        corpus = dc.DeviceCorpus(Dataset(labs, cmps), bound=64, device="cpu",
+                                 mesh=Mesh(rank=rank, size=2))
+        assert corpus.data["lab"].shape[0] == 5
+        np.testing.assert_array_equal(corpus.shard_indices(idx).numpy(),
+                                      idx[:, 2 * rank:2 * rank + 2])
 
 
 # --- the trainer on the device corpus ------------------------------------------

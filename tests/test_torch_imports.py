@@ -87,6 +87,9 @@ def test_port_modules_import_without_jax_flax_or_the_jax_package():
         "percivaltts_tpu_torch.ops.morph",
         "percivaltts_tpu_torch.ops.stft",
         "percivaltts_tpu_torch.ops.warp",
+        "percivaltts_tpu_torch.parallel",
+        "percivaltts_tpu_torch.parallel.distributed",
+        "percivaltts_tpu_torch.parallel.mesh",
         "percivaltts_tpu_torch.training",
         "percivaltts_tpu_torch.training.checkpoints",
         "percivaltts_tpu_torch.training.loop",

@@ -10,8 +10,10 @@ Tiny widths (``__graft_entry__._tiny_cfg``, f32 compute), on the CPU:
   on the same raw data, normalized on the device, epoch by epoch;
 * resume: 2 epochs in one run equal, bit for bit, 1 epoch, a fresh
   ``Trainer``, ``resume()`` and 1 more;
-* what is not ported yet (a mesh, a corpus sharded over one) raises
-  ``NotImplementedError`` naming its ROADMAP item.
+* the options the Trainer refuses (a corpus sharded over no mesh, a batch
+  that does not split over the mesh, a measure-driven best checkpoint
+  without the measures). The Trainer under a mesh is held against the JAX
+  one in ``tests/test_torch_parallel.py``.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from percivaltts_tpu_torch import weights
 from percivaltts_tpu_torch.config import Configuration
 from percivaltts_tpu_torch.data.dataset import Dataset
 from percivaltts_tpu_torch.data.normalize import NormStats
+from percivaltts_tpu_torch.parallel.mesh import Mesh
 from percivaltts_tpu_torch.training import Trainer
 from percivaltts_tpu_torch.training import loop
 
@@ -310,16 +313,23 @@ def test_resumed_run_equals_an_uninterrupted_run(tmp_path, trainer):
 
 
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path):
+    """The options the Trainer refuses, with the JAX Trainer's messages: a
+    corpus sharded over no mesh, a batch that does not split over the
+    mesh's ranks (the refusals come before any collective: the mesh needs
+    no process group), and a measure-driven best checkpoint without the
+    measures."""
     _, cfg = _cfgs("lse", tmp_path)
     ds = Dataset(*_corpus(4, seed=6))
     stats = NormStats(**OUT_STATS)
     cases = [
         (dict(cfg=cfg.replace(train=dataclasses.replace(cfg.train, device_corpus=True,
-                                                        shard_corpus=True))), "item 7"),
-        (dict(cfg=cfg, mesh=object()), "item 7"),
+                                                        shard_corpus=True))),
+         "shard_corpus=True requires a mesh"),
+        (dict(cfg=cfg, mesh=Mesh(rank=0, size=3)),
+         r"batch_size 8 must be divisible by the mesh data axis \(3 devices\)"),
     ]
-    for kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, message in cases:
+        with pytest.raises(ValueError, match=message):
             Trainer(train_ds=ds, device="cpu", **kw)
     # a measure-driven best checkpoint needs the measures and their stats
     for metric in ("mcd", "mcd_gv"):
