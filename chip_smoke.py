@@ -28,9 +28,10 @@ raises on failure (the script exits 0 only when all passed):
    16 up to 128), the BiLSTM and BiGRU BPTT at the training and edge
    shapes (T=1, B not a multiple of 8, H = 16, 48, 64, an unaligned gx
    view), f32 and bf16 (the tensor-core kernels ``csrc/*_bwd_mma.cu`` for
-   H a multiple of 16 up to 128, the CUDA-core ones at H=160); each
-   autograd pair (forward kernel + BPTT kernel) against the same function
-   on the twins; and the DSP kernels, framing × window and overlap-add, bit
+   H a multiple of 16 up to 128, the CUDA-core ones at H=160, where the
+   LSTM's bf16 BPTT takes the cluster kernel of phase 13); each autograd
+   pair (forward kernel + BPTT kernel) against the same function on the
+   twins; and the DSP kernels, framing × window and overlap-add, bit
    for bit, at the vocoder's shapes, the JAX package's test shapes and the
    edges (fl not a multiple of 8, nf not a multiple of the framing tile,
    B·nf past 65,535, fl < hop, a frame cut into column slices), f32 and
@@ -185,7 +186,24 @@ raises on failure (the script exits 0 only when all passed):
    12c. ``python -m torch.distributed.run --standalone --nproc-per-node 1
    -m percivaltts_tpu_torch.cli train --mesh --device-corpus`` with config
    3 on phase 8's corpus, 1 epoch of 2 steps with measures: exit 0, one
-   epoch record, the checkpoint, which ``cli synth`` serves.
+   epoch record, the checkpoint, which ``cli synth`` serves;
+13. kernels #1/#2 at every width the JAX package trains (the "wide" route,
+   ``csrc/bilstm_{fwd,bwd}_wide.cu``: a thread-block cluster a direction):
+   13a. each launch plan against ``ops/wide_layout.py``; the forward (with
+   and without cells) at (512, 8, 512), (517, 3, 512), (1, 1, 512), (512,
+   160, 512), (33, 9, 264), (64, 1, 608) and the BPTT at (512, 32, 512),
+   (33, 9, 264), (40, 1, 608), (24, 5, 100) (its entry's route, the
+   one-block kernel padded to H = 104, and the cluster kernel launched
+   directly) against the twins, f32 and bf16, each launch counted on its
+   route; H = 256 on the route that takes it, and in bf16 the one-block
+   kernels against the cluster ones on the same inputs, checked and timed
+   in turns; the autograd pair at (512, 32, 512); both kernels timed at
+   B = 8, 32, 160 beside the twins, the bound and cuDNN's ``nn.LSTM``;
+   13b. config 3 (``cnn_blstm``) and the BLSTM generator at
+   ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
+   the twins, every launch on the wide route, serve medians, busy share;
+   13c. one WGAN-GP step of each as phase 5 takes them, held against the
+   twins' step as ``_hold_step`` holds phase 5's, the step median of 10.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -233,8 +251,13 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # GRU layers, and the bf16 readout rounds at |normalized output| < 4 with an
 # ulp of 2^-6, times 1/scale <= 2: 0.03 a rounding flip, and up to four
 # flips in the same element after two layers.
-SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125}
-PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883}
+# Phase 13's blstm_size=1024 models by the same count: config 3's f0 head
+# (one BiLSTM, now of 512 units) as config 3; the BLSTM generator, whose
+# every stream reads both LSTM layers through a bf16 readout, as the BGRU.
+SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125,
+             "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125}
+PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
+          "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -245,13 +268,19 @@ MODELS = {
     "cnn_blstm_2d": dict(generator="cnn_blstm", conv_style="2d", gen_norm="layer",
                          critic_norm="layer"),
     "bgru_ln": dict(generator="bgru", gen_norm="layer"),
+    # phase 13: blstm_size=1024, H = 512 a direction (the kernels' "wide"
+    # route): config 3's f0 head, and the BLSTM generator's 1024-wide tanh
+    # front end and 2 bidirectional layers
+    "cnn_blstm_1024": dict(generator="cnn_blstm", blstm_size=1024),
+    "blstm_1024": dict(generator="blstm", blstm_size=1024),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
 TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
                 "bilstm_bwd": [(512, 32, 128), (512, 8, 128)],
                 "bigru_bwd": [(512, 32, 128), (512, 8, 128)]}
-# the wrappers with two routes (``.routes``): tensor cores ("mma") or CUDA cores ("simt")
+# the wrappers with two routes (``.routes``): tensor cores ("mma") or CUDA
+# cores ("simt"); the BiLSTM's have a third, the cluster kernels ("wide")
 ROUTED = ("bilstm_fwd", "bigru_fwd", "bilstm_bwd", "bigru_bwd")
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
@@ -313,7 +342,8 @@ N_TIMED_STEPS = 10
 # launches a WGAN-GP step makes: (forward, BPTT). Config 3: the f0 head's
 # BiLSTM in the no-grad fakes pass and in the generator update, and one
 # BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
-STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2)}
+STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2),
+                 "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -386,6 +416,21 @@ N_DISPATCH_VOCODES = 5
 # then fails the phase (a collective that waits for a lost rank hangs)
 MESH_TIMEOUT_S = 300
 MESH_CLI_TIMEOUT_S = 300
+# phase 13: kernels #1/#2 at the widths one block cannot hold, the "wide"
+# route (csrc/bilstm_{fwd,bwd}_wide.cu): the serving chunk, edges (T not a
+# multiple of anything, T = 1), the fakes pass, widths that leave the last
+# block of a cluster short (264, 608: the widest the JAX package's Pallas
+# kernels run) and 100 (the BPTT's entry pads it on the one-block kernel;
+# the cluster kernel is launched on it directly too)
+WIDE_FWD_SHAPES = [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512), (33, 9, 264),
+                   (64, 1, 608)]
+WIDE_BWD_SHAPES = [(512, 32, 512), (33, 9, 264), (40, 1, 608), (24, 5, 100)]
+WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
+# bf16 H in (128, 256]: the one-block kernels against the cluster ones on the
+# same inputs; mma_layout.LSTM_SIMT_MAX_H routes by the faster
+ROUTE_SHAPE = (512, 32, 256)
+WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
+WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024")
 
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
@@ -420,9 +465,15 @@ def _counts() -> dict:
 
 
 def _routes() -> dict:
-    """The recurrent wrappers' launches by route: {name: {"mma": n, "simt": n}}."""
+    """The recurrent wrappers' launches by route: {name: {route: n}}."""
     kernels = _kernels()
     return {name: dict(kernels[name].routes) for name in ROUTED}
+
+
+def _no_routes() -> dict:
+    """{name: {route: 0}} for every route of each recurrent wrapper."""
+    kernels = _kernels()
+    return {name: dict.fromkeys(kernels[name].routes, 0) for name in ROUTED}
 
 
 def _all_mma(what: str, routes: dict) -> None:
@@ -605,7 +656,7 @@ def _check_kernels(dev) -> dict:
                     err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
         for T, B, H in KERNEL_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
-                route = fwd_route(dtype, H)
+                route = fwd_route(dtype, H, "gru")
                 args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
                 got = _launch_once(g.bigru_fwd, *args, route=route)
                 e = _compare(f"[bigru_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
@@ -627,7 +678,7 @@ def _check_kernels(dev) -> dict:
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
                 if unaligned:
                     args = (_unaligned(args[0]), *args[1:])
-                got = _launch_once(g.bigru_bwd, *args, route=route)
+                got = _launch_once(g.bigru_bwd, *args, route=bwd_route(dtype, H, "gru"))
                 want = g.bigru_bwd_reference(*args)
                 for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))):
                     e = _compare(f"[bigru_bwd {tag}] {what} T={T} B={B} H={H} {str(dtype)[6:]}",
@@ -638,16 +689,16 @@ def _check_kernels(dev) -> dict:
     T, B, H = AUTOGRAD_SHAPE
     pairs = (
         ("BiLSTM", l.bilstm_core, l.bilstm_core_reference, _gates, l.bilstm_fwd, l.bilstm_bwd,
-         ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b")),
+         ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b"), "lstm"),
         ("BiGRU", g.bigru_core, g.bigru_core_reference, _gru_gates, g.bigru_fwd, g.bigru_bwd,
-         ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b", "db_hn_f", "db_hn_b")),
+         ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b", "db_hn_f", "db_hn_b"), "gru"),
     )
-    for label, core, twin, make, fwd, bwd, names in pairs:
+    for label, core, twin, make, fwd, bwd, names, cell in pairs:
         for dtype, tol in BWD_TOL.items():
             base = make(T, B, H, dtype, dev, seed=7)
             dy = _dy(T, B, H, dtype, dev, seed=1)
             grads = []
-            route = fwd_route(dtype, H)  # = bwd_route(dtype, H)
+            route = fwd_route(dtype, H, cell)  # = bwd_route(dtype, H, cell)
             for c in (core, twin):
                 leaves = [t.clone().requires_grad_(True) for t in base]
                 f0, b0 = fwd.routes[route], bwd.routes[route]
@@ -690,6 +741,7 @@ def _serve_path(dev, kind: str) -> dict:
     from percivaltts_tpu_torch import ModelConfig, VocoderConfig
     from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models import build_generator, count_params
+    from percivaltts_tpu_torch.models.rnn import BiLSTM
 
     model_cfg, voc, label_dim = ModelConfig(**MODELS[kind]), VocoderConfig(), LABEL_DIM
     gen = build_generator(model_cfg, voc, label_dim,
@@ -705,7 +757,8 @@ def _serve_path(dev, kind: str) -> dict:
     calls[0] = 0
     feats = serve(gen, labs, in_stats, out_stats)
     counts, gen_calls, routes = _counts(), calls[0], _routes()
-    fwd, per_call = ("bigru_fwd", 2) if _is_gru(kind) else ("bilstm_fwd", 1)
+    fwd = "bigru_fwd" if _is_gru(kind) else "bilstm_fwd"
+    per_call = sum(isinstance(m, BiLSTM) for m in gen.modules())  # recurrent layers
     print(f"[serve {kind}] {len(labs)} requests, {gen_calls} generator calls, launches {counts}")
     if not (counts[fwd] > 0 and counts[fwd] == per_call * gen_calls
             and sum(counts.values()) == counts[fwd]):
@@ -736,9 +789,10 @@ def _serve_path(dev, kind: str) -> dict:
     frames = sum(REQUEST_LENGTHS)
     print(f"[time] serve {kind}, {len(labs)} requests ({frames} frames): median {med * 1e3:.3f} ms "
           f"(min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}), {frames / med:.0f} frames/s")
-    _profiled(f"serve {kind}", lambda: serve(gen, labs, in_stats, out_stats), RECURRENT)
+    busy_share, _ = _profiled(f"serve {kind}", lambda: serve(gen, labs, in_stats, out_stats),
+                              RECURRENT)
     return {"counts": counts, "routes": routes, "serve_ms": med * 1e3, "err": float(serve_err),
-            "feats": feats}
+            "feats": feats, "busy_share": busy_share}
 
 
 def _train_setup(dev, kind: str, mesh=None):
@@ -1604,7 +1658,7 @@ def _time_kernels(dev) -> dict:
             with torch.no_grad():
                 ms = _median_ms(lambda: kern(*args), runs=7, inner=10)
                 plain_ms = _median_ms(lambda: twin(*args), runs=3)
-                routed = {"route": (fwd_route if fwd else bwd_route)(dt, H),
+                routed = {"route": (fwd_route if fwd else bwd_route)(dt, H, kind),
                           "us_per_step": ms / T * 1e3,
                           "simt_ms": _median_ms(lambda: launch("simt", *args), runs=7, inner=10),
                           "kernel_device_ms": _device_ms(lambda: kern(*args), match=f"{name}_mma")}
@@ -2083,8 +2137,7 @@ def _export_generator_path(dev, kind: str, bounds) -> dict:
     fwd, per_call = ("bigru_fwd", 2) if _is_gru(kind) else ("bilstm_fwd", 1)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"export_{kind}")
     shutil.rmtree(root, ignore_errors=True)
-    out = {"counts": {name: 0 for name in _kernels()}, "routes": {n: {"mma": 0, "simt": 0}
-                                                                   for n in ROUTED}}
+    out = {"counts": {name: 0 for name in _kernels()}, "routes": _no_routes()}
     for batch in (1, EXPORT_BATCH):
         d = os.path.join(root, f"b{batch}")
         arts, secs = {}, {}
@@ -2782,7 +2835,7 @@ def _mesh_world2_path(dev, card: str) -> dict:
     ranks = [torch.load(o, weights_only=True) for o in outs]
     want_launches = {"bilstm_fwd": STEP_LAUNCHES["cnn_blstm"][0],
                      "bilstm_bwd": STEP_LAUNCHES["cnn_blstm"][1]}
-    counts, routes = {}, {name: {"mma": 0, "simt": 0} for name in ROUTED}
+    counts, routes = {}, _no_routes()
     for case in ("step", "corpus"):
         for r, got in enumerate(ranks):
             c = got[case]
@@ -2871,6 +2924,205 @@ def _mesh_cli_path(dev, card: str, qs: dict) -> dict:
     return {"wall_s": wall, "record": epochs[0]}
 
 
+def _wide_plans(dev) -> None:
+    """The launch plans of the wide kernels at phase 13's widths and rows:
+    the cluster split of each must be ``ops/wide_layout.py::plan``'s, with
+    at most one gate pair a thread. Printed: blocks a cluster, units a
+    block, threads, batch rows a cluster, W_h in shared memory or L2, the
+    clusters the card holds at once and the shared memory a block."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_layout
+
+    lib = _build.library()
+    shapes = sorted({(B, H) for _, B, H in WIDE_FWD_SHAPES + WIDE_BWD_SHAPES + WIDE_TIMED
+                     + [ROUTE_SHAPE]})
+    for B, H in shapes:
+        p = wide_layout.plan(H)
+        for kind, fn in (("fwd", lib.percival_bilstm_fwd_wide_plan),
+                         ("bwd", lib.percival_bilstm_bwd_wide_plan)):
+            for dtype in (torch.float32, torch.bfloat16):
+                out = (ctypes.c_int * 9)()
+                _build.check(fn(B, H, p.Hb, p.U, 0 if dtype == torch.float32 else 1, out),
+                             f"the wide {kind} plan at B={B} H={H}")
+                U, Hb, NC, KS, NT, R, w_smem, clusters, smem = out
+                if (U, Hb, NC, KS, NT) != tuple(p) or R * Hb > NT or clusters < 1:
+                    raise AssertionError(f"the wide {kind} plan {list(out)} is not {p}")
+                print(f"[wide plan] {kind} B={B} H={H} {str(dtype)[6:]}: {U} blocks of {Hb} "
+                      f"units, {NT} threads, {R} rows a cluster, W_h in "
+                      f"{'shared memory' if w_smem else 'L2'}, {clusters} clusters at once, "
+                      f"{smem} B shared memory")
+
+
+def _check_wide_kernels(dev) -> dict:
+    """Phase 13a: both wide kernels against their twins (forward with and
+    without cells, BPTT, the autograd pair), each launch counted on its
+    route; H = 256 on the route that takes it, and in bf16 the one-block
+    kernels against the cluster ones there (checked and timed). Returns the
+    largest bf16 |kernel − twin| of each wrapper and the route timings."""
+    from percivaltts_tpu_torch.ops import lstm_cuda as l
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
+
+    bf16 = torch.bfloat16
+    err = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0}
+    with torch.no_grad():
+        for T, B, H in WIDE_FWD_SHAPES:
+            for dtype, tol in KERNEL_TOL.items():
+                if fwd_route(dtype, H) != "wide":
+                    raise AssertionError(f"H={H} {dtype} does not take the wide route")
+                args = _gates(T, B, H, dtype, dev, seed=T + B)
+                want = l.bilstm_fwd_reference(*args, with_cells=True)
+                for cells in (False, True):
+                    got = _launch_once(l.bilstm_fwd, *args, with_cells=cells, route="wide")
+                    e = _compare(f"[bilstm_fwd wide] T={T} B={B} H={H} {str(dtype)[6:]} "
+                                 f"cells={cells}", got, want[:len(got)], tol, relative=False)
+                    err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
+        for T, B, H in WIDE_BWD_SHAPES:
+            for dtype, tol in BWD_TOL.items():
+                rel, route = dtype == bf16, bwd_route(dtype, H)
+                args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
+                want = l.bilstm_bwd_reference(*args)
+                got = _launch_once(l.bilstm_bwd, *args, route=route)
+                e = _compare(f"[bilstm_bwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got, want,
+                             tol, rel)
+                if route == "wide":
+                    err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
+                else:  # the cluster kernel on the same inputs, launched directly (uncounted)
+                    got = l.bwd_launch("wide", *args)
+                    torch.cuda.synchronize()
+                    e = _compare(f"[bilstm_bwd wide, launched directly] T={T} B={B} H={H} "
+                                 f"{str(dtype)[6:]}", got, want, tol, rel)
+                    err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
+
+        # H = 256 on the route that takes it; in bf16 the one-block kernels too
+        T, B, H = ROUTE_SHAPE
+        timed = {}
+        for dtype, tol in KERNEL_TOL.items():
+            route = fwd_route(dtype, H)
+            fargs = _gates(T, B, H, dtype, dev, seed=5)
+            bargs = _bwd_args(T, B, H, dtype, dev, seed=5)
+            fwant = l.bilstm_fwd_reference(*fargs, with_cells=True)
+            bwant = l.bilstm_bwd_reference(*bargs)
+            tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
+            _compare(f"[bilstm_fwd {route}] {tag}",
+                     _launch_once(l.bilstm_fwd, *fargs, with_cells=True, route=route), fwant,
+                     tol, relative=False)
+            _compare(f"[bilstm_bwd {route}] {tag}", _launch_once(l.bilstm_bwd, *bargs, route=route),
+                     bwant, BWD_TOL[dtype], dtype == bf16)
+            if dtype != bf16:
+                continue
+            for other in ("simt", "wide"):
+                _compare(f"[bilstm_fwd {other}, launched directly] {tag}",
+                         l.fwd_launch(other, *fargs, with_cells=True), fwant, tol, relative=False)
+                _compare(f"[bilstm_bwd {other}, launched directly] {tag}",
+                         l.bwd_launch(other, *bargs), bwant, BWD_TOL[dtype], True)
+            # in turns: one-block, cluster, cluster, one-block
+            ms = {(k, r): [] for k in ("fwd", "bwd") for r in ("simt", "wide")}
+            for r in ("simt", "wide", "wide", "simt"):
+                ms[("fwd", r)].append(_median_ms(lambda: l.fwd_launch(r, *fargs), runs=5, inner=3))
+                ms[("bwd", r)].append(_median_ms(lambda: l.bwd_launch(r, *bargs), runs=5, inner=3))
+            timed = {f"{k}_{r}_ms": statistics.mean(v) for (k, r), v in ms.items()}
+            print(f"[time] ROUTE {tag}: forward one-block {timed['fwd_simt_ms']:.4f} ms, cluster "
+                  f"{timed['fwd_wide_ms']:.4f} ms; BPTT one-block {timed['bwd_simt_ms']:.4f} ms, "
+                  f"cluster {timed['bwd_wide_ms']:.4f} ms (each the mean of 2 medians, in turns); "
+                  f"routed: {fwd_route(dtype, H)}")
+
+    # the autograd pair: forward kernel + BPTT kernel against the twins
+    T, B, H = WIDE_AUTOGRAD_SHAPE
+    for dtype, tol in BWD_TOL.items():
+        base = _gates(T, B, H, dtype, dev, seed=7)
+        dy = _dy(T, B, H, dtype, dev, seed=1)
+        grads = []
+        for c in (l.bilstm_core, l.bilstm_core_reference):
+            leaves = [t.clone().requires_grad_(True) for t in base]
+            f0, b0 = l.bilstm_fwd.routes["wide"], l.bilstm_bwd.routes["wide"]
+            torch.autograd.backward(c(*leaves), dy)
+            torch.cuda.synchronize()
+            grads.append([t.grad for t in leaves])
+            moved = (l.bilstm_fwd.routes["wide"] - f0, l.bilstm_bwd.routes["wide"] - b0)
+            if c is l.bilstm_core and moved != (1, 1):
+                raise RuntimeError("the wide autograd pair did not launch one forward and one "
+                                   "BPTT kernel on the wide route")
+        for name, gk, gt in zip(("dgx_f", "dgx_b", "dW_h_f", "dW_h_b"), *grads):
+            scale = gt.float().abs().max().item()
+            limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
+            _compare(f"[autograd BiLSTM wide] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
+                     f"{str(dtype)[6:]}", [gk], [gt], limit, relative=False)
+    return {"err": err, "route_ms": timed}
+
+
+def _time_wide_kernels(dev) -> dict:
+    """Phase 13's timings: each wide kernel at the serving chunk, the
+    generator update and the fakes pass (bf16), beside its twin, its bound
+    and cuDNN's bidirectional ``nn.LSTM(hidden_size=H)`` (forward; the BPTT
+    beside its backward) on the same input, as phase 6 times the others."""
+    from percivaltts_tpu_torch.ops import lstm_cuda as l
+
+    dt = torch.bfloat16
+    out = {}
+    for name in ("bilstm_fwd", "bilstm_bwd"):
+        fwd = name.endswith("fwd")
+        rows = []
+        for T, B, H in WIDE_TIMED:
+            args = _gates(T, B, H, dt, dev, seed=1) if fwd else _bwd_args(T, B, H, dt, dev, seed=1)
+            kern = l.bilstm_fwd if fwd else l.bilstm_bwd
+            twin = l.bilstm_fwd_reference if fwd else l.bilstm_bwd_reference
+            with torch.no_grad():
+                ms = _median_ms(lambda: kern(*args), runs=5, inner=3)
+                plain_ms = _median_ms(lambda: twin(*args), runs=3)
+            ws = _layer_weights("lstm", H, dt, dev, seed=2)
+            x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
+                                 .astype(np.float32)).to(device=dev, dtype=dt)
+            flat = [t for d in ws for t in d]
+            lib = _library_layer("lstm", ws, dt, dev)
+            if fwd:
+                with torch.no_grad():
+                    layer_ms = _median_ms(lambda: l.bilstm(x, *flat), runs=5, inner=3)
+                    library_ms = _median_ms(lambda: lib(x), runs=5, inner=3)
+            else:
+                xg = x.clone().requires_grad_(True)
+                leaves = [t.clone().requires_grad_(True) for t in flat]
+                y = l.bilstm(xg, *leaves)
+                dy = torch.randn_like(y)
+                layer_ms = _median_ms(lambda: y.backward(dy, retain_graph=True), runs=5, inner=3)
+                y_lib = lib(xg)[0]
+                library_ms = _median_ms(lambda: y_lib.backward(dy, retain_graph=True),
+                                        runs=5, inner=3)
+            bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
+            rows.append({"shape": [T, B, H], "route": "wide", "ms": ms, "us_per_step": ms / T * 1e3,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "layer_ms": layer_ms, "library_ms": library_ms})
+            print(f"[time] {name} wide T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
+                  f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}); layer{'' if fwd else ' backward'}: port "
+                  f"{layer_ms:.4f} ms, cuDNN nn.LSTM(hidden_size={H}, bidirectional=True) "
+                  f"{library_ms:.4f} ms (medians, CUDA events)")
+        out[name] = rows
+    return out
+
+
+def _wide_models_path(dev, card: str) -> dict:
+    """Phase 13b/13c: the blstm_size=1024 models (``WIDE_MODELS``) served
+    and trained as phases 4–6 serve and train config 3 and the BGRU, every
+    BiLSTM launch on the wide route."""
+    runs = {}
+    for kind in WIDE_MODELS:
+        served, trained = _serve_path(dev, kind), _train_path(dev, kind)
+        for what, run in (("serve", served), ("train", trained)):
+            counts, routes = run["counts"], run["routes"]
+            for name in ("bilstm_fwd", "bilstm_bwd"):
+                if routes[name]["wide"] != counts[name]:
+                    raise AssertionError(f"{what} {kind}: {name} launched off the wide route: "
+                                         f"{routes[name]} of {counts[name]}")
+        print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
+              f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
+              f"a serve {served['counts']['bilstm_fwd']}, a step "
+              f"{STEP_LAUNCHES[kind]}")
+        runs[kind] = {"serve": served, "train": trained}
+    return runs
+
+
 def _ptxas_usage(log: str) -> list:
     """One line per compiled kernel from ``ptxas -v``'s log: registers,
     spill stores / loads (bytes), and the (mangled) kernel name."""
@@ -2923,7 +3175,7 @@ def main() -> int:
     serve = {kind: _serve_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
     vocode = _vocode_path(dev, serve["cnn_blstm"]["feats"])
     train = {kind: _train_path(dev, kind) for kind in ("cnn_blstm", "bgru")}
-    routes = {name: {"mma": 0, "simt": 0} for name in ROUTED}
+    routes = _no_routes()
     for kind in ("cnn_blstm", "bgru"):
         paths[f"serve_{kind}"] = serve[kind]["counts"]
         paths[f"train_{kind}"] = train[kind]["counts"]
@@ -3018,9 +3270,23 @@ def main() -> int:
             for route, n in by_route.items():
                 routes[name][route] += n
     shutil.rmtree(qs["root"], ignore_errors=True)
+    t_phase13 = time.perf_counter()
+    # 13. kernels #1/#2 at the widths one block cannot hold: the cluster
+    # kernels' plans, each against its twin, H = 256's route, their times;
+    # the blstm_size=1024 models served and trained through them
+    _wide_plans(dev)
+    wide = _check_wide_kernels(dev)
+    wide_timed = _time_wide_kernels(dev)
+    wide_runs = _wide_models_path(dev, smi)
+    for kind, run in wide_runs.items():
+        for what in ("serve", "train"):
+            paths[f"{what}_{kind}"] = run[what]["counts"]
+            for name, by_route in run[what]["routes"].items():
+                for route, n in by_route.items():
+                    routes[name][route] += n
     print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
           f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
-          f"{time.perf_counter() - t_phase12:.1f} s")
+          f"{t_phase13 - t_phase12:.1f} s, phase 13 {time.perf_counter() - t_phase13:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -3066,6 +3332,36 @@ def main() -> int:
             kernels[-1]["launches_by_route"] = routes[name]
         if not any(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the paths")
+    # kernels #1/#2's cluster kernels (the "wide" route), on phase 13's paths
+    for name, (src, replaces) in {
+        "bilstm_fwd": ("bilstm_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+        "bilstm_bwd": ("bilstm_bwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+    }.items():
+        first = wide_timed[name][0]
+        by_path = {f"{what}_{kind}": run[what]["routes"][name]["wide"]
+                   for kind, run in wide_runs.items() for what in ("serve", "train")}
+        kernels.append({
+            "name": f"{name}_wide",
+            "route": "cuda",
+            "source": f"percivaltts_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": routes[name]["wide"],
+            "launches_by_path": by_path,
+            "max_abs_err": wide["err"][name],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_call": "torch.nn.LSTM(hidden_size=512, bidirectional=True) "
+                            + ("forward" if name.endswith("fwd") else "backward")
+                            + ", beside the port layer's (layer_ms)",
+            "layer_ms": first["layer_ms"],
+            "timed": wide_timed[name],
+            "route_shape_ms": wide["route_ms"],
+        })
+        if not routes[name]["wide"] or sum(by_path.values()) != routes[name]["wide"]:
+            raise AssertionError(f"{name}'s wide kernel was launched no time on phase 13's paths")
     for kind in ("cnn_blstm", "bgru"):
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "
               f"{train[kind]['step_ms']:.3f} ms, device busy share "
@@ -3135,6 +3431,11 @@ def main() -> int:
           f"2 gloo ranks on one card {mesh2['step_ms']} ms a step (not a scaling number); "
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
+    for kind, run in wide_runs.items():
+        print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
+              f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
+              f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "
+              f"serve, {run['train']['counts']} in {N_CHECKED_STEPS} steps")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

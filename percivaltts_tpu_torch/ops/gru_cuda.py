@@ -21,10 +21,12 @@ tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 has two routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
 launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``, everything else
-``csrc/bigru_fwd.cu``; the BPTT likewise (``bwd_route``):
-``csrc/bigru_bwd_mma.cu`` or ``csrc/bigru_bwd.cu``. ``bigru_core`` is the
-differentiable entry: it runs the forward kernel, and the BPTT kernel in the
-backward pass. The forward is also the registered operator
+``csrc/bigru_fwd.cu`` (H <= 341); the BPTT likewise (``bwd_route``):
+``csrc/bigru_bwd_mma.cu`` or ``csrc/bigru_bwd.cu`` (H <= 320), which takes
+H a multiple of 32: other widths are zero-padded to one
+(``ops/lstm_cuda.py::at_width``), which changes no real unit.
+``bigru_core`` is the differentiable entry: it runs the forward kernel, and
+the BPTT kernel in the backward pass. The forward is also the registered operator
 ``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
 traces, so that an exported graph launches it.
 """
@@ -34,7 +36,13 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops.lstm_cuda import _DTYPE_CODES, _one_device, aligned16, rows_per_block
+from percivaltts_tpu_torch.ops.lstm_cuda import (
+    _DTYPE_CODES,
+    _one_device,
+    aligned16,
+    at_width,
+    rows_per_block,
+)
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 
@@ -138,13 +146,17 @@ def _check_states(gx_f, *states) -> None:
             raise TypeError(f"states must be {gx_f.dtype}, got {s.dtype}")
 
 
-def _launch_geometry(device, B: int, H: int, name: str, multiple: int):
-    # one thread per gate column, in whole warps where the kernel shuffles
-    if 3 * H > 1024 or H % multiple:
-        raise ValueError(
-            f"the CUDA {name} takes H <= 341" + (f" and a multiple of {multiple}" if multiple > 1 else "")
-            + f", got H={H}"
-        )
+# one thread per gate column (3H <= 1024); the CUDA-core BPTT's dgh·W_hᵀ
+# reduction shuffles over whole warps of them: H a multiple of 32, other
+# widths zero-padded to one, so up to 320
+SIMT_MAX_H = 341
+SIMT_BWD_GRANULE = 32
+SIMT_BWD_MAX_H = 320
+
+
+def _launch_geometry(device, B: int, H: int, name: str, limit: int):
+    if H > limit:
+        raise ValueError(f"the CUDA {name} takes H <= {limit}, got H={H}")
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
 
@@ -172,7 +184,7 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), T, B, H, stream,
             )
         else:
-            rows, stream = _launch_geometry(device, B, H, "BiGRU", 1)
+            rows, stream = _launch_geometry(device, B, H, "BiGRU", SIMT_MAX_H)
             err = lib.percival_bigru_fwd(
                 *(t.data_ptr() for t in (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)),
                 yf.data_ptr(), yb.data_ptr(), T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
@@ -188,7 +200,7 @@ def _bigru_fwd_cuda(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     _one_device("bigru_fwd", ins, "ops.gru_cuda.bigru_core")
-    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3)
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru")
     out = fwd_launch(route, *ins)
     bigru_fwd.launches += 1
     bigru_fwd.routes[route] += 1
@@ -245,13 +257,18 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     """Launch the BPTT kernel of ``route`` (``"mma"`` or ``"simt"``) on CUDA
     inputs that :func:`bigru_bwd` has checked; counts nothing.
     ``bigru_bwd`` is the entry; ``chip_smoke.py`` times the CUDA-core kernel
-    in bf16 through this."""
+    in bf16 through this. ``"simt"`` runs H that is not a multiple of 32
+    zero-padded to one (``lstm_cuda.at_width``), up to H = 320."""
     from percivaltts_tpu_torch import _build
 
     lib = _build.library()
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 3
+    ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
+    if route == "simt" and H % SIMT_BWD_GRANULE and H <= SIMT_BWD_MAX_H:
+        Hp = -(-H // SIMT_BWD_GRANULE) * SIMT_BWD_GRANULE
+        return at_width(lambda *a: bwd_launch("simt", *a), Hp, 3, *ins)
     dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
     dnr_f, dnr_b = torch.empty_like(hp_f), torch.empty_like(hp_b)
     outs = (dgx_f, dgx_b, dnr_f, dnr_b)
@@ -266,10 +283,9 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), T, B, H, stream,
             )
         else:
-            # the dgh·W_hᵀ reduction shuffles over whole warps of the 3H threads
-            rows, stream = _launch_geometry(device, B, H, "BiGRU BPTT", 32)
+            rows, stream = _launch_geometry(device, B, H, "BiGRU BPTT", SIMT_BWD_MAX_H)
             err = lib.percival_bigru_bwd(
-                *(t.data_ptr() for t in (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)),
+                *(t.data_ptr() for t in ins),
                 *(t.data_ptr() for t in outs), T, B, H, _DTYPE_CODES[gx_f.dtype], rows, stream,
             )
     _build.check(err, f"bigru_bwd launch ({route})")
@@ -284,9 +300,10 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, else the CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
-    run the twin. Raises on mixed devices, dtypes or shapes, non-contiguous
-    CUDA inputs, CUDA inputs that require a gradient under grad mode, H not a
-    multiple of 32 (or above 341) on the CUDA-core route, or a launch error.
+    run the twin (H not a multiple of 32 on the CUDA-core route is
+    zero-padded to one). Raises on mixed devices, dtypes or shapes,
+    non-contiguous CUDA inputs, CUDA inputs that require a gradient under
+    grad mode, H above 320 on the CUDA-core route, or a launch error.
     Every launch adds one to ``bigru_bwd.launches`` and to its route's entry
     of ``bigru_bwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
@@ -295,7 +312,7 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     device = _one_device("bigru_bwd", ins, "ops.gru_cuda.bigru_core")
     if device.type == "cpu":
         return bigru_bwd_reference(*ins)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3)
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru")
     out = bwd_launch(route, *ins)
     bigru_bwd.launches += 1
     bigru_bwd.routes[route] += 1

@@ -11,11 +11,16 @@ rounded to it before it is stored and multiplied.
 ``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take
 ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There is no other
-fallback. On CUDA the forward has two routes, chosen before the launch from
-dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple
-of 16 up to 128 launches the tensor-core kernel ``csrc/bilstm_fwd_mma.cu``,
-everything else ``csrc/bilstm_fwd.cu``; the BPTT likewise
-(``bwd_route``): ``csrc/bilstm_bwd_mma.cu`` or ``csrc/bilstm_bwd.cu``.
+fallback. On CUDA the forward has three routes, chosen before the launch
+from dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H a
+multiple of 16 up to 128 launches the tensor-core kernel
+``csrc/bilstm_fwd_mma.cu``; H > 256 (which one block a direction cannot
+hold) and, in bf16, H > 128 the cluster kernel ``csrc/bilstm_fwd_wide.cu``
+(``ops/wide_layout.py``; H up to 4096); everything else
+``csrc/bilstm_fwd.cu``. The BPTT likewise
+(``bwd_route``): ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide.cu`` or
+``csrc/bilstm_bwd.cu``, which takes H a multiple of 8: other widths are
+zero-padded to it (:func:`at_width`), which changes no real unit.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass. The forward is also the
 registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
@@ -25,12 +30,17 @@ while ``torch.export`` traces, so that an exported graph launches it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from percivaltts_tpu_torch.ops import wide_layout
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
+# the CUDA-core BPTT's dz·W_hᵀ reduction runs on whole warps of its 4H
+# threads: H a multiple of 8, other widths zero-padded to one
+SIMT_BWD_GRANULE = 8
 
 
 def _gates(z: torch.Tensor, H: int):
@@ -173,6 +183,41 @@ def _launch_geometry(device, B: int, H: int):
     return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
 
 
+def pad_gates(t: torch.Tensor, Hp: int, gates: int) -> torch.Tensor:
+    """``(..., gates·H)`` → ``(..., gates·Hp)``: each gate block zero-padded
+    from H to Hp units (``gates=1``: a ``(..., H)`` state or bias)."""
+    H = t.shape[-1] // gates
+    return F.pad(t.unflatten(-1, (gates, H)), (0, Hp - H)).flatten(-2)
+
+
+def at_width(fn, Hp: int, gates: int, *args, **kw):
+    """``fn(*args, **kw)`` run at ``Hp >= H`` units: every argument
+    zero-padded (``(H, gates·H)`` recurrent kernels in their rows and each
+    gate block, ``(…, gates·H)`` gates in each block, ``(…, H)`` states and
+    biases), every output cut back to H.
+
+    Exact for both cells: a padded unit's gates see z = 0 (zero gates, zero
+    W_h columns), so the LSTM's c = 0.5·0 + 0.5·tanh(0) = 0 and h = 0, the
+    GRU's n = tanh(0) = 0 and h = 0.5·0; zero W_h rows feed nothing back;
+    in the BPTT its dh, dc and dz stay 0."""
+    H = args[2].shape[0]
+    if Hp == H:
+        return fn(*args, **kw)
+
+    def pad(t):
+        if t.dim() == 2:
+            return F.pad(pad_gates(t, Hp, gates), (0, 0, 0, Hp - H)).contiguous()
+        return pad_gates(t, Hp, gates if t.shape[-1] == gates * H else 1).contiguous()
+
+    def cut(t):
+        if t is None:
+            return None
+        n = gates if t.shape[-1] == gates * Hp else 1
+        return t.unflatten(-1, (n, Hp))[..., :H].flatten(-2).contiguous()
+
+    return tuple(cut(t) for t in fn(*map(pad, args), **kw))
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
     tensor-core kernels stream their (T, B, ·) inputs with 16-byte
@@ -181,10 +226,11 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
-    """Launch the forward kernel of ``route`` (``"mma"`` or ``"simt"``) on
-    CUDA inputs that :func:`bilstm_fwd` has checked; counts nothing.
-    ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times the CUDA-core
-    kernel in bf16 through this."""
+    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide"`` or
+    ``"simt"``) on CUDA inputs that :func:`bilstm_fwd` has checked; counts
+    nothing. ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times one route's
+    kernel beside another's through this. ``"wide"`` raises ``ValueError``
+    past ``wide_layout.MAX_H``, ``"simt"`` past H = 256."""
     from percivaltts_tpu_torch import _build
 
     lib = _build.library()
@@ -204,6 +250,15 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
             err = lib.percival_bilstm_fwd_mma(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
                 T, B, H, stream,
+            )
+        elif route == "wide":
+            p = wide_layout.plan(H)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p))  # held (see above)
+            err = lib.percival_bilstm_fwd_wide(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                yf.data_ptr(), yb.data_ptr(), *cells,
+                T, B, H, p.Hb, p.U, _DTYPE_CODES[gx_f.dtype], stream,
             )
         else:
             rows, stream = _launch_geometry(device, B, H)
@@ -256,11 +311,13 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     operator ``percival::bilstm_fwd`` while ``torch.export`` traces.
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
-    with H a multiple of 16 up to 128, else the CUDA-core one
+    with H a multiple of 16 up to 128, the cluster one past H = 256 (bf16:
+    128), else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
-    than float32/bfloat16, a shape mismatch, non-contiguous CUDA inputs,
-    CUDA inputs that require a gradient under grad mode, or a launch error.
+    than float32/bfloat16, a shape mismatch, H past ``wide_layout.MAX_H``
+    on CUDA, non-contiguous CUDA inputs, CUDA inputs that require a gradient
+    under grad mode, or a launch error.
     Every launch adds one to ``bilstm_fwd.launches`` and to its route's
     entry of ``bilstm_fwd.routes``, also from inside an exported graph."""
     args = (gx_f, gx_b, wh_f, wh_b, with_cells)
@@ -272,15 +329,16 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
 
 bilstm_fwd.launches = 0
-bilstm_fwd.routes = {"mma": 0, "simt": 0}
+bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
                dy_f, dy_b):
-    """Launch the BPTT kernel of ``route`` (``"mma"`` or ``"simt"``) on CUDA
-    inputs that :func:`bilstm_bwd` has checked; counts nothing.
-    ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times the CUDA-core
-    kernel in bf16 through this."""
+    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide"`` or
+    ``"simt"``) on CUDA inputs that :func:`bilstm_bwd` has checked; counts
+    nothing. ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times one
+    route's kernel beside another's through this. ``"simt"`` runs H that is
+    not a multiple of 8 zero-padded to one (:func:`at_width`)."""
     from percivaltts_tpu_torch import _build
 
     lib = _build.library()
@@ -288,6 +346,10 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
     T, B, G = gx_f.shape
     H = G // 4
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
+    if route == "simt" and H % SIMT_BWD_GRANULE:
+        Hp = -(-H // SIMT_BWD_GRANULE) * SIMT_BWD_GRANULE
+        return at_width(lambda *a: bwd_launch("simt", *a), Hp, 4,
+                        gx_f, gx_b, wh_f, wh_b, *states)
     dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
     with torch.cuda.device(device):
         if route == "mma":
@@ -298,9 +360,17 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
             err = lib.percival_bilstm_bwd_mma(
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(), T, B, H, stream,
             )
+        elif route == "wide":
+            p = wide_layout.plan(H)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see fwd_launch)
+            ins = (wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p))
+            err = lib.percival_bilstm_bwd_wide(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                *(t.data_ptr() for t in states), dgx_f.data_ptr(), dgx_b.data_ptr(),
+                T, B, H, p.Hb, p.U, _DTYPE_CODES[gx_f.dtype], stream,
+            )
         else:
-            if H % 8:  # the dz·W_hᵀ reduction runs on whole warps of the 4H threads
-                raise ValueError(f"the CUDA BPTT takes H a multiple of 8, got H={H}")
             rows, stream = _launch_geometry(device, B, H)
             err = lib.percival_bilstm_bwd(
                 *(t.data_ptr() for t in (gx_f, gx_b, wh_f, wh_b, *states)),
@@ -316,12 +386,14 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
     Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
-    16 up to 128, else the CUDA-core one
+    16 up to 128, the cluster one past H = 256 (bf16: 128), else the
+    one-block CUDA-core one, H not a multiple of 8 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
-    run the twin. Raises on mixed devices, dtypes, or shapes, non-contiguous
-    CUDA inputs, CUDA inputs that require a gradient under grad mode, H not
-    a multiple of 8 on the CUDA-core route, or a launch error. Every launch
-    adds one to ``bilstm_bwd.launches`` and to its route's entry of
+    run the twin. Raises on
+    mixed devices, dtypes, or shapes, non-contiguous CUDA inputs, CUDA
+    inputs that require a gradient under grad mode, H past
+    ``wide_layout.MAX_H``, or a launch error. Every launch adds one to
+    ``bilstm_bwd.launches`` and to its route's entry of
     ``bilstm_bwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
@@ -337,7 +409,7 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.routes = {"mma": 0, "simt": 0}
+bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -19,7 +19,9 @@ that those two rows, over a warp's tiles, are every gate of the same unit:
   ``16w + l // 4`` and ``16w + 8 + l // 4``.
 
 The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
-(the register budget of a thread); other calls take the CUDA-core kernels.
+(the register budget of a thread); other calls take the CUDA-core kernels:
+one block a direction up to ``SIMT_MAX_H``, and for the LSTM past it the
+cluster kernels of ``ops/wide_layout.py``.
 
 The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
 ``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
@@ -48,20 +50,36 @@ def mma_width_ok(H: int) -> bool:
     return H % MMA_K == 0 and 0 < H <= MMA_MAX_H
 
 
-def fwd_route(dtype: torch.dtype, H: int) -> str:
+# the widest H the LSTM's one-block CUDA-core kernels run (one thread per
+# gate column, 4H <= 1024); in bf16 the cluster kernels measured faster from
+# H = 129 on (chip_smoke.py phase 13a at (512, 32, 256); PERF.md, PR 14)
+LSTM_SIMT_MAX_H = {torch.float32: 256, torch.bfloat16: MMA_MAX_H}
+
+
+def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     """The forward kernel a CUDA call launches, chosen before the launch
     from its dtype and width: ``"mma"`` (tensor cores) for bf16 with H a
-    multiple of 16 up to 128, else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
-    ``csrc/bigru_fwd.cu``, one thread per gate column)."""
-    return "mma" if dtype == torch.bfloat16 and mma_width_ok(H) else "simt"
+    multiple of 16 up to 128; for the LSTM, ``"wide"``
+    (``csrc/bilstm_fwd_wide.cu``, a cluster of blocks a direction) past
+    ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in bf16); else ``"simt"``
+    (``csrc/bilstm_fwd.cu`` / ``csrc/bigru_fwd.cu``, one block a direction,
+    one thread per gate column; the GRU's refuses H > 341)."""
+    if cell not in GATES:
+        raise ValueError(f"cell must be one of {tuple(GATES)}, got {cell!r}")
+    if dtype == torch.bfloat16 and mma_width_ok(H):
+        return "mma"
+    if cell == "lstm" and H > LSTM_SIMT_MAX_H.get(dtype, LSTM_SIMT_MAX_H[torch.float32]):
+        return "wide"
+    return "simt"
 
 
-def bwd_route(dtype: torch.dtype, H: int) -> str:
+def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     """The BPTT kernel a CUDA call launches, by :func:`fwd_route`'s rule:
-    ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``) or
-    ``"simt"`` (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``), so a
-    layer's backward takes the route of its forward."""
-    return fwd_route(dtype, H)
+    ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``),
+    ``"wide"`` (``csrc/bilstm_bwd_wide.cu``) or ``"simt"``
+    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``), so a layer's backward
+    takes the route of its forward."""
+    return fwd_route(dtype, H, cell)
 
 
 def _check(kind: str, H: int) -> None:

@@ -333,7 +333,7 @@ def test_gru_bptt_through_the_lanes_equals_the_twin(B, H):
 
 @pytest.mark.parametrize("dtype,H,route", [
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 16, "mma"), (torch.bfloat16, 48, "mma"),
-    (torch.float32, 128, "simt"), (torch.bfloat16, 40, "simt"), (torch.bfloat16, 160, "simt"),
+    (torch.float32, 128, "simt"), (torch.bfloat16, 40, "simt"), (torch.bfloat16, 160, "wide"),
     (torch.float16, 128, "simt"),
 ])
 def test_bptt_route_is_chosen_from_dtype_and_width(dtype, H, route):

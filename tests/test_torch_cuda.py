@@ -5,11 +5,14 @@ Imports no jax, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest configures jax.) The forward and
-BPTT kernels have two routes each, chosen from dtype and width: bf16 with H
-a multiple of 16 up to 128 takes the tensor-core kernels
-(``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``), f32 and other widths the
-CUDA-core ones (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``); the tests pick a
-route by the dtype and H they pass and check it by the wrappers' ``.routes``.
+BPTT kernels have two routes each, three for the LSTM, chosen from dtype
+and width: bf16 with H a multiple of 16 up to 128 takes the tensor-core
+kernels (``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); the LSTM past H = 256
+(bf16: 128) the cluster kernels (``csrc/bilstm_{fwd,bwd}_wide.cu``, up to
+H = 4096); f32 and other widths the one-block CUDA-core ones
+(``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose BPTTs run H that is not a
+multiple of 8 / 32 zero-padded to one); the tests pick a route by the dtype
+and H they pass and check it by the wrappers' ``.routes``.
 Tolerances, the same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums
 and transcendentals in another order); bf16 2e-2 (bf16 outputs, and h
 rounded to bf16 before each product, so a one-ulp flip is carried); for the BPTT
@@ -96,8 +99,14 @@ def test_kernel_refuses_grad_mixed_devices_strides_and_width(cuda_device):
         bilstm_fwd(args[0].cpu(), *args[1:])
     with pytest.raises(ValueError):
         bilstm_fwd(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
-    with pytest.raises(ValueError, match="H <= 256"):
-        bilstm_fwd(*_gates(2, 1, 264, torch.float32, cuda_device, seed=3))
+    # past H = 256 the cluster kernel runs, up to its limit of 4096
+    wide = _gates(2, 1, 264, torch.float32, cuda_device, seed=3)
+    r0 = bilstm_fwd.routes["wide"]
+    with torch.no_grad():
+        _close(bilstm_fwd(*wide), bilstm_fwd_reference(*wide), 1e-4)
+    assert bilstm_fwd.routes["wide"] == r0 + 1
+    with pytest.raises(ValueError, match="H <= 4096"):
+        bilstm_fwd(*_gates(1, 1, 4097, torch.bfloat16, cuda_device, seed=3))
     args[2].requires_grad_(True)
     with pytest.raises(RuntimeError, match="bilstm_core"):
         bilstm_fwd(*args)
@@ -170,8 +179,11 @@ def test_bwd_kernel_refuses_strides_dtypes_shapes_grad_and_width(cuda_device):
         bilstm_bwd(*args[:4], args[4][:-1], *args[5:])
     with pytest.raises(ValueError):
         bilstm_bwd(*args[:11], args[11].cpu())
-    with pytest.raises(ValueError, match="multiple of 8"):
-        bilstm_bwd(*_bwd_args(4, 1, 12, torch.float32, cuda_device, seed=4))
+    # H not a multiple of 8: zero-padded to one, the twin's result
+    odd = _bwd_args(4, 1, 12, torch.float32, cuda_device, seed=4)
+    _close(bilstm_bwd(*odd), bilstm_bwd_reference(*odd), 1e-4)
+    with pytest.raises(ValueError, match="H <= 4096"):
+        bilstm_bwd(*_bwd_args(1, 1, 4097, torch.bfloat16, cuda_device, seed=4))
     args[11] = args[11].clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="bilstm_core"):
         bilstm_bwd(*args)
@@ -321,8 +333,11 @@ def test_gru_kernels_refuse_strides_devices_grad_and_width(cuda_device):
         bigru_fwd(fwd_args[0].transpose(0, 1).contiguous().transpose(0, 1), *fwd_args[1:])
     with pytest.raises(ValueError, match="H <= 341"):
         bigru_fwd(*_gru_gates(2, 1, 344, torch.float32, cuda_device, seed=4))
-    with pytest.raises(ValueError, match="multiple of 32"):
-        bigru_bwd(*_gru_bwd_args(4, 1, 40, torch.float32, cuda_device, seed=4))
+    # the BPTT runs H that is not a multiple of 32 zero-padded to one, up to 320
+    odd = _gru_bwd_args(4, 1, 40, torch.float32, cuda_device, seed=4)
+    _close(bigru_bwd(*odd), bigru_bwd_reference(*odd), 1e-4)
+    with pytest.raises(ValueError, match="H <= 320"):
+        bigru_bwd(*_gru_bwd_args(4, 1, 330, torch.float32, cuda_device, seed=4))
     with pytest.raises(ValueError, match="contiguous"):
         bigru_bwd(*args[:9], args[9].transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(TypeError):
@@ -408,13 +423,26 @@ def test_tensor_core_forwards_match_twins(cuda_device, T, B, H):
     assert (g1["mma"] - g0["mma"], g1["simt"] - g0["simt"]) == (1, 0)
 
 
+ROUTE_CASES = [  # (dtype, H, the LSTM's route, the GRU's route)
+    (torch.float32, 128, "simt", "simt"), (torch.bfloat16, 144, "wide", "simt"),
+    (torch.bfloat16, 40, "simt", "simt"), (torch.bfloat16, 128, "mma", "mma"),
+    (torch.bfloat16, 48, "mma", "mma"), (torch.float32, 264, "wide", "simt"),
+]
+
+
+def _route_counts(before, after, route):
+    """(launches on ``route``, launches on every other route) between two
+    ``.routes`` snapshots."""
+    moved = {r: after[r] - before[r] for r in after}
+    return moved[route], sum(moved.values()) - moved[route]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,H,route", [(torch.float32, 128, "simt"), (torch.bfloat16, 144, "simt"),
-                                           (torch.bfloat16, 40, "simt"), (torch.bfloat16, 128, "mma"),
-                                           (torch.bfloat16, 48, "mma")])
-def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route):
+@pytest.mark.parametrize("dtype,H,route,gru_route", ROUTE_CASES)
+def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
     """f32 and widths outside the tensor-core route launch the CUDA-core
-    kernels; each call counts on its route alone, and agrees with its twin."""
+    kernels (the LSTM's cluster kernel past H = 256, bf16: 128); each call
+    counts on its route alone, and agrees with its twin."""
     T, B = 24, 5
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     lstm_args = _gates(T, B, H, dtype, cuda_device, seed=H)
@@ -426,9 +454,8 @@ def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, rou
         _close(bigru_fwd(*gru_args), bigru_fwd_reference(*gru_args), atol)
     torch.cuda.synchronize()
     l1, g1 = _routes()
-    other = "simt" if route == "mma" else "mma"
-    assert (l1[route] - l0[route], l1[other] - l0[other]) == (1, 0)
-    assert (g1[route] - g0[route], g1[other] - g0[other]) == (1, 0)
+    assert _route_counts(l0, l1, route) == (1, 0)
+    assert _route_counts(g0, g1, gru_route) == (1, 0)
 
 
 @pytest.mark.cuda
@@ -494,13 +521,12 @@ def test_tensor_core_bptt_matches_twins(cuda_device, T, B, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,H,route", [(torch.float32, 128, "simt"), (torch.bfloat16, 160, "simt"),
-                                           (torch.bfloat16, 40, "simt"), (torch.bfloat16, 128, "mma"),
-                                           (torch.bfloat16, 48, "mma")])
-def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route):
+@pytest.mark.parametrize("dtype,H,route,gru_route", ROUTE_CASES)
+def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
     """f32 and widths outside the tensor-core route launch the CUDA-core
-    BPTT kernels; each call counts on its route alone and agrees with its
-    twin. The CUDA-core GRU BPTT refuses H that is not a multiple of 32."""
+    BPTT kernels (the LSTM's cluster kernel past H = 256, bf16: 128); each
+    call counts on its route alone and agrees with its twin. The CUDA-core
+    GRU BPTT runs H that is not a multiple of 32 zero-padded to one."""
     T, B = 24, 5
     lstm_args = _bwd_args(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
@@ -511,22 +537,16 @@ def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route)
             _close(got, want, 1e-4)
         else:
             _close_rel(got, want, 2e-2)
-        if route == "simt" and H % 32:
-            with pytest.raises(ValueError, match="multiple of 32"):
-                bigru_bwd(*gru_args)
-        else:
-            got, want = bigru_bwd(*gru_args), bigru_bwd_reference(*gru_args)
-            for sl in (slice(0, 2), slice(2, 4)):
-                if dtype == torch.float32:
-                    _close(got[sl], want[sl], 1e-4)
-                else:
-                    _close_rel(got[sl], want[sl], 2e-2)
+        got, want = bigru_bwd(*gru_args), bigru_bwd_reference(*gru_args)
+        for sl in (slice(0, 2), slice(2, 4)):
+            if dtype == torch.float32:
+                _close(got[sl], want[sl], 1e-4)
+            else:
+                _close_rel(got[sl], want[sl], 2e-2)
     torch.cuda.synchronize()
     l1, g1 = _bwd_routes()
-    other = "simt" if route == "mma" else "mma"
-    gru_launched = 0 if route == "simt" and H % 32 else 1
-    assert (l1[route] - l0[route], l1[other] - l0[other]) == (1, 0)
-    assert (g1[route] - g0[route], g1[other] - g0[other]) == (gru_launched, 0)
+    assert _route_counts(l0, l1, route) == (1, 0)
+    assert _route_counts(g0, g1, gru_route) == (1, 0)
 
 
 @pytest.mark.cuda
@@ -562,6 +582,96 @@ def test_tensor_core_bptt_refuses_other_widths_and_takes_unaligned_views(cuda_de
     torch.cuda.synchronize()
     l1, g1 = _bwd_routes()
     assert (l1["mma"] - l0["mma"], g1["mma"] - g0["mma"]) == (1, 1)
+
+
+# --- the LSTM's cluster kernels (the "wide" route) ---------------------------
+
+# widths one block cannot hold (H = 264, 512, 608), the serving and training
+# row counts, T = 1, B not a multiple of a tile, and H = 1 and 100 launched
+# through fwd_launch / bwd_launch (the route takes them in no call)
+WIDE_SHAPES = [(33, 9, 264), (64, 1, 608), (40, 32, 512), (1, 1, 512), (24, 5, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", WIDE_SHAPES)
+def test_wide_kernels_match_twins(cuda_device, dtype, T, B, H):
+    """Forward (with and without cells) and BPTT on the cluster kernels
+    agree with the twins, each counted once on the wide route."""
+    f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
+    b_args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
+    f0, b0 = dict(bilstm_fwd.routes), dict(bilstm_bwd.routes)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    with torch.no_grad():
+        want = bilstm_fwd_reference(*f_args, with_cells=True)
+        _close(bilstm_fwd(*f_args, with_cells=True), want, atol)
+        _close(bilstm_fwd(*f_args), want[:2], atol)
+        got, want = bilstm_bwd(*b_args), bilstm_bwd_reference(*b_args)
+        if dtype == torch.float32:
+            _close(got, want, 1e-4)
+        else:
+            _close_rel(got, want, 2e-2)
+    torch.cuda.synchronize()
+    assert _route_counts(f0, bilstm_fwd.routes, "wide") == (2, 0)
+    assert _route_counts(b0, bilstm_bwd.routes, "wide") == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 100])
+def test_wide_kernels_take_narrow_widths(cuda_device, H):
+    """The cluster kernels run any H >= 1 when launched directly."""
+    from percivaltts_tpu_torch.ops.lstm_cuda import bwd_launch, fwd_launch
+
+    f_args = _gates(24, 5, H, torch.float32, cuda_device, seed=H)
+    b_args = _bwd_args(24, 5, H, torch.float32, cuda_device, seed=H)
+    with torch.no_grad():
+        _close(fwd_launch("wide", *f_args, with_cells=True),
+               bilstm_fwd_reference(*f_args, with_cells=True), 1e-4)
+        _close(bwd_launch("wide", *b_args), bilstm_bwd_reference(*b_args), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_autograd_pair_matches_twins(cuda_device, dtype):
+    base = _gates(48, 6, 512, dtype, cuda_device, seed=13)
+    dy = np.random.default_rng(14).normal(size=(48, 6, 512)).astype(np.float32)
+    dy = torch.from_numpy(dy).to(device=cuda_device, dtype=dtype)
+    grads = []
+    f0, b0 = dict(bilstm_fwd.routes), dict(bilstm_bwd.routes)
+    for core in (bilstm_core, bilstm_core_reference):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        torch.autograd.backward(core(*leaves), (dy, dy))
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert _route_counts(f0, bilstm_fwd.routes, "wide") == (1, 0)
+    assert _route_counts(b0, bilstm_bwd.routes, "wide") == (1, 0)
+    for g, w in zip(*grads):
+        scale = w.float().abs().max().item()
+        tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
+        assert g.dtype == dtype and (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 264, 512, 608, 4096])
+def test_wide_launch_plan_matches_the_layout(cuda_device, H):
+    """The launchers split H as ``ops/wide_layout.py::plan`` does, give each
+    thread at most one gate pair, and fit the card's clusters."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_layout
+
+    lib = _build.library()
+    p = wide_layout.plan(H)
+    for fn in (lib.percival_bilstm_fwd_wide_plan, lib.percival_bilstm_bwd_wide_plan):
+        for dtype in (0, 1):
+            out = (ctypes.c_int * 9)()
+            assert fn(32, H, p.Hb, p.U, dtype, out) == 0
+            U, Hb, NC, KS, NT, R, _, clusters, smem = out
+            assert (U, Hb, NC, KS, NT) == tuple(p)
+            assert R * Hb <= NT and clusters >= 1 and smem > 0
+    out = (ctypes.c_int * 9)()
+    assert lib.percival_bilstm_fwd_wide_plan(32, H, p.Hb + 8, p.U, 0, out) != 0 or H < 8
 
 
 # --- the DSP kernels: framing × window and overlap-add ------------------------
@@ -1095,7 +1205,7 @@ def test_exported_generator_launches_the_kernel_and_equals_live(cuda_device, tmp
                      voc.feature_size, {"kind": "pml"}, batch=batch)
         ex = ExportedGenerator(d, device=cuda_device)
         groups = ex.groups(labs)
-        wrapper.launches, wrapper.routes = 0, {"mma": 0, "simt": 0}
+        wrapper.launches, wrapper.routes = 0, dict.fromkeys(wrapper.routes, 0)
         got = ex.predict_batch(labs)
         torch.cuda.synchronize()
         assert wrapper.launches == wrapper.routes["mma"] == per_call * len(groups)

@@ -75,9 +75,12 @@ def _op_cases():
     gru = (_r(rng, T, B, 3 * H), _r(rng, T, B, 3 * H), _r(rng, H, 3 * H), _r(rng, H, 3 * H),
            _r(rng, H), _r(rng, H))
     x, frames = _r(rng, 2, 1000), _r(rng, 2, 13, 400)
+    Hw = 264  # a width of the "wide" route (H > 256): a cluster of blocks a direction
+    wide = (_r(rng, 3, 2, 4 * Hw), _r(rng, 3, 2, 4 * Hw), _r(rng, Hw, 4 * Hw), _r(rng, Hw, 4 * Hw))
     return {
         "bilstm_fwd": ("bilstm_fwd", (*lstm, False)),
         "bilstm_fwd cells": ("bilstm_fwd", (*lstm, True)),
+        "bilstm_fwd wide": ("bilstm_fwd", (*wide, True)),
         "bigru_fwd": ("bigru_fwd", gru),
         "frame_window": ("frame_window", (x, 400, 80, _r(rng, 400))),
         "frame_window no window": ("frame_window", (x, 400, 80, None)),

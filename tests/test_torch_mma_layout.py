@@ -166,8 +166,11 @@ def test_widths_outside_the_tensor_core_route_are_refused(kind, H):
         pack_wh(torch.zeros((H, G)), kind)
     with pytest.raises(ValueError, match="multiple of 16 up to 128"):
         gate_rows(kind, H)
-    assert fwd_route(torch.bfloat16, H) == "simt"
-    assert bwd_route(torch.bfloat16, H) == "simt"
+    # the CUDA-core kernels: one block a direction, or for the LSTM past
+    # H = 128 in bf16 the cluster kernels ("wide", ops/wide_layout.py)
+    route = "wide" if kind == "lstm" and H > 128 else "simt"
+    assert fwd_route(torch.bfloat16, H, kind) == route
+    assert bwd_route(torch.bfloat16, H, kind) == route
 
 
 def test_route_is_chosen_from_dtype_and_width():
@@ -176,9 +179,12 @@ def test_route_is_chosen_from_dtype_and_width():
     assert fwd_route(torch.bfloat16, 16) == "mma"
     assert fwd_route(torch.float32, 128) == "simt"  # f32: the parity dtype
     assert fwd_route(torch.bfloat16, 48) == "mma"
-    assert fwd_route(torch.bfloat16, 136) == "simt"  # above the register budget
+    # above the register budget: the LSTM's cluster kernels, the GRU's one-block one
+    assert fwd_route(torch.bfloat16, 136) == "wide"
+    assert fwd_route(torch.bfloat16, 136, "gru") == "simt"
     for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128),
                      (torch.bfloat16, 136)):
-        assert bwd_route(dtype, H) == fwd_route(dtype, H)  # the BPTT follows the forward
+        for cell in ("lstm", "gru"):  # the BPTT follows the forward
+            assert bwd_route(dtype, H, cell) == fwd_route(dtype, H, cell)
     with pytest.raises(ValueError, match="kind"):
         gate_rows("rnn", 64)
