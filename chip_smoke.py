@@ -154,15 +154,17 @@ raises on failure (the script exits 0 only when all passed):
    refused; export, save and load seconds and bytes per bound; the batched
    artifacts' median serve beside eager ``serve``'s;
    11b. the same for the BGRU at bound 256 (2 BiGRU forwards a call);
-   11d. ``cli export`` on phase 8's workdir (bounds 256 and 512, the
-   default PML synthesis), whose artifacts turn the test label files into
+   11d. ``cli export`` on phase 8's workdir through a copy of its config
+   with one bucket bound, 512 (one PML synthesis artifact to trace, the
+   default synthesis), whose artifacts turn the test label files into
    features (within phase 4's tolerance of ``cli synth``'s) and wavs;
    11c. (after 11d) the default PML synthesis (closed loop, 2 passes; 11d's
-   artifact at bound 256) and config 4's Griffin-Lim exported at bound 256
-   and reloaded: the served requests of 129–256 frames rendered equal to
-   ``synthesize_batch(seed=0, chunk=1)`` bit for bit, 7 framings and 6
-   overlap-adds (PML) or 64 and 130 (Griffin-Lim) counted inside each
-   artifact call, ms a call beside ``synthesize_batch``'s;
+   artifact at bound 512) and config 4's Griffin-Lim exported at bound 256
+   and reloaded: the served requests of 385–512 (PML) or 129–256 frames
+   (Griffin-Lim) rendered equal to ``synthesize_batch(seed=0, chunk=1)`` bit
+   for bit, 7 framings and 6 overlap-adds (PML) or 64 and 130 (Griffin-Lim)
+   counted inside each artifact call, ms a call beside
+   ``synthesize_batch``'s;
    11e. the operators' host cost: an overlap-add through the op against the
    eager wrapper (the same CUDA function without the dispatcher), and
    Griffin-Lim's 388 launches both ways;
@@ -203,7 +205,21 @@ raises on failure (the script exits 0 only when all passed):
    ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
    the twins, every launch on the wide route, serve medians, busy share;
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
-   twins' step as ``_hold_step`` holds phase 5's, the step median of 10.
+   twins' step as ``_hold_step`` holds phase 5's, the step median of 10;
+14. kernels #3/#4 at every width the JAX package trains (the "wide" route,
+   ``csrc/bigru_{fwd,bwd}_wide.cu``: a thread-block cluster a direction):
+   14a. each launch plan against ``ops/wide_layout.py`` (3 gates); the
+   forward at (512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512),
+   (33, 9, 336), (33, 9, 352), (64, 1, 640) and the BPTT at (512, 32, 512),
+   (33, 9, 336), (40, 1, 640), (24, 5, 100) (its entry's route, and the
+   cluster kernel launched directly) against the twins, f32 and bf16, each
+   launch counted on its route; H = 256 on the route that takes it, and in
+   bf16 the one-block kernels against the cluster ones, checked and timed in
+   turns; the autograd pair at (512, 32, 512); both kernels timed at B = 8,
+   32, 160 beside the twins, the bound and cuDNN's ``nn.GRU``;
+   14b/14c. the BGRU generator at ``blstm_size=1024`` (H = 512) serving
+   phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every launch
+   on the wide route, (4, 2) launches a step.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -254,10 +270,11 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # Phase 13's blstm_size=1024 models by the same count: config 3's f0 head
 # (one BiLSTM, now of 512 units) as config 3; the BLSTM generator, whose
 # every stream reads both LSTM layers through a bf16 readout, as the BGRU.
+# Phase 14's BGRU at blstm_size=1024 as the BGRU.
 SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125,
-             "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125}
+             "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125, "bgru_1024": 0.125}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
-          "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803}
+          "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -273,19 +290,23 @@ MODELS = {
     # front end and 2 bidirectional layers
     "cnn_blstm_1024": dict(generator="cnn_blstm", blstm_size=1024),
     "blstm_1024": dict(generator="blstm", blstm_size=1024),
+    # phase 14: the BGRU generator's 1024-wide front end and 2 bidirectional
+    # GRU layers of H = 512 (kernels #3/#4's "wide" route)
+    "bgru_1024": dict(generator="bgru", blstm_size=1024),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
 TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
                 "bilstm_bwd": [(512, 32, 128), (512, 8, 128)],
                 "bigru_bwd": [(512, 32, 128), (512, 8, 128)]}
-# the wrappers with two routes (``.routes``): tensor cores ("mma") or CUDA
-# cores ("simt"); the BiLSTM's have a third, the cluster kernels ("wide")
+# the wrappers with three routes (``.routes``): tensor cores ("mma"), CUDA
+# cores in one block a direction ("simt") or a cluster of blocks ("wide")
 ROUTED = ("bilstm_fwd", "bigru_fwd", "bilstm_bwd", "bigru_bwd")
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
 # BPTT: the training shape, edge shapes, the narrow width, and H=160 (bf16
-# outside the tensor-core route: the CUDA-core kernels stay checked in bf16)
+# outside the tensor-core route: the cluster kernels in bf16, the one-block
+# CUDA-core kernels in f32; phases 13a/14a check those in bf16 at H = 256)
 BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64), (33, 9, 160),
               (256, 32, 128)]  # the training loop's 256-frame bucket
 # bf16 only (the tensor-core route): T=1, H=16 and 48, B not a multiple of 8
@@ -343,7 +364,7 @@ N_TIMED_STEPS = 10
 # BiLSTM in the no-grad fakes pass and in the generator update, and one
 # BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
 STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2),
-                 "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2)}
+                 "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2), "bgru_1024": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -407,6 +428,10 @@ EXPORT_BOUNDS = (256, 512)  # config 3's artifacts; the requests past 512 frames
 EXPORT_BATCH = 8  # the throughput artifact's rows a call (phase 4's chunk)
 BGRU_EXPORT_BOUND = 256
 SYN_BOUND = 256  # the synthesis artifacts' bound: requests of 129–256 frames render there
+# cli export's one bucket bound (11d), for the generator and the PML synthesis
+# alike: it holds every test label file of the demo corpus (up to ~340
+# frames), and 11c renders the served requests of 385–512 frames through it
+CLI_EXPORT_BOUND = 512
 SYN_LAUNCHES = {"pml": {"frame_window": 7, "overlap_add": 6},  # closed loop, 2 passes
                 "melspec": {"frame_window": 64, "overlap_add": 130}}  # 64 Griffin-Lim iterations
 N_TIMED_EXPORT = 7
@@ -431,6 +456,16 @@ WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
 ROUTE_SHAPE = (512, 32, 256)
 WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
 WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024")
+# phase 14: kernels #3/#4 on the "wide" route (csrc/bigru_{fwd,bwd}_wide.cu):
+# phase 13's serving chunk, edges and fakes pass at H = 512, H = 336 (in
+# 321…341 the one-block forward ran and its BPTT refused; its last block
+# holds 16 of 32 units), 352, 640 (the widest the JAX package's Pallas GRU
+# runs, bf16) and 100 (the BPTT's entry runs it on the one-block kernel; the
+# cluster kernel is launched on it directly too, its last block short)
+WIDE_GRU_FWD_SHAPES = [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512),
+                       (33, 9, 336), (33, 9, 352), (64, 1, 640)]
+WIDE_GRU_BWD_SHAPES = [(512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)]
+WIDE_GRU_MODELS = ("bgru_1024",)
 
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
@@ -2233,11 +2268,12 @@ def _mel_requests(dev):
 
 def _export_synthesis_path(dev, card: str, feats_by_kind: dict, pml_syn) -> dict:
     """Phase 11c: the default PML synthesis (closed loop, 2 passes; the
-    ``syn_t256.pt2`` that phase 11d's ``cli export`` wrote, loaded there as
+    ``syn_t512.pt2`` that phase 11d's ``cli export`` wrote, loaded there as
     ``pml_syn``) and config 4's Griffin-Lim exported here at ``SYN_BOUND``,
-    saved and reloaded on the card; each served request of 129–256 frames
-    rendered by the artifact equals ``synthesize_batch([feats], seed=0,
-    chunk=1)`` (the same 256-frame padding, the same noise), bit for bit;
+    saved and reloaded on the card; each served request of 385–512 (PML)
+    or 129–256 frames (Griffin-Lim) rendered by the artifact equals
+    ``synthesize_batch([feats], seed=0, chunk=1)`` (the same padding to the
+    bound, the same noise), bit for bit;
     the framing and overlap-add launches counted inside each artifact call;
     Griffin-Lim's export, save and load seconds and bytes, and the median
     ms of an artifact call beside ``synthesize_batch``'s."""
@@ -2255,8 +2291,8 @@ def _export_synthesis_path(dev, card: str, feats_by_kind: dict, pml_syn) -> dict
     for kind, vcfg in (("pml", VocoderConfig()), ("melspec", VocoderConfig(kind="melspec",
                                                                             mel_size=80))):
         voc = get_vocoder(vcfg, device=dev)
-        sel = [f for f in feats_by_kind[kind] if SYN_BOUND - voc.frame_multiple < f.shape[0]
-               <= SYN_BOUND]
+        bound = CLI_EXPORT_BOUND if kind == "pml" else SYN_BOUND
+        sel = [f for f in feats_by_kind[kind] if bound - voc.frame_multiple < f.shape[0] <= bound]
         run = {}
         if kind == "pml":
             syn = pml_syn
@@ -2320,11 +2356,13 @@ def _export_synthesis_path(dev, card: str, feats_by_kind: dict, pml_syn) -> dict
 
 def _cli_export_path(dev, card: str, qs: dict) -> dict:
     """Phase 11d: ``cli export`` on phase 8's quick-start workdir (config 1,
-    the best checkpoint's EMA, bounds 256/512, the default PML synthesis),
-    then its artifacts on the card turn the test split's label files into
-    features and wavs: the features within phase 4's tolerance of those
-    ``cli synth`` serves from the same checkpoint, 7 framings and 6
-    overlap-adds a wav, finite wavs of nf·80 samples."""
+    the best checkpoint's EMA, the default PML synthesis) through a copy of
+    its config with the one bucket bound ``CLI_EXPORT_BOUND`` (the export
+    traces one PML synthesis artifact a bound, ~90 s each), then its
+    artifacts on the card turn the test split's label files into features
+    and wavs: the features within phase 4's tolerance of those ``cli
+    synth`` serves from the same checkpoint, 7 framings and 6 overlap-adds a
+    wav, finite wavs of nf·80 samples."""
     import os
 
     from percivaltts_tpu_torch import cli
@@ -2335,7 +2373,9 @@ def _cli_export_path(dev, card: str, qs: dict) -> dict:
     from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
     from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
 
-    cfg_path = os.path.join(qs["root"], "config1.json")
+    d = json.loads(json.dumps(qs["cfg"]))
+    d["data"]["bucket_bounds"] = [CLI_EXPORT_BOUND]
+    cfg_path = _write_config(os.path.join(qs["root"], "config1_export.json"), d)
     outdir = os.path.join(qs["root"], "export")
     cfg = Configuration.load(cfg_path)
     t = time.perf_counter()
@@ -2348,7 +2388,8 @@ def _cli_export_path(dev, card: str, qs: dict) -> dict:
              if n.endswith(".pt2")}
     print(f"[cli export] ({card}) {export_s:.2f} s; manifest bounds {manifest['bounds']}, "
           f"synthesis {manifest['synthesis']}; bytes {sizes}")
-    if manifest["bounds"] != QS_BOUNDS or manifest["synthesis"]["bounds"] != QS_BOUNDS:
+    if manifest["bounds"] != [CLI_EXPORT_BOUND] or \
+            manifest["synthesis"]["bounds"] != [CLI_EXPORT_BOUND]:
         raise AssertionError(f"cli export wrote {manifest}")
 
     questions = QuestionSet.from_hed(cfg.data.question_file)
@@ -2924,32 +2965,36 @@ def _mesh_cli_path(dev, card: str, qs: dict) -> dict:
     return {"wall_s": wall, "record": epochs[0]}
 
 
-def _wide_plans(dev) -> None:
-    """The launch plans of the wide kernels at phase 13's widths and rows:
-    the cluster split of each must be ``ops/wide_layout.py::plan``'s, with
-    at most one gate pair a thread. Printed: blocks a cluster, units a
-    block, threads, batch rows a cluster, W_h in shared memory or L2, the
-    clusters the card holds at once and the shared memory a block."""
+def _wide_plans(dev, cell: str = "lstm") -> None:
+    """The launch plans of the wide kernels at phase 13's (LSTM) or 14's
+    (GRU) widths and rows: the cluster split of each must be
+    ``ops/wide_layout.py::plan``'s, with at most one gate pair a thread.
+    Printed: blocks a cluster, units a block, threads, batch rows a cluster,
+    W_h in shared memory or L2, the clusters the card holds at once and the
+    shared memory a block."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
     from percivaltts_tpu_torch.ops import wide_layout
 
     lib = _build.library()
-    shapes = sorted({(B, H) for _, B, H in WIDE_FWD_SHAPES + WIDE_BWD_SHAPES + WIDE_TIMED
-                     + [ROUTE_SHAPE]})
+    gru = cell == "gru"
+    shapes = sorted({(B, H) for _, B, H in (
+        WIDE_GRU_FWD_SHAPES + WIDE_GRU_BWD_SHAPES if gru else WIDE_FWD_SHAPES + WIDE_BWD_SHAPES)
+        + WIDE_TIMED + [ROUTE_SHAPE]})
+    name = "bigru" if gru else "bilstm"
     for B, H in shapes:
-        p = wide_layout.plan(H)
-        for kind, fn in (("fwd", lib.percival_bilstm_fwd_wide_plan),
-                         ("bwd", lib.percival_bilstm_bwd_wide_plan)):
+        p = wide_layout.plan(H, 3 if gru else 4)
+        for kind, fn in (("fwd", getattr(lib, f"percival_{name}_fwd_wide_plan")),
+                         ("bwd", getattr(lib, f"percival_{name}_bwd_wide_plan"))):
             for dtype in (torch.float32, torch.bfloat16):
                 out = (ctypes.c_int * 9)()
                 _build.check(fn(B, H, p.Hb, p.U, 0 if dtype == torch.float32 else 1, out),
                              f"the wide {kind} plan at B={B} H={H}")
                 U, Hb, NC, KS, NT, R, w_smem, clusters, smem = out
                 if (U, Hb, NC, KS, NT) != tuple(p) or R * Hb > NT or clusters < 1:
-                    raise AssertionError(f"the wide {kind} plan {list(out)} is not {p}")
-                print(f"[wide plan] {kind} B={B} H={H} {str(dtype)[6:]}: {U} blocks of {Hb} "
+                    raise AssertionError(f"the wide {name} {kind} plan {list(out)} is not {p}")
+                print(f"[wide plan] {name} {kind} B={B} H={H} {str(dtype)[6:]}: {U} blocks of {Hb} "
                       f"units, {NT} threads, {R} rows a cluster, W_h in "
                       f"{'shared memory' if w_smem else 'L2'}, {clusters} clusters at once, "
                       f"{smem} B shared memory")
@@ -3052,38 +3097,144 @@ def _check_wide_kernels(dev) -> dict:
     return {"err": err, "route_ms": timed}
 
 
-def _time_wide_kernels(dev) -> dict:
-    """Phase 13's timings: each wide kernel at the serving chunk, the
-    generator update and the fakes pass (bf16), beside its twin, its bound
-    and cuDNN's bidirectional ``nn.LSTM(hidden_size=H)`` (forward; the BPTT
-    beside its backward) on the same input, as phase 6 times the others."""
-    from percivaltts_tpu_torch.ops import lstm_cuda as l
+def _check_wide_gru_kernels(dev) -> dict:
+    """Phase 14a: both wide GRU kernels against their twins (forward, BPTT,
+    the autograd pair), each launch counted on its route; the BPTT at H =
+    100 on its entry's route and on the cluster kernel launched directly;
+    H = 256 on the route that takes it, and in bf16 the one-block kernels
+    against the cluster ones there (checked and timed in turns). Returns the
+    largest bf16 |kernel − twin| of each wrapper and the route timings."""
+    from percivaltts_tpu_torch.ops import gru_cuda as g
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
+    bf16 = torch.bfloat16
+    err = {"bigru_fwd": 0.0, "bigru_bwd": 0.0}
+
+    def hold_bwd(label, got, want, dtype):
+        rel = dtype == bf16
+        e = max(_compare(f"{label} {what}", got[sl], want[sl], BWD_TOL[dtype], rel)
+                for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))))
+        err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
+
+    with torch.no_grad():
+        for T, B, H in WIDE_GRU_FWD_SHAPES:
+            for dtype, tol in KERNEL_TOL.items():
+                if fwd_route(dtype, H, "gru") != "wide":
+                    raise AssertionError(f"H={H} {dtype} does not take the GRU's wide route")
+                args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
+                got = _launch_once(g.bigru_fwd, *args, route="wide")
+                e = _compare(f"[bigru_fwd wide] T={T} B={B} H={H} {str(dtype)[6:]}", got,
+                             g.bigru_fwd_reference(*args), tol, relative=False)
+                err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
+        for T, B, H in WIDE_GRU_BWD_SHAPES:
+            for dtype in BWD_TOL:
+                route = bwd_route(dtype, H, "gru")
+                args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
+                want = g.bigru_bwd_reference(*args)
+                tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
+                hold_bwd(f"[bigru_bwd {route}] {tag}",
+                         _launch_once(g.bigru_bwd, *args, route=route), want, dtype)
+                if route != "wide":  # the cluster kernel on the same inputs (uncounted)
+                    got = g.bwd_launch("wide", *args)
+                    torch.cuda.synchronize()
+                    hold_bwd(f"[bigru_bwd wide, launched directly] {tag}", got, want, dtype)
+
+        # H = 256 on the route that takes it; in bf16 the one-block kernels too
+        T, B, H = ROUTE_SHAPE
+        timed = {}
+        for dtype, tol in KERNEL_TOL.items():
+            route = fwd_route(dtype, H, "gru")
+            fargs = _gru_gates(T, B, H, dtype, dev, seed=5)
+            bargs = _gru_bwd_args(T, B, H, dtype, dev, seed=5)
+            fwant, bwant = g.bigru_fwd_reference(*fargs), g.bigru_bwd_reference(*bargs)
+            tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
+            _compare(f"[bigru_fwd {route}] {tag}", _launch_once(g.bigru_fwd, *fargs, route=route),
+                     fwant, tol, relative=False)
+            hold_bwd(f"[bigru_bwd {route}] {tag}", _launch_once(g.bigru_bwd, *bargs, route=route),
+                     bwant, dtype)
+            if dtype != bf16:
+                continue
+            for other in ("simt", "wide"):
+                _compare(f"[bigru_fwd {other}, launched directly] {tag}",
+                         g.fwd_launch(other, *fargs), fwant, tol, relative=False)
+                hold_bwd(f"[bigru_bwd {other}, launched directly] {tag}",
+                         g.bwd_launch(other, *bargs), bwant, dtype)
+            # in turns: one-block, cluster, cluster, one-block
+            ms = {(k, r): [] for k in ("fwd", "bwd") for r in ("simt", "wide")}
+            for r in ("simt", "wide", "wide", "simt"):
+                ms[("fwd", r)].append(_median_ms(lambda: g.fwd_launch(r, *fargs), runs=5, inner=3))
+                ms[("bwd", r)].append(_median_ms(lambda: g.bwd_launch(r, *bargs), runs=5, inner=3))
+            timed = {f"{k}_{r}_ms": statistics.mean(v) for (k, r), v in ms.items()}
+            print(f"[time] GRU ROUTE {tag}: forward one-block {timed['fwd_simt_ms']:.4f} ms, "
+                  f"cluster {timed['fwd_wide_ms']:.4f} ms; BPTT one-block "
+                  f"{timed['bwd_simt_ms']:.4f} ms, cluster {timed['bwd_wide_ms']:.4f} ms (each "
+                  f"the mean of 2 medians, in turns); routed: {fwd_route(dtype, H, 'gru')}")
+
+    # the autograd pair: forward kernel + BPTT kernel against the twins
+    T, B, H = WIDE_AUTOGRAD_SHAPE
+    for dtype, tol in BWD_TOL.items():
+        base = _gru_gates(T, B, H, dtype, dev, seed=7)
+        dy = _dy(T, B, H, dtype, dev, seed=1)
+        grads = []
+        for c in (g.bigru_core, g.bigru_core_reference):
+            leaves = [t.clone().requires_grad_(True) for t in base]
+            f0, b0 = g.bigru_fwd.routes["wide"], g.bigru_bwd.routes["wide"]
+            torch.autograd.backward(c(*leaves), dy)
+            torch.cuda.synchronize()
+            grads.append([t.grad for t in leaves])
+            moved = (g.bigru_fwd.routes["wide"] - f0, g.bigru_bwd.routes["wide"] - b0)
+            if c is g.bigru_core and moved != (1, 1):
+                raise RuntimeError("the wide GRU autograd pair did not launch one forward and "
+                                   "one BPTT kernel on the wide route")
+        names = ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b", "db_hn_f", "db_hn_b")
+        for name, gk, gt in zip(names, *grads):
+            scale = gt.float().abs().max().item()
+            limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
+            _compare(f"[autograd BiGRU wide] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
+                     f"{str(dtype)[6:]}", [gk], [gt], limit, relative=False)
+    return {"err": err, "route_ms": timed}
+
+
+def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
+    """Phase 13's (LSTM) or 14's (GRU) timings: each wide kernel at the
+    serving chunk, the generator update and the fakes pass (bf16), beside
+    its twin, its bound and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
+    (``hidden_size=H``; forward, the BPTT beside its backward) on the same
+    input, as phase 6 times the others."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    cls = "nn.GRU" if gru else "nn.LSTM"
     dt = torch.bfloat16
     out = {}
-    for name in ("bilstm_fwd", "bilstm_bwd"):
+    for name in (("bigru_fwd", "bigru_bwd") if gru else ("bilstm_fwd", "bilstm_bwd")):
         fwd = name.endswith("fwd")
         rows = []
         for T, B, H in WIDE_TIMED:
-            args = _gates(T, B, H, dt, dev, seed=1) if fwd else _bwd_args(T, B, H, dt, dev, seed=1)
-            kern = l.bilstm_fwd if fwd else l.bilstm_bwd
-            twin = l.bilstm_fwd_reference if fwd else l.bilstm_bwd_reference
+            if fwd:
+                args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
+            else:
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            kern = getattr(m, name)
+            twin = getattr(m, f"{name}_reference")
+            layer = m.bigru if gru else m.bilstm
             with torch.no_grad():
                 ms = _median_ms(lambda: kern(*args), runs=5, inner=3)
                 plain_ms = _median_ms(lambda: twin(*args), runs=3)
-            ws = _layer_weights("lstm", H, dt, dev, seed=2)
+            ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(device=dev, dtype=dt)
             flat = [t for d in ws for t in d]
-            lib = _library_layer("lstm", ws, dt, dev)
+            lib = _library_layer(cell, ws, dt, dev)
             if fwd:
                 with torch.no_grad():
-                    layer_ms = _median_ms(lambda: l.bilstm(x, *flat), runs=5, inner=3)
+                    layer_ms = _median_ms(lambda: layer(x, *flat), runs=5, inner=3)
                     library_ms = _median_ms(lambda: lib(x), runs=5, inner=3)
             else:
                 xg = x.clone().requires_grad_(True)
                 leaves = [t.clone().requires_grad_(True) for t in flat]
-                y = l.bilstm(xg, *leaves)
+                y = layer(xg, *leaves)
                 dy = torch.randn_like(y)
                 layer_ms = _median_ms(lambda: y.backward(dy, retain_graph=True), runs=5, inner=3)
                 y_lib = lib(xg)[0]
@@ -3096,28 +3247,29 @@ def _time_wide_kernels(dev) -> dict:
             print(f"[time] {name} wide T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
                   f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({bound_by}); layer{'' if fwd else ' backward'}: port "
-                  f"{layer_ms:.4f} ms, cuDNN nn.LSTM(hidden_size={H}, bidirectional=True) "
+                  f"{layer_ms:.4f} ms, cuDNN {cls}(hidden_size={H}, bidirectional=True) "
                   f"{library_ms:.4f} ms (medians, CUDA events)")
         out[name] = rows
     return out
 
 
-def _wide_models_path(dev, card: str) -> dict:
-    """Phase 13b/13c: the blstm_size=1024 models (``WIDE_MODELS``) served
-    and trained as phases 4–6 serve and train config 3 and the BGRU, every
-    BiLSTM launch on the wide route."""
+def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
+    """Phase 13b/13c (``WIDE_MODELS``) and 14b/14c (``WIDE_GRU_MODELS``): the
+    blstm_size=1024 models served and trained as phases 4–6 serve and train
+    config 3 and the BGRU, every recurrent launch on the wide route."""
     runs = {}
-    for kind in WIDE_MODELS:
+    for kind in kinds:
         served, trained = _serve_path(dev, kind), _train_path(dev, kind)
+        cell = "bigru" if _is_gru(kind) else "bilstm"
         for what, run in (("serve", served), ("train", trained)):
             counts, routes = run["counts"], run["routes"]
-            for name in ("bilstm_fwd", "bilstm_bwd"):
+            for name in (f"{cell}_fwd", f"{cell}_bwd"):
                 if routes[name]["wide"] != counts[name]:
                     raise AssertionError(f"{what} {kind}: {name} launched off the wide route: "
                                          f"{routes[name]} of {counts[name]}")
         print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
               f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
-              f"a serve {served['counts']['bilstm_fwd']}, a step "
+              f"a serve {served['counts'][f'{cell}_fwd']}, a step "
               f"{STEP_LAUNCHES[kind]}")
         runs[kind] = {"serve": served, "train": trained}
     return runs
@@ -3278,7 +3430,14 @@ def main() -> int:
     wide = _check_wide_kernels(dev)
     wide_timed = _time_wide_kernels(dev)
     wide_runs = _wide_models_path(dev, smi)
-    for kind, run in wide_runs.items():
+    t_phase14 = time.perf_counter()
+    # 14. kernels #3/#4 at the widths one block cannot hold: the same for the
+    # GRU's cluster kernels; the BGRU at blstm_size=1024 served and trained
+    _wide_plans(dev, "gru")
+    wide_gru = _check_wide_gru_kernels(dev)
+    wide_gru_timed = _time_wide_kernels(dev, "gru")
+    wide_gru_runs = _wide_models_path(dev, smi, WIDE_GRU_MODELS)
+    for kind, run in {**wide_runs, **wide_gru_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
             for name, by_route in run[what]["routes"].items():
@@ -3286,7 +3445,8 @@ def main() -> int:
                     routes[name][route] += n
     print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
           f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
-          f"{t_phase13 - t_phase12:.1f} s, phase 13 {time.perf_counter() - t_phase13:.1f} s")
+          f"{t_phase13 - t_phase12:.1f} s, phase 13 {t_phase14 - t_phase13:.1f} s, phase 14 "
+          f"{time.perf_counter() - t_phase14:.1f} s, total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -3332,14 +3492,20 @@ def main() -> int:
             kernels[-1]["launches_by_route"] = routes[name]
         if not any(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the paths")
-    # kernels #1/#2's cluster kernels (the "wide" route), on phase 13's paths
+    # the cluster kernels (the "wide" route): kernels #1/#2 on phase 13's
+    # paths, #3/#4 on phase 14's
     for name, (src, replaces) in {
         "bilstm_fwd": ("bilstm_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
         "bilstm_bwd": ("bilstm_bwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        "bigru_fwd": ("bigru_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+        "bigru_bwd": ("bigru_bwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:616"),
     }.items():
-        first = wide_timed[name][0]
+        gru = name.startswith("bigru")
+        checked, timed_w, runs_w = (wide_gru, wide_gru_timed, wide_gru_runs) if gru else \
+            (wide, wide_timed, wide_runs)
+        first = timed_w[name][0]
         by_path = {f"{what}_{kind}": run[what]["routes"][name]["wide"]
-                   for kind, run in wide_runs.items() for what in ("serve", "train")}
+                   for kind, run in runs_w.items() for what in ("serve", "train")}
         kernels.append({
             "name": f"{name}_wide",
             "route": "cuda",
@@ -3347,21 +3513,23 @@ def main() -> int:
             "replaces": replaces,
             "launches": routes[name]["wide"],
             "launches_by_path": by_path,
-            "max_abs_err": wide["err"][name],
+            "max_abs_err": checked["err"][name],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
-            "library_call": "torch.nn.LSTM(hidden_size=512, bidirectional=True) "
+            "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size=512, "
+                            "bidirectional=True) "
                             + ("forward" if name.endswith("fwd") else "backward")
                             + ", beside the port layer's (layer_ms)",
             "layer_ms": first["layer_ms"],
-            "timed": wide_timed[name],
-            "route_shape_ms": wide["route_ms"],
+            "timed": timed_w[name],
+            "route_shape_ms": checked["route_ms"],
         })
         if not routes[name]["wide"] or sum(by_path.values()) != routes[name]["wide"]:
-            raise AssertionError(f"{name}'s wide kernel was launched no time on phase 13's paths")
+            raise AssertionError(f"{name}'s wide kernel was launched no time on phase "
+                                 f"{14 if gru else 13}'s paths, or also elsewhere")
     for kind in ("cnn_blstm", "bgru"):
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "
               f"{train[kind]['step_ms']:.3f} ms, device busy share "
@@ -3431,7 +3599,7 @@ def main() -> int:
           f"2 gloo ranks on one card {mesh2['step_ms']} ms a step (not a scaling number); "
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
-    for kind, run in wide_runs.items():
+    for kind, run in {**wide_runs, **wide_gru_runs}.items():
         print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
               f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
               f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "

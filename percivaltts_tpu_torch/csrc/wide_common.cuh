@@ -1,7 +1,8 @@
-// The launch plan shared by the wide BiLSTM kernels (bilstm_fwd_wide.cu,
-// bilstm_bwd_wide.cu): one thread-block cluster of U blocks per direction and
-// tile of R batch rows, block b owning units b·Hb … b·Hb + Hb − 1 with all
-// four gates (NC = 4·Hb gate columns), NT = NC·KS threads that split the
+// The launch plan shared by the wide recurrent kernels (bilstm_fwd_wide.cu,
+// bilstm_bwd_wide.cu, bigru_fwd_wide.cu, bigru_bwd_wide.cu): one thread-block
+// cluster of U blocks per direction and tile of R batch rows, block b owning
+// units b·Hb … b·Hb + Hb − 1 with all of their gates (NC = gates·Hb gate
+// columns: 4 for the LSTM, 3 for the GRU), NT = NC·KS threads that split the
 // product over KS slices of k. The split (U, Hb, NC, KS, NT) is the one of
 // ops/wide_layout.py::plan, which packs W_h per block; here the launcher
 // picks R and whether the block's W_h slice stays in shared memory.
@@ -42,10 +43,23 @@ __host__ __device__ inline int wide_ws(int NC, int elem_bytes) {
 __host__ __device__ inline int wide_hs(int H) { return (H + 3) & ~3; }
 __host__ __device__ inline int wide_kl(int H, int KS) { return ((H + KS - 1) / KS + 3) & ~3; }
 
-inline int wide_ks(int NC, int H) {
+inline int wide_ks(int NC, int H, int max_threads) {
   int ks = 1;
-  while (ks < 32 && 2 * ks * NC <= 1024 && 2 * ks <= H) ks *= 2;
+  while (ks < 32 && 2 * ks * NC <= max_threads && 2 * ks <= H) ks *= 2;
   return ks;
+}
+
+// The BPTT's dz·W_hᵀ as work items (row k, column slice): CS slices of the
+// NC columns a row (a power of two up to 8, each a whole number of float4s),
+// the fewest FMAs a thread over ceil(H·CS / NT) rounds; the CS threads of a
+// row are adjacent lanes and add their partials with shuffles.
+__host__ __device__ inline int wide_cs(int H, int NT, int NC) {
+  int best = 1, best_cost = (H + NT - 1) / NT * NC;
+  for (int cs = 2; cs <= 8 && NC % (4 * cs) == 0; cs *= 2) {
+    const int cost = (H * cs + NT - 1) / NT * (NC / cs);
+    if (cost < best_cost) best = cs, best_cost = cost;
+  }
+  return best;
 }
 
 // kernel_for(R, w_smem) → the kernel's address; base_bytes(R, NC, KS) → its
@@ -54,16 +68,17 @@ inline int wide_ks(int NC, int H) {
 // clusters the card holds at once (one wave, the shortest step), else the
 // largest. Rows are bounded so that one gate pair falls to each thread
 // (R·Hb <= NT) and, for the BPTT (prefetch), R·H <= kWidePrefetch·NT.
+// gates: 4 (LSTM) or 3 (GRU); max_threads: the kernels' launch bound.
 template <class KernelFor, class BaseBytes>
-cudaError_t wide_plan(int B, int H, int Hb, int U, int elem_bytes, bool bptt,
-                      KernelFor kernel_for, BaseBytes base_bytes, WidePlan* plan) {
-  if (B < 1 || H < 1 || Hb < 8 || Hb % 8 != 0 || U < 1 || U > kWideMaxCluster ||
-      (U - 1) * Hb >= H || U * Hb < H || 4 * Hb > 1024)
+cudaError_t wide_plan(int B, int H, int Hb, int U, int gates, int max_threads, int elem_bytes,
+                      bool bptt, KernelFor kernel_for, BaseBytes base_bytes, WidePlan* plan) {
+  if (B < 1 || H < 1 || Hb < 1 || (gates * Hb) % 32 != 0 || U < 1 || U > kWideMaxCluster ||
+      (U - 1) * Hb >= H || U * Hb < H || gates * Hb > max_threads)
     return cudaErrorInvalidValue;
   int optin = 0;
   cudaError_t err = smem_optin_bytes(&optin);
   if (err != cudaSuccess) return err;
-  const int NC = 4 * Hb, KS = wide_ks(NC, H), NT = NC * KS;
+  const int NC = gates * Hb, KS = wide_ks(NC, H, max_threads), NT = NC * KS;
   const size_t w_bytes = (size_t)H * wide_ws(NC, elem_bytes) * elem_bytes;
   for (int w_smem = 1; w_smem >= 0; --w_smem) {
     WidePlan best{};

@@ -18,13 +18,16 @@ outputs ``y`` (so in the compute dtype), and rounds d(gates) and
 ``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 / ``bigru_bwd_reference``. There is no other fallback. On CUDA the forward
-has two routes, chosen before the launch from dtype and width
+has three routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
-launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``, everything else
-``csrc/bigru_fwd.cu`` (H <= 341); the BPTT likewise (``bwd_route``):
-``csrc/bigru_bwd_mma.cu`` or ``csrc/bigru_bwd.cu`` (H <= 320), which takes
-H a multiple of 32: other widths are zero-padded to one
-(``ops/lstm_cuda.py::at_width``), which changes no real unit.
+launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``; H > 320 (which
+one block a direction cannot hold) and, in bf16, H > 128 the cluster kernel
+``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to 4096);
+everything else ``csrc/bigru_fwd.cu``. The BPTT likewise (``bwd_route``):
+``csrc/bigru_bwd_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
+``csrc/bigru_bwd.cu``, which takes H a multiple of 32: other widths are
+zero-padded to one (``ops/lstm_cuda.py::at_width``), which changes no real
+unit.
 ``bigru_core`` is the differentiable entry: it runs the forward kernel, and
 the BPTT kernel in the backward pass. The forward is also the registered operator
 ``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
@@ -36,6 +39,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from percivaltts_tpu_torch.ops import wide_layout
 from percivaltts_tpu_torch.ops.lstm_cuda import (
     _DTYPE_CODES,
     _one_device,
@@ -146,9 +150,10 @@ def _check_states(gx_f, *states) -> None:
             raise TypeError(f"states must be {gx_f.dtype}, got {s.dtype}")
 
 
-# one thread per gate column (3H <= 1024); the CUDA-core BPTT's dgh·W_hᵀ
-# reduction shuffles over whole warps of them: H a multiple of 32, other
-# widths zero-padded to one, so up to 320
+# the one-block kernels: one thread per gate column (3H <= 1024); the
+# CUDA-core BPTT's dgh·W_hᵀ reduction shuffles over whole warps of them: H a
+# multiple of 32, other widths zero-padded to one, so up to 320. Wider
+# calls take the cluster kernels (route "wide")
 SIMT_MAX_H = 341
 SIMT_BWD_GRANULE = 32
 SIMT_BWD_MAX_H = 320
@@ -162,10 +167,11 @@ def _launch_geometry(device, B: int, H: int, name: str, limit: int):
 
 
 def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
-    """Launch the forward kernel of ``route`` (``"mma"`` or ``"simt"``) on
-    CUDA inputs that :func:`bigru_fwd` has checked; counts nothing.
-    ``bigru_fwd`` is the entry; ``chip_smoke.py`` times the CUDA-core kernel
-    in bf16 through this."""
+    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide"`` or
+    ``"simt"``) on CUDA inputs that :func:`bigru_fwd` has checked; counts
+    nothing. ``bigru_fwd`` is the entry; ``chip_smoke.py`` times one route's
+    kernel beside another's through this. ``"wide"`` raises ``ValueError``
+    past ``wide_layout.GRU_MAX_H``, ``"simt"`` past H = 341."""
     from percivaltts_tpu_torch import _build
 
     lib = _build.library()
@@ -182,6 +188,15 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
                    bn_f, bn_b)
             err = lib.percival_bigru_fwd_mma(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), T, B, H, stream,
+            )
+        elif route == "wide":
+            p = wide_layout.plan(H, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p))  # held (see above)
+            err = lib.percival_bigru_fwd_wide(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                bn_f.data_ptr(), bn_b.data_ptr(), yf.data_ptr(), yb.data_ptr(),
+                T, B, H, p.Hb, p.U, _DTYPE_CODES[gx_f.dtype], stream,
             )
         else:
             rows, stream = _launch_geometry(device, B, H, "BiGRU", SIMT_MAX_H)
@@ -233,14 +248,15 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     ``torch.export`` traces.
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
-    with H a multiple of 16 up to 128, else the CUDA-core one
+    with H a multiple of 16 up to 128, the cluster one past H = 320 (bf16:
+    128), else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype
-    than float32/bfloat16, a shape mismatch, H > 341 on CUDA, non-contiguous
-    CUDA inputs, CUDA inputs that require a gradient under grad mode, or a
-    launch error. Every launch adds one to ``bigru_fwd.launches`` and to its
-    route's entry of ``bigru_fwd.routes``, also from inside an exported
-    graph."""
+    than float32/bfloat16, a shape mismatch, H past
+    ``wide_layout.GRU_MAX_H`` on CUDA, non-contiguous CUDA inputs, CUDA
+    inputs that require a gradient under grad mode, or a launch error.
+    Every launch adds one to ``bigru_fwd.launches`` and to its route's
+    entry of ``bigru_fwd.routes``, also from inside an exported graph."""
     args = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     if torch.compiler.is_exporting():
         return torch.ops.percival.bigru_fwd(*args)
@@ -250,15 +266,17 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
 
 bigru_fwd.launches = 0
-bigru_fwd.routes = {"mma": 0, "simt": 0}
+bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
-    """Launch the BPTT kernel of ``route`` (``"mma"`` or ``"simt"``) on CUDA
-    inputs that :func:`bigru_bwd` has checked; counts nothing.
-    ``bigru_bwd`` is the entry; ``chip_smoke.py`` times the CUDA-core kernel
-    in bf16 through this. ``"simt"`` runs H that is not a multiple of 32
-    zero-padded to one (``lstm_cuda.at_width``), up to H = 320."""
+    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide"`` or
+    ``"simt"``) on CUDA inputs that :func:`bigru_bwd` has checked; counts
+    nothing. ``bigru_bwd`` is the entry; ``chip_smoke.py`` times one route's
+    kernel beside another's through this. ``"simt"`` runs H that is not a
+    multiple of 32 zero-padded to one (``lstm_cuda.at_width``), up to
+    H = 320; ``"wide"`` raises ``ValueError`` past
+    ``wide_layout.GRU_MAX_H``."""
     from percivaltts_tpu_torch import _build
 
     lib = _build.library()
@@ -282,6 +300,17 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
             err = lib.percival_bigru_bwd_mma(
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), T, B, H, stream,
             )
+        elif route == "wide":
+            p = wide_layout.plan(H, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            packed = (wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p))
+            err = lib.percival_bigru_bwd_wide(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in packed),
+                *(t.data_ptr() for t in (bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)),
+                *(t.data_ptr() for t in outs), T, B, H, p.Hb, p.U, _DTYPE_CODES[gx_f.dtype],
+                stream,
+            )
         else:
             rows, stream = _launch_geometry(device, B, H, "BiGRU BPTT", SIMT_BWD_MAX_H)
             err = lib.percival_bigru_bwd(
@@ -298,12 +327,12 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
     Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
-    16 up to 128, else the CUDA-core one
+    16 up to 128, the cluster one past H = 320 (bf16: 128), else the
+    one-block CUDA-core one, H not a multiple of 32 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
-    run the twin (H not a multiple of 32 on the CUDA-core route is
-    zero-padded to one). Raises on mixed devices, dtypes or shapes,
-    non-contiguous CUDA inputs, CUDA inputs that require a gradient under
-    grad mode, H above 320 on the CUDA-core route, or a launch error.
+    run the twin. Raises on mixed devices, dtypes or shapes, non-contiguous
+    CUDA inputs, CUDA inputs that require a gradient under grad mode, H past
+    ``wide_layout.GRU_MAX_H``, or a launch error.
     Every launch adds one to ``bigru_bwd.launches`` and to its route's entry
     of ``bigru_bwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
@@ -320,7 +349,7 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
 
 bigru_bwd.launches = 0
-bigru_bwd.routes = {"mma": 0, "simt": 0}
+bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

@@ -20,8 +20,8 @@ that those two rows, over a warp's tiles, are every gate of the same unit:
 
 The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
 (the register budget of a thread); other calls take the CUDA-core kernels:
-one block a direction up to ``SIMT_MAX_H``, and for the LSTM past it the
-cluster kernels of ``ops/wide_layout.py``.
+one block a direction up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and
+past it the cluster kernels of ``ops/wide_layout.py``.
 
 The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
 ``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
@@ -54,21 +54,28 @@ def mma_width_ok(H: int) -> bool:
 # gate column, 4H <= 1024); in bf16 the cluster kernels measured faster from
 # H = 129 on (chip_smoke.py phase 13a at (512, 32, 256); PERF.md, PR 14)
 LSTM_SIMT_MAX_H = {torch.float32: 256, torch.bfloat16: MMA_MAX_H}
+# the GRU's: its one-block BPTT takes H up to 320 (whole warps of its 3H
+# threads); in bf16 the cluster kernels measured faster from H = 129 on
+# (chip_smoke.py phase 14a at (512, 32, 256); PERF.md, its kernel table)
+GRU_SIMT_MAX_H = {torch.float32: 320, torch.bfloat16: MMA_MAX_H}
+SIMT_MAX_H = {"lstm": LSTM_SIMT_MAX_H, "gru": GRU_SIMT_MAX_H}
 
 
 def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     """The forward kernel a CUDA call launches, chosen before the launch
-    from its dtype and width: ``"mma"`` (tensor cores) for bf16 with H a
-    multiple of 16 up to 128; for the LSTM, ``"wide"``
-    (``csrc/bilstm_fwd_wide.cu``, a cluster of blocks a direction) past
-    ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in bf16); else ``"simt"``
-    (``csrc/bilstm_fwd.cu`` / ``csrc/bigru_fwd.cu``, one block a direction,
-    one thread per gate column; the GRU's refuses H > 341)."""
+    from its dtype, width and cell: ``"mma"`` (tensor cores) for bf16 with H
+    a multiple of 16 up to 128; ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` /
+    ``csrc/bigru_fwd_wide.cu``, a cluster of blocks a direction) past
+    ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in bf16) / ``GRU_SIMT_MAX_H`` (320
+    in f32, 128 in bf16); else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
+    ``csrc/bigru_fwd.cu``, one block a direction, one thread per gate
+    column)."""
     if cell not in GATES:
         raise ValueError(f"cell must be one of {tuple(GATES)}, got {cell!r}")
     if dtype == torch.bfloat16 and mma_width_ok(H):
         return "mma"
-    if cell == "lstm" and H > LSTM_SIMT_MAX_H.get(dtype, LSTM_SIMT_MAX_H[torch.float32]):
+    limits = SIMT_MAX_H[cell]
+    if H > limits.get(dtype, limits[torch.float32]):
         return "wide"
     return "simt"
 
@@ -76,9 +83,9 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
 def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     """The BPTT kernel a CUDA call launches, by :func:`fwd_route`'s rule:
     ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``),
-    ``"wide"`` (``csrc/bilstm_bwd_wide.cu``) or ``"simt"``
-    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``), so a layer's backward
-    takes the route of its forward."""
+    ``"wide"`` (``csrc/bilstm_bwd_wide.cu`` / ``csrc/bigru_bwd_wide.cu``) or
+    ``"simt"`` (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``), so a
+    layer's backward takes the route of its forward."""
     return fwd_route(dtype, H, cell)
 
 

@@ -7,9 +7,10 @@ Imports no jax, so it runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest configures jax.) The forward and
 BPTT kernels have two routes each, three for the LSTM, chosen from dtype
 and width: bf16 with H a multiple of 16 up to 128 takes the tensor-core
-kernels (``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); the LSTM past H = 256
-(bf16: 128) the cluster kernels (``csrc/bilstm_{fwd,bwd}_wide.cu``, up to
-H = 4096); f32 and other widths the one-block CUDA-core ones
+kernels (``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); the LSTM past H = 256, the GRU
+past H = 320 (bf16: both past 128) the cluster kernels
+(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096); f32 and other
+widths the one-block CUDA-core ones
 (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose BPTTs run H that is not a
 multiple of 8 / 32 zero-padded to one); the tests pick a route by the dtype
 and H they pass and check it by the wrappers' ``.routes``.
@@ -331,13 +332,26 @@ def test_gru_kernels_refuse_strides_devices_grad_and_width(cuda_device):
         bigru_fwd(fwd_args[0].cpu(), *fwd_args[1:])
     with pytest.raises(ValueError, match="contiguous"):
         bigru_fwd(fwd_args[0].transpose(0, 1).contiguous().transpose(0, 1), *fwd_args[1:])
-    with pytest.raises(ValueError, match="H <= 341"):
-        bigru_fwd(*_gru_gates(2, 1, 344, torch.float32, cuda_device, seed=4))
-    # the BPTT runs H that is not a multiple of 32 zero-padded to one, up to 320
+    # past the one-block kernels' widths the cluster kernels run, up to the
+    # wide route's own limit, which the refusal names
+    from percivaltts_tpu_torch.ops.wide_layout import GRU_MAX_H
+
+    wide = _gru_gates(2, 1, 344, torch.float32, cuda_device, seed=4)
+    with torch.no_grad():
+        _close(bigru_fwd(*wide), bigru_fwd_reference(*wide), 1e-4)
+    H = GRU_MAX_H + 1
+    big = [torch.zeros(s, device=cuda_device) for s in
+           [(2, 1, 3 * H)] * 2 + [(H, 3 * H)] * 2 + [(H,)] * 2 + [(2, 1, H)] * 4]
+    with pytest.raises(ValueError, match=f"H <= {GRU_MAX_H}"):
+        bigru_fwd(*big[:6])
+    # the BPTT runs H that is not a multiple of 32 zero-padded to one, up to
+    # 320, and the cluster kernel past it
     odd = _gru_bwd_args(4, 1, 40, torch.float32, cuda_device, seed=4)
     _close(bigru_bwd(*odd), bigru_bwd_reference(*odd), 1e-4)
-    with pytest.raises(ValueError, match="H <= 320"):
-        bigru_bwd(*_gru_bwd_args(4, 1, 330, torch.float32, cuda_device, seed=4))
+    wide = _gru_bwd_args(4, 1, 330, torch.float32, cuda_device, seed=4)
+    _close(bigru_bwd(*wide), bigru_bwd_reference(*wide), 1e-4)
+    with pytest.raises(ValueError, match=f"H <= {GRU_MAX_H}"):
+        bigru_bwd(*big)
     with pytest.raises(ValueError, match="contiguous"):
         bigru_bwd(*args[:9], args[9].transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(TypeError):
@@ -424,9 +438,10 @@ def test_tensor_core_forwards_match_twins(cuda_device, T, B, H):
 
 
 ROUTE_CASES = [  # (dtype, H, the LSTM's route, the GRU's route)
-    (torch.float32, 128, "simt", "simt"), (torch.bfloat16, 144, "wide", "simt"),
+    (torch.float32, 128, "simt", "simt"), (torch.bfloat16, 144, "wide", "wide"),
     (torch.bfloat16, 40, "simt", "simt"), (torch.bfloat16, 128, "mma", "mma"),
     (torch.bfloat16, 48, "mma", "mma"), (torch.float32, 264, "wide", "simt"),
+    (torch.float32, 336, "wide", "wide"),
 ]
 
 
@@ -584,24 +599,43 @@ def test_tensor_core_bptt_refuses_other_widths_and_takes_unaligned_views(cuda_de
     assert (l1["mma"] - l0["mma"], g1["mma"] - g0["mma"]) == (1, 1)
 
 
-# --- the LSTM's cluster kernels (the "wide" route) ---------------------------
+# --- the cluster kernels (the "wide" route) -----------------------------------
 
-# widths one block cannot hold (H = 264, 512, 608), the serving and training
-# row counts, T = 1, B not a multiple of a tile, and H = 1 and 100 launched
-# through fwd_launch / bwd_launch (the route takes them in no call)
+# widths one block cannot hold (LSTM H = 264, 512, 608; GRU H = 336 — the
+# 321…341 its one-block BPTT refused —, 352, 512, 640), the serving and
+# training row counts, T = 1, B not a multiple of a tile, and H = 1 and 100
+# launched through fwd_launch / bwd_launch (the route takes them in no call)
 WIDE_SHAPES = [(33, 9, 264), (64, 1, 608), (40, 32, 512), (1, 1, 512), (24, 5, 512)]
+GRU_WIDE_SHAPES = [(33, 9, 336), (64, 1, 640), (40, 32, 512), (1, 1, 512), (24, 5, 352)]
+WIDE_CASES = [("lstm", *s) for s in WIDE_SHAPES] + [("gru", *s) for s in GRU_WIDE_SHAPES]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,B,H", WIDE_SHAPES)
-def test_wide_kernels_match_twins(cuda_device, dtype, T, B, H):
-    """Forward (with and without cells) and BPTT on the cluster kernels
-    agree with the twins, each counted once on the wide route."""
+@pytest.mark.parametrize("cell,T,B,H", WIDE_CASES)
+def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
+    """Forward (the LSTM's with and without cells) and BPTT on the cluster
+    kernels agree with the twins, each counted once on the wide route."""
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    if cell == "gru":
+        f_args = _gru_gates(T, B, H, dtype, cuda_device, seed=T + B)
+        b_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
+        f0, b0 = dict(bigru_fwd.routes), dict(bigru_bwd.routes)
+        with torch.no_grad():
+            _close(bigru_fwd(*f_args), bigru_fwd_reference(*f_args), atol)
+            got, want = bigru_bwd(*b_args), bigru_bwd_reference(*b_args)
+            if dtype == torch.float32:
+                _close(got, want, 1e-4)
+            else:  # dgx and dnr each within 2e-2 of its own largest |value|
+                _close_rel(got[:2], want[:2], 2e-2)
+                _close_rel(got[2:], want[2:], 2e-2)
+        torch.cuda.synchronize()
+        assert _route_counts(f0, bigru_fwd.routes, "wide") == (1, 0)
+        assert _route_counts(b0, bigru_bwd.routes, "wide") == (1, 0)
+        return
     f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
     b_args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
     f0, b0 = dict(bilstm_fwd.routes), dict(bilstm_bwd.routes)
-    atol = 1e-4 if dtype == torch.float32 else 2e-2
     with torch.no_grad():
         want = bilstm_fwd_reference(*f_args, with_cells=True)
         _close(bilstm_fwd(*f_args, with_cells=True), want, atol)
@@ -620,6 +654,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, T, B, H):
 @pytest.mark.parametrize("H", [1, 100])
 def test_wide_kernels_take_narrow_widths(cuda_device, H):
     """The cluster kernels run any H >= 1 when launched directly."""
+    from percivaltts_tpu_torch.ops import gru_cuda
     from percivaltts_tpu_torch.ops.lstm_cuda import bwd_launch, fwd_launch
 
     f_args = _gates(24, 5, H, torch.float32, cuda_device, seed=H)
@@ -628,23 +663,32 @@ def test_wide_kernels_take_narrow_widths(cuda_device, H):
         _close(fwd_launch("wide", *f_args, with_cells=True),
                bilstm_fwd_reference(*f_args, with_cells=True), 1e-4)
         _close(bwd_launch("wide", *b_args), bilstm_bwd_reference(*b_args), 1e-4)
+    f_args = _gru_gates(24, 5, H, torch.float32, cuda_device, seed=H)
+    b_args = _gru_bwd_args(24, 5, H, torch.float32, cuda_device, seed=H)
+    with torch.no_grad():
+        _close(gru_cuda.fwd_launch("wide", *f_args), bigru_fwd_reference(*f_args), 1e-4)
+        _close(gru_cuda.bwd_launch("wide", *b_args), bigru_bwd_reference(*b_args), 1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wide_autograd_pair_matches_twins(cuda_device, dtype):
-    base = _gates(48, 6, 512, dtype, cuda_device, seed=13)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_wide_autograd_pair_matches_twins(cuda_device, dtype, cell):
+    gru = cell == "gru"
+    base = (_gru_gates if gru else _gates)(48, 6, 512, dtype, cuda_device, seed=13)
     dy = np.random.default_rng(14).normal(size=(48, 6, 512)).astype(np.float32)
     dy = torch.from_numpy(dy).to(device=cuda_device, dtype=dtype)
+    fwd, bwd = (bigru_fwd, bigru_bwd) if gru else (bilstm_fwd, bilstm_bwd)
+    cores = (bigru_core, bigru_core_reference) if gru else (bilstm_core, bilstm_core_reference)
     grads = []
-    f0, b0 = dict(bilstm_fwd.routes), dict(bilstm_bwd.routes)
-    for core in (bilstm_core, bilstm_core_reference):
+    f0, b0 = dict(fwd.routes), dict(bwd.routes)
+    for core in cores:
         leaves = [t.clone().requires_grad_(True) for t in base]
         torch.autograd.backward(core(*leaves), (dy, dy))
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
-    assert _route_counts(f0, bilstm_fwd.routes, "wide") == (1, 0)
-    assert _route_counts(b0, bilstm_bwd.routes, "wide") == (1, 0)
+    assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
+    assert _route_counts(b0, bwd.routes, "wide") == (1, 0)
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
         tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
@@ -652,8 +696,9 @@ def test_wide_autograd_pair_matches_twins(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [1, 264, 512, 608, 4096])
-def test_wide_launch_plan_matches_the_layout(cuda_device, H):
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (1, 264, 512, 608, 4096)]
+                         + [("gru", H) for H in (1, 336, 352, 512, 640, 1024, 4096)])
+def test_wide_launch_plan_matches_the_layout(cuda_device, cell, H):
     """The launchers split H as ``ops/wide_layout.py::plan`` does, give each
     thread at most one gate pair, and fit the card's clusters."""
     import ctypes
@@ -662,8 +707,11 @@ def test_wide_launch_plan_matches_the_layout(cuda_device, H):
     from percivaltts_tpu_torch.ops import wide_layout
 
     lib = _build.library()
-    p = wide_layout.plan(H)
-    for fn in (lib.percival_bilstm_fwd_wide_plan, lib.percival_bilstm_bwd_wide_plan):
+    gates = 3 if cell == "gru" else 4
+    p = wide_layout.plan(H, gates)
+    name = "bigru" if cell == "gru" else "bilstm"
+    fns = [getattr(lib, f"percival_{name}_{kind}_wide_plan") for kind in ("fwd", "bwd")]
+    for fn in fns:
         for dtype in (0, 1):
             out = (ctypes.c_int * 9)()
             assert fn(32, H, p.Hb, p.U, dtype, out) == 0
@@ -671,7 +719,8 @@ def test_wide_launch_plan_matches_the_layout(cuda_device, H):
             assert (U, Hb, NC, KS, NT) == tuple(p)
             assert R * Hb <= NT and clusters >= 1 and smem > 0
     out = (ctypes.c_int * 9)()
-    assert lib.percival_bilstm_fwd_wide_plan(32, H, p.Hb + 8, p.U, 0, out) != 0 or H < 8
+    granule = wide_layout.GRANULE[gates]
+    assert fns[0](32, H, p.Hb + granule, p.U, 0, out) != 0 or H < granule
 
 
 # --- the DSP kernels: framing × window and overlap-add ------------------------

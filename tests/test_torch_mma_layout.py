@@ -166,9 +166,9 @@ def test_widths_outside_the_tensor_core_route_are_refused(kind, H):
         pack_wh(torch.zeros((H, G)), kind)
     with pytest.raises(ValueError, match="multiple of 16 up to 128"):
         gate_rows(kind, H)
-    # the CUDA-core kernels: one block a direction, or for the LSTM past
-    # H = 128 in bf16 the cluster kernels ("wide", ops/wide_layout.py)
-    route = "wide" if kind == "lstm" and H > 128 else "simt"
+    # the CUDA-core kernels: one block a direction, or past H = 128 in bf16
+    # the cluster kernels ("wide", ops/wide_layout.py)
+    route = "wide" if H > 128 else "simt"
     assert fwd_route(torch.bfloat16, H, kind) == route
     assert bwd_route(torch.bfloat16, H, kind) == route
 
@@ -179,9 +179,9 @@ def test_route_is_chosen_from_dtype_and_width():
     assert fwd_route(torch.bfloat16, 16) == "mma"
     assert fwd_route(torch.float32, 128) == "simt"  # f32: the parity dtype
     assert fwd_route(torch.bfloat16, 48) == "mma"
-    # above the register budget: the LSTM's cluster kernels, the GRU's one-block one
+    # above the register budget: the cluster kernels, the LSTM's and the GRU's
     assert fwd_route(torch.bfloat16, 136) == "wide"
-    assert fwd_route(torch.bfloat16, 136, "gru") == "simt"
+    assert fwd_route(torch.bfloat16, 136, "gru") == "wide"
     for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128),
                      (torch.bfloat16, 136)):
         for cell in ("lstm", "gru"):  # the BPTT follows the forward

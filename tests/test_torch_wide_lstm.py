@@ -71,15 +71,16 @@ from percivaltts_tpu_torch.training.state import make_gan_state
 @pytest.mark.parametrize("dtype,H,cell,route", [
     # bf16: the tensor cores for H a multiple of 16 up to 128
     (torch.bfloat16, 128, "lstm", "mma"), (torch.bfloat16, 16, "gru", "mma"),
-    # bf16 elsewhere: the LSTM's one-block kernel up to 128, the cluster
-    # kernels past it (measured faster at H = 256); the GRU's one-block kernel
+    # bf16 elsewhere: the one-block kernels up to 128, the cluster kernels
+    # past it (measured faster at H = 256, the LSTM's and the GRU's)
     (torch.bfloat16, 100, "lstm", "simt"), (torch.bfloat16, 136, "lstm", "wide"),
     (torch.bfloat16, 256, "lstm", "wide"), (torch.bfloat16, 512, "lstm", "wide"),
-    (torch.bfloat16, 608, "lstm", "wide"), (torch.bfloat16, 300, "gru", "simt"),
-    # f32, the parity dtype: one block a direction up to 256, then the cluster
+    (torch.bfloat16, 608, "lstm", "wide"), (torch.bfloat16, 300, "gru", "wide"),
+    # f32, the parity dtype: one block a direction up to 256 (GRU: 320),
+    # then the cluster
     (torch.float32, 128, "lstm", "simt"), (torch.float32, 256, "lstm", "simt"),
     (torch.float32, 257, "lstm", "wide"), (torch.float32, 4096, "lstm", "wide"),
-    (torch.float32, 341, "gru", "simt"),
+    (torch.float32, 341, "gru", "wide"),
 ])
 def test_route_table(dtype, H, cell, route):
     assert fwd_route(dtype, H, cell) == route
