@@ -56,7 +56,10 @@ raises on failure (the script exits 0 only when all passed):
 6. time each kernel, its twin and the library call that computes the same
    function (``nn.LSTM`` / ``nn.GRU`` for the recurrent layers,
    ``F.unfold`` × window and ``F.fold`` for the DSP kernels; timed here
-   only: the port never calls them), each tensor-core forward in µs a step
+   only: the port never calls them; the recurrent layers by CUDA events and
+   by the device time of all they launch, with cuDNN's weights in one
+   buffer and its compaction warning an error), each tensor-core forward in
+   µs a step
    at B = 8, 32 and 160 and each tensor-core BPTT at B = 32 and 8, beside
    the CUDA-core kernel that bf16 took before,
    each path's serve and step medians and the vocode's, and profile one
@@ -200,10 +203,19 @@ raises on failure (the script exits 0 only when all passed):
    route; H = 256 on the route that takes it, and in bf16 the one-block
    kernels against the cluster ones on the same inputs, checked and timed
    in turns; the autograd pair at (512, 32, 512); both kernels timed at
-   B = 8, 32, 160 beside the twins, the bound and cuDNN's ``nn.LSTM``;
+   B = 8, 32, 160 beside the twins, the bound and cuDNN's ``nn.LSTM`` (by
+   CUDA events and by device time, its weights in one buffer and the
+   compaction warning an error). The bf16 BPTT there runs on the
+   tensor-core cluster kernel (route ``wide_mma``,
+   ``csrc/bilstm_bwd_wide_mma.cu``): its plan (rows a cluster, clusters at
+   once, waves; B <= 32 in one wave) against ``ops/wide_mma_layout.py``,
+   ``ptxas``'s registers with 0 spills, every BPTT shape and (512, 160,
+   512) against the twins with the CUDA-core cluster kernel launched
+   beside it on the same inputs, and both timed in turns;
    13b. config 3 (``cnn_blstm``) and the BLSTM generator at
    ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
-   the twins, every launch on the wide route, serve medians, busy share;
+   the twins, every forward launch on the wide route (every BPTT launch of
+   13c on ``wide_mma``), serve medians, busy share;
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
    twins' step as ``_hold_step`` holds phase 5's, the step median of 10;
 14. kernels #3/#4 at every width the JAX package trains (the "wide" route,
@@ -216,10 +228,12 @@ raises on failure (the script exits 0 only when all passed):
    launch counted on its route; H = 256 on the route that takes it, and in
    bf16 the one-block kernels against the cluster ones, checked and timed in
    turns; the autograd pair at (512, 32, 512); both kernels timed at B = 8,
-   32, 160 beside the twins, the bound and cuDNN's ``nn.GRU``;
+   32, 160 beside the twins, the bound and cuDNN's ``nn.GRU``; the bf16
+   BPTT on ``csrc/bigru_bwd_wide_mma.cu`` as in 13a;
    14b/14c. the BGRU generator at ``blstm_size=1024`` (H = 512) serving
-   phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every launch
-   on the wide route, (4, 2) launches a step.
+   phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every forward
+   launch on the wide route and every BPTT launch on ``wide_mma``, (4, 2)
+   launches a step.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -231,6 +245,7 @@ of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -239,12 +254,14 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 SEED = 0
 DEVICE = "cuda:0"
+BUILD_LOG = ""  # nvcc's output of the build (main sets it): ptxas's registers and spills
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and dense FLOP/s by
 # input type (bf16 on the tensor cores; f32 outside them)
 PEAK_BYTES_PER_S = 3.35e12
@@ -456,6 +473,10 @@ WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
 ROUTE_SHAPE = (512, 32, 256)
 WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
 WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024")
+# the bf16 BPTT's tensor-core cluster kernels (route "wide_mma",
+# csrc/{bilstm,bigru}_bwd_wide_mma.cu) are also held at the fakes pass's rows
+WIDE_MMA_SHAPE = (512, 160, 512)
+WIDE_BWD_KEYS = {"wide": "_bwd", "wide_mma": "_bwd_wide_mma"}  # the err key of each BPTT route
 # phase 14: kernels #3/#4 on the "wide" route (csrc/bigru_{fwd,bwd}_wide.cu):
 # phase 13's serving chunk, edges and fakes pass at H = 512, H = 336 (in
 # 321…341 the one-block forward ran and its BPTT refused; its last block
@@ -577,6 +598,11 @@ def _median_ms(fn, runs: int, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _ratio(a, b):
+    """a / b, or None when either was not measured."""
+    return None if a is None or b is None else a / b
 
 
 def _gates(T, B, H, dtype, device, seed):
@@ -1643,8 +1669,48 @@ def _library_layer(kind: str, ws, dtype, dev) -> torch.nn.Module:
             hh.zero_()
             if kind == "gru":
                 hh[2 * H:].copy_(w[3])
-    lib.flatten_parameters()  # one weight buffer, as cuDNN wants it
+    # one weight buffer, as cuDNN wants it. flatten_parameters() is a no-op in
+    # bf16 (torch.backends.cudnn.is_acceptable takes f16/f32/f64 only), which
+    # left cuDNN compacting the weights at every call; so the flattening op
+    # that it would call runs here directly
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(
+            lib._flat_weights, 4, LAYER_IN, torch.backends.cudnn.rnn.get_cudnn_mode(lib.mode), H,
+            0, 1, True, True)
     return lib
+
+
+@contextlib.contextmanager
+def _compact_weights():
+    """cuDNN's warning that the RNN weights are not one contiguous chunk (it
+    then compacts them at every call, inside the time) raised as an error."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*not part of single contiguous chunk of memory.*")
+        yield
+
+
+def _layer_times(layer, lib, x, flat, fwd: bool, runs: int, inner: int) -> dict:
+    """The port's layer and cuDNN's on the same input and weights: the
+    forward (``fwd``) or one backward through each, by CUDA events around the
+    host calls (``layer_ms``, ``library_ms``) and by the summed device time of
+    everything the call launched, the input GEMMs included
+    (``layer_device_ms``, ``library_device_ms``: ``_device_ms`` without a
+    name filter)."""
+    if fwd:
+        port_call, lib_call = (lambda: layer(x, *flat)), (lambda: lib(x))
+    else:  # one forward with a graph each, then repeated backwards
+        xg = x.clone().requires_grad_(True)
+        leaves = [t.clone().requires_grad_(True) for t in flat]
+        y = layer(xg, *leaves)
+        dy = torch.randn_like(y)
+        y_lib = lib(xg)[0]
+        port_call = lambda: y.backward(dy, retain_graph=True)  # noqa: E731
+        lib_call = lambda: y_lib.backward(dy, retain_graph=True)  # noqa: E731
+    with torch.set_grad_enabled(not fwd):
+        return {"layer_ms": _median_ms(port_call, runs=runs, inner=inner),
+                "library_ms": _median_ms(lib_call, runs=runs, inner=inner),
+                "layer_device_ms": _device_ms(port_call, calls=inner),
+                "library_device_ms": _device_ms(lib_call, calls=inner)}
 
 
 def _layer_weights(kind: str, H: int, dtype, dev, seed: int):
@@ -1660,7 +1726,8 @@ def _time_kernels(dev) -> dict:
     """Phase 6, kernels: each kernel and its twin at the path's shapes, and
     the cuDNN layer beside the port's layer (forward: ``nn.LSTM`` /
     ``nn.GRU`` against ``bilstm()`` / ``bigru()``; BPTT: their backward
-    against the port layer's backward, which runs the autograd pair). All
+    against the port layer's backward, which runs the autograd pair), both
+    by CUDA events and by device time (``_layer_times``). All
     bf16. Beside each forward (the tensor-core route), the CUDA-core kernel
     that bf16 took before (``simt_ms``, the same inputs, launched through
     ``fwd_launch``) and the forward kernel's own device time from
@@ -1704,26 +1771,15 @@ def _time_kernels(dev) -> dict:
                                  .astype(np.float32)).to(device=dev, dtype=dt)
             layer = g.bigru if gru else l.bilstm
             flat = [t for d in ws for t in d]
-            lib = _library_layer(kind, ws, dt, dev)
-            with torch.no_grad():
-                diff = (layer(x, *flat) - lib(x)[0]).abs().max().item()
-            if fwd:
+            with _compact_weights():
+                lib = _library_layer(kind, ws, dt, dev)
                 with torch.no_grad():
-                    layer_ms = _median_ms(lambda: layer(x, *flat), runs=7, inner=5)
-                    library_ms = _median_ms(lambda: lib(x), runs=7, inner=5)
-            else:  # backward only: one forward with a graph, then repeated backwards
-                xg = x.clone().requires_grad_(True)
-                leaves = [t.clone().requires_grad_(True) for t in flat]
-                y = layer(xg, *leaves)
-                dy = torch.randn_like(y)
-                layer_ms = _median_ms(lambda: y.backward(dy, retain_graph=True), runs=7, inner=5)
-                y_lib = lib(xg)[0]
-                library_ms = _median_ms(lambda: y_lib.backward(dy, retain_graph=True),
-                                        runs=7, inner=5)
+                    diff = (layer(x, *flat) - lib(x)[0]).abs().max().item()
+                lt = _layer_times(layer, lib, x, flat, fwd, runs=7, inner=5)
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
+            layer_ms, library_ms = lt["layer_ms"], lt["library_ms"]
             rows.append({"shape": [T, B, H], "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "layer_ms": layer_ms,
-                         "library_ms": library_ms, **routed})
+                         "bound_ms": bound_ms, "bound_by": bound_by, **lt, **routed})
             print(f"[time] {name} T,B,H={(T, B, H)} bf16, route {routed['route']}: "
                   f"{routed['us_per_step']:.3f} us a step ({ms:.4f} ms a call; the kernel alone "
                   f"{routed['kernel_device_ms']} device ms); the CUDA-core kernel on the same "
@@ -1732,8 +1788,10 @@ def _time_kernels(dev) -> dict:
             print(f"[time] {name} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
                   f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({bound_by}); layer{' backward' if 'bwd' in name else ''}: "
-                  f"port {layer_ms:.4f} ms, cuDNN {library_ms:.4f} ms "
-                  f"(max|port-cuDNN| forward {diff:.3g}) (medians, CUDA events)")
+                  f"port {layer_ms:.4f} ms, cuDNN {library_ms:.4f} ms (medians, CUDA events); "
+                  f"device time port {lt['layer_device_ms']} ms, cuDNN {lt['library_device_ms']} "
+                  f"ms, cuDNN/port {_ratio(lt['library_device_ms'], lt['layer_device_ms'])} "
+                  f"(max|port-cuDNN| forward {diff:.3g})")
         out[name] = rows
     return out
 
@@ -2538,13 +2596,17 @@ def _library_dsp(name: str, shape, args):
 
 
 def _device_ms(fn, calls: int = 20, match: str = "", tries: int = 3):
-    """Device time of one call of ``fn``: the summed durations of the device
-    events ``torch.profiler`` records over ``calls`` calls (only those whose
-    name holds ``match``), divided by ``calls`` (after one warm-up call);
-    None when ``tries`` traces in a row hold no such device events (the
-    profiler now and then records none). A DSP call is a few microseconds of
-    device work behind tens of microseconds of host work, so CUDA events
-    around back-to-back calls time the host."""
+    """Device time of one call of ``fn`` from ``torch.profiler`` over
+    ``calls`` calls (after one warm-up call): for each name of device event
+    (only those holding ``match``), the mean of its durations times the
+    times it runs a call, ``ceil(found / calls)``, summed. A trace now and
+    then drops some of a kernel's events (the cluster kernels' most: the
+    plain sum over ``calls`` read a third of a wide layer's time in one run
+    on the H100), so counts are not taken from the sum. None when ``tries``
+    traces in a row hold no such device events (the profiler now and then
+    records none). A DSP call is a few microseconds of device work behind
+    tens of microseconds of host work, so CUDA events around back-to-back
+    calls time the host."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2554,10 +2616,12 @@ def _device_ms(fn, calls: int = 20, match: str = "", tries: int = 3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        spans = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
+                spans.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
         if spans:
-            return sum(spans) / 1e3 / calls
+            return sum(sum(v) / len(v) * -(-len(v) // calls) for v in spans.values()) / 1e3
     return None
 
 
@@ -2970,15 +3034,20 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
     (GRU) widths and rows: the cluster split of each must be
     ``ops/wide_layout.py::plan``'s, with at most one gate pair a thread.
     Printed: blocks a cluster, units a block, threads, batch rows a cluster,
-    W_h in shared memory or L2, the clusters the card holds at once and the
-    shared memory a block."""
+    W_h in shared memory or L2, the clusters the card holds at once, the
+    waves and the shared memory a block. The same for the tensor-core BPTT
+    (``wide_mma``) where it takes H: its split must be
+    ``ops/wide_mma_layout.py::plan``'s and its rows ``rows``'s, B <= 32 in
+    one wave at H = 512; then ``ptxas``'s registers and spills of every
+    instantiation of both BPTTs, none of the tensor-core ones spilling."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
-    from percivaltts_tpu_torch.ops import wide_layout
+    from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
 
     lib = _build.library()
     gru = cell == "gru"
+    gates = 3 if gru else 4
     shapes = sorted({(B, H) for _, B, H in (
         WIDE_GRU_FWD_SHAPES + WIDE_GRU_BWD_SHAPES if gru else WIDE_FWD_SHAPES + WIDE_BWD_SHAPES)
         + WIDE_TIMED + [ROUTE_SHAPE]})
@@ -2996,8 +3065,44 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
                     raise AssertionError(f"the wide {name} {kind} plan {list(out)} is not {p}")
                 print(f"[wide plan] {name} {kind} B={B} H={H} {str(dtype)[6:]}: {U} blocks of {Hb} "
                       f"units, {NT} threads, {R} rows a cluster, W_h in "
-                      f"{'shared memory' if w_smem else 'L2'}, {clusters} clusters at once, "
-                      f"{smem} B shared memory")
+                      f"{'shared memory' if w_smem else 'L2'}, {clusters} clusters at once "
+                      f"({-(-2 * -(-B // R) // clusters)} waves), {smem} B shared memory")
+        if not wide_mma_layout.fits(H, gates):
+            continue
+        Hp = wide_mma_layout.padded(H)
+        pm = wide_mma_layout.plan(Hp, gates)
+        out = (ctypes.c_int * 9)()
+        _build.check(getattr(lib, f"percival_{name}_bwd_wide_mma_plan")(B, Hp, pm.Hb, pm.U, out),
+                     f"the tensor-core wide BPTT plan at B={B} H={Hp}")
+        U, Hb, NC, R, MPW, clusters, waves, dbuf, smem = out
+        rows = wide_mma_layout.rows(B, Hp, gates, clusters)
+        if (U, Hb, NC) != tuple(pm) or (R, MPW, waves, dbuf, smem) != tuple(rows):
+            raise AssertionError(f"the {name} wide_mma plan {list(out)} is not {pm}, {rows}")
+        if B <= 32 and H == 512 and waves != 1:
+            raise AssertionError(f"the {name} wide_mma plan runs B={B} in {waves} waves")
+        print(f"[wide plan] {name} bwd wide_mma B={B} H={H} (run at {Hp}) bf16: {U} blocks of "
+              f"{Hb} units, 512 threads, {R} rows a cluster ({MPW} dh tiles a warp), {clusters} "
+              f"clusters at once ({waves} waves), {1 + dbuf} buffer(s) of partials, {smem} B "
+              f"shared memory")
+    # registers and spills of every instantiation of the BPTTs: 0 spills on wide_mma
+    for line in _ptxas_usage(BUILD_LOG):
+        if f"{name}_bwd_wide" in line:
+            print(f"[wide ptxas] {line}")
+            if "wide_mma" in line and not line.split("spill ")[1].startswith("0/0 "):
+                raise AssertionError(f"a tensor-core wide BPTT instantiation spills: {line}")
+
+
+def _route_times(m, fargs, bargs) -> dict:
+    """ROUTE_SHAPE in bf16: the one-block and cluster forwards, and the
+    one-block, cluster and tensor-core cluster BPTTs, each timed in turns
+    (a, b, b, a: the mean of 2 medians each) on the same inputs."""
+    ms = {}
+    for kind, launch, args, routes in (("fwd", m.fwd_launch, fargs, ("simt", "wide")),
+                                       ("bwd", m.bwd_launch, bargs, ("simt", "wide", "wide_mma"))):
+        for r in routes + routes[::-1]:
+            ms.setdefault(f"{kind}_{r}_ms", []).append(
+                _median_ms(lambda: launch(r, *args), runs=5, inner=3))
+    return {k: statistics.mean(v) for k, v in ms.items()}
 
 
 def _check_wide_kernels(dev) -> dict:
@@ -3010,7 +3115,7 @@ def _check_wide_kernels(dev) -> dict:
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
-    err = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0}
+    err = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0, "bilstm_bwd_wide_mma": 0.0}
     with torch.no_grad():
         for T, B, H in WIDE_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
@@ -3023,22 +3128,29 @@ def _check_wide_kernels(dev) -> dict:
                     e = _compare(f"[bilstm_fwd wide] T={T} B={B} H={H} {str(dtype)[6:]} "
                                  f"cells={cells}", got, want[:len(got)], tol, relative=False)
                     err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
-        for T, B, H in WIDE_BWD_SHAPES:
+        for T, B, H in WIDE_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype, tol in BWD_TOL.items():
+                if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
+                    continue
                 rel, route = dtype == bf16, bwd_route(dtype, H)
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
                 want = l.bilstm_bwd_reference(*args)
+                tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
                 got = _launch_once(l.bilstm_bwd, *args, route=route)
-                e = _compare(f"[bilstm_bwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got, want,
-                             tol, rel)
-                if route == "wide":
-                    err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
-                else:  # the cluster kernel on the same inputs, launched directly (uncounted)
-                    got = l.bwd_launch("wide", *args)
+                e = _compare(f"[bilstm_bwd {route}] {tag}", got, want, tol, rel)
+                if route in WIDE_BWD_KEYS and rel:
+                    err[f"bilstm{WIDE_BWD_KEYS[route]}"] = max(err[f"bilstm{WIDE_BWD_KEYS[route]}"], e)
+                # both cluster kernels on the same inputs, launched directly (uncounted)
+                for other in ("wide", "wide_mma") if rel else ("wide",):
+                    if other == route:
+                        continue
+                    got = l.bwd_launch(other, *args)
                     torch.cuda.synchronize()
-                    e = _compare(f"[bilstm_bwd wide, launched directly] T={T} B={B} H={H} "
-                                 f"{str(dtype)[6:]}", got, want, tol, rel)
-                    err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
+                    e = _compare(f"[bilstm_bwd {other}, launched directly] {tag}", got, want, tol,
+                                 rel)
+                    if rel:
+                        key = f"bilstm{WIDE_BWD_KEYS[other]}"
+                        err[key] = max(err[key], e)
 
         # H = 256 on the route that takes it; in bf16 the one-block kernels too
         T, B, H = ROUTE_SHAPE
@@ -3053,25 +3165,24 @@ def _check_wide_kernels(dev) -> dict:
             _compare(f"[bilstm_fwd {route}] {tag}",
                      _launch_once(l.bilstm_fwd, *fargs, with_cells=True, route=route), fwant,
                      tol, relative=False)
-            _compare(f"[bilstm_bwd {route}] {tag}", _launch_once(l.bilstm_bwd, *bargs, route=route),
-                     bwant, BWD_TOL[dtype], dtype == bf16)
+            broute = bwd_route(dtype, H)
+            _compare(f"[bilstm_bwd {broute}] {tag}",
+                     _launch_once(l.bilstm_bwd, *bargs, route=broute), bwant, BWD_TOL[dtype],
+                     dtype == bf16)
             if dtype != bf16:
                 continue
             for other in ("simt", "wide"):
                 _compare(f"[bilstm_fwd {other}, launched directly] {tag}",
                          l.fwd_launch(other, *fargs, with_cells=True), fwant, tol, relative=False)
+            for other in ("simt", "wide", "wide_mma"):
                 _compare(f"[bilstm_bwd {other}, launched directly] {tag}",
                          l.bwd_launch(other, *bargs), bwant, BWD_TOL[dtype], True)
-            # in turns: one-block, cluster, cluster, one-block
-            ms = {(k, r): [] for k in ("fwd", "bwd") for r in ("simt", "wide")}
-            for r in ("simt", "wide", "wide", "simt"):
-                ms[("fwd", r)].append(_median_ms(lambda: l.fwd_launch(r, *fargs), runs=5, inner=3))
-                ms[("bwd", r)].append(_median_ms(lambda: l.bwd_launch(r, *bargs), runs=5, inner=3))
-            timed = {f"{k}_{r}_ms": statistics.mean(v) for (k, r), v in ms.items()}
+            timed = _route_times(l, fargs, bargs)
             print(f"[time] ROUTE {tag}: forward one-block {timed['fwd_simt_ms']:.4f} ms, cluster "
                   f"{timed['fwd_wide_ms']:.4f} ms; BPTT one-block {timed['bwd_simt_ms']:.4f} ms, "
-                  f"cluster {timed['bwd_wide_ms']:.4f} ms (each the mean of 2 medians, in turns); "
-                  f"routed: {fwd_route(dtype, H)}")
+                  f"cluster {timed['bwd_wide_ms']:.4f} ms, tensor-core cluster "
+                  f"{timed['bwd_wide_mma_ms']:.4f} ms (each the mean of 2 medians, in turns); "
+                  f"routed: {fwd_route(dtype, H)}, BPTT {broute}")
 
     # the autograd pair: forward kernel + BPTT kernel against the twins
     T, B, H = WIDE_AUTOGRAD_SHAPE
@@ -3079,20 +3190,21 @@ def _check_wide_kernels(dev) -> dict:
         base = _gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
+        broute = bwd_route(dtype, H)
         for c in (l.bilstm_core, l.bilstm_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
-            f0, b0 = l.bilstm_fwd.routes["wide"], l.bilstm_bwd.routes["wide"]
+            f0, b0 = l.bilstm_fwd.routes["wide"], l.bilstm_bwd.routes[broute]
             torch.autograd.backward(c(*leaves), dy)
             torch.cuda.synchronize()
             grads.append([t.grad for t in leaves])
-            moved = (l.bilstm_fwd.routes["wide"] - f0, l.bilstm_bwd.routes["wide"] - b0)
+            moved = (l.bilstm_fwd.routes["wide"] - f0, l.bilstm_bwd.routes[broute] - b0)
             if c is l.bilstm_core and moved != (1, 1):
-                raise RuntimeError("the wide autograd pair did not launch one forward and one "
-                                   "BPTT kernel on the wide route")
+                raise RuntimeError("the wide autograd pair did not launch one forward on the wide "
+                                   f"route and one BPTT on {broute}")
         for name, gk, gt in zip(("dgx_f", "dgx_b", "dW_h_f", "dW_h_b"), *grads):
             scale = gt.float().abs().max().item()
             limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
-            _compare(f"[autograd BiLSTM wide] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
+            _compare(f"[autograd BiLSTM wide, BPTT {broute}] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
                      f"{str(dtype)[6:]}", [gk], [gt], limit, relative=False)
     return {"err": err, "route_ms": timed}
 
@@ -3108,13 +3220,15 @@ def _check_wide_gru_kernels(dev) -> dict:
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
-    err = {"bigru_fwd": 0.0, "bigru_bwd": 0.0}
+    err = {"bigru_fwd": 0.0, "bigru_bwd": 0.0, "bigru_bwd_wide_mma": 0.0}
 
-    def hold_bwd(label, got, want, dtype):
+    def hold_bwd(label, got, want, dtype, route=None):
         rel = dtype == bf16
         e = max(_compare(f"{label} {what}", got[sl], want[sl], BWD_TOL[dtype], rel)
                 for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))))
-        err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
+        if rel and route in WIDE_BWD_KEYS:
+            key = f"bigru{WIDE_BWD_KEYS[route]}"
+            err[key] = max(err[key], e)
 
     with torch.no_grad():
         for T, B, H in WIDE_GRU_FWD_SHAPES:
@@ -3126,18 +3240,24 @@ def _check_wide_gru_kernels(dev) -> dict:
                 e = _compare(f"[bigru_fwd wide] T={T} B={B} H={H} {str(dtype)[6:]}", got,
                              g.bigru_fwd_reference(*args), tol, relative=False)
                 err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
-        for T, B, H in WIDE_GRU_BWD_SHAPES:
+        for T, B, H in WIDE_GRU_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype in BWD_TOL:
+                if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
+                    continue
                 route = bwd_route(dtype, H, "gru")
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
                 want = g.bigru_bwd_reference(*args)
                 tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
                 hold_bwd(f"[bigru_bwd {route}] {tag}",
-                         _launch_once(g.bigru_bwd, *args, route=route), want, dtype)
-                if route != "wide":  # the cluster kernel on the same inputs (uncounted)
-                    got = g.bwd_launch("wide", *args)
+                         _launch_once(g.bigru_bwd, *args, route=route), want, dtype, route)
+                # both cluster kernels on the same inputs, launched directly (uncounted)
+                for other in ("wide", "wide_mma") if dtype == bf16 else ("wide",):
+                    if other == route:
+                        continue
+                    got = g.bwd_launch(other, *args)
                     torch.cuda.synchronize()
-                    hold_bwd(f"[bigru_bwd wide, launched directly] {tag}", got, want, dtype)
+                    hold_bwd(f"[bigru_bwd {other}, launched directly] {tag}", got, want, dtype,
+                             other)
 
         # H = 256 on the route that takes it; in bf16 the one-block kernels too
         T, B, H = ROUTE_SHAPE
@@ -3150,25 +3270,23 @@ def _check_wide_gru_kernels(dev) -> dict:
             tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
             _compare(f"[bigru_fwd {route}] {tag}", _launch_once(g.bigru_fwd, *fargs, route=route),
                      fwant, tol, relative=False)
-            hold_bwd(f"[bigru_bwd {route}] {tag}", _launch_once(g.bigru_bwd, *bargs, route=route),
-                     bwant, dtype)
+            broute = bwd_route(dtype, H, "gru")
+            hold_bwd(f"[bigru_bwd {broute}] {tag}",
+                     _launch_once(g.bigru_bwd, *bargs, route=broute), bwant, dtype)
             if dtype != bf16:
                 continue
             for other in ("simt", "wide"):
                 _compare(f"[bigru_fwd {other}, launched directly] {tag}",
                          g.fwd_launch(other, *fargs), fwant, tol, relative=False)
+            for other in ("simt", "wide", "wide_mma"):
                 hold_bwd(f"[bigru_bwd {other}, launched directly] {tag}",
                          g.bwd_launch(other, *bargs), bwant, dtype)
-            # in turns: one-block, cluster, cluster, one-block
-            ms = {(k, r): [] for k in ("fwd", "bwd") for r in ("simt", "wide")}
-            for r in ("simt", "wide", "wide", "simt"):
-                ms[("fwd", r)].append(_median_ms(lambda: g.fwd_launch(r, *fargs), runs=5, inner=3))
-                ms[("bwd", r)].append(_median_ms(lambda: g.bwd_launch(r, *bargs), runs=5, inner=3))
-            timed = {f"{k}_{r}_ms": statistics.mean(v) for (k, r), v in ms.items()}
+            timed = _route_times(g, fargs, bargs)
             print(f"[time] GRU ROUTE {tag}: forward one-block {timed['fwd_simt_ms']:.4f} ms, "
                   f"cluster {timed['fwd_wide_ms']:.4f} ms; BPTT one-block "
-                  f"{timed['bwd_simt_ms']:.4f} ms, cluster {timed['bwd_wide_ms']:.4f} ms (each "
-                  f"the mean of 2 medians, in turns); routed: {fwd_route(dtype, H, 'gru')}")
+                  f"{timed['bwd_simt_ms']:.4f} ms, cluster {timed['bwd_wide_ms']:.4f} ms, "
+                  f"tensor-core cluster {timed['bwd_wide_mma_ms']:.4f} ms (each the mean of 2 "
+                  f"medians, in turns); routed: {fwd_route(dtype, H, 'gru')}, BPTT {broute}")
 
     # the autograd pair: forward kernel + BPTT kernel against the twins
     T, B, H = WIDE_AUTOGRAD_SHAPE
@@ -3176,21 +3294,22 @@ def _check_wide_gru_kernels(dev) -> dict:
         base = _gru_gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
+        broute = bwd_route(dtype, H, "gru")
         for c in (g.bigru_core, g.bigru_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
-            f0, b0 = g.bigru_fwd.routes["wide"], g.bigru_bwd.routes["wide"]
+            f0, b0 = g.bigru_fwd.routes["wide"], g.bigru_bwd.routes[broute]
             torch.autograd.backward(c(*leaves), dy)
             torch.cuda.synchronize()
             grads.append([t.grad for t in leaves])
-            moved = (g.bigru_fwd.routes["wide"] - f0, g.bigru_bwd.routes["wide"] - b0)
+            moved = (g.bigru_fwd.routes["wide"] - f0, g.bigru_bwd.routes[broute] - b0)
             if c is g.bigru_core and moved != (1, 1):
-                raise RuntimeError("the wide GRU autograd pair did not launch one forward and "
-                                   "one BPTT kernel on the wide route")
+                raise RuntimeError("the wide GRU autograd pair did not launch one forward on the "
+                                   f"wide route and one BPTT on {broute}")
         names = ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b", "db_hn_f", "db_hn_b")
         for name, gk, gt in zip(names, *grads):
             scale = gt.float().abs().max().item()
             limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
-            _compare(f"[autograd BiGRU wide] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
+            _compare(f"[autograd BiGRU wide, BPTT {broute}] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
                      f"{str(dtype)[6:]}", [gk], [gt], limit, relative=False)
     return {"err": err, "route_ms": timed}
 
@@ -3200,8 +3319,13 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
     serving chunk, the generator update and the fakes pass (bf16), beside
     its twin, its bound and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
     (``hidden_size=H``; forward, the BPTT beside its backward) on the same
-    input, as phase 6 times the others."""
+    input, the layers by CUDA events and by device time (``_layer_times``),
+    each kernel also by its own device time (``kernel_device_ms``). The bf16
+    BPTT's route (``bwd_route``) is timed in turns with the CUDA-core
+    cluster kernel it replaced (``"wide"``, launched through ``bwd_launch``)
+    on the same inputs: earlier, routed, routed, earlier."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
 
     gru = cell == "gru"
     m = gru_cuda if gru else lstm_cuda
@@ -3212,6 +3336,7 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
         fwd = name.endswith("fwd")
         rows = []
         for T, B, H in WIDE_TIMED:
+            route = "wide" if fwd else bwd_route(dt, H, cell)
             if fwd:
                 args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
             else:
@@ -3219,36 +3344,50 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
             kern = getattr(m, name)
             twin = getattr(m, f"{name}_reference")
             layer = m.bigru if gru else m.bilstm
+            row = {"shape": [T, B, H], "route": route}
             with torch.no_grad():
-                ms = _median_ms(lambda: kern(*args), runs=5, inner=3)
-                plain_ms = _median_ms(lambda: twin(*args), runs=3)
+                if route == "wide":
+                    ms = _median_ms(lambda: kern(*args), runs=5, inner=3)
+                else:  # in turns with the kernel it replaced
+                    times = {"wide": [], route: []}
+                    for r in ("wide", route, route, "wide"):
+                        times[r].append(_median_ms(lambda: m.bwd_launch(r, *args), runs=5,
+                                                   inner=3))
+                    ms = statistics.mean(times[route])
+                    row["earlier_ms"] = statistics.mean(times["wide"])
+                    row["earlier_device_ms"] = _device_ms(lambda: m.bwd_launch("wide", *args),
+                                                          calls=3, match=f"{name}_wide_kernel")
+                row["kernel_device_ms"] = _device_ms(lambda: kern(*args), calls=3,
+                                                     match=f"{name}_{route}_kernel")
+                # the twins loop over T in Python (~1 s a call): not timed at the fakes pass
+                plain_ms = _median_ms(lambda: twin(*args), runs=3) if B <= 32 else None
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(device=dev, dtype=dt)
             flat = [t for d in ws for t in d]
-            lib = _library_layer(cell, ws, dt, dev)
-            if fwd:
-                with torch.no_grad():
-                    layer_ms = _median_ms(lambda: layer(x, *flat), runs=5, inner=3)
-                    library_ms = _median_ms(lambda: lib(x), runs=5, inner=3)
-            else:
-                xg = x.clone().requires_grad_(True)
-                leaves = [t.clone().requires_grad_(True) for t in flat]
-                y = layer(xg, *leaves)
-                dy = torch.randn_like(y)
-                layer_ms = _median_ms(lambda: y.backward(dy, retain_graph=True), runs=5, inner=3)
-                y_lib = lib(xg)[0]
-                library_ms = _median_ms(lambda: y_lib.backward(dy, retain_graph=True),
-                                        runs=5, inner=3)
+            with _compact_weights():
+                lt = _layer_times(layer, _library_layer(cell, ws, dt, dev), x, flat, fwd, runs=5,
+                                  inner=3)
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
-            rows.append({"shape": [T, B, H], "route": "wide", "ms": ms, "us_per_step": ms / T * 1e3,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "layer_ms": layer_ms, "library_ms": library_ms})
-            print(f"[time] {name} wide T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
-                  f"({ms / T * 1e3:.3f} us a step), plain twin {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.5f} ms ({bound_by}); layer{'' if fwd else ' backward'}: port "
-                  f"{layer_ms:.4f} ms, cuDNN {cls}(hidden_size={H}, bidirectional=True) "
-                  f"{library_ms:.4f} ms (medians, CUDA events)")
+            row.update({"ms": ms, "us_per_step": ms / T * 1e3, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, **lt})
+            rows.append(row)
+            if None not in (lt["layer_device_ms"], row["kernel_device_ms"]) and \
+                    lt["layer_device_ms"] < row["kernel_device_ms"]:
+                print(f"[time] {name} T,B,H={(T, B, H)}: the layer's trace lost the kernel's "
+                      "events (its device time is under the kernel's): not a measurement")
+            earlier = (f"; the earlier CUDA-core cluster kernel on the same inputs "
+                       f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a step, "
+                       f"{row['earlier_device_ms']} device ms), {row['earlier_ms'] / ms:.2f}x "
+                       f"(means of 2 medians, in turns)" if "earlier_ms" in row else "")
+            print(f"[time] {name} {route} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
+                  f"({ms / T * 1e3:.3f} us a step; {row['kernel_device_ms']} device ms){earlier}; "
+                  f"plain twin {plain_ms} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+                  f"layer{'' if fwd else ' backward'}: port {lt['layer_ms']:.4f} ms, cuDNN "
+                  f"{cls}(hidden_size={H}, bidirectional=True) {lt['library_ms']:.4f} ms (medians, "
+                  f"CUDA events); device time port {lt['layer_device_ms']} ms, cuDNN "
+                  f"{lt['library_device_ms']} ms, cuDNN/port "
+                  f"{_ratio(lt['library_device_ms'], lt['layer_device_ms'])}")
         out[name] = rows
     return out
 
@@ -3256,16 +3395,17 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
 def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
     """Phase 13b/13c (``WIDE_MODELS``) and 14b/14c (``WIDE_GRU_MODELS``): the
     blstm_size=1024 models served and trained as phases 4–6 serve and train
-    config 3 and the BGRU, every recurrent launch on the wide route."""
+    config 3 and the BGRU, every forward launch on the wide route and every
+    BPTT launch on the tensor-core cluster route ``wide_mma``."""
     runs = {}
     for kind in kinds:
         served, trained = _serve_path(dev, kind), _train_path(dev, kind)
         cell = "bigru" if _is_gru(kind) else "bilstm"
         for what, run in (("serve", served), ("train", trained)):
             counts, routes = run["counts"], run["routes"]
-            for name in (f"{cell}_fwd", f"{cell}_bwd"):
-                if routes[name]["wide"] != counts[name]:
-                    raise AssertionError(f"{what} {kind}: {name} launched off the wide route: "
+            for name, route in ((f"{cell}_fwd", "wide"), (f"{cell}_bwd", "wide_mma")):
+                if routes[name][route] != counts[name]:
+                    raise AssertionError(f"{what} {kind}: {name} launched off the {route} route: "
                                          f"{routes[name]} of {counts[name]}")
         print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
               f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
@@ -3313,6 +3453,8 @@ def main() -> int:
 
     # 2. build
     built = _build.build(force=True)
+    global BUILD_LOG
+    BUILD_LOG = built.log
     print(f"[build] {built.path.name} from {len(_build.sources())} source(s) in "
           f"{built.seconds:.1f} s")
     for line in _ptxas_usage(built.log):
@@ -3477,11 +3619,13 @@ def main() -> int:
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
+            "library_device_ms": first.get("library_device_ms"),
             "library_call": library_calls.get(name) or (
                 ("torch.nn.GRU" if "gru" in name else "torch.nn.LSTM")
                 + (" forward, beside the port's layer (layer_ms)" if name.endswith("fwd")
                    else " backward, beside the port layer's backward (layer_ms)")),
             "layer_ms": first.get("layer_ms"),
+            "layer_device_ms": first.get("layer_device_ms"),
             "timed": timed[name],
         })
         if name in ("frame_window", "overlap_add"):
@@ -3494,41 +3638,55 @@ def main() -> int:
             raise AssertionError(f"{name} was launched no time on the paths")
     # the cluster kernels (the "wide" route): kernels #1/#2 on phase 13's
     # paths, #3/#4 on phase 14's
-    for name, (src, replaces) in {
-        "bilstm_fwd": ("bilstm_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
-        "bilstm_bwd": ("bilstm_bwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
-        "bigru_fwd": ("bigru_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
-        "bigru_bwd": ("bigru_bwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:616"),
-    }.items():
+    # (the bf16 BPTTs of those paths on the tensor-core cluster kernels,
+    # "wide_mma"; the CUDA-core cluster BPTTs they replaced timed beside them)
+    for name, route, src, replaces in (
+        ("bilstm_fwd", "wide", "bilstm_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+        ("bilstm_bwd", "wide_mma", "bilstm_bwd_wide_mma.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bigru_fwd", "wide", "bigru_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+        ("bigru_bwd", "wide_mma", "bigru_bwd_wide_mma.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:616"),
+    ):
         gru = name.startswith("bigru")
         checked, timed_w, runs_w = (wide_gru, wide_gru_timed, wide_gru_runs) if gru else \
             (wide, wide_timed, wide_runs)
         first = timed_w[name][0]
-        by_path = {f"{what}_{kind}": run[what]["routes"][name]["wide"]
+        by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
                    for kind, run in runs_w.items() for what in ("serve", "train")}
         kernels.append({
-            "name": f"{name}_wide",
+            "name": f"{name}_{route}",
             "route": "cuda",
             "source": f"percivaltts_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": routes[name]["wide"],
+            "launches": routes[name][route],
             "launches_by_path": by_path,
-            "max_abs_err": checked["err"][name],
+            "max_abs_err": checked["err"][name if route == "wide" else f"{name}_{route}"],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
             "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size=512, "
                             "bidirectional=True) "
                             + ("forward" if name.endswith("fwd") else "backward")
-                            + ", beside the port layer's (layer_ms)",
+                            + ", beside the port layer's (layer_ms, layer_device_ms)",
             "layer_ms": first["layer_ms"],
+            "layer_device_ms": first["layer_device_ms"],
+            "kernel_device_ms": first["kernel_device_ms"],
             "timed": timed_w[name],
             "route_shape_ms": checked["route_ms"],
         })
-        if not routes[name]["wide"] or sum(by_path.values()) != routes[name]["wide"]:
-            raise AssertionError(f"{name}'s wide kernel was launched no time on phase "
+        if route == "wide_mma":  # the CUDA-core cluster kernel it replaced on these paths
+            kernels[-1].update({
+                "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+                "earlier_ms": first["earlier_ms"],
+                "earlier_device_ms": first["earlier_device_ms"],
+                "earlier_max_abs_err": checked["err"][name],
+            })
+        if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
+            raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s paths, or also elsewhere")
     for kind in ("cnn_blstm", "bgru"):
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "

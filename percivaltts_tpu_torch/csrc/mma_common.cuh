@@ -1,5 +1,5 @@
 // PTX wrappers shared by the tensor-core recurrent kernels
-// (bilstm_{fwd,bwd}_mma.cu, bigru_{fwd,bwd}_mma.cu): the bf16 m16n8k16
+// (bilstm_{fwd,bwd}_mma.cu, bigru_{fwd,bwd}_mma.cu, {bilstm,bigru}_bwd_wide_mma.cu): the bf16 m16n8k16
 // product, ldmatrix from shared memory, and the cp.async ring that streams
 // the inputs (also the framing kernel's staging, frame_window.cu).
 #pragma once
@@ -31,6 +31,16 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 __device__ __forceinline__ void ldmatrix_x4(const void* p, uint32_t& r0, uint32_t& r1,
                                             uint32_t& r2, uint32_t& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// As ldmatrix_x4, each matrix transposed: lane i receives rows 2·(i % 4) and
+// 2·(i % 4) + 1 of column i / 4 of each matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(smem_addr(p))
                : "memory");

@@ -25,7 +25,10 @@ one block a direction cannot hold) and, in bf16, H > 128 the cluster kernel
 ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to 4096);
 everything else ``csrc/bigru_fwd.cu``. The BPTT likewise (``bwd_route``):
 ``csrc/bigru_bwd_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
-``csrc/bigru_bwd.cu``, which takes H a multiple of 32: other widths are
+``csrc/bigru_bwd.cu``, except that bf16 past H = 128 up to 672 takes the
+tensor-core cluster kernel ``csrc/bigru_bwd_wide_mma.cu``
+(``ops/wide_mma_layout.py``). ``csrc/bigru_bwd.cu`` and
+``csrc/bigru_bwd_wide_mma.cu`` take H a multiple of 32: other widths are
 zero-padded to one (``ops/lstm_cuda.py::at_width``), which changes no real
 unit.
 ``bigru_core`` is the differentiable entry: it runs the forward kernel, and
@@ -39,10 +42,11 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops import wide_layout
+from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.lstm_cuda import (
     _DTYPE_CODES,
     _one_device,
+    _wide_mma_check,
     aligned16,
     at_width,
     rows_per_block,
@@ -270,23 +274,27 @@ bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
-    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide"`` or
-    ``"simt"``) on CUDA inputs that :func:`bigru_bwd` has checked; counts
-    nothing. ``bigru_bwd`` is the entry; ``chip_smoke.py`` times one route's
-    kernel beside another's through this. ``"simt"`` runs H that is not a
-    multiple of 32 zero-padded to one (``lstm_cuda.at_width``), up to
-    H = 320; ``"wide"`` raises ``ValueError`` past
-    ``wide_layout.GRU_MAX_H``."""
+    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
+    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bigru_bwd` has
+    checked; counts nothing. ``bigru_bwd`` is the entry; ``chip_smoke.py``
+    times one route's kernel beside another's through this. ``"simt"`` runs
+    H that is not a multiple of 32 zero-padded to one
+    (``lstm_cuda.at_width``), up to H = 320; ``"wide_mma"`` (bf16 only, H
+    up to ``wide_mma_layout.max_h(3)``) likewise; ``"wide"`` raises
+    ``ValueError`` past ``wide_layout.GRU_MAX_H``."""
     from percivaltts_tpu_torch import _build
 
-    lib = _build.library()
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 3
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
-    if route == "simt" and H % SIMT_BWD_GRANULE and H <= SIMT_BWD_MAX_H:
-        Hp = -(-H // SIMT_BWD_GRANULE) * SIMT_BWD_GRANULE
-        return at_width(lambda *a: bwd_launch("simt", *a), Hp, 3, *ins)
+    granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE}.get(route)
+    if route == "wide_mma":
+        _wide_mma_check(gx_f.dtype, H, 3)
+    if granule and H % granule and (route != "simt" or H <= SIMT_BWD_MAX_H):
+        Hp = -(-H // granule) * granule
+        return at_width(lambda *a: bwd_launch(route, *a), Hp, 3, *ins)
+    lib = _build.library()
     dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
     dnr_f, dnr_b = torch.empty_like(hp_f), torch.empty_like(hp_b)
     outs = (dgx_f, dgx_b, dnr_f, dnr_b)
@@ -299,6 +307,17 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
                    *map(aligned16, (hp_f, hp_b, dy_f, dy_b)))
             err = lib.percival_bigru_bwd_mma(
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), T, B, H, stream,
+            )
+        elif route == "wide_mma":
+            p = wide_mma_layout.plan(H, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
+                   wide_mma_layout.pack_wh(wh_b, p),
+                   *map(aligned16, (bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)))
+            err = lib.percival_bigru_bwd_wide_mma(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                T, B, H, p.Hb, p.U, stream,
             )
         elif route == "wide":
             p = wide_layout.plan(H, 3)
@@ -327,8 +346,9 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
     Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
-    16 up to 128, the cluster one past H = 320 (bf16: 128), else the
-    one-block CUDA-core one, H not a multiple of 32 zero-padded to one
+    16 up to 128, the tensor-core cluster one for bf16 past 128 up to 672,
+    the CUDA-core cluster one past H = 320 (bf16: 672), else the one-block
+    CUDA-core one, H not a multiple of 32 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
     run the twin. Raises on mixed devices, dtypes or shapes, non-contiguous
     CUDA inputs, CUDA inputs that require a gradient under grad mode, H past
@@ -349,7 +369,7 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
 
 bigru_bwd.launches = 0
-bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0}
+bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

@@ -17,10 +17,13 @@ multiple of 16 up to 128 launches the tensor-core kernel
 ``csrc/bilstm_fwd_mma.cu``; H > 256 (which one block a direction cannot
 hold) and, in bf16, H > 128 the cluster kernel ``csrc/bilstm_fwd_wide.cu``
 (``ops/wide_layout.py``; H up to 4096); everything else
-``csrc/bilstm_fwd.cu``. The BPTT likewise
-(``bwd_route``): ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide.cu`` or
-``csrc/bilstm_bwd.cu``, which takes H a multiple of 8: other widths are
-zero-padded to it (:func:`at_width`), which changes no real unit.
+``csrc/bilstm_fwd.cu``. The BPTT likewise (``bwd_route``):
+``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide.cu`` or
+``csrc/bilstm_bwd.cu``, except that bf16 past H = 128 up to 608 takes the
+tensor-core cluster kernel ``csrc/bilstm_bwd_wide_mma.cu``
+(``ops/wide_mma_layout.py``). ``csrc/bilstm_bwd.cu`` takes H a multiple of
+8, ``csrc/bilstm_bwd_wide_mma.cu`` of 32: other widths are zero-padded to
+one (:func:`at_width`), which changes no real unit.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass. The forward is also the
 registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops import wide_layout
+from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -218,6 +221,15 @@ def at_width(fn, Hp: int, gates: int, *args, **kw):
     return tuple(cut(t) for t in fn(*map(pad, args), **kw))
 
 
+def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
+    """Raise unless the tensor-core cluster BPTT takes ``dtype`` and ``H``."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core wide BPTT takes bfloat16, got {dtype}")
+    if not wide_mma_layout.fits(H, gates):
+        raise ValueError(f"the tensor-core wide {wide_mma_layout.CELLS[gates]} BPTT takes "
+                         f"H <= {wide_mma_layout.max_h(gates)}, got H={H}")
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
     tensor-core kernels stream their (T, B, ·) inputs with 16-byte
@@ -334,22 +346,27 @@ bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0}
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
                dy_f, dy_b):
-    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide"`` or
-    ``"simt"``) on CUDA inputs that :func:`bilstm_bwd` has checked; counts
-    nothing. ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times one
-    route's kernel beside another's through this. ``"simt"`` runs H that is
-    not a multiple of 8 zero-padded to one (:func:`at_width`)."""
+    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
+    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bilstm_bwd` has
+    checked; counts nothing. ``bilstm_bwd`` is the entry; ``chip_smoke.py``
+    times one route's kernel beside another's through this. ``"simt"`` runs
+    H that is not a multiple of 8, and ``"wide_mma"`` (bf16 only, H up to
+    ``wide_mma_layout.max_h(4)``, else ``ValueError``) H that is not a
+    multiple of 32, zero-padded to one (:func:`at_width`)."""
     from percivaltts_tpu_torch import _build
 
-    lib = _build.library()
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 4
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
-    if route == "simt" and H % SIMT_BWD_GRANULE:
-        Hp = -(-H // SIMT_BWD_GRANULE) * SIMT_BWD_GRANULE
-        return at_width(lambda *a: bwd_launch("simt", *a), Hp, 4,
+    granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE}.get(route)
+    if route == "wide_mma":
+        _wide_mma_check(gx_f.dtype, H, 4)
+    if granule and H % granule:
+        Hp = -(-H // granule) * granule
+        return at_width(lambda *a: bwd_launch(route, *a), Hp, 4,
                         gx_f, gx_b, wh_f, wh_b, *states)
+    lib = _build.library()
     dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
     with torch.cuda.device(device):
         if route == "mma":
@@ -359,6 +376,16 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
                    pack_wh(wh_f, "lstm"), pack_wh(wh_b, "lstm"), *map(aligned16, states))
             err = lib.percival_bilstm_bwd_mma(
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(), T, B, H, stream,
+            )
+        elif route == "wide_mma":
+            p = wide_mma_layout.plan(H, 4)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
+                   wide_mma_layout.pack_wh(wh_b, p), *map(aligned16, states))
+            err = lib.percival_bilstm_bwd_wide_mma(
+                *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
+                T, B, H, p.Hb, p.U, stream,
             )
         elif route == "wide":
             p = wide_layout.plan(H)
@@ -386,8 +413,9 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
     Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
-    16 up to 128, the cluster one past H = 256 (bf16: 128), else the
-    one-block CUDA-core one, H not a multiple of 8 zero-padded to one
+    16 up to 128, the tensor-core cluster one for bf16 past 128 up to 608,
+    the CUDA-core cluster one past H = 256 (bf16: 608), else the one-block
+    CUDA-core one, H not a multiple of 8 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
     run the twin. Raises on
     mixed devices, dtypes, or shapes, non-contiguous CUDA inputs, CUDA
@@ -409,7 +437,7 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0}
+bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -39,6 +39,8 @@ import functools
 
 import torch
 
+from percivaltts_tpu_torch.ops import wide_mma_layout
+
 MMA_K = 16  # depth of one m16n8k16 product: H is a whole number of them
 # W_h in registers at H=128, 32-bit registers a thread: forward 64 (LSTM) / 96
 # (GRU), BPTT 128 / 96
@@ -81,12 +83,20 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
 
 
 def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
-    """The BPTT kernel a CUDA call launches, by :func:`fwd_route`'s rule:
-    ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``),
-    ``"wide"`` (``csrc/bilstm_bwd_wide.cu`` / ``csrc/bigru_bwd_wide.cu``) or
-    ``"simt"`` (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``), so a
-    layer's backward takes the route of its forward."""
-    return fwd_route(dtype, H, cell)
+    """The BPTT kernel a CUDA call launches: :func:`fwd_route`'s rule, except
+    that a bf16 call that the forward sends to ``"wide"`` takes the
+    tensor-core cluster kernels ``"wide_mma"`` (``csrc/bilstm_bwd_wide_mma.cu``
+    / ``csrc/bigru_bwd_wide_mma.cu``) wherever their block's ``W_hᵀ`` slice
+    and tiles fit its shared memory (``wide_mma_layout.fits``: H up to 608
+    for the LSTM, 672 for the GRU). So ``"mma"`` (``csrc/bilstm_bwd_mma.cu``
+    / ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``, ``"wide"``
+    (``csrc/bilstm_bwd_wide.cu`` / ``csrc/bigru_bwd_wide.cu``: f32, and bf16
+    past those widths, whose slice leaves shared memory for L2) or
+    ``"simt"`` (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``)."""
+    route = fwd_route(dtype, H, cell)
+    if route == "wide" and dtype == torch.bfloat16 and wide_mma_layout.fits(H, GATES[cell]):
+        return "wide_mma"
+    return route
 
 
 def _check(kind: str, H: int) -> None:

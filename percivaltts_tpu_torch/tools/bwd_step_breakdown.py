@@ -1,6 +1,7 @@
-"""Where a step of the tensor-core BPTT kernels goes, on the card.
+"""Where a step of the BPTT kernels goes, on the card.
 
-    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown          # the mma kernels
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide   # the cluster kernels
 
 Builds variants of ``csrc/bilstm_bwd_mma.cu`` and ``csrc/bigru_bwd_mma.cu``
 with one part of the step removed or replaced (macros and edits applied to a
@@ -19,8 +20,26 @@ shape and at B=8. Prints µs a step per variant:
 - ``no_sync``: the step's ``__syncthreads`` removed;
 - ``loop_only``: neither gates nor products.
 
-Times are medians of CUDA-event times over 20 launches; the card's name and
-power limit are printed first.
+With ``--wide`` it does the same for the cluster kernels of H past one
+block (``csrc/{bilstm,bigru}_bwd_wide.cu``, and ``*_bwd_wide_mma.cu`` when
+present), bf16, at (512, 8, 512) and (512, 160, 512) (``WIDE_SHAPES``):
+
+- ``full``;
+- ``no_recompute``: the gate recompute ``h_prev · W_h`` of the next step
+  removed (its accumulators are never written);
+- ``no_dh``: the ``dgates · W_hᵀ`` product removed, with its writes (the
+  time it saves also holds what it kept the next barrier waiting);
+- ``no_dsmem``: the product's partials written into the block's own shared
+  memory instead of their owners' (distributed shared memory);
+- ``no_cluster_sync``: the step's cluster barrier(s) replaced by the
+  block's ``__syncthreads`` (one cluster barrier kept before the blocks
+  exit);
+- ``no_prefetch``: the ``h_prev`` rows of the step after next not loaded;
+- ``loop_only``: all of the above removed: the gate phase, its loads and
+  stores, and the loop.
+
+Times are medians of CUDA-event times over 20 launches (5 runs of 3 for the
+cluster kernels); the card's name and power limit are printed first.
 """
 
 from __future__ import annotations
@@ -33,6 +52,7 @@ import sys
 import torch
 
 from percivaltts_tpu_torch import _build
+from percivaltts_tpu_torch.ops import wide_layout
 from percivaltts_tpu_torch.ops.mma_layout import pack_wh
 from percivaltts_tpu_torch.tools.fwd_step_breakdown import FAST, IDENTITY, NO_MMA, _time_ms
 
@@ -75,12 +95,144 @@ def _build_variants() -> dict:
     return libs
 
 
+WIDE_SHAPES = [(512, 8, 512), (512, 160, 512)]
+WIDE_VARIANTS = ("full", "no_recompute", "no_dh", "no_dsmem", "no_cluster_sync", "no_prefetch",
+                 "loop_only")
+# per source: {variant: [(text, replacement, count)]}; "loop_only" applies every edit
+WIDE_EDITS = {
+    "wide": {
+        "no_recompute": [("      recompute();\n", "", 1)],
+        "no_dh": [("for (int q0 = 0; q0 < items; q0 += NT) {",
+                   "for (int q0 = 0; false && q0 < items; q0 += NT) {", -1),
+                  ("for (int k = tid; k < H; k += NT) {",
+                   "for (int k = tid; false && k < H; k += NT) {", -1)],
+        "no_dsmem": [("cluster.map_shared_rank(next, dst)", "(next)", 1)],
+        # (one cluster barrier before the blocks exit: none may leave while
+        # another still writes into its shared memory)
+        "no_cluster_sync": [("    cluster.sync();\n  }\n}",
+                             "    __syncthreads();\n  }\n  cluster.sync();\n}", 1)],
+        "no_prefetch": [("hp_next[i] = s + 2 < n_steps ? load_hp(frame(s + 2), i) : 0.0f;",
+                         "hp_next[i] = 0.0f;", 1)],
+    },
+    "wide_mma": {
+        "no_recompute": [("    recompute(0, KH);   // step s+1, first half\n", "", 1),
+                         ("    recompute(KH, KS);  // step s+1, second half\n", "", 1)],
+        "no_dh": [("    dh_product(s_recv + (dbuf & (s + 1)) * slots);", "", 1)],
+        "no_dsmem": [("cluster.map_shared_rank(recv, owner)", "(recv)", 1)],
+        "no_cluster_sync": [("cluster_arrive();", "(void)0;", 2),
+                            ("cluster_wait();", "__syncthreads();", 2),
+                            ("  cp_async_wait<0>();\n}\n\nconst void* kernel_for",
+                             "  cp_async_wait<0>();\n  cluster.sync();\n}\n\nconst void* kernel_for",
+                             1)],
+        "no_prefetch": [("    if (s + 2 < n_steps) load_h(frame(s + 2));\n", "", 1)],
+    },
+}
+
+
+def _wide_source(src: str, route: str, name: str) -> str:
+    edits = WIDE_EDITS[route]
+    for variant in (edits if name == "loop_only" else [name] if name in edits else []):
+        for old, new, count in edits[variant]:
+            n = src.count(old)
+            if count >= 0 and n != count:
+                raise AssertionError(f"{route} {variant}: {old!r} appears {n} times, not {count}")
+            src = src.replace(old, new)
+    return src
+
+
+def _build_wide_variants() -> dict:
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    for kind in ("bilstm", "bigru"):
+        for route in WIDE_EDITS:
+            path = _build.CSRC / f"{kind}_bwd_{route}.cu"
+            if not path.exists():
+                continue
+            src = path.read_text()
+            for name in WIDE_VARIANTS:
+                cu = out_dir / f"{kind}_bwd_{route}_{name}.cu"
+                cu.write_text(_wide_source(src, route, name))
+                so = out_dir / f"{kind}_bwd_{route}_{name}.so"
+                cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                             "-o", str(so), str(cu)])
+                libs[(kind, route, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+def _wide_inputs(kind: str, T: int, B: int, H: int, dev, g):
+    """Random bf16 inputs of one launch (both directions) and its outputs."""
+    gates, bf16 = (4 if kind == "bilstm" else 3), torch.bfloat16
+    pair = lambda *shape, s=1.0: [(torch.randn(*shape, generator=g, device=dev) * s).to(bf16)  # noqa: E731
+                                  for _ in range(2)]
+    ins = {"gx": pair(T, B, gates * H), "wh": pair(H, gates * H, s=H ** -0.5),
+           "bn": pair(H), "hp": pair(T, B, H, s=0.5), "cp": pair(T, B, H, s=0.5),
+           "c": pair(T, B, H, s=0.5), "dy": pair(T, B, H, s=0.5)}
+    outs = {"dgx": [torch.empty_like(x) for x in ins["gx"]],
+            "dnr": [torch.empty_like(x) for x in ins["hp"]]}
+    return ins, outs
+
+
+def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict, outs: dict):
+    """A function that launches one variant's kernel on ``ins`` (its W_h packed for the route)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    gates = 4 if kind == "bilstm" else 3
+    if route == "wide":
+        plan = wide_layout.plan(H, gates)
+        wp = [wide_layout.pack_wh(w, plan) for w in ins["wh"]]
+        tail = [T, B, H, plan.Hb, plan.U, 1]
+    else:
+        from percivaltts_tpu_torch.ops import wide_mma_layout
+
+        plan = wide_mma_layout.plan(H, gates)
+        wp = [wide_mma_layout.pack_wh(w, plan) for w in ins["wh"]]
+        tail = [T, B, H, plan.Hb, plan.U]
+    names = ["gx", "wp"] + (["hp", "cp", "c", "dy"] if kind == "bilstm" else ["bn", "hp", "dy"])
+    tensors = {**ins, "wp": wp}
+    ptrs = [t.data_ptr() for n in names for t in tensors[n]]
+    ptrs += [t.data_ptr() for n in (["dgx"] if kind == "bilstm" else ["dgx", "dnr"])
+             for t in outs[n]]
+    fn = getattr(lib, f"percival_{kind}_bwd_{route}")
+    fn.argtypes, fn.restype = [p] * len(ptrs) + [i] * len(tail) + [p], i
+
+    def launch():
+        err = fn(*ptrs, *tail, stream)
+        if err:
+            raise RuntimeError(f"{kind} {route}: CUDA error {err}")
+    launch.keep = wp  # the packed W_h lives as long as the launcher
+    return launch
+
+
+def wide_main() -> int:
+    libs = _build_wide_variants()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kind in ("bilstm", "bigru"):
+        for T, B, H in WIDE_SHAPES:
+            ins, outs = _wide_inputs(kind, T, B, H, dev, g)
+            for route in WIDE_EDITS:
+                if (kind, route, "full") not in libs:
+                    continue
+                row = []
+                for name in WIDE_VARIANTS:
+                    launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, route, name)])), kind,
+                                            route, T, B, H, ins, outs)
+                    row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_bwd_{route} T,B,H={(T, B, H)}: us a step: "
+                      + ", ".join(row))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bwd_step_breakdown: needs an NVIDIA card", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if "--wide" in sys.argv[1:]:
+        return wide_main()
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     p, i = ctypes.c_void_p, ctypes.c_int

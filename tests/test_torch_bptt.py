@@ -12,6 +12,8 @@ rounded to bf16 and fed back through dh, so a one-ulp rounding flip is
 carried into earlier frames; 2e-2 of max|dgx|.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import functools
 
 import jax

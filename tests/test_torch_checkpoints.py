@@ -3,6 +3,8 @@ package's Orbax ``CheckpointManager``: the same retention (LatestN ∪
 BestN) and best-step queries over one save sequence, a state that restores
 bit for bit, the EMA reconciled both ways, and saves that are atomic."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 

@@ -8,6 +8,8 @@ and ``plot`` on a trained workdir. The preset overlay equals the JAX
 process group of one.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import contextlib
 import dataclasses
 import io

@@ -10,6 +10,8 @@ layers. The reference-faithful ``conv_style="2d"`` critic (2-D convs of 4,
 tolerance. Losses and the on-device normalization: 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 
 import jax

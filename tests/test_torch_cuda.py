@@ -9,7 +9,9 @@ BPTT kernels have two routes each, three for the LSTM, chosen from dtype
 and width: bf16 with H a multiple of 16 up to 128 takes the tensor-core
 kernels (``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); the LSTM past H = 256, the GRU
 past H = 320 (bf16: both past 128) the cluster kernels
-(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096); f32 and other
+(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096), except that the
+bf16 BPTT there takes the tensor-core cluster kernels
+(``csrc/{bilstm,bigru}_bwd_wide_mma.cu``) up to H = 608 / 672; f32 and other
 widths the one-block CUDA-core ones
 (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose BPTTs run H that is not a
 multiple of 8 / 32 zero-padded to one); the tests pick a route by the dtype
@@ -21,6 +23,8 @@ kernels in bf16, 2e-2 of max|dgx| (or max|dnr|: the d(gates) are rounded to
 bf16 and fed back through dh). The DSP kernels (framing × window,
 overlap-add) equal their twins bit for bit in f32 and bf16.
 """
+
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 
 import numpy as np
 import pytest
@@ -539,12 +543,15 @@ def test_tensor_core_bptt_matches_twins(cuda_device, T, B, H):
 @pytest.mark.parametrize("dtype,H,route,gru_route", ROUTE_CASES)
 def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
     """f32 and widths outside the tensor-core route launch the CUDA-core
-    BPTT kernels (the LSTM's cluster kernel past H = 256, bf16: 128); each
-    call counts on its route alone and agrees with its twin. The CUDA-core
-    GRU BPTT runs H that is not a multiple of 32 zero-padded to one."""
+    BPTT kernels (the LSTM's cluster kernel past H = 256), bf16 past 128 the
+    tensor-core cluster kernels; each call counts on its route alone and
+    agrees with its twin. The CUDA-core GRU BPTT runs H that is not a
+    multiple of 32 zero-padded to one."""
     T, B = 24, 5
     lstm_args = _bwd_args(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
+    if dtype == torch.bfloat16:  # a bf16 BPTT the forward sends wide takes the tensor cores
+        route, gru_route = (("wide_mma" if r == "wide" else r) for r in (route, gru_route))
     l0, g0 = _bwd_routes()
     with torch.no_grad():
         got, want = bilstm_bwd(*lstm_args), bilstm_bwd_reference(*lstm_args)
@@ -610,12 +617,19 @@ GRU_WIDE_SHAPES = [(33, 9, 336), (64, 1, 640), (40, 32, 512), (1, 1, 512), (24, 
 WIDE_CASES = [("lstm", *s) for s in WIDE_SHAPES] + [("gru", *s) for s in GRU_WIDE_SHAPES]
 
 
+def _wide_bwd(dtype):
+    """The BPTT route of a call the forward sends to the cluster kernels, at
+    the widths of ``WIDE_CASES``."""
+    return "wide_mma" if dtype == torch.bfloat16 else "wide"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell,T,B,H", WIDE_CASES)
 def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
     """Forward (the LSTM's with and without cells) and BPTT on the cluster
-    kernels agree with the twins, each counted once on the wide route."""
+    kernels agree with the twins, each counted once on its route (the bf16
+    BPTT on the tensor-core cluster kernel)."""
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     if cell == "gru":
         f_args = _gru_gates(T, B, H, dtype, cuda_device, seed=T + B)
@@ -631,7 +645,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
                 _close_rel(got[2:], want[2:], 2e-2)
         torch.cuda.synchronize()
         assert _route_counts(f0, bigru_fwd.routes, "wide") == (1, 0)
-        assert _route_counts(b0, bigru_bwd.routes, "wide") == (1, 0)
+        assert _route_counts(b0, bigru_bwd.routes, _wide_bwd(dtype)) == (1, 0)
         return
     f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
     b_args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
@@ -647,7 +661,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
             _close_rel(got, want, 2e-2)
     torch.cuda.synchronize()
     assert _route_counts(f0, bilstm_fwd.routes, "wide") == (2, 0)
-    assert _route_counts(b0, bilstm_bwd.routes, "wide") == (1, 0)
+    assert _route_counts(b0, bilstm_bwd.routes, _wide_bwd(dtype)) == (1, 0)
 
 
 @pytest.mark.cuda
@@ -688,7 +702,7 @@ def test_wide_autograd_pair_matches_twins(cuda_device, dtype, cell):
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
     assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
-    assert _route_counts(b0, bwd.routes, "wide") == (1, 0)
+    assert _route_counts(b0, bwd.routes, _wide_bwd(dtype)) == (1, 0)
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
         tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
@@ -721,6 +735,115 @@ def test_wide_launch_plan_matches_the_layout(cuda_device, cell, H):
     out = (ctypes.c_int * 9)()
     granule = wide_layout.GRANULE[gates]
     assert fns[0](32, H, p.Hb + granule, p.U, 0, out) != 0 or H < granule
+
+
+# --- the tensor-core cluster BPTTs (the "wide_mma" route) ----------------------
+
+# chip_smoke.py's WIDE_BWD_SHAPES / WIDE_GRU_BWD_SHAPES (the training step's
+# rows, the Pallas-parity widths 264 / 336, the widest Pallas widths 608 /
+# 640, H = 100 zero-padded to 128) and the fakes pass at B = 160
+WIDE_MMA_CASES = ([("lstm", *s) for s in [(512, 32, 512), (33, 9, 264), (40, 1, 608), (24, 5, 100)]]
+                  + [("gru", *s) for s in [(512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)]]
+                  + [("lstm", 512, 160, 512), ("gru", 512, 160, 512)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", WIDE_MMA_CASES)
+def test_wide_mma_bptt_matches_twins(cuda_device, cell, T, B, H):
+    """The tensor-core cluster BPTTs against the twins in bf16 (2e-2 of the
+    largest |dgx| / |dnr|), launched directly; through the entry where the
+    route takes H, counted once on it."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.bfloat16, cuda_device, seed=T + B)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    parts = (slice(0, 2), slice(2, 4)) if gru else (slice(0, 2),)
+    with torch.no_grad():
+        got = m.bwd_launch("wide_mma", *args)
+        for sl in parts:
+            _close_rel(got[sl], want[sl], 2e-2)
+        if bwd_route(torch.bfloat16, H, cell) == "wide_mma":
+            wrapper = bigru_bwd if gru else bilstm_bwd
+            b0 = dict(wrapper.routes)
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+            assert _route_counts(b0, wrapper.routes, "wide_mma") == (1, 0)
+            for sl in parts:
+                _close_rel(got[sl], want[sl], 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_wide_mma_autograd_pair_matches_twins(cuda_device, cell):
+    """The autograd pair at chip_smoke.py's WIDE_AUTOGRAD_SHAPE (512, 32, 512)
+    in bf16: the cluster forward and the tensor-core cluster BPTT."""
+    gru = cell == "gru"
+    T, B, H = 512, 32, 512
+    base = (_gru_gates if gru else _gates)(T, B, H, torch.bfloat16, cuda_device, seed=7)
+    dy = np.random.default_rng(1).normal(size=(T, B, H)).astype(np.float32)
+    dy = torch.from_numpy(dy).to(device=cuda_device, dtype=torch.bfloat16)
+    fwd, bwd = (bigru_fwd, bigru_bwd) if gru else (bilstm_fwd, bilstm_bwd)
+    cores = (bigru_core, bigru_core_reference) if gru else (bilstm_core, bilstm_core_reference)
+    grads = []
+    f0, b0 = dict(fwd.routes), dict(bwd.routes)
+    for core in cores:
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        torch.autograd.backward(core(*leaves), (dy, dy))
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
+    assert _route_counts(b0, bwd.routes, "wide_mma") == (1, 0)
+    for g, w in zip(*grads):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (160, 288, 512, 608)]
+                         + [("gru", H) for H in (160, 352, 512, 640, 672)])
+@pytest.mark.parametrize("B", [1, 8, 32, 160])
+def test_wide_mma_plan_matches_the_layout(cuda_device, cell, H, B):
+    """The launchers split H as ``ops/wide_mma_layout.py::plan`` does and
+    choose the rows ``rows`` replays at the card's clusters; B = 8 and 32
+    run in one wave."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_mma_layout as wm
+
+    gates = 3 if cell == "gru" else 4
+    p = wm.plan(H, gates)
+    fn = getattr(_build.library(), f"percival_{'bigru' if gates == 3 else 'bilstm'}_bwd_wide_mma_plan")
+    out = (ctypes.c_int * 9)()
+    assert fn(B, H, p.Hb, p.U, out) == 0
+    U, Hb, NC, R, MPW, clusters, waves, dbuf, smem = out
+    assert (U, Hb, NC) == tuple(p) and clusters >= 1
+    assert (R, MPW, waves, dbuf, smem) == tuple(wm.rows(B, H, gates, clusters))
+    if B <= 32 and H == 512:
+        assert waves == 1
+    assert fn(B, H + 8, p.Hb, p.U, out) != 0  # H not a multiple of 32
+
+
+@pytest.mark.cuda
+def test_wide_mma_bptt_refuses_f32_and_widths_past_shared_memory(cuda_device):
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import wide_mma_layout as wm
+
+    with pytest.raises(TypeError, match="bfloat16"):
+        lstm_cuda.bwd_launch("wide_mma", *_bwd_args(2, 1, 256, torch.float32, cuda_device, seed=1))
+    with pytest.raises(TypeError, match="bfloat16"):
+        gru_cuda.bwd_launch("wide_mma", *_gru_bwd_args(2, 1, 256, torch.float32, cuda_device,
+                                                      seed=1))
+    H = wm.max_h(4) + 1
+    with pytest.raises(ValueError, match=f"H <= {wm.max_h(4)}"):
+        lstm_cuda.bwd_launch("wide_mma", *_bwd_args(2, 1, H, torch.bfloat16, cuda_device, seed=1))
+    H = wm.max_h(3) + 1
+    with pytest.raises(ValueError, match=f"H <= {wm.max_h(3)}"):
+        gru_cuda.bwd_launch("wide_mma", *_gru_bwd_args(2, 1, H, torch.bfloat16, cuda_device,
+                                                      seed=1))
 
 
 # --- the DSP kernels: framing × window and overlap-add ------------------------

@@ -4,6 +4,8 @@ draws, crop offsets and cycled pad rows; the port assembles them in numpy
 where the JAX package may use its native data plane), the same splits and
 sanity cost, and the prefetch thread's behaviour."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import time
 
 import numpy as np

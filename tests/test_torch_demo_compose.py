@@ -16,6 +16,8 @@
   label-length checks.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import argparse
 import dataclasses
 import json

@@ -22,6 +22,8 @@ On the CPU (the corpus lives on the CPU device here; the card tests in
 * a WGAN-GP epoch on the device corpus selecting on ``mcd_gv``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import json
 import os

@@ -16,6 +16,8 @@ numpy-made signals against the JAX functions row by row. Tolerances, f32:
   f32 rounding floor of the FFT in weak bands).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import importlib
 
 import jax

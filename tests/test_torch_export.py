@@ -25,6 +25,8 @@ nodes, which ``torch.export`` traces, saves and loads in 44–48 s on the
 CPU: each vocoder's is made once, by a module fixture.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 

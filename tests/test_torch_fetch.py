@@ -4,6 +4,8 @@ four cases against the copy, and the tree it unpacks equal, file for file
 and byte for byte, to the JAX package's. No case touches the network: the
 download leg's failure is made by replacing ``urllib.request.urlopen``."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import os
 import tarfile
 import urllib.error

@@ -17,6 +17,8 @@ themselves are held against the twins on the card
 (``tests/test_torch_cuda.py``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import numpy as np
 import pytest
 import torch

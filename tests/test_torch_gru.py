@@ -15,6 +15,8 @@ in the BPTT the d(gates) are rounded to bf16 and fed back through dh, so
 2e-2 of max|dgx| (or max|dnr|).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import functools
 

@@ -6,6 +6,8 @@ The import checks run in fresh subprocesses: this suite's conftest imports
 jax into the test process itself.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import json
 import os

@@ -16,6 +16,8 @@ Tiny widths (``__graft_entry__._tiny_cfg``, f32 compute), on the CPU:
   one in ``tests/test_torch_parallel.py``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import json
 import os

@@ -11,6 +11,8 @@ path carries in the compute dtype while the kernel carries in f32, so the
 scan is compared in f32 only; bf16 is compared with the Pallas kernel.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

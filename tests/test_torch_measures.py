@@ -11,6 +11,8 @@ modulation spectrum are sums over thousands of frames); the voicing
 error is a count of decisions, compared exactly.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 

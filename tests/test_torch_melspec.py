@@ -25,6 +25,8 @@ per utterance: 1e-4 (the same padded frames; FFTs and products over
 another batch size); ``analyze_batch`` against ``analyze``: bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import functools
 
 import jax.numpy as jnp

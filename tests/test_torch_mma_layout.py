@@ -14,6 +14,8 @@ the gate math runs on the same (B, H) tensors. The kernels themselves are
 held against the twins on the card (``tests/test_torch_cuda.py``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import numpy as np
 import pytest
 import torch
@@ -170,7 +172,8 @@ def test_widths_outside_the_tensor_core_route_are_refused(kind, H):
     # the cluster kernels ("wide", ops/wide_layout.py)
     route = "wide" if H > 128 else "simt"
     assert fwd_route(torch.bfloat16, H, kind) == route
-    assert bwd_route(torch.bfloat16, H, kind) == route
+    # the BPTT past 128 on the tensor-core cluster kernels ("wide_mma")
+    assert bwd_route(torch.bfloat16, H, kind) == ("wide_mma" if H > 128 else route)
 
 
 def test_route_is_chosen_from_dtype_and_width():
@@ -182,9 +185,10 @@ def test_route_is_chosen_from_dtype_and_width():
     # above the register budget: the cluster kernels, the LSTM's and the GRU's
     assert fwd_route(torch.bfloat16, 136) == "wide"
     assert fwd_route(torch.bfloat16, 136, "gru") == "wide"
-    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128),
-                     (torch.bfloat16, 136)):
+    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128)):
         for cell in ("lstm", "gru"):  # the BPTT follows the forward
             assert bwd_route(dtype, H, cell) == fwd_route(dtype, H, cell)
+    for cell in ("lstm", "gru"):  # but past 128 in bf16 takes the tensor-core cluster kernels
+        assert bwd_route(torch.bfloat16, 136, cell) == "wide_mma"
     with pytest.raises(ValueError, match="kind"):
         gate_rows("rnn", 64)

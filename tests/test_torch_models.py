@@ -11,6 +11,8 @@ refusals, and the full-width parameter counts of config 3, of its 2d form
 and of the BGRU and BLSTM generators.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 
 import flax.linen as fnn

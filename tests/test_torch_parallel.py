@@ -38,6 +38,8 @@ one in this process.
   uninterrupted world-2 run.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 import pickle
@@ -204,7 +206,8 @@ def runs(tmp_path_factory):
     cases, objs = _inputs(root)
     with open(root / "inputs.pkl", "wb") as f:
         pickle.dump(cases, f)
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **torch_threads.ENV)  # each rank at this worker's share of the cores
     logs = [open(root / f"rank{r}.log", "w") for r in range(WORLD)]
     procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(WORLD),
                                str(root / "inputs.pkl"), str(root)],

@@ -18,6 +18,8 @@ convention tests at these sizes: a no-op without voicing flips, far frames
 bit-identical with one, a ``ValueError`` without ``vuv``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import importlib
 

@@ -8,6 +8,8 @@ features (scales up to 2); the wavs' tolerance is stated in
 ``_check_cli_synth``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import glob
 import json

@@ -20,6 +20,8 @@ Tolerances, f32:
   sum, taken in another order by XLA and torch).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 

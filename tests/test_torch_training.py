@@ -23,6 +23,8 @@ compared with the score bias added back (every row here has valid frames,
 so each score is its pooled sum plus the bias).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 
 import jax

@@ -23,6 +23,8 @@ clamped corrections) of the largest sample; ``synthesize_batch`` as its
 test states.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 

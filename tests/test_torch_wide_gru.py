@@ -21,6 +21,8 @@ the Adam first moments within 1e-3 of each parameter's largest moment, as
 ``tests/test_torch_training.py``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 
 import jax
@@ -64,7 +66,10 @@ from percivaltts_tpu_torch.training.state import make_gan_state
 ])
 def test_gru_route_table(dtype, H, route):
     assert fwd_route(dtype, H, "gru") == route
-    assert bwd_route(dtype, H, "gru") == route  # a layer's backward takes its forward's route
+    # a layer's backward takes its forward's route, but for bf16 on the
+    # cluster kernels: the tensor-core cluster BPTT up to H = 672
+    bwd = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
+    assert bwd_route(dtype, H, "gru") == bwd
     assert GRU_SIMT_MAX_H[torch.float32] == 320
 
 

@@ -26,6 +26,8 @@ first moments within 1e-3 of each parameter's largest moment, as
 the CPU's GEMMs may sum a padded product in another order: 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import functools
 
@@ -84,7 +86,10 @@ from percivaltts_tpu_torch.training.state import make_gan_state
 ])
 def test_route_table(dtype, H, cell, route):
     assert fwd_route(dtype, H, cell) == route
-    assert bwd_route(dtype, H, cell) == route  # a layer's backward takes its forward's route
+    # a layer's backward takes its forward's route, but for bf16 on the
+    # cluster kernels: the tensor-core cluster BPTT up to H = 608 / 672
+    bwd = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
+    assert bwd_route(dtype, H, cell) == bwd
 
 
 def test_route_refuses_other_cells_and_the_wide_plan_names_its_limit():

@@ -1,0 +1,368 @@
+"""The tensor-core wide BPTT kernels' split, packing and fragments, on the CPU.
+
+``csrc/bilstm_bwd_wide_mma.cu`` and ``csrc/bigru_bwd_wide_mma.cu`` run a
+direction on a cluster of blocks (``ops/wide_mma_layout.py``): block ``b``
+holds its ``W_hᵀ`` slice (``pack_wh``: packed rows of the tensor-core
+forwards' order) in shared memory, 16 warps share out the (unit group, 8-row
+tile) cells of the recompute and the gate math (one a warp), and the 16-unit tiles of the
+chained product, whose partials go to the blocks that own the units.
+
+Here the kernels' address arithmetic is replayed in Python (the same
+expressions as the sources, lane by lane): every ldmatrix address gives
+exactly the ``mma.m16n8k16`` fragment the product needs (PTX ISA layouts),
+the accumulators land on the gates and rows the gate phase names, the dz
+tile and the partial slots are written where they are read; and a plain
+BPTT whose products and exchange run through the packed slices and the
+split equals ``bilstm_bwd_reference`` / ``bigru_bwd_reference`` in f32
+within 1e-5 of the largest gradient (the kernels sum over K in 16-wide
+k-steps and over the blocks in order: the same terms in another order, at
+unit scale a few ulps of f32). The route table and the row choice are
+checked too; the card holds the kernels to the twins
+(``tests/test_torch_cuda.py``).
+"""
+
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
+import numpy as np
+import pytest
+import torch
+
+from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout as wm
+from percivaltts_tpu_torch.ops.gru_cuda import bigru_bwd_reference, bigru_fwd_reference
+from percivaltts_tpu_torch.ops.lstm_cuda import (
+    at_width,
+    bilstm_bwd_reference,
+    bilstm_fwd_reference,
+)
+from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
+
+L = torch.arange(32)  # lanes
+G_OF = {"lstm": 4, "gru": 3}
+# (cell, T, B, H): H = 264 / 336 (the Pallas-parity widths, padded to 288 /
+# 352), 512 (the models' H), 200 (not a multiple of 16); B not a multiple of 8
+CASES = [("lstm", 5, 11, 264), ("gru", 5, 11, 336), ("lstm", 3, 13, 512), ("gru", 3, 13, 512),
+         ("lstm", 4, 9, 200), ("gru", 4, 9, 200)]
+
+
+def _ldmatrix(addr, n_mats, trans=False):
+    """``(32, n_mats, 2)`` flat shared-memory indices each lane receives from
+    ``ldmatrix`` (``.trans``): row ``ρ`` of matrix ``i`` starts at the address
+    lane ``8i + ρ`` gives. Plain: lane ``l`` gets row ``l // 4``, elements
+    ``2(l % 4)`` and ``+1``; transposed: rows ``2(l % 4)`` and ``+1`` of
+    element ``l // 4``."""
+    i = torch.arange(n_mats)[None, :, None]
+    h = torch.arange(2)[None, :][:, None, :]
+    lane = L[:, None, None]
+    if trans:
+        return addr(8 * i + 2 * (lane % 4) + h) + lane // 4
+    return addr(8 * i + lane // 4) + 2 * (lane % 4) + h
+
+
+def _a_coords(reg):
+    """PTX m16n8k16 A fragment: ``(m, k)`` of register ``reg`` (pair h) for each lane."""
+    lane, h = L[:, None], torch.arange(2)[None, :]
+    return lane // 4 + 8 * (reg % 2) + 0 * h, 8 * (reg // 2) + 2 * (lane % 4) + h
+
+
+def _b_coords(reg):
+    """PTX m16n8k16 B fragment: ``(k, n)`` of register ``reg`` (pair h)."""
+    lane, h = L[:, None], torch.arange(2)[None, :]
+    return 8 * reg + 2 * (lane % 4) + h, lane // 4 + 0 * h
+
+
+def _d_coords():
+    """PTX m16n8 accumulator: ``(m, n)`` of element ``e`` for each lane, ``(32, 4)``."""
+    lane, e = L[:, None], torch.arange(4)[None, :]
+    return lane // 4 + 8 * (e // 2), 2 * (lane % 4) + e % 2
+
+
+def _mma(a_vals, b_vals):
+    """``D (16, 8)`` from lane fragments: ``a_vals (32, 4, 2)``, ``b_vals (32, 2, 2)``."""
+    A = torch.zeros(16, 16, dtype=a_vals.dtype)
+    Bm = torch.zeros(16, 8, dtype=b_vals.dtype)
+    for reg in range(4):
+        m, k = _a_coords(reg)
+        A[m, k] = a_vals[:, reg]
+    for reg in range(2):
+        k, n = _b_coords(reg)
+        Bm[k, n] = b_vals[:, reg]
+    return A @ Bm
+
+
+class Kernel:
+    """The kernel's index expressions for a cell at padded width ``H`` (one
+    block's slice, one launch's rows ``R``)."""
+
+    def __init__(self, cell, H, R=16):
+        self.cell, self.H, self.R = cell, H, R
+        self.gates = G_OF[cell]
+        self.p = wm.plan(H, self.gates)
+        self.ugs = wm.UNIT_GROUP[self.gates]
+        self.group_rows = self.gates * self.ugs  # 32 / 48
+        self.WS, self.DS = H + 8, self.p.NC + 8
+
+    def a_rec(self, ug, j, kk):
+        """Recompute A: a_rec + j·16·WS + kk·16 (flat index into s_w)."""
+        WS = self.WS
+        return lambda ln: ((ug * self.group_rows + (ln & 7) + 8 * ((ln >> 3) & 1)) * WS
+                           + 8 * (ln >> 4) + j * 16 * WS + kk * 16)
+
+    def b_rec(self, nt, kk):
+        """Recompute B (two k-steps): s_h + (nt·8 + ld_row)·WS + kk·16 + ld_mat·8."""
+        return lambda ln: (nt * 8 + (ln & 7)) * self.WS + kk * 16 + (ln >> 3) * 8
+
+    def a_dh(self, mt, kk):
+        """Chained product A (trans): s_w + (8(ld_mat >> 1) + ld_row)·WS + mt·16 + 8(ld_mat & 1) + kk·16·WS."""
+        WS = self.WS
+        return lambda ln: (8 * (ln >> 4) + (ln & 7)) * WS + mt * 16 + 8 * ((ln >> 3) & 1) + kk * 16 * WS
+
+    def b_dh(self, n, kk):
+        """Chained product B: s_dg + ld_row·DS + 8(ld_mat & 1) + n·8·DS + kk·16."""
+        return lambda ln: (ln & 7) * self.DS + 8 * ((ln >> 3) & 1) + n * 8 * self.DS + kk * 16
+
+    def z_slot(self, ug):
+        """(gate, unit in the block, tile j, element e) the gate phase reads
+        from accumulator (j, e) of lane l: ``(32, tiles, 4)`` each."""
+        j = torch.arange(self.group_rows // 16)[None, :, None]
+        e = torch.arange(4)[None, None, :]
+        g = (L // 4)[:, None, None]
+        if self.cell == "lstm":  # z[0] = i | f, z[1] = g | o of unit 8ug + l/4
+            gate, unit = 2 * j + e // 2, ug * 8 + g + 0 * j
+        else:  # z[u] = r | z of unit 16ug + 8u + l/4; z[2] = n of both units
+            gate = torch.where(j < 2, e // 2, 2)
+            unit = ug * 16 + g + torch.where(j < 2, 8 * j, 8 * (e // 2))
+        return gate.expand(32, -1, 4), unit.expand(32, -1, 4)
+
+    def dg_col(self, ug, gate, u):
+        """The dz tile column the gate phase writes gate ``gate`` of the
+        lane's unit into (LSTM: dgr + 8·gi; GRU: dgr (+ 8, + 32 − 8u) with
+        dgr = ug·48 + 16u + g), for lanes ``g = l // 4``."""
+        g = L // 4
+        if self.cell == "lstm":
+            return ug * 32 + g + 8 * gate
+        base = ug * 48 + 16 * u + g
+        return base + (0 if gate == 0 else 8 if gate == 1 else 32 - 8 * u)
+
+    def slot(self, k):
+        """(owner block, slot row) of the partial of unit ``k`` from this
+        block: owner = k // Hb, row (rank·Hb + k − owner·Hb)."""
+        return k // self.p.Hb, k - (k // self.p.Hb) * self.p.Hb
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("H", [160, 288, 352, 512, 608, 640, 672])
+def test_plan_and_packing_round_trip(gates, H):
+    if H > wm.max_h(gates):
+        with pytest.raises(ValueError):
+            wm.rows(8, H, gates, 7)
+        return
+    p = wm.plan(H, gates)
+    assert p.Hb % wm.UNIT_GROUP[gates] == 0 and 1 <= p.U <= 16
+    assert (p.U - 1) * p.Hb < H <= p.U * p.Hb and p.NC == gates * p.Hb
+    cols = wm.columns(H, p)
+    real = cols[cols >= 0]
+    assert torch.equal(real.sort().values, torch.arange(gates * H))  # every column once
+    gate, unit = wm.block_rows(gates, p.Hb)  # packed row c: gate gate[c] of unit b·Hb + unit[c]
+    u = torch.arange(p.U)[:, None] * p.Hb + unit[None, :]
+    assert torch.equal(cols, torch.where(u < H, gate * H + u, -1))
+    wh = torch.randn(H, gates * H)
+    wp = wm.pack_wh(wh, p)
+    assert wp.shape == (p.U, p.NC, H)
+    assert torch.equal(wm.unpack_wh(wp, p), wh)
+    assert torch.equal(wp[cols < 0], torch.zeros_like(wp[cols < 0]))
+
+
+def test_widths_and_routes():
+    """The new route takes bf16 past the tensor-core one-block kernels' 128 up
+    to where its shared memory ends (608 LSTM, 672 GRU: the Pallas kernels'
+    608 / 640 are inside); f32 and the forwards keep their routes."""
+    assert (wm.max_h(4), wm.max_h(3)) == (608, 672)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for cell, gates in (("lstm", 4), ("gru", 3)):
+        for H in (129, 200, 256, 264, 336, 512, wm.max_h(gates)):
+            assert fwd_route(bf16, H, cell) == "wide"
+            assert bwd_route(bf16, H, cell) == "wide_mma"
+        for H in (wm.max_h(gates) + 1, 1024, wide_layout.max_h(gates)):
+            assert bwd_route(bf16, H, cell) == "wide"
+            assert not wm.fits(H, gates)
+        for H in (16, 128):
+            assert bwd_route(bf16, H, cell) == "mma"
+        for H in (512, 1024):
+            assert bwd_route(f32, H, cell) == fwd_route(f32, H, cell) == "wide"
+        assert bwd_route(f32, 200, cell) == "simt"
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_rows_a_cluster(gates):
+    """The plan's rows at the card's 7 clusters of 16 (chip_smoke.py phases
+    13a / 14a): B = 8 and 32 in one wave; at H = 512 no R >= 56 fits shared
+    memory, so B = 160 takes two waves of R = 24 (the fewest waves, then the
+    fewest rows); narrower layers take B = 160 in one."""
+    for B, R in ((8, 8), (32, 16)):
+        r = wm.rows(B, 512, gates, 7)
+        assert (r.R, r.waves) == (R, 1) and r.smem <= wm.SMEM_OPTIN
+    r = wm.rows(160, 512, gates, 7)
+    assert (r.R, r.waves) == (24, 2)
+    assert wm.smem_bytes(512, gates, 56) > wm.SMEM_OPTIN
+    r = wm.rows(160, 288, gates, 7)  # LSTM: 3 unit groups, so at most 5 tiles of 8 rows
+    assert (r.R, r.waves) == ((24, 2) if gates == 4 else (56, 1))
+    for B in (1, 8, 33, 160):
+        r = wm.rows(B, 608 if gates == 4 else 640, gates, 7)
+        assert r.R == 8 and r.MPW == 3
+
+
+@pytest.mark.parametrize("cell,H", [("lstm", 288), ("gru", 352), ("lstm", 512), ("gru", 512)])
+def test_fragments_match_the_ptx_layouts(cell, H):
+    """Every ldmatrix address of both products gives the mma fragment the
+    product needs; the accumulators land on (gate, unit, row) as the gate
+    phase reads them; the dz tile and the partial slots are written where
+    the chained product and the owner read them."""
+    k = Kernel(cell, H)
+    p, WS, DS = k.p, k.WS, k.DS
+    gate_of, unit_of = wm.block_rows(k.gates, p.Hb)
+    rng = np.random.default_rng(0)
+    s_w = torch.from_numpy(rng.normal(size=(p.NC, WS))).flatten()  # the W_hᵀ slice rows
+    s_h = torch.from_numpy(rng.normal(size=(k.R, WS))).flatten()
+    s_dg = torch.from_numpy(rng.normal(size=(k.R, DS))).flatten()
+    Wt, Hm, Dg = s_w.view(p.NC, WS), s_h.view(k.R, WS), s_dg.view(k.R, DS)
+    for ug in range(p.Hb // k.ugs):
+        for kk in range(0, H // 16, 2):
+            b = _ldmatrix(k.b_rec(1, kk), 4)  # n-tile 1: rows 8 … 15
+            for h in range(2):
+                for reg in range(2):  # registers 2h, 2h + 1: b0, b1 of k-step kk + h
+                    kc, n = _b_coords(reg)
+                    assert torch.equal(b[:, 2 * h + reg] // WS, 8 + n)
+                    assert torch.equal(b[:, 2 * h + reg] % WS, 16 * (kk + h) + kc)
+                for j in range(k.group_rows // 16):
+                    a = _ldmatrix(k.a_rec(ug, j, kk + h), 4)
+                    for reg in range(4):
+                        m, kc = _a_coords(reg)
+                        assert torch.equal(a[:, reg] // WS, ug * k.group_rows + 16 * j + m)
+                        assert torch.equal(a[:, reg] % WS, 16 * (kk + h) + kc)
+                    d = _mma(s_w[a], s_h[b[:, 2 * h:2 * h + 2]])
+                    want = Wt[ug * k.group_rows + 16 * j:][:16, 16 * (kk + h):][:, :16] @ \
+                        Hm[8:16, 16 * (kk + h):16 * (kk + h) + 16].T
+                    assert torch.allclose(d, want)
+        # accumulator (j, e) of lane l is packed row 16j + m of the group, batch row n
+        gate, unit = k.z_slot(ug)
+        m, n = _d_coords()
+        rows = ug * k.group_rows + 16 * torch.arange(k.group_rows // 16)[None, :, None] + m[:, None, :]
+        assert torch.equal(gate_of[rows], gate) and torch.equal(unit_of[rows], unit)
+        # the dz tile column of (gate, unit) is that unit's packed row
+        for u in range(2 if cell == "gru" else 1):
+            for gi in range(k.gates):
+                col = k.dg_col(ug, gi, u)
+                assert torch.equal(gate_of[col], torch.full((32,), gi))
+                assert torch.equal(unit_of[col], ug * k.ugs + 8 * u + L // 4)
+    for mt in range(H // 16):
+        for kk in range(p.NC // 16):
+            a = _ldmatrix(k.a_dh(mt, kk), 4, trans=True)
+            for reg in range(4):  # A_dh[m][kc] = W_hᵀ slice row 16kk + kc, unit 16mt + m
+                m, kc = _a_coords(reg)
+                assert torch.equal(a[:, reg] // WS, 16 * kk + kc)
+                assert torch.equal(a[:, reg] % WS, 16 * mt + m)
+            b = _ldmatrix(k.b_dh(1, kk), 2)
+            for reg in range(2):
+                kc, n = _b_coords(reg)
+                assert torch.equal(b[:, reg] // DS, 8 + n)
+                assert torch.equal(b[:, reg] % DS, 16 * kk + kc)
+            d = _mma(s_w[a], s_dg[b])
+            want = Wt[16 * kk:16 * kk + 16, 16 * mt:16 * mt + 16].T @ Dg[8:16, 16 * kk:16 * kk + 16].T
+            assert torch.allclose(d, want)
+        # the lane's partials (units 16mt + l/4, + 8; rows 2(l%4), +1) go to
+        # the owner's slot rows; every unit of the tile to one slot row
+        m, _ = _d_coords()
+        units = 16 * mt + m[:, [0, 2]]
+        owner, row = k.slot(units)
+        assert torch.equal(owner * p.Hb + row, units) and bool((owner < p.U).all())
+
+
+def _replay_bptt(cell, H):
+    """A plain BPTT at padded width ``Hp`` (as the wrapper pads) whose
+    recompute and chained product run through the packed slices, the cells'
+    accumulator mapping and the owners' block-order sums."""
+    gates = G_OF[cell]
+
+    def core(*args):
+        T, B, G = args[0].shape
+        Hp = G // gates
+        p = wm.plan(Hp, gates)
+        outs = []
+        if cell == "lstm":
+            gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b = args
+            dirs = ((gx_f, wh_f, hp_f, cp_f, c_f, dy_f, range(T - 1, -1, -1)),
+                    (gx_b, wh_b, hp_b, cp_b, c_b, dy_b, range(T)))
+        else:
+            gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b = args
+            dirs = ((gx_f, wh_f, bn_f, hp_f, dy_f, range(T - 1, -1, -1)),
+                    (gx_b, wh_b, bn_b, hp_b, dy_b, range(T)))
+        for d in dirs:
+            wp = wm.pack_wh(d[1], p)
+            hp = d[2] if cell == "lstm" else d[3]
+            dgx = torch.zeros_like(d[0])
+            dnr_out = torch.zeros(T, B, Hp)
+            dh_c = torch.zeros(B, Hp)
+            dc = torch.zeros(B, Hp)
+            for t in d[-1]:
+                z = wm.replay_recompute(hp[t], wp, p)  # the blocks' packed rows, back to columns
+                if cell == "lstm":
+                    gx, hp_, cp_, cs, dy = d[0][t], d[2][t], d[3][t], d[4][t], d[5][t]
+                    zz = gx + z
+                    i, f = torch.sigmoid(zz[:, :Hp]), torch.sigmoid(zz[:, Hp:2 * Hp])
+                    g, o = torch.tanh(zz[:, 2 * Hp:3 * Hp]), torch.sigmoid(zz[:, 3 * Hp:])
+                    tc = torch.tanh(cs)
+                    dh = dy + dh_c
+                    dcn = dc + dh * o * (1 - tc * tc)
+                    dz = torch.cat([dcn * g * i * (1 - i), dcn * cp_ * f * (1 - f),
+                                    dcn * i * (1 - g * g), dh * tc * o * (1 - o)], -1)
+                    dgx[t] = dz
+                    dg = dz
+                    dc = dcn * f
+                else:
+                    gx, bn, hp_, dy = d[0][t], d[2], d[3][t], d[4][t]
+                    r = torch.sigmoid(gx[:, :Hp] + z[:, :Hp])
+                    zg = torch.sigmoid(gx[:, Hp:2 * Hp] + z[:, Hp:2 * Hp])
+                    ghn = z[:, 2 * Hp:] + bn
+                    n = torch.tanh(gx[:, 2 * Hp:] + r * ghn)
+                    dh = dy + dh_c
+                    dn = dh * (1 - zg) * (1 - n * n)
+                    dr, dzz, dnr = dn * ghn * r * (1 - r), dh * (hp_ - n) * zg * (1 - zg), dn * r
+                    dgx[t] = torch.cat([dr, dzz, dn], -1)
+                    dnr_out[t] = dnr
+                    dg = torch.cat([dr, dzz, dnr], -1)
+                # the dz tile in packed columns, then the blocks' partials summed by owners
+                dh_c = wm.replay_dh(dg, wp, p) + (dh * zg if cell == "gru" else 0.0)
+            outs.append((dgx, dnr_out))
+        if cell == "lstm":
+            return outs[0][0], outs[1][0]
+        return outs[0][0], outs[1][0], outs[0][1], outs[1][1]
+
+    Hp = wm.padded(H)
+    return lambda *args: at_width(core, Hp, gates, *args)
+
+
+@pytest.mark.parametrize("cell,T,B,H", CASES)
+def test_replayed_bptt_equals_the_twin(cell, T, B, H):
+    gates = G_OF[cell]
+    rng = np.random.default_rng(T + B + H)
+    f = lambda *s, sc=1.0: torch.from_numpy(rng.normal(size=s) * sc).float()  # noqa: E731
+    gx = [f(T, B, gates * H) for _ in range(2)]
+    wh = [f(H, gates * H, sc=H ** -0.5) for _ in range(2)]
+    if cell == "lstm":
+        yf, yb, cf, cb = bilstm_fwd_reference(*gx, *wh, with_cells=True)
+        z = torch.zeros_like(yf[:1])
+        args = (*gx, *wh, torch.cat([z, yf[:-1]]), torch.cat([yb[1:], z]),
+                torch.cat([z, cf[:-1]]), torch.cat([cb[1:], z]), cf, cb, f(T, B, H), f(T, B, H))
+        want = bilstm_bwd_reference(*args)
+    else:
+        bn = [f(H) for _ in range(2)]
+        yf, yb = bigru_fwd_reference(*gx, *wh, *bn)
+        z = torch.zeros_like(yf[:1])
+        args = (*gx, *wh, *bn, torch.cat([z, yf[:-1]]), torch.cat([yb[1:], z]),
+                f(T, B, H), f(T, B, H))
+        want = bigru_bwd_reference(*args)
+    got = _replay_bptt(cell, H)(*args)
+    scale = max(w.abs().max().item() for w in want)
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape
+        assert (g_ - w).abs().max().item() <= 1e-5 * max(1.0, scale)

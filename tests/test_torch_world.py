@@ -17,6 +17,8 @@ waveforms 1e-3 (open loop) and 2e-3 (closed loop) of the largest sample;
 ``synthesize_batch`` as its test states.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
+
 import dataclasses
 import os
 
