@@ -192,48 +192,46 @@ raises on failure (the script exits 0 only when all passed):
    -m percivaltts_tpu_torch.cli train --mesh --device-corpus`` with config
    3 on phase 8's corpus, 1 epoch of 2 steps with measures: exit 0, one
    epoch record, the checkpoint, which ``cli synth`` serves;
-13. kernels #1/#2 at every width the JAX package trains (the "wide" route,
-   ``csrc/bilstm_{fwd,bwd}_wide.cu``: a thread-block cluster a direction):
-   13a. each launch plan against ``ops/wide_layout.py``; the forward (with
-   and without cells) at (512, 8, 512), (517, 3, 512), (1, 1, 512), (512,
-   160, 512), (33, 9, 264), (64, 1, 608) and the BPTT at (512, 32, 512),
-   (33, 9, 264), (40, 1, 608), (24, 5, 100) (its entry's route, the
-   one-block kernel padded to H = 104, and the cluster kernel launched
-   directly) against the twins, f32 and bf16, each launch counted on its
-   route; H = 256 on the route that takes it, and in bf16 the one-block
-   kernels against the cluster ones on the same inputs, checked and timed
-   in turns; the autograd pair at (512, 32, 512); both kernels timed at
-   B = 8, 32, 160 beside the twins, the bound and cuDNN's ``nn.LSTM`` (by
-   CUDA events and by device time, its weights in one buffer and the
-   compaction warning an error). The bf16 BPTT there runs on the
-   tensor-core cluster kernel (route ``wide_mma``,
-   ``csrc/bilstm_bwd_wide_mma.cu``): its plan (rows a cluster, clusters at
-   once, waves; B <= 32 in one wave) against ``ops/wide_mma_layout.py``,
-   ``ptxas``'s registers with 0 spills, every BPTT shape and (512, 160,
-   512) against the twins with the CUDA-core cluster kernel launched
-   beside it on the same inputs, and both timed in turns;
+13. kernels #1/#2 at every width the JAX package trains (a thread-block
+   cluster a direction: the CUDA-core "wide" route,
+   ``csrc/bilstm_{fwd,bwd}_wide.cu``, for f32; the tensor-core "wide_mma"
+   route, ``csrc/bilstm_{fwd,bwd}_wide_mma.cu``, for bf16):
+   13a. each launch plan against ``ops/wide_layout.py`` and, for
+   ``wide_mma``, ``ops/wide_mma_layout.py`` (the BPTT's rows a cluster,
+   clusters at once and waves, B <= 32 in one wave; the forward's rows,
+   row tiles a warp and h buffers, B <= 32 and B = 160 in one wave at
+   H = 512), ``ptxas``'s registers with 0 spills on ``wide_mma``; the
+   forward (with and without cells) at (512, 8, 512), (517, 3, 512), (1, 1,
+   512), (512, 160, 512), (33, 9, 264), (64, 1, 608) and the BPTT at (512,
+   32, 512), (33, 9, 264), (40, 1, 608), (24, 5, 100) and, bf16, (512, 160,
+   512) (its entry's route, the one-block kernel padded to H = 104, and
+   the cluster kernels launched directly) against the twins, f32 and bf16,
+   each launch counted on its route, the CUDA-core cluster kernels
+   launched on the bf16 inputs too; H = 256 on the route that takes it,
+   and in bf16 the one-block kernels against both cluster ones on the same
+   inputs, checked and timed in turns; the autograd pair at (512, 32, 512)
+   (bf16: both kernels on ``wide_mma``); both bf16 kernels timed at B = 8,
+   32, 160 in turns with the CUDA-core cluster kernels they replaced (the
+   forward at B = 160 also on R = 40 rows a cluster), beside the twins, the
+   bound and cuDNN's ``nn.LSTM`` (by CUDA events and by device time, its
+   weights in one buffer and the compaction warning an error), and the
+   port's forward layer by device time on both forward kernels;
    13b. config 3 (``cnn_blstm``) and the BLSTM generator at
    ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
-   the twins, every forward launch on the wide route (every BPTT launch of
-   13c on ``wide_mma``), serve medians, busy share;
+   the twins, every forward launch on ``wide_mma`` (and every BPTT launch
+   of 13c), serve medians, busy share;
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
    twins' step as ``_hold_step`` holds phase 5's, the step median of 10;
-14. kernels #3/#4 at every width the JAX package trains (the "wide" route,
-   ``csrc/bigru_{fwd,bwd}_wide.cu``: a thread-block cluster a direction):
-   14a. each launch plan against ``ops/wide_layout.py`` (3 gates); the
-   forward at (512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512),
-   (33, 9, 336), (33, 9, 352), (64, 1, 640) and the BPTT at (512, 32, 512),
-   (33, 9, 336), (40, 1, 640), (24, 5, 100) (its entry's route, and the
-   cluster kernel launched directly) against the twins, f32 and bf16, each
-   launch counted on its route; H = 256 on the route that takes it, and in
-   bf16 the one-block kernels against the cluster ones, checked and timed in
-   turns; the autograd pair at (512, 32, 512); both kernels timed at B = 8,
-   32, 160 beside the twins, the bound and cuDNN's ``nn.GRU``; the bf16
-   BPTT on ``csrc/bigru_bwd_wide_mma.cu`` as in 13a;
+14. kernels #3/#4 at every width the JAX package trains (the same two
+   routes: ``csrc/bigru_{fwd,bwd}_wide.cu`` and
+   ``csrc/bigru_{fwd,bwd}_wide_mma.cu``):
+   14a. as 13a with 3 gates: the forward at (512, 8, 512), (517, 3, 512),
+   (1, 1, 512), (512, 160, 512), (33, 9, 336), (33, 9, 352), (64, 1, 640)
+   and the BPTT at (512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)
+   and (512, 160, 512), cuDNN's ``nn.GRU`` beside the timings;
    14b/14c. the BGRU generator at ``blstm_size=1024`` (H = 512) serving
    phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every forward
-   launch on the wide route and every BPTT launch on ``wide_mma``, (4, 2)
-   launches a step.
+   and BPTT launch on ``wide_mma``, (4, 2) launches a step.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -246,6 +244,7 @@ of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import re
@@ -302,13 +301,13 @@ MODELS = {
     "cnn_blstm_2d": dict(generator="cnn_blstm", conv_style="2d", gen_norm="layer",
                          critic_norm="layer"),
     "bgru_ln": dict(generator="bgru", gen_norm="layer"),
-    # phase 13: blstm_size=1024, H = 512 a direction (the kernels' "wide"
-    # route): config 3's f0 head, and the BLSTM generator's 1024-wide tanh
+    # phase 13: blstm_size=1024, H = 512 a direction (a cluster of blocks a
+    # direction, bf16: "wide_mma"): config 3's f0 head, and the BLSTM generator's 1024-wide tanh
     # front end and 2 bidirectional layers
     "cnn_blstm_1024": dict(generator="cnn_blstm", blstm_size=1024),
     "blstm_1024": dict(generator="blstm", blstm_size=1024),
     # phase 14: the BGRU generator's 1024-wide front end and 2 bidirectional
-    # GRU layers of H = 512 (kernels #3/#4's "wide" route)
+    # GRU layers of H = 512 (kernels #3/#4's cluster routes)
     "bgru_1024": dict(generator="bgru", blstm_size=1024),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
@@ -458,8 +457,8 @@ N_DISPATCH_VOCODES = 5
 # then fails the phase (a collective that waits for a lost rank hangs)
 MESH_TIMEOUT_S = 300
 MESH_CLI_TIMEOUT_S = 300
-# phase 13: kernels #1/#2 at the widths one block cannot hold, the "wide"
-# route (csrc/bilstm_{fwd,bwd}_wide.cu): the serving chunk, edges (T not a
+# phase 13: kernels #1/#2 at the widths one block cannot hold, the cluster
+# routes (csrc/bilstm_{fwd,bwd}_wide{,_mma}.cu): the serving chunk, edges (T not a
 # multiple of anything, T = 1), the fakes pass, widths that leave the last
 # block of a cluster short (264, 608: the widest the JAX package's Pallas
 # kernels run) and 100 (the BPTT's entry pads it on the one-block kernel;
@@ -476,8 +475,11 @@ WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024")
 # the bf16 BPTT's tensor-core cluster kernels (route "wide_mma",
 # csrc/{bilstm,bigru}_bwd_wide_mma.cu) are also held at the fakes pass's rows
 WIDE_MMA_SHAPE = (512, 160, 512)
+# the forward's plan at B = 160 (the LSTM's R = 56 with one h buffer) timed
+# beside another (R = 40: two buffers, two waves), {(cell, B): rows}
+FWD_ALT_ROWS = {("lstm", 160): 40}
 WIDE_BWD_KEYS = {"wide": "_bwd", "wide_mma": "_bwd_wide_mma"}  # the err key of each BPTT route
-# phase 14: kernels #3/#4 on the "wide" route (csrc/bigru_{fwd,bwd}_wide.cu):
+# phase 14: kernels #3/#4 on the cluster routes (csrc/bigru_{fwd,bwd}_wide{,_mma}.cu):
 # phase 13's serving chunk, edges and fakes pass at H = 512, H = 336 (in
 # 321…341 the one-block forward ran and its BPTT refused; its last block
 # holds 16 of 32 units), 352, 640 (the widest the JAX package's Pallas GRU
@@ -3035,11 +3037,13 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
     ``ops/wide_layout.py::plan``'s, with at most one gate pair a thread.
     Printed: blocks a cluster, units a block, threads, batch rows a cluster,
     W_h in shared memory or L2, the clusters the card holds at once, the
-    waves and the shared memory a block. The same for the tensor-core BPTT
-    (``wide_mma``) where it takes H: its split must be
-    ``ops/wide_mma_layout.py::plan``'s and its rows ``rows``'s, B <= 32 in
-    one wave at H = 512; then ``ptxas``'s registers and spills of every
-    instantiation of both BPTTs, none of the tensor-core ones spilling."""
+    waves and the shared memory a block. The same for the tensor-core
+    kernels (``wide_mma``) where they take H: the split of both must be
+    ``ops/wide_mma_layout.py::plan``'s, the BPTT's rows ``rows``'s and the
+    forward's (rows, tiles a warp, h buffers) ``fwd_rows``'s, B <= 32 in one
+    wave at H = 512 (the forward's B = 160 too); then ``ptxas``'s registers
+    and spills of every instantiation of the wide kernels, none of the
+    tensor-core ones spilling."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
@@ -3084,20 +3088,33 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
               f"{Hb} units, 512 threads, {R} rows a cluster ({MPW} dh tiles a warp), {clusters} "
               f"clusters at once ({waves} waves), {1 + dbuf} buffer(s) of partials, {smem} B "
               f"shared memory")
-    # registers and spills of every instantiation of the BPTTs: 0 spills on wide_mma
+        out = (ctypes.c_int * 11)()
+        _build.check(getattr(lib, f"percival_{name}_fwd_wide_mma_plan")(B, Hp, pm.Hb, pm.U, 0, out),
+                     f"the tensor-core wide forward plan at B={B} H={Hp}")
+        U, Hb, NC, R, TPW, WPG, KSP, clusters, waves, dbuf, smem = out
+        rows = wide_mma_layout.fwd_rows(B, Hp, gates, clusters)
+        if (U, Hb, NC) != tuple(pm) or (R, TPW, WPG, KSP, waves, dbuf, smem) != tuple(rows):
+            raise AssertionError(f"the {name} forward wide_mma plan {list(out)} is not {pm}, {rows}")
+        if (B <= 32 or B == 160) and H == 512 and waves != 1:
+            raise AssertionError(f"the {name} forward wide_mma plan runs B={B} in {waves} waves")
+        print(f"[wide plan] {name} fwd wide_mma B={B} H={H} (run at {Hp}) bf16: {U} blocks of "
+              f"{Hb} units, 512 threads, {R} rows a cluster ({TPW} row tiles a warp, {WPG} warps "
+              f"a unit group, K in {KSP} part(s)), {clusters} clusters at once ({waves} waves), "
+              f"{1 + dbuf} h buffer(s), {smem} B shared memory")
+    # registers and spills of every instantiation of the wide kernels: 0 spills on wide_mma
     for line in _ptxas_usage(BUILD_LOG):
-        if f"{name}_bwd_wide" in line:
+        if f"{name}_bwd_wide" in line or f"{name}_fwd_wide" in line:
             print(f"[wide ptxas] {line}")
             if "wide_mma" in line and not line.split("spill ")[1].startswith("0/0 "):
-                raise AssertionError(f"a tensor-core wide BPTT instantiation spills: {line}")
+                raise AssertionError(f"a tensor-core wide kernel instantiation spills: {line}")
 
 
 def _route_times(m, fargs, bargs) -> dict:
-    """ROUTE_SHAPE in bf16: the one-block and cluster forwards, and the
-    one-block, cluster and tensor-core cluster BPTTs, each timed in turns
-    (a, b, b, a: the mean of 2 medians each) on the same inputs."""
+    """ROUTE_SHAPE in bf16: the one-block, cluster and tensor-core cluster
+    forwards and BPTTs, each timed in turns (a, b, c, c, b, a: the mean of 2
+    medians each) on the same inputs."""
     ms = {}
-    for kind, launch, args, routes in (("fwd", m.fwd_launch, fargs, ("simt", "wide")),
+    for kind, launch, args, routes in (("fwd", m.fwd_launch, fargs, ("simt", "wide", "wide_mma")),
                                        ("bwd", m.bwd_launch, bargs, ("simt", "wide", "wide_mma"))):
         for r in routes + routes[::-1]:
             ms.setdefault(f"{kind}_{r}_ms", []).append(
@@ -3115,19 +3132,29 @@ def _check_wide_kernels(dev) -> dict:
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
-    err = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0, "bilstm_bwd_wide_mma": 0.0}
+    err = {"bilstm_fwd": 0.0, "bilstm_fwd_wide_mma": 0.0, "bilstm_bwd": 0.0,
+           "bilstm_bwd_wide_mma": 0.0}
     with torch.no_grad():
         for T, B, H in WIDE_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
-                if fwd_route(dtype, H) != "wide":
-                    raise AssertionError(f"H={H} {dtype} does not take the wide route")
+                route = fwd_route(dtype, H)
+                if route != ("wide_mma" if dtype == bf16 else "wide"):
+                    raise AssertionError(f"H={H} {dtype} takes the {route} route")
                 args = _gates(T, B, H, dtype, dev, seed=T + B)
                 want = l.bilstm_fwd_reference(*args, with_cells=True)
+                tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
                 for cells in (False, True):
-                    got = _launch_once(l.bilstm_fwd, *args, with_cells=cells, route="wide")
-                    e = _compare(f"[bilstm_fwd wide] T={T} B={B} H={H} {str(dtype)[6:]} "
-                                 f"cells={cells}", got, want[:len(got)], tol, relative=False)
-                    err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
+                    got = _launch_once(l.bilstm_fwd, *args, with_cells=cells, route=route)
+                    e = _compare(f"[bilstm_fwd {route}] {tag} cells={cells}", got,
+                                 want[:len(got)], tol, relative=False)
+                    if dtype == bf16:
+                        err["bilstm_fwd_wide_mma"] = max(err["bilstm_fwd_wide_mma"], e)
+                        # the CUDA-core cluster kernel on the same inputs, launched directly
+                        got = l.fwd_launch("wide", *args, with_cells=cells)
+                        torch.cuda.synchronize()
+                        e = _compare(f"[bilstm_fwd wide, launched directly] {tag} cells={cells}",
+                                     got, want[:len(got)], tol, relative=False)
+                        err["bilstm_fwd"] = max(err["bilstm_fwd"], e)
         for T, B, H in WIDE_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype, tol in BWD_TOL.items():
                 if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
@@ -3171,7 +3198,7 @@ def _check_wide_kernels(dev) -> dict:
                      dtype == bf16)
             if dtype != bf16:
                 continue
-            for other in ("simt", "wide"):
+            for other in ("simt", "wide", "wide_mma"):
                 _compare(f"[bilstm_fwd {other}, launched directly] {tag}",
                          l.fwd_launch(other, *fargs, with_cells=True), fwant, tol, relative=False)
             for other in ("simt", "wide", "wide_mma"):
@@ -3179,7 +3206,8 @@ def _check_wide_kernels(dev) -> dict:
                          l.bwd_launch(other, *bargs), bwant, BWD_TOL[dtype], True)
             timed = _route_times(l, fargs, bargs)
             print(f"[time] ROUTE {tag}: forward one-block {timed['fwd_simt_ms']:.4f} ms, cluster "
-                  f"{timed['fwd_wide_ms']:.4f} ms; BPTT one-block {timed['bwd_simt_ms']:.4f} ms, "
+                  f"{timed['fwd_wide_ms']:.4f} ms, tensor-core cluster "
+                  f"{timed['fwd_wide_mma_ms']:.4f} ms; BPTT one-block {timed['bwd_simt_ms']:.4f} ms, "
                   f"cluster {timed['bwd_wide_ms']:.4f} ms, tensor-core cluster "
                   f"{timed['bwd_wide_mma_ms']:.4f} ms (each the mean of 2 medians, in turns); "
                   f"routed: {fwd_route(dtype, H)}, BPTT {broute}")
@@ -3190,21 +3218,22 @@ def _check_wide_kernels(dev) -> dict:
         base = _gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
-        broute = bwd_route(dtype, H)
+        froute, broute = fwd_route(dtype, H), bwd_route(dtype, H)
         for c in (l.bilstm_core, l.bilstm_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
-            f0, b0 = l.bilstm_fwd.routes["wide"], l.bilstm_bwd.routes[broute]
+            f0, b0 = l.bilstm_fwd.routes[froute], l.bilstm_bwd.routes[broute]
             torch.autograd.backward(c(*leaves), dy)
             torch.cuda.synchronize()
             grads.append([t.grad for t in leaves])
-            moved = (l.bilstm_fwd.routes["wide"] - f0, l.bilstm_bwd.routes[broute] - b0)
+            moved = (l.bilstm_fwd.routes[froute] - f0, l.bilstm_bwd.routes[broute] - b0)
             if c is l.bilstm_core and moved != (1, 1):
-                raise RuntimeError("the wide autograd pair did not launch one forward on the wide "
-                                   f"route and one BPTT on {broute}")
+                raise RuntimeError(f"the wide autograd pair did not launch one forward on {froute} "
+                                   f"and one BPTT on {broute}")
         for name, gk, gt in zip(("dgx_f", "dgx_b", "dW_h_f", "dW_h_b"), *grads):
             scale = gt.float().abs().max().item()
             limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
-            _compare(f"[autograd BiLSTM wide, BPTT {broute}] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
+            _compare(f"[autograd BiLSTM, forward {froute}, BPTT {broute}] {name} "
+                     f"T,B,H={WIDE_AUTOGRAD_SHAPE} "
                      f"{str(dtype)[6:]}", [gk], [gt], limit, relative=False)
     return {"err": err, "route_ms": timed}
 
@@ -3220,7 +3249,8 @@ def _check_wide_gru_kernels(dev) -> dict:
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
-    err = {"bigru_fwd": 0.0, "bigru_bwd": 0.0, "bigru_bwd_wide_mma": 0.0}
+    err = {"bigru_fwd": 0.0, "bigru_fwd_wide_mma": 0.0, "bigru_bwd": 0.0,
+           "bigru_bwd_wide_mma": 0.0}
 
     def hold_bwd(label, got, want, dtype, route=None):
         rel = dtype == bf16
@@ -3233,13 +3263,22 @@ def _check_wide_gru_kernels(dev) -> dict:
     with torch.no_grad():
         for T, B, H in WIDE_GRU_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
-                if fwd_route(dtype, H, "gru") != "wide":
-                    raise AssertionError(f"H={H} {dtype} does not take the GRU's wide route")
+                route = fwd_route(dtype, H, "gru")
+                if route != ("wide_mma" if dtype == bf16 else "wide"):
+                    raise AssertionError(f"H={H} {dtype} takes the GRU's {route} route")
                 args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
-                got = _launch_once(g.bigru_fwd, *args, route="wide")
-                e = _compare(f"[bigru_fwd wide] T={T} B={B} H={H} {str(dtype)[6:]}", got,
-                             g.bigru_fwd_reference(*args), tol, relative=False)
-                err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
+                want = g.bigru_fwd_reference(*args)
+                tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
+                got = _launch_once(g.bigru_fwd, *args, route=route)
+                e = _compare(f"[bigru_fwd {route}] {tag}", got, want, tol, relative=False)
+                if dtype == bf16:
+                    err["bigru_fwd_wide_mma"] = max(err["bigru_fwd_wide_mma"], e)
+                    # the CUDA-core cluster kernel on the same inputs, launched directly
+                    got = g.fwd_launch("wide", *args)
+                    torch.cuda.synchronize()
+                    e = _compare(f"[bigru_fwd wide, launched directly] {tag}", got, want, tol,
+                                 relative=False)
+                    err["bigru_fwd"] = max(err["bigru_fwd"], e)
         for T, B, H in WIDE_GRU_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype in BWD_TOL:
                 if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
@@ -3275,7 +3314,7 @@ def _check_wide_gru_kernels(dev) -> dict:
                      _launch_once(g.bigru_bwd, *bargs, route=broute), bwant, dtype)
             if dtype != bf16:
                 continue
-            for other in ("simt", "wide"):
+            for other in ("simt", "wide", "wide_mma"):
                 _compare(f"[bigru_fwd {other}, launched directly] {tag}",
                          g.fwd_launch(other, *fargs), fwant, tol, relative=False)
             for other in ("simt", "wide", "wide_mma"):
@@ -3283,7 +3322,8 @@ def _check_wide_gru_kernels(dev) -> dict:
                          g.bwd_launch(other, *bargs), bwant, dtype)
             timed = _route_times(g, fargs, bargs)
             print(f"[time] GRU ROUTE {tag}: forward one-block {timed['fwd_simt_ms']:.4f} ms, "
-                  f"cluster {timed['fwd_wide_ms']:.4f} ms; BPTT one-block "
+                  f"cluster {timed['fwd_wide_ms']:.4f} ms, tensor-core cluster "
+                  f"{timed['fwd_wide_mma_ms']:.4f} ms; BPTT one-block "
                   f"{timed['bwd_simt_ms']:.4f} ms, cluster {timed['bwd_wide_ms']:.4f} ms, "
                   f"tensor-core cluster {timed['bwd_wide_mma_ms']:.4f} ms (each the mean of 2 "
                   f"medians, in turns); routed: {fwd_route(dtype, H, 'gru')}, BPTT {broute}")
@@ -3294,22 +3334,23 @@ def _check_wide_gru_kernels(dev) -> dict:
         base = _gru_gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
-        broute = bwd_route(dtype, H, "gru")
+        froute, broute = fwd_route(dtype, H, "gru"), bwd_route(dtype, H, "gru")
         for c in (g.bigru_core, g.bigru_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
-            f0, b0 = g.bigru_fwd.routes["wide"], g.bigru_bwd.routes[broute]
+            f0, b0 = g.bigru_fwd.routes[froute], g.bigru_bwd.routes[broute]
             torch.autograd.backward(c(*leaves), dy)
             torch.cuda.synchronize()
             grads.append([t.grad for t in leaves])
-            moved = (g.bigru_fwd.routes["wide"] - f0, g.bigru_bwd.routes[broute] - b0)
+            moved = (g.bigru_fwd.routes[froute] - f0, g.bigru_bwd.routes[broute] - b0)
             if c is g.bigru_core and moved != (1, 1):
-                raise RuntimeError("the wide GRU autograd pair did not launch one forward on the "
-                                   f"wide route and one BPTT on {broute}")
+                raise RuntimeError(f"the wide GRU autograd pair did not launch one forward on "
+                                   f"{froute} and one BPTT on {broute}")
         names = ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b", "db_hn_f", "db_hn_b")
         for name, gk, gt in zip(names, *grads):
             scale = gt.float().abs().max().item()
             limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
-            _compare(f"[autograd BiGRU wide, BPTT {broute}] {name} T,B,H={WIDE_AUTOGRAD_SHAPE} "
+            _compare(f"[autograd BiGRU, forward {froute}, BPTT {broute}] {name} "
+                     f"T,B,H={WIDE_AUTOGRAD_SHAPE} "
                      f"{str(dtype)[6:]}", [gk], [gt], limit, relative=False)
     return {"err": err, "route_ms": timed}
 
@@ -3321,11 +3362,16 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
     (``hidden_size=H``; forward, the BPTT beside its backward) on the same
     input, the layers by CUDA events and by device time (``_layer_times``),
     each kernel also by its own device time (``kernel_device_ms``). The bf16
-    BPTT's route (``bwd_route``) is timed in turns with the CUDA-core
-    cluster kernel it replaced (``"wide"``, launched through ``bwd_launch``)
-    on the same inputs: earlier, routed, routed, earlier."""
+    route of each (``fwd_route`` / ``bwd_route``: ``"wide_mma"``) is timed
+    in turns with the CUDA-core cluster kernel it replaced (``"wide"``,
+    launched through ``fwd_launch`` / ``bwd_launch``) on the same inputs:
+    earlier, routed, routed, earlier; where ``FWD_ALT_ROWS`` names another
+    forward plan (the LSTM at B = 160 on R = 40: two h buffers in two waves,
+    against the plan's R = 56 with one buffer in one wave), that too, in
+    the same turns. The port's forward layer is also timed by device time
+    on the replaced kernel (``earlier_layer_device_ms``)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
-    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     gru = cell == "gru"
     m = gru_cuda if gru else lstm_cuda
@@ -3336,7 +3382,9 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
         fwd = name.endswith("fwd")
         rows = []
         for T, B, H in WIDE_TIMED:
-            route = "wide" if fwd else bwd_route(dt, H, cell)
+            route = (fwd_route if fwd else bwd_route)(dt, H, cell)
+            launch = m.fwd_launch if fwd else m.bwd_launch
+            alt = FWD_ALT_ROWS.get((cell, B)) if fwd else None
             if fwd:
                 args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
             else:
@@ -3348,15 +3396,19 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
             with torch.no_grad():
                 if route == "wide":
                     ms = _median_ms(lambda: kern(*args), runs=5, inner=3)
-                else:  # in turns with the kernel it replaced
-                    times = {"wide": [], route: []}
-                    for r in ("wide", route, route, "wide"):
-                        times[r].append(_median_ms(lambda: m.bwd_launch(r, *args), runs=5,
-                                                   inner=3))
-                    ms = statistics.mean(times[route])
-                    row["earlier_ms"] = statistics.mean(times["wide"])
-                    row["earlier_device_ms"] = _device_ms(lambda: m.bwd_launch("wide", *args),
+                else:  # in turns with the kernel it replaced (and another plan's rows)
+                    turns = [("wide", 0), (route, 0)] + ([(route, alt)] if alt else [])
+                    times = {t: [] for t in turns}
+                    for r, nr in turns + turns[::-1]:
+                        kw = {"rows": nr} if nr else {}
+                        times[(r, nr)].append(_median_ms(lambda: launch(r, *args, **kw), runs=5,
+                                                         inner=3))
+                    ms = statistics.mean(times[(route, 0)])
+                    row["earlier_ms"] = statistics.mean(times[("wide", 0)])
+                    row["earlier_device_ms"] = _device_ms(lambda: launch("wide", *args),
                                                           calls=3, match=f"{name}_wide_kernel")
+                    if alt:
+                        row[f"rows_{alt}_ms"] = statistics.mean(times[(route, alt)])
                 row["kernel_device_ms"] = _device_ms(lambda: kern(*args), calls=3,
                                                      match=f"{name}_{route}_kernel")
                 # the twins loop over T in Python (~1 s a call): not timed at the fakes pass
@@ -3368,6 +3420,12 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
             with _compact_weights():
                 lt = _layer_times(layer, _library_layer(cell, ws, dt, dev), x, flat, fwd, runs=5,
                                   inner=3)
+            if fwd and route != "wide":  # the port's layer on the kernel it replaced
+                old = functools.partial(m.bigru_core if gru else m.bilstm_core,
+                                        fwd=functools.partial(m.fwd_launch, "wide"))
+                with torch.no_grad():
+                    row["earlier_layer_device_ms"] = _device_ms(lambda: layer(x, *flat, core=old),
+                                                                calls=3)
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
             row.update({"ms": ms, "us_per_step": ms / T * 1e3, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, **lt})
@@ -3380,6 +3438,12 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
                        f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a step, "
                        f"{row['earlier_device_ms']} device ms), {row['earlier_ms'] / ms:.2f}x "
                        f"(means of 2 medians, in turns)" if "earlier_ms" in row else "")
+            if alt:
+                earlier += (f"; the plan's rows against R = {alt}: {ms:.4f} against "
+                            f"{row[f'rows_{alt}_ms']:.4f} ms")
+            if "earlier_layer_device_ms" in row:
+                earlier += (f"; the port's layer on the earlier kernel "
+                            f"{row['earlier_layer_device_ms']} device ms")
             print(f"[time] {name} {route} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
                   f"({ms / T * 1e3:.3f} us a step; {row['kernel_device_ms']} device ms){earlier}; "
                   f"plain twin {plain_ms} ms, bound {bound_ms:.5f} ms ({bound_by}); "
@@ -3395,15 +3459,15 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
 def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
     """Phase 13b/13c (``WIDE_MODELS``) and 14b/14c (``WIDE_GRU_MODELS``): the
     blstm_size=1024 models served and trained as phases 4–6 serve and train
-    config 3 and the BGRU, every forward launch on the wide route and every
-    BPTT launch on the tensor-core cluster route ``wide_mma``."""
+    config 3 and the BGRU, every forward and BPTT launch on the tensor-core
+    cluster route ``wide_mma``."""
     runs = {}
     for kind in kinds:
         served, trained = _serve_path(dev, kind), _train_path(dev, kind)
         cell = "bigru" if _is_gru(kind) else "bilstm"
         for what, run in (("serve", served), ("train", trained)):
             counts, routes = run["counts"], run["routes"]
-            for name, route in ((f"{cell}_fwd", "wide"), (f"{cell}_bwd", "wide_mma")):
+            for name, route in ((f"{cell}_fwd", "wide_mma"), (f"{cell}_bwd", "wide_mma")):
                 if routes[name][route] != counts[name]:
                     raise AssertionError(f"{what} {kind}: {name} launched off the {route} route: "
                                          f"{routes[name]} of {counts[name]}")
@@ -3636,15 +3700,16 @@ def main() -> int:
             kernels[-1]["launches_by_route"] = routes[name]
         if not any(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the paths")
-    # the cluster kernels (the "wide" route): kernels #1/#2 on phase 13's
-    # paths, #3/#4 on phase 14's
-    # (the bf16 BPTTs of those paths on the tensor-core cluster kernels,
-    # "wide_mma"; the CUDA-core cluster BPTTs they replaced timed beside them)
+    # the tensor-core cluster kernels (the "wide_mma" route): kernels #1/#2 on
+    # phase 13's paths, #3/#4 on phase 14's; the CUDA-core cluster kernels
+    # they replaced there ("wide") timed beside them
     for name, route, src, replaces in (
-        ("bilstm_fwd", "wide", "bilstm_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+        ("bilstm_fwd", "wide_mma", "bilstm_fwd_wide_mma.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:202"),
         ("bilstm_bwd", "wide_mma", "bilstm_bwd_wide_mma.cu",
          "percivaltts_tpu/ops/lstm_pallas.py:321"),
-        ("bigru_fwd", "wide", "bigru_fwd_wide.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+        ("bigru_fwd", "wide_mma", "bigru_fwd_wide_mma.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:521"),
         ("bigru_bwd", "wide_mma", "bigru_bwd_wide_mma.cu",
          "percivaltts_tpu/ops/lstm_pallas.py:616"),
     ):
@@ -3661,7 +3726,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": routes[name][route],
             "launches_by_path": by_path,
-            "max_abs_err": checked["err"][name if route == "wide" else f"{name}_{route}"],
+            "max_abs_err": checked["err"][f"{name}_{route}"],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"],
@@ -3678,11 +3743,12 @@ def main() -> int:
             "timed": timed_w[name],
             "route_shape_ms": checked["route_ms"],
         })
-        if route == "wide_mma":  # the CUDA-core cluster kernel it replaced on these paths
+        if "earlier_ms" in first:  # the CUDA-core cluster kernel it replaced on these paths
             kernels[-1].update({
                 "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
                 "earlier_ms": first["earlier_ms"],
                 "earlier_device_ms": first["earlier_device_ms"],
+                "earlier_layer_device_ms": first.get("earlier_layer_device_ms"),
                 "earlier_max_abs_err": checked["err"][name],
             })
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:

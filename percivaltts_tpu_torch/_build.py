@@ -132,6 +132,12 @@ def library() -> ctypes.CDLL:
     for plan in (lib.percival_bilstm_bwd_wide_mma_plan, lib.percival_bigru_bwd_wide_mma_plan):
         plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         plan.restype = i
+    for fn in (lib.percival_bilstm_fwd_wide_mma, lib.percival_bigru_fwd_wide_mma):
+        fn.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
+        fn.restype = i
+    for plan in (lib.percival_bilstm_fwd_wide_mma_plan, lib.percival_bigru_fwd_wide_mma_plan):
+        plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        plan.restype = i
     for plan in (lib.percival_bilstm_fwd_wide_plan, lib.percival_bilstm_bwd_wide_plan,
                  lib.percival_bigru_fwd_wide_plan, lib.percival_bigru_bwd_wide_plan):
         plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]

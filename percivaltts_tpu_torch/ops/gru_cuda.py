@@ -18,19 +18,19 @@ outputs ``y`` (so in the compute dtype), and rounds d(gates) and
 ``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 / ``bigru_bwd_reference``. There is no other fallback. On CUDA the forward
-has three routes, chosen before the launch from dtype and width
+has four routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
-launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``; H > 320 (which
-one block a direction cannot hold) and, in bf16, H > 128 the cluster kernel
-``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to 4096);
-everything else ``csrc/bigru_fwd.cu``. The BPTT likewise (``bwd_route``):
-``csrc/bigru_bwd_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
-``csrc/bigru_bwd.cu``, except that bf16 past H = 128 up to 672 takes the
-tensor-core cluster kernel ``csrc/bigru_bwd_wide_mma.cu``
-(``ops/wide_mma_layout.py``). ``csrc/bigru_bwd.cu`` and
-``csrc/bigru_bwd_wide_mma.cu`` take H a multiple of 32: other widths are
-zero-padded to one (``ops/lstm_cuda.py::at_width``), which changes no real
-unit.
+launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``; bf16 past
+H = 128 up to 672 the tensor-core cluster kernel
+``csrc/bigru_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``); f32 past
+H = 320 (which one block a direction cannot hold) and wider bf16 the
+CUDA-core cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``;
+H up to 4096); everything else ``csrc/bigru_fwd.cu``. The BPTT takes the
+same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
+``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
+``csrc/bigru_bwd.cu``. ``csrc/bigru_bwd.cu`` and the ``"wide_mma"`` kernels
+take H a multiple of 32: other widths are zero-padded to one
+(``ops/lstm_cuda.py::at_width``), which changes no real unit.
 ``bigru_core`` is the differentiable entry: it runs the forward kernel, and
 the BPTT kernel in the backward pass. The forward is also the registered operator
 ``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
@@ -49,6 +49,7 @@ from percivaltts_tpu_torch.ops.lstm_cuda import (
     _wide_mma_check,
     aligned16,
     at_width,
+    input_gates,
     rows_per_block,
 )
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
@@ -170,18 +171,27 @@ def _launch_geometry(device, B: int, H: int, name: str, limit: int):
     return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
 
 
-def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
-    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide"`` or
-    ``"simt"``) on CUDA inputs that :func:`bigru_fwd` has checked; counts
-    nothing. ``bigru_fwd`` is the entry; ``chip_smoke.py`` times one route's
-    kernel beside another's through this. ``"wide"`` raises ``ValueError``
-    past ``wide_layout.GRU_MAX_H``, ``"simt"`` past H = 341."""
+def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0):
+    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide_mma"``,
+    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bigru_fwd` has
+    checked; counts nothing. ``bigru_fwd`` is the entry; ``chip_smoke.py``
+    times one route's kernel beside another's through this. ``"wide_mma"``
+    (bf16 only, H up to ``wide_mma_layout.max_h(3)``) runs H that is not a
+    multiple of 32 zero-padded to one (``lstm_cuda.at_width``), at ``rows``
+    rows a cluster when given (0: the plan's choice); ``"wide"`` raises
+    ``ValueError`` past ``wide_layout.GRU_MAX_H``, ``"simt"`` past H = 341."""
     from percivaltts_tpu_torch import _build
 
-    lib = _build.library()
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 3
+    if route == "wide_mma":
+        _wide_mma_check(gx_f.dtype, H, 3)
+        if H % wide_mma_layout.K_GRANULE:
+            return at_width(lambda *a, **kw: fwd_launch(route, *a, **kw),
+                            wide_mma_layout.padded(H), 3, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b,
+                            rows=rows)
+    lib = _build.library()
     yf = torch.empty((T, B, H), dtype=gx_f.dtype, device=device)
     yb = torch.empty_like(yf)
     with torch.cuda.device(device):
@@ -192,6 +202,15 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
                    bn_f, bn_b)
             err = lib.percival_bigru_fwd_mma(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), T, B, H, stream,
+            )
+        elif route == "wide_mma":
+            p = wide_mma_layout.plan(H, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
+                   wide_mma_layout.pack_wh(wh_b, p), bn_f, bn_b)  # held (see above)
+            err = lib.percival_bigru_fwd_wide_mma(
+                *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(),
+                T, B, H, p.Hb, p.U, rows, stream,
             )
         elif route == "wide":
             p = wide_layout.plan(H, 3)
@@ -252,8 +271,9 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     ``torch.export`` traces.
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
-    with H a multiple of 16 up to 128, the cluster one past H = 320 (bf16:
-    128), else the one-block CUDA-core one
+    with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
+    past 128 up to 672, the CUDA-core cluster one past H = 320 (bf16: 672),
+    else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, H past
@@ -270,7 +290,7 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
 
 bigru_fwd.launches = 0
-bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0}
+bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
@@ -435,10 +455,10 @@ def bigru(x, wi_f, wh_f, b_f, bn_f, wi_b, wh_b, b_b, bn_b, core=bigru_core):
     (``bigru_pallas``). ``b`` is the input-projection bias (r, z, n
     concatenated), ``bn`` the recurrent n-branch bias. The input projections
     ``x @ W_i + b`` are plain GEMMs outside the recurrence, as in the JAX
-    package; ``core`` runs the recurrence (tests and the smoke run
-    substitute the plain twins)."""
-    gx_f = (x @ wi_f + b_f).transpose(0, 1).contiguous()  # (T, B, 3H)
-    gx_b = (x @ wi_b + b_b).transpose(0, 1).contiguous()
+    package (``lstm_cuda.input_gates``); ``core`` runs the recurrence (tests
+    and the smoke run substitute the plain twins)."""
+    xt = x.transpose(0, 1).contiguous()  # (T, B, D)
+    gx_f, gx_b = input_gates(xt, wi_f, b_f), input_gates(xt, wi_b, b_b)  # (T, B, 3H)
     yf, yb = core(gx_f, gx_b, wh_f.contiguous(), wh_b.contiguous(),
                   bn_f.contiguous(), bn_b.contiguous())
     return torch.cat([yf, yb], dim=-1).transpose(0, 1)

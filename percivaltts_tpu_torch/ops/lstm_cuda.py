@@ -11,19 +11,20 @@ rounded to it before it is stored and multiplied.
 ``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take
 ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There is no other
-fallback. On CUDA the forward has three routes, chosen before the launch
+fallback. On CUDA the forward has four routes, chosen before the launch
 from dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H a
 multiple of 16 up to 128 launches the tensor-core kernel
-``csrc/bilstm_fwd_mma.cu``; H > 256 (which one block a direction cannot
-hold) and, in bf16, H > 128 the cluster kernel ``csrc/bilstm_fwd_wide.cu``
+``csrc/bilstm_fwd_mma.cu``; bf16 past H = 128 up to 608 the tensor-core
+cluster kernel ``csrc/bilstm_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``);
+f32 past H = 256 (which one block a direction cannot hold) and wider bf16
+the CUDA-core cluster kernel ``csrc/bilstm_fwd_wide.cu``
 (``ops/wide_layout.py``; H up to 4096); everything else
-``csrc/bilstm_fwd.cu``. The BPTT likewise (``bwd_route``):
-``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide.cu`` or
-``csrc/bilstm_bwd.cu``, except that bf16 past H = 128 up to 608 takes the
-tensor-core cluster kernel ``csrc/bilstm_bwd_wide_mma.cu``
-(``ops/wide_mma_layout.py``). ``csrc/bilstm_bwd.cu`` takes H a multiple of
-8, ``csrc/bilstm_bwd_wide_mma.cu`` of 32: other widths are zero-padded to
-one (:func:`at_width`), which changes no real unit.
+``csrc/bilstm_fwd.cu``. The BPTT takes the same route (``bwd_route``):
+``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
+``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``.
+``csrc/bilstm_bwd.cu`` takes H a multiple of 8, the ``"wide_mma"`` kernels
+of 32: other widths are zero-padded to one (:func:`at_width`), which
+changes no real unit.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass. The forward is also the
 registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
@@ -222,11 +223,11 @@ def at_width(fn, Hp: int, gates: int, *args, **kw):
 
 
 def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
-    """Raise unless the tensor-core cluster BPTT takes ``dtype`` and ``H``."""
+    """Raise unless the tensor-core cluster kernels take ``dtype`` and ``H``."""
     if dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core wide BPTT takes bfloat16, got {dtype}")
+        raise TypeError(f"the tensor-core wide kernels take bfloat16, got {dtype}")
     if not wide_mma_layout.fits(H, gates):
-        raise ValueError(f"the tensor-core wide {wide_mma_layout.CELLS[gates]} BPTT takes "
+        raise ValueError(f"the tensor-core wide {wide_mma_layout.CELLS[gates]} kernels take "
                          f"H <= {wide_mma_layout.max_h(gates)}, got H={H}")
 
 
@@ -237,18 +238,28 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
-    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide"`` or
-    ``"simt"``) on CUDA inputs that :func:`bilstm_fwd` has checked; counts
-    nothing. ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times one route's
-    kernel beside another's through this. ``"wide"`` raises ``ValueError``
-    past ``wide_layout.MAX_H``, ``"simt"`` past H = 256."""
+def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, rows: int = 0):
+    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide_mma"``,
+    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bilstm_fwd` has
+    checked; counts nothing. ``bilstm_fwd`` is the entry; ``chip_smoke.py``
+    times one route's kernel beside another's through this. ``"wide_mma"``
+    (bf16 only, H up to ``wide_mma_layout.max_h(4)``, else ``ValueError``)
+    runs H that is not a multiple of 32 zero-padded to one (:func:`at_width`),
+    at ``rows`` rows a cluster when given (a measurement's override; 0: the
+    plan's choice, ``wide_mma_layout.fwd_rows``); ``"wide"`` raises
+    ``ValueError`` past ``wide_layout.MAX_H``, ``"simt"`` past H = 256."""
     from percivaltts_tpu_torch import _build
 
-    lib = _build.library()
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 4
+    if route == "wide_mma":
+        _wide_mma_check(gx_f.dtype, H, 4)
+        if H % wide_mma_layout.K_GRANULE:
+            return at_width(lambda *a, **kw: fwd_launch(route, *a, **kw),
+                            wide_mma_layout.padded(H), 4, gx_f, gx_b, wh_f, wh_b,
+                            with_cells=with_cells, rows=rows)
+    lib = _build.library()
     new = lambda: torch.empty((T, B, H), dtype=gx_f.dtype, device=device)  # noqa: E731
     yf, yb = new(), new()
     cf, cb = (new(), new()) if with_cells else (None, None)
@@ -262,6 +273,15 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
             err = lib.percival_bilstm_fwd_mma(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
                 T, B, H, stream,
+            )
+        elif route == "wide_mma":
+            p = wide_mma_layout.plan(H, 4)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
+                   wide_mma_layout.pack_wh(wh_b, p))  # held (see above)
+            err = lib.percival_bilstm_fwd_wide_mma(
+                *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
+                T, B, H, p.Hb, p.U, rows, stream,
             )
         elif route == "wide":
             p = wide_layout.plan(H)
@@ -323,8 +343,9 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     operator ``percival::bilstm_fwd`` while ``torch.export`` traces.
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
-    with H a multiple of 16 up to 128, the cluster one past H = 256 (bf16:
-    128), else the one-block CUDA-core one
+    with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
+    past 128 up to 608, the CUDA-core cluster one past H = 256 (bf16: 608),
+    else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, H past ``wide_layout.MAX_H``
@@ -341,7 +362,7 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
 
 bilstm_fwd.launches = 0
-bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0}
+bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
@@ -491,12 +512,22 @@ def bilstm_core_reference(gx_f, gx_b, wh_f, wh_b):
     return bilstm_core(gx_f, gx_b, wh_f, wh_b, bilstm_fwd_reference, bilstm_bwd_reference)
 
 
+def input_gates(xt, wi, b):
+    """``xt @ W_i + b``: ``(T, B, D)`` time-major input → ``(T, B, G)`` input
+    gates. The layers make ``x`` time-major before the GEMM, so that the
+    gates come out in the kernels' ``(T, B, G)`` layout and only the narrow
+    input is transposed (at B = 160, T = 512, H = 512 the gates are 8× its
+    bytes); each gate is the same product and sum as ``(x @ W_i + b)``'s."""
+    return xt @ wi + b
+
+
 def bilstm(x, wi_f, wh_f, b_f, wi_b, wh_b, b_b, core=bilstm_core):
     """``(B, T, D)`` → ``(B, T, 2H)`` fused bidirectional LSTM
     (``bilstm_pallas``). The input projections ``x @ W_i + b`` are plain
-    GEMMs outside the recurrence, as in the JAX package; ``core`` runs the
-    recurrence (tests and the smoke run substitute the plain twins)."""
-    gx_f = (x @ wi_f + b_f).transpose(0, 1).contiguous()  # (T, B, 4H)
-    gx_b = (x @ wi_b + b_b).transpose(0, 1).contiguous()
+    GEMMs outside the recurrence, as in the JAX package
+    (:func:`input_gates`); ``core`` runs the recurrence (tests and the smoke
+    run substitute the plain twins)."""
+    xt = x.transpose(0, 1).contiguous()  # (T, B, D)
+    gx_f, gx_b = input_gates(xt, wi_f, b_f), input_gates(xt, wi_b, b_b)  # (T, B, 4H)
     yf, yb = core(gx_f, gx_b, wh_f.contiguous(), wh_b.contiguous())
     return torch.cat([yf, yb], dim=-1).transpose(0, 1)

@@ -19,9 +19,11 @@ that those two rows, over a warp's tiles, are every gate of the same unit:
   ``16w + l // 4`` and ``16w + 8 + l // 4``.
 
 The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
-(the register budget of a thread); other calls take the CUDA-core kernels:
-one block a direction up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and
-past it the cluster kernels of ``ops/wide_layout.py``.
+(the register budget of a thread); other calls take the one-block CUDA-core
+kernels up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and past it the
+cluster kernels: on the tensor cores in bf16 where a block's share of
+``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
+cores (``ops/wide_layout.py``).
 
 The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
 ``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
@@ -66,10 +68,15 @@ SIMT_MAX_H = {"lstm": LSTM_SIMT_MAX_H, "gru": GRU_SIMT_MAX_H}
 def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     """The forward kernel a CUDA call launches, chosen before the launch
     from its dtype, width and cell: ``"mma"`` (tensor cores) for bf16 with H
-    a multiple of 16 up to 128; ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` /
-    ``csrc/bigru_fwd_wide.cu``, a cluster of blocks a direction) past
-    ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in bf16) / ``GRU_SIMT_MAX_H`` (320
-    in f32, 128 in bf16); else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
+    a multiple of 16 up to 128; past ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in
+    bf16) / ``GRU_SIMT_MAX_H`` (320 in f32, 128 in bf16) a cluster of blocks
+    a direction: ``"wide_mma"`` (``csrc/bilstm_fwd_wide_mma.cu`` /
+    ``csrc/bigru_fwd_wide_mma.cu``, tensor cores) for bf16 wherever a
+    block's ``W_hᵀ`` slice and tiles fit its shared memory
+    (``wide_mma_layout.fits``: H up to 608 for the LSTM, 672 for the GRU),
+    else ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` / ``csrc/bigru_fwd_wide.cu``,
+    CUDA cores: f32, and bf16 past those widths, whose slice leaves shared
+    memory for L2); else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
     ``csrc/bigru_fwd.cu``, one block a direction, one thread per gate
     column)."""
     if cell not in GATES:
@@ -77,26 +84,20 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     if dtype == torch.bfloat16 and mma_width_ok(H):
         return "mma"
     limits = SIMT_MAX_H[cell]
-    if H > limits.get(dtype, limits[torch.float32]):
-        return "wide"
-    return "simt"
+    if H <= limits.get(dtype, limits[torch.float32]):
+        return "simt"
+    if dtype == torch.bfloat16 and wide_mma_layout.fits(H, GATES[cell]):
+        return "wide_mma"
+    return "wide"
 
 
 def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
-    """The BPTT kernel a CUDA call launches: :func:`fwd_route`'s rule, except
-    that a bf16 call that the forward sends to ``"wide"`` takes the
-    tensor-core cluster kernels ``"wide_mma"`` (``csrc/bilstm_bwd_wide_mma.cu``
-    / ``csrc/bigru_bwd_wide_mma.cu``) wherever their block's ``W_hᵀ`` slice
-    and tiles fit its shared memory (``wide_mma_layout.fits``: H up to 608
-    for the LSTM, 672 for the GRU). So ``"mma"`` (``csrc/bilstm_bwd_mma.cu``
-    / ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``, ``"wide"``
-    (``csrc/bilstm_bwd_wide.cu`` / ``csrc/bigru_bwd_wide.cu``: f32, and bf16
-    past those widths, whose slice leaves shared memory for L2) or
-    ``"simt"`` (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``)."""
-    route = fwd_route(dtype, H, cell)
-    if route == "wide" and dtype == torch.bfloat16 and wide_mma_layout.fits(H, GATES[cell]):
-        return "wide_mma"
-    return route
+    """The BPTT kernel a CUDA call launches: :func:`fwd_route`'s rule, so
+    ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``),
+    ``"wide_mma"`` (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
+    (``csrc/{bilstm,bigru}_bwd_wide.cu``) or ``"simt"``
+    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``)."""
+    return fwd_route(dtype, H, cell)
 
 
 def _check(kind: str, H: int) -> None:

@@ -1,7 +1,9 @@
-"""The tensor-core wide BPTT kernels (route ``"wide_mma"``): how
-``csrc/bilstm_bwd_wide_mma.cu`` and ``csrc/bigru_bwd_wide_mma.cu`` split one
-direction's units over a cluster of blocks, which widths they take, the rows
-a cluster they choose, and the per-block packing of ``W_hᵀ`` they read.
+"""The tensor-core wide kernels (route ``"wide_mma"``): how the BPTTs
+``csrc/bilstm_bwd_wide_mma.cu`` / ``csrc/bigru_bwd_wide_mma.cu`` and the
+forwards ``csrc/bilstm_fwd_wide_mma.cu`` / ``csrc/bigru_fwd_wide_mma.cu``
+split one direction's units over a cluster of blocks, which widths they take,
+the rows a cluster they choose, and the per-block packing of ``W_hᵀ`` that
+all four read.
 
 As on the ``"wide"`` route (``ops/wide_layout.py``), a direction and tile of
 batch rows runs on a thread-block cluster of ``U <= 16`` blocks, block ``b``
@@ -23,14 +25,25 @@ packed rows, K = H), the chained ``dhᵀ = W_h slice · dzᵀ`` by
 for unit ``k`` goes to the block that owns ``k``, which adds the ``U``
 partials in block order (:func:`replay_dh`).
 
+The forwards run the recompute's product alone, ``zᵀ = W_hᵀ slice · hᵀ``
+on the same slice, with the cell carries in the registers the accumulators
+land in; each step's bf16 ``round(h)`` is all-gathered through distributed
+shared memory into every block's ``h`` tile (:func:`replay_recompute` is
+their product too, each cell's K in ``KSP`` parts added in order). A
+forward cell warp takes one unit group and ``TPW`` 8-row tiles, so that each
+A fragment feeds ``TPW`` products, and warps that no cell holds take parts
+of the cells' K; the launcher picks the rows a cluster, ``TPW``, ``KSP``
+and the ``h`` buffers that :func:`fwd_rows` replays (:func:`fwd_smem_bytes`).
+
 The kernels take ``H`` a multiple of 32 (``K_GRANULE``); the wrappers
-zero-pad other widths (``ops/lstm_cuda.py::at_width``, exact). The slice,
-the ``h_prev`` tile, the partial slots and the ``dz`` tile must fit a block's
+zero-pad other widths (``ops/lstm_cuda.py::at_width``, exact). The BPTT's
+slice, ``h_prev`` tile, partial slots and ``dz`` tile must fit a block's
 shared memory (:func:`smem_bytes`, against ``SMEM_OPTIN``, the H100's
 227 KB): at 8 rows a cluster that holds up to H = 608 (LSTM) / 672 (GRU)
-(:func:`fits`, :func:`max_h`). Wider bf16 layers stay on the CUDA-core
-cluster kernels of ``"wide"``; ``ops/mma_layout.py::bwd_route`` holds the
-rule. The launcher picks the rows a cluster :func:`rows` replays.
+(:func:`fits`, :func:`max_h`); the forward's block fits there too. Wider
+bf16 layers stay on the CUDA-core cluster kernels of ``"wide"``;
+``ops/mma_layout.py::fwd_route`` holds the rule, for both passes. The
+BPTT's launcher picks the rows a cluster :func:`rows` replays.
 """
 
 from __future__ import annotations
@@ -56,11 +69,24 @@ class Plan(NamedTuple):
     NC: int  # packed W_hᵀ rows (gate columns) a block, gates·Hb
 
 
+FWD_MAX_TPW = 2  # 8-row tiles a forward warp takes
+
+
 class Rows(NamedTuple):
     R: int  # batch rows a cluster, a multiple of 8
     MPW: int  # 16-unit tiles of the dh product a warp
     waves: int  # ceil(2·ceil(B / R) / clusters)
     dbuf: int  # 1: two buffers of partial slots, one cluster barrier a step
+    smem: int  # dynamic shared memory a block, bytes
+
+
+class FwdRows(NamedTuple):
+    R: int  # batch rows a cluster, a multiple of 8
+    TPW: int  # 8-row tiles a warp (each A fragment feeds TPW products)
+    WPG: int  # warps a unit group, ceil(R / 8 / TPW)
+    KSP: int  # parts of K a cell's product is split over (warps a cell)
+    waves: int  # ceil(2·ceil(B / R) / clusters)
+    dbuf: int  # 1: two h buffers, one cluster barrier a step
     smem: int  # dynamic shared memory a block, bytes
 
 
@@ -92,18 +118,14 @@ def smem_bytes(H: int, gates: int, R: int, bufs: int = 1) -> int:
     bf16), ``bufs`` buffers of partial slots (U × Hb × R f32) and the ``dz``
     tile (R × (NC + 8) bf16), each 16-byte aligned (``wide_mma_common.cuh``)."""
     p = plan(H, gates)
-
-    def a16(n):
-        return -(-n // 16) * 16
-
-    return (a16(p.NC * (H + 8) * 2) + a16(R * (H + 8) * 2) + a16(bufs * p.U * p.Hb * R * 4)
-            + a16(R * (p.NC + 8) * 2))
+    return (_a16(p.NC * (H + 8) * 2) + _a16(R * (H + 8) * 2) + _a16(bufs * p.U * p.Hb * R * 4)
+            + _a16(R * (p.NC + 8) * 2))
 
 
 def fits(H: int, gates: int = 4) -> bool:
-    """Whether the kernels take width ``H`` (padded to a multiple of 32):
-    its 16-unit tiles at most 3 a warp and its shared memory at 8 rows a
-    cluster within ``SMEM_OPTIN``."""
+    """Whether the kernels take width ``H`` (padded to a multiple of 32): the
+    BPTT's 16-unit tiles at most 3 a warp and its shared memory at 8 rows a
+    cluster within ``SMEM_OPTIN`` (the forward's is less)."""
     Hp = padded(H)
     return Hp // 16 <= WARPS * MAX_MPW and smem_bytes(Hp, gates, 8) <= SMEM_OPTIN
 
@@ -139,6 +161,77 @@ def rows(B: int, H: int, gates: int, clusters: int) -> Rows:
             best = Rows(R, mpw, waves, dbuf, twice if dbuf else smem)
     if best is None:
         raise ValueError(f"no rows a cluster fit the tensor-core wide {CELLS[gates]} at H={H}")
+    return best
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _fwd_smem(H: int, gates: int, R: int, bufs: int, tpw: int, wpg: int, ksp: int) -> int:
+    p = plan(H, gates)
+    ugs = UNIT_GROUP[gates]
+    stage = WARPS * FWD_MAX_TPW * 8 * ugs * 2
+    red = (ksp - 1) * (p.Hb // ugs) * wpg * tpw * (gates * ugs // 16) * 4 * 32 * 4
+    return _a16(p.NC * (H + 8) * 2) + bufs * _a16(R * (H + 8) * 2) + stage + red
+
+
+def fwd_split(H: int, gates: int, R: int) -> tuple:
+    """``(TPW, WPG, KSP)`` of a forward block at ``R`` rows a cluster
+    (``wide_mma_common.cuh::wm_fwd_tpw``, ``wm_fwd_ksp``): the 8-row tiles a
+    cell warp takes, as few as the 16 warps allow but 2 from 4 tiles on (so
+    that each A fragment read feeds two products); the warps a unit group;
+    and, where fewer than 4 warps (the SM's warp schedulers) hold a cell,
+    the parts of K that the warps no cell holds take, in powers of two while
+    the cell warps times KSP fit 16 warps and each part keeps a pair of
+    16-wide k-steps, halved until the block fits ``SMEM_OPTIN`` with one
+    ``h`` buffer."""
+    nug = plan(H, gates).Hb // UNIT_GROUP[gates]
+    nt8 = R // 8
+    spread = -(-nt8 // (WARPS // nug))
+    tpw = 2 if nt8 >= 4 and spread < 2 else spread
+    wpg = -(-nt8 // tpw)
+    ksp = 1
+    while nug * wpg < 4 and 2 * ksp * nug * wpg <= WARPS and 2 * ksp <= H // 32:
+        ksp *= 2
+    while ksp > 1 and _fwd_smem(H, gates, R, 1, tpw, wpg, ksp) > SMEM_OPTIN:
+        ksp //= 2
+    return tpw, wpg, ksp
+
+
+def fwd_smem_bytes(H: int, gates: int, R: int, bufs: int = 1) -> int:
+    """A forward block's dynamic shared memory at width ``H`` and ``R`` rows
+    a cluster: the ``W_hᵀ`` slice (NC × (H + 8) bf16), ``bufs`` ``h`` tiles
+    (R × (H + 8) bf16), the warps' staging tiles (16 warps × ``FWD_MAX_TPW``
+    tiles × 8 rows × a unit group's units, bf16) and the K parts' partial
+    sums ((KSP − 1) × cell warps × TPW × the group's m16 tiles × 128 f32)
+    (``wide_mma_common.cuh::wm_fwd_smem``)."""
+    return _fwd_smem(H, gates, R, bufs, *fwd_split(H, gates, R))
+
+
+def fwd_rows(B: int, H: int, gates: int, clusters: int, rows: int = 0) -> FwdRows:
+    """The forward launcher's choice for ``B`` rows when the card holds
+    ``clusters`` clusters at once (``percival_*_fwd_wide_mma_plan`` reports
+    both): among R = 8 … 64 whose tiles fall at most ``FWD_MAX_TPW`` to a
+    warp and whose block fits ``SMEM_OPTIN`` with one ``h`` buffer, the
+    fewest waves, then the smallest R; two ``h`` buffers where they fit at
+    that R. ``rows > 0`` takes that R alone (a measurement's override)."""
+    best = None
+    for R in range(8, MAX_ROWS + 1, 8):
+        if rows and R != rows:
+            continue
+        tpw, wpg, ksp = fwd_split(H, gates, R)
+        if tpw > FWD_MAX_TPW or fwd_smem_bytes(H, gates, R) > SMEM_OPTIN:
+            continue
+        waves = -(-2 * -(-B // R) // clusters)
+        if best is None or waves < best.waves:
+            twice = fwd_smem_bytes(H, gates, R, 2)
+            dbuf = int(twice <= SMEM_OPTIN)
+            best = FwdRows(R, tpw, wpg, ksp, waves, dbuf,
+                           twice if dbuf else fwd_smem_bytes(H, gates, R))
+    if best is None:
+        raise ValueError(f"no rows a cluster fit the tensor-core wide {CELLS[gates]} forward "
+                         f"at H={H}")
     return best
 
 

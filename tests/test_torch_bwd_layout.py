@@ -339,8 +339,9 @@ def test_gru_bptt_through_the_lanes_equals_the_twin(B, H):
     (torch.float16, 128, "simt"),
 ])
 def test_bptt_route_is_chosen_from_dtype_and_width(dtype, H, route):
-    """The BPTT takes the one-block tensor cores exactly where the forward
-    does; where the forward takes the cluster kernels in bf16, the BPTT
-    takes the tensor-core cluster kernels."""
-    assert route == fwd_route(dtype, H)
-    assert bwd_route(dtype, H) == ("wide_mma" if route == "wide" else route)
+    """The BPTT takes the forward's route: the one-block tensor cores where
+    the forward does, and where a bf16 call goes to a cluster of blocks
+    (``"wide"`` in the table), the tensor-core cluster kernels of both."""
+    want = "wide_mma" if route == "wide" else route
+    assert fwd_route(dtype, H) == want
+    assert bwd_route(dtype, H) == want

@@ -5,13 +5,13 @@ Imports no jax, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest configures jax.) The forward and
-BPTT kernels have two routes each, three for the LSTM, chosen from dtype
-and width: bf16 with H a multiple of 16 up to 128 takes the tensor-core
-kernels (``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); the LSTM past H = 256, the GRU
-past H = 320 (bf16: both past 128) the cluster kernels
-(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096), except that the
-bf16 BPTT there takes the tensor-core cluster kernels
-(``csrc/{bilstm,bigru}_bwd_wide_mma.cu``) up to H = 608 / 672; f32 and other
+BPTT kernels have four routes each, chosen from dtype and width: bf16 with
+H a multiple of 16 up to 128 takes the tensor-core kernels
+(``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); bf16 past 128 up to H = 608
+(LSTM) / 672 (GRU) the tensor-core cluster kernels
+(``csrc/{bilstm,bigru}_{fwd,bwd}_wide_mma.cu``); the LSTM past H = 256, the
+GRU past H = 320 in f32, and wider bf16, the CUDA-core cluster kernels
+(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096); f32 and other
 widths the one-block CUDA-core ones
 (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose BPTTs run H that is not a
 multiple of 8 / 32 zero-padded to one); the tests pick a route by the dtype
@@ -460,9 +460,12 @@ def _route_counts(before, after, route):
 @pytest.mark.parametrize("dtype,H,route,gru_route", ROUTE_CASES)
 def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
     """f32 and widths outside the tensor-core route launch the CUDA-core
-    kernels (the LSTM's cluster kernel past H = 256, bf16: 128); each call
-    counts on its route alone, and agrees with its twin."""
+    kernels (the LSTM's cluster kernel past H = 256), bf16 past 128 the
+    tensor-core cluster kernels; each call counts on its route alone, and
+    agrees with its twin."""
     T, B = 24, 5
+    if dtype == torch.bfloat16:  # a bf16 call sent to a cluster takes the tensor cores
+        route, gru_route = (("wide_mma" if r == "wide" else r) for r in (route, gru_route))
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     lstm_args = _gates(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_gates(T, B, H, dtype, cuda_device, seed=H)
@@ -550,7 +553,7 @@ def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route,
     T, B = 24, 5
     lstm_args = _bwd_args(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
-    if dtype == torch.bfloat16:  # a bf16 BPTT the forward sends wide takes the tensor cores
+    if dtype == torch.bfloat16:  # a bf16 call sent to a cluster takes the tensor cores
         route, gru_route = (("wide_mma" if r == "wide" else r) for r in (route, gru_route))
     l0, g0 = _bwd_routes()
     with torch.no_grad():
@@ -617,8 +620,8 @@ GRU_WIDE_SHAPES = [(33, 9, 336), (64, 1, 640), (40, 32, 512), (1, 1, 512), (24, 
 WIDE_CASES = [("lstm", *s) for s in WIDE_SHAPES] + [("gru", *s) for s in GRU_WIDE_SHAPES]
 
 
-def _wide_bwd(dtype):
-    """The BPTT route of a call the forward sends to the cluster kernels, at
+def _wide_route(dtype):
+    """The route of a call sent to the cluster kernels, forward and BPTT, at
     the widths of ``WIDE_CASES``."""
     return "wide_mma" if dtype == torch.bfloat16 else "wide"
 
@@ -628,8 +631,8 @@ def _wide_bwd(dtype):
 @pytest.mark.parametrize("cell,T,B,H", WIDE_CASES)
 def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
     """Forward (the LSTM's with and without cells) and BPTT on the cluster
-    kernels agree with the twins, each counted once on its route (the bf16
-    BPTT on the tensor-core cluster kernel)."""
+    kernels agree with the twins, each counted once on its route (bf16 on
+    the tensor-core cluster kernels)."""
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     if cell == "gru":
         f_args = _gru_gates(T, B, H, dtype, cuda_device, seed=T + B)
@@ -644,8 +647,8 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
                 _close_rel(got[:2], want[:2], 2e-2)
                 _close_rel(got[2:], want[2:], 2e-2)
         torch.cuda.synchronize()
-        assert _route_counts(f0, bigru_fwd.routes, "wide") == (1, 0)
-        assert _route_counts(b0, bigru_bwd.routes, _wide_bwd(dtype)) == (1, 0)
+        assert _route_counts(f0, bigru_fwd.routes, _wide_route(dtype)) == (1, 0)
+        assert _route_counts(b0, bigru_bwd.routes, _wide_route(dtype)) == (1, 0)
         return
     f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
     b_args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
@@ -660,8 +663,8 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
         else:
             _close_rel(got, want, 2e-2)
     torch.cuda.synchronize()
-    assert _route_counts(f0, bilstm_fwd.routes, "wide") == (2, 0)
-    assert _route_counts(b0, bilstm_bwd.routes, _wide_bwd(dtype)) == (1, 0)
+    assert _route_counts(f0, bilstm_fwd.routes, _wide_route(dtype)) == (2, 0)
+    assert _route_counts(b0, bilstm_bwd.routes, _wide_route(dtype)) == (1, 0)
 
 
 @pytest.mark.cuda
@@ -701,8 +704,8 @@ def test_wide_autograd_pair_matches_twins(cuda_device, dtype, cell):
         torch.autograd.backward(core(*leaves), (dy, dy))
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
-    assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
-    assert _route_counts(b0, bwd.routes, _wide_bwd(dtype)) == (1, 0)
+    assert _route_counts(f0, fwd.routes, _wide_route(dtype)) == (1, 0)
+    assert _route_counts(b0, bwd.routes, _wide_route(dtype)) == (1, 0)
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
         tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
@@ -779,7 +782,7 @@ def test_wide_mma_bptt_matches_twins(cuda_device, cell, T, B, H):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_wide_mma_autograd_pair_matches_twins(cuda_device, cell):
     """The autograd pair at chip_smoke.py's WIDE_AUTOGRAD_SHAPE (512, 32, 512)
-    in bf16: the cluster forward and the tensor-core cluster BPTT."""
+    in bf16: the tensor-core cluster forward and BPTT."""
     gru = cell == "gru"
     T, B, H = 512, 32, 512
     base = (_gru_gates if gru else _gates)(T, B, H, torch.bfloat16, cuda_device, seed=7)
@@ -794,7 +797,7 @@ def test_wide_mma_autograd_pair_matches_twins(cuda_device, cell):
         torch.autograd.backward(core(*leaves), (dy, dy))
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
-    assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
+    assert _route_counts(f0, fwd.routes, "wide_mma") == (1, 0)
     assert _route_counts(b0, bwd.routes, "wide_mma") == (1, 0)
     for g, w in zip(*grads):
         assert g.dtype == torch.bfloat16
@@ -832,6 +835,18 @@ def test_wide_mma_bptt_refuses_f32_and_widths_past_shared_memory(cuda_device):
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops import wide_mma_layout as wm
 
+    # the forwards likewise
+    with pytest.raises(TypeError, match="bfloat16"):
+        lstm_cuda.fwd_launch("wide_mma", *_gates(2, 1, 256, torch.float32, cuda_device, seed=1))
+    with pytest.raises(TypeError, match="bfloat16"):
+        gru_cuda.fwd_launch("wide_mma", *_gru_gates(2, 1, 256, torch.float32, cuda_device, seed=1))
+    with pytest.raises(ValueError, match=f"H <= {wm.max_h(4)}"):
+        lstm_cuda.fwd_launch("wide_mma", *_gates(2, 1, wm.max_h(4) + 1, torch.bfloat16,
+                                                 cuda_device, seed=1))
+    with pytest.raises(ValueError, match=f"H <= {wm.max_h(3)}"):
+        gru_cuda.fwd_launch("wide_mma", *_gru_gates(2, 1, wm.max_h(3) + 1, torch.bfloat16,
+                                                    cuda_device, seed=1))
+
     with pytest.raises(TypeError, match="bfloat16"):
         lstm_cuda.bwd_launch("wide_mma", *_bwd_args(2, 1, 256, torch.float32, cuda_device, seed=1))
     with pytest.raises(TypeError, match="bfloat16"):
@@ -844,6 +859,76 @@ def test_wide_mma_bptt_refuses_f32_and_widths_past_shared_memory(cuda_device):
     with pytest.raises(ValueError, match=f"H <= {wm.max_h(3)}"):
         gru_cuda.bwd_launch("wide_mma", *_gru_bwd_args(2, 1, H, torch.bfloat16, cuda_device,
                                                       seed=1))
+
+
+# --- the tensor-core cluster forwards (the "wide_mma" route) -------------------
+
+# chip_smoke.py's WIDE_FWD_SHAPES / WIDE_GRU_FWD_SHAPES (the serving chunk,
+# edges, the fakes pass at B = 160, the short last blocks at 264 / 336 / 352 /
+# 608 / 640) and H = 100 zero-padded to 128
+WIDE_MMA_FWD_CASES = (
+    [("lstm", *s) for s in [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512),
+                            (33, 9, 264), (64, 1, 608), (24, 5, 100)]]
+    + [("gru", *s) for s in [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512),
+                             (33, 9, 336), (33, 9, 352), (64, 1, 640), (24, 5, 100)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", WIDE_MMA_FWD_CASES)
+def test_wide_mma_forward_matches_twins(cuda_device, cell, T, B, H):
+    """The tensor-core cluster forwards against the twins in bf16 (2e-2; the
+    LSTM with and without cells), launched directly; through the entry where
+    the route takes H, counted once on it; the CUDA-core cluster forward
+    launched on the same inputs agrees too."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_gates if gru else _gates)(T, B, H, torch.bfloat16, cuda_device, seed=T + B)
+    kw = {} if gru else {"with_cells": True}
+    with torch.no_grad():
+        want = (bigru_fwd_reference(*args) if gru
+                else bilstm_fwd_reference(*args, with_cells=True))
+        _close(m.fwd_launch("wide_mma", *args, **kw), want, 2e-2)
+        _close(m.fwd_launch("wide", *args, **kw), want, 2e-2)
+        if not gru:
+            _close(m.fwd_launch("wide_mma", *args), want[:2], 2e-2)
+        if fwd_route(torch.bfloat16, H, cell) == "wide_mma":
+            wrapper = bigru_fwd if gru else bilstm_fwd
+            f0 = dict(wrapper.routes)
+            got = wrapper(*args, **kw)
+            torch.cuda.synchronize()
+            assert _route_counts(f0, wrapper.routes, "wide_mma") == (1, 0)
+            _close(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (160, 288, 512, 608)]
+                         + [("gru", H) for H in (160, 352, 512, 640, 672)])
+@pytest.mark.parametrize("B", [1, 8, 32, 160])
+def test_wide_mma_forward_plan_matches_the_layout(cuda_device, cell, H, B):
+    """The forward launchers split H as ``ops/wide_mma_layout.py::plan`` does
+    and choose the rows, tiles a warp, K parts and h buffers ``fwd_rows`` replays at
+    the card's clusters; B <= 32 runs in one wave, and at H = 512 so does
+    B = 160."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_mma_layout as wm
+
+    gates = 3 if cell == "gru" else 4
+    p = wm.plan(H, gates)
+    fn = getattr(_build.library(),
+                 f"percival_{'bigru' if gates == 3 else 'bilstm'}_fwd_wide_mma_plan")
+    out = (ctypes.c_int * 11)()
+    assert fn(B, H, p.Hb, p.U, 0, out) == 0
+    U, Hb, NC, R, TPW, WPG, KSP, clusters, waves, dbuf, smem = out
+    assert (U, Hb, NC) == tuple(p) and clusters >= 1
+    assert (R, TPW, WPG, KSP, waves, dbuf, smem) == tuple(wm.fwd_rows(B, H, gates, clusters))
+    if B <= 32 or H == 512:
+        assert waves == 1
+    assert fn(B, H + 8, p.Hb, p.U, 0, out) != 0  # H not a multiple of 32
 
 
 # --- the DSP kernels: framing × window and overlap-add ------------------------

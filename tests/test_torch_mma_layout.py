@@ -168,12 +168,12 @@ def test_widths_outside_the_tensor_core_route_are_refused(kind, H):
         pack_wh(torch.zeros((H, G)), kind)
     with pytest.raises(ValueError, match="multiple of 16 up to 128"):
         gate_rows(kind, H)
-    # the CUDA-core kernels: one block a direction, or past H = 128 in bf16
-    # the cluster kernels ("wide", ops/wide_layout.py)
-    route = "wide" if H > 128 else "simt"
+    # the CUDA-core kernels one block a direction, or past H = 128 in bf16
+    # the tensor-core cluster kernels ("wide_mma", ops/wide_mma_layout.py),
+    # the forward's and the BPTT's
+    route = "wide_mma" if H > 128 else "simt"
     assert fwd_route(torch.bfloat16, H, kind) == route
-    # the BPTT past 128 on the tensor-core cluster kernels ("wide_mma")
-    assert bwd_route(torch.bfloat16, H, kind) == ("wide_mma" if H > 128 else route)
+    assert bwd_route(torch.bfloat16, H, kind) == route
 
 
 def test_route_is_chosen_from_dtype_and_width():
@@ -182,13 +182,13 @@ def test_route_is_chosen_from_dtype_and_width():
     assert fwd_route(torch.bfloat16, 16) == "mma"
     assert fwd_route(torch.float32, 128) == "simt"  # f32: the parity dtype
     assert fwd_route(torch.bfloat16, 48) == "mma"
-    # above the register budget: the cluster kernels, the LSTM's and the GRU's
-    assert fwd_route(torch.bfloat16, 136) == "wide"
-    assert fwd_route(torch.bfloat16, 136, "gru") == "wide"
-    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128)):
+    # above the register budget: the tensor-core cluster kernels, the LSTM's
+    # and the GRU's
+    assert fwd_route(torch.bfloat16, 136) == "wide_mma"
+    assert fwd_route(torch.bfloat16, 136, "gru") == "wide_mma"
+    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128),
+                     (torch.bfloat16, 136), (torch.float32, 512)):
         for cell in ("lstm", "gru"):  # the BPTT follows the forward
             assert bwd_route(dtype, H, cell) == fwd_route(dtype, H, cell)
-    for cell in ("lstm", "gru"):  # but past 128 in bf16 takes the tensor-core cluster kernels
-        assert bwd_route(torch.bfloat16, 136, cell) == "wide_mma"
     with pytest.raises(ValueError, match="kind"):
         gate_rows("rnn", 64)

@@ -65,11 +65,12 @@ from percivaltts_tpu_torch.training.state import make_gan_state
     (torch.float32, 341, "wide"), (torch.float32, 384, "wide"), (torch.float32, 4096, "wide"),
 ])
 def test_gru_route_table(dtype, H, route):
-    assert fwd_route(dtype, H, "gru") == route
-    # a layer's backward takes its forward's route, but for bf16 on the
-    # cluster kernels: the tensor-core cluster BPTT up to H = 672
-    bwd = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
-    assert bwd_route(dtype, H, "gru") == bwd
+    # a cluster of blocks a direction ("wide" in the table) runs on the
+    # tensor cores in bf16 up to H = 672 ("wide_mma"), on CUDA cores in f32;
+    # a layer's backward takes its forward's route
+    want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
+    assert fwd_route(dtype, H, "gru") == want
+    assert bwd_route(dtype, H, "gru") == want
     assert GRU_SIMT_MAX_H[torch.float32] == 320
 
 

@@ -74,7 +74,8 @@ from percivaltts_tpu_torch.training.state import make_gan_state
     # bf16: the tensor cores for H a multiple of 16 up to 128
     (torch.bfloat16, 128, "lstm", "mma"), (torch.bfloat16, 16, "gru", "mma"),
     # bf16 elsewhere: the one-block kernels up to 128, the cluster kernels
-    # past it (measured faster at H = 256, the LSTM's and the GRU's)
+    # past it (measured faster at H = 256, the LSTM's and the GRU's), on the
+    # tensor cores
     (torch.bfloat16, 100, "lstm", "simt"), (torch.bfloat16, 136, "lstm", "wide"),
     (torch.bfloat16, 256, "lstm", "wide"), (torch.bfloat16, 512, "lstm", "wide"),
     (torch.bfloat16, 608, "lstm", "wide"), (torch.bfloat16, 300, "gru", "wide"),
@@ -85,11 +86,12 @@ from percivaltts_tpu_torch.training.state import make_gan_state
     (torch.float32, 341, "gru", "wide"),
 ])
 def test_route_table(dtype, H, cell, route):
-    assert fwd_route(dtype, H, cell) == route
-    # a layer's backward takes its forward's route, but for bf16 on the
-    # cluster kernels: the tensor-core cluster BPTT up to H = 608 / 672
-    bwd = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
-    assert bwd_route(dtype, H, cell) == bwd
+    # a cluster of blocks a direction ("wide" in the table) runs on the
+    # tensor cores in bf16 up to H = 608 / 672 ("wide_mma"), on CUDA cores
+    # in f32; a layer's backward takes its forward's route
+    want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
+    assert fwd_route(dtype, H, cell) == want
+    assert bwd_route(dtype, H, cell) == want
 
 
 def test_route_refuses_other_cells_and_the_wide_plan_names_its_limit():

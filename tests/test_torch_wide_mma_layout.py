@@ -1,11 +1,14 @@
-"""The tensor-core wide BPTT kernels' split, packing and fragments, on the CPU.
+"""The tensor-core wide kernels' split, packing and fragments, on the CPU.
 
 ``csrc/bilstm_bwd_wide_mma.cu`` and ``csrc/bigru_bwd_wide_mma.cu`` run a
 direction on a cluster of blocks (``ops/wide_mma_layout.py``): block ``b``
 holds its ``W_hᵀ`` slice (``pack_wh``: packed rows of the tensor-core
 forwards' order) in shared memory, 16 warps share out the (unit group, 8-row
 tile) cells of the recompute and the gate math (one a warp), and the 16-unit tiles of the
-chained product, whose partials go to the blocks that own the units.
+chained product, whose partials go to the blocks that own the units. The
+forwards ``csrc/bilstm_fwd_wide_mma.cu`` and ``csrc/bigru_fwd_wide_mma.cu``
+run the recompute's product on the same slice, a warp taking one unit group
+and ``TPW`` 8-row tiles, and all-gather ``round(h)`` into every block.
 
 Here the kernels' address arithmetic is replayed in Python (the same
 expressions as the sources, lane by lane): every ldmatrix address gives
@@ -16,9 +19,11 @@ BPTT whose products and exchange run through the packed slices and the
 split equals ``bilstm_bwd_reference`` / ``bigru_bwd_reference`` in f32
 within 1e-5 of the largest gradient (the kernels sum over K in 16-wide
 k-steps and over the blocks in order: the same terms in another order, at
-unit scale a few ulps of f32). The route table and the row choice are
-checked too; the card holds the kernels to the twins
-(``tests/test_torch_cuda.py``).
+unit scale a few ulps of f32), as does a plain forward stepped through the
+packed slices against ``bilstm_fwd_reference`` / ``bigru_fwd_reference``.
+The route table, the BPTT's row choice and the forward's (rows, tiles a
+warp, h buffers, the warp map and the exchange's 16-byte chunks) are checked
+too; the card holds the kernels to the twins (``tests/test_torch_cuda.py``).
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
@@ -173,17 +178,17 @@ def test_plan_and_packing_round_trip(gates, H):
 
 
 def test_widths_and_routes():
-    """The new route takes bf16 past the tensor-core one-block kernels' 128 up
-    to where its shared memory ends (608 LSTM, 672 GRU: the Pallas kernels'
-    608 / 640 are inside); f32 and the forwards keep their routes."""
+    """The route takes bf16 past the tensor-core one-block kernels' 128 up
+    to where the BPTT's shared memory ends (608 LSTM, 672 GRU: the Pallas
+    kernels' 608 / 640 are inside), for the forward and the BPTT alike; f32
+    keeps its routes."""
     assert (wm.max_h(4), wm.max_h(3)) == (608, 672)
     bf16, f32 = torch.bfloat16, torch.float32
     for cell, gates in (("lstm", 4), ("gru", 3)):
         for H in (129, 200, 256, 264, 336, 512, wm.max_h(gates)):
-            assert fwd_route(bf16, H, cell) == "wide"
-            assert bwd_route(bf16, H, cell) == "wide_mma"
+            assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide_mma"
         for H in (wm.max_h(gates) + 1, 1024, wide_layout.max_h(gates)):
-            assert bwd_route(bf16, H, cell) == "wide"
+            assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide"
             assert not wm.fits(H, gates)
         for H in (16, 128):
             assert bwd_route(bf16, H, cell) == "mma"
@@ -366,3 +371,170 @@ def test_replayed_bptt_equals_the_twin(cell, T, B, H):
     for g_, w in zip(got, want):
         assert g_.shape == w.shape
         assert (g_ - w).abs().max().item() <= 1e-5 * max(1.0, scale)
+
+
+# --- the forwards (csrc/{bilstm,bigru}_fwd_wide_mma.cu) --------------------------
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_forward_rows_a_cluster(gates):
+    """The forward's plan at the card's 7 clusters of 16 (chip_smoke.py
+    phases 13a / 14a) at H = 512: B = 1 and 8 on R = 8, B = 32 on R = 16,
+    B = 160 on R = 56, each in one wave. Two h buffers fit the LSTM up to
+    R = 40 and the GRU up to R = 56, so at B = 160 the LSTM takes one buffer
+    (the split barrier) and the GRU two; an override of R = 40 gives the
+    LSTM two buffers in two waves. Where fewer than 4 warps hold a cell the
+    idle ones take parts of K: the GRU's 2 cell warps at R = 8 take 8 parts
+    each; the LSTM's 4 keep K whole."""
+    p = wm.plan(512, gates)
+    stage = wm.WARPS * wm.FWD_MAX_TPW * 8 * wm.UNIT_GROUP[gates] * 2
+    cells, ksp = (4, 1) if gates == 4 else (2, 8)  # cell warps and K parts at R = 8
+    red = (ksp - 1) * cells * (gates * wm.UNIT_GROUP[gates] // 16) * 128 * 4
+    assert wm.fwd_smem_bytes(512, gates, 8) == p.NC * 520 * 2 + 8 * 520 * 2 + stage + red
+    for B, R, tpw, ksp in ((1, 8, 1, ksp), (8, 8, 1, ksp), (32, 16, 1, 1), (160, 56, 2, 1)):
+        r = wm.fwd_rows(B, 512, gates, 7)
+        assert (r.R, r.TPW, r.WPG, r.KSP, r.waves) == (R, tpw, -(-R // 8 // tpw), ksp, 1)
+        assert r.KSP * (p.Hb // wm.UNIT_GROUP[gates]) * r.WPG <= wm.WARPS
+        assert r.dbuf == int(not (gates == 4 and R == 56))
+        assert r.smem == wm.fwd_smem_bytes(512, gates, R, 1 + r.dbuf) <= wm.SMEM_OPTIN
+    last = 40 if gates == 4 else 56  # the most rows with two h buffers
+    assert wm.fwd_split(512, gates, last)[2] == wm.fwd_split(512, gates, last + 8)[2] == 1
+    assert wm.fwd_smem_bytes(512, gates, last, 2) <= wm.SMEM_OPTIN
+    assert wm.fwd_smem_bytes(512, gates, last + 8, 2) > wm.SMEM_OPTIN
+    assert wm.fwd_smem_bytes(512, gates, 64, 1) <= wm.SMEM_OPTIN
+    if gates == 4:
+        r = wm.fwd_rows(160, 512, 4, 7, rows=40)
+        assert (r.R, r.waves, r.dbuf) == (40, 2, 1)
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("H", [160, 288, 352, 512, 608, 640, 672])
+def test_forward_plans_at_every_width(gates, H):
+    """Wherever the route takes H, the forward has a plan for every B: its
+    block within shared memory, at most FWD_MAX_TPW tiles a warp and at most
+    16 warps; B <= 32 in one wave; the route's widest widths fit."""
+    if not wm.fits(H, gates):
+        assert H > wm.max_h(gates)
+        return
+    nug = wm.plan(H, gates).Hb // wm.UNIT_GROUP[gates]
+    for B in (1, 8, 32, 160):
+        r = wm.fwd_rows(B, H, gates, 7)
+        assert 8 <= r.R <= wm.MAX_ROWS and r.R % 8 == 0 and r.smem <= wm.SMEM_OPTIN
+        assert r.TPW <= wm.FWD_MAX_TPW and r.WPG * r.TPW >= r.R // 8
+        assert r.KSP * nug * r.WPG <= wm.WARPS and (r.KSP == 1 or nug * r.WPG < 4)
+        assert r.smem == wm.fwd_smem_bytes(H, gates, r.R, 1 + r.dbuf)
+        if B <= 32:
+            assert r.waves == 1
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("H,R", [(512, 8), (512, 16), (512, 56), (512, 64), (608, 24), (288, 40),
+                                 (672, 16)])
+def test_forward_warps_cover_every_cell_once(gates, H, R):
+    """The kernels' warp map (warp w: K part w // CW of cell warp
+    cw = w % CW, unit group cw // WPG, 8-row tiles cw % WPG + i·WPG for
+    i < ntiles) gives every (unit group, tile) cell to one warp of each K
+    part, the parts' k-step pairs tiling K in order; the exchange's 16-byte
+    chunks (8 units of one row) start 16-byte aligned in the h tile (row
+    stride H + 8) and in y."""
+    if not wm.fits(H, gates):
+        return
+    p = wm.plan(H, gates)
+    ugs = wm.UNIT_GROUP[gates]
+    nug, nt8 = p.Hb // ugs, R // 8
+    tpw, wpg, ksp = wm.fwd_split(H, gates, R)
+    if tpw > wm.FWD_MAX_TPW:
+        return
+    cw_n, kp_n = nug * wpg, H // 32  # cell warps, k-step pairs
+    seen = []
+    for w in range(wm.WARPS):
+        kp, cw = w // cw_n, w % cw_n
+        ug, wj = cw // wpg, cw % wpg
+        ntiles = min(tpw, (nt8 - 1 - wj) // wpg + 1) if kp < ksp and ug < nug and wj < nt8 else 0
+        pairs = list(range(kp * kp_n // ksp, (kp + 1) * kp_n // ksp))
+        seen += [(ug, wj + i * wpg, kp, tuple(pairs)) for i in range(ntiles)]
+    assert sorted(s[:3] for s in seen) == [(u, t, k) for u in range(nug) for t in range(nt8)
+                                           for k in range(ksp)]
+    for u in range(nug):  # each cell's parts tile the k-step pairs in order
+        parts = sorted((k, pr) for uu, t, k, pr in seen if uu == u and t == 0)
+        assert [x for _, pr in parts for x in pr] == list(range(kp_n))
+    WS = H + 8
+    for rank in range(p.U):
+        for ug in range(nug):
+            for half in range(ugs // 8):
+                col = rank * p.Hb + ug * ugs + 8 * half
+                if col < H:  # whole chunks of valid units
+                    assert col + 8 <= H
+                    for rowc in range(R):
+                        assert (rowc * WS + col) * 2 % 16 == 0 and (rowc * H + col) * 2 % 16 == 0
+
+
+def _replay_forward(cell, H):
+    """A plain forward at padded width ``Hp`` (as the wrapper pads) whose
+    product runs through the packed slices (``replay_recompute``: each
+    block's packed rows against the 8-row tiles, K in 16-wide k-steps in
+    order, scattered back to columns), h all-gathered as round(h)."""
+    gates = G_OF[cell]
+
+    def core(*args, with_cells=False):
+        T, B, G = args[0].shape
+        Hp = G // gates
+        p = wm.plan(Hp, gates)
+        outs = []
+        if cell == "lstm":
+            gx_f, gx_b, wh_f, wh_b = args
+            dirs = ((gx_f, wh_f, None, range(T)), (gx_b, wh_b, None, range(T - 1, -1, -1)))
+        else:
+            gx_f, gx_b, wh_f, wh_b, bn_f, bn_b = args
+            dirs = ((gx_f, wh_f, bn_f, range(T)), (gx_b, wh_b, bn_b, range(T - 1, -1, -1)))
+        for gx, wh, bn, steps in dirs:
+            wp = wm.pack_wh(wh, p)
+            dt = gx.dtype
+            h = torch.zeros(B, Hp)
+            c = torch.zeros(B, Hp)
+            y, cs = torch.zeros(T, B, Hp, dtype=dt), torch.zeros(T, B, Hp, dtype=dt)
+            for t in steps:
+                z = wm.replay_recompute(h.to(dt).float(), wp.float(), p)  # the exchanged round(h)
+                if cell == "lstm":
+                    zz = gx[t].float() + z
+                    i, f = torch.sigmoid(zz[:, :Hp]), torch.sigmoid(zz[:, Hp:2 * Hp])
+                    g, o = torch.tanh(zz[:, 2 * Hp:3 * Hp]), torch.sigmoid(zz[:, 3 * Hp:])
+                    c = f * c + i * g
+                    h = o * torch.tanh(c)
+                    cs[t] = c.to(dt)
+                else:
+                    x = gx[t].float()
+                    r = torch.sigmoid(x[:, :Hp] + z[:, :Hp])
+                    zg = torch.sigmoid(x[:, Hp:2 * Hp] + z[:, Hp:2 * Hp])
+                    n = torch.tanh(x[:, 2 * Hp:] + r * (z[:, 2 * Hp:] + bn.float()))
+                    h = (1 - zg) * n + zg * h
+                y[t] = h.to(dt)
+            outs.append((y, cs))
+        (yf, cf), (yb, cb) = outs
+        return (yf, yb, cf, cb) if with_cells else (yf, yb)
+
+    Hp = wm.padded(H)
+    return lambda *args, **kw: at_width(core, Hp, gates, *args, **kw)
+
+
+@pytest.mark.parametrize("cell,T,B,H", CASES)
+def test_replayed_forward_equals_the_twin(cell, T, B, H):
+    """The forward kernels' recurrence (the packed slices' product, the cell
+    carries, zero-padded widths) equals ``bilstm_fwd_reference`` (with
+    cells) / ``bigru_fwd_reference`` (with ``b_hn``) within 1e-5."""
+    gates = G_OF[cell]
+    rng = np.random.default_rng(T + B + H + 1)
+    f = lambda *s, sc=1.0: torch.from_numpy(rng.normal(size=s) * sc).float()  # noqa: E731
+    gx = [f(T, B, gates * H) for _ in range(2)]
+    wh = [f(H, gates * H, sc=H ** -0.5) for _ in range(2)]
+    if cell == "lstm":
+        want = bilstm_fwd_reference(*gx, *wh, with_cells=True)
+        got = _replay_forward(cell, H)(*gx, *wh, with_cells=True)
+    else:
+        bn = [f(H) for _ in range(2)]
+        want = bigru_fwd_reference(*gx, *wh, *bn)
+        got = _replay_forward(cell, H)(*gx, *wh, *bn)
+    assert len(got) == len(want)
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape and g_.dtype == w.dtype
+        assert (g_ - w).abs().max().item() <= 1e-5
