@@ -181,13 +181,20 @@ raises on failure (the script exits 0 only when all passed):
    12b. one WGAN-GP step from the seeded state over 2 ranks spawned on the
    card over gloo (NCCL refuses two ranks on one device), each on its 16
    rows, then the same step gathered from a ``shard_corpus=True`` device
-   corpus (each rank holding half of it): each rank within one bf16 step's
-   tolerances of the world-size-1 step on the whole batches, the ranks'
-   states bit-equal, (2 forward, 1 BPTT) launches on each rank; beside
-   them bf16's own spread, the world-size-1 step on its rows reversed; the
-   ranks' step median (no scaling number: the ranks share one card and
-   gloo stages every all-reduce through the host); a rank that has not
-   ended in ``MESH_TIMEOUT_S`` is killed and fails the phase;
+   corpus (each rank holding half of it), then from a per-process corpus
+   (``make_mesh(per_process=True)``, the JAX package's multi-process
+   layout): each rank given only its own ``Dataset.shard(2, r)`` of the
+   first 383 utterances (192 and 191; rank 1 pads one row), one all-gather
+   of the counts and no other collective while it is built, its block's
+   bytes beside the one-host block's; each rank within one bf16 step's
+   tolerances of the world-size-1 step on the same global rows (the whole
+   batches; for the per-process corpus, rank r's row j is utterance
+   r + 2·(j mod N_r)), the ranks' states bit-equal, (2 forward, 1 BPTT)
+   launches on each rank; beside them bf16's own spread, the world-size-1
+   step on its rows reversed; the ranks' step median (no scaling number:
+   the ranks share one card and gloo stages every all-reduce through the
+   host); a rank that has not ended in ``MESH_TIMEOUT_S`` is killed and
+   fails the phase;
    12c. ``python -m torch.distributed.run --standalone --nproc-per-node 1
    -m percivaltts_tpu_torch.cli train --mesh --device-corpus`` with config
    3 on phase 8's corpus, 1 epoch of 2 steps with measures: exit 0, one
@@ -219,9 +226,15 @@ raises on failure (the script exits 0 only when all passed):
    13b. config 3 (``cnn_blstm``) and the BLSTM generator at
    ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
    the twins, every forward launch on ``wide_mma`` (and every BPTT launch
-   of 13c), serve medians, busy share;
+   of 13c), serve medians, busy share; config 3 also in f32
+   (``compute_dtype="float32"``), every forward and BPTT launch on
+   ``wide``, one serve held against the twins (the median of 3 timed);
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
-   twins' step as ``_hold_step`` holds phase 5's, the step median of 10;
+   twins' step as ``_hold_step`` holds phase 5's, the step median of 10
+   (the f32 form: one step held, the median of 3);
+   13d. both CUDA-core cluster kernels in f32 at B = 8, 32, 160 (H = 512),
+   in turns with their twins, beside the bound at the f32 rate and cuDNN's
+   f32 ``nn.LSTM`` (TF32 off) by CUDA events and by device time;
 14. kernels #3/#4 at every width the JAX package trains (the same two
    routes: ``csrc/bigru_{fwd,bwd}_wide.cu`` and
    ``csrc/bigru_{fwd,bwd}_wide_mma.cu``):
@@ -231,7 +244,10 @@ raises on failure (the script exits 0 only when all passed):
    and (512, 160, 512), cuDNN's ``nn.GRU`` beside the timings;
    14b/14c. the BGRU generator at ``blstm_size=1024`` (H = 512) serving
    phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every forward
-   and BPTT launch on ``wide_mma``, (4, 2) launches a step.
+   and BPTT launch on ``wide_mma``, (4, 2) launches a step; and in f32 as
+   13b/13c's f32 form, every launch on ``wide``;
+   14d. as 13d for the GRU's two CUDA-core cluster kernels, beside cuDNN's
+   f32 ``nn.GRU``.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -244,7 +260,6 @@ of the JAX package.
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import math
 import re
@@ -287,10 +302,15 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # (one BiLSTM, now of 512 units) as config 3; the BLSTM generator, whose
 # every stream reads both LSTM layers through a bf16 readout, as the BGRU.
 # Phase 14's BGRU at blstm_size=1024 as the BGRU.
+# The f32 forms (phases 13/14, route "wide"): no bf16 rounding flips, only
+# sums taken in another order (the kernels' f32 outputs within 1e-4 of the
+# twins', KERNEL_TOL), read through an f32 readout and scaled by 1/scale <= 2.
 SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125,
-             "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125, "bgru_1024": 0.125}
+             "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125, "bgru_1024": 0.125,
+             "cnn_blstm_1024_f32": 1e-3, "bgru_1024_f32": 1e-3}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
-          "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075}
+          "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075,
+          "cnn_blstm_1024_f32": 6_003_043, "bgru_1024_f32": 9_983_075}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -309,6 +329,10 @@ MODELS = {
     # phase 14: the BGRU generator's 1024-wide front end and 2 bidirectional
     # GRU layers of H = 512 (kernels #3/#4's cluster routes)
     "bgru_1024": dict(generator="bgru", blstm_size=1024),
+    # phases 13/14 in f32: the same models computing in f32, whose recurrences
+    # past H = 256 (LSTM) / 320 (GRU) take the CUDA-core cluster route "wide"
+    "cnn_blstm_1024_f32": dict(generator="cnn_blstm", blstm_size=1024, compute_dtype="float32"),
+    "bgru_1024_f32": dict(generator="bgru", blstm_size=1024, compute_dtype="float32"),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
@@ -380,7 +404,8 @@ N_TIMED_STEPS = 10
 # BiLSTM in the no-grad fakes pass and in the generator update, and one
 # BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
 STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2),
-                 "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2), "bgru_1024": (4, 2)}
+                 "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2), "bgru_1024": (4, 2),
+                 "cnn_blstm_1024_f32": (2, 1), "bgru_1024_f32": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -457,6 +482,14 @@ N_DISPATCH_VOCODES = 5
 # then fails the phase (a collective that waits for a lost rank hangs)
 MESH_TIMEOUT_S = 300
 MESH_CLI_TIMEOUT_S = 300
+# 12b's per-process corpus: the first 383 of the 384 utterances of
+# ``_sets_corpus``, so rank 0's ``Dataset.shard`` holds 192 and rank 1's 191,
+# which pads one row
+PER_PROCESS_UTTS = 383
+# the collectives counted while a per-process corpus is built: one
+# all-gather of the ranks' utterance counts, nothing else
+CORPUS_COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_gather_object", "all_reduce",
+                      "broadcast", "broadcast_object_list", "barrier")
 # phase 13: kernels #1/#2 at the widths one block cannot hold, the cluster
 # routes (csrc/bilstm_{fwd,bwd}_wide{,_mma}.cu): the serving chunk, edges (T not a
 # multiple of anything, T = 1), the fakes pass, widths that leave the last
@@ -471,7 +504,10 @@ WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
 # same inputs; mma_layout.LSTM_SIMT_MAX_H routes by the faster
 ROUTE_SHAPE = (512, 32, 256)
 WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
-WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024")
+WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024", "cnn_blstm_1024_f32")
+# the f32 forms' depth (one serve of the 8 requests and one WGAN-GP step
+# checked against the twins; serves timed, steps checked, steps timed)
+F32_DEPTH = (3, 1, 3)
 # the bf16 BPTT's tensor-core cluster kernels (route "wide_mma",
 # csrc/{bilstm,bigru}_bwd_wide_mma.cu) are also held at the fakes pass's rows
 WIDE_MMA_SHAPE = (512, 160, 512)
@@ -488,7 +524,7 @@ WIDE_BWD_KEYS = {"wide": "_bwd", "wide_mma": "_bwd_wide_mma"}  # the err key of 
 WIDE_GRU_FWD_SHAPES = [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512),
                        (33, 9, 336), (33, 9, 352), (64, 1, 640)]
 WIDE_GRU_BWD_SHAPES = [(512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)]
-WIDE_GRU_MODELS = ("bgru_1024",)
+WIDE_GRU_MODELS = ("bgru_1024", "bgru_1024_f32")
 
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
@@ -607,28 +643,33 @@ def _ratio(a, b):
     return None if a is None or b is None else a / b
 
 
+def _normal(g: torch.Generator, shape, device, dtype, scale: float = 1.0) -> torch.Tensor:
+    """Normal values of ``shape`` times ``scale``, drawn in f32 on ``device``
+    from ``g`` and cast to ``dtype`` (made on the card: numpy took seconds
+    for the fakes pass's gates)."""
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
 def _gates(T, B, H, dtype, device, seed):
-    rng = np.random.default_rng(seed)
-    gx = rng.normal(size=(2, T, B, 4 * H)).astype(np.float32)
-    wh = (rng.normal(size=(2, H, 4 * H)) / np.sqrt(H)).astype(np.float32)
-    to = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)  # noqa: E731
-    return to(gx[0]), to(gx[1]), to(wh[0]), to(wh[1])
+    """gx_f, gx_b (T, B, 4H) and W_h (H, 4H) per direction, from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    gx = [_normal(g, (T, B, 4 * H), device, dtype) for _ in range(2)]
+    wh = [_normal(g, (H, 4 * H), device, dtype, 1 / math.sqrt(H)) for _ in range(2)]
+    return gx[0], gx[1], wh[0], wh[1]
 
 
 def _gru_gates(T, B, H, dtype, device, seed):
     """gx_f, gx_b (T, B, 3H), W_h (H, 3H) and b_hn (H,) per direction."""
-    rng = np.random.default_rng(seed)
-    gx = rng.normal(size=(2, T, B, 3 * H)).astype(np.float32)
-    wh = (rng.normal(size=(2, H, 3 * H)) / np.sqrt(H)).astype(np.float32)
-    bn = rng.normal(size=(2, H)).astype(np.float32)
-    to = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)  # noqa: E731
-    return to(gx[0]), to(gx[1]), to(wh[0]), to(wh[1]), to(bn[0]), to(bn[1])
+    g = torch.Generator(device=device).manual_seed(seed)
+    gx = [_normal(g, (T, B, 3 * H), device, dtype) for _ in range(2)]
+    wh = [_normal(g, (H, 3 * H), device, dtype, 1 / math.sqrt(H)) for _ in range(2)]
+    bn = [_normal(g, (H,), device, dtype) for _ in range(2)]
+    return gx[0], gx[1], wh[0], wh[1], bn[0], bn[1]
 
 
 def _dy(T, B, H, dtype, device, seed):
-    dy = np.random.default_rng(seed).normal(size=(2, T, B, H)).astype(np.float32)
-    dy = torch.from_numpy(dy).to(device=device, dtype=dtype)
-    return dy[0], dy[1]
+    g = torch.Generator(device=device).manual_seed(seed)
+    return _normal(g, (T, B, H), device, dtype), _normal(g, (T, B, H), device, dtype)
 
 
 def _bwd_args(T, B, H, dtype, device, seed):
@@ -798,9 +839,9 @@ def _requests(n_features: int):
     return labs, in_stats, out_stats
 
 
-def _serve_path(dev, kind: str) -> dict:
+def _serve_path(dev, kind: str, n_timed: int = 7) -> dict:
     """Phase 4 for one generator: serve 8 requests, count launches, compare
-    with the twins, time the serve."""
+    with the twins, time the serve (median of ``n_timed``)."""
     from percivaltts_tpu_torch import ModelConfig, VocoderConfig
     from percivaltts_tpu_torch.eval.serve import serve
     from percivaltts_tpu_torch.models import build_generator, count_params
@@ -842,7 +883,7 @@ def _serve_path(dev, kind: str) -> dict:
 
     serve(gen, labs, in_stats, out_stats)  # warm-up
     lat = []
-    for _ in range(7):
+    for _ in range(n_timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         serve(gen, labs, in_stats, out_stats)
@@ -960,11 +1001,14 @@ def _profiled(label: str, fn, keys: tuple):
     return busy_share, sum(ms for _, ms, _ in sel)
 
 
-def _train_path(dev, kind: str) -> dict:
-    """Phase 5 and the step timing of phase 6 for one generator. Returns the
-    launch counts of the checked steps and the timings."""
+def _train_path(dev, kind: str, n_checked: int = 0, n_timed: int = 0) -> dict:
+    """Phase 5 and the step timing of phase 6 for one generator: ``n_checked``
+    steps checked (``N_CHECKED_STEPS`` by default), ``n_timed`` timed
+    (``N_TIMED_STEPS``). Returns the launch counts of the checked steps and
+    the timings."""
     from percivaltts_tpu_torch.training.state import make_gan_state
 
+    n_checked, n_timed = n_checked or N_CHECKED_STEPS, n_timed or N_TIMED_STEPS
     cfg, sets, step = _train_setup(dev, kind)
     nc = cfg.train.n_critic
     kernels = _kernels()
@@ -973,7 +1017,7 @@ def _train_path(dev, kind: str) -> dict:
     state = make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev)
 
     _zero_counts()
-    for s in range(N_CHECKED_STEPS):
+    for s in range(n_checked):
         f0, b0 = fwd.launches, bwd.launches
         state, m = step(state, *sets[s % 2])
         torch.cuda.synchronize()
@@ -1010,7 +1054,7 @@ def _train_path(dev, kind: str) -> dict:
     for i in range(2):  # warm-up
         state, _ = step(state, *sets[i])
     times = []
-    for i in range(N_TIMED_STEPS):
+    for i in range(n_timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step(state, *sets[i % 2])
@@ -1019,12 +1063,13 @@ def _train_path(dev, kind: str) -> dict:
     step_ms = statistics.median(times)
     frames = TRAIN_B * TRAIN_T * (nc + 1)
     print(f"[time] WGAN-GP step {kind} (B={TRAIN_B}, T={TRAIN_T}, n_critic={nc}): median "
-          f"{step_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, {N_TIMED_STEPS} "
+          f"{step_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, {n_timed} "
           f"steps), {frames / step_ms * 1e3:.1f} frames/s")
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
     busy_share, _ = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
-    return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share}
+    return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share,
+            "checked": n_checked}
 
 
 def _hold_step(tag: str, what: str, got, want) -> None:
@@ -2813,9 +2858,13 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_path: str) -> None:
     a gloo group of ``world`` ranks on ``DEVICE`` from the seeded state on
     this rank's rows of ``_train_setup``'s first set, its launches, a few
     timed steps, then the same step gathered from a ``shard_corpus=True``
-    device corpus; written to ``out_path``."""
+    device corpus, and from a per-process one (``make_mesh(per_process=
+    True)``) built from this rank's own ``Dataset.shard`` of the first
+    ``PER_PROCESS_UTTS`` utterances, its collectives counted; written to
+    ``out_path``."""
     import torch.distributed as dist
 
+    from percivaltts_tpu_torch.data.dataset import Dataset
     from percivaltts_tpu_torch.data.device_corpus import DeviceCorpus, make_device_wgan_step
     from percivaltts_tpu_torch.parallel import distributed, make_mesh
     from percivaltts_tpu_torch.parallel.mesh import shard_batch, shard_stacked_batch
@@ -2858,6 +2907,38 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_path: str) -> None:
                      "counts": _counts(), "routes": _routes(),
                      "rows_held": corpus.data["lab"].shape[0],
                      "idx": torch.from_numpy(idx), "padded": corpus.num_utts_padded}
+
+    # the per-process corpus: this rank reads only its own shard
+    whole = _sets_corpus(sets)
+    own = Dataset(whole.labs[:PER_PROCESS_UTTS], whole.cmps[:PER_PROCESS_UTTS]).shard(world, rank)
+    del whole, corpus
+    pmesh = make_mesh(devices=[dev] * world, per_process=True)
+    collectives = dict.fromkeys(CORPUS_COLLECTIVES, 0)
+    saved = {name: getattr(dist, name) for name in CORPUS_COLLECTIVES}
+
+    def counted(name):
+        return lambda *a, **kw: collectives.__setitem__(name, collectives[name] + 1) \
+            or saved[name](*a, **kw)
+
+    for name in CORPUS_COLLECTIVES:
+        setattr(dist, name, counted(name))
+    try:
+        corpus = DeviceCorpus(own, bound=TRAIN_T, mesh=pmesh, shard_corpus=True, device=dev)
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    idx = next(corpus.epoch_indices(TRAIN_B, nc + 1, 0, seed=SEED))
+    state = make_gan_state(cfg, LABEL_DIM, seed=SEED, mesh=pmesh)
+    _zero_counts()
+    state, m = make_device_wgan_step(step, nc)(state, corpus.data, corpus.shard_indices(idx))
+    torch.cuda.synchronize()
+    out["per_process"] = {
+        "metrics": {k: v.item() for k, v in m.items()}, "exp_avg": _state_on_host(state),
+        "state": _host_copy(state.state_dict()), "counts": _counts(), "routes": _routes(),
+        "rows_held": corpus.data["lab"].shape[0], "idx": torch.from_numpy(idx),
+        "padded": corpus.num_utts_padded, "num_utts": corpus.num_utts,
+        "nbytes": corpus.nbytes, "collectives": collectives,
+        "host_bytes": sum(a.nbytes for a in own.labs + own.cmps)}
     torch.save(out, out_path)
     dist.destroy_process_group()
 
@@ -2868,12 +2949,15 @@ def _mesh_world2_path(dev, card: str) -> dict:
     world-size-1 step on the whole batches (``STEP_METRIC_TOL`` /
     ``STEP_MOMENT_TOL``), the ranks' states bit-equal, (2, 1) launches a
     step at B=16 on each rank; the same for the step from the sharded
-    device corpus (each rank holding half the corpus); bf16's spread at
-    world size 1 beside them. The gloo wall is no scaling number: the
+    device corpus (each rank holding half the corpus) and from the
+    per-process corpus (each rank given its own ``Dataset.shard`` of
+    ``PER_PROCESS_UTTS`` utterances; one all-gather, its bytes beside the
+    one-host layout's); bf16's spread at world size 1 beside them. The gloo wall is no scaling number: the
     ranks share one card and gloo stages the all-reduces through the
     host."""
     import os
 
+    from percivaltts_tpu_torch.data.dataset import Dataset
     from percivaltts_tpu_torch.data.device_corpus import DeviceCorpus, make_device_wgan_step
     from percivaltts_tpu_torch.parallel.mesh import Mesh
     from percivaltts_tpu_torch.training.state import make_gan_state
@@ -2902,6 +2986,24 @@ def _mesh_world2_path(dev, card: str) -> dict:
         make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev), whole.data,
         whole.shard_indices(whole_idx))
     refs["corpus"] = ({k: v.item() for k, v in m.items()}, _state_on_host(state))
+    # the per-process corpus: rank r's block row j holds utterance j mod N_r
+    # of its shard, global r + world·(j mod N_r); its index arrays are the
+    # one-host corpus's (the same padded rows a block, 192)
+    first = Dataset(ds.labs[:PER_PROCESS_UTTS], ds.cmps[:PER_PROCESS_UTTS])
+    n_own = [len(range(r, PER_PROCESS_UTTS, world)) for r in range(world)]
+    rank_of = np.repeat(np.arange(world), per)[None, :]
+    pp_idx = rank_of + world * (idx % np.asarray(n_own)[rank_of])
+    del whole
+    whole = DeviceCorpus(first, bound=TRAIN_T, device=dev)
+    state, m = make_device_wgan_step(step, nc)(
+        make_gan_state(cfg, LABEL_DIM, seed=SEED, device=dev), whole.data,
+        whole.shard_indices(pp_idx))
+    refs["per_process"] = ({k: v.item() for k, v in m.items()}, _state_on_host(state))
+    one_host = DeviceCorpus(first, bound=TRAIN_T, mesh=Mesh(rank=0, size=world, device=dev),
+                            shard_corpus=True, device=dev)
+    layout_bytes = {"one-host block": one_host.nbytes, "replicated": whole.nbytes,
+                    "host, whole corpus": sum(a.nbytes for a in first.labs + first.cmps)}
+    del one_host, first
     # bf16's own spread at world size 1: the same step on each batch's rows
     # reversed (ε reversed with them) sums the weight gradients in another
     # order, as splitting the rows over ranks does
@@ -2943,7 +3045,7 @@ def _mesh_world2_path(dev, card: str) -> dict:
     want_launches = {"bilstm_fwd": STEP_LAUNCHES["cnn_blstm"][0],
                      "bilstm_bwd": STEP_LAUNCHES["cnn_blstm"][1]}
     counts, routes = {}, _no_routes()
-    for case in ("step", "corpus"):
+    for case in ("step", "corpus", "per_process"):
         for r, got in enumerate(ranks):
             c = got[case]
             for name, by_route in c["routes"].items():
@@ -2965,13 +3067,31 @@ def _mesh_world2_path(dev, card: str) -> dict:
     if ranks[0]["step"]["rows"] != per or ranks[0]["corpus"]["rows_held"] != block \
             or not torch.equal(ranks[0]["corpus"]["idx"], torch.from_numpy(idx)):
         raise AssertionError("the ranks did not take their halves")
+    pp = [got["per_process"] for got in ranks]
+    want_collectives = {**dict.fromkeys(CORPUS_COLLECTIVES, 0), "all_gather": 1}
+    for r, c in enumerate(pp):
+        print(f"[mesh world 2] ({card}) rank {r}, per_process: {c['num_utts']} utterances of its "
+              f"own shard ({c['host_bytes']} bytes on the host, against "
+              f"{layout_bytes['host, whole corpus']} for the whole corpus), padded to "
+              f"{c['rows_held']} rows, {c['nbytes']} bytes on the card (the one-host layout's "
+              f"block {layout_bytes['one-host block']}, the replicated corpus "
+              f"{layout_bytes['replicated']}); collectives while it was built "
+              f"{ {k: v for k, v in c['collectives'].items() if v} }")
+        if (c["num_utts"], c["rows_held"], c["padded"]) != (n_own[r], max(n_own),
+                                                            world * max(n_own)) \
+                or c["collectives"] != want_collectives \
+                or not torch.equal(c["idx"], torch.from_numpy(idx)):
+            raise AssertionError(f"rank {r}'s per-process corpus: {c['num_utts']} utterances, "
+                                 f"{c['rows_held']} rows of {c['padded']}, collectives "
+                                 f"{c['collectives']}")
     step_ms = [r["step_ms"] for r in ranks]
     print(f"[mesh world 2] ({card}) both ranks' states bit-equal after each step; WGAN-GP step "
           f"median {step_ms} ms a rank (B={per} a rank; 2 ranks on one card over gloo, which "
           f"stages each all-reduce through the host: not a scaling number); ranks' run "
           f"{wall:.1f} s")
     shutil.rmtree(root, ignore_errors=True)
-    return {"counts": counts, "routes": routes, "step_ms": step_ms, "wall_s": wall}
+    return {"counts": counts, "routes": routes, "step_ms": step_ms, "wall_s": wall,
+            "per_process_bytes": [c["nbytes"] for c in pp], "layout_bytes": layout_bytes}
 
 
 def _mesh_cli_path(dev, card: str, qs: dict) -> dict:
@@ -3127,13 +3247,14 @@ def _check_wide_kernels(dev) -> dict:
     without cells, BPTT, the autograd pair), each launch counted on its
     route; H = 256 on the route that takes it, and in bf16 the one-block
     kernels against the cluster ones there (checked and timed). Returns the
-    largest bf16 |kernel − twin| of each wrapper and the route timings."""
+    largest bf16 |kernel − twin| of each wrapper, the largest f32 one of the
+    CUDA-core cluster kernels (``*_wide_f32``) and the route timings."""
     from percivaltts_tpu_torch.ops import lstm_cuda as l
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {"bilstm_fwd": 0.0, "bilstm_fwd_wide_mma": 0.0, "bilstm_bwd": 0.0,
-           "bilstm_bwd_wide_mma": 0.0}
+           "bilstm_bwd_wide_mma": 0.0, "bilstm_fwd_wide_f32": 0.0, "bilstm_bwd_wide_f32": 0.0}
     with torch.no_grad():
         for T, B, H in WIDE_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
@@ -3155,6 +3276,8 @@ def _check_wide_kernels(dev) -> dict:
                         e = _compare(f"[bilstm_fwd wide, launched directly] {tag} cells={cells}",
                                      got, want[:len(got)], tol, relative=False)
                         err["bilstm_fwd"] = max(err["bilstm_fwd"], e)
+                    else:
+                        err["bilstm_fwd_wide_f32"] = max(err["bilstm_fwd_wide_f32"], e)
         for T, B, H in WIDE_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype, tol in BWD_TOL.items():
                 if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
@@ -3167,6 +3290,8 @@ def _check_wide_kernels(dev) -> dict:
                 e = _compare(f"[bilstm_bwd {route}] {tag}", got, want, tol, rel)
                 if route in WIDE_BWD_KEYS and rel:
                     err[f"bilstm{WIDE_BWD_KEYS[route]}"] = max(err[f"bilstm{WIDE_BWD_KEYS[route]}"], e)
+                elif route == "wide":
+                    err["bilstm_bwd_wide_f32"] = max(err["bilstm_bwd_wide_f32"], e)
                 # both cluster kernels on the same inputs, launched directly (uncounted)
                 for other in ("wide", "wide_mma") if rel else ("wide",):
                     if other == route:
@@ -3175,9 +3300,8 @@ def _check_wide_kernels(dev) -> dict:
                     torch.cuda.synchronize()
                     e = _compare(f"[bilstm_bwd {other}, launched directly] {tag}", got, want, tol,
                                  rel)
-                    if rel:
-                        key = f"bilstm{WIDE_BWD_KEYS[other]}"
-                        err[key] = max(err[key], e)
+                    key = f"bilstm{WIDE_BWD_KEYS[other]}" if rel else "bilstm_bwd_wide_f32"
+                    err[key] = max(err[key], e)
 
         # H = 256 on the route that takes it; in bf16 the one-block kernels too
         T, B, H = ROUTE_SHAPE
@@ -3244,13 +3368,14 @@ def _check_wide_gru_kernels(dev) -> dict:
     100 on its entry's route and on the cluster kernel launched directly;
     H = 256 on the route that takes it, and in bf16 the one-block kernels
     against the cluster ones there (checked and timed in turns). Returns the
-    largest bf16 |kernel − twin| of each wrapper and the route timings."""
+    largest bf16 |kernel − twin| of each wrapper, the largest f32 one of the
+    CUDA-core cluster kernels (``*_wide_f32``) and the route timings."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {"bigru_fwd": 0.0, "bigru_fwd_wide_mma": 0.0, "bigru_bwd": 0.0,
-           "bigru_bwd_wide_mma": 0.0}
+           "bigru_bwd_wide_mma": 0.0, "bigru_fwd_wide_f32": 0.0, "bigru_bwd_wide_f32": 0.0}
 
     def hold_bwd(label, got, want, dtype, route=None):
         rel = dtype == bf16
@@ -3259,6 +3384,8 @@ def _check_wide_gru_kernels(dev) -> dict:
         if rel and route in WIDE_BWD_KEYS:
             key = f"bigru{WIDE_BWD_KEYS[route]}"
             err[key] = max(err[key], e)
+        elif route == "wide":
+            err["bigru_bwd_wide_f32"] = max(err["bigru_bwd_wide_f32"], e)
 
     with torch.no_grad():
         for T, B, H in WIDE_GRU_FWD_SHAPES:
@@ -3279,6 +3406,8 @@ def _check_wide_gru_kernels(dev) -> dict:
                     e = _compare(f"[bigru_fwd wide, launched directly] {tag}", got, want, tol,
                                  relative=False)
                     err["bigru_fwd"] = max(err["bigru_fwd"], e)
+                else:
+                    err["bigru_fwd_wide_f32"] = max(err["bigru_fwd_wide_f32"], e)
         for T, B, H in WIDE_GRU_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype in BWD_TOL:
                 if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
@@ -3368,8 +3497,9 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
     earlier, routed, routed, earlier; where ``FWD_ALT_ROWS`` names another
     forward plan (the LSTM at B = 160 on R = 40: two h buffers in two waves,
     against the plan's R = 56 with one buffer in one wave), that too, in
-    the same turns. The port's forward layer is also timed by device time
-    on the replaced kernel (``earlier_layer_device_ms``)."""
+    the same turns. (The replaced kernel's and the port's layer on it by
+    device time stand in ``PERF.md``'s kernel table; the CUDA-core cluster
+    kernels are timed in f32, the route they serve, by ``_time_wide_f32``.)"""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
@@ -3405,8 +3535,6 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
                                                          inner=3))
                     ms = statistics.mean(times[(route, 0)])
                     row["earlier_ms"] = statistics.mean(times[("wide", 0)])
-                    row["earlier_device_ms"] = _device_ms(lambda: launch("wide", *args),
-                                                          calls=3, match=f"{name}_wide_kernel")
                     if alt:
                         row[f"rows_{alt}_ms"] = statistics.mean(times[(route, alt)])
                 row["kernel_device_ms"] = _device_ms(lambda: kern(*args), calls=3,
@@ -3420,12 +3548,6 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
             with _compact_weights():
                 lt = _layer_times(layer, _library_layer(cell, ws, dt, dev), x, flat, fwd, runs=5,
                                   inner=3)
-            if fwd and route != "wide":  # the port's layer on the kernel it replaced
-                old = functools.partial(m.bigru_core if gru else m.bilstm_core,
-                                        fwd=functools.partial(m.fwd_launch, "wide"))
-                with torch.no_grad():
-                    row["earlier_layer_device_ms"] = _device_ms(lambda: layer(x, *flat, core=old),
-                                                                calls=3)
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
             row.update({"ms": ms, "us_per_step": ms / T * 1e3, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, **lt})
@@ -3435,15 +3557,12 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
                 print(f"[time] {name} T,B,H={(T, B, H)}: the layer's trace lost the kernel's "
                       "events (its device time is under the kernel's): not a measurement")
             earlier = (f"; the earlier CUDA-core cluster kernel on the same inputs "
-                       f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a step, "
-                       f"{row['earlier_device_ms']} device ms), {row['earlier_ms'] / ms:.2f}x "
+                       f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a step), "
+                       f"{row['earlier_ms'] / ms:.2f}x "
                        f"(means of 2 medians, in turns)" if "earlier_ms" in row else "")
             if alt:
                 earlier += (f"; the plan's rows against R = {alt}: {ms:.4f} against "
                             f"{row[f'rows_{alt}_ms']:.4f} ms")
-            if "earlier_layer_device_ms" in row:
-                earlier += (f"; the port's layer on the earlier kernel "
-                            f"{row['earlier_layer_device_ms']} device ms")
             print(f"[time] {name} {route} T,B,H={(T, B, H)} bf16: kernel {ms:.4f} ms "
                   f"({ms / T * 1e3:.3f} us a step; {row['kernel_device_ms']} device ms){earlier}; "
                   f"plain twin {plain_ms} ms, bound {bound_ms:.5f} ms ({bound_by}); "
@@ -3456,25 +3575,117 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
     return out
 
 
+def _once_ms(fn) -> float:
+    """The CUDA-event time of one call of ``fn``, with no warm-up (for the
+    twins, which loop over T in Python: ~1 s a call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _time_wide_f32(dev, cell: str = "lstm") -> dict:
+    """Phases 13d / 14d: the CUDA-core cluster kernels (route ``"wide"``,
+    which f32 takes past H = 256 (LSTM) / 320 (GRU)) in f32 at
+    ``WIDE_TIMED``, in turns with their twins (kernel, twin, twin, kernel;
+    the kernel's median of 5 calls, the twin's one call), beside the bound
+    at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU`` in
+    f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
+    (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls).
+    A port layer's device time under half its kernel's time is a trace
+    that lost the kernel's events (the cluster kernels' now and then; the
+    kernel is nearly all of its layer): it is printed as such and kept as
+    None, not measured."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: cuDNN's f32 layer would not compute in f32")
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    cls = "nn.GRU" if gru else "nn.LSTM"
+    dt = torch.float32
+    out = {}
+    for name in (("bigru_fwd", "bigru_bwd") if gru else ("bilstm_fwd", "bilstm_bwd")):
+        fwd = name.endswith("fwd")
+        rows = []
+        for T, B, H in WIDE_TIMED:
+            route = (fwd_route if fwd else bwd_route)(dt, H, cell)
+            if route != "wide":
+                raise AssertionError(f"{name} routes f32 at H = {H} to {route!r}, not 'wide'")
+            if fwd:
+                args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
+            else:
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
+            times = {"kernel": [], "twin": []}
+            with torch.no_grad():
+                for who in ("kernel", "twin", "twin", "kernel"):
+                    times[who].append(_median_ms(lambda: kern(*args), runs=5)
+                                      if who == "kernel" else _once_ms(lambda: twin(*args)))
+            ws = _layer_weights(cell, H, dt, dev, seed=2)
+            x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
+                                 .astype(np.float32)).to(dev)
+            with _compact_weights():
+                lt = _layer_times(m.bigru if gru else m.bilstm, _library_layer(cell, ws, dt, dev),
+                                  x, [t for d in ws for t in d], fwd, runs=2, inner=3)
+            ms, plain_ms = statistics.mean(times["kernel"]), statistics.mean(times["twin"])
+            if lt["layer_device_ms"] is not None and lt["layer_device_ms"] < 0.5 * ms:
+                print(f"[time] {name} wide T,B,H={(T, B, H)} f32: the layer's trace lost the "
+                      f"kernel's events ({lt['layer_device_ms']:.4f} device ms, the kernel "
+                      f"{ms:.4f} ms): not a measurement")
+                lt["layer_device_ms"] = None
+            bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
+            row = {"shape": [T, B, H], "route": route, "ms": ms, "us_per_step": ms / T * 1e3,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, **lt}
+            rows.append(row)
+            print(f"[time] {name} wide T,B,H={(T, B, H)} f32: kernel {ms:.4f} ms "
+                  f"({ms / T * 1e3:.3f} us a step), plain twin "
+                  f"{plain_ms:.1f} ms (means of 2, in turns), bound {bound_ms:.5f} ms "
+                  f"({bound_by}, {bound_ms / ms:.2%} of it); layer"
+                  f"{'' if fwd else ' backward'}: port {lt['layer_ms']:.4f} ms, cuDNN "
+                  f"{cls}(hidden_size={H}, bidirectional=True) f32 {lt['library_ms']:.4f} ms "
+                  f"(medians, CUDA events); device time port {lt['layer_device_ms']} ms, cuDNN "
+                  f"{lt['library_device_ms']} ms, cuDNN/port "
+                  f"{_ratio(lt['library_device_ms'], lt['layer_device_ms'])}")
+        out[name] = rows
+    return out
+
+
+def _wide_route(kind: str) -> str:
+    """The cluster route a blstm_size=1024 model's recurrences take: the
+    CUDA cores (``"wide"``) in f32, the tensor cores (``"wide_mma"``) in bf16."""
+    return "wide" if MODELS[kind].get("compute_dtype") == "float32" else "wide_mma"
+
+
 def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
     """Phase 13b/13c (``WIDE_MODELS``) and 14b/14c (``WIDE_GRU_MODELS``): the
     blstm_size=1024 models served and trained as phases 4–6 serve and train
     config 3 and the BGRU, every forward and BPTT launch on the tensor-core
-    cluster route ``wide_mma``."""
+    cluster route ``wide_mma``, or in f32 on the CUDA-core one, ``wide``
+    (``F32_DEPTH``: one serve and one step held against the twins)."""
     runs = {}
     for kind in kinds:
-        served, trained = _serve_path(dev, kind), _train_path(dev, kind)
+        route = _wide_route(kind)
+        if route == "wide":
+            serves, checked, steps = F32_DEPTH
+            served = _serve_path(dev, kind, n_timed=serves)
+            trained = _train_path(dev, kind, n_checked=checked, n_timed=steps)
+        else:
+            served, trained = _serve_path(dev, kind), _train_path(dev, kind)
         cell = "bigru" if _is_gru(kind) else "bilstm"
         for what, run in (("serve", served), ("train", trained)):
             counts, routes = run["counts"], run["routes"]
-            for name, route in ((f"{cell}_fwd", "wide_mma"), (f"{cell}_bwd", "wide_mma")):
+            for name in (f"{cell}_fwd", f"{cell}_bwd"):
                 if routes[name][route] != counts[name]:
                     raise AssertionError(f"{what} {kind}: {name} launched off the {route} route: "
                                          f"{routes[name]} of {counts[name]}")
         print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
               f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
               f"a serve {served['counts'][f'{cell}_fwd']}, a step "
-              f"{STEP_LAUNCHES[kind]}")
+              f"{STEP_LAUNCHES[kind]}, all on {route}")
         runs[kind] = {"serve": served, "train": trained}
     return runs
 
@@ -3636,6 +3847,7 @@ def main() -> int:
     wide = _check_wide_kernels(dev)
     wide_timed = _time_wide_kernels(dev)
     wide_runs = _wide_models_path(dev, smi)
+    wide_f32_timed = _time_wide_f32(dev)
     t_phase14 = time.perf_counter()
     # 14. kernels #3/#4 at the widths one block cannot hold: the same for the
     # GRU's cluster kernels; the BGRU at blstm_size=1024 served and trained
@@ -3643,6 +3855,7 @@ def main() -> int:
     wide_gru = _check_wide_gru_kernels(dev)
     wide_gru_timed = _time_wide_kernels(dev, "gru")
     wide_gru_runs = _wide_models_path(dev, smi, WIDE_GRU_MODELS)
+    wide_f32_timed.update(_time_wide_f32(dev, "gru"))
     for kind, run in {**wide_runs, **wide_gru_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
@@ -3747,13 +3960,48 @@ def main() -> int:
             kernels[-1].update({
                 "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
                 "earlier_ms": first["earlier_ms"],
-                "earlier_device_ms": first["earlier_device_ms"],
-                "earlier_layer_device_ms": first.get("earlier_layer_device_ms"),
                 "earlier_max_abs_err": checked["err"][name],
             })
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s paths, or also elsewhere")
+    # the CUDA-core cluster kernels (the "wide" route) on the f32 forms of
+    # phases 13/14's paths
+    for name, replaces in (("bilstm_fwd", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+                           ("bilstm_bwd", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+                           ("bigru_fwd", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616")):
+        gru = name.startswith("bigru")
+        checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
+        first = wide_f32_timed[name][0]
+        by_path = {f"{what}_{kind}": run[what]["routes"][name]["wide"]
+                   for kind, run in runs_w.items() for what in ("serve", "train")}
+        kernels.append({
+            "name": f"{name}_wide",
+            "route": "cuda",
+            "source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+            "replaces": replaces,
+            "launches": routes[name]["wide"],
+            "launches_by_path": by_path,
+            "max_abs_err": checked["err"][f"{name}_wide_f32"],
+            "dtype": "float32",
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size=512, "
+                            "bidirectional=True) in f32 (TF32 off) "
+                            + ("forward" if name.endswith("fwd") else "backward")
+                            + ", beside the port layer's (layer_ms, layer_device_ms)",
+            "layer_ms": first["layer_ms"],
+            "layer_device_ms": first["layer_device_ms"],
+            "timed": wide_f32_timed[name],
+        })
+        if not routes[name]["wide"] or sum(by_path.values()) != routes[name]["wide"]:
+            raise AssertionError(f"{name}'s wide kernel was launched no time on phase "
+                                 f"{14 if gru else 13}'s f32 paths, or also elsewhere")
     for kind in ("cnn_blstm", "bgru"):
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "
               f"{train[kind]['step_ms']:.3f} ms, device busy share "
@@ -3820,14 +4068,16 @@ def main() -> int:
           + ", ".join(f"{r['sec']:.3f} s" for r in mesh1["records_no_mesh"]) + " without a mesh; "
           f"WGAN-GP step {mesh1['step_ms']['mesh']:.3f} ms against "
           f"{mesh1['step_ms']['no mesh']:.3f} ms ({mesh1['all_reduces']} all-reduces a step); "
-          f"2 gloo ranks on one card {mesh2['step_ms']} ms a step (not a scaling number); "
+          f"2 gloo ranks on one card {mesh2['step_ms']} ms a step (not a scaling number), "
+          f"per-process corpus blocks {mesh2['per_process_bytes']} bytes against "
+          f"{mesh2['layout_bytes']}; "
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
     for kind, run in {**wide_runs, **wide_gru_runs}.items():
         print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
               f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
               f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "
-              f"serve, {run['train']['counts']} in {N_CHECKED_STEPS} steps")
+              f"serve, {run['train']['counts']} in {run['train']['checked']} steps")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -39,10 +39,20 @@ as ``torch.export`` artifacts, one per bucket bound, and a manifest under
 
 ``train --mesh`` trains data-parallel (``parallel/``): one process per
 card, launched by ``torch.distributed.run`` (whose environment
-``--distributed`` reads, as ``--mesh`` does: the one-host and multi-host
-runs are one code path), each on ``cuda:LOCAL_RANK`` over NCCL, or on the
-CPU over gloo when the Python API names the CPU. Every rank composes;
-rank 0 alone writes the feature cache and the stats.
+``--distributed`` reads too), each on ``cuda:LOCAL_RANK`` over NCCL, or on
+the CPU over gloo when the Python API names the CPU. Every rank composes;
+rank 0 alone writes the feature cache and the stats. The two flags differ
+only in what the ranks stand for (``Mesh.per_process``): under ``--mesh``
+the devices of one JAX process, under ``--distributed`` the processes of a
+multi-process JAX run. That matters to a corpus on the device with
+``shard_corpus``: ``--mesh`` uploads rank ``r``'s block of the padded
+corpus; ``--distributed`` lays out each rank's own data as the JAX
+package's processes do (``data/device_corpus.py``). As in the JAX
+package's ``cli train --distributed``, every rank passes the whole corpus
+it composed, with no ``Dataset.shard``, so each rank's block is the whole
+corpus. A Python caller whose ranks each hold their own
+``Dataset.shard(world, rank)`` builds ``make_mesh(per_process=True)`` and
+the ``Trainer`` itself.
 """
 
 from __future__ import annotations
@@ -164,6 +174,25 @@ def cmd_train(args, device) -> int:
             dist.destroy_process_group()
 
 
+def _train_mesh(args, cfg: Configuration, device):
+    """The mesh ``train`` trains over: None without ``--mesh`` /
+    ``--distributed``; else every rank of the process group it joins, its
+    ranks standing for a multi-process JAX run's processes under
+    ``--distributed`` and for one JAX process's devices under ``--mesh``."""
+    if not (args.mesh or args.distributed):
+        return None
+    from percivaltts_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize(backend="nccl" if device.type == "cuda" else "gloo")
+    print_log(f"process group: {distributed.process_info()}")
+    world = distributed.process_info()["process_count"]
+    mesh = make_mesh(data_parallel=cfg.train.data_parallel, devices=[device] * world,
+                     per_process=args.distributed)
+    print_log(f"training on mesh {mesh.shape} (rank {mesh.rank}, {mesh.device}, "
+              f"{'per-process' if mesh.per_process else 'one-host'} layout)")
+    return mesh
+
+
 def _train(args, device) -> int:
     from percivaltts_tpu_torch.training import Trainer
 
@@ -172,16 +201,9 @@ def _train(args, device) -> int:
         cfg = apply_preset(cfg, args.preset)
     if args.device_corpus:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_corpus=True))
-    mesh = None
-    if args.mesh or args.distributed:
-        from percivaltts_tpu_torch.parallel import distributed, make_mesh
-
-        distributed.initialize(backend="nccl" if device.type == "cuda" else "gloo")
-        print_log(f"process group: {distributed.process_info()}")
-        world = distributed.process_info()["process_count"]
-        mesh = make_mesh(data_parallel=cfg.train.data_parallel, devices=[device] * world)
+    mesh = _train_mesh(args, cfg, device)
+    if mesh is not None:
         device = mesh.device
-        print_log(f"training on mesh {mesh.shape} (rank {mesh.rank}, {device})")
     on_device = args.on_device_norm
     corpus = _compose(cfg, device, normalize=not on_device, mesh=mesh)
     if on_device and cfg.train.measures_every > 0:
@@ -424,7 +446,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="data parallelism over the ranks torch.distributed.run launched "
                     "(one process per card; alone: a group of one)")
     pt.add_argument("--distributed", action="store_true",
-                    help="multi-process (multi-host) training; implies --mesh")
+                    help="multi-process (multi-host) training; implies --mesh, its ranks "
+                    "standing for the JAX package's processes: with shard_corpus each rank "
+                    "lays out the corpus it composed (the whole corpus, as the JAX CLI "
+                    "passes it) as its own block")
     pt.add_argument("--on-device-norm", action="store_true", dest="on_device_norm",
                     help="normalize on the device inside the step (raw features ship)")
     pt.add_argument("--device-corpus", action="store_true", dest="device_corpus",

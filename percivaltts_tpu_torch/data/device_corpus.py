@@ -11,11 +11,21 @@ permutation of utterance indices, made exactly as the JAX package makes it.
 Under a data-parallel mesh (``parallel/mesh.py``) every rank computes the
 same global index arrays and gathers its own columns. By default each rank
 holds the whole corpus. With ``shard_corpus=True`` the corpus is cut into
-one block per rank, as the JAX package's one-process mesh lays it out over
-its devices: padded cyclically to a multiple of the rank count, rank ``r``
-uploads only block ``r`` (device memory scales with the rank count), and
-the index arrays' columns of rank ``r`` index its block, shuffled per
-block as the JAX package shuffles them.
+one block per rank (device memory scales with the rank count), and the
+index arrays' columns of rank ``r`` index its block, each block shuffled
+on its own as the JAX package shuffles them. The block is laid out as the
+JAX package lays it out in one of its two runtimes, which the mesh names
+(``Mesh.per_process``):
+
+* one JAX process over its devices (the default): every rank reads the
+  whole corpus, pads it cyclically to a multiple of the rank count, draws
+  the crops over the global padded rows, and uploads block ``r`` of it;
+* one JAX process a host (``jax.process_count() > 1``): ``ds`` is this
+  rank's own data, normally its ``Dataset.shard(size, rank)``. The ranks'
+  utterance counts are all-gathered once, and each rank pads its own rows
+  cyclically to the largest count, draws the crops over those rows, and
+  uploads them. ``num_utts`` is the rank's count and ``num_utts_padded``
+  the largest count times the rank count.
 """
 
 from __future__ import annotations
@@ -57,17 +67,31 @@ class DeviceCorpus:
     ):
         if shard_corpus and mesh is None:
             raise ValueError("shard_corpus=True requires a mesh")
-        N, L, F = len(ds), ds.label_dim, ds.feat_dim
+        N = len(ds)
         self.n_shards = mesh.size if shard_corpus else 1
+        if shard_corpus and mesh.per_process and mesh.size > 1:
+            # every rank gathers before any raises, so none waits for a
+            # rank that has left
+            counts = mesh.all_gather_int(N)
+            empty = [r for r, n in enumerate(counts) if n == 0]
+            if empty:
+                raise ValueError(f"no utterances on rank(s) {empty}: a per-process corpus "
+                                 f"needs data on every rank (counts {counts.tolist()})")
+            N_local = int(counts.max())
+            N_pad = N_local * self.n_shards
+            rows = range(N_local)
+        else:
+            N_pad = N_local = -(-N // self.n_shards) * self.n_shards
+            rows = range(N_pad)[mesh.rows(N_pad)] if shard_corpus else range(N)
+        L, F = ds.label_dim, ds.feat_dim
         # the padding rows cycle through the real utterances (real masks),
         # so no block is all padding
-        N_pad = -(-N // self.n_shards) * self.n_shards
         rng = np.random.default_rng(crop_seed)
         # a long utterance gets one fixed random crop at upload time, drawn
-        # for every padded row in order, as the JAX package draws them
+        # for every padded row this process holds in order, as the JAX
+        # package draws them
         offsets = [int(rng.integers(0, n - bound + 1)) if n > bound else 0
-                   for n in (ds.labs[i % N].shape[0] for i in range(N_pad))]
-        rows = range(N_pad)[mesh.rows(N_pad)] if shard_corpus else range(N)
+                   for n in (ds.labs[i % N].shape[0] for i in range(N_local))]
         lab = np.zeros((len(rows), bound, L), np.float32)
         cmp_ = np.zeros((len(rows), bound, F), np.float32)
         mask = np.zeros((len(rows), bound), np.float32)

@@ -16,6 +16,12 @@ global shape and cut to the rank's rows, so a step at any world size
 computes what the step at world size 1 computes.
 
 The ``model`` axis stays 1: nothing in either package shards a model.
+
+A JAX run is one process over a host's devices, or one process a host
+(``jax.process_count() > 1``), and its sharded device corpus is laid out
+differently in each (``data/device_corpus.py``). Every rank here is a
+process, so the runtime cannot tell the two apart: ``Mesh.per_process``
+says which of them the ranks stand for.
 """
 
 from __future__ import annotations
@@ -33,12 +39,18 @@ import torch.distributed as dist
 class Mesh:
     """This rank's place in the data-parallel group: ``rank`` of ``size``
     ranks, its ``device``, and the process group (``None``: the default
-    group). Row slicing needs no process group; the collectives do."""
+    group). Row slicing needs no process group; the collectives do.
+
+    ``per_process``: the ranks stand for the processes of a multi-process
+    JAX run, each with its own data, and not for the devices of one JAX
+    process. It is the counterpart of the JAX runtime's process count
+    (``jax.process_count() > 1``) and nothing else."""
 
     rank: int = 0
     size: int = 1
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     group: Any = None
+    per_process: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -57,6 +69,15 @@ class Mesh:
         else:
             dist.barrier(group=self.group)
 
+    def all_gather_int(self, value: int) -> np.ndarray:
+        """Every rank's ``value``, by rank, in one all-gather: a tensor on
+        the mesh's device under NCCL, on the host under gloo."""
+        on = self.device if dist.get_backend(self.group) == "nccl" else torch.device("cpu")
+        t = torch.tensor([value], dtype=torch.int64, device=on)
+        out = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(out, t, group=self.group)
+        return torch.cat(out).cpu().numpy()
+
     def broadcast_object(self, obj: Any) -> Any:
         """Rank 0's ``obj`` on every rank (a picklable Python value)."""
         box = [obj]
@@ -74,14 +95,20 @@ def _rank_device(device, local_rank: int) -> torch.device:
 
 
 def make_mesh(
-    data_parallel: int = 0, model_parallel: int = 1, devices: Optional[Sequence] = None
+    data_parallel: int = 0,
+    model_parallel: int = 1,
+    devices: Optional[Sequence] = None,
+    per_process: bool = False,
 ) -> Mesh:
     """The data-parallel mesh over the initialized process group
     (``distributed.initialize``). ``data_parallel=0`` means every rank; any
     other value must equal the world size (a mesh over a subset of the
     ranks would leave the others idle). ``devices``: one device per rank,
     indexed by rank (``"cuda"`` without an index is the rank's local card);
-    by default the local card, or the CPU where there is none."""
+    by default the local card, or the CPU where there is none.
+    ``per_process``: the ranks stand for a multi-process JAX run's
+    processes (``Mesh.per_process``); by default for one process's
+    devices."""
     if model_parallel != 1:
         raise ValueError(f"model_parallel={model_parallel}: only a data axis is supported")
     if not dist.is_initialized():
@@ -106,7 +133,7 @@ def make_mesh(
             raise ValueError(f"{len(devices)} devices for {world} ranks")
         device = devices[rank]
     return Mesh(rank=rank, size=world, device=_rank_device(device, local_rank),
-                group=dist.group.WORLD)
+                group=dist.group.WORLD, per_process=per_process)
 
 
 def local_rows(v, mesh: Mesh, axis: int = 0):

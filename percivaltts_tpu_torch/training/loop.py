@@ -31,6 +31,12 @@ Notes for the card:
   every rank takes the same best-checkpoint and early-stopping decisions.
   Rank 0 alone writes ``config.json``, ``metrics.jsonl``, the trace and
   the checkpoints.
+* On a mesh whose ranks stand for processes (``Mesh.per_process``) a
+  ``shard_corpus`` device corpus takes each rank's ``train_ds`` as its own
+  data (``data/device_corpus.py``). Nothing here reads a global count:
+  an epoch's steps and frames come from the corpus's padded block, as the
+  JAX trainer counts them, and the sanity record is rank 0's own data's,
+  as the JAX package's process 0 records its own.
 """
 
 from __future__ import annotations
