@@ -3,6 +3,7 @@
 train, time.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --f32-times   # the build, then only the f32 tables below
 
 Two generators are driven through the entry points a user calls
 (``eval/serve.py``'s ``serve``, ``training/state.py``'s ``make_gan_state``
@@ -214,7 +215,9 @@ raises on failure (the script exits 0 only when all passed):
    512) (its entry's route, the one-block kernel padded to H = 104, and
    the cluster kernels launched directly) against the twins, f32 and bf16,
    each launch counted on its route, the CUDA-core cluster kernels
-   launched on the bf16 inputs too; H = 256 on the route that takes it,
+   launched on the bf16 inputs too, in f32 both cluster BPTTs (``wide``,
+   ``wide_f32``: one on its route, the other launched directly) wherever
+   ``wide_f32`` takes H, (512, 160, 512) included; H = 256 on the route that takes it,
    and in bf16 the one-block kernels against both cluster ones on the same
    inputs, checked and timed in turns; the autograd pair at (512, 32, 512)
    (bf16: both kernels on ``wide_mma``); both bf16 kernels timed at B = 8,
@@ -227,14 +230,17 @@ raises on failure (the script exits 0 only when all passed):
    ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
    the twins, every forward launch on ``wide_mma`` (and every BPTT launch
    of 13c), serve medians, busy share; config 3 also in f32
-   (``compute_dtype="float32"``), every forward and BPTT launch on
-   ``wide``, one serve held against the twins (the median of 3 timed);
+   (``compute_dtype="float32"``), every forward launch on ``wide`` and
+   every BPTT launch on ``wide_f32``, one serve held against the twins
+   (the median of 3 timed);
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
    twins' step as ``_hold_step`` holds phase 5's, the step median of 10
    (the f32 form: one step held, the median of 3);
-   13d. both CUDA-core cluster kernels in f32 at B = 8, 32, 160 (H = 512),
-   in turns with their twins, beside the bound at the f32 rate and cuDNN's
-   f32 ``nn.LSTM`` (TF32 off) by CUDA events and by device time;
+   13d. the f32 kernels at B = 8, 32, 160 (H = 512): the CUDA-core cluster
+   forward and the ``wide_f32`` BPTT, in turns with their twins (the BPTT
+   also with the ``wide`` BPTT it replaced), beside the bound at the f32
+   rate and cuDNN's f32 ``nn.LSTM`` (TF32 off) by CUDA events and by device
+   time;
 14. kernels #3/#4 at every width the JAX package trains (the same two
    routes: ``csrc/bigru_{fwd,bwd}_wide.cu`` and
    ``csrc/bigru_{fwd,bwd}_wide_mma.cu``):
@@ -245,9 +251,15 @@ raises on failure (the script exits 0 only when all passed):
    14b/14c. the BGRU generator at ``blstm_size=1024`` (H = 512) serving
    phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every forward
    and BPTT launch on ``wide_mma``, (4, 2) launches a step; and in f32 as
-   13b/13c's f32 form, every launch on ``wide``;
-   14d. as 13d for the GRU's two CUDA-core cluster kernels, beside cuDNN's
-   f32 ``nn.GRU``.
+   13b/13c's f32 form, every forward on ``wide``, every BPTT on
+   ``wide_f32``;
+   14d. as 13d for the GRU's f32 kernels, beside cuDNN's f32 ``nn.GRU``.
+
+With ``--f32-times`` the script builds, then only times f32 and exits: the
+four one-block kernels (``"simt"``) at ``F32_SIMT_TIMED`` as 13d times its
+kernels, and both cluster BPTTs, ``"wide"`` and ``"wide_f32"``, in turns at
+each width of ``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES``, beside the route
+``bwd_route`` takes there; it prints no kernel line and no device record.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -330,7 +342,8 @@ MODELS = {
     # GRU layers of H = 512 (kernels #3/#4's cluster routes)
     "bgru_1024": dict(generator="bgru", blstm_size=1024),
     # phases 13/14 in f32: the same models computing in f32, whose recurrences
-    # past H = 256 (LSTM) / 320 (GRU) take the CUDA-core cluster route "wide"
+    # past H = 256 (LSTM) / 320 (GRU) take the CUDA-core cluster forward
+    # ("wide") and the f32 cluster BPTT ("wide_f32")
     "cnn_blstm_1024_f32": dict(generator="cnn_blstm", blstm_size=1024, compute_dtype="float32"),
     "bgru_1024_f32": dict(generator="bgru", blstm_size=1024, compute_dtype="float32"),
 }
@@ -504,6 +517,13 @@ WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
 # same inputs; mma_layout.LSTM_SIMT_MAX_H routes by the faster
 ROUTE_SHAPE = (512, 32, 256)
 WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
+# python3 chip_smoke.py --f32-times: the one-block kernels that f32 takes at
+# the default blstm_size (H = 128), and the widths of the f32 BPTT's cluster
+# routes, "wide" against "wide_f32" (264 and 336 run zero-padded on "wide_f32")
+F32_SIMT_TIMED = [(512, 8, 128), (512, 32, 128)]
+F32_ROUTE_WIDTHS = {"lstm": (264, 288, 320, 384, 416, 448, 512),
+                    "gru": (336, 352, 384, 416, 448, 512)}
+F32_ROUTE_BATCHES = (1, 2, 4, 6, 8, 16, 24, 32, 160)
 WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024", "cnn_blstm_1024_f32")
 # the f32 forms' depth (one serve of the 8 requests and one WGAN-GP step
 # checked against the twins; serves timed, steps checked, steps timed)
@@ -3157,8 +3177,11 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
     ``ops/wide_layout.py::plan``'s, with at most one gate pair a thread.
     Printed: blocks a cluster, units a block, threads, batch rows a cluster,
     W_h in shared memory or L2, the clusters the card holds at once, the
-    waves and the shared memory a block. The same for the tensor-core
-    kernels (``wide_mma``) where they take H: the split of both must be
+    waves and the shared memory a block. The same for the f32 cluster BPTT
+    (``wide_f32``) where it takes H: its split must be ``wide_layout``'s, its
+    rows and resident chunks ``ops/wide_f32_layout.py::rows``'s (printed with
+    the slice's resident, streamed and ring bytes); and for the tensor-core
+    kernels (``wide_mma``): the split of both must be
     ``ops/wide_mma_layout.py::plan``'s, the BPTT's rows ``rows``'s and the
     forward's (rows, tiles a warp, h buffers) ``fwd_rows``'s, B <= 32 in one
     wave at H = 512 (the forward's B = 160 too); then ``ptxas``'s registers
@@ -3167,7 +3190,7 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
     import ctypes
 
     from percivaltts_tpu_torch import _build
-    from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
+    from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout, wide_mma_layout
 
     lib = _build.library()
     gru = cell == "gru"
@@ -3191,6 +3214,23 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
                       f"units, {NT} threads, {R} rows a cluster, W_h in "
                       f"{'shared memory' if w_smem else 'L2'}, {clusters} clusters at once "
                       f"({-(-2 * -(-B // R) // clusters)} waves), {smem} B shared memory")
+        if wide_f32_layout.fits(H, gates):
+            Hp = wide_f32_layout.padded(H)
+            pf = wide_layout.plan(Hp, gates)
+            out = (ctypes.c_int * 9)()
+            _build.check(getattr(lib, f"percival_{name}_bwd_wide_f32_plan")(B, Hp, pf.Hb, pf.U, out),
+                         f"the f32 wide BPTT plan at B={B} H={Hp}")
+            U, Hb, NC, R, nres, nstr, clusters, waves, smem = out
+            rows = wide_f32_layout.rows(B, Hp, gates, clusters)
+            if (U, Hb, NC) != (pf.U, pf.Hb, pf.NC) or (R, nres, nstr, waves, smem) != tuple(rows):
+                raise AssertionError(f"the {name} wide_f32 plan {list(out)} is not {pf}, {rows}")
+            slot, ring = wide_f32_layout.slot_bytes(NC), wide_f32_layout.RING if nstr else 0
+            print(f"[wide plan] {name} bwd wide_f32 B={B} H={H} (run at {Hp}) f32: {U} blocks of "
+                  f"{Hb} units, {wide_f32_layout.THREADS} threads, {R} rows a cluster, {clusters} "
+                  f"clusters at once ({waves} waves), W_h slice {Hp * NC * 4} B: {nres} chunks "
+                  f"resident ({nres * slot} B), {nstr} streamed a step "
+                  f"({nstr * wide_f32_layout.CHUNK * NC * 4} B) through {ring} ring slots "
+                  f"({ring * slot} B), {smem} B shared memory")
         if not wide_mma_layout.fits(H, gates):
             continue
         Hp = wide_mma_layout.padded(H)
@@ -3242,19 +3282,37 @@ def _route_times(m, fargs, bargs) -> dict:
     return {k: statistics.mean(v) for k, v in ms.items()}
 
 
+def _wide_bwd_key(name: str, route: str, bf16: bool):
+    """The key of ``_check_wide_kernels`` / ``_check_wide_gru_kernels``'
+    error table for a cluster BPTT route in bf16 or f32, None for the
+    others: the f32 cluster BPTT is ``*_bwd_wide_f32``, the CUDA-core one in
+    f32 ``*_bwd_wide_f32_earlier``."""
+    if bf16:
+        return f"{name}{WIDE_BWD_KEYS[route]}" if route in WIDE_BWD_KEYS else None
+    return {"wide_f32": f"{name}_bwd_wide_f32", "wide": f"{name}_bwd_wide_f32_earlier"}.get(route)
+
+
 def _check_wide_kernels(dev) -> dict:
     """Phase 13a: both wide kernels against their twins (forward with and
     without cells, BPTT, the autograd pair), each launch counted on its
     route; H = 256 on the route that takes it, and in bf16 the one-block
-    kernels against the cluster ones there (checked and timed). Returns the
-    largest bf16 |kernel − twin| of each wrapper, the largest f32 one of the
-    CUDA-core cluster kernels (``*_wide_f32``) and the route timings."""
+    kernels against the cluster ones there (checked and timed). The f32
+    BPTT runs on its route (``bwd_route``: ``wide_f32``, or ``wide`` at few
+    rows where that measured faster) and the other of the two cluster
+    kernels, launched directly, on the same inputs, wherever ``wide_f32``
+    takes H, the fakes pass's (512, 160, 512) included. Returns the largest bf16 |kernel − twin|
+    of each wrapper, the largest f32 one of the CUDA-core cluster forward
+    (``*_fwd_wide_f32``), of the f32 cluster BPTT (``*_bwd_wide_f32``) and of
+    the CUDA-core cluster BPTT in f32 (``*_bwd_wide_f32_earlier``), and the
+    route timings."""
     from percivaltts_tpu_torch.ops import lstm_cuda as l
+    from percivaltts_tpu_torch.ops import wide_f32_layout
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {"bilstm_fwd": 0.0, "bilstm_fwd_wide_mma": 0.0, "bilstm_bwd": 0.0,
-           "bilstm_bwd_wide_mma": 0.0, "bilstm_fwd_wide_f32": 0.0, "bilstm_bwd_wide_f32": 0.0}
+           "bilstm_bwd_wide_mma": 0.0, "bilstm_fwd_wide_f32": 0.0, "bilstm_bwd_wide_f32": 0.0,
+           "bilstm_bwd_wide_f32_earlier": 0.0}
     with torch.no_grad():
         for T, B, H in WIDE_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
@@ -3280,27 +3338,27 @@ def _check_wide_kernels(dev) -> dict:
                         err["bilstm_fwd_wide_f32"] = max(err["bilstm_fwd_wide_f32"], e)
         for T, B, H in WIDE_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype, tol in BWD_TOL.items():
-                if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
+                rel, route = dtype == bf16, bwd_route(dtype, H, "lstm", B)
+                if (T, B, H) == WIDE_MMA_SHAPE and route not in ("wide_mma", "wide_f32"):
                     continue
-                rel, route = dtype == bf16, bwd_route(dtype, H)
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
                 want = l.bilstm_bwd_reference(*args)
                 tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
                 got = _launch_once(l.bilstm_bwd, *args, route=route)
                 e = _compare(f"[bilstm_bwd {route}] {tag}", got, want, tol, rel)
-                if route in WIDE_BWD_KEYS and rel:
-                    err[f"bilstm{WIDE_BWD_KEYS[route]}"] = max(err[f"bilstm{WIDE_BWD_KEYS[route]}"], e)
-                elif route == "wide":
-                    err["bilstm_bwd_wide_f32"] = max(err["bilstm_bwd_wide_f32"], e)
-                # both cluster kernels on the same inputs, launched directly (uncounted)
-                for other in ("wide", "wide_mma") if rel else ("wide",):
-                    if other == route:
+                key = _wide_bwd_key("bilstm", route, rel)
+                if key:
+                    err[key] = max(err[key], e)
+                # the dtype's other cluster kernels on the same inputs,
+                # launched directly (uncounted)
+                for other in ("wide", "wide_mma") if rel else ("wide", "wide_f32"):
+                    if other == route or (other == "wide_f32" and not wide_f32_layout.fits(H)):
                         continue
                     got = l.bwd_launch(other, *args)
                     torch.cuda.synchronize()
                     e = _compare(f"[bilstm_bwd {other}, launched directly] {tag}", got, want, tol,
                                  rel)
-                    key = f"bilstm{WIDE_BWD_KEYS[other]}" if rel else "bilstm_bwd_wide_f32"
+                    key = _wide_bwd_key("bilstm", other, rel)
                     err[key] = max(err[key], e)
 
         # H = 256 on the route that takes it; in bf16 the one-block kernels too
@@ -3342,7 +3400,7 @@ def _check_wide_kernels(dev) -> dict:
         base = _gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
-        froute, broute = fwd_route(dtype, H), bwd_route(dtype, H)
+        froute, broute = fwd_route(dtype, H), bwd_route(dtype, H, "lstm", B)
         for c in (l.bilstm_core, l.bilstm_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
             f0, b0 = l.bilstm_fwd.routes[froute], l.bilstm_bwd.routes[broute]
@@ -3367,25 +3425,27 @@ def _check_wide_gru_kernels(dev) -> dict:
     the autograd pair), each launch counted on its route; the BPTT at H =
     100 on its entry's route and on the cluster kernel launched directly;
     H = 256 on the route that takes it, and in bf16 the one-block kernels
-    against the cluster ones there (checked and timed in turns). Returns the
-    largest bf16 |kernel − twin| of each wrapper, the largest f32 one of the
-    CUDA-core cluster kernels (``*_wide_f32``) and the route timings."""
+    against the cluster ones there (checked and timed in turns). The f32
+    BPTT as in phase 13a. Returns the largest bf16 |kernel − twin| of each
+    wrapper, the largest f32 one of the CUDA-core cluster forward, the f32
+    cluster BPTT and the CUDA-core cluster BPTT in f32 (keys as
+    ``_wide_bwd_key``) and the route timings."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
+    from percivaltts_tpu_torch.ops import wide_f32_layout
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {"bigru_fwd": 0.0, "bigru_fwd_wide_mma": 0.0, "bigru_bwd": 0.0,
-           "bigru_bwd_wide_mma": 0.0, "bigru_fwd_wide_f32": 0.0, "bigru_bwd_wide_f32": 0.0}
+           "bigru_bwd_wide_mma": 0.0, "bigru_fwd_wide_f32": 0.0, "bigru_bwd_wide_f32": 0.0,
+           "bigru_bwd_wide_f32_earlier": 0.0}
 
     def hold_bwd(label, got, want, dtype, route=None):
         rel = dtype == bf16
         e = max(_compare(f"{label} {what}", got[sl], want[sl], BWD_TOL[dtype], rel)
                 for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))))
-        if rel and route in WIDE_BWD_KEYS:
-            key = f"bigru{WIDE_BWD_KEYS[route]}"
+        key = _wide_bwd_key("bigru", route, rel) if route else None
+        if key:
             err[key] = max(err[key], e)
-        elif route == "wide":
-            err["bigru_bwd_wide_f32"] = max(err["bigru_bwd_wide_f32"], e)
 
     with torch.no_grad():
         for T, B, H in WIDE_GRU_FWD_SHAPES:
@@ -3410,17 +3470,18 @@ def _check_wide_gru_kernels(dev) -> dict:
                     err["bigru_fwd_wide_f32"] = max(err["bigru_fwd_wide_f32"], e)
         for T, B, H in WIDE_GRU_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype in BWD_TOL:
-                if (T, B, H) == WIDE_MMA_SHAPE and dtype != bf16:
+                route = bwd_route(dtype, H, "gru", B)
+                if (T, B, H) == WIDE_MMA_SHAPE and route not in ("wide_mma", "wide_f32"):
                     continue
-                route = bwd_route(dtype, H, "gru")
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
                 want = g.bigru_bwd_reference(*args)
                 tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
                 hold_bwd(f"[bigru_bwd {route}] {tag}",
                          _launch_once(g.bigru_bwd, *args, route=route), want, dtype, route)
-                # both cluster kernels on the same inputs, launched directly (uncounted)
-                for other in ("wide", "wide_mma") if dtype == bf16 else ("wide",):
-                    if other == route:
+                # the dtype's other cluster kernels on the same inputs,
+                # launched directly (uncounted)
+                for other in ("wide", "wide_mma") if dtype == bf16 else ("wide", "wide_f32"):
+                    if other == route or (other == "wide_f32" and not wide_f32_layout.fits(H, 3)):
                         continue
                     got = g.bwd_launch(other, *args)
                     torch.cuda.synchronize()
@@ -3463,7 +3524,7 @@ def _check_wide_gru_kernels(dev) -> dict:
         base = _gru_gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
-        froute, broute = fwd_route(dtype, H, "gru"), bwd_route(dtype, H, "gru")
+        froute, broute = fwd_route(dtype, H, "gru"), bwd_route(dtype, H, "gru", B)
         for c in (g.bigru_core, g.bigru_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
             f0, b0 = g.bigru_fwd.routes[froute], g.bigru_bwd.routes[broute]
@@ -3586,18 +3647,35 @@ def _once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def _time_wide_f32(dev, cell: str = "lstm") -> dict:
-    """Phases 13d / 14d: the CUDA-core cluster kernels (route ``"wide"``,
-    which f32 takes past H = 256 (LSTM) / 320 (GRU)) in f32 at
-    ``WIDE_TIMED``, in turns with their twins (kernel, twin, twin, kernel;
-    the kernel's median of 5 calls, the twin's one call), beside the bound
-    at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU`` in
-    f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
-    (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls).
-    A port layer's device time under half its kernel's time is a trace
-    that lost the kernel's events (the cluster kernels' now and then; the
-    kernel is nearly all of its layer): it is printed as such and kept as
-    None, not measured."""
+def _in_turns(calls: dict, order) -> dict:
+    """The mean time in ms of each of ``calls`` (name → function) timed in
+    ``order`` (e.g. earlier, kernel, twin, twin, kernel, earlier): a call
+    named ``"twin"`` once with no warm-up (``_once_ms``), any other as the
+    median of 5 calls (``_median_ms``)."""
+    times = {who: [] for who in calls}
+    for who in order:
+        fn = calls[who]
+        times[who].append(_once_ms(fn) if who == "twin" else _median_ms(fn, runs=5))
+    return {who: statistics.mean(t) for who, t in times.items()}
+
+
+def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide") -> dict:
+    """Phases 13d / 14d: the kernels that f32 takes at ``shapes``
+    (``WIDE_TIMED`` by default), whose forward must take ``route``: past
+    H = 256 (LSTM) / 320 (GRU) the CUDA-core cluster forward (``"wide"``)
+    in turns with its twin (kernel, twin, twin, kernel; the kernel's median
+    of 5 calls, the twin's one call, ``_in_turns``), the BPTT on its route
+    (``bwd_route``: ``"wide_f32"``) in turns with the CUDA-core cluster BPTT
+    it replaced and the twin (earlier, routed, twin, twin, routed, earlier);
+    with ``route="simt"`` (``python3 chip_smoke.py --f32-times``) the
+    one-block kernels, each in turns with its twin. Each row beside the
+    bound at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
+    in f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
+    (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls), a
+    ``"wide_f32"`` BPTT also by its own device time. A port layer's device
+    time under half its kernel's time is a trace that lost the kernel's
+    events (the cluster kernels' now and then; the kernel is nearly all of
+    its layer): it is printed as such and kept as None, not measured."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
@@ -3611,38 +3689,49 @@ def _time_wide_f32(dev, cell: str = "lstm") -> dict:
     for name in (("bigru_fwd", "bigru_bwd") if gru else ("bilstm_fwd", "bilstm_bwd")):
         fwd = name.endswith("fwd")
         rows = []
-        for T, B, H in WIDE_TIMED:
-            route = (fwd_route if fwd else bwd_route)(dt, H, cell)
-            if route != "wide":
-                raise AssertionError(f"{name} routes f32 at H = {H} to {route!r}, not 'wide'")
+        for T, B, H in shapes or WIDE_TIMED:
+            taken = fwd_route(dt, H, cell) if fwd else bwd_route(dt, H, cell, B)
+            if taken != route and not (taken == "wide_f32" and route == "wide" and not fwd):
+                raise AssertionError(f"{name} routes f32 at H = {H} to {taken!r}, not {route!r}")
             if fwd:
                 args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
             else:
                 args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
             kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
-            times = {"kernel": [], "twin": []}
+            calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args)}
+            turns = ("kernel", "twin", "twin", "kernel")
+            if taken == "wide_f32":
+                calls["earlier"] = lambda: m.bwd_launch("wide", *args)
+                turns = ("earlier", "kernel", "twin", "twin", "kernel", "earlier")
             with torch.no_grad():
-                for who in ("kernel", "twin", "twin", "kernel"):
-                    times[who].append(_median_ms(lambda: kern(*args), runs=5)
-                                      if who == "kernel" else _once_ms(lambda: twin(*args)))
+                times = _in_turns(calls, turns)
+                kernel_device_ms = None if taken != "wide_f32" else _device_ms(
+                    lambda: kern(*args), calls=3, match=f"{name}_{taken}_kernel")
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(dev)
             with _compact_weights():
                 lt = _layer_times(m.bigru if gru else m.bilstm, _library_layer(cell, ws, dt, dev),
                                   x, [t for d in ws for t in d], fwd, runs=2, inner=3)
-            ms, plain_ms = statistics.mean(times["kernel"]), statistics.mean(times["twin"])
+            ms, plain_ms = times["kernel"], times["twin"]
             if lt["layer_device_ms"] is not None and lt["layer_device_ms"] < 0.5 * ms:
-                print(f"[time] {name} wide T,B,H={(T, B, H)} f32: the layer's trace lost the "
+                print(f"[time] {name} {taken} T,B,H={(T, B, H)} f32: the layer's trace lost the "
                       f"kernel's events ({lt['layer_device_ms']:.4f} device ms, the kernel "
                       f"{ms:.4f} ms): not a measurement")
                 lt["layer_device_ms"] = None
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
-            row = {"shape": [T, B, H], "route": route, "ms": ms, "us_per_step": ms / T * 1e3,
+            row = {"shape": [T, B, H], "route": taken, "ms": ms, "us_per_step": ms / T * 1e3,
                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, **lt}
+            earlier = ""
+            if "earlier" in times:
+                row["earlier_ms"] = times["earlier"]
+                row["kernel_device_ms"] = kernel_device_ms
+                earlier = (f"; the earlier CUDA-core cluster BPTT on the same inputs "
+                           f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a "
+                           f"step), {row['earlier_ms'] / ms:.2f}x; {kernel_device_ms} device ms")
             rows.append(row)
-            print(f"[time] {name} wide T,B,H={(T, B, H)} f32: kernel {ms:.4f} ms "
-                  f"({ms / T * 1e3:.3f} us a step), plain twin "
+            print(f"[time] {name} {taken} T,B,H={(T, B, H)} f32: kernel {ms:.4f} ms "
+                  f"({ms / T * 1e3:.3f} us a step){earlier}, plain twin "
                   f"{plain_ms:.1f} ms (means of 2, in turns), bound {bound_ms:.5f} ms "
                   f"({bound_by}, {bound_ms / ms:.2%} of it); layer"
                   f"{'' if fwd else ' backward'}: port {lt['layer_ms']:.4f} ms, cuDNN "
@@ -3654,22 +3743,88 @@ def _time_wide_f32(dev, cell: str = "lstm") -> dict:
     return out
 
 
-def _wide_route(kind: str) -> str:
-    """The cluster route a blstm_size=1024 model's recurrences take: the
-    CUDA cores (``"wide"``) in f32, the tensor cores (``"wide_mma"``) in bf16."""
-    return "wide" if MODELS[kind].get("compute_dtype") == "float32" else "wide_mma"
+def _f32_route_times(dev, cell: str = "lstm") -> list:
+    """Where the f32 BPTT takes ``"wide_f32"``: both cluster BPTTs,
+    ``bwd_launch("wide", …)`` and ``bwd_launch("wide_f32", …)``, on the same
+    inputs in turns (wide, wide_f32, wide_f32, wide; medians of 5 calls,
+    ``_in_turns``) at T = 512, each B of ``F32_ROUTE_BATCHES`` and each H of
+    ``F32_ROUTE_WIDTHS`` (widths not a multiple of 32 run zero-padded on
+    ``"wide_f32"``), beside each kernel's plan (rows a cluster, waves; for
+    ``"wide"`` whether W_h stays in shared memory) and the route
+    ``bwd_route`` takes there (``python3 chip_smoke.py --f32-times``)."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_f32_layout, wide_layout
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    m, gates, name = (gru_cuda, 3, "bigru") if gru else (lstm_cuda, 4, "bilstm")
+    lib = _build.library()
+    dt = torch.float32
+    rows = []
+    for H in F32_ROUTE_WIDTHS[cell]:
+        for B in F32_ROUTE_BATCHES:
+            T = 512
+            p, Hp = wide_layout.plan(H, gates), wide_f32_layout.padded(H)
+            old, new = (ctypes.c_int * 9)(), (ctypes.c_int * 9)()
+            _build.check(getattr(lib, f"percival_{name}_bwd_wide_plan")(B, H, p.Hb, p.U, 0, old),
+                         f"the wide BPTT plan at B={B} H={H}")
+            pf = wide_layout.plan(Hp, gates)
+            _build.check(getattr(lib, f"percival_{name}_bwd_wide_f32_plan")(B, Hp, pf.Hb, pf.U, new),
+                         f"the f32 wide BPTT plan at B={B} H={Hp}")
+            R_old, w_smem, c_old = old[5], old[6], old[7]
+            plans = {"wide": {"R": R_old, "w_smem": w_smem,
+                              "waves": -(-2 * -(-B // R_old) // c_old)},
+                     "wide_f32": {"R": new[3], "nres": new[4], "waves": new[7]}}
+            args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            with torch.no_grad():
+                t = _in_turns({r: (lambda r=r: m.bwd_launch(r, *args)) for r in ("wide", "wide_f32")},
+                              ("wide", "wide_f32", "wide_f32", "wide"))
+            route = bwd_route(dt, H, cell, B)
+            rows.append({"cell": cell, "shape": [T, B, H], "route": route, "ms": t, "plans": plans})
+            print(f"[f32 route] {cell} bwd T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms (R "
+                  f"{R_old}, W_h in {'shared memory' if w_smem else 'L2'}, "
+                  f"{plans['wide']['waves']} waves), wide_f32 {t['wide_f32']:.4f} ms (R {new[3]}, "
+                  f"{new[4]} chunks resident, {new[7]} waves), {t['wide'] / t['wide_f32']:.2f}x "
+                  f"(means of 2 medians, in turns); bwd_route takes {route!r}"
+                  + ("" if t[route] <= min(t.values()) else " (the slower one)"))
+    return rows
+
+
+def _f32_times(dev) -> int:
+    """``python3 chip_smoke.py --f32-times``: after the build, the f32
+    ``"simt"`` kernels at ``F32_SIMT_TIMED`` (``_time_wide_f32`` with
+    ``route="simt"``) and the f32 BPTT's route table (``_f32_route_times``)
+    for both cells."""
+    for cell in ("lstm", "gru"):
+        _time_wide_f32(dev, cell, F32_SIMT_TIMED, route="simt")
+    for cell in ("lstm", "gru"):
+        _f32_route_times(dev, cell)
+    return 0
+
+
+def _wide_route(kind: str, what: str) -> str:
+    """The cluster route a blstm_size=1024 model's recurrences take, for the
+    forward (``what="fwd"``) or the BPTT (``"bwd"``): the tensor cores
+    (``"wide_mma"``) in bf16; in f32 the CUDA-core forward (``"wide"``) and
+    the f32 cluster BPTT (``"wide_f32"``)."""
+    if MODELS[kind].get("compute_dtype") != "float32":
+        return "wide_mma"
+    return "wide" if what == "fwd" else "wide_f32"
 
 
 def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
     """Phase 13b/13c (``WIDE_MODELS``) and 14b/14c (``WIDE_GRU_MODELS``): the
     blstm_size=1024 models served and trained as phases 4–6 serve and train
     config 3 and the BGRU, every forward and BPTT launch on the tensor-core
-    cluster route ``wide_mma``, or in f32 on the CUDA-core one, ``wide``
-    (``F32_DEPTH``: one serve and one step held against the twins)."""
+    cluster route ``wide_mma``, or in f32 every forward on the CUDA-core
+    one, ``wide``, and every BPTT on ``wide_f32`` (``F32_DEPTH``: one serve
+    and one step held against the twins)."""
     runs = {}
     for kind in kinds:
-        route = _wide_route(kind)
-        if route == "wide":
+        route = {what: _wide_route(kind, what) for what in ("fwd", "bwd")}
+        if route["fwd"] == "wide":
             serves, checked, steps = F32_DEPTH
             served = _serve_path(dev, kind, n_timed=serves)
             trained = _train_path(dev, kind, n_checked=checked, n_timed=steps)
@@ -3678,14 +3833,15 @@ def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
         cell = "bigru" if _is_gru(kind) else "bilstm"
         for what, run in (("serve", served), ("train", trained)):
             counts, routes = run["counts"], run["routes"]
-            for name in (f"{cell}_fwd", f"{cell}_bwd"):
-                if routes[name][route] != counts[name]:
-                    raise AssertionError(f"{what} {kind}: {name} launched off the {route} route: "
-                                         f"{routes[name]} of {counts[name]}")
+            for p in ("fwd", "bwd"):
+                name = f"{cell}_{p}"
+                if routes[name][route[p]] != counts[name]:
+                    raise AssertionError(f"{what} {kind}: {name} launched off the {route[p]} "
+                                         f"route: {routes[name]} of {counts[name]}")
         print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
               f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
               f"a serve {served['counts'][f'{cell}_fwd']}, a step "
-              f"{STEP_LAUNCHES[kind]}, all on {route}")
+              f"{STEP_LAUNCHES[kind]}, forwards on {route['fwd']}, BPTTs on {route['bwd']}")
         runs[kind] = {"serve": served, "train": trained}
     return runs
 
@@ -3705,7 +3861,12 @@ def _ptxas_usage(log: str) -> list:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--f32-times"]):
+        print("usage: python3 chip_smoke.py [--f32-times]", file=sys.stderr)
+        return 2
+    f32_times = bool(args)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this test needs an NVIDIA card",
               file=sys.stderr)
@@ -3734,6 +3895,8 @@ def main() -> int:
           f"{built.seconds:.1f} s")
     for line in _ptxas_usage(built.log):
         print(f"[build] {line}")
+    if f32_times:
+        return _f32_times(dev)
 
     # 3. every kernel against its plain twin
     max_err = _check_kernels(dev)
@@ -3965,27 +4128,35 @@ def main() -> int:
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s paths, or also elsewhere")
-    # the CUDA-core cluster kernels (the "wide" route) on the f32 forms of
-    # phases 13/14's paths
-    for name, replaces in (("bilstm_fwd", "percivaltts_tpu/ops/lstm_pallas.py:202"),
-                           ("bilstm_bwd", "percivaltts_tpu/ops/lstm_pallas.py:321"),
-                           ("bigru_fwd", "percivaltts_tpu/ops/lstm_pallas.py:521"),
-                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616")):
+    # the f32 forms of phases 13/14's paths: the CUDA-core cluster forwards
+    # ("wide") and the f32 cluster BPTTs ("wide_f32"); the CUDA-core cluster
+    # BPTTs they replaced there ("wide", timed beside them) stay listed, with
+    # their launches on the paths (none)
+    for name, route, replaces in (
+        ("bilstm_fwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+        ("bilstm_bwd", "wide_f32", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bilstm_bwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bigru_fwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+        ("bigru_bwd", "wide_f32", "percivaltts_tpu/ops/lstm_pallas.py:616"),
+        ("bigru_bwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:616"),
+    ):
         gru = name.startswith("bigru")
         checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
         first = wide_f32_timed[name][0]
-        by_path = {f"{what}_{kind}": run[what]["routes"][name]["wide"]
+        replaced = name.endswith("bwd") and route == "wide"  # timed as the earlier kernel
+        by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
                    for kind, run in runs_w.items() for what in ("serve", "train")}
+        err_key = f"{name}_wide_f32" + ("_earlier" if replaced else "")
         kernels.append({
-            "name": f"{name}_wide",
+            "name": f"{name}_{route}",
             "route": "cuda",
-            "source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+            "source": f"percivaltts_tpu_torch/csrc/{name}_{route}.cu",
             "replaces": replaces,
-            "launches": routes[name]["wide"],
+            "launches": routes[name][route],
             "launches_by_path": by_path,
-            "max_abs_err": checked["err"][f"{name}_wide_f32"],
+            "max_abs_err": checked["err"][err_key],
             "dtype": "float32",
-            "ms": first["ms"],
+            "ms": first["earlier_ms"] if replaced else first["ms"],
             "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
@@ -3999,8 +4170,17 @@ def main() -> int:
             "layer_device_ms": first["layer_device_ms"],
             "timed": wide_f32_timed[name],
         })
-        if not routes[name]["wide"] or sum(by_path.values()) != routes[name]["wide"]:
-            raise AssertionError(f"{name}'s wide kernel was launched no time on phase "
+        if replaced:  # the port's layer runs the kernel that replaced it
+            kernels[-1].update({"replaced_on_the_paths_by": f"{name}_wide_f32",
+                                "layer_ms": None, "layer_device_ms": None})
+            continue
+        if route == "wide_f32":
+            kernels[-1].update({"kernel_device_ms": first["kernel_device_ms"],
+                                "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+                                "earlier_ms": first["earlier_ms"],
+                                "earlier_max_abs_err": checked["err"][f"{name}_wide_f32_earlier"]})
+        if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
+            raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s f32 paths, or also elsewhere")
     for kind in ("cnn_blstm", "bgru"):
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "

@@ -28,9 +28,13 @@ CUDA-core cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``;
 H up to 4096); everything else ``csrc/bigru_fwd.cu``. The BPTT takes the
 same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
 ``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
-``csrc/bigru_bwd.cu``. ``csrc/bigru_bwd.cu`` and the ``"wide_mma"`` kernels
-take H a multiple of 32: other widths are zero-padded to one
-(``ops/lstm_cuda.py::at_width``), which changes no real unit.
+``csrc/bigru_bwd.cu``, except that f32 past H = 320 up to 512 takes its own
+cluster BPTT, ``csrc/bigru_bwd_wide_f32.cu`` (``"wide_f32"``,
+``ops/wide_f32_layout.py``), but for the few batch rows where the CUDA-core
+one measured faster (``mma_layout.F32_WIDE_BWD``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and
+the ``"wide_f32"`` kernels take H a multiple of 32: other widths are
+zero-padded to one (``ops/lstm_cuda.py::at_width``), which changes no real
+unit.
 ``bigru_core`` is the differentiable entry: it runs the forward kernel, and
 the BPTT kernel in the backward pass. The forward is also the registered operator
 ``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
@@ -42,10 +46,11 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
+from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.lstm_cuda import (
     _DTYPE_CODES,
     _one_device,
+    _wide_f32_check,
     _wide_mma_check,
     aligned16,
     at_width,
@@ -295,12 +300,13 @@ bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bigru_bwd` has
-    checked; counts nothing. ``bigru_bwd`` is the entry; ``chip_smoke.py``
-    times one route's kernel beside another's through this. ``"simt"`` runs
-    H that is not a multiple of 32 zero-padded to one
-    (``lstm_cuda.at_width``), up to H = 320; ``"wide_mma"`` (bf16 only, H
-    up to ``wide_mma_layout.max_h(3)``) likewise; ``"wide"`` raises
+    ``"wide_f32"``, ``"wide"`` or ``"simt"``) on CUDA inputs that
+    :func:`bigru_bwd` has checked; counts nothing. ``bigru_bwd`` is the
+    entry; ``chip_smoke.py`` times one route's kernel beside another's
+    through this. ``"simt"`` runs H that is not a multiple of 32 zero-padded
+    to one (``lstm_cuda.at_width``), up to H = 320; ``"wide_mma"`` (bf16
+    only, H up to ``wide_mma_layout.max_h(3)``) and ``"wide_f32"`` (f32
+    only, H up to ``wide_f32_layout.max_h(3)``) likewise; ``"wide"`` raises
     ``ValueError`` past ``wide_layout.GRU_MAX_H``."""
     from percivaltts_tpu_torch import _build
 
@@ -308,9 +314,12 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     T, B, G = gx_f.shape
     H = G // 3
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
-    granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE}.get(route)
+    granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE,
+               "wide_f32": wide_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 3)
+    if route == "wide_f32":
+        _wide_f32_check(gx_f.dtype, H, 3)
     if granule and H % granule and (route != "simt" or H <= SIMT_BWD_MAX_H):
         Hp = -(-H // granule) * granule
         return at_width(lambda *a: bwd_launch(route, *a), Hp, 3, *ins)
@@ -336,6 +345,16 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
                    wide_mma_layout.pack_wh(wh_b, p),
                    *map(aligned16, (bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)))
             err = lib.percival_bigru_bwd_wide_mma(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                T, B, H, p.Hb, p.U, stream,
+            )
+        elif route == "wide_f32":
+            p = wide_layout.plan(H, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (gx_f, gx_b, wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p),
+                   bn_f, bn_b, aligned16(hp_f), aligned16(hp_b), dy_f, dy_b)
+            err = lib.percival_bigru_bwd_wide_f32(
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
                 T, B, H, p.Hb, p.U, stream,
             )
@@ -367,8 +386,10 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 672,
-    the CUDA-core cluster one past H = 320 (bf16: 672), else the one-block
-    CUDA-core one, H not a multiple of 32 zero-padded to one
+    the f32 cluster one for f32 past 320 up to 512 (but for the few rows of
+    ``mma_layout.F32_WIDE_BWD``), the CUDA-core cluster one past those (f32:
+    512, bf16: 672) and at those rows, else the one-block CUDA-core one,
+    H not a multiple of 32 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
     run the twin. Raises on mixed devices, dtypes or shapes, non-contiguous
     CUDA inputs, CUDA inputs that require a gradient under grad mode, H past
@@ -381,7 +402,7 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     device = _one_device("bigru_bwd", ins, "ops.gru_cuda.bigru_core")
     if device.type == "cpu":
         return bigru_bwd_reference(*ins)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru")
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru", gx_f.shape[1])
     out = bwd_launch(route, *ins)
     bigru_bwd.launches += 1
     bigru_bwd.routes[route] += 1
@@ -389,7 +410,7 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
 
 bigru_bwd.launches = 0
-bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
+bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

@@ -22,9 +22,13 @@ the CUDA-core cluster kernel ``csrc/bilstm_fwd_wide.cu``
 ``csrc/bilstm_fwd.cu``. The BPTT takes the same route (``bwd_route``):
 ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
 ``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``.
-``csrc/bilstm_bwd.cu`` takes H a multiple of 8, the ``"wide_mma"`` kernels
-of 32: other widths are zero-padded to one (:func:`at_width`), which
-changes no real unit.
+f32 past H = 256 up to 512 takes its own cluster BPTT,
+``csrc/bilstm_bwd_wide_f32.cu`` (``"wide_f32"``, ``ops/wide_f32_layout.py``),
+but for the few batch rows where the CUDA-core one measured faster
+(``mma_layout.F32_WIDE_BWD``).
+``csrc/bilstm_bwd.cu`` takes H a multiple of 8, the ``"wide_mma"`` and
+``"wide_f32"`` kernels of 32: other widths are zero-padded to one
+(:func:`at_width`), which changes no real unit.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass. The forward is also the
 registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
@@ -37,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
+from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -231,6 +235,16 @@ def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
                          f"H <= {wide_mma_layout.max_h(gates)}, got H={H}")
 
 
+def _wide_f32_check(dtype: torch.dtype, H: int, gates: int) -> None:
+    """Raise unless the f32 cluster BPTTs take ``dtype`` and ``H``."""
+    if dtype != torch.float32:
+        raise TypeError(f"the f32 wide BPTT kernels take float32, got {dtype}")
+    if not wide_f32_layout.fits(H, gates):
+        raise ValueError(f"the f32 wide {wide_layout.CELLS[gates]} BPTT kernels take "
+                         f"{2 * wide_f32_layout.CHUNK} < H <= "
+                         f"{wide_f32_layout.max_h(gates)}, got H={H}")
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
     tensor-core kernels stream their (T, B, ·) inputs with 16-byte
@@ -368,21 +382,26 @@ bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
                dy_f, dy_b):
     """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bilstm_bwd` has
-    checked; counts nothing. ``bilstm_bwd`` is the entry; ``chip_smoke.py``
-    times one route's kernel beside another's through this. ``"simt"`` runs
-    H that is not a multiple of 8, and ``"wide_mma"`` (bf16 only, H up to
-    ``wide_mma_layout.max_h(4)``, else ``ValueError``) H that is not a
-    multiple of 32, zero-padded to one (:func:`at_width`)."""
+    ``"wide_f32"``, ``"wide"`` or ``"simt"``) on CUDA inputs that
+    :func:`bilstm_bwd` has checked; counts nothing. ``bilstm_bwd`` is the
+    entry; ``chip_smoke.py`` times one route's kernel beside another's
+    through this. ``"simt"`` runs H that is not a multiple of 8, and
+    ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(4)``, else
+    ``ValueError``) and ``"wide_f32"`` (f32 only, H up to
+    ``wide_f32_layout.max_h(4)``) H that is not a multiple of 32,
+    zero-padded to one (:func:`at_width`)."""
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 4
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
-    granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE}.get(route)
+    granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE,
+               "wide_f32": wide_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 4)
+    if route == "wide_f32":
+        _wide_f32_check(gx_f.dtype, H, 4)
     if granule and H % granule:
         Hp = -(-H // granule) * granule
         return at_width(lambda *a: bwd_launch(route, *a), Hp, 4,
@@ -405,6 +424,16 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
             ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
                    wide_mma_layout.pack_wh(wh_b, p), *map(aligned16, states))
             err = lib.percival_bilstm_bwd_wide_mma(
+                *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
+                T, B, H, p.Hb, p.U, stream,
+            )
+        elif route == "wide_f32":
+            p = wide_layout.plan(H)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see fwd_launch)
+            ins = (gx_f, gx_b, wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p),
+                   aligned16(hp_f), aligned16(hp_b), cp_f, cp_b, c_f, c_b, dy_f, dy_b)
+            err = lib.percival_bilstm_bwd_wide_f32(
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
                 T, B, H, p.Hb, p.U, stream,
             )
@@ -435,8 +464,10 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 608,
-    the CUDA-core cluster one past H = 256 (bf16: 608), else the one-block
-    CUDA-core one, H not a multiple of 8 zero-padded to one
+    the f32 cluster one for f32 past 256 up to 512 (but for the few rows of
+    ``mma_layout.F32_WIDE_BWD``), the CUDA-core cluster one past those (f32:
+    512, bf16: 608) and at those rows, else the one-block CUDA-core one,
+    H not a multiple of 8 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
     run the twin. Raises on
     mixed devices, dtypes, or shapes, non-contiguous CUDA inputs, CUDA
@@ -450,7 +481,7 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     device = _one_device("bilstm_bwd", (gx_f, gx_b, wh_f, wh_b, *states))
     if device.type == "cpu":
         return bilstm_bwd_reference(gx_f, gx_b, wh_f, wh_b, *states)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4)
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4, "lstm", gx_f.shape[1])
     out = bwd_launch(route, gx_f, gx_b, wh_f, wh_b, *states)
     bilstm_bwd.launches += 1
     bilstm_bwd.routes[route] += 1
@@ -458,7 +489,7 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
+bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -23,7 +23,8 @@ The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
 kernels up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and past it the
 cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
-cores (``ops/wide_layout.py``).
+cores (``ops/wide_layout.py``); the f32 BPTT there takes its own cluster
+kernels up to H = 512 (``ops/wide_f32_layout.py``).
 
 The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
 ``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
@@ -41,7 +42,7 @@ import functools
 
 import torch
 
-from percivaltts_tpu_torch.ops import wide_mma_layout
+from percivaltts_tpu_torch.ops import wide_f32_layout, wide_mma_layout
 
 MMA_K = 16  # depth of one m16n8k16 product: H is a whole number of them
 # W_h in registers at H=128, 32-bit registers a thread: forward 64 (LSTM) / 96
@@ -63,6 +64,14 @@ LSTM_SIMT_MAX_H = {torch.float32: 256, torch.bfloat16: MMA_MAX_H}
 # (chip_smoke.py phase 14a at (512, 32, 256); PERF.md, its kernel table)
 GRU_SIMT_MAX_H = {torch.float32: 320, torch.bfloat16: MMA_MAX_H}
 SIMT_MAX_H = {"lstm": LSTM_SIMT_MAX_H, "gru": GRU_SIMT_MAX_H}
+# where the f32 BPTT keeps the CUDA-core cluster kernel ("wide") over
+# "wide_f32": (H, B) pairs, "wide" wherever H <= h and B <= b for one of
+# them. The card measured "wide" faster there and "wide_f32" faster at every
+# other width and batch it timed (H = 264–512, B = 1–160; python3
+# chip_smoke.py --f32-times, PERF.md): at so few rows the old plan runs one
+# or two waves of 1–4 rows a cluster with W_h resident in shared memory
+# (the LSTM's only up to H = 416), where the new kernel's step costs more
+F32_WIDE_BWD = {"lstm": ((384, 8), (416, 6)), "gru": ((384, 8), (512, 6))}
 
 
 def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
@@ -91,13 +100,24 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     return "wide"
 
 
-def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
-    """The BPTT kernel a CUDA call launches: :func:`fwd_route`'s rule, so
-    ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``),
-    ``"wide_mma"`` (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
+def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
+    """The BPTT kernel a CUDA call of ``B`` batch rows launches:
+    :func:`fwd_route`'s rule, so ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` /
+    ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``
+    (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
     (``csrc/{bilstm,bigru}_bwd_wide.cu``) or ``"simt"``
-    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``)."""
-    return fwd_route(dtype, H, cell)
+    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``); except that f32 past
+    ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H`` takes ``"wide_f32"``
+    (``csrc/{bilstm,bigru}_bwd_wide_f32.cu``) wherever its plan fits
+    (``wide_f32_layout.fits``: H up to 512) and ``F32_WIDE_BWD`` does not
+    keep ``"wide"`` for so few rows. Without ``B``, the route of a batch
+    past ``F32_WIDE_BWD``'s."""
+    route = fwd_route(dtype, H, cell)
+    if route != "wide" or dtype != torch.float32 or not wide_f32_layout.fits(H, GATES[cell]):
+        return route
+    if B is not None and any(H <= h and B <= b for h, b in F32_WIDE_BWD[cell]):
+        return "wide"
+    return "wide_f32"
 
 
 def _check(kind: str, H: int) -> None:

@@ -2,6 +2,7 @@
 
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown          # the mma kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide   # the cluster kernels
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 [--route=wide_f32]
 
 Builds variants of ``csrc/bilstm_bwd_mma.cu`` and ``csrc/bigru_bwd_mma.cu``
 with one part of the step removed or replaced (macros and edits applied to a
@@ -37,6 +38,14 @@ present), bf16, at (512, 8, 512) and (512, 160, 512) (``WIDE_SHAPES``):
 - ``no_prefetch``: the ``h_prev`` rows of the step after next not loaded;
 - ``loop_only``: all of the above removed: the gate phase, its loads and
   stores, and the loop.
+
+With ``--wide --f32`` the same variants in f32 on the CUDA-core cluster
+kernels (``"wide"``) and the f32 cluster BPTTs (``"wide_f32"``,
+``csrc/{bilstm,bigru}_bwd_wide_f32.cu``, whose kernel body is
+``wide_f32_common.cuh``: its edits apply to a copy inlined into the
+variant's source), the latter also without the streamed chunks
+(``no_stream``: the ring's slots keep the chunks of the first pass), each
+shape's launch plan printed; ``--route=NAME`` times one route alone.
 
 Times are medians of CUDA-event times over 20 launches (5 runs of 3 for the
 cluster kernels); the card's name and power limit are printed first.
@@ -98,6 +107,7 @@ def _build_variants() -> dict:
 WIDE_SHAPES = [(512, 8, 512), (512, 160, 512)]
 WIDE_VARIANTS = ("full", "no_recompute", "no_dh", "no_dsmem", "no_cluster_sync", "no_prefetch",
                  "loop_only")
+WIDE_ROUTE_VARIANTS = {"wide_f32": ("no_stream",)}  # variants only one route has
 # per source: {variant: [(text, replacement, count)]}; "loop_only" applies every edit
 WIDE_EDITS = {
     "wide": {
@@ -113,6 +123,17 @@ WIDE_EDITS = {
                              "    __syncthreads();\n  }\n  cluster.sync();\n}", 1)],
         "no_prefetch": [("hp_next[i] = s + 2 < n_steps ? load_hp(frame(s + 2), i) : 0.0f;",
                          "hp_next[i] = 0.0f;", 1)],
+    },
+    "wide_f32": {
+        "no_recompute": [("      if (a_warp) {\n", "      if (false && a_warp) {\n", 1)],
+        "no_dh": [("        dh_chunk(wc, ch);\n", "", 1)],
+        "no_dsmem": [("cluster.map_shared_rank(s_recv, owner)", "(s_recv)", 1)],
+        "no_cluster_sync": [("cluster_arrive();", "(void)0;", 2),
+                            ("cluster_wait();", "__syncthreads();", 3),
+                            ("  cp_async_wait<0>();  // chunks streamed for a pass that does not come\n}",
+                             "  cp_async_wait<0>();\n  cluster.sync();\n}", 1)],
+        "no_prefetch": [("    if (ch > 0 && s + 2 < n_steps) load_h(frame(s + 2), ch - 1);\n", "", 1)],
+        "no_stream": [("    issue();\n", "", 1)],
     },
     "wide_mma": {
         "no_recompute": [("    recompute(0, KH);   // step s+1, first half\n", "", 1),
@@ -130,6 +151,8 @@ WIDE_EDITS = {
 
 
 def _wide_source(src: str, route: str, name: str) -> str:
+    """``src`` with the edits of variant ``name`` (all of them for
+    ``loop_only``)."""
     edits = WIDE_EDITS[route]
     for variant in (edits if name == "loop_only" else [name] if name in edits else []):
         for old, new, count in edits[variant]:
@@ -140,17 +163,20 @@ def _wide_source(src: str, route: str, name: str) -> str:
     return src
 
 
-def _build_wide_variants() -> dict:
+def _build_wide_variants(routes) -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     cmds, libs = [], {}
     for kind in ("bilstm", "bigru"):
-        for route in WIDE_EDITS:
+        for route in routes:
             path = _build.CSRC / f"{kind}_bwd_{route}.cu"
             if not path.exists():
                 continue
             src = path.read_text()
-            for name in WIDE_VARIANTS:
+            if route == "wide_f32":  # the kernel body is the header's: edit a copy inlined
+                header = (_build.CSRC / "wide_f32_common.cuh").read_text()
+                src = src.replace('#include "wide_f32_common.cuh"\n', header)
+            for name in WIDE_VARIANTS + WIDE_ROUTE_VARIANTS.get(route, ()):
                 cu = out_dir / f"{kind}_bwd_{route}_{name}.cu"
                 cu.write_text(_wide_source(src, route, name))
                 so = out_dir / f"{kind}_bwd_{route}_{name}.so"
@@ -161,10 +187,10 @@ def _build_wide_variants() -> dict:
     return libs
 
 
-def _wide_inputs(kind: str, T: int, B: int, H: int, dev, g):
-    """Random bf16 inputs of one launch (both directions) and its outputs."""
-    gates, bf16 = (4 if kind == "bilstm" else 3), torch.bfloat16
-    pair = lambda *shape, s=1.0: [(torch.randn(*shape, generator=g, device=dev) * s).to(bf16)  # noqa: E731
+def _wide_inputs(kind: str, T: int, B: int, H: int, dev, g, dtype=torch.bfloat16):
+    """Random inputs of one launch (both directions) in ``dtype``, and its outputs."""
+    gates = 4 if kind == "bilstm" else 3
+    pair = lambda *shape, s=1.0: [(torch.randn(*shape, generator=g, device=dev) * s).to(dtype)  # noqa: E731
                                   for _ in range(2)]
     ins = {"gx": pair(T, B, gates * H), "wh": pair(H, gates * H, s=H ** -0.5),
            "bn": pair(H), "hp": pair(T, B, H, s=0.5), "cp": pair(T, B, H, s=0.5),
@@ -175,14 +201,16 @@ def _wide_inputs(kind: str, T: int, B: int, H: int, dev, g):
 
 
 def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict, outs: dict):
-    """A function that launches one variant's kernel on ``ins`` (its W_h packed for the route)."""
+    """A function that launches one variant's kernel on ``ins`` (its W_h packed
+    for the route), and the route's plan as the variant's library reports it."""
     p, i = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     gates = 4 if kind == "bilstm" else 3
-    if route == "wide":
+    f32 = ins["gx"][0].dtype == torch.float32
+    if route in ("wide", "wide_f32"):
         plan = wide_layout.plan(H, gates)
         wp = [wide_layout.pack_wh(w, plan) for w in ins["wh"]]
-        tail = [T, B, H, plan.Hb, plan.U, 1]
+        tail = [T, B, H, plan.Hb, plan.U] + ([] if route == "wide_f32" else [0 if f32 else 1])
     else:
         from percivaltts_tpu_torch.ops import wide_mma_layout
 
@@ -196,32 +224,62 @@ def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict
              for t in outs[n]]
     fn = getattr(lib, f"percival_{kind}_bwd_{route}")
     fn.argtypes, fn.restype = [p] * len(ptrs) + [i] * len(tail) + [p], i
+    plan_fn = getattr(lib, f"percival_{kind}_bwd_{route}_plan")
+    plan_fn.argtypes = [i] * (len(tail) - 1) + [ctypes.POINTER(ctypes.c_int)]
+    plan_fn.restype = i
+    out = (ctypes.c_int * 9)()  # every cluster BPTT's plan has 9 fields
+    if plan_fn(*tail[1:], out):
+        raise RuntimeError(f"{kind} {route}: no plan at B={B} H={H}")
 
     def launch():
         err = fn(*ptrs, *tail, stream)
         if err:
             raise RuntimeError(f"{kind} {route}: CUDA error {err}")
     launch.keep = wp  # the packed W_h lives as long as the launcher
+    launch.plan = list(out)
     return launch
 
 
-def wide_main() -> int:
-    libs = _build_wide_variants()
+def _plan_text(route: str, B: int, plan: list) -> str:
+    """The launch plan of a cluster BPTT, as its ``*_plan`` function returns it."""
+    if route == "wide":
+        U, Hb, NC, KS, NT, R, w_smem, clusters, smem = plan
+        waves = -(-2 * -(-B // R) // clusters)
+        return (f"R={R}, W_h in {'shared memory' if w_smem else 'L2'}, {clusters} clusters at "
+                f"once, {waves} waves, {smem} B")
+    if route == "wide_f32":
+        U, Hb, NC, R, nres, nstr, clusters, waves, smem = plan
+        return (f"R={R}, {nres} resident / {nstr} streamed chunks, {clusters} clusters at once, "
+                f"{waves} waves, {smem} B")
+    U, Hb, NC, R, MPW, clusters, waves, dbuf, smem = plan
+    return f"R={R}, {clusters} clusters at once, {waves} waves, {smem} B"
+
+
+def wide_main(f32: bool = False, only: str = "") -> int:
+    """The cluster BPTTs' variants at ``WIDE_SHAPES``: bf16 on ``"wide"`` and
+    ``"wide_mma"``; with ``f32``, f32 on ``"wide"`` and ``"wide_f32"`` (which
+    also runs ``no_stream``), each shape's plan printed first; ``only``: that
+    route alone."""
+    routes = ("wide", "wide_f32") if f32 else ("wide", "wide_mma")
+    routes = tuple(r for r in routes if not only or r == only)
+    libs = _build_wide_variants(routes)
     dev = torch.device("cuda")
+    dtype = torch.float32 if f32 else torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     for kind in ("bilstm", "bigru"):
         for T, B, H in WIDE_SHAPES:
-            ins, outs = _wide_inputs(kind, T, B, H, dev, g)
-            for route in WIDE_EDITS:
+            ins, outs = _wide_inputs(kind, T, B, H, dev, g, dtype)
+            for route in routes:
                 if (kind, route, "full") not in libs:
                     continue
-                row = []
-                for name in WIDE_VARIANTS:
+                row, plan = [], None
+                for name in WIDE_VARIANTS + WIDE_ROUTE_VARIANTS.get(route, ()):
                     launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, route, name)])), kind,
                                             route, T, B, H, ins, outs)
+                    plan = plan or launch.plan
                     row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
-                print(f"[breakdown] {kind}_bwd_{route} T,B,H={(T, B, H)}: us a step: "
-                      + ", ".join(row))
+                print(f"[breakdown] {kind}_bwd_{route} T,B,H={(T, B, H)} {str(dtype)[6:]} "
+                      f"({_plan_text(route, B, plan)}): us a step: " + ", ".join(row))
     return 0
 
 
@@ -232,7 +290,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     if "--wide" in sys.argv[1:]:
-        return wide_main()
+        only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
+        return wide_main(f32="--f32" in sys.argv[1:], only=only)
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     p, i = ctypes.c_void_p, ctypes.c_int

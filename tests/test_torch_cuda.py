@@ -546,15 +546,18 @@ def test_tensor_core_bptt_matches_twins(cuda_device, T, B, H):
 @pytest.mark.parametrize("dtype,H,route,gru_route", ROUTE_CASES)
 def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
     """f32 and widths outside the tensor-core route launch the CUDA-core
-    BPTT kernels (the LSTM's cluster kernel past H = 256), bf16 past 128 the
-    tensor-core cluster kernels; each call counts on its route alone and
+    BPTT kernels (the LSTM's f32 cluster kernel past H = 256), bf16 past 128
+    the tensor-core cluster kernels; each call counts on its route alone and
     agrees with its twin. The CUDA-core GRU BPTT runs H that is not a
     multiple of 32 zero-padded to one."""
     T, B = 24, 5
     lstm_args = _bwd_args(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
-    if dtype == torch.bfloat16:  # a bf16 call sent to a cluster takes the tensor cores
-        route, gru_route = (("wide_mma" if r == "wide" else r) for r in (route, gru_route))
+    # a call sent to a cluster takes the tensor cores in bf16; in f32 at
+    # these 5 rows and H <= 384 the CUDA-core cluster BPTT, which the card
+    # measured faster than "wide_f32" at so few rows (mma_layout.F32_WIDE_BWD)
+    cluster = "wide_mma" if dtype == torch.bfloat16 else "wide"
+    route, gru_route = ((cluster if r == "wide" else r) for r in (route, gru_route))
     l0, g0 = _bwd_routes()
     with torch.no_grad():
         got, want = bilstm_bwd(*lstm_args), bilstm_bwd_reference(*lstm_args)
@@ -621,9 +624,22 @@ WIDE_CASES = [("lstm", *s) for s in WIDE_SHAPES] + [("gru", *s) for s in GRU_WID
 
 
 def _wide_route(dtype):
-    """The route of a call sent to the cluster kernels, forward and BPTT, at
-    the widths of ``WIDE_CASES``."""
+    """The route of a forward sent to the cluster kernels at the widths of
+    ``WIDE_CASES``."""
     return "wide_mma" if dtype == torch.bfloat16 else "wide"
+
+
+def _wide_bwd_route(dtype, H, cell, B):
+    """The route of a BPTT of ``B`` rows sent to the cluster kernels: the
+    forward's, but in f32 up to H = 512 the f32 cluster BPTT
+    (``"wide_f32"``) except at the few rows where the card measured
+    ``"wide"`` faster (``bwd_route``; its table is held on the CPU by
+    ``tests/test_torch_wide_f32_layout.py``)."""
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    route = bwd_route(dtype, H, cell, B)
+    assert route in (_wide_route(dtype), "wide", "wide_f32")
+    return route
 
 
 @pytest.mark.cuda
@@ -632,7 +648,7 @@ def _wide_route(dtype):
 def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
     """Forward (the LSTM's with and without cells) and BPTT on the cluster
     kernels agree with the twins, each counted once on its route (bf16 on
-    the tensor-core cluster kernels)."""
+    the tensor-core cluster kernels, the f32 BPTT up to H = 512 on its own)."""
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     if cell == "gru":
         f_args = _gru_gates(T, B, H, dtype, cuda_device, seed=T + B)
@@ -648,7 +664,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
                 _close_rel(got[2:], want[2:], 2e-2)
         torch.cuda.synchronize()
         assert _route_counts(f0, bigru_fwd.routes, _wide_route(dtype)) == (1, 0)
-        assert _route_counts(b0, bigru_bwd.routes, _wide_route(dtype)) == (1, 0)
+        assert _route_counts(b0, bigru_bwd.routes, _wide_bwd_route(dtype, H, cell, B)) == (1, 0)
         return
     f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
     b_args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
@@ -664,7 +680,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
             _close_rel(got, want, 2e-2)
     torch.cuda.synchronize()
     assert _route_counts(f0, bilstm_fwd.routes, _wide_route(dtype)) == (2, 0)
-    assert _route_counts(b0, bilstm_bwd.routes, _wide_route(dtype)) == (1, 0)
+    assert _route_counts(b0, bilstm_bwd.routes, _wide_bwd_route(dtype, H, cell, B)) == (1, 0)
 
 
 @pytest.mark.cuda
@@ -705,7 +721,7 @@ def test_wide_autograd_pair_matches_twins(cuda_device, dtype, cell):
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
     assert _route_counts(f0, fwd.routes, _wide_route(dtype)) == (1, 0)
-    assert _route_counts(b0, bwd.routes, _wide_route(dtype)) == (1, 0)
+    assert _route_counts(b0, bwd.routes, _wide_bwd_route(dtype, 512, cell, 6)) == (1, 0)
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
         tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
@@ -738,6 +754,90 @@ def test_wide_launch_plan_matches_the_layout(cuda_device, cell, H):
     out = (ctypes.c_int * 9)()
     granule = wide_layout.GRANULE[gates]
     assert fns[0](32, H, p.Hb + granule, p.U, 0, out) != 0 or H < granule
+
+
+# --- the f32 cluster BPTTs (the "wide_f32" route) -----------------------------
+
+# chip_smoke.py's f32 shapes: the training step's rows, the Pallas-parity
+# widths 264 / 336 (zero-padded to 288 / 352, a short last block), T = 1,
+# and the fakes pass at B = 160; the widest the route takes, 512, and 320
+WIDE_F32_CASES = ([("lstm", *s) for s in [(512, 32, 512), (33, 9, 264), (1, 3, 512), (40, 7, 320)]]
+                  + [("gru", *s) for s in [(512, 32, 512), (33, 9, 336), (1, 3, 512), (40, 7, 352)]]
+                  + [("lstm", 512, 160, 512), ("gru", 512, 160, 512)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", WIDE_F32_CASES)
+def test_wide_f32_bptt_matches_twins(cuda_device, cell, T, B, H):
+    """The f32 cluster BPTTs against the twins (1e-4), launched directly and
+    through the entry, which counts them once on their route (``"wide_f32"``,
+    or ``"wide"`` where the card measured it faster at few rows); the earlier
+    CUDA-core cluster BPTT on the same inputs agrees too."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, cuda_device, seed=T + B)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    wrapper = bigru_bwd if gru else bilstm_bwd
+    route = bwd_route(torch.float32, H, cell, B)
+    assert route in ("wide", "wide_f32")
+    with torch.no_grad():
+        _close(m.bwd_launch("wide_f32", *args), want, 1e-4)
+        _close(m.bwd_launch("wide", *args), want, 1e-4)
+        b0 = dict(wrapper.routes)
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+    assert _route_counts(b0, wrapper.routes, route) == (1, 0)
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (160, 288, 320, 512)]
+                         + [("gru", H) for H in (160, 352, 384, 512)])
+@pytest.mark.parametrize("B", [1, 8, 32, 160])
+def test_wide_f32_plan_matches_the_layout(cuda_device, cell, H, B):
+    """The launchers split H as ``ops/wide_layout.py::plan`` does and choose
+    the rows and resident chunks ``ops/wide_f32_layout.py::rows`` replays at
+    the card's clusters; at H = 512, B <= 32 in one wave and B = 160 in two;
+    H not a multiple of 32 is refused."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+    from percivaltts_tpu_torch.ops import wide_layout
+
+    gates = 3 if cell == "gru" else 4
+    p = wide_layout.plan(H, gates)
+    fn = getattr(_build.library(), f"percival_{'bigru' if gates == 3 else 'bilstm'}_bwd_wide_f32_plan")
+    out = (ctypes.c_int * 9)()
+    assert fn(B, H, p.Hb, p.U, out) == 0
+    U, Hb, NC, R, nres, nstr, clusters, waves, smem = out
+    assert (U, Hb, NC) == (p.U, p.Hb, p.NC) and clusters >= 1
+    assert (R, nres, nstr, waves, smem) == tuple(wf.rows(B, H, gates, clusters))
+    if H == 512:
+        assert waves == (1 if B <= 32 else 2)
+    assert fn(B, H + 8, p.Hb, p.U, out) != 0
+
+
+@pytest.mark.cuda
+def test_wide_f32_bptt_refuses_bf16_and_widths_past_its_plan(cuda_device):
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+
+    with pytest.raises(TypeError, match="float32"):
+        lstm_cuda.bwd_launch("wide_f32", *_bwd_args(2, 1, 512, torch.bfloat16, cuda_device, seed=1))
+    with pytest.raises(TypeError, match="float32"):
+        gru_cuda.bwd_launch("wide_f32", *_gru_bwd_args(2, 1, 512, torch.bfloat16, cuda_device,
+                                                       seed=1))
+    for H in (wf.max_h(4) + 1, 128):
+        with pytest.raises(ValueError, match=f"H <= {wf.max_h(4)}"):
+            lstm_cuda.bwd_launch("wide_f32", *_bwd_args(2, 1, H, torch.float32, cuda_device,
+                                                         seed=1))
+        with pytest.raises(ValueError, match=f"H <= {wf.max_h(3)}"):
+            gru_cuda.bwd_launch("wide_f32", *_gru_bwd_args(2, 1, H, torch.float32, cuda_device,
+                                                           seed=1))
 
 
 # --- the tensor-core cluster BPTTs (the "wide_mma" route) ----------------------

@@ -38,13 +38,14 @@ from percivaltts_tpu.models import build_generator as jax_build_generator
 from percivaltts_tpu.models.base import count_params as jax_count_params
 from percivaltts_tpu.models.base import predict_batch as jax_predict_batch
 from percivaltts_tpu.models.rnn import BiLSTM as JaxBiLSTM
+from percivaltts_tpu.ops import lstm_pallas
 from percivaltts_tpu.training import lse as jax_lse
 from percivaltts_tpu.training.state import make_gan_state as jax_make_gan_state
 from percivaltts_tpu_torch import weights
 from percivaltts_tpu_torch.eval.serve import serve
 from percivaltts_tpu_torch.models import build_generator, count_params
 from percivaltts_tpu_torch.models.rnn import BiLSTM
-from percivaltts_tpu_torch.ops import wide_layout
+from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout
 from percivaltts_tpu_torch.ops.mma_layout import GRU_SIMT_MAX_H, bwd_route, fwd_route
 from percivaltts_tpu_torch.training.lse import lse_step
 from percivaltts_tpu_torch.training.state import make_gan_state
@@ -63,14 +64,17 @@ from percivaltts_tpu_torch.training.state import make_gan_state
     # BPTT's 320, then the cluster (321…341 was the forward/BPTT mismatch)
     (torch.float32, 128, "simt"), (torch.float32, 320, "simt"), (torch.float32, 321, "wide"),
     (torch.float32, 341, "wide"), (torch.float32, 384, "wide"), (torch.float32, 4096, "wide"),
+    (torch.float32, 512, "wide"), (torch.float32, 544, "wide"),
 ])
 def test_gru_route_table(dtype, H, route):
     # a cluster of blocks a direction ("wide" in the table) runs on the
     # tensor cores in bf16 up to H = 672 ("wide_mma"), on CUDA cores in f32;
-    # a layer's backward takes its forward's route
+    # a layer's backward takes its forward's route, but in f32 up to H = 512
+    # the f32 cluster BPTT ("wide_f32")
     want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
     assert fwd_route(dtype, H, "gru") == want
-    assert bwd_route(dtype, H, "gru") == want
+    f32_cluster = dtype == torch.float32 and want == "wide" and H <= 512
+    assert bwd_route(dtype, H, "gru") == ("wide_f32" if f32_cluster else want)
     assert GRU_SIMT_MAX_H[torch.float32] == 320
 
 
@@ -119,6 +123,27 @@ def test_gru_plan_and_per_block_products(H):
     np.testing.assert_allclose(wide_layout.replay_dh(dz, wp, p), dz @ wh.T, atol=1e-5)
     with pytest.raises(ValueError, match="not the plan"):
         wide_layout.pack_wh(wh, wide_layout.plan(H, 4))
+
+
+# --- the f32 cluster BPTT's sums against the Pallas kernel ---------------------
+
+
+def test_replayed_f32_bptt_matches_the_pallas_kernel():
+    """The BPTT summed in the order of ``csrc/bigru_bwd_wide_f32.cu``
+    (``wide_f32_layout.replay_bptt``: H = 384 in 6 chunks of 64 k, 12 blocks
+    of 32 units, each owner adding its dh·z before the block partials)
+    against ``_bigru_bwd_pallas`` in interpret mode (f32, its own domain: 3H
+    a multiple of 128) on numpy-seeded inputs, within 1e-5·max(1, max|v|)."""
+    T, B, H = 6, 3, 384
+    rng = np.random.default_rng(23)
+    a = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)  # noqa: E731
+    ins = [a(T, B, 3 * H), a(T, B, 3 * H), a(H, 3 * H, sc=H ** -0.5), a(H, 3 * H, sc=H ** -0.5),
+           a(H, sc=0.1), a(H, sc=0.1), a(T, B, H, sc=0.5), a(T, B, H, sc=0.5), a(T, B, H), a(T, B, H)]
+    want = lstm_pallas._bigru_bwd_pallas(*map(jnp.asarray, ins), interpret=True)
+    got = wide_f32_layout.replay_bptt("gru", *map(torch.from_numpy, ins))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()))
 
 
 # --- the layer against JAX -----------------------------------------------------

@@ -44,13 +44,14 @@ from percivaltts_tpu.models import build_generator as jax_build_generator
 from percivaltts_tpu.models.base import count_params as jax_count_params
 from percivaltts_tpu.models.base import predict_batch as jax_predict_batch
 from percivaltts_tpu.models.rnn import BiLSTM as JaxBiLSTM
+from percivaltts_tpu.ops import lstm_pallas
 from percivaltts_tpu.training import lse as jax_lse
 from percivaltts_tpu.training.state import make_gan_state as jax_make_gan_state
 from percivaltts_tpu_torch import weights
 from percivaltts_tpu_torch.eval.serve import serve
 from percivaltts_tpu_torch.models import build_generator, count_params
 from percivaltts_tpu_torch.models.rnn import BiLSTM
-from percivaltts_tpu_torch.ops import wide_layout
+from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout
 from percivaltts_tpu_torch.ops.gru_cuda import (
     SIMT_BWD_GRANULE as GRU_GRANULE,
     bigru_bwd_reference,
@@ -83,15 +84,18 @@ from percivaltts_tpu_torch.training.state import make_gan_state
     # then the cluster
     (torch.float32, 128, "lstm", "simt"), (torch.float32, 256, "lstm", "simt"),
     (torch.float32, 257, "lstm", "wide"), (torch.float32, 4096, "lstm", "wide"),
-    (torch.float32, 341, "gru", "wide"),
+    (torch.float32, 341, "gru", "wide"), (torch.float32, 512, "lstm", "wide"),
+    (torch.float32, 513, "lstm", "wide"),
 ])
 def test_route_table(dtype, H, cell, route):
     # a cluster of blocks a direction ("wide" in the table) runs on the
     # tensor cores in bf16 up to H = 608 / 672 ("wide_mma"), on CUDA cores
-    # in f32; a layer's backward takes its forward's route
+    # in f32; a layer's backward takes its forward's route, but in f32 up to
+    # H = 512 the f32 cluster BPTT ("wide_f32")
     want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
     assert fwd_route(dtype, H, cell) == want
-    assert bwd_route(dtype, H, cell) == want
+    f32_cluster = dtype == torch.float32 and want == "wide" and H <= 512
+    assert bwd_route(dtype, H, cell) == ("wide_f32" if f32_cluster else want)
 
 
 def test_route_refuses_other_cells_and_the_wide_plan_names_its_limit():
@@ -153,6 +157,27 @@ def test_slices_cover_k_in_whole_float4s():
         p = wide_layout.plan(H)
         KL = wide_layout.slice_length(H, p.KS)
         assert KL % 4 == 0 and KL * p.KS >= H and (KL - 4) * p.KS < H
+
+
+# --- the f32 cluster BPTT's sums against the Pallas kernel ---------------------
+
+
+def test_replayed_f32_bptt_matches_the_pallas_kernel():
+    """The BPTT summed in the order of ``csrc/bilstm_bwd_wide_f32.cu``
+    (``wide_f32_layout.replay_bptt``: H = 320 in 5 chunks of 64 k, 14 blocks
+    of 24 units) against ``_bilstm_bwd_pallas`` in interpret mode (f32, its
+    own domain: 4H a multiple of 128) on numpy-seeded inputs, within
+    1e-5·max(1, max|v|)."""
+    T, B, H = 6, 3, 320
+    rng = np.random.default_rng(19)
+    a = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)  # noqa: E731
+    ins = [a(T, B, 4 * H), a(T, B, 4 * H), a(H, 4 * H, sc=H ** -0.5), a(H, 4 * H, sc=H ** -0.5)]
+    ins += [a(T, B, H, sc=0.5) for _ in range(6)] + [a(T, B, H), a(T, B, H)]
+    want = lstm_pallas._bilstm_bwd_pallas(*map(jnp.asarray, ins), interpret=True)
+    got = wide_f32_layout.replay_bptt("lstm", *map(torch.from_numpy, ins))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()))
 
 
 # --- the layer against JAX -----------------------------------------------------

@@ -181,7 +181,7 @@ def test_widths_and_routes():
     """The route takes bf16 past the tensor-core one-block kernels' 128 up
     to where the BPTT's shared memory ends (608 LSTM, 672 GRU: the Pallas
     kernels' 608 / 640 are inside), for the forward and the BPTT alike; f32
-    keeps its routes."""
+    keeps its routes, the BPTT up to 512 on its own cluster kernel."""
     assert (wm.max_h(4), wm.max_h(3)) == (608, 672)
     bf16, f32 = torch.bfloat16, torch.float32
     for cell, gates in (("lstm", 4), ("gru", 3)):
@@ -192,8 +192,8 @@ def test_widths_and_routes():
             assert not wm.fits(H, gates)
         for H in (16, 128):
             assert bwd_route(bf16, H, cell) == "mma"
-        for H in (512, 1024):
-            assert bwd_route(f32, H, cell) == fwd_route(f32, H, cell) == "wide"
+        assert fwd_route(f32, 512, cell) == "wide" and bwd_route(f32, 512, cell) == "wide_f32"
+        assert bwd_route(f32, 1024, cell) == fwd_route(f32, 1024, cell) == "wide"
         assert bwd_route(f32, 200, cell) == "simt"
 
 
