@@ -28,9 +28,12 @@ raises on failure (the script exits 0 only when all passed):
    tensor-core kernels, ``csrc/*_fwd_mma.cu``, for every H a multiple of
    16 up to 128), the BiLSTM and BiGRU BPTT at the training and edge
    shapes (T=1, B not a multiple of 8, H = 16, 48, 64, an unaligned gx
-   view), f32 and bf16 (the tensor-core kernels ``csrc/*_bwd_mma.cu`` for
-   H a multiple of 16 up to 128, the CUDA-core ones at H=160, where the
-   LSTM's bf16 BPTT takes the cluster kernel of phase 13); each autograd
+   view) and B = 8, f32 and bf16 (the tensor-core kernels
+   ``csrc/*_bwd_mma.cu`` for H a multiple of 16 up to 128; in f32 the
+   narrow cluster kernels ``csrc/*_bwd_narrow_f32.cu`` through the entry and
+   the one-block CUDA-core kernels they replaced launched beside them, and
+   the narrow kernels launched on a split whose last block is short, LSTM
+   H = 160 and GRU H = 224, ``NARROW_SHORT``); each autograd
    pair (forward kernel + BPTT kernel) against the same function on the
    twins; and the DSP kernels, framing × window and overlap-add, bit
    for bit, at the vocoder's shapes, the JAX package's test shapes and the
@@ -253,12 +256,26 @@ raises on failure (the script exits 0 only when all passed):
    and BPTT launch on ``wide_mma``, (4, 2) launches a step; and in f32 as
    13b/13c's f32 form, every forward on ``wide``, every BPTT on
    ``wide_f32``;
-   14d. as 13d for the GRU's f32 kernels, beside cuDNN's f32 ``nn.GRU``.
+   14d. as 13d for the GRU's f32 kernels, beside cuDNN's f32 ``nn.GRU``;
+15. f32 at the default width (H = 128), where the BPTTs take the narrow
+   cluster kernels (``"narrow_f32"``, ``csrc/{bilstm,bigru}_bwd_narrow_f32.cu``):
+   15a. their launch plans against ``ops/narrow_f32_layout.py`` at the card's
+   clusters, and ``ptxas``'s registers and spills;
+   15b. config 3 and the BGRU in f32 (``NARROW_MODELS``) served and trained
+   as 13b/13c's f32 forms (``F32_DEPTH``), every forward on the one-block
+   kernels (``"simt"``), every BPTT on ``"narrow_f32"``, the launch counts
+   recorded;
+   15d. the f32 kernels of those paths at ``F32_SIMT_TIMED`` as 13d times
+   its kernels: the one-block forwards, and the narrow BPTTs in turns with
+   the one-block BPTTs they replaced, beside cuDNN's f32 layer.
 
-With ``--f32-times`` the script builds, then only times f32 and exits: the
-four one-block kernels (``"simt"``) at ``F32_SIMT_TIMED`` as 13d times its
-kernels, and both cluster BPTTs, ``"wide"`` and ``"wide_f32"``, in turns at
-each width of ``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES``, beside the route
+With ``--f32-times`` the script builds, then only times f32 and exits:
+15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
+BPTT in turns at each width of ``F32_NARROW_WIDTHS`` and B of
+``F32_NARROW_BATCHES``; the BPTT rows ``F32_WIDE_BWD`` keeps on ``"wide"``
+(``F32_WIDE_KEPT``) beside cuDNN's layer; and both cluster BPTTs,
+``"wide"`` and ``"wide_f32"``, in turns at each width of
+``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES``; each beside the route
 ``bwd_route`` takes there; it prints no kernel line and no device record.
 
 Launch counts are set to 0 just before each serve, train, vocode or
@@ -319,10 +336,12 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # twins', KERNEL_TOL), read through an f32 readout and scaled by 1/scale <= 2.
 SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125,
              "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125, "bgru_1024": 0.125,
-             "cnn_blstm_1024_f32": 1e-3, "bgru_1024_f32": 1e-3}
+             "cnn_blstm_1024_f32": 1e-3, "bgru_1024_f32": 1e-3,
+             "cnn_blstm_f32": 1e-3, "bgru_f32": 1e-3}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
           "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075,
-          "cnn_blstm_1024_f32": 6_003_043, "bgru_1024_f32": 9_983_075}
+          "cnn_blstm_1024_f32": 6_003_043, "bgru_1024_f32": 9_983_075,
+          "cnn_blstm_f32": 3_246_691, "bgru_f32": 726_371}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -346,6 +365,11 @@ MODELS = {
     # ("wide") and the f32 cluster BPTT ("wide_f32")
     "cnn_blstm_1024_f32": dict(generator="cnn_blstm", blstm_size=1024, compute_dtype="float32"),
     "bgru_1024_f32": dict(generator="bgru", blstm_size=1024, compute_dtype="float32"),
+    # phase 15: config 3 and the BGRU in f32 at the default blstm_size (H = 128),
+    # forwards on the one-block kernels ("simt"), BPTTs on the f32 narrow
+    # cluster kernels ("narrow_f32")
+    "cnn_blstm_f32": dict(generator="cnn_blstm", compute_dtype="float32"),
+    "bgru_f32": dict(generator="bgru", compute_dtype="float32"),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
@@ -358,10 +382,17 @@ ROUTED = ("bilstm_fwd", "bigru_fwd", "bilstm_bwd", "bigru_bwd")
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
 # BPTT: the training shape, edge shapes, the narrow width, and H=160 (bf16
-# outside the tensor-core route: the cluster kernels in bf16, the one-block
-# CUDA-core kernels in f32; phases 13a/14a check those in bf16 at H = 256)
+# outside the tensor-core route: the cluster kernels in bf16; f32 takes its
+# narrow cluster kernels, "narrow_f32", at every one of these, and the
+# one-block CUDA-core kernels it replaced are launched beside them; phases
+# 13a/14a check bf16 at H = 256), the training loop's 256-frame bucket and
+# the serving chunk
 BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64), (33, 9, 160),
-              (256, 32, 128)]  # the training loop's 256-frame bucket
+              (256, 32, 128), (512, 8, 128)]
+# f32 "narrow_f32" launched directly on a split whose last block is short:
+# (T, B, H, blocks) per cell (LSTM H = 160 over 7 blocks of 24 units, the
+# last 16; GRU H = 224 over 5 of 48, the last 32)
+NARROW_SHORT = {"lstm": (33, 9, 160, 8), "gru": (33, 9, 224, 5)}
 # bf16 only (the tensor-core route): T=1, H=16 and 48, B not a multiple of 8
 # (the CUDA-core GRU BPTT takes H a multiple of 32 only)
 BWD_MMA_SHAPES = [(1, 5, 128), (40, 11, 16), (24, 13, 48)]
@@ -418,7 +449,8 @@ N_TIMED_STEPS = 10
 # BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
 STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2),
                  "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2), "bgru_1024": (4, 2),
-                 "cnn_blstm_1024_f32": (2, 1), "bgru_1024_f32": (4, 2)}
+                 "cnn_blstm_1024_f32": (2, 1), "bgru_1024_f32": (4, 2),
+                 "cnn_blstm_f32": (2, 1), "bgru_f32": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -521,6 +553,13 @@ WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
 # the default blstm_size (H = 128), and the widths of the f32 BPTT's cluster
 # routes, "wide" against "wide_f32" (264 and 336 run zero-padded on "wide_f32")
 F32_SIMT_TIMED = [(512, 8, 128), (512, 32, 128)]
+# where the f32 BPTT takes "narrow_f32" (H <= 256 LSTM, 320 GRU): it and the
+# one-block kernel ("simt") in turns at each width and B
+F32_NARROW_WIDTHS = {"lstm": (64, 96, 128, 160, 192, 256), "gru": (64, 128, 192, 256, 320)}
+F32_NARROW_BATCHES = (1, 2, 4, 8, 16, 32, 160)
+# the f32 BPTT's rows that mma_layout.F32_WIDE_BWD keeps on "wide", timed
+# beside cuDNN's layer (the GRU at 288 takes "narrow_f32")
+F32_WIDE_KEPT = [(512, 8, 288), (512, 8, 384)]
 F32_ROUTE_WIDTHS = {"lstm": (264, 288, 320, 384, 416, 448, 512),
                     "gru": (336, 352, 384, 416, 448, 512)}
 F32_ROUTE_BATCHES = (1, 2, 4, 6, 8, 16, 24, 32, 160)
@@ -545,6 +584,9 @@ WIDE_GRU_FWD_SHAPES = [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512
                        (33, 9, 336), (33, 9, 352), (64, 1, 640)]
 WIDE_GRU_BWD_SHAPES = [(512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)]
 WIDE_GRU_MODELS = ("bgru_1024", "bgru_1024_f32")
+# phase 15: the f32 models at the default width (forwards "simt", BPTTs
+# "narrow_f32"), served and stepped at F32_DEPTH
+NARROW_MODELS = ("cnn_blstm_f32", "bgru_f32")
 
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
@@ -590,15 +632,22 @@ def _no_routes() -> dict:
     return {name: dict.fromkeys(kernels[name].routes, 0) for name in ROUTED}
 
 
-def _all_mma(what: str, routes: dict) -> None:
-    """Every forward and BPTT launch of a path went through the tensor-core route."""
+def _all_mma(what: str, routes: dict, f32: bool = False) -> None:
+    """Every forward and BPTT launch of a bf16 path went through the
+    tensor-core routes (an f32 path's routes are printed: the path that runs
+    it checks them)."""
     print(f"[{what}] recurrent launches by route {routes}")
-    if any(r["simt"] for r in routes.values()):
+    if not f32 and any(r["simt"] for r in routes.values()):
         raise AssertionError(f"{what}: a bf16 forward or BPTT took the CUDA-core route: {routes}")
 
 
 def _is_gru(kind: str) -> bool:
     return MODELS[kind]["generator"] == "bgru"
+
+
+def _is_f32(kind: str) -> bool:
+    """An f32 model: its recurrences may take the CUDA-core routes."""
+    return MODELS[kind].get("compute_dtype") == "float32"
 
 
 def _use_twins(model):
@@ -760,13 +809,21 @@ def _unaligned(t: torch.Tensor) -> torch.Tensor:
 
 def _check_kernels(dev) -> dict:
     """Phase 3: every kernel against its twin. Returns each kernel's largest
-    bf16 |kernel − twin|."""
+    bf16 |kernel − twin|, the f32 one-block forwards' (``*_fwd_simt_f32``),
+    and the f32 BPTTs' on their narrow cluster kernels
+    (``*_bwd_narrow_f32``) and on the one-block ones they replaced
+    (``*_bwd_simt_f32``, launched directly beside them)."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops import lstm_cuda as l
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {name: 0.0 for name in _kernels()}
+    err.update({f"{n}_{r}_f32" if r.endswith("simt") else f"{n}_{r}": 0.0
+                for n in ("bilstm", "bigru") for r in ("bwd_narrow_f32", "bwd_simt", "fwd_simt")})
+
+    def held(key, e):  # an f32 kernel's error on its route or beside it
+        err[key] = max(err.get(key, 0.0), e)
     with torch.no_grad():
         for T, B, H in KERNEL_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
@@ -778,6 +835,8 @@ def _check_kernels(dev) -> dict:
                     e = _compare(f"[bilstm_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]} "
                                  f"cells={cells}", got, want[:len(got)], tol, relative=False)
                     err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
+                    if dtype != bf16:
+                        held(f"bilstm_fwd_{route}_f32", e)
         for T, B, H in KERNEL_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
                 route = fwd_route(dtype, H, "gru")
@@ -786,28 +845,61 @@ def _check_kernels(dev) -> dict:
                 e = _compare(f"[bigru_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
                              g.bigru_fwd_reference(*args), tol, relative=False)
                 err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
+                if dtype != bf16:
+                    held(f"bigru_fwd_{route}_f32", e)
         bwd_cases = [(shape, dtype) for shape in BWD_SHAPES for dtype in BWD_TOL]
         bwd_cases += [(shape, bf16) for shape in BWD_MMA_SHAPES]
         for (T, B, H), dtype in bwd_cases:
-            tol, rel, route = BWD_TOL[dtype], dtype == bf16, bwd_route(dtype, H)
+            tol, rel = BWD_TOL[dtype], dtype == bf16
             for unaligned in (False, True) if (T, B, H) == BWD_UNALIGNED and rel else (False,):
+                route = bwd_route(dtype, H, "lstm", B)
                 tag = f"{route}{', gx unaligned' if unaligned else ''}"
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
                 if unaligned:
                     args = (_unaligned(args[0]), *args[1:])
                 got = _launch_once(l.bilstm_bwd, *args, route=route)
+                want = l.bilstm_bwd_reference(*args)
                 e = _compare(f"[bilstm_bwd {tag}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
-                             l.bilstm_bwd_reference(*args), tol, rel)
+                             want, tol, rel)
                 err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
+                if not rel:  # f32: the narrow cluster kernel, and the one-block one beside it
+                    held(f"bilstm_bwd_{route}" + ("_f32" if route == "simt" else ""), e)
+                    other = "simt" if route == "narrow_f32" else "narrow_f32"
+                    held(f"bilstm_bwd_{other}" + ("_f32" if other == "simt" else ""),
+                         _compare(f"[bilstm_bwd {other}, launched] T={T} B={B} H={H} f32",
+                                  l.bwd_launch(other, *args), want, tol, rel))
+                route = bwd_route(dtype, H, "gru", B)
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
                 if unaligned:
                     args = (_unaligned(args[0]), *args[1:])
-                got = _launch_once(g.bigru_bwd, *args, route=bwd_route(dtype, H, "gru"))
+                got = _launch_once(g.bigru_bwd, *args, route=route)
                 want = g.bigru_bwd_reference(*args)
-                for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))):
-                    e = _compare(f"[bigru_bwd {tag}] {what} T={T} B={B} H={H} {str(dtype)[6:]}",
-                                 got[sl], want[sl], tol, rel)
-                    err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
+                others = ((route, got),)
+                if not rel:
+                    other = "simt" if route == "narrow_f32" else "narrow_f32"
+                    others += ((other, g.bwd_launch(other, *args)),)
+                for r, out in others:
+                    for what, sl in (("dgx", slice(0, 2)), ("dnr", slice(2, 4))):
+                        e = _compare(f"[bigru_bwd {r}{'' if r == route else ', launched'}"
+                                     f"{', gx unaligned' if unaligned else ''}] {what} T={T} B={B} "
+                                     f"H={H} {str(dtype)[6:]}", out[sl], want[sl], tol, rel)
+                        err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
+                        if not rel:
+                            held(f"bigru_bwd_{r}" + ("_f32" if r == "simt" else ""), e)
+        # a cluster whose last block is short, launched directly
+        for name, m, make, cell in (("bilstm_bwd", l, _bwd_args, "lstm"),
+                                    ("bigru_bwd", g, _gru_bwd_args, "gru")):
+            T, B, H, blocks = NARROW_SHORT[cell]
+            args = make(T, B, H, torch.float32, dev, seed=T + B)
+            p = l.narrow_f32_plan(name[:-4], B, H, blocks)
+            if not (p.U - 1) * p.Hb < H < p.U * p.Hb:
+                raise AssertionError(f"{name} narrow_f32 at H={H} over {blocks} blocks: {p} "
+                                     "leaves no short last block")
+            held(f"{name}_narrow_f32", _compare(
+                f"[{name} narrow_f32, launched, {p.U} blocks of {p.Hb} units, the last "
+                f"{H - (p.U - 1) * p.Hb}] T={T} B={B} H={H} f32",
+                m.bwd_launch("narrow_f32", *args, blocks=blocks), getattr(m, f"{name}_reference")(*args),
+                BWD_TOL[torch.float32], False))
 
     # the autograd pairs: forward kernel + BPTT kernel against the twins
     T, B, H = AUTOGRAD_SHAPE
@@ -822,16 +914,17 @@ def _check_kernels(dev) -> dict:
             base = make(T, B, H, dtype, dev, seed=7)
             dy = _dy(T, B, H, dtype, dev, seed=1)
             grads = []
-            route = fwd_route(dtype, H, cell)  # = bwd_route(dtype, H, cell)
+            route, broute = fwd_route(dtype, H, cell), bwd_route(dtype, H, cell, B)
             for c in (core, twin):
                 leaves = [t.clone().requires_grad_(True) for t in base]
-                f0, b0 = fwd.routes[route], bwd.routes[route]
+                f0, b0 = fwd.routes[route], bwd.routes[broute]
                 torch.autograd.backward(c(*leaves), dy)
                 torch.cuda.synchronize()
                 grads.append([t.grad for t in leaves])
-                if c is core and (fwd.routes[route] - f0, bwd.routes[route] - b0) != (1, 1):
+                if c is core and (fwd.routes[route] - f0, bwd.routes[broute] - b0) != (1, 1):
                     raise RuntimeError(f"the {label} autograd pair did not launch one forward "
-                                       f"and one BPTT kernel on the {route} route")
+                                       f"kernel on the {route} route and one BPTT kernel on the "
+                                       f"{broute} route")
             for name, gk, gt in zip(names, *grads):
                 scale = gt.float().abs().max().item()
                 limit = tol * scale if dtype == bf16 else tol * max(1.0, scale)
@@ -887,7 +980,7 @@ def _serve_path(dev, kind: str, n_timed: int = 7) -> dict:
     if not (counts[fwd] > 0 and counts[fwd] == per_call * gen_calls
             and sum(counts.values()) == counts[fwd]):
         raise AssertionError(f"{counts} kernel launches for {gen_calls} generator calls")
-    _all_mma(f"serve {kind}", routes)
+    _all_mma(f"serve {kind}", routes, f32=_is_f32(kind))
     for n, f in zip(REQUEST_LENGTHS, feats):
         if f.shape != (n, voc.feature_size) or f.dtype != np.float32 or not np.isfinite(f).all():
             raise AssertionError(f"bad features for a {n}-frame request: {f.shape} {f.dtype}")
@@ -1052,7 +1145,7 @@ def _train_path(dev, kind: str, n_checked: int = 0, n_timed: int = 0) -> dict:
     counts, routes = _counts(), _routes()
     if sum(counts.values()) != fwd.launches + bwd.launches:
         raise AssertionError(f"the {kind} steps launched another generator's kernels: {counts}")
-    _all_mma(f"train {kind}", routes)
+    _all_mma(f"train {kind}", routes, f32=_is_f32(kind))
     if not all(torch.isfinite(p).all() for p in state.gen.parameters()):
         raise AssertionError("non-finite generator parameters after training")
 
@@ -3269,6 +3362,43 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
                 raise AssertionError(f"a tensor-core wide kernel instantiation spills: {line}")
 
 
+def _narrow_plans(dev) -> dict:
+    """Phase 15a: the f32 narrow cluster BPTTs' launch plans at the widths
+    and rows of phases 3, 15 and the route table, against
+    ``ops/narrow_f32_layout.py::plan`` replayed at the card's clusters of each
+    split (the launchers' plan with that split forced); printed with the
+    blocks, units, rows, waves and bytes; then ``ptxas``'s registers and
+    spills of every instantiation. Returns the card's clusters by cell and
+    U."""
+    from percivaltts_tpu_torch.ops import lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    shapes = {(B, H) for _, B, H in BWD_SHAPES + F32_SIMT_TIMED}
+    shapes |= {(B, 128) for B in F32_NARROW_BATCHES}
+    clusters = {}
+    for cell, gates, name in (("lstm", 4, "bilstm"), ("gru", 3, "bigru")):
+        card = clusters.setdefault(cell, {})
+        for B, H in sorted(shapes | {(B, nf.MAX_H[gates]) for B in (1, 32, 160)}):
+            Hp = nf.padded(H)
+            for s, R, _ in nf.candidates(Hp, gates):
+                if s.U not in card:
+                    card[s.U] = lstm_cuda.narrow_f32_plan(name, 1, Hp, s.U, R).clusters
+            p = lstm_cuda.narrow_f32_plan(name, B, Hp)
+            want = nf.plan(B, Hp, gates, card)
+            if p != want:
+                raise AssertionError(f"the {name} narrow_f32 plan at B={B} H={Hp}: {p}, the "
+                                     f"layout's {want}")
+            print(f"[narrow plan] {name} bwd narrow_f32 B={B} H={H} (run at {Hp}) f32: {p.U} "
+                  f"blocks of {p.Hb} units ({p.NC} gate columns, {p.NCP} with padding), "
+                  f"{nf.THREADS} threads, {p.R} rows a cluster, {p.clusters} clusters at once "
+                  f"({p.waves} waves), {p.smem} B shared memory")
+        print(f"[narrow plan] {name}: clusters the card holds at once by blocks a cluster {card}")
+    for line in _ptxas_usage(BUILD_LOG):
+        if "_bwd_narrow_f32" in line:
+            print(f"[narrow ptxas] {line}")
+    return clusters
+
+
 def _route_times(m, fargs, bargs) -> dict:
     """ROUTE_SHAPE in bf16: the one-block, cluster and tensor-core cluster
     forwards and BPTTs, each timed in turns (a, b, c, c, b, a: the mean of 2
@@ -3659,7 +3789,12 @@ def _in_turns(calls: dict, order) -> dict:
     return {who: statistics.mean(t) for who, t in times.items()}
 
 
-def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide") -> dict:
+# the f32 BPTT each f32 cluster route replaced at its widths
+EARLIER_F32 = {"wide_f32": "wide", "narrow_f32": "simt"}
+
+
+def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
+                   what=("fwd", "bwd")) -> dict:
     """Phases 13d / 14d: the kernels that f32 takes at ``shapes``
     (``WIDE_TIMED`` by default), whose forward must take ``route``: past
     H = 256 (LSTM) / 320 (GRU) the CUDA-core cluster forward (``"wide"``)
@@ -3667,8 +3802,10 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide") ->
     of 5 calls, the twin's one call, ``_in_turns``), the BPTT on its route
     (``bwd_route``: ``"wide_f32"``) in turns with the CUDA-core cluster BPTT
     it replaced and the twin (earlier, routed, twin, twin, routed, earlier);
-    with ``route="simt"`` (``python3 chip_smoke.py --f32-times``) the
-    one-block kernels, each in turns with its twin. Each row beside the
+    with ``route="simt"`` (phase 15d, ``python3 chip_smoke.py --f32-times``)
+    the one-block forwards, and the BPTT on ``"narrow_f32"`` in turns with
+    the one-block BPTT it replaced. ``what``: the kernels timed (``"fwd"``,
+    ``"bwd"``). Each row beside the
     bound at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
     in f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
     (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls), a
@@ -3686,12 +3823,13 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide") ->
     cls = "nn.GRU" if gru else "nn.LSTM"
     dt = torch.float32
     out = {}
-    for name in (("bigru_fwd", "bigru_bwd") if gru else ("bilstm_fwd", "bilstm_bwd")):
+    for name in (f"{'bigru' if gru else 'bilstm'}_{w}" for w in what):
         fwd = name.endswith("fwd")
         rows = []
         for T, B, H in shapes or WIDE_TIMED:
             taken = fwd_route(dt, H, cell) if fwd else bwd_route(dt, H, cell, B)
-            if taken != route and not (taken == "wide_f32" and route == "wide" and not fwd):
+            if taken != route and (fwd or taken not in (route, *(
+                    k for k, v in EARLIER_F32.items() if v == route))):
                 raise AssertionError(f"{name} routes f32 at H = {H} to {taken!r}, not {route!r}")
             if fwd:
                 args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
@@ -3700,12 +3838,13 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide") ->
             kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
             calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args)}
             turns = ("kernel", "twin", "twin", "kernel")
-            if taken == "wide_f32":
-                calls["earlier"] = lambda: m.bwd_launch("wide", *args)
+            earlier = None if fwd else EARLIER_F32.get(taken)
+            if earlier:  # the route's BPTT in turns with the one it replaced
+                calls["earlier"] = lambda: m.bwd_launch(earlier, *args)
                 turns = ("earlier", "kernel", "twin", "twin", "kernel", "earlier")
             with torch.no_grad():
                 times = _in_turns(calls, turns)
-                kernel_device_ms = None if taken != "wide_f32" else _device_ms(
+                kernel_device_ms = None if not earlier else _device_ms(
                     lambda: kern(*args), calls=3, match=f"{name}_{taken}_kernel")
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
@@ -3722,16 +3861,16 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide") ->
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
             row = {"shape": [T, B, H], "route": taken, "ms": ms, "us_per_step": ms / T * 1e3,
                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, **lt}
-            earlier = ""
+            beside = ""
             if "earlier" in times:
                 row["earlier_ms"] = times["earlier"]
                 row["kernel_device_ms"] = kernel_device_ms
-                earlier = (f"; the earlier CUDA-core cluster BPTT on the same inputs "
-                           f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a "
-                           f"step), {row['earlier_ms'] / ms:.2f}x; {kernel_device_ms} device ms")
+                beside = (f"; the earlier BPTT ({earlier}) on the same inputs "
+                          f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a "
+                          f"step), {row['earlier_ms'] / ms:.2f}x; {kernel_device_ms} device ms")
             rows.append(row)
             print(f"[time] {name} {taken} T,B,H={(T, B, H)} f32: kernel {ms:.4f} ms "
-                  f"({ms / T * 1e3:.3f} us a step){earlier}, plain twin "
+                  f"({ms / T * 1e3:.3f} us a step){beside}, plain twin "
                   f"{plain_ms:.1f} ms (means of 2, in turns), bound {bound_ms:.5f} ms "
                   f"({bound_by}, {bound_ms / ms:.2%} of it); layer"
                   f"{'' if fwd else ' backward'}: port {lt['layer_ms']:.4f} ms, cuDNN "
@@ -3792,39 +3931,88 @@ def _f32_route_times(dev, cell: str = "lstm") -> list:
     return rows
 
 
+def _f32_narrow_route_times(dev, cell: str = "lstm") -> list:
+    """Where the f32 BPTT takes ``"narrow_f32"``: it and the one-block
+    kernel it replaced, ``bwd_launch("simt", …)``, on the same inputs in
+    turns (simt, narrow_f32, narrow_f32, simt; medians of 5 calls,
+    ``_in_turns``) at T = 512, each B of ``F32_NARROW_BATCHES`` and each H of
+    ``F32_NARROW_WIDTHS``, beside the narrow plan (blocks, rows, waves) and
+    the route ``bwd_route`` takes there (``python3 chip_smoke.py
+    --f32-times``)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    m, name = (gru_cuda, "bigru") if gru else (lstm_cuda, "bilstm")
+    rows = []
+    for H in F32_NARROW_WIDTHS[cell]:
+        for B in F32_NARROW_BATCHES:
+            T = 512
+            p = lstm_cuda.narrow_f32_plan(name, B, nf.padded(H))
+            args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, dev, seed=1)
+            with torch.no_grad():
+                t = _in_turns({r: (lambda r=r: m.bwd_launch(r, *args))
+                               for r in ("simt", "narrow_f32")},
+                              ("simt", "narrow_f32", "narrow_f32", "simt"))
+            route = bwd_route(torch.float32, H, cell, B)
+            rows.append({"cell": cell, "shape": [T, B, H], "route": route, "ms": t,
+                         "plan": p._asdict()})
+            print(f"[f32 route] {cell} bwd T,B,H={(T, B, H)}: simt {t['simt']:.4f} ms, narrow_f32 "
+                  f"{t['narrow_f32']:.4f} ms ({t['narrow_f32'] / T * 1e3:.3f} us a step; {p.U} "
+                  f"blocks, R {p.R}, {p.waves} waves), {t['simt'] / t['narrow_f32']:.2f}x (means "
+                  f"of 2 medians, in turns); bwd_route takes {route!r}"
+                  + ("" if t[route] <= min(t.values()) else " (the slower one)"))
+    return rows
+
+
 def _f32_times(dev) -> int:
     """``python3 chip_smoke.py --f32-times``: after the build, the f32
-    ``"simt"`` kernels at ``F32_SIMT_TIMED`` (``_time_wide_f32`` with
-    ``route="simt"``) and the f32 BPTT's route table (``_f32_route_times``)
-    for both cells."""
+    kernels of the default width at ``F32_SIMT_TIMED`` (``_time_wide_f32``
+    with ``route="simt"``: the one-block forwards, the ``"narrow_f32"`` BPTTs
+    in turns with the one-block ones), the ``"narrow_f32"`` route table
+    (``_f32_narrow_route_times``), the BPTT rows ``F32_WIDE_BWD`` keeps on
+    ``"wide"`` at ``F32_WIDE_KEPT`` beside cuDNN's layer, and the
+    ``"wide_f32"`` route table (``_f32_route_times``), for both cells."""
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
     for cell in ("lstm", "gru"):
         _time_wide_f32(dev, cell, F32_SIMT_TIMED, route="simt")
+    for cell in ("lstm", "gru"):
+        _f32_narrow_route_times(dev, cell)
+    for cell in ("lstm", "gru"):
+        for shape in F32_WIDE_KEPT:
+            _time_wide_f32(dev, cell, [shape], route=fwd_route(torch.float32, shape[2], cell),
+                           what=("bwd",))
     for cell in ("lstm", "gru"):
         _f32_route_times(dev, cell)
     return 0
 
 
-def _wide_route(kind: str, what: str) -> str:
-    """The cluster route a blstm_size=1024 model's recurrences take, for the
-    forward (``what="fwd"``) or the BPTT (``"bwd"``): the tensor cores
-    (``"wide_mma"``) in bf16; in f32 the CUDA-core forward (``"wide"``) and
-    the f32 cluster BPTT (``"wide_f32"``)."""
-    if MODELS[kind].get("compute_dtype") != "float32":
+def _model_route(kind: str, what: str) -> str:
+    """The route a phase 13–15 model's recurrences take, for the forward
+    (``what="fwd"``) or the BPTT (``"bwd"``): at blstm_size=1024 the
+    tensor-core cluster kernels (``"wide_mma"``) in bf16, and in f32 the
+    CUDA-core forward (``"wide"``) and the f32 cluster BPTT (``"wide_f32"``);
+    at the default width in f32 (``NARROW_MODELS``) the one-block forward
+    (``"simt"``) and the f32 narrow cluster BPTT (``"narrow_f32"``)."""
+    if not _is_f32(kind):
         return "wide_mma"
+    if kind in NARROW_MODELS:
+        return "simt" if what == "fwd" else "narrow_f32"
     return "wide" if what == "fwd" else "wide_f32"
 
 
-def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
-    """Phase 13b/13c (``WIDE_MODELS``) and 14b/14c (``WIDE_GRU_MODELS``): the
-    blstm_size=1024 models served and trained as phases 4–6 serve and train
-    config 3 and the BGRU, every forward and BPTT launch on the tensor-core
-    cluster route ``wide_mma``, or in f32 every forward on the CUDA-core
-    one, ``wide``, and every BPTT on ``wide_f32`` (``F32_DEPTH``: one serve
-    and one step held against the twins)."""
+def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
+    """Phase 13b/13c (``WIDE_MODELS``), 14b/14c (``WIDE_GRU_MODELS``) and 15b
+    (``NARROW_MODELS``): each model served and trained as phases 4–6 serve
+    and train config 3 and the BGRU, every forward and BPTT launch on its
+    route (``_model_route``); the f32 models at ``F32_DEPTH`` (one serve and
+    one step held against the twins, serves and steps timed)."""
     runs = {}
     for kind in kinds:
-        route = {what: _wide_route(kind, what) for what in ("fwd", "bwd")}
-        if route["fwd"] == "wide":
+        route = {what: _model_route(kind, what) for what in ("fwd", "bwd")}
+        if _is_f32(kind):
             serves, checked, steps = F32_DEPTH
             served = _serve_path(dev, kind, n_timed=serves)
             trained = _train_path(dev, kind, n_checked=checked, n_timed=steps)
@@ -3838,6 +4026,8 @@ def _wide_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
                 if routes[name][route[p]] != counts[name]:
                     raise AssertionError(f"{what} {kind}: {name} launched off the {route[p]} "
                                          f"route: {routes[name]} of {counts[name]}")
+        if not trained["counts"][f"{cell}_bwd"]:
+            raise AssertionError(f"train {kind}: no BPTT launched")
         print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
               f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
               f"a serve {served['counts'][f'{cell}_fwd']}, a step "
@@ -4009,7 +4199,7 @@ def main(argv=None) -> int:
     _wide_plans(dev)
     wide = _check_wide_kernels(dev)
     wide_timed = _time_wide_kernels(dev)
-    wide_runs = _wide_models_path(dev, smi)
+    wide_runs = _cluster_models_path(dev, smi)
     wide_f32_timed = _time_wide_f32(dev)
     t_phase14 = time.perf_counter()
     # 14. kernels #3/#4 at the widths one block cannot hold: the same for the
@@ -4017,9 +4207,18 @@ def main(argv=None) -> int:
     _wide_plans(dev, "gru")
     wide_gru = _check_wide_gru_kernels(dev)
     wide_gru_timed = _time_wide_kernels(dev, "gru")
-    wide_gru_runs = _wide_models_path(dev, smi, WIDE_GRU_MODELS)
+    wide_gru_runs = _cluster_models_path(dev, smi, WIDE_GRU_MODELS)
     wide_f32_timed.update(_time_wide_f32(dev, "gru"))
-    for kind, run in {**wide_runs, **wide_gru_runs}.items():
+    t_phase15 = time.perf_counter()
+    # 15. f32 at the default width: the narrow cluster BPTTs' plans; config 3
+    # and the BGRU in f32 served and trained through them (forwards on the
+    # one-block kernels); those kernels timed beside the ones they replaced
+    _narrow_plans(dev)
+    narrow_runs = _cluster_models_path(dev, smi, NARROW_MODELS)
+    narrow_timed = {}
+    for cell in ("lstm", "gru"):
+        narrow_timed.update(_time_wide_f32(dev, cell, F32_SIMT_TIMED, route="simt"))
+    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
             for name, by_route in run[what]["routes"].items():
@@ -4028,7 +4227,8 @@ def main(argv=None) -> int:
     print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
           f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
           f"{t_phase13 - t_phase12:.1f} s, phase 13 {t_phase14 - t_phase13:.1f} s, phase 14 "
-          f"{time.perf_counter() - t_phase14:.1f} s, total {time.perf_counter() - t_start:.1f} s")
+          f"{t_phase15 - t_phase14:.1f} s, phase 15 {time.perf_counter() - t_phase15:.1f} s, "
+          f"total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -4182,6 +4382,61 @@ def main(argv=None) -> int:
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s f32 paths, or also elsewhere")
+    # phase 15's f32 paths at the default width: the one-block forwards
+    # ("simt") and the narrow cluster BPTTs ("narrow_f32"); the one-block
+    # BPTTs they replaced there (timed beside them) stay listed, with their
+    # launches on the paths (none)
+    for name, route, src, replaces in (
+        ("bilstm_fwd", "simt", "bilstm_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+        ("bilstm_bwd", "narrow_f32", "bilstm_bwd_narrow_f32.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bilstm_bwd", "simt", "bilstm_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bigru_fwd", "simt", "bigru_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
+        ("bigru_bwd", "narrow_f32", "bigru_bwd_narrow_f32.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:616"),
+        ("bigru_bwd", "simt", "bigru_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:616"),
+    ):
+        gru = name.startswith("bigru")
+        first = narrow_timed[name][0]
+        replaced = name.endswith("bwd") and route == "simt"  # timed as the earlier kernel
+        by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
+                   for kind, run in narrow_runs.items() for what in ("serve", "train")}
+        err_key = f"{name}_{route}" + ("_f32" if route == "simt" else "")
+        kernels.append({
+            "name": f"{name}_{route}_f32" if route == "simt" else f"{name}_{route}",
+            "route": "cuda",
+            "source": f"percivaltts_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": routes[name][route],
+            "launches_by_path": by_path,
+            "max_abs_err": max_err[err_key],
+            "dtype": "float32",
+            "ms": first["earlier_ms"] if replaced else first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size=128, "
+                            "bidirectional=True) in f32 (TF32 off) "
+                            + ("forward" if name.endswith("fwd") else "backward")
+                            + ", beside the port layer's (layer_ms, layer_device_ms)",
+            "layer_ms": first["layer_ms"],
+            "layer_device_ms": first["layer_device_ms"],
+            "timed": narrow_timed[name],
+        })
+        if replaced:  # the port's layer runs the kernel that replaced it
+            kernels[-1].update({"replaced_on_the_paths_by": f"{name}_narrow_f32",
+                                "layer_ms": None, "layer_device_ms": None})
+            continue
+        if route == "narrow_f32":
+            kernels[-1].update({"kernel_device_ms": first["kernel_device_ms"],
+                                "earlier_source": f"percivaltts_tpu_torch/csrc/{name}.cu",
+                                "earlier_ms": first["earlier_ms"],
+                                "earlier_max_abs_err": max_err[f"{name}_simt_f32"]})
+        if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
+            raise AssertionError(f"{name}'s {route} kernel was launched no time on phase 15's "
+                                 "f32 paths, or also elsewhere")
     for kind in ("cnn_blstm", "bgru"):
         print(f"[summary] {kind}: serve median {serve[kind]['serve_ms']:.3f} ms, step median "
               f"{train[kind]['step_ms']:.3f} ms, device busy share "
@@ -4253,7 +4508,7 @@ def main(argv=None) -> int:
           f"{mesh2['layout_bytes']}; "
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
-    for kind, run in {**wide_runs, **wide_gru_runs}.items():
+    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs}.items():
         print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
               f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
               f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "

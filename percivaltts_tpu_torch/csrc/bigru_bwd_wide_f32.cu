@@ -37,63 +37,14 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "f32_cells.cuh"
 #include "wide_f32_common.cuh"
 
 namespace {
 
+using percival::F32GruCell;
 using percival::kWfThreads;
-using percival::sigmoid_f32;
 using percival::WideF32Plan;
-
-// The GRU's gate phase for wide_f32_bptt: a (row, unit) pair's operands, its
-// dgates and its dh·z, the carry's direct path.
-struct GruCell {
-  static constexpr int kGates = 3;
-  const float* gx;
-  const float* bn;
-  const float* hp;
-  const float* dy;
-  float* dgx;
-  float* dnr;
-  int B, H;
-
-  struct Op {
-    float gx[3] = {0.0f, 0.0f, 0.0f};
-    float hp = 0.0f, dy = 0.0f, bias = 0.0f;
-    float dhz = 0.0f;  // dh·z of the previous step
-  };
-
-  __device__ __forceinline__ void load(Op& o, int t, int row, int unit, bool ok) const {
-    const size_t base = (size_t)t * B + row;
-#pragma unroll
-    for (int g = 0; g < 3; ++g) o.gx[g] = ok ? gx[base * 3 * H + g * H + unit] : 0.0f;
-    o.hp = ok ? hp[base * H + unit] : 0.0f;
-    o.dy = ok ? dy[base * H + unit] : 0.0f;
-    o.bias = ok ? bn[unit] : 0.0f;
-  }
-  __device__ __forceinline__ float carry0(const Op& o) const { return o.dhz; }
-  __device__ __forceinline__ void step(Op& o, const float (&gh)[3], float carry, float (&d)[3],
-                                       int t, int row, int unit, bool ok) const {
-    const float rg = sigmoid_f32(o.gx[0] + gh[0]);
-    const float zg = sigmoid_f32(o.gx[1] + gh[1]);
-    const float ghn = gh[2] + o.bias;
-    const float ng = tanhf(o.gx[2] + rg * ghn);
-    const float dh = o.dy + carry;
-    const float dn_pre = dh * (1.0f - zg) * (1.0f - ng * ng);
-    d[0] = dn_pre * ghn * rg * (1.0f - rg);
-    d[1] = dh * (o.hp - ng) * zg * (1.0f - zg);
-    d[2] = dn_pre * rg;  // dnr: the chained product's n column
-    if (ok) {
-      const size_t base = (size_t)t * B + row;
-      float* out = dgx + base * 3 * H + unit;
-      out[0] = d[0];
-      out[H] = d[1];
-      out[2 * H] = dn_pre;
-      dnr[base * H + unit] = d[2];
-    }
-    o.dhz = ok ? dh * zg : 0.0f;
-  }
-};
 
 // grid = (U · ceil(B / R), 2 directions) in clusters of U along x; 384 threads;
 // R = 8·NT rows a cluster.
@@ -109,9 +60,9 @@ __global__ void __launch_bounds__(kWfThreads, 1) bigru_bwd_wide_f32_kernel(
     int n_steps, int B, int H, int Hb, int nres) {
   const bool backward = blockIdx.y == 1;
   const float* hp = backward ? hp_b : hp_f;
-  GruCell cell{backward ? gx_b : gx_f, backward ? bn_b : bn_f, hp, backward ? dy_b : dy_f,
+  F32GruCell cell{backward ? gx_b : gx_f, backward ? bn_b : bn_f, hp, backward ? dy_b : dy_f,
                backward ? dgx_b : dgx_f, backward ? dnr_b : dnr_f, B, H};
-  percival::wide_f32_bptt<GruCell, NT>(cell, backward ? wp_b : wp_f, hp, n_steps, B, H, Hb,
+  percival::wide_f32_bptt<F32GruCell, NT>(cell, backward ? wp_b : wp_f, hp, n_steps, B, H, Hb,
                                        nres, backward);
 }
 

@@ -49,61 +49,14 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "f32_cells.cuh"
 #include "wide_f32_common.cuh"
 
 namespace {
 
+using percival::F32LstmCell;
 using percival::kWfThreads;
-using percival::sigmoid_f32;
 using percival::WideF32Plan;
-
-// The LSTM's gate phase for wide_f32_bptt: a (row, unit) pair's operands,
-// its dz and its dc carry.
-struct LstmCell {
-  static constexpr int kGates = 4;
-  const float* gx;
-  const float* cp;
-  const float* cs;
-  const float* dy;
-  float* dgx;
-  int B, H;
-
-  struct Op {
-    float gx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float c = 0.0f, cp = 0.0f, dy = 0.0f;
-    float dc = 0.0f;  // dc_carry
-  };
-
-  __device__ __forceinline__ void load(Op& o, int t, int row, int unit, bool ok) const {
-    const size_t base = (size_t)t * B + row;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) o.gx[g] = ok ? gx[base * 4 * H + g * H + unit] : 0.0f;
-    o.c = ok ? cs[base * H + unit] : 0.0f;
-    o.cp = ok ? cp[base * H + unit] : 0.0f;
-    o.dy = ok ? dy[base * H + unit] : 0.0f;
-  }
-  __device__ __forceinline__ float carry0(const Op&) const { return 0.0f; }
-  __device__ __forceinline__ void step(Op& o, const float (&z)[4], float carry, float (&d)[4],
-                                       int t, int row, int unit, bool ok) const {
-    const float ig = sigmoid_f32(o.gx[0] + z[0]);
-    const float fg = sigmoid_f32(o.gx[1] + z[1]);
-    const float gg = tanhf(o.gx[2] + z[2]);
-    const float og = sigmoid_f32(o.gx[3] + z[3]);
-    const float tc = tanhf(o.c);
-    const float dh = o.dy + carry;
-    const float dc = o.dc + dh * og * (1.0f - tc * tc);
-    d[0] = dc * gg * ig * (1.0f - ig);
-    d[1] = dc * o.cp * fg * (1.0f - fg);
-    d[2] = dc * ig * (1.0f - gg * gg);
-    d[3] = dh * tc * og * (1.0f - og);
-    if (ok) {
-      float* out = dgx + ((size_t)t * B + row) * 4 * H + unit;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) out[g * H] = d[g];
-    }
-    o.dc = ok ? dc * fg : 0.0f;
-  }
-};
 
 // grid = (U · ceil(B / R), 2 directions) in clusters of U along x; 384 threads;
 // R = 8·NT rows a cluster.
@@ -118,9 +71,9 @@ __global__ void __launch_bounds__(kWfThreads, 1) bilstm_bwd_wide_f32_kernel(
     float* __restrict__ dgx_f, float* __restrict__ dgx_b,
     int n_steps, int B, int H, int Hb, int nres) {
   const bool backward = blockIdx.y == 1;
-  LstmCell cell{backward ? gx_b : gx_f, backward ? cp_b : cp_f, backward ? c_b : c_f,
+  F32LstmCell cell{backward ? gx_b : gx_f, backward ? cp_b : cp_f, backward ? c_b : c_f,
                 backward ? dy_b : dy_f, backward ? dgx_b : dgx_f, B, H};
-  percival::wide_f32_bptt<LstmCell, NT>(cell, backward ? wp_b : wp_f, backward ? hp_b : hp_f,
+  percival::wide_f32_bptt<F32LstmCell, NT>(cell, backward ? wp_b : wp_f, backward ? hp_b : hp_f,
                                         n_steps, B, H, Hb, nres, backward);
 }
 

@@ -163,10 +163,6 @@ inline void wide_f32_plan_out(const WideF32Plan& p, int* out) {
   for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
 // ---- the kernel body -------------------------------------------------------
 //
 // Per step s (frames t(s): T−1 … 0 for the forward direction, 0 … T−1 for the

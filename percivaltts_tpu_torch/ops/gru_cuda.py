@@ -31,10 +31,13 @@ same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
 ``csrc/bigru_bwd.cu``, except that f32 past H = 320 up to 512 takes its own
 cluster BPTT, ``csrc/bigru_bwd_wide_f32.cu`` (``"wide_f32"``,
 ``ops/wide_f32_layout.py``), but for the few batch rows where the CUDA-core
-one measured faster (``mma_layout.F32_WIDE_BWD``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and
-the ``"wide_f32"`` kernels take H a multiple of 32: other widths are
-zero-padded to one (``ops/lstm_cuda.py::at_width``), which changes no real
-unit.
+one measured faster (``mma_layout.F32_WIDE_BWD``); f32 up to H = 320 another,
+``csrc/bigru_bwd_narrow_f32.cu`` (``"narrow_f32"``,
+``ops/narrow_f32_layout.py``), measured faster than ``csrc/bigru_bwd.cu``
+there. ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
+``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernel
+of 8: other widths are zero-padded to one (``ops/lstm_cuda.py::at_width``),
+which changes no real unit.
 ``bigru_core`` is the differentiable entry: it runs the forward kernel, and
 the BPTT kernel in the backward pass. The forward is also the registered operator
 ``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
@@ -46,15 +49,17 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout, wide_mma_layout
+from percivaltts_tpu_torch.ops import narrow_f32_layout, wide_f32_layout, wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.lstm_cuda import (
     _DTYPE_CODES,
+    _narrow_f32_check,
     _one_device,
     _wide_f32_check,
     _wide_mma_check,
     aligned16,
     at_width,
     input_gates,
+    narrow_f32_plan,
     rows_per_block,
 )
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
@@ -217,6 +222,18 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0):
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(),
                 T, B, H, p.Hb, p.U, rows, stream,
             )
+        elif route == "narrow_f32":
+            p = narrow_f32_plan("bigru", B, H, blocks, rows, device.index)
+            s = narrow_f32_layout.Split(*p[:4])
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (gx_f, gx_b, narrow_f32_layout.pack_wh(wh_f, s),
+                   narrow_f32_layout.pack_wh(wh_b, s), bn_f, bn_b, aligned16(hp_f),
+                   aligned16(hp_b), dy_f, dy_b)
+            err = lib.percival_bigru_bwd_narrow_f32(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                T, B, H, p.Hb, p.U, p.R, stream,
+            )
         elif route == "wide":
             p = wide_layout.plan(H, 3)
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -298,16 +315,20 @@ bigru_fwd.launches = 0
 bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 
-def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
+def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,
+               blocks: int = 0, rows: int = 0):
     """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide_f32"``, ``"wide"`` or ``"simt"``) on CUDA inputs that
-    :func:`bigru_bwd` has checked; counts nothing. ``bigru_bwd`` is the
-    entry; ``chip_smoke.py`` times one route's kernel beside another's
-    through this. ``"simt"`` runs H that is not a multiple of 32 zero-padded
-    to one (``lstm_cuda.at_width``), up to H = 320; ``"wide_mma"`` (bf16
-    only, H up to ``wide_mma_layout.max_h(3)``) and ``"wide_f32"`` (f32
-    only, H up to ``wide_f32_layout.max_h(3)``) likewise; ``"wide"`` raises
-    ``ValueError`` past ``wide_layout.GRU_MAX_H``."""
+    ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or ``"simt"``) on CUDA
+    inputs that :func:`bigru_bwd` has checked; counts nothing. ``bigru_bwd``
+    is the entry; ``chip_smoke.py`` times one route's kernel beside
+    another's through this. ``"simt"`` runs H that is not a multiple of 32
+    zero-padded to one (``lstm_cuda.at_width``), up to H = 320;
+    ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(3)``) and
+    ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(3)``) likewise;
+    ``"narrow_f32"`` (f32 only, H up to 320) H that is not a multiple of 8,
+    over at most ``blocks`` blocks a cluster and ``rows`` rows when given
+    (``lstm_cuda.bwd_launch``'s overrides); ``"wide"`` raises ``ValueError``
+    past ``wide_layout.GRU_MAX_H``."""
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
@@ -315,14 +336,17 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     H = G // 3
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
     granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE,
-               "wide_f32": wide_f32_layout.K_GRANULE}.get(route)
+               "wide_f32": wide_f32_layout.K_GRANULE,
+               "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 3)
     if route == "wide_f32":
         _wide_f32_check(gx_f.dtype, H, 3)
+    if route == "narrow_f32":
+        _narrow_f32_check(gx_f.dtype, H, 3)
     if granule and H % granule and (route != "simt" or H <= SIMT_BWD_MAX_H):
         Hp = -(-H // granule) * granule
-        return at_width(lambda *a: bwd_launch(route, *a), Hp, 3, *ins)
+        return at_width(lambda *a: bwd_launch(route, *a, blocks=blocks, rows=rows), Hp, 3, *ins)
     lib = _build.library()
     dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
     dnr_f, dnr_b = torch.empty_like(hp_f), torch.empty_like(hp_b)
@@ -358,6 +382,18 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
                 T, B, H, p.Hb, p.U, stream,
             )
+        elif route == "narrow_f32":
+            p = narrow_f32_plan("bigru", B, H, blocks, rows, device.index)
+            s = narrow_f32_layout.Split(*p[:4])
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (gx_f, gx_b, narrow_f32_layout.pack_wh(wh_f, s),
+                   narrow_f32_layout.pack_wh(wh_b, s), bn_f, bn_b, aligned16(hp_f),
+                   aligned16(hp_b), dy_f, dy_b)
+            err = lib.percival_bigru_bwd_narrow_f32(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                T, B, H, p.Hb, p.U, p.R, stream,
+            )
         elif route == "wide":
             p = wide_layout.plan(H, 3)
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -388,7 +424,8 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 672,
     the f32 cluster one for f32 past 320 up to 512 (but for the few rows of
     ``mma_layout.F32_WIDE_BWD``), the CUDA-core cluster one past those (f32:
-    512, bf16: 672) and at those rows, else the one-block CUDA-core one,
+    512, bf16: 672) and at those rows, the f32 narrow cluster one for f32 up
+    to 320, else the one-block CUDA-core one,
     H not a multiple of 32 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
     run the twin. Raises on mixed devices, dtypes or shapes, non-contiguous
@@ -410,7 +447,8 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
 
 bigru_bwd.launches = 0
-bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0}
+bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
+                    "narrow_f32": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

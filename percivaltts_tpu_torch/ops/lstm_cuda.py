@@ -25,10 +25,13 @@ the CUDA-core cluster kernel ``csrc/bilstm_fwd_wide.cu``
 f32 past H = 256 up to 512 takes its own cluster BPTT,
 ``csrc/bilstm_bwd_wide_f32.cu`` (``"wide_f32"``, ``ops/wide_f32_layout.py``),
 but for the few batch rows where the CUDA-core one measured faster
-(``mma_layout.F32_WIDE_BWD``).
-``csrc/bilstm_bwd.cu`` takes H a multiple of 8, the ``"wide_mma"`` and
-``"wide_f32"`` kernels of 32: other widths are zero-padded to one
-(:func:`at_width`), which changes no real unit.
+(``mma_layout.F32_WIDE_BWD``); f32 up to H = 256 another,
+``csrc/bilstm_bwd_narrow_f32.cu`` (``"narrow_f32"``,
+``ops/narrow_f32_layout.py``), measured faster than ``csrc/bilstm_bwd.cu``
+there.
+``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernel take H a multiple of
+8, the ``"wide_mma"`` and ``"wide_f32"`` kernels of 32: other widths are
+zero-padded to one (:func:`at_width`), which changes no real unit.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass. The forward is also the
 registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
@@ -37,11 +40,14 @@ while ``torch.export`` traces, so that an exported graph launches it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout, wide_mma_layout
+from percivaltts_tpu_torch.ops import narrow_f32_layout, wide_f32_layout, wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -245,6 +251,31 @@ def _wide_f32_check(dtype: torch.dtype, H: int, gates: int) -> None:
                          f"{wide_f32_layout.max_h(gates)}, got H={H}")
 
 
+def _narrow_f32_check(dtype: torch.dtype, H: int, gates: int) -> None:
+    """Raise unless the f32 narrow BPTTs take ``dtype`` and ``H``."""
+    if dtype != torch.float32:
+        raise TypeError(f"the f32 narrow BPTT kernels take float32, got {dtype}")
+    if not narrow_f32_layout.fits(H, gates):
+        raise ValueError(f"the f32 narrow {wide_layout.CELLS[gates]} BPTT kernels take "
+                         f"H <= {narrow_f32_layout.MAX_H[gates]}, got H={H}")
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_f32_plan(kind: str, B: int, H: int, blocks: int = 0, rows: int = 0,
+                    device: int = 0) -> narrow_f32_layout.Plan:
+    """The launch plan ``percival_{kind}_bwd_narrow_f32_plan`` gives ``B`` rows
+    at width ``H`` (a multiple of 8) on card ``device`` (``kind``:
+    ``"bilstm"`` or ``"bigru"``; ``blocks`` / ``rows``: its overrides, 0 for
+    the plan's own choice); raises when none fits."""
+    from percivaltts_tpu_torch import _build
+
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        fn = getattr(_build.library(), f"percival_{kind}_bwd_narrow_f32_plan")
+        _build.check(fn(B, H, blocks, rows, out), f"{kind} narrow f32 BPTT plan at B={B} H={H}")
+    return narrow_f32_layout.Plan(*out)
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
     tensor-core kernels stream their (T, B, ·) inputs with 16-byte
@@ -380,16 +411,19 @@ bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
-               dy_f, dy_b):
+               dy_f, dy_b, blocks: int = 0, rows: int = 0):
     """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide_f32"``, ``"wide"`` or ``"simt"``) on CUDA inputs that
-    :func:`bilstm_bwd` has checked; counts nothing. ``bilstm_bwd`` is the
-    entry; ``chip_smoke.py`` times one route's kernel beside another's
-    through this. ``"simt"`` runs H that is not a multiple of 8, and
-    ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(4)``, else
-    ``ValueError``) and ``"wide_f32"`` (f32 only, H up to
-    ``wide_f32_layout.max_h(4)``) H that is not a multiple of 32,
-    zero-padded to one (:func:`at_width`)."""
+    ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or ``"simt"``) on CUDA
+    inputs that :func:`bilstm_bwd` has checked; counts nothing.
+    ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times one route's kernel
+    beside another's through this. ``"simt"`` and ``"narrow_f32"`` (f32
+    only, H up to 256, else ``ValueError``) run H that is not a multiple of
+    8, and ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(4)``)
+    and ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(4)``) H
+    that is not a multiple of 32, zero-padded to one (:func:`at_width`).
+    ``"narrow_f32"`` splits over at most ``blocks`` blocks a cluster and
+    takes ``rows`` rows when given (a measurement's overrides; 0: the plan's
+    choice, :func:`narrow_f32_plan`)."""
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
@@ -397,14 +431,17 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
     H = G // 4
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
     granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE,
-               "wide_f32": wide_f32_layout.K_GRANULE}.get(route)
+               "wide_f32": wide_f32_layout.K_GRANULE,
+               "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 4)
     if route == "wide_f32":
         _wide_f32_check(gx_f.dtype, H, 4)
+    if route == "narrow_f32":
+        _narrow_f32_check(gx_f.dtype, H, 4)
     if granule and H % granule:
         Hp = -(-H // granule) * granule
-        return at_width(lambda *a: bwd_launch(route, *a), Hp, 4,
+        return at_width(lambda *a: bwd_launch(route, *a, blocks=blocks, rows=rows), Hp, 4,
                         gx_f, gx_b, wh_f, wh_b, *states)
     lib = _build.library()
     dgx_f, dgx_b = torch.empty_like(gx_f), torch.empty_like(gx_b)
@@ -437,6 +474,18 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
                 T, B, H, p.Hb, p.U, stream,
             )
+        elif route == "narrow_f32":
+            p = narrow_f32_plan("bilstm", B, H, blocks, rows, device.index)
+            s = narrow_f32_layout.Split(*p[:4])
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see fwd_launch)
+            ins = (gx_f, gx_b, narrow_f32_layout.pack_wh(wh_f, s),
+                   narrow_f32_layout.pack_wh(wh_b, s), aligned16(hp_f), aligned16(hp_b),
+                   cp_f, cp_b, c_f, c_b, dy_f, dy_b)
+            err = lib.percival_bilstm_bwd_narrow_f32(
+                *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
+                T, B, H, p.Hb, p.U, p.R, stream,
+            )
         elif route == "wide":
             p = wide_layout.plan(H)
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -466,8 +515,9 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 608,
     the f32 cluster one for f32 past 256 up to 512 (but for the few rows of
     ``mma_layout.F32_WIDE_BWD``), the CUDA-core cluster one past those (f32:
-    512, bf16: 608) and at those rows, else the one-block CUDA-core one,
-    H not a multiple of 8 zero-padded to one
+    512, bf16: 608) and at those rows, the f32 narrow cluster one for f32 up
+    to 256, else the one-block CUDA-core one, H not a multiple of 8
+    zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
     run the twin. Raises on
     mixed devices, dtypes, or shapes, non-contiguous CUDA inputs, CUDA
@@ -489,7 +539,8 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0}
+bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
+                     "narrow_f32": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -24,7 +24,9 @@ kernels up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and past it the
 cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
 cores (``ops/wide_layout.py``); the f32 BPTT there takes its own cluster
-kernels up to H = 512 (``ops/wide_f32_layout.py``).
+kernels up to H = 512 (``ops/wide_f32_layout.py``), and at the one-block
+widths cluster kernels too, which hold W_h on chip for all of a cluster's
+rows (``ops/narrow_f32_layout.py``).
 
 The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
 ``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
@@ -42,7 +44,7 @@ import functools
 
 import torch
 
-from percivaltts_tpu_torch.ops import wide_f32_layout, wide_mma_layout
+from percivaltts_tpu_torch.ops import narrow_f32_layout, wide_f32_layout, wide_mma_layout
 
 MMA_K = 16  # depth of one m16n8k16 product: H is a whole number of them
 # W_h in registers at H=128, 32-bit registers a thread: forward 64 (LSTM) / 96
@@ -106,14 +108,22 @@ def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``
     (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
     (``csrc/{bilstm,bigru}_bwd_wide.cu``) or ``"simt"``
-    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``); except that f32 past
-    ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H`` takes ``"wide_f32"``
+    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``); except in f32: up to
+    ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H`` it takes ``"narrow_f32"``
+    (``csrc/{bilstm,bigru}_bwd_narrow_f32.cu``, ``narrow_f32_layout.fits``;
+    the card measured it faster than ``"simt"`` at every width and batch it
+    timed: H = 64–256 / 320, B = 1–160, ``python3 chip_smoke.py
+    --f32-times``, PERF.md), and past them ``"wide_f32"``
     (``csrc/{bilstm,bigru}_bwd_wide_f32.cu``) wherever its plan fits
     (``wide_f32_layout.fits``: H up to 512) and ``F32_WIDE_BWD`` does not
-    keep ``"wide"`` for so few rows. Without ``B``, the route of a batch
-    past ``F32_WIDE_BWD``'s."""
+    keep ``"wide"`` for so few rows. Without ``B``, the route of a batch past
+    ``F32_WIDE_BWD``'s."""
     route = fwd_route(dtype, H, cell)
-    if route != "wide" or dtype != torch.float32 or not wide_f32_layout.fits(H, GATES[cell]):
+    if dtype != torch.float32:
+        return route
+    if route == "simt" and narrow_f32_layout.fits(H, GATES[cell]):
+        return "narrow_f32"
+    if route != "wide" or not wide_f32_layout.fits(H, GATES[cell]):
         return route
     if B is not None and any(H <= h and B <= b for h, b in F32_WIDE_BWD[cell]):
         return "wide"

@@ -3,6 +3,7 @@
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown          # the mma kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide   # the cluster kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 [--route=wide_f32]
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --simt --f32 [--route=narrow_f32]
 
 Builds variants of ``csrc/bilstm_bwd_mma.cu`` and ``csrc/bigru_bwd_mma.cu``
 with one part of the step removed or replaced (macros and edits applied to a
@@ -46,6 +47,34 @@ kernels (``"wide"``) and the f32 cluster BPTTs (``"wide_f32"``,
 variant's source), the latter also without the streamed chunks
 (``no_stream``: the ring's slots keep the chunks of the first pass), each
 shape's launch plan printed; ``--route=NAME`` times one route alone.
+
+With ``--simt --f32`` the same for the one-block CUDA-core BPTTs in f32
+(``csrc/bilstm_bwd.cu``, ``csrc/bigru_bwd.cu``, route ``"simt"``) at
+(512, 8, 128) and (512, 32, 128) (``SIMT_SHAPES``), at the rows a block
+that ``lstm_cuda.rows_per_block`` gives them:
+
+- ``full``;
+- ``no_recompute``: the recompute of the next step's gates removed;
+- ``no_dh``: the ``dz · W_hᵀ`` reduction removed (one warp a row of k);
+- ``no_gates``: σ and tanh replaced by the identity;
+- ``no_sync``: the step's two ``__syncthreads`` removed;
+- ``loop_only``: neither gates nor products (the syncs kept);
+
+and beside them the cluster kernels that replaced them there
+(``csrc/{bilstm,bigru}_bwd_narrow_f32.cu``, route ``"narrow_f32"``, whose
+kernel body ``narrow_f32_common.cuh`` and gate phases ``f32_cells.cuh`` are
+inlined into each variant's source), each shape's plan printed:
+
+- ``full``, ``no_recompute``, ``no_dh``, ``no_gates`` as above;
+- ``no_dsmem``: the dh partials stored into the block's own slots;
+- ``no_cluster_sync``: the step's split cluster barrier removed (the
+  block's ``__syncthreads`` stay; one cluster barrier before the blocks
+  exit);
+- ``no_prefetch``: the next step's gate operands not loaded;
+- ``no_store``: the step's dgates not written to dgx (and dnr);
+- ``loop_only``: all of the above removed.
+
+``--route=simt`` / ``--route=narrow_f32`` times one route alone.
 
 Times are medians of CUDA-event times over 20 launches (5 runs of 3 for the
 cluster kernels); the card's name and power limit are printed first.
@@ -187,6 +216,189 @@ def _build_wide_variants(routes) -> dict:
     return libs
 
 
+SIMT_SHAPES = [(512, 8, 128), (512, 32, 128)]
+SIMT_VARIANTS = ("full", "no_recompute", "no_dh", "no_gates", "no_sync", "loop_only")
+SIMT_STEP_SYNC = re.compile(r"    __syncthreads\(\);  // s_d[zgh][ ,][^\n]*\n")
+# per source: {variant: [(text, replacement, count)]}; "loop_only" applies
+# no_recompute, no_dh and no_gates
+SIMT_EDITS = {
+    "bilstm": {"no_recompute": [("    if (more) {\n", "    if (false && more) {\n", 1)]},
+    "bigru": {"no_recompute": [("      recompute(g_in);\n", "", 1)]},
+}
+SIMT_NO_DH = ("for (int k = warp; k < H; k += n_warps) {",
+              "for (int k = warp; false && k < H; k += n_warps) {", 1)
+
+
+def _simt_source(src: str, kind: str, name: str) -> str:
+    """The one-block BPTT ``src`` of ``kind`` with variant ``name``'s edits."""
+    edits = {**SIMT_EDITS[kind], "no_dh": [SIMT_NO_DH]}
+    parts = {"loop_only": ("no_recompute", "no_dh", "no_gates")}.get(name, (name,))
+    for part in parts:
+        for old, new, count in edits.get(part, []):
+            if src.count(old) != count:
+                raise AssertionError(f"{kind} {part}: {old!r} appears {src.count(old)} times")
+            src = src.replace(old, new)
+    if "no_gates" in parts:
+        head, sep, body = src.partition("\nnamespace {\n")
+        src = head + "\n" + IDENTITY + sep + body
+    if name == "no_sync":
+        src, n = SIMT_STEP_SYNC.subn("", src)
+        assert n == 2, n
+    return src
+
+
+def _build_simt_variants() -> dict:
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    for kind in ("bilstm", "bigru"):
+        src = (_build.CSRC / f"{kind}_bwd.cu").read_text()
+        for name in SIMT_VARIANTS:
+            cu = out_dir / f"{kind}_bwd_simt_{name}.cu"
+            cu.write_text(_simt_source(src, kind, name))
+            so = out_dir / f"{kind}_bwd_simt_{name}.so"
+            cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                         "-o", str(so), str(cu)])
+            libs[(kind, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+NARROW_VARIANTS = ("full", "no_recompute", "no_dh", "no_gates", "no_dsmem", "no_cluster_sync",
+                   "no_prefetch", "no_store", "loop_only")
+# {variant: [(text, replacement, count)]} on the inlined narrow_f32 source;
+# "no_gates" also defines σ and tanh as the identity before the gate phases
+NARROW_EDITS = {
+    "no_recompute": [("    recompute(s_h + ((s + 1) & 1) * R * H);\n", "", 1)],
+    "no_dh": [("    dh_product(s_recv + (s & 1) * slots);\n", "", 1)],
+    "no_dsmem": [("cluster.map_shared_rank(recv, owner)", "(recv)", 1)],
+    "no_cluster_sync": [("    cluster_arrive();  // this block's partials stored\n", "", 1),
+                        ("    cluster_wait();   // every partial of step s stored\n", "", 1),
+                        ("  store_pass(n_steps - 1);\n  cp_async_wait<0>();\n}",
+                         "  store_pass(n_steps - 1);\n  cp_async_wait<0>();\n  cluster.sync();\n}", 1)],
+    "no_prefetch": [("    prefetch(s + 1);\n", "", 1)],
+    "no_store": [("    store_pass(s);\n", "", 1)],
+}
+
+
+def _narrow_source(kind: str, name: str) -> str:
+    """``csrc/{kind}_bwd_narrow_f32.cu`` with its two headers inlined and the
+    edits of variant ``name`` (all of them, and no_gates, for ``loop_only``)."""
+    unpragma = lambda text: text.replace("#pragma once\n", "")  # noqa: E731
+    src = (_build.CSRC / f"{kind}_bwd_narrow_f32.cu").read_text()
+    gates = name in ("no_gates", "loop_only")
+    cells = '#include "lstm_common.cuh"\n' + (IDENTITY if gates else "") + unpragma(
+        (_build.CSRC / "f32_cells.cuh").read_text())
+    src = src.replace('#include "f32_cells.cuh"\n', cells)
+    src = src.replace('#include "narrow_f32_common.cuh"\n',
+                      unpragma((_build.CSRC / "narrow_f32_common.cuh").read_text()))
+    for part in NARROW_EDITS if name == "loop_only" else [name]:
+        for old, new, count in NARROW_EDITS.get(part, []):
+            if src.count(old) != count:
+                raise AssertionError(f"{kind} narrow_f32 {part}: {old!r} appears "
+                                     f"{src.count(old)} times")
+            src = src.replace(old, new)
+    return src
+
+
+def _build_narrow_variants() -> dict:
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    for kind in ("bilstm", "bigru"):
+        for name in NARROW_VARIANTS:
+            cu = out_dir / f"{kind}_bwd_narrow_f32_{name}.cu"
+            cu.write_text(_narrow_source(kind, name))
+            so = out_dir / f"{kind}_bwd_narrow_f32_{name}.so"
+            cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                         "-o", str(so), str(cu)])
+            libs[(kind, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+def _narrow_launcher(lib, kind: str, T: int, B: int, H: int, ins: dict, outs: dict):
+    """A function that launches one narrow_f32 variant on ``ins`` at the
+    plan its library gives, and that plan."""
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    plan_fn = getattr(lib, f"percival_{kind}_bwd_narrow_f32_plan")
+    plan_fn.argtypes, plan_fn.restype = [i] * 4 + [ctypes.POINTER(ctypes.c_int)], i
+    out = (ctypes.c_int * 8)()
+    if plan_fn(B, H, 0, 0, out):
+        raise RuntimeError(f"{kind} narrow_f32: no plan at B={B} H={H}")
+    plan = nf.Plan(*out)
+    wp = [nf.pack_wh(w, nf.Split(*plan[:4])) for w in ins["wh"]]
+    names = ["gx", "wp"] + (["hp", "cp", "c", "dy"] if kind == "bilstm" else ["bn", "hp", "dy"])
+    tensors = {**ins, "wp": wp}
+    ptrs = [t.data_ptr() for n in names for t in tensors[n]]
+    ptrs += [t.data_ptr() for n in (["dgx"] if kind == "bilstm" else ["dgx", "dnr"])
+             for t in outs[n]]
+    fn = getattr(lib, f"percival_{kind}_bwd_narrow_f32")
+    fn.argtypes, fn.restype = [p] * len(ptrs) + [i] * 6 + [p], i
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*ptrs, T, B, H, plan.Hb, plan.U, plan.R, stream)
+        if err:
+            raise RuntimeError(f"{kind} narrow_f32: CUDA error {err}")
+    launch.keep = wp
+    return launch, plan
+
+
+def simt_main(only: str = "") -> int:
+    """The one-block f32 BPTTs' variants at ``SIMT_SHAPES``, and the
+    ``"narrow_f32"`` kernels' beside them (``only``: one route alone)."""
+    from percivaltts_tpu_torch.ops.lstm_cuda import rows_per_block
+
+    if only in ("", "narrow_f32"):
+        narrow_libs = _build_narrow_variants()
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+        for kind in ("bilstm", "bigru"):
+            for T, B, H in SIMT_SHAPES:
+                ins, outs = _wide_inputs(kind, T, B, H, dev, g, torch.float32)
+                row, plan = [], None
+                for name in NARROW_VARIANTS:
+                    launch, plan = _narrow_launcher(ctypes.CDLL(str(narrow_libs[(kind, name)])),
+                                                    kind, T, B, H, ins, outs)
+                    row.append(f"{name} {_time_ms(launch) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_bwd_narrow_f32 T,B,H={(T, B, H)} f32 (U={plan.U}, "
+                      f"R={plan.R}, {plan.clusters} clusters at once, {plan.waves} waves, "
+                      f"{plan.smem} B): us a step: " + ", ".join(row))
+    if only not in ("", "simt"):
+        return 0
+    libs = _build_simt_variants()
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kind in ("bilstm", "bigru"):
+        for T, B, H in SIMT_SHAPES:
+            ins, outs = _wide_inputs(kind, T, B, H, dev, g, torch.float32)
+            names = ["gx", "wh"] + (["hp", "cp", "c", "dy"] if kind == "bilstm" else
+                                    ["bn", "hp", "dy"])
+            ptrs = [t.data_ptr() for n in names for t in ins[n]]
+            ptrs += [t.data_ptr() for n in (["dgx"] if kind == "bilstm" else ["dgx", "dnr"])
+                     for t in outs[n]]
+            rows = rows_per_block(B, n_sm)
+            row = []
+            for name in SIMT_VARIANTS:
+                fn = getattr(ctypes.CDLL(str(libs[(kind, name)])), f"percival_{kind}_bwd")
+                fn.argtypes, fn.restype = [p] * len(ptrs) + [i] * 5 + [p], i
+
+                def launch():
+                    err = fn(*ptrs, T, B, H, 0, rows, stream)
+                    if err:
+                        raise RuntimeError(f"{kind} simt {name}: CUDA error {err}")
+                row.append(f"{name} {_time_ms(launch) / T * 1e3:.3f}")
+            print(f"[breakdown] {kind}_bwd simt T,B,H={(T, B, H)} f32 (R={rows}, "
+                  f"{2 * -(-B // rows)} blocks): us a step: " + ", ".join(row))
+    return 0
+
+
 def _wide_inputs(kind: str, T: int, B: int, H: int, dev, g, dtype=torch.bfloat16):
     """Random inputs of one launch (both directions) in ``dtype``, and its outputs."""
     gates = 4 if kind == "bilstm" else 3
@@ -289,8 +501,13 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
+    if "--simt" in sys.argv[1:]:
+        if "--f32" not in sys.argv[1:]:
+            print("bwd_step_breakdown: --simt times the f32 kernels: add --f32", file=sys.stderr)
+            return 2
+        return simt_main(only)
     if "--wide" in sys.argv[1:]:
-        only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
         return wide_main(f32="--f32" in sys.argv[1:], only=only)
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16

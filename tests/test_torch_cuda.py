@@ -14,8 +14,11 @@ GRU past H = 320 in f32, and wider bf16, the CUDA-core cluster kernels
 (``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096); f32 and other
 widths the one-block CUDA-core ones
 (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose BPTTs run H that is not a
-multiple of 8 / 32 zero-padded to one); the tests pick a route by the dtype
-and H they pass and check it by the wrappers' ``.routes``.
+multiple of 8 / 32 zero-padded to one); the f32 BPTTs have their own
+cluster kernels, ``csrc/{bilstm,bigru}_bwd_wide_f32.cu`` past the one-block
+widths and ``csrc/{bilstm,bigru}_bwd_narrow_f32.cu`` at them (``-k
+"wide_f32 or narrow_f32"``); the tests pick a route by the dtype and H they
+pass and check it by the wrappers' ``.routes``.
 Tolerances, the same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums
 and transcendentals in another order); bf16 2e-2 (bf16 outputs, and h
 rounded to bf16 before each product, so a one-ulp flip is carried); for the BPTT
@@ -153,18 +156,20 @@ def test_bwd_kernel_matches_reference(cuda_device, dtype, T, B, H):
 def test_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype):
     base = _gates(96, 6, 64, dtype, cuda_device, seed=11)
     dy = _bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
+    # f32: the one-block forward, the BPTT on its f32 cluster kernel
     route = "mma" if dtype == torch.bfloat16 else "simt"
+    broute = "mma" if dtype == torch.bfloat16 else "narrow_f32"
     grads = []
     for core in (bilstm_core, bilstm_core_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
         f0, b0, r0 = bilstm_fwd.launches, bilstm_bwd.launches, bilstm_fwd.routes[route]
-        rb = bilstm_bwd.routes[route]
+        rb = bilstm_bwd.routes[broute]
         yf, yb = core(*leaves)
         torch.autograd.backward((yf, yb), dy)
         torch.cuda.synchronize()
         launched = (bilstm_fwd.launches - f0, bilstm_bwd.launches - b0)
         assert launched == ((1, 1) if core is bilstm_core else (0, 0))
-        assert (bilstm_fwd.routes[route] - r0, bilstm_bwd.routes[route] - rb) == launched
+        assert (bilstm_fwd.routes[route] - r0, bilstm_bwd.routes[broute] - rb) == launched
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -294,18 +299,20 @@ def test_gru_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype)
     """dgx, dW_h and db_hn of the kernel pair against the twins'."""
     base = _gru_gates(96, 6, 64, dtype, cuda_device, seed=11)
     dy = _gru_bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
+    # f32: the one-block forward, the BPTT on its f32 cluster kernel
     route = "mma" if dtype == torch.bfloat16 else "simt"
+    broute = "mma" if dtype == torch.bfloat16 else "narrow_f32"
     grads = []
     for core in (bigru_core, bigru_core_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
         f0, b0, r0 = bigru_fwd.launches, bigru_bwd.launches, bigru_fwd.routes[route]
-        rb = bigru_bwd.routes[route]
+        rb = bigru_bwd.routes[broute]
         yf, yb = core(*leaves)
         torch.autograd.backward((yf, yb), dy)
         torch.cuda.synchronize()
         launched = (bigru_fwd.launches - f0, bigru_bwd.launches - b0)
         assert launched == ((1, 1) if core is bigru_core else (0, 0))
-        assert (bigru_fwd.routes[route] - r0, bigru_bwd.routes[route] - rb) == launched
+        assert (bigru_fwd.routes[route] - r0, bigru_bwd.routes[broute] - rb) == launched
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -557,7 +564,10 @@ def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route,
     # these 5 rows and H <= 384 the CUDA-core cluster BPTT, which the card
     # measured faster than "wide_f32" at so few rows (mma_layout.F32_WIDE_BWD)
     cluster = "wide_mma" if dtype == torch.bfloat16 else "wide"
-    route, gru_route = ((cluster if r == "wide" else r) for r in (route, gru_route))
+    # in f32 the one-block widths take the f32 narrow cluster BPTT
+    narrow = "narrow_f32" if dtype == torch.float32 else "simt"
+    route, gru_route = ((cluster if r == "wide" else narrow if r == "simt" else r)
+                        for r in (route, gru_route))
     l0, g0 = _bwd_routes()
     with torch.no_grad():
         got, want = bilstm_bwd(*lstm_args), bilstm_bwd_reference(*lstm_args)
@@ -838,6 +848,113 @@ def test_wide_f32_bptt_refuses_bf16_and_widths_past_its_plan(cuda_device):
         with pytest.raises(ValueError, match=f"H <= {wf.max_h(3)}"):
             gru_cuda.bwd_launch("wide_f32", *_gru_bwd_args(2, 1, H, torch.float32, cuda_device,
                                                            seed=1))
+
+
+# --- the f32 narrow cluster BPTTs (the "narrow_f32" route) ---------------------
+
+# chip_smoke.py's f32 shapes at the one-block widths: the training step's and
+# the serving chunk's rows, the narrow width, T = 1, the route's widest H,
+# a width not a multiple of 8 (zero-padded to 104) and the fakes pass
+NARROW_F32_CASES = ([(cell, *s) for cell in ("lstm", "gru") for s in
+                     [(512, 32, 128), (512, 8, 128), (33, 9, 64), (1, 3, 128), (24, 5, 100),
+                      (64, 160, 128)]]
+                    + [("lstm", 40, 7, 256), ("gru", 40, 7, 320)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", NARROW_F32_CASES)
+def test_narrow_f32_bptt_matches_twins(cuda_device, cell, T, B, H):
+    """The f32 narrow cluster BPTTs against the twins (1e-4), launched
+    directly and through the entry, which counts them once on their route
+    (``"narrow_f32"``, or ``"simt"`` where the card measured the one-block
+    kernel faster); the one-block BPTT on the same inputs agrees too."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, cuda_device, seed=T + B)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    wrapper = bigru_bwd if gru else bilstm_bwd
+    route = bwd_route(torch.float32, H, cell, B)
+    assert route in ("narrow_f32", "simt")
+    with torch.no_grad():
+        _close(m.bwd_launch("narrow_f32", *args), want, 1e-4)
+        _close(m.bwd_launch("simt", *args), want, 1e-4)
+        b0 = dict(wrapper.routes)
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+    assert _route_counts(b0, wrapper.routes, route) == (1, 0)
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,blocks", [("lstm", 160, 8), ("gru", 224, 5), ("lstm", 128, 2),
+                                           ("gru", 128, 1), ("gru", 320, 8)])
+@pytest.mark.parametrize("R", [2, 4, 8, 16])
+def test_narrow_f32_splits_and_rows_match_twins(cuda_device, cell, H, blocks, R):
+    """Every row tile on splits the launchers' overrides force, among them
+    clusters whose last block is short (LSTM H = 160 over 7 blocks of 24
+    units, GRU H = 224 over 5 of 48), against the twins (1e-4); a split and
+    rows that do not fit a block are refused."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    gru = cell == "gru"
+    m, gates = (gru_cuda, 3) if gru else (lstm_cuda, 4)
+    if not nf.candidates(H, gates, blocks, R):
+        with pytest.raises(RuntimeError, match="plan"):
+            lstm_cuda.narrow_f32_plan("bigru" if gru else "bilstm", 7, H, blocks, R)
+        return
+    args = (_gru_bwd_args if gru else _bwd_args)(20, 7, H, torch.float32, cuda_device, seed=H)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    with torch.no_grad():
+        _close(m.bwd_launch("narrow_f32", *args, blocks=blocks, rows=R), want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_narrow_f32_plan_matches_the_layout(cuda_device, cell):
+    """The launchers' plans equal ``ops/narrow_f32_layout.py::plan`` replayed
+    at the card's clusters of each split (the launchers' plan with that split
+    forced) at H = 64, 128 and the route's widest, B = 1, 8, 32, 160; the
+    launch refuses a split other than its plan's."""
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    gates, name = (3, "bigru") if cell == "gru" else (4, "bilstm")
+    for H in (64, 128, nf.MAX_H[gates]):
+        card = {s.U: lstm_cuda.narrow_f32_plan(name, 1, H, s.U, R).clusters
+                for s, R, _ in nf.candidates(H, gates)}
+        for B in (1, 8, 32, 160):
+            p = lstm_cuda.narrow_f32_plan(name, B, H)
+            assert p == nf.plan(B, H, gates, card)
+            assert p.smem <= nf.SMEM_OPTIN and p.clusters >= 1
+    z = torch.zeros(64, device=cuda_device)
+    fn = getattr(_build.library(), f"percival_{name}_bwd_narrow_f32")
+    p = lstm_cuda.narrow_f32_plan(name, 8, 128)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(*[z.data_ptr()] * 14, 1, 8, 128, p.Hb + 8, p.U, p.R, stream) != 0
+
+
+@pytest.mark.cuda
+def test_narrow_f32_bptt_refuses_bf16_and_widths_past_its_route(cuda_device):
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    with pytest.raises(TypeError, match="float32"):
+        lstm_cuda.bwd_launch("narrow_f32", *_bwd_args(2, 1, 64, torch.bfloat16, cuda_device,
+                                                      seed=1))
+    with pytest.raises(TypeError, match="float32"):
+        gru_cuda.bwd_launch("narrow_f32", *_gru_bwd_args(2, 1, 64, torch.bfloat16, cuda_device,
+                                                         seed=1))
+    with pytest.raises(ValueError, match=f"H <= {nf.MAX_H[4]}"):
+        lstm_cuda.bwd_launch("narrow_f32", *_bwd_args(2, 1, nf.MAX_H[4] + 1, torch.float32,
+                                                      cuda_device, seed=1))
+    with pytest.raises(ValueError, match=f"H <= {nf.MAX_H[3]}"):
+        gru_cuda.bwd_launch("narrow_f32", *_gru_bwd_args(2, 1, nf.MAX_H[3] + 1, torch.float32,
+                                                         cuda_device, seed=1))
 
 
 # --- the tensor-core cluster BPTTs (the "wide_mma" route) ----------------------

@@ -186,12 +186,14 @@ def test_route_is_chosen_from_dtype_and_width():
     # and the GRU's
     assert fwd_route(torch.bfloat16, 136) == "wide_mma"
     assert fwd_route(torch.bfloat16, 136, "gru") == "wide_mma"
-    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 128),
+    for dtype, H in ((torch.bfloat16, 128), (torch.bfloat16, 16),
                      (torch.bfloat16, 136), (torch.float32, 1024)):
         for cell in ("lstm", "gru"):  # the BPTT follows the forward
             assert bwd_route(dtype, H, cell) == fwd_route(dtype, H, cell)
-    for cell in ("lstm", "gru"):  # but f32 past one block up to 512 has its own BPTT
+    for cell in ("lstm", "gru"):  # but f32 up to 512 has its own BPTTs
         assert fwd_route(torch.float32, 512, cell) == "wide"
         assert bwd_route(torch.float32, 512, cell) == "wide_f32"
+        assert fwd_route(torch.float32, 128, cell) == "simt"
+        assert bwd_route(torch.float32, 128, cell) == "narrow_f32"
     with pytest.raises(ValueError, match="kind"):
         gate_rows("rnn", 64)

@@ -91,11 +91,14 @@ def test_route_table(dtype, H, cell, route):
     # a cluster of blocks a direction ("wide" in the table) runs on the
     # tensor cores in bf16 up to H = 608 / 672 ("wide_mma"), on CUDA cores
     # in f32; a layer's backward takes its forward's route, but in f32 up to
-    # H = 512 the f32 cluster BPTT ("wide_f32")
+    # H = 512 the f32 cluster BPTTs ("narrow_f32" where the forward takes one
+    # block, "wide_f32" past it)
     want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
     assert fwd_route(dtype, H, cell) == want
     f32_cluster = dtype == torch.float32 and want == "wide" and H <= 512
-    assert bwd_route(dtype, H, cell) == ("wide_f32" if f32_cluster else want)
+    f32_narrow = dtype == torch.float32 and want == "simt"
+    assert bwd_route(dtype, H, cell) == ("wide_f32" if f32_cluster else
+                                         "narrow_f32" if f32_narrow else want)
 
 
 def test_route_refuses_other_cells_and_the_wide_plan_names_its_limit():

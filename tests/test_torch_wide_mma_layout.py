@@ -194,7 +194,7 @@ def test_widths_and_routes():
             assert bwd_route(bf16, H, cell) == "mma"
         assert fwd_route(f32, 512, cell) == "wide" and bwd_route(f32, 512, cell) == "wide_f32"
         assert bwd_route(f32, 1024, cell) == fwd_route(f32, 1024, cell) == "wide"
-        assert bwd_route(f32, 200, cell) == "simt"
+        assert bwd_route(f32, 200, cell) == "narrow_f32"
 
 
 @pytest.mark.parametrize("gates", [4, 3])
