@@ -24,9 +24,13 @@ raises on failure (the script exits 0 only when all passed):
    source, all at once, then one link);
 3. hold each recurrent kernel against its plain PyTorch twin: the BiLSTM
    forward (with and without cells) and the BiGRU forward at the serving,
-   edge and training shapes, f32 (the CUDA-core kernels) and bf16 (the
-   tensor-core kernels, ``csrc/*_fwd_mma.cu``, for every H a multiple of
-   16 up to 128), the BiLSTM and BiGRU BPTT at the training and edge
+   edge and training shapes, f32 (the narrow cluster kernels
+   ``csrc/*_fwd_narrow_f32.cu`` through the entry, W_h in shared memory or
+   in registers as their plan takes it, and the one-block CUDA-core kernels
+   they replaced launched beside them; the narrow ones also launched on a
+   short split and on the other kind of plan, ``NARROW_FWD_FORCED``) and
+   bf16 (the tensor-core kernels, ``csrc/*_fwd_mma.cu``, for every H a
+   multiple of 16 up to 128), the BiLSTM and BiGRU BPTT at the training and edge
    shapes (T=1, B not a multiple of 8, H = 16, 48, 64, an unaligned gx
    view) and B = 8, f32 and bf16 (the tensor-core kernels
    ``csrc/*_bwd_mma.cu`` for H a multiple of 16 up to 128; in f32 the
@@ -257,22 +261,22 @@ raises on failure (the script exits 0 only when all passed):
    13b/13c's f32 form, every forward on ``wide``, every BPTT on
    ``wide_f32``;
    14d. as 13d for the GRU's f32 kernels, beside cuDNN's f32 ``nn.GRU``;
-15. f32 at the default width (H = 128), where the BPTTs take the narrow
-   cluster kernels (``"narrow_f32"``, ``csrc/{bilstm,bigru}_bwd_narrow_f32.cu``):
+15. f32 at the default width (H = 128), where the forwards and the BPTTs
+   take the narrow kernels (``"narrow_f32"``,
+   ``csrc/{bilstm,bigru}_{fwd,bwd}_narrow_f32.cu``):
    15a. their launch plans against ``ops/narrow_f32_layout.py`` at the card's
    clusters, and ``ptxas``'s registers and spills;
    15b. config 3 and the BGRU in f32 (``NARROW_MODELS``) served and trained
-   as 13b/13c's f32 forms (``F32_DEPTH``), every forward on the one-block
-   kernels (``"simt"``), every BPTT on ``"narrow_f32"``, the launch counts
-   recorded;
+   as 13b/13c's f32 forms (``F32_DEPTH``), every forward and BPTT on
+   ``"narrow_f32"``, the launch counts recorded;
    15d. the f32 kernels of those paths at ``F32_SIMT_TIMED`` as 13d times
-   its kernels: the one-block forwards, and the narrow BPTTs in turns with
-   the one-block BPTTs they replaced, beside cuDNN's f32 layer.
+   its kernels: the narrow forwards and BPTTs in turns with the one-block
+   kernels they replaced, beside cuDNN's f32 layer.
 
 With ``--f32-times`` the script builds, then only times f32 and exits:
 15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
-BPTT in turns at each width of ``F32_NARROW_WIDTHS`` and B of
-``F32_NARROW_BATCHES``; the BPTT rows ``F32_WIDE_BWD`` keeps on ``"wide"``
+kernel in turns, forward and BPTT, at each width of ``F32_NARROW_WIDTHS``
+and B of ``F32_NARROW_BATCHES``; the BPTT rows ``F32_WIDE_BWD`` keeps on ``"wide"``
 (``F32_WIDE_KEPT``) beside cuDNN's layer; and both cluster BPTTs,
 ``"wide"`` and ``"wide_f32"``, in turns at each width of
 ``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES``; each beside the route
@@ -366,8 +370,7 @@ MODELS = {
     "cnn_blstm_1024_f32": dict(generator="cnn_blstm", blstm_size=1024, compute_dtype="float32"),
     "bgru_1024_f32": dict(generator="bgru", blstm_size=1024, compute_dtype="float32"),
     # phase 15: config 3 and the BGRU in f32 at the default blstm_size (H = 128),
-    # forwards on the one-block kernels ("simt"), BPTTs on the f32 narrow
-    # cluster kernels ("narrow_f32")
+    # forwards and BPTTs on the f32 narrow kernels ("narrow_f32")
     "cnn_blstm_f32": dict(generator="cnn_blstm", compute_dtype="float32"),
     "bgru_f32": dict(generator="bgru", compute_dtype="float32"),
 }
@@ -393,6 +396,16 @@ BWD_SHAPES = [(512, 32, 128), (517, 3, 128), (64, 1, 128), (33, 9, 64), (33, 9, 
 # (T, B, H, blocks) per cell (LSTM H = 160 over 7 blocks of 24 units, the
 # last 16; GRU H = 224 over 5 of 48, the last 32)
 NARROW_SHORT = {"lstm": (33, 9, 160, 8), "gru": (33, 9, 224, 5)}
+# f32 "narrow_f32" forwards launched directly with their plan's overrides:
+# on those short splits, and on the kind of plan the entry does not take at
+# a width: W_h in registers at R = 2 (LSTM H = 96, GRU H = 128; the entry
+# takes R = 1 at B = 9) and in shared memory (GRU H = 128): (cell, (T, B, H),
+# overrides)
+NARROW_FWD_FORCED = [("lstm", (33, 9, 160), dict(blocks=8, resident=0)),
+                     ("gru", (33, 9, 224), dict(blocks=5, resident=0)),
+                     ("lstm", (33, 9, 96), dict(rows=2, resident=1)),
+                     ("gru", (33, 9, 128), dict(rows=2, resident=1)),
+                     ("gru", (33, 9, 128), dict(resident=0))]
 # bf16 only (the tensor-core route): T=1, H=16 and 48, B not a multiple of 8
 # (the CUDA-core GRU BPTT takes H a multiple of 32 only)
 BWD_MMA_SHAPES = [(1, 5, 128), (40, 11, 16), (24, 13, 48)]
@@ -549,12 +562,12 @@ WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
 # same inputs; mma_layout.LSTM_SIMT_MAX_H routes by the faster
 ROUTE_SHAPE = (512, 32, 256)
 WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
-# python3 chip_smoke.py --f32-times: the one-block kernels that f32 takes at
+# python3 chip_smoke.py --f32-times: the narrow kernels that f32 takes at
 # the default blstm_size (H = 128), and the widths of the f32 BPTT's cluster
 # routes, "wide" against "wide_f32" (264 and 336 run zero-padded on "wide_f32")
 F32_SIMT_TIMED = [(512, 8, 128), (512, 32, 128)]
-# where the f32 BPTT takes "narrow_f32" (H <= 256 LSTM, 320 GRU): it and the
-# one-block kernel ("simt") in turns at each width and B
+# where the f32 forward and BPTT take "narrow_f32" (H <= 256 LSTM, 320 GRU):
+# it and the one-block kernel ("simt") in turns at each width and B
 F32_NARROW_WIDTHS = {"lstm": (64, 96, 128, 160, 192, 256), "gru": (64, 128, 192, 256, 320)}
 F32_NARROW_BATCHES = (1, 2, 4, 8, 16, 32, 160)
 # the f32 BPTT's rows that mma_layout.F32_WIDE_BWD keeps on "wide", timed
@@ -584,7 +597,7 @@ WIDE_GRU_FWD_SHAPES = [(512, 8, 512), (517, 3, 512), (1, 1, 512), (512, 160, 512
                        (33, 9, 336), (33, 9, 352), (64, 1, 640)]
 WIDE_GRU_BWD_SHAPES = [(512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)]
 WIDE_GRU_MODELS = ("bgru_1024", "bgru_1024_f32")
-# phase 15: the f32 models at the default width (forwards "simt", BPTTs
+# phase 15: the f32 models at the default width (forwards and BPTTs
 # "narrow_f32"), served and stepped at F32_DEPTH
 NARROW_MODELS = ("cnn_blstm_f32", "bgru_f32")
 
@@ -807,20 +820,26 @@ def _unaligned(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
+def _f32_key(name: str, route: str) -> str:
+    """The error key of an f32 kernel of phase 3: ``*_narrow_f32``, or the
+    one-block kernel's ``*_simt_f32``."""
+    return f"{name}_{route}" + ("_f32" if route == "simt" else "")
+
+
 def _check_kernels(dev) -> dict:
     """Phase 3: every kernel against its twin. Returns each kernel's largest
-    bf16 |kernel − twin|, the f32 one-block forwards' (``*_fwd_simt_f32``),
-    and the f32 BPTTs' on their narrow cluster kernels
-    (``*_bwd_narrow_f32``) and on the one-block ones they replaced
-    (``*_bwd_simt_f32``, launched directly beside them)."""
+    bf16 |kernel − twin|, and the f32 forwards' and BPTTs' on their narrow
+    cluster kernels (``*_fwd_narrow_f32``, ``*_bwd_narrow_f32``) and on the
+    one-block ones they replaced (``*_simt_f32``, launched directly beside
+    them)."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
     from percivaltts_tpu_torch.ops import lstm_cuda as l
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     bf16 = torch.bfloat16
     err = {name: 0.0 for name in _kernels()}
-    err.update({f"{n}_{r}_f32" if r.endswith("simt") else f"{n}_{r}": 0.0
-                for n in ("bilstm", "bigru") for r in ("bwd_narrow_f32", "bwd_simt", "fwd_simt")})
+    err.update({_f32_key(f"{n}_{p}", r): 0.0
+                for n in ("bilstm", "bigru") for p in ("fwd", "bwd") for r in ("narrow_f32", "simt")})
 
     def held(key, e):  # an f32 kernel's error on its route or beside it
         err[key] = max(err.get(key, 0.0), e)
@@ -836,17 +855,27 @@ def _check_kernels(dev) -> dict:
                                  f"cells={cells}", got, want[:len(got)], tol, relative=False)
                     err["bilstm_fwd"] = max(err["bilstm_fwd"], e if dtype == bf16 else 0.0)
                     if dtype != bf16:
-                        held(f"bilstm_fwd_{route}_f32", e)
+                        held(_f32_key("bilstm_fwd", route), e)
+                if dtype != bf16:  # f32: the narrow cluster kernel, and the one-block one beside it
+                    other = "simt" if route == "narrow_f32" else "narrow_f32"
+                    held(_f32_key("bilstm_fwd", other), _compare(
+                        f"[bilstm_fwd {other}, launched] T={T} B={B} H={H} f32 cells=True",
+                        l.fwd_launch(other, *args, with_cells=True), want, tol, False))
         for T, B, H in KERNEL_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
                 route = fwd_route(dtype, H, "gru")
                 args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
+                want = g.bigru_fwd_reference(*args)
                 got = _launch_once(g.bigru_fwd, *args, route=route)
                 e = _compare(f"[bigru_fwd {route}] T={T} B={B} H={H} {str(dtype)[6:]}", got,
-                             g.bigru_fwd_reference(*args), tol, relative=False)
+                             want, tol, relative=False)
                 err["bigru_fwd"] = max(err["bigru_fwd"], e if dtype == bf16 else 0.0)
                 if dtype != bf16:
-                    held(f"bigru_fwd_{route}_f32", e)
+                    held(_f32_key("bigru_fwd", route), e)
+                    other = "simt" if route == "narrow_f32" else "narrow_f32"
+                    held(_f32_key("bigru_fwd", other), _compare(
+                        f"[bigru_fwd {other}, launched] T={T} B={B} H={H} f32",
+                        g.fwd_launch(other, *args), want, tol, False))
         bwd_cases = [(shape, dtype) for shape in BWD_SHAPES for dtype in BWD_TOL]
         bwd_cases += [(shape, bf16) for shape in BWD_MMA_SHAPES]
         for (T, B, H), dtype in bwd_cases:
@@ -863,9 +892,9 @@ def _check_kernels(dev) -> dict:
                              want, tol, rel)
                 err["bilstm_bwd"] = max(err["bilstm_bwd"], e if rel else 0.0)
                 if not rel:  # f32: the narrow cluster kernel, and the one-block one beside it
-                    held(f"bilstm_bwd_{route}" + ("_f32" if route == "simt" else ""), e)
+                    held(_f32_key("bilstm_bwd", route), e)
                     other = "simt" if route == "narrow_f32" else "narrow_f32"
-                    held(f"bilstm_bwd_{other}" + ("_f32" if other == "simt" else ""),
+                    held(_f32_key("bilstm_bwd", other),
                          _compare(f"[bilstm_bwd {other}, launched] T={T} B={B} H={H} f32",
                                   l.bwd_launch(other, *args), want, tol, rel))
                 route = bwd_route(dtype, H, "gru", B)
@@ -885,7 +914,7 @@ def _check_kernels(dev) -> dict:
                                      f"H={H} {str(dtype)[6:]}", out[sl], want[sl], tol, rel)
                         err["bigru_bwd"] = max(err["bigru_bwd"], e if rel else 0.0)
                         if not rel:
-                            held(f"bigru_bwd_{r}" + ("_f32" if r == "simt" else ""), e)
+                            held(_f32_key("bigru_bwd", r), e)
         # a cluster whose last block is short, launched directly
         for name, m, make, cell in (("bilstm_bwd", l, _bwd_args, "lstm"),
                                     ("bigru_bwd", g, _gru_bwd_args, "gru")):
@@ -900,6 +929,24 @@ def _check_kernels(dev) -> dict:
                 f"{H - (p.U - 1) * p.Hb}] T={T} B={B} H={H} f32",
                 m.bwd_launch("narrow_f32", *args, blocks=blocks), getattr(m, f"{name}_reference")(*args),
                 BWD_TOL[torch.float32], False))
+        # the narrow forwards with their plan's overrides: short splits, and
+        # the kind of plan the entry does not take at the width
+        for cell, (T, B, H), kw in NARROW_FWD_FORCED:
+            gru = cell == "gru"
+            m, name = (g, "bigru_fwd") if gru else (l, "bilstm_fwd")
+            args = (_gru_gates if gru else _gates)(T, B, H, torch.float32, dev, seed=T + B)
+            p = l.narrow_f32_fwd_plan(name[:-4], B, H, kw.get("blocks", 0), kw.get("rows", 0),
+                                      kw["resident"])
+            if "blocks" in kw and not (p.U - 1) * p.Hb < H < p.U * p.Hb:
+                raise AssertionError(f"{name} narrow_f32 at H={H} over {kw['blocks']} blocks: "
+                                     f"{p} leaves no short last block")
+            cells = {} if gru else {"with_cells": True}
+            want = g.bigru_fwd_reference(*args) if gru else l.bilstm_fwd_reference(*args, **cells)
+            held(f"{name}_narrow_f32", _compare(
+                f"[{name} narrow_f32, launched, {p.U} blocks of {p.Hb} units, R {p.R}, W_h in "
+                f"{'registers' if p.resident else 'shared memory'}] T={T} B={B} H={H} f32",
+                m.fwd_launch("narrow_f32", *args, **cells, **kw), want, KERNEL_TOL[torch.float32],
+                False))
 
     # the autograd pairs: forward kernel + BPTT kernel against the twins
     T, B, H = AUTOGRAD_SHAPE
@@ -3363,40 +3410,56 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
 
 
 def _narrow_plans(dev) -> dict:
-    """Phase 15a: the f32 narrow cluster BPTTs' launch plans at the widths
-    and rows of phases 3, 15 and the route table, against
-    ``ops/narrow_f32_layout.py::plan`` replayed at the card's clusters of each
-    split (the launchers' plan with that split forced); printed with the
-    blocks, units, rows, waves and bytes; then ``ptxas``'s registers and
-    spills of every instantiation. Returns the card's clusters by cell and
-    U."""
+    """Phase 15a: the f32 narrow cluster kernels' launch plans at the widths
+    and rows of phases 3, 15 and the route tables, against
+    ``ops/narrow_f32_layout.py::plan`` (the BPTTs) and ``::fwd_plan`` (the
+    forwards, whose W_h may stay in registers) replayed at the card's
+    clusters of each split (the launchers' plan with that split forced);
+    printed with the blocks, units, rows, waves and bytes; then ``ptxas``'s
+    registers and spills of every instantiation (a forward's spill fails).
+    Returns the card's clusters by cell and U, and the forwards' by cell."""
     from percivaltts_tpu_torch.ops import lstm_cuda
     from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
 
-    shapes = {(B, H) for _, B, H in BWD_SHAPES + F32_SIMT_TIMED}
+    shapes = {(B, H) for _, B, H in BWD_SHAPES + F32_SIMT_TIMED + KERNEL_SHAPES}
     shapes |= {(B, 128) for B in F32_NARROW_BATCHES}
-    clusters = {}
+    shapes |= {(B, H) for _, (_, B, H), _ in NARROW_FWD_FORCED}
+    clusters, fwd_clusters = {}, {}
     for cell, gates, name in (("lstm", 4, "bilstm"), ("gru", 3, "bigru")):
-        card = clusters.setdefault(cell, {})
-        for B, H in sorted(shapes | {(B, nf.MAX_H[gates]) for B in (1, 32, 160)}):
+        card, fcard = clusters.setdefault(cell, {}), fwd_clusters.setdefault(cell, {})
+        widths = shapes | {(B, nf.MAX_H[gates]) for B in (1, 32, 160)}
+        widths |= {(B, H) for H in F32_NARROW_WIDTHS[cell] for B in F32_NARROW_BATCHES}
+        for B, H in sorted(widths):
             Hp = nf.padded(H)
             for s, R, _ in nf.candidates(Hp, gates):
                 if s.U not in card:
                     card[s.U] = lstm_cuda.narrow_f32_plan(name, 1, Hp, s.U, R).clusters
-            p = lstm_cuda.narrow_f32_plan(name, B, Hp)
-            want = nf.plan(B, Hp, gates, card)
-            if p != want:
-                raise AssertionError(f"the {name} narrow_f32 plan at B={B} H={Hp}: {p}, the "
-                                     f"layout's {want}")
-            print(f"[narrow plan] {name} bwd narrow_f32 B={B} H={H} (run at {Hp}) f32: {p.U} "
-                  f"blocks of {p.Hb} units ({p.NC} gate columns, {p.NCP} with padding), "
-                  f"{nf.THREADS} threads, {p.R} rows a cluster, {p.clusters} clusters at once "
-                  f"({p.waves} waves), {p.smem} B shared memory")
-        print(f"[narrow plan] {name}: clusters the card holds at once by blocks a cluster {card}")
+            for s, R, _ in nf.candidates(Hp, gates, fwd=True):
+                if s.U not in fcard:
+                    fcard[s.U] = lstm_cuda.narrow_f32_fwd_plan(name, 1, Hp, s.U, R, 0).clusters
+            if nf.reg_fits(Hp, gates) and "resident" not in fcard:
+                fcard["resident"] = lstm_cuda.narrow_f32_fwd_plan(name, 1, Hp, 1, 1, 1).clusters
+            for kind, got, want in (
+                    ("bwd", lstm_cuda.narrow_f32_plan(name, B, Hp), nf.plan(B, Hp, gates, card)),
+                    ("fwd", lstm_cuda.narrow_f32_fwd_plan(name, B, Hp),
+                     nf.fwd_plan(B, Hp, gates, fcard))):
+                if got != want:
+                    raise AssertionError(f"the {name} {kind} narrow_f32 plan at B={B} H={Hp}: "
+                                         f"{got}, the layout's {want}")
+                where = ("W_h in registers, " if kind == "fwd" and got.resident else
+                         f"{got.U} blocks of {got.Hb} units ({got.NC} gate columns, {got.NCP} "
+                         "with padding), ")
+                print(f"[narrow plan] {name} {kind} narrow_f32 B={B} H={H} (run at {Hp}) f32: "
+                      f"{where}{got.R} rows a cluster, {got.clusters} clusters at once "
+                      f"({got.waves} waves), {got.smem} B shared memory")
+        print(f"[narrow plan] {name}: clusters the card holds at once by blocks a cluster, BPTT "
+              f"{card}, forward {fcard}")
     for line in _ptxas_usage(BUILD_LOG):
-        if "_bwd_narrow_f32" in line:
+        if "_narrow_f32" in line:
             print(f"[narrow ptxas] {line}")
-    return clusters
+            if "_fwd_narrow_f32" in line and not line.split("spill ")[1].startswith("0/0 "):
+                raise AssertionError(f"a narrow forward instantiation spills: {line}")
+    return {"bwd": clusters, "fwd": fwd_clusters}
 
 
 def _route_times(m, fargs, bargs) -> dict:
@@ -3789,7 +3852,9 @@ def _in_turns(calls: dict, order) -> dict:
     return {who: statistics.mean(t) for who, t in times.items()}
 
 
-# the f32 BPTT each f32 cluster route replaced at its widths
+# the f32 kernel each f32 cluster route replaced at its widths: the BPTT's
+# "wide_f32" the "wide" one, "narrow_f32" the one-block kernels ("simt"),
+# forward and BPTT
 EARLIER_F32 = {"wide_f32": "wide", "narrow_f32": "simt"}
 
 
@@ -3802,14 +3867,14 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
     of 5 calls, the twin's one call, ``_in_turns``), the BPTT on its route
     (``bwd_route``: ``"wide_f32"``) in turns with the CUDA-core cluster BPTT
     it replaced and the twin (earlier, routed, twin, twin, routed, earlier);
-    with ``route="simt"`` (phase 15d, ``python3 chip_smoke.py --f32-times``)
-    the one-block forwards, and the BPTT on ``"narrow_f32"`` in turns with
-    the one-block BPTT it replaced. ``what``: the kernels timed (``"fwd"``,
-    ``"bwd"``). Each row beside the
+    with ``route="narrow_f32"`` (phase 15d, ``python3 chip_smoke.py
+    --f32-times``) the forward and the BPTT on ``"narrow_f32"``, each in
+    turns with the one-block kernel it replaced (``"simt"``). ``what``: the
+    kernels timed (``"fwd"``, ``"bwd"``). Each row beside the
     bound at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
     in f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
     (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls), a
-    ``"wide_f32"`` BPTT also by its own device time. A port layer's device
+    kernel timed beside an earlier one also by its own device time. A port layer's device
     time under half its kernel's time is a trace that lost the kernel's
     events (the cluster kernels' now and then; the kernel is nearly all of
     its layer): it is printed as such and kept as None, not measured."""
@@ -3838,14 +3903,15 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
             kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
             calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args)}
             turns = ("kernel", "twin", "twin", "kernel")
-            earlier = None if fwd else EARLIER_F32.get(taken)
-            if earlier:  # the route's BPTT in turns with the one it replaced
-                calls["earlier"] = lambda: m.bwd_launch(earlier, *args)
+            earlier = EARLIER_F32.get(taken)
+            if earlier:  # the route's kernel in turns with the one it replaced
+                launch = m.fwd_launch if fwd else m.bwd_launch
+                calls["earlier"] = lambda: launch(earlier, *args)
                 turns = ("earlier", "kernel", "twin", "twin", "kernel", "earlier")
             with torch.no_grad():
                 times = _in_turns(calls, turns)
                 kernel_device_ms = None if not earlier else _device_ms(
-                    lambda: kern(*args), calls=3, match=f"{name}_{taken}_kernel")
+                    lambda: kern(*args), calls=3, match=f"{name}_{taken}")
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(dev)
@@ -3865,7 +3931,7 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
             if "earlier" in times:
                 row["earlier_ms"] = times["earlier"]
                 row["kernel_device_ms"] = kernel_device_ms
-                beside = (f"; the earlier BPTT ({earlier}) on the same inputs "
+                beside = (f"; the earlier kernel ({earlier}) on the same inputs "
                           f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a "
                           f"step), {row['earlier_ms'] / ms:.2f}x; {kernel_device_ms} device ms")
             rows.append(row)
@@ -3931,37 +3997,46 @@ def _f32_route_times(dev, cell: str = "lstm") -> list:
     return rows
 
 
-def _f32_narrow_route_times(dev, cell: str = "lstm") -> list:
-    """Where the f32 BPTT takes ``"narrow_f32"``: it and the one-block
-    kernel it replaced, ``bwd_launch("simt", …)``, on the same inputs in
-    turns (simt, narrow_f32, narrow_f32, simt; medians of 5 calls,
-    ``_in_turns``) at T = 512, each B of ``F32_NARROW_BATCHES`` and each H of
-    ``F32_NARROW_WIDTHS``, beside the narrow plan (blocks, rows, waves) and
-    the route ``bwd_route`` takes there (``python3 chip_smoke.py
+def _f32_narrow_route_times(dev, cell: str = "lstm", what: str = "bwd") -> list:
+    """Where the f32 BPTT (``what="bwd"``) or forward (``"fwd"``) takes
+    ``"narrow_f32"``: it and the one-block kernel it replaced,
+    ``{bwd,fwd}_launch("simt", …)``, on the same inputs in turns (simt,
+    narrow_f32, narrow_f32, simt; medians of 5 calls, ``_in_turns``) at
+    T = 512, each B of ``F32_NARROW_BATCHES`` and each H of
+    ``F32_NARROW_WIDTHS``, beside the narrow plan (blocks, rows, waves; the
+    forward's W_h in registers or shared memory) and the route
+    ``bwd_route`` / ``fwd_route`` takes there (``python3 chip_smoke.py
     --f32-times``)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
-    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
-    gru = cell == "gru"
+    gru, fwd = cell == "gru", what == "fwd"
     m, name = (gru_cuda, "bigru") if gru else (lstm_cuda, "bilstm")
+    launch = m.fwd_launch if fwd else m.bwd_launch
     rows = []
     for H in F32_NARROW_WIDTHS[cell]:
         for B in F32_NARROW_BATCHES:
             T = 512
-            p = lstm_cuda.narrow_f32_plan(name, B, nf.padded(H))
-            args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, dev, seed=1)
+            if fwd:
+                p = lstm_cuda.narrow_f32_fwd_plan(name, B, nf.padded(H))
+                args = (_gru_gates if gru else _gates)(T, B, H, torch.float32, dev, seed=1)
+                route = fwd_route(torch.float32, H, cell)
+                kind = ", W_h in registers" if p.resident else ""
+            else:
+                p = lstm_cuda.narrow_f32_plan(name, B, nf.padded(H))
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, dev, seed=1)
+                route, kind = bwd_route(torch.float32, H, cell, B), ""
             with torch.no_grad():
-                t = _in_turns({r: (lambda r=r: m.bwd_launch(r, *args))
-                               for r in ("simt", "narrow_f32")},
+                t = _in_turns({r: (lambda r=r: launch(r, *args)) for r in ("simt", "narrow_f32")},
                               ("simt", "narrow_f32", "narrow_f32", "simt"))
-            route = bwd_route(torch.float32, H, cell, B)
-            rows.append({"cell": cell, "shape": [T, B, H], "route": route, "ms": t,
+            rows.append({"cell": cell, "what": what, "shape": [T, B, H], "route": route, "ms": t,
                          "plan": p._asdict()})
-            print(f"[f32 route] {cell} bwd T,B,H={(T, B, H)}: simt {t['simt']:.4f} ms, narrow_f32 "
-                  f"{t['narrow_f32']:.4f} ms ({t['narrow_f32'] / T * 1e3:.3f} us a step; {p.U} "
-                  f"blocks, R {p.R}, {p.waves} waves), {t['simt'] / t['narrow_f32']:.2f}x (means "
-                  f"of 2 medians, in turns); bwd_route takes {route!r}"
+            print(f"[f32 route] {cell} {what} T,B,H={(T, B, H)}: simt {t['simt']:.4f} ms, "
+                  f"narrow_f32 {t['narrow_f32']:.4f} ms ({t['narrow_f32'] / T * 1e3:.3f} us a "
+                  f"step; {p.U} blocks, R {p.R}, {p.waves} waves{kind}), "
+                  f"{t['simt'] / t['narrow_f32']:.2f}x (means of 2 medians, in turns); "
+                  f"{what}_route takes {route!r}"
                   + ("" if t[route] <= min(t.values()) else " (the slower one)"))
     return rows
 
@@ -3969,17 +4044,19 @@ def _f32_narrow_route_times(dev, cell: str = "lstm") -> list:
 def _f32_times(dev) -> int:
     """``python3 chip_smoke.py --f32-times``: after the build, the f32
     kernels of the default width at ``F32_SIMT_TIMED`` (``_time_wide_f32``
-    with ``route="simt"``: the one-block forwards, the ``"narrow_f32"`` BPTTs
-    in turns with the one-block ones), the ``"narrow_f32"`` route table
-    (``_f32_narrow_route_times``), the BPTT rows ``F32_WIDE_BWD`` keeps on
-    ``"wide"`` at ``F32_WIDE_KEPT`` beside cuDNN's layer, and the
-    ``"wide_f32"`` route table (``_f32_route_times``), for both cells."""
+    with ``route="narrow_f32"``: the ``"narrow_f32"`` forwards and BPTTs in
+    turns with the one-block ones), the ``"narrow_f32"`` route tables of the
+    forward and the BPTT (``_f32_narrow_route_times``), the BPTT rows
+    ``F32_WIDE_BWD`` keeps on ``"wide"`` at ``F32_WIDE_KEPT`` beside cuDNN's
+    layer, and the ``"wide_f32"`` route table (``_f32_route_times``), for
+    both cells."""
     from percivaltts_tpu_torch.ops.mma_layout import fwd_route
 
     for cell in ("lstm", "gru"):
-        _time_wide_f32(dev, cell, F32_SIMT_TIMED, route="simt")
+        _time_wide_f32(dev, cell, F32_SIMT_TIMED, route="narrow_f32")
     for cell in ("lstm", "gru"):
-        _f32_narrow_route_times(dev, cell)
+        for what in ("fwd", "bwd"):
+            _f32_narrow_route_times(dev, cell, what)
     for cell in ("lstm", "gru"):
         for shape in F32_WIDE_KEPT:
             _time_wide_f32(dev, cell, [shape], route=fwd_route(torch.float32, shape[2], cell),
@@ -3994,12 +4071,12 @@ def _model_route(kind: str, what: str) -> str:
     (``what="fwd"``) or the BPTT (``"bwd"``): at blstm_size=1024 the
     tensor-core cluster kernels (``"wide_mma"``) in bf16, and in f32 the
     CUDA-core forward (``"wide"``) and the f32 cluster BPTT (``"wide_f32"``);
-    at the default width in f32 (``NARROW_MODELS``) the one-block forward
-    (``"simt"``) and the f32 narrow cluster BPTT (``"narrow_f32"``)."""
+    at the default width in f32 (``NARROW_MODELS``) the f32 narrow kernels
+    (``"narrow_f32"``) for both."""
     if not _is_f32(kind):
         return "wide_mma"
     if kind in NARROW_MODELS:
-        return "simt" if what == "fwd" else "narrow_f32"
+        return "narrow_f32"
     return "wide" if what == "fwd" else "wide_f32"
 
 
@@ -4210,14 +4287,14 @@ def main(argv=None) -> int:
     wide_gru_runs = _cluster_models_path(dev, smi, WIDE_GRU_MODELS)
     wide_f32_timed.update(_time_wide_f32(dev, "gru"))
     t_phase15 = time.perf_counter()
-    # 15. f32 at the default width: the narrow cluster BPTTs' plans; config 3
-    # and the BGRU in f32 served and trained through them (forwards on the
-    # one-block kernels); those kernels timed beside the ones they replaced
+    # 15. f32 at the default width: the narrow kernels' plans; config 3 and
+    # the BGRU in f32 served and trained through them (forwards and BPTTs);
+    # those kernels timed beside the ones they replaced
     _narrow_plans(dev)
     narrow_runs = _cluster_models_path(dev, smi, NARROW_MODELS)
     narrow_timed = {}
     for cell in ("lstm", "gru"):
-        narrow_timed.update(_time_wide_f32(dev, cell, F32_SIMT_TIMED, route="simt"))
+        narrow_timed.update(_time_wide_f32(dev, cell, F32_SIMT_TIMED, route="narrow_f32"))
     for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
@@ -4382,15 +4459,18 @@ def main(argv=None) -> int:
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s f32 paths, or also elsewhere")
-    # phase 15's f32 paths at the default width: the one-block forwards
-    # ("simt") and the narrow cluster BPTTs ("narrow_f32"); the one-block
-    # BPTTs they replaced there (timed beside them) stay listed, with their
-    # launches on the paths (none)
+    # phase 15's f32 paths at the default width: the narrow forwards and
+    # BPTTs ("narrow_f32"); the one-block kernels they replaced there (timed
+    # beside them) stay listed, with their launches on the paths (none)
     for name, route, src, replaces in (
+        ("bilstm_fwd", "narrow_f32", "bilstm_fwd_narrow_f32.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:202"),
         ("bilstm_fwd", "simt", "bilstm_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
         ("bilstm_bwd", "narrow_f32", "bilstm_bwd_narrow_f32.cu",
          "percivaltts_tpu/ops/lstm_pallas.py:321"),
         ("bilstm_bwd", "simt", "bilstm_bwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bigru_fwd", "narrow_f32", "bigru_fwd_narrow_f32.cu",
+         "percivaltts_tpu/ops/lstm_pallas.py:521"),
         ("bigru_fwd", "simt", "bigru_fwd.cu", "percivaltts_tpu/ops/lstm_pallas.py:521"),
         ("bigru_bwd", "narrow_f32", "bigru_bwd_narrow_f32.cu",
          "percivaltts_tpu/ops/lstm_pallas.py:616"),
@@ -4398,7 +4478,7 @@ def main(argv=None) -> int:
     ):
         gru = name.startswith("bigru")
         first = narrow_timed[name][0]
-        replaced = name.endswith("bwd") and route == "simt"  # timed as the earlier kernel
+        replaced = route == "simt"  # timed as the earlier kernel
         by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
                    for kind, run in narrow_runs.items() for what in ("serve", "train")}
         err_key = f"{name}_{route}" + ("_f32" if route == "simt" else "")

@@ -9,6 +9,12 @@
 // (the chained product's operands) and x, what it stores beside them (the
 // GRU's dn_pre); store(), which writes them to dgx (and dnr); and step(),
 // both, the store when ok.
+//
+// The f32 forwards' cells (narrow_f32_fwd.cuh: bilstm_fwd_narrow_f32.cu,
+// bigru_fwd_narrow_f32.cu) take the same shape: an Op holds a (row, unit)
+// pair's input gates, loaded a step ahead, and its f32 carry (the LSTM's c,
+// the GRU's h, beside its b_hn); step() turns the gate sums z = h · W_h into
+// the pair's new h; store() writes y (and the LSTM's c when asked).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -137,6 +143,74 @@ struct F32GruCell {
     float x;
     grads(o, gh, carry, d, x, ok);
     if (ok) store(d, 1, x, t, row, unit);
+  }
+};
+
+// The LSTM forward's gate phase (bilstm_fwd.cu's math): z = gx + h·W_h,
+// c = f·c + i·g, h = o·tanh(c), both carried in f32.
+struct F32LstmFwdCell {
+  static constexpr int kGates = 4;
+  const float* gx;
+  float* y;
+  float* cs;  // null: the cells are not wanted
+  int B, H;
+
+  struct Op {
+    float gx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float c = 0.0f;
+  };
+
+  __device__ __forceinline__ void init(Op&, int) const {}
+  __device__ __forceinline__ void load(Op& o, int t, int row, int unit, bool ok) const {
+    const size_t base = ((size_t)t * B + row) * 4 * H + unit;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) o.gx[g] = ok ? gx[base + g * H] : 0.0f;
+  }
+  __device__ __forceinline__ float step(Op& o, const float (&z)[4]) const {
+    const float ig = sigmoid_f32(o.gx[0] + z[0]);
+    const float fg = sigmoid_f32(o.gx[1] + z[1]);
+    const float gg = tanhf(o.gx[2] + z[2]);
+    const float og = sigmoid_f32(o.gx[3] + z[3]);
+    o.c = fg * o.c + ig * gg;
+    return og * tanhf(o.c);
+  }
+  __device__ __forceinline__ void store(const Op& o, int t, int row, int unit, float h) const {
+    const size_t off = ((size_t)t * B + row) * H + unit;
+    y[off] = h;
+    if (cs != nullptr) cs[off] = o.c;
+  }
+};
+
+// The GRU forward's gate phase (bigru_fwd.cu's math): r = σ(gx_r + gh_r),
+// z = σ(gx_z + gh_z), n = tanh(gx_n + r·(gh_n + b_hn)), h = (1 − z)·n + z·h,
+// h carried in f32.
+struct F32GruFwdCell {
+  static constexpr int kGates = 3;
+  const float* gx;
+  const float* bn;
+  float* y;
+  int B, H;
+
+  struct Op {
+    float gx[3] = {0.0f, 0.0f, 0.0f};
+    float h = 0.0f, bias = 0.0f;
+  };
+
+  __device__ __forceinline__ void init(Op& o, int unit) const { o.bias = bn[unit]; }
+  __device__ __forceinline__ void load(Op& o, int t, int row, int unit, bool ok) const {
+    const size_t base = ((size_t)t * B + row) * 3 * H + unit;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) o.gx[g] = ok ? gx[base + g * H] : 0.0f;
+  }
+  __device__ __forceinline__ float step(Op& o, const float (&gh)[3]) const {
+    const float rg = sigmoid_f32(o.gx[0] + gh[0]);
+    const float zg = sigmoid_f32(o.gx[1] + gh[1]);
+    const float ng = tanhf(o.gx[2] + rg * (gh[2] + o.bias));
+    o.h = (1.0f - zg) * ng + zg * o.h;
+    return o.h;
+  }
+  __device__ __forceinline__ void store(const Op&, int t, int row, int unit, float h) const {
+    y[((size_t)t * B + row) * H + unit] = h;
   }
 };
 

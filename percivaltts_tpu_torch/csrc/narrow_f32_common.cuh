@@ -2,7 +2,9 @@
 // ops/narrow_f32_layout.py), shared by bilstm_bwd_narrow_f32.cu and
 // bigru_bwd_narrow_f32.cu: its launch plan, its shared-memory layout, and the
 // kernel body, which the two cells specialise with their gate phase
-// (f32_cells.cuh).
+// (f32_cells.cuh). The forwards of the route (narrow_f32_fwd.cuh) take its
+// split, its plan (with fwd set: their own shared memory and step estimate)
+// and its product (nf_product).
 //
 // One thread-block cluster of U <= 16 blocks a direction and tile of R batch
 // rows; block b owns units b·Hb … (Hb a multiple of 8; the last block may
@@ -75,6 +77,7 @@ struct NarrowF32Plan {
   int clusters;        // clusters of U blocks the card holds at once
   int waves;           // ceil(2·ceil(B / R) / clusters)
   int smem;            // dynamic shared memory a block, bytes
+  int resident = 0;    // the forward's: 1 when W_h stays in registers (narrow_f32_fwd.cuh)
 };
 
 // Row strides (words) of the W_h slice and of the z and dz rows: NCP + 4.
@@ -98,9 +101,27 @@ __host__ __device__ inline size_t nf_smem(int H, int U, int Hb, int NCP, int R, 
                           2 * (size_t)R * nf_ws(NCP) + (2 * (size_t)U + extra) * R * Hb);
 }
 
+// The forward's (narrow_f32_fwd.cuh): W_h slice [H][NCP + 4] | h rows
+// [2][R][H] | z [R][NCP + 4], all f32.
+__host__ __device__ inline size_t nf_fwd_smem(int H, int NCP, int R) {
+  return sizeof(float) * ((size_t)H * nf_ws(NCP) + 2 * (size_t)R * H + (size_t)R * nf_ws(NCP));
+}
+
 inline long long nf_cost(int H, int U, int NCP, int R, int waves) {
   const long long w = (long long)H * NCP;
   return waves * (kNfStep + kNfPerBlock * U + w * ((R + 3) / 4) / 16 + R * w / 64);
+}
+
+// The forward's estimate of a step, in cycles (fitted to steps timed on the
+// H100 over every split and R at H = 64, 96, 128 and 256 / 320; PERF.md):
+// kNfFwdStep for the gate phase and the loop, kNfFwdCluster for the cluster
+// barrier and the h writes into other blocks (none at U = 1), and
+// R·H·NCP / 65 for the product (the W_h reads cost no more beside it)
+constexpr long long kNfFwdStep = 1756;
+constexpr long long kNfFwdCluster = 764;
+
+inline long long nf_fwd_cost(int H, int U, int NCP, int R, int waves) {
+  return waves * (kNfFwdStep + (U > 1 ? kNfFwdCluster : 0) + (long long)R * H * NCP / 65);
 }
 
 inline cudaLaunchConfig_t nf_config(int U, int R, int smem, int B, cudaLaunchAttribute* attr) {
@@ -112,12 +133,12 @@ inline cudaLaunchConfig_t nf_config(int U, int R, int smem, int B, cudaLaunchAtt
 // One candidate (U from `blocks`, R): whether it fits, with its clusters and
 // waves. kernel_for(R) → the kernel's address.
 template <class KernelFor>
-cudaError_t nf_candidate(int B, int H, int gates, int blocks, int R, int optin,
+cudaError_t nf_candidate(int B, int H, int gates, int blocks, int R, int optin, bool fwd,
                          KernelFor kernel_for, NarrowF32Plan* p, bool* fits) {
   *fits = false;
   int U, Hb, NC, NCP;
   nf_split(H, blocks, gates, &U, &Hb, &NC, &NCP);
-  const size_t smem = nf_smem(H, U, Hb, NCP, R, gates == 3);
+  const size_t smem = fwd ? nf_fwd_smem(H, NCP, R) : nf_smem(H, U, Hb, NCP, R, gates == 3);
   if (U > kWideMaxCluster || Hb > kNfMaxHb || R * Hb > kNfMaxPairs * kNfThreads ||
       smem > (size_t)optin)
     return cudaSuccess;
@@ -141,13 +162,14 @@ cudaError_t nf_candidate(int B, int H, int gates, int blocks, int R, int optin,
 
 // The plan of B rows at width H (a multiple of 8): every split of kNfBlocks
 // (each distinct Hb once) and R of kNfRows that fits, the least nf_cost
-// (waves × the estimated step), the first such in that order on a tie.
-// blocks > 0 splits over at most that many blocks instead (a launch passes
-// its plan's U; a measurement may force a split), rows > 0 takes only those
-// rows; cudaErrorInvalidConfiguration when nothing fits.
+// (waves × the estimated step; the forward's, fwd: nf_fwd_cost on its own
+// shared memory), the first such in that order on a tie. blocks > 0 splits
+// over at most that many blocks instead (a launch passes its plan's U; a
+// measurement may force a split), rows > 0 takes only those rows;
+// cudaErrorInvalidConfiguration when nothing fits.
 template <class KernelFor>
 cudaError_t narrow_f32_plan(int B, int H, int gates, int blocks, int rows, KernelFor kernel_for,
-                            NarrowF32Plan* plan) {
+                            NarrowF32Plan* plan, bool fwd = false) {
   if (B < 1 || H < kNfK || H % kNfK || blocks < 0 || rows < 0) return cudaErrorInvalidValue;
   int optin = 0;
   cudaError_t err = smem_optin_bytes(&optin);
@@ -166,10 +188,11 @@ cudaError_t narrow_f32_plan(int B, int H, int gates, int blocks, int rows, Kerne
       if (rows && R != rows) continue;
       NarrowF32Plan p{};
       bool fits = false;
-      err = nf_candidate(B, H, gates, b, R, optin, kernel_for, &p, &fits);
+      err = nf_candidate(B, H, gates, b, R, optin, fwd, kernel_for, &p, &fits);
       if (err != cudaSuccess) return err;
       if (!fits) continue;
-      const long long cost = nf_cost(H, p.U, p.NCP, R, p.waves);
+      const long long cost = fwd ? nf_fwd_cost(H, p.U, p.NCP, R, p.waves)
+                                 : nf_cost(H, p.U, p.NCP, R, p.waves);
       if (best_cost < 0 || cost < best_cost) best = p, best_cost = cost;
     }
   }
@@ -249,6 +272,46 @@ __device__ __forceinline__ void reduce_scatter4(const float (&a)[4 * RT], bool b
   }
 }
 
+// z[r][c] = Σ_k h[r][k] · W[k][c] for the R rows of hb ([R][H]) and the
+// block's NCP columns of s_w ([H][NCP + 4]), into s_z ([R][NCP + 4]), on
+// CUDA cores in f32: warp item (32 gate columns, row tile of RT = min(R, 4)
+// rows), items dealt to warp `first`, first + kNfWarps, …; a lane holds 4
+// columns × RT rows over the k with (k % 16) / 4 == its k lane (lane >> 3),
+// summed ((s0 + s1) + (s2 + s3)) by a reduce-scatter
+// (ops/narrow_f32_layout.py::replay_recompute). A quarter-warp reads one row
+// of W (8 float4s) and a broadcast float4 of h: no bank conflicts.
+template <int R>
+__device__ __forceinline__ void nf_product(const float* s_w, const float* hb, float* s_z, int H,
+                                           int NCP, int first) {
+  constexpr int RT = R < 4 ? R : 4, NRT = R / RT;
+  const int WS = nf_ws(NCP), lane = threadIdx.x & 31, j = lane >> 3;
+  const int n_cg = NCP / 32;
+  for (int wi = first; wi < n_cg * NRT; wi += kNfWarps) {
+    const int rt = wi / n_cg, c0 = 32 * (wi - rt * n_cg) + 4 * (lane & 7);
+    const float* wcol = s_w + c0;
+    const float* hrow = hb + rt * RT * H;
+    float za[RT * 4];  // [r][column]
+#pragma unroll
+    for (int v = 0; v < RT * 4; ++v) za[v] = 0.0f;
+    for (int x = 4 * j; x < H; x += 16) {  // this lane's k-quads
+      const float4 w0 = ld4(wcol + x * WS), w1 = ld4(wcol + (x + 1) * WS);
+      const float4 w2 = ld4(wcol + (x + 2) * WS), w3 = ld4(wcol + (x + 3) * WS);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float4 hv = ld4(hrow + r * H + x);
+        za[r * 4 + 0] = dot4(hv, make_float4(w0.x, w1.x, w2.x, w3.x), za[r * 4 + 0]);
+        za[r * 4 + 1] = dot4(hv, make_float4(w0.y, w1.y, w2.y, w3.y), za[r * 4 + 1]);
+        za[r * 4 + 2] = dot4(hv, make_float4(w0.z, w1.z, w2.z, w3.z), za[r * 4 + 2]);
+        za[r * 4 + 3] = dot4(hv, make_float4(w0.w, w1.w, w2.w, w3.w), za[r * 4 + 3]);
+      }
+    }
+    float out[RT];
+    reduce_scatter4<RT>(za, j & 1, j & 2, 8, 16, out);
+    const int v0 = (2 * (j & 1) + (j >> 1)) * RT;
+    store_run<RT>(s_z + (rt * RT + v0 / 4) * WS + c0 + v0 % 4, out);
+  }
+}
+
 // ---- the kernel body -------------------------------------------------------
 //
 // Step s visits frame t(s): T−1 … 0 for the forward direction, 0 … T−1 for the
@@ -324,35 +387,10 @@ __device__ __forceinline__ void narrow_f32_bptt(Cell& cell, const float* __restr
     }
   };
 
-  // (5) the recompute: warp item (32 gate columns, row tile), dealt from the
-  // last warp down, so that the warps with no dh item start it at once
-  const int n_cg = NCP / 32;
+  // (5) the recompute (nf_product), dealt from the last warp down, so that
+  // the warps with no dh item start it at once
   auto recompute = [&](const float* hb) {
-    const int j = lane >> 3;
-    for (int wi = kNfWarps - 1 - warp; wi < n_cg * NRT; wi += kNfWarps) {
-      const int rt = wi / n_cg, c0 = 32 * (wi - rt * n_cg) + 4 * (lane & 7);
-      const float* wcol = s_w + c0;
-      const float* hrow = hb + rt * RT * H;
-      float za[RT * 4];  // [r][column]
-#pragma unroll
-      for (int v = 0; v < RT * 4; ++v) za[v] = 0.0f;
-      for (int x = 4 * j; x < H; x += 16) {  // this lane's k-quads
-        const float4 w0 = ld4(wcol + x * WS), w1 = ld4(wcol + (x + 1) * WS);
-        const float4 w2 = ld4(wcol + (x + 2) * WS), w3 = ld4(wcol + (x + 3) * WS);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          const float4 hv = ld4(hrow + r * H + x);
-          za[r * 4 + 0] = dot4(hv, make_float4(w0.x, w1.x, w2.x, w3.x), za[r * 4 + 0]);
-          za[r * 4 + 1] = dot4(hv, make_float4(w0.y, w1.y, w2.y, w3.y), za[r * 4 + 1]);
-          za[r * 4 + 2] = dot4(hv, make_float4(w0.z, w1.z, w2.z, w3.z), za[r * 4 + 2]);
-          za[r * 4 + 3] = dot4(hv, make_float4(w0.w, w1.w, w2.w, w3.w), za[r * 4 + 3]);
-        }
-      }
-      float out[RT];
-      reduce_scatter4<RT>(za, j & 1, j & 2, 8, 16, out);
-      const int v0 = (2 * (j & 1) + (j >> 1)) * RT;
-      store_run<RT>(s_z + (rt * RT + v0 / 4) * WS + c0 + v0 % 4, out);
-    }
+    nf_product<R>(s_w, hb, s_z, H, NCP, kNfWarps - 1 - warp);
   };
 
   // (1) the gate phase: pair i of thread tid is q = tid + kNfThreads·i, unit

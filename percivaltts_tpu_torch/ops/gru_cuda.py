@@ -18,15 +18,17 @@ outputs ``y`` (so in the compute dtype), and rounds d(gates) and
 ``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 / ``bigru_bwd_reference``. There is no other fallback. On CUDA the forward
-has four routes, chosen before the launch from dtype and width
+has five routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
 launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``; bf16 past
 H = 128 up to 672 the tensor-core cluster kernel
 ``csrc/bigru_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``); f32 past
 H = 320 (which one block a direction cannot hold) and wider bf16 the
 CUDA-core cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``;
-H up to 4096); everything else ``csrc/bigru_fwd.cu``. The BPTT takes the
-same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
+H up to 4096); f32 up to H = 320 the f32 cluster kernel
+``csrc/bigru_fwd_narrow_f32.cu`` (``"narrow_f32"``,
+``ops/narrow_f32_layout.py``); everything else ``csrc/bigru_fwd.cu``. The
+BPTT takes the same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
 ``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
 ``csrc/bigru_bwd.cu``, except that f32 past H = 320 up to 512 takes its own
 cluster BPTT, ``csrc/bigru_bwd_wide_f32.cu`` (``"wide_f32"``,
@@ -35,9 +37,11 @@ one measured faster (``mma_layout.F32_WIDE_BWD``); f32 up to H = 320 another,
 ``csrc/bigru_bwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``), measured faster than ``csrc/bigru_bwd.cu``
 there. ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
-``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernel
+``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernels
 of 8: other widths are zero-padded to one (``ops/lstm_cuda.py::at_width``),
-which changes no real unit.
+which changes no real unit. The launchers refuse a route they do not take
+(``lstm_cuda.FWD_ROUTES``, ``BWD_ROUTES``) before they build or touch the
+card.
 ``bigru_core`` is the differentiable entry: it runs the forward kernel, and
 the BPTT kernel in the backward pass. The forward is also the registered operator
 ``percival::bigru_fwd``, which ``bigru_fwd`` calls while ``torch.export``
@@ -52,13 +56,17 @@ from torch.autograd.function import once_differentiable
 from percivaltts_tpu_torch.ops import narrow_f32_layout, wide_f32_layout, wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.lstm_cuda import (
     _DTYPE_CODES,
+    BWD_ROUTES,
+    FWD_ROUTES,
     _narrow_f32_check,
     _one_device,
     _wide_f32_check,
     _wide_mma_check,
     aligned16,
     at_width,
+    check_route,
     input_gates,
+    narrow_f32_fwd_plan,
     narrow_f32_plan,
     rows_per_block,
 )
@@ -181,26 +189,37 @@ def _launch_geometry(device, B: int, H: int, name: str, limit: int):
     return rows_per_block(B, n_sm), torch.cuda.current_stream(device).cuda_stream
 
 
-def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0):
-    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bigru_fwd` has
+def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
+               blocks: int = 0, resident: int = -1):
+    """Launch the forward kernel of ``route`` (one of
+    ``lstm_cuda.FWD_ROUTES``: ``"mma"``, ``"simt"``, ``"wide_mma"``,
+    ``"wide"`` or ``"narrow_f32"``; any other raises ``ValueError`` before
+    anything is built or launched) on CUDA inputs that :func:`bigru_fwd` has
     checked; counts nothing. ``bigru_fwd`` is the entry; ``chip_smoke.py``
     times one route's kernel beside another's through this. ``"wide_mma"``
     (bf16 only, H up to ``wide_mma_layout.max_h(3)``) runs H that is not a
     multiple of 32 zero-padded to one (``lstm_cuda.at_width``), at ``rows``
-    rows a cluster when given (0: the plan's choice); ``"wide"`` raises
-    ``ValueError`` past ``wide_layout.GRU_MAX_H``, ``"simt"`` past H = 341."""
+    rows a cluster when given (0: the plan's choice); ``"narrow_f32"`` (f32
+    only, H up to 320) H that is not a multiple of 8, with
+    ``lstm_cuda.fwd_launch``'s overrides ``blocks``, ``rows`` and
+    ``resident``; ``"wide"`` raises ``ValueError``
+    past ``wide_layout.GRU_MAX_H``, ``"simt"`` past H = 341."""
+    check_route(route, FWD_ROUTES, "bigru_fwd")
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 3
+    granule = {"wide_mma": wide_mma_layout.K_GRANULE,
+               "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 3)
-        if H % wide_mma_layout.K_GRANULE:
-            return at_width(lambda *a, **kw: fwd_launch(route, *a, **kw),
-                            wide_mma_layout.padded(H), 3, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b,
-                            rows=rows)
+    if route == "narrow_f32":
+        _narrow_f32_check(gx_f.dtype, H, 3, "forward")
+    if granule and H % granule:
+        return at_width(lambda *a, **kw: fwd_launch(route, *a, **kw),
+                        -(-H // granule) * granule, 3, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b,
+                        rows=rows, blocks=blocks, resident=resident)
     lib = _build.library()
     yf = torch.empty((T, B, H), dtype=gx_f.dtype, device=device)
     yb = torch.empty_like(yf)
@@ -223,16 +242,16 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0):
                 T, B, H, p.Hb, p.U, rows, stream,
             )
         elif route == "narrow_f32":
-            p = narrow_f32_plan("bigru", B, H, blocks, rows, device.index)
+            p = narrow_f32_fwd_plan("bigru", B, H, blocks, rows, resident, device.index)
             s = narrow_f32_layout.Split(*p[:4])
             stream = torch.cuda.current_stream(device).cuda_stream
-            # held in names until the launch (see lstm_cuda.fwd_launch)
-            ins = (gx_f, gx_b, narrow_f32_layout.pack_wh(wh_f, s),
-                   narrow_f32_layout.pack_wh(wh_b, s), bn_f, bn_b, aligned16(hp_f),
-                   aligned16(hp_b), dy_f, dy_b)
-            err = lib.percival_bigru_bwd_narrow_f32(
-                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-                T, B, H, p.Hb, p.U, p.R, stream,
+            # W_h in registers: W_h itself (one block's packing is the identity)
+            ins = (wh_f, wh_b) if p.resident else (
+                narrow_f32_layout.pack_wh(wh_f, s), narrow_f32_layout.pack_wh(wh_b, s))  # held
+            err = lib.percival_bigru_fwd_narrow_f32(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                bn_f.data_ptr(), bn_b.data_ptr(), yf.data_ptr(), yb.data_ptr(),
+                T, B, H, p.Hb, p.U, p.R, p.resident, stream,
             )
         elif route == "wide":
             p = wide_layout.plan(H, 3)
@@ -295,7 +314,7 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
     past 128 up to 672, the CUDA-core cluster one past H = 320 (bf16: 672),
-    else the one-block CUDA-core one
+    the f32 narrow one for f32 up to 320, else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, H past
@@ -312,14 +331,16 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
 
 bigru_fwd.launches = 0
-bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
+bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "narrow_f32": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,
                blocks: int = 0, rows: int = 0):
-    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or ``"simt"``) on CUDA
-    inputs that :func:`bigru_bwd` has checked; counts nothing. ``bigru_bwd``
+    """Launch the BPTT kernel of ``route`` (one of ``lstm_cuda.BWD_ROUTES``:
+    ``"mma"``, ``"wide_mma"``, ``"wide_f32"``, ``"narrow_f32"``, ``"wide"``
+    or ``"simt"``; any other raises ``ValueError`` before anything is built
+    or launched) on CUDA inputs that :func:`bigru_bwd` has checked; counts
+    nothing. ``bigru_bwd``
     is the entry; ``chip_smoke.py`` times one route's kernel beside
     another's through this. ``"simt"`` runs H that is not a multiple of 32
     zero-padded to one (``lstm_cuda.at_width``), up to H = 320;
@@ -329,6 +350,7 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     over at most ``blocks`` blocks a cluster and ``rows`` rows when given
     (``lstm_cuda.bwd_launch``'s overrides); ``"wide"`` raises ``ValueError``
     past ``wide_layout.GRU_MAX_H``."""
+    check_route(route, BWD_ROUTES, "bigru_bwd")
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device

@@ -11,15 +11,17 @@ rounded to it before it is stored and multiplied.
 ``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take
 ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There is no other
-fallback. On CUDA the forward has four routes, chosen before the launch
-from dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H a
-multiple of 16 up to 128 launches the tensor-core kernel
+fallback. On CUDA the forward has five routes, chosen before the launch
+from dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H
+a multiple of 16 up to 128 launches the tensor-core kernel
 ``csrc/bilstm_fwd_mma.cu``; bf16 past H = 128 up to 608 the tensor-core
 cluster kernel ``csrc/bilstm_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``);
 f32 past H = 256 (which one block a direction cannot hold) and wider bf16
 the CUDA-core cluster kernel ``csrc/bilstm_fwd_wide.cu``
-(``ops/wide_layout.py``; H up to 4096); everything else
-``csrc/bilstm_fwd.cu``. The BPTT takes the same route (``bwd_route``):
+(``ops/wide_layout.py``; H up to 4096); f32 up to H = 256 the f32 cluster
+kernel ``csrc/bilstm_fwd_narrow_f32.cu`` (``"narrow_f32"``,
+``ops/narrow_f32_layout.py``); everything else ``csrc/bilstm_fwd.cu``. The
+BPTT takes the same route (``bwd_route``):
 ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
 ``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``.
 f32 past H = 256 up to 512 takes its own cluster BPTT,
@@ -29,9 +31,12 @@ but for the few batch rows where the CUDA-core one measured faster
 ``csrc/bilstm_bwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``), measured faster than ``csrc/bilstm_bwd.cu``
 there.
-``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernel take H a multiple of
+``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernels take H a multiple of
 8, the ``"wide_mma"`` and ``"wide_f32"`` kernels of 32: other widths are
 zero-padded to one (:func:`at_width`), which changes no real unit.
+The launchers (:func:`fwd_launch`, :func:`bwd_launch`) refuse a route
+they do not take (``FWD_ROUTES``, ``BWD_ROUTES``) before they build or
+touch the card.
 ``bilstm_core`` is the differentiable entry: it runs the forward kernel,
 and the BPTT kernel in the backward pass. The forward is also the
 registered operator ``percival::bilstm_fwd``, which ``bilstm_fwd`` calls
@@ -51,6 +56,9 @@ from percivaltts_tpu_torch.ops import narrow_f32_layout, wide_f32_layout, wide_l
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the routes the launchers take (ops/mma_layout.py::fwd_route / bwd_route)
+FWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "narrow_f32")
+BWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
 # the CUDA-core BPTT's dz·W_hᵀ reduction runs on whole warps of its 4H
 # threads: H a multiple of 8, other widths zero-padded to one
@@ -251,12 +259,20 @@ def _wide_f32_check(dtype: torch.dtype, H: int, gates: int) -> None:
                          f"{wide_f32_layout.max_h(gates)}, got H={H}")
 
 
-def _narrow_f32_check(dtype: torch.dtype, H: int, gates: int) -> None:
-    """Raise unless the f32 narrow BPTTs take ``dtype`` and ``H``."""
+def check_route(route: str, routes: tuple, what: str) -> None:
+    """Raise ``ValueError`` naming ``routes`` unless ``route`` is one of them."""
+    if route not in routes:
+        raise ValueError(f"{what} takes the routes {', '.join(map(repr, routes))}, "
+                         f"not {route!r}")
+
+
+def _narrow_f32_check(dtype: torch.dtype, H: int, gates: int, what: str = "BPTT") -> None:
+    """Raise unless the f32 narrow kernels (``what``: ``"BPTT"`` or
+    ``"forward"``) take ``dtype`` and ``H``."""
     if dtype != torch.float32:
-        raise TypeError(f"the f32 narrow BPTT kernels take float32, got {dtype}")
+        raise TypeError(f"the f32 narrow {what} kernels take float32, got {dtype}")
     if not narrow_f32_layout.fits(H, gates):
-        raise ValueError(f"the f32 narrow {wide_layout.CELLS[gates]} BPTT kernels take "
+        raise ValueError(f"the f32 narrow {wide_layout.CELLS[gates]} {what} kernels take "
                          f"H <= {narrow_f32_layout.MAX_H[gates]}, got H={H}")
 
 
@@ -276,6 +292,22 @@ def narrow_f32_plan(kind: str, B: int, H: int, blocks: int = 0, rows: int = 0,
     return narrow_f32_layout.Plan(*out)
 
 
+@functools.lru_cache(maxsize=None)
+def narrow_f32_fwd_plan(kind: str, B: int, H: int, blocks: int = 0, rows: int = 0,
+                        resident: int = -1, device: int = 0) -> narrow_f32_layout.Plan:
+    """The forward's launch plan, ``percival_{kind}_fwd_narrow_f32_plan``, as
+    :func:`narrow_f32_plan`; ``resident``: 1 / 0 forces W_h in registers / in
+    shared memory (-1: the plan's choice)."""
+    from percivaltts_tpu_torch import _build
+
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        fn = getattr(_build.library(), f"percival_{kind}_fwd_narrow_f32_plan")
+        _build.check(fn(B, H, blocks, rows, resident, out),
+                     f"{kind} narrow f32 forward plan at B={B} H={H}")
+    return narrow_f32_layout.Plan(*out)
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
     tensor-core kernels stream their (T, B, ·) inputs with 16-byte
@@ -283,27 +315,39 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, rows: int = 0):
-    """Launch the forward kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide"`` or ``"simt"``) on CUDA inputs that :func:`bilstm_fwd` has
-    checked; counts nothing. ``bilstm_fwd`` is the entry; ``chip_smoke.py``
-    times one route's kernel beside another's through this. ``"wide_mma"``
-    (bf16 only, H up to ``wide_mma_layout.max_h(4)``, else ``ValueError``)
-    runs H that is not a multiple of 32 zero-padded to one (:func:`at_width`),
-    at ``rows`` rows a cluster when given (a measurement's override; 0: the
-    plan's choice, ``wide_mma_layout.fwd_rows``); ``"wide"`` raises
+def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, rows: int = 0,
+               blocks: int = 0, resident: int = -1):
+    """Launch the forward kernel of ``route`` (one of ``FWD_ROUTES``:
+    ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"`` or ``"narrow_f32"``;
+    any other raises ``ValueError`` before anything is built or launched)
+    on CUDA inputs that :func:`bilstm_fwd` has checked; counts nothing.
+    ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times one route's kernel
+    beside another's through this. ``"wide_mma"`` (bf16 only, H up to
+    ``wide_mma_layout.max_h(4)``, else ``ValueError``) runs H that is not a
+    multiple of 32 zero-padded to one (:func:`at_width`), at ``rows`` rows a
+    cluster when given (a measurement's override; 0: the plan's choice,
+    ``wide_mma_layout.fwd_rows``); ``"narrow_f32"`` (f32 only, H up to 256)
+    H that is not a multiple of 8, over at most ``blocks`` blocks a cluster,
+    at ``rows`` rows and with W_h in registers (``resident=1``) or shared
+    memory (0) when given (a measurement's overrides; 0 / -1: the plan's
+    choice, :func:`narrow_f32_fwd_plan`); ``"wide"`` raises
     ``ValueError`` past ``wide_layout.MAX_H``, ``"simt"`` past H = 256."""
+    check_route(route, FWD_ROUTES, "bilstm_fwd")
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 4
+    granule = {"wide_mma": wide_mma_layout.K_GRANULE,
+               "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 4)
-        if H % wide_mma_layout.K_GRANULE:
-            return at_width(lambda *a, **kw: fwd_launch(route, *a, **kw),
-                            wide_mma_layout.padded(H), 4, gx_f, gx_b, wh_f, wh_b,
-                            with_cells=with_cells, rows=rows)
+    if route == "narrow_f32":
+        _narrow_f32_check(gx_f.dtype, H, 4, "forward")
+    if granule and H % granule:
+        return at_width(lambda *a, **kw: fwd_launch(route, *a, **kw),
+                        -(-H // granule) * granule, 4, gx_f, gx_b, wh_f, wh_b,
+                        with_cells=with_cells, rows=rows, blocks=blocks, resident=resident)
     lib = _build.library()
     new = lambda: torch.empty((T, B, H), dtype=gx_f.dtype, device=device)  # noqa: E731
     yf, yb = new(), new()
@@ -327,6 +371,18 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
             err = lib.percival_bilstm_fwd_wide_mma(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
                 T, B, H, p.Hb, p.U, rows, stream,
+            )
+        elif route == "narrow_f32":
+            p = narrow_f32_fwd_plan("bilstm", B, H, blocks, rows, resident, device.index)
+            s = narrow_f32_layout.Split(*p[:4])
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # W_h in registers: W_h itself (one block's packing is the identity)
+            ins = (wh_f, wh_b) if p.resident else (
+                narrow_f32_layout.pack_wh(wh_f, s), narrow_f32_layout.pack_wh(wh_b, s))  # held
+            err = lib.percival_bilstm_fwd_narrow_f32(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                yf.data_ptr(), yb.data_ptr(), *cells, T, B, H, p.Hb, p.U, p.R, p.resident,
+                stream,
             )
         elif route == "wide":
             p = wide_layout.plan(H)
@@ -390,7 +446,7 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
     past 128 up to 608, the CUDA-core cluster one past H = 256 (bf16: 608),
-    else the one-block CUDA-core one
+    the f32 narrow one for f32 up to 256, else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, H past ``wide_layout.MAX_H``
@@ -407,14 +463,16 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
 
 bilstm_fwd.launches = 0
-bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0}
+bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "narrow_f32": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
                dy_f, dy_b, blocks: int = 0, rows: int = 0):
-    """Launch the BPTT kernel of ``route`` (``"mma"``, ``"wide_mma"``,
-    ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or ``"simt"``) on CUDA
-    inputs that :func:`bilstm_bwd` has checked; counts nothing.
+    """Launch the BPTT kernel of ``route`` (one of ``BWD_ROUTES``: ``"mma"``,
+    ``"wide_mma"``, ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or
+    ``"simt"``; any other raises ``ValueError`` before anything is built or
+    launched) on CUDA inputs that :func:`bilstm_bwd` has checked; counts
+    nothing.
     ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times one route's kernel
     beside another's through this. ``"simt"`` and ``"narrow_f32"`` (f32
     only, H up to 256, else ``ValueError``) run H that is not a multiple of
@@ -424,6 +482,7 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
     ``"narrow_f32"`` splits over at most ``blocks`` blocks a cluster and
     takes ``rows`` rows when given (a measurement's overrides; 0: the plan's
     choice, :func:`narrow_f32_plan`)."""
+    check_route(route, BWD_ROUTES, "bilstm_bwd")
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device

@@ -25,8 +25,8 @@ cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
 cores (``ops/wide_layout.py``); the f32 BPTT there takes its own cluster
 kernels up to H = 512 (``ops/wide_f32_layout.py``), and at the one-block
-widths cluster kernels too, which hold W_h on chip for all of a cluster's
-rows (``ops/narrow_f32_layout.py``).
+widths both f32 passes take cluster kernels too, which hold W_h on chip for
+all of a cluster's rows (``ops/narrow_f32_layout.py``).
 
 The tensor-core BPTT kernels (``csrc/bilstm_bwd_mma.cu``,
 ``csrc/bigru_bwd_mma.cu``, :func:`bwd_route`) give every warp 16 units, for
@@ -79,15 +79,20 @@ F32_WIDE_BWD = {"lstm": ((384, 8), (416, 6)), "gru": ((384, 8), (512, 6))}
 def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     """The forward kernel a CUDA call launches, chosen before the launch
     from its dtype, width and cell: ``"mma"`` (tensor cores) for bf16 with H
-    a multiple of 16 up to 128; past ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in
-    bf16) / ``GRU_SIMT_MAX_H`` (320 in f32, 128 in bf16) a cluster of blocks
-    a direction: ``"wide_mma"`` (``csrc/bilstm_fwd_wide_mma.cu`` /
-    ``csrc/bigru_fwd_wide_mma.cu``, tensor cores) for bf16 wherever a
-    block's ``W_hᵀ`` slice and tiles fit its shared memory
-    (``wide_mma_layout.fits``: H up to 608 for the LSTM, 672 for the GRU),
-    else ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` / ``csrc/bigru_fwd_wide.cu``,
-    CUDA cores: f32, and bf16 past those widths, whose slice leaves shared
-    memory for L2); else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
+    a multiple of 16 up to 128; past
+    ``LSTM_SIMT_MAX_H`` (256 in f32, 128 in bf16) / ``GRU_SIMT_MAX_H`` (320
+    in f32, 128 in bf16) a cluster of blocks a direction: ``"wide_mma"``
+    (``csrc/bilstm_fwd_wide_mma.cu`` / ``csrc/bigru_fwd_wide_mma.cu``,
+    tensor cores) for bf16 wherever a block's ``W_hᵀ`` slice and tiles fit
+    its shared memory (``wide_mma_layout.fits``: H up to 608 for the LSTM,
+    672 for the GRU), else ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` /
+    ``csrc/bigru_fwd_wide.cu``, CUDA cores: f32, and bf16 past those widths,
+    whose slice leaves shared memory for L2); up to those widths f32 takes
+    ``"narrow_f32"`` (``csrc/{bilstm,bigru}_fwd_narrow_f32.cu``, a cluster
+    a direction holding W_h on chip, ``narrow_f32_layout.fits``; the card
+    measured it faster than ``"simt"`` at every width and batch it timed:
+    H = 64–256 / 320, B = 1–160, ``python3 chip_smoke.py --f32-times``,
+    PERF.md); everything else ``"simt"`` (``csrc/bilstm_fwd.cu`` /
     ``csrc/bigru_fwd.cu``, one block a direction, one thread per gate
     column)."""
     if cell not in GATES:
@@ -96,6 +101,8 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
         return "mma"
     limits = SIMT_MAX_H[cell]
     if H <= limits.get(dtype, limits[torch.float32]):
+        if dtype == torch.float32 and narrow_f32_layout.fits(H, GATES[cell]):
+            return "narrow_f32"
         return "simt"
     if dtype == torch.bfloat16 and wide_mma_layout.fits(H, GATES[cell]):
         return "wide_mma"
@@ -118,12 +125,8 @@ def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     (``wide_f32_layout.fits``: H up to 512) and ``F32_WIDE_BWD`` does not
     keep ``"wide"`` for so few rows. Without ``B``, the route of a batch past
     ``F32_WIDE_BWD``'s."""
-    route = fwd_route(dtype, H, cell)
-    if dtype != torch.float32:
-        return route
-    if route == "simt" and narrow_f32_layout.fits(H, GATES[cell]):
-        return "narrow_f32"
-    if route != "wide" or not wide_f32_layout.fits(H, GATES[cell]):
+    route = fwd_route(dtype, H, cell)  # f32 "narrow_f32": the BPTT's route too
+    if dtype != torch.float32 or route != "wide" or not wide_f32_layout.fits(H, GATES[cell]):
         return route
     if B is not None and any(H <= h and B <= b for h, b in F32_WIDE_BWD[cell]):
         return "wide"

@@ -2,6 +2,8 @@
 
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown          # the mma kernels
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --wide   # the cluster kernels
+    python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --simt --f32 [--route=simt | narrow_f32]
+    python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --simt --f32 --grid
 
 Builds variants of ``csrc/bilstm_fwd_mma.cu`` and ``csrc/bigru_fwd_mma.cu``
 with one part of the step removed or replaced (macros and edits applied to a
@@ -37,6 +39,44 @@ beside the CUDA-core cluster forward it replaced (``*_fwd_wide.cu``,
   its other K parts idle (the same work as ``full`` where the plan has one
   part: the spread between the two there is the measurement's own).
 
+With ``--simt --f32`` the same for the one-block CUDA-core forwards in f32
+(``csrc/bilstm_fwd.cu``, ``csrc/bigru_fwd.cu``, route ``"simt"``) at
+(512, 8, 128) and (512, 32, 128) (``SIMT_SHAPES``), at the rows a block that
+``lstm_cuda.rows_per_block`` gives them:
+
+- ``full``;
+- ``no_product``: the step's ``h · W_h`` loop removed (at H = 128 the LSTM
+  reads its f32 W_h through L1/L2, the GRU from shared memory);
+- ``no_gates``: σ and tanh replaced by the identity;
+- ``no_sync``: the step's two ``__syncthreads`` removed;
+- ``loop_only``: neither gates nor product (the syncs kept);
+
+beside the CUDA-core cluster forward (``"wide"``, ``csrc/{bilstm,bigru}_fwd_wide.cu``,
+``full`` only) on the same inputs, a second baseline; and the cluster
+forwards that replaced them there (``csrc/{bilstm,bigru}_fwd_narrow_f32.cu``,
+route ``"narrow_f32"``, whose kernel body ``narrow_f32_fwd.cuh``, plan and
+product ``narrow_f32_common.cuh`` and gate phases ``f32_cells.cuh`` are
+inlined into each variant's source) at the plan the variant's library
+gives, printed:
+
+- ``full``, ``no_product``, ``no_gates`` as above;
+- ``no_dsmem``: h written into the block's own buffer only;
+- ``no_cluster_sync``: the step's split cluster barrier replaced by the
+  block's ``__syncthreads`` (one cluster barrier before the blocks exit);
+  neither applies to the kernel that holds W_h in registers (one block, no
+  cluster), where these two are ``full`` again;
+- ``no_prefetch``: the next step's input gates not loaded;
+- ``no_store``: y (and c) not written;
+- ``loop_only``: all of the above removed.
+
+``--route=simt`` / ``--route=narrow_f32`` times one route alone. With
+``--grid`` it times the ``"narrow_f32"`` forwards alone at every split and R
+their plan weighs (``narrow_f32_layout.candidates(..., fwd=True)``, and the
+resident kernel where ``reg_fits``), each at B = R (one cluster a
+direction) and H = 64, 96 (LSTM), 128 and 256 (LSTM) / 320 (GRU), beside the
+plan's step estimate (``fwd_step_cost``, ``reg_step_cost``), which these
+times fit.
+
 Times are medians of CUDA-event times over 20 launches (5 runs of 3 for the
 cluster kernels), without cells; the card's name and power limit are printed
 first.
@@ -45,6 +85,7 @@ first.
 from __future__ import annotations
 
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
@@ -185,7 +226,9 @@ def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict
     ptrs = [t.data_ptr() for t in (*ins["gx"], *wp)]
     ptrs += [t.data_ptr() for t in ins["bn"]] if kind == "bigru" else []
     ptrs += [t.data_ptr() for t in ins["y"]] + ([None, None] if kind == "bilstm" else [])
-    tail = [T, B, H, plan.Hb, plan.U, 0 if route == "wide_mma" else 1]  # rows: the plan's / bf16
+    # the last argument: rows (the plan's) for "wide_mma", the dtype code for "wide"
+    tail = [T, B, H, plan.Hb, plan.U,
+            0 if route == "wide_mma" or ins["gx"][0].dtype == torch.float32 else 1]
     fn = getattr(lib, f"percival_{kind}_fwd_{route}")
     fn.argtypes, fn.restype = [p] * 8 + [i] * 6 + [p], i
 
@@ -220,12 +263,252 @@ def wide_main() -> int:
     return 0
 
 
+SIMT_SHAPES = [(512, 8, 128), (512, 32, 128)]
+SIMT_VARIANTS = ("full", "no_product", "no_gates", "no_sync", "loop_only")
+SIMT_PRODUCT = ("    for (int k = 0; k < H; ++k) {\n",
+                "    for (int k = 0; false && k < H; ++k) {\n")
+SIMT_STEP_SYNC = re.compile(r"    __syncthreads\(\);  // s_[zgh][^\n]*\n")
+
+
+def _simt_source(src: str, name: str) -> str:
+    """The one-block forward ``src`` with variant ``name``'s edits."""
+    parts = {"loop_only": ("no_product", "no_gates")}.get(name, (name,))
+    if "no_product" in parts:
+        if src.count(SIMT_PRODUCT[0]) != 1:
+            raise AssertionError(f"no_product: the product loop appears {src.count(SIMT_PRODUCT[0])} times")
+        src = src.replace(*SIMT_PRODUCT)
+    if "no_gates" in parts:
+        head, sep, body = src.partition("\nnamespace {\n")
+        src = head + "\n" + IDENTITY + sep + body
+    if name == "no_sync":
+        src, n = SIMT_STEP_SYNC.subn("", src)
+        if n != 2:
+            raise AssertionError(f"no_sync: {n} step barriers, not 2")
+    return src
+
+
+def _build_simt_variants() -> dict:
+    """The one-block forwards' variants, and the CUDA-core cluster forwards
+    as they are: {(kind, name): library}, the latter under name "wide"."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    for kind in ("bilstm", "bigru"):
+        src = (_build.CSRC / f"{kind}_fwd.cu").read_text()
+        sources = {f"simt_{name}": _simt_source(src, name) for name in SIMT_VARIANTS}
+        sources["wide"] = (_build.CSRC / f"{kind}_fwd_wide.cu").read_text()
+        for name, text in sources.items():
+            cu = out_dir / f"{kind}_fwd_{name}.cu"
+            cu.write_text(text)
+            so = out_dir / f"{kind}_fwd_{name}.so"
+            cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                         "-o", str(so), str(cu)])
+            libs[(kind, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+NARROW_VARIANTS = ("full", "no_product", "no_gates", "no_dsmem", "no_cluster_sync",
+                   "no_prefetch", "no_store", "loop_only")
+# {variant: [(text, replacement, count)]} on the inlined narrow_f32 source;
+# "no_gates" also defines σ and tanh as the identity before the gate phases
+# (the resident kernel's product, prefetch and stores too; it has no DSMEM
+# and no cluster barrier)
+NARROW_EDITS = {
+    "no_product": [("    nf_product<R>(s_w, s_h + (s & 1) * R * H, s_z, H, NCP, warp);\n", "", 1),
+                   ("    for (int i = 0; i < KQ; ++i) {\n", "    for (int i = 0; i < 0 * KQ; ++i) {\n",
+                    1)],
+    "no_dsmem": [("cluster.map_shared_rank(next, dst)[k] = hv[i];", "next[k] = hv[i];", 1)],
+    "no_cluster_sync": [
+        ("    if (U > 1) cluster_arrive();  // this block's h of step s stored in every block\n",
+         "", 1),
+        ("      cluster_wait();  // every block's h of step s stored, every z of step s read\n",
+         "      __syncthreads();\n", 1),
+        ("      __syncthreads();\n  }\n}\n\n// ---- W_h in registers",
+         "      __syncthreads();\n  }\n  cluster.sync();\n}\n\n// ---- W_h in registers", 1)],
+    "no_prefetch": [("    if (s + 1 < n_steps) prefetch(s + 1);\n", "", 1),
+                    ("      if (s + 1 < n_steps) cell.load(op, frame(s + 1), row0 + q, u, row_ok);\n",
+                     "", 1)],
+    "no_store": [("      if (live(i) && row_ok(i)) cell.store(",
+                  "      if (false && live(i) && row_ok(i)) cell.store(", 1),
+                 ("      if (row_ok) cell.store(", "      if (false && row_ok) cell.store(", 1)],
+}
+
+
+def _narrow_source(kind: str, name: str) -> str:
+    """``csrc/{kind}_fwd_narrow_f32.cu`` with its headers inlined and the
+    edits of variant ``name`` (all of them, and no_gates, for ``loop_only``)."""
+    unpragma = lambda text: text.replace("#pragma once\n", "")  # noqa: E731
+    src = (_build.CSRC / f"{kind}_fwd_narrow_f32.cu").read_text()
+    gates = name in ("no_gates", "loop_only")
+    cells = '#include "lstm_common.cuh"\n' + (IDENTITY if gates else "") + unpragma(
+        (_build.CSRC / "f32_cells.cuh").read_text())
+    src = src.replace('#include "f32_cells.cuh"\n', cells)
+    body = unpragma((_build.CSRC / "narrow_f32_fwd.cuh").read_text()).replace(
+        '#include "narrow_f32_common.cuh"\n',
+        unpragma((_build.CSRC / "narrow_f32_common.cuh").read_text()))
+    src = src.replace('#include "narrow_f32_fwd.cuh"\n', body)
+    for part in NARROW_EDITS if name == "loop_only" else [name]:
+        for old, new, count in NARROW_EDITS.get(part, []):
+            if src.count(old) != count:
+                raise AssertionError(f"{kind} narrow_f32 {part}: {old!r} appears "
+                                     f"{src.count(old)} times")
+            src = src.replace(old, new)
+    return src
+
+
+def _build_narrow_variants() -> dict:
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    for kind in ("bilstm", "bigru"):
+        for name in NARROW_VARIANTS:
+            cu = out_dir / f"{kind}_fwd_narrow_f32_{name}.cu"
+            cu.write_text(_narrow_source(kind, name))
+            so = out_dir / f"{kind}_fwd_narrow_f32_{name}.so"
+            cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                         "-o", str(so), str(cu)])
+            libs[(kind, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+def _narrow_launcher(lib, kind: str, T: int, B: int, H: int, ins: dict, blocks: int = 0,
+                     rows: int = 0, resident: int = -1):
+    """A function that launches one narrow_f32 forward variant on ``ins`` (no
+    cells) at the plan its library gives (``blocks``, ``rows``, ``resident``:
+    its overrides), and that plan."""
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    plan_fn = getattr(lib, f"percival_{kind}_fwd_narrow_f32_plan")
+    plan_fn.argtypes, plan_fn.restype = [i] * 5 + [ctypes.POINTER(ctypes.c_int)], i
+    out = (ctypes.c_int * 9)()
+    if plan_fn(B, H, blocks, rows, resident, out):
+        raise RuntimeError(f"{kind} narrow_f32 forward: no plan at B={B} H={H}")
+    plan = nf.Plan(*out)
+    wp = list(ins["wh"]) if plan.resident else [nf.pack_wh(w, nf.Split(*plan[:4]))
+                                                for w in ins["wh"]]
+    ptrs = [t.data_ptr() for t in (*ins["gx"], *wp)]
+    ptrs += [t.data_ptr() for t in ins["bn"]] if kind == "bigru" else []
+    ptrs += [t.data_ptr() for t in ins["y"]] + ([None, None] if kind == "bilstm" else [])
+    fn = getattr(lib, f"percival_{kind}_fwd_narrow_f32")
+    fn.argtypes, fn.restype = [p] * 8 + [i] * 7 + [p], i
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*ptrs, T, B, H, plan.Hb, plan.U, plan.R, plan.resident, stream)
+        if err:
+            raise RuntimeError(f"{kind} narrow_f32 forward: CUDA error {err}")
+    launch.keep = wp
+    return launch, plan
+
+
+def _f32_inputs(kind: str, T: int, B: int, H: int, dev, g) -> dict:
+    """Random f32 inputs of one forward launch (both directions), and its outputs."""
+    gates = 4 if kind == "bilstm" else 3
+    pair = lambda *shape, s=1.0: [torch.randn(*shape, generator=g, device=dev) * s  # noqa: E731
+                                  for _ in range(2)]
+    return {"gx": pair(T, B, gates * H), "wh": pair(H, gates * H, s=H ** -0.5),
+            "bn": pair(H), "y": [torch.empty(T, B, H, device=dev) for _ in range(2)]}
+
+
+GRID_WIDTHS = {"bilstm": (64, 96, 128, 256), "bigru": (64, 128, 320)}
+
+
+def grid_main() -> int:
+    """The ``"narrow_f32"`` forwards at every candidate split and R of
+    ``GRID_WIDTHS``, one cluster a direction (B = R), beside the step estimate."""
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    dev = torch.device("cuda")
+    lib = _build.library()
+    g = torch.Generator(device=dev).manual_seed(0)
+    T = 512
+    for kind, gates in (("bilstm", 4), ("bigru", 3)):
+        for H in GRID_WIDTHS[kind]:
+            cands = [(s, R, 0) for s, R, _ in nf.candidates(H, gates, fwd=True)]
+            cands += [(nf.split(H, 1, gates), R, 1) for R in nf.REG_ROWS if nf.reg_fits(H, gates)]
+            for s, R, resident in cands:
+                ins = _f32_inputs(kind, T, R, H, dev, g)
+                launch, plan = _narrow_launcher(lib, kind, T, R, H, ins, blocks=s.U, rows=R,
+                                                resident=resident)
+                us = _time_ms(launch, launches=5) / T * 1e3
+                estimate = (nf.reg_step_cost(H, gates, R) if resident
+                            else nf.fwd_step_cost(H, s, R))
+                print(f"[grid] {kind}_fwd_narrow_f32 H={H} U={plan.U} Hb={plan.Hb} NCP={plan.NCP} "
+                      f"R={R} resident={resident} smem={plan.smem}: {us:.3f} us a step, estimate "
+                      f"{estimate} cycles")
+    return 0
+
+
+def simt_main(only: str = "") -> int:
+    """The one-block f32 forwards' variants at ``SIMT_SHAPES``, beside the
+    f32 ``"wide"`` forward on the same inputs, and the ``"narrow_f32"``
+    forwards' variants (``only``: one route alone)."""
+    from percivaltts_tpu_torch.ops.lstm_cuda import rows_per_block
+
+    if only in ("", "narrow_f32"):
+        narrow_libs = _build_narrow_variants()
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+        for kind in ("bilstm", "bigru"):
+            for T, B, H in SIMT_SHAPES:
+                ins = _f32_inputs(kind, T, B, H, dev, g)
+                row, plan = [], None
+                for name in NARROW_VARIANTS:
+                    launch, plan = _narrow_launcher(ctypes.CDLL(str(narrow_libs[(kind, name)])),
+                                                    kind, T, B, H, ins)
+                    row.append(f"{name} {_time_ms(launch) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_fwd_narrow_f32 T,B,H={(T, B, H)} f32 (U={plan.U}, "
+                      f"R={plan.R}, {plan.clusters} clusters at once, {plan.waves} waves, "
+                      f"{plan.smem} B): us a step: " + ", ".join(row))
+    if only not in ("", "simt"):
+        return 0
+    libs = _build_simt_variants()
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kind, gates in (("bilstm", 4), ("bigru", 3)):
+        for T, B, H in SIMT_SHAPES:
+            ins = _f32_inputs(kind, T, B, H, dev, g)
+            ptrs = [t.data_ptr() for t in (*ins["gx"], *ins["wh"])]
+            ptrs += [t.data_ptr() for t in ins["bn"]] if kind == "bigru" else []
+            ptrs += [t.data_ptr() for t in ins["y"]] + ([None, None] if kind == "bilstm" else [])
+            rows = rows_per_block(B, n_sm)
+            row = []
+            for name in SIMT_VARIANTS:
+                fn = getattr(ctypes.CDLL(str(libs[(kind, f"simt_{name}")])), f"percival_{kind}_fwd")
+                fn.argtypes, fn.restype = [p] * len(ptrs) + [i] * 5 + [p], i
+
+                def launch():
+                    err = fn(*ptrs, T, B, H, 0, rows, stream)
+                    if err:
+                        raise RuntimeError(f"{kind} simt {name}: CUDA error {err}")
+                row.append(f"{name} {_time_ms(launch) / T * 1e3:.3f}")
+            wide = _wide_launcher(ctypes.CDLL(str(libs[(kind, "wide")])), kind, "wide", T, B, H, ins)
+            row.append(f"wide full {_time_ms(wide, launches=3) / T * 1e3:.3f}")
+            print(f"[breakdown] {kind}_fwd simt T,B,H={(T, B, H)} f32 (R={rows}, "
+                  f"{2 * -(-B // rows)} blocks): us a step: " + ", ".join(row))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fwd_step_breakdown: needs an NVIDIA card", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if "--simt" in sys.argv[1:]:
+        if "--f32" not in sys.argv[1:]:
+            print("fwd_step_breakdown: --simt times the f32 kernels: add --f32", file=sys.stderr)
+            return 2
+        if "--grid" in sys.argv[1:]:
+            return grid_main()
+        only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
+        return simt_main(only)
     if "--wide" in sys.argv[1:]:
         return wide_main()
     libs = _build_variants()

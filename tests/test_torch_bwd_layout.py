@@ -342,9 +342,9 @@ def test_bptt_route_is_chosen_from_dtype_and_width(dtype, H, route):
     """The BPTT takes the forward's route: the one-block tensor cores where
     the forward does, and where a bf16 call goes to a cluster of blocks
     (``"wide"`` in the table), the tensor-core cluster kernels of both;
-    but where an f32 forward takes the one-block CUDA-core kernel, the BPTT
-    takes its f32 cluster kernel (``"narrow_f32"``)."""
+    but at the one-block CUDA-core kernels' widths (``"simt"`` in the table)
+    both f32 passes take their f32 cluster kernels (``"narrow_f32"``)."""
     want = "wide_mma" if route == "wide" else route
-    assert fwd_route(dtype, H) == want
     f32_narrow = dtype == torch.float32 and want == "simt"
+    assert fwd_route(dtype, H) == ("narrow_f32" if f32_narrow else want)
     assert bwd_route(dtype, H) == ("narrow_f32" if f32_narrow else want)

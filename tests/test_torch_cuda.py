@@ -156,8 +156,8 @@ def test_bwd_kernel_matches_reference(cuda_device, dtype, T, B, H):
 def test_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype):
     base = _gates(96, 6, 64, dtype, cuda_device, seed=11)
     dy = _bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
-    # f32: the one-block forward, the BPTT on its f32 cluster kernel
-    route = "mma" if dtype == torch.bfloat16 else "simt"
+    # f32: the forward and the BPTT on their f32 narrow kernels
+    route = "mma" if dtype == torch.bfloat16 else "narrow_f32"
     broute = "mma" if dtype == torch.bfloat16 else "narrow_f32"
     grads = []
     for core in (bilstm_core, bilstm_core_reference):
@@ -299,8 +299,8 @@ def test_gru_autograd_pair_matches_twins_and_counts_launches(cuda_device, dtype)
     """dgx, dW_h and db_hn of the kernel pair against the twins'."""
     base = _gru_gates(96, 6, 64, dtype, cuda_device, seed=11)
     dy = _gru_bwd_args(96, 6, 64, dtype, cuda_device, seed=12)[-2:]
-    # f32: the one-block forward, the BPTT on its f32 cluster kernel
-    route = "mma" if dtype == torch.bfloat16 else "simt"
+    # f32: the forward and the BPTT on their f32 narrow kernels
+    route = "mma" if dtype == torch.bfloat16 else "narrow_f32"
     broute = "mma" if dtype == torch.bfloat16 else "narrow_f32"
     grads = []
     for core in (bigru_core, bigru_core_reference):
@@ -468,11 +468,13 @@ def _route_counts(before, after, route):
 def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
     """f32 and widths outside the tensor-core route launch the CUDA-core
     kernels (the LSTM's cluster kernel past H = 256), bf16 past 128 the
-    tensor-core cluster kernels; each call counts on its route alone, and
-    agrees with its twin."""
+    tensor-core cluster kernels, f32 at the one-block widths the f32 narrow
+    kernels; each call counts on its route alone, and agrees with its twin."""
     T, B = 24, 5
     if dtype == torch.bfloat16:  # a bf16 call sent to a cluster takes the tensor cores
         route, gru_route = (("wide_mma" if r == "wide" else r) for r in (route, gru_route))
+    else:  # f32 at the one-block kernels' widths takes the narrow kernels
+        route, gru_route = (("narrow_f32" if r == "simt" else r) for r in (route, gru_route))
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     lstm_args = _gates(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_gates(T, B, H, dtype, cuda_device, seed=H)
@@ -955,6 +957,129 @@ def test_narrow_f32_bptt_refuses_bf16_and_widths_past_its_route(cuda_device):
     with pytest.raises(ValueError, match=f"H <= {nf.MAX_H[3]}"):
         gru_cuda.bwd_launch("narrow_f32", *_gru_bwd_args(2, 1, nf.MAX_H[3] + 1, torch.float32,
                                                          cuda_device, seed=1))
+
+
+# --- the f32 narrow forwards (the "narrow_f32" route) --------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", NARROW_F32_CASES)
+def test_narrow_f32_forward_matches_twins(cuda_device, cell, T, B, H):
+    """The f32 narrow forwards against the twins (1e-4; the LSTM with its
+    cells), launched directly and through the entry, which counts them once
+    on their route (``fwd_route``: ``"narrow_f32"``); the one-block forward
+    on the same inputs agrees too."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_gates if gru else _gates)(T, B, H, torch.float32, cuda_device, seed=T + B)
+    cells = {} if gru else {"with_cells": True}
+    want = bigru_fwd_reference(*args) if gru else bilstm_fwd_reference(*args, **cells)
+    wrapper = bigru_fwd if gru else bilstm_fwd
+    route = fwd_route(torch.float32, H, cell)
+    assert route == "narrow_f32"
+    with torch.no_grad():
+        _close(m.fwd_launch("narrow_f32", *args, **cells), want, 1e-4)
+        _close(m.fwd_launch("simt", *args, **cells), want, 1e-4)
+        f0 = dict(wrapper.routes)
+        got = wrapper(*args, **cells)
+        torch.cuda.synchronize()
+    assert _route_counts(f0, wrapper.routes, route) == (1, 0)
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,blocks,resident", [
+    ("lstm", 160, 8, 0), ("gru", 224, 5, 0), ("lstm", 128, 2, 0), ("gru", 128, 1, 0),
+    ("gru", 320, 8, 0), ("lstm", 96, 1, 1), ("gru", 128, 1, 1), ("lstm", 64, 1, 1)])
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16])
+def test_narrow_f32_forward_splits_and_rows_match_twins(cuda_device, cell, H, blocks, resident, R):
+    """Every row tile on the plans the launchers' overrides force, W_h in
+    shared memory over splits among them clusters whose last block is short
+    (LSTM H = 160 over 7 blocks of 24 units, GRU H = 224 over 5 of 48), and
+    in registers (R = 1, 2), against the twins (1e-4); a plan that does not
+    fit is refused."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    gru = cell == "gru"
+    m, gates = (gru_cuda, 3) if gru else (lstm_cuda, 4)
+    fits = (R in nf.REG_ROWS and nf.reg_fits(H, gates)) if resident else \
+        bool(nf.candidates(H, gates, blocks, R, fwd=True))
+    if not fits:
+        with pytest.raises(RuntimeError, match="plan"):
+            lstm_cuda.narrow_f32_fwd_plan("bigru" if gru else "bilstm", 7, H, blocks, R, resident)
+        return
+    args = (_gru_gates if gru else _gates)(20, 7, H, torch.float32, cuda_device, seed=H)
+    cells = {} if gru else {"with_cells": True}
+    want = bigru_fwd_reference(*args) if gru else bilstm_fwd_reference(*args, **cells)
+    with torch.no_grad():
+        _close(m.fwd_launch("narrow_f32", *args, **cells, blocks=blocks, rows=R,
+                            resident=resident), want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_narrow_f32_forward_plan_matches_the_layout(cuda_device, cell):
+    """The forward launchers' plans equal ``ops/narrow_f32_layout.py::fwd_plan``
+    replayed at the card's clusters of each split and of the kernel that
+    holds W_h in registers (the launchers' plan with that forced) at H = 64,
+    128 and the route's widest, B = 1, 8, 32, 160; the launch refuses a plan
+    other than its own."""
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    gates, name = (3, "bigru") if cell == "gru" else (4, "bilstm")
+    for H in (64, 128, nf.MAX_H[gates]):
+        card = {s.U: lstm_cuda.narrow_f32_fwd_plan(name, 1, H, s.U, R, 0).clusters
+                for s, R, _ in nf.candidates(H, gates, fwd=True)}
+        if nf.reg_fits(H, gates):
+            card["resident"] = lstm_cuda.narrow_f32_fwd_plan(name, 1, H, 1, 1, 1).clusters
+        for B in (1, 8, 32, 160):
+            p = lstm_cuda.narrow_f32_fwd_plan(name, B, H)
+            assert p == nf.fwd_plan(B, H, gates, card)
+            assert p.smem <= nf.SMEM_OPTIN and p.clusters >= 1
+    z = torch.zeros(64, device=cuda_device)
+    fn = getattr(_build.library(), f"percival_{name}_fwd_narrow_f32")
+    p = lstm_cuda.narrow_f32_fwd_plan(name, 8, 128)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(*[z.data_ptr()] * 8, 1, 8, 128, p.Hb + 8, p.U, p.R, p.resident, stream) != 0
+    assert fn(*[z.data_ptr()] * 8, 1, 8, 128, p.Hb, p.U, p.R, 1 - p.resident, stream) != 0
+
+
+@pytest.mark.cuda
+def test_gru_fwd_launch_narrow_f32_returns_the_forward(cuda_device):
+    """``gru_cuda.fwd_launch("narrow_f32", …)`` launches the GRU forward and
+    returns its ``(y_f, y_b)``, equal to the twin's (1e-4)."""
+    from percivaltts_tpu_torch.ops import gru_cuda
+
+    args = _gru_gates(40, 6, 128, torch.float32, cuda_device, seed=3)
+    with torch.no_grad():
+        got = gru_cuda.fwd_launch("narrow_f32", *args)
+        torch.cuda.synchronize()
+    assert len(got) == 2 and all(y.shape == (40, 6, 128) for y in got)
+    _close(got, bigru_fwd_reference(*args), 1e-4)
+
+
+@pytest.mark.cuda
+def test_narrow_f32_forward_refuses_bf16_and_widths_past_its_route(cuda_device):
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import narrow_f32_layout as nf
+
+    with pytest.raises(TypeError, match="float32"):
+        lstm_cuda.fwd_launch("narrow_f32", *_gates(2, 1, 64, torch.bfloat16, cuda_device, seed=1))
+    with pytest.raises(TypeError, match="float32"):
+        gru_cuda.fwd_launch("narrow_f32", *_gru_gates(2, 1, 64, torch.bfloat16, cuda_device,
+                                                      seed=1))
+    with pytest.raises(ValueError, match=f"H <= {nf.MAX_H[4]}"):
+        lstm_cuda.fwd_launch("narrow_f32", *_gates(2, 1, nf.MAX_H[4] + 1, torch.float32,
+                                                   cuda_device, seed=1))
+    with pytest.raises(ValueError, match=f"H <= {nf.MAX_H[3]}"):
+        gru_cuda.fwd_launch("narrow_f32", *_gru_gates(2, 1, nf.MAX_H[3] + 1, torch.float32,
+                                                      cuda_device, seed=1))
 
 
 # --- the tensor-core cluster BPTTs (the "wide_mma" route) ----------------------

@@ -180,7 +180,7 @@ def test_route_is_chosen_from_dtype_and_width():
     assert fwd_route(torch.bfloat16, 128) == "mma"
     assert fwd_route(torch.bfloat16, 64) == "mma"
     assert fwd_route(torch.bfloat16, 16) == "mma"
-    assert fwd_route(torch.float32, 128) == "simt"  # f32: the parity dtype
+    assert fwd_route(torch.float32, 128) == "narrow_f32"  # f32: the parity dtype
     assert fwd_route(torch.bfloat16, 48) == "mma"
     # above the register budget: the tensor-core cluster kernels, the LSTM's
     # and the GRU's
@@ -193,7 +193,7 @@ def test_route_is_chosen_from_dtype_and_width():
     for cell in ("lstm", "gru"):  # but f32 up to 512 has its own BPTTs
         assert fwd_route(torch.float32, 512, cell) == "wide"
         assert bwd_route(torch.float32, 512, cell) == "wide_f32"
-        assert fwd_route(torch.float32, 128, cell) == "simt"
+        assert fwd_route(torch.float32, 128, cell) == "narrow_f32"
         assert bwd_route(torch.float32, 128, cell) == "narrow_f32"
     with pytest.raises(ValueError, match="kind"):
         gate_rows("rnn", 64)

@@ -180,7 +180,7 @@ def test_every_width_the_route_takes_has_a_plan(cell):
     """f32 up to the one-block kernels' widest H (LSTM 256, GRU 320): every
     width pads to a multiple of 8 and has a plan at B = 1 and 160 on the
     H100; the BPTT takes ``"narrow_f32"`` there without a batch, the
-    forward stays on ``"simt"``; past it the cluster routes."""
+    forward too; past it the cluster routes."""
     gates = GATES[cell]
     top = nf.MAX_H[gates]
     for H in range(1, top + 1):
@@ -189,7 +189,7 @@ def test_every_width_the_route_takes_has_a_plan(cell):
         for B in (1, 160):
             assert nf.plan(B, Hp, gates, H100_CLUSTERS).smem <= nf.SMEM_OPTIN
         assert bwd_route(torch.float32, H, cell) == "narrow_f32"
-        assert fwd_route(torch.float32, H, cell) == "simt"
+        assert fwd_route(torch.float32, H, cell) == "narrow_f32"
     assert not nf.fits(top + 1, gates) and not nf.fits(0, gates)
     assert bwd_route(torch.float32, top + 1, cell) in ("wide", "wide_f32")
     for H in (16, 100, 128):  # bf16 is not this route's

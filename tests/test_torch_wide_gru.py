@@ -60,8 +60,9 @@ from percivaltts_tpu_torch.training.state import make_gan_state
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 100, "simt"), (torch.bfloat16, 136, "wide"),
     (torch.bfloat16, 256, "wide"), (torch.bfloat16, 300, "wide"), (torch.bfloat16, 512, "wide"),
     (torch.bfloat16, 640, "wide"),
-    # f32, the parity dtype: one block a direction up to the one-block
-    # BPTT's 320, then the cluster (321…341 was the forward/BPTT mismatch)
+    # f32, the parity dtype: the one-block kernels' widths up to the
+    # one-block BPTT's 320 ("simt" here; both passes take "narrow_f32" there),
+    # then the cluster (321…341 was the forward/BPTT mismatch)
     (torch.float32, 128, "simt"), (torch.float32, 320, "simt"), (torch.float32, 321, "wide"),
     (torch.float32, 341, "wide"), (torch.float32, 384, "wide"), (torch.float32, 4096, "wide"),
     (torch.float32, 512, "wide"), (torch.float32, 544, "wide"),
@@ -70,12 +71,12 @@ def test_gru_route_table(dtype, H, route):
     # a cluster of blocks a direction ("wide" in the table) runs on the
     # tensor cores in bf16 up to H = 672 ("wide_mma"), on CUDA cores in f32;
     # a layer's backward takes its forward's route, but in f32 up to H = 512
-    # the f32 cluster BPTTs ("narrow_f32" where the forward takes one block,
-    # "wide_f32" past it)
+    # the f32 cluster BPTTs ("wide_f32" past the one-block widths); at those
+    # widths both f32 passes take "narrow_f32"
     want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
-    assert fwd_route(dtype, H, "gru") == want
     f32_cluster = dtype == torch.float32 and want == "wide" and H <= 512
     f32_narrow = dtype == torch.float32 and want == "simt"
+    assert fwd_route(dtype, H, "gru") == ("narrow_f32" if f32_narrow else want)
     assert bwd_route(dtype, H, "gru") == ("wide_f32" if f32_cluster else
                                          "narrow_f32" if f32_narrow else want)
     assert GRU_SIMT_MAX_H[torch.float32] == 320
