@@ -208,23 +208,29 @@ raises on failure (the script exits 0 only when all passed):
    3 on phase 8's corpus, 1 epoch of 2 steps with measures: exit 0, one
    epoch record, the checkpoint, which ``cli synth`` serves;
 13. kernels #1/#2 at every width the JAX package trains (a thread-block
-   cluster a direction: the CUDA-core "wide" route,
-   ``csrc/bilstm_{fwd,bwd}_wide.cu``, for f32; the tensor-core "wide_mma"
-   route, ``csrc/bilstm_{fwd,bwd}_wide_mma.cu``, for bf16):
+   cluster a direction: the f32 "wide_f32" route,
+   ``csrc/bilstm_{fwd,bwd}_wide_f32.cu``, for f32 up to H = 512; the
+   CUDA-core "wide" route, ``csrc/bilstm_{fwd,bwd}_wide.cu``, past it; the
+   tensor-core "wide_mma" route, ``csrc/bilstm_{fwd,bwd}_wide_mma.cu``, for
+   bf16):
    13a. each launch plan against ``ops/wide_layout.py`` and, for
    ``wide_mma``, ``ops/wide_mma_layout.py`` (the BPTT's rows a cluster,
    clusters at once and waves, B <= 32 in one wave; the forward's rows,
    row tiles a warp and h buffers, B <= 32 and B = 160 in one wave at
-   H = 512), ``ptxas``'s registers with 0 spills on ``wide_mma``; the
+   H = 512), for ``wide_f32`` ``ops/wide_f32_layout.py`` (the BPTT's
+   ``rows``, the forward's ``fwd_rows``: chunks in shared memory and in
+   registers), ``ptxas``'s registers with 0 spills on ``wide_mma`` and on
+   the ``wide_f32`` forwards; the
    forward (with and without cells) at (512, 8, 512), (517, 3, 512), (1, 1,
    512), (512, 160, 512), (33, 9, 264), (64, 1, 608) and the BPTT at (512,
    32, 512), (33, 9, 264), (40, 1, 608), (24, 5, 100) and, bf16, (512, 160,
    512) (its entry's route, the one-block kernel padded to H = 104, and
    the cluster kernels launched directly) against the twins, f32 and bf16,
    each launch counted on its route, the CUDA-core cluster kernels
-   launched on the bf16 inputs too, in f32 both cluster BPTTs (``wide``,
-   ``wide_f32``: one on its route, the other launched directly) wherever
-   ``wide_f32`` takes H, (512, 160, 512) included; H = 256 on the route that takes it,
+   launched on the bf16 inputs too, in f32 both cluster forwards and both
+   cluster BPTTs (``wide``, ``wide_f32``: one on its route, the other
+   launched directly) wherever ``wide_f32`` takes H, (512, 160, 512)
+   included; H = 256 on the route that takes it,
    and in bf16 the one-block kernels against both cluster ones on the same
    inputs, checked and timed in turns; the autograd pair at (512, 32, 512)
    (bf16: both kernels on ``wide_mma``); both bf16 kernels timed at B = 8,
@@ -237,20 +243,18 @@ raises on failure (the script exits 0 only when all passed):
    ``blstm_size=1024`` (H = 512) each serving phase 4's 8 requests against
    the twins, every forward launch on ``wide_mma`` (and every BPTT launch
    of 13c), serve medians, busy share; config 3 also in f32
-   (``compute_dtype="float32"``), every forward launch on ``wide`` and
-   every BPTT launch on ``wide_f32``, one serve held against the twins
-   (the median of 3 timed);
+   (``compute_dtype="float32"``), every forward and BPTT launch on
+   ``wide_f32``, one serve held against the twins (the median of 3 timed);
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
    twins' step as ``_hold_step`` holds phase 5's, the step median of 10
    (the f32 form: one step held, the median of 3);
-   13d. the f32 kernels at B = 8, 32, 160 (H = 512): the CUDA-core cluster
-   forward and the ``wide_f32`` BPTT, in turns with their twins (the BPTT
-   also with the ``wide`` BPTT it replaced), beside the bound at the f32
-   rate and cuDNN's f32 ``nn.LSTM`` (TF32 off) by CUDA events and by device
-   time;
-14. kernels #3/#4 at every width the JAX package trains (the same two
-   routes: ``csrc/bigru_{fwd,bwd}_wide.cu`` and
-   ``csrc/bigru_{fwd,bwd}_wide_mma.cu``):
+   13d. the f32 kernels at B = 8, 32, 160 (H = 512): the ``wide_f32``
+   forward and BPTT, each in turns with its twin and the ``wide`` kernel it
+   replaced, beside the bound at the f32 rate and cuDNN's f32 ``nn.LSTM``
+   (TF32 off) by CUDA events and by device time;
+14. kernels #3/#4 at every width the JAX package trains (the same three
+   routes: ``csrc/bigru_{fwd,bwd}_wide_f32.cu``,
+   ``csrc/bigru_{fwd,bwd}_wide.cu`` and ``csrc/bigru_{fwd,bwd}_wide_mma.cu``):
    14a. as 13a with 3 gates: the forward at (512, 8, 512), (517, 3, 512),
    (1, 1, 512), (512, 160, 512), (33, 9, 336), (33, 9, 352), (64, 1, 640)
    and the BPTT at (512, 32, 512), (33, 9, 336), (40, 1, 640), (24, 5, 100)
@@ -258,8 +262,7 @@ raises on failure (the script exits 0 only when all passed):
    14b/14c. the BGRU generator at ``blstm_size=1024`` (H = 512) serving
    phase 4's 8 requests and taking WGAN-GP steps as 13b/13c, every forward
    and BPTT launch on ``wide_mma``, (4, 2) launches a step; and in f32 as
-   13b/13c's f32 form, every forward on ``wide``, every BPTT on
-   ``wide_f32``;
+   13b/13c's f32 form, every forward and BPTT on ``wide_f32``;
    14d. as 13d for the GRU's f32 kernels, beside cuDNN's f32 ``nn.GRU``;
 15. f32 at the default width (H = 128), where the forwards and the BPTTs
    take the narrow kernels (``"narrow_f32"``,
@@ -277,10 +280,11 @@ With ``--f32-times`` the script builds, then only times f32 and exits:
 15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
 kernel in turns, forward and BPTT, at each width of ``F32_NARROW_WIDTHS``
 and B of ``F32_NARROW_BATCHES``; the BPTT rows ``F32_WIDE_BWD`` keeps on ``"wide"``
-(``F32_WIDE_KEPT``) beside cuDNN's layer; and both cluster BPTTs,
-``"wide"`` and ``"wide_f32"``, in turns at each width of
+(``F32_WIDE_KEPT``) beside cuDNN's layer; and both cluster forwards and
+both cluster BPTTs, ``"wide"`` and ``"wide_f32"``, in turns at each width of
 ``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES``; each beside the route
-``bwd_route`` takes there; it prints no kernel line and no device record.
+``fwd_route`` / ``bwd_route`` takes there; it prints no kernel line and no
+device record.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -335,7 +339,7 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 # (one BiLSTM, now of 512 units) as config 3; the BLSTM generator, whose
 # every stream reads both LSTM layers through a bf16 readout, as the BGRU.
 # Phase 14's BGRU at blstm_size=1024 as the BGRU.
-# The f32 forms (phases 13/14, route "wide"): no bf16 rounding flips, only
+# The f32 forms (phases 13/14, route "wide_f32"): no bf16 rounding flips, only
 # sums taken in another order (the kernels' f32 outputs within 1e-4 of the
 # twins', KERNEL_TOL), read through an f32 readout and scaled by 1/scale <= 2.
 SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125,
@@ -365,8 +369,8 @@ MODELS = {
     # GRU layers of H = 512 (kernels #3/#4's cluster routes)
     "bgru_1024": dict(generator="bgru", blstm_size=1024),
     # phases 13/14 in f32: the same models computing in f32, whose recurrences
-    # past H = 256 (LSTM) / 320 (GRU) take the CUDA-core cluster forward
-    # ("wide") and the f32 cluster BPTT ("wide_f32")
+    # past H = 256 (LSTM) / 320 (GRU) take the f32 cluster forward and BPTT
+    # ("wide_f32")
     "cnn_blstm_1024_f32": dict(generator="cnn_blstm", blstm_size=1024, compute_dtype="float32"),
     "bgru_1024_f32": dict(generator="bgru", blstm_size=1024, compute_dtype="float32"),
     # phase 15: config 3 and the BGRU in f32 at the default blstm_size (H = 128),
@@ -563,8 +567,9 @@ WIDE_AUTOGRAD_SHAPE = (512, 32, 512)
 ROUTE_SHAPE = (512, 32, 256)
 WIDE_TIMED = [(512, 8, 512), (512, 32, 512), (512, 160, 512)]
 # python3 chip_smoke.py --f32-times: the narrow kernels that f32 takes at
-# the default blstm_size (H = 128), and the widths of the f32 BPTT's cluster
-# routes, "wide" against "wide_f32" (264 and 336 run zero-padded on "wide_f32")
+# the default blstm_size (H = 128), and the widths of the f32 cluster routes,
+# "wide" against "wide_f32", forward and BPTT (264 and 336 run zero-padded on
+# "wide_f32")
 F32_SIMT_TIMED = [(512, 8, 128), (512, 32, 128)]
 # where the f32 forward and BPTT take "narrow_f32" (H <= 256 LSTM, 320 GRU):
 # it and the one-block kernel ("simt") in turns at each width and B
@@ -3320,13 +3325,15 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
     waves and the shared memory a block. The same for the f32 cluster BPTT
     (``wide_f32``) where it takes H: its split must be ``wide_layout``'s, its
     rows and resident chunks ``ops/wide_f32_layout.py::rows``'s (printed with
-    the slice's resident, streamed and ring bytes); and for the tensor-core
+    the slice's resident, streamed and ring bytes); for the f32 cluster
+    forward where it takes H, ``fwd_rows``'s (chunks in shared memory and in
+    registers); and for the tensor-core
     kernels (``wide_mma``): the split of both must be
     ``ops/wide_mma_layout.py::plan``'s, the BPTT's rows ``rows``'s and the
     forward's (rows, tiles a warp, h buffers) ``fwd_rows``'s, B <= 32 in one
     wave at H = 512 (the forward's B = 160 too); then ``ptxas``'s registers
     and spills of every instantiation of the wide kernels, none of the
-    tensor-core ones spilling."""
+    tensor-core ones and none of the f32 cluster forwards spilling."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
@@ -3371,6 +3378,23 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
                   f"resident ({nres * slot} B), {nstr} streamed a step "
                   f"({nstr * wide_f32_layout.CHUNK * NC * 4} B) through {ring} ring slots "
                   f"({ring * slot} B), {smem} B shared memory")
+        if wide_f32_layout.fwd_fits(H, gates):
+            Hp = wide_f32_layout.padded(H)
+            pf = wide_layout.plan(Hp, gates)
+            out = (ctypes.c_int * 9)()
+            _build.check(getattr(lib, f"percival_{name}_fwd_wide_f32_plan")(B, Hp, pf.Hb, pf.U, out),
+                         f"the f32 wide forward plan at B={B} H={Hp}")
+            U, Hb, NC, R, nres, nreg, clusters, waves, smem = out
+            rows = wide_f32_layout.fwd_rows(B, Hp, gates, clusters)
+            if (U, Hb, NC) != (pf.U, pf.Hb, pf.NC) or (R, nres, nreg, waves, smem) != tuple(rows):
+                raise AssertionError(f"the {name} forward wide_f32 plan {list(out)} is not {pf}, "
+                                     f"{rows}")
+            slot = wide_f32_layout.slot_bytes(NC)
+            print(f"[wide plan] {name} fwd wide_f32 B={B} H={H} (run at {Hp}) f32: {U} blocks of "
+                  f"{Hb} units, {wide_f32_layout.fwd_threads(Hp, gates)} threads, {R} rows a "
+                  f"cluster, {clusters} clusters at once ({waves} waves), W_h slice "
+                  f"{Hp * NC * 4} B: {nres} chunks in shared memory ({nres * slot} B), {nreg} in "
+                  f"registers ({nreg * wide_f32_layout.CHUNK * NC * 4} B), {smem} B shared memory")
         if not wide_mma_layout.fits(H, gates):
             continue
         Hp = wide_mma_layout.padded(H)
@@ -3401,12 +3425,14 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
               f"{Hb} units, 512 threads, {R} rows a cluster ({TPW} row tiles a warp, {WPG} warps "
               f"a unit group, K in {KSP} part(s)), {clusters} clusters at once ({waves} waves), "
               f"{1 + dbuf} h buffer(s), {smem} B shared memory")
-    # registers and spills of every instantiation of the wide kernels: 0 spills on wide_mma
+    # registers and spills of every instantiation of the wide kernels: 0 spills
+    # on wide_mma and on the wide_f32 forwards
     for line in _ptxas_usage(BUILD_LOG):
         if f"{name}_bwd_wide" in line or f"{name}_fwd_wide" in line:
             print(f"[wide ptxas] {line}")
-            if "wide_mma" in line and not line.split("spill ")[1].startswith("0/0 "):
-                raise AssertionError(f"a tensor-core wide kernel instantiation spills: {line}")
+            held = "wide_mma" in line or f"{name}_fwd_wide_f32" in line
+            if held and not line.split("spill ")[1].startswith("0/0 "):
+                raise AssertionError(f"a wide kernel instantiation spills: {line}")
 
 
 def _narrow_plans(dev) -> dict:
@@ -3485,6 +3511,30 @@ def _wide_bwd_key(name: str, route: str, bf16: bool):
     return {"wide_f32": f"{name}_bwd_wide_f32", "wide": f"{name}_bwd_wide_f32_earlier"}.get(route)
 
 
+def _wide_fwd_route(dtype, H: int, cell: str, B: int) -> str:
+    """The route of a forward of ``B`` rows that one block cannot hold: bf16
+    on the tensor-core cluster kernels, f32 up to H = 512 on the f32 cluster
+    kernels (``"wide_f32"``) but at the rows ``mma_layout.F32_WIDE_FWD``
+    keeps, there and past H = 512 on the CUDA-core ones (``"wide"``)."""
+    from percivaltts_tpu_torch.ops import wide_f32_layout
+    from percivaltts_tpu_torch.ops.mma_layout import F32_WIDE_FWD
+
+    if dtype == torch.bfloat16:
+        return "wide_mma"
+    kept = any(H <= h and B <= b for h, b in F32_WIDE_FWD[cell])
+    return "wide_f32" if wide_f32_layout.fits(H, 3 if cell == "gru" else 4) and not kept else "wide"
+
+
+def _wide_fwd_key(name: str, route: str, dtype) -> str:
+    """The key of ``_check_wide_kernels`` / ``_check_wide_gru_kernels``' error
+    table for a cluster forward: bf16 ``*_fwd_wide_mma`` and ``*_fwd`` (the
+    CUDA-core one); f32 ``*_fwd_wide_f32`` and ``*_fwd_wide_f32_earlier``
+    (the CUDA-core one in f32)."""
+    if dtype == torch.bfloat16:
+        return f"{name}_fwd_wide_mma" if route == "wide_mma" else f"{name}_fwd"
+    return f"{name}_fwd_wide_f32" + ("" if route == "wide_f32" else "_earlier")
+
+
 def _check_wide_kernels(dev) -> dict:
     """Phase 13a: both wide kernels against their twins (forward with and
     without cells, BPTT, the autograd pair), each launch counted on its
@@ -3493,11 +3543,14 @@ def _check_wide_kernels(dev) -> dict:
     BPTT runs on its route (``bwd_route``: ``wide_f32``, or ``wide`` at few
     rows where that measured faster) and the other of the two cluster
     kernels, launched directly, on the same inputs, wherever ``wide_f32``
-    takes H, the fakes pass's (512, 160, 512) included. Returns the largest bf16 |kernel − twin|
-    of each wrapper, the largest f32 one of the CUDA-core cluster forward
-    (``*_fwd_wide_f32``), of the f32 cluster BPTT (``*_bwd_wide_f32``) and of
-    the CUDA-core cluster BPTT in f32 (``*_bwd_wide_f32_earlier``), and the
-    route timings."""
+    takes H, the fakes pass's (512, 160, 512) included; the f32 forward as
+    well (``fwd_route``: ``wide_f32`` up to H = 512, beside the CUDA-core
+    cluster forward it replaced there). Returns the largest bf16 |kernel −
+    twin| of each wrapper, the largest f32 one of the f32 cluster forward
+    (``*_fwd_wide_f32``), of the CUDA-core cluster forward in f32
+    (``*_fwd_wide_f32_earlier``), of the f32 cluster BPTT
+    (``*_bwd_wide_f32``) and of the CUDA-core cluster BPTT in f32
+    (``*_bwd_wide_f32_earlier``), and the route timings."""
     from percivaltts_tpu_torch.ops import lstm_cuda as l
     from percivaltts_tpu_torch.ops import wide_f32_layout
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
@@ -3505,12 +3558,12 @@ def _check_wide_kernels(dev) -> dict:
     bf16 = torch.bfloat16
     err = {"bilstm_fwd": 0.0, "bilstm_fwd_wide_mma": 0.0, "bilstm_bwd": 0.0,
            "bilstm_bwd_wide_mma": 0.0, "bilstm_fwd_wide_f32": 0.0, "bilstm_bwd_wide_f32": 0.0,
-           "bilstm_bwd_wide_f32_earlier": 0.0}
+           "bilstm_fwd_wide_f32_earlier": 0.0, "bilstm_bwd_wide_f32_earlier": 0.0}
     with torch.no_grad():
         for T, B, H in WIDE_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
-                route = fwd_route(dtype, H)
-                if route != ("wide_mma" if dtype == bf16 else "wide"):
+                route = fwd_route(dtype, H, "lstm", B)
+                if route != _wide_fwd_route(dtype, H, "lstm", B):
                     raise AssertionError(f"H={H} {dtype} takes the {route} route")
                 args = _gates(T, B, H, dtype, dev, seed=T + B)
                 want = l.bilstm_fwd_reference(*args, with_cells=True)
@@ -3519,16 +3572,16 @@ def _check_wide_kernels(dev) -> dict:
                     got = _launch_once(l.bilstm_fwd, *args, with_cells=cells, route=route)
                     e = _compare(f"[bilstm_fwd {route}] {tag} cells={cells}", got,
                                  want[:len(got)], tol, relative=False)
-                    if dtype == bf16:
-                        err["bilstm_fwd_wide_mma"] = max(err["bilstm_fwd_wide_mma"], e)
+                    key = _wide_fwd_key("bilstm", route, dtype)
+                    err[key] = max(err[key], e)
+                    if route != "wide":
                         # the CUDA-core cluster kernel on the same inputs, launched directly
                         got = l.fwd_launch("wide", *args, with_cells=cells)
                         torch.cuda.synchronize()
                         e = _compare(f"[bilstm_fwd wide, launched directly] {tag} cells={cells}",
                                      got, want[:len(got)], tol, relative=False)
-                        err["bilstm_fwd"] = max(err["bilstm_fwd"], e)
-                    else:
-                        err["bilstm_fwd_wide_f32"] = max(err["bilstm_fwd_wide_f32"], e)
+                        key = _wide_fwd_key("bilstm", "wide", dtype)
+                        err[key] = max(err[key], e)
         for T, B, H in WIDE_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype, tol in BWD_TOL.items():
                 rel, route = dtype == bf16, bwd_route(dtype, H, "lstm", B)
@@ -3619,8 +3672,9 @@ def _check_wide_gru_kernels(dev) -> dict:
     100 on its entry's route and on the cluster kernel launched directly;
     H = 256 on the route that takes it, and in bf16 the one-block kernels
     against the cluster ones there (checked and timed in turns). The f32
-    BPTT as in phase 13a. Returns the largest bf16 |kernel − twin| of each
-    wrapper, the largest f32 one of the CUDA-core cluster forward, the f32
+    forward and BPTT as in phase 13a. Returns the largest bf16 |kernel −
+    twin| of each wrapper, the largest f32 one of the f32 cluster forward,
+    the CUDA-core cluster forward in f32 (keys as ``_wide_fwd_key``), the f32
     cluster BPTT and the CUDA-core cluster BPTT in f32 (keys as
     ``_wide_bwd_key``) and the route timings."""
     from percivaltts_tpu_torch.ops import gru_cuda as g
@@ -3630,7 +3684,7 @@ def _check_wide_gru_kernels(dev) -> dict:
     bf16 = torch.bfloat16
     err = {"bigru_fwd": 0.0, "bigru_fwd_wide_mma": 0.0, "bigru_bwd": 0.0,
            "bigru_bwd_wide_mma": 0.0, "bigru_fwd_wide_f32": 0.0, "bigru_bwd_wide_f32": 0.0,
-           "bigru_bwd_wide_f32_earlier": 0.0}
+           "bigru_fwd_wide_f32_earlier": 0.0, "bigru_bwd_wide_f32_earlier": 0.0}
 
     def hold_bwd(label, got, want, dtype, route=None):
         rel = dtype == bf16
@@ -3643,24 +3697,24 @@ def _check_wide_gru_kernels(dev) -> dict:
     with torch.no_grad():
         for T, B, H in WIDE_GRU_FWD_SHAPES:
             for dtype, tol in KERNEL_TOL.items():
-                route = fwd_route(dtype, H, "gru")
-                if route != ("wide_mma" if dtype == bf16 else "wide"):
+                route = fwd_route(dtype, H, "gru", B)
+                if route != _wide_fwd_route(dtype, H, "gru", B):
                     raise AssertionError(f"H={H} {dtype} takes the GRU's {route} route")
                 args = _gru_gates(T, B, H, dtype, dev, seed=T + B)
                 want = g.bigru_fwd_reference(*args)
                 tag = f"T={T} B={B} H={H} {str(dtype)[6:]}"
                 got = _launch_once(g.bigru_fwd, *args, route=route)
                 e = _compare(f"[bigru_fwd {route}] {tag}", got, want, tol, relative=False)
-                if dtype == bf16:
-                    err["bigru_fwd_wide_mma"] = max(err["bigru_fwd_wide_mma"], e)
+                key = _wide_fwd_key("bigru", route, dtype)
+                err[key] = max(err[key], e)
+                if route != "wide":
                     # the CUDA-core cluster kernel on the same inputs, launched directly
                     got = g.fwd_launch("wide", *args)
                     torch.cuda.synchronize()
                     e = _compare(f"[bigru_fwd wide, launched directly] {tag}", got, want, tol,
                                  relative=False)
-                    err["bigru_fwd"] = max(err["bigru_fwd"], e)
-                else:
-                    err["bigru_fwd_wide_f32"] = max(err["bigru_fwd_wide_f32"], e)
+                    key = _wide_fwd_key("bigru", "wide", dtype)
+                    err[key] = max(err[key], e)
         for T, B, H in WIDE_GRU_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype in BWD_TOL:
                 route = bwd_route(dtype, H, "gru", B)
@@ -3858,18 +3912,20 @@ def _in_turns(calls: dict, order) -> dict:
 EARLIER_F32 = {"wide_f32": "wide", "narrow_f32": "simt"}
 
 
-def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
+def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide_f32",
                    what=("fwd", "bwd")) -> dict:
     """Phases 13d / 14d: the kernels that f32 takes at ``shapes``
     (``WIDE_TIMED`` by default), whose forward must take ``route``: past
-    H = 256 (LSTM) / 320 (GRU) the CUDA-core cluster forward (``"wide"``)
-    in turns with its twin (kernel, twin, twin, kernel; the kernel's median
-    of 5 calls, the twin's one call, ``_in_turns``), the BPTT on its route
-    (``bwd_route``: ``"wide_f32"``) in turns with the CUDA-core cluster BPTT
-    it replaced and the twin (earlier, routed, twin, twin, routed, earlier);
-    with ``route="narrow_f32"`` (phase 15d, ``python3 chip_smoke.py
-    --f32-times``) the forward and the BPTT on ``"narrow_f32"``, each in
-    turns with the one-block kernel it replaced (``"simt"``). ``what``: the
+    H = 256 (LSTM) / 320 (GRU) the f32 cluster forward and BPTT
+    (``"wide_f32"``; the BPTT's route is ``bwd_route``'s), each in turns with
+    the CUDA-core cluster kernel it replaced (``"wide"``) and the twin
+    (earlier, routed, twin, twin, routed, earlier; the kernels' medians of 5
+    calls, the twin's one call, ``_in_turns``); with ``route="narrow_f32"``
+    (phase 15d, ``python3 chip_smoke.py --f32-times``) the forward and the
+    BPTT on ``"narrow_f32"``, each in turns with the one-block kernel it
+    replaced (``"simt"``); a route with no earlier kernel (``"wide"``, the
+    BPTT rows ``F32_WIDE_BWD`` keeps) in turns with its twin alone (kernel,
+    twin, twin, kernel). ``what``: the
     kernels timed (``"fwd"``, ``"bwd"``). Each row beside the
     bound at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
     in f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
@@ -3892,9 +3948,11 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
         fwd = name.endswith("fwd")
         rows = []
         for T, B, H in shapes or WIDE_TIMED:
-            taken = fwd_route(dt, H, cell) if fwd else bwd_route(dt, H, cell, B)
-            if taken != route and (fwd or taken not in (route, *(
-                    k for k, v in EARLIER_F32.items() if v == route))):
+            taken = fwd_route(dt, H, cell, B) if fwd else bwd_route(dt, H, cell, B)
+            # a BPTT may take the kernel its route replaced, or the one that
+            # replaced it, at the rows F32_WIDE_BWD keeps
+            if taken != route and (fwd or (taken != EARLIER_F32.get(route)
+                                           and EARLIER_F32.get(taken) != route)):
                 raise AssertionError(f"{name} routes f32 at H = {H} to {taken!r}, not {route!r}")
             if fwd:
                 args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
@@ -3948,23 +4006,26 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide",
     return out
 
 
-def _f32_route_times(dev, cell: str = "lstm") -> list:
-    """Where the f32 BPTT takes ``"wide_f32"``: both cluster BPTTs,
-    ``bwd_launch("wide", …)`` and ``bwd_launch("wide_f32", …)``, on the same
-    inputs in turns (wide, wide_f32, wide_f32, wide; medians of 5 calls,
-    ``_in_turns``) at T = 512, each B of ``F32_ROUTE_BATCHES`` and each H of
-    ``F32_ROUTE_WIDTHS`` (widths not a multiple of 32 run zero-padded on
-    ``"wide_f32"``), beside each kernel's plan (rows a cluster, waves; for
-    ``"wide"`` whether W_h stays in shared memory) and the route
-    ``bwd_route`` takes there (``python3 chip_smoke.py --f32-times``)."""
+def _f32_route_times(dev, cell: str = "lstm", what: str = "bwd") -> list:
+    """Where the f32 BPTT (``what="bwd"``) or forward (``"fwd"``) takes
+    ``"wide_f32"``: both cluster kernels, ``{bwd,fwd}_launch("wide", …)`` and
+    ``{bwd,fwd}_launch("wide_f32", …)``, on the same inputs in turns (wide,
+    wide_f32, wide_f32, wide; medians of 5 calls, ``_in_turns``) at T = 512,
+    each B of ``F32_ROUTE_BATCHES`` and each H of ``F32_ROUTE_WIDTHS``
+    (widths not a multiple of 32 run zero-padded on ``"wide_f32"``), beside
+    each kernel's plan (rows a cluster, waves; for ``"wide"`` whether W_h
+    stays in shared memory; for ``"wide_f32"`` the chunks resident, and the
+    forward's in registers) and the route ``bwd_route`` / ``fwd_route``
+    takes there (``python3 chip_smoke.py --f32-times``)."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_f32_layout, wide_layout
-    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
-    gru = cell == "gru"
+    gru, fwd = cell == "gru", what == "fwd"
     m, gates, name = (gru_cuda, 3, "bigru") if gru else (lstm_cuda, 4, "bilstm")
+    launch = m.fwd_launch if fwd else m.bwd_launch
     lib = _build.library()
     dt = torch.float32
     rows = []
@@ -3973,26 +4034,34 @@ def _f32_route_times(dev, cell: str = "lstm") -> list:
             T = 512
             p, Hp = wide_layout.plan(H, gates), wide_f32_layout.padded(H)
             old, new = (ctypes.c_int * 9)(), (ctypes.c_int * 9)()
-            _build.check(getattr(lib, f"percival_{name}_bwd_wide_plan")(B, H, p.Hb, p.U, 0, old),
-                         f"the wide BPTT plan at B={B} H={H}")
+            _build.check(getattr(lib, f"percival_{name}_{what}_wide_plan")(B, H, p.Hb, p.U, 0, old),
+                         f"the wide {what} plan at B={B} H={H}")
             pf = wide_layout.plan(Hp, gates)
-            _build.check(getattr(lib, f"percival_{name}_bwd_wide_f32_plan")(B, Hp, pf.Hb, pf.U, new),
-                         f"the f32 wide BPTT plan at B={B} H={Hp}")
+            _build.check(getattr(lib, f"percival_{name}_{what}_wide_f32_plan")(
+                B, Hp, pf.Hb, pf.U, new), f"the f32 wide {what} plan at B={B} H={Hp}")
             R_old, w_smem, c_old = old[5], old[6], old[7]
             plans = {"wide": {"R": R_old, "w_smem": w_smem,
                               "waves": -(-2 * -(-B // R_old) // c_old)},
                      "wide_f32": {"R": new[3], "nres": new[4], "waves": new[7]}}
-            args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            if fwd:
+                plans["wide_f32"]["nreg"] = new[5]
+                args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
+                route = fwd_route(dt, H, cell, B)
+            else:
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+                route = bwd_route(dt, H, cell, B)
             with torch.no_grad():
-                t = _in_turns({r: (lambda r=r: m.bwd_launch(r, *args)) for r in ("wide", "wide_f32")},
+                t = _in_turns({r: (lambda r=r: launch(r, *args)) for r in ("wide", "wide_f32")},
                               ("wide", "wide_f32", "wide_f32", "wide"))
-            route = bwd_route(dt, H, cell, B)
-            rows.append({"cell": cell, "shape": [T, B, H], "route": route, "ms": t, "plans": plans})
-            print(f"[f32 route] {cell} bwd T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms (R "
+            rows.append({"cell": cell, "what": what, "shape": [T, B, H], "route": route, "ms": t,
+                         "plans": plans})
+            held = f"{new[5]} in registers, " if fwd else ""
+            print(f"[f32 route] {cell} {what} T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms (R "
                   f"{R_old}, W_h in {'shared memory' if w_smem else 'L2'}, "
                   f"{plans['wide']['waves']} waves), wide_f32 {t['wide_f32']:.4f} ms (R {new[3]}, "
-                  f"{new[4]} chunks resident, {new[7]} waves), {t['wide'] / t['wide_f32']:.2f}x "
-                  f"(means of 2 medians, in turns); bwd_route takes {route!r}"
+                  f"{new[4]} chunks resident, {held}{new[7]} waves), "
+                  f"{t['wide'] / t['wide_f32']:.2f}x (means of 2 medians, in turns); "
+                  f"{what}_route takes {route!r}"
                   + ("" if t[route] <= min(t.values()) else " (the slower one)"))
     return rows
 
@@ -4048,9 +4117,9 @@ def _f32_times(dev) -> int:
     turns with the one-block ones), the ``"narrow_f32"`` route tables of the
     forward and the BPTT (``_f32_narrow_route_times``), the BPTT rows
     ``F32_WIDE_BWD`` keeps on ``"wide"`` at ``F32_WIDE_KEPT`` beside cuDNN's
-    layer, and the ``"wide_f32"`` route table (``_f32_route_times``), for
-    both cells."""
-    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+    layer, and the ``"wide_f32"`` route tables of the forward and the BPTT
+    (``_f32_route_times``), for both cells."""
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
 
     for cell in ("lstm", "gru"):
         _time_wide_f32(dev, cell, F32_SIMT_TIMED, route="narrow_f32")
@@ -4058,26 +4127,24 @@ def _f32_times(dev) -> int:
         for what in ("fwd", "bwd"):
             _f32_narrow_route_times(dev, cell, what)
     for cell in ("lstm", "gru"):
-        for shape in F32_WIDE_KEPT:
-            _time_wide_f32(dev, cell, [shape], route=fwd_route(torch.float32, shape[2], cell),
+        for T, B, H in F32_WIDE_KEPT:
+            _time_wide_f32(dev, cell, [(T, B, H)], route=bwd_route(torch.float32, H, cell, B),
                            what=("bwd",))
     for cell in ("lstm", "gru"):
-        _f32_route_times(dev, cell)
+        for what in ("fwd", "bwd"):
+            _f32_route_times(dev, cell, what)
     return 0
 
 
 def _model_route(kind: str, what: str) -> str:
     """The route a phase 13–15 model's recurrences take, for the forward
     (``what="fwd"``) or the BPTT (``"bwd"``): at blstm_size=1024 the
-    tensor-core cluster kernels (``"wide_mma"``) in bf16, and in f32 the
-    CUDA-core forward (``"wide"``) and the f32 cluster BPTT (``"wide_f32"``);
-    at the default width in f32 (``NARROW_MODELS``) the f32 narrow kernels
-    (``"narrow_f32"``) for both."""
+    tensor-core cluster kernels (``"wide_mma"``) in bf16, and in f32 the f32
+    cluster kernels (``"wide_f32"``) for both; at the default width in f32
+    (``NARROW_MODELS``) the f32 narrow kernels (``"narrow_f32"``) for both."""
     if not _is_f32(kind):
         return "wide_mma"
-    if kind in NARROW_MODELS:
-        return "narrow_f32"
-    return "wide" if what == "fwd" else "wide_f32"
+    return "narrow_f32" if kind in NARROW_MODELS else "wide_f32"
 
 
 def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
@@ -4405,14 +4472,16 @@ def main(argv=None) -> int:
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s paths, or also elsewhere")
-    # the f32 forms of phases 13/14's paths: the CUDA-core cluster forwards
-    # ("wide") and the f32 cluster BPTTs ("wide_f32"); the CUDA-core cluster
-    # BPTTs they replaced there ("wide", timed beside them) stay listed, with
-    # their launches on the paths (none)
+    # the f32 forms of phases 13/14's paths: the f32 cluster forwards and
+    # BPTTs ("wide_f32"); the CUDA-core cluster kernels they replaced there
+    # ("wide", timed beside them) stay listed, with their launches on the
+    # paths (none)
     for name, route, replaces in (
+        ("bilstm_fwd", "wide_f32", "percivaltts_tpu/ops/lstm_pallas.py:202"),
         ("bilstm_fwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:202"),
         ("bilstm_bwd", "wide_f32", "percivaltts_tpu/ops/lstm_pallas.py:321"),
         ("bilstm_bwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+        ("bigru_fwd", "wide_f32", "percivaltts_tpu/ops/lstm_pallas.py:521"),
         ("bigru_fwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:521"),
         ("bigru_bwd", "wide_f32", "percivaltts_tpu/ops/lstm_pallas.py:616"),
         ("bigru_bwd", "wide", "percivaltts_tpu/ops/lstm_pallas.py:616"),
@@ -4420,7 +4489,7 @@ def main(argv=None) -> int:
         gru = name.startswith("bigru")
         checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
         first = wide_f32_timed[name][0]
-        replaced = name.endswith("bwd") and route == "wide"  # timed as the earlier kernel
+        replaced = route == "wide"  # timed as the earlier kernel
         by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
                    for kind, run in runs_w.items() for what in ("serve", "train")}
         err_key = f"{name}_wide_f32" + ("_earlier" if replaced else "")
@@ -4455,7 +4524,9 @@ def main(argv=None) -> int:
             kernels[-1].update({"kernel_device_ms": first["kernel_device_ms"],
                                 "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
                                 "earlier_ms": first["earlier_ms"],
-                                "earlier_max_abs_err": checked["err"][f"{name}_wide_f32_earlier"]})
+                                "earlier_max_abs_err": checked["err"][f"{name}_wide_f32_earlier"],
+                                "ptxas": [line for line in _ptxas_usage(BUILD_LOG)
+                                          if f"{name}_wide_f32_kernel" in line]})
         if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
                                  f"{14 if gru else 13}'s f32 paths, or also elsewhere")

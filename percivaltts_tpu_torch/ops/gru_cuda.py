@@ -18,25 +18,24 @@ outputs ``y`` (so in the compute dtype), and rounds d(gates) and
 ``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 / ``bigru_bwd_reference``. There is no other fallback. On CUDA the forward
-has five routes, chosen before the launch from dtype and width
+has six routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
 launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``; bf16 past
 H = 128 up to 672 the tensor-core cluster kernel
 ``csrc/bigru_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``); f32 past
-H = 320 (which one block a direction cannot hold) and wider bf16 the
-CUDA-core cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``;
-H up to 4096); f32 up to H = 320 the f32 cluster kernel
+H = 320 (which one block a direction cannot hold) up to 512 the f32 cluster
+kernel ``csrc/bigru_fwd_wide_f32.cu`` (``"wide_f32"``,
+``ops/wide_f32_layout.py``); f32 past 512 and wider bf16 the CUDA-core
+cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to
+4096); f32 up to H = 320 the f32 cluster kernel
 ``csrc/bigru_fwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``); everything else ``csrc/bigru_fwd.cu``. The
 BPTT takes the same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
-``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide.cu`` or
-``csrc/bigru_bwd.cu``, except that f32 past H = 320 up to 512 takes its own
-cluster BPTT, ``csrc/bigru_bwd_wide_f32.cu`` (``"wide_f32"``,
-``ops/wide_f32_layout.py``), but for the few batch rows where the CUDA-core
-one measured faster (``mma_layout.F32_WIDE_BWD``); f32 up to H = 320 another,
-``csrc/bigru_bwd_narrow_f32.cu`` (``"narrow_f32"``,
-``ops/narrow_f32_layout.py``), measured faster than ``csrc/bigru_bwd.cu``
-there. ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
+``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide_f32.cu``,
+``csrc/bigru_bwd_narrow_f32.cu``, ``csrc/bigru_bwd_wide.cu`` or
+``csrc/bigru_bwd.cu``, but for the few batch rows where the f32 BPTT keeps
+``csrc/bigru_bwd_wide.cu``, measured faster there
+(``mma_layout.F32_WIDE_BWD``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
 ``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernels
 of 8: other widths are zero-padded to one (``ops/lstm_cuda.py::at_width``),
 which changes no real unit. The launchers refuse a route they do not take
@@ -193,7 +192,8 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
                blocks: int = 0, resident: int = -1):
     """Launch the forward kernel of ``route`` (one of
     ``lstm_cuda.FWD_ROUTES``: ``"mma"``, ``"simt"``, ``"wide_mma"``,
-    ``"wide"`` or ``"narrow_f32"``; any other raises ``ValueError`` before
+    ``"wide"``, ``"wide_f32"`` or ``"narrow_f32"``; any other raises
+    ``ValueError`` before
     anything is built or launched) on CUDA inputs that :func:`bigru_fwd` has
     checked; counts nothing. ``bigru_fwd`` is the entry; ``chip_smoke.py``
     times one route's kernel beside another's through this. ``"wide_mma"``
@@ -202,18 +202,22 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
     rows a cluster when given (0: the plan's choice); ``"narrow_f32"`` (f32
     only, H up to 320) H that is not a multiple of 8, with
     ``lstm_cuda.fwd_launch``'s overrides ``blocks``, ``rows`` and
-    ``resident``; ``"wide"`` raises ``ValueError``
-    past ``wide_layout.GRU_MAX_H``, ``"simt"`` past H = 341."""
+    ``resident``; ``"wide_f32"`` (f32 only, H up to
+    ``wide_f32_layout.max_h(3)``) H that is not a multiple of 32; ``"wide"``
+    raises ``ValueError`` past ``wide_layout.GRU_MAX_H``, ``"simt"`` past
+    H = 341."""
     check_route(route, FWD_ROUTES, "bigru_fwd")
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 3
-    granule = {"wide_mma": wide_mma_layout.K_GRANULE,
+    granule = {"wide_mma": wide_mma_layout.K_GRANULE, "wide_f32": wide_f32_layout.K_GRANULE,
                "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 3)
+    if route == "wide_f32":
+        _wide_f32_check(gx_f.dtype, H, 3, "forward")
     if route == "narrow_f32":
         _narrow_f32_check(gx_f.dtype, H, 3, "forward")
     if granule and H % granule:
@@ -253,6 +257,15 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
                 bn_f.data_ptr(), bn_b.data_ptr(), yf.data_ptr(), yb.data_ptr(),
                 T, B, H, p.Hb, p.U, p.R, p.resident, stream,
             )
+        elif route == "wide_f32":
+            p = wide_layout.plan(H, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p))  # held (see above)
+            err = lib.percival_bigru_fwd_wide_f32(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                bn_f.data_ptr(), bn_b.data_ptr(), yf.data_ptr(), yb.data_ptr(),
+                T, B, H, p.Hb, p.U, stream,
+            )
         elif route == "wide":
             p = wide_layout.plan(H, 3)
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -279,7 +292,7 @@ def _bigru_fwd_cuda(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     _one_device("bigru_fwd", ins, "ops.gru_cuda.bigru_core")
-    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru")
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru", gx_f.shape[1])
     out = fwd_launch(route, *ins)
     bigru_fwd.launches += 1
     bigru_fwd.routes[route] += 1
@@ -313,8 +326,9 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
-    past 128 up to 672, the CUDA-core cluster one past H = 320 (bf16: 672),
-    the f32 narrow one for f32 up to 320, else the one-block CUDA-core one
+    past 128 up to 672, the f32 cluster one for f32 past 320 up to 512, the
+    CUDA-core cluster one past those (f32: 512, bf16: 672), the f32 narrow
+    one for f32 up to 320, else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, H past
@@ -331,7 +345,8 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
 
 bigru_fwd.launches = 0
-bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "narrow_f32": 0}
+bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
+                    "narrow_f32": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,

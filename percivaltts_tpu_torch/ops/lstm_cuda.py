@@ -11,26 +11,24 @@ rounded to it before it is stored and multiplied.
 ``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take
 ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There is no other
-fallback. On CUDA the forward has five routes, chosen before the launch
+fallback. On CUDA the forward has six routes, chosen before the launch
 from dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H
 a multiple of 16 up to 128 launches the tensor-core kernel
 ``csrc/bilstm_fwd_mma.cu``; bf16 past H = 128 up to 608 the tensor-core
 cluster kernel ``csrc/bilstm_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``);
-f32 past H = 256 (which one block a direction cannot hold) and wider bf16
-the CUDA-core cluster kernel ``csrc/bilstm_fwd_wide.cu``
-(``ops/wide_layout.py``; H up to 4096); f32 up to H = 256 the f32 cluster
-kernel ``csrc/bilstm_fwd_narrow_f32.cu`` (``"narrow_f32"``,
+f32 past H = 256 (which one block a direction cannot hold) up to 512 the
+f32 cluster kernel ``csrc/bilstm_fwd_wide_f32.cu`` (``"wide_f32"``,
+``ops/wide_f32_layout.py``); f32 past 512 and wider bf16 the CUDA-core
+cluster kernel ``csrc/bilstm_fwd_wide.cu`` (``ops/wide_layout.py``; H up
+to 4096); f32 up to H = 256 the f32 cluster kernel
+``csrc/bilstm_fwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``); everything else ``csrc/bilstm_fwd.cu``. The
 BPTT takes the same route (``bwd_route``):
 ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
-``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``.
-f32 past H = 256 up to 512 takes its own cluster BPTT,
-``csrc/bilstm_bwd_wide_f32.cu`` (``"wide_f32"``, ``ops/wide_f32_layout.py``),
-but for the few batch rows where the CUDA-core one measured faster
-(``mma_layout.F32_WIDE_BWD``); f32 up to H = 256 another,
-``csrc/bilstm_bwd_narrow_f32.cu`` (``"narrow_f32"``,
-``ops/narrow_f32_layout.py``), measured faster than ``csrc/bilstm_bwd.cu``
-there.
+``csrc/bilstm_bwd_wide_f32.cu``, ``csrc/bilstm_bwd_narrow_f32.cu``,
+``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``, but for the few
+batch rows where the f32 BPTT keeps ``csrc/bilstm_bwd_wide.cu``, measured
+faster there (``mma_layout.F32_WIDE_BWD``).
 ``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernels take H a multiple of
 8, the ``"wide_mma"`` and ``"wide_f32"`` kernels of 32: other widths are
 zero-padded to one (:func:`at_width`), which changes no real unit.
@@ -57,7 +55,7 @@ from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the routes the launchers take (ops/mma_layout.py::fwd_route / bwd_route)
-FWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "narrow_f32")
+FWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
 BWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
 # the CUDA-core BPTT's dz·W_hᵀ reduction runs on whole warps of its 4H
@@ -249,14 +247,16 @@ def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
                          f"H <= {wide_mma_layout.max_h(gates)}, got H={H}")
 
 
-def _wide_f32_check(dtype: torch.dtype, H: int, gates: int) -> None:
-    """Raise unless the f32 cluster BPTTs take ``dtype`` and ``H``."""
+def _wide_f32_check(dtype: torch.dtype, H: int, gates: int, what: str = "BPTT") -> None:
+    """Raise unless the f32 cluster kernels (``what``: ``"BPTT"`` or
+    ``"forward"``) take ``dtype`` and ``H``."""
     if dtype != torch.float32:
-        raise TypeError(f"the f32 wide BPTT kernels take float32, got {dtype}")
-    if not wide_f32_layout.fits(H, gates):
-        raise ValueError(f"the f32 wide {wide_layout.CELLS[gates]} BPTT kernels take "
-                         f"{2 * wide_f32_layout.CHUNK} < H <= "
-                         f"{wide_f32_layout.max_h(gates)}, got H={H}")
+        raise TypeError(f"the f32 wide {what} kernels take float32, got {dtype}")
+    fwd = what == "forward"
+    if not (wide_f32_layout.fwd_fits if fwd else wide_f32_layout.fits)(H, gates):
+        low = wide_f32_layout.FWD_MIN_H[gates] - 1 if fwd else 2 * wide_f32_layout.CHUNK
+        raise ValueError(f"the f32 wide {wide_layout.CELLS[gates]} {what} kernels take "
+                         f"{low} < H <= {wide_f32_layout.max_h(gates)}, got H={H}")
 
 
 def check_route(route: str, routes: tuple, what: str) -> None:
@@ -318,7 +318,8 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, rows: int = 0,
                blocks: int = 0, resident: int = -1):
     """Launch the forward kernel of ``route`` (one of ``FWD_ROUTES``:
-    ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"`` or ``"narrow_f32"``;
+    ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"``, ``"wide_f32"`` or
+    ``"narrow_f32"``;
     any other raises ``ValueError`` before anything is built or launched)
     on CUDA inputs that :func:`bilstm_fwd` has checked; counts nothing.
     ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times one route's kernel
@@ -330,18 +331,22 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
     H that is not a multiple of 8, over at most ``blocks`` blocks a cluster,
     at ``rows`` rows and with W_h in registers (``resident=1``) or shared
     memory (0) when given (a measurement's overrides; 0 / -1: the plan's
-    choice, :func:`narrow_f32_fwd_plan`); ``"wide"`` raises
-    ``ValueError`` past ``wide_layout.MAX_H``, ``"simt"`` past H = 256."""
+    choice, :func:`narrow_f32_fwd_plan`); ``"wide_f32"`` (f32 only, H up to
+    ``wide_f32_layout.max_h(4)``) H that is not a multiple of 32; ``"wide"``
+    raises ``ValueError`` past ``wide_layout.MAX_H``, ``"simt"`` past
+    H = 256."""
     check_route(route, FWD_ROUTES, "bilstm_fwd")
     from percivaltts_tpu_torch import _build
 
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 4
-    granule = {"wide_mma": wide_mma_layout.K_GRANULE,
+    granule = {"wide_mma": wide_mma_layout.K_GRANULE, "wide_f32": wide_f32_layout.K_GRANULE,
                "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 4)
+    if route == "wide_f32":
+        _wide_f32_check(gx_f.dtype, H, 4, "forward")
     if route == "narrow_f32":
         _narrow_f32_check(gx_f.dtype, H, 4, "forward")
     if granule and H % granule:
@@ -384,6 +389,14 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
                 yf.data_ptr(), yb.data_ptr(), *cells, T, B, H, p.Hb, p.U, p.R, p.resident,
                 stream,
             )
+        elif route == "wide_f32":
+            p = wide_layout.plan(H)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p))  # held (see above)
+            err = lib.percival_bilstm_fwd_wide_f32(
+                gx_f.data_ptr(), gx_b.data_ptr(), *(t.data_ptr() for t in ins),
+                yf.data_ptr(), yb.data_ptr(), *cells, T, B, H, p.Hb, p.U, stream,
+            )
         elif route == "wide":
             p = wide_layout.plan(H)
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -410,7 +423,7 @@ def _bilstm_fwd_cuda(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
     ``bilstm_fwd.routes``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
     _one_device("bilstm_fwd", (gx_f, gx_b, wh_f, wh_b))
-    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 4)
+    route = fwd_route(gx_f.dtype, gx_f.shape[-1] // 4, "lstm", gx_f.shape[1])
     out = fwd_launch(route, gx_f, gx_b, wh_f, wh_b, with_cells)
     bilstm_fwd.launches += 1
     bilstm_fwd.routes[route] += 1
@@ -445,8 +458,9 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
-    past 128 up to 608, the CUDA-core cluster one past H = 256 (bf16: 608),
-    the f32 narrow one for f32 up to 256, else the one-block CUDA-core one
+    past 128 up to 608, the f32 cluster one for f32 past 256 up to 512, the
+    CUDA-core cluster one past those (f32: 512, bf16: 608), the f32 narrow
+    one for f32 up to 256, else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
     than float32/bfloat16, a shape mismatch, H past ``wide_layout.MAX_H``
@@ -463,7 +477,8 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
 
 bilstm_fwd.launches = 0
-bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "narrow_f32": 0}
+bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
+                     "narrow_f32": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,

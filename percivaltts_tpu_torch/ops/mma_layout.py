@@ -74,9 +74,16 @@ SIMT_MAX_H = {"lstm": LSTM_SIMT_MAX_H, "gru": GRU_SIMT_MAX_H}
 # or two waves of 1–4 rows a cluster with W_h resident in shared memory
 # (the LSTM's only up to H = 416), where the new kernel's step costs more
 F32_WIDE_BWD = {"lstm": ((384, 8), (416, 6)), "gru": ((384, 8), (512, 6))}
+# the same for the f32 forward: the card measured the CUDA-core cluster
+# forward faster than "wide_f32" only at the GRU's H = 336 with B <= 2 (the
+# old kernel runs 336 as it is, one row a cluster with W_h in shared
+# memory; "wide_f32" pads it to 352 and runs 4 rows), and "wide_f32" faster
+# at the other 115 points it timed (H = 264–512, B = 1–160; python3
+# chip_smoke.py --f32-times, PERF.md)
+F32_WIDE_FWD = {"lstm": (), "gru": ((336, 2),)}
 
 
-def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
+def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
     """The forward kernel a CUDA call launches, chosen before the launch
     from its dtype, width and cell: ``"mma"`` (tensor cores) for bf16 with H
     a multiple of 16 up to 128; past
@@ -85,9 +92,14 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     (``csrc/bilstm_fwd_wide_mma.cu`` / ``csrc/bigru_fwd_wide_mma.cu``,
     tensor cores) for bf16 wherever a block's ``W_hᵀ`` slice and tiles fit
     its shared memory (``wide_mma_layout.fits``: H up to 608 for the LSTM,
-    672 for the GRU), else ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` /
-    ``csrc/bigru_fwd_wide.cu``, CUDA cores: f32, and bf16 past those widths,
-    whose slice leaves shared memory for L2); up to those widths f32 takes
+    672 for the GRU); ``"wide_f32"`` (``csrc/{bilstm,bigru}_fwd_wide_f32.cu``,
+    a block's f32 ``W_h`` slice held on chip, in shared memory and
+    registers) for f32 wherever ``wide_f32_layout.fits`` (H up to 512) and
+    ``F32_WIDE_FWD`` does not keep ``"wide"`` for so few rows ``B`` (without
+    ``B``, a large batch's route); else
+    ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` / ``csrc/bigru_fwd_wide.cu``,
+    CUDA cores: f32 past 512, and bf16 past those widths, whose slice leaves
+    shared memory for L2); up to the one-block widths f32 takes
     ``"narrow_f32"`` (``csrc/{bilstm,bigru}_fwd_narrow_f32.cu``, a cluster
     a direction holding W_h on chip, ``narrow_f32_layout.fits``; the card
     measured it faster than ``"simt"`` at every width and batch it timed:
@@ -106,6 +118,10 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
         return "simt"
     if dtype == torch.bfloat16 and wide_mma_layout.fits(H, GATES[cell]):
         return "wide_mma"
+    if dtype == torch.float32 and wide_f32_layout.fits(H, GATES[cell]):
+        if B is not None and any(H <= h and B <= b for h, b in F32_WIDE_FWD[cell]):
+            return "wide"
+        return "wide_f32"
     return "wide"
 
 
@@ -123,14 +139,14 @@ def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     --f32-times``, PERF.md), and past them ``"wide_f32"``
     (``csrc/{bilstm,bigru}_bwd_wide_f32.cu``) wherever its plan fits
     (``wide_f32_layout.fits``: H up to 512) and ``F32_WIDE_BWD`` does not
-    keep ``"wide"`` for so few rows. Without ``B``, the route of a batch past
+    keep ``"wide"`` for so few rows (where the forward is on ``"wide_f32"``
+    all the same). Without ``B``, the route of a batch past
     ``F32_WIDE_BWD``'s."""
-    route = fwd_route(dtype, H, cell)  # f32 "narrow_f32": the BPTT's route too
-    if dtype != torch.float32 or route != "wide" or not wide_f32_layout.fits(H, GATES[cell]):
-        return route
-    if B is not None and any(H <= h and B <= b for h, b in F32_WIDE_BWD[cell]):
+    route = fwd_route(dtype, H, cell)  # f32 "narrow_f32" and "wide_f32": the BPTT's too
+    if route == "wide_f32" and B is not None and any(
+            H <= h and B <= b for h, b in F32_WIDE_BWD[cell]):
         return "wide"
-    return "wide_f32"
+    return route
 
 
 def _check(kind: str, H: int) -> None:

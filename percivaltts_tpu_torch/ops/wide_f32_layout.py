@@ -25,13 +25,26 @@ lane ``k % 4`` as ``(a_i + a_i^2) + (a_i^1 + a_i^3)``; the owner of unit
 ``k`` adds the ``U`` block partials in block order (the GRU after its own
 ``dh·z``) (:func:`replay_bptt`).
 
+The route's forwards (``csrc/{bilstm,bigru}_fwd_wide_f32.cu``,
+``wide_f32_fwd.cuh``) take the same split, packing and chunks: R = 8 or 4
+rows a cluster (``FWD_ROWS``, by a step estimate), the last ``nres`` chunks
+resident in shared memory
+beside two buffers of the rows of ``h`` and the partials of the product, the
+first ``nreg`` (at most ``FWD_MAX_REG``) in registers, none streamed
+(:func:`fwd_rows`, :func:`fwd_smem_bytes`). Their one product runs on
+:func:`fwd_threads` threads: lane ``(kw, j)`` of a column group takes, in
+every chunk, the k-quad ``4·kw + j``; the four ``j`` lanes' reduce-scatter
+adds ``(s0 + s2) + (s1 + s3)`` and the gate phase the four groups ``kw``,
+``((p0 + p1) + p2) + p3`` (:func:`replay_fwd_product`, :func:`replay_fwd`).
+
 The kernels take ``H`` a multiple of 32 (``K_GRANULE``) and at least three
 chunks (H > 128: a chunk's ``h_prev`` rows load two chunks ahead of their
 use); the wrappers zero-pad other widths (``ops/lstm_cuda.py::at_width``, exact). A
 block's ``NC`` gate columns are at most 128 (an m16 tile a warp of the
 recompute): H up to 512 for both cells (:func:`fits`, :func:`max_h`). Wider f32
-layers stay on ``"wide"``, and so do the few batch rows at which the card
-measured ``"wide"`` faster; ``ops/mma_layout.py::bwd_route`` holds the rule.
+layers stay on ``"wide"``, and so do the BPTT's few batch rows at which the
+card measured ``"wide"`` faster; ``ops/mma_layout.py::fwd_route`` and
+``bwd_route`` hold the rule.
 """
 
 from __future__ import annotations
@@ -50,6 +63,14 @@ MAX_NC = 128  # gate columns a block: 32 a recompute warp, 4 warps a half of the
 ROW_TILES = (1, 2, 3)  # R = 8·NT rows a cluster
 THREADS = 384  # 12 warps: 8 for the recompute, 4 for the dh product
 SMEM_OPTIN = 232_448  # dynamic shared memory a block may opt into on the H100 (227 KB)
+FWD_ROWS = (8, 4)  # the forwards' batch rows a cluster, as their plan weighs them
+FWD_GROUPS = 4  # the forwards' k-quad groups: warps a column group
+FWD_MAX_REG = 3  # chunks the forwards hold in registers (16 words a chunk a column quad)
+FWD_STATIC_SMEM = 16  # the forwards' two mbarriers, beside their dynamic shared memory
+# the forwards' step estimate, ns (wide_f32_fwd.cuh: kWffStepNs, kWffFmaPerNs):
+# a fixed part and the product's R·NC·H FMAs a block at a rate
+FWD_STEP_NS = 1500
+FWD_FMA_PER_NS = 165
 
 
 class Rows(NamedTuple):
@@ -137,6 +158,81 @@ def rows(B: int, H: int, gates: int, clusters: int) -> Rows:
             best = r
     if best is None:
         raise ValueError(f"no f32 cluster BPTT plan fits H={H}")
+    return best
+
+
+# the forwards' narrowest H a cell: past the one-block widths, where a
+# block's NC is 96 or 128 and its slice 5–8 chunks (the instantiated kernels)
+FWD_MIN_H = {4: 257, 3: 321}
+
+
+def fwd_fits(H: int, gates: int = 4) -> bool:
+    """Whether the forwards take width ``H`` (padded to a multiple of 32):
+    ``FWD_MIN_H`` up to 512."""
+    return FWD_MIN_H[gates] <= H and fits(H, gates)
+
+
+class FwdRows(NamedTuple):
+    R: int  # batch rows a cluster
+    nres: int  # chunks resident in shared memory (the last ones)
+    nreg: int  # chunks held in registers (the first ones)
+    waves: int  # ceil(2·ceil(B / R) / clusters)
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def fwd_quads(NC: int) -> int:
+    """The column quads a lane of the forwards' product holds: 2 (8
+    columns) at NC = 128, 1 at NC = 96."""
+    return 2 if NC == 128 else 1
+
+
+def fwd_threads(H: int, gates: int) -> int:
+    """The forwards' threads a block: four k-quad groups of
+    ``NC / (32·fwd_quads)`` warps (256 at NC = 128, 384 at 96)."""
+    NC = wide_layout.plan(H, gates).NC
+    return FWD_GROUPS * NC // fwd_quads(NC)
+
+
+def fwd_smem_bytes(H: int, gates: int, nres: int, R: int = 8) -> int:
+    """A forward block's dynamic shared memory at width ``H`` (a multiple of
+    32), ``R`` rows a cluster and ``nres`` resident chunks
+    (``wide_f32_fwd.cuh::wff_smem``): the chunks, ``64 × (NC + 4)`` f32
+    each; two buffers of the ``h`` rows, k-quad major with the R rows' quads
+    padded to R + 1 (``2 × H/4 × (R + 1) × 4``), and the product's partials
+    (``4 × R × NC``), all f32."""
+    p = wide_layout.plan(H, gates)
+    h_rows = 2 * (H // 4) * 4 * (R + 1)
+    return nres * slot_bytes(p.NC) + 4 * (h_rows + FWD_GROUPS * R * p.NC)
+
+
+def fwd_step_ns(H: int, gates: int, R: int) -> int:
+    """The forwards' step estimate at ``R`` rows a cluster, ns."""
+    return FWD_STEP_NS + R * wide_layout.plan(H, gates).NC * H // FWD_FMA_PER_NS
+
+
+def fwd_rows(B: int, H: int, gates: int, clusters: int) -> FwdRows:
+    """The forwards' plan for ``B`` rows at width ``H`` (a multiple of 32)
+    when the card holds ``clusters`` clusters of the kernel at once
+    (``percival_*_fwd_wide_f32_plan`` reports them): for R = 8 and 4, the
+    most chunks that fit ``SMEM_OPTIN`` beside the mbarriers resident, the first others in
+    registers (at most ``FWD_MAX_REG``); the R of least waves ×
+    :func:`fwd_step_ns`, 8 on a tie (``ValueError`` when none fits)."""
+    nch = len(chunks(H))
+    best, best_cost = None, None
+    for R in FWD_ROWS:
+        room = SMEM_OPTIN - FWD_STATIC_SMEM
+        nres = next(n for n in range(nch, -1, -1)
+                    if n == 0 or fwd_smem_bytes(H, gates, n, R) <= room)
+        nreg = nch - nres
+        if nreg > FWD_MAX_REG or fwd_smem_bytes(H, gates, nres, R) > room:
+            continue
+        waves = -(-2 * -(-B // R) // clusters)
+        cost = waves * fwd_step_ns(H, gates, R)
+        if best is None or cost < best_cost:
+            best = FwdRows(R, nres, nreg, waves, fwd_smem_bytes(H, gates, nres, R))
+            best_cost = cost
+    if best is None:
+        raise ValueError(f"no f32 cluster forward plan fits H={H}")
     return best
 
 
@@ -244,3 +340,62 @@ def replay_bptt(cell: str, gx_f, gx_b, wh_f, wh_b, *states):
         outs.append((dgx, dnr))
     (dgx_f, dnr_f), (dgx_b, dnr_b) = outs
     return (dgx_f, dgx_b) if cell == "lstm" else (dgx_f, dgx_b, dnr_f, dnr_b)
+
+
+def replay_fwd_product(h: torch.Tensor, wp: torch.Tensor, p: wide_layout.Plan) -> torch.Tensor:
+    """``h (rows, H) · W_h`` → ``(rows, gates·H)`` as the forwards sum it: in
+    block ``b``, the lane of k-quad group ``kw`` and k lane ``j`` takes the
+    ``k`` whose quad within its chunk is ``4·kw + j`` (``(k % 64) // 4``); the
+    ``j`` lanes' reduce-scatter adds ``(s0 + s2) + (s1 + s3)``, then the
+    groups ``((p0 + p1) + p2) + p3``."""
+    H = h.shape[1]
+    z = h.new_zeros((h.shape[0], wide_layout.gates_of(p) * H))
+    cols = wide_layout.columns(H, p)
+    quad = (torch.arange(H) % CHUNK) // 4
+    for b in range(p.U):
+        parts = []
+        for kw in range(FWD_GROUPS):
+            s = _lane_sums(h, wp[b], torch.where(quad // 4 == kw, quad % 4, -1))
+            parts.append((s[0] + s[2]) + (s[1] + s[3]))
+        acc = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+        ok = cols[b] >= 0
+        z[:, cols[b][ok]] = acc[:, ok]
+    return z
+
+
+def replay_fwd(cell: str, gx_f, gx_b, wh_f, wh_b, bn_f=None, bn_b=None, with_cells: bool = False):
+    """The forward of ``bilstm_fwd_reference`` (``cell="lstm"``; ``(y_f,
+    y_b)``, and ``(c_f, c_b)`` beside them when ``with_cells``) or
+    ``bigru_fwd_reference`` (``"gru"``, with ``bn_f`` / ``bn_b``) in f32,
+    its product summed as the ``"wide_f32"`` forwards sum it
+    (:func:`replay_fwd_product`)."""
+    gates = 4 if cell == "lstm" else 3
+    T, B, G = gx_f.shape
+    H = G // gates
+    if padded(H) != H:
+        raise ValueError(f"replay_fwd runs the kernels' widths, multiples of {K_GRANULE}")
+    p = wide_layout.plan(H, gates)
+    outs = []
+    for gx, wh, bn, steps in ((gx_f, wh_f, bn_f, range(T)), (gx_b, wh_b, bn_b, range(T - 1, -1, -1))):
+        wp = wide_layout.pack_wh(wh, p)
+        h = gx.new_zeros((B, H))
+        c = torch.zeros_like(h)
+        y, cs = gx.new_empty((T, B, H)), gx.new_empty((T, B, H))
+        for t in steps:
+            z = replay_fwd_product(h, wp, p)
+            if cell == "lstm":
+                i, f, g, o = (gx[t] + z).split(H, dim=-1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+            else:
+                xr, xz, xn = gx[t].split(H, dim=-1)
+                hr, hz, hn = z.split(H, dim=-1)
+                rg, zg = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+                ng = torch.tanh(xn + rg * (hn + bn))
+                h = (1.0 - zg) * ng + zg * h
+            y[t], cs[t] = h, c
+        outs.append((y, cs))
+    (yf, cf), (yb, cb) = outs
+    if cell == "lstm" and with_cells:
+        return yf, yb, cf, cb
+    return yf, yb

@@ -4,6 +4,7 @@
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --wide   # the cluster kernels
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --simt --f32 [--route=simt | narrow_f32]
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --simt --f32 --grid
+    python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --wide --f32 [--route=wide | wide_f32]
 
 Builds variants of ``csrc/bilstm_fwd_mma.cu`` and ``csrc/bigru_fwd_mma.cu``
 with one part of the step removed or replaced (macros and edits applied to a
@@ -76,6 +77,21 @@ resident kernel where ``reg_fits``), each at B = R (one cluster a
 direction) and H = 64, 96 (LSTM), 128 and 256 (LSTM) / 320 (GRU), beside the
 plan's step estimate (``fwd_step_cost``, ``reg_step_cost``), which these
 times fit.
+
+With ``--wide --f32`` the f32 cluster forwards at ``WIDE_SHAPES``: the
+CUDA-core ones (``csrc/{bilstm,bigru}_fwd_wide.cu``, route ``"wide"``), full /
+no_product (the k loops removed) / no_gates / no_dsmem / no_cluster_sync
+(the step's ``cluster.sync`` a ``__syncthreads``, one cluster barrier before
+the blocks exit) / loop_only; and the ones that replaced them
+(``csrc/{bilstm,bigru}_fwd_wide_f32.cu``, route ``"wide_f32"``, with
+``wide_f32_fwd.cuh`` and ``f32_cells.cuh`` inlined), at the plan the
+variant's library gives (8 or 4 rows a cluster, printed): no_product (neither the register chunks nor the
+shared-memory ones multiplied), no_gates, no_dsmem (h sent to the block's
+own buffer only, its mbarrier armed for those bytes), no_exchange (neither
+the sends nor the mbarriers, one cluster barrier before the blocks exit),
+no_prefetch, no_store,
+loop_only (no_product, no_gates, no_exchange, no_prefetch and no_store at
+once). ``--route=wide`` / ``--route=wide_f32`` times one route alone.
 
 Times are medians of CUDA-event times over 20 launches (5 runs of 3 for the
 cluster kernels), without cells; the card's name and power limit are printed
@@ -495,6 +511,171 @@ def simt_main(only: str = "") -> int:
     return 0
 
 
+WIDE_F32_VARIANTS = ("full", "no_product", "no_gates", "no_dsmem", "no_cluster_sync",
+                     "loop_only")
+# {variant: [(text, replacement, count)]} on csrc/{bilstm,bigru}_fwd_wide.cu
+# (the same text in both); "no_gates" defines σ and tanh as the identity
+# before the anonymous namespace; "loop_only" applies every one
+OLD_WIDE_EDITS = {
+    "no_product": [("    for (; k + 4 <= k1; k += 4) {\n",
+                    "    for (; false && k + 4 <= k1; k += 4) {\n", 1),
+                   ("    for (; k < k1; ++k) {\n", "    for (; false && k < k1; ++k) {\n", 1)],
+    "no_dsmem": [("cluster.map_shared_rank(hn, dst)", "(hn)", 1)],
+    # (one cluster barrier before the blocks exit: none may leave while
+    # another still writes into its shared memory)
+    "no_cluster_sync": [("    // this step's s_h and s_part done\n    cluster.sync();\n  }\n}\n",
+                         "    // this step's s_h and s_part done\n    __syncthreads();\n  }\n"
+                         "  cluster.sync();\n}\n", 1)],
+}
+
+
+def _old_wide_source(kind: str, name: str) -> str:
+    """``csrc/{kind}_fwd_wide.cu`` with the edits of variant ``name``."""
+    src = (_build.CSRC / f"{kind}_fwd_wide.cu").read_text()
+    parts = list(OLD_WIDE_EDITS) + ["no_gates"] if name == "loop_only" else [name]
+    if "no_gates" in parts:
+        head, sep, body = src.partition("\nnamespace {\n")
+        src = head + "\n" + IDENTITY + sep + body
+    for part in parts:
+        for old, new, count in OLD_WIDE_EDITS.get(part, []):
+            if src.count(old) != count:
+                raise AssertionError(f"{kind} wide {part}: {old!r} appears "
+                                     f"{src.count(old)} times")
+            src = src.replace(old, new)
+    return src
+
+
+NEW_WIDE_F32_VARIANTS = ("full", "no_product", "no_gates", "no_dsmem", "no_exchange",
+                         "no_prefetch", "no_store", "loop_only")
+_ARM = "    if (send && tid == 0) mbar_expect_tx(&s_bar[(s + 1) & 1], 4 * R * H);\n  }\n}\n"
+# {variant: [(text, replacement, count)]} on csrc/{bilstm,bigru}_fwd_wide_f32.cu
+# with wide_f32_fwd.cuh inlined; "no_gates" also defines σ and tanh as the
+# identity before the gate phases; "loop_only" applies no_product, no_gates,
+# no_exchange, no_prefetch and no_store
+NEW_WIDE_EDITS = {
+    "no_product": [("    for (int i = 0; i < NREG; ++i) quad(wr[i], i * kWfChunk + x0);\n",
+                    "    for (int i = 0; i < 0 * NREG; ++i) quad(wr[i], i * kWfChunk + x0);\n", 1),
+                   ("    for (int ch = NREG; ch < NCH; ++ch) {\n      if (x0 >= chunk_rows(ch))",
+                    "    for (int ch = NREG; false && ch < NCH; ++ch) {\n      if (x0 >= chunk_rows(ch))",
+                    1)],
+    # h sent into the block's own buffer only, its mbarrier armed with those bytes
+    "no_dsmem": [("          if ((lane & 3) + 4 * n < U) st_async16(",
+                  "          if ((lane & 3) + 4 * n == rank) st_async16(", 1),
+                 ("mbar_expect_tx(&s_bar[(s + 1) & 1], 4 * R * H)",
+                  "mbar_expect_tx(&s_bar[(s + 1) & 1], 4 * R * nu)", 1)],
+    # no sends, no waits, the mbarriers never armed; one cluster barrier
+    # before the blocks exit
+    "no_exchange": [("      if (send && uq < H) {\n", "      if (false && send && uq < H) {\n", 1),
+                    ("    if (s > 0) mbar_wait(&s_bar[s & 1], ((s - 1) >> 1) & 1);\n", "", 1),
+                    (_ARM, "  }\n  cluster.sync();\n}\n", 1)],
+    "no_prefetch": [("    if (send) prefetch(s + 1);\n", "", 1)],
+    "no_store": [("      if (pair_at(i, r, u) && u < nu && row0 + r < B)\n",
+                  "      if (false && pair_at(i, r, u))\n", 1)],
+}
+LOOP_ONLY = ("no_product", "no_exchange", "no_prefetch", "no_store")
+
+
+def _new_wide_source(kind: str, name: str) -> str:
+    """``csrc/{kind}_fwd_wide_f32.cu`` with ``wide_f32_fwd.cuh`` and
+    ``f32_cells.cuh`` inlined and the edits of variant ``name``."""
+    unpragma = lambda text: text.replace("#pragma once\n", "")  # noqa: E731
+    src = (_build.CSRC / f"{kind}_fwd_wide_f32.cu").read_text()
+    gates = name in ("no_gates", "loop_only")
+    cells = '#include "lstm_common.cuh"\n' + (IDENTITY if gates else "") + unpragma(
+        (_build.CSRC / "f32_cells.cuh").read_text())
+    src = src.replace('#include "f32_cells.cuh"\n', cells)
+    src = src.replace('#include "wide_f32_fwd.cuh"\n',
+                      unpragma((_build.CSRC / "wide_f32_fwd.cuh").read_text()))
+    for part in LOOP_ONLY if name == "loop_only" else [name]:
+        for old, new, count in NEW_WIDE_EDITS.get(part, []):
+            if src.count(old) != count:
+                raise AssertionError(f"{kind} wide_f32 {part}: {old!r} appears "
+                                     f"{src.count(old)} times")
+            src = src.replace(old, new)
+    return src
+
+
+def _build_wide_f32_variants(only: str = "") -> dict:
+    """The f32 ``"wide"`` forwards' variants and the ``"wide_f32"`` ones:
+    {(kind, route, name): library} (``only``: one route's)."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    routes = (("wide", WIDE_F32_VARIANTS, _old_wide_source),
+              ("wide_f32", NEW_WIDE_F32_VARIANTS, _new_wide_source))
+    for kind in ("bilstm", "bigru"):
+        for route, names, source in routes:
+            if only and route != only:
+                continue
+            for name in names:
+                cu = out_dir / f"{kind}_fwd_{route}_{name}.cu"
+                cu.write_text(source(kind, name))
+                so = out_dir / f"{kind}_fwd_{route}_{name}.so"
+                cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                             "-o", str(so), str(cu)])
+                libs[(kind, route, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+def _new_wide_launcher(lib, kind: str, T: int, B: int, H: int, ins: dict):
+    """A function that launches one ``"wide_f32"`` forward variant on ``ins``
+    (no cells), and the plan its library gives."""
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    split = wide_layout.plan(H, 4 if kind == "bilstm" else 3)
+    plan_fn = getattr(lib, f"percival_{kind}_fwd_wide_f32_plan")
+    plan_fn.argtypes, plan_fn.restype = [i] * 4 + [ctypes.POINTER(ctypes.c_int)], i
+    out = (ctypes.c_int * 9)()
+    if plan_fn(B, H, split.Hb, split.U, out):
+        raise RuntimeError(f"{kind} wide_f32 forward: no plan at B={B} H={H}")
+    plan = dict(zip(("U", "Hb", "NC", "R", "nres", "nreg", "clusters", "waves", "smem"), out))
+    wp = [wide_layout.pack_wh(w, split) for w in ins["wh"]]
+    ptrs = [t.data_ptr() for t in (*ins["gx"], *wp)]
+    ptrs += [t.data_ptr() for t in ins["bn"]] if kind == "bigru" else []
+    ptrs += [t.data_ptr() for t in ins["y"]] + ([None, None] if kind == "bilstm" else [])
+    fn = getattr(lib, f"percival_{kind}_fwd_wide_f32")
+    fn.argtypes, fn.restype = [p] * 8 + [i] * 5 + [p], i
+    stream = torch.cuda.current_stream().cuda_stream
+    assert wf.fwd_rows(B, H, split.NC // split.Hb, plan["clusters"]).nreg == plan["nreg"]
+
+    def launch():
+        err = fn(*ptrs, T, B, H, split.Hb, split.U, stream)
+        if err:
+            raise RuntimeError(f"{kind} wide_f32 forward: CUDA error {err}")
+    launch.keep = wp
+    return launch, plan
+
+
+def wide_f32_main(only: str = "") -> int:
+    """The f32 ``"wide"`` forwards' variants and the ``"wide_f32"`` ones at
+    ``WIDE_SHAPES`` (``only``: one route alone)."""
+    libs = _build_wide_f32_variants(only)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kind, gates in (("bilstm", 4), ("bigru", 3)):
+        for T, B, H in WIDE_SHAPES:
+            ins = _f32_inputs(kind, T, B, H, dev, g)
+            if only in ("", "wide"):
+                row = []
+                for name in WIDE_F32_VARIANTS:
+                    launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, "wide", name)])), kind,
+                                            "wide", T, B, H, ins)
+                    row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_fwd_wide T,B,H={(T, B, H)} f32: us a step: "
+                      + ", ".join(row), flush=True)
+            if only in ("", "wide_f32"):
+                row, plan = [], {}
+                for name in NEW_WIDE_F32_VARIANTS:
+                    launch, plan = _new_wide_launcher(
+                        ctypes.CDLL(str(libs[(kind, "wide_f32", name)])), kind, T, B, H, ins)
+                    row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_fwd_wide_f32 T,B,H={(T, B, H)} ({plan}): us a step: "
+                      + ", ".join(row), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fwd_step_breakdown: needs an NVIDIA card", file=sys.stderr)
@@ -510,6 +691,10 @@ def main() -> int:
         only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
         return simt_main(only)
     if "--wide" in sys.argv[1:]:
+        if "--f32" in sys.argv[1:]:
+            only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")),
+                        "")
+            return wide_f32_main(only)
         return wide_main()
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16

@@ -9,16 +9,16 @@ BPTT kernels have four routes each, chosen from dtype and width: bf16 with
 H a multiple of 16 up to 128 takes the tensor-core kernels
 (``csrc/{bilstm,bigru}_{fwd,bwd}_mma.cu``); bf16 past 128 up to H = 608
 (LSTM) / 672 (GRU) the tensor-core cluster kernels
-(``csrc/{bilstm,bigru}_{fwd,bwd}_wide_mma.cu``); the LSTM past H = 256, the
-GRU past H = 320 in f32, and wider bf16, the CUDA-core cluster kernels
-(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096); f32 and other
-widths the one-block CUDA-core ones
-(``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose BPTTs run H that is not a
-multiple of 8 / 32 zero-padded to one); the f32 BPTTs have their own
-cluster kernels, ``csrc/{bilstm,bigru}_bwd_wide_f32.cu`` past the one-block
-widths and ``csrc/{bilstm,bigru}_bwd_narrow_f32.cu`` at them (``-k
-"wide_f32 or narrow_f32"``); the tests pick a route by the dtype and H they
-pass and check it by the wrappers' ``.routes``.
+(``csrc/{bilstm,bigru}_{fwd,bwd}_wide_mma.cu``); f32 past H = 512 and
+wider bf16 the CUDA-core cluster kernels
+(``csrc/{bilstm,bigru}_{fwd,bwd}_wide.cu``, up to H = 4096); other widths
+the one-block CUDA-core ones (``csrc/{bilstm,bigru}_{fwd,bwd}.cu``, whose
+BPTTs run H that is not a multiple of 8 / 32 zero-padded to one); f32 has
+its own cluster kernels, ``csrc/{bilstm,bigru}_{fwd,bwd}_wide_f32.cu`` past
+the one-block widths (LSTM 256, GRU 320) up to 512 and
+``csrc/{bilstm,bigru}_{fwd,bwd}_narrow_f32.cu`` at them (``-k "wide_f32 or
+narrow_f32"``); the tests pick a route by the dtype and H they pass and
+check it by the wrappers' ``.routes``.
 Tolerances, the same for the BiLSTM and the BiGRU kernels: f32 1e-4 (sums
 and transcendentals in another order); bf16 2e-2 (bf16 outputs, and h
 rounded to bf16 before each product, so a one-ulp flip is carried); for the BPTT
@@ -107,12 +107,13 @@ def test_kernel_refuses_grad_mixed_devices_strides_and_width(cuda_device):
         bilstm_fwd(args[0].cpu(), *args[1:])
     with pytest.raises(ValueError):
         bilstm_fwd(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
-    # past H = 256 the cluster kernel runs, up to its limit of 4096
+    # past H = 256 a cluster kernel runs (in f32 up to 512 the f32 one), the
+    # CUDA-core one up to its limit of 4096
     wide = _gates(2, 1, 264, torch.float32, cuda_device, seed=3)
-    r0 = bilstm_fwd.routes["wide"]
+    r0 = bilstm_fwd.routes["wide_f32"]
     with torch.no_grad():
         _close(bilstm_fwd(*wide), bilstm_fwd_reference(*wide), 1e-4)
-    assert bilstm_fwd.routes["wide"] == r0 + 1
+    assert bilstm_fwd.routes["wide_f32"] == r0 + 1
     with pytest.raises(ValueError, match="H <= 4096"):
         bilstm_fwd(*_gates(1, 1, 4097, torch.bfloat16, cuda_device, seed=3))
     args[2].requires_grad_(True)
@@ -451,8 +452,8 @@ def test_tensor_core_forwards_match_twins(cuda_device, T, B, H):
 ROUTE_CASES = [  # (dtype, H, the LSTM's route, the GRU's route)
     (torch.float32, 128, "simt", "simt"), (torch.bfloat16, 144, "wide", "wide"),
     (torch.bfloat16, 40, "simt", "simt"), (torch.bfloat16, 128, "mma", "mma"),
-    (torch.bfloat16, 48, "mma", "mma"), (torch.float32, 264, "wide", "simt"),
-    (torch.float32, 336, "wide", "wide"),
+    (torch.bfloat16, 48, "mma", "mma"), (torch.float32, 264, "wide_f32", "simt"),
+    (torch.float32, 336, "wide_f32", "wide_f32"),
 ]
 
 
@@ -466,9 +467,9 @@ def _route_counts(before, after, route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,H,route,gru_route", ROUTE_CASES)
 def test_forward_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route, gru_route):
-    """f32 and widths outside the tensor-core route launch the CUDA-core
-    kernels (the LSTM's cluster kernel past H = 256), bf16 past 128 the
-    tensor-core cluster kernels, f32 at the one-block widths the f32 narrow
+    """Widths outside the tensor-core route launch the CUDA-core kernels,
+    bf16 past 128 the tensor-core cluster kernels, f32 at the one-block
+    widths the f32 narrow kernels and past them up to 512 the f32 cluster
     kernels; each call counts on its route alone, and agrees with its twin."""
     T, B = 24, 5
     if dtype == torch.bfloat16:  # a bf16 call sent to a cluster takes the tensor cores
@@ -564,11 +565,12 @@ def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route,
     gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
     # a call sent to a cluster takes the tensor cores in bf16; in f32 at
     # these 5 rows and H <= 384 the CUDA-core cluster BPTT, which the card
-    # measured faster than "wide_f32" at so few rows (mma_layout.F32_WIDE_BWD)
+    # measured faster than "wide_f32" at so few rows (mma_layout.F32_WIDE_BWD;
+    # the forward takes "wide_f32" there)
     cluster = "wide_mma" if dtype == torch.bfloat16 else "wide"
     # in f32 the one-block widths take the f32 narrow cluster BPTT
     narrow = "narrow_f32" if dtype == torch.float32 else "simt"
-    route, gru_route = ((cluster if r == "wide" else narrow if r == "simt" else r)
+    route, gru_route = ((cluster if r in ("wide", "wide_f32") else narrow if r == "simt" else r)
                         for r in (route, gru_route))
     l0, g0 = _bwd_routes()
     with torch.no_grad():
@@ -635,10 +637,17 @@ GRU_WIDE_SHAPES = [(33, 9, 336), (64, 1, 640), (40, 32, 512), (1, 1, 512), (24, 
 WIDE_CASES = [("lstm", *s) for s in WIDE_SHAPES] + [("gru", *s) for s in GRU_WIDE_SHAPES]
 
 
-def _wide_route(dtype):
+def _wide_route(dtype, H, cell):
     """The route of a forward sent to the cluster kernels at the widths of
-    ``WIDE_CASES``."""
-    return "wide_mma" if dtype == torch.bfloat16 else "wide"
+    ``WIDE_CASES``: bf16 on the tensor cores, f32 up to H = 512 on its own
+    cluster kernels (``"wide_f32"``), past it on ``"wide"``."""
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
+    if dtype == torch.bfloat16:
+        return "wide_mma"
+    route = fwd_route(dtype, H, cell)
+    assert route == ("wide_f32" if H <= 512 else "wide")
+    return route
 
 
 def _wide_bwd_route(dtype, H, cell, B):
@@ -650,7 +659,7 @@ def _wide_bwd_route(dtype, H, cell, B):
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route
 
     route = bwd_route(dtype, H, cell, B)
-    assert route in (_wide_route(dtype), "wide", "wide_f32")
+    assert route in ("wide_mma" if dtype == torch.bfloat16 else "wide_f32", "wide")
     return route
 
 
@@ -660,7 +669,10 @@ def _wide_bwd_route(dtype, H, cell, B):
 def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
     """Forward (the LSTM's with and without cells) and BPTT on the cluster
     kernels agree with the twins, each counted once on its route (bf16 on
-    the tensor-core cluster kernels, the f32 BPTT up to H = 512 on its own)."""
+    the tensor-core cluster kernels, f32 up to H = 512 on its own); in f32
+    the CUDA-core cluster forward, launched directly, agrees too."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     if cell == "gru":
         f_args = _gru_gates(T, B, H, dtype, cuda_device, seed=T + B)
@@ -668,6 +680,8 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
         f0, b0 = dict(bigru_fwd.routes), dict(bigru_bwd.routes)
         with torch.no_grad():
             _close(bigru_fwd(*f_args), bigru_fwd_reference(*f_args), atol)
+            if dtype == torch.float32:
+                _close(gru_cuda.fwd_launch("wide", *f_args), bigru_fwd_reference(*f_args), atol)
             got, want = bigru_bwd(*b_args), bigru_bwd_reference(*b_args)
             if dtype == torch.float32:
                 _close(got, want, 1e-4)
@@ -675,7 +689,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
                 _close_rel(got[:2], want[:2], 2e-2)
                 _close_rel(got[2:], want[2:], 2e-2)
         torch.cuda.synchronize()
-        assert _route_counts(f0, bigru_fwd.routes, _wide_route(dtype)) == (1, 0)
+        assert _route_counts(f0, bigru_fwd.routes, _wide_route(dtype, H, cell)) == (1, 0)
         assert _route_counts(b0, bigru_bwd.routes, _wide_bwd_route(dtype, H, cell, B)) == (1, 0)
         return
     f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
@@ -685,13 +699,15 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
         want = bilstm_fwd_reference(*f_args, with_cells=True)
         _close(bilstm_fwd(*f_args, with_cells=True), want, atol)
         _close(bilstm_fwd(*f_args), want[:2], atol)
+        if dtype == torch.float32:
+            _close(lstm_cuda.fwd_launch("wide", *f_args, with_cells=True), want, atol)
         got, want = bilstm_bwd(*b_args), bilstm_bwd_reference(*b_args)
         if dtype == torch.float32:
             _close(got, want, 1e-4)
         else:
             _close_rel(got, want, 2e-2)
     torch.cuda.synchronize()
-    assert _route_counts(f0, bilstm_fwd.routes, _wide_route(dtype)) == (2, 0)
+    assert _route_counts(f0, bilstm_fwd.routes, _wide_route(dtype, H, cell)) == (2, 0)
     assert _route_counts(b0, bilstm_bwd.routes, _wide_bwd_route(dtype, H, cell, B)) == (1, 0)
 
 
@@ -732,7 +748,7 @@ def test_wide_autograd_pair_matches_twins(cuda_device, dtype, cell):
         torch.autograd.backward(core(*leaves), (dy, dy))
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
-    assert _route_counts(f0, fwd.routes, _wide_route(dtype)) == (1, 0)
+    assert _route_counts(f0, fwd.routes, _wide_route(dtype, 512, cell)) == (1, 0)
     assert _route_counts(b0, bwd.routes, _wide_bwd_route(dtype, 512, cell, 6)) == (1, 0)
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
@@ -850,6 +866,91 @@ def test_wide_f32_bptt_refuses_bf16_and_widths_past_its_plan(cuda_device):
         with pytest.raises(ValueError, match=f"H <= {wf.max_h(3)}"):
             gru_cuda.bwd_launch("wide_f32", *_gru_bwd_args(2, 1, H, torch.float32, cuda_device,
                                                            seed=1))
+
+
+# --- the f32 cluster forwards (the "wide_f32" route) --------------------------
+
+# the serving chunk's rows (R = 4) and the fakes pass (R = 8) at the widest
+# width, T not a multiple of anything and few rows, T = B = 1, and the
+# Pallas-parity widths 264 / 336 (zero-padded to 288 / 352, a short last
+# block) at 9 rows (R = 4) and 24 (R = 8)
+WIDE_F32_FWD_CASES = [(cell, *s) for cell in ("lstm", "gru") for s in
+                      [(512, 8, 512), (512, 160, 512), (517, 3, 512), (1, 1, 512)]]
+WIDE_F32_FWD_CASES += [("lstm", 33, 9, 264), ("gru", 33, 9, 336), ("lstm", 40, 24, 264),
+                       ("gru", 40, 24, 336)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", WIDE_F32_FWD_CASES)
+def test_wide_f32_forward_matches_twins(cuda_device, cell, T, B, H):
+    """The f32 cluster forwards against the twins (the LSTM with its cells),
+    within 1e-4·max(1, max |v|), launched directly and through the entry,
+    which counts them once on their route (``fwd_route``: ``"wide_f32"``);
+    the CUDA-core cluster forward they replaced agrees on the same inputs."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_gates if gru else _gates)(T, B, H, torch.float32, cuda_device, seed=T + B)
+    cells = {} if gru else {"with_cells": True}
+    want = bigru_fwd_reference(*args) if gru else bilstm_fwd_reference(*args, **cells)
+    tol = 1e-4 * max(1.0, max(w.abs().max().item() for w in want))
+    wrapper = bigru_fwd if gru else bilstm_fwd
+    route = fwd_route(torch.float32, H, cell, B)
+    assert route == "wide_f32"
+    with torch.no_grad():
+        _close(m.fwd_launch("wide_f32", *args, **cells), want, tol)
+        _close(m.fwd_launch("wide", *args, **cells), want, tol)
+        f0 = dict(wrapper.routes)
+        got = wrapper(*args, **cells)
+        torch.cuda.synchronize()
+    assert _route_counts(f0, wrapper.routes, route) == (1, 0)
+    _close(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (288, 320, 384, 416, 480, 512)]
+                         + [("gru", H) for H in (352, 384, 448, 480, 512)])
+@pytest.mark.parametrize("B", [1, 8, 32, 160])
+def test_wide_f32_forward_plan_matches_the_layout(cuda_device, cell, H, B):
+    """The launchers split H as ``ops/wide_layout.py::plan`` does and keep
+    the chunks in shared memory and registers that
+    ``ops/wide_f32_layout.py::fwd_rows`` replays at the card's clusters; H
+    not a multiple of 32 is refused."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+    from percivaltts_tpu_torch.ops import wide_layout
+
+    gates = 3 if cell == "gru" else 4
+    p = wide_layout.plan(H, gates)
+    fn = getattr(_build.library(), f"percival_{'bigru' if gates == 3 else 'bilstm'}_fwd_wide_f32_plan")
+    out = (ctypes.c_int * 9)()
+    assert fn(B, H, p.Hb, p.U, out) == 0
+    U, Hb, NC, R, nres, nreg, clusters, waves, smem = out
+    assert (U, Hb, NC) == (p.U, p.Hb, p.NC) and clusters >= 1
+    assert (R, nres, nreg, waves, smem) == tuple(wf.fwd_rows(B, H, gates, clusters))
+    assert fn(B, H + 8, p.Hb, p.U, out) != 0
+
+
+@pytest.mark.cuda
+def test_wide_f32_forward_refuses_bf16_and_widths_past_its_route(cuda_device):
+    """bf16, H past 512 and H at the one-block widths raise before any launch."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+
+    with pytest.raises(TypeError, match="float32"):
+        lstm_cuda.fwd_launch("wide_f32", *_gates(2, 1, 512, torch.bfloat16, cuda_device, seed=1))
+    with pytest.raises(TypeError, match="float32"):
+        gru_cuda.fwd_launch("wide_f32", *_gru_gates(2, 1, 512, torch.bfloat16, cuda_device, seed=1))
+    for H in (wf.max_h(4) + 1, 128):
+        with pytest.raises(ValueError, match=f"H <= {wf.max_h(4)}"):
+            lstm_cuda.fwd_launch("wide_f32", *_gates(2, 1, H, torch.float32, cuda_device, seed=1))
+        with pytest.raises(ValueError, match=f"H <= {wf.max_h(3)}"):
+            gru_cuda.fwd_launch("wide_f32", *_gru_gates(2, 1, H, torch.float32, cuda_device,
+                                                        seed=1))
 
 
 # --- the f32 narrow cluster BPTTs (the "narrow_f32" route) ---------------------

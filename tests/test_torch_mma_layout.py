@@ -190,8 +190,8 @@ def test_route_is_chosen_from_dtype_and_width():
                      (torch.bfloat16, 136), (torch.float32, 1024)):
         for cell in ("lstm", "gru"):  # the BPTT follows the forward
             assert bwd_route(dtype, H, cell) == fwd_route(dtype, H, cell)
-    for cell in ("lstm", "gru"):  # but f32 up to 512 has its own BPTTs
-        assert fwd_route(torch.float32, 512, cell) == "wide"
+    for cell in ("lstm", "gru"):  # but f32 up to 512 has its own cluster kernels
+        assert fwd_route(torch.float32, 512, cell) == "wide_f32"
         assert bwd_route(torch.float32, 512, cell) == "wide_f32"
         assert fwd_route(torch.float32, 128, cell) == "narrow_f32"
         assert bwd_route(torch.float32, 128, cell) == "narrow_f32"

@@ -98,13 +98,18 @@ def test_launchers_refuse_a_route_they_do_not_take(monkeypatch, cell, kind, rout
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_forwards_refuse_wide_f32(monkeypatch, cell):
-    """The forwards take ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"``
-    and ``"narrow_f32"``; ``"wide_f32"`` is a BPTT's route only."""
+    """The forwards take ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"``,
+    ``"wide_f32"`` and ``"narrow_f32"``, the BPTTs the same routes; a forward
+    refuses ``"wide_f32"`` outside f32 at 128 < H <= 512 before it builds
+    (bf16: ``TypeError``; H = 8, the narrow width here: ``ValueError``)."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("the launcher reached the build"))
-    assert lstm_cuda.FWD_ROUTES == ("mma", "simt", "wide_mma", "wide", "narrow_f32")
-    assert "wide_f32" in lstm_cuda.BWD_ROUTES
-    with pytest.raises(ValueError, match="not 'wide_f32'"):
+    assert lstm_cuda.FWD_ROUTES == ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
+    assert set(lstm_cuda.FWD_ROUTES) == set(lstm_cuda.BWD_ROUTES)
+    with pytest.raises(ValueError, match="H <= 512, got H=8"):
         LAUNCHERS[cell, "fwd"]("wide_f32", *_launch_args(cell, "fwd"))
+    bf16 = tuple(t.to(torch.bfloat16) for t in _launch_args(cell, "fwd"))
+    with pytest.raises(TypeError, match="float32"):
+        LAUNCHERS[cell, "fwd"]("wide_f32", *bf16)
 
 
 # --- the sums against the twins and the Pallas kernels ----------------------------
@@ -231,7 +236,7 @@ def test_every_width_the_forward_route_takes_has_a_plan(cell):
             p = nf.fwd_plan(B, Hp, gates, H100_CLUSTERS)
             assert p.smem <= nf.SMEM_OPTIN and (not p.resident or nf.reg_fits(Hp, gates))
         assert fwd_route(torch.float32, H, cell) == bwd_route(torch.float32, H, cell) == "narrow_f32"
-    assert fwd_route(torch.float32, top + 1, cell) == "wide"
+    assert fwd_route(torch.float32, top + 1, cell) == "wide_f32"
     for H in (16, 100, 128):
         assert fwd_route(torch.bfloat16, H, cell) in ("mma", "simt")
 

@@ -73,7 +73,7 @@ def test_every_width_the_route_takes_has_a_plan(gates):
         r = wf.rows(160, Hp, gates, H100_CLUSTERS)
         assert r.smem <= wf.SMEM_OPTIN and r.nres + r.nstr == len(wf.chunks(Hp))
         assert bwd_route(torch.float32, H, cell) == "wide_f32"
-        assert fwd_route(torch.float32, H, cell) == "wide"
+        assert fwd_route(torch.float32, H, cell) == "wide_f32"
     for H in (513, 544, 608, 640, 1024, 4096):
         assert not wf.fits(H, gates)
         assert bwd_route(torch.float32, H, cell) == fwd_route(torch.float32, H, cell) == "wide"
@@ -92,13 +92,13 @@ WIDE_FASTER_UP_TO = {"lstm": {264: 8, 288: 8, 320: 8, 384: 8, 416: 6, 448: 0, 51
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_f32_bptt_route_takes_the_kernel_measured_faster(cell):
     """At every width and batch the card timed, the f32 BPTT's route is the
-    faster of the two cluster kernels; the forward stays on ``"wide"``;
-    without a batch the route is a large batch's."""
+    faster of the two cluster kernels; the forward takes ``"wide_f32"`` at
+    every batch; without a batch the route is a large batch's."""
     for H, up_to in WIDE_FASTER_UP_TO[cell].items():
         for B in MEASURED_B:
             want = "wide" if B <= up_to else "wide_f32"
             assert bwd_route(torch.float32, H, cell, B) == want, (H, B)
-            assert fwd_route(torch.float32, H, cell) == "wide"
+            assert fwd_route(torch.float32, H, cell) == "wide_f32"
         assert bwd_route(torch.float32, H, cell) == "wide_f32"
     # the batch moves no other route
     for dtype, H in ((torch.bfloat16, 512), (torch.float32, 128), (torch.float32, 1024)):

@@ -70,13 +70,14 @@ from percivaltts_tpu_torch.training.state import make_gan_state
 def test_gru_route_table(dtype, H, route):
     # a cluster of blocks a direction ("wide" in the table) runs on the
     # tensor cores in bf16 up to H = 672 ("wide_mma"), on CUDA cores in f32;
-    # a layer's backward takes its forward's route, but in f32 up to H = 512
-    # the f32 cluster BPTTs ("wide_f32" past the one-block widths); at those
-    # widths both f32 passes take "narrow_f32"
+    # a layer's backward takes its forward's route; in f32 up to H = 512 both
+    # passes take the f32 cluster kernels ("wide_f32" past the one-block
+    # widths), and at those widths "narrow_f32"
     want = "wide_mma" if dtype == torch.bfloat16 and route == "wide" else route
     f32_cluster = dtype == torch.float32 and want == "wide" and H <= 512
     f32_narrow = dtype == torch.float32 and want == "simt"
-    assert fwd_route(dtype, H, "gru") == ("narrow_f32" if f32_narrow else want)
+    assert fwd_route(dtype, H, "gru") == ("narrow_f32" if f32_narrow else
+                                         "wide_f32" if f32_cluster else want)
     assert bwd_route(dtype, H, "gru") == ("wide_f32" if f32_cluster else
                                          "narrow_f32" if f32_narrow else want)
     assert GRU_SIMT_MAX_H[torch.float32] == 320
@@ -186,7 +187,7 @@ def _grads_against_jax(H, use_pallas, T=12, B=2, D=48, seed=0):
 
 @pytest.mark.parametrize("H,use_pallas", [(384, True), (512, False)])
 def test_wide_bigru_and_its_gradients_match_jax(H, use_pallas):
-    assert fwd_route(torch.float32, H, "gru") == "wide"
+    assert fwd_route(torch.float32, H, "gru") == "wide_f32"
     y, y_j, got, want = _grads_against_jax(H, use_pallas)
     assert y.shape == (2, 12, 2 * H)
     np.testing.assert_allclose(y, y_j, atol=1e-5)

@@ -192,7 +192,7 @@ def test_widths_and_routes():
             assert not wm.fits(H, gates)
         for H in (16, 128):
             assert bwd_route(bf16, H, cell) == "mma"
-        assert fwd_route(f32, 512, cell) == "wide" and bwd_route(f32, 512, cell) == "wide_f32"
+        assert fwd_route(f32, 512, cell) == bwd_route(f32, 512, cell) == "wide_f32"
         assert bwd_route(f32, 1024, cell) == fwd_route(f32, 1024, cell) == "wide"
         assert bwd_route(f32, 200, cell) == "narrow_f32"
 
