@@ -246,7 +246,7 @@ raises on failure (the script exits 0 only when all passed):
    (``compute_dtype="float32"``), every forward and BPTT launch on
    ``wide_f32``, one serve held against the twins (the median of 3 timed);
    13c. one WGAN-GP step of each as phase 5 takes them, held against the
-   twins' step as ``_hold_step`` holds phase 5's, the step median of 10
+   twins' step as ``_hold_step`` holds phase 5's, the step median of 5
    (the f32 form: one step held, the median of 3);
    13d. the f32 kernels at B = 8, 32, 160 (H = 512): the ``wide_f32``
    forward and BPTT, each in turns with its twin and the ``wide`` kernel it
@@ -274,17 +274,34 @@ raises on failure (the script exits 0 only when all passed):
    ``"narrow_f32"``, the launch counts recorded;
    15d. the f32 kernels of those paths at ``F32_SIMT_TIMED`` as 13d times
    its kernels: the narrow forwards and BPTTs in turns with the one-block
-   kernels they replaced, beside cuDNN's f32 layer.
+   kernels they replaced, beside cuDNN's f32 layer;
+16. the f32 BPTT's few-row plan (``"wide_f32"`` at B <= 8: R = 1, 2 or 4
+   rows a cluster, ``csrc/wide_f32_few.cuh``):
+   16a. its plans at every B up to 8 at the widths below against
+   ``ops/wide_f32_layout.py::bwd_plan`` at the card's clusters (and at
+   forced rows), ``ptxas``'s registers with 0 spills;
+   16b. both kernels through their entries at every row that kept
+   ``"wide"`` before (``F32_WIDE_KEPT``) and at ``FEW_EDGES``, each launch
+   counted on the few-row kernels, against the twins within
+   ``KERNEL_TOL[f32]``·max(1, max|twin|), with ``"wide"`` launched beside
+   them; and at ``FEW_FORCED``'s forced rows;
+   16c. config 3 and the BGRU in f32 at ``blstm_size=768`` (H = 384,
+   ``FEW_MODELS``) served and trained at ``FEW_TRAIN_B`` = 8 rows as 13b/13c
+   (``FEW_DEPTH``), every BPTT launch on the few-row kernels;
+   16d. both kernels at ``F32_WIDE_KEPT`` in turns with ``"wide"`` and the
+   twin, beside the bound and cuDNN's f32 layer (events, device time).
 
 With ``--f32-times`` the script builds, then only times f32 and exits:
 15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
 kernel in turns, forward and BPTT, at each width of ``F32_NARROW_WIDTHS``
-and B of ``F32_NARROW_BATCHES``; the BPTT rows ``F32_WIDE_BWD`` keeps on ``"wide"``
-(``F32_WIDE_KEPT``) beside cuDNN's layer; and both cluster forwards and
-both cluster BPTTs, ``"wide"`` and ``"wide_f32"``, in turns at each width of
-``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES``; each beside the route
-``fwd_route`` / ``bwd_route`` takes there; it prints no kernel line and no
-device record.
+and B of ``F32_NARROW_BATCHES``; the BPTT rows that kept ``"wide"`` before
+the few-row plan (``F32_WIDE_KEPT``) on ``"wide_f32"`` in turns with
+``"wide"``, beside cuDNN's layer; and both cluster forwards and both cluster
+BPTTs, ``"wide"`` and ``"wide_f32"``, in turns at each width of
+``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES`` (where the BPTT's plan
+takes its few-row kernels, its chunked kernel at R = 8 beside them); each
+beside the route ``fwd_route`` / ``bwd_route`` takes there; it prints no
+kernel line and no device record.
 
 Launch counts are set to 0 just before each serve, train, vocode or
 training-loop path (on each rank of 12b, which reports its counts) and
@@ -345,11 +362,13 @@ REQUEST_LENGTHS = (96, 137, 250, 400, 512, 777, 1024, 1500)
 SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_ln": 0.125,
              "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125, "bgru_1024": 0.125,
              "cnn_blstm_1024_f32": 1e-3, "bgru_1024_f32": 1e-3,
-             "cnn_blstm_f32": 1e-3, "bgru_f32": 1e-3}
+             "cnn_blstm_f32": 1e-3, "bgru_f32": 1e-3,
+             "cnn_blstm_768_f32": 1e-3, "bgru_768_f32": 1e-3}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
           "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075,
           "cnn_blstm_1024_f32": 6_003_043, "bgru_1024_f32": 9_983_075,
-          "cnn_blstm_f32": 3_246_691, "bgru_f32": 726_371}
+          "cnn_blstm_f32": 3_246_691, "bgru_f32": 726_371,
+          "cnn_blstm_768_f32": 4_822_115, "bgru_768_f32": 5_717_859}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -377,6 +396,11 @@ MODELS = {
     # forwards and BPTTs on the f32 narrow kernels ("narrow_f32")
     "cnn_blstm_f32": dict(generator="cnn_blstm", compute_dtype="float32"),
     "bgru_f32": dict(generator="bgru", compute_dtype="float32"),
+    # phase 16: config 3 and the BGRU in f32 at blstm_size=768 (H = 384 a
+    # direction), trained at FEW_TRAIN_B rows: the BPTTs take the few-row
+    # plan of "wide_f32" (csrc/wide_f32_few.cuh)
+    "cnn_blstm_768_f32": dict(generator="cnn_blstm", blstm_size=768, compute_dtype="float32"),
+    "bgru_768_f32": dict(generator="bgru", blstm_size=768, compute_dtype="float32"),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
@@ -386,6 +410,9 @@ TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
 # the wrappers with three routes (``.routes``): tensor cores ("mma"), CUDA
 # cores in one block a direction ("simt") or a cluster of blocks ("wide")
 ROUTED = ("bilstm_fwd", "bigru_fwd", "bilstm_bwd", "bigru_bwd")
+# the BPTT wrappers, which also count their "wide_f32" launches by the kernel
+# its plan took (``.wide_f32_plans``: "chunked" or "few")
+PLANNED = ("bilstm_bwd", "bigru_bwd")
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
 # BPTT: the training shape, edge shapes, the narrow width, and H=160 (bf16
@@ -460,14 +487,15 @@ N_TIMED_VOCODES = 3
 TRAIN_B, TRAIN_T, LABEL_DIM = 32, 512, 425
 UTT_FRAMES = (300, 512)  # utterance lengths: every batch pads, masks hold zeros
 N_CHECKED_STEPS = 3
-N_TIMED_STEPS = 10
+N_TIMED_STEPS = 5
 # launches a WGAN-GP step makes: (forward, BPTT). Config 3: the f0 head's
 # BiLSTM in the no-grad fakes pass and in the generator update, and one
 # BPTT. BGRU: each of 2 layers in both passes, and one BPTT per layer.
 STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "bgru_ln": (4, 2),
                  "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2), "bgru_1024": (4, 2),
                  "cnn_blstm_1024_f32": (2, 1), "bgru_1024_f32": (4, 2),
-                 "cnn_blstm_f32": (2, 1), "bgru_f32": (4, 2)}
+                 "cnn_blstm_f32": (2, 1), "bgru_f32": (4, 2),
+                 "cnn_blstm_768_f32": (2, 1), "bgru_768_f32": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -575,12 +603,13 @@ F32_SIMT_TIMED = [(512, 8, 128), (512, 32, 128)]
 # it and the one-block kernel ("simt") in turns at each width and B
 F32_NARROW_WIDTHS = {"lstm": (64, 96, 128, 160, 192, 256), "gru": (64, 128, 192, 256, 320)}
 F32_NARROW_BATCHES = (1, 2, 4, 8, 16, 32, 160)
-# the f32 BPTT's rows that mma_layout.F32_WIDE_BWD keeps on "wide", timed
-# beside cuDNN's layer (the GRU at 288 takes "narrow_f32")
-F32_WIDE_KEPT = [(512, 8, 288), (512, 8, 384)]
+# the f32 BPTT's rows that mma_layout.F32_WIDE_BWD kept on "wide" before the
+# few-row plan of "wide_f32", by cell, timed beside cuDNN's layer
+F32_WIDE_KEPT = {"lstm": [(512, 8, 288), (512, 8, 384), (512, 6, 416)],
+                 "gru": [(512, 8, 384), (512, 6, 512)]}
 F32_ROUTE_WIDTHS = {"lstm": (264, 288, 320, 384, 416, 448, 512),
                     "gru": (336, 352, 384, 416, 448, 512)}
-F32_ROUTE_BATCHES = (1, 2, 4, 6, 8, 16, 24, 32, 160)
+F32_ROUTE_BATCHES = (1, 2, 3, 4, 5, 6, 7, 8, 16, 24, 32, 160)
 WIDE_MODELS = ("cnn_blstm_1024", "blstm_1024", "cnn_blstm_1024_f32")
 # the f32 forms' depth (one serve of the 8 requests and one WGAN-GP step
 # checked against the twins; serves timed, steps checked, steps timed)
@@ -605,6 +634,18 @@ WIDE_GRU_MODELS = ("bgru_1024", "bgru_1024_f32")
 # phase 15: the f32 models at the default width (forwards and BPTTs
 # "narrow_f32"), served and stepped at F32_DEPTH
 NARROW_MODELS = ("cnn_blstm_f32", "bgru_f32")
+# phase 16: the f32 BPTT's few-row plan ("wide_f32" at B <= 8,
+# csrc/wide_f32_few.cuh): its models, their training rows (a card's share of
+# the default batch of 32 over 4 cards) and depth (serves timed, steps
+# checked, steps timed), the edge shapes it is also held on (B = 1, 3, 5, 7:
+# R = 1, 2, 4 with padding rows), and the rows a cluster it is forced to
+FEW_MODELS = ("cnn_blstm_768_f32", "bgru_768_f32")
+FEW_TRAIN_B = 8
+FEW_DEPTH = (1, 1, 3)
+FEW_EDGES = {"lstm": [(33, 1, 288), (33, 3, 384), (33, 5, 416), (33, 7, 264)],
+             "gru": [(33, 1, 352), (33, 3, 384), (33, 5, 512), (33, 7, 480)]}
+FEW_FORCED = {"lstm": [(33, 8, 384, 1), (33, 8, 384, 2), (33, 6, 416, 1)],
+              "gru": [(33, 8, 512, 1), (33, 8, 512, 2), (33, 6, 384, 4)]}
 
 ANALYSIS_VARIANTS = (
     ("world te", dict(kind="world", envelope="te"), {}),
@@ -632,6 +673,8 @@ def _zero_counts() -> None:
         fn.launches = 0
         if name in ROUTED:
             fn.routes = {route: 0 for route in fn.routes}
+        if name in PLANNED:
+            fn.wide_f32_plans = {plan: 0 for plan in fn.wide_f32_plans}
 
 
 def _counts() -> dict:
@@ -642,6 +685,13 @@ def _routes() -> dict:
     """The recurrent wrappers' launches by route: {name: {route: n}}."""
     kernels = _kernels()
     return {name: dict(kernels[name].routes) for name in ROUTED}
+
+
+def _plans() -> dict:
+    """The BPTT wrappers' ``"wide_f32"`` launches by the kernel their plan
+    took: {name: {"chunked": n, "few": n}}."""
+    kernels = _kernels()
+    return {name: dict(kernels[name].wide_f32_plans) for name in PLANNED}
 
 
 def _no_routes() -> dict:
@@ -886,7 +936,7 @@ def _check_kernels(dev) -> dict:
         for (T, B, H), dtype in bwd_cases:
             tol, rel = BWD_TOL[dtype], dtype == bf16
             for unaligned in (False, True) if (T, B, H) == BWD_UNALIGNED and rel else (False,):
-                route = bwd_route(dtype, H, "lstm", B)
+                route = bwd_route(dtype, H, "lstm")
                 tag = f"{route}{', gx unaligned' if unaligned else ''}"
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
                 if unaligned:
@@ -902,7 +952,7 @@ def _check_kernels(dev) -> dict:
                     held(_f32_key("bilstm_bwd", other),
                          _compare(f"[bilstm_bwd {other}, launched] T={T} B={B} H={H} f32",
                                   l.bwd_launch(other, *args), want, tol, rel))
-                route = bwd_route(dtype, H, "gru", B)
+                route = bwd_route(dtype, H, "gru")
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
                 if unaligned:
                     args = (_unaligned(args[0]), *args[1:])
@@ -966,7 +1016,7 @@ def _check_kernels(dev) -> dict:
             base = make(T, B, H, dtype, dev, seed=7)
             dy = _dy(T, B, H, dtype, dev, seed=1)
             grads = []
-            route, broute = fwd_route(dtype, H, cell), bwd_route(dtype, H, cell, B)
+            route, broute = fwd_route(dtype, H, cell), bwd_route(dtype, H, cell)
             for c in (core, twin):
                 leaves = [t.clone().requires_grad_(True) for t in base]
                 f0, b0 = fwd.routes[route], bwd.routes[broute]
@@ -1025,7 +1075,7 @@ def _serve_path(dev, kind: str, n_timed: int = 7) -> dict:
     _zero_counts()
     calls[0] = 0
     feats = serve(gen, labs, in_stats, out_stats)
-    counts, gen_calls, routes = _counts(), calls[0], _routes()
+    counts, gen_calls, routes, plans = _counts(), calls[0], _routes(), _plans()
     fwd = "bigru_fwd" if _is_gru(kind) else "bilstm_fwd"
     per_call = sum(isinstance(m, BiLSTM) for m in gen.modules())  # recurrent layers
     print(f"[serve {kind}] {len(labs)} requests, {gen_calls} generator calls, launches {counts}")
@@ -1060,8 +1110,8 @@ def _serve_path(dev, kind: str, n_timed: int = 7) -> dict:
           f"(min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f}), {frames / med:.0f} frames/s")
     busy_share, _ = _profiled(f"serve {kind}", lambda: serve(gen, labs, in_stats, out_stats),
                               RECURRENT)
-    return {"counts": counts, "routes": routes, "serve_ms": med * 1e3, "err": float(serve_err),
-            "feats": feats, "busy_share": busy_share}
+    return {"counts": counts, "routes": routes, "plans": plans, "serve_ms": med * 1e3,
+            "err": float(serve_err), "feats": feats, "busy_share": busy_share}
 
 
 def _train_setup(dev, kind: str, mesh=None):
@@ -1194,7 +1244,7 @@ def _train_path(dev, kind: str, n_checked: int = 0, n_timed: int = 0) -> dict:
             raise AssertionError(f"a WGAN step launched {launched}, not {STEP_LAUNCHES[kind]}")
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"non-finite metrics at step {s}: {vals}")
-    counts, routes = _counts(), _routes()
+    counts, routes, plans = _counts(), _routes(), _plans()
     if sum(counts.values()) != fwd.launches + bwd.launches:
         raise AssertionError(f"the {kind} steps launched another generator's kernels: {counts}")
     _all_mma(f"train {kind}", routes, f32=_is_f32(kind))
@@ -1233,8 +1283,8 @@ def _train_path(dev, kind: str, n_checked: int = 0, n_timed: int = 0) -> dict:
     print(f"[time] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
     busy_share, _ = _profiled(f"{kind}, one step", lambda: step(state, *sets[0]), RECURRENT)
-    return {"counts": counts, "routes": routes, "step_ms": step_ms, "busy_share": busy_share,
-            "checked": n_checked}
+    return {"counts": counts, "routes": routes, "plans": plans, "step_ms": step_ms,
+            "busy_share": busy_share, "checked": n_checked}
 
 
 def _hold_step(tag: str, what: str, got, want) -> None:
@@ -1971,7 +2021,7 @@ def _time_kernels(dev) -> dict:
                 (l.fwd_launch if fwd else l.bwd_launch)
             with torch.no_grad():
                 ms = _median_ms(lambda: kern(*args), runs=7, inner=10)
-                plain_ms = _median_ms(lambda: twin(*args), runs=3)
+                plain_ms = _once_ms(lambda: twin(*args))
                 routed = {"route": (fwd_route if fwd else bwd_route)(dt, H, kind),
                           "us_per_step": ms / T * 1e3,
                           "simt_ms": _median_ms(lambda: launch("simt", *args), runs=7, inner=10),
@@ -3362,22 +3412,7 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
                       f"{'shared memory' if w_smem else 'L2'}, {clusters} clusters at once "
                       f"({-(-2 * -(-B // R) // clusters)} waves), {smem} B shared memory")
         if wide_f32_layout.fits(H, gates):
-            Hp = wide_f32_layout.padded(H)
-            pf = wide_layout.plan(Hp, gates)
-            out = (ctypes.c_int * 9)()
-            _build.check(getattr(lib, f"percival_{name}_bwd_wide_f32_plan")(B, Hp, pf.Hb, pf.U, out),
-                         f"the f32 wide BPTT plan at B={B} H={Hp}")
-            U, Hb, NC, R, nres, nstr, clusters, waves, smem = out
-            rows = wide_f32_layout.rows(B, Hp, gates, clusters)
-            if (U, Hb, NC) != (pf.U, pf.Hb, pf.NC) or (R, nres, nstr, waves, smem) != tuple(rows):
-                raise AssertionError(f"the {name} wide_f32 plan {list(out)} is not {pf}, {rows}")
-            slot, ring = wide_f32_layout.slot_bytes(NC), wide_f32_layout.RING if nstr else 0
-            print(f"[wide plan] {name} bwd wide_f32 B={B} H={H} (run at {Hp}) f32: {U} blocks of "
-                  f"{Hb} units, {wide_f32_layout.THREADS} threads, {R} rows a cluster, {clusters} "
-                  f"clusters at once ({waves} waves), W_h slice {Hp * NC * 4} B: {nres} chunks "
-                  f"resident ({nres * slot} B), {nstr} streamed a step "
-                  f"({nstr * wide_f32_layout.CHUNK * NC * 4} B) through {ring} ring slots "
-                  f"({ring * slot} B), {smem} B shared memory")
+            _wide_f32_bwd_plan(lib, name, gates, B, H)
         if wide_f32_layout.fwd_fits(H, gates):
             Hp = wide_f32_layout.padded(H)
             pf = wide_layout.plan(Hp, gates)
@@ -3433,6 +3468,160 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
             held = "wide_mma" in line or f"{name}_fwd_wide_f32" in line
             if held and not line.split("spill ")[1].startswith("0/0 "):
                 raise AssertionError(f"a wide kernel instantiation spills: {line}")
+
+
+def _wide_f32_clusters(lib, name: str, Hp: int) -> dict:
+    """The clusters the card holds at once of each kernel of the f32 BPTT at
+    width ``Hp`` (a multiple of 32), by R: its plan with R forced (an R that
+    does not fit left out)."""
+    import ctypes
+
+    from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout
+
+    pf = wide_layout.plan(Hp, 4 if name == "bilstm" else 3)
+    out = {}
+    for R in wide_f32_layout.FEW_ROWS + tuple(8 * nt for nt in wide_f32_layout.ROW_TILES):
+        buf = (ctypes.c_int * 9)()
+        if getattr(lib, f"percival_{name}_bwd_wide_f32_plan")(1, Hp, pf.Hb, pf.U, R, buf) == 0:
+            out[R] = buf[6]
+    return out
+
+
+def _wide_f32_bwd_plan(lib, name: str, gates: int, B: int, H: int, rows: int = 0):
+    """The f32 BPTT's launch plan at (B, H) (``rows``: R forced) against
+    ``ops/wide_f32_layout.py::bwd_plan`` at the card's clusters by R: the
+    split must be ``wide_layout``'s, the rows, chunks, waves and bytes the
+    layout's; printed. Returns it."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_f32_layout, wide_layout
+
+    Hp = wide_f32_layout.padded(H)
+    pf = wide_layout.plan(Hp, gates)
+    out = (ctypes.c_int * 9)()
+    _build.check(getattr(lib, f"percival_{name}_bwd_wide_f32_plan")(B, Hp, pf.Hb, pf.U, rows, out),
+                 f"the f32 wide BPTT plan at B={B} H={Hp} rows={rows}")
+    plan = wide_f32_layout.BwdPlan(*out)
+    want = wide_f32_layout.bwd_plan(B, Hp, gates, _wide_f32_clusters(lib, name, Hp), rows)
+    if plan[:3] != (pf.U, pf.Hb, pf.NC) or (plan.R, plan.nres, plan.nstr, plan.waves,
+                                             plan.smem) != tuple(want):
+        raise AssertionError(f"the {name} wide_f32 plan {plan} is not {pf}, {want}")
+    head = (f"[wide plan] {name} bwd wide_f32 B={B} H={H} (run at {Hp}) f32"
+            + (f", R = {rows} forced" if rows else "") + f": {plan.U} blocks of {plan.Hb} units, ")
+    if plan.R <= 4:
+        print(head + f"few-row kernel, {wide_f32_layout.few_threads(Hp, gates)} threads, {plan.R} "
+              f"rows a cluster, {plan.clusters} clusters at once ({plan.waves} waves), the W_h "
+              f"slice ({Hp * plan.NC * 4} B) resident, {plan.smem} B shared memory")
+    else:
+        slot = wide_f32_layout.slot_bytes(plan.NC)
+        ring = wide_f32_layout.RING if plan.nstr else 0
+        print(head + f"chunked kernel, {wide_f32_layout.THREADS} threads, {plan.R} rows a cluster, "
+              f"{plan.clusters} clusters at once ({plan.waves} waves), W_h slice "
+              f"{Hp * plan.NC * 4} B: {plan.nres} chunks resident ({plan.nres * slot} B), "
+              f"{plan.nstr} streamed a step ({plan.nstr * wide_f32_layout.CHUNK * plan.NC * 4} B) "
+              f"through {ring} ring slots ({ring * slot} B), {plan.smem} B shared memory")
+    return plan
+
+
+def _few_plans(dev) -> None:
+    """Phase 16a: the f32 BPTT's plan at every B up to 8 at the widths of
+    ``F32_WIDE_KEPT`` and ``FEW_EDGES``, and at ``FEW_FORCED``'s forced rows,
+    against ``wide_f32_layout.bwd_plan`` (``_wide_f32_bwd_plan``): the
+    few-row kernels wherever one of their R fits; then ``ptxas``'s registers
+    and spills of their instantiations (a spill fails)."""
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_f32_layout
+
+    lib = _build.library()
+    for cell, gates, name in (("lstm", 4, "bilstm"), ("gru", 3, "bigru")):
+        widths = {H for _, _, H in F32_WIDE_KEPT[cell] + FEW_EDGES[cell]}
+        for H in sorted(widths):
+            for B in range(1, 9):
+                plan = _wide_f32_bwd_plan(lib, name, gates, B, H)
+                fits = any(wide_f32_layout.few_fits(wide_f32_layout.padded(H), gates, R)
+                           for R in wide_f32_layout.FEW_ROWS)
+                if fits != (plan.R <= 4):
+                    raise AssertionError(f"{name} at B={B} H={H}: plan R = {plan.R}")
+        for _, B, H, R in FEW_FORCED[cell]:
+            if _wide_f32_bwd_plan(lib, name, gates, B, H, rows=R).R != R:
+                raise AssertionError(f"{name} at B={B} H={H} did not take R = {R}")
+    for line in _ptxas_usage(BUILD_LOG):
+        if "_few_kernel" in line:
+            print(f"[few ptxas] {line}")
+            if not line.split("spill ")[1].startswith("0/0 "):
+                raise AssertionError(f"a few-row BPTT instantiation spills: {line}")
+
+
+def _check_few_kernels(dev) -> dict:
+    """Phase 16b: the f32 BPTTs through their entries (``bilstm_bwd`` /
+    ``bigru_bwd``, route ``"wide_f32"``) at every row ``F32_WIDE_KEPT`` kept
+    on ``"wide"`` before the few-row plan and at ``FEW_EDGES``, each launch
+    counted on the few-row kernel, held against the twins within
+    ``KERNEL_TOL[f32]``·max(1, max|twin|), with the ``"wide"`` kernel
+    launched directly on the same inputs and held the same way; the few-row
+    kernels also at ``FEW_FORCED``'s forced rows. Returns the largest
+    |kernel − twin| of each: ``*_bwd_wide_f32_few``,
+    ``*_bwd_wide_f32_few_earlier`` (``"wide"``)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    f32 = torch.float32
+    err = {}
+
+    def hold(label, got, want):
+        limit = KERNEL_TOL[f32] * max(1.0, max(w.abs().max().item() for w in want))
+        return _compare(label, got, want, limit, relative=False)
+
+    with torch.no_grad():
+        for cell, m, name in (("lstm", lstm_cuda, "bilstm_bwd"), ("gru", gru_cuda, "bigru_bwd")):
+            args_fn = _gru_bwd_args if cell == "gru" else _bwd_args
+            wrapper, twin = getattr(m, name), getattr(m, f"{name}_reference")
+            few, earlier = f"{name}_wide_f32_few", f"{name}_wide_f32_few_earlier"
+            err[few] = err[earlier] = 0.0
+            for T, B, H in F32_WIDE_KEPT[cell] + FEW_EDGES[cell]:
+                route = bwd_route(f32, H, cell)
+                if route != "wide_f32":
+                    raise AssertionError(f"{name} routes f32 B={B} H={H} to {route!r}")
+                args = args_fn(T, B, H, f32, dev, seed=T + B + H)
+                want = twin(*args)
+                tag = f"T={T} B={B} H={H} f32"
+                before = wrapper.wide_f32_plans["few"]
+                got = _launch_once(wrapper, *args, route=route)
+                if wrapper.wide_f32_plans["few"] != before + 1:
+                    raise AssertionError(f"{name} at {tag} did not launch the few-row kernel")
+                err[few] = max(err[few], hold(f"[{name} wide_f32 few-row] {tag}", got, want))
+                got = m.bwd_launch("wide", *args)  # the kernel it replaced, uncounted
+                torch.cuda.synchronize()
+                err[earlier] = max(err[earlier],
+                                   hold(f"[{name} wide, launched directly] {tag}", got, want))
+            for T, B, H, R in FEW_FORCED[cell]:
+                args = args_fn(T, B, H, f32, dev, seed=T + B + H + R)
+                got = m.bwd_launch("wide_f32", *args, rows=R)
+                torch.cuda.synchronize()
+                err[few] = max(err[few], hold(f"[{name} wide_f32 few-row, R = {R} forced] T={T} "
+                                              f"B={B} H={H} f32", got, twin(*args)))
+    return err
+
+
+def _few_models_path(dev, card: str) -> dict:
+    """Phase 16c: ``FEW_MODELS`` served and trained at ``FEW_TRAIN_B`` rows
+    (``_cluster_models_path`` at ``FEW_DEPTH``), every BPTT launch of the
+    steps on the few-row kernels."""
+    global TRAIN_B
+    saved, TRAIN_B = TRAIN_B, FEW_TRAIN_B
+    try:
+        runs = _cluster_models_path(dev, card, FEW_MODELS, depth=FEW_DEPTH)
+    finally:
+        TRAIN_B = saved
+    for kind, run in runs.items():
+        name = f"{'bigru' if _is_gru(kind) else 'bilstm'}_bwd"
+        n, few = run["train"]["counts"][name], run["train"]["plans"][name]["few"]
+        print(f"[few] ({card}) {kind} at B = {FEW_TRAIN_B}: {few} of {n} BPTT launches on the "
+              "few-row kernels")
+        if not n or few != n:
+            raise AssertionError(f"train {kind}: {few} of {n} BPTT launches on the few-row kernels")
+    return runs
 
 
 def _narrow_plans(dev) -> dict:
@@ -3584,7 +3773,7 @@ def _check_wide_kernels(dev) -> dict:
                         err[key] = max(err[key], e)
         for T, B, H in WIDE_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype, tol in BWD_TOL.items():
-                rel, route = dtype == bf16, bwd_route(dtype, H, "lstm", B)
+                rel, route = dtype == bf16, bwd_route(dtype, H, "lstm")
                 if (T, B, H) == WIDE_MMA_SHAPE and route not in ("wide_mma", "wide_f32"):
                     continue
                 args = _bwd_args(T, B, H, dtype, dev, seed=T + B)
@@ -3646,7 +3835,7 @@ def _check_wide_kernels(dev) -> dict:
         base = _gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
-        froute, broute = fwd_route(dtype, H), bwd_route(dtype, H, "lstm", B)
+        froute, broute = fwd_route(dtype, H), bwd_route(dtype, H, "lstm")
         for c in (l.bilstm_core, l.bilstm_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
             f0, b0 = l.bilstm_fwd.routes[froute], l.bilstm_bwd.routes[broute]
@@ -3717,7 +3906,7 @@ def _check_wide_gru_kernels(dev) -> dict:
                     err[key] = max(err[key], e)
         for T, B, H in WIDE_GRU_BWD_SHAPES + [WIDE_MMA_SHAPE]:
             for dtype in BWD_TOL:
-                route = bwd_route(dtype, H, "gru", B)
+                route = bwd_route(dtype, H, "gru")
                 if (T, B, H) == WIDE_MMA_SHAPE and route not in ("wide_mma", "wide_f32"):
                     continue
                 args = _gru_bwd_args(T, B, H, dtype, dev, seed=T + B)
@@ -3771,7 +3960,7 @@ def _check_wide_gru_kernels(dev) -> dict:
         base = _gru_gates(T, B, H, dtype, dev, seed=7)
         dy = _dy(T, B, H, dtype, dev, seed=1)
         grads = []
-        froute, broute = fwd_route(dtype, H, "gru"), bwd_route(dtype, H, "gru", B)
+        froute, broute = fwd_route(dtype, H, "gru"), bwd_route(dtype, H, "gru")
         for c in (g.bigru_core, g.bigru_core_reference):
             leaves = [t.clone().requires_grad_(True) for t in base]
             f0, b0 = g.bigru_fwd.routes[froute], g.bigru_bwd.routes[broute]
@@ -3847,8 +4036,9 @@ def _time_wide_kernels(dev, cell: str = "lstm") -> dict:
                         row[f"rows_{alt}_ms"] = statistics.mean(times[(route, alt)])
                 row["kernel_device_ms"] = _device_ms(lambda: kern(*args), calls=3,
                                                      match=f"{name}_{route}_kernel")
-                # the twins loop over T in Python (~1 s a call): not timed at the fakes pass
-                plain_ms = _median_ms(lambda: twin(*args), runs=3) if B <= 32 else None
+                # the twins loop over T in Python (~1 s a call): timed once, and not
+                # at the fakes pass
+                plain_ms = _once_ms(lambda: twin(*args)) if B <= 32 else None
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(device=dev, dtype=dt)
@@ -3896,7 +4086,7 @@ def _once_ms(fn) -> float:
 
 def _in_turns(calls: dict, order) -> dict:
     """The mean time in ms of each of ``calls`` (name → function) timed in
-    ``order`` (e.g. earlier, kernel, twin, twin, kernel, earlier): a call
+    ``order`` (e.g. earlier, kernel, twin, kernel, earlier): a call
     named ``"twin"`` once with no warm-up (``_once_ms``), any other as the
     median of 5 calls (``_median_ms``)."""
     times = {who: [] for who in calls}
@@ -3919,22 +4109,22 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide_f32"
     H = 256 (LSTM) / 320 (GRU) the f32 cluster forward and BPTT
     (``"wide_f32"``; the BPTT's route is ``bwd_route``'s), each in turns with
     the CUDA-core cluster kernel it replaced (``"wide"``) and the twin
-    (earlier, routed, twin, twin, routed, earlier; the kernels' medians of 5
-    calls, the twin's one call, ``_in_turns``); with ``route="narrow_f32"``
+    (earlier, routed, twin, routed, earlier; the kernels' medians of 5
+    calls, the twin's one call, ``_in_turns``; a BPTT row records its plan's
+    rows, R <= 4 the few-row kernels); with ``route="narrow_f32"``
     (phase 15d, ``python3 chip_smoke.py --f32-times``) the forward and the
     BPTT on ``"narrow_f32"``, each in turns with the one-block kernel it
-    replaced (``"simt"``); a route with no earlier kernel (``"wide"``, the
-    BPTT rows ``F32_WIDE_BWD`` keeps) in turns with its twin alone (kernel,
-    twin, twin, kernel). ``what``: the
+    replaced (``"simt"``); a route with no earlier kernel (``"wide"``) in
+    turns with its twin alone (kernel, twin, kernel). ``what``: the
     kernels timed (``"fwd"``, ``"bwd"``). Each row beside the
     bound at the f32 rate and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
     in f32 (TF32 off, as ``main`` sets it) by CUDA events and by device time
-    (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls), a
-    kernel timed beside an earlier one also by its own device time. A port layer's device
+    (``_layer_times``: medians of 2 × 3 calls, device time over 3 calls), and
+    the kernel also by its own device time. A port layer's device
     time under half its kernel's time is a trace that lost the kernel's
     events (the cluster kernels' now and then; the kernel is nearly all of
     its layer): it is printed as such and kept as None, not measured."""
-    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_f32_layout
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -3948,9 +4138,8 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide_f32"
         fwd = name.endswith("fwd")
         rows = []
         for T, B, H in shapes or WIDE_TIMED:
-            taken = fwd_route(dt, H, cell, B) if fwd else bwd_route(dt, H, cell, B)
-            # a BPTT may take the kernel its route replaced, or the one that
-            # replaced it, at the rows F32_WIDE_BWD keeps
+            taken = fwd_route(dt, H, cell, B) if fwd else bwd_route(dt, H, cell)
+            # a BPTT may be asked on the kernel its route replaced
             if taken != route and (fwd or (taken != EARLIER_F32.get(route)
                                            and EARLIER_F32.get(taken) != route)):
                 raise AssertionError(f"{name} routes f32 at H = {H} to {taken!r}, not {route!r}")
@@ -3960,16 +4149,16 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide_f32"
                 args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
             kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
             calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args)}
-            turns = ("kernel", "twin", "twin", "kernel")
+            turns = ("kernel", "twin", "kernel")
             earlier = EARLIER_F32.get(taken)
             if earlier:  # the route's kernel in turns with the one it replaced
                 launch = m.fwd_launch if fwd else m.bwd_launch
                 calls["earlier"] = lambda: launch(earlier, *args)
-                turns = ("earlier", "kernel", "twin", "twin", "kernel", "earlier")
+                turns = ("earlier", "kernel", "twin", "kernel", "earlier")
             with torch.no_grad():
                 times = _in_turns(calls, turns)
-                kernel_device_ms = None if not earlier else _device_ms(
-                    lambda: kern(*args), calls=3, match=f"{name}_{taken}")
+                kernel_device_ms = _device_ms(lambda: kern(*args), calls=3,
+                                              match=f"{name}_{taken}")
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(dev)
@@ -3984,19 +4173,23 @@ def _time_wide_f32(dev, cell: str = "lstm", shapes=None, route: str = "wide_f32"
                 lt["layer_device_ms"] = None
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
             row = {"shape": [T, B, H], "route": taken, "ms": ms, "us_per_step": ms / T * 1e3,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, **lt}
-            beside = ""
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "kernel_device_ms": kernel_device_ms, **lt}
+            beside = f"; {kernel_device_ms} device ms"
+            if taken == "wide_f32" and not fwd:  # the plan's rows: R <= 4 the few-row kernels
+                row["rows"] = lstm_cuda.wide_f32_plan(name[:-4], B, wide_f32_layout.padded(H),
+                                                      0, dev.index or 0).R
+                beside += f"; R = {row['rows']} ({'few-row' if row['rows'] <= 4 else 'chunked'})"
             if "earlier" in times:
                 row["earlier_ms"] = times["earlier"]
-                row["kernel_device_ms"] = kernel_device_ms
                 beside = (f"; the earlier kernel ({earlier}) on the same inputs "
                           f"{row['earlier_ms']:.4f} ms ({row['earlier_ms'] / T * 1e3:.3f} us a "
-                          f"step), {row['earlier_ms'] / ms:.2f}x; {kernel_device_ms} device ms")
+                          f"step), {row['earlier_ms'] / ms:.2f}x{beside}")
             rows.append(row)
             print(f"[time] {name} {taken} T,B,H={(T, B, H)} f32: kernel {ms:.4f} ms "
-                  f"({ms / T * 1e3:.3f} us a step){beside}, plain twin "
-                  f"{plain_ms:.1f} ms (means of 2, in turns), bound {bound_ms:.5f} ms "
-                  f"({bound_by}, {bound_ms / ms:.2%} of it); layer"
+                  f"({ms / T * 1e3:.3f} us a step){beside}, plain twin {plain_ms:.1f} ms "
+                  f"(one call; the kernels' means of 2 medians, in turns), bound "
+                  f"{bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.2%} of it); layer"
                   f"{'' if fwd else ' backward'}: port {lt['layer_ms']:.4f} ms, cuDNN "
                   f"{cls}(hidden_size={H}, bidirectional=True) f32 {lt['library_ms']:.4f} ms "
                   f"(medians, CUDA events); device time port {lt['layer_device_ms']} ms, cuDNN "
@@ -4016,7 +4209,10 @@ def _f32_route_times(dev, cell: str = "lstm", what: str = "bwd") -> list:
     each kernel's plan (rows a cluster, waves; for ``"wide"`` whether W_h
     stays in shared memory; for ``"wide_f32"`` the chunks resident, and the
     forward's in registers) and the route ``bwd_route`` / ``fwd_route``
-    takes there (``python3 chip_smoke.py --f32-times``)."""
+    takes there (``python3 chip_smoke.py --f32-times``). Where the BPTT's
+    plan takes the few-row kernels (R <= 4), its chunked kernel at R = 8
+    (``bwd_launch("wide_f32", …, rows=8)``) in the same turns
+    (``"chunked"``)."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
@@ -4038,7 +4234,8 @@ def _f32_route_times(dev, cell: str = "lstm", what: str = "bwd") -> list:
                          f"the wide {what} plan at B={B} H={H}")
             pf = wide_layout.plan(Hp, gates)
             _build.check(getattr(lib, f"percival_{name}_{what}_wide_f32_plan")(
-                B, Hp, pf.Hb, pf.U, new), f"the f32 wide {what} plan at B={B} H={Hp}")
+                B, Hp, pf.Hb, pf.U, *(() if fwd else (0,)), new),
+                f"the f32 wide {what} plan at B={B} H={Hp}")
             R_old, w_smem, c_old = old[5], old[6], old[7]
             plans = {"wide": {"R": R_old, "w_smem": w_smem,
                               "waves": -(-2 * -(-B // R_old) // c_old)},
@@ -4049,20 +4246,29 @@ def _f32_route_times(dev, cell: str = "lstm", what: str = "bwd") -> list:
                 route = fwd_route(dt, H, cell, B)
             else:
                 args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
-                route = bwd_route(dt, H, cell, B)
+                route = bwd_route(dt, H, cell)
+            calls = {r: (lambda r=r: launch(r, *args)) for r in ("wide", "wide_f32")}
+            order = ("wide", "wide_f32", "wide_f32", "wide")
+            few = not fwd and new[3] <= 4
+            if few:  # the chunked kernel beside the few-row ones
+                calls["chunked"] = lambda: launch("wide_f32", *args, rows=8)
+                order = ("wide", "chunked", "wide_f32", "wide_f32", "chunked", "wide")
             with torch.no_grad():
-                t = _in_turns({r: (lambda r=r: launch(r, *args)) for r in ("wide", "wide_f32")},
-                              ("wide", "wide_f32", "wide_f32", "wide"))
+                t = _in_turns(calls, order)
             rows.append({"cell": cell, "what": what, "shape": [T, B, H], "route": route, "ms": t,
                          "plans": plans})
             held = f"{new[5]} in registers, " if fwd else ""
+            kind = "few-row" if few else f"{new[4]} chunks resident, {held}".rstrip(", ")
+            beside = (f"; the chunked kernel at R 8 {t['chunked']:.4f} ms, "
+                      f"{t['chunked'] / t['wide_f32']:.2f}x" if few else "")
             print(f"[f32 route] {cell} {what} T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms (R "
                   f"{R_old}, W_h in {'shared memory' if w_smem else 'L2'}, "
                   f"{plans['wide']['waves']} waves), wide_f32 {t['wide_f32']:.4f} ms (R {new[3]}, "
-                  f"{new[4]} chunks resident, {held}{new[7]} waves), "
-                  f"{t['wide'] / t['wide_f32']:.2f}x (means of 2 medians, in turns); "
+                  f"{kind}, {new[7]} waves), "
+                  f"{t['wide'] / t['wide_f32']:.2f}x{beside} (means of 2 medians, in turns); "
                   f"{what}_route takes {route!r}"
-                  + ("" if t[route] <= min(t.values()) else " (the slower one)"))
+                  + ("" if t[route] <= min(t[r] for r in ("wide", "wide_f32"))
+                     else " (the slower one)"))
     return rows
 
 
@@ -4095,7 +4301,7 @@ def _f32_narrow_route_times(dev, cell: str = "lstm", what: str = "bwd") -> list:
             else:
                 p = lstm_cuda.narrow_f32_plan(name, B, nf.padded(H))
                 args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, dev, seed=1)
-                route, kind = bwd_route(torch.float32, H, cell, B), ""
+                route, kind = bwd_route(torch.float32, H, cell), ""
             with torch.no_grad():
                 t = _in_turns({r: (lambda r=r: launch(r, *args)) for r in ("simt", "narrow_f32")},
                               ("simt", "narrow_f32", "narrow_f32", "simt"))
@@ -4115,9 +4321,10 @@ def _f32_times(dev) -> int:
     kernels of the default width at ``F32_SIMT_TIMED`` (``_time_wide_f32``
     with ``route="narrow_f32"``: the ``"narrow_f32"`` forwards and BPTTs in
     turns with the one-block ones), the ``"narrow_f32"`` route tables of the
-    forward and the BPTT (``_f32_narrow_route_times``), the BPTT rows
-    ``F32_WIDE_BWD`` keeps on ``"wide"`` at ``F32_WIDE_KEPT`` beside cuDNN's
-    layer, and the ``"wide_f32"`` route tables of the forward and the BPTT
+    forward and the BPTT (``_f32_narrow_route_times``), the BPTT rows that
+    kept ``"wide"`` before the few-row plan (``F32_WIDE_KEPT``) on
+    ``"wide_f32"`` in turns with ``"wide"``, beside cuDNN's layer, and the
+    ``"wide_f32"`` route tables of the forward and the BPTT
     (``_f32_route_times``), for both cells."""
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route
 
@@ -4127,8 +4334,8 @@ def _f32_times(dev) -> int:
         for what in ("fwd", "bwd"):
             _f32_narrow_route_times(dev, cell, what)
     for cell in ("lstm", "gru"):
-        for T, B, H in F32_WIDE_KEPT:
-            _time_wide_f32(dev, cell, [(T, B, H)], route=bwd_route(torch.float32, H, cell, B),
+        for T, B, H in F32_WIDE_KEPT[cell]:
+            _time_wide_f32(dev, cell, [(T, B, H)], route=bwd_route(torch.float32, H, cell),
                            what=("bwd",))
     for cell in ("lstm", "gru"):
         for what in ("fwd", "bwd"):
@@ -4147,17 +4354,18 @@ def _model_route(kind: str, what: str) -> str:
     return "narrow_f32" if kind in NARROW_MODELS else "wide_f32"
 
 
-def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS) -> dict:
-    """Phase 13b/13c (``WIDE_MODELS``), 14b/14c (``WIDE_GRU_MODELS``) and 15b
-    (``NARROW_MODELS``): each model served and trained as phases 4–6 serve
-    and train config 3 and the BGRU, every forward and BPTT launch on its
-    route (``_model_route``); the f32 models at ``F32_DEPTH`` (one serve and
-    one step held against the twins, serves and steps timed)."""
+def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS, depth=F32_DEPTH) -> dict:
+    """Phase 13b/13c (``WIDE_MODELS``), 14b/14c (``WIDE_GRU_MODELS``), 15b
+    (``NARROW_MODELS``) and 16c (``FEW_MODELS``): each model served and
+    trained as phases 4–6 serve and train config 3 and the BGRU, every
+    forward and BPTT launch on its route (``_model_route``); the f32 models
+    at ``depth`` (one serve and one step held against the twins, serves and
+    steps timed)."""
     runs = {}
     for kind in kinds:
         route = {what: _model_route(kind, what) for what in ("fwd", "bwd")}
         if _is_f32(kind):
-            serves, checked, steps = F32_DEPTH
+            serves, checked, steps = depth
             served = _serve_path(dev, kind, n_timed=serves)
             trained = _train_path(dev, kind, n_checked=checked, n_timed=steps)
         else:
@@ -4362,17 +4570,31 @@ def main(argv=None) -> int:
     narrow_timed = {}
     for cell in ("lstm", "gru"):
         narrow_timed.update(_time_wide_f32(dev, cell, F32_SIMT_TIMED, route="narrow_f32"))
-    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs}.items():
+    t_phase16 = time.perf_counter()
+    # 16. the f32 BPTT's few-row plan ("wide_f32" at B <= 8): its plans, the
+    # kernels against their twins at the rows "wide" kept before, config 3
+    # and the BGRU at blstm_size=768 trained at 8 rows through them, their times
+    _few_plans(dev)
+    few_err = _check_few_kernels(dev)
+    few_runs = _few_models_path(dev, smi)
+    few_timed = {}
+    for cell in ("lstm", "gru"):
+        few_timed.update(_time_wide_f32(dev, cell, F32_WIDE_KEPT[cell], what=("bwd",)))
+    plans = {name: {"chunked": 0, "few": 0} for name in PLANNED}
+    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
             for name, by_route in run[what]["routes"].items():
                 for route, n in by_route.items():
                     routes[name][route] += n
+            for name, by_plan in run[what]["plans"].items():
+                for plan, n in by_plan.items():
+                    plans[name][plan] += n
     print(f"[time] ({smi}) phases 1–9 {t_phase10 - t_start:.1f} s, phase 10 "
           f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
           f"{t_phase13 - t_phase12:.1f} s, phase 13 {t_phase14 - t_phase13:.1f} s, phase 14 "
-          f"{t_phase15 - t_phase14:.1f} s, phase 15 {time.perf_counter() - t_phase15:.1f} s, "
-          f"total {time.perf_counter() - t_start:.1f} s")
+          f"{t_phase15 - t_phase14:.1f} s, phase 15 {t_phase16 - t_phase15:.1f} s, phase 16 "
+          f"{time.perf_counter() - t_phase16:.1f} s, total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -4488,17 +4710,23 @@ def main(argv=None) -> int:
     ):
         gru = name.startswith("bigru")
         checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
-        first = wide_f32_timed[name][0]
+        runs_w = {**runs_w, **few_runs}  # phase 16's forwards run "wide_f32" too
+        # a BPTT's row of its chunked kernel (R > 4; at B = 8 the GRU's H = 512
+        # takes the few-row kernels, listed below)
+        first = next(r for r in wide_f32_timed[name] if r.get("rows", 8) > 4)
         replaced = route == "wide"  # timed as the earlier kernel
-        by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
+        chunked = name.endswith("bwd") and route == "wide_f32"  # counted by its plan
+        by_path = {f"{what}_{kind}": (run[what]["plans"][name]["chunked"] if chunked else
+                                      run[what]["routes"][name][route])
                    for kind, run in runs_w.items() for what in ("serve", "train")}
+        total = plans[name]["chunked"] if chunked else routes[name][route]
         err_key = f"{name}_wide_f32" + ("_earlier" if replaced else "")
         kernels.append({
             "name": f"{name}_{route}",
             "route": "cuda",
             "source": f"percivaltts_tpu_torch/csrc/{name}_{route}.cu",
             "replaces": replaces,
-            "launches": routes[name][route],
+            "launches": total,
             "launches_by_path": by_path,
             "max_abs_err": checked["err"][err_key],
             "dtype": "float32",
@@ -4527,9 +4755,53 @@ def main(argv=None) -> int:
                                 "earlier_max_abs_err": checked["err"][f"{name}_wide_f32_earlier"],
                                 "ptxas": [line for line in _ptxas_usage(BUILD_LOG)
                                           if f"{name}_wide_f32_kernel" in line]})
-        if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
+        if chunked:
+            kernels[-1]["timed_shape"] = first["shape"]
+        if not total or sum(by_path.values()) != total:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase "
-                                 f"{14 if gru else 13}'s f32 paths, or also elsewhere")
+                                 f"{14 if gru else 13}'s or 16's f32 paths, or also elsewhere")
+    # phase 16: the few-row kernels of the f32 BPTT ("wide_f32" at B <= 8,
+    # csrc/wide_f32_few.cuh), timed in turns with the "wide" kernel they
+    # replaced at those rows
+    for name, replaces in (("bilstm_bwd", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616")):
+        gru = name.startswith("bigru")
+        first = few_timed[name][0]
+        by_path = {f"{what}_{kind}": run[what]["plans"][name]["few"]
+                   for kind, run in few_runs.items() for what in ("serve", "train")}
+        kernels.append({
+            "name": f"{name}_wide_f32_few",
+            "route": "cuda",
+            "source": f"percivaltts_tpu_torch/csrc/{name}_wide_f32.cu",
+            "body": "percivaltts_tpu_torch/csrc/wide_f32_few.cuh",
+            "replaces": replaces,
+            "launches": plans[name]["few"],
+            "launches_by_path": by_path,
+            "max_abs_err": few_err[f"{name}_wide_f32_few"],
+            "dtype": "float32",
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size={first['shape'][2]}, "
+                            "bidirectional=True) in f32 (TF32 off) backward, beside the port "
+                            "layer's (layer_ms, layer_device_ms)",
+            "layer_ms": first["layer_ms"],
+            "layer_device_ms": first["layer_device_ms"],
+            "kernel_device_ms": first["kernel_device_ms"],
+            "timed_shape": first["shape"],
+            "rows": first["rows"],
+            "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+            "earlier_ms": first["earlier_ms"],
+            "earlier_max_abs_err": few_err[f"{name}_wide_f32_few_earlier"],
+            "timed": few_timed[name],
+            "ptxas": [line for line in _ptxas_usage(BUILD_LOG) if f"{name}_wide_f32_few" in line],
+        })
+        if not plans[name]["few"] or sum(by_path.values()) != plans[name]["few"]:
+            raise AssertionError(f"{name}'s few-row kernels were launched no time on phase 16's "
+                                 "paths, or also elsewhere")
     # phase 15's f32 paths at the default width: the narrow forwards and
     # BPTTs ("narrow_f32"); the one-block kernels they replaced there (timed
     # beside them) stay listed, with their launches on the paths (none)
@@ -4659,7 +4931,7 @@ def main(argv=None) -> int:
           f"{mesh2['layout_bytes']}; "
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
-    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs}.items():
+    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs}.items():
         print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
               f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
               f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "

@@ -31,7 +31,8 @@
 // chunks of the slice, as many resident as fit beside up to 24 rows, the
 // rest streamed through three ring slots two chunks ahead; each chunk feeds both
 // products, on CUDA cores in f32; the owner adds its own dh·z, then the U
-// partial slots in block order, into the carry.
+// partial slots in block order, into the carry. At B <= 8 the launcher takes
+// the few-row kernels instead (wide_f32_few.cuh, as the LSTM's).
 
 #include <cstddef>
 #include <cstdint>
@@ -39,6 +40,7 @@
 
 #include "f32_cells.cuh"
 #include "wide_f32_common.cuh"
+#include "wide_f32_few.cuh"
 
 namespace {
 
@@ -66,6 +68,26 @@ __global__ void __launch_bounds__(kWfThreads, 1) bigru_bwd_wide_f32_kernel(
                                        nres, backward);
 }
 
+// The few-row plan's kernel (wide_f32_few.cuh): 4·NC threads, R rows a
+// cluster; nres unused.
+template <int NC, int R>
+__global__ void __launch_bounds__(percival::wfr_threads(NC), 1) bigru_bwd_wide_f32_few_kernel(
+    const float* __restrict__ gx_f, const float* __restrict__ gx_b,
+    const float* __restrict__ wp_f, const float* __restrict__ wp_b,
+    const float* __restrict__ bn_f, const float* __restrict__ bn_b,
+    const float* __restrict__ hp_f, const float* __restrict__ hp_b,
+    const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+    float* __restrict__ dgx_f, float* __restrict__ dgx_b,
+    float* __restrict__ dnr_f, float* __restrict__ dnr_b,
+    int n_steps, int B, int H, int Hb, int) {
+  const bool backward = blockIdx.y == 1;
+  const float* hp = backward ? hp_b : hp_f;
+  F32GruCell cell{backward ? gx_b : gx_f, backward ? bn_b : bn_f, hp, backward ? dy_b : dy_f,
+               backward ? dgx_b : dgx_f, backward ? dnr_b : dnr_f, B, H};
+  percival::wide_f32_few<F32GruCell, NC, R>(cell, backward ? wp_b : wp_f, hp, n_steps, B, H, Hb,
+                                            backward);
+}
+
 const void* kernel_for(int NT) {
   switch (NT) {
     case 1: return (const void*)&bigru_bwd_wide_f32_kernel<1>;
@@ -75,17 +97,28 @@ const void* kernel_for(int NT) {
   }
 }
 
-cudaError_t plan_for(int B, int H, int Hb, int U, WideF32Plan* plan) {
-  return percival::wide_f32_plan(B, H, Hb, U, 3, kernel_for, plan);
+// NC = 96: every GRU width of the route (Hb = 32)
+const void* few_for(int NC, int R) {
+  switch (NC * 8 + R) {
+    case 96 * 8 + 1: return (const void*)&bigru_bwd_wide_f32_few_kernel<96, 1>;
+    case 96 * 8 + 2: return (const void*)&bigru_bwd_wide_f32_few_kernel<96, 2>;
+    case 96 * 8 + 4: return (const void*)&bigru_bwd_wide_f32_few_kernel<96, 4>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t plan_for(int B, int H, int Hb, int U, int rows, WideF32Plan* plan) {
+  return percival::wide_f32_bwd_plan(B, H, Hb, U, 3, rows, kernel_for, few_for, plan);
 }
 
 }  // namespace
 
-// The plan a launch of (B, H, Hb, U) takes, into out[9], as
+// The plan a launch of (B, H, Hb, U, rows) takes, into out[9], as
 // percival_bilstm_bwd_wide_f32_plan.
-extern "C" int percival_bigru_bwd_wide_f32_plan(int B, int H, int Hb, int U, int* out) {
+extern "C" int percival_bigru_bwd_wide_f32_plan(int B, int H, int Hb, int U, int rows,
+                                                  int* out) {
   WideF32Plan plan{};
-  const cudaError_t err = plan_for(B, H, Hb, U, &plan);
+  const cudaError_t err = plan_for(B, H, Hb, U, rows, &plan);
   if (err == cudaSuccess) percival::wide_f32_plan_out(plan, out);
   return err;
 }
@@ -102,7 +135,7 @@ extern "C" int percival_bigru_bwd_wide_f32(const void* gx_f, const void* gx_b,
                                            void* dgx_f, void* dgx_b,
                                            void* dnr_f, void* dnr_b,
                                            int n_steps, int B, int H, int Hb, int U,
-                                           void* stream) {
+                                           int rows, void* stream) {
   if (n_steps < 1) return cudaErrorInvalidValue;
   const void* ptrs[14] = {gx_f, gx_b, wp_f, wp_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,
                           dgx_f, dgx_b, dnr_f, dnr_b};
@@ -111,7 +144,7 @@ extern "C" int percival_bigru_bwd_wide_f32(const void* gx_f, const void* gx_b,
   for (const void* ptr : {wp_f, wp_b, hp_f, hp_b})
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
   WideF32Plan plan{};
-  cudaError_t err = plan_for(B, H, Hb, U, &plan);
+  cudaError_t err = plan_for(B, H, Hb, U, rows, &plan);
   if (err != cudaSuccess) return err;
   int nres = plan.nres;
   void* args[] = {(void*)&gx_f, (void*)&gx_b, (void*)&wp_f, (void*)&wp_b,
@@ -119,5 +152,6 @@ extern "C" int percival_bigru_bwd_wide_f32(const void* gx_f, const void* gx_b,
                   (void*)&dy_f, (void*)&dy_b, (void*)&dgx_f, (void*)&dgx_b,
                   (void*)&dnr_f, (void*)&dnr_b,
                   (void*)&n_steps, (void*)&B, (void*)&H, (void*)&Hb, (void*)&nres};
-  return percival::wide_f32_launch(plan, B, kernel_for, args, static_cast<cudaStream_t>(stream));
+  return percival::wide_f32_bwd_launch(plan, B, kernel_for, few_for, args,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -44,6 +44,11 @@
 //   * the gate math of a (row, unit) pair runs on the thread that loaded its
 //     operands a step ahead; no atomics, no allocation, PyTorch's stream; the
 //     launcher returns cudaGetLastError().
+// At B <= 8 the launcher takes the few-row kernels instead
+// (wide_f32_few.cuh: R = 1, 2 or 4 rows a cluster, the whole slice resident,
+// both products a thread, the dh partials sent by st.async to mbarriers, no
+// cluster barrier in the loop), where "wide" had been faster than the
+// chunked kernels; the plan (wide_f32_bwd_plan) picks the kernel and R.
 
 #include <cstddef>
 #include <cstdint>
@@ -51,6 +56,7 @@
 
 #include "f32_cells.cuh"
 #include "wide_f32_common.cuh"
+#include "wide_f32_few.cuh"
 
 namespace {
 
@@ -77,6 +83,25 @@ __global__ void __launch_bounds__(kWfThreads, 1) bilstm_bwd_wide_f32_kernel(
                                         n_steps, B, H, Hb, nres, backward);
 }
 
+// The few-row plan's kernel (wide_f32_few.cuh): 4·NC threads, R rows a
+// cluster; nres unused.
+template <int NC, int R>
+__global__ void __launch_bounds__(percival::wfr_threads(NC), 1) bilstm_bwd_wide_f32_few_kernel(
+    const float* __restrict__ gx_f, const float* __restrict__ gx_b,
+    const float* __restrict__ wp_f, const float* __restrict__ wp_b,
+    const float* __restrict__ hp_f, const float* __restrict__ hp_b,
+    const float* __restrict__ cp_f, const float* __restrict__ cp_b,
+    const float* __restrict__ c_f, const float* __restrict__ c_b,
+    const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+    float* __restrict__ dgx_f, float* __restrict__ dgx_b,
+    int n_steps, int B, int H, int Hb, int) {
+  const bool backward = blockIdx.y == 1;
+  F32LstmCell cell{backward ? gx_b : gx_f, backward ? cp_b : cp_f, backward ? c_b : c_f,
+                backward ? dy_b : dy_f, backward ? dgx_b : dgx_f, B, H};
+  percival::wide_f32_few<F32LstmCell, NC, R>(cell, backward ? wp_b : wp_f,
+                                             backward ? hp_b : hp_f, n_steps, B, H, Hb, backward);
+}
+
 const void* kernel_for(int NT) {
   switch (NT) {
     case 1: return (const void*)&bilstm_bwd_wide_f32_kernel<1>;
@@ -86,26 +111,42 @@ const void* kernel_for(int NT) {
   }
 }
 
-cudaError_t plan_for(int B, int H, int Hb, int U, WideF32Plan* plan) {
-  return percival::wide_f32_plan(B, H, Hb, U, 4, kernel_for, plan);
+// NC = 96 (H up to 384) and 128 (416)
+const void* few_for(int NC, int R) {
+  switch (NC * 8 + R) {
+    case 96 * 8 + 1: return (const void*)&bilstm_bwd_wide_f32_few_kernel<96, 1>;
+    case 96 * 8 + 2: return (const void*)&bilstm_bwd_wide_f32_few_kernel<96, 2>;
+    case 96 * 8 + 4: return (const void*)&bilstm_bwd_wide_f32_few_kernel<96, 4>;
+    case 128 * 8 + 1: return (const void*)&bilstm_bwd_wide_f32_few_kernel<128, 1>;
+    case 128 * 8 + 2: return (const void*)&bilstm_bwd_wide_f32_few_kernel<128, 2>;
+    case 128 * 8 + 4: return (const void*)&bilstm_bwd_wide_f32_few_kernel<128, 4>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t plan_for(int B, int H, int Hb, int U, int rows, WideF32Plan* plan) {
+  return percival::wide_f32_bwd_plan(B, H, Hb, U, 4, rows, kernel_for, few_for, plan);
 }
 
 }  // namespace
 
-// The plan a launch of (B, H, Hb, U) takes, into out[9]: U, Hb, NC, R,
-// resident chunks, streamed chunks, clusters at once, waves, shared memory a
-// block.
-extern "C" int percival_bilstm_bwd_wide_f32_plan(int B, int H, int Hb, int U, int* out) {
+// The plan a launch of (B, H, Hb, U) takes (rows: R forced, 1, 2, 4 the
+// few-row kernels, 8, 16, 24 the chunked ones; 0 the plan's choice), into
+// out[9]: U, Hb, NC, R, resident chunks, streamed chunks, clusters at once,
+// waves, shared memory a block.
+extern "C" int percival_bilstm_bwd_wide_f32_plan(int B, int H, int Hb, int U, int rows,
+                                                  int* out) {
   WideF32Plan plan{};
-  const cudaError_t err = plan_for(B, H, Hb, U, &plan);
+  const cudaError_t err = plan_for(B, H, Hb, U, rows, &plan);
   if (err == cudaSuccess) percival::wide_f32_plan_out(plan, out);
   return err;
 }
 
 // f32 only, H a multiple of 32. Inputs in the order of _bilstm_bwd_pallas:
 // gx, W_h (packed per block, ops/wide_layout.py::pack_wh), h_prev, c_prev,
-// c, dy, each as (forward direction, backward direction); then dgx. h_prev
-// 16-byte aligned, no pointer null. Returns a cudaError_t.
+// c, dy, each as (forward direction, backward direction); then dgx; rows as
+// the plan's. h_prev 16-byte aligned, no pointer null. Returns a
+// cudaError_t.
 extern "C" int percival_bilstm_bwd_wide_f32(const void* gx_f, const void* gx_b,
                                             const void* wp_f, const void* wp_b,
                                             const void* hp_f, const void* hp_b,
@@ -114,7 +155,7 @@ extern "C" int percival_bilstm_bwd_wide_f32(const void* gx_f, const void* gx_b,
                                             const void* dy_f, const void* dy_b,
                                             void* dgx_f, void* dgx_b,
                                             int n_steps, int B, int H, int Hb, int U,
-                                            void* stream) {
+                                            int rows, void* stream) {
   if (n_steps < 1) return cudaErrorInvalidValue;
   const void* ptrs[14] = {gx_f, gx_b, wp_f, wp_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
                           dy_f, dy_b, dgx_f, dgx_b};
@@ -123,7 +164,7 @@ extern "C" int percival_bilstm_bwd_wide_f32(const void* gx_f, const void* gx_b,
   for (const void* ptr : {wp_f, wp_b, hp_f, hp_b})
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
   WideF32Plan plan{};
-  cudaError_t err = plan_for(B, H, Hb, U, &plan);
+  cudaError_t err = plan_for(B, H, Hb, U, rows, &plan);
   if (err != cudaSuccess) return err;
   int nres = plan.nres;
   void* args[] = {(void*)&gx_f, (void*)&gx_b, (void*)&wp_f, (void*)&wp_b,
@@ -131,5 +172,6 @@ extern "C" int percival_bilstm_bwd_wide_f32(const void* gx_f, const void* gx_b,
                   (void*)&c_f,  (void*)&c_b,  (void*)&dy_f, (void*)&dy_b,
                   (void*)&dgx_f, (void*)&dgx_b,
                   (void*)&n_steps, (void*)&B, (void*)&H, (void*)&Hb, (void*)&nres};
-  return percival::wide_f32_launch(plan, B, kernel_for, args, static_cast<cudaStream_t>(stream));
+  return percival::wide_f32_bwd_launch(plan, B, kernel_for, few_for, args,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -96,24 +96,32 @@ inline int wf_resident(int H, int U, int Hb, int NC, int R, int optin) {
   return -1;
 }
 
-// kernel_for(NT) → the kernel's address. Rows R = 8, 16, 24 whose block fits
-// with no resident chunk; each R keeps as many chunks resident as fit beside
-// it. Among them the fewest waves of 2·ceil(B/R) clusters, then the smallest
-// R (the shortest step).
+// Whether the route's kernels take the split (B, H, Hb, U) of a cell of
+// `gates` gates.
+inline bool wf_split_ok(int B, int H, int Hb, int U, int gates) {
+  const int NC = gates * Hb;
+  return !(B < 1 || wf_chunks(H) < 3 || H % kWfK || Hb < 1 || NC % 32 || NC > kWfMaxNC ||
+           U < 1 || U > kWideMaxCluster || (U - 1) * Hb >= H || U * Hb < H || Hb % 8 ||
+           (Hb / 8) * 2 * kWfRowTiles[2] > kWfWarps * kWfMaxTiles ||
+           2 * (NC / 32) > kWfRecomputeWarps);
+}
+
+// kernel_for(NT) → the kernel's address. Rows R = 8, 16, 24 (or `rows`
+// alone) whose block fits with no resident chunk; each R keeps as many
+// chunks resident as fit beside it. Among them the fewest waves of
+// 2·ceil(B/R) clusters, then the smallest R (the shortest step).
 template <class KernelFor>
-cudaError_t wide_f32_plan(int B, int H, int Hb, int U, int gates, KernelFor kernel_for,
+cudaError_t wide_f32_plan(int B, int H, int Hb, int U, int gates, int rows, KernelFor kernel_for,
                           WideF32Plan* plan) {
   const int NC = gates * Hb;
-  if (B < 1 || wf_chunks(H) < 3 || H % kWfK || Hb < 1 || NC % 32 || NC > kWfMaxNC || U < 1 ||
-      U > kWideMaxCluster || (U - 1) * Hb >= H || U * Hb < H || Hb % 8 ||
-      (Hb / 8) * 2 * kWfRowTiles[2] > kWfWarps * kWfMaxTiles || 2 * (NC / 32) > kWfRecomputeWarps)
-    return cudaErrorInvalidValue;
+  if (!wf_split_ok(B, H, Hb, U, gates)) return cudaErrorInvalidValue;
   int optin = 0;
   cudaError_t err = smem_optin_bytes(&optin);
   if (err != cudaSuccess) return err;
   WideF32Plan best{};
   bool found = false;
   for (int NT : kWfRowTiles) {
+    if (rows && 8 * NT != rows) continue;
     const int R = 8 * NT, nres = wf_resident(H, U, Hb, NC, R, optin);
     if (nres < 0) continue;
     const size_t smem = wf_smem(H, U, Hb, NC, R, nres);

@@ -111,12 +111,12 @@ __host__ __device__ inline size_t wff_smem(int H, int NC, int nres, int R) {
          sizeof(float) * (2 * (size_t)(H / 4) * wff_quad(R) + (size_t)kWffGroups * R * NC);
 }
 
-// The clusters of `kernel` (U blocks of wff_threads(NC) threads, `smem`
-// bytes) the current card holds at once. The attributes (all of the card's
+// The clusters of `kernel` (U blocks of `threads` threads, `smem` bytes)
+// the current card holds at once. The attributes (all of the card's
 // opt-in of shared memory beside the kernel's static mbarriers, non-portable
 // cluster sizes) are set and the occupancy asked once a kernel, card, size
 // and U: both cost host time that every launch would otherwise pay.
-inline cudaError_t wff_clusters(const void* kernel, int smem, int U, int NC, int optin,
+inline cudaError_t wff_clusters(const void* kernel, int smem, int U, int threads, int optin,
                                 int* clusters) {
   struct Entry {
     int dev;
@@ -146,7 +146,7 @@ inline cudaError_t wff_clusters(const void* kernel, int smem, int U, int NC, int
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = wm_config(U, kWffRows[0], smem, 1, attr);
-  cfg.blockDim = dim3((unsigned)wff_threads(NC));
+  cfg.blockDim = dim3((unsigned)threads);
   err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   if (err != cudaSuccess) return err;
   if (n < 64) cache[n++] = Entry{dev, kernel, smem, U, *clusters};
@@ -178,7 +178,7 @@ cudaError_t wide_f32_fwd_plan(int B, int H, int Hb, int U, int gates, KernelFor 
     const void* kernel = kernel_for(NC, nreg, NCH, R);
     if (kernel == nullptr) return cudaErrorInvalidValue;
     WideF32FwdPlan p{U, Hb, NC, R, nres, nreg, 0, 0, (int)wff_smem(H, NC, nres, R)};
-    err = wff_clusters(kernel, p.smem, U, NC, optin, &p.clusters);
+    err = wff_clusters(kernel, p.smem, U, wff_threads(NC), optin, &p.clusters);
     if (err != cudaSuccess) return err;
     if (p.clusters < 1) continue;
     p.waves = (2 * ((B + R - 1) / R) + p.clusters - 1) / p.clusters;

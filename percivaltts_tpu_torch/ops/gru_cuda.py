@@ -33,9 +33,9 @@ cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to
 BPTT takes the same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
 ``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide_f32.cu``,
 ``csrc/bigru_bwd_narrow_f32.cu``, ``csrc/bigru_bwd_wide.cu`` or
-``csrc/bigru_bwd.cu``, but for the few batch rows where the f32 BPTT keeps
-``csrc/bigru_bwd_wide.cu``, measured faster there
-(``mma_layout.F32_WIDE_BWD``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
+``csrc/bigru_bwd.cu``; at B <= 8 the ``"wide_f32"`` launcher takes its
+few-row kernels (``csrc/wide_f32_few.cuh``, ``lstm_cuda.wide_f32_plan``).
+``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
 ``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernels
 of 8: other widths are zero-padded to one (``ops/lstm_cuda.py::at_width``),
 which changes no real unit. The launchers refuse a route they do not take
@@ -64,10 +64,12 @@ from percivaltts_tpu_torch.ops.lstm_cuda import (
     aligned16,
     at_width,
     check_route,
+    count_wide_f32,
     input_gates,
     narrow_f32_fwd_plan,
     narrow_f32_plan,
     rows_per_block,
+    wide_f32_plan,
 )
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
@@ -363,8 +365,9 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(3)``) likewise;
     ``"narrow_f32"`` (f32 only, H up to 320) H that is not a multiple of 8,
     over at most ``blocks`` blocks a cluster and ``rows`` rows when given
-    (``lstm_cuda.bwd_launch``'s overrides); ``"wide"`` raises ``ValueError``
-    past ``wide_layout.GRU_MAX_H``."""
+    (``lstm_cuda.bwd_launch``'s overrides), and ``"wide_f32"`` ``rows`` rows
+    (``lstm_cuda.wide_f32_plan``); ``"wide"`` raises ``ValueError`` past
+    ``wide_layout.GRU_MAX_H``."""
     check_route(route, BWD_ROUTES, "bigru_bwd")
     from percivaltts_tpu_torch import _build
 
@@ -411,13 +414,14 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
             )
         elif route == "wide_f32":
             p = wide_layout.plan(H, 3)
+            R = wide_f32_plan("bigru", B, H, rows, device.index).R
             stream = torch.cuda.current_stream(device).cuda_stream
             # held in names until the launch (see lstm_cuda.fwd_launch)
             ins = (gx_f, gx_b, wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p),
                    bn_f, bn_b, aligned16(hp_f), aligned16(hp_b), dy_f, dy_b)
             err = lib.percival_bigru_bwd_wide_f32(
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-                T, B, H, p.Hb, p.U, stream,
+                T, B, H, p.Hb, p.U, R, stream,
             )
         elif route == "narrow_f32":
             p = narrow_f32_plan("bigru", B, H, blocks, rows, device.index)
@@ -459,9 +463,9 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 672,
-    the f32 cluster one for f32 past 320 up to 512 (but for the few rows of
-    ``mma_layout.F32_WIDE_BWD``), the CUDA-core cluster one past those (f32:
-    512, bf16: 672) and at those rows, the f32 narrow cluster one for f32 up
+    the f32 cluster one for f32 past 320 up to 512 (its few-row kernels at
+    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 672),
+    the f32 narrow cluster one for f32 up
     to 320, else the one-block CUDA-core one,
     H not a multiple of 32 zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
@@ -469,23 +473,28 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     CUDA inputs, CUDA inputs that require a gradient under grad mode, H past
     ``wide_layout.GRU_MAX_H``, or a launch error.
     Every launch adds one to ``bigru_bwd.launches`` and to its route's entry
-    of ``bigru_bwd.routes``."""
+    of ``bigru_bwd.routes``; a ``"wide_f32"`` launch also to its kernel's
+    entry of ``bigru_bwd.wide_f32_plans``."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     _check_states(gx_f, hp_f, hp_b, dy_f, dy_b)
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
     device = _one_device("bigru_bwd", ins, "ops.gru_cuda.bigru_core")
     if device.type == "cpu":
         return bigru_bwd_reference(*ins)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru", gx_f.shape[1])
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru")
     out = bwd_launch(route, *ins)
     bigru_bwd.launches += 1
     bigru_bwd.routes[route] += 1
+    if route == "wide_f32":
+        count_wide_f32(bigru_bwd, "bigru", gx_f.shape[1], gx_f.shape[-1] // 3, device.index)
     return out
 
 
 bigru_bwd.launches = 0
 bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
                     "narrow_f32": 0}
+# the "wide_f32" launches by the kernel their plan took (lstm_cuda.count_wide_f32)
+bigru_bwd.wide_f32_plans = {"chunked": 0, "few": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

@@ -26,9 +26,9 @@ to 4096); f32 up to H = 256 the f32 cluster kernel
 BPTT takes the same route (``bwd_route``):
 ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
 ``csrc/bilstm_bwd_wide_f32.cu``, ``csrc/bilstm_bwd_narrow_f32.cu``,
-``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``, but for the few
-batch rows where the f32 BPTT keeps ``csrc/bilstm_bwd_wide.cu``, measured
-faster there (``mma_layout.F32_WIDE_BWD``).
+``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``; at B <= 8 the
+``"wide_f32"`` launcher takes its few-row kernels (``csrc/wide_f32_few.cuh``,
+:func:`wide_f32_plan`).
 ``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernels take H a multiple of
 8, the ``"wide_mma"`` and ``"wide_f32"`` kernels of 32: other widths are
 zero-padded to one (:func:`at_width`), which changes no real unit.
@@ -308,6 +308,33 @@ def narrow_f32_fwd_plan(kind: str, B: int, H: int, blocks: int = 0, rows: int = 
     return narrow_f32_layout.Plan(*out)
 
 
+@functools.lru_cache(maxsize=None)
+def wide_f32_plan(kind: str, B: int, H: int, rows: int = 0,
+                  device: int = 0) -> wide_f32_layout.BwdPlan:
+    """The ``"wide_f32"`` BPTT's launch plan, ``percival_{kind}_bwd_wide_f32_plan``,
+    for ``B`` rows at width ``H`` (a multiple of 32) on card ``device``
+    (``kind``: ``"bilstm"`` or ``"bigru"``; ``rows``: R forced, 1, 2 or 4 the
+    few-row kernels, 8, 16 or 24 the chunked ones, 0 the plan's choice);
+    raises when none fits."""
+    from percivaltts_tpu_torch import _build
+
+    p = wide_layout.plan(H, 4 if kind == "bilstm" else 3)
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        fn = getattr(_build.library(), f"percival_{kind}_bwd_wide_f32_plan")
+        _build.check(fn(B, H, p.Hb, p.U, rows, out),
+                     f"{kind} f32 wide BPTT plan at B={B} H={H} rows={rows}")
+    return wide_f32_layout.BwdPlan(*out)
+
+
+def count_wide_f32(wrapper, kind: str, B: int, H: int, device: int) -> None:
+    """Add a ``"wide_f32"`` BPTT launch of ``B`` rows at width ``H`` to
+    ``wrapper.wide_f32_plans`` by the kernel its plan launches: ``"few"``
+    (R <= 4, ``csrc/wide_f32_few.cuh``) or ``"chunked"``."""
+    R = wide_f32_plan(kind, B, wide_f32_layout.padded(H), 0, device).R
+    wrapper.wide_f32_plans["few" if R <= 4 else "chunked"] += 1
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its data is not 16-byte aligned: the
     tensor-core kernels stream their (T, B, ·) inputs with 16-byte
@@ -496,7 +523,9 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
     that is not a multiple of 32, zero-padded to one (:func:`at_width`).
     ``"narrow_f32"`` splits over at most ``blocks`` blocks a cluster and
     takes ``rows`` rows when given (a measurement's overrides; 0: the plan's
-    choice, :func:`narrow_f32_plan`)."""
+    choice, :func:`narrow_f32_plan`); ``"wide_f32"`` takes ``rows`` rows
+    when given (1, 2, 4: the few-row kernels; 8, 16, 24: the chunked ones;
+    0: the plan's choice, :func:`wide_f32_plan`)."""
     check_route(route, BWD_ROUTES, "bilstm_bwd")
     from percivaltts_tpu_torch import _build
 
@@ -540,13 +569,14 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
             )
         elif route == "wide_f32":
             p = wide_layout.plan(H)
+            R = wide_f32_plan("bilstm", B, H, rows, device.index).R
             stream = torch.cuda.current_stream(device).cuda_stream
             # held in names until the launch (see fwd_launch)
             ins = (gx_f, gx_b, wide_layout.pack_wh(wh_f, p), wide_layout.pack_wh(wh_b, p),
                    aligned16(hp_f), aligned16(hp_b), cp_f, cp_b, c_f, c_b, dy_f, dy_b)
             err = lib.percival_bilstm_bwd_wide_f32(
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
-                T, B, H, p.Hb, p.U, stream,
+                T, B, H, p.Hb, p.U, R, stream,
             )
         elif route == "narrow_f32":
             p = narrow_f32_plan("bilstm", B, H, blocks, rows, device.index)
@@ -587,9 +617,9 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 608,
-    the f32 cluster one for f32 past 256 up to 512 (but for the few rows of
-    ``mma_layout.F32_WIDE_BWD``), the CUDA-core cluster one past those (f32:
-    512, bf16: 608) and at those rows, the f32 narrow cluster one for f32 up
+    the f32 cluster one for f32 past 256 up to 512 (its few-row kernels at
+    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 608),
+    the f32 narrow cluster one for f32 up
     to 256, else the one-block CUDA-core one, H not a multiple of 8
     zero-padded to one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.bwd_route`); CPU tensors
@@ -598,23 +628,28 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     inputs that require a gradient under grad mode, H past
     ``wide_layout.MAX_H``, or a launch error. Every launch adds one to
     ``bilstm_bwd.launches`` and to its route's entry of
-    ``bilstm_bwd.routes``."""
+    ``bilstm_bwd.routes``; a ``"wide_f32"`` launch also to its kernel's
+    entry of ``bilstm_bwd.wide_f32_plans`` (``"few"`` or ``"chunked"``)."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
     _check_states(gx_f, *states)
     device = _one_device("bilstm_bwd", (gx_f, gx_b, wh_f, wh_b, *states))
     if device.type == "cpu":
         return bilstm_bwd_reference(gx_f, gx_b, wh_f, wh_b, *states)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4, "lstm", gx_f.shape[1])
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4, "lstm")
     out = bwd_launch(route, gx_f, gx_b, wh_f, wh_b, *states)
     bilstm_bwd.launches += 1
     bilstm_bwd.routes[route] += 1
+    if route == "wide_f32":
+        count_wide_f32(bilstm_bwd, "bilstm", gx_f.shape[1], gx_f.shape[-1] // 4, device.index)
     return out
 
 
 bilstm_bwd.launches = 0
 bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
                      "narrow_f32": 0}
+# the "wide_f32" launches by the kernel their plan took (count_wide_f32)
+bilstm_bwd.wide_f32_plans = {"chunked": 0, "few": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -23,7 +23,7 @@ The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
 kernels up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and past it the
 cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
-cores (``ops/wide_layout.py``); the f32 BPTT there takes its own cluster
+cores (``ops/wide_layout.py``); f32 there takes its own cluster
 kernels up to H = 512 (``ops/wide_f32_layout.py``), and at the one-block
 widths both f32 passes take cluster kernels too, which hold W_h on chip for
 all of a cluster's rows (``ops/narrow_f32_layout.py``).
@@ -66,15 +66,9 @@ LSTM_SIMT_MAX_H = {torch.float32: 256, torch.bfloat16: MMA_MAX_H}
 # (chip_smoke.py phase 14a at (512, 32, 256); PERF.md, its kernel table)
 GRU_SIMT_MAX_H = {torch.float32: 320, torch.bfloat16: MMA_MAX_H}
 SIMT_MAX_H = {"lstm": LSTM_SIMT_MAX_H, "gru": GRU_SIMT_MAX_H}
-# where the f32 BPTT keeps the CUDA-core cluster kernel ("wide") over
+# where the f32 forward keeps the CUDA-core cluster kernel ("wide") over
 # "wide_f32": (H, B) pairs, "wide" wherever H <= h and B <= b for one of
-# them. The card measured "wide" faster there and "wide_f32" faster at every
-# other width and batch it timed (H = 264–512, B = 1–160; python3
-# chip_smoke.py --f32-times, PERF.md): at so few rows the old plan runs one
-# or two waves of 1–4 rows a cluster with W_h resident in shared memory
-# (the LSTM's only up to H = 416), where the new kernel's step costs more
-F32_WIDE_BWD = {"lstm": ((384, 8), (416, 6)), "gru": ((384, 8), (512, 6))}
-# the same for the f32 forward: the card measured the CUDA-core cluster
+# them. The card measured the CUDA-core cluster
 # forward faster than "wide_f32" only at the GRU's H = 336 with B <= 2 (the
 # old kernel runs 336 as it is, one row a cluster with W_h in shared
 # memory; "wide_f32" pads it to 352 and runs 4 rows), and "wide_f32" faster
@@ -125,28 +119,24 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     return "wide"
 
 
-def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
-    """The BPTT kernel a CUDA call of ``B`` batch rows launches:
-    :func:`fwd_route`'s rule, so ``"mma"`` (``csrc/bilstm_bwd_mma.cu`` /
-    ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``
+def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
+    """The BPTT kernel a CUDA call launches, at any batch:
+    :func:`fwd_route`'s rule for a large batch, so ``"mma"``
+    (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``
     (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
     (``csrc/{bilstm,bigru}_bwd_wide.cu``) or ``"simt"``
-    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``); except in f32: up to
-    ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H`` it takes ``"narrow_f32"``
+    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``); in f32 up to
+    ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H`` ``"narrow_f32"``
     (``csrc/{bilstm,bigru}_bwd_narrow_f32.cu``, ``narrow_f32_layout.fits``;
     the card measured it faster than ``"simt"`` at every width and batch it
     timed: H = 64–256 / 320, B = 1–160, ``python3 chip_smoke.py
     --f32-times``, PERF.md), and past them ``"wide_f32"``
     (``csrc/{bilstm,bigru}_bwd_wide_f32.cu``) wherever its plan fits
-    (``wide_f32_layout.fits``: H up to 512) and ``F32_WIDE_BWD`` does not
-    keep ``"wide"`` for so few rows (where the forward is on ``"wide_f32"``
-    all the same). Without ``B``, the route of a batch past
-    ``F32_WIDE_BWD``'s."""
-    route = fwd_route(dtype, H, cell)  # f32 "narrow_f32" and "wide_f32": the BPTT's too
-    if route == "wide_f32" and B is not None and any(
-            H <= h and B <= b for h, b in F32_WIDE_BWD[cell]):
-        return "wide"
-    return route
+    (``wide_f32_layout.fits``: H up to 512) at every batch: its launcher
+    takes the few-row kernels at B <= 8 (``csrc/wide_f32_few.cuh``), which
+    the card measured faster than ``"wide"`` at every width and B <= 8 it
+    timed (PERF.md)."""
+    return fwd_route(dtype, H, cell)  # f32 "narrow_f32" and "wide_f32": the BPTT's too
 
 
 def _check(kind: str, H: int) -> None:

@@ -37,13 +37,22 @@ every chunk, the k-quad ``4·kw + j``; the four ``j`` lanes' reduce-scatter
 adds ``(s0 + s2) + (s1 + s3)`` and the gate phase the four groups ``kw``,
 ``((p0 + p1) + p2) + p3`` (:func:`replay_fwd_product`, :func:`replay_fwd`).
 
+For at most ``FEW_MAX_B`` batch rows the BPTTs take a plan of their own
+(``csrc/wide_f32_few.cuh``): R = 4, 2 or 1 rows a cluster (``FEW_ROWS``, by
+a step estimate, :func:`bwd_plan`), the whole slice resident in shared
+memory beside them, unpadded (the 16-word halves of a row swapped on every
+other k-quad), no chunk barrier and no cluster barrier in the loop: the dh
+partials go to their owners by ``st.async``, counted by the owner's
+mbarrier (:func:`few_fits`, :func:`few_smem_bytes`). Its recompute sums as
+the forwards' product (:func:`replay_fwd_product`), its dh partials as the
+chunked kernels' (:func:`replay_dh`): ``replay_bptt(..., few=True)``.
+
 The kernels take ``H`` a multiple of 32 (``K_GRANULE``) and at least three
 chunks (H > 128: a chunk's ``h_prev`` rows load two chunks ahead of their
 use); the wrappers zero-pad other widths (``ops/lstm_cuda.py::at_width``, exact). A
 block's ``NC`` gate columns are at most 128 (an m16 tile a warp of the
 recompute): H up to 512 for both cells (:func:`fits`, :func:`max_h`). Wider f32
-layers stay on ``"wide"``, and so do the BPTT's few batch rows at which the
-card measured ``"wide"`` faster; ``ops/mma_layout.py::fwd_route`` and
+layers stay on ``"wide"``; ``ops/mma_layout.py::fwd_route`` and
 ``bwd_route`` hold the rule.
 """
 
@@ -71,6 +80,16 @@ FWD_STATIC_SMEM = 16  # the forwards' two mbarriers, beside their dynamic shared
 # a fixed part and the product's R·NC·H FMAs a block at a rate
 FWD_STEP_NS = 1500
 FWD_FMA_PER_NS = 165
+FEW_ROWS = (4, 2, 1)  # the few-row BPTT plan's rows a cluster, as it weighs them
+FEW_MAX_B = 8  # the batch rows up to which the BPTT plan takes them
+FEW_NC = (96, 128)  # a block's gate columns its kernels are built for
+FEW_GROUPS = 4  # its recompute's k-quad groups
+FEW_STATIC_SMEM = 16  # its two mbarriers, beside its dynamic shared memory
+# its step estimate (wide_f32_few.cuh: kWfrStepNs, kWfrWordPs, kWfrRowWordPs):
+# a fixed part in ns, ps a word of the block's W_h slice and a word and row
+FEW_STEP_NS = 1450
+FEW_WORD_PS = 21
+FEW_ROW_WORD_PS = 17
 
 
 class Rows(NamedTuple):
@@ -140,25 +159,102 @@ def max_h(gates: int = 4) -> int:
                if fits(H, gates))
 
 
-def rows(B: int, H: int, gates: int, clusters: int) -> Rows:
-    """The launcher's choice for ``B`` rows at width ``H`` (a multiple of 32)
-    when the card holds ``clusters`` clusters of this kernel at once
-    (``percival_*_bwd_wide_f32_plan`` reports both): among R = 8, 16, 24
-    whose block fits, each with the most resident chunks beside it, the
-    fewest waves, then the smallest R."""
+def _clusters_at(clusters):
+    return (lambda R: clusters[R]) if isinstance(clusters, dict) else (lambda R: clusters)
+
+
+def rows(B: int, H: int, gates: int, clusters, only: int = 0) -> Rows:
+    """The chunked kernels' choice for ``B`` rows at width ``H`` (a multiple
+    of 32) when the card holds ``clusters`` clusters of them at once (one
+    number, or a dict by R; ``percival_*_bwd_wide_f32_plan`` reports both):
+    among R = 8, 16, 24 (``only``: that R alone) whose block fits, each with
+    the most resident chunks beside it, the fewest waves, then the smallest
+    R."""
+    at = _clusters_at(clusters)
     best = None
     for nt in ROW_TILES:
         R = 8 * nt
+        if only and R != only:
+            continue
         nres = resident(H, gates, R)
         if nres < 0:
             continue
-        waves = -(-2 * -(-B // R) // clusters)
+        waves = -(-2 * -(-B // R) // at(R))
         r = Rows(R, nres, len(chunks(H)) - nres, waves, smem_bytes(H, gates, R, nres))
         if best is None or r.waves < best.waves:
             best = r
     if best is None:
         raise ValueError(f"no f32 cluster BPTT plan fits H={H}")
     return best
+
+
+class BwdPlan(NamedTuple):
+    """A BPTT launch plan as ``percival_*_bwd_wide_f32_plan`` returns it."""
+    U: int  # blocks a cluster
+    Hb: int  # units a block
+    NC: int  # gate columns a block
+    R: int  # batch rows a cluster: 1, 2, 4 the few-row kernels, 8, 16, 24 the chunked ones
+    nres: int  # chunks resident in shared memory (all of them at R <= 4)
+    nstr: int  # chunks streamed every step
+    clusters: int  # clusters the card holds at once
+    waves: int  # ceil(2·ceil(B / R) / clusters)
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def few_threads(H: int, gates: int) -> int:
+    """The few-row kernels' threads a block: 4·NC (384 at NC = 96, 512 at
+    128), a lane of both products each."""
+    return 4 * wide_layout.plan(H, gates).NC
+
+
+def few_smem_bytes(H: int, gates: int, R: int) -> int:
+    """A few-row block's dynamic shared memory at width ``H`` (a multiple of
+    32) and ``R`` rows (``wide_f32_few.cuh::wfr_smem``): the whole slice
+    ``H × NC``, the ``h_prev`` rows ``R × H``, the recompute's partials
+    ``4 × R × NC``, the ``dz`` rows ``R × NC`` and two buffers of receiving
+    slots ``U × R × Hb``, all f32."""
+    p = wide_layout.plan(H, gates)
+    return 4 * (H * p.NC + R * H + FEW_GROUPS * R * p.NC + R * p.NC + 2 * p.U * R * p.Hb)
+
+
+def few_fits(H: int, gates: int, R: int) -> bool:
+    """Whether the few-row kernels take ``R`` rows at width ``H`` (a multiple
+    of 32): the route's width, a block's NC one they are built for, and the
+    block within ``SMEM_OPTIN`` beside the mbarriers."""
+    return (R in FEW_ROWS and fits(H, gates) and wide_layout.plan(H, gates).NC in FEW_NC
+            and few_smem_bytes(H, gates, R) + FEW_STATIC_SMEM <= SMEM_OPTIN)
+
+
+def few_step_ns(H: int, gates: int, R: int) -> int:
+    """The few-row kernels' step estimate at ``R`` rows a cluster, ns."""
+    words = H * wide_layout.plan(H, gates).NC
+    return FEW_STEP_NS + words * (FEW_WORD_PS + FEW_ROW_WORD_PS * R) // 1000
+
+
+def bwd_plan(B: int, H: int, gates: int, clusters, only: int = 0) -> Rows:
+    """The BPTT launcher's plan for ``B`` rows at width ``H`` (a multiple of
+    32), ``clusters`` the clusters the card holds at once (a dict by R, or
+    one number for all): at ``B <= FEW_MAX_B`` the few-row plan where one of
+    ``FEW_ROWS`` fits, the R of least waves × :func:`few_step_ns` (the larger
+    R on a tie), else the chunked plan (:func:`rows`). ``only`` forces R
+    (1, 2, 4: few-row; 8, 16, 24: chunked); ``ValueError`` when it does not
+    fit."""
+    at = _clusters_at(clusters)
+    if (only <= 4) if only else B <= FEW_MAX_B:
+        best, best_cost = None, None
+        for R in FEW_ROWS:
+            if (only and R != only) or not few_fits(H, gates, R) or at(R) < 1:
+                continue
+            waves = -(-2 * -(-B // R) // at(R))
+            cost = waves * few_step_ns(H, gates, R)
+            if best is None or cost < best_cost:
+                best = Rows(R, len(chunks(H)), 0, waves, few_smem_bytes(H, gates, R))
+                best_cost = cost
+        if best is not None:
+            return best
+        if only:
+            raise ValueError(f"no few-row f32 BPTT plan of R={only} fits H={H}")
+    return rows(B, H, gates, clusters, only=only)
 
 
 # the forwards' narrowest H a cell: past the one-block widths, where a
@@ -280,12 +376,15 @@ def replay_dh(dz: torch.Tensor, wp: torch.Tensor, p: wide_layout.Plan) -> list:
     return out
 
 
-def replay_bptt(cell: str, gx_f, gx_b, wh_f, wh_b, *states):
+def replay_bptt(cell: str, gx_f, gx_b, wh_f, wh_b, *states, few: bool = False):
     """The BPTT of ``bilstm_bwd_reference`` (``cell="lstm"``: states h_prev,
     c_prev, c, dy per direction) or ``bigru_bwd_reference`` (``"gru"``:
-    b_hn, h_prev, dy) in f32, its products summed as the ``"wide_f32"``
-    kernels sum them (:func:`replay_recompute`, :func:`replay_dh`, the block
-    partials added in block order)."""
+    b_hn, h_prev, dy) in f32, its products summed as the chunked
+    ``"wide_f32"`` kernels sum them (:func:`replay_recompute`,
+    :func:`replay_dh`, the block partials added in block order), or with
+    ``few`` as the few-row kernels do (the recompute as
+    :func:`replay_fwd_product`)."""
+    recompute = replay_fwd_product if few else replay_recompute
     gates = 4 if cell == "lstm" else 3
     T, B, G = gx_f.shape
     H = G // gates
@@ -308,7 +407,7 @@ def replay_bptt(cell: str, gx_f, gx_b, wh_f, wh_b, *states):
         dgx = torch.empty_like(gx)
         dnr = torch.empty_like(hp)
         for t in steps:
-            z = replay_recompute(hp[t], wp, p)
+            z = recompute(hp[t], wp, p)
             carry = dhz.clone()
             for part in partials:
                 carry = carry + part

@@ -3,6 +3,7 @@
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown          # the mma kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide   # the cluster kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 [--route=wide_f32]
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 --few [--route=wide_f32_few] [--grid]
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --simt --f32 [--route=narrow_f32]
 
 Builds variants of ``csrc/bilstm_bwd_mma.cu`` and ``csrc/bigru_bwd_mma.cu``
@@ -46,7 +47,15 @@ kernels (``"wide"``) and the f32 cluster BPTTs (``"wide_f32"``,
 ``wide_f32_common.cuh``: its edits apply to a copy inlined into the
 variant's source), the latter also without the streamed chunks
 (``no_stream``: the ring's slots keep the chunks of the first pass), each
-shape's launch plan printed; ``--route=NAME`` times one route alone.
+shape's launch plan printed; ``--route=NAME`` times one route alone;
+``--few`` times them at the few batch rows of ``FEW_SHAPES`` in place of
+``WIDE_SHAPES`` (the chunked kernels at R = 8), and beside them the route's
+few-row kernels (``"wide_f32_few"``, ``csrc/wide_f32_few.cuh``, the plan's
+R; ``FEW_VARIANTS``: full, no_recompute, no_dh, no_dsmem, no_prefetch and
+loop_only, all three removed); ``--grid`` then times their full step at
+``FEW_GRID``'s widths, every R that fits, one and three clusters a
+direction. The headers of ``"wide_f32"`` are inlined into each variant's
+source, each once.
 
 With ``--simt --f32`` the same for the one-block CUDA-core BPTTs in f32
 (``csrc/bilstm_bwd.cu``, ``csrc/bigru_bwd.cu``, route ``"simt"``) at
@@ -134,9 +143,23 @@ def _build_variants() -> dict:
 
 
 WIDE_SHAPES = [(512, 8, 512), (512, 160, 512)]
+# --few: the f32 BPTT's few batch rows (B <= 8) at the widths where the
+# CUDA-core cluster kernel ("wide") was measured faster than the chunked
+# "wide_f32" plan, by cell
+FEW_SHAPES = {"bilstm": [(512, 2, 384), (512, 8, 384), (512, 6, 416)],
+              "bigru": [(512, 2, 384), (512, 8, 384), (512, 6, 512)]}
 WIDE_VARIANTS = ("full", "no_recompute", "no_dh", "no_dsmem", "no_cluster_sync", "no_prefetch",
                  "loop_only")
 WIDE_ROUTE_VARIANTS = {"wide_f32": ("no_stream",)}  # variants only one route has
+# the few-row kernels of "wide_f32" (csrc/wide_f32_few.cuh), timed as their
+# own "route": no_dh also drops the mbarrier waits and arms its sends fed,
+# no_dsmem sends every partial into the block's own slots and mbarrier (at
+# the widths timed U·Hb = H, so the bytes a step still match)
+FEW_VARIANTS = ("full", "no_recompute", "no_dh", "no_dsmem", "no_prefetch", "loop_only")
+# --few --grid: the few-row kernels' full step at every R that fits, one and
+# three clusters a direction, by cell and width (the plan's step estimate is
+# fitted to it)
+FEW_GRID = {"bilstm": (288, 384, 416), "bigru": (352, 384, 448, 512)}
 # per source: {variant: [(text, replacement, count)]}; "loop_only" applies every edit
 WIDE_EDITS = {
     "wide": {
@@ -163,6 +186,17 @@ WIDE_EDITS = {
                              "  cp_async_wait<0>();\n  cluster.sync();\n}", 1)],
         "no_prefetch": [("    if (ch > 0 && s + 2 < n_steps) load_h(frame(s + 2), ch - 1);\n", "", 1)],
         "no_stream": [("    issue();\n", "", 1)],
+    },
+    "wide_f32_few": {
+        "no_recompute": [("    recompute();  // z of step s+1\n", "", 1)],
+        "no_dh": [("    dh_product(s & 1);\n", "", 1),
+                  ("    if (s > 0) mbar_wait(&s_bar[(s - 1) & 1], ((s - 1) >> 1) & 1);\n", "", 1),
+                  ("if (tid == 0 && n_steps > 1) mbar_expect_tx", "if (false) mbar_expect_tx", 1),
+                  ("if (tid == 0 && s + 2 < n_steps) mbar_expect_tx", "if (false) mbar_expect_tx",
+                   1)],
+        "no_dsmem": [("cluster_addr(recv_addr, owner)", "cluster_addr(recv_addr, rank)", 1),
+                     ("cluster_addr(bar_addr, owner)", "cluster_addr(bar_addr, rank)", 1)],
+        "no_prefetch": [("    prefetch(s + 1);\n", "", 1)],
     },
     "wide_mma": {
         "no_recompute": [("    recompute(0, KH);   // step s+1, first half\n", "", 1),
@@ -192,20 +226,36 @@ def _wide_source(src: str, route: str, name: str) -> str:
     return src
 
 
+def _inline_headers(src: str, seen=None) -> str:
+    """``src`` with each ``#include "x.cuh"`` of a header in ``csrc/``
+    replaced by the header's text, itself inlined, the first time it is
+    included and dropped after (as ``#pragma once``)."""
+    seen = set() if seen is None else seen
+
+    def one(m):
+        name = m.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        text = (_build.CSRC / name).read_text().replace("#pragma once\n", "")
+        return _inline_headers(text, seen)
+    return re.sub(r'#include "(\w+\.cuh)"\n', one, src)
+
+
 def _build_wide_variants(routes) -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     cmds, libs = [], {}
     for kind in ("bilstm", "bigru"):
         for route in routes:
-            path = _build.CSRC / f"{kind}_bwd_{route}.cu"
+            path = _build.CSRC / f"{kind}_bwd_{route.removesuffix('_few')}.cu"
             if not path.exists():
                 continue
             src = path.read_text()
-            if route == "wide_f32":  # the kernel body is the header's: edit a copy inlined
-                header = (_build.CSRC / "wide_f32_common.cuh").read_text()
-                src = src.replace('#include "wide_f32_common.cuh"\n', header)
-            for name in WIDE_VARIANTS + WIDE_ROUTE_VARIANTS.get(route, ()):
+            if route.startswith("wide_f32"):  # the kernel bodies are headers': edit copies inlined
+                src = _inline_headers(src)
+            names = FEW_VARIANTS if route == "wide_f32_few" else WIDE_VARIANTS
+            for name in names + WIDE_ROUTE_VARIANTS.get(route, ()):
                 cu = out_dir / f"{kind}_bwd_{route}_{name}.cu"
                 cu.write_text(_wide_source(src, route, name))
                 so = out_dir / f"{kind}_bwd_{route}_{name}.so"
@@ -412,17 +462,26 @@ def _wide_inputs(kind: str, T: int, B: int, H: int, dev, g, dtype=torch.bfloat16
     return ins, outs
 
 
-def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict, outs: dict):
+def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict, outs: dict,
+                   rows: int = 0):
     """A function that launches one variant's kernel on ``ins`` (its W_h packed
-    for the route), and the route's plan as the variant's library reports it."""
+    for the route), and the route's plan as the variant's library reports it.
+    ``"wide_f32"`` runs its chunked kernels (R = 8 or more: ``rows`` rows, or
+    the plan's choice past 8 batch rows), ``"wide_f32_few"`` its few-row ones
+    (``rows`` rows, or the plan's choice)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     gates = 4 if kind == "bilstm" else 3
     f32 = ins["gx"][0].dtype == torch.float32
-    if route in ("wide", "wide_f32"):
+    if route in ("wide", "wide_f32", "wide_f32_few"):
         plan = wide_layout.plan(H, gates)
         wp = [wide_layout.pack_wh(w, plan) for w in ins["wh"]]
-        tail = [T, B, H, plan.Hb, plan.U] + ([] if route == "wide_f32" else [0 if f32 else 1])
+        tail = [T, B, H, plan.Hb, plan.U]
+        if route == "wide":
+            tail.append(0 if f32 else 1)
+        else:
+            tail.append(rows or (0 if route == "wide_f32_few" or B > 8 else 8))
+        route = route.removesuffix("_few")
     else:
         from percivaltts_tpu_torch.ops import wide_mma_layout
 
@@ -459,7 +518,7 @@ def _plan_text(route: str, B: int, plan: list) -> str:
         waves = -(-2 * -(-B // R) // clusters)
         return (f"R={R}, W_h in {'shared memory' if w_smem else 'L2'}, {clusters} clusters at "
                 f"once, {waves} waves, {smem} B")
-    if route == "wide_f32":
+    if route.startswith("wide_f32"):
         U, Hb, NC, R, nres, nstr, clusters, waves, smem = plan
         return (f"R={R}, {nres} resident / {nstr} streamed chunks, {clusters} clusters at once, "
                 f"{waves} waves, {smem} B")
@@ -467,31 +526,59 @@ def _plan_text(route: str, B: int, plan: list) -> str:
     return f"R={R}, {clusters} clusters at once, {waves} waves, {smem} B"
 
 
-def wide_main(f32: bool = False, only: str = "") -> int:
-    """The cluster BPTTs' variants at ``WIDE_SHAPES``: bf16 on ``"wide"`` and
-    ``"wide_mma"``; with ``f32``, f32 on ``"wide"`` and ``"wide_f32"`` (which
-    also runs ``no_stream``), each shape's plan printed first; ``only``: that
-    route alone."""
-    routes = ("wide", "wide_f32") if f32 else ("wide", "wide_mma")
+def few_grid(libs, dev, g) -> None:
+    """The few-row kernels' full step at each width of ``FEW_GRID``, every R
+    that fits and B = R and 3·R (one and three clusters a direction, one
+    wave), beside R·NC·H."""
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+
+    for kind, widths in FEW_GRID.items():
+        gates = 4 if kind == "bilstm" else 3
+        for H in widths:
+            for R in wf.FEW_ROWS:
+                if not wf.few_fits(H, gates, R):
+                    continue
+                for B in (R, 3 * R):
+                    ins, outs = _wide_inputs(kind, 512, B, H, dev, g, torch.float32)
+                    launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, "wide_f32_few", "full")])),
+                                            kind, "wide_f32_few", 512, B, H, ins, outs, rows=R)
+                    us = _time_ms(launch, launches=3) / 512 * 1e3
+                    NC = wide_layout.plan(H, gates).NC
+                    print(f"[few grid] {kind} H={H} R={R} B={B} (R·NC·H {R * NC * H}, "
+                          f"{_plan_text('wide_f32', B, launch.plan)}): us a step {us:.3f}")
+
+
+def wide_main(f32: bool = False, only: str = "", few: bool = False, grid: bool = False) -> int:
+    """The cluster BPTTs' variants at ``WIDE_SHAPES`` (``few``: at
+    ``FEW_SHAPES``): bf16 on ``"wide"`` and ``"wide_mma"``; with ``f32``, f32
+    on ``"wide"``, ``"wide_f32"`` (its chunked kernels, which also run
+    ``no_stream``) and, with ``few``, ``"wide_f32_few"`` (the few-row
+    kernels, ``FEW_VARIANTS``), each shape's plan printed first; ``only``:
+    that route alone; ``grid`` (with ``few``): ``few_grid`` after them."""
+    routes = ("wide", "wide_f32") + (("wide_f32_few",) if few else ()) if f32 else \
+        ("wide", "wide_mma")
     routes = tuple(r for r in routes if not only or r == only)
     libs = _build_wide_variants(routes)
     dev = torch.device("cuda")
     dtype = torch.float32 if f32 else torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     for kind in ("bilstm", "bigru"):
-        for T, B, H in WIDE_SHAPES:
+        for T, B, H in FEW_SHAPES[kind] if few else WIDE_SHAPES:
             ins, outs = _wide_inputs(kind, T, B, H, dev, g, dtype)
             for route in routes:
                 if (kind, route, "full") not in libs:
                     continue
                 row, plan = [], None
-                for name in WIDE_VARIANTS + WIDE_ROUTE_VARIANTS.get(route, ()):
+                names = FEW_VARIANTS if route == "wide_f32_few" else WIDE_VARIANTS
+                for name in names + WIDE_ROUTE_VARIANTS.get(route, ()):
                     launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, route, name)])), kind,
                                             route, T, B, H, ins, outs)
                     plan = plan or launch.plan
                     row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
                 print(f"[breakdown] {kind}_bwd_{route} T,B,H={(T, B, H)} {str(dtype)[6:]} "
                       f"({_plan_text(route, B, plan)}): us a step: " + ", ".join(row))
+    if grid and "wide_f32_few" in routes:
+        few_grid(libs, dev, g)
     return 0
 
 
@@ -508,7 +595,8 @@ def main() -> int:
             return 2
         return simt_main(only)
     if "--wide" in sys.argv[1:]:
-        return wide_main(f32="--f32" in sys.argv[1:], only=only)
+        return wide_main(f32="--f32" in sys.argv[1:], only=only, few="--few" in sys.argv[1:],
+                         grid="--grid" in sys.argv[1:])
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     p, i = ctypes.c_void_p, ctypes.c_int

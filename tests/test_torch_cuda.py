@@ -564,10 +564,9 @@ def test_bptt_route_is_chosen_from_dtype_and_width(cuda_device, dtype, H, route,
     lstm_args = _bwd_args(T, B, H, dtype, cuda_device, seed=H)
     gru_args = _gru_bwd_args(T, B, H, dtype, cuda_device, seed=H)
     # a call sent to a cluster takes the tensor cores in bf16; in f32 at
-    # these 5 rows and H <= 384 the CUDA-core cluster BPTT, which the card
-    # measured faster than "wide_f32" at so few rows (mma_layout.F32_WIDE_BWD;
-    # the forward takes "wide_f32" there)
-    cluster = "wide_mma" if dtype == torch.bfloat16 else "wide"
+    # these 5 rows the f32 cluster BPTT, whose launcher takes its few-row
+    # kernels there (csrc/wide_f32_few.cuh), as the forward takes "wide_f32"
+    cluster = "wide_mma" if dtype == torch.bfloat16 else "wide_f32"
     # in f32 the one-block widths take the f32 narrow cluster BPTT
     narrow = "narrow_f32" if dtype == torch.float32 else "simt"
     route, gru_route = ((cluster if r in ("wide", "wide_f32") else narrow if r == "simt" else r)
@@ -650,15 +649,13 @@ def _wide_route(dtype, H, cell):
     return route
 
 
-def _wide_bwd_route(dtype, H, cell, B):
+def _wide_bwd_route(dtype, H, cell):
     """The route of a BPTT of ``B`` rows sent to the cluster kernels: the
-    forward's, but in f32 up to H = 512 the f32 cluster BPTT
-    (``"wide_f32"``) except at the few rows where the card measured
-    ``"wide"`` faster (``bwd_route``; its table is held on the CPU by
-    ``tests/test_torch_wide_f32_layout.py``)."""
+    forward's, so in f32 up to H = 512 the f32 cluster BPTT (``"wide_f32"``,
+    its few-row kernels at B <= 8), past it ``"wide"`` (``bwd_route``)."""
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route
 
-    route = bwd_route(dtype, H, cell, B)
+    route = bwd_route(dtype, H, cell)
     assert route in ("wide_mma" if dtype == torch.bfloat16 else "wide_f32", "wide")
     return route
 
@@ -690,7 +687,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
                 _close_rel(got[2:], want[2:], 2e-2)
         torch.cuda.synchronize()
         assert _route_counts(f0, bigru_fwd.routes, _wide_route(dtype, H, cell)) == (1, 0)
-        assert _route_counts(b0, bigru_bwd.routes, _wide_bwd_route(dtype, H, cell, B)) == (1, 0)
+        assert _route_counts(b0, bigru_bwd.routes, _wide_bwd_route(dtype, H, cell)) == (1, 0)
         return
     f_args = _gates(T, B, H, dtype, cuda_device, seed=T + B)
     b_args = _bwd_args(T, B, H, dtype, cuda_device, seed=T + B)
@@ -708,7 +705,7 @@ def test_wide_kernels_match_twins(cuda_device, dtype, cell, T, B, H):
             _close_rel(got, want, 2e-2)
     torch.cuda.synchronize()
     assert _route_counts(f0, bilstm_fwd.routes, _wide_route(dtype, H, cell)) == (2, 0)
-    assert _route_counts(b0, bilstm_bwd.routes, _wide_bwd_route(dtype, H, cell, B)) == (1, 0)
+    assert _route_counts(b0, bilstm_bwd.routes, _wide_bwd_route(dtype, H, cell)) == (1, 0)
 
 
 @pytest.mark.cuda
@@ -749,7 +746,7 @@ def test_wide_autograd_pair_matches_twins(cuda_device, dtype, cell):
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
     assert _route_counts(f0, fwd.routes, _wide_route(dtype, 512, cell)) == (1, 0)
-    assert _route_counts(b0, bwd.routes, _wide_bwd_route(dtype, 512, cell, 6)) == (1, 0)
+    assert _route_counts(b0, bwd.routes, _wide_bwd_route(dtype, 512, cell)) == (1, 0)
     for g, w in zip(*grads):
         scale = w.float().abs().max().item()
         tol = 2e-2 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
@@ -798,9 +795,9 @@ WIDE_F32_CASES = ([("lstm", *s) for s in [(512, 32, 512), (33, 9, 264), (1, 3, 5
 @pytest.mark.parametrize("cell,T,B,H", WIDE_F32_CASES)
 def test_wide_f32_bptt_matches_twins(cuda_device, cell, T, B, H):
     """The f32 cluster BPTTs against the twins (1e-4), launched directly and
-    through the entry, which counts them once on their route (``"wide_f32"``,
-    or ``"wide"`` where the card measured it faster at few rows); the earlier
-    CUDA-core cluster BPTT on the same inputs agrees too."""
+    through the entry, which counts them once on their route
+    (``"wide_f32"``); the earlier CUDA-core cluster BPTT on the same inputs
+    agrees too."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route
 
@@ -809,8 +806,8 @@ def test_wide_f32_bptt_matches_twins(cuda_device, cell, T, B, H):
     args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, cuda_device, seed=T + B)
     want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
     wrapper = bigru_bwd if gru else bilstm_bwd
-    route = bwd_route(torch.float32, H, cell, B)
-    assert route in ("wide", "wide_f32")
+    route = bwd_route(torch.float32, H, cell)
+    assert route == "wide_f32"
     with torch.no_grad():
         _close(m.bwd_launch("wide_f32", *args), want, 1e-4)
         _close(m.bwd_launch("wide", *args), want, 1e-4)
@@ -827,9 +824,34 @@ def test_wide_f32_bptt_matches_twins(cuda_device, cell, T, B, H):
 @pytest.mark.parametrize("B", [1, 8, 32, 160])
 def test_wide_f32_plan_matches_the_layout(cuda_device, cell, H, B):
     """The launchers split H as ``ops/wide_layout.py::plan`` does and choose
-    the rows and resident chunks ``ops/wide_f32_layout.py::rows`` replays at
-    the card's clusters; at H = 512, B <= 32 in one wave and B = 160 in two;
-    H not a multiple of 32 is refused."""
+    the kernel, rows and resident chunks ``ops/wide_f32_layout.py::bwd_plan``
+    replays at the card's clusters by R (each R's plan forced: the few-row
+    kernels at B <= 8 where one fits, else the chunked ones' ``rows``); at
+    H = 512, B <= 32 in one wave and B = 160 in two; H not a multiple of 32
+    is refused."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_f32_layout as wf
+    from percivaltts_tpu_torch.ops import wide_layout
+
+    gates = 3 if cell == "gru" else 4
+    p = wide_layout.plan(H, gates)
+    out = _wide_f32_plan(cell, B, H, 0)
+    assert out[:3] == (p.U, p.Hb, p.NC) and out.clusters >= 1
+    clusters = {R: _wide_f32_plan(cell, 1, H, R).clusters for R in wf.FEW_ROWS + (8, 16, 24)
+                if (wf.few_fits(H, gates, R) if R <= 4 else wf.resident(H, gates, R) >= 0)}
+    assert tuple(out)[3:6] + tuple(out)[7:] == tuple(wf.bwd_plan(B, H, gates, clusters))
+    assert (out.R <= 4) == (B <= wf.FEW_MAX_B and any(wf.few_fits(H, gates, R)
+                                                       for R in wf.FEW_ROWS))
+    if H == 512:
+        assert out.waves == (1 if B <= 32 else 2)
+    fn = getattr(_build.library(), f"percival_{'bigru' if gates == 3 else 'bilstm'}_bwd_wide_f32_plan")
+    assert fn(B, H + 8, p.Hb, p.U, 0, (ctypes.c_int * 9)()) != 0
+
+
+def _wide_f32_plan(cell, B, H, rows):
+    """The f32 BPTT's launch plan from its library (``rows``: R forced)."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
@@ -840,13 +862,78 @@ def test_wide_f32_plan_matches_the_layout(cuda_device, cell, H, B):
     p = wide_layout.plan(H, gates)
     fn = getattr(_build.library(), f"percival_{'bigru' if gates == 3 else 'bilstm'}_bwd_wide_f32_plan")
     out = (ctypes.c_int * 9)()
-    assert fn(B, H, p.Hb, p.U, out) == 0
-    U, Hb, NC, R, nres, nstr, clusters, waves, smem = out
-    assert (U, Hb, NC) == (p.U, p.Hb, p.NC) and clusters >= 1
-    assert (R, nres, nstr, waves, smem) == tuple(wf.rows(B, H, gates, clusters))
-    if H == 512:
-        assert waves == (1 if B <= 32 else 2)
-    assert fn(B, H + 8, p.Hb, p.U, out) != 0
+    assert fn(B, H, p.Hb, p.U, rows, out) == 0
+    return wf.BwdPlan(*out)
+
+
+# the rows the f32 BPTT kept on the CUDA-core cluster kernel ("wide") before
+# its few-row plan, and edges of that plan: B = 3, 5, 7, H = 264 (padded to
+# 288), 480
+WIDE_F32_FEW_CASES = ([("lstm", 40, B, H) for B, H in [(8, 288), (8, 384), (6, 416), (3, 264),
+                                                       (7, 416)]]
+                      + [("gru", 40, B, H) for B, H in [(8, 384), (6, 512), (5, 480), (1, 352)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", WIDE_F32_FEW_CASES)
+def test_wide_f32_few_rows_match_twins(cuda_device, cell, T, B, H):
+    """At few rows the entry's f32 BPTT (route ``"wide_f32"``) launches the
+    few-row kernels, counted once on the route and once on
+    ``.wide_f32_plans["few"]``, within 1e-4·max(1, max|twin|) of the twins,
+    as the ``"wide"`` kernel they replaced there on the same inputs."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, cuda_device, seed=B + H)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    tol = 1e-4 * max(1.0, max(w.abs().max().item() for w in want))
+    wrapper = bigru_bwd if gru else bilstm_bwd
+    assert bwd_route(torch.float32, H, cell) == "wide_f32"
+    with torch.no_grad():
+        b0, p0 = dict(wrapper.routes), dict(wrapper.wide_f32_plans)
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        _close(got, want, tol)
+        _close(m.bwd_launch("wide", *args), want, tol)
+    assert _route_counts(b0, wrapper.routes, "wide_f32") == (1, 0)
+    assert _route_counts(p0, wrapper.wide_f32_plans, "few") == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,B,H,R", [("lstm", 8, 384, 1), ("lstm", 8, 384, 2),
+                                        ("lstm", 3, 288, 4), ("lstm", 5, 416, 1),
+                                        ("gru", 8, 512, 1), ("gru", 7, 512, 2),
+                                        ("gru", 2, 384, 4), ("lstm", 160, 384, 4)])
+def test_wide_f32_few_rows_forced(cuda_device, cell, B, H, R):
+    """``bwd_launch("wide_f32", …, rows=R)`` runs the few-row kernels at R
+    rows a cluster at any B (more clusters, or padding rows) and agrees with
+    the twins; the plan it takes is R's."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+
+    gru = cell == "gru"
+    m = gru_cuda if gru else lstm_cuda
+    T = 24
+    args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, cuda_device, seed=B + R)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    with torch.no_grad():
+        got = m.bwd_launch("wide_f32", *args, rows=R)
+        torch.cuda.synchronize()
+    _close(got, want, 1e-4 * max(1.0, max(w.abs().max().item() for w in want)))
+    assert lstm_cuda.wide_f32_plan("bigru" if gru else "bilstm", B, H, R).R == R
+
+
+@pytest.mark.cuda
+def test_wide_f32_few_rows_refuse_rows_that_do_not_fit(cuda_device):
+    """R = 4 does not fit the LSTM's slice at H = 416, nor any few-row R at
+    448; R = 3 is no plan's; each raises before a launch."""
+    from percivaltts_tpu_torch.ops import lstm_cuda
+
+    for B, H, R in ((8, 416, 4), (2, 448, 1), (2, 384, 3)):
+        with pytest.raises(RuntimeError, match="plan"):
+            lstm_cuda.bwd_launch("wide_f32", *_bwd_args(2, B, H, torch.float32, cuda_device,
+                                                         seed=1), rows=R)
 
 
 @pytest.mark.cuda
@@ -979,7 +1066,7 @@ def test_narrow_f32_bptt_matches_twins(cuda_device, cell, T, B, H):
     args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.float32, cuda_device, seed=T + B)
     want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
     wrapper = bigru_bwd if gru else bilstm_bwd
-    route = bwd_route(torch.float32, H, cell, B)
+    route = bwd_route(torch.float32, H, cell)
     assert route in ("narrow_f32", "simt")
     with torch.no_grad():
         _close(m.bwd_launch("narrow_f32", *args), want, 1e-4)

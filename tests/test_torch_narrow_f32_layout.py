@@ -211,7 +211,7 @@ def test_f32_bptt_route_takes_the_kernel_measured_faster(cell):
     for H, up_to in SIMT_FASTER_UP_TO[cell].items():
         for B in MEASURED_B:
             want = "simt" if B <= up_to else "narrow_f32"
-            assert bwd_route(torch.float32, H, cell, B) == want, (H, B)
+            assert bwd_route(torch.float32, H, cell) == want, (H, B)
 
 
 def test_padding_is_exact_through_the_replay():

@@ -29,7 +29,7 @@ from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_layout
 from percivaltts_tpu_torch.ops import wide_f32_layout as wf
 from percivaltts_tpu_torch.ops.gru_cuda import bigru_fwd_reference
 from percivaltts_tpu_torch.ops.lstm_cuda import at_width, bilstm_fwd_reference
-from percivaltts_tpu_torch.ops.mma_layout import F32_WIDE_BWD, bwd_route, fwd_route
+from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
 GATES = {"lstm": 4, "gru": 3}
 H100_CLUSTERS = 7  # clusters of 16 blocks the H100 holds at once (chip_smoke.py phase 13)
@@ -132,22 +132,20 @@ def test_every_width_the_forward_route_takes_has_a_plan(cell):
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_bptt_keeps_its_measured_rows_behind_the_moved_forward(cell):
-    """Moving the f32 forward to ``"wide_f32"`` moves no BPTT: at every row
-    of ``F32_WIDE_BWD`` the BPTT stays on ``"wide"``, at every other width and
-    batch up to H = 512 on ``"wide_f32"``, without a batch too; the forward
-    takes ``"wide_f32"`` at all of them without a batch (with one, but at
-    the rows of its own table)."""
-    rows = F32_WIDE_BWD[cell]
+    """The f32 BPTT's route follows the measurements: the few batch rows it
+    once kept on ``"wide"`` (B <= 8 up to H = 384, B <= 6 up to 416 / 512)
+    now take ``"wide_f32"``, whose few-row plan the card measured faster
+    there, so the BPTT takes ``"wide_f32"`` at every width up to H = 512
+    (its route takes no batch); the forward takes ``"wide_f32"`` at all of
+    them without a batch (with one, but at the rows of its own table)."""
     for H in range(LOW[cell] + 1, 513, 7):
-        for B in (1, 2, 4, 6, 7, 8, 9, 16, 32, 160):
-            kept = any(H <= h and B <= b for h, b in rows)
-            assert bwd_route(torch.float32, H, cell, B) == ("wide" if kept else "wide_f32")
-            assert fwd_route(torch.float32, H, cell) == "wide_f32"
-            assert fwd_route(torch.float32, H, cell, B) in ("wide", "wide_f32")
         assert bwd_route(torch.float32, H, cell) == "wide_f32"
-    for h, b in rows:
-        assert bwd_route(torch.float32, h, cell, b) == "wide"
-        assert bwd_route(torch.float32, h, cell, b + 1) == "wide_f32"
+        assert fwd_route(torch.float32, H, cell) == "wide_f32"
+        for B in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32, 160):
+            assert fwd_route(torch.float32, H, cell, B) in ("wide", "wide_f32")
+    for h, b in {"lstm": ((384, 8), (416, 6)), "gru": ((384, 8), (512, 6))}[cell]:
+        assert bwd_route(torch.float32, h, cell) == "wide_f32"
+        assert wf.bwd_plan(b, h, GATES[cell], H100_CLUSTERS).R <= 4
 
 
 # the f32 forwards timed in turns on the H100 (python3 chip_smoke.py

@@ -16,6 +16,8 @@ exactly.
 
 import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -83,27 +85,29 @@ def test_every_width_the_route_takes_has_a_plan(gates):
 # the f32 cluster BPTTs timed in turns on the H100 (python3 chip_smoke.py
 # --f32-times, T = 512, B in MEASURED_B): at each width, the largest B at
 # which the CUDA-core cluster kernel ("wide") was faster than "wide_f32"
-# (0: at none); "wide_f32" was faster at every larger B
-MEASURED_B = (1, 2, 4, 6, 8, 16, 24, 32, 160)
-WIDE_FASTER_UP_TO = {"lstm": {264: 8, 288: 8, 320: 8, 384: 8, 416: 6, 448: 0, 512: 0},
-                     "gru": {336: 8, 352: 8, 384: 8, 416: 6, 448: 6, 512: 6}}
+# (0: at none); "wide_f32" was faster at every larger B. Since "wide_f32"
+# takes its few-row kernels at B <= 8, "wide" is faster nowhere
+MEASURED_B = (1, 2, 3, 4, 5, 6, 7, 8, 16, 24, 32, 160)
+WIDE_FASTER_UP_TO = {"lstm": {264: 0, 288: 0, 320: 0, 384: 0, 416: 0, 448: 0, 512: 0},
+                     "gru": {336: 0, 352: 0, 384: 0, 416: 0, 448: 0, 512: 0}}
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_f32_bptt_route_takes_the_kernel_measured_faster(cell):
     """At every width and batch the card timed, the f32 BPTT's route is the
-    faster of the two cluster kernels; the forward takes ``"wide_f32"`` at
-    every batch; without a batch the route is a large batch's."""
+    faster of the two cluster kernels: ``"wide_f32"`` (at B <= 8 its plan
+    takes the few-row kernels wherever one fits, the LSTM up to H = 416);
+    the forward takes ``"wide_f32"`` at every batch; the BPTT's route takes
+    no batch."""
+    gates = 4 if cell == "lstm" else 3
     for H, up_to in WIDE_FASTER_UP_TO[cell].items():
         for B in MEASURED_B:
             want = "wide" if B <= up_to else "wide_f32"
-            assert bwd_route(torch.float32, H, cell, B) == want, (H, B)
+            assert bwd_route(torch.float32, H, cell) == want, (H, B)
             assert fwd_route(torch.float32, H, cell) == "wide_f32"
-        assert bwd_route(torch.float32, H, cell) == "wide_f32"
-    # the batch moves no other route
-    for dtype, H in ((torch.bfloat16, 512), (torch.float32, 128), (torch.float32, 1024)):
-        assert bwd_route(dtype, H, cell, 1) == bwd_route(dtype, H, cell, 160) == \
-            bwd_route(dtype, H, cell)
+            few = B <= wf.FEW_MAX_B and wf.few_fits(wf.padded(H), gates, 1)
+            assert (wf.bwd_plan(B, wf.padded(H), gates, H100_CLUSTERS).R <= 4) == few, (H, B)
+    assert list(inspect.signature(bwd_route).parameters) == ["dtype", "H", "cell"]
 
 
 def test_chunks_cover_the_slice():
