@@ -4,6 +4,8 @@ train, time.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --f32-times   # the build, then only the f32 tables below
+    python3 chip_smoke.py --bf16-wide-times   # ... only the bf16 streamed BPTTs' table
+    python3 chip_smoke.py --first-port-times  # ... only the first-port kernels' rows
 
 Two generators are driven through the entry points a user calls
 (``eval/serve.py``'s ``serve``, ``training/state.py``'s ``make_gan_state``
@@ -167,8 +169,9 @@ raises on failure (the script exits 0 only when all passed):
    11b. the same for the BGRU at bound 256 (2 BiGRU forwards a call);
    11d. ``cli export`` on phase 8's workdir through a copy of its config
    with one bucket bound, 512 (one PML synthesis artifact to trace, the
-   default synthesis), whose artifacts turn the test label files into
-   features (within phase 4's tolerance of ``cli synth``'s) and wavs;
+   default synthesis; the command runs in a subprocess from the end of
+   phase 8, beside phases 9–10), whose artifacts turn the test label files
+   into features (within phase 4's tolerance of ``cli synth``'s) and wavs;
    11c. (after 11d) the default PML synthesis (closed loop, 2 passes; 11d's
    artifact at bound 512) and config 4's Griffin-Lim exported at bound 256
    and reloaded: the served requests of 385–512 (PML) or 129–256 frames
@@ -289,7 +292,21 @@ raises on failure (the script exits 0 only when all passed):
    ``FEW_MODELS``) served and trained at ``FEW_TRAIN_B`` = 8 rows as 13b/13c
    (``FEW_DEPTH``), every BPTT launch on the few-row kernels;
    16d. both kernels at ``F32_WIDE_KEPT`` in turns with ``"wide"`` and the
-   twin, beside the bound and cuDNN's f32 layer (events, device time).
+   twin, beside the bound and cuDNN's f32 layer (events, device time);
+17. the bf16 BPTT past the tensor-core widths (``"wide_mma_stream"``: the
+   W_hᵀ slice streamed from L2 in 64-k chunks, ``csrc/wide_mma_stream.cuh``):
+   17a. its plans at every width and B it is timed at against
+   ``ops/wide_mma_layout.py::stream_plan`` at the card's clusters,
+   ``ptxas``'s registers with 0 spills; both kernels through their entries
+   at ``STREAM_SHAPES`` against the twins within
+   ``KERNEL_TOL[bf16]``·max(1, max|twin|), ``"wide"`` launched beside them;
+   17b. the autograd pairs at ``STREAM_AUTOGRAD_SHAPE`` (forward ``"wide"``,
+   BPTT streamed) against the twins;
+   17c. config 3 and the BGRU at ``blstm_size=2048`` (H = 1024,
+   ``STREAM_MODELS``) served and trained (B = 32) as 13b/13c
+   (``STREAM_DEPTH``), every BPTT launch on the streamed kernels;
+   17d. both kernels at ``STREAM_TIMED`` in turns with ``"wide"`` and the
+   twin, beside the bound and cuDNN's bf16 layer (events, device time).
 
 With ``--f32-times`` the script builds, then only times f32 and exits:
 15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
@@ -300,7 +317,13 @@ the few-row plan (``F32_WIDE_KEPT``) on ``"wide_f32"`` in turns with
 BPTTs, ``"wide"`` and ``"wide_f32"``, in turns at each width of
 ``F32_ROUTE_WIDTHS`` and B of ``F32_ROUTE_BATCHES`` (where the BPTT's plan
 takes its few-row kernels, its chunked kernel at R = 8 beside them); each
-beside the route ``fwd_route`` / ``bwd_route`` takes there; it prints no
+beside the route ``fwd_route`` / ``bwd_route`` takes there; and the GRU
+forward at ``F32_WIDE_FWD``'s width, ``"wide"`` against ``"wide_f32"`` in
+turns at B = 1–4. With ``--bf16-wide-times`` it builds, then times the
+streamed bf16 BPTTs against ``"wide"`` in turns at each width of
+``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, then 17d; with
+``--first-port-times`` it times the kernels still in their first port
+(``FIRST_PORT_ROWS``) beside the bound and cuDNN's layer. These print no
 kernel line and no device record.
 
 Launch counts are set to 0 just before each serve, train, vocode or
@@ -363,12 +386,14 @@ SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_l
              "cnn_blstm_1024": 0.0625, "blstm_1024": 0.125, "bgru_1024": 0.125,
              "cnn_blstm_1024_f32": 1e-3, "bgru_1024_f32": 1e-3,
              "cnn_blstm_f32": 1e-3, "bgru_f32": 1e-3,
-             "cnn_blstm_768_f32": 1e-3, "bgru_768_f32": 1e-3}
+             "cnn_blstm_768_f32": 1e-3, "bgru_768_f32": 1e-3,
+             "cnn_blstm_2048": 0.0625, "bgru_2048": 0.125}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
           "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075,
           "cnn_blstm_1024_f32": 6_003_043, "bgru_1024_f32": 9_983_075,
           "cnn_blstm_f32": 3_246_691, "bgru_f32": 726_371,
-          "cnn_blstm_768_f32": 4_822_115, "bgru_768_f32": 5_717_859}
+          "cnn_blstm_768_f32": 4_822_115, "bgru_768_f32": 5_717_859,
+          "cnn_blstm_2048": 13_348_195, "bgru_2048": 38_840_419}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -401,6 +426,11 @@ MODELS = {
     # plan of "wide_f32" (csrc/wide_f32_few.cuh)
     "cnn_blstm_768_f32": dict(generator="cnn_blstm", blstm_size=768, compute_dtype="float32"),
     "bgru_768_f32": dict(generator="bgru", blstm_size=768, compute_dtype="float32"),
+    # phase 17: config 3 and the BGRU at blstm_size=2048 (H = 1024 a
+    # direction) in bf16: the forwards on "wide", the BPTTs on the streamed
+    # tensor-core cluster kernels ("wide_mma_stream")
+    "cnn_blstm_2048": dict(generator="cnn_blstm", blstm_size=2048),
+    "bgru_2048": dict(generator="bgru", blstm_size=2048),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
@@ -495,7 +525,8 @@ STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "b
                  "cnn_blstm_1024": (2, 1), "blstm_1024": (4, 2), "bgru_1024": (4, 2),
                  "cnn_blstm_1024_f32": (2, 1), "bgru_1024_f32": (4, 2),
                  "cnn_blstm_f32": (2, 1), "bgru_f32": (4, 2),
-                 "cnn_blstm_768_f32": (2, 1), "bgru_768_f32": (4, 2)}
+                 "cnn_blstm_768_f32": (2, 1), "bgru_768_f32": (4, 2),
+                 "cnn_blstm_2048": (2, 1), "bgru_2048": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -563,6 +594,7 @@ SYN_BOUND = 256  # the synthesis artifacts' bound: requests of 129–256 frames 
 # alike: it holds every test label file of the demo corpus (up to ~340
 # frames), and 11c renders the served requests of 385–512 frames through it
 CLI_EXPORT_BOUND = 512
+CLI_EXPORT_TIMEOUT_S = 600
 SYN_LAUNCHES = {"pml": {"frame_window": 7, "overlap_add": 6},  # closed loop, 2 passes
                 "melspec": {"frame_window": 64, "overlap_add": 130}}  # 64 Griffin-Lim iterations
 N_TIMED_EXPORT = 7
@@ -644,6 +676,23 @@ FEW_TRAIN_B = 8
 FEW_DEPTH = (1, 1, 3)
 FEW_EDGES = {"lstm": [(33, 1, 288), (33, 3, 384), (33, 5, 416), (33, 7, 264)],
              "gru": [(33, 1, 352), (33, 3, 384), (33, 5, 512), (33, 7, 480)]}
+# phase 17: the bf16 BPTT past the widths whose W_hᵀ slice fits a block
+# beside its tiles (route "wide_mma_stream", csrc/{bilstm,bigru}_bwd_wide_mma_stream.cu):
+# the shapes both kernels are held on (the models' H = 1024 at the generator
+# update and the fakes pass, the route's first widths, a padded width, its
+# widest), the autograd pair's, the models (served, one step checked, steps
+# timed at STREAM_DEPTH) and the timed shapes; python3 chip_smoke.py
+# --bf16-wide-times times it against "wide" at each width and B below
+STREAM_SHAPES = {"lstm": [(512, 32, 1024), (512, 160, 1024), (33, 9, 640), (40, 1, 1000),
+                          (33, 9, 1536)],
+                 "gru": [(512, 32, 1024), (512, 160, 1024), (33, 9, 704), (40, 1, 1000),
+                         (33, 9, 1792)]}
+STREAM_AUTOGRAD_SHAPE = (512, 32, 1024)
+STREAM_MODELS = ("cnn_blstm_2048", "bgru_2048")
+STREAM_DEPTH = (3, 1, 3)
+STREAM_TIMED = [(512, 8, 1024), (512, 32, 1024), (512, 160, 1024)]
+BF16_WIDE_WIDTHS = {"lstm": (640, 768, 1024, 1536), "gru": (704, 768, 1024, 1536, 1792)}
+BF16_WIDE_BATCHES = (1, 8, 32, 160)
 FEW_FORCED = {"lstm": [(33, 8, 384, 1), (33, 8, 384, 2), (33, 6, 416, 1)],
               "gru": [(33, 8, 512, 1), (33, 8, 512, 2), (33, 6, 384, 4)]}
 
@@ -2674,18 +2723,46 @@ def _export_synthesis_path(dev, card: str, feats_by_kind: dict, pml_syn) -> dict
     return out
 
 
-def _cli_export_path(dev, card: str, qs: dict) -> dict:
-    """Phase 11d: ``cli export`` on phase 8's quick-start workdir (config 1,
+def _start_cli_export(qs: dict) -> dict:
+    """Phase 11d's ``cli export`` on phase 8's quick-start workdir (config 1,
     the best checkpoint's EMA, the default PML synthesis) through a copy of
-    its config with the one bucket bound ``CLI_EXPORT_BOUND`` (the export
-    traces one PML synthesis artifact a bound, ~90 s each), then its
-    artifacts on the card turn the test split's label files into features
-    and wavs: the features within phase 4's tolerance of those ``cli
-    synth`` serves from the same checkpoint, 7 framings and 6 overlap-adds a
-    wav, finite wavs of nf·80 samples."""
+    its config with the one bucket bound ``CLI_EXPORT_BOUND``, started as
+    soon as phase 8 has written that workdir: the command line (on the
+    card) in a subprocess one nice level down, so that its trace of the PML
+    synthesis graph (85–210 s of host time, most of phase 11) runs while
+    phases 9–10 use the card; ``_cli_export_path`` waits for it (a process
+    still running when the script exits is killed)."""
+    import atexit
     import os
 
-    from percivaltts_tpu_torch import cli
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = json.loads(json.dumps(qs["cfg"]))
+    d["data"]["bucket_bounds"] = [CLI_EXPORT_BOUND]
+    cfg_path = _write_config(os.path.join(qs["root"], "config1_export.json"), d)
+    outdir = os.path.join(qs["root"], "export")
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # the command's own wall time, printed by the wrapper around it
+    code = ("import sys, time; t = time.perf_counter(); from percivaltts_tpu_torch import cli; "
+            "rc = cli.main(sys.argv[1:]); print(f'EXPORT_S {time.perf_counter() - t:.3f}'); "
+            "sys.exit(rc)")
+    log = os.path.join(qs["root"], "cli_export.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, "export", "--config", cfg_path,
+                                 "--out", outdir], cwd=repo, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(1))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "cfg_path": cfg_path, "outdir": outdir, "log": log}
+
+
+def _cli_export_path(dev, card: str, qs: dict, started: dict) -> dict:
+    """Phase 11d: ``cli export`` (started by ``_start_cli_export``) must exit
+    0 within ``CLI_EXPORT_TIMEOUT_S``; then its artifacts on the card turn
+    the test split's label files into features and wavs: the features
+    within phase 4's tolerance of those ``cli synth`` serves from the same
+    checkpoint, 7 framings and 6 overlap-adds a wav, finite wavs of nf·80
+    samples."""
+    import os
+
     from percivaltts_tpu_torch.config import Configuration
     from percivaltts_tpu_torch.data.hts_labels import QuestionSet, binarize_label_file
     from percivaltts_tpu_torch.eval.export import ExportedGenerator, ExportedSynthesizer
@@ -2693,20 +2770,22 @@ def _cli_export_path(dev, card: str, qs: dict) -> dict:
     from percivaltts_tpu_torch.training.checkpoints import CheckpointManager
     from percivaltts_tpu_torch.training.state import eval_generator, make_gan_state
 
-    d = json.loads(json.dumps(qs["cfg"]))
-    d["data"]["bucket_bounds"] = [CLI_EXPORT_BOUND]
-    cfg_path = _write_config(os.path.join(qs["root"], "config1_export.json"), d)
-    outdir = os.path.join(qs["root"], "export")
+    cfg_path, outdir = started["cfg_path"], started["outdir"]
     cfg = Configuration.load(cfg_path)
-    t = time.perf_counter()
-    if cli.main(["export", "--config", cfg_path, "--out", outdir], device=dev) != 0:
-        raise AssertionError("cli export failed")
-    export_s = time.perf_counter() - t
+    started["proc"].wait(timeout=CLI_EXPORT_TIMEOUT_S)
+    with open(started["log"]) as f:
+        out = f.read()
+    for line in out.strip().splitlines()[-6:]:
+        print(f"[cli export] | {line}")
+    if started["proc"].returncode != 0:
+        raise AssertionError(f"cli export failed ({started['proc'].returncode})")
+    export_s = float(re.findall(r"^EXPORT_S (\S+)$", out, re.M)[-1])
     with open(os.path.join(outdir, "manifest.json")) as f:
         manifest = json.load(f)
     sizes = {n: os.path.getsize(os.path.join(outdir, n)) for n in sorted(os.listdir(outdir))
              if n.endswith(".pt2")}
-    print(f"[cli export] ({card}) {export_s:.2f} s; manifest bounds {manifest['bounds']}, "
+    print(f"[cli export] ({card}) {export_s:.2f} s (in the background beside phases 9–10); "
+          f"manifest bounds {manifest['bounds']}, "
           f"synthesis {manifest['synthesis']}; bytes {sizes}")
     if manifest["bounds"] != [CLI_EXPORT_BOUND] or \
             manifest["synthesis"]["bounds"] != [CLI_EXPORT_BOUND]:
@@ -4340,6 +4419,302 @@ def _f32_times(dev) -> int:
     for cell in ("lstm", "gru"):
         for what in ("fwd", "bwd"):
             _f32_route_times(dev, cell, what)
+    _f32_wide_fwd_times(dev)
+    return 0
+
+
+# python3 chip_smoke.py --first-port-times: the kernels still in their first
+# port, by (cell, pass, dtype, route, shapes): the bf16 "wide" BPTT and
+# forward past the tensor-core widths, the f32 "wide" ones past H = 512, the
+# GRU's "wide" forward at F32_WIDE_FWD's width, the bf16 "simt" ones at an H
+# that is not a multiple of 16
+FIRST_PORT_ROWS = [
+    *((cell, what, torch.bfloat16, "wide", [(512, B, H) for H in (hs, 1024) for B in (8, 32, 160)])
+      for cell, hs in (("lstm", 640), ("gru", 704)) for what in ("bwd", "fwd")),
+    *((cell, what, torch.float32, "wide", [(512, B, H) for H in (768, 1024) for B in (8, 32, 160)])
+      for cell in ("lstm", "gru") for what in ("bwd", "fwd")),
+    ("gru", "fwd", torch.float32, "wide", [(512, 1, 336), (512, 2, 336), (512, 3, 336)]),
+    *((cell, what, torch.bfloat16, "simt", [(512, 8, 100), (512, 32, 100)])
+      for cell in ("lstm", "gru") for what in ("bwd", "fwd")),
+]
+
+
+def _first_port_times(dev, rows=None) -> list:
+    """``python3 chip_smoke.py --first-port-times``: each kernel of
+    ``FIRST_PORT_ROWS`` launched on its route (``{fwd,bwd}_launch``,
+    uncounted) at each shape: its time by CUDA events (median of 5 calls) and
+    by device time (``_device_ms``, 3 calls), the bound at its dtype's peak,
+    and the port's layer and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``
+    (TF32 off) forward or backward by events and device time
+    (``_layer_times``: medians of 2 × 3 calls; the port's layer takes the
+    route ``fwd_route`` / ``bwd_route`` gives)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+
+    out = []
+    for cell, what, dt, route, shapes in rows or FIRST_PORT_ROWS:
+        gru, fwd = cell == "gru", what == "fwd"
+        m, name = (gru_cuda, f"bigru_{what}") if gru else (lstm_cuda, f"bilstm_{what}")
+        launch = m.fwd_launch if fwd else m.bwd_launch
+        for T, B, H in shapes:
+            if fwd:
+                args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
+            else:
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            with torch.no_grad():
+                ms = _median_ms(lambda: launch(route, *args), runs=5)
+                kernel_device_ms = _device_ms(lambda: launch(route, *args), calls=3, match=name)
+            ws = _layer_weights(cell, H, dt, dev, seed=2)
+            x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
+                                 .astype(np.float32)).to(device=dev, dtype=dt)
+            with _compact_weights():
+                lt = _layer_times(m.bigru if gru else m.bilstm, _library_layer(cell, ws, dt, dev),
+                                  x, [t for d in ws for t in d], fwd, runs=2, inner=3)
+            bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
+            row = {"cell": cell, "what": what, "dtype": str(dt)[6:], "route": route,
+                   "shape": [T, B, H], "ms": ms, "kernel_device_ms": kernel_device_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, **lt}
+            out.append(row)
+            print(f"[first port] {name} {route} {row['dtype']} T,B,H={(T, B, H)}: kernel "
+                  f"{ms:.4f} ms ({ms / T * 1e3:.3f} us a step), device {kernel_device_ms} ms; "
+                  f"bound {bound_ms:.5f} ms ({bound_by}); layer{'' if fwd else ' backward'}: "
+                  f"port {lt['layer_ms']:.4f} ms (device {lt['layer_device_ms']}), cuDNN "
+                  f"{lt['library_ms']:.4f} ms (device {lt['library_device_ms']}), port/cuDNN by "
+                  f"device time {_ratio(lt['layer_device_ms'], lt['library_device_ms'])}")
+    return out
+
+
+def _f32_wide_fwd_times(dev, widths=(336,), batches=(1, 2, 3, 4)) -> list:
+    """The f32 GRU forward where ``mma_layout.F32_WIDE_FWD`` may keep
+    ``"wide"``: ``fwd_launch("wide")`` and ``fwd_launch("wide_f32")`` on the
+    same inputs in turns, twice over (wide, wide_f32, wide_f32, wide, wide,
+    wide_f32, wide_f32, wide; medians of 5 calls, ``_in_turns``), beside the
+    route ``fwd_route`` takes there (``python3 chip_smoke.py --f32-times``)."""
+    from percivaltts_tpu_torch.ops import gru_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
+    rows = []
+    for H in widths:
+        for B in batches:
+            T = 512
+            args = _gru_gates(T, B, H, torch.float32, dev, seed=1)
+            route = fwd_route(torch.float32, H, "gru", B)
+            with torch.no_grad():
+                t = _in_turns({r: (lambda r=r: gru_cuda.fwd_launch(r, *args))
+                               for r in ("wide", "wide_f32")}, ("wide", "wide_f32") * 2
+                              + ("wide_f32", "wide") * 2)
+            rows.append({"shape": [T, B, H], "route": route, "ms": t})
+            print(f"[f32 wide fwd] gru T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms, wide_f32 "
+                  f"{t['wide_f32']:.4f} ms, wide_f32/wide {t['wide_f32'] / t['wide']:.3f} (means "
+                  f"of 4 medians, in turns); fwd_route takes {route!r}")
+    return rows
+
+
+def _stream_plans(dev) -> None:
+    """Phase 17a's plans: the streamed BPTTs' launch plan at every width and
+    B of phase 17 and of ``--bf16-wide-times`` must be
+    ``ops/wide_mma_layout.py::stream_plan``'s at the clusters the card holds
+    (rows, chunks resident and streamed, waves, slot buffers, shared
+    memory); then ``ptxas``'s registers and spills of both kernels, which
+    must not spill."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_mma_layout as wm
+
+    lib = _build.library()
+    for cell, name, gates in (("lstm", "bilstm", 4), ("gru", "bigru", 3)):
+        widths = sorted({H for _, _, H in STREAM_SHAPES[cell] + STREAM_TIMED}
+                        | set(BF16_WIDE_WIDTHS[cell]))
+        batches = sorted({B for _, B, _ in STREAM_SHAPES[cell] + STREAM_TIMED}
+                         | set(BF16_WIDE_BATCHES))
+        for H in widths:
+            Hp = wm.padded(H)
+            pm = wm.plan(Hp, gates)
+            for B in batches:
+                out = (ctypes.c_int * 10)()
+                _build.check(getattr(lib, f"percival_{name}_bwd_wide_mma_stream_plan")(
+                    B, Hp, pm.Hb, pm.U, out), f"the streamed BPTT plan at B={B} H={Hp}")
+                got = wm.StreamPlan(*out)
+                want = wm.stream_plan(B, Hp, gates, got.clusters)
+                if got != want:
+                    raise AssertionError(f"the {name} wide_mma_stream plan {got} is not {want}")
+                print(f"[stream plan] {name} bwd B={B} H={H} (run at {Hp}) bf16: {got.U} blocks of "
+                      f"{got.Hb} units, {32 * wm.STREAM_WARPS} threads, {got.R} rows a cluster, "
+                      f"{got.nres} chunks resident / {got.nstr} streamed "
+                      f"({got.nstr * wm.tile_bytes(got.NC)} B a step a block), {got.clusters} "
+                      f"clusters at once ({got.waves} waves), {1 + got.dbuf} buffer(s) of "
+                      f"partials, {got.smem} B shared memory")
+    lines = [line for line in _ptxas_usage(BUILD_LOG) if "wide_mma_stream" in line]
+    for line in lines:
+        print(f"[stream ptxas] {line}")
+        if not line.split("spill ")[1].startswith("0/0 "):
+            raise AssertionError(f"a streamed BPTT spills: {line}")
+    if len(lines) != 6:  # R = 8, 16, 24 for each cell
+        raise AssertionError(f"ptxas reported {len(lines)} streamed BPTT kernels, not 6")
+
+
+def _check_stream_kernels(dev) -> dict:
+    """Phase 17a/17b: each streamed BPTT (``bwd_route``'s ``"wide_mma_stream"``,
+    counted) against its twin at ``STREAM_SHAPES`` within
+    ``KERNEL_TOL[bf16]``·max(1, max|twin|), and the CUDA-core cluster kernel
+    it replaced (``"wide"``, launched directly) on the same inputs; then the
+    autograd pair through ``bilstm_core`` / ``bigru_core`` at
+    ``STREAM_AUTOGRAD_SHAPE`` (one forward on ``"wide"``, one BPTT on
+    ``"wide_mma_stream"``) against the twins' gradients. Returns the largest
+    |kernel − twin| of each (``*_bwd_wide_mma_stream``, and ``*_earlier``
+    for ``"wide"``)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
+
+    bf16, tol = torch.bfloat16, KERNEL_TOL[torch.bfloat16]
+    err = {}
+    for cell, name in (("lstm", "bilstm_bwd"), ("gru", "bigru_bwd")):
+        gru = cell == "gru"
+        m = gru_cuda if gru else lstm_cuda
+        key = f"{name}_wide_mma_stream"
+        err[key] = err[f"{key}_earlier"] = 0.0
+        with torch.no_grad():
+            for T, B, H in STREAM_SHAPES[cell]:
+                route = bwd_route(bf16, H, cell, B)
+                if route != "wide_mma_stream":
+                    raise AssertionError(f"{name} routes bf16 H={H} to {route!r}")
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, bf16, dev, seed=T + B)
+                want = getattr(m, f"{name}_reference")(*args)
+                limit = tol * max(1.0, max(w.float().abs().max().item() for w in want))
+                tag = f"T={T} B={B} H={H} bf16"
+                got = _launch_once(getattr(m, name), *args, route=route)
+                err[key] = max(err[key], _compare(f"[{name} {route}] {tag}", got, want, limit,
+                                                  relative=False))
+                got = m.bwd_launch("wide", *args)
+                torch.cuda.synchronize()
+                err[f"{key}_earlier"] = max(err[f"{key}_earlier"], _compare(
+                    f"[{name} wide, launched directly] {tag}", got, want, limit, relative=False))
+        # the autograd pair: forward kernel + BPTT kernel against the twins
+        T, B, H = STREAM_AUTOGRAD_SHAPE
+        core, ref = (m.bigru_core, m.bigru_core_reference) if gru else \
+            (m.bilstm_core, m.bilstm_core_reference)
+        base = (_gru_gates if gru else _gates)(T, B, H, bf16, dev, seed=7)
+        dy = _dy(T, B, H, bf16, dev, seed=1)
+        fwd_w, bwd_w = getattr(m, f"{name[:-4]}_fwd"), getattr(m, name)
+        froute, broute = fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)
+        grads = []
+        for c in (core, ref):
+            leaves = [t.clone().requires_grad_(True) for t in base]
+            f0, b0 = fwd_w.routes[froute], bwd_w.routes[broute]
+            torch.autograd.backward(c(*leaves), dy)
+            torch.cuda.synchronize()
+            grads.append([t.grad for t in leaves])
+            moved = (fwd_w.routes[froute] - f0, bwd_w.routes[broute] - b0)
+            if c is core and moved != (1, 1):
+                raise RuntimeError(f"the {cell} autograd pair did not launch one forward on "
+                                   f"{froute} and one BPTT on {broute}")
+        names = ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b") + (("db_hn_f", "db_hn_b") if gru else ())
+        for n, gk, gt in zip(names, *grads):
+            _compare(f"[autograd {'BiGRU' if gru else 'BiLSTM'}, forward {froute}, BPTT {broute}] "
+                     f"{n} T,B,H={STREAM_AUTOGRAD_SHAPE} bf16", [gk], [gt],
+                     tol * gt.float().abs().max().item(), relative=False)
+    return err
+
+
+def _time_stream_kernels(dev, shapes=None) -> dict:
+    """Phase 17d: each streamed BPTT at ``STREAM_TIMED`` in turns with the
+    CUDA-core cluster kernel it replaced (``"wide"``) and its twin (earlier,
+    routed, twin, routed, earlier; ``_in_turns``), both kernels also by
+    device time (``_device_ms``, 3 calls), beside the bound and the port's
+    layer backward and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU`` bf16
+    backward by CUDA events and device time (``_layer_times``: medians of 2
+    × 3 calls)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_mma_layout
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    dt = torch.bfloat16
+    out = {}
+    for cell, name in (("lstm", "bilstm_bwd"), ("gru", "bigru_bwd")):
+        gru = cell == "gru"
+        m = gru_cuda if gru else lstm_cuda
+        cls = "nn.GRU" if gru else "nn.LSTM"
+        rows = []
+        for T, B, H in shapes or STREAM_TIMED:
+            route = bwd_route(dt, H, cell, B)
+            args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
+            calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args),
+                     "earlier": lambda: m.bwd_launch("wide", *args)}
+            with torch.no_grad():
+                times = _in_turns(calls, ("earlier", "kernel", "twin", "kernel", "earlier"))
+                kernel_device_ms = _device_ms(lambda: kern(*args), calls=3,
+                                              match=f"{name}_{route}_kernel")
+                earlier_device_ms = _device_ms(lambda: m.bwd_launch("wide", *args), calls=3,
+                                               match=f"{name}_wide_kernel")
+            ws = _layer_weights(cell, H, dt, dev, seed=2)
+            x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
+                                 .astype(np.float32)).to(device=dev, dtype=dt)
+            with _compact_weights():
+                lt = _layer_times(m.bigru if gru else m.bilstm, _library_layer(cell, ws, dt, dev),
+                                  x, [t for d in ws for t in d], False, runs=2, inner=3)
+            ms = times["kernel"]
+            if lt["layer_device_ms"] is not None and lt["layer_device_ms"] < 0.5 * ms:
+                print(f"[time] {name} {route} T,B,H={(T, B, H)}: the layer's trace lost the "
+                      f"kernel's events ({lt['layer_device_ms']:.4f} device ms): not a measurement")
+                lt["layer_device_ms"] = None
+            bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
+            plan = lstm_cuda.stream_plan(name[:-4], B, wide_mma_layout.padded(H), dev.index or 0)
+            row = {"shape": [T, B, H], "route": route, "ms": ms, "us_per_step": ms / T * 1e3,
+                   "plain_ms": times["twin"], "earlier_ms": times["earlier"],
+                   "kernel_device_ms": kernel_device_ms, "earlier_device_ms": earlier_device_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(), **lt}
+            rows.append(row)
+            print(f"[time] {name} {route} T,B,H={(T, B, H)} bf16 (R {plan.R}, {plan.nres} of "
+                  f"{plan.nres + plan.nstr} chunks resident, {plan.waves} waves, {plan.U} blocks): "
+                  f"kernel {ms:.4f} ms ({ms / T * 1e3:.3f} us a step), device "
+                  f"{kernel_device_ms} ms; the earlier kernel (wide) on the same inputs "
+                  f"{times['earlier']:.4f} ms, device {earlier_device_ms} ms, "
+                  f"{times['earlier'] / ms:.2f}x (means of 2 medians, in turns); plain twin "
+                  f"{times['twin']:.1f} ms (one call); bound {bound_ms:.5f} ms ({bound_by}, "
+                  f"{bound_ms / ms:.2%} of it); layer backward: port {lt['layer_ms']:.4f} ms, "
+                  f"cuDNN {cls}(hidden_size={H}, bidirectional=True) bf16 {lt['library_ms']:.4f} "
+                  f"ms (medians, CUDA events); device time port {lt['layer_device_ms']} ms, cuDNN "
+                  f"{lt['library_device_ms']} ms, cuDNN/port "
+                  f"{_ratio(lt['library_device_ms'], lt['layer_device_ms'])}")
+        out[name] = rows
+    return out
+
+
+def _bf16_wide_times(dev) -> int:
+    """``python3 chip_smoke.py --bf16-wide-times``: after the build, the bf16
+    BPTT past the tensor-core widths: ``bwd_launch("wide", …)`` against
+    ``bwd_launch("wide_mma_stream", …)`` on the same inputs in turns (wide,
+    stream, stream, wide; medians of 5 calls, ``_in_turns``) at T = 512,
+    each H of ``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, beside
+    the streamed plan (rows, chunks resident, waves) and the route
+    ``bwd_route`` takes there (``mma_layout.BF16_WIDE_BWD`` keeps ``"wide"``
+    where it measured faster); then phase 17d's rows
+    (``_time_stream_kernels``)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_mma_layout
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    dt = torch.bfloat16
+    for cell, name in (("lstm", "bilstm"), ("gru", "bigru")):
+        gru = cell == "gru"
+        m = gru_cuda if gru else lstm_cuda
+        for H in BF16_WIDE_WIDTHS[cell]:
+            for B in BF16_WIDE_BATCHES:
+                T = 512
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+                plan = lstm_cuda.stream_plan(name, B, wide_mma_layout.padded(H), dev.index or 0)
+                with torch.no_grad():
+                    t = _in_turns({r: (lambda r=r: m.bwd_launch(r, *args))
+                                   for r in ("wide", "wide_mma_stream")},
+                                  ("wide", "wide_mma_stream", "wide_mma_stream", "wide"))
+                route = bwd_route(dt, H, cell, B)
+                print(f"[bf16 route] {cell} bwd T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms, "
+                      f"wide_mma_stream {t['wide_mma_stream']:.4f} ms "
+                      f"({t['wide_mma_stream'] / T * 1e3:.3f} us a step; R {plan.R}, {plan.nres} "
+                      f"of {plan.nres + plan.nstr} chunks resident, {plan.waves} waves), "
+                      f"{t['wide'] / t['wide_mma_stream']:.2f}x (means of 2 medians, in turns); "
+                      f"bwd_route takes {route!r}"
+                      + ("" if t[route] <= min(t.values()) else " (the slower one)"))
+    _time_stream_kernels(dev)
     return 0
 
 
@@ -4348,24 +4723,29 @@ def _model_route(kind: str, what: str) -> str:
     (``what="fwd"``) or the BPTT (``"bwd"``): at blstm_size=1024 the
     tensor-core cluster kernels (``"wide_mma"``) in bf16, and in f32 the f32
     cluster kernels (``"wide_f32"``) for both; at the default width in f32
-    (``NARROW_MODELS``) the f32 narrow kernels (``"narrow_f32"``) for both."""
+    (``NARROW_MODELS``) the f32 narrow kernels (``"narrow_f32"``) for both;
+    at blstm_size=2048 in bf16 (``STREAM_MODELS``) the CUDA-core cluster
+    forward (``"wide"``) and the streamed tensor-core BPTT
+    (``"wide_mma_stream"``)."""
+    if kind in STREAM_MODELS:
+        return "wide" if what == "fwd" else "wide_mma_stream"
     if not _is_f32(kind):
         return "wide_mma"
     return "narrow_f32" if kind in NARROW_MODELS else "wide_f32"
 
 
-def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS, depth=F32_DEPTH) -> dict:
+def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS, depth=None) -> dict:
     """Phase 13b/13c (``WIDE_MODELS``), 14b/14c (``WIDE_GRU_MODELS``), 15b
-    (``NARROW_MODELS``) and 16c (``FEW_MODELS``): each model served and
-    trained as phases 4–6 serve and train config 3 and the BGRU, every
-    forward and BPTT launch on its route (``_model_route``); the f32 models
-    at ``depth`` (one serve and one step held against the twins, serves and
-    steps timed)."""
+    (``NARROW_MODELS``), 16c (``FEW_MODELS``) and 17c (``STREAM_MODELS``):
+    each model served and trained as phases 4–6 serve and train config 3 and
+    the BGRU, every forward and BPTT launch on its route (``_model_route``);
+    at ``depth`` (serves timed, steps held against the twins, steps timed;
+    the f32 models at ``F32_DEPTH`` when none is given)."""
     runs = {}
     for kind in kinds:
         route = {what: _model_route(kind, what) for what in ("fwd", "bwd")}
-        if _is_f32(kind):
-            serves, checked, steps = depth
+        if depth or _is_f32(kind):
+            serves, checked, steps = depth or F32_DEPTH
             served = _serve_path(dev, kind, n_timed=serves)
             trained = _train_path(dev, kind, n_checked=checked, n_timed=steps)
         else:
@@ -4405,10 +4785,11 @@ def _ptxas_usage(log: str) -> list:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--f32-times"]):
-        print("usage: python3 chip_smoke.py [--f32-times]", file=sys.stderr)
+    flags = ("--f32-times", "--bf16-wide-times", "--first-port-times")
+    if len(args) > 1 or any(a not in flags for a in args):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]", file=sys.stderr)
         return 2
-    f32_times = bool(args)
+    timing = args[0] if args else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this test needs an NVIDIA card",
               file=sys.stderr)
@@ -4437,8 +4818,13 @@ def main(argv=None) -> int:
           f"{built.seconds:.1f} s")
     for line in _ptxas_usage(built.log):
         print(f"[build] {line}")
-    if f32_times:
+    if timing == "--f32-times":
         return _f32_times(dev)
+    if timing == "--bf16-wide-times":
+        return _bf16_wide_times(dev)
+    if timing == "--first-port-times":
+        _first_port_times(dev)
+        return 0
 
     # 3. every kernel against its plain twin
     max_err = _check_kernels(dev)
@@ -4474,6 +4860,7 @@ def main(argv=None) -> int:
     qs = _quickstart_path(dev, smi)
     paths.update(qs["counts"])
     qs3 = _quickstart_wgan_path(dev, smi, qs)
+    cli_export = _start_cli_export(qs)  # 11d's export, in the background through phases 9–10
     paths["quickstart_wgan"] = qs3["counts"]
     for name, by_route in qs3["routes"].items():
         for route, n in by_route.items():
@@ -4518,7 +4905,7 @@ def main(argv=None) -> int:
     # workdir, and what the registered operators cost the host
     exported = {"cnn_blstm": _export_generator_path(dev, "cnn_blstm", EXPORT_BOUNDS),
                 "bgru": _export_generator_path(dev, "bgru", (BGRU_EXPORT_BOUND,))}
-    cli11 = _cli_export_path(dev, smi, qs)
+    cli11 = _cli_export_path(dev, smi, qs, cli_export)
     mel_feats = _mel_requests(dev)
     syn11 = _export_synthesis_path(dev, smi, {"pml": serve["cnn_blstm"]["feats"],
                                               "melspec": mel_feats}, cli11.pop("syn"))
@@ -4580,8 +4967,18 @@ def main(argv=None) -> int:
     few_timed = {}
     for cell in ("lstm", "gru"):
         few_timed.update(_time_wide_f32(dev, cell, F32_WIDE_KEPT[cell], what=("bwd",)))
+    t_phase17 = time.perf_counter()
+    # 17. the bf16 BPTT past the tensor-core widths ("wide_mma_stream"): its
+    # plans, both kernels against their twins and the autograd pairs, config 3
+    # and the BGRU at blstm_size=2048 served and trained through them, their
+    # times in turns with the "wide" kernels they replaced there
+    _stream_plans(dev)
+    stream_err = _check_stream_kernels(dev)
+    stream_runs = _cluster_models_path(dev, smi, STREAM_MODELS, depth=STREAM_DEPTH)
+    stream_timed = _time_stream_kernels(dev)
     plans = {name: {"chunked": 0, "few": 0} for name in PLANNED}
-    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs}.items():
+    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs,
+                      **stream_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
             for name, by_route in run[what]["routes"].items():
@@ -4594,7 +4991,8 @@ def main(argv=None) -> int:
           f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
           f"{t_phase13 - t_phase12:.1f} s, phase 13 {t_phase14 - t_phase13:.1f} s, phase 14 "
           f"{t_phase15 - t_phase14:.1f} s, phase 15 {t_phase16 - t_phase15:.1f} s, phase 16 "
-          f"{time.perf_counter() - t_phase16:.1f} s, total {time.perf_counter() - t_start:.1f} s")
+          f"{t_phase17 - t_phase16:.1f} s, phase 17 {time.perf_counter() - t_phase17:.1f} s, total "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -4710,7 +5108,8 @@ def main(argv=None) -> int:
     ):
         gru = name.startswith("bigru")
         checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
-        runs_w = {**runs_w, **few_runs}  # phase 16's forwards run "wide_f32" too
+        # phase 16's forwards run "wide_f32" too, phase 17's bf16 forwards "wide"
+        runs_w = {**runs_w, **few_runs, **stream_runs}
         # a BPTT's row of its chunked kernel (R > 4; at B = 8 the GRU's H = 512
         # takes the few-row kernels, listed below)
         first = next(r for r in wide_f32_timed[name] if r.get("rows", 8) > 4)
@@ -4801,6 +5200,48 @@ def main(argv=None) -> int:
         })
         if not plans[name]["few"] or sum(by_path.values()) != plans[name]["few"]:
             raise AssertionError(f"{name}'s few-row kernels were launched no time on phase 16's "
+                                 "paths, or also elsewhere")
+    # phase 17: the streamed tensor-core BPTTs ("wide_mma_stream",
+    # csrc/wide_mma_stream.cuh), timed in turns with the "wide" kernels they
+    # replaced at those widths
+    for name, replaces in (("bilstm_bwd", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616")):
+        gru = name.startswith("bigru")
+        first = stream_timed[name][0]
+        route = "wide_mma_stream"
+        by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
+                   for kind, run in stream_runs.items() for what in ("serve", "train")}
+        kernels.append({
+            "name": f"{name}_{route}",
+            "route": "cuda",
+            "source": f"percivaltts_tpu_torch/csrc/{name}_{route}.cu",
+            "body": "percivaltts_tpu_torch/csrc/wide_mma_stream.cuh",
+            "replaces": replaces,
+            "launches": routes[name][route],
+            "launches_by_path": by_path,
+            "max_abs_err": stream_err[f"{name}_{route}"],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size={first['shape'][2]}, "
+                            "bidirectional=True) bf16 backward, beside the port layer's "
+                            "(layer_ms, layer_device_ms)",
+            "layer_ms": first["layer_ms"],
+            "layer_device_ms": first["layer_device_ms"],
+            "kernel_device_ms": first["kernel_device_ms"],
+            "timed_shape": first["shape"],
+            "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+            "earlier_ms": first["earlier_ms"],
+            "earlier_device_ms": first["earlier_device_ms"],
+            "earlier_max_abs_err": stream_err[f"{name}_{route}_earlier"],
+            "timed": stream_timed[name],
+            "ptxas": [line for line in _ptxas_usage(BUILD_LOG) if f"{name}_{route}" in line],
+        })
+        if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
+            raise AssertionError(f"{name}'s {route} kernel was launched no time on phase 17's "
                                  "paths, or also elsewhere")
     # phase 15's f32 paths at the default width: the narrow forwards and
     # BPTTs ("narrow_f32"); the one-block kernels they replaced there (timed
@@ -4931,7 +5372,8 @@ def main(argv=None) -> int:
           f"{mesh2['layout_bytes']}; "
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
-    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs}.items():
+    for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs,
+                      **stream_runs}.items():
         print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
               f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
               f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "

@@ -126,7 +126,8 @@ def library() -> ctypes.CDLL:
     lib.percival_bigru_fwd_wide.restype = i
     lib.percival_bigru_bwd_wide.argtypes = [p] * 14 + [i, i, i, i, i, i, p]
     lib.percival_bigru_bwd_wide.restype = i
-    for fn in (lib.percival_bilstm_bwd_wide_mma, lib.percival_bigru_bwd_wide_mma):
+    for fn in (lib.percival_bilstm_bwd_wide_mma, lib.percival_bigru_bwd_wide_mma,
+               lib.percival_bilstm_bwd_wide_mma_stream, lib.percival_bigru_bwd_wide_mma_stream):
         fn.argtypes = [p] * 14 + [i, i, i, i, i, p]
         fn.restype = i
     for fn in (lib.percival_bilstm_bwd_narrow_f32, lib.percival_bigru_bwd_narrow_f32,
@@ -143,6 +144,8 @@ def library() -> ctypes.CDLL:
         plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         plan.restype = i
     for plan in (lib.percival_bilstm_bwd_wide_mma_plan, lib.percival_bigru_bwd_wide_mma_plan,
+                 lib.percival_bilstm_bwd_wide_mma_stream_plan,
+                 lib.percival_bigru_bwd_wide_mma_stream_plan,
                  lib.percival_bilstm_fwd_wide_f32_plan, lib.percival_bigru_fwd_wide_f32_plan):
         plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         plan.restype = i

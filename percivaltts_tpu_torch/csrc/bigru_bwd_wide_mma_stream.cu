@@ -1,0 +1,385 @@
+// Fused bidirectional GRU backward (BPTT) on the tensor cores for widths
+// whose W_hᵀ slice one SM cannot hold beside its tiles (sm_90a, bf16).
+//
+// Replaces the TPU kernel percivaltts_tpu/ops/lstm_pallas.py::_gru_bwd_kernel
+// (launched by _bigru_bwd_pallas, :616) on the route "wide_mma_stream"
+// (ops/mma_layout.py::bwd_route): bf16 past H = 672, where the slice of
+// "wide_mma" (bigru_bwd_wide_mma.cu) leaves shared memory, up to the width
+// the stream plan fits (ops/wide_mma_layout.py::stream_max_h). Before it
+// those widths ran bigru_bwd_wide.cu on CUDA cores. The contract is
+// bigru_bwd_wide_mma.cu's:
+//
+//   gh   = h_prev[t] · W_h                       (gates recomputed)
+//   r, z = σ(gx_r + gh_r), σ(gx_z + gh_z) ;  ghn = gh_n + b_hn ;  n = tanh(gx_n + r·ghn)
+//   dh   = dy[t] + dh_carry
+//   dn_pre = dh·(1 − z)·(1 − n²) ;  dr_pre = dn_pre·ghn·r(1 − r)
+//   dz_pre = dh·(h_prev − n)·z(1 − z) ;  dnr = dn_pre·r
+//   dgx[t] = round_bf16(dr_pre | dz_pre | dn_pre) ;  dnr_out[t] = round_bf16(dnr)
+//   dh_carry = dh·z + round_bf16(dr_pre | dz_pre | dnr) · W_hᵀ   (f32)
+//
+// h_prev is the forward pass's bf16 output (t−1 for the forward direction,
+// t+1 for the backward one). Layouts: gx / dgx (T, B, 3H); h_prev / dy / dnr
+// (T, B, H); b_hn (H), all bf16, H a multiple of 32 (the wrapper zero-pads
+// the others, which is exact); W_hᵀ packed per block and chunk
+// (ops/wide_mma_layout.py::pack_wh_stream, (U, chunks, NC, 64) a direction:
+// "wide_mma"'s packed rows, tiles r|z, r|z, n|n of 16 units).
+//
+// What bounds it on the card, and the design: bilstm_bwd_wide_mma_stream.cu's
+// (its header says why each piece is there), with three gates a unit: the
+// slice streamed from L2 in 64-k chunks through a TMA ring, each chunk
+// feeding both products of a step on mma.sync; the recompute's accumulators
+// land on lane l as r, z, gh_n of two units (16w + l/4 and + 8) for two batch
+// rows, where the gate math runs (a cell warp takes 2 row tiles at R = 16,
+// one at R = 8 and 24, where two would leave the registers short); a dh item
+// is one 16-unit tile and every row tile; the dh partials reduce-scattered
+// through distributed shared memory as float2 slots, each owner adding its
+// dh·z and the U slots in block order.
+
+#include <cooperative_groups.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#include "lstm_common.cuh"
+#include "mma_common.cuh"
+#include "wide_mma_common.cuh"
+#include "wide_mma_stream.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using percival::cluster_arrive;
+using percival::cluster_wait;
+using percival::cp_async16;
+using percival::cp_async_commit;
+using percival::cp_async_wait;
+using percival::kWsChunk;
+using percival::kWsRing;
+using percival::kWsThreads;
+using percival::kWsWarps;
+using percival::sigmoid_f32;
+using percival::wm_ds;
+using percival::wm_h_bytes;
+using percival::wm_recv_bytes;
+using percival::wm_ws;
+using percival::ws_chunks;
+using percival::ws_compute_sync;
+using percival::ws_mbar_arrive;
+using percival::ws_mbar_init;
+using percival::ws_mbar_wait;
+using percival::WideStreamPlan;
+
+constexpr int kUnits = 16;        // units a unit group: m-tiles r|z, r|z, n|n
+constexpr int kGroupRows = 48;    // packed W_hᵀ rows a unit group
+constexpr int kDhM = 1;          // 16-unit m-tiles a dh item (wide_mma_stream.cuh::ws_dh_chunk)
+
+// grid = (U · ceil(B / R), 2 directions) in clusters of U along x; 512 threads;
+// R = 8·NT8 rows a cluster.
+template <int NT8>
+__global__ void __launch_bounds__(kWsThreads, 1) bigru_bwd_wide_mma_stream_kernel(
+    const bf16* __restrict__ gx_f, const bf16* __restrict__ gx_b,
+    const bf16* __restrict__ wp_f, const bf16* __restrict__ wp_b,
+    const bf16* __restrict__ bn_f, const bf16* __restrict__ bn_b,
+    const bf16* __restrict__ hp_f, const bf16* __restrict__ hp_b,
+    const bf16* __restrict__ dy_f, const bf16* __restrict__ dy_b,
+    bf16* __restrict__ dgx_f, bf16* __restrict__ dgx_b,
+    bf16* __restrict__ dnr_f, bf16* __restrict__ dnr_b,
+    int n_steps, int B, int H, int Hb, int nres, int dbuf) {
+  constexpr int R = 8 * NT8, TPW = percival::ws_tpw(3, NT8);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int U = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const bool backward = blockIdx.y == 1;
+  const int row0 = (blockIdx.x / U) * R;
+  const int NC = 3 * Hb, G = 3 * H, WS = wm_ws(H), DS = wm_ds(NC);
+  const int NUG = Hb / kUnits, nch = ws_chunks(H), nstr = nch - nres;
+  const int tile = NC * kWsChunk;  // elements a chunk tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int ld_row = lane & 7, ld_mat = lane >> 3;
+
+  const bf16* __restrict__ gx = backward ? gx_b : gx_f;
+  const bf16* __restrict__ wp = (backward ? wp_b : wp_f) + (size_t)rank * nch * tile;
+  const bf16* __restrict__ bn = backward ? bn_b : bn_f;
+  const bf16* __restrict__ hp = backward ? hp_b : hp_f;
+  const bf16* __restrict__ dy = backward ? dy_b : dy_f;
+  bf16* __restrict__ dgx = backward ? dgx_b : dgx_f;
+  bf16* __restrict__ dnr_out = backward ? dnr_b : dnr_f;
+
+  // BPTT step s visits frame t(s): descending for the forward direction
+  auto frame = [=](int s) { return backward ? s : n_steps - 1 - s; };
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* const s_ring = reinterpret_cast<bf16*>(smem);           // kWsRing chunk tiles
+  bf16* const s_res = s_ring + (size_t)kWsRing * tile;          // the resident chunks
+  bf16* const s_h = s_res + (size_t)nres * tile;                // h_prev rows [R][WS]
+  float* const s_recv = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s_h) +
+                                                 wm_h_bytes(H, R));  // partials [U][Hb][R]
+  bf16* const s_dg = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(s_recv) +
+                                             wm_recv_bytes(U, Hb, R, 1 + dbuf));  // dz [R][DS]
+  uint64_t* const s_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(s_dg) + percival::align16((size_t)R * DS * 2));
+  uint64_t* const s_empty = s_full + kWsRing;
+
+  // ---- prologue: the ring's mbarriers, the resident chunks, h_prev of step 0 ----
+  const int HCH = H / 8;
+  auto load_h = [&](int t) {  // rows past B zero-filled; one commit group
+    for (int i = tid; i < R * HCH; i += 32 * kWsWarps) {
+      const int r = i / HCH, ch = i - r * HCH;
+      const bool ok = row0 + r < B;
+      cp_async16(s_h + r * WS + ch * 8, ok ? hp + ((size_t)t * B + row0 + r) * H + ch * 8 : hp,
+                 ok);
+    }
+    cp_async_commit();
+  };
+  const int slots = U * Hb * R;  // partial slots of a buffer
+  if (tid == 0) {
+    for (int i = 0; i < kWsRing; ++i) {
+      ws_mbar_init(&s_full[i], 1);
+      ws_mbar_init(&s_empty[i], kWsWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp < kWsWarps) {
+    for (int i = tid; i < nres * tile / 8; i += 32 * kWsWarps)
+      cp_async16(s_res + i * 8, wp + (size_t)nstr * tile + i * 8, true);
+    load_h(frame(0));
+    for (int i = tid; i < (1 + dbuf) * slots; i += 32 * kWsWarps) s_recv[i] = 0.0f;  // dh_carry of step 0
+  }
+  __syncthreads();  // the mbarriers set
+
+  if (warp == kWsWarps) {  // the producer
+    percival::ws_produce(wp, s_ring, s_full, s_empty, NC, nstr, n_steps, dbuf, lane);
+    return;
+  }
+
+  // ---- cells: warp w < cells takes unit group w / NTG and the 8-row tiles
+  // TPW·(w % NTG) … (at most TPW); every warp takes dh items ----
+  constexpr int NTG = (NT8 + TPW - 1) / TPW;
+  const int cells = percival::ws_cells(3, NUG, NT8);
+  const int ug = warp / NTG, nt0 = TPW * (warp - ug * NTG);
+  const bool cell_on = warp < cells;
+  const int ntiles = cell_on ? (NT8 - nt0 < TPW ? NT8 - nt0 : TPW) : 0;
+  int ul[2], unit[2];  // the lane's two units, in the block and in the layer
+  bool unit_ok[2];
+  float bias[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    ul[u] = ug * kUnits + 8 * u + g;
+    unit[u] = rank * Hb + ul[u];
+    unit_ok[u] = cell_on && unit[u] < H;
+    bias[u] = unit_ok[u] ? __bfloat162float(bn[unit[u]]) : 0.0f;
+  }
+  const bf16* const hrow = s_h + (nt0 * 8 + ld_row) * WS + ld_mat * 8;
+  const int arow = ug * kGroupRows + ld_row + 8 * (ld_mat & 1);
+
+  // per tile: m-tiles r|z (units 0–7), r|z (units 8–15), n (0–7) | n (8–15), 8 rows
+  float z[TPW][3][4];
+  auto zero_z = [&]() {
+#pragma unroll
+    for (int tt = 0; tt < TPW; ++tt)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) z[tt][j][k] = 0.0f;
+  };
+
+  // the chunks of a pass in order: streamed ones from the ring, then the resident ones
+  int streamed = 0;  // streamed chunks consumed so far
+  auto chunk_at = [&](int c, int& slot) -> const bf16* {
+    if (c >= nstr) {
+      slot = -1;
+      return s_res + (size_t)(c - nstr) * tile;
+    }
+    slot = streamed % kWsRing;
+    ws_mbar_wait(&s_full[slot], (streamed / kWsRing) & 1);
+    return s_ring + (size_t)slot * tile;
+  };
+  auto release = [&](int slot) {
+    if (slot < 0) return;
+    __syncwarp();
+    if (lane == 0) ws_mbar_arrive(&s_empty[slot]);
+    ++streamed;
+  };
+  auto recompute = [&](const bf16* w, int c) {
+    if (!cell_on) return;
+    const int rest = H - c * kWsChunk;
+    percival::ws_recompute<3, TPW>(z, w, hrow, WS, ntiles, c * kWsChunk,
+                              (rest < kWsChunk ? rest : kWsChunk) / 16, arow, ld_row, ld_mat);
+  };
+
+  // the gate operands of a step: gx (3 gates), h_prev, dy of unit u for the
+  // lane's two rows of each of the warp's tiles, as bf16 pairs (row e in half e)
+  __nv_bfloat162 pgx[TPW][2][3], php[TPW][2], pdy[TPW][2];
+  auto load_cell = [&](int t) {
+    const bf16 zero = __float2bfloat16(0.0f);
+#pragma unroll
+    for (int tt = 0; tt < TPW; ++tt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        bf16 v[5][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + (nt0 + tt) * 8 + 2 * q + e;
+          const size_t base = (size_t)t * B + row;
+          const bool ok = unit_ok[u] && tt < ntiles && row < B;
+#pragma unroll
+          for (int gi = 0; gi < 3; ++gi) v[gi][e] = ok ? gx[base * G + gi * H + unit[u]] : zero;
+          v[3][e] = ok ? hp[base * H + unit[u]] : zero;
+          v[4][e] = ok ? dy[base * H + unit[u]] : zero;
+        }
+#pragma unroll
+        for (int gi = 0; gi < 3; ++gi) pgx[tt][u][gi] = __halves2bfloat162(v[gi][0], v[gi][1]);
+        php[tt][u] = __halves2bfloat162(v[3][0], v[3][1]);
+        pdy[tt][u] = __halves2bfloat162(v[4][0], v[4][1]);
+      }
+  };
+  auto pick = [](__nv_bfloat162 p, int e) { return e ? __high2float(p) : __low2float(p); };
+
+  cp_async_wait<0>();
+  ws_compute_sync();  // the resident chunks and step 0's h_prev rows landed
+  zero_z();
+  for (int c = 0; c < nch; ++c) {  // z of step 0
+    int slot;
+    const bf16* w = chunk_at(c, slot);
+    recompute(w, c);
+    release(slot);
+  }
+  ws_compute_sync();  // every read of s_h done
+  if (n_steps > 1) load_h(frame(1));
+  load_cell(frame(0));
+  float dhz[TPW][2][2] = {};  // dh·z of the previous step: the carry's direct path
+  cluster_arrive();  // every block running, its partial slots zeroed
+  cluster_wait();
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = frame(s);
+
+    // ---- gate phase: d(gates) of this step from gh, the carries and the operands ----
+#pragma unroll
+    for (int tt = 0; tt < TPW; ++tt) {
+      if (tt >= ntiles) break;
+      const int r0 = (nt0 + tt) * 8 + 2 * q;  // the lane's rows r0, r0 + 1 of the tile
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float2 carry = make_float2(dhz[tt][u][0], dhz[tt][u][1]);
+        const float* red = s_recv + (dbuf & s) * slots + ul[u] * R + r0;
+        for (int src = 0; src < U; ++src) {
+          const float2 v = *reinterpret_cast<const float2*>(red + src * Hb * R);
+          carry.x += v.x;
+          carry.y += v.y;
+        }
+        // packed rows of the group: r | z of units 0–7 (0, 8), of 8–15 (16, 24), n (32, 40)
+        bf16* dgr = s_dg + ug * kGroupRows + 16 * u + g;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + r0 + e;
+          const bool ok = unit_ok[u] && row < B;
+          const float rg = sigmoid_f32(pick(pgx[tt][u][0], e) + z[tt][u][e]);
+          const float zg = sigmoid_f32(pick(pgx[tt][u][1], e) + z[tt][u][2 + e]);
+          const float ghn = z[tt][2][2 * u + e] + bias[u];
+          const float ng = tanhf(pick(pgx[tt][u][2], e) + rg * ghn);
+          const float dh = pick(pdy[tt][u], e) + (e ? carry.y : carry.x);
+          const float dn_pre = dh * (1.0f - zg) * (1.0f - ng * ng);
+          const bf16 zero = __float2bfloat16(0.0f);
+          const bf16 dr = ok ? __float2bfloat16(dn_pre * ghn * rg * (1.0f - rg)) : zero;
+          const bf16 dz =
+              ok ? __float2bfloat16(dh * (pick(php[tt][u], e) - ng) * zg * (1.0f - zg)) : zero;
+          const bf16 dnr = ok ? __float2bfloat16(dn_pre * rg) : zero;
+          bf16* dgt = dgr + (r0 + e) * DS;
+          dgt[0] = dr;
+          dgt[8] = dz;
+          dgt[32 - 8 * u] = dnr;  // n rows: 32 + g (units 0–7), 40 + g (8–15)
+          if (ok) {
+            const size_t grow = (size_t)t * B + row;
+            bf16* out = dgx + grow * G + unit[u];
+            out[0] = dr;
+            out[H] = dz;
+            out[2 * H] = __float2bfloat16(dn_pre);
+            dnr_out[grow * H + unit[u]] = dnr;
+          }
+          dhz[tt][u][e] = ok ? dh * zg : 0.0f;
+        }
+      }
+    }
+    if (s + 1 == n_steps) break;
+
+    if (!dbuf) cluster_arrive();  // this block's partials of step s read
+    cp_async_wait<0>();
+    ws_compute_sync();  // s_dg complete; s_h holds h_prev of step s+1
+    load_cell(frame(s + 1));
+    zero_z();
+    float* recv = s_recv + (dbuf & (s + 1)) * slots;
+    for (int c = 0; c < nch; ++c) {  // step s+1's recompute and step s's dh, a chunk at a time
+      int slot;
+      const bf16* w = chunk_at(c, slot);
+      recompute(w, c);
+      if (c == 0 && !dbuf) cluster_wait();  // every block has read its partials: the slots are free
+      percival::ws_dh_chunk<kDhM, NT8>(cluster, w, s_dg, recv, c, H, Hb, NC, rank, warp, lane);
+      release(slot);
+    }
+    cluster_arrive();   // step s's partials stored
+    ws_compute_sync();  // every read of s_h and s_dg done
+    if (s + 2 < n_steps) load_h(frame(s + 2));
+    cluster_wait();     // every partial of step s landed
+  }
+  cp_async_wait<0>();
+}
+
+const void* kernel_for(int NT8) {
+  switch (NT8) {
+    case 1: return (const void*)&bigru_bwd_wide_mma_stream_kernel<1>;
+    case 2: return (const void*)&bigru_bwd_wide_mma_stream_kernel<2>;
+    case 3: return (const void*)&bigru_bwd_wide_mma_stream_kernel<3>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t plan_for(int B, int H, int Hb, int U, WideStreamPlan* plan) {
+  return percival::wide_stream_plan(B, H, Hb, U, 3, kUnits, kernel_for, plan);
+}
+
+}  // namespace
+
+// The plan a launch of (B, H, Hb, U) takes, into out[10], as
+// percival_bilstm_bwd_wide_mma_stream_plan.
+extern "C" int percival_bigru_bwd_wide_mma_stream_plan(int B, int H, int Hb, int U, int* out) {
+  WideStreamPlan plan{};
+  const cudaError_t err = plan_for(B, H, Hb, U, &plan);
+  if (err == cudaSuccess) percival::wide_stream_plan_out(plan, out);
+  return err;
+}
+
+// bf16 only, H a multiple of 32. Inputs in the order of _bigru_bwd_pallas:
+// gx, W_hᵀ (packed per block and chunk, ops/wide_mma_layout.py::pack_wh_stream),
+// b_hn, h_prev, dy; then the outputs dgx and dnr; each as (forward direction,
+// backward direction). Every pointer 16-byte aligned, none null. Returns a
+// cudaError_t.
+extern "C" int percival_bigru_bwd_wide_mma_stream(const void* gx_f, const void* gx_b,
+                                                  const void* wp_f, const void* wp_b,
+                                                  const void* bn_f, const void* bn_b,
+                                                  const void* hp_f, const void* hp_b,
+                                                  const void* dy_f, const void* dy_b,
+                                                  void* dgx_f, void* dgx_b,
+                                                  void* dnr_f, void* dnr_b,
+                                                  int n_steps, int B, int H, int Hb, int U,
+                                                  void* stream) {
+  if (n_steps < 1) return cudaErrorInvalidValue;
+  const void* ptrs[14] = {gx_f, gx_b, wp_f, wp_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,
+                          dgx_f, dgx_b, dnr_f, dnr_b};
+  for (const void* ptr : ptrs)
+    if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
+  WideStreamPlan plan{};
+  cudaError_t err = plan_for(B, H, Hb, U, &plan);
+  if (err != cudaSuccess) return err;
+  int nres = plan.nres, dbuf = plan.dbuf;
+  void* args[] = {(void*)&gx_f, (void*)&gx_b, (void*)&wp_f, (void*)&wp_b,
+                  (void*)&bn_f, (void*)&bn_b, (void*)&hp_f, (void*)&hp_b,
+                  (void*)&dy_f, (void*)&dy_b, (void*)&dgx_f, (void*)&dgx_b,
+                  (void*)&dnr_f, (void*)&dnr_b,
+                  (void*)&n_steps, (void*)&B, (void*)&H, (void*)&Hb, (void*)&nres, (void*)&dbuf};
+  return percival::wide_stream_launch(plan, B, kernel_for, args,
+                                     static_cast<cudaStream_t>(stream));
+}

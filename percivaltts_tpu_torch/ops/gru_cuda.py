@@ -34,9 +34,11 @@ BPTT takes the same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
 ``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide_f32.cu``,
 ``csrc/bigru_bwd_narrow_f32.cu``, ``csrc/bigru_bwd_wide.cu`` or
 ``csrc/bigru_bwd.cu``; at B <= 8 the ``"wide_f32"`` launcher takes its
-few-row kernels (``csrc/wide_f32_few.cuh``, ``lstm_cuda.wide_f32_plan``).
-``csrc/bigru_bwd.cu``, the ``"wide_mma"`` and the
-``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernels
+few-row kernels (``csrc/wide_f32_few.cuh``, ``lstm_cuda.wide_f32_plan``);
+but bf16 past H = 672 up to 1792, where the forward runs ``"wide"``, the
+BPTT takes ``csrc/bigru_bwd_wide_mma_stream.cu`` (``"wide_mma_stream"``,
+``lstm_cuda.stream_plan``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"``,
+``"wide_mma_stream"`` and ``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernels
 of 8: other widths are zero-padded to one (``ops/lstm_cuda.py::at_width``),
 which changes no real unit. The launchers refuse a route they do not take
 (``lstm_cuda.FWD_ROUTES``, ``BWD_ROUTES``) before they build or touch the
@@ -61,6 +63,7 @@ from percivaltts_tpu_torch.ops.lstm_cuda import (
     _one_device,
     _wide_f32_check,
     _wide_mma_check,
+    _wide_mma_stream_check,
     aligned16,
     at_width,
     check_route,
@@ -69,6 +72,7 @@ from percivaltts_tpu_torch.ops.lstm_cuda import (
     narrow_f32_fwd_plan,
     narrow_f32_plan,
     rows_per_block,
+    stream_args,
     wide_f32_plan,
 )
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
@@ -354,15 +358,17 @@ bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,
                blocks: int = 0, rows: int = 0):
     """Launch the BPTT kernel of ``route`` (one of ``lstm_cuda.BWD_ROUTES``:
-    ``"mma"``, ``"wide_mma"``, ``"wide_f32"``, ``"narrow_f32"``, ``"wide"``
-    or ``"simt"``; any other raises ``ValueError`` before anything is built
-    or launched) on CUDA inputs that :func:`bigru_bwd` has checked; counts
+    ``"mma"``, ``"wide_mma"``, ``"wide_mma_stream"``, ``"wide_f32"``,
+    ``"narrow_f32"``, ``"wide"`` or ``"simt"``; any other raises
+    ``ValueError`` before anything is built or launched) on CUDA inputs that :func:`bigru_bwd` has checked; counts
     nothing. ``bigru_bwd``
     is the entry; ``chip_smoke.py`` times one route's kernel beside
     another's through this. ``"simt"`` runs H that is not a multiple of 32
     zero-padded to one (``lstm_cuda.at_width``), up to H = 320;
-    ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(3)``) and
-    ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(3)``) likewise;
+    ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(3)``),
+    ``"wide_mma_stream"`` (bf16 only, H up to
+    ``wide_mma_layout.stream_max_h(3)``) and ``"wide_f32"`` (f32 only, H up
+    to ``wide_f32_layout.max_h(3)``) likewise;
     ``"narrow_f32"`` (f32 only, H up to 320) H that is not a multiple of 8,
     over at most ``blocks`` blocks a cluster and ``rows`` rows when given
     (``lstm_cuda.bwd_launch``'s overrides), and ``"wide_f32"`` ``rows`` rows
@@ -376,10 +382,13 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     H = G // 3
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
     granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE,
+               "wide_mma_stream": wide_mma_layout.K_GRANULE,
                "wide_f32": wide_f32_layout.K_GRANULE,
                "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 3)
+    if route == "wide_mma_stream":
+        _wide_mma_stream_check(gx_f.dtype, H, 3)
     if route == "wide_f32":
         _wide_f32_check(gx_f.dtype, H, 3)
     if route == "narrow_f32":
@@ -409,6 +418,16 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
                    wide_mma_layout.pack_wh(wh_b, p),
                    *map(aligned16, (bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)))
             err = lib.percival_bigru_bwd_wide_mma(
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                T, B, H, p.Hb, p.U, stream,
+            )
+        elif route == "wide_mma_stream":
+            packed, p = stream_args(wh_f, wh_b, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see lstm_cuda.fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), *packed,
+                   *map(aligned16, (bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)))
+            err = lib.percival_bigru_bwd_wide_mma_stream(
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
                 T, B, H, p.Hb, p.U, stream,
             )
@@ -463,8 +482,9 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 672,
-    the f32 cluster one for f32 past 320 up to 512 (its few-row kernels at
-    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 672),
+    the streamed tensor-core cluster one for bf16 past 672 up to 1792, the
+    f32 cluster one for f32 past 320 up to 512 (its few-row kernels at
+    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 1792),
     the f32 narrow cluster one for f32 up
     to 320, else the one-block CUDA-core one,
     H not a multiple of 32 zero-padded to one
@@ -481,7 +501,7 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     device = _one_device("bigru_bwd", ins, "ops.gru_cuda.bigru_core")
     if device.type == "cpu":
         return bigru_bwd_reference(*ins)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru")
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 3, "gru", gx_f.shape[1])
     out = bwd_launch(route, *ins)
     bigru_bwd.launches += 1
     bigru_bwd.routes[route] += 1
@@ -491,8 +511,8 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
 
 
 bigru_bwd.launches = 0
-bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
-                    "narrow_f32": 0}
+bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_mma_stream": 0,
+                    "wide_f32": 0, "narrow_f32": 0}
 # the "wide_f32" launches by the kernel their plan took (lstm_cuda.count_wide_f32)
 bigru_bwd.wide_f32_plans = {"chunked": 0, "few": 0}
 

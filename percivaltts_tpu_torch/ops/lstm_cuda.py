@@ -28,9 +28,13 @@ BPTT takes the same route (``bwd_route``):
 ``csrc/bilstm_bwd_wide_f32.cu``, ``csrc/bilstm_bwd_narrow_f32.cu``,
 ``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``; at B <= 8 the
 ``"wide_f32"`` launcher takes its few-row kernels (``csrc/wide_f32_few.cuh``,
-:func:`wide_f32_plan`).
+:func:`wide_f32_plan`); but bf16 past H = 608 up to 1536, where the forward
+runs ``"wide"``, the BPTT takes ``csrc/bilstm_bwd_wide_mma_stream.cu``
+(``"wide_mma_stream"``: the tensor-core split with the W_hᵀ slice streamed
+from L2 in chunks, ``wide_mma_layout.pack_wh_stream``, :func:`stream_plan`).
 ``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernels take H a multiple of
-8, the ``"wide_mma"`` and ``"wide_f32"`` kernels of 32: other widths are
+8, the ``"wide_mma"``, ``"wide_mma_stream"`` and ``"wide_f32"`` kernels of
+32: other widths are
 zero-padded to one (:func:`at_width`), which changes no real unit.
 The launchers (:func:`fwd_launch`, :func:`bwd_launch`) refuse a route
 they do not take (``FWD_ROUTES``, ``BWD_ROUTES``) before they build or
@@ -56,7 +60,9 @@ from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the routes the launchers take (ops/mma_layout.py::fwd_route / bwd_route)
 FWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
-BWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
+# the BPTT's also "wide_mma_stream": bf16 past the forward's "wide_mma" widths,
+# where the forward runs "wide" (bwd_route is not fwd_route there)
+BWD_ROUTES = ("mma", "simt", "wide_mma", "wide_mma_stream", "wide", "wide_f32", "narrow_f32")
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
 # the CUDA-core BPTT's dz·W_hᵀ reduction runs on whole warps of its 4H
 # threads: H a multiple of 8, other widths zero-padded to one
@@ -247,6 +253,22 @@ def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
                          f"H <= {wide_mma_layout.max_h(gates)}, got H={H}")
 
 
+def _wide_mma_stream_check(dtype: torch.dtype, H: int, gates: int) -> None:
+    """Raise unless the streamed tensor-core cluster BPTTs take ``dtype`` and ``H``."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the streamed tensor-core wide BPTTs take bfloat16, got {dtype}")
+    if not wide_mma_layout.stream_fits(H, gates):
+        raise ValueError(f"the streamed tensor-core wide {wide_mma_layout.CELLS[gates]} BPTTs "
+                         f"take H <= {wide_mma_layout.stream_max_h(gates)}, got H={H}")
+
+
+def stream_args(wh_f, wh_b, gates: int) -> tuple:
+    """Both directions' ``W_hᵀ`` packed per block and chunk for the streamed
+    BPTTs (``wide_mma_layout.pack_wh_stream``) and the split they share."""
+    p = wide_mma_layout.plan(wh_f.shape[0], gates)
+    return (wide_mma_layout.pack_wh_stream(wh_f, p), wide_mma_layout.pack_wh_stream(wh_b, p)), p
+
+
 def _wide_f32_check(dtype: torch.dtype, H: int, gates: int, what: str = "BPTT") -> None:
     """Raise unless the f32 cluster kernels (``what``: ``"BPTT"`` or
     ``"forward"``) take ``dtype`` and ``H``."""
@@ -325,6 +347,21 @@ def wide_f32_plan(kind: str, B: int, H: int, rows: int = 0,
         _build.check(fn(B, H, p.Hb, p.U, rows, out),
                      f"{kind} f32 wide BPTT plan at B={B} H={H} rows={rows}")
     return wide_f32_layout.BwdPlan(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(kind: str, B: int, H: int, device: int = 0) -> wide_mma_layout.StreamPlan:
+    """The streamed BPTT's launch plan, ``percival_{kind}_bwd_wide_mma_stream_plan``,
+    for ``B`` rows at width ``H`` (a multiple of 32) on card ``device``
+    (``kind``: ``"bilstm"`` or ``"bigru"``); raises when none fits."""
+    from percivaltts_tpu_torch import _build
+
+    p = wide_mma_layout.plan(H, 4 if kind == "bilstm" else 3)
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(device):
+        fn = getattr(_build.library(), f"percival_{kind}_bwd_wide_mma_stream_plan")
+        _build.check(fn(B, H, p.Hb, p.U, out), f"{kind} streamed BPTT plan at B={B} H={H}")
+    return wide_mma_layout.StreamPlan(*out)
 
 
 def count_wide_f32(wrapper, kind: str, B: int, H: int, device: int) -> None:
@@ -511,15 +548,17 @@ bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,
                dy_f, dy_b, blocks: int = 0, rows: int = 0):
     """Launch the BPTT kernel of ``route`` (one of ``BWD_ROUTES``: ``"mma"``,
-    ``"wide_mma"``, ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or
-    ``"simt"``; any other raises ``ValueError`` before anything is built or
-    launched) on CUDA inputs that :func:`bilstm_bwd` has checked; counts
-    nothing.
+    ``"wide_mma"``, ``"wide_mma_stream"``, ``"wide_f32"``, ``"narrow_f32"``,
+    ``"wide"`` or ``"simt"``; any other raises ``ValueError`` before
+    anything is built or launched) on CUDA inputs that :func:`bilstm_bwd`
+    has checked; counts nothing.
     ``bilstm_bwd`` is the entry; ``chip_smoke.py`` times one route's kernel
     beside another's through this. ``"simt"`` and ``"narrow_f32"`` (f32
     only, H up to 256, else ``ValueError``) run H that is not a multiple of
-    8, and ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(4)``)
-    and ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(4)``) H
+    8, and ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(4)``),
+    ``"wide_mma_stream"`` (bf16 only, H up to
+    ``wide_mma_layout.stream_max_h(4)``, else ``ValueError`` naming it) and
+    ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(4)``) H
     that is not a multiple of 32, zero-padded to one (:func:`at_width`).
     ``"narrow_f32"`` splits over at most ``blocks`` blocks a cluster and
     takes ``rows`` rows when given (a measurement's overrides; 0: the plan's
@@ -534,10 +573,13 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
     H = G // 4
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
     granule = {"simt": SIMT_BWD_GRANULE, "wide_mma": wide_mma_layout.K_GRANULE,
+               "wide_mma_stream": wide_mma_layout.K_GRANULE,
                "wide_f32": wide_f32_layout.K_GRANULE,
                "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 4)
+    if route == "wide_mma_stream":
+        _wide_mma_stream_check(gx_f.dtype, H, 4)
     if route == "wide_f32":
         _wide_f32_check(gx_f.dtype, H, 4)
     if route == "narrow_f32":
@@ -564,6 +606,15 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
             ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
                    wide_mma_layout.pack_wh(wh_b, p), *map(aligned16, states))
             err = lib.percival_bilstm_bwd_wide_mma(
+                *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
+                T, B, H, p.Hb, p.U, stream,
+            )
+        elif route == "wide_mma_stream":
+            packed, p = stream_args(wh_f, wh_b, 4)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            # held in names until the launch (see fwd_launch)
+            ins = (aligned16(gx_f), aligned16(gx_b), *packed, *map(aligned16, states))
+            err = lib.percival_bilstm_bwd_wide_mma_stream(
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
                 T, B, H, p.Hb, p.U, stream,
             )
@@ -617,8 +668,9 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 608,
-    the f32 cluster one for f32 past 256 up to 512 (its few-row kernels at
-    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 608),
+    the streamed tensor-core cluster one for bf16 past 608 up to 1536, the
+    f32 cluster one for f32 past 256 up to 512 (its few-row kernels at
+    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 1536),
     the f32 narrow cluster one for f32 up
     to 256, else the one-block CUDA-core one, H not a multiple of 8
     zero-padded to one
@@ -636,7 +688,7 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     device = _one_device("bilstm_bwd", (gx_f, gx_b, wh_f, wh_b, *states))
     if device.type == "cpu":
         return bilstm_bwd_reference(gx_f, gx_b, wh_f, wh_b, *states)
-    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4, "lstm")
+    route = bwd_route(gx_f.dtype, gx_f.shape[-1] // 4, "lstm", gx_f.shape[1])
     out = bwd_launch(route, gx_f, gx_b, wh_f, wh_b, *states)
     bilstm_bwd.launches += 1
     bilstm_bwd.routes[route] += 1
@@ -646,8 +698,8 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
-                     "narrow_f32": 0}
+bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_mma_stream": 0,
+                     "wide_f32": 0, "narrow_f32": 0}
 # the "wide_f32" launches by the kernel their plan took (count_wide_f32)
 bilstm_bwd.wide_f32_plans = {"chunked": 0, "few": 0}
 

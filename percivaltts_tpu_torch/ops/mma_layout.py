@@ -23,7 +23,9 @@ The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
 kernels up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and past it the
 cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
-cores (``ops/wide_layout.py``); f32 there takes its own cluster
+cores (``ops/wide_layout.py``) but for the bf16 BPTT, which streams the
+slice from L2 into the tensor-core kernels up to H = 1536 / 1792
+(``"wide_mma_stream"``); f32 there takes its own cluster
 kernels up to H = 512 (``ops/wide_f32_layout.py``), and at the one-block
 widths both f32 passes take cluster kernels too, which hold W_h on chip for
 all of a cluster's rows (``ops/narrow_f32_layout.py``).
@@ -69,12 +71,22 @@ SIMT_MAX_H = {"lstm": LSTM_SIMT_MAX_H, "gru": GRU_SIMT_MAX_H}
 # where the f32 forward keeps the CUDA-core cluster kernel ("wide") over
 # "wide_f32": (H, B) pairs, "wide" wherever H <= h and B <= b for one of
 # them. The card measured the CUDA-core cluster
-# forward faster than "wide_f32" only at the GRU's H = 336 with B <= 2 (the
+# forward faster than "wide_f32" only at the GRU's H = 336 with B <= 3 (the
 # old kernel runs 336 as it is, one row a cluster with W_h in shared
-# memory; "wide_f32" pads it to 352 and runs 4 rows), and "wide_f32" faster
-# at the other 115 points it timed (H = 264–512, B = 1–160; python3
+# memory; "wide_f32" pads it to 352 and runs 4 rows: 1.05–1.10x at
+# B = 1–3, and "wide_f32" 1.03–1.11x at B = 4–6, in turns), and "wide_f32"
+# faster at the other points it timed (H = 264–512, B = 1–160; python3
 # chip_smoke.py --f32-times, PERF.md)
-F32_WIDE_FWD = {"lstm": (), "gru": ((336, 2),)}
+F32_WIDE_FWD = {"lstm": (), "gru": ((336, 3),)}
+# where the bf16 BPTT keeps the CUDA-core cluster kernel ("wide") over the
+# streamed tensor-core one ("wide_mma_stream"), as F32_WIDE_FWD. The card
+# measured "wide" faster only at the LSTM's H = 609–640 with B <= 3, where
+# its block holds the whole W_h slice in shared memory and runs the few
+# rows there (at H = 640: 1.004–1.04x; at 624, which the streamed kernel pads
+# to 640, 1.11–1.12x, in turns), and the streamed kernel faster at the other
+# points it timed (1.20x at H = 640, B = 4; 2.3–31.7x at H = 640–1792,
+# B = 1–160; python3 chip_smoke.py --bf16-wide-times, PERF.md)
+BF16_WIDE_BWD = {"lstm": ((640, 3),), "gru": ()}
 
 
 def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
@@ -119,8 +131,8 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     return "wide"
 
 
-def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
-    """The BPTT kernel a CUDA call launches, at any batch:
+def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
+    """The BPTT kernel a CUDA call launches:
     :func:`fwd_route`'s rule for a large batch, so ``"mma"``
     (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``
     (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
@@ -135,8 +147,21 @@ def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm") -> str:
     (``wide_f32_layout.fits``: H up to 512) at every batch: its launcher
     takes the few-row kernels at B <= 8 (``csrc/wide_f32_few.cuh``), which
     the card measured faster than ``"wide"`` at every width and B <= 8 it
-    timed (PERF.md)."""
-    return fwd_route(dtype, H, cell)  # f32 "narrow_f32" and "wide_f32": the BPTT's too
+    timed (PERF.md). Where the bf16 forward goes ``"wide"`` (past
+    ``wide_mma_layout.max_h``: H = 608 LSTM, 672 GRU) the BPTT is not the
+    forward's: up to ``wide_mma_layout.stream_max_h`` (1536 LSTM, 1792 GRU)
+    it takes ``"wide_mma_stream"`` (``csrc/{bilstm,bigru}_bwd_wide_mma_stream.cu``:
+    ``"wide_mma"``'s split and products with the ``W_hᵀ`` slice streamed
+    from L2 in chunks, ``wide_mma_layout.stream_fits``) unless
+    ``BF16_WIDE_BWD`` keeps ``"wide"`` for so few rows ``B`` (without ``B``,
+    a large batch's route), and ``"wide"`` past it."""
+    route = fwd_route(dtype, H, cell)  # f32 "narrow_f32" and "wide_f32": the BPTT's too
+    if (route == "wide" and dtype == torch.bfloat16
+            and wide_mma_layout.stream_fits(H, GATES[cell])):
+        if B is not None and any(H <= h and B <= b for h, b in BF16_WIDE_BWD[cell]):
+            return "wide"
+        return "wide_mma_stream"
+    return route
 
 
 def _check(kind: str, H: int) -> None:

@@ -41,9 +41,13 @@ slice, ``h_prev`` tile, partial slots and ``dz`` tile must fit a block's
 shared memory (:func:`smem_bytes`, against ``SMEM_OPTIN``, the H100's
 227 KB): at 8 rows a cluster that holds up to H = 608 (LSTM) / 672 (GRU)
 (:func:`fits`, :func:`max_h`); the forward's block fits there too. Wider
-bf16 layers stay on the CUDA-core cluster kernels of ``"wide"``;
-``ops/mma_layout.py::fwd_route`` holds the rule, for both passes. The
-BPTT's launcher picks the rows a cluster :func:`rows` replays.
+bf16 forwards stay on the CUDA-core cluster kernels of ``"wide"``; the
+BPTTs take the streamed kernels of ``"wide_mma_stream"`` up to
+:func:`stream_max_h` (the last part of this module: the same split and
+packed rows, the slice in chunks, :func:`stream_plan`,
+:func:`pack_wh_stream`); ``ops/mma_layout.py::fwd_route`` / ``bwd_route``
+hold the rule. The BPTT's launcher picks the rows a cluster :func:`rows`
+replays.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from typing import NamedTuple
 
 import torch
 
-from percivaltts_tpu_torch.ops.wide_layout import CELLS, MAX_CLUSTER
+from percivaltts_tpu_torch.ops.wide_layout import CELLS, MAX_CLUSTER, MAX_H
 
 WARPS = 16  # 512 threads a block
 UNIT_GROUP = {4: 8, 3: 16}  # units a unit group by gate count: its m16 tiles hold every gate
@@ -316,5 +320,222 @@ def replay_dh(dz: torch.Tensor, wp: torch.Tensor, p: Plan) -> torch.Tensor:
         part = dz.new_zeros((H, R))
         for kk in range(p.NC // 16):
             part = part + wp[b, 16 * kk:16 * kk + 16].t() @ dz_b[:, 16 * kk:16 * kk + 16].t()
+        dh = dh + part.t()
+    return dh
+
+
+# ---- the streamed BPTT (route "wide_mma_stream", csrc/wide_mma_stream.cuh) --
+#
+# Past max_h the BPTT's W_hᵀ slice no longer fits a block beside its tiles.
+# The streamed kernels (csrc/bilstm_bwd_wide_mma_stream.cu,
+# csrc/bigru_bwd_wide_mma_stream.cu) keep plan()'s split and packed rows but
+# cut the slice's K = H into CHUNK-wide chunks: the last ``nres`` stay in
+# shared memory, the first ``nstr`` stream from L2 every step through a ring
+# of RING slots (one TMA copy a chunk, one producer warp), each chunk feeding
+# the step's recompute over its k and its dh over its units. The sums run in
+# "wide_mma"'s order (replay_recompute, replay_dh).
+
+CHUNK = 64  # k a chunk of the slice
+RING = 3  # shared-memory slots the streamed chunks cycle through
+STREAM_WARPS = 16  # 15 compute warps and the producer warp (512 threads: 128 registers)
+STREAM_MAX_ROWS = 24  # batch rows a cluster (kernels for 8, 16 and 24)
+STREAM_TPW = 2  # 8-row tiles a cell warp takes (each A fragment read once for them)
+# the step estimate (ps) the plan weighs rows, chunks and waves by
+# (wide_mma_stream.cuh::ws_step_ps): fixed, a streamed packed row of a
+# chunk (128 bytes from L2), and R·NC·H / 1024 multiply-adds; fitted to 14
+# steps timed on an H100 SXM (PERF.md, PR 24)
+STEP_PS, ROW_PS, MAC_PS = 7_540_000, 1261, 1993
+
+
+class StreamPlan(NamedTuple):
+    U: int  # blocks in a direction's cluster
+    Hb: int  # units a block
+    NC: int  # packed W_hᵀ rows a block
+    R: int  # batch rows a cluster, a multiple of 8
+    nres: int  # chunks resident in shared memory (the last ones)
+    nstr: int  # chunks streamed every step (the first ones)
+    clusters: int  # clusters the card holds at once
+    waves: int  # ceil(2·ceil(B / R) / clusters)
+    dbuf: int  # 1: two buffers of partial slots, one cluster barrier a step
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def chunks(H: int) -> int:
+    """Chunks of ``CHUNK`` k in width ``H`` (the last one half when H ≡ 32 mod 64)."""
+    return -(-H // CHUNK)
+
+
+def tile_bytes(NC: int) -> int:
+    """Shared-memory bytes of one chunk of a block's slice: NC packed rows × 64 bf16."""
+    return NC * CHUNK * 2
+
+
+def stream_smem_bytes(H: int, gates: int, R: int, nres: int, bufs: int = 1) -> int:
+    """A streamed block's dynamic shared memory (``wide_mma_stream.cuh::ws_smem``):
+    ``RING + nres`` chunk tiles, the ``h_prev`` tile (R × (H + 8) bf16),
+    ``bufs`` buffers of partial slots (U × Hb × R f32), the ``dz`` tile
+    (R × (NC + 8) bf16) and the ring's ``2·RING`` mbarriers."""
+    p = plan(H, gates)
+    return ((RING + nres) * tile_bytes(p.NC) + _a16(R * (H + 8) * 2)
+            + _a16(bufs * p.U * p.Hb * R * 4) + _a16(R * (p.NC + 8) * 2) + 2 * RING * 8)
+
+
+def stream_tpw(gates: int, R: int) -> int:
+    """8-row tiles a cell warp takes at ``R`` rows a cluster
+    (``wide_mma_stream.cuh::ws_tpw``): up to ``STREAM_TPW``, but one for the
+    GRU at R = 24 (two would leave its 128 registers short)."""
+    return 1 if gates == 3 and R == 24 else min(R // 8, STREAM_TPW)
+
+
+def stream_cells(H: int, gates: int, R: int) -> int:
+    """Compute warps that hold cells at ``R`` rows a cluster
+    (``wide_mma_stream.cuh::ws_cells``): one a unit group and up to
+    :func:`stream_tpw` 8-row tiles (all ``STREAM_WARPS − 1`` compute warps
+    take dh items)."""
+    return plan(H, gates).Hb // UNIT_GROUP[gates] * -(-(R // 8) // stream_tpw(gates, R))
+
+
+def stream_fits(H: int, gates: int = 4) -> bool:
+    """Whether the streamed kernels take width ``H`` (padded to a multiple of
+    32): a block's unit groups at most one a compute warp, and 8 rows a
+    cluster with the ring and no resident chunk within ``SMEM_OPTIN``."""
+    Hp = padded(H)
+    return (stream_cells(Hp, gates, 8) < STREAM_WARPS
+            and stream_smem_bytes(Hp, gates, 8, 0) <= SMEM_OPTIN)
+
+
+@functools.cache
+def stream_max_h(gates: int = 4) -> int:
+    """The widest H the streamed kernels take (1536 for the LSTM, 1792 for the
+    GRU): past it the BPTT stays on the CUDA-core cluster kernel ("wide")."""
+    H = max_h(gates)
+    while H + K_GRANULE <= MAX_H and stream_fits(H + K_GRANULE, gates):
+        H += K_GRANULE
+    return H
+
+
+def stream_step_ps(H: int, NC: int, R: int, nstr: int) -> int:
+    """The plan's step estimate in picoseconds (``ws_step_ps``)."""
+    return STEP_PS + ROW_PS * nstr * NC + MAC_PS * (R * NC * H // 1024)
+
+
+def stream_plan(B: int, H: int, gates: int, clusters) -> StreamPlan:
+    """The launcher's plan for ``B`` rows at width ``H`` (a multiple of 32)
+    when the card holds ``clusters`` clusters at once (an int, or a function
+    of the block's shared memory; ``percival_*_bwd_wide_mma_stream_plan``
+    reports both): among R = 8, 16, 24 whose cells fit the 15 compute warps
+    (:func:`stream_cells`) and that fit ``SMEM_OPTIN`` with the ring, a
+    second buffer of partial slots where it fits (one cluster barrier a step,
+    not two), then as many chunks resident as fit (all but one at most); the
+    least ``waves × stream_step_ps``, then the smallest R."""
+    p = plan(H, gates)
+    nch = chunks(H)
+    best, best_cost = None, None
+    for R in range(8, STREAM_MAX_ROWS + 1, 8):
+        base = stream_smem_bytes(H, gates, R, 0)
+        if stream_cells(H, gates, R) >= STREAM_WARPS or base > SMEM_OPTIN:
+            continue
+        dbuf = int(stream_smem_bytes(H, gates, R, 0, 2) <= SMEM_OPTIN)
+        room = SMEM_OPTIN - stream_smem_bytes(H, gates, R, 0, 1 + dbuf)
+        nres = min(nch - 1, room // tile_bytes(p.NC))
+        smem = stream_smem_bytes(H, gates, R, nres, 1 + dbuf)
+        c = clusters(smem) if callable(clusters) else clusters
+        if c < 1:
+            continue
+        waves = -(-2 * -(-B // R) // c)
+        cost = waves * stream_step_ps(H, p.NC, R, nch - nres)
+        if best is None or cost < best_cost:
+            best, best_cost = StreamPlan(*p, R, nres, nch - nres, c, waves, dbuf, smem), cost
+    if best is None:
+        raise ValueError(f"no rows a cluster fit the streamed tensor-core wide {CELLS[gates]} "
+                         f"at H={H}")
+    return best
+
+
+def tile_index(NC: int) -> torch.Tensor:
+    """``(NC, 64)`` int64: where element ``(p, k)`` of a chunk (packed row
+    ``p``, its k ``k``) lies in the chunk's tile of ``NC × 64`` elements, as
+    the kernels address it (row ``p`` at ``64·p``, unit ``k // 8`` swizzled)."""
+    p = torch.arange(NC)
+    k = torch.arange(CHUNK)
+    unit = (k // 8)[None, :] ^ (p % 8)[:, None]  # unit u of row p stored at u ^ (p % 8)
+    return p[:, None] * CHUNK + unit * 8 + (k % 8)[None, :]
+
+
+def pack_wh_stream(wh: torch.Tensor, p: Plan) -> torch.Tensor:
+    """``(H, gates·H)`` recurrent kernel → ``(U, chunks, NC, 64)`` contiguous:
+    :func:`pack_wh`'s slices cut into chunks of 64 k (the last one
+    zero-padded when H ≡ 32 mod 64), each chunk's tile laid out as the
+    kernels read it (:func:`tile_index`), so that one contiguous copy moves a
+    chunk into shared memory."""
+    wp = pack_wh(wh, p)  # (U, NC, H)
+    H = wp.shape[2]
+    nch = chunks(H)
+    wp = torch.nn.functional.pad(wp, (0, nch * CHUNK - H)).view(p.U, p.NC, nch, CHUNK)
+    wp = wp.permute(0, 2, 1, 3).reshape(p.U, nch, p.NC * CHUNK)
+    out = torch.empty_like(wp)
+    out[:, :, _tile_index_on(p.NC, wh.device).flatten()] = wp
+    return out.view(p.U, nch, p.NC, CHUNK)
+
+
+def unpack_wh_stream(ws: torch.Tensor, p: Plan, H: int) -> torch.Tensor:
+    """Inverse of :func:`pack_wh_stream`: ``(U, chunks, NC, 64)`` → the
+    ``(U, NC, H)`` slices of :func:`pack_wh`."""
+    nch = ws.shape[1]
+    flat = ws.reshape(p.U, nch, p.NC * CHUNK)[:, :, tile_index(p.NC).flatten()]
+    return flat.view(p.U, nch, p.NC, CHUNK).permute(0, 2, 1, 3).reshape(p.U, p.NC, -1)[..., :H]
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_index_on(NC: int, device: torch.device) -> torch.Tensor:
+    return tile_index(NC).to(device)
+
+
+def _stream_tiles(ws: torch.Tensor, p: Plan, b: int) -> torch.Tensor:
+    """Block ``b``'s chunks read through the kernels' addressing:
+    ``(chunks, NC, 64)`` with element ``(c, p, k)`` taken from the tile at
+    :func:`tile_index` ``(p, k)``."""
+    idx = tile_index(p.NC).flatten()
+    return ws[b].reshape(ws.shape[1], -1)[:, idx].view(ws.shape[1], p.NC, CHUNK)
+
+
+def replay_stream_recompute(h: torch.Tensor, ws: torch.Tensor, p: Plan) -> torch.Tensor:
+    """``h (R, H) · W_h`` → ``(R, gates·H)`` as the streamed kernels compute
+    it from the chunk tiles of :func:`pack_wh_stream`: block ``b``'s m16
+    tiles of packed rows against the 8-row tiles of ``h``, chunk by chunk and
+    within a chunk k-step by k-step, in order (``replay_recompute``'s sums)."""
+    R, H = h.shape
+    cols = columns(H, p)
+    z = h.new_zeros((R, (p.NC // p.Hb) * H))
+    for b in range(p.U):
+        tiles = _stream_tiles(ws, p, b)
+        acc = h.new_zeros((p.NC, R))
+        for kk in range(H // 16):
+            c, kl = divmod(16 * kk, CHUNK)
+            acc = acc + tiles[c, :, kl:kl + 16] @ h[:, 16 * kk:16 * kk + 16].t()
+        ok = cols[b] >= 0
+        z[:, cols[b][ok]] = acc[ok].t()
+    return z
+
+
+def replay_stream_dh(dz: torch.Tensor, ws: torch.Tensor, p: Plan) -> torch.Tensor:
+    """``dz (R, gates·H) · W_hᵀ`` → ``(R, H)`` as the streamed kernels compute
+    it: chunk ``c``'s units from block ``b``'s chunk tile, K = the block's
+    packed rows in 16-row k-steps in order, the ``U`` partials of a unit
+    added in block order by its owner (``replay_dh``'s sums)."""
+    R, G = dz.shape
+    H = G // (p.NC // p.Hb)
+    cols = columns(H, p)
+    dh = dz.new_zeros((R, H))
+    for b in range(p.U):
+        tiles = _stream_tiles(ws, p, b)
+        dz_b = torch.where(cols[b] >= 0, dz[:, cols[b].clamp(min=0)], 0.0)  # (R, NC)
+        part = dz.new_zeros((H, R))
+        for c in range(chunks(H)):
+            units = slice(c * CHUNK, min(H, (c + 1) * CHUNK))
+            w = tiles[c, :, :units.stop - units.start]  # (NC, units of the chunk)
+            for kk in range(p.NC // 16):
+                part[units] = part[units] + w[16 * kk:16 * kk + 16].t() @ \
+                    dz_b[:, 16 * kk:16 * kk + 16].t()
         dh = dh + part.t()
     return dh

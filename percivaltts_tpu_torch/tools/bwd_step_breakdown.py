@@ -2,6 +2,7 @@
 
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown          # the mma kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide   # the cluster kernels
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --stream [--route=wide]
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 [--route=wide_f32]
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 --few [--route=wide_f32_few] [--grid]
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --simt --f32 [--route=narrow_f32]
@@ -143,6 +144,9 @@ def _build_variants() -> dict:
 
 
 WIDE_SHAPES = [(512, 8, 512), (512, 160, 512)]
+# --wide --stream: bf16 past the widths whose W_hᵀ slice fits a block's shared
+# memory, where "wide" ran until "wide_mma_stream" took over
+STREAM_SHAPES = [(512, 8, 1024), (512, 32, 1024), (512, 160, 1024)]
 # --few: the f32 BPTT's few batch rows (B <= 8) at the widths where the
 # CUDA-core cluster kernel ("wide") was measured faster than the chunked
 # "wide_f32" plan, by cell
@@ -150,7 +154,8 @@ FEW_SHAPES = {"bilstm": [(512, 2, 384), (512, 8, 384), (512, 6, 416)],
               "bigru": [(512, 2, 384), (512, 8, 384), (512, 6, 512)]}
 WIDE_VARIANTS = ("full", "no_recompute", "no_dh", "no_dsmem", "no_cluster_sync", "no_prefetch",
                  "loop_only")
-WIDE_ROUTE_VARIANTS = {"wide_f32": ("no_stream",)}  # variants only one route has
+WIDE_ROUTE_VARIANTS = {"wide_f32": ("no_stream",),  # variants only some routes have
+                       "wide_mma_stream": ("no_stream",)}
 # the few-row kernels of "wide_f32" (csrc/wide_f32_few.cuh), timed as their
 # own "route": no_dh also drops the mbarrier waits and arms its sends fed,
 # no_dsmem sends every partial into the block's own slots and mbarrier (at
@@ -197,6 +202,32 @@ WIDE_EDITS = {
         "no_dsmem": [("cluster_addr(recv_addr, owner)", "cluster_addr(recv_addr, rank)", 1),
                      ("cluster_addr(bar_addr, owner)", "cluster_addr(bar_addr, rank)", 1)],
         "no_prefetch": [("    prefetch(s + 1);\n", "", 1)],
+    },
+    # the streamed kernels (their header inlined): no_cluster_sync keeps the
+    # prologue's barrier and one before the blocks exit; no_stream arms each
+    # ring slot's mbarrier with no copy, so the slots keep what they held and
+    # nothing crosses from L2
+    "wide_mma_stream": {
+        "no_recompute": [("      recompute(w, c);\n", "", 1)],
+        "no_dh": [("      percival::ws_dh_chunk<kDhM, NT8>(cluster, w, s_dg, recv, c, H, Hb, NC, rank, "
+                   "warp, lane);\n", "", 1)],
+        "no_dsmem": [("cluster.map_shared_rank(recv, owner)", "(recv)", 1)],
+        "no_cluster_sync": [
+            ("    if (!dbuf) cluster_arrive();", "    (void)0;", 1),
+            ("      if (c == 0 && !dbuf) cluster_wait();", "      (void)0;", 1),
+            ("    cluster_arrive();   // step s's partials stored\n", "", 1),
+            ("    cluster_wait();     // every partial of step s landed\n", "", 1),
+            ("    if (!dbuf) {  // the compute warps arrive after the gate phase, wait after chunk 0",
+             "    if (false) {", 1),
+            ("of the next\n    cluster_arrive();\n    cluster_wait();\n", "of the next\n", 1),
+            ("dbuf, lane);\n    return;", "dbuf, lane);\n    cluster.sync();\n    return;", 1),
+            ("  cp_async_wait<0>();\n}\n\nconst void* kernel_for",
+             "  cp_async_wait<0>();\n  cluster.sync();\n}\n\nconst void* kernel_for", 1)],
+        "no_prefetch": [("    if (s + 2 < n_steps) load_h(frame(s + 2));\n", "", 1)],
+        "no_stream": [("        ws_mbar_expect_tx(&full[slot], bytes);\n"
+                       "        ws_bulk_load(s_ring + (size_t)slot * tile, wp + (size_t)(g % nstr) * "
+                       "tile, bytes,\n                     &full[slot]);\n",
+                       "        ws_mbar_arrive(&full[slot]);\n", 1)],
     },
     "wide_mma": {
         "no_recompute": [("    recompute(0, KH);   // step s+1, first half\n", "", 1),
@@ -252,7 +283,8 @@ def _build_wide_variants(routes) -> dict:
             if not path.exists():
                 continue
             src = path.read_text()
-            if route.startswith("wide_f32"):  # the kernel bodies are headers': edit copies inlined
+            if route.startswith(("wide_f32", "wide_mma_stream")):
+                # the kernel bodies are (partly) headers': edit copies inlined
                 src = _inline_headers(src)
             names = FEW_VARIANTS if route == "wide_f32_few" else WIDE_VARIANTS
             for name in names + WIDE_ROUTE_VARIANTS.get(route, ()):
@@ -486,7 +518,9 @@ def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict
         from percivaltts_tpu_torch.ops import wide_mma_layout
 
         plan = wide_mma_layout.plan(H, gates)
-        wp = [wide_mma_layout.pack_wh(w, plan) for w in ins["wh"]]
+        pack = wide_mma_layout.pack_wh_stream if route == "wide_mma_stream" else \
+            wide_mma_layout.pack_wh
+        wp = [pack(w, plan) for w in ins["wh"]]
         tail = [T, B, H, plan.Hb, plan.U]
     names = ["gx", "wp"] + (["hp", "cp", "c", "dy"] if kind == "bilstm" else ["bn", "hp", "dy"])
     tensors = {**ins, "wp": wp}
@@ -498,7 +532,7 @@ def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict
     plan_fn = getattr(lib, f"percival_{kind}_bwd_{route}_plan")
     plan_fn.argtypes = [i] * (len(tail) - 1) + [ctypes.POINTER(ctypes.c_int)]
     plan_fn.restype = i
-    out = (ctypes.c_int * 9)()  # every cluster BPTT's plan has 9 fields
+    out = (ctypes.c_int * 10)()  # the cluster BPTTs' plans have 9 fields, the streamed 10
     if plan_fn(*tail[1:], out):
         raise RuntimeError(f"{kind} {route}: no plan at B={B} H={H}")
 
@@ -514,15 +548,19 @@ def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict
 def _plan_text(route: str, B: int, plan: list) -> str:
     """The launch plan of a cluster BPTT, as its ``*_plan`` function returns it."""
     if route == "wide":
-        U, Hb, NC, KS, NT, R, w_smem, clusters, smem = plan
+        U, Hb, NC, KS, NT, R, w_smem, clusters, smem = plan[:9]
         waves = -(-2 * -(-B // R) // clusters)
         return (f"R={R}, W_h in {'shared memory' if w_smem else 'L2'}, {clusters} clusters at "
                 f"once, {waves} waves, {smem} B")
     if route.startswith("wide_f32"):
-        U, Hb, NC, R, nres, nstr, clusters, waves, smem = plan
+        U, Hb, NC, R, nres, nstr, clusters, waves, smem = plan[:9]
         return (f"R={R}, {nres} resident / {nstr} streamed chunks, {clusters} clusters at once, "
                 f"{waves} waves, {smem} B")
-    U, Hb, NC, R, MPW, clusters, waves, dbuf, smem = plan
+    if route == "wide_mma_stream":
+        U, Hb, NC, R, nres, nstr, clusters, waves, dbuf, smem = plan
+        return (f"R={R}, {nres} resident / {nstr} streamed chunks, {clusters} clusters at once, "
+                f"{waves} waves, {1 + dbuf} slot buffers, {smem} B")
+    U, Hb, NC, R, MPW, clusters, waves, dbuf, smem = plan[:9]
     return f"R={R}, {clusters} clusters at once, {waves} waves, {smem} B"
 
 
@@ -548,22 +586,25 @@ def few_grid(libs, dev, g) -> None:
                           f"{_plan_text('wide_f32', B, launch.plan)}): us a step {us:.3f}")
 
 
-def wide_main(f32: bool = False, only: str = "", few: bool = False, grid: bool = False) -> int:
+def wide_main(f32: bool = False, only: str = "", few: bool = False, grid: bool = False,
+              stream: bool = False) -> int:
     """The cluster BPTTs' variants at ``WIDE_SHAPES`` (``few``: at
-    ``FEW_SHAPES``): bf16 on ``"wide"`` and ``"wide_mma"``; with ``f32``, f32
+    ``FEW_SHAPES``; ``stream``: at ``STREAM_SHAPES``): bf16 on ``"wide"`` and
+    ``"wide_mma"`` (``stream``: ``"wide_mma_stream"``, which also runs
+    ``no_stream``); with ``f32``, f32
     on ``"wide"``, ``"wide_f32"`` (its chunked kernels, which also run
     ``no_stream``) and, with ``few``, ``"wide_f32_few"`` (the few-row
     kernels, ``FEW_VARIANTS``), each shape's plan printed first; ``only``:
     that route alone; ``grid`` (with ``few``): ``few_grid`` after them."""
     routes = ("wide", "wide_f32") + (("wide_f32_few",) if few else ()) if f32 else \
-        ("wide", "wide_mma")
+        ("wide", "wide_mma_stream" if stream else "wide_mma")
     routes = tuple(r for r in routes if not only or r == only)
     libs = _build_wide_variants(routes)
     dev = torch.device("cuda")
     dtype = torch.float32 if f32 else torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     for kind in ("bilstm", "bigru"):
-        for T, B, H in FEW_SHAPES[kind] if few else WIDE_SHAPES:
+        for T, B, H in FEW_SHAPES[kind] if few else STREAM_SHAPES if stream else WIDE_SHAPES:
             ins, outs = _wide_inputs(kind, T, B, H, dev, g, dtype)
             for route in routes:
                 if (kind, route, "full") not in libs:
@@ -596,7 +637,7 @@ def main() -> int:
         return simt_main(only)
     if "--wide" in sys.argv[1:]:
         return wide_main(f32="--f32" in sys.argv[1:], only=only, few="--few" in sys.argv[1:],
-                         grid="--grid" in sys.argv[1:])
+                         grid="--grid" in sys.argv[1:], stream="--stream" in sys.argv[1:])
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     p, i = ctypes.c_void_p, ctypes.c_int

@@ -97,17 +97,19 @@ def test_f32_bptt_route_takes_the_kernel_measured_faster(cell):
     """At every width and batch the card timed, the f32 BPTT's route is the
     faster of the two cluster kernels: ``"wide_f32"`` (at B <= 8 its plan
     takes the few-row kernels wherever one fits, the LSTM up to H = 416);
-    the forward takes ``"wide_f32"`` at every batch; the BPTT's route takes
-    no batch."""
+    the forward takes ``"wide_f32"`` at every batch; the f32 BPTT's route
+    is the same at every batch (only the bf16 table ``BF16_WIDE_BWD`` reads
+    one)."""
     gates = 4 if cell == "lstm" else 3
     for H, up_to in WIDE_FASTER_UP_TO[cell].items():
         for B in MEASURED_B:
             want = "wide" if B <= up_to else "wide_f32"
             assert bwd_route(torch.float32, H, cell) == want, (H, B)
+            assert bwd_route(torch.float32, H, cell, B) == want, (H, B)
             assert fwd_route(torch.float32, H, cell) == "wide_f32"
             few = B <= wf.FEW_MAX_B and wf.few_fits(wf.padded(H), gates, 1)
             assert (wf.bwd_plan(B, wf.padded(H), gates, H100_CLUSTERS).R <= 4) == few, (H, B)
-    assert list(inspect.signature(bwd_route).parameters) == ["dtype", "H", "cell"]
+    assert list(inspect.signature(bwd_route).parameters) == ["dtype", "H", "cell", "B"]
 
 
 def test_chunks_cover_the_slice():

@@ -180,15 +180,19 @@ def test_plan_and_packing_round_trip(gates, H):
 def test_widths_and_routes():
     """The route takes bf16 past the tensor-core one-block kernels' 128 up
     to where the BPTT's shared memory ends (608 LSTM, 672 GRU: the Pallas
-    kernels' 608 / 640 are inside), for the forward and the BPTT alike; f32
-    keeps its routes, the BPTT up to 512 on its own cluster kernel."""
+    kernels' 608 / 640 are inside), for the forward and the BPTT alike;
+    past it the forward takes "wide" and the BPTT the streamed kernels
+    ("wide_mma_stream") up to ``stream_max_h``, then "wide" too; f32 keeps
+    its routes, the BPTT up to 512 on its own cluster kernel."""
     assert (wm.max_h(4), wm.max_h(3)) == (608, 672)
     bf16, f32 = torch.bfloat16, torch.float32
     for cell, gates in (("lstm", 4), ("gru", 3)):
         for H in (129, 200, 256, 264, 336, 512, wm.max_h(gates)):
             assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide_mma"
         for H in (wm.max_h(gates) + 1, 1024, wide_layout.max_h(gates)):
-            assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide"
+            streamed = H <= wm.stream_max_h(gates)
+            assert fwd_route(bf16, H, cell) == "wide"
+            assert bwd_route(bf16, H, cell) == ("wide_mma_stream" if streamed else "wide")
             assert not wm.fits(H, gates)
         for H in (16, 128):
             assert bwd_route(bf16, H, cell) == "mma"
