@@ -293,20 +293,23 @@ raises on failure (the script exits 0 only when all passed):
    (``FEW_DEPTH``), every BPTT launch on the few-row kernels;
    16d. both kernels at ``F32_WIDE_KEPT`` in turns with ``"wide"`` and the
    twin, beside the bound and cuDNN's f32 layer (events, device time);
-17. the bf16 BPTT past the tensor-core widths (``"wide_mma_stream"``: the
-   W_hᵀ slice streamed from L2 in 64-k chunks, ``csrc/wide_mma_stream.cuh``):
-   17a. its plans at every width and B it is timed at against
-   ``ops/wide_mma_layout.py::stream_plan`` at the card's clusters,
-   ``ptxas``'s registers with 0 spills; both kernels through their entries
-   at ``STREAM_SHAPES`` against the twins within
-   ``KERNEL_TOL[bf16]``·max(1, max|twin|), ``"wide"`` launched beside them;
-   17b. the autograd pairs at ``STREAM_AUTOGRAD_SHAPE`` (forward ``"wide"``,
-   BPTT streamed) against the twins;
+17. the bf16 layers past the tensor-core widths (``"wide_mma_stream"``: the
+   W_hᵀ slice streamed from L2 in 64-k chunks, ``csrc/wide_mma_stream.cuh``;
+   the forwards and the BPTTs):
+   17a. their plans at every width and B they are timed at against
+   ``ops/wide_mma_layout.py::stream_plan`` / ``stream_fwd_plan`` at the
+   card's clusters, ``ptxas``'s registers and spills (none past
+   ``STREAM_SPILL_MAX``: 0 but for two forward instantiations); the four kernels
+   through their entries at ``STREAM_SHAPES`` against the twins within
+   ``KERNEL_TOL[bf16]``·max(1, max|twin|) (the LSTM forward with and
+   without cells), ``"wide"`` launched beside them;
+   17b. the autograd pairs at ``STREAM_AUTOGRAD_SHAPE`` (forward and BPTT
+   streamed) against the twins;
    17c. config 3 and the BGRU at ``blstm_size=2048`` (H = 1024,
    ``STREAM_MODELS``) served and trained (B = 32) as 13b/13c
-   (``STREAM_DEPTH``), every BPTT launch on the streamed kernels;
-   17d. both kernels at ``STREAM_TIMED`` in turns with ``"wide"`` and the
-   twin, beside the bound and cuDNN's bf16 layer (events, device time).
+   (``STREAM_DEPTH``), every forward and BPTT launch on the streamed kernels;
+   17d. the four kernels at ``STREAM_TIMED`` in turns with ``"wide"`` and
+   the twin, beside the bound and cuDNN's bf16 layer (events, device time).
 
 With ``--f32-times`` the script builds, then only times f32 and exits:
 15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
@@ -321,7 +324,8 @@ beside the route ``fwd_route`` / ``bwd_route`` takes there; and the GRU
 forward at ``F32_WIDE_FWD``'s width, ``"wide"`` against ``"wide_f32"`` in
 turns at B = 1–4. With ``--bf16-wide-times`` it builds, then times the
 streamed bf16 BPTTs against ``"wide"`` in turns at each width of
-``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, then 17d; with
+``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, the streamed forwards
+likewise at B of ``BF16_WIDE_FWD_BATCHES``, then 17d; with
 ``--first-port-times`` it times the kernels still in their first port
 (``FIRST_PORT_ROWS``) beside the bound and cuDNN's layer. These print no
 kernel line and no device record.
@@ -427,7 +431,7 @@ MODELS = {
     "cnn_blstm_768_f32": dict(generator="cnn_blstm", blstm_size=768, compute_dtype="float32"),
     "bgru_768_f32": dict(generator="bgru", blstm_size=768, compute_dtype="float32"),
     # phase 17: config 3 and the BGRU at blstm_size=2048 (H = 1024 a
-    # direction) in bf16: the forwards on "wide", the BPTTs on the streamed
+    # direction) in bf16: the forwards and the BPTTs on the streamed
     # tensor-core cluster kernels ("wide_mma_stream")
     "cnn_blstm_2048": dict(generator="cnn_blstm", blstm_size=2048),
     "bgru_2048": dict(generator="bgru", blstm_size=2048),
@@ -676,13 +680,16 @@ FEW_TRAIN_B = 8
 FEW_DEPTH = (1, 1, 3)
 FEW_EDGES = {"lstm": [(33, 1, 288), (33, 3, 384), (33, 5, 416), (33, 7, 264)],
              "gru": [(33, 1, 352), (33, 3, 384), (33, 5, 512), (33, 7, 480)]}
-# phase 17: the bf16 BPTT past the widths whose W_hᵀ slice fits a block
-# beside its tiles (route "wide_mma_stream", csrc/{bilstm,bigru}_bwd_wide_mma_stream.cu):
-# the shapes both kernels are held on (the models' H = 1024 at the generator
-# update and the fakes pass, the route's first widths, a padded width, its
-# widest), the autograd pair's, the models (served, one step checked, steps
-# timed at STREAM_DEPTH) and the timed shapes; python3 chip_smoke.py
-# --bf16-wide-times times it against "wide" at each width and B below
+# phase 17: the bf16 layers past the widths whose W_hᵀ slice fits a block
+# beside its tiles (route "wide_mma_stream",
+# csrc/{bilstm,bigru}_{fwd,bwd}_wide_mma_stream.cu): the shapes the four
+# kernels are held on (the models' H = 1024 at the generator update and the
+# fakes pass, the route's first widths, a padded width, its widest), the
+# autograd pair's, the models (served, one step checked, steps timed at
+# STREAM_DEPTH) and the timed shapes; python3 chip_smoke.py --bf16-wide-times
+# times them against "wide" at each width and B below (the forwards also at
+# the few rows where "wide" holds its whole slice on chip, and the rows up to
+# the next tile of 8 past them, where mma_layout.BF16_WIDE_FWD stops)
 STREAM_SHAPES = {"lstm": [(512, 32, 1024), (512, 160, 1024), (33, 9, 640), (40, 1, 1000),
                           (33, 9, 1536)],
                  "gru": [(512, 32, 1024), (512, 160, 1024), (33, 9, 704), (40, 1, 1000),
@@ -693,6 +700,16 @@ STREAM_DEPTH = (3, 1, 3)
 STREAM_TIMED = [(512, 8, 1024), (512, 32, 1024), (512, 160, 1024)]
 BF16_WIDE_WIDTHS = {"lstm": (640, 768, 1024, 1536), "gru": (704, 768, 1024, 1536, 1792)}
 BF16_WIDE_BATCHES = (1, 8, 32, 160)
+BF16_WIDE_FWD_BATCHES = (1, 2, 3, 4, 5, 6, 7, 8, 32, 160)
+# bytes of spill stores phase 17a allows a streamed kernel instantiation (by
+# its mangled name's kernel and template argument), 0 for any not listed:
+# the forwards whose four (LSTM) / three (GRU) pairs a warp fill the 128
+# registers with their accumulators, carries and gate operands, held to the
+# spill ptxas reported when their design was fixed, so that a larger one
+# fails (loading gx a pair at a time halved them but made a step slower;
+# fewer pairs a warp would take B = 160 in two waves; PERF.md)
+STREAM_SPILL_MAX = {"bilstm_fwd_wide_mma_stream_kernelILi4E": 160,
+                    "bigru_fwd_wide_mma_stream_kernelILi3E": 84}
 FEW_FORCED = {"lstm": [(33, 8, 384, 1), (33, 8, 384, 2), (33, 6, 416, 1)],
               "gru": [(33, 8, 512, 1), (33, 8, 512, 2), (33, 6, 384, 4)]}
 
@@ -3540,11 +3557,11 @@ def _wide_plans(dev, cell: str = "lstm") -> None:
               f"a unit group, K in {KSP} part(s)), {clusters} clusters at once ({waves} waves), "
               f"{1 + dbuf} h buffer(s), {smem} B shared memory")
     # registers and spills of every instantiation of the wide kernels: 0 spills
-    # on wide_mma and on the wide_f32 forwards
+    # on "wide_mma" and on the wide_f32 forwards ("wide_mma_stream"'s: phase 17a)
     for line in _ptxas_usage(BUILD_LOG):
         if f"{name}_bwd_wide" in line or f"{name}_fwd_wide" in line:
             print(f"[wide ptxas] {line}")
-            held = "wide_mma" in line or f"{name}_fwd_wide_f32" in line
+            held = "wide_mma_kernel" in line or f"{name}_fwd_wide_f32" in line
             if held and not line.split("spill ")[1].startswith("0/0 "):
                 raise AssertionError(f"a wide kernel instantiation spills: {line}")
 
@@ -4425,11 +4442,14 @@ def _f32_times(dev) -> int:
 
 # python3 chip_smoke.py --first-port-times: the kernels still in their first
 # port, by (cell, pass, dtype, route, shapes): the bf16 "wide" BPTT and
-# forward past the tensor-core widths, the f32 "wide" ones past H = 512, the
-# GRU's "wide" forward at F32_WIDE_FWD's width, the bf16 "simt" ones at an H
-# that is not a multiple of 16
+# forward past the tensor-core widths (at 640 / 704 and 1024 the kernels the
+# streamed ones replaced, at 2048 past the streamed widths: blstm_size=4096),
+# the f32 "wide" ones past H = 512, the GRU's "wide" forward at
+# F32_WIDE_FWD's width, the bf16 "simt" ones at an H that is not a multiple
+# of 16
 FIRST_PORT_ROWS = [
-    *((cell, what, torch.bfloat16, "wide", [(512, B, H) for H in (hs, 1024) for B in (8, 32, 160)])
+    *((cell, what, torch.bfloat16, "wide",
+       [(512, B, H) for H in (hs, 1024, 2048) for B in (8, 32, 160)])
       for cell, hs in (("lstm", 640), ("gru", 704)) for what in ("bwd", "fwd")),
     *((cell, what, torch.float32, "wide", [(512, B, H) for H in (768, 1024) for B in (8, 32, 160)])
       for cell in ("lstm", "gru") for what in ("bwd", "fwd")),
@@ -4510,12 +4530,13 @@ def _f32_wide_fwd_times(dev, widths=(336,), batches=(1, 2, 3, 4)) -> list:
 
 
 def _stream_plans(dev) -> None:
-    """Phase 17a's plans: the streamed BPTTs' launch plan at every width and
-    B of phase 17 and of ``--bf16-wide-times`` must be
-    ``ops/wide_mma_layout.py::stream_plan``'s at the clusters the card holds
-    (rows, chunks resident and streamed, waves, slot buffers, shared
-    memory); then ``ptxas``'s registers and spills of both kernels, which
-    must not spill."""
+    """Phase 17a's plans: the streamed BPTTs' and forwards' launch plans at
+    every width and B of phase 17 and of ``--bf16-wide-times`` must be
+    ``ops/wide_mma_layout.py::stream_plan``'s / ``stream_fwd_plan``'s at the
+    clusters the card holds (rows, pairs a compute warp, chunks resident and
+    streamed, waves, slot or h buffers, shared memory); then ``ptxas``'s
+    registers and spills of every instantiation of the four kernels: none
+    may spill more than ``STREAM_SPILL_MAX`` allows it (0 if not listed)."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
@@ -4526,7 +4547,7 @@ def _stream_plans(dev) -> None:
         widths = sorted({H for _, _, H in STREAM_SHAPES[cell] + STREAM_TIMED}
                         | set(BF16_WIDE_WIDTHS[cell]))
         batches = sorted({B for _, B, _ in STREAM_SHAPES[cell] + STREAM_TIMED}
-                         | set(BF16_WIDE_BATCHES))
+                         | set(BF16_WIDE_BATCHES) | set(BF16_WIDE_FWD_BATCHES))
         for H in widths:
             Hp = wm.padded(H)
             pm = wm.plan(Hp, gates)
@@ -4544,25 +4565,45 @@ def _stream_plans(dev) -> None:
                       f"({got.nstr * wm.tile_bytes(got.NC)} B a step a block), {got.clusters} "
                       f"clusters at once ({got.waves} waves), {1 + got.dbuf} buffer(s) of "
                       f"partials, {got.smem} B shared memory")
+                out = (ctypes.c_int * 11)()
+                _build.check(getattr(lib, f"percival_{name}_fwd_wide_mma_stream_plan")(
+                    B, Hp, pm.Hb, pm.U, 0, out), f"the streamed forward plan at B={B} H={Hp}")
+                got = wm.StreamFwdPlan(*out)
+                want = wm.stream_fwd_plan(B, Hp, gates, got.clusters)
+                if got != want:
+                    raise AssertionError(f"the {name} wide_mma_stream forward plan {got} is not "
+                                         f"{want}")
+                print(f"[stream plan] {name} fwd B={B} H={H} (run at {Hp}) bf16: {got.U} blocks of "
+                      f"{got.Hb} units, {got.R} rows a cluster, {got.PPW} pairs a compute warp, "
+                      f"{got.nres} chunks resident / {got.nstr} streamed "
+                      f"({got.nstr * wm.tile_bytes(got.NC)} B a step a block), {got.clusters} "
+                      f"clusters at once ({got.waves} waves), {1 + got.dbuf} h buffer(s), "
+                      f"{got.smem} B shared memory")
     lines = [line for line in _ptxas_usage(BUILD_LOG) if "wide_mma_stream" in line]
     for line in lines:
         print(f"[stream ptxas] {line}")
-        if not line.split("spill ")[1].startswith("0/0 "):
-            raise AssertionError(f"a streamed BPTT spills: {line}")
-    if len(lines) != 6:  # R = 8, 16, 24 for each cell
-        raise AssertionError(f"ptxas reported {len(lines)} streamed BPTT kernels, not 6")
+        stores = re.match(r"(\d+)/", line.split("spill ")[1])
+        limit = next((b for k, b in STREAM_SPILL_MAX.items() if k in line), 0)
+        if stores is None or int(stores.group(1)) > limit:
+            raise AssertionError(f"a streamed kernel instantiation spills past {limit} B: {line}")
+    # the BPTTs at R = 8, 16, 24 for each cell; the forwards at each pairs a
+    # compute warp (wide_mma_layout.STREAM_FWD_MAX_PPW)
+    want = 6 + sum(wm.STREAM_FWD_MAX_PPW.values())
+    if len(lines) != want:
+        raise AssertionError(f"ptxas reported {len(lines)} streamed kernels, not {want}")
 
 
 def _check_stream_kernels(dev) -> dict:
-    """Phase 17a/17b: each streamed BPTT (``bwd_route``'s ``"wide_mma_stream"``,
-    counted) against its twin at ``STREAM_SHAPES`` within
-    ``KERNEL_TOL[bf16]``·max(1, max|twin|), and the CUDA-core cluster kernel
-    it replaced (``"wide"``, launched directly) on the same inputs; then the
+    """Phase 17a/17b: each streamed BPTT and forward (``bwd_route``'s /
+    ``fwd_route``'s ``"wide_mma_stream"``, counted) against its twin at
+    ``STREAM_SHAPES`` within ``KERNEL_TOL[bf16]``·max(1, max|twin|) (the LSTM
+    forward with and without its cells), and the CUDA-core cluster kernel it
+    replaced (``"wide"``, launched directly) on the same inputs; then the
     autograd pair through ``bilstm_core`` / ``bigru_core`` at
-    ``STREAM_AUTOGRAD_SHAPE`` (one forward on ``"wide"``, one BPTT on
+    ``STREAM_AUTOGRAD_SHAPE`` (one forward and one BPTT on
     ``"wide_mma_stream"``) against the twins' gradients. Returns the largest
-    |kernel − twin| of each (``*_bwd_wide_mma_stream``, and ``*_earlier``
-    for ``"wide"``)."""
+    |kernel − twin| of each (``*_{fwd,bwd}_wide_mma_stream``, and
+    ``*_earlier`` for ``"wide"``)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
@@ -4571,8 +4612,9 @@ def _check_stream_kernels(dev) -> dict:
     for cell, name in (("lstm", "bilstm_bwd"), ("gru", "bigru_bwd")):
         gru = cell == "gru"
         m = gru_cuda if gru else lstm_cuda
-        key = f"{name}_wide_mma_stream"
-        err[key] = err[f"{key}_earlier"] = 0.0
+        fname = f"{name[:-4]}_fwd"
+        key, fkey = f"{name}_wide_mma_stream", f"{fname}_wide_mma_stream"
+        err[key] = err[f"{key}_earlier"] = err[fkey] = err[f"{fkey}_earlier"] = 0.0
         with torch.no_grad():
             for T, B, H in STREAM_SHAPES[cell]:
                 route = bwd_route(bf16, H, cell, B)
@@ -4589,6 +4631,23 @@ def _check_stream_kernels(dev) -> dict:
                 torch.cuda.synchronize()
                 err[f"{key}_earlier"] = max(err[f"{key}_earlier"], _compare(
                     f"[{name} wide, launched directly] {tag}", got, want, limit, relative=False))
+                # the forward on the same width and rows, with and without cells
+                route = fwd_route(bf16, H, cell, B)
+                if route != "wide_mma_stream":
+                    raise AssertionError(f"{fname} routes bf16 H={H} B={B} to {route!r}")
+                fargs = (_gru_gates if gru else _gates)(T, B, H, bf16, dev, seed=T + B)
+                for kw in ({},) if gru else ({"with_cells": True}, {"with_cells": False}):
+                    want = getattr(m, f"{fname}_reference")(*fargs, **kw)
+                    limit = tol * max(1.0, max(w.float().abs().max().item() for w in want))
+                    tag = f"T={T} B={B} H={H} bf16" + (f" cells={kw['with_cells']}" if kw else "")
+                    got = _launch_once(getattr(m, fname), *fargs, route=route, **kw)
+                    err[fkey] = max(err[fkey], _compare(f"[{fname} {route}] {tag}", got, want,
+                                                        limit, relative=False))
+                    got = m.fwd_launch("wide", *fargs, **kw)
+                    torch.cuda.synchronize()
+                    err[f"{fkey}_earlier"] = max(err[f"{fkey}_earlier"], _compare(
+                        f"[{fname} wide, launched directly] {tag}", got, want, limit,
+                        relative=False))
         # the autograd pair: forward kernel + BPTT kernel against the twins
         T, B, H = STREAM_AUTOGRAD_SHAPE
         core, ref = (m.bigru_core, m.bigru_core_reference) if gru else \
@@ -4617,48 +4676,56 @@ def _check_stream_kernels(dev) -> dict:
 
 
 def _time_stream_kernels(dev, shapes=None) -> dict:
-    """Phase 17d: each streamed BPTT at ``STREAM_TIMED`` in turns with the
-    CUDA-core cluster kernel it replaced (``"wide"``) and its twin (earlier,
-    routed, twin, routed, earlier; ``_in_turns``), both kernels also by
-    device time (``_device_ms``, 3 calls), beside the bound and the port's
-    layer backward and cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU`` bf16
-    backward by CUDA events and device time (``_layer_times``: medians of 2
-    × 3 calls)."""
+    """Phase 17d: each streamed BPTT and forward at ``STREAM_TIMED`` in turns
+    with the CUDA-core cluster kernel it replaced (``"wide"``) and its twin
+    (earlier, routed, twin, routed, earlier; ``_in_turns``), both kernels
+    also by device time (``_device_ms``, 3 calls), beside the bound and the
+    port's layer backward / forward and cuDNN's bidirectional ``nn.LSTM`` /
+    ``nn.GRU`` bf16 backward / forward by CUDA events and device time
+    (``_layer_times``: medians of 2 × 3 calls)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_mma_layout
-    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     dt = torch.bfloat16
     out = {}
-    for cell, name in (("lstm", "bilstm_bwd"), ("gru", "bigru_bwd")):
-        gru = cell == "gru"
+    for cell, name in (("lstm", "bilstm_bwd"), ("lstm", "bilstm_fwd"), ("gru", "bigru_bwd"),
+                       ("gru", "bigru_fwd")):
+        gru, fwd = cell == "gru", name.endswith("fwd")
         m = gru_cuda if gru else lstm_cuda
         cls = "nn.GRU" if gru else "nn.LSTM"
+        what = "forward" if fwd else "backward"
         rows = []
         for T, B, H in shapes or STREAM_TIMED:
-            route = bwd_route(dt, H, cell, B)
-            args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+            route = (fwd_route if fwd else bwd_route)(dt, H, cell, B)
+            if fwd:
+                args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
+            else:
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
             kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
+            earlier = m.fwd_launch if fwd else m.bwd_launch
             calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args),
-                     "earlier": lambda: m.bwd_launch("wide", *args)}
+                     "earlier": lambda: earlier("wide", *args)}
             with torch.no_grad():
                 times = _in_turns(calls, ("earlier", "kernel", "twin", "kernel", "earlier"))
                 kernel_device_ms = _device_ms(lambda: kern(*args), calls=3,
                                               match=f"{name}_{route}_kernel")
-                earlier_device_ms = _device_ms(lambda: m.bwd_launch("wide", *args), calls=3,
+                earlier_device_ms = _device_ms(lambda: earlier("wide", *args), calls=3,
                                                match=f"{name}_wide_kernel")
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(device=dev, dtype=dt)
             with _compact_weights():
                 lt = _layer_times(m.bigru if gru else m.bilstm, _library_layer(cell, ws, dt, dev),
-                                  x, [t for d in ws for t in d], False, runs=2, inner=3)
+                                  x, [t for d in ws for t in d], fwd, runs=2, inner=3)
             ms = times["kernel"]
             if lt["layer_device_ms"] is not None and lt["layer_device_ms"] < 0.5 * ms:
                 print(f"[time] {name} {route} T,B,H={(T, B, H)}: the layer's trace lost the "
                       f"kernel's events ({lt['layer_device_ms']:.4f} device ms): not a measurement")
                 lt["layer_device_ms"] = None
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
-            plan = lstm_cuda.stream_plan(name[:-4], B, wide_mma_layout.padded(H), dev.index or 0)
+            Hp = wide_mma_layout.padded(H)
+            plan = (lstm_cuda.stream_fwd_plan(name[:-4], B, Hp, 0, dev.index or 0) if fwd else
+                    lstm_cuda.stream_plan(name[:-4], B, Hp, dev.index or 0))
             row = {"shape": [T, B, H], "route": route, "ms": ms, "us_per_step": ms / T * 1e3,
                    "plain_ms": times["twin"], "earlier_ms": times["earlier"],
                    "kernel_device_ms": kernel_device_ms, "earlier_device_ms": earlier_device_ms,
@@ -4671,7 +4738,7 @@ def _time_stream_kernels(dev, shapes=None) -> dict:
                   f"{times['earlier']:.4f} ms, device {earlier_device_ms} ms, "
                   f"{times['earlier'] / ms:.2f}x (means of 2 medians, in turns); plain twin "
                   f"{times['twin']:.1f} ms (one call); bound {bound_ms:.5f} ms ({bound_by}, "
-                  f"{bound_ms / ms:.2%} of it); layer backward: port {lt['layer_ms']:.4f} ms, "
+                  f"{bound_ms / ms:.2%} of it); layer {what}: port {lt['layer_ms']:.4f} ms, "
                   f"cuDNN {cls}(hidden_size={H}, bidirectional=True) bf16 {lt['library_ms']:.4f} "
                   f"ms (medians, CUDA events); device time port {lt['layer_device_ms']} ms, cuDNN "
                   f"{lt['library_device_ms']} ms, cuDNN/port "
@@ -4682,38 +4749,49 @@ def _time_stream_kernels(dev, shapes=None) -> dict:
 
 def _bf16_wide_times(dev) -> int:
     """``python3 chip_smoke.py --bf16-wide-times``: after the build, the bf16
-    BPTT past the tensor-core widths: ``bwd_launch("wide", …)`` against
+    layers past the tensor-core widths: ``bwd_launch("wide", …)`` against
     ``bwd_launch("wide_mma_stream", …)`` on the same inputs in turns (wide,
     stream, stream, wide; medians of 5 calls, ``_in_turns``) at T = 512,
     each H of ``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, beside
     the streamed plan (rows, chunks resident, waves) and the route
     ``bwd_route`` takes there (``mma_layout.BF16_WIDE_BWD`` keeps ``"wide"``
-    where it measured faster); then phase 17d's rows
+    where it measured faster); the forwards likewise (``fwd_launch``,
+    ``fwd_route``, ``mma_layout.BF16_WIDE_FWD``) at each B of
+    ``BF16_WIDE_FWD_BATCHES``; then phase 17d's rows
     (``_time_stream_kernels``)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_mma_layout
-    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
     dt = torch.bfloat16
     for cell, name in (("lstm", "bilstm"), ("gru", "bigru")):
         gru = cell == "gru"
         m = gru_cuda if gru else lstm_cuda
-        for H in BF16_WIDE_WIDTHS[cell]:
-            for B in BF16_WIDE_BATCHES:
-                T = 512
-                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
-                plan = lstm_cuda.stream_plan(name, B, wide_mma_layout.padded(H), dev.index or 0)
-                with torch.no_grad():
-                    t = _in_turns({r: (lambda r=r: m.bwd_launch(r, *args))
-                                   for r in ("wide", "wide_mma_stream")},
-                                  ("wide", "wide_mma_stream", "wide_mma_stream", "wide"))
-                route = bwd_route(dt, H, cell, B)
-                print(f"[bf16 route] {cell} bwd T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms, "
-                      f"wide_mma_stream {t['wide_mma_stream']:.4f} ms "
-                      f"({t['wide_mma_stream'] / T * 1e3:.3f} us a step; R {plan.R}, {plan.nres} "
-                      f"of {plan.nres + plan.nstr} chunks resident, {plan.waves} waves), "
-                      f"{t['wide'] / t['wide_mma_stream']:.2f}x (means of 2 medians, in turns); "
-                      f"bwd_route takes {route!r}"
-                      + ("" if t[route] <= min(t.values()) else " (the slower one)"))
+        for what, batches in (("bwd", BF16_WIDE_BATCHES), ("fwd", BF16_WIDE_FWD_BATCHES)):
+            fwd = what == "fwd"
+            launch = m.fwd_launch if fwd else m.bwd_launch
+            for H in BF16_WIDE_WIDTHS[cell]:
+                for B in batches:
+                    T = 512
+                    if fwd:
+                        args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
+                    else:
+                        args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
+                    Hp = wide_mma_layout.padded(H)
+                    plan = (lstm_cuda.stream_fwd_plan(name, B, Hp, 0, dev.index or 0) if fwd else
+                            lstm_cuda.stream_plan(name, B, Hp, dev.index or 0))
+                    with torch.no_grad():
+                        t = _in_turns({r: (lambda r=r: launch(r, *args))
+                                       for r in ("wide", "wide_mma_stream")},
+                                      ("wide", "wide_mma_stream", "wide_mma_stream", "wide"))
+                    route = (fwd_route if fwd else bwd_route)(dt, H, cell, B)
+                    print(f"[bf16 route] {cell} {what} T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms, "
+                          f"wide_mma_stream {t['wide_mma_stream']:.4f} ms "
+                          f"({t['wide_mma_stream'] / T * 1e3:.3f} us a step; R {plan.R}, "
+                          f"{plan.nres} of {plan.nres + plan.nstr} chunks resident, {plan.waves} "
+                          f"waves), {t['wide'] / t['wide_mma_stream']:.2f}x (means of 2 medians, "
+                          f"in turns); {what}_route takes {route!r}"
+                          + ("" if t[route] <= min(t.values()) else " (the slower one)"),
+                          flush=True)
     _time_stream_kernels(dev)
     return 0
 
@@ -4724,11 +4802,10 @@ def _model_route(kind: str, what: str) -> str:
     tensor-core cluster kernels (``"wide_mma"``) in bf16, and in f32 the f32
     cluster kernels (``"wide_f32"``) for both; at the default width in f32
     (``NARROW_MODELS``) the f32 narrow kernels (``"narrow_f32"``) for both;
-    at blstm_size=2048 in bf16 (``STREAM_MODELS``) the CUDA-core cluster
-    forward (``"wide"``) and the streamed tensor-core BPTT
-    (``"wide_mma_stream"``)."""
+    at blstm_size=2048 in bf16 (``STREAM_MODELS``) the streamed tensor-core
+    cluster kernels (``"wide_mma_stream"``) for both."""
     if kind in STREAM_MODELS:
-        return "wide" if what == "fwd" else "wide_mma_stream"
+        return "wide_mma_stream"
     if not _is_f32(kind):
         return "wide_mma"
     return "narrow_f32" if kind in NARROW_MODELS else "wide_f32"
@@ -4968,10 +5045,10 @@ def main(argv=None) -> int:
     for cell in ("lstm", "gru"):
         few_timed.update(_time_wide_f32(dev, cell, F32_WIDE_KEPT[cell], what=("bwd",)))
     t_phase17 = time.perf_counter()
-    # 17. the bf16 BPTT past the tensor-core widths ("wide_mma_stream"): its
-    # plans, both kernels against their twins and the autograd pairs, config 3
-    # and the BGRU at blstm_size=2048 served and trained through them, their
-    # times in turns with the "wide" kernels they replaced there
+    # 17. the bf16 layers past the tensor-core widths ("wide_mma_stream"): the
+    # plans, the four kernels against their twins and the autograd pairs,
+    # config 3 and the BGRU at blstm_size=2048 served and trained through them,
+    # their times in turns with the "wide" kernels they replaced there
     _stream_plans(dev)
     stream_err = _check_stream_kernels(dev)
     stream_runs = _cluster_models_path(dev, smi, STREAM_MODELS, depth=STREAM_DEPTH)
@@ -5108,7 +5185,8 @@ def main(argv=None) -> int:
     ):
         gru = name.startswith("bigru")
         checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
-        # phase 16's forwards run "wide_f32" too, phase 17's bf16 forwards "wide"
+        # phase 16's forwards run "wide_f32" too; phase 17's bf16 forwards ran
+        # "wide" until the streamed forwards replaced them (0 launches there)
         runs_w = {**runs_w, **few_runs, **stream_runs}
         # a BPTT's row of its chunked kernel (R > 4; at B = 8 the GRU's H = 512
         # takes the few-row kernels, listed below)
@@ -5201,12 +5279,15 @@ def main(argv=None) -> int:
         if not plans[name]["few"] or sum(by_path.values()) != plans[name]["few"]:
             raise AssertionError(f"{name}'s few-row kernels were launched no time on phase 16's "
                                  "paths, or also elsewhere")
-    # phase 17: the streamed tensor-core BPTTs ("wide_mma_stream",
+    # phase 17: the streamed tensor-core BPTTs and forwards ("wide_mma_stream",
     # csrc/wide_mma_stream.cuh), timed in turns with the "wide" kernels they
     # replaced at those widths
     for name, replaces in (("bilstm_bwd", "percivaltts_tpu/ops/lstm_pallas.py:321"),
-                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616")):
+                           ("bilstm_fwd", "percivaltts_tpu/ops/lstm_pallas.py:202"),
+                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616"),
+                           ("bigru_fwd", "percivaltts_tpu/ops/lstm_pallas.py:521")):
         gru = name.startswith("bigru")
+        what = "forward" if name.endswith("fwd") else "backward"
         first = stream_timed[name][0]
         route = "wide_mma_stream"
         by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
@@ -5227,7 +5308,7 @@ def main(argv=None) -> int:
             "library_ms": first["library_ms"],
             "library_device_ms": first["library_device_ms"],
             "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size={first['shape'][2]}, "
-                            "bidirectional=True) bf16 backward, beside the port layer's "
+                            f"bidirectional=True) bf16 {what}, beside the port layer's "
                             "(layer_ms, layer_device_ms)",
             "layer_ms": first["layer_ms"],
             "layer_device_ms": first["layer_device_ms"],

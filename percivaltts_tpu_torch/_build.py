@@ -155,10 +155,13 @@ def library() -> ctypes.CDLL:
     for fn in (lib.percival_bilstm_fwd_wide_f32, lib.percival_bigru_fwd_wide_f32):
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
         fn.restype = i
-    for fn in (lib.percival_bilstm_fwd_wide_mma, lib.percival_bigru_fwd_wide_mma):
+    for fn in (lib.percival_bilstm_fwd_wide_mma, lib.percival_bigru_fwd_wide_mma,
+               lib.percival_bilstm_fwd_wide_mma_stream, lib.percival_bigru_fwd_wide_mma_stream):
         fn.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
         fn.restype = i
-    for plan in (lib.percival_bilstm_fwd_wide_mma_plan, lib.percival_bigru_fwd_wide_mma_plan):
+    for plan in (lib.percival_bilstm_fwd_wide_mma_plan, lib.percival_bigru_fwd_wide_mma_plan,
+                 lib.percival_bilstm_fwd_wide_mma_stream_plan,
+                 lib.percival_bigru_fwd_wide_mma_stream_plan):
         plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         plan.restype = i
     for plan in (lib.percival_bilstm_fwd_wide_plan, lib.percival_bilstm_bwd_wide_plan,

@@ -1,25 +1,28 @@
-// The streamed tensor-core cluster BPTTs (route "wide_mma_stream":
-// bilstm_bwd_wide_mma_stream.cu, bigru_bwd_wide_mma_stream.cu): the launch
-// plan, the shared-memory layout, the TMA ring that streams a block's W_hᵀ
-// slice from L2, and the two products of a step on one chunk of it.
+// The streamed tensor-core cluster kernels (route "wide_mma_stream"): the
+// BPTTs (bilstm_bwd_wide_mma_stream.cu, bigru_bwd_wide_mma_stream.cu) and the
+// forwards (bilstm_fwd_wide_mma_stream.cu, bigru_fwd_wide_mma_stream.cu):
+// their launch plans, their shared-memory layouts, the TMA ring that streams
+// a block's W_hᵀ slice from L2, and the products of a step on one chunk of it.
 //
 // The split and the numbers are those of "wide_mma" (wide_mma_common.cuh,
 // ops/wide_mma_layout.py::plan): a cluster of U <= 16 blocks a direction and
 // tile of R batch rows, block b owning units b·Hb … b·Hb + Hb − 1 with all of
-// their gates, NC = gates·Hb packed W_hᵀ rows a block, both products on
-// mma.sync m16n8k16 with f32 accumulators, the dh partials reduce-scattered
-// into their owners' slots through distributed shared memory and added in
-// block order. What differs is where the slice lives: past H = 608 (LSTM) /
-// 672 (GRU) it no longer fits beside the tiles, so its K = H is cut into
-// chunks of 64 k (NC × 64 bf16, 128 bytes a packed row; packed chunk-major by
-// ops/wide_mma_layout.py::pack_wh_stream). The last nres chunks stay resident
-// for the whole sequence; the first nstr = chunks − nres are streamed every
-// step, in order, by one producer warp through a ring of kWsRing slots with
+// their gates, NC = gates·Hb packed W_hᵀ rows a block, the products on
+// mma.sync m16n8k16 with f32 accumulators; in the BPTT the dh partials
+// reduce-scattered into their owners' slots through distributed shared
+// memory and added in block order. What differs is where the slice lives:
+// past H = 608 (LSTM) / 672 (GRU) it no longer fits beside the tiles, so its
+// K = H is cut into chunks of 64 k (NC × 64 bf16, 128 bytes a packed row;
+// packed chunk-major by ops/wide_mma_layout.py::pack_wh_stream, one packing
+// for both passes). The last nres chunks stay resident for the whole
+// sequence; the first nstr = chunks − nres are streamed every step, in
+// order, by one producer warp through a ring of kWsRing slots with
 // cp.async.bulk (one TMA copy a chunk), each slot's arrival counted on its
-// "full" mbarrier and its release by the 15 compute warps on its "empty" one;
-// the ring wraps across steps and passes. Each chunk feeds both products of a
-// step (the next step's recompute over its 64 k, this step's dh of its 64
-// units), so W_h crosses L2 → SM once a step a cluster.
+// "full" mbarrier and its release by the compute warps on its "empty" one;
+// the ring wraps across steps and passes. In the BPTT each chunk feeds both
+// products of a step (the next step's recompute over its 64 k, this step's
+// dh of its 64 units); in the forward it feeds the step's one product over
+// its 64 k. Either way W_h crosses L2 → SM once a step a cluster.
 //
 // Within a chunk's packed row the eight 16-byte units are stored XOR-swizzled
 // (unit u of row p at u ^ (p % 8)), by the packing, so that the eight rows an
@@ -210,20 +213,17 @@ __device__ __forceinline__ void ws_compute_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kWsWarps) : "memory");
 }
 
-// The producer warp: every pass (the prologue's recompute, then one a step
-// but the last) walks the nstr streamed chunks of the block's slice (wp: its
-// (chunks, NC, 64) tiles) in order through the ring. It joins the compute
-// warps' cluster barriers (barrier.cluster counts every thread), each at a
-// point where the chunks the compute warps need before they arrive are in
-// flight, and runs ahead by the ring (as far as the slots the compute warps
-// release before they arrive).
-__device__ __forceinline__ void ws_produce(const __nv_bfloat16* __restrict__ wp,
-                                           __nv_bfloat16* s_ring, uint64_t* full,
-                                           uint64_t* empty, int NC, int nstr, int n_steps,
-                                           int dbuf, int lane) {
-  const int tile = NC * kWsChunk, bytes = (int)ws_tile_bytes(NC), total = n_steps * nstr;
+// The producer's issue of streamed chunks: chunk g of the sequence (chunk
+// g % nstr of a pass) into ring slot g % kWsRing once every compute warp has
+// released that slot's previous chunk (g − kWsRing), one TMA copy by lane 0.
+struct WsIssuer {
+  const __nv_bfloat16* wp;  // the block's (chunks, NC, 64) tiles
+  __nv_bfloat16* s_ring;
+  uint64_t *full, *empty;
+  int tile, bytes, nstr, total, lane;
   int g = 0;  // the next streamed chunk of the sequence
-  auto issue_upto = [&](int lim) {
+  // issue every chunk before min(lim, total)
+  __device__ __forceinline__ void upto(int lim) {
     for (lim = lim < total ? lim : total; g < lim; ++g) {
       const int slot = g % kWsRing, use = g / kWsRing;
       if (use > 0) ws_mbar_wait(&empty[slot], (use - 1) & 1);  // released by every compute warp
@@ -234,8 +234,29 @@ __device__ __forceinline__ void ws_produce(const __nv_bfloat16* __restrict__ wp,
       }
       __syncwarp();
     }
-  };
-  issue_upto(nstr + kWsRing);  // the prologue's pass, and the ring's worth of the next
+  }
+};
+
+__device__ __forceinline__ WsIssuer ws_issuer(const __nv_bfloat16* wp, __nv_bfloat16* s_ring,
+                                              uint64_t* full, uint64_t* empty, int NC,
+                                              int nstr, int n_passes, int lane) {
+  return WsIssuer{wp,   s_ring,           full, empty, NC * kWsChunk, (int)ws_tile_bytes(NC),
+                  nstr, n_passes * nstr, lane};
+}
+
+// The BPTT's producer warp: every pass (the prologue's recompute, then one a
+// step but the last) walks the nstr streamed chunks of the block's slice (wp:
+// its (chunks, NC, 64) tiles) in order through the ring. It joins the compute
+// warps' cluster barriers (barrier.cluster counts every thread), each at a
+// point where the chunks the compute warps need before they arrive are in
+// flight, and runs ahead by the ring (as far as the slots the compute warps
+// release before they arrive).
+__device__ __forceinline__ void ws_produce(const __nv_bfloat16* __restrict__ wp,
+                                           __nv_bfloat16* s_ring, uint64_t* full,
+                                           uint64_t* empty, int NC, int nstr, int n_steps,
+                                           int dbuf, int lane) {
+  WsIssuer issue = ws_issuer(wp, s_ring, full, empty, NC, nstr, n_steps, lane);
+  issue.upto(nstr + kWsRing);  // the prologue's pass, and the ring's worth of the next
   cluster_arrive();
   cluster_wait();
   for (int s = 0; s + 1 < n_steps; ++s) {
@@ -243,7 +264,7 @@ __device__ __forceinline__ void ws_produce(const __nv_bfloat16* __restrict__ wp,
       cluster_arrive();
       cluster_wait();
     }
-    issue_upto((s + 2) * nstr + kWsRing);  // step s's pass, and the ring's worth of the next
+    issue.upto((s + 2) * nstr + kWsRing);  // step s's pass, and the ring's worth of the next
     cluster_arrive();
     cluster_wait();
   }
@@ -349,6 +370,291 @@ __device__ __forceinline__ void ws_dh_chunk(cooperative_groups::cluster_group& c
         }
       }
     }
+  }
+}
+
+// ---- the forwards ------------------------------------------------------------
+//
+// The forward's step is one product, zᵀ (NC × R) = W_hᵀ slice · round(h)ᵀ,
+// over the same chunk tiles as the BPTT's recompute, then the gate math in
+// the registers the accumulators land in and the all-gather of bf16 round(h)
+// (bilstm_fwd_wide_mma.cu's structure). With no dz tile and no partial slots
+// a block holds more rows than the BPTT's: up to kWsfMaxRows. A compute warp
+// takes PPW consecutive (unit group, 8-row tile) pairs of the block in
+// unit-group-major order, so that its pairs share one unit group, or two
+// (PPW <= NT8: a warp's run crosses at most one group's end), and each A
+// fragment it reads from a chunk serves every pair of its group; B
+// fragments come from the h tile. With 15 compute warps the unit groups
+// (8 LSTM, 4 GRU at H = 1024) do not divide them: the pairs do.
+
+constexpr int kWsfMaxRows = 64;  // batch rows a cluster
+// pairs a compute warp at most (the kernels instantiated; more would leave
+// the accumulators, carries and gate operands short of 128 registers)
+__host__ __device__ constexpr int wsf_max_ppw(int gates) { return gates == 4 ? 4 : 3; }
+
+// (unit group, 8-row tile) pairs a compute warp: the fewest that 15 warps cover
+__host__ __device__ inline int wsf_ppw(int NUG, int NT8) {
+  return (NUG * NT8 + kWsWarps - 1) / kWsWarps;
+}
+
+struct WideStreamFwdPlan {
+  int U, Hb, NC;   // the split (ops/wide_mma_layout.py::plan)
+  int R;           // batch rows a cluster
+  int PPW;         // (unit group, 8-row tile) pairs a compute warp
+  int nres, nstr;  // chunks resident, chunks streamed every step
+  int clusters;    // clusters the card holds at once
+  int waves;       // ceil(2·ceil(B / R) / clusters)
+  int dbuf;        // 1: two h buffers (one cluster barrier a step)
+  int smem;        // dynamic shared memory a block, bytes
+};
+
+// Shared memory of a forward block: s_ring (kWsRing chunk tiles) | s_res
+// (nres chunk tiles) | bufs × s_h (R × WS bf16) | s_stage (15 warps × PPW
+// pairs × 8 rows × ugs units bf16: each warp's round(h), the exchange's
+// source) | the ring's full and empty mbarriers.
+__host__ __device__ inline size_t wsf_stage_bytes(int ugs, int ppw) {
+  return (size_t)kWsWarps * ppw * 8 * ugs * 2;
+}
+__host__ __device__ inline size_t wsf_smem(int H, int NC, int R, int nres, int bufs, int ugs,
+                                           int ppw) {
+  return (size_t)(kWsRing + nres) * ws_tile_bytes(NC) + (size_t)bufs * wm_h_bytes(H, R) +
+         wsf_stage_bytes(ugs, ppw) + 2 * kWsRing * 8;
+}
+
+// The forward's step estimate in picoseconds: a fixed part (the gate phase,
+// the exchange, the cluster barrier), a second cluster barrier where one h
+// buffer splits it, the streamed chunks' packed rows (128 bytes each from
+// L2) and the product's R·NC·H multiply-adds; fitted by least squares to 112
+// steps timed on an H100 SXM (H = 640–1792, R = 8–64, rings of 3–8 slots,
+// a row's term over the ring's depth: 1970 ps / 3 at the kWsRing slots the
+// kernels take; rms 1.4 µs; tools/fwd_step_breakdown.py --wide --stream
+// --sweep; ops/wide_mma_layout.py::stream_fwd_step_ps replays it, PERF.md).
+constexpr long long kWsfStepPs = 5329000, kWsfSyncPs = 1396000, kWsfRowPs = 657,
+                    kWsfMacPs = 1807;
+__host__ __device__ inline long long wsf_step_ps(int H, int NC, int R, int nstr, int dbuf) {
+  return kWsfStepPs + (dbuf ? 0 : kWsfSyncPs) + kWsfRowPs * nstr * NC +
+         kWsfMacPs * ((long long)R * NC * H / 1024);
+}
+
+// ugs: units a unit group (8 LSTM, 16 GRU). Rows R = 8, 16, … 64 whose pairs
+// fall at most wsf_max_ppw to a compute warp and whose block fits shared
+// memory with the ring, one h buffer and no resident chunk; at each, a
+// second h buffer where it fits (one cluster barrier a step, not two), then
+// as many chunks resident as the room holds (at most all but one: a deeper
+// ring streams more bytes a step and measured slower at every (H, B) timed,
+// fwd_step_breakdown.py --wide --stream --sweep, PERF.md); among them the
+// least waves × wsf_step_ps, then the smallest R (rows > 0: that R alone, a
+// measurement's override). kernel_for(PPW) → the kernel instantiated for
+// PPW pairs a warp.
+template <class KernelFor>
+cudaError_t wide_stream_fwd_plan(int B, int H, int Hb, int U, int gates, int ugs, int rows,
+                                 KernelFor kernel_for, WideStreamFwdPlan* plan) {
+  if (B < 1 || H < kWmK || H % kWmK || Hb < ugs || Hb % ugs || U < 1 || U > kWideMaxCluster ||
+      (U - 1) * Hb >= H || U * Hb < H || Hb / ugs > kWsWarps || rows < 0)
+    return cudaErrorInvalidValue;
+  const int NC = gates * Hb, NUG = Hb / ugs, nch = ws_chunks(H);
+  int optin = 0;
+  cudaError_t err = smem_optin_bytes(&optin);
+  if (err != cudaSuccess) return err;
+  WideStreamFwdPlan best{};
+  long long best_cost = 0;
+  bool found = false;
+  for (int R = 8; R <= kWsfMaxRows; R += 8) {
+    if (rows && R != rows) continue;
+    const int ppw = wsf_ppw(NUG, R / 8);
+    if (ppw > wsf_max_ppw(gates) || wsf_smem(H, NC, R, 0, 1, ugs, ppw) > (size_t)optin) continue;
+    const int dbuf = wsf_smem(H, NC, R, 0, 2, ugs, ppw) <= (size_t)optin;
+    const int room =
+        (int)(((size_t)optin - wsf_smem(H, NC, R, 0, 1 + dbuf, ugs, ppw)) / ws_tile_bytes(NC));
+    const int nres = room < nch - 1 ? room : nch - 1;
+    const size_t smem = wsf_smem(H, NC, R, nres, 1 + dbuf, ugs, ppw);
+    const void* kernel = kernel_for(ppw);
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    WideStreamFwdPlan p{U, Hb, NC, R, ppw, nres, nch - nres, 0, 0, dbuf, (int)smem};
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = ws_config(U, R, p.smem, B, attr);
+    err = cudaOccupancyMaxActiveClusters(&p.clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (p.clusters < 1) continue;
+    p.waves = (2 * ((B + R - 1) / R) + p.clusters - 1) / p.clusters;
+    const long long cost = p.waves * wsf_step_ps(H, NC, R, p.nstr, dbuf);
+    if (!found || cost < best_cost) best = p, best_cost = cost;
+    found = true;
+  }
+  if (!found) return cudaErrorInvalidConfiguration;
+  // the attribute of the last plan tried with that kernel stands: set the chosen one's
+  err = cudaFuncSetAttribute(kernel_for(best.PPW), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             best.smem);
+  if (err != cudaSuccess) return err;
+  *plan = best;
+  return cudaSuccess;
+}
+
+// The last kWsfCached forward plans by their arguments and the current card
+// (a plan's occupancy is the card's): a plan queries the occupancy of every
+// R it weighs (tens of µs of host time a launch). Each kernel file keeps its
+// own (a static of its anonymous namespace, so that no two libraries loaded
+// in one process share one); launches come from one host thread (the Python
+// wrapper's).
+constexpr int kWsfCached = 32;
+struct WsfPlanCache {
+  int key[kWsfCached][6];
+  WideStreamFwdPlan plan[kWsfCached];
+  int used = 0, next = 0;
+
+  // wide_stream_fwd_plan, or the cached plan of the same arguments with its
+  // kernel's attributes set again (another plan may have set them since)
+  template <class KernelFor>
+  cudaError_t get(int B, int H, int Hb, int U, int gates, int ugs, int rows,
+                  KernelFor kernel_for, WideStreamFwdPlan* out) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    const int k[6] = {device, B, H, Hb, U, rows};
+    for (int i = 0; i < used; ++i) {
+      bool same = true;
+      for (int j = 0; j < 6; ++j) same = same && key[i][j] == k[j];
+      if (!same) continue;
+      *out = plan[i];
+      const void* kernel = kernel_for(out->PPW);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out->smem);
+      if (err != cudaSuccess) return err;
+      return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    err = wide_stream_fwd_plan(B, H, Hb, U, gates, ugs, rows, kernel_for, out);
+    if (err != cudaSuccess) return err;
+    for (int j = 0; j < 6; ++j) key[next][j] = k[j];
+    plan[next] = *out;
+    next = (next + 1) % kWsfCached;
+    used = used < kWsfCached ? used + 1 : used;
+    return cudaSuccess;
+  }
+};
+
+template <class KernelFor>
+cudaError_t wide_stream_fwd_launch(const WideStreamFwdPlan& plan, int B, KernelFor kernel_for,
+                                   void** args, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = ws_config(plan.U, plan.R, plan.smem, B, attr);
+  cfg.stream = stream;
+  cudaError_t err = cudaLaunchKernelExC(&cfg, kernel_for(plan.PPW), args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+inline void wide_stream_fwd_plan_out(const WideStreamFwdPlan& p, int* out) {
+  const int v[11] = {p.U,    p.Hb,       p.NC,    p.R,    p.PPW, p.nres,
+                     p.nstr, p.clusters, p.waves, p.dbuf, p.smem};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+}
+
+// The forward's producer warp: step s's nstr streamed chunks in order
+// through the ring. The compute warps consume all of a step's chunks before
+// they reach its cluster barriers (one, or with one h buffer two), so before
+// joining them the producer issues the rest of step s and the ring's worth
+// of step s + 1, whose chunks do not depend on h: they stream while the gate
+// phase, the exchange and the barriers run.
+__device__ __forceinline__ void ws_produce_fwd(const __nv_bfloat16* __restrict__ wp,
+                                               __nv_bfloat16* s_ring, uint64_t* full,
+                                               uint64_t* empty, int NC, int nstr, int n_steps,
+                                               int dbuf, int lane) {
+  WsIssuer issue = ws_issuer(wp, s_ring, full, empty, NC, nstr, n_steps, lane);
+  issue.upto(kWsRing);  // step 0's first chunks
+  cluster_arrive();  // the prologue's barrier
+  cluster_wait();
+  for (int s = 0; s + 1 < n_steps; ++s) {
+    issue.upto((s + 1) * nstr + kWsRing);
+    if (!dbuf) {  // the compute warps arrive after the product, wait before the exchange
+      cluster_arrive();
+      cluster_wait();
+    }
+    cluster_arrive();  // h of step s + 1 landed
+    cluster_wait();
+  }
+  issue.upto(n_steps * nstr);  // the last step's
+}
+
+// One chunk of a forward's product for a compute warp: z[i] += the m16 tiles
+// of pair i's unit group (arow: the lane's ldmatrix row of tile 0 of the
+// warp's first group; pairs i >= na lie in the next group, gr packed rows
+// on) · round(h)ᵀ of pair i's 8-row tile (hb: the h buffer at the lane's row
+// and column ld_mat·8; pair i's tile t0 + i, or i − na past the group's end,
+// 8·WS rows apart) over the chunk's k-steps (ksteps: 4, or 2 for the last
+// chunk of an H ≡ 32 mod 64), in order, for pairs i < np; each A fragment
+// is read once for the pairs of its group. With one pair a warp the odd
+// k-steps go into zo (added to z after the last chunk: two chains of
+// dependent products, not one); up to two pairs, each pair's B fragments
+// of two k-steps come in one ldmatrix.x4 ahead of their products; from
+// three on, one ldmatrix.x2 a k-step just before them (the registers of
+// the accumulators leave no more).
+template <int MT, int PPW>
+__device__ __forceinline__ void wsf_product(float (&z)[PPW][MT][4], float (&zo)[PPW][MT][4],
+                                            const __nv_bfloat16* tile, const __nv_bfloat16* hb,
+                                            int WS, int np, int na, int t0, int k0, int ksteps,
+                                            int arow, int gr, int ld_row, int ld_mat) {
+  auto hrow = [&](int i) { return hb + (i < na ? t0 + i : i - na) * 8 * WS + k0; };
+  auto load_a = [&](uint32_t(&a)[MT][4], int i, int kk) {
+    const int ar = arow + (i == 0 ? 0 : gr);
+    const int u = 2 * kk + (ld_mat >> 1);  // the lane's 16-byte unit of the row
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+      ldmatrix_x4(tile + (ar + 16 * j) * kWsChunk + ((u ^ ld_row) << 3), a[j][0], a[j][1],
+                  a[j][2], a[j][3]);
+  };
+  if constexpr (PPW <= 2) {
+    for (int kp = 0; kp < ksteps; kp += 2) {
+      uint32_t b[PPW][4];  // k-steps kp (b[i][0..1]) and kp + 1 (b[i][2..3]) of pair i's tile
+#pragma unroll
+      for (int i = 0; i < PPW; ++i)
+        if (i < np) ldmatrix_x4(hrow(i) + kp * 16, b[i][0], b[i][1], b[i][2], b[i][3]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int i = 0; i < PPW; ++i) {
+          if (i >= np) break;
+          if (i == 0 || i == na) load_a(a, i, kp + h);  // warp-uniform
+          const uint32_t bb[2] = {b[i][2 * h], b[i][2 * h + 1]};
+#pragma unroll
+          for (int j = 0; j < MT; ++j) mma_bf16_16816(PPW == 1 && h ? zo[i][j] : z[i][j], a[j], bb);
+        }
+      }
+    }
+  } else {
+    for (int kk = 0; kk < ksteps; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < PPW; ++i) {
+        if (i >= np) break;
+        if (i == 0 || i == na) load_a(a, i, kk);  // warp-uniform
+        uint32_t bb[2];
+        ldmatrix_x2(hrow(i) + kk * 16, bb[0], bb[1]);  // lanes 0–15's addresses: k 0–7, 8–15
+#pragma unroll
+        for (int j = 0; j < MT; ++j) mma_bf16_16816(z[i][j], a[j], bb);
+      }
+    }
+  }
+}
+
+// Hint the lines of the next step's gate operands into L2 (the kernels whose
+// warps hold three or more pairs load them at the gate phase: their
+// registers hold no prefetch)
+__device__ __forceinline__ void wsf_prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// z += zo where one pair a warp split its k-steps (wsf_product), in that order
+template <int MT, int PPW>
+__device__ __forceinline__ void wsf_join(float (&z)[PPW][MT][4], const float (&zo)[PPW][MT][4]) {
+  if constexpr (PPW == 1) {
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) z[0][j][k] += zo[0][j][k];
   }
 }
 

@@ -18,11 +18,14 @@ outputs ``y`` (so in the compute dtype), and rounds d(gates) and
 ``bigru_fwd`` and ``bigru_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take ``bigru_fwd_reference``
 / ``bigru_bwd_reference``. There is no other fallback. On CUDA the forward
-has six routes, chosen before the launch from dtype and width
+has seven routes, chosen before the launch from dtype and width
 (``ops/mma_layout.py::fwd_route``): bf16 with H a multiple of 16 up to 128
 launches the tensor-core kernel ``csrc/bigru_fwd_mma.cu``; bf16 past
 H = 128 up to 672 the tensor-core cluster kernel
-``csrc/bigru_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``); f32 past
+``csrc/bigru_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``); bf16 past
+H = 672 up to 1792 the streamed tensor-core cluster kernel
+``csrc/bigru_fwd_wide_mma_stream.cu`` (``"wide_mma_stream"``,
+``lstm_cuda.stream_fwd_plan``); f32 past
 H = 320 (which one block a direction cannot hold) up to 512 the f32 cluster
 kernel ``csrc/bigru_fwd_wide_f32.cu`` (``"wide_f32"``,
 ``ops/wide_f32_layout.py``); f32 past 512 and wider bf16 the CUDA-core
@@ -31,13 +34,12 @@ cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to
 ``csrc/bigru_fwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``); everything else ``csrc/bigru_fwd.cu``. The
 BPTT takes the same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
-``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide_f32.cu``,
-``csrc/bigru_bwd_narrow_f32.cu``, ``csrc/bigru_bwd_wide.cu`` or
-``csrc/bigru_bwd.cu``; at B <= 8 the ``"wide_f32"`` launcher takes its
-few-row kernels (``csrc/wide_f32_few.cuh``, ``lstm_cuda.wide_f32_plan``);
-but bf16 past H = 672 up to 1792, where the forward runs ``"wide"``, the
-BPTT takes ``csrc/bigru_bwd_wide_mma_stream.cu`` (``"wide_mma_stream"``,
-``lstm_cuda.stream_plan``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"``,
+``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide_mma_stream.cu``
+(``lstm_cuda.stream_plan``; both passes read one packing),
+``csrc/bigru_bwd_wide_f32.cu``, ``csrc/bigru_bwd_narrow_f32.cu``,
+``csrc/bigru_bwd_wide.cu`` or ``csrc/bigru_bwd.cu``; at B <= 8 the
+``"wide_f32"`` launcher takes its few-row kernels (``csrc/wide_f32_few.cuh``,
+``lstm_cuda.wide_f32_plan``). ``csrc/bigru_bwd.cu``, the ``"wide_mma"``,
 ``"wide_mma_stream"`` and ``"wide_f32"`` kernels take H a multiple of 32, the ``"narrow_f32"`` kernels
 of 8: other widths are zero-padded to one (``ops/lstm_cuda.py::at_width``),
 which changes no real unit. The launchers refuse a route they do not take
@@ -198,14 +200,16 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
                blocks: int = 0, resident: int = -1):
     """Launch the forward kernel of ``route`` (one of
     ``lstm_cuda.FWD_ROUTES``: ``"mma"``, ``"simt"``, ``"wide_mma"``,
-    ``"wide"``, ``"wide_f32"`` or ``"narrow_f32"``; any other raises
-    ``ValueError`` before
+    ``"wide_mma_stream"``, ``"wide"``, ``"wide_f32"`` or ``"narrow_f32"``;
+    any other raises ``ValueError`` before
     anything is built or launched) on CUDA inputs that :func:`bigru_fwd` has
     checked; counts nothing. ``bigru_fwd`` is the entry; ``chip_smoke.py``
     times one route's kernel beside another's through this. ``"wide_mma"``
     (bf16 only, H up to ``wide_mma_layout.max_h(3)``) runs H that is not a
     multiple of 32 zero-padded to one (``lstm_cuda.at_width``), at ``rows``
-    rows a cluster when given (0: the plan's choice); ``"narrow_f32"`` (f32
+    rows a cluster when given (0: the plan's choice), and so does
+    ``"wide_mma_stream"`` (bf16 only, H up to
+    ``wide_mma_layout.stream_max_h(3)``); ``"narrow_f32"`` (f32
     only, H up to 320) H that is not a multiple of 8, with
     ``lstm_cuda.fwd_launch``'s overrides ``blocks``, ``rows`` and
     ``resident``; ``"wide_f32"`` (f32 only, H up to
@@ -218,10 +222,14 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 3
-    granule = {"wide_mma": wide_mma_layout.K_GRANULE, "wide_f32": wide_f32_layout.K_GRANULE,
+    granule = {"wide_mma": wide_mma_layout.K_GRANULE,
+               "wide_mma_stream": wide_mma_layout.K_GRANULE,
+               "wide_f32": wide_f32_layout.K_GRANULE,
                "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 3)
+    if route == "wide_mma_stream":
+        _wide_mma_stream_check(gx_f.dtype, H, 3, "forward")
     if route == "wide_f32":
         _wide_f32_check(gx_f.dtype, H, 3, "forward")
     if route == "narrow_f32":
@@ -248,6 +256,14 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
             ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
                    wide_mma_layout.pack_wh(wh_b, p), bn_f, bn_b)  # held (see above)
             err = lib.percival_bigru_fwd_wide_mma(
+                *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(),
+                T, B, H, p.Hb, p.U, rows, stream,
+            )
+        elif route == "wide_mma_stream":
+            packed, p = stream_args(wh_f, wh_b, 3)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (aligned16(gx_f), aligned16(gx_b), *packed, bn_f, bn_b)  # held (see above)
+            err = lib.percival_bigru_fwd_wide_mma_stream(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(),
                 T, B, H, p.Hb, p.U, rows, stream,
             )
@@ -332,8 +348,9 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
-    past 128 up to 672, the f32 cluster one for f32 past 320 up to 512, the
-    CUDA-core cluster one past those (f32: 512, bf16: 672), the f32 narrow
+    past 128 up to 672, the streamed tensor-core cluster one for bf16 past
+    672 up to 1792, the f32 cluster one for f32 past 320 up to 512, the
+    CUDA-core cluster one past those (f32: 512, bf16: 1792), the f32 narrow
     one for f32 up to 320, else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bigru_fwd_reference`. Raises on mixed devices, another dtype
@@ -351,8 +368,8 @@ def bigru_fwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b):
 
 
 bigru_fwd.launches = 0
-bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
-                    "narrow_f32": 0}
+bigru_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_mma_stream": 0,
+                    "wide_f32": 0, "narrow_f32": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b,

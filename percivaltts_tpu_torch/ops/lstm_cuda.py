@@ -11,12 +11,16 @@ rounded to it before it is stored and multiplied.
 ``bilstm_fwd`` and ``bilstm_bwd`` dispatch on where their tensors lie: CUDA
 tensors launch a kernel (or raise), CPU tensors take
 ``bilstm_fwd_reference`` / ``bilstm_bwd_reference``. There is no other
-fallback. On CUDA the forward has six routes, chosen before the launch
+fallback. On CUDA the forward has seven routes, chosen before the launch
 from dtype and width (``ops/mma_layout.py::fwd_route``): bf16 with H
 a multiple of 16 up to 128 launches the tensor-core kernel
 ``csrc/bilstm_fwd_mma.cu``; bf16 past H = 128 up to 608 the tensor-core
 cluster kernel ``csrc/bilstm_fwd_wide_mma.cu`` (``ops/wide_mma_layout.py``);
-f32 past H = 256 (which one block a direction cannot hold) up to 512 the
+bf16 past H = 608 up to 1536 the streamed tensor-core cluster kernel
+``csrc/bilstm_fwd_wide_mma_stream.cu`` (``"wide_mma_stream"``: the
+tensor-core split with the W_hᵀ slice streamed from L2 in chunks,
+``wide_mma_layout.pack_wh_stream``, :func:`stream_fwd_plan`); f32 past
+H = 256 (which one block a direction cannot hold) up to 512 the
 f32 cluster kernel ``csrc/bilstm_fwd_wide_f32.cu`` (``"wide_f32"``,
 ``ops/wide_f32_layout.py``); f32 past 512 and wider bf16 the CUDA-core
 cluster kernel ``csrc/bilstm_fwd_wide.cu`` (``ops/wide_layout.py``; H up
@@ -25,13 +29,11 @@ to 4096); f32 up to H = 256 the f32 cluster kernel
 ``ops/narrow_f32_layout.py``); everything else ``csrc/bilstm_fwd.cu``. The
 BPTT takes the same route (``bwd_route``):
 ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
-``csrc/bilstm_bwd_wide_f32.cu``, ``csrc/bilstm_bwd_narrow_f32.cu``,
-``csrc/bilstm_bwd_wide.cu`` or ``csrc/bilstm_bwd.cu``; at B <= 8 the
-``"wide_f32"`` launcher takes its few-row kernels (``csrc/wide_f32_few.cuh``,
-:func:`wide_f32_plan`); but bf16 past H = 608 up to 1536, where the forward
-runs ``"wide"``, the BPTT takes ``csrc/bilstm_bwd_wide_mma_stream.cu``
-(``"wide_mma_stream"``: the tensor-core split with the W_hᵀ slice streamed
-from L2 in chunks, ``wide_mma_layout.pack_wh_stream``, :func:`stream_plan`).
+``csrc/bilstm_bwd_wide_mma_stream.cu`` (:func:`stream_plan`; both passes
+read one packing), ``csrc/bilstm_bwd_wide_f32.cu``,
+``csrc/bilstm_bwd_narrow_f32.cu``, ``csrc/bilstm_bwd_wide.cu`` or
+``csrc/bilstm_bwd.cu``; at B <= 8 the ``"wide_f32"`` launcher takes its
+few-row kernels (``csrc/wide_f32_few.cuh``, :func:`wide_f32_plan`).
 ``csrc/bilstm_bwd.cu`` and the ``"narrow_f32"`` kernels take H a multiple of
 8, the ``"wide_mma"``, ``"wide_mma_stream"`` and ``"wide_f32"`` kernels of
 32: other widths are
@@ -58,11 +60,10 @@ from percivaltts_tpu_torch.ops import narrow_f32_layout, wide_f32_layout, wide_l
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the routes the launchers take (ops/mma_layout.py::fwd_route / bwd_route)
-FWD_ROUTES = ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
-# the BPTT's also "wide_mma_stream": bf16 past the forward's "wide_mma" widths,
-# where the forward runs "wide" (bwd_route is not fwd_route there)
-BWD_ROUTES = ("mma", "simt", "wide_mma", "wide_mma_stream", "wide", "wide_f32", "narrow_f32")
+# the routes the launchers take (ops/mma_layout.py::fwd_route / bwd_route):
+# the same for both passes
+FWD_ROUTES = ("mma", "simt", "wide_mma", "wide_mma_stream", "wide", "wide_f32", "narrow_f32")
+BWD_ROUTES = FWD_ROUTES
 _ROWS = (1, 2, 4, 8)  # batch rows per block the kernels are instantiated for
 # the CUDA-core BPTT's dz·W_hᵀ reduction runs on whole warps of its 4H
 # threads: H a multiple of 8, other widths zero-padded to one
@@ -253,18 +254,22 @@ def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
                          f"H <= {wide_mma_layout.max_h(gates)}, got H={H}")
 
 
-def _wide_mma_stream_check(dtype: torch.dtype, H: int, gates: int) -> None:
-    """Raise unless the streamed tensor-core cluster BPTTs take ``dtype`` and ``H``."""
+def _wide_mma_stream_check(dtype: torch.dtype, H: int, gates: int, what: str = "BPTT") -> None:
+    """Raise unless the streamed tensor-core cluster kernels (``what``:
+    ``"BPTT"`` or ``"forward"``) take ``dtype`` and ``H``: bf16 up to
+    ``wide_mma_layout.stream_max_h``, the widths of the streamed BPTT, for
+    both passes (one rule)."""
     if dtype != torch.bfloat16:
-        raise TypeError(f"the streamed tensor-core wide BPTTs take bfloat16, got {dtype}")
+        raise TypeError(f"the streamed tensor-core wide {what}s take bfloat16, got {dtype}")
     if not wide_mma_layout.stream_fits(H, gates):
-        raise ValueError(f"the streamed tensor-core wide {wide_mma_layout.CELLS[gates]} BPTTs "
+        raise ValueError(f"the streamed tensor-core wide {wide_mma_layout.CELLS[gates]} {what}s "
                          f"take H <= {wide_mma_layout.stream_max_h(gates)}, got H={H}")
 
 
 def stream_args(wh_f, wh_b, gates: int) -> tuple:
     """Both directions' ``W_hᵀ`` packed per block and chunk for the streamed
-    BPTTs (``wide_mma_layout.pack_wh_stream``) and the split they share."""
+    kernels (``wide_mma_layout.pack_wh_stream``: the forward's and the
+    BPTT's, one packing) and the split they share."""
     p = wide_mma_layout.plan(wh_f.shape[0], gates)
     return (wide_mma_layout.pack_wh_stream(wh_f, p), wide_mma_layout.pack_wh_stream(wh_b, p)), p
 
@@ -364,6 +369,24 @@ def stream_plan(kind: str, B: int, H: int, device: int = 0) -> wide_mma_layout.S
     return wide_mma_layout.StreamPlan(*out)
 
 
+@functools.lru_cache(maxsize=None)
+def stream_fwd_plan(kind: str, B: int, H: int, rows: int = 0,
+                    device: int = 0) -> wide_mma_layout.StreamFwdPlan:
+    """The streamed forward's launch plan, ``percival_{kind}_fwd_wide_mma_stream_plan``,
+    for ``B`` rows at width ``H`` (a multiple of 32) on card ``device``
+    (``kind``: ``"bilstm"`` or ``"bigru"``; ``rows``: R forced, 0 the plan's
+    choice); raises when none fits."""
+    from percivaltts_tpu_torch import _build
+
+    p = wide_mma_layout.plan(H, 4 if kind == "bilstm" else 3)
+    out = (ctypes.c_int * 11)()
+    with torch.cuda.device(device):
+        fn = getattr(_build.library(), f"percival_{kind}_fwd_wide_mma_stream_plan")
+        _build.check(fn(B, H, p.Hb, p.U, rows, out),
+                     f"{kind} streamed forward plan at B={B} H={H} rows={rows}")
+    return wide_mma_layout.StreamFwdPlan(*out)
+
+
 def count_wide_f32(wrapper, kind: str, B: int, H: int, device: int) -> None:
     """Add a ``"wide_f32"`` BPTT launch of ``B`` rows at width ``H`` to
     ``wrapper.wide_f32_plans`` by the kernel its plan launches: ``"few"``
@@ -382,8 +405,8 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, rows: int = 0,
                blocks: int = 0, resident: int = -1):
     """Launch the forward kernel of ``route`` (one of ``FWD_ROUTES``:
-    ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"``, ``"wide_f32"`` or
-    ``"narrow_f32"``;
+    ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide_mma_stream"``, ``"wide"``,
+    ``"wide_f32"`` or ``"narrow_f32"``;
     any other raises ``ValueError`` before anything is built or launched)
     on CUDA inputs that :func:`bilstm_fwd` has checked; counts nothing.
     ``bilstm_fwd`` is the entry; ``chip_smoke.py`` times one route's kernel
@@ -391,7 +414,11 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
     ``wide_mma_layout.max_h(4)``, else ``ValueError``) runs H that is not a
     multiple of 32 zero-padded to one (:func:`at_width`), at ``rows`` rows a
     cluster when given (a measurement's override; 0: the plan's choice,
-    ``wide_mma_layout.fwd_rows``); ``"narrow_f32"`` (f32 only, H up to 256)
+    ``wide_mma_layout.fwd_rows``), and so does ``"wide_mma_stream"`` (bf16
+    only, H up to ``wide_mma_layout.stream_max_h(4)``, else ``ValueError``
+    naming it; 0: the plan's choice, ``wide_mma_layout.stream_fwd_plan``,
+    :func:`stream_fwd_plan`);
+    ``"narrow_f32"`` (f32 only, H up to 256)
     H that is not a multiple of 8, over at most ``blocks`` blocks a cluster,
     at ``rows`` rows and with W_h in registers (``resident=1``) or shared
     memory (0) when given (a measurement's overrides; 0 / -1: the plan's
@@ -405,10 +432,14 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
     device = gx_f.device
     T, B, G = gx_f.shape
     H = G // 4
-    granule = {"wide_mma": wide_mma_layout.K_GRANULE, "wide_f32": wide_f32_layout.K_GRANULE,
+    granule = {"wide_mma": wide_mma_layout.K_GRANULE,
+               "wide_mma_stream": wide_mma_layout.K_GRANULE,
+               "wide_f32": wide_f32_layout.K_GRANULE,
                "narrow_f32": narrow_f32_layout.K_GRANULE}.get(route)
     if route == "wide_mma":
         _wide_mma_check(gx_f.dtype, H, 4)
+    if route == "wide_mma_stream":
+        _wide_mma_stream_check(gx_f.dtype, H, 4, "forward")
     if route == "wide_f32":
         _wide_f32_check(gx_f.dtype, H, 4, "forward")
     if route == "narrow_f32":
@@ -438,6 +469,14 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
             ins = (aligned16(gx_f), aligned16(gx_b), wide_mma_layout.pack_wh(wh_f, p),
                    wide_mma_layout.pack_wh(wh_b, p))  # held (see above)
             err = lib.percival_bilstm_fwd_wide_mma(
+                *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
+                T, B, H, p.Hb, p.U, rows, stream,
+            )
+        elif route == "wide_mma_stream":
+            packed, p = stream_args(wh_f, wh_b, 4)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            ins = (aligned16(gx_f), aligned16(gx_b), *packed)  # held (see above)
+            err = lib.percival_bilstm_fwd_wide_mma_stream(
                 *(t.data_ptr() for t in ins), yf.data_ptr(), yb.data_ptr(), *cells,
                 T, B, H, p.Hb, p.U, rows, stream,
             )
@@ -522,8 +561,9 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
     CUDA tensors launch a hand-written kernel: the tensor-core one for bf16
     with H a multiple of 16 up to 128, the tensor-core cluster one for bf16
-    past 128 up to 608, the f32 cluster one for f32 past 256 up to 512, the
-    CUDA-core cluster one past those (f32: 512, bf16: 608), the f32 narrow
+    past 128 up to 608, the streamed tensor-core cluster one for bf16 past
+    608 up to 1536, the f32 cluster one for f32 past 256 up to 512, the
+    CUDA-core cluster one past those (f32: 512, bf16: 1536), the f32 narrow
     one for f32 up to 256, else the one-block CUDA-core one
     (:func:`~percivaltts_tpu_torch.ops.mma_layout.fwd_route`); CPU tensors
     run :func:`bilstm_fwd_reference`. Raises on mixed devices, another dtype
@@ -541,8 +581,8 @@ def bilstm_fwd(gx_f, gx_b, wh_f, wh_b, with_cells: bool = False):
 
 
 bilstm_fwd.launches = 0
-bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_f32": 0,
-                     "narrow_f32": 0}
+bilstm_fwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_mma_stream": 0,
+                     "wide_f32": 0, "narrow_f32": 0}
 
 
 def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b,

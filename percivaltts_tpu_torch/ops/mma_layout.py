@@ -23,8 +23,8 @@ The route covers bf16 with ``H`` a multiple of 16 (the MMA depth) up to 128
 kernels up to ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H``, and past it the
 cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
-cores (``ops/wide_layout.py``) but for the bf16 BPTT, which streams the
-slice from L2 into the tensor-core kernels up to H = 1536 / 1792
+cores (``ops/wide_layout.py``) but in bf16 up to H = 1536 / 1792, where both
+passes stream the slice from L2 into the tensor-core kernels
 (``"wide_mma_stream"``); f32 there takes its own cluster
 kernels up to H = 512 (``ops/wide_f32_layout.py``), and at the one-block
 widths both f32 passes take cluster kernels too, which hold W_h on chip for
@@ -87,6 +87,15 @@ F32_WIDE_FWD = {"lstm": (), "gru": ((336, 3),)}
 # points it timed (1.20x at H = 640, B = 4; 2.3–31.7x at H = 640–1792,
 # B = 1–160; python3 chip_smoke.py --bf16-wide-times, PERF.md)
 BF16_WIDE_BWD = {"lstm": ((640, 3),), "gru": ()}
+# where the bf16 forward keeps the CUDA-core cluster kernel ("wide") over the
+# streamed tensor-core one ("wide_mma_stream"), as BF16_WIDE_BWD. The card
+# measured "wide" faster only at the LSTM's H = 640 with B <= 6, where its
+# block holds the whole W_h slice (1.13–1.32x in turns), and the streamed
+# forward faster at the other 84 points it timed (1.11–7.38x at H =
+# 640–1792, B = 1–8, 32, 160; the LSTM at H = 640, B = 7: 1.67x, at
+# H = 768, B <= 8: 1.27–1.66x; python3 chip_smoke.py --bf16-wide-times,
+# PERF.md)
+BF16_WIDE_FWD = {"lstm": ((640, 6),), "gru": ()}
 
 
 def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
@@ -98,14 +107,18 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     (``csrc/bilstm_fwd_wide_mma.cu`` / ``csrc/bigru_fwd_wide_mma.cu``,
     tensor cores) for bf16 wherever a block's ``W_hᵀ`` slice and tiles fit
     its shared memory (``wide_mma_layout.fits``: H up to 608 for the LSTM,
-    672 for the GRU); ``"wide_f32"`` (``csrc/{bilstm,bigru}_fwd_wide_f32.cu``,
-    a block's f32 ``W_h`` slice held on chip, in shared memory and
-    registers) for f32 wherever ``wide_f32_layout.fits`` (H up to 512) and
-    ``F32_WIDE_FWD`` does not keep ``"wide"`` for so few rows ``B`` (without
-    ``B``, a large batch's route); else
-    ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` / ``csrc/bigru_fwd_wide.cu``,
-    CUDA cores: f32 past 512, and bf16 past those widths, whose slice leaves
-    shared memory for L2); up to the one-block widths f32 takes
+    672 for the GRU); past it ``"wide_mma_stream"``
+    (``csrc/{bilstm,bigru}_fwd_wide_mma_stream.cu``, tensor cores, the
+    slice streamed from L2 in chunks) up to ``wide_mma_layout.stream_max_h``
+    (1536 / 1792: where the streamed BPTT fits) unless ``BF16_WIDE_FWD``
+    keeps ``"wide"`` for so few rows ``B``; ``"wide_f32"``
+    (``csrc/{bilstm,bigru}_fwd_wide_f32.cu``, a block's f32 ``W_h`` slice
+    held on chip, in shared memory and registers) for f32 wherever
+    ``wide_f32_layout.fits`` (H up to 512) and ``F32_WIDE_FWD`` does not
+    keep ``"wide"`` for so few rows ``B`` (without ``B``, a large batch's
+    route); else ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` /
+    ``csrc/bigru_fwd_wide.cu``, CUDA cores: f32 past 512, bf16 past the
+    streamed widths); up to the one-block widths f32 takes
     ``"narrow_f32"`` (``csrc/{bilstm,bigru}_fwd_narrow_f32.cu``, a cluster
     a direction holding W_h on chip, ``narrow_f32_layout.fits``; the card
     measured it faster than ``"simt"`` at every width and batch it timed:
@@ -124,43 +137,36 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
         return "simt"
     if dtype == torch.bfloat16 and wide_mma_layout.fits(H, GATES[cell]):
         return "wide_mma"
+    if dtype == torch.bfloat16 and wide_mma_layout.stream_fits(H, GATES[cell]):
+        return "wide" if _kept(BF16_WIDE_FWD[cell], H, B) else "wide_mma_stream"
     if dtype == torch.float32 and wide_f32_layout.fits(H, GATES[cell]):
-        if B is not None and any(H <= h and B <= b for h, b in F32_WIDE_FWD[cell]):
-            return "wide"
-        return "wide_f32"
+        return "wide" if _kept(F32_WIDE_FWD[cell], H, B) else "wide_f32"
     return "wide"
 
 
+def _kept(table: tuple, H: int, B: int | None) -> bool:
+    """Whether a measured ``(h, b)`` table keeps ``"wide"`` at width ``H``
+    for ``B`` rows (``H <= h`` and ``B <= b`` for one of its rows; without
+    ``B``, a large batch: never)."""
+    return B is not None and any(H <= h and B <= b for h, b in table)
+
+
 def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = None) -> str:
-    """The BPTT kernel a CUDA call launches:
-    :func:`fwd_route`'s rule for a large batch, so ``"mma"``
-    (``csrc/bilstm_bwd_mma.cu`` / ``csrc/bigru_bwd_mma.cu``), ``"wide_mma"``
-    (``csrc/{bilstm,bigru}_bwd_wide_mma.cu``), ``"wide"``
-    (``csrc/{bilstm,bigru}_bwd_wide.cu``) or ``"simt"``
-    (``csrc/bilstm_bwd.cu`` / ``csrc/bigru_bwd.cu``); in f32 up to
-    ``LSTM_SIMT_MAX_H`` / ``GRU_SIMT_MAX_H`` ``"narrow_f32"``
-    (``csrc/{bilstm,bigru}_bwd_narrow_f32.cu``, ``narrow_f32_layout.fits``;
-    the card measured it faster than ``"simt"`` at every width and batch it
-    timed: H = 64–256 / 320, B = 1–160, ``python3 chip_smoke.py
-    --f32-times``, PERF.md), and past them ``"wide_f32"``
-    (``csrc/{bilstm,bigru}_bwd_wide_f32.cu``) wherever its plan fits
-    (``wide_f32_layout.fits``: H up to 512) at every batch: its launcher
-    takes the few-row kernels at B <= 8 (``csrc/wide_f32_few.cuh``), which
-    the card measured faster than ``"wide"`` at every width and B <= 8 it
-    timed (PERF.md). Where the bf16 forward goes ``"wide"`` (past
-    ``wide_mma_layout.max_h``: H = 608 LSTM, 672 GRU) the BPTT is not the
-    forward's: up to ``wide_mma_layout.stream_max_h`` (1536 LSTM, 1792 GRU)
-    it takes ``"wide_mma_stream"`` (``csrc/{bilstm,bigru}_bwd_wide_mma_stream.cu``:
-    ``"wide_mma"``'s split and products with the ``W_hᵀ`` slice streamed
-    from L2 in chunks, ``wide_mma_layout.stream_fits``) unless
-    ``BF16_WIDE_BWD`` keeps ``"wide"`` for so few rows ``B`` (without ``B``,
-    a large batch's route), and ``"wide"`` past it."""
-    route = fwd_route(dtype, H, cell)  # f32 "narrow_f32" and "wide_f32": the BPTT's too
-    if (route == "wide" and dtype == torch.bfloat16
-            and wide_mma_layout.stream_fits(H, GATES[cell])):
-        if B is not None and any(H <= h and B <= b for h, b in BF16_WIDE_BWD[cell]):
-            return "wide"
-        return "wide_mma_stream"
+    """The BPTT kernel a CUDA call launches: :func:`fwd_route`'s route for
+    a large batch (``"mma"``, ``"wide_mma"``, ``"wide_mma_stream"``,
+    ``"wide_f32"``, ``"narrow_f32"``, ``"wide"`` or ``"simt"``, the same
+    kernels' BPTTs: ``csrc/{bilstm,bigru}_bwd{,_mma,_wide_mma,
+    _wide_mma_stream,_wide_f32,_narrow_f32,_wide}.cu``), but ``"wide"``
+    where ``BF16_WIDE_BWD`` keeps it for so few rows ``B`` (the card
+    measured the CUDA-core BPTT faster there). In f32 the
+    ``"narrow_f32"`` BPTT was measured faster than ``"simt"`` at every width
+    and batch timed (H = 64–256 / 320, B = 1–160, ``python3 chip_smoke.py
+    --f32-times``, PERF.md); the ``"wide_f32"`` launcher takes its few-row
+    kernels at B <= 8 (``csrc/wide_f32_few.cuh``), measured faster than
+    ``"wide"`` at every width and B <= 8 timed (PERF.md)."""
+    route = fwd_route(dtype, H, cell)
+    if route == "wide_mma_stream" and _kept(BF16_WIDE_BWD[cell], H, B):
+        return "wide"
     return route
 
 

@@ -41,13 +41,12 @@ slice, ``h_prev`` tile, partial slots and ``dz`` tile must fit a block's
 shared memory (:func:`smem_bytes`, against ``SMEM_OPTIN``, the H100's
 227 KB): at 8 rows a cluster that holds up to H = 608 (LSTM) / 672 (GRU)
 (:func:`fits`, :func:`max_h`); the forward's block fits there too. Wider
-bf16 forwards stay on the CUDA-core cluster kernels of ``"wide"``; the
-BPTTs take the streamed kernels of ``"wide_mma_stream"`` up to
-:func:`stream_max_h` (the last part of this module: the same split and
-packed rows, the slice in chunks, :func:`stream_plan`,
-:func:`pack_wh_stream`); ``ops/mma_layout.py::fwd_route`` / ``bwd_route``
-hold the rule. The BPTT's launcher picks the rows a cluster :func:`rows`
-replays.
+bf16 layers take the streamed kernels of ``"wide_mma_stream"`` up to
+:func:`stream_max_h`, both passes (the last parts of this module: the same
+split and packed rows, the slice in chunks, :func:`pack_wh_stream`, the
+BPTT's :func:`stream_plan` and the forward's :func:`stream_fwd_plan`);
+``ops/mma_layout.py::fwd_route`` / ``bwd_route`` hold the rule. The
+BPTT's launcher picks the rows a cluster :func:`rows` replays.
 """
 
 from __future__ import annotations
@@ -407,7 +406,9 @@ def stream_fits(H: int, gates: int = 4) -> bool:
 @functools.cache
 def stream_max_h(gates: int = 4) -> int:
     """The widest H the streamed kernels take (1536 for the LSTM, 1792 for the
-    GRU): past it the BPTT stays on the CUDA-core cluster kernel ("wide")."""
+    GRU: where the BPTT's block fits; the forward's fits there too, and the
+    route takes it no further, one rule for both passes): past it both stay
+    on the CUDA-core cluster kernels ("wide")."""
     H = max_h(gates)
     while H + K_GRANULE <= MAX_H and stream_fits(H + K_GRANULE, gates):
         H += K_GRANULE
@@ -499,20 +500,25 @@ def _stream_tiles(ws: torch.Tensor, p: Plan, b: int) -> torch.Tensor:
     return ws[b].reshape(ws.shape[1], -1)[:, idx].view(ws.shape[1], p.NC, CHUNK)
 
 
-def replay_stream_recompute(h: torch.Tensor, ws: torch.Tensor, p: Plan) -> torch.Tensor:
+def replay_stream_recompute(h: torch.Tensor, ws: torch.Tensor, p: Plan,
+                            split: bool = False) -> torch.Tensor:
     """``h (R, H) · W_h`` → ``(R, gates·H)`` as the streamed kernels compute
     it from the chunk tiles of :func:`pack_wh_stream`: block ``b``'s m16
     tiles of packed rows against the 8-row tiles of ``h``, chunk by chunk and
-    within a chunk k-step by k-step, in order (``replay_recompute``'s sums)."""
+    within a chunk k-step by k-step, in order (``replay_recompute``'s sums);
+    ``split``: the even and the odd k-steps each summed in order apart, then
+    added (the forwards' order at one pair a warp, ``wsf_product``)."""
     R, H = h.shape
     cols = columns(H, p)
     z = h.new_zeros((R, (p.NC // p.Hb) * H))
     for b in range(p.U):
         tiles = _stream_tiles(ws, p, b)
-        acc = h.new_zeros((p.NC, R))
+        acc = [h.new_zeros((p.NC, R)), h.new_zeros((p.NC, R))]
         for kk in range(H // 16):
             c, kl = divmod(16 * kk, CHUNK)
-            acc = acc + tiles[c, :, kl:kl + 16] @ h[:, 16 * kk:16 * kk + 16].t()
+            part = kk % 2 if split else 0
+            acc[part] = acc[part] + tiles[c, :, kl:kl + 16] @ h[:, 16 * kk:16 * kk + 16].t()
+        acc = acc[0] + acc[1] if split else acc[0]
         ok = cols[b] >= 0
         z[:, cols[b][ok]] = acc[ok].t()
     return z
@@ -539,3 +545,152 @@ def replay_stream_dh(dz: torch.Tensor, ws: torch.Tensor, p: Plan) -> torch.Tenso
                     dz_b[:, 16 * kk:16 * kk + 16].t()
         dh = dh + part.t()
     return dh
+
+
+# ---- the streamed forwards (route "wide_mma_stream", the forward half) -----
+#
+# csrc/bilstm_fwd_wide_mma_stream.cu / csrc/bigru_fwd_wide_mma_stream.cu run
+# the recompute's product alone, zᵀ = W_hᵀ slice · round(h)ᵀ, on the same
+# chunk tiles (pack_wh_stream: one packing for both passes), chunk by chunk
+# in order (replay_stream_recompute's sums), then the gate math and the
+# all-gather of round(h) of "wide_mma"'s forwards. With no dz tile and no
+# partial slots a block holds up to STREAM_FWD_MAX_ROWS rows; its 15 compute
+# warps take the block's (unit group, 8-row tile) pairs PPW at a time in
+# unit-group-major order (stream_fwd_pairs).
+
+STREAM_FWD_MAX_ROWS = 64  # batch rows a cluster
+STREAM_FWD_MAX_PPW = {4: 4, 3: 3}  # pairs a compute warp at most (the kernels instantiated)
+# the forward's step estimate (ps; wide_mma_stream.cuh::wsf_step_ps): fixed, a
+# second cluster barrier with one h buffer, a streamed packed row of a chunk
+# (128 bytes from L2; the fit's 1970 ps over its ring's depth, at RING), and
+# R·NC·H / 1024 multiply-adds; fitted by least squares to the 112 steps that
+# fwd_step_breakdown.py --wide --stream --sweep timed on an H100 SXM (PERF.md)
+FWD_STEP_PS, FWD_SYNC_PS, FWD_ROW_PS, FWD_MAC_PS = 5_329_000, 1_396_000, 657, 1807
+
+
+class StreamFwdPlan(NamedTuple):
+    U: int  # blocks in a direction's cluster
+    Hb: int  # units a block
+    NC: int  # packed W_hᵀ rows a block
+    R: int  # batch rows a cluster, a multiple of 8
+    PPW: int  # (unit group, 8-row tile) pairs a compute warp
+    nres: int  # chunks resident in shared memory (the last ones)
+    nstr: int  # chunks streamed every step (the first ones)
+    clusters: int  # clusters the card holds at once
+    waves: int  # ceil(2·ceil(B / R) / clusters)
+    dbuf: int  # 1: two h buffers, one cluster barrier a step
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def stream_fwd_ppw(H: int, gates: int, R: int) -> int:
+    """Pairs a compute warp at ``R`` rows a cluster (``wsf_ppw``): the fewest
+    that the ``STREAM_WARPS − 1`` compute warps cover the block's
+    (unit group, 8-row tile) pairs with."""
+    nug = plan(H, gates).Hb // UNIT_GROUP[gates]
+    return -(-nug * (R // 8) // (STREAM_WARPS - 1))
+
+
+def stream_fwd_pairs(H: int, gates: int, R: int, warp: int) -> list:
+    """The ``(unit group, 8-row tile)`` pairs compute warp ``warp`` takes at
+    ``R`` rows a cluster: pairs ``PPW·warp …`` of the block's, unit-group-major."""
+    nug, nt8 = plan(H, gates).Hb // UNIT_GROUP[gates], R // 8
+    ppw = stream_fwd_ppw(H, gates, R)
+    return [divmod(q, nt8) for q in range(ppw * warp, min(ppw * (warp + 1), nug * nt8))]
+
+
+def stream_fwd_smem_bytes(H: int, gates: int, R: int, nres: int, bufs: int = 1) -> int:
+    """A streamed forward block's dynamic shared memory (``wsf_smem``): the
+    ring's ``RING`` chunk tiles and ``nres`` resident ones, ``bufs`` ``h``
+    tiles (R × (H + 8) bf16), the warps' staging tiles (15 warps × PPW pairs
+    × 8 rows × a unit group's units, bf16) and the ring's ``2·RING``
+    mbarriers."""
+    p = plan(H, gates)
+    stage = (STREAM_WARPS - 1) * stream_fwd_ppw(H, gates, R) * 8 * UNIT_GROUP[gates] * 2
+    return (RING + nres) * tile_bytes(p.NC) + bufs * _a16(R * (H + 8) * 2) + stage + 2 * RING * 8
+
+
+def stream_fwd_step_ps(H: int, NC: int, R: int, nstr: int, dbuf: int) -> int:
+    """The forward plan's step estimate in picoseconds (``wsf_step_ps``)."""
+    return (FWD_STEP_PS + (0 if dbuf else FWD_SYNC_PS) + FWD_ROW_PS * nstr * NC
+            + FWD_MAC_PS * (R * NC * H // 1024))
+
+
+def stream_fwd_plan(B: int, H: int, gates: int, clusters, rows: int = 0) -> StreamFwdPlan:
+    """The forward launcher's plan for ``B`` rows at width ``H`` (a multiple
+    of 32) when the card holds ``clusters`` clusters at once (an int, or a
+    function of the block's shared memory;
+    ``percival_*_fwd_wide_mma_stream_plan`` reports both): among R = 8 … 64
+    whose pairs fall at most ``STREAM_FWD_MAX_PPW`` to a compute warp and
+    that fit ``SMEM_OPTIN`` with the ring and one ``h`` buffer, a second
+    ``h`` buffer where it fits (one cluster barrier a step, not two), then
+    as many chunks resident as the room holds, at most all but one (a
+    deeper ring streams more bytes a step: it measured slower at every
+    (H, B) timed, ``fwd_step_breakdown.py --wide --stream --sweep``,
+    PERF.md); the least ``waves × stream_fwd_step_ps``, then the smallest
+    R. ``rows > 0`` takes that R alone (a measurement's override)."""
+    p = plan(H, gates)
+    nch = chunks(H)
+    best, best_cost = None, None
+    for R in range(8, STREAM_FWD_MAX_ROWS + 1, 8):
+        if rows and R != rows or p.Hb // UNIT_GROUP[gates] > STREAM_WARPS - 1:
+            continue
+        if (stream_fwd_ppw(H, gates, R) > STREAM_FWD_MAX_PPW[gates]
+                or stream_fwd_smem_bytes(H, gates, R, 0) > SMEM_OPTIN):
+            continue
+        dbuf = int(stream_fwd_smem_bytes(H, gates, R, 0, 2) <= SMEM_OPTIN)
+        room = (SMEM_OPTIN - stream_fwd_smem_bytes(H, gates, R, 0, 1 + dbuf)) // tile_bytes(p.NC)
+        nres = min(room, nch - 1)
+        smem = stream_fwd_smem_bytes(H, gates, R, nres, 1 + dbuf)
+        c = clusters(smem) if callable(clusters) else clusters
+        if c < 1:
+            continue
+        waves = -(-2 * -(-B // R) // c)
+        cost = waves * stream_fwd_step_ps(H, p.NC, R, nch - nres, dbuf)
+        if best is None or cost < best_cost:
+            best = StreamFwdPlan(*p, R, stream_fwd_ppw(H, gates, R), nres, nch - nres, c, waves,
+                                 dbuf, smem)
+            best_cost = cost
+    if best is None:
+        raise ValueError(f"no rows a cluster fit the streamed tensor-core wide {CELLS[gates]} "
+                         f"forward at H={H}")
+    return best
+
+
+def replay_stream_fwd(gx: torch.Tensor, ws: torch.Tensor, p: Plan, bn: torch.Tensor = None,
+                      reverse: bool = False, dtype: torch.dtype = torch.float32,
+                      split: bool = False):
+    """One direction's forward as the streamed kernels compute it: ``gx
+    (T, B, gates·H)`` (f32 values), the chunk tiles ``ws`` of
+    :func:`pack_wh_stream` and, for the GRU, ``b_hn (H,)`` → ``y`` (and the
+    LSTM's cells ``c``) ``(T, B, H)`` in f32, ``reverse`` walking t = T−1 … 0.
+    Each step's product is :func:`replay_stream_recompute` of ``round(h)``
+    (``dtype``'s rounding, none for f32; ``split``: the even and odd k-steps
+    apart, as a plan of one pair a compute warp sums them), the gate math
+    runs in f32 on ``gx +`` the product, the carries stay in f32, and ``y`` /
+    ``c`` are rounded to ``dtype`` as the kernels store them."""
+    T, B, G = gx.shape
+    gates = p.NC // p.Hb
+    H = G // gates
+    rnd = (lambda t: t) if dtype == torch.float32 else (lambda t: t.to(dtype).float())  # noqa: E731
+    h, c = gx.new_zeros((B, H)), gx.new_zeros((B, H))
+    ys, cs = [], []
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gh = replay_stream_recompute(rnd(h), ws, p, split)
+        if gates == 4:
+            z = gx[t] + gh
+            i, f = torch.sigmoid(z[:, :H]), torch.sigmoid(z[:, H:2 * H])
+            g, o = torch.tanh(z[:, 2 * H:3 * H]), torch.sigmoid(z[:, 3 * H:])
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            cs.append(rnd(c))
+        else:
+            r = torch.sigmoid(gx[t][:, :H] + gh[:, :H])
+            zg = torch.sigmoid(gx[t][:, H:2 * H] + gh[:, H:2 * H])
+            n = torch.tanh(gx[t][:, 2 * H:] + r * (gh[:, 2 * H:] + bn))
+            h = (1 - zg) * n + zg * h
+        ys.append(rnd(h))
+    if reverse:
+        ys.reverse()
+        cs.reverse()
+    y = torch.stack(ys)
+    return (y, torch.stack(cs)) if gates == 4 else y

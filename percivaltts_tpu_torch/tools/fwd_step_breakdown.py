@@ -5,6 +5,9 @@
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --simt --f32 [--route=simt | narrow_f32]
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --simt --f32 --grid
     python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --wide --f32 [--route=wide | wide_f32]
+    python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --wide --stream \
+        [--route=wide | wide_mma_stream]
+    python -m percivaltts_tpu_torch.tools.fwd_step_breakdown --wide --stream --sweep
 
 Builds variants of ``csrc/bilstm_fwd_mma.cu`` and ``csrc/bigru_fwd_mma.cu``
 with one part of the step removed or replaced (macros and edits applied to a
@@ -92,6 +95,28 @@ the sends nor the mbarriers, one cluster barrier before the blocks exit),
 no_prefetch, no_store,
 loop_only (no_product, no_gates, no_exchange, no_prefetch and no_store at
 once). ``--route=wide`` / ``--route=wide_f32`` times one route alone.
+
+With ``--wide --stream`` the bf16 cluster forwards past the widths whose
+``W_hᵀ`` slice fits a block, at (512, 8, 1024), (512, 32, 1024) and
+(512, 160, 1024) (``STREAM_SHAPES``): the CUDA-core ones
+(``csrc/{bilstm,bigru}_fwd_wide.cu``, route ``"wide"``, the edits of
+``--wide --f32`` at bf16) and the streamed tensor-core ones that replaced
+them (``csrc/{bilstm,bigru}_fwd_wide_mma_stream.cu``, route
+``"wide_mma_stream"``, with ``wide_mma_stream.cuh`` inlined), at the plan the
+variant's library gives (printed): full; no_product (the chunks' products
+removed, their ring hand-offs kept); no_gates; no_stream (each ring slot's
+mbarrier armed with no copy: the slots keep what they held and nothing
+crosses from L2); no_exchange (no DSMEM writes of h); no_cluster_sync (the
+step's cluster barriers replaced by the compute warps' own barrier, one
+cluster barrier before the blocks exit); loop_only (all of them at once).
+``--route=wide`` / ``--route=wide_mma_stream`` times one route alone.
+With ``--sweep`` it times the streamed forwards (``SWEEP``'s widths, H =
+640 / 704, 1024 and 1536 / 1792) as the port builds them at the plan's
+choice and at the rows a cluster forced (16, 24, 32 at B = 32; 40, 48, 56,
+64 at B = 160), and copies of them built with a deeper ring
+(``SWEEP_RINGS``: ``kWsRing`` of 4, 6 or 8 slots, the rest of the room
+resident) at B = 1, 8, 32, printing each plan beside its µs a step; the
+plan's step estimate is fitted to these.
 
 Times are medians of CUDA-event times over 20 launches (5 runs of 3 for the
 cluster kernels), without cells; the card's name and power limit are printed
@@ -676,6 +701,207 @@ def wide_f32_main(only: str = "") -> int:
     return 0
 
 
+STREAM_SHAPES = [(512, 8, 1024), (512, 32, 1024), (512, 160, 1024)]
+STREAM_VARIANTS = ("full", "no_product", "no_gates", "no_stream", "no_exchange", "no_cluster_sync",
+                   "loop_only")
+# {variant: [(text, replacement, count)]} on csrc/{bilstm,bigru}_fwd_wide_mma_stream.cu
+# with its headers inlined (the same text in both); "no_gates" defines σ and
+# tanh as the identity before the anonymous namespace; "loop_only" applies every one
+STREAM_EDITS = {
+    "no_product": [("        percival::wsf_product<",
+                    "        if (false) percival::wsf_product<", 1)],
+    "no_stream": [("        ws_mbar_expect_tx(&full[slot], bytes);\n"
+                   "        ws_bulk_load(s_ring + (size_t)slot * tile, wp + (size_t)(g % nstr) * "
+                   "tile, bytes,\n                     &full[slot]);\n",
+                   "        ws_mbar_arrive(&full[slot]);\n", 1)],
+    "no_exchange": [("        if (!last)\n          for (int dst = lane >> ",
+                     "        if (false)\n          for (int dst = lane >> ", 1)],
+    # (one cluster barrier before the blocks exit: none may leave while
+    # another still writes into its shared memory)
+    "no_cluster_sync": [
+        ("    if (!dbuf && !last) cluster_arrive();", "    (void)0;", 1),
+        ("    if (!dbuf && !last) cluster_wait();", "    (void)0;", 1),
+        ("    cluster_arrive();  // h of step s+1 landed in every block\n    cluster_wait();\n",
+         "    percival::ws_compute_sync();\n", 1),
+        ("    if (!dbuf) {  // the compute warps arrive after the product, wait before the "
+         "exchange", "    if (false) {", 1),
+        ("    cluster_arrive();  // h of step s + 1 landed\n    cluster_wait();\n", "", 1),
+        ("dbuf, lane);\n    return;", "dbuf, lane);\n    cluster.sync();\n    return;", 1),
+        ("  }\n}\n\nconst void* kernel_for", "  }\n  cluster.sync();\n}\n\nconst void* kernel_for",
+         1)],
+}
+
+
+def _inline_headers(src: str, seen=None) -> str:
+    """``src`` with each ``#include "x.cuh"`` of a header in ``csrc/``
+    replaced by the header's text, itself inlined, the first time it is
+    included and dropped after (as ``#pragma once``)."""
+    seen = set() if seen is None else seen
+
+    def one(m):
+        name = m.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        return _inline_headers((_build.CSRC / name).read_text().replace("#pragma once\n", ""), seen)
+    return re.sub(r'#include "(\w+\.cuh)"\n', one, src)
+
+
+def _stream_source(kind: str, name: str) -> str:
+    """``csrc/{kind}_fwd_wide_mma_stream.cu`` with its headers inlined and the
+    edits of variant ``name`` (every one, and no_gates, for ``loop_only``)."""
+    src = _inline_headers((_build.CSRC / f"{kind}_fwd_wide_mma_stream.cu").read_text())
+    parts = list(STREAM_EDITS) + ["no_gates"] if name == "loop_only" else [name]
+    if "no_gates" in parts:
+        head, sep, body = src.partition("\nnamespace {\n")
+        src = head + "\n" + IDENTITY + sep + body
+    for part in parts:
+        for old, new, count in STREAM_EDITS.get(part, []):
+            if src.count(old) != count:
+                raise AssertionError(f"{kind} wide_mma_stream {part}: {old!r} appears "
+                                     f"{src.count(old)} times")
+            src = src.replace(old, new)
+    return src
+
+
+def _ring_source(kind: str, name: str) -> str:
+    """The streamed forward of ``kind`` built with a ring of ``name`` (a
+    number of slots) in place of ``kWsRing``'s 3."""
+    old = "constexpr int kWsRing = 3;"
+    src = _stream_source(kind, "full")
+    if src.count(old) != 1:
+        raise AssertionError(f"{kind} wide_mma_stream: {old!r} appears {src.count(old)} times")
+    return src.replace(old, f"constexpr int kWsRing = {name};")
+
+
+def _build_stream_variants(only: str = "", sweep: bool = False) -> dict:
+    """The bf16 ``"wide"`` forwards' variants and the streamed ones:
+    {(kind, route, name): library} (``only``: one route's); with ``sweep``
+    the streamed ones at each ring depth of ``SWEEP_RINGS`` past 3 alone
+    (``name``: the depth)."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, libs = [], {}
+    routes = (("wide", WIDE_F32_VARIANTS, _old_wide_source),
+              ("wide_mma_stream", STREAM_VARIANTS, _stream_source))
+    if sweep:
+        routes = (("wide_mma_stream", [str(r) for r in SWEEP_RINGS if r != 3], _ring_source),)
+    for kind in ("bilstm", "bigru"):
+        for route, names, source in routes:
+            if only and route != only:
+                continue
+            for name in names:
+                cu = out_dir / f"{kind}_fwd_{route}_{name}.cu"
+                cu.write_text(source(kind, name))
+                so = out_dir / f"{kind}_fwd_{route}_{name}.so"
+                cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-shared",
+                             "-o", str(so), str(cu)])
+                libs[(kind, route, name)] = so
+    _build._run_all(cmds)
+    return libs
+
+
+def _stream_launcher(lib, kind: str, T: int, B: int, H: int, ins: dict, rows: int = 0):
+    """A function that launches one streamed forward variant on ``ins`` (no
+    cells), and the plan its library gives (``rows``: R forced, 0 the plan's
+    choice)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    split = wide_mma_layout.plan(H, 4 if kind == "bilstm" else 3)
+    plan_fn = getattr(lib, f"percival_{kind}_fwd_wide_mma_stream_plan")
+    plan_fn.argtypes, plan_fn.restype = [i] * 5 + [ctypes.POINTER(ctypes.c_int)], i
+    out = (ctypes.c_int * 11)()
+    if plan_fn(B, H, split.Hb, split.U, rows, out):
+        raise RuntimeError(f"{kind} wide_mma_stream forward: no plan at B={B} H={H} "
+                           f"rows={rows}")
+    plan = wide_mma_layout.StreamFwdPlan(*out)
+    wp = [wide_mma_layout.pack_wh_stream(w, split) for w in ins["wh"]]
+    ptrs = [t.data_ptr() for t in (*ins["gx"], *wp)]
+    ptrs += [t.data_ptr() for t in ins["bn"]] if kind == "bigru" else []
+    ptrs += [t.data_ptr() for t in ins["y"]] + ([None, None] if kind == "bilstm" else [])
+    fn = getattr(lib, f"percival_{kind}_fwd_wide_mma_stream")
+    fn.argtypes, fn.restype = [p] * 8 + [i] * 6 + [p], i
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*ptrs, T, B, H, split.Hb, split.U, rows, stream)
+        if err:
+            raise RuntimeError(f"{kind} wide_mma_stream forward: CUDA error {err}")
+    launch.keep = wp
+    return launch, plan
+
+
+def stream_main(only: str = "") -> int:
+    """The bf16 ``"wide"`` forwards' variants and the streamed ones at
+    ``STREAM_SHAPES`` (``only``: one route alone)."""
+    libs = _build_stream_variants(only)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kind, gates in (("bilstm", 4), ("bigru", 3)):
+        for T, B, H in STREAM_SHAPES:
+            ins = {k: [t.to(bf16) for t in v]
+                   for k, v in _f32_inputs(kind, T, B, H, dev, g).items()}
+            if only in ("", "wide"):
+                row = []
+                for name in WIDE_F32_VARIANTS:
+                    launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, "wide", name)])), kind,
+                                            "wide", T, B, H, ins)
+                    row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_fwd_wide T,B,H={(T, B, H)} bf16: us a step: "
+                      + ", ".join(row), flush=True)
+            if only in ("", "wide_mma_stream"):
+                row, plan = [], None
+                for name in STREAM_VARIANTS:
+                    launch, plan = _stream_launcher(
+                        ctypes.CDLL(str(libs[(kind, "wide_mma_stream", name)])), kind, T, B, H, ins)
+                    row.append(f"{name} {_time_ms(launch, launches=3) / T * 1e3:.3f}")
+                print(f"[breakdown] {kind}_fwd_wide_mma_stream T,B,H={(T, B, H)} bf16 (R {plan.R}, "
+                      f"{plan.PPW} pairs a warp, {plan.nres} resident / "
+                      f"{plan.nstr} streamed "
+                      f"chunks, {plan.waves} waves, {1 + plan.dbuf} h buffers): us a step: "
+                      + ", ".join(row), flush=True)
+    return 0
+
+
+SWEEP = {"bilstm": (640, 1024, 1536), "bigru": (704, 1024, 1792)}
+SWEEP_RINGS = (3, 4, 6, 8)
+SWEEP_ROWS = {32: (16, 24, 32), 160: (40, 48, 56, 64)}
+
+
+def sweep_main() -> int:
+    """The streamed forwards at ``SWEEP``'s widths: the kernel library's at
+    the plan's choice, then the deeper rings' and the library's at forced
+    rows a cluster (a forced R whose block does not fit prints ``-``)."""
+    lib = _build.library()
+    rings = {}
+    for (kind, _, name), so in _build_stream_variants(sweep=True).items():
+        rings.setdefault(int(name), {})[kind] = ctypes.CDLL(str(so))
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    T = 512
+    for kind, gates in (("bilstm", 4), ("bigru", 3)):
+        for H in SWEEP[kind]:
+            for B in (1, 8, 32, 160):
+                ins = {k: [t.to(bf16) for t in v]
+                       for k, v in _f32_inputs(kind, T, B, H, dev, g).items()}
+                forced = [(0, 3)] + [(0, r) for r in SWEEP_RINGS if r != 3 and B <= 32]
+                forced += [(R, 3) for R in SWEEP_ROWS.get(B, ())]
+                row = []
+                for rows, ring in forced:
+                    rlib = lib if ring == 3 else rings[ring][kind]
+                    try:
+                        launch, plan = _stream_launcher(rlib, kind, T, B, H, ins, rows)
+                    except RuntimeError:
+                        row.append(f"rows {rows} ring {ring}: -")
+                        continue
+                    us = _time_ms(launch, launches=3) / T * 1e3
+                    row.append(f"rows {rows} ring {ring} (R {plan.R}, PPW {plan.PPW}, "
+                               f"{plan.nres} resident / {plan.nstr} streamed, "
+                               f"{plan.waves} waves, dbuf {plan.dbuf}): {us:.3f}")
+                print(f"[sweep] {kind}_fwd_wide_mma_stream T,B,H={(T, B, H)} bf16 us a step: "
+                      + "; ".join(row), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fwd_step_breakdown: needs an NVIDIA card", file=sys.stderr)
@@ -691,10 +917,11 @@ def main() -> int:
         only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
         return simt_main(only)
     if "--wide" in sys.argv[1:]:
+        only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")), "")
         if "--f32" in sys.argv[1:]:
-            only = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")),
-                        "")
             return wide_f32_main(only)
+        if "--stream" in sys.argv[1:]:
+            return sweep_main() if "--sweep" in sys.argv[1:] else stream_main(only)
         return wide_main()
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16

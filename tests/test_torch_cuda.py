@@ -1395,7 +1395,7 @@ def test_wide_mma_stream_bptt_matches_twins(cuda_device, cell, T, B, H):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_wide_mma_stream_autograd_pair_matches_twins(cuda_device, cell):
     """The autograd pair at chip_smoke.py's STREAM_AUTOGRAD_SHAPE width
-    (H = 1024, T = 64, B = 32) in bf16: the forward on "wide", the BPTT on
+    (H = 1024, T = 64, B = 32) in bf16: the forward and the BPTT on
     "wide_mma_stream", each counted once."""
     gru = cell == "gru"
     T, B, H = 64, 32, 1024
@@ -1411,7 +1411,7 @@ def test_wide_mma_stream_autograd_pair_matches_twins(cuda_device, cell):
         torch.autograd.backward(core(*leaves), (dy, dy))
         grads.append([t.grad for t in leaves])
     torch.cuda.synchronize()
-    assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
+    assert _route_counts(f0, fwd.routes, "wide_mma_stream") == (1, 0)
     assert _route_counts(b0, bwd.routes, "wide_mma_stream") == (1, 0)
     for g, w in zip(*grads):
         assert g.dtype == torch.bfloat16
@@ -1463,6 +1463,97 @@ def test_wide_mma_stream_refuses_f32_and_widths_past_its_limit(cuda_device, cell
     args = (_gru_bwd_args if gru else _bwd_args)(2, 1, past, torch.bfloat16, cuda_device, seed=1)
     with pytest.raises(ValueError, match=f"H <= {wm.stream_max_h(gates)}"):
         m.bwd_launch("wide_mma_stream", *args)
+
+
+# --- the streamed tensor-core cluster forwards (the "wide_mma_stream" route) ----
+
+
+STREAM_FWD_CASES = ([(*c, True) for c in STREAM_CASES + [("lstm", 20, 160, 1024),
+                                                         ("gru", 20, 160, 1024)]]
+                    + [(*c, False) for c in STREAM_CASES if c[0] == "lstm"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H,cells", STREAM_FWD_CASES)
+def test_wide_mma_stream_forward_matches_twins(cuda_device, cell, T, B, H, cells):
+    """The streamed forwards against the twins in bf16 (2e-2 of max(1, the
+    largest |y| / |c|)), through the entry (the LSTM with and without its
+    cells), counted once on the route."""
+    from percivaltts_tpu_torch.ops.mma_layout import fwd_route
+
+    gru = cell == "gru"
+    assert fwd_route(torch.bfloat16, H, cell, B) == "wide_mma_stream"
+    args = (_gru_gates if gru else _gates)(T, B, H, torch.bfloat16, cuda_device, seed=T + B)
+    kw = {} if gru else {"with_cells": cells}
+    want = (bigru_fwd_reference if gru else bilstm_fwd_reference)(*args, **kw)
+    wrapper = bigru_fwd if gru else bilstm_fwd
+    f0 = dict(wrapper.routes)
+    with torch.no_grad():
+        got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert _route_counts(f0, wrapper.routes, "wide_mma_stream") == (1, 0)
+    assert len(got) == len(want)
+    scale = max(1.0, max(w.float().abs().max().item() for w in want))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (640, 1024, 1536)]
+                         + [("gru", H) for H in (704, 1024, 1792)])
+@pytest.mark.parametrize("B", [1, 8, 32, 160])
+def test_wide_mma_stream_forward_plan_matches_the_layout(cuda_device, cell, H, B):
+    """The forward launchers split H as ``ops/wide_mma_layout.py::plan`` does
+    and choose the plan ``stream_fwd_plan`` replays at the card's clusters
+    (rows, pairs a compute warp, chunks resident and streamed, waves, h
+    buffers, shared memory), also at a forced R; a width not a multiple of
+    32, or past the plan's own reach (the LSTM past H = 1920, where a block
+    would hold more than 15 unit groups; the GRU past 2560, where the ring
+    and an 8-row h tile leave its shared memory; the route's narrower limit
+    is the launchers', held by the refusals below), or a negative R, has no
+    plan."""
+    import ctypes
+
+    from percivaltts_tpu_torch import _build
+    from percivaltts_tpu_torch.ops import wide_mma_layout as wm
+
+    gates = 3 if cell == "gru" else 4
+    p = wm.plan(H, gates)
+    name = "bigru" if gates == 3 else "bilstm"
+    fn = getattr(_build.library(), f"percival_{name}_fwd_wide_mma_stream_plan")
+    out = (ctypes.c_int * 11)()
+    assert fn(B, H, p.Hb, p.U, 0, out) == 0
+    got = wm.StreamFwdPlan(*out)
+    assert got == wm.stream_fwd_plan(B, H, gates, got.clusters) and got.clusters >= 1
+    assert fn(B, H, p.Hb, p.U, 16, out) == 0
+    assert wm.StreamFwdPlan(*out) == wm.stream_fwd_plan(B, H, gates, got.clusters, rows=16)
+    assert fn(B, H + 8, p.Hb, p.U, 0, out) != 0  # H not a multiple of 32
+    assert fn(B, H, p.Hb, p.U, -8, out) != 0  # a negative R
+    past = {4: 1920, 3: 2560}[gates] + 64
+    q = wm.plan(past, gates)
+    assert fn(B, past, q.Hb, q.U, 0, out) != 0
+    with pytest.raises(ValueError, match="no rows a cluster fit"):
+        wm.stream_fwd_plan(B, past, gates, got.clusters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_wide_mma_stream_forward_refuses_f32_and_widths_past_its_limit(cuda_device, cell):
+    """On CUDA tensors the streamed forward launches its kernel or raises:
+    f32 ``TypeError``, H past ``stream_max_h`` ``ValueError`` naming it."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops import wide_mma_layout as wm
+
+    gru = cell == "gru"
+    m, gates = (gru_cuda, 3) if gru else (lstm_cuda, 4)
+    args = (_gru_gates if gru else _gates)(2, 1, 640, torch.float32, cuda_device, seed=1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        m.fwd_launch("wide_mma_stream", *args)
+    past = wm.stream_max_h(gates) + 32
+    args = (_gru_gates if gru else _gates)(2, 1, past, torch.bfloat16, cuda_device, seed=1)
+    with pytest.raises(ValueError, match=f"H <= {wm.stream_max_h(gates)}"):
+        m.fwd_launch("wide_mma_stream", *args)
 
 
 @pytest.mark.cuda

@@ -98,14 +98,16 @@ def test_launchers_refuse_a_route_they_do_not_take(monkeypatch, cell, kind, rout
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_forwards_refuse_wide_f32(monkeypatch, cell):
-    """The forwards take ``"mma"``, ``"simt"``, ``"wide_mma"``, ``"wide"``,
-    ``"wide_f32"`` and ``"narrow_f32"``, the BPTTs the same routes and
-    ``"wide_mma_stream"`` (bf16 past the forwards' "wide_mma" widths); a forward
+    """The forwards take ``"mma"``, ``"simt"``, ``"wide_mma"``,
+    ``"wide_mma_stream"``, ``"wide"``, ``"wide_f32"`` and ``"narrow_f32"``,
+    the BPTTs the same routes (bf16 past the "wide_mma" widths both passes
+    stream their slice, ``"wide_mma_stream"``); a forward
     refuses ``"wide_f32"`` outside f32 at 128 < H <= 512 before it builds
     (bf16: ``TypeError``; H = 8, the narrow width here: ``ValueError``)."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("the launcher reached the build"))
-    assert lstm_cuda.FWD_ROUTES == ("mma", "simt", "wide_mma", "wide", "wide_f32", "narrow_f32")
-    assert set(lstm_cuda.FWD_ROUTES) | {"wide_mma_stream"} == set(lstm_cuda.BWD_ROUTES)
+    assert lstm_cuda.FWD_ROUTES == ("mma", "simt", "wide_mma", "wide_mma_stream", "wide",
+                                    "wide_f32", "narrow_f32")
+    assert lstm_cuda.BWD_ROUTES == lstm_cuda.FWD_ROUTES
     with pytest.raises(ValueError, match="H <= 512, got H=8"):
         LAUNCHERS[cell, "fwd"]("wide_f32", *_launch_args(cell, "fwd"))
     bf16 = tuple(t.to(torch.bfloat16) for t in _launch_args(cell, "fwd"))

@@ -181,9 +181,9 @@ def test_widths_and_routes():
     """The route takes bf16 past the tensor-core one-block kernels' 128 up
     to where the BPTT's shared memory ends (608 LSTM, 672 GRU: the Pallas
     kernels' 608 / 640 are inside), for the forward and the BPTT alike;
-    past it the forward takes "wide" and the BPTT the streamed kernels
-    ("wide_mma_stream") up to ``stream_max_h``, then "wide" too; f32 keeps
-    its routes, the BPTT up to 512 on its own cluster kernel."""
+    past it both take the streamed kernels ("wide_mma_stream") up to
+    ``stream_max_h``, then "wide"; f32 keeps its routes, the BPTT up to 512
+    on its own cluster kernel."""
     assert (wm.max_h(4), wm.max_h(3)) == (608, 672)
     bf16, f32 = torch.bfloat16, torch.float32
     for cell, gates in (("lstm", 4), ("gru", 3)):
@@ -191,7 +191,7 @@ def test_widths_and_routes():
             assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide_mma"
         for H in (wm.max_h(gates) + 1, 1024, wide_layout.max_h(gates)):
             streamed = H <= wm.stream_max_h(gates)
-            assert fwd_route(bf16, H, cell) == "wide"
+            assert fwd_route(bf16, H, cell) == ("wide_mma_stream" if streamed else "wide")
             assert bwd_route(bf16, H, cell) == ("wide_mma_stream" if streamed else "wide")
             assert not wm.fits(H, gates)
         for H in (16, 128):

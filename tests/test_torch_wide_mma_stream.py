@@ -261,16 +261,16 @@ def test_replayed_stream_bptt_equals_the_twin(cell, T, B, H, dtype):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_bf16_routes_past_the_tensor_core_widths(cell):
     """bf16: up to ``max_h`` (608 / 672) both passes take "wide_mma"; past it
-    the forward takes "wide" and the BPTT "wide_mma_stream" up to
-    ``stream_max_h`` (1536 / 1792), then "wide" for both, but for the rows
-    ``mma_layout.BF16_WIDE_BWD`` keeps on "wide"; f32 keeps its routes
-    (512: "wide_f32", 1024: "wide", 200: "narrow_f32")."""
+    both take "wide_mma_stream" up to ``stream_max_h`` (1536 / 1792), then
+    "wide" for both, but for the rows ``mma_layout.BF16_WIDE_BWD`` keeps
+    the BPTT on "wide"; f32 keeps its routes (512: "wide_f32", 1024: "wide",
+    200: "narrow_f32")."""
     bf16, f32, gates = torch.bfloat16, torch.float32, G_OF[cell]
     first, last = wm.max_h(gates), wm.stream_max_h(gates)
     for H in (608, first):
         assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide_mma"
     for H in (640 if cell == "lstm" else 704, first + 1, 1000, 1024, last):
-        assert (fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)) == ("wide", "wide_mma_stream")
+        assert (fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)) == ("wide_mma_stream",) * 2
     for H in (last + 1, 2048, wide_layout.MAX_H):
         assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide"
     # BF16_WIDE_BWD: the LSTM's H = 609–640 at B <= 3 keeps "wide" (measured
@@ -300,20 +300,21 @@ def _bwd_inputs(cell, T, B, H, dtype):
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_launchers_refuse_what_the_stream_route_does_not_take(monkeypatch, cell):
-    """The BPTT launchers take "wide_mma_stream", the forwards do not; an
-    unknown route name raises ``ValueError`` naming the routes; the streamed
-    route refuses f32 (``TypeError``) and a width past its limit
+    """The BPTT launchers take "wide_mma_stream", and so do the forwards
+    (``tests/test_torch_wide_mma_stream_fwd.py`` holds theirs); an unknown
+    route name raises ``ValueError`` naming the routes, in either pass; the
+    streamed route refuses f32 (``TypeError``) and a width past its limit
     (``ValueError`` naming it), all before the build; the BPTT wrappers count
     the route by name."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("the launcher reached the build"))
     m, gates = (lstm_cuda, 4) if cell == "lstm" else (gru_cuda, 3)
-    assert "wide_mma_stream" in lstm_cuda.BWD_ROUTES and "wide_mma_stream" not in lstm_cuda.FWD_ROUTES
+    assert "wide_mma_stream" in lstm_cuda.BWD_ROUTES and "wide_mma_stream" in lstm_cuda.FWD_ROUTES
     wrapper = lstm_cuda.bilstm_bwd if cell == "lstm" else gru_cuda.bigru_bwd
     assert "wide_mma_stream" in wrapper.routes
     with pytest.raises(ValueError, match="takes the routes"):
         m.bwd_launch("wide_mma_streamed", *_bwd_inputs(cell, 2, 1, 640, torch.bfloat16))
     with pytest.raises(ValueError, match="takes the routes"):
-        m.fwd_launch("wide_mma_stream", *_bwd_inputs(cell, 2, 1, 640, torch.bfloat16)[:4],
+        m.fwd_launch("wide_mma_streamed", *_bwd_inputs(cell, 2, 1, 640, torch.bfloat16)[:4],
                      *(() if cell == "lstm" else _bwd_inputs(cell, 2, 1, 640, torch.bfloat16)[4:6]))
     with pytest.raises(TypeError, match="bfloat16"):
         m.bwd_launch("wide_mma_stream", *_bwd_inputs(cell, 2, 1, 640, torch.float32))
@@ -355,13 +356,17 @@ def _grads_against_jax(cell, H, T=16, B=2, D=48, seed=0):
     return y.detach().numpy(), np.asarray(y_j), got, want
 
 
-@pytest.mark.parametrize("cell,H", [("lstm", 640), ("gru", 704)])
-def test_stream_width_layers_and_gradients_match_jax_scan(cell, H):
-    """The first widths the streamed BPTT takes in bf16, held in f32 (the
-    CPU runs the twins) against the JAX package's scan at T = 16, B = 2: the
-    outputs within 1e-5, each gradient within 1e-4 of its largest |value|."""
-    y, y_j, got, want = _grads_against_jax(cell, H)
-    assert y.shape == (2, 16, 2 * H)
+@pytest.mark.parametrize(
+    "cell,H,T,B",
+    [pytest.param(c, h, 16, 2, id=f"{c}-{h}") for c, h in (("lstm", 640), ("gru", 704))]
+    + [pytest.param(c, h, 9, 3, id=f"{c}-{h}-T9-B3") for c, h in (("lstm", 640), ("gru", 704))])
+def test_stream_width_layers_and_gradients_match_jax_scan(cell, H, T, B):
+    """The first widths the streamed kernels take in bf16 (both passes),
+    held in f32 (the CPU runs the twins) against the JAX package's scan at
+    T = 16, B = 2 and T = 9, B = 3: the outputs within 1e-5, each gradient
+    within 1e-4 of its largest |value|."""
+    y, y_j, got, want = _grads_against_jax(cell, H, T=T, B=B)
+    assert y.shape == (B, T, 2 * H)
     np.testing.assert_allclose(y, y_j, atol=1e-5)
     assert len(got) == len(want) == (7 if cell == "lstm" else 9)
     for g, w in zip(got, want):
