@@ -309,7 +309,24 @@ raises on failure (the script exits 0 only when all passed):
    ``STREAM_MODELS``) served and trained (B = 32) as 13b/13c
    (``STREAM_DEPTH``), every forward and BPTT launch on the streamed kernels;
    17d. the four kernels at ``STREAM_TIMED`` in turns with ``"wide"`` and
-   the twin, beside the bound and cuDNN's bf16 layer (events, device time).
+   the twin, beside the bound and cuDNN's bf16 layer (events, device time);
+18. the bf16 BPTTs past the 64-k layout's widths (H 1537 / 1793 up to
+   4096: the deep layout of ``"wide_mma_stream"``, 32-k chunks all
+   streamed, h_prev through the ring, the dh partials through L2; the
+   forwards there stay on ``"wide"``):
+   18a. their plans in 17a's, 0 spills for every deep instantiation; both
+   kernels through their entries at ``DEEP_SHAPES`` against the twins
+   within ``KERNEL_TOL[bf16]``·max(1, max|twin|), each launch counted on
+   the route and on the deep layout (``.stream_layouts``);
+   18b. the autograd pairs at ``DEEP_AUTOGRAD_SHAPE`` (the forward on
+   ``"wide"``, the BPTT deep) against the twins;
+   18c. config 3 and the BGRU at ``blstm_size=4096`` (H = 2048,
+   ``DEEP_MODELS``) served and trained (B = 32) as 17c (``DEEP_DEPTH``),
+   every BPTT launch on the deep layout;
+   18d. both kernels at ``DEEP_TIMED`` in turns with the twin and, at B of
+   ``DEEP_EARLIER_B`` and H of ``DEEP_EARLIER_H``, with ``"wide"``, beside
+   the plan, the bound and cuDNN's bf16 layer backward (events, device
+   time).
 
 With ``--f32-times`` the script builds, then only times f32 and exits:
 15d's kernels at ``F32_SIMT_TIMED``; ``"narrow_f32"`` and the one-block
@@ -324,8 +341,9 @@ beside the route ``fwd_route`` / ``bwd_route`` takes there; and the GRU
 forward at ``F32_WIDE_FWD``'s width, ``"wide"`` against ``"wide_f32"`` in
 turns at B = 1–4. With ``--bf16-wide-times`` it builds, then times the
 streamed bf16 BPTTs against ``"wide"`` in turns at each width of
-``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, the streamed forwards
-likewise at B of ``BF16_WIDE_FWD_BATCHES``, then 17d; with
+``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES`` (the deep layout's
+widths included), the streamed forwards likewise at B of
+``BF16_WIDE_FWD_BATCHES`` up to their widest width, then 17d and 18d; with
 ``--first-port-times`` it times the kernels still in their first port
 (``FIRST_PORT_ROWS``) beside the bound and cuDNN's layer. These print no
 kernel line and no device record.
@@ -391,13 +409,15 @@ SERVE_TOL = {"cnn_blstm": 0.0625, "bgru": 0.125, "cnn_blstm_2d": 0.0625, "bgru_l
              "cnn_blstm_1024_f32": 1e-3, "bgru_1024_f32": 1e-3,
              "cnn_blstm_f32": 1e-3, "bgru_f32": 1e-3,
              "cnn_blstm_768_f32": 1e-3, "bgru_768_f32": 1e-3,
-             "cnn_blstm_2048": 0.0625, "bgru_2048": 0.125}
+             "cnn_blstm_2048": 0.0625, "bgru_2048": 0.125,
+             "cnn_blstm_4096": 0.0625, "bgru_4096": 0.125}
 PARAMS = {"cnn_blstm": 3_246_691, "bgru": 726_371, "cnn_blstm_2d": 848_421, "bgru_ln": 726_883,
           "cnn_blstm_1024": 6_003_043, "blstm_1024": 13_128_803, "bgru_1024": 9_983_075,
           "cnn_blstm_1024_f32": 6_003_043, "bgru_1024_f32": 9_983_075,
           "cnn_blstm_f32": 3_246_691, "bgru_f32": 726_371,
           "cnn_blstm_768_f32": 4_822_115, "bgru_768_f32": 5_717_859,
-          "cnn_blstm_2048": 13_348_195, "bgru_2048": 38_840_419}
+          "cnn_blstm_2048": 13_348_195, "bgru_2048": 38_840_419,
+          "cnn_blstm_4096": 40_621_411, "bgru_4096": 153_178_211}
 # the models each path builds (``ModelConfig`` fields): config 3 and the
 # BGRU, then phase 10's reference-faithful config 3 (2-D spectral convs in
 # the generator and the critic, LayerNorms in the generator's trunk and the
@@ -435,6 +455,10 @@ MODELS = {
     # tensor-core cluster kernels ("wide_mma_stream")
     "cnn_blstm_2048": dict(generator="cnn_blstm", blstm_size=2048),
     "bgru_2048": dict(generator="bgru", blstm_size=2048),
+    # phase 18: the same at blstm_size=4096 (H = 2048 a direction): the
+    # BPTTs on the streamed kernels' deep layout, the forwards on "wide"
+    "cnn_blstm_4096": dict(generator="cnn_blstm", blstm_size=4096),
+    "bgru_4096": dict(generator="bgru", blstm_size=4096),
 }
 # the forwards at the serving chunk, the generator update and the fakes pass
 FWD_TIMED = [(512, 8, 128), (512, 32, 128), (512, 160, 128)]
@@ -445,7 +469,8 @@ TIMED_SHAPES = {"bilstm_fwd": FWD_TIMED, "bigru_fwd": FWD_TIMED,
 # cores in one block a direction ("simt") or a cluster of blocks ("wide")
 ROUTED = ("bilstm_fwd", "bigru_fwd", "bilstm_bwd", "bigru_bwd")
 # the BPTT wrappers, which also count their "wide_f32" launches by the kernel
-# its plan took (``.wide_f32_plans``: "chunked" or "few")
+# its plan took (``.wide_f32_plans``: "chunked" or "few") and their
+# "wide_mma_stream" launches by layout (``.stream_layouts``: "64k" or "deep")
 PLANNED = ("bilstm_bwd", "bigru_bwd")
 LAYER_IN = 256  # the recurrent layers' input width in both generators
 
@@ -530,7 +555,8 @@ STEP_LAUNCHES = {"cnn_blstm": (2, 1), "bgru": (4, 2), "cnn_blstm_2d": (2, 1), "b
                  "cnn_blstm_1024_f32": (2, 1), "bgru_1024_f32": (4, 2),
                  "cnn_blstm_f32": (2, 1), "bgru_f32": (4, 2),
                  "cnn_blstm_768_f32": (2, 1), "bgru_768_f32": (4, 2),
-                 "cnn_blstm_2048": (2, 1), "bgru_2048": (4, 2)}
+                 "cnn_blstm_2048": (2, 1), "bgru_2048": (4, 2),
+                 "cnn_blstm_4096": (2, 1), "bgru_4096": (4, 2)}
 # one bf16 step from identical state, kernels vs plain twins. The twins
 # differ from the kernels by bf16 rounding flips in the recurrent layers;
 # Adam's first step, lr·g/(|g| + eps), is sign-like, so a flip of a
@@ -696,11 +722,44 @@ STREAM_SHAPES = {"lstm": [(512, 32, 1024), (512, 160, 1024), (33, 9, 640), (40, 
                          (33, 9, 1792)]}
 STREAM_AUTOGRAD_SHAPE = (512, 32, 1024)
 STREAM_MODELS = ("cnn_blstm_2048", "bgru_2048")
-STREAM_DEPTH = (3, 1, 3)
-STREAM_TIMED = [(512, 8, 1024), (512, 32, 1024), (512, 160, 1024)]
-BF16_WIDE_WIDTHS = {"lstm": (640, 768, 1024, 1536), "gru": (704, 768, 1024, 1536, 1792)}
-BF16_WIDE_BATCHES = (1, 8, 32, 160)
+# (cut to phase 18's depth, and 17d's B = 160 row, whose times PR 25 wrote
+# into PERF.md, for the run's time; the B = 160 kernels are still held
+# against their twins at STREAM_SHAPES)
+STREAM_DEPTH = (1, 1, 2)
+STREAM_TIMED = [(512, 8, 1024), (512, 32, 1024)]
+# the rows 17d times "wide" at beside the streamed kernels (its B = 160 times
+# are in PERF.md: 0.6 s a call there, cut for the run's time)
+STREAM_EARLIER_B = (8, 32)
+# the BPTTs' widths: the 64-k layout's, then the deep layout's (its first
+# width, the models' 2048, 3840, the widest, 4096); the forwards take the
+# widths up to wide_mma_layout.stream_fwd_max_h
+BF16_WIDE_WIDTHS = {"lstm": (640, 768, 1024, 1536, 1568, 2048, 3840, 4096),
+                    "gru": (704, 768, 1024, 1536, 1792, 1824, 2048, 3840, 4096)}
+BF16_WIDE_BATCHES = (1, 2, 3, 4, 5, 6, 7, 8, 32, 160)
 BF16_WIDE_FWD_BATCHES = (1, 2, 3, 4, 5, 6, 7, 8, 32, 160)
+# past the 64-k layout's widths "wide" takes 0.3–17 s a call (PERF.md, step
+# 0): it is timed by one call a turn there, not a median of 5
+BF16_WIDE_SLOW_H = 1568
+# phase 18: the bf16 BPTTs past the 64-k layout's widths (the deep layout of
+# "wide_mma_stream", csrc/wide_mma_stream.cuh; the forwards there stay on
+# "wide" until their redesign): the shapes both kernels are held on (the
+# models' H = 2048 at the generator update and the fakes pass, the first
+# width past the 64-k layout, a padded width, 3840, and the widest, 4096, on
+# the LSTM's 4-pair and the GRU's 2-pair kernel), the autograd
+# pair's, the models (served, one step checked, steps timed at DEEP_DEPTH)
+# and the timed shapes (the "wide" kernel it replaced timed in turns at
+# B = 8 and 32)
+DEEP_SHAPES = {"lstm": [(512, 32, 2048), (512, 160, 2048), (33, 9, 1568), (40, 1, 2000),
+                        (17, 3, 3840), (17, 3, 4096)],
+               "gru": [(512, 32, 2048), (512, 160, 2048), (33, 9, 1824), (40, 1, 2000),
+                       (17, 3, 3840), (17, 3, 4096)]}
+DEEP_AUTOGRAD_SHAPE = (512, 32, 2048)
+DEEP_MODELS = ("cnn_blstm_4096", "bgru_4096")
+DEEP_DEPTH = (1, 1, 2)
+DEEP_TIMED = [(512, 8, 2048), (512, 32, 2048), (512, 160, 2048), (512, 8, 4096), (512, 32, 4096)]
+# "wide" in turns at these B and H alone (at 4096 it takes 2.6–8.3 s a call:
+# its times there are in PERF.md, step 0)
+DEEP_EARLIER_B, DEEP_EARLIER_H = (8, 32), (2048,)
 # bytes of spill stores phase 17a allows a streamed kernel instantiation (by
 # its mangled name's kernel and template argument), 0 for any not listed:
 # the forwards whose four (LSTM) / three (GRU) pairs a warp fill the 128
@@ -741,6 +800,7 @@ def _zero_counts() -> None:
             fn.routes = {route: 0 for route in fn.routes}
         if name in PLANNED:
             fn.wide_f32_plans = {plan: 0 for plan in fn.wide_f32_plans}
+            fn.stream_layouts = {layout: 0 for layout in fn.stream_layouts}
 
 
 def _counts() -> dict:
@@ -755,9 +815,11 @@ def _routes() -> dict:
 
 def _plans() -> dict:
     """The BPTT wrappers' ``"wide_f32"`` launches by the kernel their plan
-    took: {name: {"chunked": n, "few": n}}."""
+    took and ``"wide_mma_stream"`` launches by the layout theirs took:
+    {name: {"chunked": n, "few": n, "64k": n, "deep": n}}."""
     kernels = _kernels()
-    return {name: dict(kernels[name].wide_f32_plans) for name in PLANNED}
+    return {name: {**kernels[name].wide_f32_plans, **kernels[name].stream_layouts}
+            for name in PLANNED}
 
 
 def _no_routes() -> dict:
@@ -4180,15 +4242,16 @@ def _once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def _in_turns(calls: dict, order) -> dict:
+def _in_turns(calls: dict, order, once=()) -> dict:
     """The mean time in ms of each of ``calls`` (name → function) timed in
-    ``order`` (e.g. earlier, kernel, twin, kernel, earlier): a call
-    named ``"twin"`` once with no warm-up (``_once_ms``), any other as the
-    median of 5 calls (``_median_ms``)."""
+    ``order`` (e.g. earlier, kernel, twin, kernel, earlier): a call named
+    ``"twin"`` or in ``once`` (the kernels of seconds a call) by one call a
+    turn with no warm-up (``_once_ms``), any other as the median of 5 calls
+    (``_median_ms``)."""
     times = {who: [] for who in calls}
     for who in order:
         fn = calls[who]
-        times[who].append(_once_ms(fn) if who == "twin" else _median_ms(fn, runs=5))
+        times[who].append(_once_ms(fn) if who == "twin" or who in once else _median_ms(fn, runs=5))
     return {who: statistics.mean(t) for who, t in times.items()}
 
 
@@ -4456,6 +4519,10 @@ FIRST_PORT_ROWS = [
     ("gru", "fwd", torch.float32, "wide", [(512, 1, 336), (512, 2, 336), (512, 3, 336)]),
     *((cell, what, torch.bfloat16, "simt", [(512, 8, 100), (512, 32, 100)])
       for cell in ("lstm", "gru") for what in ("bwd", "fwd")),
+    # the bf16 "wide" BPTTs the deep streamed layout replaced past 2048, up
+    # to the widest width the port takes (blstm_size=6144 and 8192)
+    *((cell, "bwd", torch.bfloat16, "wide", [(512, B, H) for H in (3072, 4096) for B in (8, 32)])
+      for cell in ("lstm", "gru")),
 ]
 
 
@@ -4530,12 +4597,14 @@ def _f32_wide_fwd_times(dev, widths=(336,), batches=(1, 2, 3, 4)) -> list:
 
 
 def _stream_plans(dev) -> None:
-    """Phase 17a's plans: the streamed BPTTs' and forwards' launch plans at
-    every width and B of phase 17 and of ``--bf16-wide-times`` must be
+    """Phases 17a and 18a's plans: the streamed BPTTs' and forwards' launch
+    plans at every width and B of phases 17–18 and of ``--bf16-wide-times``
+    (the forwards' up to ``wide_mma_layout.stream_fwd_max_h``) must be
     ``ops/wide_mma_layout.py::stream_plan``'s / ``stream_fwd_plan``'s at the
-    clusters the card holds (rows, pairs a compute warp, chunks resident and
-    streamed, waves, slot or h buffers, shared memory); then ``ptxas``'s
-    registers and spills of every instantiation of the four kernels: none
+    clusters the card holds (the layout, rows, pairs a compute warp, chunks
+    resident and streamed, waves, slot or h buffers, shared memory, the deep
+    layout's scratch); then ``ptxas``'s registers and spills of every
+    instantiation of the four kernels, the BPTTs' deep ones included: none
     may spill more than ``STREAM_SPILL_MAX`` allows it (0 if not listed)."""
     import ctypes
 
@@ -4544,15 +4613,15 @@ def _stream_plans(dev) -> None:
 
     lib = _build.library()
     for cell, name, gates in (("lstm", "bilstm", 4), ("gru", "bigru", 3)):
-        widths = sorted({H for _, _, H in STREAM_SHAPES[cell] + STREAM_TIMED}
-                        | set(BF16_WIDE_WIDTHS[cell]))
-        batches = sorted({B for _, B, _ in STREAM_SHAPES[cell] + STREAM_TIMED}
+        shapes = STREAM_SHAPES[cell] + STREAM_TIMED + DEEP_SHAPES[cell] + DEEP_TIMED
+        widths = sorted({H for _, _, H in shapes} | set(BF16_WIDE_WIDTHS[cell]))
+        batches = sorted({B for _, B, _ in shapes}
                          | set(BF16_WIDE_BATCHES) | set(BF16_WIDE_FWD_BATCHES))
         for H in widths:
             Hp = wm.padded(H)
             pm = wm.plan(Hp, gates)
             for B in batches:
-                out = (ctypes.c_int * 10)()
+                out = (ctypes.c_int * 14)()
                 _build.check(getattr(lib, f"percival_{name}_bwd_wide_mma_stream_plan")(
                     B, Hp, pm.Hb, pm.U, out), f"the streamed BPTT plan at B={B} H={Hp}")
                 got = wm.StreamPlan(*out)
@@ -4561,10 +4630,18 @@ def _stream_plans(dev) -> None:
                     raise AssertionError(f"the {name} wide_mma_stream plan {got} is not {want}")
                 print(f"[stream plan] {name} bwd B={B} H={H} (run at {Hp}) bf16: {got.U} blocks of "
                       f"{got.Hb} units, {32 * wm.STREAM_WARPS} threads, {got.R} rows a cluster, "
-                      f"{got.nres} chunks resident / {got.nstr} streamed "
-                      f"({got.nstr * wm.tile_bytes(got.NC)} B a step a block), {got.clusters} "
-                      f"clusters at once ({got.waves} waves), {1 + got.dbuf} buffer(s) of "
-                      f"partials, {got.smem} B shared memory")
+                      + (f"deep layout: {got.ppw} pairs a compute warp, {got.nstr} chunks of "
+                         f"{got.chunk} k streamed through {got.ring} slots "
+                         f"({got.nstr * wm.tile_bytes(got.NC, got.chunk)} B a step a block), "
+                         f"{got.scratch} B of partials a cluster in global memory"
+                         if got.chunk == wm.DEEP_CHUNK else
+                         f"{got.nres} chunks resident / {got.nstr} streamed "
+                         f"({got.nstr * wm.tile_bytes(got.NC)} B a step a block), "
+                         f"{1 + got.dbuf} buffer(s) of partials")
+                      + f", {got.clusters} clusters at once ({got.waves} waves), {got.smem} B "
+                      "shared memory")
+                if Hp > wm.stream_fwd_max_h(gates):
+                    continue  # the forward stays on "wide" there
                 out = (ctypes.c_int * 11)()
                 _build.check(getattr(lib, f"percival_{name}_fwd_wide_mma_stream_plan")(
                     B, Hp, pm.Hb, pm.U, 0, out), f"the streamed forward plan at B={B} H={Hp}")
@@ -4586,9 +4663,11 @@ def _stream_plans(dev) -> None:
         limit = next((b for k, b in STREAM_SPILL_MAX.items() if k in line), 0)
         if stores is None or int(stores.group(1)) > limit:
             raise AssertionError(f"a streamed kernel instantiation spills past {limit} B: {line}")
-    # the BPTTs at R = 8, 16, 24 for each cell; the forwards at each pairs a
-    # compute warp (wide_mma_layout.STREAM_FWD_MAX_PPW)
-    want = 6 + sum(wm.STREAM_FWD_MAX_PPW.values())
+    # the BPTTs at R = 8, 16, 24 for each cell and their deep layout's
+    # (R, pairs) (wide_mma_layout.STREAM_DEEP_KERNELS); the forwards at each
+    # pairs a compute warp (wide_mma_layout.STREAM_FWD_MAX_PPW)
+    want = (6 + sum(map(len, wm.STREAM_DEEP_KERNELS.values()))
+            + sum(wm.STREAM_FWD_MAX_PPW.values()))
     if len(lines) != want:
         raise AssertionError(f"ptxas reported {len(lines)} streamed kernels, not {want}")
 
@@ -4675,12 +4754,84 @@ def _check_stream_kernels(dev) -> dict:
     return err
 
 
-def _time_stream_kernels(dev, shapes=None) -> dict:
-    """Phase 17d: each streamed BPTT and forward at ``STREAM_TIMED`` in turns
-    with the CUDA-core cluster kernel it replaced (``"wide"``) and its twin
-    (earlier, routed, twin, routed, earlier; ``_in_turns``), both kernels
-    also by device time (``_device_ms``, 3 calls), beside the bound and the
-    port's layer backward / forward and cuDNN's bidirectional ``nn.LSTM`` /
+def _check_deep_kernels(dev) -> dict:
+    """Phase 18a/18b: each streamed BPTT on its deep layout (``bwd_route``'s
+    ``"wide_mma_stream"`` past ``wide_mma_layout.stream_max_h``, counted on
+    the route and on ``.stream_layouts["deep"]``) against its twin at
+    ``DEEP_SHAPES`` within ``KERNEL_TOL[bf16]``·max(1, max|twin|); then the
+    autograd pair through ``bilstm_core`` / ``bigru_core`` at
+    ``DEEP_AUTOGRAD_SHAPE`` (the forward on ``"wide"``, one BPTT on the deep
+    layout) against the twins' gradients. Returns the largest
+    |kernel − twin| of each (``*_bwd_wide_mma_stream_deep``)."""
+    from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
+
+    bf16, tol = torch.bfloat16, KERNEL_TOL[torch.bfloat16]
+    err = {}
+    for cell, name in (("lstm", "bilstm_bwd"), ("gru", "bigru_bwd")):
+        gru = cell == "gru"
+        m = gru_cuda if gru else lstm_cuda
+        wrapper = getattr(m, name)
+        key = f"{name}_wide_mma_stream_deep"
+        err[key] = 0.0
+        with torch.no_grad():
+            for T, B, H in DEEP_SHAPES[cell]:
+                route = bwd_route(bf16, H, cell, B)
+                if route != "wide_mma_stream":
+                    raise AssertionError(f"{name} routes bf16 H={H} to {route!r}")
+                args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, bf16, dev, seed=T + B)
+                want = getattr(m, f"{name}_reference")(*args)
+                limit = tol * max(1.0, max(w.float().abs().max().item() for w in want))
+                deep = wrapper.stream_layouts["deep"]
+                got = _launch_once(wrapper, *args, route=route)
+                if wrapper.stream_layouts["deep"] != deep + 1:
+                    raise AssertionError(f"{name} at T,B,H={(T, B, H)} did not launch the deep "
+                                         "layout")
+                err[key] = max(err[key], _compare(f"[{name} {route}, deep] T={T} B={B} H={H} bf16",
+                                                  got, want, limit, relative=False))
+        # the autograd pair: the forward kernel ("wide") and the deep BPTT against the twins
+        T, B, H = DEEP_AUTOGRAD_SHAPE
+        core, ref = (m.bigru_core, m.bigru_core_reference) if gru else \
+            (m.bilstm_core, m.bilstm_core_reference)
+        base = (_gru_gates if gru else _gates)(T, B, H, bf16, dev, seed=7)
+        dy = _dy(T, B, H, bf16, dev, seed=1)
+        fwd_w = getattr(m, f"{name[:-4]}_fwd")
+        froute, broute = fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)
+        grads = []
+        for c in (core, ref):
+            leaves = [t.clone().requires_grad_(True) for t in base]
+            f0, b0, d0 = fwd_w.routes[froute], wrapper.routes[broute], wrapper.stream_layouts["deep"]
+            torch.autograd.backward(c(*leaves), dy)
+            torch.cuda.synchronize()
+            grads.append([t.grad for t in leaves])
+            moved = (fwd_w.routes[froute] - f0, wrapper.routes[broute] - b0,
+                     wrapper.stream_layouts["deep"] - d0)
+            if c is core and moved != (1, 1, 1):
+                raise RuntimeError(f"the {cell} autograd pair did not launch one forward on "
+                                   f"{froute} and one BPTT on {broute}'s deep layout: {moved}")
+        names = ("dgx_f", "dgx_b", "dW_h_f", "dW_h_b") + (("db_hn_f", "db_hn_b") if gru else ())
+        for n, gk, gt in zip(names, *grads):
+            _compare(f"[autograd {'BiGRU' if gru else 'BiLSTM'}, forward {froute}, BPTT {broute} "
+                     f"deep] {n} T,B,H={DEEP_AUTOGRAD_SHAPE} bf16", [gk], [gt],
+                     tol * gt.float().abs().max().item(), relative=False)
+    return err
+
+
+STREAM_NAMES = (("lstm", "bilstm_bwd"), ("lstm", "bilstm_fwd"), ("gru", "bigru_bwd"),
+                ("gru", "bigru_fwd"))
+
+
+def _time_stream_kernels(dev, shapes=None, names=STREAM_NAMES, earlier_b=STREAM_EARLIER_B,
+                         once=(), earlier_h=None) -> dict:
+    """Phase 17d: each streamed BPTT and forward (``names``) at
+    ``STREAM_TIMED`` in turns with its twin and, at the rows of
+    ``earlier_b`` (and widths of ``earlier_h``, all if ``None``), the
+    CUDA-core cluster kernel it replaced (``"wide"``;
+    earlier, routed, twin, routed, earlier; ``_in_turns``, ``once``: timed
+    by one call a turn), the kernel also by device time (``_device_ms``, 3
+    calls; ``"wide"`` at the first row, unless timed once), beside the plan
+    (the BPTT's layout), the bound and the port's
+    layer backward / forward and cuDNN's bidirectional ``nn.LSTM`` /
     ``nn.GRU`` bf16 backward / forward by CUDA events and device time
     (``_layer_times``: medians of 2 × 3 calls)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_mma_layout
@@ -4688,8 +4839,7 @@ def _time_stream_kernels(dev, shapes=None) -> dict:
 
     dt = torch.bfloat16
     out = {}
-    for cell, name in (("lstm", "bilstm_bwd"), ("lstm", "bilstm_fwd"), ("gru", "bigru_bwd"),
-                       ("gru", "bigru_fwd")):
+    for cell, name in names:
         gru, fwd = cell == "gru", name.endswith("fwd")
         m = gru_cuda if gru else lstm_cuda
         cls = "nn.GRU" if gru else "nn.LSTM"
@@ -4697,20 +4847,31 @@ def _time_stream_kernels(dev, shapes=None) -> dict:
         rows = []
         for T, B, H in shapes or STREAM_TIMED:
             route = (fwd_route if fwd else bwd_route)(dt, H, cell, B)
+            Hp = wide_mma_layout.padded(H)
+            plan = (lstm_cuda.stream_fwd_plan(name[:-4], B, Hp, 0, dev.index or 0) if fwd else
+                    lstm_cuda.stream_plan(name[:-4], B, Hp, dev.index or 0))
+            deep = not fwd and plan.chunk == wide_mma_layout.DEEP_CHUNK
             if fwd:
                 args = (_gru_gates if gru else _gates)(T, B, H, dt, dev, seed=1)
             else:
                 args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, dt, dev, seed=1)
             kern, twin = getattr(m, name), getattr(m, f"{name}_reference")
             earlier = m.fwd_launch if fwd else m.bwd_launch
-            calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args),
-                     "earlier": lambda: earlier("wide", *args)}
+            calls = {"kernel": lambda: kern(*args), "twin": lambda: twin(*args)}
+            order = ("kernel", "twin", "kernel")
+            if B in earlier_b and (earlier_h is None or H in earlier_h):
+                calls["earlier"] = lambda: earlier("wide", *args)
+                order = ("earlier",) + order + ("earlier",)
             with torch.no_grad():
-                times = _in_turns(calls, ("earlier", "kernel", "twin", "kernel", "earlier"))
-                kernel_device_ms = _device_ms(lambda: kern(*args), calls=3,
-                                              match=f"{name}_{route}_kernel")
-                earlier_device_ms = _device_ms(lambda: earlier("wide", *args), calls=3,
-                                               match=f"{name}_wide_kernel")
+                times = {"earlier": None, **_in_turns(calls, order, once=once)}
+                kernel_device_ms = _device_ms(
+                    lambda: kern(*args), calls=3,
+                    match=f"{name}_{route}_{'deep_' if deep else ''}kernel")
+                # the earlier kernel's device time at the first row alone (the
+                # kernel line reports it; the others are in PERF.md)
+                earlier_device_ms = None if times["earlier"] is None or once or rows else \
+                    _device_ms(lambda: earlier("wide", *args), calls=3,
+                               match=f"{name}_wide_kernel")
             ws = _layer_weights(cell, H, dt, dev, seed=2)
             x = torch.from_numpy(np.random.default_rng(3).normal(size=(B, T, LAYER_IN))
                                  .astype(np.float32)).to(device=dev, dtype=dt)
@@ -4723,27 +4884,45 @@ def _time_stream_kernels(dev, shapes=None) -> dict:
                       f"kernel's events ({lt['layer_device_ms']:.4f} device ms): not a measurement")
                 lt["layer_device_ms"] = None
             bound_ms, bound_by = _kernel_bound(name, T, B, H, dt)
-            Hp = wide_mma_layout.padded(H)
-            plan = (lstm_cuda.stream_fwd_plan(name[:-4], B, Hp, 0, dev.index or 0) if fwd else
-                    lstm_cuda.stream_plan(name[:-4], B, Hp, dev.index or 0))
-            row = {"shape": [T, B, H], "route": route, "ms": ms, "us_per_step": ms / T * 1e3,
-                   "plain_ms": times["twin"], "earlier_ms": times["earlier"],
-                   "kernel_device_ms": kernel_device_ms, "earlier_device_ms": earlier_device_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(), **lt}
+            row = {"shape": [T, B, H], "route": route, "layout": "deep" if deep else "64k",
+                   "ms": ms, "us_per_step": ms / T * 1e3, "plain_ms": times["twin"],
+                   "earlier_ms": times["earlier"], "kernel_device_ms": kernel_device_ms,
+                   "earlier_device_ms": earlier_device_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "plan": plan._asdict(), **lt}
             rows.append(row)
-            print(f"[time] {name} {route} T,B,H={(T, B, H)} bf16 (R {plan.R}, {plan.nres} of "
-                  f"{plan.nres + plan.nstr} chunks resident, {plan.waves} waves, {plan.U} blocks): "
-                  f"kernel {ms:.4f} ms ({ms / T * 1e3:.3f} us a step), device "
-                  f"{kernel_device_ms} ms; the earlier kernel (wide) on the same inputs "
-                  f"{times['earlier']:.4f} ms, device {earlier_device_ms} ms, "
-                  f"{times['earlier'] / ms:.2f}x (means of 2 medians, in turns); plain twin "
+            vs = ("the earlier kernel (wide) not timed at this B and H (PERF.md holds it)"
+                  if times["earlier"] is None else
+                  f"the earlier kernel (wide) on the same inputs {times['earlier']:.4f} ms, device "
+                  f"{earlier_device_ms} ms, {times['earlier'] / ms:.2f}x (means of 2 "
+                  f"{'calls' if once else 'medians'}, in turns)")
+            layout = (f"deep: {plan.ppw} pairs a compute warp, {plan.nstr} chunks of "
+                      f"{plan.chunk} k streamed through {plan.ring} slots" if deep else
+                      f"{plan.nres} of {plan.nres + plan.nstr} chunks resident")
+            print(f"[time] {name} {route} T,B,H={(T, B, H)} bf16 (R {plan.R}, {layout}, "
+                  f"{plan.waves} waves, {plan.U} blocks): kernel {ms:.4f} ms "
+                  f"({ms / T * 1e3:.3f} us a step), device {kernel_device_ms} ms; {vs}; plain twin "
                   f"{times['twin']:.1f} ms (one call); bound {bound_ms:.5f} ms ({bound_by}, "
                   f"{bound_ms / ms:.2%} of it); layer {what}: port {lt['layer_ms']:.4f} ms, "
                   f"cuDNN {cls}(hidden_size={H}, bidirectional=True) bf16 {lt['library_ms']:.4f} "
                   f"ms (medians, CUDA events); device time port {lt['layer_device_ms']} ms, cuDNN "
                   f"{lt['library_device_ms']} ms, cuDNN/port "
-                  f"{_ratio(lt['library_device_ms'], lt['layer_device_ms'])}")
+                  f"{_ratio(lt['library_device_ms'], lt['layer_device_ms'])}", flush=True)
         out[name] = rows
+    return out
+
+
+def _time_deep_kernels(dev) -> dict:
+    """Phase 18d: ``_time_stream_kernels`` for the two BPTTs at
+    ``DEEP_TIMED``, ``"wide"`` in turns at the rows of ``DEEP_EARLIER_B`` and
+    ``DEEP_EARLIER_H`` by one call a turn (0.3–1 s a call there); every row
+    on the deep layout."""
+    out = _time_stream_kernels(dev, DEEP_TIMED, STREAM_NAMES[::2], DEEP_EARLIER_B,
+                               once=("earlier",), earlier_h=DEEP_EARLIER_H)
+    for name, rows in out.items():
+        for row in rows:
+            if row["route"] != "wide_mma_stream" or row["layout"] != "deep":
+                raise AssertionError(f"{name} at T,B,H={tuple(row['shape'])} did not take the "
+                                     f"deep layout: {row['route']}, {row['plan']}")
     return out
 
 
@@ -4751,14 +4930,16 @@ def _bf16_wide_times(dev) -> int:
     """``python3 chip_smoke.py --bf16-wide-times``: after the build, the bf16
     layers past the tensor-core widths: ``bwd_launch("wide", …)`` against
     ``bwd_launch("wide_mma_stream", …)`` on the same inputs in turns (wide,
-    stream, stream, wide; medians of 5 calls, ``_in_turns``) at T = 512,
-    each H of ``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, beside
-    the streamed plan (rows, chunks resident, waves) and the route
+    stream, stream, wide; medians of 5 calls, ``_in_turns``; from
+    ``BF16_WIDE_SLOW_H`` on, "wide" by one call a turn) at T = 512, each H
+    of ``BF16_WIDE_WIDTHS`` and B of ``BF16_WIDE_BATCHES``, beside the
+    streamed plan (rows, the layout's chunks, waves) and the route
     ``bwd_route`` takes there (``mma_layout.BF16_WIDE_BWD`` keeps ``"wide"``
     where it measured faster); the forwards likewise (``fwd_launch``,
     ``fwd_route``, ``mma_layout.BF16_WIDE_FWD``) at each B of
-    ``BF16_WIDE_FWD_BATCHES``; then phase 17d's rows
-    (``_time_stream_kernels``)."""
+    ``BF16_WIDE_FWD_BATCHES`` and each width up to
+    ``wide_mma_layout.stream_fwd_max_h``; then phase 17d's and 18d's rows
+    (``_time_stream_kernels``, ``_time_deep_kernels``)."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda, wide_mma_layout
     from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route
 
@@ -4770,6 +4951,8 @@ def _bf16_wide_times(dev) -> int:
             fwd = what == "fwd"
             launch = m.fwd_launch if fwd else m.bwd_launch
             for H in BF16_WIDE_WIDTHS[cell]:
+                if fwd and H > wide_mma_layout.stream_fwd_max_h(3 if gru else 4):
+                    continue  # the forward stays on "wide" there
                 for B in batches:
                     T = 512
                     if fwd:
@@ -4779,20 +4962,28 @@ def _bf16_wide_times(dev) -> int:
                     Hp = wide_mma_layout.padded(H)
                     plan = (lstm_cuda.stream_fwd_plan(name, B, Hp, 0, dev.index or 0) if fwd else
                             lstm_cuda.stream_plan(name, B, Hp, dev.index or 0))
+                    slow = H >= BF16_WIDE_SLOW_H
                     with torch.no_grad():
                         t = _in_turns({r: (lambda r=r: launch(r, *args))
                                        for r in ("wide", "wide_mma_stream")},
-                                      ("wide", "wide_mma_stream", "wide_mma_stream", "wide"))
+                                      ("wide", "wide_mma_stream", "wide_mma_stream", "wide"),
+                                      once=("wide",) if slow else ())
                     route = (fwd_route if fwd else bwd_route)(dt, H, cell, B)
+                    layout = (f"{plan.ppw} pairs a compute warp, {plan.nstr} chunks of "
+                              f"{plan.chunk} k through {plan.ring} slots"
+                              if not fwd and plan.chunk != 64 else
+                              f"{plan.nres} of {plan.nres + plan.nstr} chunks resident")
                     print(f"[bf16 route] {cell} {what} T,B,H={(T, B, H)}: wide {t['wide']:.4f} ms, "
                           f"wide_mma_stream {t['wide_mma_stream']:.4f} ms "
                           f"({t['wide_mma_stream'] / T * 1e3:.3f} us a step; R {plan.R}, "
-                          f"{plan.nres} of {plan.nres + plan.nstr} chunks resident, {plan.waves} "
-                          f"waves), {t['wide'] / t['wide_mma_stream']:.2f}x (means of 2 medians, "
-                          f"in turns); {what}_route takes {route!r}"
+                          f"{layout}, {plan.waves} waves), "
+                          f"{t['wide'] / t['wide_mma_stream']:.2f}x (means of 2 "
+                          f"{'calls of wide' if slow else 'medians'}, in turns); {what}_route "
+                          f"takes {route!r}"
                           + ("" if t[route] <= min(t.values()) else " (the slower one)"),
                           flush=True)
     _time_stream_kernels(dev)
+    _time_deep_kernels(dev)
     return 0
 
 
@@ -4803,9 +4994,13 @@ def _model_route(kind: str, what: str) -> str:
     cluster kernels (``"wide_f32"``) for both; at the default width in f32
     (``NARROW_MODELS``) the f32 narrow kernels (``"narrow_f32"``) for both;
     at blstm_size=2048 in bf16 (``STREAM_MODELS``) the streamed tensor-core
-    cluster kernels (``"wide_mma_stream"``) for both."""
+    cluster kernels (``"wide_mma_stream"``) for both; at blstm_size=4096
+    (``DEEP_MODELS``) the BPTT on the streamed kernels' deep layout and the
+    forward on ``"wide"``."""
     if kind in STREAM_MODELS:
         return "wide_mma_stream"
+    if kind in DEEP_MODELS:
+        return "wide" if what == "fwd" else "wide_mma_stream"
     if not _is_f32(kind):
         return "wide_mma"
     return "narrow_f32" if kind in NARROW_MODELS else "wide_f32"
@@ -4813,11 +5008,12 @@ def _model_route(kind: str, what: str) -> str:
 
 def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS, depth=None) -> dict:
     """Phase 13b/13c (``WIDE_MODELS``), 14b/14c (``WIDE_GRU_MODELS``), 15b
-    (``NARROW_MODELS``), 16c (``FEW_MODELS``) and 17c (``STREAM_MODELS``):
-    each model served and trained as phases 4–6 serve and train config 3 and
-    the BGRU, every forward and BPTT launch on its route (``_model_route``);
-    at ``depth`` (serves timed, steps held against the twins, steps timed;
-    the f32 models at ``F32_DEPTH`` when none is given)."""
+    (``NARROW_MODELS``), 16c (``FEW_MODELS``), 17c (``STREAM_MODELS``) and
+    18c (``DEEP_MODELS``, every BPTT launch also on the deep layout): each
+    model served and trained as phases 4–6 serve and train config 3 and the
+    BGRU, every forward and BPTT launch on its route (``_model_route``); at
+    ``depth`` (serves timed, steps held against the twins, steps timed; the
+    f32 models at ``F32_DEPTH`` when none is given)."""
     runs = {}
     for kind in kinds:
         route = {what: _model_route(kind, what) for what in ("fwd", "bwd")}
@@ -4837,6 +5033,10 @@ def _cluster_models_path(dev, card: str, kinds=WIDE_MODELS, depth=None) -> dict:
                                          f"route: {routes[name]} of {counts[name]}")
         if not trained["counts"][f"{cell}_bwd"]:
             raise AssertionError(f"train {kind}: no BPTT launched")
+        deep = trained["plans"][f"{cell}_bwd"]["deep"]
+        if kind in DEEP_MODELS and deep != trained["counts"][f"{cell}_bwd"]:
+            raise AssertionError(f"train {kind}: {deep} of {trained['counts'][f'{cell}_bwd']} "
+                                 "BPTT launches on the deep layout")
         print(f"[time] ({card}) {kind}: serve median {served['serve_ms']:.3f} ms, WGAN-GP step "
               f"median {trained['step_ms']:.3f} ms, busy share {trained['busy_share']}; launches "
               f"a serve {served['counts'][f'{cell}_fwd']}, a step "
@@ -5053,9 +5253,17 @@ def main(argv=None) -> int:
     stream_err = _check_stream_kernels(dev)
     stream_runs = _cluster_models_path(dev, smi, STREAM_MODELS, depth=STREAM_DEPTH)
     stream_timed = _time_stream_kernels(dev)
-    plans = {name: {"chunked": 0, "few": 0} for name in PLANNED}
+    t_phase18 = time.perf_counter()
+    # 18. the bf16 BPTTs past the 64-k layout's widths (the deep layout of
+    # "wide_mma_stream"): their plans (in 17a's), both kernels against their
+    # twins and the autograd pairs, config 3 and the BGRU at blstm_size=4096
+    # served and trained through them, their times in turns with "wide"
+    deep_err = _check_deep_kernels(dev)
+    deep_runs = _cluster_models_path(dev, smi, DEEP_MODELS, depth=DEEP_DEPTH)
+    deep_timed = _time_deep_kernels(dev)
+    plans = {name: {"chunked": 0, "few": 0, "64k": 0, "deep": 0} for name in PLANNED}
     for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs,
-                      **stream_runs}.items():
+                      **stream_runs, **deep_runs}.items():
         for what in ("serve", "train"):
             paths[f"{what}_{kind}"] = run[what]["counts"]
             for name, by_route in run[what]["routes"].items():
@@ -5068,8 +5276,8 @@ def main(argv=None) -> int:
           f"{t_phase11 - t_phase10:.1f} s, phase 11 {t_phase12 - t_phase11:.1f} s, phase 12 "
           f"{t_phase13 - t_phase12:.1f} s, phase 13 {t_phase14 - t_phase13:.1f} s, phase 14 "
           f"{t_phase15 - t_phase14:.1f} s, phase 15 {t_phase16 - t_phase15:.1f} s, phase 16 "
-          f"{t_phase17 - t_phase16:.1f} s, phase 17 {time.perf_counter() - t_phase17:.1f} s, total "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"{t_phase17 - t_phase16:.1f} s, phase 17 {t_phase18 - t_phase17:.1f} s, phase 18 "
+          f"{time.perf_counter() - t_phase18:.1f} s, total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "bilstm_fwd": ("bilstm_fwd_mma.cu", "percivaltts_tpu/ops/lstm_pallas.py:202"),
@@ -5186,8 +5394,9 @@ def main(argv=None) -> int:
         gru = name.startswith("bigru")
         checked, runs_w = (wide_gru, wide_gru_runs) if gru else (wide, wide_runs)
         # phase 16's forwards run "wide_f32" too; phase 17's bf16 forwards ran
-        # "wide" until the streamed forwards replaced them (0 launches there)
-        runs_w = {**runs_w, **few_runs, **stream_runs}
+        # "wide" until the streamed forwards replaced them (0 launches there);
+        # phase 18's bf16 forwards run "wide"
+        runs_w = {**runs_w, **few_runs, **stream_runs, **deep_runs}
         # a BPTT's row of its chunked kernel (R > 4; at B = 8 the GRU's H = 512
         # takes the few-row kernels, listed below)
         first = next(r for r in wide_f32_timed[name] if r.get("rows", 8) > 4)
@@ -5290,15 +5499,19 @@ def main(argv=None) -> int:
         what = "forward" if name.endswith("fwd") else "backward"
         first = stream_timed[name][0]
         route = "wide_mma_stream"
-        by_path = {f"{what}_{kind}": run[what]["routes"][name][route]
+        # the BPTTs counted by layout: phase 18's paths run the deep one (below)
+        bwd = name.endswith("bwd")
+        by_path = {f"{what}_{kind}": (run[what]["plans"][name]["64k"] if bwd else
+                                      run[what]["routes"][name][route])
                    for kind, run in stream_runs.items() for what in ("serve", "train")}
+        total = plans[name]["64k"] if bwd else routes[name][route]
         kernels.append({
             "name": f"{name}_{route}",
             "route": "cuda",
             "source": f"percivaltts_tpu_torch/csrc/{name}_{route}.cu",
             "body": "percivaltts_tpu_torch/csrc/wide_mma_stream.cuh",
             "replaces": replaces,
-            "launches": routes[name][route],
+            "launches": total,
             "launches_by_path": by_path,
             "max_abs_err": stream_err[f"{name}_{route}"],
             "ms": first["ms"],
@@ -5319,11 +5532,52 @@ def main(argv=None) -> int:
             "earlier_device_ms": first["earlier_device_ms"],
             "earlier_max_abs_err": stream_err[f"{name}_{route}_earlier"],
             "timed": stream_timed[name],
-            "ptxas": [line for line in _ptxas_usage(BUILD_LOG) if f"{name}_{route}" in line],
+            "ptxas": [line for line in _ptxas_usage(BUILD_LOG)
+                      if f"{name}_{route}_kernel" in line],
         })
-        if not routes[name][route] or sum(by_path.values()) != routes[name][route]:
+        if not total or sum(by_path.values()) != total:
             raise AssertionError(f"{name}'s {route} kernel was launched no time on phase 17's "
                                  "paths, or also elsewhere")
+    # phase 18: the streamed BPTTs' deep layout past the 64-k layout's widths
+    # (csrc/wide_mma_stream.cuh), timed in turns with the "wide" kernels it
+    # replaced there
+    for name, replaces in (("bilstm_bwd", "percivaltts_tpu/ops/lstm_pallas.py:321"),
+                           ("bigru_bwd", "percivaltts_tpu/ops/lstm_pallas.py:616")):
+        gru = name.startswith("bigru")
+        first = deep_timed[name][0]
+        by_path = {f"{what}_{kind}": run[what]["plans"][name]["deep"]
+                   for kind, run in deep_runs.items() for what in ("serve", "train")}
+        kernels.append({
+            "name": f"{name}_wide_mma_stream_deep",
+            "route": "cuda",
+            "source": f"percivaltts_tpu_torch/csrc/{name}_wide_mma_stream.cu",
+            "body": "percivaltts_tpu_torch/csrc/wide_mma_stream.cuh",
+            "replaces": replaces,
+            "launches": plans[name]["deep"],
+            "launches_by_path": by_path,
+            "max_abs_err": deep_err[f"{name}_wide_mma_stream_deep"],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library_device_ms": first["library_device_ms"],
+            "library_call": f"torch.nn.{'GRU' if gru else 'LSTM'}(hidden_size={first['shape'][2]}, "
+                            "bidirectional=True) bf16 backward, beside the port layer's "
+                            "(layer_ms, layer_device_ms)",
+            "layer_ms": first["layer_ms"],
+            "layer_device_ms": first["layer_device_ms"],
+            "kernel_device_ms": first["kernel_device_ms"],
+            "timed_shape": first["shape"],
+            "earlier_source": f"percivaltts_tpu_torch/csrc/{name}_wide.cu",
+            "earlier_ms": first["earlier_ms"],
+            "timed": deep_timed[name],
+            "ptxas": [line for line in _ptxas_usage(BUILD_LOG)
+                      if f"{name}_wide_mma_stream_deep_kernel" in line],
+        })
+        if not plans[name]["deep"] or sum(by_path.values()) != plans[name]["deep"]:
+            raise AssertionError(f"{name}'s deep streamed kernels were launched no time on phase "
+                                 "18's paths, or also elsewhere")
     # phase 15's f32 paths at the default width: the narrow forwards and
     # BPTTs ("narrow_f32"); the one-block kernels they replaced there (timed
     # beside them) stay listed, with their launches on the paths (none)
@@ -5454,7 +5708,7 @@ def main(argv=None) -> int:
           f"torchrun cli train --mesh {mesh_cli['wall_s']:.2f} s, its epoch "
           f"{mesh_cli['record']['sec']:.3f} s")
     for kind, run in {**wide_runs, **wide_gru_runs, **narrow_runs, **few_runs,
-                      **stream_runs}.items():
+                      **stream_runs, **deep_runs}.items():
         print(f"[summary] {kind} ({smi}): serve median {run['serve']['serve_ms']:.3f} ms (busy "
               f"share {run['serve']['busy_share']}), step median {run['train']['step_ms']:.3f} ms "
               f"(busy share {run['train']['busy_share']}); launches {run['serve']['counts']} a "

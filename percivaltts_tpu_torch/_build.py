@@ -126,9 +126,12 @@ def library() -> ctypes.CDLL:
     lib.percival_bigru_fwd_wide.restype = i
     lib.percival_bigru_bwd_wide.argtypes = [p] * 14 + [i, i, i, i, i, i, p]
     lib.percival_bigru_bwd_wide.restype = i
-    for fn in (lib.percival_bilstm_bwd_wide_mma, lib.percival_bigru_bwd_wide_mma,
-               lib.percival_bilstm_bwd_wide_mma_stream, lib.percival_bigru_bwd_wide_mma_stream):
+    for fn in (lib.percival_bilstm_bwd_wide_mma, lib.percival_bigru_bwd_wide_mma):
         fn.argtypes = [p] * 14 + [i, i, i, i, i, p]
+        fn.restype = i
+    # the streamed BPTTs also take the deep layout's scratch for the dh partials
+    for fn in (lib.percival_bilstm_bwd_wide_mma_stream, lib.percival_bigru_bwd_wide_mma_stream):
+        fn.argtypes = [p] * 15 + [i, i, i, i, i, p]
         fn.restype = i
     for fn in (lib.percival_bilstm_bwd_narrow_f32, lib.percival_bigru_bwd_narrow_f32,
                lib.percival_bilstm_bwd_wide_f32, lib.percival_bigru_bwd_wide_f32):

@@ -5,7 +5,9 @@
 // (launched by _bigru_bwd_pallas, :616) on the route "wide_mma_stream"
 // (ops/mma_layout.py::bwd_route): bf16 past H = 672, where the slice of
 // "wide_mma" (bigru_bwd_wide_mma.cu) leaves shared memory, up to the width
-// the stream plan fits (ops/wide_mma_layout.py::stream_max_h). Before it
+// H = 4096 (ops/wide_mma_layout.py::stream_bwd_max_h): past
+// stream_max_h (1536 LSTM, 1792 GRU) on the deep layout (the kernel below
+// the 64-k one; wide_mma_stream.cuh says how it cuts the block). Before it
 // those widths ran bigru_bwd_wide.cu on CUDA cores. The contract is
 // bigru_bwd_wide_mma.cu's:
 //
@@ -58,6 +60,8 @@ using percival::cp_async_wait;
 using percival::kWsChunk;
 using percival::kWsRing;
 using percival::kWsThreads;
+using percival::kWdChunk;
+using percival::kWdHs;
 using percival::kWsWarps;
 using percival::sigmoid_f32;
 using percival::wm_ds;
@@ -328,6 +332,207 @@ __global__ void __launch_bounds__(kWsThreads, 1) bigru_bwd_wide_mma_stream_kerne
   cp_async_wait<0>();
 }
 
+// The deep layout (wide_mma_stream.cuh): past the widths the 64-k layout
+// fits, up to H = 4096. The same contract and step on 32-k chunks whose copy
+// carries h_prev's rows, the dh partials through the cluster's scratch in
+// global memory, PPW (unit group, 8-row tile) pairs a compute warp (their gate
+// operands loaded at the gate phase); grid as above, R = 8·NT8 rows a cluster.
+template <int NT8, int PPW>
+__global__ void __launch_bounds__(kWsThreads, 1) bigru_bwd_wide_mma_stream_deep_kernel(
+    const bf16* __restrict__ gx_f, const bf16* __restrict__ gx_b,
+    const bf16* __restrict__ wp_f, const bf16* __restrict__ wp_b,
+    const bf16* __restrict__ bn_f, const bf16* __restrict__ bn_b,
+    const bf16* __restrict__ hp_f, const bf16* __restrict__ hp_b,
+    const bf16* __restrict__ dy_f, const bf16* __restrict__ dy_b,
+    bf16* __restrict__ dgx_f, bf16* __restrict__ dgx_b,
+    bf16* __restrict__ dnr_f, bf16* __restrict__ dnr_b,
+    float* __restrict__ scratch, int n_steps, int B, int H, int Hb, int ring) {
+  constexpr int R = 8 * NT8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int U = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const bool backward = blockIdx.y == 1;
+  const int row_tile = blockIdx.x / U, row0 = row_tile * R;
+  const int NC = 3 * Hb, G = 3 * H, DS = wm_ds(NC);
+  const int NUG = Hb / kUnits, nch = H / kWdChunk;
+  const int tile = NC * kWdChunk;  // elements a chunk tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int ld_row = lane & 7, ld_mat = lane >> 3;
+
+  const bf16* __restrict__ gx = backward ? gx_b : gx_f;
+  const bf16* __restrict__ wp = (backward ? wp_b : wp_f) + (size_t)rank * nch * tile;
+  const bf16* __restrict__ bn = backward ? bn_b : bn_f;
+  const bf16* __restrict__ hp = backward ? hp_b : hp_f;
+  const bf16* __restrict__ dy = backward ? dy_b : dy_f;
+  bf16* __restrict__ dgx = backward ? dgx_b : dgx_f;
+  bf16* __restrict__ dnr_out = backward ? dnr_b : dnr_f;
+  // this cluster's two buffers of dh partials, [owner][source][Hb][R] each
+  const size_t part_elems = (size_t)U * U * Hb * R;
+  float* const parts =
+      scratch + ((size_t)blockIdx.y * (gridDim.x / U) + row_tile) * 2 * part_elems;
+
+  // BPTT step s visits frame t(s): descending for the forward direction
+  auto frame = [=](int s) { return backward ? s : n_steps - 1 - s; };
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* const s_ring = reinterpret_cast<bf16*>(smem);              // ring chunk tiles
+  bf16* const s_hr = s_ring + (size_t)ring * tile;                 // their h_prev rows [R][kWdHs]
+  bf16* const s_dg = s_hr + (size_t)ring * R * kWdHs;              // dz [R][DS]
+  float* const s_carry = reinterpret_cast<float*>(                 // summed dh partials [Hb][R]
+      reinterpret_cast<unsigned char*>(s_dg) + percival::align16((size_t)R * DS * 2));
+  uint64_t* const s_full = reinterpret_cast<uint64_t*>(s_carry + (size_t)Hb * R);
+  uint64_t* const s_empty = s_full + ring;
+  if (tid == 0) {
+    for (int i = 0; i < ring; ++i) {
+      ws_mbar_init(&s_full[i], 1);
+      ws_mbar_init(&s_empty[i], kWsWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the mbarriers set
+
+  if (warp == kWsWarps) {  // the producer
+    percival::wd_produce(wp, hp, s_ring, s_hr, s_full, s_empty, NC, R, ring, n_steps, B, H, row0,
+                         frame, lane);
+    return;
+  }
+
+  // ---- pairs: warp w takes pairs p0 … p0 + np − 1 of the block's NUG × NT8
+  // (unit group p / NT8, 8-row tile p % NT8); every warp takes dh items ----
+  const int pairs = NUG * NT8, p0 = warp * PPW;
+  const int np = p0 < pairs ? min(PPW, pairs - p0) : 0;
+
+  // per pair: m-tiles r|z (units 0–7), r|z (units 8–15), n (0–7) | n (8–15), 8 rows
+  float z[PPW][3][4];
+  float dhz[PPW][2][2];  // dh·z of the previous step: the carry's direct path
+#pragma unroll
+  for (int i = 0; i < PPW; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) dhz[i][u][0] = dhz[i][u][1] = 0.0f;
+
+  int slot = 0, phase = 0;  // the ring slot of the next chunk, and its fill's parity
+  // a pass over the chunks: the recompute of the pairs' z, and where s_dh >= 0
+  // the dh of step s_dh into its buffer of partials
+  auto run_pass = [&](int s_dh) {
+#pragma unroll
+    for (int i = 0; i < PPW; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) z[i][j][k] = 0.0f;
+    float* const part = parts + (s_dh & 1) * part_elems;
+    for (int c = 0; c < nch; ++c) {
+      ws_mbar_wait(&s_full[slot], phase);
+      const bf16* w = s_ring + (size_t)slot * tile;
+      if (np > 0)
+        percival::wd_recompute<3, PPW, NT8>(
+            z, w, s_hr + (size_t)slot * R * kWdHs + ld_row * kWdHs + ld_mat * 8, np, p0,
+            kGroupRows, ld_row, ld_mat);
+      if (s_dh >= 0)
+        percival::wd_dh_chunk<NT8>(w, s_dg, part, c, U, Hb, NC, rank, warp, lane);
+      __syncwarp();
+      if (lane == 0) ws_mbar_arrive(&s_empty[slot]);
+      if (++slot == ring) slot = 0, phase ^= 1;
+    }
+  };
+
+  // the lines of frame t's gate operands hinted into L2 while a pass runs
+  // (the gate phase loads them; a group's 16 units are one 32-byte run)
+  auto prefetch_cell = [&](int t) {
+    if (g != 0) return;
+#pragma unroll
+    for (int i = 0; i < PPW; ++i) {
+      if (i >= np) break;
+      const int p = p0 + i, ug = p / NT8, unit0 = rank * Hb + ug * kUnits;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = row0 + (p - ug * NT8) * 8 + 2 * q + e;
+        if (unit0 >= H || row >= B) continue;
+        const size_t grow = (size_t)t * B + row;
+#pragma unroll
+        for (int gi = 0; gi < 3; ++gi) percival::wsf_prefetch_l2(gx + grow * G + gi * H + unit0);
+        percival::wsf_prefetch_l2(hp + grow * H + unit0);
+        percival::wsf_prefetch_l2(dy + grow * H + unit0);
+      }
+    }
+  };
+
+  prefetch_cell(frame(0));
+  run_pass(-1);  // z of step 0
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = frame(s);
+    if (s > 0) {  // every block's dh partials of step s − 1, summed in block order
+      percival::wd_sum_partials<R, percival::wd_part_loads(3)>(
+          parts + ((s + 1) & 1) * part_elems, s_carry, U, Hb, rank, tid);
+      ws_compute_sync();
+    }
+
+    // ---- gate phase: d(gates) of this step from gh, the carries and the operands ----
+#pragma unroll
+    for (int i = 0; i < PPW; ++i) {
+      if (i >= np) break;
+      const int p = p0 + i, ug = p / NT8;
+      const int r0 = (p - ug * NT8) * 8 + 2 * q;  // the lane's rows r0, r0 + 1 of the tile
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int ul = ug * kUnits + 8 * u + g, unit = rank * Hb + ul;
+        const bool unit_ok = unit < H;
+        float2 carry = make_float2(dhz[i][u][0], dhz[i][u][1]);
+        if (s > 0) {
+          const float2 v = *reinterpret_cast<const float2*>(s_carry + ul * R + r0);
+          carry.x += v.x;
+          carry.y += v.y;
+        }
+        const float bias = unit_ok ? __bfloat162float(bn[unit]) : 0.0f;
+        // packed rows of the group: r | z of units 0–7 (0, 8), of 8–15 (16, 24), n (32, 40)
+        bf16* dgr = s_dg + ug * kGroupRows + 16 * u + g;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + r0 + e;
+          const bool ok = unit_ok && row < B;
+          const size_t grow = (size_t)t * B + row;
+          const bf16 zero = __float2bfloat16(0.0f);
+          const bf16* gxr = gx + grow * G + unit;
+          const float xr = __bfloat162float(ok ? gxr[0] : zero);
+          const float xz = __bfloat162float(ok ? gxr[H] : zero);
+          const float xn = __bfloat162float(ok ? gxr[2 * H] : zero);
+          const float hprev = __bfloat162float(ok ? hp[grow * H + unit] : zero);
+          const float dyv = __bfloat162float(ok ? dy[grow * H + unit] : zero);
+          const float rg = sigmoid_f32(xr + z[i][u][e]);
+          const float zg = sigmoid_f32(xz + z[i][u][2 + e]);
+          const float ghn = z[i][2][2 * u + e] + bias;
+          const float ng = tanhf(xn + rg * ghn);
+          const float dh = dyv + (e ? carry.y : carry.x);
+          const float dn_pre = dh * (1.0f - zg) * (1.0f - ng * ng);
+          const bf16 dr = ok ? __float2bfloat16(dn_pre * ghn * rg * (1.0f - rg)) : zero;
+          const bf16 dz = ok ? __float2bfloat16(dh * (hprev - ng) * zg * (1.0f - zg)) : zero;
+          const bf16 dnr = ok ? __float2bfloat16(dn_pre * rg) : zero;
+          bf16* dgt = dgr + (r0 + e) * DS;
+          dgt[0] = dr;
+          dgt[8] = dz;
+          dgt[32 - 8 * u] = dnr;  // n rows: 32 + g (units 0–7), 40 + g (8–15)
+          if (ok) {
+            bf16* out = dgx + grow * G + unit;
+            out[0] = dr;
+            out[H] = dz;
+            out[2 * H] = __float2bfloat16(dn_pre);
+            dnr_out[grow * H + unit] = dnr;
+          }
+          dhz[i][u][e] = ok ? dh * zg : 0.0f;
+        }
+        percival::wd_pair_fence();
+      }
+    }
+    if (s + 1 == n_steps) break;
+    ws_compute_sync();  // s_dg complete
+    prefetch_cell(frame(s + 1));
+    run_pass(s);        // step s+1's recompute and step s's dh, a chunk at a time
+    cluster_arrive();   // step s's partials written to the scratch
+    cluster_wait();     // every block's partials of step s written
+  }
+}
+
 const void* kernel_for(int NT8) {
   switch (NT8) {
     case 1: return (const void*)&bigru_bwd_wide_mma_stream_kernel<1>;
@@ -337,13 +542,27 @@ const void* kernel_for(int NT8) {
   }
 }
 
+// the deep kernels instantiated: the (rows, pairs a compute warp) that the
+// GRU's deep widths take (H 1824–4096: 8–16 unit groups a block) and that
+// fit 128 registers with no spill (ptxas: the three-tile 2-pair kernel
+// spilled 8 B: not instantiated, so the GRU runs at most 16 rows a
+// cluster; ops/wide_mma_layout.py::STREAM_DEEP_KERNELS)
+const void* deep_for(int NT8, int PPW) {
+  switch (NT8 * 8 + PPW) {
+    case 9: return (const void*)&bigru_bwd_wide_mma_stream_deep_kernel<1, 1>;
+    case 10: return (const void*)&bigru_bwd_wide_mma_stream_deep_kernel<1, 2>;
+    case 18: return (const void*)&bigru_bwd_wide_mma_stream_deep_kernel<2, 2>;
+    default: return nullptr;
+  }
+}
+
 cudaError_t plan_for(int B, int H, int Hb, int U, WideStreamPlan* plan) {
-  return percival::wide_stream_plan(B, H, Hb, U, 3, kUnits, kernel_for, plan);
+  return percival::wide_stream_plan(B, H, Hb, U, 3, kUnits, kernel_for, deep_for, plan);
 }
 
 }  // namespace
 
-// The plan a launch of (B, H, Hb, U) takes, into out[10], as
+// The plan a launch of (B, H, Hb, U) takes, into out[14], as
 // percival_bilstm_bwd_wide_mma_stream_plan.
 extern "C" int percival_bigru_bwd_wide_mma_stream_plan(int B, int H, int Hb, int U, int* out) {
   WideStreamPlan plan{};
@@ -353,17 +572,19 @@ extern "C" int percival_bigru_bwd_wide_mma_stream_plan(int B, int H, int Hb, int
 }
 
 // bf16 only, H a multiple of 32. Inputs in the order of _bigru_bwd_pallas:
-// gx, W_hᵀ (packed per block and chunk, ops/wide_mma_layout.py::pack_wh_stream),
-// b_hn, h_prev, dy; then the outputs dgx and dnr; each as (forward direction,
-// backward direction). Every pointer 16-byte aligned, none null. Returns a
-// cudaError_t.
+// gx, W_hᵀ (packed per block and chunk, ops/wide_mma_layout.py::pack_wh_stream
+// at the plan's chunk), b_hn, h_prev, dy; then the outputs dgx and dnr; each as
+// (forward direction, backward direction); then the deep layout's scratch for
+// the dh partials (2·ceil(B / R) clusters × the plan's scratch bytes; unread,
+// and may be null, in the 64-k layout). Every other pointer 16-byte aligned,
+// none null. Returns a cudaError_t.
 extern "C" int percival_bigru_bwd_wide_mma_stream(const void* gx_f, const void* gx_b,
                                                   const void* wp_f, const void* wp_b,
                                                   const void* bn_f, const void* bn_b,
                                                   const void* hp_f, const void* hp_b,
                                                   const void* dy_f, const void* dy_b,
                                                   void* dgx_f, void* dgx_b,
-                                                  void* dnr_f, void* dnr_b,
+                                                  void* dnr_f, void* dnr_b, void* scratch,
                                                   int n_steps, int B, int H, int Hb, int U,
                                                   void* stream) {
   if (n_steps < 1) return cudaErrorInvalidValue;
@@ -374,12 +595,20 @@ extern "C" int percival_bigru_bwd_wide_mma_stream(const void* gx_f, const void* 
   WideStreamPlan plan{};
   cudaError_t err = plan_for(B, H, Hb, U, &plan);
   if (err != cudaSuccess) return err;
-  int nres = plan.nres, dbuf = plan.dbuf;
+  int nres = plan.nres, dbuf = plan.dbuf, ring = plan.ring;
   void* args[] = {(void*)&gx_f, (void*)&gx_b, (void*)&wp_f, (void*)&wp_b,
                   (void*)&bn_f, (void*)&bn_b, (void*)&hp_f, (void*)&hp_b,
                   (void*)&dy_f, (void*)&dy_b, (void*)&dgx_f, (void*)&dgx_b,
                   (void*)&dnr_f, (void*)&dnr_b,
                   (void*)&n_steps, (void*)&B, (void*)&H, (void*)&Hb, (void*)&nres, (void*)&dbuf};
-  return percival::wide_stream_launch(plan, B, kernel_for, args,
-                                     static_cast<cudaStream_t>(stream));
+  void* deep_args[] = {(void*)&gx_f, (void*)&gx_b, (void*)&wp_f, (void*)&wp_b,
+                       (void*)&bn_f, (void*)&bn_b, (void*)&hp_f, (void*)&hp_b,
+                       (void*)&dy_f, (void*)&dy_b, (void*)&dgx_f, (void*)&dgx_b,
+                       (void*)&dnr_f, (void*)&dnr_b, (void*)&scratch,
+                       (void*)&n_steps, (void*)&B, (void*)&H, (void*)&Hb, (void*)&ring};
+  const bool deep = plan.chunk == percival::kWdChunk;
+  if (deep && (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16))
+    return cudaErrorInvalidValue;
+  return percival::wide_stream_launch(plan, B, kernel_for, deep_for, deep ? deep_args : args,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -33,9 +33,11 @@ cluster kernel ``csrc/bigru_fwd_wide.cu`` (``ops/wide_layout.py``; H up to
 4096); f32 up to H = 320 the f32 cluster kernel
 ``csrc/bigru_fwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``); everything else ``csrc/bigru_fwd.cu``. The
-BPTT takes the same route (``bwd_route``): ``csrc/bigru_bwd_mma.cu``,
+BPTT takes the same route (``bwd_route``), but bf16 past 1792 up to 4096
+the streamed kernel's deep layout: ``csrc/bigru_bwd_mma.cu``,
 ``csrc/bigru_bwd_wide_mma.cu``, ``csrc/bigru_bwd_wide_mma_stream.cu``
-(``lstm_cuda.stream_plan``; both passes read one packing),
+(``lstm_cuda.stream_plan``; up to 1792 both passes read one packing, past
+it the BPTT its own, 32 k a chunk),
 ``csrc/bigru_bwd_wide_f32.cu``, ``csrc/bigru_bwd_narrow_f32.cu``,
 ``csrc/bigru_bwd_wide.cu`` or ``csrc/bigru_bwd.cu``; at B <= 8 the
 ``"wide_f32"`` launcher takes its few-row kernels (``csrc/wide_f32_few.cuh``,
@@ -69,12 +71,15 @@ from percivaltts_tpu_torch.ops.lstm_cuda import (
     aligned16,
     at_width,
     check_route,
+    count_stream,
     count_wide_f32,
     input_gates,
     narrow_f32_fwd_plan,
     narrow_f32_plan,
     rows_per_block,
     stream_args,
+    stream_plan,
+    stream_scratch,
     wide_f32_plan,
 )
 from percivaltts_tpu_torch.ops.mma_layout import bwd_route, fwd_route, pack_wh
@@ -209,7 +214,7 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, rows: int = 0,
     multiple of 32 zero-padded to one (``lstm_cuda.at_width``), at ``rows``
     rows a cluster when given (0: the plan's choice), and so does
     ``"wide_mma_stream"`` (bf16 only, H up to
-    ``wide_mma_layout.stream_max_h(3)``); ``"narrow_f32"`` (f32
+    ``wide_mma_layout.stream_fwd_max_h(3)``); ``"narrow_f32"`` (f32
     only, H up to 320) H that is not a multiple of 8, with
     ``lstm_cuda.fwd_launch``'s overrides ``blocks``, ``rows`` and
     ``resident``; ``"wide_f32"`` (f32 only, H up to
@@ -384,7 +389,8 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
     zero-padded to one (``lstm_cuda.at_width``), up to H = 320;
     ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(3)``),
     ``"wide_mma_stream"`` (bf16 only, H up to
-    ``wide_mma_layout.stream_max_h(3)``) and ``"wide_f32"`` (f32 only, H up
+    ``wide_mma_layout.stream_bwd_max_h(3)``; past ``stream_max_h(3)`` on the
+    deep layout) and ``"wide_f32"`` (f32 only, H up
     to ``wide_f32_layout.max_h(3)``) likewise;
     ``"narrow_f32"`` (f32 only, H up to 320) H that is not a multiple of 8,
     over at most ``blocks`` blocks a cluster and ``rows`` rows when given
@@ -439,14 +445,16 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f,
                 T, B, H, p.Hb, p.U, stream,
             )
         elif route == "wide_mma_stream":
-            packed, p = stream_args(wh_f, wh_b, 3)
+            sp = stream_plan("bigru", B, H, device.index)
+            packed, p = stream_args(wh_f, wh_b, 3, sp.chunk)
+            scratch = stream_scratch(sp, B, device)
             stream = torch.cuda.current_stream(device).cuda_stream
             # held in names until the launch (see lstm_cuda.fwd_launch)
             ins = (aligned16(gx_f), aligned16(gx_b), *packed,
                    *map(aligned16, (bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)))
             err = lib.percival_bigru_bwd_wide_mma_stream(
                 *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-                T, B, H, p.Hb, p.U, stream,
+                None if scratch is None else scratch.data_ptr(), T, B, H, p.Hb, p.U, stream,
             )
         elif route == "wide_f32":
             p = wide_layout.plan(H, 3)
@@ -499,9 +507,10 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     Arguments as :func:`bigru_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 672,
-    the streamed tensor-core cluster one for bf16 past 672 up to 1792, the
+    the streamed tensor-core cluster one for bf16 past 672 up to 4096 (on
+    its deep layout past 1792), the
     f32 cluster one for f32 past 320 up to 512 (its few-row kernels at
-    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 1792),
+    B <= 8), the CUDA-core cluster one for f32 past 512,
     the f32 narrow cluster one for f32 up
     to 320, else the one-block CUDA-core one,
     H not a multiple of 32 zero-padded to one
@@ -511,7 +520,9 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     ``wide_layout.GRU_MAX_H``, or a launch error.
     Every launch adds one to ``bigru_bwd.launches`` and to its route's entry
     of ``bigru_bwd.routes``; a ``"wide_f32"`` launch also to its kernel's
-    entry of ``bigru_bwd.wide_f32_plans``."""
+    entry of ``bigru_bwd.wide_f32_plans``, a ``"wide_mma_stream"`` one to
+    its layout's entry of ``bigru_bwd.stream_layouts`` (``"64k"`` or
+    ``"deep"``)."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b)
     _check_states(gx_f, hp_f, hp_b, dy_f, dy_b)
     ins = (gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b)
@@ -524,6 +535,8 @@ def bigru_bwd(gx_f, gx_b, wh_f, wh_b, bn_f, bn_b, hp_f, hp_b, dy_f, dy_b):
     bigru_bwd.routes[route] += 1
     if route == "wide_f32":
         count_wide_f32(bigru_bwd, "bigru", gx_f.shape[1], gx_f.shape[-1] // 3, device.index)
+    if route == "wide_mma_stream":
+        count_stream(bigru_bwd, "bigru", gx_f.shape[1], gx_f.shape[-1] // 3, device.index)
     return out
 
 
@@ -532,6 +545,8 @@ bigru_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_mma_str
                     "wide_f32": 0, "narrow_f32": 0}
 # the "wide_f32" launches by the kernel their plan took (lstm_cuda.count_wide_f32)
 bigru_bwd.wide_f32_plans = {"chunked": 0, "few": 0}
+# the "wide_mma_stream" launches by the layout their plan took (lstm_cuda.count_stream)
+bigru_bwd.stream_layouts = {"64k": 0, "deep": 0}
 
 
 class BiGRUFunction(torch.autograd.Function):

@@ -27,10 +27,12 @@ cluster kernel ``csrc/bilstm_fwd_wide.cu`` (``ops/wide_layout.py``; H up
 to 4096); f32 up to H = 256 the f32 cluster kernel
 ``csrc/bilstm_fwd_narrow_f32.cu`` (``"narrow_f32"``,
 ``ops/narrow_f32_layout.py``); everything else ``csrc/bilstm_fwd.cu``. The
-BPTT takes the same route (``bwd_route``):
+BPTT takes the same route (``bwd_route``), but bf16 past 1536 up to 4096
+the streamed kernel's deep layout:
 ``csrc/bilstm_bwd_mma.cu``, ``csrc/bilstm_bwd_wide_mma.cu``,
-``csrc/bilstm_bwd_wide_mma_stream.cu`` (:func:`stream_plan`; both passes
-read one packing), ``csrc/bilstm_bwd_wide_f32.cu``,
+``csrc/bilstm_bwd_wide_mma_stream.cu`` (:func:`stream_plan`; up to 1536 both
+passes read one packing, past it the BPTT its own, 32 k a chunk),
+``csrc/bilstm_bwd_wide_f32.cu``,
 ``csrc/bilstm_bwd_narrow_f32.cu``, ``csrc/bilstm_bwd_wide.cu`` or
 ``csrc/bilstm_bwd.cu``; at B <= 8 the ``"wide_f32"`` launcher takes its
 few-row kernels (``csrc/wide_f32_few.cuh``, :func:`wide_f32_plan`).
@@ -256,22 +258,46 @@ def _wide_mma_check(dtype: torch.dtype, H: int, gates: int) -> None:
 
 def _wide_mma_stream_check(dtype: torch.dtype, H: int, gates: int, what: str = "BPTT") -> None:
     """Raise unless the streamed tensor-core cluster kernels (``what``:
-    ``"BPTT"`` or ``"forward"``) take ``dtype`` and ``H``: bf16 up to
-    ``wide_mma_layout.stream_max_h``, the widths of the streamed BPTT, for
-    both passes (one rule)."""
+    ``"BPTT"`` or ``"forward"``) take ``dtype`` and ``H``: bf16, the forward
+    up to ``wide_mma_layout.stream_fwd_max_h`` (1536 / 1792), the BPTT up to
+    ``stream_bwd_max_h`` (4096, on its deep layout past the forward's
+    widths): the two passes' limits part until the forward's redesign."""
     if dtype != torch.bfloat16:
         raise TypeError(f"the streamed tensor-core wide {what}s take bfloat16, got {dtype}")
-    if not wide_mma_layout.stream_fits(H, gates):
+    fwd = what == "forward"
+    if not (wide_mma_layout.stream_fits if fwd else wide_mma_layout.stream_bwd_fits)(H, gates):
+        limit = (wide_mma_layout.stream_fwd_max_h if fwd else wide_mma_layout.stream_bwd_max_h)
         raise ValueError(f"the streamed tensor-core wide {wide_mma_layout.CELLS[gates]} {what}s "
-                         f"take H <= {wide_mma_layout.stream_max_h(gates)}, got H={H}")
+                         f"take H <= {limit(gates)}, got H={H}")
 
 
-def stream_args(wh_f, wh_b, gates: int) -> tuple:
+def stream_args(wh_f, wh_b, gates: int, chunk: int = wide_mma_layout.CHUNK) -> tuple:
     """Both directions' ``W_hᵀ`` packed per block and chunk for the streamed
-    kernels (``wide_mma_layout.pack_wh_stream``: the forward's and the
-    BPTT's, one packing) and the split they share."""
+    kernels (``wide_mma_layout.pack_wh_stream``) and the split they share:
+    at 64 k a chunk the forward's and the BPTT's 64-k layout's packing, at 32
+    (``DEEP_CHUNK``) the BPTT's deep layout's (the forward does not run
+    there: each pass gets its own until the forward's redesign)."""
     p = wide_mma_layout.plan(wh_f.shape[0], gates)
-    return (wide_mma_layout.pack_wh_stream(wh_f, p), wide_mma_layout.pack_wh_stream(wh_b, p)), p
+    return (wide_mma_layout.pack_wh_stream(wh_f, p, chunk),
+            wide_mma_layout.pack_wh_stream(wh_b, p, chunk)), p
+
+
+def stream_scratch(sp: wide_mma_layout.StreamPlan, B: int, device) -> torch.Tensor | None:
+    """The streamed BPTT's scratch for a launch of ``B`` rows on plan ``sp``:
+    in the deep layout the dh partials of its 2·ceil(B / R) clusters
+    (``sp.scratch`` bytes each, uninitialised: every slot is written before
+    it is read); None in the 64-k layout, which keeps them on chip."""
+    if not sp.scratch:
+        return None
+    return torch.empty(2 * -(-B // sp.R) * sp.scratch, dtype=torch.uint8, device=device)
+
+
+def count_stream(wrapper, kind: str, B: int, H: int, device: int) -> None:
+    """Add a ``"wide_mma_stream"`` BPTT launch of ``B`` rows at width ``H``
+    to ``wrapper.stream_layouts`` by the layout its plan takes: ``"64k"``
+    (64-k chunks, some resident) or ``"deep"`` (32-k chunks, all streamed)."""
+    sp = stream_plan(kind, B, wide_mma_layout.padded(H), device)
+    wrapper.stream_layouts["deep" if sp.chunk == wide_mma_layout.DEEP_CHUNK else "64k"] += 1
 
 
 def _wide_f32_check(dtype: torch.dtype, H: int, gates: int, what: str = "BPTT") -> None:
@@ -358,11 +384,12 @@ def wide_f32_plan(kind: str, B: int, H: int, rows: int = 0,
 def stream_plan(kind: str, B: int, H: int, device: int = 0) -> wide_mma_layout.StreamPlan:
     """The streamed BPTT's launch plan, ``percival_{kind}_bwd_wide_mma_stream_plan``,
     for ``B`` rows at width ``H`` (a multiple of 32) on card ``device``
-    (``kind``: ``"bilstm"`` or ``"bigru"``); raises when none fits."""
+    (``kind``: ``"bilstm"`` or ``"bigru"``): the 64-k layout or, past
+    ``wide_mma_layout.stream_max_h``, the deep one; raises when none fits."""
     from percivaltts_tpu_torch import _build
 
     p = wide_mma_layout.plan(H, 4 if kind == "bilstm" else 3)
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 14)()
     with torch.cuda.device(device):
         fn = getattr(_build.library(), f"percival_{kind}_bwd_wide_mma_stream_plan")
         _build.check(fn(B, H, p.Hb, p.U, out), f"{kind} streamed BPTT plan at B={B} H={H}")
@@ -415,7 +442,7 @@ def fwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, with_cells: bool = False, row
     multiple of 32 zero-padded to one (:func:`at_width`), at ``rows`` rows a
     cluster when given (a measurement's override; 0: the plan's choice,
     ``wide_mma_layout.fwd_rows``), and so does ``"wide_mma_stream"`` (bf16
-    only, H up to ``wide_mma_layout.stream_max_h(4)``, else ``ValueError``
+    only, H up to ``wide_mma_layout.stream_fwd_max_h(4)``, else ``ValueError``
     naming it; 0: the plan's choice, ``wide_mma_layout.stream_fwd_plan``,
     :func:`stream_fwd_plan`);
     ``"narrow_f32"`` (f32 only, H up to 256)
@@ -597,7 +624,8 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
     only, H up to 256, else ``ValueError``) run H that is not a multiple of
     8, and ``"wide_mma"`` (bf16 only, H up to ``wide_mma_layout.max_h(4)``),
     ``"wide_mma_stream"`` (bf16 only, H up to
-    ``wide_mma_layout.stream_max_h(4)``, else ``ValueError`` naming it) and
+    ``wide_mma_layout.stream_bwd_max_h(4)``, else ``ValueError`` naming it;
+    past ``stream_max_h(4)`` on the deep layout) and
     ``"wide_f32"`` (f32 only, H up to ``wide_f32_layout.max_h(4)``) H
     that is not a multiple of 32, zero-padded to one (:func:`at_width`).
     ``"narrow_f32"`` splits over at most ``blocks`` blocks a cluster and
@@ -650,13 +678,15 @@ def bwd_launch(route: str, gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, 
                 T, B, H, p.Hb, p.U, stream,
             )
         elif route == "wide_mma_stream":
-            packed, p = stream_args(wh_f, wh_b, 4)
+            sp = stream_plan("bilstm", B, H, device.index)
+            packed, p = stream_args(wh_f, wh_b, 4, sp.chunk)
+            scratch = stream_scratch(sp, B, device)
             stream = torch.cuda.current_stream(device).cuda_stream
             # held in names until the launch (see fwd_launch)
             ins = (aligned16(gx_f), aligned16(gx_b), *packed, *map(aligned16, states))
             err = lib.percival_bilstm_bwd_wide_mma_stream(
                 *(t.data_ptr() for t in ins), dgx_f.data_ptr(), dgx_b.data_ptr(),
-                T, B, H, p.Hb, p.U, stream,
+                None if scratch is None else scratch.data_ptr(), T, B, H, p.Hb, p.U, stream,
             )
         elif route == "wide_f32":
             p = wide_layout.plan(H)
@@ -708,9 +738,10 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     Arguments as :func:`bilstm_bwd_reference`. CUDA tensors launch a
     hand-written kernel: the tensor-core one for bf16 with H a multiple of
     16 up to 128, the tensor-core cluster one for bf16 past 128 up to 608,
-    the streamed tensor-core cluster one for bf16 past 608 up to 1536, the
+    the streamed tensor-core cluster one for bf16 past 608 up to 4096 (on
+    its deep layout past 1536), the
     f32 cluster one for f32 past 256 up to 512 (its few-row kernels at
-    B <= 8), the CUDA-core cluster one past those (f32: 512, bf16: 1536),
+    B <= 8), the CUDA-core cluster one for f32 past 512,
     the f32 narrow cluster one for f32 up
     to 256, else the one-block CUDA-core one, H not a multiple of 8
     zero-padded to one
@@ -721,7 +752,9 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     ``wide_layout.MAX_H``, or a launch error. Every launch adds one to
     ``bilstm_bwd.launches`` and to its route's entry of
     ``bilstm_bwd.routes``; a ``"wide_f32"`` launch also to its kernel's
-    entry of ``bilstm_bwd.wide_f32_plans`` (``"few"`` or ``"chunked"``)."""
+    entry of ``bilstm_bwd.wide_f32_plans`` (``"few"`` or ``"chunked"``), a
+    ``"wide_mma_stream"`` one to its layout's entry of
+    ``bilstm_bwd.stream_layouts`` (``"64k"`` or ``"deep"``)."""
     _check_shapes(gx_f, gx_b, wh_f, wh_b)
     states = (hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, dy_b)
     _check_states(gx_f, *states)
@@ -734,6 +767,8 @@ def bilstm_bwd(gx_f, gx_b, wh_f, wh_b, hp_f, hp_b, cp_f, cp_b, c_f, c_b, dy_f, d
     bilstm_bwd.routes[route] += 1
     if route == "wide_f32":
         count_wide_f32(bilstm_bwd, "bilstm", gx_f.shape[1], gx_f.shape[-1] // 4, device.index)
+    if route == "wide_mma_stream":
+        count_stream(bilstm_bwd, "bilstm", gx_f.shape[1], gx_f.shape[-1] // 4, device.index)
     return out
 
 
@@ -742,6 +777,8 @@ bilstm_bwd.routes = {"mma": 0, "simt": 0, "wide": 0, "wide_mma": 0, "wide_mma_st
                      "wide_f32": 0, "narrow_f32": 0}
 # the "wide_f32" launches by the kernel their plan took (count_wide_f32)
 bilstm_bwd.wide_f32_plans = {"chunked": 0, "few": 0}
+# the "wide_mma_stream" launches by the layout their plan took (count_stream)
+bilstm_bwd.stream_layouts = {"64k": 0, "deep": 0}
 
 
 class BiLSTMFunction(torch.autograd.Function):

@@ -25,7 +25,9 @@ cluster kernels: on the tensor cores in bf16 where a block's share of
 ``W_hᵀ`` fits its shared memory (``ops/wide_mma_layout.py``), else on CUDA
 cores (``ops/wide_layout.py``) but in bf16 up to H = 1536 / 1792, where both
 passes stream the slice from L2 into the tensor-core kernels
-(``"wide_mma_stream"``); f32 there takes its own cluster
+(``"wide_mma_stream"``), and past it up to 4096 the BPTT, on the streamed
+kernels' deep layout (the forward there stays on CUDA cores until its own
+redesign); f32 there takes its own cluster
 kernels up to H = 512 (``ops/wide_f32_layout.py``), and at the one-block
 widths both f32 passes take cluster kernels too, which hold W_h on chip for
 all of a cluster's rows (``ops/narrow_f32_layout.py``).
@@ -109,8 +111,8 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     its shared memory (``wide_mma_layout.fits``: H up to 608 for the LSTM,
     672 for the GRU); past it ``"wide_mma_stream"``
     (``csrc/{bilstm,bigru}_fwd_wide_mma_stream.cu``, tensor cores, the
-    slice streamed from L2 in chunks) up to ``wide_mma_layout.stream_max_h``
-    (1536 / 1792: where the streamed BPTT fits) unless ``BF16_WIDE_FWD``
+    slice streamed from L2 in chunks) up to ``wide_mma_layout.stream_fwd_max_h``
+    (1536 / 1792: where the BPTT's 64-k layout fits) unless ``BF16_WIDE_FWD``
     keeps ``"wide"`` for so few rows ``B``; ``"wide_f32"``
     (``csrc/{bilstm,bigru}_fwd_wide_f32.cu``, a block's f32 ``W_h`` slice
     held on chip, in shared memory and registers) for f32 wherever
@@ -118,7 +120,8 @@ def fwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     keep ``"wide"`` for so few rows ``B`` (without ``B``, a large batch's
     route); else ``"wide"`` (``csrc/bilstm_fwd_wide.cu`` /
     ``csrc/bigru_fwd_wide.cu``, CUDA cores: f32 past 512, bf16 past the
-    streamed widths); up to the one-block widths f32 takes
+    streamed forward's widths, ``wide_mma_layout.stream_fwd_max_h``: the
+    BPTT's route goes further, :func:`bwd_route`); up to the one-block widths f32 takes
     ``"narrow_f32"`` (``csrc/{bilstm,bigru}_fwd_narrow_f32.cu``, a cluster
     a direction holding W_h on chip, ``narrow_f32_layout.fits``; the card
     measured it faster than ``"simt"`` at every width and batch it timed:
@@ -158,7 +161,11 @@ def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     kernels' BPTTs: ``csrc/{bilstm,bigru}_bwd{,_mma,_wide_mma,
     _wide_mma_stream,_wide_f32,_narrow_f32,_wide}.cu``), but ``"wide"``
     where ``BF16_WIDE_BWD`` keeps it for so few rows ``B`` (the card
-    measured the CUDA-core BPTT faster there). In f32 the
+    measured the CUDA-core BPTT faster there), and ``"wide_mma_stream"``
+    for bf16 past the forward's streamed widths up to
+    ``wide_mma_layout.stream_bwd_max_h`` (4096: the streamed BPTT's deep
+    layout, where the forward stays on ``"wide"``; the two passes part there
+    until the forward's redesign). In f32 the
     ``"narrow_f32"`` BPTT was measured faster than ``"simt"`` at every width
     and batch timed (H = 64–256 / 320, B = 1–160, ``python3 chip_smoke.py
     --f32-times``, PERF.md); the ``"wide_f32"`` launcher takes its few-row
@@ -167,6 +174,9 @@ def bwd_route(dtype: torch.dtype, H: int, cell: str = "lstm", B: int | None = No
     route = fwd_route(dtype, H, cell)
     if route == "wide_mma_stream" and _kept(BF16_WIDE_BWD[cell], H, B):
         return "wide"
+    if (route == "wide" and dtype == torch.bfloat16
+            and wide_mma_layout.stream_bwd_fits(H, GATES[cell])):
+        return "wide_mma_stream"
     return route
 
 

@@ -41,12 +41,13 @@ slice, ``h_prev`` tile, partial slots and ``dz`` tile must fit a block's
 shared memory (:func:`smem_bytes`, against ``SMEM_OPTIN``, the H100's
 227 KB): at 8 rows a cluster that holds up to H = 608 (LSTM) / 672 (GRU)
 (:func:`fits`, :func:`max_h`); the forward's block fits there too. Wider
-bf16 layers take the streamed kernels of ``"wide_mma_stream"`` up to
-:func:`stream_max_h`, both passes (the last parts of this module: the same
-split and packed rows, the slice in chunks, :func:`pack_wh_stream`, the
-BPTT's :func:`stream_plan` and the forward's :func:`stream_fwd_plan`);
-``ops/mma_layout.py::fwd_route`` / ``bwd_route`` hold the rule. The
-BPTT's launcher picks the rows a cluster :func:`rows` replays.
+bf16 layers take the streamed kernels of ``"wide_mma_stream"`` (the last
+parts of this module: the same split and packed rows, the slice in chunks,
+:func:`pack_wh_stream`, the BPTT's :func:`stream_plan` and the forward's
+:func:`stream_fwd_plan`): the forward up to :func:`stream_fwd_max_h`, the
+BPTT up to :func:`stream_bwd_max_h`, on its deep layout past
+:func:`stream_max_h`; ``ops/mma_layout.py::fwd_route`` / ``bwd_route`` hold
+the rule. The BPTT's launcher picks the rows a cluster :func:`rows` replays.
 """
 
 from __future__ import annotations
@@ -332,10 +333,21 @@ def replay_dh(dz: torch.Tensor, wp: torch.Tensor, p: Plan) -> torch.Tensor:
 # shared memory, the first ``nstr`` stream from L2 every step through a ring
 # of RING slots (one TMA copy a chunk, one producer warp), each chunk feeding
 # the step's recompute over its k and its dh over its units. The sums run in
-# "wide_mma"'s order (replay_recompute, replay_dh).
+# "wide_mma"'s order (replay_recompute, replay_dh). Past stream_max_h that
+# 64-k layout no longer fits a block at 8 rows, and the BPTT takes its deep
+# layout up to DEEP_MAX_H (stream_bwd_max_h): DEEP_CHUNK-wide chunks, all
+# streamed through a ring of as many slots as fit (RING to DEEP_MAX_RING),
+# each carrying h_prev's rows at its k; the dh partials through a
+# scratch buffer in global memory; PPW (unit group, 8-row tile) pairs a
+# compute warp (deep_smem_bytes, STREAM_DEEP_KERNELS). Its sums are the 64-k
+# layout's: the recompute's k-steps and each unit's dh over the packed rows
+# in order, the partials added in block order.
 
 CHUNK = 64  # k a chunk of the slice
-RING = 3  # shared-memory slots the streamed chunks cycle through
+DEEP_CHUNK = 32  # k a chunk of the deep layout
+DEEP_HS = DEEP_CHUNK + 8  # row stride of a deep ring slot's h_prev rows (80 bytes)
+RING = 3  # shared-memory slots the streamed chunks cycle through (the deep layout: at least)
+DEEP_MAX_RING = 8  # ring slots of the deep layout at most
 STREAM_WARPS = 16  # 15 compute warps and the producer warp (512 threads: 128 registers)
 STREAM_MAX_ROWS = 24  # batch rows a cluster (kernels for 8, 16 and 24)
 STREAM_TPW = 2  # 8-row tiles a cell warp takes (each A fragment read once for them)
@@ -344,6 +356,24 @@ STREAM_TPW = 2  # 8-row tiles a cell warp takes (each A fragment read once for t
 # chunk (128 bytes from L2), and R·NC·H / 1024 multiply-adds; fitted to 14
 # steps timed on an H100 SXM (PERF.md, PR 24)
 STEP_PS, ROW_PS, MAC_PS = 7_540_000, 1261, 1993
+# the deep layout's step estimate (ps; wide_mma_stream.cuh::wd_step_ps): fixed,
+# a streamed packed row of a chunk (64 bytes from L2) and R·NC·H / 1024
+# multiply-adds; fitted to 10 steps timed on an H100 SXM
+# (tools/bwd_step_breakdown.py --deep-fit; PERF.md, PR 26)
+DEEP_STEP_PS, DEEP_ROW_PS, DEEP_MAC_PS = 8_107_936, 631, 2466
+# pairs a compute warp at most in the deep layout, and the (R / 8, pairs a
+# compute warp) its kernels are instantiated for: those the deep widths take
+# (LSTM 13–32 unit groups a block, GRU 8–16) that fit 128 registers with no
+# spill (ptxas on the H100's build: the LSTM's one-tile 3-pair and two- and
+# three-tile 4-pair kernels and the GRU's three-tile 2-pair one spilled
+# 8–36 B)
+DEEP_MAX_PPW = {4: 4, 3: 2}
+STREAM_DEEP_KERNELS = {4: ((1, 1), (1, 2), (1, 4), (2, 2), (2, 3), (3, 3)),
+                       3: ((1, 1), (1, 2), (2, 2))}
+# the deep layout's widest H (wide_mma_stream.cuh::kWdMaxH), MAX_H: 15
+# compute warps of the kernels above hold the LSTM's 32 and the GRU's 16
+# unit groups a block at 8 rows
+DEEP_MAX_H = 4096
 
 
 class StreamPlan(NamedTuple):
@@ -357,16 +387,20 @@ class StreamPlan(NamedTuple):
     waves: int  # ceil(2·ceil(B / R) / clusters)
     dbuf: int  # 1: two buffers of partial slots, one cluster barrier a step
     smem: int  # dynamic shared memory a block, bytes
+    chunk: int  # k a chunk: CHUNK, or DEEP_CHUNK in the deep layout
+    ppw: int  # deep layout: (unit group, 8-row tile) pairs a compute warp; else 0
+    scratch: int  # deep layout: bytes of dh partials a cluster in global memory; else 0
+    ring: int  # ring slots: RING, or in the deep layout as many as fit
 
 
-def chunks(H: int) -> int:
-    """Chunks of ``CHUNK`` k in width ``H`` (the last one half when H ≡ 32 mod 64)."""
-    return -(-H // CHUNK)
+def chunks(H: int, chunk: int = CHUNK) -> int:
+    """Chunks of ``chunk`` k in width ``H`` (the last 64-k one half when H ≡ 32 mod 64)."""
+    return -(-H // chunk)
 
 
-def tile_bytes(NC: int) -> int:
-    """Shared-memory bytes of one chunk of a block's slice: NC packed rows × 64 bf16."""
-    return NC * CHUNK * 2
+def tile_bytes(NC: int, chunk: int = CHUNK) -> int:
+    """Shared-memory bytes of one chunk of a block's slice: NC packed rows × ``chunk`` bf16."""
+    return NC * chunk * 2
 
 
 def stream_smem_bytes(H: int, gates: int, R: int, nres: int, bufs: int = 1) -> int:
@@ -405,14 +439,35 @@ def stream_fits(H: int, gates: int = 4) -> bool:
 
 @functools.cache
 def stream_max_h(gates: int = 4) -> int:
-    """The widest H the streamed kernels take (1536 for the LSTM, 1792 for the
-    GRU: where the BPTT's block fits; the forward's fits there too, and the
-    route takes it no further, one rule for both passes): past it both stay
-    on the CUDA-core cluster kernels ("wide")."""
+    """The widest H of the streamed kernels' 64-k layout (1536 for the LSTM,
+    1792 for the GRU: where the BPTT's block fits at 8 rows). The forward's
+    route stops there (:func:`stream_fwd_max_h`: its block would fit further,
+    but the forward takes the BPTT's packing); the BPTT takes its deep layout
+    past it up to :func:`stream_bwd_max_h`."""
     H = max_h(gates)
     while H + K_GRANULE <= MAX_H and stream_fits(H + K_GRANULE, gates):
         H += K_GRANULE
     return H
+
+
+def stream_fwd_max_h(gates: int = 4) -> int:
+    """The widest H the streamed forwards take (:func:`stream_max_h`): past it
+    the forward stays on the CUDA-core cluster kernel ("wide")."""
+    return stream_max_h(gates)
+
+
+def stream_bwd_max_h(gates: int = 4) -> int:
+    """The widest H the streamed BPTTs take: ``DEEP_MAX_H`` (4096, the
+    widest the port takes, ``wide_layout.MAX_H``), on the deep layout past
+    :func:`stream_max_h`."""
+    return DEEP_MAX_H
+
+
+def stream_bwd_fits(H: int, gates: int = 4) -> bool:
+    """Whether the streamed BPTTs take width ``H`` (padded to a multiple of
+    32): the 64-k layout's widths (:func:`stream_fits`), then the deep
+    layout's up to :func:`stream_bwd_max_h`."""
+    return stream_fits(H, gates) or max_h(gates) < padded(H) <= stream_bwd_max_h(gates)
 
 
 def stream_step_ps(H: int, NC: int, R: int, nstr: int) -> int:
@@ -420,84 +475,160 @@ def stream_step_ps(H: int, NC: int, R: int, nstr: int) -> int:
     return STEP_PS + ROW_PS * nstr * NC + MAC_PS * (R * NC * H // 1024)
 
 
+def deep_smem_bytes(H: int, gates: int, R: int, ring: int = RING) -> int:
+    """A deep block's dynamic shared memory (``wide_mma_stream.cuh::wd_smem``):
+    the ``dz`` tile (R × (NC + 8) bf16), the carry tile of summed dh partials
+    (Hb × R f32) and ``ring`` slots, each a 32-k chunk tile (NC × 32 bf16),
+    its R h_prev rows (``DEEP_HS`` bf16 each) and its two mbarriers."""
+    p = plan(H, gates)
+    slot = tile_bytes(p.NC, DEEP_CHUNK) + R * DEEP_HS * 2 + 2 * 8
+    return _a16(R * (p.NC + 8) * 2) + p.Hb * R * 4 + ring * slot
+
+
+def deep_ring(H: int, gates: int, R: int) -> int:
+    """The deep layout's ring slots at ``R`` rows a cluster: as many as the
+    block's room beside the ``dz`` and carry tiles holds, up to ``DEEP_MAX_RING`` (the
+    bytes in flight from L2 are what a latency-bound stream's rate grows
+    with)."""
+    slot = deep_smem_bytes(H, gates, R, 1) - deep_smem_bytes(H, gates, R, 0)
+    return min(DEEP_MAX_RING, (SMEM_OPTIN - deep_smem_bytes(H, gates, R, 0)) // slot)
+
+
+def deep_ppw(H: int, gates: int, R: int) -> int:
+    """Pairs a compute warp in the deep layout at ``R`` rows a cluster: the
+    fewest that the ``STREAM_WARPS − 1`` compute warps cover the block's
+    (unit group, 8-row tile) pairs with."""
+    pairs = plan(H, gates).Hb // UNIT_GROUP[gates] * (R // 8)
+    return -(-pairs // (STREAM_WARPS - 1))
+
+
+def deep_kernel_ppw(H: int, gates: int, R: int) -> int | None:
+    """The pairs a compute warp of the deep kernel a plan at ``R`` rows
+    launches: the fewest from :func:`deep_ppw` up to ``DEEP_MAX_PPW`` whose
+    kernel is instantiated (``STREAM_DEEP_KERNELS``); ``None`` if none is."""
+    return next((n for n in range(deep_ppw(H, gates, R), DEEP_MAX_PPW[gates] + 1)
+                 if (R // 8, n) in STREAM_DEEP_KERNELS[gates]), None)
+
+
+def deep_scratch_bytes(H: int, gates: int, R: int) -> int:
+    """Bytes of dh partials a deep cluster keeps in global memory: two
+    buffers (by step parity) of U owners × U source blocks × Hb units × R
+    rows, f32."""
+    p = plan(H, gates)
+    return 2 * p.U * p.U * p.Hb * R * 4
+
+
+def deep_step_ps(H: int, NC: int, R: int) -> int:
+    """The deep layout's step estimate in picoseconds (``wd_step_ps``): every
+    chunk streamed."""
+    return DEEP_STEP_PS + DEEP_ROW_PS * (H // DEEP_CHUNK) * NC + DEEP_MAC_PS * (R * NC * H // 1024)
+
+
 def stream_plan(B: int, H: int, gates: int, clusters) -> StreamPlan:
     """The launcher's plan for ``B`` rows at width ``H`` (a multiple of 32)
     when the card holds ``clusters`` clusters at once (an int, or a function
     of the block's shared memory; ``percival_*_bwd_wide_mma_stream_plan``
-    reports both): among R = 8, 16, 24 whose cells fit the 15 compute warps
-    (:func:`stream_cells`) and that fit ``SMEM_OPTIN`` with the ring, a
-    second buffer of partial slots where it fits (one cluster barrier a step,
-    not two), then as many chunks resident as fit (all but one at most); the
-    least ``waves × stream_step_ps``, then the smallest R."""
+    reports both). Up to :func:`stream_max_h`, the 64-k layout: among R = 8,
+    16, 24 whose cells fit the 15 compute warps (:func:`stream_cells`) and
+    that fit ``SMEM_OPTIN`` with the ring, a second buffer of partial slots
+    where it fits (one cluster barrier a step, not two), then as many chunks
+    resident as fit (all but one at most). Past it up to
+    :func:`stream_bwd_max_h`, the deep layout: among R = 8, 16, 24 with an
+    instantiated kernel of as many pairs a compute warp as they need or more
+    (:func:`deep_kernel_ppw`) and whose block fits ``SMEM_OPTIN`` with
+    ``RING`` slots (:func:`deep_smem_bytes`), the ring as deep as fits
+    (:func:`deep_ring`). Either way the least ``waves ×``
+    step estimate, then the smallest R."""
     p = plan(H, gates)
+    deep = not stream_fits(H, gates)
+    if deep and H > stream_bwd_max_h(gates):
+        raise ValueError(f"no rows a cluster fit the streamed tensor-core wide {CELLS[gates]} "
+                         f"at H={H}")
     nch = chunks(H)
     best, best_cost = None, None
     for R in range(8, STREAM_MAX_ROWS + 1, 8):
-        base = stream_smem_bytes(H, gates, R, 0)
-        if stream_cells(H, gates, R) >= STREAM_WARPS or base > SMEM_OPTIN:
-            continue
-        dbuf = int(stream_smem_bytes(H, gates, R, 0, 2) <= SMEM_OPTIN)
-        room = SMEM_OPTIN - stream_smem_bytes(H, gates, R, 0, 1 + dbuf)
-        nres = min(nch - 1, room // tile_bytes(p.NC))
-        smem = stream_smem_bytes(H, gates, R, nres, 1 + dbuf)
-        c = clusters(smem) if callable(clusters) else clusters
+        if deep:
+            ppw = deep_kernel_ppw(H, gates, R)
+            if ppw is None or deep_smem_bytes(H, gates, R) > SMEM_OPTIN:
+                continue
+            ring = deep_ring(H, gates, R)
+            cand = (0, H // DEEP_CHUNK, 0, deep_smem_bytes(H, gates, R, ring), DEEP_CHUNK, ppw,
+                    deep_scratch_bytes(H, gates, R), ring)
+            step = deep_step_ps(H, p.NC, R)
+        else:
+            base = stream_smem_bytes(H, gates, R, 0)
+            if stream_cells(H, gates, R) >= STREAM_WARPS or base > SMEM_OPTIN:
+                continue
+            dbuf = int(stream_smem_bytes(H, gates, R, 0, 2) <= SMEM_OPTIN)
+            room = SMEM_OPTIN - stream_smem_bytes(H, gates, R, 0, 1 + dbuf)
+            nres = min(nch - 1, room // tile_bytes(p.NC))
+            smem = stream_smem_bytes(H, gates, R, nres, 1 + dbuf)
+            cand = (nres, nch - nres, dbuf, smem, CHUNK, 0, 0, RING)
+            step = stream_step_ps(H, p.NC, R, nch - nres)
+        c = clusters(cand[3]) if callable(clusters) else clusters
         if c < 1:
             continue
         waves = -(-2 * -(-B // R) // c)
-        cost = waves * stream_step_ps(H, p.NC, R, nch - nres)
+        cost = waves * step
         if best is None or cost < best_cost:
-            best, best_cost = StreamPlan(*p, R, nres, nch - nres, c, waves, dbuf, smem), cost
+            nres, nstr, dbuf, smem, chunk, ppw, scratch, ring = cand
+            best = StreamPlan(*p, R, nres, nstr, c, waves, dbuf, smem, chunk, ppw, scratch, ring)
+            best_cost = cost
     if best is None:
         raise ValueError(f"no rows a cluster fit the streamed tensor-core wide {CELLS[gates]} "
                          f"at H={H}")
     return best
 
 
-def tile_index(NC: int) -> torch.Tensor:
-    """``(NC, 64)`` int64: where element ``(p, k)`` of a chunk (packed row
-    ``p``, its k ``k``) lies in the chunk's tile of ``NC × 64`` elements, as
-    the kernels address it (row ``p`` at ``64·p``, unit ``k // 8`` swizzled)."""
+def tile_index(NC: int, chunk: int = CHUNK) -> torch.Tensor:
+    """``(NC, chunk)`` int64: where element ``(p, k)`` of a chunk (packed row
+    ``p``, its k ``k``) lies in the chunk's tile of ``NC × chunk`` elements,
+    as the kernels address it (row ``p`` at ``chunk·p``, its 16-byte unit
+    ``k // 8`` swizzled: at ``u ^ (p % 8)`` in a 64-k row, ``u ^ ((p % 8) >> 1)``
+    in a 32-k one; ``wide_mma_stream.cuh::ws_unit``)."""
     p = torch.arange(NC)
-    k = torch.arange(CHUNK)
-    unit = (k // 8)[None, :] ^ (p % 8)[:, None]  # unit u of row p stored at u ^ (p % 8)
-    return p[:, None] * CHUNK + unit * 8 + (k % 8)[None, :]
+    k = torch.arange(chunk)
+    r8 = p % 8 if chunk == CHUNK else (p % 8) // 2
+    unit = (k // 8)[None, :] ^ r8[:, None]
+    return p[:, None] * chunk + unit * 8 + (k % 8)[None, :]
 
 
-def pack_wh_stream(wh: torch.Tensor, p: Plan) -> torch.Tensor:
-    """``(H, gates·H)`` recurrent kernel → ``(U, chunks, NC, 64)`` contiguous:
-    :func:`pack_wh`'s slices cut into chunks of 64 k (the last one
-    zero-padded when H ≡ 32 mod 64), each chunk's tile laid out as the
-    kernels read it (:func:`tile_index`), so that one contiguous copy moves a
-    chunk into shared memory."""
+def pack_wh_stream(wh: torch.Tensor, p: Plan, chunk: int = CHUNK) -> torch.Tensor:
+    """``(H, gates·H)`` recurrent kernel → ``(U, chunks, NC, chunk)``
+    contiguous: :func:`pack_wh`'s slices cut into chunks of ``chunk`` k (64,
+    the last one zero-padded when H ≡ 32 mod 64; or the deep layout's 32),
+    each chunk's tile laid out as the kernels read it (:func:`tile_index`), so
+    that one contiguous copy moves a chunk into shared memory."""
     wp = pack_wh(wh, p)  # (U, NC, H)
     H = wp.shape[2]
-    nch = chunks(H)
-    wp = torch.nn.functional.pad(wp, (0, nch * CHUNK - H)).view(p.U, p.NC, nch, CHUNK)
-    wp = wp.permute(0, 2, 1, 3).reshape(p.U, nch, p.NC * CHUNK)
+    nch = chunks(H, chunk)
+    wp = torch.nn.functional.pad(wp, (0, nch * chunk - H)).view(p.U, p.NC, nch, chunk)
+    wp = wp.permute(0, 2, 1, 3).reshape(p.U, nch, p.NC * chunk)
     out = torch.empty_like(wp)
-    out[:, :, _tile_index_on(p.NC, wh.device).flatten()] = wp
-    return out.view(p.U, nch, p.NC, CHUNK)
+    out[:, :, _tile_index_on(p.NC, chunk, wh.device).flatten()] = wp
+    return out.view(p.U, nch, p.NC, chunk)
 
 
 def unpack_wh_stream(ws: torch.Tensor, p: Plan, H: int) -> torch.Tensor:
-    """Inverse of :func:`pack_wh_stream`: ``(U, chunks, NC, 64)`` → the
-    ``(U, NC, H)`` slices of :func:`pack_wh`."""
-    nch = ws.shape[1]
-    flat = ws.reshape(p.U, nch, p.NC * CHUNK)[:, :, tile_index(p.NC).flatten()]
-    return flat.view(p.U, nch, p.NC, CHUNK).permute(0, 2, 1, 3).reshape(p.U, p.NC, -1)[..., :H]
+    """Inverse of :func:`pack_wh_stream` (at the chunk width of ``ws``):
+    ``(U, chunks, NC, chunk)`` → the ``(U, NC, H)`` slices of :func:`pack_wh`."""
+    nch, chunk = ws.shape[1], ws.shape[3]
+    flat = ws.reshape(p.U, nch, p.NC * chunk)[:, :, tile_index(p.NC, chunk).flatten()]
+    return flat.view(p.U, nch, p.NC, chunk).permute(0, 2, 1, 3).reshape(p.U, p.NC, -1)[..., :H]
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_index_on(NC: int, device: torch.device) -> torch.Tensor:
-    return tile_index(NC).to(device)
+def _tile_index_on(NC: int, chunk: int, device: torch.device) -> torch.Tensor:
+    return tile_index(NC, chunk).to(device)
 
 
 def _stream_tiles(ws: torch.Tensor, p: Plan, b: int) -> torch.Tensor:
     """Block ``b``'s chunks read through the kernels' addressing:
-    ``(chunks, NC, 64)`` with element ``(c, p, k)`` taken from the tile at
-    :func:`tile_index` ``(p, k)``."""
-    idx = tile_index(p.NC).flatten()
-    return ws[b].reshape(ws.shape[1], -1)[:, idx].view(ws.shape[1], p.NC, CHUNK)
+    ``(chunks, NC, chunk)`` with element ``(c, p, k)`` taken from the tile
+    at :func:`tile_index` ``(p, k)``."""
+    chunk = ws.shape[3]
+    idx = tile_index(p.NC, chunk).flatten()
+    return ws[b].reshape(ws.shape[1], -1)[:, idx].view(ws.shape[1], p.NC, chunk)
 
 
 def replay_stream_recompute(h: torch.Tensor, ws: torch.Tensor, p: Plan,
@@ -511,11 +642,12 @@ def replay_stream_recompute(h: torch.Tensor, ws: torch.Tensor, p: Plan,
     R, H = h.shape
     cols = columns(H, p)
     z = h.new_zeros((R, (p.NC // p.Hb) * H))
+    chunk = ws.shape[3]
     for b in range(p.U):
         tiles = _stream_tiles(ws, p, b)
         acc = [h.new_zeros((p.NC, R)), h.new_zeros((p.NC, R))]
         for kk in range(H // 16):
-            c, kl = divmod(16 * kk, CHUNK)
+            c, kl = divmod(16 * kk, chunk)
             part = kk % 2 if split else 0
             acc[part] = acc[part] + tiles[c, :, kl:kl + 16] @ h[:, 16 * kk:16 * kk + 16].t()
         acc = acc[0] + acc[1] if split else acc[0]
@@ -526,23 +658,21 @@ def replay_stream_recompute(h: torch.Tensor, ws: torch.Tensor, p: Plan,
 
 def replay_stream_dh(dz: torch.Tensor, ws: torch.Tensor, p: Plan) -> torch.Tensor:
     """``dz (R, gates·H) · W_hᵀ`` → ``(R, H)`` as the streamed kernels compute
-    it: chunk ``c``'s units from block ``b``'s chunk tile, K = the block's
-    packed rows in 16-row k-steps in order, the ``U`` partials of a unit
-    added in block order by its owner (``replay_dh``'s sums)."""
+    it: each unit from block ``b``'s chunk tiles (read through the kernels'
+    addressing, either chunk width), K = the block's packed rows in 16-row
+    k-steps in order, the ``U`` partials of a unit added in block order by
+    its owner (``replay_dh``'s sums: a unit's chunk only says where its
+    column lies)."""
     R, G = dz.shape
     H = G // (p.NC // p.Hb)
     cols = columns(H, p)
     dh = dz.new_zeros((R, H))
     for b in range(p.U):
-        tiles = _stream_tiles(ws, p, b)
+        w = _stream_tiles(ws, p, b).permute(1, 0, 2).reshape(p.NC, -1)[:, :H]  # (NC, H)
         dz_b = torch.where(cols[b] >= 0, dz[:, cols[b].clamp(min=0)], 0.0)  # (R, NC)
         part = dz.new_zeros((H, R))
-        for c in range(chunks(H)):
-            units = slice(c * CHUNK, min(H, (c + 1) * CHUNK))
-            w = tiles[c, :, :units.stop - units.start]  # (NC, units of the chunk)
-            for kk in range(p.NC // 16):
-                part[units] = part[units] + w[16 * kk:16 * kk + 16].t() @ \
-                    dz_b[:, 16 * kk:16 * kk + 16].t()
+        for kk in range(p.NC // 16):
+            part = part + w[16 * kk:16 * kk + 16].t() @ dz_b[:, 16 * kk:16 * kk + 16].t()
         dh = dh + part.t()
     return dh
 

@@ -3,6 +3,8 @@
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown          # the mma kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide   # the cluster kernels
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --stream [--route=wide]
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --stream --deep
+    python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --deep-fit=LOG  # on the CPU
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 [--route=wide_f32]
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --wide --f32 --few [--route=wide_f32_few] [--grid]
     python -m percivaltts_tpu_torch.tools.bwd_step_breakdown --simt --f32 [--route=narrow_f32]
@@ -41,6 +43,18 @@ present), bf16, at (512, 8, 512) and (512, 160, 512) (``WIDE_SHAPES``):
 - ``no_prefetch``: the ``h_prev`` rows of the step after next not loaded;
 - ``loop_only``: all of the above removed: the gate phase, its loads and
   stores, and the loop.
+
+With ``--wide --stream --deep`` the streamed BPTTs' deep layout alone (past
+the 64-k layout's widths; the deep kernels' text in the same sources) at
+``DEEP_SHAPES`` (H = 2048 at B = 8 / 32 / 160, the widest, 4096, at B = 8 /
+32), each
+plan printed: ``full``, ``no_recompute``, ``no_dh``, ``no_partials`` (no sum
+of the dh partials from L2 before the gate phase), ``no_cluster_sync`` (the step's cluster
+barrier replaced by the compute warps' own), ``no_stream`` (each ring slot
+armed with no copy of W_hᵀ or h_prev), ``loop_only`` (all of them) and
+``ring3`` (the plan's block with its ring cut to 3 slots). ``--deep-fit=LOG``
+fits the deep layout's step estimate to the ``full`` steps in the saved
+output ``LOG`` of such a run (on the CPU).
 
 With ``--wide --f32`` the same variants in f32 on the CUDA-core cluster
 kernels (``"wide"``) and the f32 cluster BPTTs (``"wide_f32"``,
@@ -100,7 +114,7 @@ import sys
 import torch
 
 from percivaltts_tpu_torch import _build
-from percivaltts_tpu_torch.ops import wide_layout
+from percivaltts_tpu_torch.ops import wide_layout, wide_mma_layout
 from percivaltts_tpu_torch.ops.mma_layout import pack_wh
 from percivaltts_tpu_torch.tools.fwd_step_breakdown import FAST, IDENTITY, NO_MMA, _time_ms
 
@@ -156,6 +170,14 @@ WIDE_VARIANTS = ("full", "no_recompute", "no_dh", "no_dsmem", "no_cluster_sync",
                  "loop_only")
 WIDE_ROUTE_VARIANTS = {"wide_f32": ("no_stream",),  # variants only some routes have
                        "wide_mma_stream": ("no_stream",)}
+# --wide --stream --deep: the streamed BPTTs' deep layout (past the 64-k
+# layout's widths, where "wide" ran before), timed alone ("wide" takes 0.3–4 s
+# a call there: PERF.md, step 0)
+DEEP_SHAPES = [(512, 8, 2048), (512, 32, 2048), (512, 160, 2048), (512, 8, 4096), (512, 32, 4096)]
+DEEP_VARIANTS = ("full", "no_recompute", "no_dh", "no_partials", "no_cluster_sync", "no_stream",
+                 "loop_only", "ring3")
+# variants that change a setting rather than remove a part: never in loop_only
+SETTING_VARIANTS = ("ring3",)
 # the few-row kernels of "wide_f32" (csrc/wide_f32_few.cuh), timed as their
 # own "route": no_dh also drops the mbarrier waits and arms its sends fed,
 # no_dsmem sends every partial into the block's own slots and mbarrier (at
@@ -221,13 +243,46 @@ WIDE_EDITS = {
              "    if (false) {", 1),
             ("of the next\n    cluster_arrive();\n    cluster_wait();\n", "of the next\n", 1),
             ("dbuf, lane);\n    return;", "dbuf, lane);\n    cluster.sync();\n    return;", 1),
-            ("  cp_async_wait<0>();\n}\n\nconst void* kernel_for",
-             "  cp_async_wait<0>();\n  cluster.sync();\n}\n\nconst void* kernel_for", 1)],
+            ("  cp_async_wait<0>();\n}\n\n// The deep layout",
+             "  cp_async_wait<0>();\n  cluster.sync();\n}\n\n// The deep layout", 1)],
         "no_prefetch": [("    if (s + 2 < n_steps) load_h(frame(s + 2));\n", "", 1)],
         "no_stream": [("        ws_mbar_expect_tx(&full[slot], bytes);\n"
                        "        ws_bulk_load(s_ring + (size_t)slot * tile, wp + (size_t)(g % nstr) * "
                        "tile, bytes,\n                     &full[slot]);\n",
                        "        ws_mbar_arrive(&full[slot]);\n", 1)],
+    },
+    # the deep layout of the streamed kernels (the same sources, their deep
+    # kernels' text): no_partials drops the block-wide sum of the other
+    # blocks' dh partials from L2; no_cluster_sync keeps the block's compute
+    # warps' own barrier; no_stream arms each ring slot's mbarrier with no
+    # copy (neither the W_hᵀ tile nor the h_prev rows)
+    "wide_mma_stream_deep": {
+        "no_recompute": [("      if (np > 0)\n        percival::wd_recompute<",
+                          "      if (false)\n        percival::wd_recompute<", 1)],
+        "no_dh": [("      if (s_dh >= 0)\n        percival::wd_dh_chunk<NT8>",
+                   "      if (false)\n        percival::wd_dh_chunk<NT8>", 1)],
+        "no_partials": [("    if (s > 0) {  // every block's dh partials of step s − 1",
+                         "    if (false) {  // every block's dh partials of step s − 1", 1)],
+        "no_cluster_sync": [
+            ("    cluster_arrive();   // step s's partials written to the scratch\n"
+             "    cluster_wait();     // every block's partials of step s written\n",
+             "    ws_compute_sync();\n", 1),
+            ("    cluster_arrive();\n    cluster_wait();\n  }\n  upto(total);",
+             "  }\n  upto(total);", 1)],
+        "no_stream": [("      if (lane == 0) ws_mbar_expect_tx(&full[slot], tile_bytes + R * row_bytes);\n"
+                       "      __syncwarp();\n"
+                       "      if (lane == 0)\n"
+                       "        ws_bulk_load(s_ring + (size_t)slot * tile, wp + (size_t)c * tile, "
+                       "tile_bytes, &full[slot]);\n"
+                       "      if (lane < R)\n"
+                       "        ws_bulk_load(s_hr + (size_t)(slot * R + lane) * kWdHs,\n"
+                       "                     hp + ((size_t)step_frame(pass) * B + row) * H + c * "
+                       "kWdChunk, row_bytes,\n"
+                       "                     &full[slot]);\n",
+                       "      if (lane == 0) ws_mbar_arrive(&full[slot]);\n", 1)],
+        # the plan's block (its shared memory) with the ring cut to 3 slots
+        "ring3": [("int nres = plan.nres, dbuf = plan.dbuf, ring = plan.ring;",
+                   "int nres = plan.nres, dbuf = plan.dbuf, ring = 3;", 1)],
     },
     "wide_mma": {
         "no_recompute": [("    recompute(0, KH);   // step s+1, first half\n", "", 1),
@@ -248,7 +303,8 @@ def _wide_source(src: str, route: str, name: str) -> str:
     """``src`` with the edits of variant ``name`` (all of them for
     ``loop_only``)."""
     edits = WIDE_EDITS[route]
-    for variant in (edits if name == "loop_only" else [name] if name in edits else []):
+    every = [v for v in edits if v not in SETTING_VARIANTS]
+    for variant in (every if name == "loop_only" else [name] if name in edits else []):
         for old, new, count in edits[variant]:
             n = src.count(old)
             if count >= 0 and n != count:
@@ -273,21 +329,31 @@ def _inline_headers(src: str, seen=None) -> str:
     return re.sub(r'#include "(\w+\.cuh)"\n', one, src)
 
 
+def _source_route(route: str) -> str:
+    """The route whose source a timed "route" edits: the few-row kernels'
+    and the deep layout's live in their route's sources."""
+    return route.removesuffix("_few").removesuffix("_deep")
+
+
+def _variants(route: str) -> tuple:
+    return {"wide_f32_few": FEW_VARIANTS, "wide_mma_stream_deep": DEEP_VARIANTS}.get(
+        route, WIDE_VARIANTS + WIDE_ROUTE_VARIANTS.get(route, ()))
+
+
 def _build_wide_variants(routes) -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     cmds, libs = [], {}
     for kind in ("bilstm", "bigru"):
         for route in routes:
-            path = _build.CSRC / f"{kind}_bwd_{route.removesuffix('_few')}.cu"
+            path = _build.CSRC / f"{kind}_bwd_{_source_route(route)}.cu"
             if not path.exists():
                 continue
             src = path.read_text()
             if route.startswith(("wide_f32", "wide_mma_stream")):
                 # the kernel bodies are (partly) headers': edit copies inlined
                 src = _inline_headers(src)
-            names = FEW_VARIANTS if route == "wide_f32_few" else WIDE_VARIANTS
-            for name in names + WIDE_ROUTE_VARIANTS.get(route, ()):
+            for name in _variants(route):
                 cu = out_dir / f"{kind}_bwd_{route}_{name}.cu"
                 cu.write_text(_wide_source(src, route, name))
                 so = out_dir / f"{kind}_bwd_{route}_{name}.so"
@@ -515,32 +581,39 @@ def _wide_launcher(lib, kind: str, route: str, T: int, B: int, H: int, ins: dict
             tail.append(rows or (0 if route == "wide_f32_few" or B > 8 else 8))
         route = route.removesuffix("_few")
     else:
-        from percivaltts_tpu_torch.ops import wide_mma_layout
-
         plan = wide_mma_layout.plan(H, gates)
-        pack = wide_mma_layout.pack_wh_stream if route == "wide_mma_stream" else \
-            wide_mma_layout.pack_wh
-        wp = [pack(w, plan) for w in ins["wh"]]
         tail = [T, B, H, plan.Hb, plan.U]
+    route = _source_route(route)
+    plan_fn = getattr(lib, f"percival_{kind}_bwd_{route}_plan")
+    plan_fn.argtypes = [i] * (len(tail) - 1) + [ctypes.POINTER(ctypes.c_int)]
+    plan_fn.restype = i
+    out = (ctypes.c_int * 14)()  # the cluster BPTTs' plans have 9 fields, the streamed 14
+    if plan_fn(*tail[1:], out):
+        raise RuntimeError(f"{kind} {route}: no plan at B={B} H={H}")
+    scratch = None
+    if route == "wide_mma_stream":  # packed at the plan's chunk; the deep layout's scratch
+        sp = wide_mma_layout.StreamPlan(*out)
+        wp = [wide_mma_layout.pack_wh_stream(w, plan, sp.chunk) for w in ins["wh"]]
+        if sp.scratch:
+            scratch = torch.empty(2 * -(-B // sp.R) * sp.scratch, dtype=torch.uint8,
+                                  device=ins["gx"][0].device)
+    elif route == "wide_mma":
+        wp = [wide_mma_layout.pack_wh(w, plan) for w in ins["wh"]]
     names = ["gx", "wp"] + (["hp", "cp", "c", "dy"] if kind == "bilstm" else ["bn", "hp", "dy"])
     tensors = {**ins, "wp": wp}
     ptrs = [t.data_ptr() for n in names for t in tensors[n]]
     ptrs += [t.data_ptr() for n in (["dgx"] if kind == "bilstm" else ["dgx", "dnr"])
              for t in outs[n]]
+    if route == "wide_mma_stream":
+        ptrs.append(None if scratch is None else scratch.data_ptr())
     fn = getattr(lib, f"percival_{kind}_bwd_{route}")
     fn.argtypes, fn.restype = [p] * len(ptrs) + [i] * len(tail) + [p], i
-    plan_fn = getattr(lib, f"percival_{kind}_bwd_{route}_plan")
-    plan_fn.argtypes = [i] * (len(tail) - 1) + [ctypes.POINTER(ctypes.c_int)]
-    plan_fn.restype = i
-    out = (ctypes.c_int * 10)()  # the cluster BPTTs' plans have 9 fields, the streamed 10
-    if plan_fn(*tail[1:], out):
-        raise RuntimeError(f"{kind} {route}: no plan at B={B} H={H}")
 
     def launch():
         err = fn(*ptrs, *tail, stream)
         if err:
             raise RuntimeError(f"{kind} {route}: CUDA error {err}")
-    launch.keep = wp  # the packed W_h lives as long as the launcher
+    launch.keep = (wp, scratch)  # the packed W_h and the scratch live as long as the launcher
     launch.plan = list(out)
     return launch
 
@@ -556,8 +629,12 @@ def _plan_text(route: str, B: int, plan: list) -> str:
         U, Hb, NC, R, nres, nstr, clusters, waves, smem = plan[:9]
         return (f"R={R}, {nres} resident / {nstr} streamed chunks, {clusters} clusters at once, "
                 f"{waves} waves, {smem} B")
-    if route == "wide_mma_stream":
-        U, Hb, NC, R, nres, nstr, clusters, waves, dbuf, smem = plan
+    if route.startswith("wide_mma_stream"):
+        U, Hb, NC, R, nres, nstr, clusters, waves, dbuf, smem, chunk, ppw, scratch, ring = plan
+        if ppw:
+            return (f"R={R}, deep: {ppw} pairs a compute warp, {nstr} streamed chunks of {chunk} "
+                    f"k through {ring} slots, {clusters} clusters at once, {waves} waves, {smem} "
+                    f"B, {scratch} B of partials a cluster in L2")
         return (f"R={R}, {nres} resident / {nstr} streamed chunks, {clusters} clusters at once, "
                 f"{waves} waves, {1 + dbuf} slot buffers, {smem} B")
     U, Hb, NC, R, MPW, clusters, waves, dbuf, smem = plan[:9]
@@ -587,16 +664,18 @@ def few_grid(libs, dev, g) -> None:
 
 
 def wide_main(f32: bool = False, only: str = "", few: bool = False, grid: bool = False,
-              stream: bool = False) -> int:
+              stream: bool = False, deep: bool = False) -> int:
     """The cluster BPTTs' variants at ``WIDE_SHAPES`` (``few``: at
-    ``FEW_SHAPES``; ``stream``: at ``STREAM_SHAPES``): bf16 on ``"wide"`` and
-    ``"wide_mma"`` (``stream``: ``"wide_mma_stream"``, which also runs
-    ``no_stream``); with ``f32``, f32
-    on ``"wide"``, ``"wide_f32"`` (its chunked kernels, which also run
+    ``FEW_SHAPES``; ``stream``: at ``STREAM_SHAPES``; ``deep``: at
+    ``DEEP_SHAPES``): bf16 on ``"wide"`` and ``"wide_mma"`` (``stream``:
+    ``"wide_mma_stream"``, which also runs ``no_stream``; ``deep``: the
+    streamed kernels' deep layout alone, ``DEEP_VARIANTS``); with ``f32``,
+    f32 on ``"wide"``, ``"wide_f32"`` (its chunked kernels, which also run
     ``no_stream``) and, with ``few``, ``"wide_f32_few"`` (the few-row
     kernels, ``FEW_VARIANTS``), each shape's plan printed first; ``only``:
     that route alone; ``grid`` (with ``few``): ``few_grid`` after them."""
     routes = ("wide", "wide_f32") + (("wide_f32_few",) if few else ()) if f32 else \
+        ("wide_mma_stream_deep",) if deep else \
         ("wide", "wide_mma_stream" if stream else "wide_mma")
     routes = tuple(r for r in routes if not only or r == only)
     libs = _build_wide_variants(routes)
@@ -604,14 +683,14 @@ def wide_main(f32: bool = False, only: str = "", few: bool = False, grid: bool =
     dtype = torch.float32 if f32 else torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     for kind in ("bilstm", "bigru"):
-        for T, B, H in FEW_SHAPES[kind] if few else STREAM_SHAPES if stream else WIDE_SHAPES:
+        for T, B, H in (FEW_SHAPES[kind] if few else DEEP_SHAPES if deep else
+                        STREAM_SHAPES if stream else WIDE_SHAPES):
             ins, outs = _wide_inputs(kind, T, B, H, dev, g, dtype)
             for route in routes:
                 if (kind, route, "full") not in libs:
                     continue
                 row, plan = [], None
-                names = FEW_VARIANTS if route == "wide_f32_few" else WIDE_VARIANTS
-                for name in names + WIDE_ROUTE_VARIANTS.get(route, ()):
+                for name in _variants(route):
                     launch = _wide_launcher(ctypes.CDLL(str(libs[(kind, route, name)])), kind,
                                             route, T, B, H, ins, outs)
                     plan = plan or launch.plan
@@ -623,7 +702,42 @@ def wide_main(f32: bool = False, only: str = "", few: bool = False, grid: bool =
     return 0
 
 
+DEEP_LINE = re.compile(r"\[breakdown\] (bilstm|bigru)_bwd_wide_mma_stream_deep T,B,H=\((\d+), "
+                       r"(\d+), (\d+)\) bfloat16 \(R=(\d+), deep: .*?, (\d+) waves,.*?full ([\d.]+)")
+
+
+def deep_fit(log: str) -> int:
+    """The deep layout's step estimate (``wide_mma_layout.deep_step_ps``)
+    fitted by least squares to the ``full`` steps of a ``--deep`` run's
+    output ``log`` (a file): µs a step over the plan's waves against 1, the
+    streamed packed rows (H / 32 · NC) and R·NC·H / 1024; prints the three
+    constants in picoseconds and each point against its fit. Runs on the
+    CPU."""
+    rows = []
+    for m in DEEP_LINE.finditer(open(log).read()):
+        kind, T, B, H, R, waves, us = m.groups()
+        H, R = int(H), int(R)
+        NC = wide_mma_layout.plan(H, 4 if kind == "bilstm" else 3).NC
+        rows.append((kind, int(B), H, R, [1.0, H // wide_mma_layout.DEEP_CHUNK * NC,
+                                           R * NC * H // 1024], float(us) * 1e6 / int(waves)))
+    if len(rows) < 3:
+        print(f"bwd_step_breakdown: {len(rows)} deep steps in {log}, 3 needed", file=sys.stderr)
+        return 2
+    A = torch.tensor([r[4] for r in rows], dtype=torch.float64)
+    y = torch.tensor([r[5] for r in rows], dtype=torch.float64)
+    coef = torch.linalg.lstsq(A, y[:, None]).solution[:, 0]
+    print("[deep fit] DEEP_STEP_PS, DEEP_ROW_PS, DEEP_MAC_PS = " +
+          ", ".join(f"{round(c):_}" for c in coef.tolist()))
+    for (kind, B, H, R, _, ps), fit in zip(rows, (A @ coef).tolist()):
+        print(f"[deep fit] {kind} B={B} H={H} R={R}: ps a wave-step {ps:.0f}, fit {fit:.0f} "
+              f"({fit / ps - 1:+.1%})")
+    return 0
+
+
 def main() -> int:
+    fit = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--deep-fit=")), "")
+    if fit:
+        return deep_fit(fit)
     if not torch.cuda.is_available():
         print("bwd_step_breakdown: needs an NVIDIA card", file=sys.stderr)
         return 1
@@ -637,7 +751,8 @@ def main() -> int:
         return simt_main(only)
     if "--wide" in sys.argv[1:]:
         return wide_main(f32="--f32" in sys.argv[1:], only=only, few="--few" in sys.argv[1:],
-                         grid="--grid" in sys.argv[1:], stream="--stream" in sys.argv[1:])
+                         grid="--grid" in sys.argv[1:], stream="--stream" in sys.argv[1:],
+                         deep="--deep" in sys.argv[1:])
     libs = _build_variants()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     p, i = ctypes.c_void_p, ctypes.c_int

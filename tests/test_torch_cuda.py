@@ -1419,14 +1419,15 @@ def test_wide_mma_stream_autograd_pair_matches_twins(cuda_device, cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (640, 1024, 1536)]
-                         + [("gru", H) for H in (704, 1024, 1792)])
+@pytest.mark.parametrize("cell,H", [("lstm", H) for H in (640, 1024, 1536, 1568, 2048, 3840, 4096)]
+                         + [("gru", H) for H in (704, 1024, 1792, 1824, 2048, 3840, 4096)])
 @pytest.mark.parametrize("B", [1, 8, 32, 160])
 def test_wide_mma_stream_plan_matches_the_layout(cuda_device, cell, H, B):
     """The launchers split H as ``ops/wide_mma_layout.py::plan`` does and
-    choose the plan ``stream_plan`` replays at the card's clusters (rows,
-    chunks resident and streamed, waves, slot buffers, shared memory); a
-    width past the route's limit, or not a multiple of 32, has no plan."""
+    choose the plan ``stream_plan`` replays at the card's clusters (the
+    layout, rows, chunks resident and streamed, pairs a compute warp, waves,
+    slot buffers, shared memory, the deep layout's scratch); a width past
+    the BPTT's limit, or not a multiple of 32, has no plan."""
     import ctypes
 
     from percivaltts_tpu_torch import _build
@@ -1436,12 +1437,13 @@ def test_wide_mma_stream_plan_matches_the_layout(cuda_device, cell, H, B):
     p = wm.plan(H, gates)
     name = "bigru" if gates == 3 else "bilstm"
     fn = getattr(_build.library(), f"percival_{name}_bwd_wide_mma_stream_plan")
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 14)()
     assert fn(B, H, p.Hb, p.U, out) == 0
     got = wm.StreamPlan(*out)
     assert got == wm.stream_plan(B, H, gates, got.clusters) and got.clusters >= 1
+    assert (got.chunk == wm.DEEP_CHUNK) == (H > wm.stream_max_h(gates))
     assert fn(B, H + 8, p.Hb, p.U, out) != 0  # H not a multiple of 32
-    past = wm.stream_max_h(gates) + 64
+    past = wm.stream_bwd_max_h(gates) + 64
     q = wm.plan(past, gates)
     assert fn(B, past, q.Hb, q.U, out) != 0
 
@@ -1450,7 +1452,8 @@ def test_wide_mma_stream_plan_matches_the_layout(cuda_device, cell, H, B):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_wide_mma_stream_refuses_f32_and_widths_past_its_limit(cuda_device, cell):
     """On CUDA tensors the streamed route launches its kernel or raises:
-    f32 ``TypeError``, H past ``stream_max_h`` ``ValueError`` naming it."""
+    f32 ``TypeError``, H past ``stream_bwd_max_h`` (4096) ``ValueError``
+    naming it."""
     from percivaltts_tpu_torch.ops import gru_cuda, lstm_cuda
     from percivaltts_tpu_torch.ops import wide_mma_layout as wm
 
@@ -1459,10 +1462,72 @@ def test_wide_mma_stream_refuses_f32_and_widths_past_its_limit(cuda_device, cell
     args = (_gru_bwd_args if gru else _bwd_args)(2, 1, 640, torch.float32, cuda_device, seed=1)
     with pytest.raises(TypeError, match="bfloat16"):
         m.bwd_launch("wide_mma_stream", *args)
-    past = wm.stream_max_h(gates) + 32
+    past = wm.stream_bwd_max_h(gates) + 32
     args = (_gru_bwd_args if gru else _bwd_args)(2, 1, past, torch.bfloat16, cuda_device, seed=1)
-    with pytest.raises(ValueError, match=f"H <= {wm.stream_max_h(gates)}"):
+    with pytest.raises(ValueError, match=f"H <= {wm.stream_bwd_max_h(gates)}"):
         m.bwd_launch("wide_mma_stream", *args)
+
+
+# chip_smoke.py phase 18's DEEP_SHAPES at small T: the BPTTs' deep layout (its
+# first widths, a padded width, its widest, the models' H = 2048 at the
+# training row count; 4096 on the LSTM's 4-pair and the GRU's 2-pair kernel)
+DEEP_CASES = ([("lstm", *s) for s in [(33, 9, 1568), (40, 1, 2000), (17, 3, 3840), (64, 32, 2048),
+                                      (17, 3, 4096)]]
+              + [("gru", *s) for s in [(33, 9, 1824), (40, 1, 2000), (17, 3, 3840), (64, 32, 2048),
+                                      (17, 3, 4096)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,T,B,H", DEEP_CASES)
+def test_wide_mma_stream_deep_bptt_matches_twins(cuda_device, cell, T, B, H):
+    """The streamed BPTTs past the 64-k layout's widths against the twins in
+    bf16 (2e-2 of max(1, the largest |dgx| / |dnr|)), through the entry,
+    counted once on the route and once on the deep layout."""
+    from percivaltts_tpu_torch.ops.mma_layout import bwd_route
+
+    gru = cell == "gru"
+    assert bwd_route(torch.bfloat16, H, cell, B) == "wide_mma_stream"
+    args = (_gru_bwd_args if gru else _bwd_args)(T, B, H, torch.bfloat16, cuda_device, seed=T + B)
+    want = (bigru_bwd_reference if gru else bilstm_bwd_reference)(*args)
+    wrapper = bigru_bwd if gru else bilstm_bwd
+    b0, d0 = dict(wrapper.routes), wrapper.stream_layouts["deep"]
+    with torch.no_grad():
+        got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert _route_counts(b0, wrapper.routes, "wide_mma_stream") == (1, 0)
+    assert wrapper.stream_layouts["deep"] == d0 + 1
+    scale = max(1.0, max(w.float().abs().max().item() for w in want))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_wide_mma_stream_deep_autograd_pair_matches_twins(cuda_device, cell):
+    """The autograd pair at phase 18's width (H = 2048, T = 64, B = 32) in
+    bf16: the forward on "wide", the BPTT on the streamed kernels' deep
+    layout, each counted once."""
+    gru = cell == "gru"
+    T, B, H = 64, 32, 2048
+    base = (_gru_gates if gru else _gates)(T, B, H, torch.bfloat16, cuda_device, seed=7)
+    dy = np.random.default_rng(1).normal(size=(T, B, H)).astype(np.float32)
+    dy = torch.from_numpy(dy).to(device=cuda_device, dtype=torch.bfloat16)
+    fwd, bwd = (bigru_fwd, bigru_bwd) if gru else (bilstm_fwd, bilstm_bwd)
+    cores = (bigru_core, bigru_core_reference) if gru else (bilstm_core, bilstm_core_reference)
+    grads = []
+    f0, b0, d0 = dict(fwd.routes), dict(bwd.routes), bwd.stream_layouts["deep"]
+    for core in cores:
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        torch.autograd.backward(core(*leaves), (dy, dy))
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert _route_counts(f0, fwd.routes, "wide") == (1, 0)
+    assert _route_counts(b0, bwd.routes, "wide_mma_stream") == (1, 0)
+    assert bwd.stream_layouts["deep"] == d0 + 1
+    for g, w in zip(*grads):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
 
 
 # --- the streamed tensor-core cluster forwards (the "wide_mma_stream" route) ----

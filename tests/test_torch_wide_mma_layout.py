@@ -182,8 +182,9 @@ def test_widths_and_routes():
     to where the BPTT's shared memory ends (608 LSTM, 672 GRU: the Pallas
     kernels' 608 / 640 are inside), for the forward and the BPTT alike;
     past it both take the streamed kernels ("wide_mma_stream") up to
-    ``stream_max_h``, then "wide"; f32 keeps its routes, the BPTT up to 512
-    on its own cluster kernel."""
+    ``stream_max_h``, then the forward "wide" and the BPTT the streamed
+    kernels' deep layout up to ``stream_bwd_max_h`` (4096);
+    f32 keeps its routes, the BPTT up to 512 on its own cluster kernel."""
     assert (wm.max_h(4), wm.max_h(3)) == (608, 672)
     bf16, f32 = torch.bfloat16, torch.float32
     for cell, gates in (("lstm", 4), ("gru", 3)):
@@ -192,7 +193,8 @@ def test_widths_and_routes():
         for H in (wm.max_h(gates) + 1, 1024, wide_layout.max_h(gates)):
             streamed = H <= wm.stream_max_h(gates)
             assert fwd_route(bf16, H, cell) == ("wide_mma_stream" if streamed else "wide")
-            assert bwd_route(bf16, H, cell) == ("wide_mma_stream" if streamed else "wide")
+            deep = H <= wm.stream_bwd_max_h(gates)
+            assert bwd_route(bf16, H, cell) == ("wide_mma_stream" if deep else "wide")
             assert not wm.fits(H, gates)
         for H in (16, 128):
             assert bwd_route(bf16, H, cell) == "mma"

@@ -92,17 +92,20 @@ def test_stream_plan_at_every_width(gates, B):
 
 @pytest.mark.parametrize("gates", [4, 3])
 def test_stream_widths_end_where_shared_memory_does(gates):
-    """The route takes every width from ``max_h`` to ``stream_max_h`` (1536
-    LSTM, 1792 GRU: at 8 rows the ring, the h_prev tile, the partial slots
-    and the dz tile fill the 227 KB there) and none past it up to
-    ``wide_layout.MAX_H``; a plan past it raises naming the cell."""
+    """The 64-k layout takes every width from ``max_h`` to ``stream_max_h``
+    (1536 LSTM, 1792 GRU: at 8 rows the ring, the h_prev tile, the partial
+    slots and the dz tile fill the 227 KB there) and none past it up to
+    ``wide_layout.MAX_H``; past it the BPTT's plan is the deep layout's
+    (``tests/test_torch_wide_mma_stream_deep.py``), and a plan past
+    ``MAX_H`` raises naming the cell."""
     assert (wm.max_h(gates), wm.stream_max_h(gates)) == ((608, 1536) if gates == 4 else (672, 1792))
     fits = [wm.stream_fits(H, gates) for H in range(wm.max_h(gates) + 1, wide_layout.MAX_H + 1)]
     n = wm.stream_max_h(gates) - wm.max_h(gates)
     assert all(fits[:n]) and not any(fits[n:])
     assert wm.stream_smem_bytes(wm.stream_max_h(gates), gates, 8, 0) <= wm.SMEM_OPTIN
+    assert wm.stream_plan(8, wm.stream_max_h(gates) + 64, gates, CLUSTERS).chunk == wm.DEEP_CHUNK
     with pytest.raises(ValueError, match=f"streamed tensor-core wide {wide_layout.CELLS[gates]}"):
-        wm.stream_plan(8, wm.stream_max_h(gates) + 64, gates, CLUSTERS)
+        wm.stream_plan(8, wide_layout.MAX_H + 64, gates, CLUSTERS)
 
 
 # --- the chunk tiles -------------------------------------------------------------
@@ -262,17 +265,20 @@ def test_replayed_stream_bptt_equals_the_twin(cell, T, B, H, dtype):
 def test_bf16_routes_past_the_tensor_core_widths(cell):
     """bf16: up to ``max_h`` (608 / 672) both passes take "wide_mma"; past it
     both take "wide_mma_stream" up to ``stream_max_h`` (1536 / 1792), then
-    "wide" for both, but for the rows ``mma_layout.BF16_WIDE_BWD`` keeps
-    the BPTT on "wide"; f32 keeps its routes (512: "wide_f32", 1024: "wide",
-    200: "narrow_f32")."""
+    the forward "wide" and the BPTT "wide_mma_stream" (its deep layout) up to
+    ``stream_bwd_max_h`` (4096), but for the rows
+    ``mma_layout.BF16_WIDE_BWD`` keeps the BPTT on "wide"; f32 keeps its
+    routes (512: "wide_f32", 1024: "wide", 200: "narrow_f32")."""
     bf16, f32, gates = torch.bfloat16, torch.float32, G_OF[cell]
     first, last = wm.max_h(gates), wm.stream_max_h(gates)
     for H in (608, first):
         assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide_mma"
     for H in (640 if cell == "lstm" else 704, first + 1, 1000, 1024, last):
         assert (fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)) == ("wide_mma_stream",) * 2
-    for H in (last + 1, 2048, wide_layout.MAX_H):
-        assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide"
+    for H in (last + 1, 2048, wm.stream_bwd_max_h(gates), wide_layout.MAX_H):
+        deep = H <= wm.stream_bwd_max_h(gates)
+        assert (fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)) == \
+            ("wide", "wide_mma_stream" if deep else "wide")
     # BF16_WIDE_BWD: the LSTM's H = 609–640 at B <= 3 keeps "wide" (measured
     # faster there in turns); every other batch and width streams
     for H in (first + 1, 624, 640) if cell == "lstm" else (first + 1, 704):
@@ -304,8 +310,8 @@ def test_launchers_refuse_what_the_stream_route_does_not_take(monkeypatch, cell)
     (``tests/test_torch_wide_mma_stream_fwd.py`` holds theirs); an unknown
     route name raises ``ValueError`` naming the routes, in either pass; the
     streamed route refuses f32 (``TypeError``) and a width past its limit
-    (``ValueError`` naming it), all before the build; the BPTT wrappers count
-    the route by name."""
+    (``ValueError`` naming it: the BPTT's ``stream_bwd_max_h``, 4096), all
+    before the build; the BPTT wrappers count the route by name."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("the launcher reached the build"))
     m, gates = (lstm_cuda, 4) if cell == "lstm" else (gru_cuda, 3)
     assert "wide_mma_stream" in lstm_cuda.BWD_ROUTES and "wide_mma_stream" in lstm_cuda.FWD_ROUTES
@@ -318,26 +324,42 @@ def test_launchers_refuse_what_the_stream_route_does_not_take(monkeypatch, cell)
                      *(() if cell == "lstm" else _bwd_inputs(cell, 2, 1, 640, torch.bfloat16)[4:6]))
     with pytest.raises(TypeError, match="bfloat16"):
         m.bwd_launch("wide_mma_stream", *_bwd_inputs(cell, 2, 1, 640, torch.float32))
-    past = wm.stream_max_h(gates) + 32
-    with pytest.raises(ValueError, match=f"H <= {wm.stream_max_h(gates)}, got H={past}"):
+    past = wm.stream_bwd_max_h(gates) + 32
+    with pytest.raises(ValueError, match=f"H <= {wm.stream_bwd_max_h(gates)}, got H={past}"):
         m.bwd_launch("wide_mma_stream", *_bwd_inputs(cell, 2, 1, past, torch.bfloat16))
 
 
 # --- the layers and the models against JAX ---------------------------------------------
 
 
-def _grads_against_jax(cell, H, T=16, B=2, D=48, seed=0):
+def random_params(jm, x, rng):
+    """Parameters of the JAX layer ``jm`` for input ``x`` drawn from ``rng``
+    with no initialiser run (the orthogonal init's QR takes most of a wide
+    layer's test on the CPU): weights N(0, 1/fan_in), biases (the GRU's
+    b_hn included) N(0, 0.01), nonzero so that a misplaced one shows."""
+    shapes = jax.eval_shape(jm.init, jax.random.key(0), x)
+    return jax.tree.map(lambda s: jnp.asarray(
+        rng.normal(size=s.shape) * (s.shape[0] ** -0.5 if len(s.shape) == 2 else 0.1), s.dtype),
+        shapes)
+
+
+def _grads_against_jax(cell, H, T=16, B=2, D=48, seed=0, drawn=False):
     """(port, JAX) outputs and gradients (x, then every parameter in the
     port's order) of sum(y · dy) for one f32 bidirectional layer with the
-    same weights; JAX on its scan path (``use_pallas=False``)."""
+    same weights (``drawn``: from :func:`random_params`, else JAX's
+    initialisers with nonzero biases); JAX on its scan path
+    (``use_pallas=False``)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, T, D)).astype(np.float32)
     dy = rng.normal(size=(B, T, 2 * H)).astype(np.float32)
     jm = JaxBiLSTM(H, compute_dtype="float32", cell_type=cell, use_pallas=False)
-    params = jm.init(jax.random.key(seed), jnp.asarray(x))
-    # nonzero biases, the GRU's b_hn included: zeros would hide a misplaced one
-    params = jax.tree.map(lambda a: a + 0.1 * jnp.asarray(rng.normal(size=a.shape), a.dtype)
-                          if a.ndim == 1 else a, params)
+    if drawn:
+        params = random_params(jm, jnp.asarray(x), rng)
+    else:
+        params = jm.init(jax.random.key(seed), jnp.asarray(x))
+        # nonzero biases, the GRU's b_hn included: zeros would hide a misplaced one
+        params = jax.tree.map(lambda a: a + 0.1 * jnp.asarray(rng.normal(size=a.shape), a.dtype)
+                              if a.ndim == 1 else a, params)
 
     def loss(p, xx):
         y = jm.apply(p, xx)

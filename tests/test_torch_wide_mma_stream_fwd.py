@@ -244,8 +244,9 @@ def test_bf16_forward_routes_past_the_tensor_core_widths(cell):
     """bf16 forwards: "wide_mma" up to ``max_h`` (608 / 672), then
     "wide_mma_stream" up to ``stream_max_h`` (1536 / 1792), as the BPTT,
     at every B ``BF16_WIDE_FWD`` does not keep on "wide" (where the card
-    measured the CUDA-core forward faster), then "wide" for both; without B
-    a large batch's route; f32 keeps its routes."""
+    measured the CUDA-core forward faster), then "wide" (the BPTT there its
+    streamed deep layout up to 4096); without B a large batch's route; f32
+    keeps its routes."""
     bf16, gates = torch.bfloat16, G_OF[cell]
     first, last = wm.max_h(gates), wm.stream_max_h(gates)
     assert fwd_route(bf16, first, cell) == "wide_mma"
@@ -255,7 +256,9 @@ def test_bf16_forward_routes_past_the_tensor_core_widths(cell):
             kept = any(H <= h and B <= b for h, b in mma_layout.BF16_WIDE_FWD[cell])
             assert fwd_route(bf16, H, cell, B) == ("wide" if kept else "wide_mma_stream")
     for H in (last + 1, 2048, wide_layout.MAX_H):
-        assert fwd_route(bf16, H, cell) == bwd_route(bf16, H, cell) == "wide"
+        deep = H <= wm.stream_bwd_max_h(gates)
+        assert (fwd_route(bf16, H, cell), bwd_route(bf16, H, cell)) == \
+            ("wide", "wide_mma_stream" if deep else "wide")
         assert fwd_route(bf16, H, cell, 8) == "wide"
     assert fwd_route(torch.float32, 1024, cell) == "wide"
     assert fwd_route(torch.float32, 512, cell) == "wide_f32"
@@ -323,20 +326,27 @@ class _FakeLibrary:
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_both_passes_launch_one_packing(monkeypatch, cell):
     """For the same ``W_h`` the streamed forward's launcher and the streamed
-    BPTT's build the identical packed tensor (``pack_wh_stream``'s chunk
+    BPTT's build the identical packed tensor (``pack_wh_stream``'s 64-k chunk
     tiles, through ``lstm_cuda.stream_args``) and hand the kernels its
-    memory: one packing for both passes, which a ``W_h``-packing cache may
-    share. The card is faked (the launch records its arguments)."""
+    memory: at the widths both passes stream, one packing for both, which a
+    ``W_h``-packing cache may share (past them the BPTT's deep layout packs
+    its own 32-k tiles). The card is faked (the launch records its
+    arguments; the BPTT's plan is the layout's at 7 clusters)."""
     packs = []
     real = wm.pack_wh_stream
 
-    def recording(wh, p):
-        out = real(wh, p)
+    def recording(wh, p, chunk=wm.CHUNK):
+        out = real(wh, p, chunk)
         packs.append(out)
         return out
 
+    def plan(kind, B, H, device=0):
+        return wm.stream_plan(B, H, 4 if kind == "bilstm" else 3, 7)
+
     lib = _FakeLibrary()
     monkeypatch.setattr(wm, "pack_wh_stream", recording)
+    monkeypatch.setattr(lstm_cuda, "stream_plan", plan)
+    monkeypatch.setattr(gru_cuda, "stream_plan", plan)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
